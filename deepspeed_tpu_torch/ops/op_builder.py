@@ -1,0 +1,101 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each ``ops/csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface, loaded with ``ctypes`` (pointers
+and the stream as ``c_void_p``, ints as ``c_int``; every C entry returns
+``cudaGetLastError()``).  Libraries are built at first use into
+``deepspeed_tpu_torch/_build/`` (gitignored), named by a hash of their
+sources so an edited kernel is never served from a stale library.
+:func:`build` starts one ``nvcc`` per source, all at once.
+
+Nothing here runs at import: the CPU tests import every module on hosts
+without ``nvcc``.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v", "-lineinfo"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signatures of the kernels' entry points (kernel name -> symbol, argtypes)
+SIGNATURES = {
+    "decode_attention": ("ds_decode_attention",
+                         [_P, _P, _P, _P, _P] + [_I] * 8 + [_F, _P]),
+    "ragged_paged_attention": ("ds_ragged_paged_attention",
+                               [_P] * 10 + [_I] * 8 + [_F, _P]),
+}
+
+_lock = threading.Lock()
+_loaded = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return path
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(src.read_bytes())
+    h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build(names=tuple(SIGNATURES)) -> dict:
+    """Compile every kernel in ``names`` that has no library yet, one
+    ``nvcc`` process per source, all started together.  Returns
+    {name: compiler log}; raises if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    logs, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(name)
+            continue
+        os.replace(tmp, out)
+        (BUILD_DIR / f"{name}.log").write_text(logs[name])
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n" +
+                           "\n".join(logs[n] for n in failed))
+    return logs
+
+
+def load(name: str):
+    """The ctypes function of kernel ``name``, building it on first use."""
+    with _lock:
+        fn = _loaded.get(name)
+        if fn is None:
+            path = _lib_path(name)
+            if not path.exists():
+                build((name,))
+            symbol, argtypes = SIGNATURES[name]
+            fn = getattr(ctypes.CDLL(str(path)), symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _loaded[name] = fn
+        return fn

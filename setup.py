@@ -31,7 +31,8 @@ setup(
     version="0.1.0",
     description="TPU-native training/inference framework with DeepSpeed's "
                 "capabilities (JAX/XLA/Pallas)",
-    packages=find_packages(include=["deepspeed_tpu", "deepspeed_tpu.*"]),
+    packages=find_packages(include=["deepspeed_tpu", "deepspeed_tpu.*",
+                                    "deepspeed_tpu_torch*"]),
     include_package_data=True,
     scripts=["bin/deepspeed", "bin/ds_report", "bin/ds_bench"],
     entry_points={

@@ -1,0 +1,122 @@
+"""Port parity: contiguous-cache decode attention.
+
+``deepspeed_tpu_torch.ops.decode_attention`` (its plain PyTorch version,
+which CPU tensors take) against the JAX package's jnp path and its Pallas
+kernel in interpret mode, on the same numpy-seeded inputs.  fp32 on both
+sides; the paths differ only in summation order, hence rtol=atol=2e-5.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepspeed_tpu.ops.decode_attention import decode_attention as jax_decode
+from deepspeed_tpu.ops.decode_attention import init_cache as jax_init_cache
+from deepspeed_tpu.ops.decode_attention import update_cache as jax_update
+from deepspeed_tpu.ops.pallas.decode_attention import decode_attention_pallas
+from deepspeed_tpu_torch.ops.cuda.decode_attention import (
+    decode_attention_plain)
+from deepspeed_tpu_torch.ops.decode_attention import (decode_attention,
+                                                      init_cache,
+                                                      resolve_backend,
+                                                      update_cache)
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+B, S, D, H = 2, 16, 8, 4
+
+
+def _rand(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _caches(Hkv, T, prefix=7, seed=0):
+    """The same prefix + T new tokens appended to a JAX and a port cache."""
+    rng = np.random.default_rng(seed)
+    k0, v0 = _rand(rng, B, prefix, Hkv, D), _rand(rng, B, prefix, Hkv, D)
+    k1, v1 = _rand(rng, B, T, Hkv, D), _rand(rng, B, T, Hkv, D)
+    jc = jax_init_cache(B, S, Hkv, D, jnp.float32)
+    jc = jax_update(jc, jnp.asarray(k0), jnp.asarray(v0))
+    jc = jax_update(jc, jnp.asarray(k1), jnp.asarray(v1))
+    tc = init_cache(B, S, Hkv, D, torch.float32, device="cpu")
+    tc = update_cache(tc, torch.from_numpy(k0), torch.from_numpy(v0))
+    tc = update_cache(tc, torch.from_numpy(k1), torch.from_numpy(v1))
+    q = _rand(rng, B, T, H, D)
+    return jc, tc, q
+
+
+@pytest.mark.parametrize("T", [1, 5])
+@pytest.mark.parametrize("Hkv", [4, 2], ids=["mha", "gqa"])
+def test_update_cache_matches_jax(Hkv, T):
+    jc, tc, _ = _caches(Hkv, T)
+    assert tc.length == int(jc.length)
+    np.testing.assert_array_equal(tc.k.numpy(), np.asarray(jc.k))
+    np.testing.assert_array_equal(tc.v.numpy(), np.asarray(jc.v))
+
+
+@pytest.mark.parametrize("T", [1, 5])
+@pytest.mark.parametrize("Hkv", [4, 2], ids=["mha", "gqa"])
+def test_decode_attention_matches_jnp_and_pallas(Hkv, T):
+    jc, tc, q = _caches(Hkv, T)
+    got = decode_attention(torch.from_numpy(q), tc).numpy()
+    want = jax_decode(jnp.asarray(q), jc, impl="jnp")
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+    lengths = jnp.full((B,), jc.length, jnp.int32)
+    kern = decode_attention_pallas(jnp.asarray(q), jc.k, jc.v, lengths,
+                                   interpret=True)
+    np.testing.assert_allclose(got, np.asarray(kern), **TOL)
+
+
+@pytest.mark.parametrize("T", [1, 5])
+@pytest.mark.parametrize("Hkv", [4, 2], ids=["mha", "gqa"])
+def test_ragged_lengths_match_pallas(Hkv, T):
+    """Per-sequence lengths (the kernel's [B] operand): the plain version
+    against the Pallas kernel, lengths >= T so every row sees a key."""
+    rng = np.random.default_rng(3)
+    q = _rand(rng, B, T, H, D)
+    k, v = _rand(rng, B, Hkv, S, D), _rand(rng, B, Hkv, S, D)
+    lengths = np.asarray([T + 2, S], np.int32)
+    got = decode_attention_plain(torch.from_numpy(q), torch.from_numpy(k),
+                                 torch.from_numpy(v),
+                                 torch.from_numpy(lengths)).numpy()
+    want = decode_attention_pallas(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), jnp.asarray(lengths),
+                                   interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+def test_update_cache_raises_past_the_buffer():
+    """JAX's dynamic_update_slice clamps the start silently; the port
+    refuses to write past max_seq."""
+    tc = init_cache(1, 4, 1, D, torch.float32, device="cpu")
+    tc = update_cache(tc, torch.zeros(1, 3, 1, D), torch.zeros(1, 3, 1, D))
+    with pytest.raises(ValueError, match="overflow"):
+        update_cache(tc, torch.zeros(1, 2, 1, D), torch.zeros(1, 2, 1, D))
+
+
+def test_update_cache_writes_in_place():
+    tc = init_cache(1, 4, 1, D, torch.float32, device="cpu")
+    buf = tc.k
+    out = update_cache(tc, torch.ones(1, 2, 1, D), torch.ones(1, 2, 1, D))
+    assert out.k is buf and out.length == 2
+    assert buf[:, :, :2].eq(1).all() and buf[:, :, 2:].eq(0).all()
+
+
+def test_backend_vocabulary():
+    cpu = torch.zeros(1)
+    assert resolve_backend("auto", cpu) == "plain"
+    assert resolve_backend(None, cpu) == "plain"
+    assert resolve_backend("cuda", cpu) == "cuda"
+    assert resolve_backend("plain", cpu) == "plain"
+    for jax_name in ("jnp", "pallas", "pallas-interpret"):
+        with pytest.raises(ValueError, match="JAX"):
+            resolve_backend(jax_name, cpu)
+    with pytest.raises(ValueError, match="unknown"):
+        resolve_backend("triton", cpu)
+
+
+def test_plain_counter_counts_cpu_calls():
+    _, tc, q = _caches(2, 1)
+    before = decode_attention_plain.calls
+    decode_attention(torch.from_numpy(q), tc, backend="plain")
+    assert decode_attention_plain.calls == before + 1

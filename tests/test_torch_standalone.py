@@ -1,0 +1,85 @@
+"""The port stands alone and never carries on on the CPU by accident.
+
+* ``deepspeed_tpu_torch`` (every module of it) and ``chip_smoke.py``
+  import with ``jax`` blocked, and load no ``deepspeed_tpu`` module;
+* with no card, entry points called without ``device`` raise;
+* the kernel wrappers and the ``"cuda"`` backend refuse CPU tensors.
+"""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import deepspeed_tpu_torch
+from deepspeed_tpu_torch.models.transformer import (CausalTransformerLM,
+                                                    TransformerConfig)
+from deepspeed_tpu_torch.ops.cuda.decode_attention import \
+    decode_attention_cuda
+from deepspeed_tpu_torch.ops.cuda.ragged_paged_attention import (
+    ragged_paged_attention_cuda)
+from deepspeed_tpu_torch.ops.decode_attention import (decode_attention,
+                                                      init_cache)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_BLOCKED_IMPORT = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None          # any "import jax" now raises
+import deepspeed_tpu_torch
+for mod in pkgutil.walk_packages(deepspeed_tpu_torch.__path__,
+                                 "deepspeed_tpu_torch."):
+    importlib.import_module(mod.name)
+import chip_smoke
+bad = [m for m in sys.modules
+       if m == "deepspeed_tpu" or m.startswith("deepspeed_tpu.")
+       or m == "jax" and sys.modules[m] is not None]
+assert not bad, bad
+print("ok", len([m for m in sys.modules
+                 if m.startswith("deepspeed_tpu_torch")]))
+"""
+
+
+def test_imports_without_jax_or_the_jax_package():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok ")
+
+
+def test_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device exists")
+    cfg = TransformerConfig.tiny()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CausalTransformerLM(cfg)
+    model = CausalTransformerLM(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        deepspeed_tpu_torch.init_inference(model)
+    # naming the CPU is the only way onto it
+    eng = deepspeed_tpu_torch.init_inference(model, device="cpu")
+    assert eng.device.type == "cpu"
+
+
+def test_wrappers_refuse_cpu_tensors():
+    q = torch.zeros(1, 1, 4, 64)
+    kv = torch.zeros(1, 4, 8, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_attention_cuda(q, kv, kv, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_attention(q, init_cache(1, 8, 4, 64, torch.float32,
+                                       device="cpu"), backend="cuda")
+    i32 = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        ragged_paged_attention_cuda(q[0], kv, kv, i32[None], i32, i32, i32,
+                                    i32, i32, 8)
+
+
+def test_init_inference_refuses_hf_models():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        deepspeed_tpu_torch.init_inference(torch.nn.Linear(2, 2),
+                                           device="cpu")
