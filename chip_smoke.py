@@ -37,8 +37,13 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, per dtype
-TOL = {"float32": 1e-4,   # both paths accumulate in fp32; order differs
-       "bfloat16": 2e-2}  # plain rounds logits/probs/output to bf16
+# (atol, rtol) of a kernel against its plain version run in fp32 on the
+# kernel's own inputs (see reference()):
+TOL = {"float32": (1e-4, 1e-4),   # both in fp32; only the summation order
+                                  # differs
+       "bfloat16": (1e-5, 8e-3)}  # both round one fp32 result to bf16: at
+                                  # most one bf16 ulp apart (<= 2**-7 of the
+                                  # value), plus fp32 order noise near 0
 E2E_REL_TOL = 5e-2        # bf16 logits after 2 layers, relative to max|logit|
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -95,17 +100,29 @@ def graph_ms(fn, n, reps=10):
     return start.elapsed_time(end) / (reps * n)
 
 
-def check_close(name, got, want, tol):
+def reference(plain, q, k, v, *rest):
+    """The plain version run in fp32 on the kernel's inputs, its result
+    cast to their dtype: a bf16 kernel is held to the exact answer, not
+    to a plain version that rounds its logits and probabilities too."""
+    return plain(q.float(), k.float(), v.float(), *rest).to(q.dtype)
+
+
+def check_close(name, got, want):
+    """Max abs error of kernel output ``got`` vs ``want``; fails outside
+    the tolerance of their dtype."""
     import torch
+    atol, rtol = TOL[str(got.dtype).split(".")[-1]]
     got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
         fail(f"{name}: kernel output not finite")
     err = (got - want).abs()
-    bad = err > tol + tol * want.abs()
+    bad = err > atol + rtol * want.abs()
     max_err = err.max().item()
     if bad.any():
-        fail(f"{name}: {int(bad.sum())} elements outside atol=rtol={tol}, "
-             f"max abs err {max_err:.3e}")
+        fail(f"{name}: {int(bad.sum())} elements outside atol={atol} "
+             f"rtol={rtol}, max abs err {max_err:.3e}")
+    phase("kernels", f"{name}: max abs err {max_err:.3e} (atol {atol}, "
+          f"rtol {rtol})")
     return max_err
 
 
@@ -145,12 +162,13 @@ def _rand(shape, dtype, gen):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
 
-def _paged_state(ctx_lens, page, Hkv, D, dtype, gen, shared_pages=0,
-                 n_pages=160):
-    """K/V pools and allocator-made block tables (prefix pages shared
-    across sequences when ``shared_pages`` > 0)."""
+def _paged_state(ctx_lens, page, Hkv, D, dtype, gen, shared_pages=0):
+    """K/V pools and allocator-made block tables for the kernel phase's
+    edge cases (prefix pages shared across sequences when
+    ``shared_pages`` > 0); :func:`_engine_state` builds the serve run's."""
     import torch
     from deepspeed_tpu_torch.ops.paged_attention import PagedAllocator
+    n_pages = 160
     alloc = PagedAllocator(n_pages, page, max_pages_per_seq=16,
                            reserve_scratch=True)
     shared = []
@@ -169,9 +187,49 @@ def _paged_state(ctx_lens, page, Hkv, D, dtype, gen, shared_pages=0,
     return tables, kp, vp
 
 
+# phase 5: create_serving_engine(max_batch, page_size, max_seq), prompts
+# of these lengths with SERVE_NEW new tokens each
+SERVE_SLOTS, SERVE_PAGE, SERVE_MAX_SEQ, SERVE_NEW = 8, 128, 2048, 32
+SERVE_PROMPTS = [16, 600, 37, 250, 128, 511, 64, 300, 90, 450, 200, 23]
+
+
+def _engine_state(needs, Hkv, D, dtype, gen):
+    """K/V pools and block tables as the serving engine of phase 5 builds
+    them (``ServingEngine.__init__`` / ``_admit``): 8 slots x 16 pages + the
+    scratch page 0 in the pool, tables of max_seq/page columns plus the
+    overrun column, which stays 0.  Slot s reserves ``needs[s]`` tokens;
+    None is an idle slot, a row of zeros.  Pages recycled from a finished
+    request come first, as mid-run."""
+    import torch
+    from deepspeed_tpu_torch.ops.paged_attention import PagedAllocator
+    page, mpps = SERVE_PAGE, SERVE_MAX_SEQ // SERVE_PAGE
+    n_pages = SERVE_SLOTS * mpps + 1
+    alloc = PagedAllocator(n_pages, page, mpps, reserve_scratch=True)
+    alloc.allocate("finished", 3 * page + 1)
+    alloc.allocate("busy", 5 * page)
+    alloc.free_sequence("finished")
+    tables = torch.zeros((len(needs), mpps + 1), dtype=torch.int32)
+    for s, n in enumerate(needs):
+        if n is not None:
+            pages = alloc.allocate(s, n)
+            tables[s, :len(pages)] = torch.as_tensor(pages)
+    if alloc.audit():
+        fail(f"allocator audit: {alloc.audit()}")
+    kp = _rand((n_pages, Hkv, page, D), dtype, gen)
+    vp = _rand((n_pages, Hkv, page, D), dtype, gen)
+    return tables.cuda(), kp, vp
+
+
+def _prefill_need(prompt):
+    """Tokens ``_admit`` reserves for a prompt: its budget or its padded
+    prefill bucket, whichever is larger."""
+    bucket = min(1 << max(3, math.ceil(math.log2(prompt))), SERVE_MAX_SEQ)
+    return bucket, min(max(prompt + SERVE_NEW, bucket), SERVE_MAX_SEQ)
+
+
 def phase_kernels():
-    """Each kernel vs its plain version; returns max abs err per kernel
-    and dtype."""
+    """Each kernel vs its plain version, at the main path's shapes and at
+    edge cases; returns max abs err per kernel and dtype."""
     import torch
     from deepspeed_tpu_torch.ops.cuda.decode_attention import (
         decode_attention_cuda, decode_attention_plain)
@@ -181,48 +239,60 @@ def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(1234)
     D, H, page = 128, 32, 128
     errs = {}
+
+    def note(kernel, dn, e):
+        errs[(kernel, dn)] = max(errs.get((kernel, dn), 0.0), e)
+
+    def i32(x):
+        return torch.tensor(x, dtype=torch.int32, device="cuda")
+
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
-        tol = TOL[dn]
         for Hkv in (32, 8):
-            # B5: contiguous cache, S_max 2048, ragged lengths
-            for T in (1, 128):
-                B, S = 4, 2048
-                lens = torch.tensor([T + 5, 700, 1500, 2048],
-                                    dtype=torch.int32, device="cuda")
-                q = _rand((B, T, H, D), dtype, gen)
-                k = _rand((B, Hkv, S, D), dtype, gen)
-                v = _rand((B, Hkv, S, D), dtype, gen)
+            # B5: ragged lengths over S_max 2048, and generate's own calls
+            # (B=4, cache 128 + 32, one int length for every sequence):
+            # its prefill (T=128, length 128) and a decode (length 144)
+            b5 = [(T, 2048, i32([T + 5, 700, 1500, 2048]))
+                  for T in (1, 128)] + [(128, 160, 128), (1, 160, 144)]
+            for T, S, lens in b5:
+                q = _rand((4, T, H, D), dtype, gen)
+                k = _rand((4, Hkv, S, D), dtype, gen)
+                v = _rand((4, Hkv, S, D), dtype, gen)
                 got = decode_attention_cuda(q, k, v, lens)
-                want = decode_attention_plain(q, k, v, lens)
-                torch.cuda.synchronize()
-                name = f"decode_attention {dn} H{H}/{Hkv} T={T}"
-                e = check_close(name, got, want, tol)
-                errs[("decode_attention", dn)] = max(
-                    errs.get(("decode_attention", dn), 0.0), e)
-                phase("kernels", f"{name}: max abs err {e:.3e} (tol {tol})")
-            # B4 decode: B=8, T=1, ragged contexts incl. partial pages
+                want = reference(decode_attention_plain, q, k, v, lens)
+                how = "int length" if isinstance(lens, int) else "lengths"
+                note("decode_attention", dn, check_close(
+                    f"decode_attention {dn} H{H}/{Hkv} B=4 T={T} S_max={S} "
+                    f"{how}", got, want))
+            # B4 rect front-end
             ctx = [1, 17, 128, 129, 300, 640, 1000, 2047]
             tables, kp, vp = _paged_state(ctx, page, Hkv, D, dtype, gen)
-            lens = torch.tensor(ctx, dtype=torch.int32, device="cuda")
-            q = _rand((len(ctx), 1, H, D), dtype, gen)
-            cases = [("decode B=8 T=1", q, tables, kp, vp, lens)]
-            # B4 prefill: one bucket of 128 rows
+            cases = [("decode B=8 T=1 ragged", 1, tables, kp, vp, ctx)]
             t1, kp1, vp1 = _paged_state([128], page, Hkv, D, dtype, gen)
-            cases.append(("prefill B=1 T=128", _rand((1, 128, H, D), dtype,
-                                                     gen), t1, kp1, vp1,
-                          torch.tensor([128], dtype=torch.int32,
-                                       device="cuda")))
-            for label, qq, tb, kk, vv, ll in cases:
-                got = ragged_paged_attention_rect(qq, kk, vv, tb, ll)
-                want = paged_attention_plain(qq, kk, vv, tb, ll)
-                torch.cuda.synchronize()
-                name = f"ragged_paged_attention {dn} H{H}/{Hkv} {label}"
-                e = check_close(name, got, want, tol)
-                errs[("ragged_paged_attention", dn)] = max(
-                    errs.get(("ragged_paged_attention", dn), 0.0), e)
-                phase("kernels", f"{name}: max abs err {e:.3e} (tol {tol})")
-            # B4 packed mixed batch: shared prefix pages, partial pages
+            cases.append(("prefill B=1 T=128", 128, t1, kp1, vp1, [128]))
+            # the serve run's own calls: bucketed prefills of its 600- and
+            # 511-token prompts, and a decode step with two idle slots
+            for prompt in (600, 511):
+                bucket, need = _prefill_need(prompt)
+                cases.append((f"serve prefill B=1 T={bucket} "
+                              f"(prompt {prompt})", bucket,
+                              *_engine_state([need], Hkv, D, dtype, gen),
+                              [bucket]))
+            active = SERVE_PROMPTS[:6]
+            needs = [p + SERVE_NEW for p in active] + [None, None]
+            cases.append(("serve decode B=8 T=1, 2 idle slots", 1,
+                          *_engine_state(needs, Hkv, D, dtype, gen),
+                          [p + 16 for p in active] + [1, 1]))
+            for label, T, tb, kk, vv, ctx in cases:
+                qq = _rand((len(ctx), T, H, D), dtype, gen)
+                got = ragged_paged_attention_rect(qq, kk, vv, tb, i32(ctx))
+                want = reference(paged_attention_plain, qq, kk, vv, tb,
+                                 i32(ctx))
+                note("ragged_paged_attention", dn, check_close(
+                    f"ragged_paged_attention {dn} H{H}/{Hkv} {label}",
+                    got, want))
+            # B4 packed front-end, mixed batch: shared prefix pages,
+            # partial pages
             q_lens = [37, 1, 1, 128, 9, 1]
             ctx = [37, 300, 1000, 400, 521, 257]
             tb, kk, vv = _paged_state(ctx, page, Hkv, D, dtype, gen,
@@ -231,20 +301,16 @@ def phase_kernels():
                 fail("packed case: prefix pages are not shared")
             qp = _rand((sum(q_lens), H, D), dtype, gen)
             got = ragged_paged_attention(qp, kk, vv, tb, ctx, q_lens)
+            kf, vf = kk.float(), vv.float()
             outs, off = [], 0
             for s, ql in enumerate(q_lens):
                 outs.append(paged_attention_plain(
-                    qp[off:off + ql][None], kk, vv, tb[s:s + 1],
-                    torch.tensor([ctx[s]], dtype=torch.int32,
-                                 device="cuda"))[0])
+                    qp[off:off + ql][None].float(), kf, vf, tb[s:s + 1],
+                    i32([ctx[s]]))[0])
                 off += ql
-            want = torch.cat(outs)
-            torch.cuda.synchronize()
-            name = f"ragged_paged_attention {dn} H{H}/{Hkv} packed mixed"
-            e = check_close(name, got, want, tol)
-            errs[("ragged_paged_attention", dn)] = max(
-                errs[("ragged_paged_attention", dn)], e)
-            phase("kernels", f"{name}: max abs err {e:.3e} (tol {tol})")
+            note("ragged_paged_attention", dn, check_close(
+                f"ragged_paged_attention {dn} H{H}/{Hkv} packed mixed", got,
+                torch.cat(outs).to(dtype)))
     return errs
 
 
@@ -305,17 +371,19 @@ def phase_generate(model, cfg, B=4, S=128, new=32):
 def phase_serve(eng, cfg):
     import numpy as np
     import torch
-    lens = [16, 600, 37, 250, 128, 511, 64, 300, 90, 450, 200, 23]
     rng = np.random.default_rng(1)
-    prompts = [rng.integers(0, cfg.vocab_size, (n,)).tolist() for n in lens]
-    se = eng.create_serving_engine(max_batch=8, page_size=128, max_seq=2048)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).tolist()
+               for n in SERVE_PROMPTS]
+    se = eng.create_serving_engine(max_batch=SERVE_SLOTS,
+                                   page_size=SERVE_PAGE,
+                                   max_seq=SERVE_MAX_SEQ)
     torch.cuda.synchronize()
     t0 = time.time()
-    outs = se.generate(prompts, max_new_tokens=32)
+    outs = se.generate(prompts, max_new_tokens=SERVE_NEW)
     torch.cuda.synchronize()
     dt = time.time() - t0
     for p, o in zip(prompts, outs):
-        if o[:len(p)] != p or len(o) != len(p) + 32:
+        if o[:len(p)] != p or len(o) != len(p) + SERVE_NEW:
             fail("serving output does not extend its prompt by 32 tokens")
         if not all(0 <= t < cfg.vocab_size for t in o):
             fail("serving returned out-of-vocab tokens")
@@ -385,7 +453,7 @@ def _measure(fns, copies):
     return out
 
 
-def phase_timing(cfg, serve_ctx):
+def phase_timing(cfg, serve_prompts):
     """Each kernel at the main path's decode shapes (bf16): kernel, plain
     version and library time, plus the bound.  Buffers rotate over more
     than the 50 MB L2 so each call reads its cache cold, as a layer of the
@@ -408,9 +476,9 @@ def phase_timing(cfg, serve_ctx):
     q = _rand((copies, B, 1, H, D), dt, gen)
     k = _rand((copies, B, Hkv, S, D), dt, gen)
     v = _rand((copies, B, Hkv, S, D), dt, gen)
-    got = decode_attention_cuda(q[0], k[0], v[0], L)
-    want = decode_attention_plain(q[0], k[0], v[0], L)
-    err = check_close("timing decode_attention", got, want, TOL["bfloat16"])
+    err = check_close(
+        "timing decode_attention", decode_attention_cuda(q[0], k[0], v[0], L),
+        reference(decode_attention_plain, q[0], k[0], v[0], L))
     qs = q.transpose(2, 3).contiguous()        # [c, B, H, 1, D]
     times = _measure({
         "ms": lambda i: decode_attention_cuda(q[i % copies], k[i % copies],
@@ -427,22 +495,23 @@ def phase_timing(cfg, serve_ctx):
         max_abs_err=err, **times, bound_ms=bound_ms, bound_by=bound_by,
         shape=f"B={B} T=1 H={H} Hkv={Hkv} D={D} len={L} S_max={S} bf16")
 
-    # B4: the serving decode step -- B=8 slots, T=1, page 128
-    page = 128
-    ctx = serve_ctx
+    # B4: the serving decode step -- 8 slots of the serve run's first 8
+    # prompts, 16 tokens into their 32, T=1, page 128
+    page = SERVE_PAGE
+    ctx = [p + 16 for p in serve_prompts]
     B = len(ctx)
     copies = 4
-    states = [_paged_state(ctx, page, Hkv, D, dt, gen, n_pages=80)
-              for _ in range(copies)]
+    states = [_engine_state([p + SERVE_NEW for p in serve_prompts], Hkv, D,
+                            dt, gen) for _ in range(copies)]
     tables = states[0][0]
     lens = torch.tensor(ctx, dtype=torch.int32, device="cuda")
     q = _rand((copies, B, 1, H, D), dt, gen)
-    got = ragged_paged_attention_rect(q[0], states[0][1], states[0][2],
-                                      tables, lens)
-    want = paged_attention_plain(q[0], states[0][1], states[0][2], tables,
-                                 lens)
-    err = check_close("timing ragged_paged_attention", got, want,
-                      TOL["bfloat16"])
+    err = check_close(
+        "timing ragged_paged_attention",
+        ragged_paged_attention_rect(q[0], states[0][1], states[0][2], tables,
+                                    lens),
+        reference(paged_attention_plain, q[0], states[0][1], states[0][2],
+                  tables, lens))
     # library yardstick: SDPA over the gathered dense K/V with a mask
     Smax = tables.shape[1] * page
     dense = []
@@ -581,7 +650,6 @@ def main():
           f" decode steps), ragged kernel launches "
           f"{counts['ragged_paged_attention']} = {L} x {calls}, "
           f"leak_report {{}}")
-    serve_ctx = [len(p) + 16 for p in prompts[:8]]
     del se
     torch.cuda.empty_cache()
     # generate's per-step time: its prefill alone, timed after the counted
@@ -616,7 +684,7 @@ def main():
           f"kernel vs plain logits rel err {rel:.3e} (tol {E2E_REL_TOL}), "
           f"argmax agreement {agree:.4f}")
 
-    timing = phase_timing(cfg, serve_ctx)
+    timing = phase_timing(cfg, SERVE_PROMPTS[:SERVE_SLOTS])
     kernels = []
     meta = {
         "decode_attention": (

@@ -11,7 +11,7 @@ passes ``device="cpu"``; with no card they raise.
 
 __version__ = "0.1.0"
 
-from deepspeed_tpu_torch.accelerator import get_accelerator, set_accelerator  # noqa: F401
+from deepspeed_tpu_torch.accelerator import get_accelerator  # noqa: F401
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig  # noqa: F401
 from deepspeed_tpu_torch.inference.engine import InferenceEngine  # noqa: F401
 from deepspeed_tpu_torch.inference.serving import ServingEngine  # noqa: F401

@@ -1,1 +1,1 @@
-from .real_accelerator import get_accelerator, set_accelerator  # noqa: F401
+from .real_accelerator import get_accelerator  # noqa: F401

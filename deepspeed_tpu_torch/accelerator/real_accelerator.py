@@ -1,47 +1,24 @@
 """Accelerator selection.
 
-Counterpart of ``deepspeed_tpu/accelerator/real_accelerator.py``.  The
-``DSTPU_ACCELERATOR`` env var ("cuda" | "cpu") picks the accelerator;
-default is CUDA when a card is present, else the CPU accelerator.  Which
-device an entry point runs on is decided by
+Counterpart of ``deepspeed_tpu/accelerator/real_accelerator.py``: the CUDA
+accelerator when a card is present, else the CPU one.  Which device an
+entry point runs on is decided by
 :meth:`DeepSpeedAccelerator.resolve_device`, not by this choice: with no
 card and no explicit ``device="cpu"`` it raises.
 """
-
-import os
 
 import torch
 
 ds_accelerator = None
 
 
-def _validate_accelerator(accel_obj):
-    from .abstract_accelerator import DeepSpeedAccelerator
-    if not isinstance(accel_obj, DeepSpeedAccelerator):
-        raise TypeError(
-            f"{accel_obj.__class__.__name__} is not a DeepSpeedAccelerator")
-    return accel_obj
-
-
 def get_accelerator():
     global ds_accelerator
-    if ds_accelerator is not None:
-        return ds_accelerator
-    name = os.environ.get("DSTPU_ACCELERATOR")
-    if name is None:
-        name = "cuda" if torch.cuda.is_available() else "cpu"
-    if name == "cpu":
-        from .cpu_accelerator import CPU_Accelerator
-        ds_accelerator = CPU_Accelerator()
-    elif name == "cuda":
-        from .cuda_accelerator import CUDA_Accelerator
-        ds_accelerator = CUDA_Accelerator()
-    else:
-        raise ValueError(f"DSTPU_ACCELERATOR={name!r}; expected cuda or cpu")
-    return _validate_accelerator(ds_accelerator)
-
-
-def set_accelerator(accel_obj):
-    global ds_accelerator
-    ds_accelerator = _validate_accelerator(accel_obj)
+    if ds_accelerator is None:
+        if torch.cuda.is_available():
+            from .cuda_accelerator import CUDA_Accelerator
+            ds_accelerator = CUDA_Accelerator()
+        else:
+            from .cpu_accelerator import CPU_Accelerator
+            ds_accelerator = CPU_Accelerator()
     return ds_accelerator

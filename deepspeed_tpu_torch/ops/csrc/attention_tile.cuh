@@ -113,7 +113,7 @@ __device__ __forceinline__ void attend_rows(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ o, float scale, int kv_hi,
     const KeyOffset& key_off, const RowMeta<ROWS>& rm) {
-  static_assert(D == 64 || D == 128, "head_dim must be 64 or 128");
+  static_assert(D == 128, "head_dim must be 128");
   static_assert(ROWS == 4 || ROWS == 16, "ROWS must be 4 or 16");
   constexpr int RPT = ROWS * D / kThreads;   // accumulator rows per thread
   constexpr int SR = ROWS * kBK / kThreads;  // score rows per thread

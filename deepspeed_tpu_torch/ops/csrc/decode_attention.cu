@@ -89,8 +89,9 @@ void launch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  lengths may be null: then every
-// sequence has length_all valid tokens.  Returns cudaGetLastError().
+// dtype: 0 = float32, 1 = bfloat16; D must be 128.  lengths may be null:
+// then every sequence has length_all valid tokens.  Returns
+// cudaGetLastError().
 extern "C" int ds_decode_attention(const void* q, const void* k,
                                    const void* v, void* o,
                                    const void* lengths, int length_all, int B,
@@ -103,12 +104,8 @@ extern "C" int ds_decode_attention(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 128)
     launch<float, 128>(q, k, v, o, lens, length_all, B, T, H, Hkv, S_max, scale, s);
-  else if (dtype == 0 && D == 64)
-    launch<float, 64>(q, k, v, o, lens, length_all, B, T, H, Hkv, S_max, scale, s);
   else if (dtype == 1 && D == 128)
     launch<__nv_bfloat16, 128>(q, k, v, o, lens, length_all, B, T, H, Hkv, S_max, scale, s);
-  else if (dtype == 1 && D == 64)
-    launch<__nv_bfloat16, 64>(q, k, v, o, lens, length_all, B, T, H, Hkv, S_max, scale, s);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -108,8 +108,8 @@ void launch(const void* q, const void* kp, const void* vp, void* o,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  All metadata arrays are int32 on the
-// device.  Returns cudaGetLastError().
+// dtype: 0 = float32, 1 = bfloat16; D must be 128.  All metadata arrays
+// are int32 on the device.  Returns cudaGetLastError().
 extern "C" int ds_ragged_paged_attention(
     const void* q, const void* k_pages, const void* v_pages, void* o,
     const void* ctx_lens, const void* q_lens, const void* q_offs,
@@ -132,12 +132,8 @@ extern "C" int ds_ragged_paged_attention(
                  max_pages, H, Hkv, page_size, q_tile, scale, s)
   if (dtype == 0 && D == 128)
     DS_LAUNCH(float, 128);
-  else if (dtype == 0 && D == 64)
-    DS_LAUNCH(float, 64);
   else if (dtype == 1 && D == 128)
     DS_LAUNCH(__nv_bfloat16, 128);
-  else if (dtype == 1 && D == 64)
-    DS_LAUNCH(__nv_bfloat16, 64);
   else
     return (int)cudaErrorInvalidValue;
 #undef DS_LAUNCH

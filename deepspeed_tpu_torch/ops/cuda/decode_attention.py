@@ -21,7 +21,7 @@ import torch
 from deepspeed_tpu_torch.ops import op_builder
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (128,)   # the kernels are built for head_dim 128 only
 
 
 def _lengths_tensor(lengths, B, device):
@@ -66,7 +66,7 @@ def decode_attention_cuda(q, k, v, lengths, softmax_scale=None):
     """Launch the decode kernel on the current stream.
 
     q: [B, T, H, D]; k/v: [B, Hkv, S_max, D] (contiguous, same dtype as q:
-    float32 or bfloat16, D in 64/128); lengths: a Python int shared by
+    float32 or bfloat16, D = 128); lengths: a Python int shared by
     every sequence, or an int32 CUDA tensor [B].  Returns a new [B, T, H, D]
     tensor in q's dtype."""
     B, T, H, D = q.shape
