@@ -7,20 +7,30 @@
 Builds the port's hand-written CUDA kernels from this checkout with
 ``nvcc`` (into ``deepspeed_tpu_torch/_build/``), holds each kernel against
 its plain PyTorch version, then serves Llama-2-7B at full width (random
-bf16 weights from a seeded generator) through the port's two entry
-points -- ``init_inference(...).generate`` and ``create_serving_engine``
--- and checks that those runs went through the kernels.  Phases:
+bf16 weights from a seeded generator) through the port's two serving
+entry points -- ``init_inference(...).generate`` and
+``create_serving_engine`` -- and trains gpt_1b at full width and depth
+through ``initialize(...).train_batch``, checking that those runs went
+through the kernels.  Phases:
 
   1 device   card name and power limit (nvidia-smi)
   2 build    nvcc, one process per kernel source, all at once
-  3 kernels  each kernel vs its plain version: fp32 and bf16, MHA 32/32
-             and GQA 32/8, D=128
+  3 kernels  each kernel vs its plain version: fp32 and bf16; serving
+             attention MHA 32/32 and GQA 32/8; flash attention forward and
+             backward at the training shape, GQA 32/8 and S=1000; fused
+             Adam over 1,000,003 elements in both modes
   4 generate init_inference(llama2_7b).generate, B=4, prompt 128, 32 new
   5 serve    create_serving_engine(max_batch=8, page_size=128,
              max_seq=2048).generate on 12 mixed-length prompts
   6 e2e      full width, 2 layers: paged prefill + decode, kernels vs plain
-  7 timing   each kernel at the main path's shapes vs its bound, its plain
-             version and one PyTorch library call (a yardstick only)
+  7 train    run_benchmark(gpt_1b, micro 2, gas 4, seq 1024): 18 layers,
+             bf16, AdamW; launches counted; a fixed batch's loss falls; one
+             train_batch profiled; 2 layers kernels vs plain (losses,
+             grad norm, then m and the update parameter by parameter)
+  8 timing   each kernel at the main path's shapes vs its bound, its plain
+             version and one PyTorch library call (a yardstick only); fused
+             Adam held against its plain version over gpt_1b's 1.01 B
+             parameters
 
 The second-to-last line of stdout is the kernels JSON, the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
@@ -314,26 +324,148 @@ def phase_kernels():
     return errs
 
 
-def _counters():
+# B1/B2 cases: (label, B, S, H, Hkv, causal) -- the training path's shape,
+# GQA, and a sequence length that does not tile the kernels' 64-row tiles
+FLASH_CASES = [("path B=2 S=1024 H16/16", 2, 1024, 16, 16, True),
+               ("GQA B=2 S=128 H32/8", 2, 128, 32, 8, True),
+               ("non-tiling B=2 S=1000 H16/16", 2, 1000, 16, 16, True),
+               ("non-tiling non-causal B=1 S=1000 H4/2", 1, 1000, 4, 2,
+                False)]
+ADAM_N = 1_000_003
+# the fused Adam kernel and its plain version round the same operations
+# in the same order: they should agree to the last bit; allow 1e-6
+ADAM_TOL = (1e-12, 1e-6)
+
+
+def check_adam(label, got, want):
+    """Max abs error of the fused Adam kernel's (p, m, v) against the
+    plain version's; fails outside ADAM_TOL."""
+    import torch
+    atol, rtol = ADAM_TOL
+    worst = 0.0
+    for name, a, b in zip(("p", "m", "v"), got, want):
+        err = (a - b).abs()
+        bad = err > atol + rtol * b.abs()
+        if not torch.isfinite(a).all() or bad.any():
+            fail(f"{label} {name}: {int(bad.sum())} elements outside rtol "
+                 f"{rtol}, max abs err {err.max().item():.3e}")
+        worst = max(worst, err.max().item())
+        del err, bad
+    phase("kernels", f"{label}: max abs err {worst:.3e} (rtol {rtol})")
+    return worst
+
+
+def phase_train_kernels():
+    """B1, B2 (dQ and dK/dV) and B3 vs their plain versions run in fp32
+    on the kernels' own inputs: O and LSE of the forward; dQ, dK, dV of
+    the backward from the kernel's own (O, LSE) and one dO.  A bf16
+    gradient, like a bf16 output, is one fp32 value rounded once to bf16
+    by each side, so it is held to the same one-ulp tolerance."""
+    import torch
+    from deepspeed_tpu_torch.ops.adam import (AdamState, fused_adam,
+                                              reference_impl)
+    from deepspeed_tpu_torch.ops.cuda.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_fwd_cuda)
+    from deepspeed_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_plain, flash_attention_fwd_plain)
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    D = 128
+    errs = {}
+
+    def note(kernel, dn, e):
+        errs[(kernel, dn)] = max(errs.get((kernel, dn), 0.0), e)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        for label, B, S, H, Hkv, causal in FLASH_CASES:
+            scale = 1.0 / math.sqrt(D)
+            q = _rand((B, S, H, D), dtype, gen)
+            k = _rand((B, S, Hkv, D), dtype, gen)
+            v = _rand((B, S, Hkv, D), dtype, gen)
+            dout = _rand((B, S, H, D), dtype, gen)
+            out, lse = flash_attention_fwd_cuda(q, k, v, scale, causal)
+            want_o, want_lse = flash_attention_fwd_plain(
+                q.float(), k.float(), v.float(), scale, causal)
+            note("flash_attention_fwd", dn, check_close(
+                f"flash_attention_fwd {dn} {label} causal={causal} O", out,
+                want_o.to(dtype)))
+            note("flash_attention_fwd", dn, check_close(
+                f"flash_attention_fwd {dn} {label} causal={causal} LSE", lse,
+                want_lse))
+            got = flash_attention_bwd_cuda(q, k, v, out, lse, dout, scale,
+                                           causal)
+            want = flash_attention_bwd_plain(
+                q.float(), k.float(), v.float(), out.float(), lse,
+                dout.float(), scale, causal)
+            for name, kernel, g, w in zip(
+                    ("dQ", "dK", "dV"),
+                    ("flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                     "flash_attention_bwd_dkv"), got, want):
+                note(kernel, dn, check_close(
+                    f"{kernel} {dn} {label} causal={causal} {name}", g,
+                    w.to(dtype)))
+            del q, k, v, dout, out, lse, got, want
+
+    for g_dtype in (torch.float32, torch.bfloat16):
+        for adamw in (True, False):
+            for bc in (True, False):
+                p = torch.randn(ADAM_N, generator=gen, device="cuda")
+                g = torch.randn(ADAM_N, generator=gen,
+                                device="cuda").to(g_dtype)
+                m = torch.randn(ADAM_N, generator=gen, device="cuda") * 0.1
+                v = torch.rand(ADAM_N, generator=gen, device="cuda") * 0.01
+                kw = dict(lr=1e-3, weight_decay=0.01, adamw_mode=adamw,
+                          bias_correction=bc)
+                ref = [t.clone() for t in (p, m, v)]
+                fused_adam(p, g, AdamState(m, v, 2), backend="cuda", **kw)
+                reference_impl(ref[0], g, AdamState(ref[1], ref[2], 2), **kw)
+                dn = str(g_dtype).split(".")[-1]
+                note("fused_adam", dn, check_adam(
+                    f"fused_adam n={ADAM_N} g={dn} adamw={adamw} "
+                    f"bias_correction={bc}", (p, m, v), ref))
+    return errs
+
+
+def _counted():
+    """{counter name: (function, attribute)}: each kernel wrapper's
+    ``launches`` and each plain version's ``calls``."""
+    from deepspeed_tpu_torch.ops import adam, flash_attention
     from deepspeed_tpu_torch.ops.cuda import decode_attention as da
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    from deepspeed_tpu_torch.ops.cuda import fused_adam as fadam
     from deepspeed_tpu_torch.ops.cuda import ragged_paged_attention as rp
-    return da, rp
+    return {
+        "decode_attention": (da.decode_attention_cuda, "launches"),
+        "ragged_paged_attention": (rp.ragged_paged_attention_cuda,
+                                   "launches"),
+        "flash_attention_fwd": (fa.flash_attention_fwd_cuda, "launches"),
+        "flash_attention_bwd_dq": (fa.flash_attention_bwd_dq_cuda,
+                                   "launches"),
+        "flash_attention_bwd_dkv": (fa.flash_attention_bwd_dkv_cuda,
+                                    "launches"),
+        "fused_adam": (fadam.fused_adam_cuda, "launches"),
+        "decode_attention_plain": (da.decode_attention_plain, "calls"),
+        "paged_attention_plain": (rp.paged_attention_plain, "calls"),
+        "flash_attention_fwd_plain": (
+            flash_attention.flash_attention_fwd_plain, "calls"),
+        "flash_attention_bwd_plain": (
+            flash_attention.flash_attention_bwd_plain, "calls"),
+        "fused_adam_plain": (adam.reference_impl, "calls"),
+    }
 
 
 def reset_counters():
-    da, rp = _counters()
-    da.decode_attention_cuda.launches = 0
-    da.decode_attention_plain.calls = 0
-    rp.ragged_paged_attention_cuda.launches = 0
-    rp.paged_attention_plain.calls = 0
+    for fn, attr in _counted().values():
+        setattr(fn, attr, 0)
 
 
 def read_counters():
-    da, rp = _counters()
-    return {"decode_attention": da.decode_attention_cuda.launches,
-            "ragged_paged_attention": rp.ragged_paged_attention_cuda.launches,
-            "decode_attention_plain": da.decode_attention_plain.calls,
-            "paged_attention_plain": rp.paged_attention_plain.calls}
+    return {name: getattr(fn, attr)
+            for name, (fn, attr) in _counted().items()}
+
+
+def plain_calls(counts):
+    return {k: v for k, v in counts.items() if k.endswith("_plain") and v}
 
 
 def build_model(n_layers, seed):
@@ -550,29 +682,15 @@ def phase_timing(cfg, serve_prompts):
     return res
 
 
-def decode_step_ms(eng, cfg, steps=16, profiled=4):
-    """Wall ms of a pure decode step with all 8 serving slots busy, then
-    the device time of ``profiled`` more steps by kernel (torch.profiler):
-    returns (step ms, device ms per step, top kernels [(name, ms/step)])."""
-    import numpy as np
+def profile_device(fn, reps):
+    """Device time of ``reps`` calls of fn() by kernel (torch.profiler):
+    returns (device ms per call, top kernels [(name, ms per call)])."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    se = eng.create_serving_engine(max_batch=8, page_size=128, max_seq=2048)
-    rng = np.random.default_rng(3)
-    for i in range(8):
-        se.add_request(i, rng.integers(0, cfg.vocab_size, (128,)).tolist(),
-                       max_new_tokens=steps + profiled + 4)
-    se.step()
-    torch.cuda.synchronize()
-    t0 = time.time()
-    for _ in range(steps):
-        se.step()
-    torch.cuda.synchronize()
-    ms = (time.time() - t0) * 1e3 / steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(profiled):
-            se.step()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
     per_kernel = {}
     for ev in prof.key_averages():
@@ -585,12 +703,321 @@ def decode_step_ms(eng, cfg, steps=16, profiled=4):
             us = getattr(ev, "self_cuda_time_total", 0)
         if us:
             per_kernel[ev.key] = per_kernel.get(ev.key, 0.0) + \
-                us / 1e3 / profiled
-    device_ms = sum(per_kernel.values())
+                us / 1e3 / reps
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    return sum(per_kernel.values()), top
+
+
+def decode_step_ms(eng, cfg, steps=16, profiled=4):
+    """Wall ms of a pure decode step with all 8 serving slots busy, then
+    the device time of ``profiled`` more steps by kernel (torch.profiler):
+    returns (step ms, device ms per step, top kernels [(name, ms/step)])."""
+    import numpy as np
+    import torch
+    se = eng.create_serving_engine(max_batch=8, page_size=128, max_seq=2048)
+    rng = np.random.default_rng(3)
+    for i in range(8):
+        se.add_request(i, rng.integers(0, cfg.vocab_size, (128,)).tolist(),
+                       max_new_tokens=steps + profiled + 4)
+    se.step()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(steps):
+        se.step()
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) * 1e3 / steps
+    device_ms, top = profile_device(se.step, profiled)
     del se
     torch.cuda.empty_cache()
     return ms, device_ms, top
+
+
+# ----------------------------------------------------------------------
+# training: run_benchmark(TRAIN_MODEL, ...) is the main path, nothing cut
+TRAIN_MODEL, TRAIN_BATCH, TRAIN_GAS, TRAIN_SEQ = "gpt_1b", 2, 4, 1024
+TRAIN_STEPS = 4            # timed steps after run_benchmark's warm-up step
+FIXED_STEPS = 4            # steps on one fixed batch: the loss must fall
+# kernels vs plain training e2e (2 layers, bf16, 2 steps).  The two
+# attention paths round their bf16 outputs and gradients at different
+# places (one bf16 ulp, 2**-8 relative).  Losses and the first grad norm
+# agree within E2E_TRAIN_REL_TOL relative.  The engines' states after the
+# two steps are compared parameter by parameter, by relative L2 norm: the
+# first moment m (a sum of the gradients, so it holds B1 and B2 in every
+# layer) and the update, master minus the shared init (it holds B3 too; a
+# per-element limit could not: Adam's first step moves each weight by
+# lr * sign(g), so any two updates differ by at most 2 lr per step).  A
+# small gradient whose sign differs between the paths flips its update,
+# so the update's limit is looser than m's.
+E2E_TRAIN_REL_TOL = 1e-3
+E2E_M_REL_TOL = 5e-2
+E2E_UPDATE_REL_TOL = 3e-1
+
+
+def _free():
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_train_launches(counts, n_layers, gas, calls, where):
+    """Each train_batch launches, per layer and micro-batch, the flash
+    forward twice (remat recomputes it in the backward) and each backward
+    kernel once, then fused Adam once; no plain version runs."""
+    want = {"flash_attention_fwd": 2 * n_layers * gas * calls,
+            "flash_attention_bwd_dq": n_layers * gas * calls,
+            "flash_attention_bwd_dkv": n_layers * gas * calls,
+            "fused_adam": calls}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        fail(f"{where}: kernel launches {got}, expected {want} "
+             f"({n_layers} layers x gas {gas} x {calls} train_batch calls)")
+    if plain_calls(counts):
+        fail(f"{where}: plain versions ran: {plain_calls(counts)}")
+    return got
+
+
+def phase_train():
+    """The training main path: run_benchmark(gpt_1b) -> initialize ->
+    train_batch, full width and depth, counters read around it."""
+    from deepspeed_tpu_torch.benchmarks.training import run_benchmark
+    reset_counters()
+    out = run_benchmark(TRAIN_MODEL, batch=TRAIN_BATCH, gas=TRAIN_GAS,
+                        seq=TRAIN_SEQ, steps=TRAIN_STEPS)
+    counts = read_counters()
+    _free()
+    if not all(math.isfinite(x) for x in out["losses"]):
+        fail(f"train: non-finite loss {out['losses']}")
+    check_train_launches(counts, out["n_layers"], TRAIN_GAS,
+                         TRAIN_STEPS + 1, "run_benchmark")
+    return out, counts
+
+
+def phase_train_fixed():
+    """gpt_1b through initialize(...).train_batch on ONE fixed batch: the
+    loss must fall.  Then one step timed on the wall clock and one
+    profiled (device time by kernel)."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.benchmarks.training import (ds_config,
+                                                         model_config)
+    from deepspeed_tpu_torch.models.transformer import CausalTransformerLM
+    cfg = model_config(TRAIN_MODEL, TRAIN_SEQ)
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=CausalTransformerLM(cfg, device="cuda").init(1),
+        config=ds_config(TRAIN_BATCH, TRAIN_GAS))
+    batch = {"input_ids": np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (TRAIN_GAS, TRAIN_BATCH, TRAIN_SEQ))}
+    reset_counters()
+    losses = [float(engine.train_batch(batch=batch))
+              for _ in range(FIXED_STEPS)]
+    check_train_launches(read_counters(), cfg.n_layers, TRAIN_GAS,
+                         FIXED_STEPS, "fixed batch")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"fixed batch: losses {losses} are not finite and falling")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    engine.train_batch(batch=batch)
+    torch.cuda.synchronize()
+    step_ms = (time.time() - t0) * 1e3
+    device_ms, top = profile_device(lambda: engine.train_batch(batch=batch),
+                                    1)
+    del engine
+    _free()
+    return losses, step_ms, device_ms, top
+
+
+def phase_train_e2e(steps=2):
+    """Full gpt_1b width, 2 layers, seq 1024, micro 2, gas 2, bf16: one
+    engine through the kernels and one through the plain versions of
+    attention and Adam, from one init, on the same batches."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.benchmarks.training import (ds_config,
+                                                         model_config)
+    from deepspeed_tpu_torch.models.transformer import CausalTransformerLM
+    from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+    from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
+    cfg = dataclasses.replace(model_config(TRAIN_MODEL, TRAIN_SEQ),
+                              n_layers=2)
+    rng = np.random.default_rng(12)
+    batches = [{"input_ids": rng.integers(0, cfg.vocab_size,
+                                          (2, 2, TRAIN_SEQ))}
+               for _ in range(steps)]
+    res, state, init = {}, {}, None
+    for backend in ("cuda", "plain"):
+        engine = DeepSpeedEngine(
+            CausalTransformerLM(cfg, device="cuda").init(5),
+            DeepSpeedConfig(ds_config(2, 2)), backend=backend)
+        if init is None:
+            init = engine.master.clone()
+        elif not torch.equal(engine.master, init):
+            fail("train e2e: the two engines start from different weights")
+        losses, norms = [], []
+        for b in batches:
+            losses.append(float(engine.train_batch(batch=b)))
+            norms.append(engine.get_global_grad_norm())
+        res[backend] = (losses, norms)
+        state[backend] = (engine.master.clone(), engine.opt_state.m.clone())
+        names, sizes = zip(*[(n, p.numel())
+                             for n, p in engine.module.named_parameters()])
+        del engine
+        _free()
+    (lk, nk), (lp, n_p) = res["cuda"], res["plain"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    norm_rel = abs(nk[0] - n_p[0]) / abs(n_p[0])
+    if not np.isfinite(lk + nk).all() or loss_rel > E2E_TRAIN_REL_TOL or \
+            norm_rel > E2E_TRAIN_REL_TOL:
+        fail(f"train e2e: kernels {lk} / norm {nk[0]} vs plain {lp} / norm "
+             f"{n_p[0]} (tol {E2E_TRAIN_REL_TOL} relative)")
+
+    def worst(a, b):
+        """Largest ||a - b|| / ||b|| over the parameters, and its name."""
+        rels = [((x - y).norm() / y.norm()).item()
+                for x, y in zip(a.split(sizes), b.split(sizes))]
+        i = max(range(len(rels)), key=rels.__getitem__)
+        return rels[i], names[i]
+
+    (mk, mom_k), (mp, mom_p) = state["cuda"], state["plain"]
+    if not (torch.isfinite(mk).all() and torch.isfinite(mom_k).all()):
+        fail("train e2e: the kernels' master or m is not finite")
+    m_rel = worst(mom_k, mom_p)
+    upd_rel = worst(mk - init, mp - init)
+    master_err = (mk - mp).abs().max().item()
+    if m_rel[0] > E2E_M_REL_TOL or upd_rel[0] > E2E_UPDATE_REL_TOL:
+        fail(f"train e2e: after {steps} steps, m differs by {m_rel[0]:.3e} "
+             f"relative in {m_rel[1]} (tol {E2E_M_REL_TOL}), the update by "
+             f"{upd_rel[0]:.3e} in {upd_rel[1]} (tol {E2E_UPDATE_REL_TOL})")
+    return dict(lk=lk, lp=lp, nk=nk[0], n_p=n_p[0], loss_rel=loss_rel,
+                norm_rel=norm_rel, m_rel=m_rel, upd_rel=upd_rel,
+                master_err=master_err)
+
+
+def phase_train_timing(errs):
+    """B1, B2 (dQ, dK/dV) and B3 at the training path's shapes, bf16
+    attention B=2 S=1024 16 heads of 128 causal, Adam over gpt_1b's
+    parameter count (held against its plain version there first): kernel,
+    plain version, library call and bound.
+    Attention by CUDA-graph replay over 4 rotating input sets (more than
+    the 50 MB L2); Adam (ms-scale) by CUDA events, eagerly."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.benchmarks.training import model_config
+    from deepspeed_tpu_torch.ops.adam import (AdamState, fused_adam,
+                                              reference_impl)
+    from deepspeed_tpu_torch.ops.cuda.flash_attention import (
+        flash_attention_bwd_dkv_cuda, flash_attention_bwd_dq_cuda,
+        flash_attention_fwd_cuda)
+    from deepspeed_tpu_torch.ops.cuda.fused_adam import fused_adam_cuda
+    from deepspeed_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_plain, flash_attention_fwd_plain)
+    cfg = model_config(TRAIN_MODEL, TRAIN_SEQ)
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    B, S, H, D = TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.head_dim
+    Hkv = cfg.kv_heads
+    dt, c = torch.bfloat16, 4
+    scale = 1.0 / math.sqrt(D)
+    q, do = (_rand((c, B, S, H, D), dt, gen) for _ in range(2))
+    k, v = (_rand((c, B, S, Hkv, D), dt, gen) for _ in range(2))
+    outs = [flash_attention_fwd_cuda(q[i], k[i], v[i], scale) for i in
+            range(c)]
+    o = torch.stack([x[0] for x in outs])
+    lse = torch.stack([x[1] for x in outs])
+    delta = (do.float() * o.float()).sum(-1).transpose(2, 3).contiguous()
+    # library yardstick: SDPA in [B, H, S, D], forward and backward
+    qt, kt, vt, dot = (x.transpose(2, 3).contiguous() for x in (q, k, v, do))
+    leaves = [[x[i].clone().requires_grad_() for x in (qt, kt, vt)]
+              for i in range(c)]
+
+    def sdpa_fwd_bwd(i):
+        a, b_, v_ = leaves[i]
+        out = F.scaled_dot_product_attention(a, b_, v_, is_causal=True)
+        torch.autograd.grad(out, (a, b_, v_), dot[i])
+
+    flops = {"fwd": 2 * B * H * S * S * D, "dq": 3 * B * H * S * S * D,
+             "dkv": 4 * B * H * S * S * D}
+    # each input read once, each output written once in the function's
+    # dtype: O and dQ like q; dK and dV like k, at Hkv heads (the kernel's
+    # fp32 per-query-head scratch is its own layout, not the function's)
+    e, ekv, f4 = B * S * H * D * 2, B * S * Hkv * D * 2, B * H * S * 4
+    nbytes = {"fwd": 2 * e + 2 * ekv + f4, "dq": 3 * e + 2 * ekv + 2 * f4,
+              "dkv": 2 * e + 4 * ekv + 2 * f4}
+    fwd_ms = graph_ms(lambda i: flash_attention_fwd_cuda(
+        q[i], k[i], v[i], scale), c)
+    plain_fwd_ms = graph_ms(lambda i: flash_attention_fwd_plain(
+        q[i], k[i], v[i], scale), c)
+    plain_bwd_ms = graph_ms(lambda i: flash_attention_bwd_plain(
+        q[i], k[i], v[i], o[i], lse[i], do[i], scale), c)
+    lib_fwd_ms = graph_ms(lambda i: F.scaled_dot_product_attention(
+        qt[i], kt[i], vt[i], is_causal=True), c)
+    lib_bwd_ms = graph_ms(sdpa_fwd_bwd, c) - lib_fwd_ms
+    dq_ms = graph_ms(lambda i: flash_attention_bwd_dq_cuda(
+        q[i], k[i], v[i], do[i], lse[i], delta[i], scale), c)
+    dkv_ms = graph_ms(lambda i: flash_attention_bwd_dkv_cuda(
+        q[i], k[i], v[i], do[i], lse[i], delta[i], scale), c)
+    shape = f"B={B} S={S} H={H}/{H} D={D} causal bf16"
+    res = {}
+    for name, key, ms, plain_ms, lib_ms in (
+            ("flash_attention_fwd", "fwd", fwd_ms, plain_fwd_ms, lib_fwd_ms),
+            ("flash_attention_bwd_dq", "dq", dq_ms, plain_bwd_ms,
+             lib_bwd_ms),
+            ("flash_attention_bwd_dkv", "dkv", dkv_ms, plain_bwd_ms,
+             lib_bwd_ms)):
+        bound_ms, bound_by = _bound(nbytes[key], flops[key], "bfloat16")
+        res[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=bound_by, shape=shape,
+                         max_abs_err=errs[(name, "bfloat16")])
+    del q, k, v, do, o, lse, delta, qt, kt, vt, dot, leaves, outs
+    _free()
+
+    # B3 over gpt_1b's flat fp32 buffers (28 bytes per parameter), first
+    # held against its plain version at this n, from the same inputs
+    n = cfg.num_params()
+    p = torch.randn(n, generator=gen, device="cuda") * 0.02
+    g = torch.randn(n, generator=gen, device="cuda") * 1e-3
+    m = torch.randn(n, generator=gen, device="cuda") * 1e-4
+    v = torch.rand(n, generator=gen, device="cuda") * 1e-6
+    kw = dict(beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01,
+              adamw_mode=True)
+    ref = [t.clone() for t in (p, m, v)]
+    fused_adam(p, g, AdamState(m, v, 1), lr=1e-4, backend="cuda", **kw)
+    reference_impl(ref[0], g, AdamState(ref[1], ref[2], 1), lr=1e-4, **kw)
+    adam_err = check_adam(f"fused_adam n={n} ({TRAIN_MODEL}) g=float32 "
+                          f"adamw=True bias_correction=True", (p, m, v), ref)
+    del ref
+    _free()
+    # timed from zero moments, as training starts: m and v then follow g
+    m.zero_()
+    v.zero_()
+    ms = time_ms(lambda i: fused_adam_cuda(p, g, m, v, lr=1e-4, c1=0.1,
+                                           c2=0.001, **kw), iters=5,
+                 warmup=1)
+    plain_ms = time_ms(lambda i: reference_impl(p, g, AdamState(m, v, 1),
+                                                lr=1e-4, **kw), iters=3,
+                       warmup=1)
+    steps = [torch.ones((), device="cuda")]
+    lib_ms = time_ms(lambda i: torch._fused_adamw_(
+        [p], [g], [m], [v], [], steps, lr=1e-4, beta1=0.9, beta2=0.999,
+        weight_decay=0.01, eps=1e-8, amsgrad=False, maximize=False),
+        iters=5, warmup=1)
+    if not torch.isfinite(p).all():
+        fail("fused Adam timing: parameters not finite")
+    bound_ms, bound_by = _bound(28 * n, 20 * n, "float32")
+    res["fused_adam"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             shape=f"n={n} fp32 p/g/m/v AdamW",
+                             max_abs_err=max(adam_err,
+                                             errs[("fused_adam", "float32")]))
+    del p, g, m, v
+    _free()
+    for name, r in res.items():
+        phase("timing", f"{name} [{r['shape']}]: device ms kernel "
+              f"{r['ms']:.4f}, plain {r['plain_ms']:.4f}, library "
+              f"{r['library_ms']:.4f}; bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.3f} of bound")
+    return res
 
 
 # ----------------------------------------------------------------------
@@ -611,6 +1038,7 @@ def main():
 
     phase_build()
     errs = phase_kernels()
+    errs.update(phase_train_kernels())
     if args.kernels_only:
         phase("done", f"kernels only, {time.time() - t_start:.1f} s")
         return
@@ -637,8 +1065,8 @@ def main():
              f"times in serving, expected {L} x {calls} model calls")
     if counts["decode_attention"] != after_gen["decode_attention"]:
         fail("decode kernel launched outside generate")
-    if counts["decode_attention_plain"] or counts["paged_attention_plain"]:
-        fail(f"plain versions ran on the main path: {counts}")
+    if plain_calls(counts):
+        fail(f"plain versions ran on the main path: {plain_calls(counts)}")
     phase("generate", f"B=4 prompt 128 + 32 new: {t_gen:.3f} s, "
           f"{4 * 32 / t_gen:.1f} new tokens/s (prefill included), "
           f"decode kernel launches {after_gen['decode_attention']} = "
@@ -684,21 +1112,65 @@ def main():
           f"kernel vs plain logits rel err {rel:.3e} (tol {E2E_REL_TOL}), "
           f"argmax agreement {agree:.4f}")
 
+    # ---- main path 2: training, counters read around run_benchmark ----
+    out, train_counts = phase_train()
+    TL = out["n_layers"]
+    phase("train", f"run_benchmark({TRAIN_MODEL}): {TL} layers, "
+          f"{out['n_params'] / 1e9:.3f} B params, micro {TRAIN_BATCH} x gas "
+          f"{TRAIN_GAS} x seq {TRAIN_SEQ}, bf16, AdamW lr 1e-4; "
+          f"{out['ms_per_train_batch']:.1f} ms per train_batch, "
+          f"{out['tokens_per_sec']:.1f} tokens/s, "
+          f"{out['model_tflops']:.2f} TFLOP/s, MFU {out['mfu']:.4f} of "
+          f"989 TFLOP/s; losses {[round(x, 4) for x in out['losses']]}")
+    train_kernels = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                     "flash_attention_bwd_dkv", "fused_adam")
+    launches = {**counts, **{k: train_counts[k] for k in train_kernels}}
+    phase("train", f"launches in {TRAIN_STEPS + 1} train_batch calls: "
+          f"{[launches[k] for k in train_kernels]} for {train_kernels} = "
+          f"per call {2 * TL * TRAIN_GAS} / {TL * TRAIN_GAS} / "
+          f"{TL * TRAIN_GAS} / 1; plain versions 0")
+    losses, step_ms, device_ms, top = phase_train_fixed()
+    phase("train", f"fixed batch, {FIXED_STEPS} steps: losses "
+          f"{[round(x, 4) for x in losses]} (falling); one train_batch "
+          f"{step_ms:.1f} ms wall, device {device_ms:.1f} ms (profiler), "
+          f"busy share {device_ms / step_ms:.3f}")
+    for name, k_ms in top:
+        phase("train", f"  device ms/train_batch {k_ms:.3f}  {name[:90]}")
+    r = phase_train_e2e()
+    phase("e2e", f"train, 2 layers full width, 2 train_batch steps: losses "
+          f"kernels {r['lk']} vs plain {r['lp']} (max rel "
+          f"{r['loss_rel']:.2e}); first grad norm {r['nk']:.5f} vs "
+          f"{r['n_p']:.5f} (rel {r['norm_rel']:.2e}); tol "
+          f"{E2E_TRAIN_REL_TOL}")
+    phase("e2e", f"train state after 2 steps, worst parameter: m rel L2 "
+          f"{r['m_rel'][0]:.3e} ({r['m_rel'][1]}; tol {E2E_M_REL_TOL}), "
+          f"update rel L2 {r['upd_rel'][0]:.3e} ({r['upd_rel'][1]}; tol "
+          f"{E2E_UPDATE_REL_TOL}); master max abs diff "
+          f"{r['master_err']:.3e}")
+
     timing = phase_timing(cfg, SERVE_PROMPTS[:SERVE_SLOTS])
+    timing.update(phase_train_timing(errs))
     kernels = []
+    pallas = "deepspeed_tpu/ops/pallas/"
+    csrc = "deepspeed_tpu_torch/ops/csrc/"
     meta = {
-        "decode_attention": (
-            "deepspeed_tpu_torch/ops/csrc/decode_attention.cu",
-            "deepspeed_tpu/ops/pallas/decode_attention.py:45"),
-        "ragged_paged_attention": (
-            "deepspeed_tpu_torch/ops/csrc/ragged_paged_attention.cu",
-            "deepspeed_tpu/ops/pallas/ragged_paged_attention.py:57"),
+        "decode_attention": (csrc + "decode_attention.cu",
+                             pallas + "decode_attention.py:45"),
+        "ragged_paged_attention": (csrc + "ragged_paged_attention.cu",
+                                   pallas + "ragged_paged_attention.py:57"),
+        "flash_attention_fwd": (csrc + "flash_attention_fwd.cu",
+                                pallas + "flash_attention.py:85"),
+        "flash_attention_bwd_dq": (csrc + "flash_attention_bwd.cu",
+                                   pallas + "flash_attention.py:222"),
+        "flash_attention_bwd_dkv": (csrc + "flash_attention_bwd.cu",
+                                    pallas + "flash_attention.py:278"),
+        "fused_adam": (csrc + "fused_adam.cu", pallas + "fused_adam.py:30"),
     }
     for name, (source, replaces) in meta.items():
         t = timing[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": counts[name],
+            "replaces": replaces, "launches": launches[name],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})

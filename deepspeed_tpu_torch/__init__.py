@@ -4,9 +4,11 @@ for one NVIDIA H100.
 The port mirrors the JAX package's layout and names, imports neither
 ``jax`` nor anything of ``deepspeed_tpu``, and writes every TPU kernel on
 its path as a hand-written Hopper kernel (``ops/csrc``) beside a plain
-PyTorch version.  This slice serves: ``init_inference(...).generate`` and
-``create_serving_engine``.  Entry points run on the card unless the caller
-passes ``device="cpu"``; with no card they raise.
+PyTorch version.  Ported so far: serving (``init_inference(...).generate``
+and ``create_serving_engine``) and training on one card
+(``initialize(...)`` -> ``DeepSpeedEngine.train_batch`` or
+``forward``/``backward``/``step``).  Entry points run on the card unless
+the caller passes ``device="cpu"``; with no card they raise.
 """
 
 __version__ = "0.1.0"
@@ -17,7 +19,41 @@ from deepspeed_tpu_torch.inference.engine import InferenceEngine  # noqa: F401
 from deepspeed_tpu_torch.inference.serving import ServingEngine  # noqa: F401
 from deepspeed_tpu_torch.models.transformer import (  # noqa: F401
     CausalTransformerLM, TransformerConfig)
+from deepspeed_tpu_torch.runtime.config import (  # noqa: F401
+    DeepSpeedConfig, DeepSpeedConfigError)
+from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine  # noqa: F401
 from deepspeed_tpu_torch.utils.logging import log_dist, logger  # noqa: F401
+
+
+def initialize(args=None, model=None, model_parameters=None, config=None,
+               optimizer=None, lr_scheduler=None, device=None):
+    """Counterpart of ``deepspeed_tpu.initialize``: returns ``(engine,
+    optimizer, None, None)``.  ``model``: a ``CausalTransformerLM``;
+    ``model_parameters``: None (the module's own weights) or the JAX
+    package's param dict with numpy leaves (loaded through
+    ``models.convert.from_jax_params``); ``config``: a dict, a JSON path,
+    ``args.deepspeed_config`` or a ``DeepSpeedConfig``.  ``device``
+    defaults to the card and raises without one.  A client optimizer or
+    LR scheduler is not ported (ROADMAP A7)."""
+    if model is None:
+        raise ValueError("deepspeed_tpu_torch.initialize: model is required")
+    if optimizer is not None or lr_scheduler is not None:
+        raise NotImplementedError("client optimizers and LR schedulers are "
+                                  "not ported yet (ROADMAP A7); name the "
+                                  "optimizer in the config")
+    if config is None and getattr(args, "deepspeed_config", None):
+        config = args.deepspeed_config
+    if config is None:
+        raise ValueError("DeepSpeed requires --deepspeed_config or the "
+                         "config= argument")
+    if not isinstance(config, DeepSpeedConfig):
+        config = DeepSpeedConfig(config)
+    if model_parameters is not None:
+        from deepspeed_tpu_torch.models.convert import from_jax_params
+        model.load_state_dict(from_jax_params(model_parameters,
+                                              model.config), strict=True)
+    engine = DeepSpeedEngine(model, config, device=device)
+    return engine, engine.optimizer, None, None
 
 
 def init_inference(model=None, config=None, params=None, device=None,

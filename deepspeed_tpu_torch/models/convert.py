@@ -45,3 +45,26 @@ def from_jax_params(params: Dict, config: TransformerConfig, device=None,
         for i in range(config.n_layers):
             out[f"layers.{i}.{key}"] = tensor(stacked[i])
     return out
+
+
+def to_numpy_params(model) -> Dict:
+    """The JAX param dict of ``model`` (a port ``CausalTransformerLM``, or
+    its state dict): fp32 numpy leaves, the per-layer tensors stacked
+    along a leading ``n_layers`` dim under ``"layers"`` -- the inverse of
+    :func:`from_jax_params`."""
+    state = model if isinstance(model, dict) else model.state_dict()
+
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.float() if t.is_floating_point() else t).numpy()
+
+    out, layers = {}, {}
+    for name, t in state.items():
+        if name.startswith("layers."):
+            _, i, key = name.split(".", 2)
+            layers.setdefault(key, {})[int(i)] = leaf(t)
+        else:
+            out[name] = leaf(t)
+    out["layers"] = {k: np.stack([v[i] for i in sorted(v)])
+                     for k, v in layers.items()}
+    return out

@@ -1,4 +1,5 @@
-"""Causal transformer LM -- the serving path's model, in PyTorch.
+"""Causal transformer LM -- the serving and training paths' model, in
+PyTorch.
 
 Counterpart of ``deepspeed_tpu/models/transformer.py`` (dense subset).
 ``TransformerConfig`` is a copy of the JAX package's, every field and
@@ -8,15 +9,20 @@ parameters carry the JAX param-tree names (``tok_embed``,
 ``layers.<i>.wq``, ...) and keep its ``[in, out]`` weight orientation, so
 ``h @ w`` is the same product in both packages.
 
-This slice serves: RoPE (full, partial ``rope_dim``, or a scaled
-``rope_inv_freq`` table) or learned positions; RMSNorm or LayerNorm (with
-or without bias); SwiGLU / GLU or plain MLPs over the activation table;
-linear biases; GQA; tied or untied heads with an optional head bias; and
-``attn_scale``.  The other architecture switches (ALiBi, local windows,
-softcaps, qk-norm, clip_qkv, parallel blocks, sandwich / post norms,
-residual or embedding scales, embedding norm, logit scale, MoE) raise
-``NotImplementedError`` naming ROADMAP A16 / A14.  The training
-``apply``/``loss`` come with the training slice (ROADMAP B1/B2).
+Ported: RoPE (full, partial ``rope_dim``, or a scaled ``rope_inv_freq``
+table) or learned positions; RMSNorm or LayerNorm (with or without bias);
+SwiGLU / GLU or plain MLPs over the activation table; linear biases; GQA;
+tied or untied heads with an optional head bias; and ``attn_scale``.  The
+other architecture switches (ALiBi, local windows, softcaps, qk-norm,
+clip_qkv, parallel blocks, sandwich / post norms, residual or embedding
+scales, embedding norm, logit scale, MoE) raise ``NotImplementedError``
+naming ROADMAP A16 / A14.
+
+Two paths use it: serving (``apply_with_cache``, ``apply_with_paged_cache``,
+under ``torch.no_grad``) and training (``apply``, ``loss``: causal flash
+attention through ``ops/attention.attention``, per-layer remat with
+``torch.utils.checkpoint``, the next-token cross-entropy chunked so no
+[B, S, V] fp32 logits tensor is kept).
 
 Numerics follow the JAX model: norms compute in fp32 and cast back, RoPE
 promotes a bf16 input to fp32 before casting back, and the logits are a
@@ -30,8 +36,10 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from deepspeed_tpu_torch.accelerator import get_accelerator
+from deepspeed_tpu_torch.ops.attention import attention
 from deepspeed_tpu_torch.ops.decode_attention import (KVCache,
                                                       decode_attention,
                                                       update_cache)
@@ -267,6 +275,76 @@ def _norm(x, weight, eps, use_rms, bias=None):
     return out.to(x.dtype)
 
 
+def _unpack_batch(batch):
+    """(input_ids, labels, loss_mask) of a dict batch or a raw [B, S]
+    tensor."""
+    if isinstance(batch, dict):
+        return batch["input_ids"], batch.get("labels"), batch.get("loss_mask")
+    return batch, None, None
+
+
+def next_token_xent(logits, batch):
+    """Next-token cross-entropy.  ``batch``: dict with ``input_ids`` [B, S]
+    (+ optional ``labels``, ``loss_mask``) or a raw [B, S] tensor.  When
+    ``labels`` is absent the labels are the inputs shifted left and the
+    last logit is dropped."""
+    input_ids, labels, loss_mask = _unpack_batch(batch)
+    if labels is None:
+        labels = input_ids[:, 1:]
+        logits = logits[:, :-1]
+        if loss_mask is not None:
+            loss_mask = loss_mask[:, 1:]
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    if loss_mask is not None:
+        mask = loss_mask.to(nll.dtype)
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
+    return torch.mean(nll)
+
+
+def _chunk_nll(xc, yc, mc, head, bias):
+    """Masked NLL sum of one chunk of tokens: [n, d] hidden x [d, V] head
+    -> fp32 logits, alive only inside this call."""
+    logits = (xc @ head).float()
+    if bias is not None:
+        logits = logits + bias
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, yc[:, None])[:, 0]
+    return torch.sum((lse - ll) * mc)
+
+
+def chunked_next_token_xent(x, head, head_b, batch, chunk_size: int):
+    """Next-token cross-entropy WITHOUT keeping the full fp32 [B, S, V]
+    logits: the flattened tokens go through ``chunk_size``-token chunks,
+    each under ``torch.utils.checkpoint``, so a chunk's [chunk, V] logits
+    exist only while it is computed (and again in the backward).  Equal
+    to :func:`next_token_xent` up to fp reassociation of the mean.
+
+    ``x``: final-normed hidden [B, S, d]; ``head``: [d, V]; ``head_b``:
+    [V] or None; ``batch`` as in :func:`next_token_xent`."""
+    input_ids, labels, loss_mask = _unpack_batch(batch)
+    if labels is None:
+        labels = input_ids[:, 1:]
+        x = x[:, :-1]
+        if loss_mask is not None:
+            loss_mask = loss_mask[:, 1:]
+    B, S, d = x.shape
+    n = B * S
+    xt = x.reshape(n, d)
+    yt = labels.reshape(n).long()
+    mt = (torch.ones(n, dtype=torch.float32, device=x.device)
+          if loss_mask is None else loss_mask.reshape(n).float())
+    chunk = max(1, min(int(chunk_size), n))
+    head_c = head.to(x.dtype)
+    bias32 = None if head_b is None else head_b.float()
+    nll_sum = 0.0
+    for lo in range(0, n, chunk):
+        sl = slice(lo, lo + chunk)
+        nll_sum = nll_sum + checkpoint(_chunk_nll, xt[sl], yt[sl], mt[sl],
+                                       head_c, bias32, use_reentrant=False)
+    return nll_sum / torch.clamp(torch.sum(mt), min=1.0)
+
+
 def _rope(x, positions, theta, rope_dim=None, inv_freq=None):
     """Rotary embedding; x: [B, S, H, D], positions: [B, S].  ``rope_dim``
     < D rotates only the leading dims; ``inv_freq`` overrides the theta
@@ -313,8 +391,7 @@ class TransformerBlock(nn.Module):
 
         def p(*shape):
             return nn.Parameter(torch.empty(shape, device=device,
-                                            dtype=dtype),
-                                requires_grad=False)
+                                            dtype=dtype))
 
         self.attn_norm = p(d)
         self.wq = p(d, H * dh)
@@ -337,10 +414,10 @@ class TransformerBlock(nn.Module):
 
 
 class CausalTransformerLM(nn.Module):
-    """Decoder-only LM for serving: ``init`` fills the parameters;
-    ``apply_with_cache`` (contiguous KV cache) and
-    ``apply_with_paged_cache`` (paged KV cache) run prefill or decode and
-    update their caches IN PLACE.
+    """Decoder-only LM: ``init`` fills the parameters; ``apply`` and
+    ``loss`` are the training forward; ``apply_with_cache`` (contiguous KV
+    cache) and ``apply_with_paged_cache`` (paged KV cache) run prefill or
+    decode and update their caches IN PLACE.
 
     ``device``: where the parameters live -- the card unless the caller
     names another device (``"cpu"`` in the tests, ``"meta"`` to count
@@ -356,8 +433,7 @@ class CausalTransformerLM(nn.Module):
 
         def p(*shape):
             return nn.Parameter(torch.empty(shape, device=device,
-                                            dtype=dtype),
-                                requires_grad=False)
+                                            dtype=dtype))
 
         self.tok_embed = p(v, d)
         self.final_norm = p(d)
@@ -431,12 +507,18 @@ class CausalTransformerLM(nn.Module):
             x = x + self.pos_embed[positions].to(x.dtype)
         return x
 
-    def _logits(self, x):
+    def _final_norm(self, x):
         c = self.config
-        x = _norm(x, self.final_norm, c.norm_eps, c.use_rmsnorm,
-                  getattr(self, "final_norm_b", None))
-        head = self.tok_embed.T if c.tie_embeddings else self.lm_head
-        logits = (x @ head.to(x.dtype)).float()
+        return _norm(x, self.final_norm, c.norm_eps, c.use_rmsnorm,
+                     getattr(self, "final_norm_b", None))
+
+    def _head(self):
+        return self.tok_embed.T if self.config.tie_embeddings \
+            else self.lm_head
+
+    def _logits(self, x):
+        x = self._final_norm(x)
+        logits = (x @ self._head().to(x.dtype)).float()
         bias = getattr(self, "lm_head_b", None)
         if bias is not None:
             logits = logits + bias.float()
@@ -454,6 +536,57 @@ class CausalTransformerLM(nn.Module):
         x = x + _proj(attn.reshape(B, T, c.n_heads * c.head_dim), layer,
                       "wo")
         return self._mlp(x, layer)
+
+    # ------------------------------------------------------------------
+    # training forward (DeepSpeedEngine)
+    # ------------------------------------------------------------------
+    def _train_layer(self, x, layer, positions, attn_backend):
+        c = self.config
+        return self._layer(x, layer, positions, lambda q, k, v: attention(
+            q, k, v, causal=True, softmax_scale=c.attn_scale,
+            backend=attn_backend))
+
+    def apply(self, input_ids, positions=None, return_hidden=False,
+              attn_backend="auto"):
+        """Full-sequence causal forward.  Returns fp32 logits [B, S, V], or
+        with ``return_hidden`` the final-normed hidden state [B, S, d]
+        (the JAX ``apply`` returns ``(x, aux)`` there; aux is the MoE loss,
+        0 for the dense model).  With ``config.remat`` and grad enabled,
+        each layer runs under ``torch.utils.checkpoint(use_reentrant=
+        False)``: only its input is kept and the layer is recomputed in the
+        backward -- the ``nothing_saveable`` policy.  The other JAX policies
+        (``dots_saveable`` ...) change only what is kept, never a value, so
+        every policy gives these values and gradients."""
+        B, S = input_ids.shape
+        if positions is None:
+            positions = torch.arange(S, device=input_ids.device).expand(B, S)
+        x = self._embed(input_ids, positions)
+        remat = self.config.remat and torch.is_grad_enabled()
+        for layer in self.layers:
+            if remat:
+                x = checkpoint(self._train_layer, x, layer, positions,
+                               attn_backend, use_reentrant=False)
+            else:
+                x = self._train_layer(x, layer, positions, attn_backend)
+        if return_hidden:
+            return self._final_norm(x)
+        return self._logits(x)
+
+    def loss(self, batch, attn_backend="auto"):
+        """Next-token cross-entropy (fp32 scalar).  ``batch``: dict with
+        ``input_ids`` [B, S] (+ optional ``labels``, ``loss_mask``) or a
+        raw [B, S] tensor.  ``loss_chunk_size`` > 0 takes the chunked
+        loss, as in the JAX model."""
+        c = self.config
+        input_ids = _unpack_batch(batch)[0]
+        if c.loss_chunk_size and c.loss_chunk_size > 0:
+            x = self.apply(input_ids, return_hidden=True,
+                           attn_backend=attn_backend)
+            return chunked_next_token_xent(
+                x, self._head(), getattr(self, "lm_head_b", None), batch,
+                c.loss_chunk_size)
+        return next_token_xent(self.apply(input_ids,
+                                          attn_backend=attn_backend), batch)
 
     # ------------------------------------------------------------------
     # contiguous KV cache (InferenceEngine.generate)

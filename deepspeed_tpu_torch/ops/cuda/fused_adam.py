@@ -1,0 +1,57 @@
+"""Fused Adam: the CUDA kernel's wrapper.
+
+Replaces ``deepspeed_tpu/ops/pallas/fused_adam.py`` (``_adam_kernel`` /
+``fused_adam_pallas``); the kernel source is ``ops/csrc/fused_adam.cu``.
+The plain PyTorch version is ``ops/adam.py:reference_impl``, where the
+dispatch (:func:`deepspeed_tpu_torch.ops.adam.fused_adam`) lives.
+"""
+
+import torch
+
+from deepspeed_tpu_torch.ops import op_builder
+
+_G_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def fused_adam_cuda(params, grads, m, v, lr, beta1, beta2, eps,
+                    weight_decay, adamw_mode, c1, c2):
+    """One Adam step, IN PLACE on ``params``, ``m`` and ``v`` (contiguous
+    fp32 CUDA tensors of one size); ``grads``: same size, fp32 or bf16.
+    ``c1``/``c2``: the bias corrections 1 - beta**step as fp32 values
+    (1.0 when bias correction is off)."""
+    for name, t in (("params", params), ("grads", grads), ("m", m),
+                    ("v", v)):
+        if not t.is_cuda:
+            raise ValueError(f"fused_adam_cuda needs CUDA tensors ({name} is "
+                             f"on {t.device}); use the plain version for CPU "
+                             f"tensors")
+        if not t.is_contiguous():
+            raise ValueError(f"fused_adam_cuda needs contiguous buffers "
+                             f"({name} is not)")
+        if t.numel() != params.numel() or t.device != params.device:
+            raise ValueError(f"fused_adam_cuda: {name} has {t.numel()} "
+                             f"elements on {t.device}, params "
+                             f"{params.numel()} on {params.device}")
+    for name, t in (("params", params), ("m", m), ("v", v)):
+        if t.dtype != torch.float32:
+            raise ValueError(f"fused_adam_cuda: {name} must be float32, got "
+                             f"{t.dtype}")
+    if grads.dtype not in _G_CODES:
+        raise ValueError(f"fused_adam_cuda: grads must be float32 or "
+                         f"bfloat16, got {grads.dtype}")
+    n = params.numel()
+    if n == 0:
+        return params
+    fn = op_builder.load("fused_adam")
+    rc = fn(params.data_ptr(), grads.data_ptr(), m.data_ptr(), v.data_ptr(),
+            n, _G_CODES[grads.dtype], int(bool(adamw_mode)), float(lr),
+            float(beta1), float(1.0 - beta1), float(beta2),
+            float(1.0 - beta2), float(eps), float(weight_decay), float(c1),
+            float(c2), torch.cuda.current_stream(params.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused Adam kernel launch failed: CUDA error {rc}")
+    fused_adam_cuda.launches += 1
+    return params
+
+
+fused_adam_cuda.launches = 0

@@ -1,10 +1,12 @@
 """Build and load the hand-written CUDA kernels.
 
-Each ``ops/csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a
+Each ``ops/csrc/<source>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded with ``ctypes`` (pointers
-and the stream as ``c_void_p``, ints as ``c_int``; every C entry returns
-``cudaGetLastError()``).  Libraries are built at first use into
-``deepspeed_tpu_torch/_build/`` (gitignored), named by a hash of their
+and the stream as ``c_void_p``, ints as ``c_int``, element counts as
+``c_longlong``; every C entry returns ``cudaGetLastError()``).  One source
+may export several kernels' entry points.  Libraries are built at first
+use into ``deepspeed_tpu_torch/_build/`` (gitignored), named by a hash of
+their
 sources so an edited kernel is never served from a stale library.
 :func:`build` starts one ``nvcc`` per source, all at once.
 
@@ -27,12 +29,25 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v", "-lineinfo"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signatures of the kernels' entry points (kernel name -> symbol, argtypes)
+_L = ctypes.c_longlong
+# C signatures of the kernels' entry points
+# (kernel name -> source, symbol, argtypes)
 SIGNATURES = {
-    "decode_attention": ("ds_decode_attention",
+    "decode_attention": ("decode_attention", "ds_decode_attention",
                          [_P, _P, _P, _P, _P] + [_I] * 8 + [_F, _P]),
-    "ragged_paged_attention": ("ds_ragged_paged_attention",
+    "ragged_paged_attention": ("ragged_paged_attention",
+                               "ds_ragged_paged_attention",
                                [_P] * 10 + [_I] * 8 + [_F, _P]),
+    "flash_attention_fwd": ("flash_attention_fwd", "ds_flash_attention_fwd",
+                            [_P] * 5 + [_I] * 7 + [_F, _P]),
+    "flash_attention_bwd_dq": ("flash_attention_bwd",
+                               "ds_flash_attention_bwd_dq",
+                               [_P] * 7 + [_I] * 7 + [_F, _P]),
+    "flash_attention_bwd_dkv": ("flash_attention_bwd",
+                                "ds_flash_attention_bwd_dkv",
+                                [_P] * 8 + [_I] * 7 + [_F, _P]),
+    "fused_adam": ("fused_adam", "ds_fused_adam",
+                   [_P] * 4 + [_L, _I, _I] + [_F] * 9 + [_P]),
 }
 
 _lock = threading.Lock()
@@ -47,38 +62,38 @@ def _nvcc() -> str:
     return path
 
 
-def _lib_path(name: str) -> Path:
+def _lib_path(source: str) -> Path:
     h = hashlib.sha256()
-    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{source}.cu"]:
         h.update(src.read_bytes())
     h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+    return BUILD_DIR / f"lib{source}-{h.hexdigest()[:12]}.so"
 
 
 def build(names=tuple(SIGNATURES)) -> dict:
-    """Compile every kernel in ``names`` that has no library yet, one
-    ``nvcc`` process per source, all started together.  Returns
-    {name: compiler log}; raises if any build fails."""
+    """Compile the source of every kernel in ``names`` that has no library
+    yet, one ``nvcc`` process per source, all started together.  Returns
+    {source: compiler log}; raises if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in names:
-        out = _lib_path(name)
+    for source in dict.fromkeys(SIGNATURES[n][0] for n in names):
+        out = _lib_path(source)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+               str(CSRC / f"{source}.cu")]
+        procs[source] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
     logs, failed = {}, []
-    for name, (proc, tmp, out) in procs.items():
-        logs[name] = proc.communicate()[0]
+    for source, (proc, tmp, out) in procs.items():
+        logs[source] = proc.communicate()[0]
         if proc.returncode != 0:
-            failed.append(name)
+            failed.append(source)
             continue
         os.replace(tmp, out)
-        (BUILD_DIR / f"{name}.log").write_text(logs[name])
+        (BUILD_DIR / f"{source}.log").write_text(logs[source])
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n" +
                            "\n".join(logs[n] for n in failed))
@@ -90,10 +105,10 @@ def load(name: str):
     with _lock:
         fn = _loaded.get(name)
         if fn is None:
-            path = _lib_path(name)
+            source, symbol, argtypes = SIGNATURES[name]
+            path = _lib_path(source)
             if not path.exists():
                 build((name,))
-            symbol, argtypes = SIGNATURES[name]
             fn = getattr(ctypes.CDLL(str(path)), symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

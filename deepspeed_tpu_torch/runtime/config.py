@@ -1,0 +1,138 @@
+"""Training config: a ``DeepSpeedConfig`` subset.
+
+Counterpart of ``deepspeed_tpu/runtime/config.py``, reading the same JSON
+keys: the batch triangle ``train_batch_size = micro * gas * world`` (world
+is 1 here), ``optimizer`` {type, params}, ``bf16.enabled``,
+``gradient_clipping``, ``seed``, ``steps_per_print`` and
+``zero_optimization``.  Every enabled block the port does not run yet
+raises ``NotImplementedError`` naming its ROADMAP item; other unknown
+top-level keys are ignored, as the JAX package ignores them.
+"""
+
+import json
+import os
+from typing import Any, Dict, Union
+
+from deepspeed_tpu_torch.runtime import constants as C
+from deepspeed_tpu_torch.runtime.zero.config import DeepSpeedZeroConfig
+
+
+class DeepSpeedConfigError(Exception):
+    pass
+
+
+class OptimizerConfig:
+    def __init__(self, param_dict):
+        self.type = param_dict.get(C.TYPE)
+        self.params = dict(param_dict.get(C.OPTIMIZER_PARAMS, {}))
+
+
+def _enabled(block) -> bool:
+    return bool(isinstance(block, dict) and block.get("enabled", False))
+
+
+def _refuse_unported(pd):
+    """Raise for every block that asks for behaviour this slice lacks."""
+    blocks = [
+        (_enabled(pd.get(C.FP16)), "fp16 mixed precision and loss scaling",
+         "A7"),
+        (bool(pd.get(C.SCHEDULER)), "learning-rate schedules (scheduler)",
+         "A7"),
+        (bool(pd.get(C.COMPRESSION_TRAINING)),
+         "compression_training / MoQ", "A17"),
+        (bool(pd.get(C.PIPELINE)), "pipeline parallelism", "A14"),
+        (_enabled(pd.get(C.ASYNC_PIPELINE)), "async_pipeline", "A17"),
+        (_enabled(pd.get(C.TELEMETRY)), "telemetry", "A17"),
+        (any((pd.get(C.RESILIENCE) or {}).get(k) for k in (
+            "preemption_handler", "divergence_sentinel", "fault_injection")),
+         "resilience (preemption, divergence sentinel, fault injection)",
+         "A10"),
+    ]
+    for on, what, item in blocks:
+        if on:
+            raise NotImplementedError(f"{what} is not ported yet "
+                                      f"(ROADMAP {item})")
+    accum = (pd.get(C.DATA_TYPES) or {}).get(C.GRAD_ACCUM_DTYPE)
+    if accum is not None and str(accum).lower() not in ("fp32", "float32"):
+        raise NotImplementedError(
+            f"data_types.grad_accum_dtype {accum!r}: only fp32 gradient "
+            f"accumulation is ported (ROADMAP A7)")
+
+
+class DeepSpeedConfig:
+
+    def __init__(self, config: Union[str, Dict[str, Any]], world_size=1):
+        if isinstance(config, str):
+            if not os.path.exists(config):
+                raise DeepSpeedConfigError(f"Config file {config} not found")
+            with open(config) as f:
+                pd = json.load(f)
+        elif isinstance(config, dict):
+            pd = dict(config)
+        else:
+            raise DeepSpeedConfigError(
+                f"Expected a dict or json path, got {type(config)}")
+        _refuse_unported(pd)
+        self.world_size = int(world_size)
+
+        self.train_batch_size = pd.get(C.TRAIN_BATCH_SIZE)
+        self.train_micro_batch_size_per_gpu = pd.get(
+            C.TRAIN_MICRO_BATCH_SIZE_PER_GPU)
+        self.gradient_accumulation_steps = pd.get(
+            C.GRADIENT_ACCUMULATION_STEPS)
+        self._configure_train_batch_size()
+
+        self.steps_per_print = pd.get(C.STEPS_PER_PRINT,
+                                      C.STEPS_PER_PRINT_DEFAULT)
+        self.gradient_clipping = pd.get(C.GRADIENT_CLIPPING,
+                                        C.GRADIENT_CLIPPING_DEFAULT)
+        self.seed = pd.get(C.SEED, C.SEED_DEFAULT)
+        self.zero_config = DeepSpeedZeroConfig(pd.get(C.ZERO_OPTIMIZATION,
+                                                      {}))
+        self.bfloat16_enabled = _enabled(pd.get(C.BFLOAT16,
+                                                pd.get(C.BFLOAT16_OLD)))
+        opt = pd.get(C.OPTIMIZER)
+        self.optimizer_config = OptimizerConfig(opt) if opt else None
+
+    # Batch-size triangle: train = micro x gas x dp_world (the JAX
+    # package's _configure_train_batch_size / _batch_assertion)
+    def _configure_train_batch_size(self):
+        train = self.train_batch_size
+        micro = self.train_micro_batch_size_per_gpu
+        gas = self.gradient_accumulation_steps
+        dp = max(1, self.world_size)
+        if train is not None and micro is not None and gas is not None:
+            pass
+        elif train is not None and micro is not None:
+            gas = train // (micro * dp)
+        elif train is not None and gas is not None:
+            micro = train // (gas * dp)
+        elif micro is not None and gas is not None:
+            train = micro * gas * dp
+        elif train is not None:
+            gas = 1
+            micro = train // dp
+        elif micro is not None:
+            gas = 1
+            train = micro * dp
+        else:
+            raise DeepSpeedConfigError(
+                "At least one of train_batch_size / "
+                "train_micro_batch_size_per_gpu must be set")
+        if train <= 0:
+            raise DeepSpeedConfigError(
+                f"train_batch_size: {train} must be positive")
+        if micro <= 0:
+            raise DeepSpeedConfigError(
+                f"micro_batch_size: {micro} must be positive")
+        if gas <= 0:
+            raise DeepSpeedConfigError(
+                f"gradient_accumulation_steps: {gas} must be positive")
+        if train != micro * gas * dp:
+            raise DeepSpeedConfigError(
+                f"Check batch-size settings: train_batch_size={train} must "
+                f"equal micro_batch={micro} * gradient_accumulation={gas} "
+                f"* dp_world={dp}")
+        self.train_batch_size = train
+        self.train_micro_batch_size_per_gpu = micro
+        self.gradient_accumulation_steps = gas

@@ -1,0 +1,40 @@
+"""Config keys + defaults.
+
+Counterpart of ``deepspeed_tpu/runtime/constants.py`` (the subset the
+training slice reads): the same JSON key spellings, so a DeepSpeed config
+file reads the same in both packages ("per_gpu" keys mean per card).
+"""
+
+TRAIN_BATCH_SIZE = "train_batch_size"
+TRAIN_MICRO_BATCH_SIZE_PER_GPU = "train_micro_batch_size_per_gpu"
+GRADIENT_ACCUMULATION_STEPS = "gradient_accumulation_steps"
+
+OPTIMIZER = "optimizer"
+OPTIMIZER_PARAMS = "params"
+TYPE = "type"
+
+SCHEDULER = "scheduler"
+
+FP16 = "fp16"
+BFLOAT16 = "bf16"
+BFLOAT16_OLD = "bfloat16"
+
+GRADIENT_CLIPPING = "gradient_clipping"
+GRADIENT_CLIPPING_DEFAULT = 0.0
+
+STEPS_PER_PRINT = "steps_per_print"
+STEPS_PER_PRINT_DEFAULT = 10
+
+ZERO_OPTIMIZATION = "zero_optimization"
+
+DATA_TYPES = "data_types"
+GRAD_ACCUM_DTYPE = "grad_accum_dtype"
+
+COMPRESSION_TRAINING = "compression_training"
+PIPELINE = "pipeline"
+ASYNC_PIPELINE = "async_pipeline"
+RESILIENCE = "resilience"
+TELEMETRY = "telemetry"
+
+SEED = "seed"
+SEED_DEFAULT = 42

@@ -1,0 +1,286 @@
+"""Training engine: a ``DeepSpeedEngine`` subset for one card.
+
+Counterpart of ``deepspeed_tpu/runtime/engine.py``.  State, as the JAX
+engine keeps it but laid out for eager PyTorch:
+
+* fp32 master parameters, fp32 gradients and the fp32 Adam moments m and
+  v, each ONE flat buffer on the card (16 bytes per parameter);
+* the module's parameters are views into one flat buffer of the compute
+  dtype (bf16 with ``bf16.enabled``, else fp32), refreshed from the
+  master by one copy after each step -- the counterpart of
+  ``_transformed_compute_params``, which casts the fp32 master to the
+  compute dtype every step.
+
+``train_batch`` runs the module's ``loss`` and its backward once per
+micro-batch, adds each parameter's gradient into the flat fp32 buffer
+(``_forward_grads``: fp32 sum, then divided by gas), takes the fp32 global
+norm, clips when ``gradient_clipping`` > 0 (``clip_f32``), makes ONE
+``fused_adam`` launch over the flat buffer and copies the master into the
+module.  ``forward``/``backward``/``step`` share that accumulation and
+update; ``backward`` divides each micro-batch by gas before adding it, in
+the order of the JAX ``backward``.  Nothing on the step path reads a
+value back to the host: the loss and the grad norm stay device tensors
+until a caller asks.
+
+Not ported yet (each raises naming its ROADMAP item): ``eval_batch``
+(A6), checkpoints and data loading (A10), multi-rank ZeRO (A8).
+"""
+
+import numpy as np
+import torch
+
+from deepspeed_tpu_torch.accelerator import get_accelerator
+from deepspeed_tpu_torch.ops.decode_attention import validate_backend
+from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+from deepspeed_tpu_torch.runtime.optimizers import (ADAMW_OPTIMIZER,
+                                                    build_optimizer)
+from deepspeed_tpu_torch.utils.logging import log_dist
+
+
+def _world_size():
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+class DeepSpeedEngine:
+    """``model``: a module with ``loss(batch, attn_backend=...)`` (the
+    port's ``CausalTransformerLM``).  ``device``: the card unless the
+    caller names another (the tests: ``"cpu"``); with no card it raises.
+    ``backend``: "auto" (the kernels for CUDA tensors), "cuda" or "plain"
+    (the plain versions of attention and Adam: the smoke test's
+    comparison)."""
+
+    def __init__(self, model, config: DeepSpeedConfig, device=None,
+                 backend="auto"):
+        if not callable(getattr(model, "loss", None)):
+            raise TypeError("model must expose .loss(batch)")
+        if _world_size() > 1:
+            raise NotImplementedError("multi-rank data parallelism / ZeRO "
+                                      "sharding is not ported yet (ROADMAP "
+                                      "A8)")
+        self.module = model
+        self._config = config
+        self.device = get_accelerator().resolve_device(device)
+        self.backend = validate_backend(backend)
+        self.compute_dtype = (torch.bfloat16 if config.bfloat16_enabled
+                              else torch.float32)
+        self.zero_stage = config.zero_config.stage
+
+        # ---- flat state ---------------------------------------------
+        self._names, self._params, spans = [], [], []
+        off = 0
+        for name, p in model.named_parameters():
+            self._names.append(name)
+            self._params.append(p)
+            spans.append((off, p.numel(), p.shape))
+            off += p.numel()
+        self.num_params = off
+        self.master = torch.empty(off, dtype=torch.float32,
+                                  device=self.device)
+        self.grads = torch.zeros(off, dtype=torch.float32, device=self.device)
+        self._compute = torch.empty(off, dtype=self.compute_dtype,
+                                    device=self.device)
+        self._master_views, self._grad_views = [], []
+        with torch.no_grad():
+            for p, (o, n, shape) in zip(self._params, spans):
+                mv = self.master[o:o + n].view(shape)
+                mv.copy_(p.detach())
+                self._master_views.append(mv)
+                self._grad_views.append(self.grads[o:o + n].view(shape))
+                p.data = self._compute[o:o + n].view(shape)
+                p.grad = None
+            self._compute.copy_(self.master)
+
+        # ---- optimizer ----------------------------------------------
+        oc = config.optimizer_config
+        if oc is not None and oc.type:
+            self.optimizer = build_optimizer(oc.type, oc.params)
+        else:   # the JAX engine's default: AdamW at lr 1e-3
+            self.optimizer = build_optimizer(ADAMW_OPTIMIZER, {"lr": 1e-3})
+        self.opt_state = self.optimizer.init_state(self.master)
+
+        # ---- host bookkeeping ---------------------------------------
+        self.global_steps = 0
+        self._accum_count = 0
+        self._step_applied = False
+        self._global_grad_norm = None
+        # gas as a device tensor, made once: dividing by it is an IEEE
+        # division (PyTorch may turn a division by a host scalar into a
+        # multiply by its reciprocal) and needs no copy to the card per step
+        self._gas = torch.tensor(float(config.gradient_accumulation_steps),
+                                 dtype=torch.float32, device=self.device)
+        log_dist(f"DeepSpeedEngine ready: zero_stage={self.zero_stage} "
+                 f"dtype={self.compute_dtype} device={self.device} "
+                 f"params={self.num_params} "
+                 f"micro_batch={config.train_micro_batch_size_per_gpu} "
+                 f"gas={config.gradient_accumulation_steps}", ranks=[0])
+
+    # ------------------------------------------------------------------
+    # batches
+    # ------------------------------------------------------------------
+    def _to_device(self, x):
+        t = torch.as_tensor(np.asarray(x)) if not torch.is_tensor(x) else x
+        if not t.is_floating_point():
+            t = t.long()
+        return t.to(self.device)
+
+    def _batch_to_device(self, batch):
+        if isinstance(batch, dict):
+            return {k: self._to_device(v) for k, v in batch.items()}
+        return self._to_device(batch)
+
+    def _micro_batches(self, batch, gas):
+        """Split a [gas, B, S] batch (or a dict of them) into gas micro
+        batches; with gas 1 the batch is one [B, S] micro-batch."""
+        batch = self._batch_to_device(batch)
+        if gas == 1:
+            return [batch]
+        if isinstance(batch, dict):
+            return [{k: v[i] for k, v in batch.items()} for i in range(gas)]
+        return [batch[i] for i in range(gas)]
+
+    # ------------------------------------------------------------------
+    # the step
+    # ------------------------------------------------------------------
+    def _accumulate_grads(self, divisor=None):
+        """Add every parameter's gradient (compute dtype) into the flat
+        fp32 buffer, divided by ``divisor`` (a 0-dim fp32 tensor) first
+        when given, and release it."""
+        with torch.no_grad():
+            for p, g in zip(self._params, self._grad_views):
+                if p.grad is not None:
+                    if divisor is None:
+                        g.add_(p.grad)
+                    else:
+                        g.add_(p.grad.float() / divisor)
+                    p.grad = None
+        self._accum_count += 1
+
+    def _apply_update(self, divisor=None):
+        """The accumulated gradients divided by ``divisor`` when given,
+        fp32 global norm, clipping, one fused Adam launch, master ->
+        module."""
+        with torch.no_grad():
+            g = self.grads
+            if divisor is not None:
+                g.div_(divisor)
+            norm = torch.linalg.vector_norm(g)
+            clip = float(self._config.gradient_clipping or 0.0)
+            if clip > 0:
+                g.mul_(torch.clamp(clip / (norm + 1e-6), max=1.0))
+            self.opt_state = self.optimizer.step(
+                self.master, g, self.opt_state, backend=self.backend)
+            self._compute.copy_(self.master)
+            g.zero_()
+        self._global_grad_norm = norm
+        self._accum_count = 0
+        self._step_applied = True
+        self.global_steps += 1
+
+    def _micro_step(self, mb):
+        loss = self.module.loss(mb, attn_backend=self.backend)
+        loss.backward()
+        self._accumulate_grads()
+        return loss.detach()
+
+    def train_batch(self, data_iter=None, batch=None):
+        """One optimizer step over gas micro-batches.  ``batch``: a dict
+        with ``input_ids`` [gas, B, S] ([B, S] when gas is 1; optional
+        ``labels`` / ``loss_mask`` alike) or a raw token array.  Returns
+        the mean loss over the micro-batches (a device scalar).  Data
+        iterators are not ported yet (ROADMAP A10)."""
+        if batch is None or data_iter is not None:
+            raise NotImplementedError("train_batch takes batch=; data "
+                                      "iterators, training_data and "
+                                      "deepspeed_io are not ported yet "
+                                      "(ROADMAP A10)")
+        if self._accum_count:
+            raise RuntimeError("train_batch called with gradients of an "
+                               "unfinished forward/backward/step cycle")
+        gas = self._config.gradient_accumulation_steps
+        lsum = None
+        for mb in self._micro_batches(batch, gas):
+            loss = self._micro_step(mb)
+            lsum = loss if lsum is None else lsum + loss
+        # the sum of the micro-batches' gradients, divided once
+        # (``_forward_grads``)
+        self._apply_update(self._gas if gas > 1 else None)
+        return lsum / gas
+
+    # ------------------------------------------------------------------
+    # the three-call API
+    # ------------------------------------------------------------------
+    def forward(self, batch):
+        """Loss of one micro-batch ([B, S] ids or a dict), with its graph
+        kept for :meth:`backward`."""
+        return self.module.loss(self._batch_to_device(batch),
+                                attn_backend=self.backend)
+
+    __call__ = forward
+
+    def backward(self, loss):
+        """Backpropagate ``loss`` and add its gradients, divided by gas,
+        into the flat fp32 buffer: the order of the JAX engine's
+        ``backward``, which divides each micro-batch before summing
+        (``train_batch`` sums, then divides once, as the JAX one does)."""
+        loss.backward()
+        self._accumulate_grads(self._gas)
+        return loss
+
+    def is_gradient_accumulation_boundary(self):
+        return self._accum_count >= self._config.gradient_accumulation_steps
+
+    def step(self):
+        """Apply the update at the gradient-accumulation boundary."""
+        self._step_applied = False
+        if self.is_gradient_accumulation_boundary():
+            self._apply_update()
+
+    # ------------------------------------------------------------------
+    # accessors
+    # ------------------------------------------------------------------
+    def get_global_grad_norm(self):
+        n = self._global_grad_norm
+        return None if n is None else float(n)
+
+    def get_lr(self):
+        return [self.optimizer.lr]
+
+    def was_step_applied(self):
+        return self._step_applied
+
+    def gradient_accumulation_steps(self):
+        return self._config.gradient_accumulation_steps
+
+    def train_micro_batch_size_per_gpu(self):
+        return self._config.train_micro_batch_size_per_gpu
+
+    def train_batch_size(self):
+        return self._config.train_batch_size
+
+    def module_state_dict(self):
+        """The fp32 master parameters, by module name, copied to the
+        host."""
+        return {n: v.detach().cpu().clone()
+                for n, v in zip(self._names, self._master_views)}
+
+    # ------------------------------------------------------------------
+    # not ported yet
+    # ------------------------------------------------------------------
+    def eval_batch(self, *args, **kwargs):
+        raise NotImplementedError("eval_batch is not ported yet (ROADMAP "
+                                  "A6)")
+
+    def save_checkpoint(self, *args, **kwargs):
+        raise NotImplementedError("checkpoints are not ported yet (ROADMAP "
+                                  "A10)")
+
+    def load_checkpoint(self, *args, **kwargs):
+        raise NotImplementedError("checkpoints are not ported yet (ROADMAP "
+                                  "A10)")
+
+    def deepspeed_io(self, *args, **kwargs):
+        raise NotImplementedError("deepspeed_io / training_data are not "
+                                  "ported yet (ROADMAP A10)")

@@ -127,7 +127,7 @@ def test_converter_keeps_in_out_orientation():
     cfg, _, params, tmodel = _models("llama_gqa")
     wq = np.asarray(params["layers"]["wq"][1])
     assert tuple(tmodel.layers[1].wq.shape) == wq.shape == (64, 64)
-    np.testing.assert_array_equal(tmodel.layers[1].wq.numpy(), wq)
+    np.testing.assert_array_equal(tmodel.layers[1].wq.detach().numpy(), wq)
     assert tuple(tmodel.layers[0].wk.shape) == (64, 32)
 
 

@@ -2,7 +2,8 @@
 
 * ``deepspeed_tpu_torch`` (every module of it) and ``chip_smoke.py``
   import with ``jax`` blocked, and load no ``deepspeed_tpu`` module;
-* with no card, entry points called without ``device`` raise;
+* with no card, entry points called without ``device`` raise
+  (``init_inference``, ``initialize``, the model);
 * the kernel wrappers and the ``"cuda"`` backend refuse CPU tensors.
 """
 
@@ -16,6 +17,12 @@ import torch
 import deepspeed_tpu_torch
 from deepspeed_tpu_torch.models.transformer import (CausalTransformerLM,
                                                     TransformerConfig)
+from deepspeed_tpu_torch.ops.adam import fused_adam, init_state
+from deepspeed_tpu_torch.ops.attention import attention
+from deepspeed_tpu_torch.ops.cuda.flash_attention import (
+    flash_attention_bwd_dkv_cuda, flash_attention_bwd_dq_cuda,
+    flash_attention_fwd_cuda)
+from deepspeed_tpu_torch.ops.cuda.fused_adam import fused_adam_cuda
 from deepspeed_tpu_torch.ops.cuda.decode_attention import \
     decode_attention_cuda
 from deepspeed_tpu_torch.ops.cuda.ragged_paged_attention import (
@@ -63,6 +70,12 @@ def test_entry_points_raise_without_a_card():
     # naming the CPU is the only way onto it
     eng = deepspeed_tpu_torch.init_inference(model, device="cpu")
     assert eng.device.type == "cpu"
+    config = {"train_micro_batch_size_per_gpu": 1}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        deepspeed_tpu_torch.initialize(model=model, config=config)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=config,
+                                                device="cpu")
+    assert engine.device.type == "cpu" and engine.master.device.type == "cpu"
 
 
 def test_wrappers_refuse_cpu_tensors():
@@ -77,6 +90,23 @@ def test_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         ragged_paged_attention_cuda(q[0], kv, kv, i32[None], i32, i32, i32,
                                     i32, i32, 8)
+    # the training kernels: flash attention forward / backward, fused Adam
+    qs = torch.zeros(1, 8, 4, 128)
+    rows = torch.zeros(1, 4, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_fwd_cuda(qs, qs, qs, 0.1)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bwd_dq_cuda(qs, qs, qs, qs, rows, rows, 0.1)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bwd_dkv_cuda(qs, qs, qs, qs, rows, rows, 0.1)
+    with pytest.raises(ValueError, match="CUDA"):
+        attention(qs, qs, qs, backend="cuda")
+    flat = torch.zeros(16)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_adam_cuda(flat, flat, flat, flat, 1e-3, 0.9, 0.999, 1e-8, 0.0,
+                        True, 0.1, 0.001)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_adam(flat, flat, init_state(flat), backend="cuda")
 
 
 def test_init_inference_refuses_hf_models():
