@@ -9,28 +9,44 @@ Builds the port's hand-written CUDA kernels from this checkout with
 its plain PyTorch version, then serves Llama-2-7B at full width (random
 bf16 weights from a seeded generator) through the port's two serving
 entry points -- ``init_inference(...).generate`` and
-``create_serving_engine`` -- and trains gpt_1b at full width and depth
-through ``initialize(...).train_batch``, checking that those runs went
-through the kernels.  Phases:
+``create_serving_engine`` -- trains gpt_1b, BLOOM-1b7 and GPT-Neo-1.3B at
+full width and depth through ``initialize(...).train_batch``, and calls
+``SparseSelfAttention``, checking that those runs went through the
+kernels.  Phases:
 
   1 device   card name and power limit (nvidia-smi)
   2 build    nvcc, one process per kernel source, all at once
   3 kernels  each kernel vs its plain version: fp32 and bf16; serving
              attention MHA 32/32 and GQA 32/8; flash attention forward and
-             backward at the training shape, GQA 32/8 and S=1000; fused
-             Adam over 1,000,003 elements in both modes
+             backward at gpt_1b's shape, at GPT-Neo's global layers' (S=2048,
+             unscaled logits), GQA 32/8 and S=1000; fused Adam over
+             1,000,003 elements in both modes; the biased flash kernels with
+             ALiBi at S=2048, windows 256 (S=2048, unscaled, GPT-Neo's local
+             layers) and 100 (S=1000), ALiBi + window with GQA, a window
+             past S; the
+             block-sparse kernel for layout blocks 16-128, head dims 64 and
+             128, causal, bidirectional and empty rows
   4 generate init_inference(llama2_7b).generate, B=4, prompt 128, 32 new
   5 serve    create_serving_engine(max_batch=8, page_size=128,
              max_seq=2048).generate on 12 mixed-length prompts
   6 e2e      full width, 2 layers: paged prefill + decode, kernels vs plain
-  7 train    run_benchmark(gpt_1b, micro 2, gas 4, seq 1024): 18 layers,
-             bf16, AdamW; launches counted; a fixed batch's loss falls; one
-             train_batch profiled; 2 layers kernels vs plain (losses,
-             grad norm, then m and the update parameter by parameter)
-  8 timing   each kernel at the main path's shapes vs its bound, its plain
+  7 train    run_benchmark for gpt_1b (seq 1024), bloom_1b7 (ALiBi) and
+             gpt_neo_1_3b (global / local window 256), seq 2048, micro 2,
+             gas 4, bf16, AdamW; exact launches counted; a fixed batch's
+             loss falls and one train_batch is profiled, for each; BLOOM's
+             fixed batch again through the plain versions; 2 layers of
+             each, kernels vs plain (losses, grad norm, then m and the
+             update parameter by parameter; GPT-Neo in fp32 too, and two
+             plain engines that split the batch differently, as a witness)
+  8 sparse   SparseSelfAttention (Fixed block 16, BigBird block 64; head
+             dims 64 and 128) at B=2, S=4096, 16 heads: launches counted,
+             outputs vs the plain version; the key_padding_mask path and
+             the refusal of a gradient request
+  9 timing   each kernel at the main path's shapes vs its bound, its plain
              version and one PyTorch library call (a yardstick only); fused
              Adam held against its plain version over gpt_1b's 1.01 B
-             parameters
+             parameters; the window-256 forward must take well under the
+             ALiBi forward's time
 
 The second-to-last line of stdout is the kernels JSON, the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
@@ -324,13 +340,17 @@ def phase_kernels():
     return errs
 
 
-# B1/B2 cases: (label, B, S, H, Hkv, causal) -- the training path's shape,
-# GQA, and a sequence length that does not tile the kernels' 64-row tiles
-FLASH_CASES = [("path B=2 S=1024 H16/16", 2, 1024, 16, 16, True),
-               ("GQA B=2 S=128 H32/8", 2, 128, 32, 8, True),
-               ("non-tiling B=2 S=1000 H16/16", 2, 1000, 16, 16, True),
+# B1/B2 cases: (label, B, S, H, Hkv, causal, softmax scale; None =
+# 1/sqrt(D)) -- gpt_1b's training shape, GPT-Neo-1.3B's global layers
+# (unscaled logits, S=2048), GQA, and a sequence length that does not tile
+# the kernels' 64-row tiles
+FLASH_CASES = [("path B=2 S=1024 H16/16", 2, 1024, 16, 16, True, None),
+               ("gpt_neo_1_3b global B=2 S=2048 H16/16 scale 1", 2, 2048,
+                16, 16, True, 1.0),
+               ("GQA B=2 S=128 H32/8", 2, 128, 32, 8, True, None),
+               ("non-tiling B=2 S=1000 H16/16", 2, 1000, 16, 16, True, None),
                ("non-tiling non-causal B=1 S=1000 H4/2", 1, 1000, 4, 2,
-                False)]
+                False, None)]
 ADAM_N = 1_000_003
 # the fused Adam kernel and its plain version round the same operations
 # in the same order: they should agree to the last bit; allow 1e-6
@@ -377,8 +397,8 @@ def phase_train_kernels():
 
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
-        for label, B, S, H, Hkv, causal in FLASH_CASES:
-            scale = 1.0 / math.sqrt(D)
+        for label, B, S, H, Hkv, causal, scale in FLASH_CASES:
+            scale = scale or 1.0 / math.sqrt(D)
             q = _rand((B, S, H, D), dtype, gen)
             k = _rand((B, S, Hkv, D), dtype, gen)
             v = _rand((B, S, Hkv, D), dtype, gen)
@@ -426,6 +446,231 @@ def phase_train_kernels():
     return errs
 
 
+# biased B1/B2 cases: (label, B, S, H, Hkv, ALiBi, window, softmax scale;
+# None = 1/sqrt(D)) -- BLOOM-1b7's and GPT-Neo-1.3B's local layers'
+# training inputs (the latter unscaled), a window that is no multiple of
+# the 64-row tile over a ragged last tile, ALiBi and a window with GQA (the
+# slope is per QUERY head), and a window past S
+BIASED_CASES = [("ALiBi B=2 S=2048 H16/16 (bloom_1b7)", 2, 2048, 16, 16,
+                 True, None, None),
+                ("window 256 scale 1 B=2 S=2048 H16/16 (gpt_neo_1_3b "
+                 "local)", 2, 2048, 16, 16, False, 256, 1.0),
+                ("window 100 B=2 S=1000 H16/16", 2, 1000, 16, 16, False,
+                 100, None),
+                ("ALiBi+window 200 GQA B=2 S=640 H32/8", 2, 640, 32, 8, True,
+                 200, None),
+                ("ALiBi+window 4096 >= S B=1 S=1000 H4/2", 1, 1000, 4, 2,
+                 True, 4096, None)]
+
+
+def phase_biased_kernels():
+    """Biased B1 and B2 (ALiBi slopes, sliding windows) vs their plain
+    versions run in fp32 on the kernels' own inputs, fp32 and bf16."""
+    import torch
+    from deepspeed_tpu_torch.models.transformer import alibi_slopes
+    from deepspeed_tpu_torch.ops.cuda.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_fwd_biased_cuda)
+    from deepspeed_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_plain, flash_attention_fwd_plain)
+    gen = torch.Generator(device="cuda").manual_seed(5678)
+    D = 128
+    errs = {}
+
+    def note(kernel, dn, e):
+        errs[(kernel, dn)] = max(errs.get((kernel, dn), 0.0), e)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        for label, B, S, H, Hkv, alibi, window, scale in BIASED_CASES:
+            scale = scale or 1.0 / math.sqrt(D)
+            bias = dict(alibi_slopes=alibi_slopes(H).cuda() if alibi
+                        else None, window=window)
+            q = _rand((B, S, H, D), dtype, gen)
+            k = _rand((B, S, Hkv, D), dtype, gen)
+            v = _rand((B, S, Hkv, D), dtype, gen)
+            dout = _rand((B, S, H, D), dtype, gen)
+            out, lse = flash_attention_fwd_biased_cuda(q, k, v, scale, True,
+                                                       **bias)
+            want_o, want_lse = flash_attention_fwd_plain(
+                q.float(), k.float(), v.float(), scale, True, **bias)
+            note("flash_attention_fwd_biased", dn, check_close(
+                f"flash_attention_fwd_biased {dn} {label} O", out,
+                want_o.to(dtype)))
+            note("flash_attention_fwd_biased", dn, check_close(
+                f"flash_attention_fwd_biased {dn} {label} LSE", lse,
+                want_lse))
+            got = flash_attention_bwd_cuda(q, k, v, out, lse, dout, scale,
+                                           True, **bias)
+            want = flash_attention_bwd_plain(
+                q.float(), k.float(), v.float(), out.float(), lse,
+                dout.float(), scale, True, **bias)
+            for name, kernel, g, w in zip(
+                    ("dQ", "dK", "dV"),
+                    ("flash_attention_bwd_dq_biased",
+                     "flash_attention_bwd_dkv_biased",
+                     "flash_attention_bwd_dkv_biased"), got, want):
+                note(kernel, dn, check_close(f"{kernel} {dn} {label} {name}",
+                                             g, w.to(dtype)))
+            del q, k, v, dout, out, lse, got, want, want_o, want_lse
+    return errs
+
+
+def _sparsity_config(kind, H, block):
+    """Sparsity configs of the B6 checks, as a user builds them: Fixed
+    (unidirectional), BigBird and BSLongformer (bidirectional), Variable
+    (unidirectional, random blocks)."""
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    return {"fixed": lambda: sa.FixedSparsityConfig(
+                H, block, attention="unidirectional"),
+            "bigbird": lambda: sa.BigBirdSparsityConfig(H, block, seed=1),
+            "longformer": lambda: sa.BSLongformerSparsityConfig(
+                H, block, global_block_indices=[0, 5]),
+            "variable": lambda: sa.VariableSparsityConfig(
+                H, block, different_layout_per_head=True,
+                num_random_blocks=1, attention="unidirectional",
+                seed=2)}[kind]()
+
+
+def _sparse_layout(kind, H, block, S):
+    """(layout [H, S/block, S/block], causal) of a :func:`_sparsity_config`
+    at length S."""
+    cfg = _sparsity_config(kind, H, block)
+    return cfg.make_layout(S), cfg.attention == "unidirectional"
+
+
+# B6 cases: (layout kind, block, S); each at head dims 64 and 128
+SPARSE_CASES = [("fixed", 16, 1024), ("longformer", 32, 1024),
+                ("bigbird", 64, 1024), ("variable", 128, 1024),
+                ("empty rows", 64, 512)]
+
+
+def phase_sparse_kernels():
+    """B6 vs its plain version run in fp32 on the kernel's inputs: every
+    layout block (16, 32, 64, 128), head dims 64 and 128, fp32 and bf16,
+    causal and bidirectional layouts, and q blocks that see no key."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.ops.cuda.sparse_attention import \
+        sparse_attention_cuda
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        sparse_attention_plain
+    gen = torch.Generator(device="cuda").manual_seed(8765)
+    B, H = 2, 16
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        for kind, block, S in SPARSE_CASES:
+            if kind == "empty rows":
+                nb = S // block
+                layout = np.zeros((H, nb, nb), bool)
+                layout[:, :, 0] = True
+                layout[:, 2:5] = False            # q blocks 2-4 see nothing
+                layout[3, 1, 1] = True
+                causal = False
+            else:
+                layout, causal = _sparse_layout(kind, H, block, S)
+            for D in (64, 128):
+                q, k, v = (_rand((B, S, H, D), dtype, gen) for _ in range(3))
+                with torch.no_grad():
+                    got = sparse_attention_cuda(q, k, v, layout, block,
+                                                causal=causal)
+                    want = sparse_attention_plain(
+                        q.float(), k.float(), v.float(), layout, block,
+                        causal=causal)
+                if kind == "empty rows" and got[:, 2 * block:5 * block].abs(
+                        ).max().item() != 0.0:
+                    fail("sparse_attention: rows that see no key are not 0")
+                e = check_close(f"sparse_attention {dn} {kind} block {block} "
+                                f"D={D} B={B} S={S} H={H} causal={causal}",
+                                got, want.to(dtype))
+                worst[("sparse_attention", dn)] = max(
+                    worst.get(("sparse_attention", dn), 0.0), e)
+    return worst
+
+
+# the block-sparse entry point's calls, and B6's timing cases: (layout
+# kind, block, head dim) at bf16 B=2 S=4096 16 heads -- Fixed (block 16,
+# unidirectional) and BigBird (block 64, bidirectional), each at head dim
+# 64 (the reference's BERT-style users) and 128 (BLOOM's width)
+SPARSE_PATH = [("fixed", 16, 64), ("fixed", 16, 128), ("bigbird", 64, 64),
+               ("bigbird", 64, 128)]
+SPARSE_B, SPARSE_S, SPARSE_H = 2, 4096, 16
+
+
+def phase_sparse_path():
+    """The block-sparse entry point as a user calls it: one
+    ``SparseSelfAttention(config)`` per SPARSE_PATH case, called under
+    ``torch.no_grad()`` on bf16 [B, S, H, D] CUDA tensors, counters read
+    around the calls (each call launches the kernel once, no plain version
+    runs).  Then each output is held against the plain version run in fp32
+    on its inputs; a call with a ``key_padding_mask`` takes the dense path
+    (the JAX package's rule) and launches nothing; and a call whose inputs
+    need a gradient raises (the kernel is forward only)."""
+    import torch
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        SparseSelfAttention, sparse_attention_plain)
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    B, S, H = SPARSE_B, SPARSE_S, SPARSE_H
+    calls = []
+    for kind, block, D in SPARSE_PATH:
+        attn = SparseSelfAttention(_sparsity_config(kind, H, block),
+                                   max_seq_length=S)
+        calls.append((f"{kind} block {block} D={D}", attn,
+                      *(_rand((B, S, H, D), torch.bfloat16, gen)
+                        for _ in range(3))))
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with torch.no_grad():
+        outs = [attn(q, k, v) for _, attn, q, k, v in calls]
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    counts = read_counters()
+    want = {k: 0 for k in counts if not k.endswith("_plain")}
+    want["sparse_attention"] = len(calls)
+    got = {k: counts[k] for k in want}
+    if got != want or plain_calls(counts):
+        fail(f"SparseSelfAttention: launches {got}, expected {want}; plain "
+             f"versions {plain_calls(counts)}")
+    err = 0.0
+    for (label, attn, q, k, v), out in zip(calls, outs):
+        if tuple(out.shape) != (B, S, H, q.shape[-1]) or \
+                out.dtype != torch.bfloat16:
+            fail(f"SparseSelfAttention {label}: output {out.dtype} "
+                 f"{tuple(out.shape)}")
+        causal = attn.sparsity_config.attention == "unidirectional"
+        want_o = sparse_attention_plain(
+            q.float(), k.float(), v.float(), attn.get_layout(S),
+            attn.sparsity_config.block, causal=causal)
+        err = max(err, check_close(
+            f"SparseSelfAttention {label} B={B} S={S} H={H} bfloat16 "
+            f"causal={causal}", out, want_o.to(out.dtype)))
+        del want_o
+    _, attn, q, k, v = calls[0]
+    keep = torch.ones((B, S), dtype=torch.bool, device="cuda")
+    keep[:, -attn.sparsity_config.block:] = False
+    before = read_counters()
+    with torch.no_grad():
+        padded = attn(q, k, v, key_padding_mask=keep)
+    after = read_counters()
+    if after["sparse_attention"] != before["sparse_attention"] or \
+            after["sparse_attention_plain"] != \
+            before["sparse_attention_plain"] + 1 or \
+            not torch.isfinite(padded).all():
+        fail("SparseSelfAttention with a key_padding_mask did not take the "
+             "dense path")
+    try:
+        attn(q.detach().requires_grad_(), k, v)
+    except NotImplementedError:
+        pass
+    else:
+        fail("SparseSelfAttention on inputs that need a gradient did not "
+             "raise")
+    del calls, outs, padded
+    _free()
+    return counts, dt, err
+
+
 def _counted():
     """{counter name: (function, attribute)}: each kernel wrapper's
     ``launches`` and each plain version's ``calls``."""
@@ -434,6 +679,9 @@ def _counted():
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
     from deepspeed_tpu_torch.ops.cuda import fused_adam as fadam
     from deepspeed_tpu_torch.ops.cuda import ragged_paged_attention as rp
+    from deepspeed_tpu_torch.ops.cuda import sparse_attention as spa
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        sparse_self_attention as ssa
     return {
         "decode_attention": (da.decode_attention_cuda, "launches"),
         "ragged_paged_attention": (rp.ragged_paged_attention_cuda,
@@ -444,6 +692,13 @@ def _counted():
         "flash_attention_bwd_dkv": (fa.flash_attention_bwd_dkv_cuda,
                                     "launches"),
         "fused_adam": (fadam.fused_adam_cuda, "launches"),
+        "flash_attention_fwd_biased": (fa.flash_attention_fwd_biased_cuda,
+                                       "launches"),
+        "flash_attention_bwd_dq_biased": (
+            fa.flash_attention_bwd_dq_biased_cuda, "launches"),
+        "flash_attention_bwd_dkv_biased": (
+            fa.flash_attention_bwd_dkv_biased_cuda, "launches"),
+        "sparse_attention": (spa.sparse_attention_cuda, "launches"),
         "decode_attention_plain": (da.decode_attention_plain, "calls"),
         "paged_attention_plain": (rp.paged_attention_plain, "calls"),
         "flash_attention_fwd_plain": (
@@ -451,6 +706,7 @@ def _counted():
         "flash_attention_bwd_plain": (
             flash_attention.flash_attention_bwd_plain, "calls"),
         "fused_adam_plain": (adam.reference_impl, "calls"),
+        "sparse_attention_plain": (ssa.sparse_attention_plain, "calls"),
     }
 
 
@@ -735,15 +991,44 @@ def decode_step_ms(eng, cfg, steps=16, profiled=4):
 # ----------------------------------------------------------------------
 # training: run_benchmark(TRAIN_MODEL, ...) is the main path, nothing cut
 TRAIN_MODEL, TRAIN_BATCH, TRAIN_GAS, TRAIN_SEQ = "gpt_1b", 2, 4, 1024
+# BLOOM-1b7 and GPT-Neo-1.3B at their published shapes: the
+# TransformerConfig fields run_benchmark's shape dict adds to the GPT-style
+# defaults of benchmarks.training.model_config (LayerNorm, tanh-GELU, no
+# RoPE, tied embeddings), as the injection policies set them
+# (deepspeed_tpu/module_inject/policies.py BloomPolicy, GPTNeoPolicy).
+# bigscience/bloom-1b7 config.json: hidden_size 2048, n_layer 24, n_head
+# 16, vocab_size 250880, layer_norm_epsilon 1e-5; ALiBi (no position
+# table), word_embeddings_layernorm, biases; trained at seq 2048.
+BLOOM_1B7 = dict(hidden_size=2048, n_layers=24, n_heads=16, norm_eps=1e-5,
+                 use_alibi=True, embed_norm=True, use_bias=True,
+                 norm_bias=True)
+# EleutherAI/gpt-neo-1.3B config.json: hidden_size 2048, num_layers 24,
+# num_heads 16, vocab_size 50257, max_position_embeddings 2048,
+# attention_types [[["global", "local"], 12]], window_size 256,
+# layer_norm_epsilon 1e-5; unscaled attention logits, biases.
+GPT_NEO_1_3B = dict(hidden_size=2048, n_layers=24, n_heads=16,
+                    norm_eps=1e-5, use_bias=True, norm_bias=True,
+                    attn_scale=1.0, local_attn_pattern=(0, 256) * 12)
+# name -> (run_benchmark's model, seq, vocab_size): nothing cut
+TRAIN_MODELS = {TRAIN_MODEL: (TRAIN_MODEL, TRAIN_SEQ, None),
+                "bloom_1b7": (BLOOM_1B7, 2048, 250880),
+                "gpt_neo_1_3b": (GPT_NEO_1_3B, 2048, 50257)}
 TRAIN_STEPS = 4            # timed steps after run_benchmark's warm-up step
 FIXED_STEPS = 4            # steps on one fixed batch: the loss must fall
+# BLOOM's fixed-batch loss does not fall at every step; the same 4 steps
+# through the plain versions must give the kernels' losses within 1e-2
+# relative -- a fifth of its rise at step 4 (12.12 -> 12.78) -- so a wrong
+# gradient in the kernels would show, not the model's own path
+FIXED_PLAIN = ("bloom_1b7",)
+FIXED_PLAIN_REL_TOL = 1e-2
 # kernels vs plain training e2e (2 layers, bf16, 2 steps).  The two
 # attention paths round their bf16 outputs and gradients at different
 # places (one bf16 ulp, 2**-8 relative).  Losses and the first grad norm
-# agree within E2E_TRAIN_REL_TOL relative.  The engines' states after the
-# two steps are compared parameter by parameter, by relative L2 norm: the
-# first moment m (a sum of the gradients, so it holds B1 and B2 in every
-# layer) and the update, master minus the shared init (it holds B3 too; a
+# agree within E2E_TRAIN_REL_TOL relative.  The engines' states are
+# compared parameter by parameter, by relative L2 norm: the first moment m
+# after each step (a sum of the gradients, so it holds B1 and B2 in every
+# layer) and the update after the last step, master minus the shared init
+# (it holds B3 too; a
 # per-element limit could not: Adam's first step moves each weight by
 # lr * sign(g), so any two updates differ by at most 2 lr per step).  A
 # small gradient whose sign differs between the paths flips its update,
@@ -751,6 +1036,27 @@ FIXED_STEPS = 4            # steps on one fixed batch: the loss must fall
 E2E_TRAIN_REL_TOL = 1e-3
 E2E_M_REL_TOL = 5e-2
 E2E_UPDATE_REL_TOL = 3e-1
+# m after the first step is the gradient at identical weights, which the
+# kernels alone decide; after the second it also carries how far the
+# first update moved the two engines apart, which the model scales.  m is
+# held to E2E_M_REL_TOL after every step, but in bf16 with GPT-Neo's
+# unscaled logits (attn_scale 1) after the first only.  There a witness,
+# two plain engines that differ only in how the batch is split (micro 2 x
+# gas 2 against micro 1 x gas 4), shows how far the model alone grows a
+# rounding gap: on an H100 its bf16 m gap went 3.6e-3 -> 6.2e-2 (17x), the
+# kernels' 1.9e-2 -> 9.1e-2 (4.7x).  The later steps' m is held to
+# E2E_WITNESS_FACTOR times the witness's gap at that step.  In fp32 the
+# kernels and the plain versions differ only in summation order: m within
+# 1e-3 after every step (GPT-Neo's readings 2.1e-5, then 8.3e-4).
+E2E_WITNESS_FACTOR = 2.0
+E2E_FP32_M_REL_TOL = 1e-3
+# The key bias (BLOOM, GPT-Neo) adds q . b_k to every score of a row, which
+# the softmax drops: its exact gradient is 0, each path's is rounding
+# noise, and Adam turns that noise into steps of up to ~lr.  Those weights
+# are held only to that bound (1.5 lr per step, for Adam's later steps),
+# not to the relative limits above.
+ZERO_GRAD = ("wk_b",)
+E2E_LR = 1e-4             # benchmarks.training.ds_config's AdamW lr
 
 
 def _free():
@@ -760,62 +1066,93 @@ def _free():
     torch.cuda.empty_cache()
 
 
-def check_train_launches(counts, n_layers, gas, calls, where):
-    """Each train_batch launches, per layer and micro-batch, the flash
-    forward twice (remat recomputes it in the backward) and each backward
-    kernel once, then fused Adam once; no plain version runs."""
-    want = {"flash_attention_fwd": 2 * n_layers * gas * calls,
-            "flash_attention_bwd_dq": n_layers * gas * calls,
-            "flash_attention_bwd_dkv": n_layers * gas * calls,
-            "fused_adam": calls}
+def train_launches(cfg, gas, calls):
+    """Kernel launches of ``calls`` train_batch calls of a model with
+    config ``cfg``: per layer and micro-batch the flash forward twice
+    (remat recomputes it in the backward) and each backward kernel once,
+    then fused Adam once per call.  A layer with ALiBi slopes or a window
+    > 0 takes the biased kernels; the others -- GPT-Neo's global layers,
+    window 0, among them -- the unbiased ones, which compute the same
+    values.  Every other kernel launches 0 times."""
+    windows = cfg.local_attn_pattern or (0,) * cfg.n_layers
+    biased = sum(1 for w in windows if cfg.use_alibi or w > 0)
+    dense = cfg.n_layers - biased
+    n = gas * calls
+    want = {name: 0 for name in _counted() if not name.endswith("_plain")}
+    want.update({"flash_attention_fwd": 2 * dense * n,
+                 "flash_attention_bwd_dq": dense * n,
+                 "flash_attention_bwd_dkv": dense * n,
+                 "flash_attention_fwd_biased": 2 * biased * n,
+                 "flash_attention_bwd_dq_biased": biased * n,
+                 "flash_attention_bwd_dkv_biased": biased * n,
+                 "fused_adam": calls})
+    return want
+
+
+def check_train_launches(counts, cfg, gas, calls, where):
+    """Fails unless every kernel launched exactly :func:`train_launches`
+    times and no plain version ran."""
+    want = train_launches(cfg, gas, calls)
     got = {k: counts[k] for k in want}
     if got != want:
         fail(f"{where}: kernel launches {got}, expected {want} "
-             f"({n_layers} layers x gas {gas} x {calls} train_batch calls)")
+             f"({cfg.n_layers} layers x gas {gas} x {calls} train_batch "
+             f"calls)")
     if plain_calls(counts):
         fail(f"{where}: plain versions ran: {plain_calls(counts)}")
-    return got
+    return {k: v for k, v in got.items() if v}
 
 
-def phase_train():
-    """The training main path: run_benchmark(gpt_1b) -> initialize ->
-    train_batch, full width and depth, counters read around it."""
-    from deepspeed_tpu_torch.benchmarks.training import run_benchmark
+def phase_train(name):
+    """A training main path: run_benchmark(model) -> initialize ->
+    train_batch for TRAIN_MODELS[name], full width and depth, micro
+    TRAIN_BATCH x gas TRAIN_GAS, counters read around it.  Returns the
+    benchmark's results (with the peak device memory), the counts and the
+    kernels launched."""
+    import torch
+    from deepspeed_tpu_torch.benchmarks.training import (model_config,
+                                                         run_benchmark)
+    model, seq, vocab_size = TRAIN_MODELS[name]
+    cfg = model_config(model, seq, vocab_size=vocab_size)
+    torch.cuda.reset_peak_memory_stats()
     reset_counters()
-    out = run_benchmark(TRAIN_MODEL, batch=TRAIN_BATCH, gas=TRAIN_GAS,
-                        seq=TRAIN_SEQ, steps=TRAIN_STEPS)
+    out = run_benchmark(model, batch=TRAIN_BATCH, gas=TRAIN_GAS, seq=seq,
+                        steps=TRAIN_STEPS, vocab_size=vocab_size)
     counts = read_counters()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     _free()
     if not all(math.isfinite(x) for x in out["losses"]):
-        fail(f"train: non-finite loss {out['losses']}")
-    check_train_launches(counts, out["n_layers"], TRAIN_GAS,
-                         TRAIN_STEPS + 1, "run_benchmark")
-    return out, counts
+        fail(f"train {name}: non-finite loss {out['losses']}")
+    launched = check_train_launches(counts, cfg, TRAIN_GAS, TRAIN_STEPS + 1,
+                                    f"run_benchmark({name})")
+    return out, counts, launched
 
 
-def phase_train_fixed():
-    """gpt_1b through initialize(...).train_batch on ONE fixed batch: the
-    loss must fall.  Then one step timed on the wall clock and one
-    profiled (device time by kernel)."""
+def phase_train_fixed(name):
+    """TRAIN_MODELS[name] through initialize(...).train_batch on ONE fixed
+    batch: the loss must fall.  Then one step timed on the wall clock and
+    one profiled (device time by kernel)."""
     import numpy as np
     import torch
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.benchmarks.training import (ds_config,
                                                          model_config)
     from deepspeed_tpu_torch.models.transformer import CausalTransformerLM
-    cfg = model_config(TRAIN_MODEL, TRAIN_SEQ)
+    model, seq, vocab_size = TRAIN_MODELS[name]
+    cfg = model_config(model, seq, vocab_size=vocab_size)
     engine, *_ = deepspeed_tpu_torch.initialize(
         model=CausalTransformerLM(cfg, device="cuda").init(1),
         config=ds_config(TRAIN_BATCH, TRAIN_GAS))
     batch = {"input_ids": np.random.default_rng(11).integers(
-        0, cfg.vocab_size, (TRAIN_GAS, TRAIN_BATCH, TRAIN_SEQ))}
+        0, cfg.vocab_size, (TRAIN_GAS, TRAIN_BATCH, seq))}
     reset_counters()
     losses = [float(engine.train_batch(batch=batch))
               for _ in range(FIXED_STEPS)]
-    check_train_launches(read_counters(), cfg.n_layers, TRAIN_GAS,
-                         FIXED_STEPS, "fixed batch")
+    check_train_launches(read_counters(), cfg, TRAIN_GAS, FIXED_STEPS,
+                         f"fixed batch {name}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        fail(f"fixed batch: losses {losses} are not finite and falling")
+        fail(f"fixed batch {name}: losses {losses} are not finite and "
+             f"falling")
     torch.cuda.synchronize()
     t0 = time.time()
     engine.train_batch(batch=batch)
@@ -828,10 +1165,54 @@ def phase_train_fixed():
     return losses, step_ms, device_ms, top
 
 
-def phase_train_e2e(steps=2):
-    """Full gpt_1b width, 2 layers, seq 1024, micro 2, gas 2, bf16: one
-    engine through the kernels and one through the plain versions of
-    attention and Adam, from one init, on the same batches."""
+def phase_train_fixed_plain(name, kernel_losses):
+    """The fixed batch of :func:`phase_train_fixed` again, at full width and
+    depth, from the same init, through an engine that runs the plain
+    versions of attention and Adam: a witness of the kernels' trajectory.
+    Each loss must lie within FIXED_PLAIN_REL_TOL of the kernels'."""
+    import numpy as np
+    from deepspeed_tpu_torch.benchmarks.training import (ds_config,
+                                                         model_config)
+    from deepspeed_tpu_torch.models.transformer import CausalTransformerLM
+    from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+    from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
+    model, seq, vocab_size = TRAIN_MODELS[name]
+    cfg = model_config(model, seq, vocab_size=vocab_size)
+    engine = DeepSpeedEngine(CausalTransformerLM(cfg, device="cuda").init(1),
+                             DeepSpeedConfig(ds_config(TRAIN_BATCH,
+                                                       TRAIN_GAS)),
+                             backend="plain")
+    batch = {"input_ids": np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (TRAIN_GAS, TRAIN_BATCH, seq))}
+    reset_counters()
+    losses = [float(engine.train_batch(batch=batch))
+              for _ in range(FIXED_STEPS)]
+    counts = read_counters()
+    del engine
+    _free()
+    launched = {k: v for k, v in counts.items()
+                if not k.endswith("_plain") and v}
+    if launched:
+        fail(f"fixed batch {name} plain: kernels launched {launched}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(kernel_losses, losses))
+    if not all(np.isfinite(losses)) or rel > FIXED_PLAIN_REL_TOL:
+        fail(f"fixed batch {name}: plain versions' losses {losses} vs the "
+             f"kernels' {kernel_losses} (max rel {rel:.3e}, tol "
+             f"{FIXED_PLAIN_REL_TOL})")
+    return losses, rel
+
+
+def phase_train_e2e(name=TRAIN_MODEL, bf16=True, steps=2, witness=False):
+    """TRAIN_MODELS[name] at full width and its own seq, cut to its first
+    2 layers (GPT-Neo: one global and one local layer), micro 2, gas 2,
+    bf16 (or fp32): one engine through the kernels and one through the
+    plain versions of attention and Adam, from one init, on the same
+    batches.  Held: losses and the first grad norm; m after each step (see
+    E2E_M_REL_TOL); the update after the last step; the key bias's moves.
+    With ``witness`` a third engine runs the plain versions over the same
+    batches split as micro 1 x gas 4, and its m is compared with the
+    micro 2 x gas 2 plain engine's, step by step (see
+    E2E_WITNESS_FACTOR)."""
     import dataclasses
     import numpy as np
     import torch
@@ -840,59 +1221,96 @@ def phase_train_e2e(steps=2):
     from deepspeed_tpu_torch.models.transformer import CausalTransformerLM
     from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
-    cfg = dataclasses.replace(model_config(TRAIN_MODEL, TRAIN_SEQ),
-                              n_layers=2)
+    model, seq, vocab_size = TRAIN_MODELS[name]
+    cfg = model_config(model, seq, vocab_size=vocab_size)
+    cfg = dataclasses.replace(cfg, n_layers=2, local_attn_pattern=(
+        cfg.local_attn_pattern[:2] if cfg.local_attn_pattern else None))
     rng = np.random.default_rng(12)
-    batches = [{"input_ids": rng.integers(0, cfg.vocab_size,
-                                          (2, 2, TRAIN_SEQ))}
+    batches = [{"input_ids": rng.integers(0, cfg.vocab_size, (2, 2, seq))}
                for _ in range(steps)]
+    runs = [("cuda", 2, 2), ("plain", 2, 2)] + (
+        [("plain", 1, 4)] if witness else [])
     res, state, init = {}, {}, None
-    for backend in ("cuda", "plain"):
+    for backend, micro, gas in runs:
+        conf = ds_config(micro, gas)
+        if not bf16:
+            del conf["bf16"]
         engine = DeepSpeedEngine(
             CausalTransformerLM(cfg, device="cuda").init(5),
-            DeepSpeedConfig(ds_config(2, 2)), backend=backend)
+            DeepSpeedConfig(conf), backend=backend)
         if init is None:
             init = engine.master.clone()
         elif not torch.equal(engine.master, init):
-            fail("train e2e: the two engines start from different weights")
-        losses, norms = [], []
+            fail("train e2e: the engines start from different weights")
+        losses, norms, moments = [], [], []
         for b in batches:
-            losses.append(float(engine.train_batch(batch=b)))
+            ids = b["input_ids"].reshape(gas, micro, seq)
+            losses.append(float(engine.train_batch(batch={"input_ids": ids})))
             norms.append(engine.get_global_grad_norm())
-        res[backend] = (losses, norms)
-        state[backend] = (engine.master.clone(), engine.opt_state.m.clone())
+            moments.append(engine.opt_state.m.clone())
+        res[backend, micro] = (losses, norms)
+        state[backend, micro] = (engine.master.clone(), moments)
         names, sizes = zip(*[(n, p.numel())
                              for n, p in engine.module.named_parameters()])
         del engine
         _free()
-    (lk, nk), (lp, n_p) = res["cuda"], res["plain"]
+    (lk, nk), (lp, n_p) = res["cuda", 2], res["plain", 2]
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
     norm_rel = abs(nk[0] - n_p[0]) / abs(n_p[0])
+    label = f"{name} {'bf16' if bf16 else 'fp32'}"
     if not np.isfinite(lk + nk).all() or loss_rel > E2E_TRAIN_REL_TOL or \
             norm_rel > E2E_TRAIN_REL_TOL:
-        fail(f"train e2e: kernels {lk} / norm {nk[0]} vs plain {lp} / norm "
-             f"{n_p[0]} (tol {E2E_TRAIN_REL_TOL} relative)")
+        fail(f"train e2e {label}: kernels {lk} / norm {nk[0]} vs plain {lp} "
+             f"/ norm {n_p[0]} (tol {E2E_TRAIN_REL_TOL} relative)")
 
     def worst(a, b):
-        """Largest ||a - b|| / ||b|| over the parameters, and its name."""
-        rels = [((x - y).norm() / y.norm()).item()
-                for x, y in zip(a.split(sizes), b.split(sizes))]
+        """Largest ||a - b|| / ||b|| over the parameters whose gradient is
+        not 0 in exact arithmetic, and its name."""
+        rels = [((x - y).norm() / y.norm()).item() if not
+                n.endswith(ZERO_GRAD) else 0.0
+                for n, x, y in zip(names, a.split(sizes), b.split(sizes))]
         i = max(range(len(rels)), key=rels.__getitem__)
         return rels[i], names[i]
 
-    (mk, mom_k), (mp, mom_p) = state["cuda"], state["plain"]
-    if not (torch.isfinite(mk).all() and torch.isfinite(mom_k).all()):
-        fail("train e2e: the kernels' master or m is not finite")
-    m_rel = worst(mom_k, mom_p)
+    (mk, mom_k), (mp, mom_p) = state["cuda", 2], state["plain", 2]
+    if not (torch.isfinite(mk).all() and torch.isfinite(mom_k[-1]).all()):
+        fail(f"train e2e {label}: the kernels' master or m is not finite")
+    for n, xk, xp, x0 in zip(names, mk.split(sizes), mp.split(sizes),
+                             init.split(sizes)):
+        moved = max((xk - x0).abs().max().item(),
+                    (xp - x0).abs().max().item())
+        if n.endswith(ZERO_GRAD) and moved > 1.5 * E2E_LR * steps:
+            fail(f"train e2e {label}: {n} moved {moved:.3e}, more than "
+                 f"Adam's {steps} steps of lr {E2E_LR} allow")
+    m_rels = [worst(a, b) for a, b in zip(mom_k, mom_p)]
     upd_rel = worst(mk - init, mp - init)
     master_err = (mk - mp).abs().max().item()
-    if m_rel[0] > E2E_M_REL_TOL or upd_rel[0] > E2E_UPDATE_REL_TOL:
-        fail(f"train e2e: after {steps} steps, m differs by {m_rel[0]:.3e} "
-             f"relative in {m_rel[1]} (tol {E2E_M_REL_TOL}), the update by "
-             f"{upd_rel[0]:.3e} in {upd_rel[1]} (tol {E2E_UPDATE_REL_TOL})")
-    return dict(lk=lk, lp=lp, nk=nk[0], n_p=n_p[0], loss_rel=loss_rel,
-                norm_rel=norm_rel, m_rel=m_rel, upd_rel=upd_rel,
-                master_err=master_err)
+    m_tol = E2E_M_REL_TOL if bf16 else E2E_FP32_M_REL_TOL
+    witness_rels = None
+    if witness:
+        mw, mom_w = state["plain", 1]
+        if not (torch.isfinite(mw).all() and torch.isfinite(mom_w[-1]).all()):
+            fail(f"train e2e {label}: the witness's master or m is not "
+                 f"finite")
+        witness_rels = [worst(a, b) for a, b in zip(mom_w, mom_p)]
+    # m's limit by step: m_tol, but after the first step of a bf16 run with
+    # unscaled logits E2E_WITNESS_FACTOR times the witness's gap
+    m_tols = [m_tol] * steps
+    if bf16 and cfg.attn_scale == 1.0:
+        if not witness:
+            fail(f"train e2e {label}: unscaled logits in bf16 need the "
+                 f"witness to hold m after step 1")
+        m_tols[1:] = [E2E_WITNESS_FACTOR * w for w, _ in witness_rels[1:]]
+    if any(r > t for (r, _), t in zip(m_rels, m_tols)) or \
+            upd_rel[0] > E2E_UPDATE_REL_TOL:
+        fail(f"train e2e {label}: m differs by {m_rels} (relative L2, worst "
+             f"parameter, by step; tol {m_tols}), the update after {steps} "
+             f"steps by {upd_rel[0]:.3e} in {upd_rel[1]} (tol "
+             f"{E2E_UPDATE_REL_TOL})")
+    return dict(label=label, lk=lk, lp=lp, nk=nk[0], n_p=n_p[0],
+                loss_rel=loss_rel, norm_rel=norm_rel, m_rels=m_rels,
+                m_tols=m_tols, upd_rel=upd_rel, master_err=master_err,
+                witness_rels=witness_rels)
 
 
 def phase_train_timing(errs):
@@ -1020,6 +1438,167 @@ def phase_train_timing(errs):
     return res
 
 
+# the biased kernels' timing cases: (label, ALiBi, window, softmax scale)
+# at bf16 B=2 S=2048 16 heads of 128 causal -- BLOOM-1b7's layers and
+# GPT-Neo-1.3B's local layers (unscaled logits); the first is the kernels
+# JSON row
+BIASED_TIMING = [("ALiBi (bloom_1b7)", True, None, 1.0 / math.sqrt(128)),
+                 ("window 256 (gpt_neo_1_3b local)", False, 256, 1.0)]
+
+
+def phase_biased_timing(errs):
+    """Biased B1 and B2 (dQ, dK/dV) at the new training paths' shapes
+    (BIASED_TIMING): kernel, plain version, library call and bound.  The
+    library call is SDPA with ALiBi as a float ``attn_mask`` (slope * key,
+    -inf above the diagonal) or the window as a boolean one.  The bound
+    counts the operations of the (q, k) pairs the function must visit
+    (causal and in the window), each input read once and each output
+    written once.  CUDA-graph replay over 4 rotating input sets."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.models.transformer import alibi_slopes
+    from deepspeed_tpu_torch.ops.cuda.flash_attention import (
+        flash_attention_bwd_dkv_biased_cuda,
+        flash_attention_bwd_dq_biased_cuda, flash_attention_fwd_biased_cuda)
+    from deepspeed_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_plain, flash_attention_fwd_plain)
+    B, S, H, D = TRAIN_BATCH, 2048, 16, 128
+    dt, c = torch.bfloat16, 4
+    gen = torch.Generator(device="cuda").manual_seed(78)
+    q, k, v, do = (_rand((c, B, S, H, D), dt, gen) for _ in range(4))
+    qt, kt, vt, dot = (x.transpose(2, 3).contiguous() for x in (q, k, v, do))
+    pos = torch.arange(S, device="cuda")
+    e, f4 = B * S * H * D * 2, B * H * S * 4
+    res = {}
+    for label, alibi, window, scale in BIASED_TIMING:
+        slopes = alibi_slopes(H).cuda() if alibi else None
+        kw = dict(alibi_slopes=slopes, window=window)
+        outs = [flash_attention_fwd_biased_cuda(q[i], k[i], v[i], scale,
+                                                True, **kw) for i in range(c)]
+        o = torch.stack([x[0] for x in outs])
+        lse = torch.stack([x[1] for x in outs])
+        delta = (do.float() * o.float()).sum(-1).transpose(2, 3).contiguous()
+        allowed = pos[:, None] >= pos[None, :]
+        if window:
+            allowed &= pos[:, None] - pos[None, :] < window
+        pairs = int(allowed.sum())
+        if alibi:
+            mask = (slopes[:, None, None] * pos.float()[None, None, :]
+                    ).masked_fill(~allowed, float("-inf")).to(dt)[None]
+        else:
+            mask = allowed
+        leaves = [[x[i].clone().requires_grad_() for x in (qt, kt, vt)]
+                  for i in range(c)]
+
+        def sdpa_fwd_bwd(i):
+            a, b_, v_ = leaves[i]
+            out = F.scaled_dot_product_attention(a, b_, v_, attn_mask=mask,
+                                                 scale=scale)
+            torch.autograd.grad(out, (a, b_, v_), dot[i])
+
+        times = {
+            "fwd": graph_ms(lambda i: flash_attention_fwd_biased_cuda(
+                q[i], k[i], v[i], scale, True, **kw), c),
+            "dq": graph_ms(lambda i: flash_attention_bwd_dq_biased_cuda(
+                q[i], k[i], v[i], do[i], lse[i], delta[i], scale, True,
+                **kw), c),
+            "dkv": graph_ms(lambda i: flash_attention_bwd_dkv_biased_cuda(
+                q[i], k[i], v[i], do[i], lse[i], delta[i], scale, True,
+                **kw), c)}
+        plain_fwd = graph_ms(lambda i: flash_attention_fwd_plain(
+            q[i], k[i], v[i], scale, True, **kw), c)
+        plain_bwd = graph_ms(lambda i: flash_attention_bwd_plain(
+            q[i], k[i], v[i], o[i], lse[i], do[i], scale, True, **kw), c)
+        lib_fwd = graph_ms(lambda i: F.scaled_dot_product_attention(
+            qt[i], kt[i], vt[i], attn_mask=mask, scale=scale), c)
+        lib_bwd = graph_ms(sdpa_fwd_bwd, c) - lib_fwd
+        extra = H * 4 if alibi else 0           # the slopes
+        flops = {"fwd": 4 * B * H * pairs * D, "dq": 6 * B * H * pairs * D,
+                 "dkv": 8 * B * H * pairs * D}
+        nbytes = {"fwd": 4 * e + f4 + extra, "dq": 5 * e + 2 * f4 + extra,
+                  "dkv": 6 * e + 2 * f4 + extra}
+        for name, key, plain_ms, lib_ms in (
+                ("flash_attention_fwd_biased", "fwd", plain_fwd, lib_fwd),
+                ("flash_attention_bwd_dq_biased", "dq", plain_bwd, lib_bwd),
+                ("flash_attention_bwd_dkv_biased", "dkv", plain_bwd,
+                 lib_bwd)):
+            bound_ms, bound_by = _bound(nbytes[key], flops[key], "bfloat16")
+            res[(name, label)] = dict(
+                ms=times[key], plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                max_abs_err=errs[(name, "bfloat16")],
+                shape=f"B={B} S={S} H={H}/{H} D={D} {label}, {pairs} (q, k) "
+                      f"pairs, bf16")
+        del outs, o, lse, delta, mask, leaves
+        _free()
+    del q, k, v, do, qt, kt, vt, dot
+    _free()
+    for (name, _), r in res.items():
+        phase("timing", f"{name} [{r['shape']}]: device ms kernel "
+              f"{r['ms']:.4f}, plain {r['plain_ms']:.4f}, library "
+              f"{r['library_ms']:.4f}; bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.3f} of bound")
+    return res
+
+
+def phase_sparse_timing(err):
+    """B6 at the entry point's shapes (SPARSE_PATH): the kernel by
+    CUDA-graph replay over 4 rotating input sets; the plain version
+    eagerly by CUDA events (it expands the layout on the host at every
+    call); the library call, SDPA with the expanded layout (and causal)
+    mask as a boolean ``attn_mask``; the bound, B * sparse_flops
+    operations on q, k, v, o and the two tables moved once."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.cuda.sparse_attention import (
+        card_tables, layout_tables, sparse_attention_cuda, sparse_flops)
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        expand_layout_mask, sparse_attention_plain)
+    B, S, H = SPARSE_B, SPARSE_S, SPARSE_H
+    dt, c = torch.bfloat16, 4
+    gen = torch.Generator(device="cuda").manual_seed(79)
+    res = {}
+    for kind, block, D in SPARSE_PATH:
+        layout, causal = _sparse_layout(kind, H, block, S)
+        q, k, v = (_rand((c, B, S, H, D), dt, gen) for _ in range(3))
+        qt, kt, vt = (x.transpose(2, 3).contiguous() for x in (q, k, v))
+        mask = torch.as_tensor(expand_layout_mask(layout, block, S),
+                               device="cuda")
+        if causal:
+            mask &= torch.ones((S, S), dtype=torch.bool,
+                               device="cuda").tril()
+        # the tables on the card, made once, as SparseSelfAttention keeps
+        # them (a host-to-card copy cannot run inside a graph capture)
+        tables = card_tables(layout, causal, "cuda")
+        ms = graph_ms(lambda i: sparse_attention_cuda(
+            q[i], k[i], v[i], layout, block, causal=causal, tables=tables),
+            c)
+        plain_ms = time_ms(lambda i: sparse_attention_plain(
+            q[i % c], k[i % c], v[i % c], layout, block, causal=causal),
+            iters=3, warmup=1)
+        lib_ms = graph_ms(lambda i: F.scaled_dot_product_attention(
+            qt[i], kt[i], vt[i], attn_mask=mask), c)
+        table, counts, _ = layout_tables(layout, causal)
+        flops = B * sparse_flops(layout, block, causal, D)
+        nbytes = 4 * B * S * H * D * 2 + table.nbytes + counts.nbytes
+        bound_ms, bound_by = _bound(nbytes, flops, "bfloat16")
+        label = f"{kind} block {block} D={D}"
+        res[("sparse_attention", label)] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+            bound_by=bound_by, max_abs_err=err,
+            shape=f"B={B} S={S} H={H} {label} causal={causal}, "
+                  f"{int(counts.sum())} of {H * (S // block) ** 2} blocks "
+                  f"set, bf16")
+        del q, k, v, qt, kt, vt, mask, tables
+        _free()
+    for (name, _), r in res.items():
+        phase("timing", f"{name} [{r['shape']}]: device ms kernel "
+              f"{r['ms']:.4f}, plain {r['plain_ms']:.4f} (eager), library "
+              f"{r['library_ms']:.4f}; bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.3f} of bound")
+    return res
+
+
 # ----------------------------------------------------------------------
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1039,6 +1618,8 @@ def main():
     phase_build()
     errs = phase_kernels()
     errs.update(phase_train_kernels())
+    errs.update(phase_biased_kernels())
+    errs.update(phase_sparse_kernels())
     if args.kernels_only:
         phase("done", f"kernels only, {time.time() - t_start:.1f} s")
         return
@@ -1112,44 +1693,87 @@ def main():
           f"kernel vs plain logits rel err {rel:.3e} (tol {E2E_REL_TOL}), "
           f"argmax agreement {agree:.4f}")
 
-    # ---- main path 2: training, counters read around run_benchmark ----
-    out, train_counts = phase_train()
-    TL = out["n_layers"]
-    phase("train", f"run_benchmark({TRAIN_MODEL}): {TL} layers, "
-          f"{out['n_params'] / 1e9:.3f} B params, micro {TRAIN_BATCH} x gas "
-          f"{TRAIN_GAS} x seq {TRAIN_SEQ}, bf16, AdamW lr 1e-4; "
-          f"{out['ms_per_train_batch']:.1f} ms per train_batch, "
-          f"{out['tokens_per_sec']:.1f} tokens/s, "
-          f"{out['model_tflops']:.2f} TFLOP/s, MFU {out['mfu']:.4f} of "
-          f"989 TFLOP/s; losses {[round(x, 4) for x in out['losses']]}")
-    train_kernels = ("flash_attention_fwd", "flash_attention_bwd_dq",
-                     "flash_attention_bwd_dkv", "fused_adam")
-    launches = {**counts, **{k: train_counts[k] for k in train_kernels}}
-    phase("train", f"launches in {TRAIN_STEPS + 1} train_batch calls: "
-          f"{[launches[k] for k in train_kernels]} for {train_kernels} = "
-          f"per call {2 * TL * TRAIN_GAS} / {TL * TRAIN_GAS} / "
-          f"{TL * TRAIN_GAS} / 1; plain versions 0")
-    losses, step_ms, device_ms, top = phase_train_fixed()
-    phase("train", f"fixed batch, {FIXED_STEPS} steps: losses "
-          f"{[round(x, 4) for x in losses]} (falling); one train_batch "
-          f"{step_ms:.1f} ms wall, device {device_ms:.1f} ms (profiler), "
-          f"busy share {device_ms / step_ms:.3f}")
-    for name, k_ms in top:
-        phase("train", f"  device ms/train_batch {k_ms:.3f}  {name[:90]}")
-    r = phase_train_e2e()
-    phase("e2e", f"train, 2 layers full width, 2 train_batch steps: losses "
-          f"kernels {r['lk']} vs plain {r['lp']} (max rel "
-          f"{r['loss_rel']:.2e}); first grad norm {r['nk']:.5f} vs "
-          f"{r['n_p']:.5f} (rel {r['norm_rel']:.2e}); tol "
-          f"{E2E_TRAIN_REL_TOL}")
-    phase("e2e", f"train state after 2 steps, worst parameter: m rel L2 "
-          f"{r['m_rel'][0]:.3e} ({r['m_rel'][1]}; tol {E2E_M_REL_TOL}), "
-          f"update rel L2 {r['upd_rel'][0]:.3e} ({r['upd_rel'][1]}; tol "
-          f"{E2E_UPDATE_REL_TOL}); master max abs diff "
-          f"{r['master_err']:.3e}")
+    # ---- training main paths, counters read around each run_benchmark --
+    launches = {k: v for k, v in counts.items() if not k.endswith("_plain")}
+    for name, (_, seq, _) in TRAIN_MODELS.items():
+        out, train_counts, launched = phase_train(name)
+        for k in launches:
+            launches[k] += train_counts[k]
+        phase("train", f"run_benchmark({name}): {out['n_layers']} layers, "
+              f"{out['n_params'] / 1e9:.3f} B params, micro {TRAIN_BATCH} x "
+              f"gas {TRAIN_GAS} x seq {seq}, bf16, AdamW lr 1e-4; "
+              f"{out['ms_per_train_batch']:.1f} ms per train_batch, "
+              f"{out['tokens_per_sec']:.1f} tokens/s, "
+              f"{out['model_tflops']:.2f} TFLOP/s, MFU {out['mfu']:.4f} of "
+              f"989 TFLOP/s; peak memory {out['peak_gb']:.1f} GB; losses "
+              f"{[round(x, 4) for x in out['losses']]}")
+        phase("train", f"launches in {TRAIN_STEPS + 1} train_batch calls of "
+              f"{name}: {launched}; every other kernel 0, plain versions 0")
+    for name in TRAIN_MODELS:
+        losses, step_ms, device_ms, top = phase_train_fixed(name)
+        phase("train", f"{name} fixed batch, {FIXED_STEPS} steps: losses "
+              f"{[round(x, 4) for x in losses]} (falling); one train_batch "
+              f"{step_ms:.1f} ms wall, device {device_ms:.1f} ms (profiler), "
+              f"busy share {device_ms / step_ms:.3f}")
+        for kname, k_ms in top:
+            phase("train", f"  {name} device ms/train_batch {k_ms:.3f}  "
+                  f"{kname[:90]}")
+        if name in FIXED_PLAIN:
+            plain_losses, rel = phase_train_fixed_plain(name, losses)
+            phase("train", f"{name} fixed batch through the plain versions "
+                  f"(full width and depth): losses "
+                  f"{[round(x, 4) for x in plain_losses]}, max rel "
+                  f"{rel:.3e} from the kernels' (tol {FIXED_PLAIN_REL_TOL})")
+    # 2-layer kernels vs plain: each model in bf16; GPT-Neo in fp32 too,
+    # where no bf16 rounding blurs what its unscaled logits amplify
+    for name, bf16 in [(n, True) for n in TRAIN_MODELS] + [
+            ("gpt_neo_1_3b", False)]:
+        r = phase_train_e2e(name, bf16=bf16,
+                            witness=name == "gpt_neo_1_3b")
+        phase("e2e", f"train {r['label']}, 2 layers full width, 2 "
+              f"train_batch steps: losses kernels {r['lk']} vs plain "
+              f"{r['lp']} (max rel {r['loss_rel']:.2e}); first grad norm "
+              f"{r['nk']:.5f} vs {r['n_p']:.5f} (rel {r['norm_rel']:.2e}); "
+              f"tol {E2E_TRAIN_REL_TOL}")
+        phase("e2e", f"train {r['label']} state, worst parameter: m rel L2 "
+              f"by step {[(f'{x:.3e}', n) for x, n in r['m_rels']]} (tol "
+              f"by step {[f'{t:.3e}' for t in r['m_tols']]}), update after "
+              f"2 steps rel L2 {r['upd_rel'][0]:.3e} ({r['upd_rel'][1]}; tol "
+              f"{E2E_UPDATE_REL_TOL}); master max abs diff "
+              f"{r['master_err']:.3e}")
+        if r["witness_rels"]:
+            phase("e2e", f"train {r['label']} witness, plain micro 1 x gas 4"
+                  f" vs plain micro 2 x gas 2: m rel L2 by step "
+                  f"{[(f'{x:.3e}', n) for x, n in r['witness_rels']]}")
+
+    # ---- block-sparse entry point, counters read around its calls -----
+    sparse_counts, t_sparse, sparse_err = phase_sparse_path()
+    for k in launches:
+        launches[k] += sparse_counts[k]
+    phase("sparse", f"SparseSelfAttention x {len(SPARSE_PATH)} "
+          f"{[f'{k} block {b} D={d}' for k, b, d in SPARSE_PATH]} at B="
+          f"{SPARSE_B} S={SPARSE_S} H={SPARSE_H} bf16: {t_sparse * 1e3:.1f} ms"
+          f" wall, kernel launches {sparse_counts['sparse_attention']}, plain "
+          f"versions 0; a key_padding_mask call took the dense path, a "
+          f"gradient request raised")
 
     timing = phase_timing(cfg, SERVE_PROMPTS[:SERVE_SLOTS])
     timing.update(phase_train_timing(errs))
+    biased = phase_biased_timing(errs)
+    sparse = phase_sparse_timing(sparse_err)
+    alibi_label, window_label = (b[0] for b in BIASED_TIMING)
+    ratio = (biased[("flash_attention_fwd_biased", window_label)]["ms"] /
+             biased[("flash_attention_fwd_biased", alibi_label)]["ms"])
+    phase("timing", f"biased forward, window 256 vs ALiBi at S=2048: "
+          f"{ratio:.3f} of the time (the window's key-tile skip)")
+    if ratio > 0.6:
+        fail(f"the window-256 forward takes {ratio:.3f} of the ALiBi "
+             f"forward's time: its key-tile skip does not work")
+    sparse_label = "{} block {} D={}".format(*SPARSE_PATH[0])
+    for name in ("flash_attention_fwd_biased", "flash_attention_bwd_dq_biased",
+                 "flash_attention_bwd_dkv_biased"):
+        timing[name] = biased[(name, alibi_label)]
+    timing["sparse_attention"] = sparse[("sparse_attention", sparse_label)]
     kernels = []
     pallas = "deepspeed_tpu/ops/pallas/"
     csrc = "deepspeed_tpu_torch/ops/csrc/"
@@ -1165,9 +1789,19 @@ def main():
         "flash_attention_bwd_dkv": (csrc + "flash_attention_bwd.cu",
                                     pallas + "flash_attention.py:278"),
         "fused_adam": (csrc + "fused_adam.cu", pallas + "fused_adam.py:30"),
+        "flash_attention_fwd_biased": (csrc + "flash_attention_fwd.cu",
+                                       pallas + "flash_attention.py:92"),
+        "flash_attention_bwd_dq_biased": (csrc + "flash_attention_bwd.cu",
+                                          pallas + "flash_attention.py:229"),
+        "flash_attention_bwd_dkv_biased": (csrc + "flash_attention_bwd.cu",
+                                           pallas + "flash_attention.py:286"),
+        "sparse_attention": (csrc + "sparse_attention.cu",
+                             pallas + "sparse_attention.py:54"),
     }
     for name, (source, replaces) in meta.items():
         t = timing[name]
+        if not launches[name]:
+            fail(f"{name} never launched on the main paths")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],

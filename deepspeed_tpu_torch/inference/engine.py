@@ -12,7 +12,8 @@ the engine's device, so its streams are not the JAX engine's.
 
 Not ported in this slice: tensor parallelism (ROADMAP A14), ZeRO-Inference
 weight streaming and int8 weight-only quantization (A12), checkpoint
-loading (A10).
+loading (A10), decoding ALiBi / sliding-window / embedding-norm models
+(A18).
 """
 
 from typing import Any, Optional
@@ -23,6 +24,7 @@ import torch
 from deepspeed_tpu_torch.accelerator import get_accelerator
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
 from deepspeed_tpu_torch.inference.serving import to_torch_dtype
+from deepspeed_tpu_torch.models.transformer import check_servable
 from deepspeed_tpu_torch.utils.logging import log_dist
 
 
@@ -43,6 +45,9 @@ class InferenceEngine:
         if config.checkpoint:
             raise NotImplementedError("checkpoint loading is not ported yet "
                                       "(ROADMAP A10)")
+        # ALiBi / window / embedding-norm models raise here, not at the
+        # first token
+        check_servable(model.config)
         self.module = model
         self._config = config
         self.dtype = to_torch_dtype(config.dtype)

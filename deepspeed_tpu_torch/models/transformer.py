@@ -12,15 +12,19 @@ parameters carry the JAX param-tree names (``tok_embed``,
 Ported: RoPE (full, partial ``rope_dim``, or a scaled ``rope_inv_freq``
 table) or learned positions; RMSNorm or LayerNorm (with or without bias);
 SwiGLU / GLU or plain MLPs over the activation table; linear biases; GQA;
-tied or untied heads with an optional head bias; and ``attn_scale``.  The
-other architecture switches (ALiBi, local windows, softcaps, qk-norm,
-clip_qkv, parallel blocks, sandwich / post norms, residual or embedding
-scales, embedding norm, logit scale, MoE) raise ``NotImplementedError``
-naming ROADMAP A16 / A14.
+tied or untied heads with an optional head bias; ``attn_scale``; and, on
+the training path only, ALiBi (BLOOM: no position table), per-layer
+sliding windows (``local_attn_pattern``, GPT-Neo) and the LayerNorm after
+the embedding (``embed_norm``).  The serving paths raise for those three
+(ROADMAP A18: the JAX package decodes them with a materialised bias).  The
+other architecture switches (softcaps, qk-norm, clip_qkv, parallel blocks,
+sandwich / post norms, residual or embedding scales, logit scale, MoE)
+raise ``NotImplementedError`` naming ROADMAP A16 / A14.
 
 Two paths use it: serving (``apply_with_cache``, ``apply_with_paged_cache``,
 under ``torch.no_grad``) and training (``apply``, ``loss``: causal flash
-attention through ``ops/attention.attention``, per-layer remat with
+attention through ``ops/attention.attention`` -- with ALiBi slopes and the
+layer's window, the biased kernels -- per-layer remat with
 ``torch.utils.checkpoint``, the next-token cross-entropy chunked so no
 [B, S, V] fp32 logits tensor is kept).
 
@@ -231,10 +235,8 @@ _ACTIVATIONS = {
     "gelu_exact": F.gelu,
 }
 
-# switches this slice does not serve, with the ROADMAP item that ports them
+# switches the port does not take, with the ROADMAP item that ports them
 _UNSUPPORTED = (
-    ("use_alibi", "ALiBi", "A16"),
-    ("local_attn_pattern", "local attention windows", "A16"),
     ("attn_logit_softcap", "attention logit softcap", "A16"),
     ("final_logit_softcap", "final logit softcap", "A16"),
     ("final_logit_scale", "final logit scale", "A16"),
@@ -244,20 +246,57 @@ _UNSUPPORTED = (
     ("post_norm_only", "post-norm blocks", "A16"),
     ("residual_scale", "residual scale", "A16"),
     ("embed_scale", "embedding scale", "A16"),
-    ("embed_norm", "embedding norm", "A16"),
     ("is_moe", "MoE layers", "A14"),
+)
+# switches the training path takes and the serving paths do not
+_NOT_SERVED = (
+    ("use_alibi", "ALiBi"),
+    ("local_attn_pattern", "local attention windows"),
+    ("embed_norm", "embedding norm"),
 )
 
 
 def check_supported(c: TransformerConfig):
-    """Raise ``NotImplementedError`` for a configuration this slice does
-    not serve, naming the ROADMAP item that ports it."""
+    """Raise ``NotImplementedError`` for a configuration the port does not
+    take, naming the ROADMAP item that ports it."""
     for attr, what, item in _UNSUPPORTED:
         if getattr(c, attr):
             raise NotImplementedError(
                 f"{what} ({attr}) is not ported yet (ROADMAP {item})")
     if c.activation not in _ACTIVATIONS:
         raise ValueError(f"unknown activation {c.activation!r}")
+    if c.local_attn_pattern and len(c.local_attn_pattern) != c.n_layers:
+        raise ValueError(f"local_attn_pattern has "
+                         f"{len(c.local_attn_pattern)} windows for "
+                         f"{c.n_layers} layers")
+
+
+def check_servable(c: TransformerConfig):
+    """Raise ``NotImplementedError`` for a configuration the serving paths
+    (contiguous and paged KV caches) do not decode: ALiBi, local windows
+    and the embedding norm train, but decoding them waits for ROADMAP
+    A18."""
+    for attr, what in _NOT_SERVED:
+        if getattr(c, attr):
+            raise NotImplementedError(
+                f"decoding a model with {what} ({attr}) is not ported yet "
+                f"(ROADMAP A18); the training path takes it")
+
+
+def alibi_slopes(n_heads: int) -> torch.Tensor:
+    """Per-head ALiBi slopes, fp32 [n_heads] on the CPU -- the JAX
+    package's ``alibi_slopes`` (HF ``build_alibi_tensor``): geometric
+    slopes for the largest power-of-two head count, interleaved extras
+    beyond.  16 heads: 2^-0.5 ... 2^-8."""
+    def pow2_slopes(n):
+        start = 2.0 ** (-(2.0 ** -(math.log2(n) - 3)))
+        return [start ** (i + 1) for i in range(n)]
+
+    n = 2 ** math.floor(math.log2(n_heads))
+    slopes = pow2_slopes(n)
+    if n < n_heads:
+        slopes += pow2_slopes(2 * n)[0::2][: n_heads - n]
+    return torch.tensor(slopes, dtype=torch.float32)
 
 
 def _norm(x, weight, eps, use_rms, bias=None):
@@ -439,7 +478,11 @@ class CausalTransformerLM(nn.Module):
         self.final_norm = p(d)
         if c.norm_bias:
             self.final_norm_b = p(d)
-        if not c.use_rope:
+        if c.embed_norm:
+            self.embed_norm = p(d)
+            if c.norm_bias:
+                self.embed_norm_b = p(d)
+        if not c.use_rope and not c.use_alibi:
             self.pos_embed = p(c.max_seq_len, d)
         if not c.tie_embeddings:
             self.lm_head = p(d, v)
@@ -447,6 +490,7 @@ class CausalTransformerLM(nn.Module):
                 self.lm_head_b = p(v)
         self.layers = nn.ModuleList(
             [TransformerBlock(c, device, dtype) for _ in range(c.n_layers)])
+        self._slopes = {}       # device -> ALiBi slopes, made once
 
     @property
     def device(self):
@@ -502,10 +546,23 @@ class CausalTransformerLM(nn.Module):
         return x + _proj(inner, layer, "w_down")
 
     def _embed(self, input_ids, positions):
+        c = self.config
         x = self.tok_embed[input_ids]
-        if not self.config.use_rope:
+        if not c.use_rope and not c.use_alibi:
             x = x + self.pos_embed[positions].to(x.dtype)
+        if c.embed_norm:
+            x = _norm(x, self.embed_norm, c.norm_eps, c.use_rmsnorm,
+                      getattr(self, "embed_norm_b", None))
         return x
+
+    def _alibi_slopes(self, device):
+        """The model's ALiBi slopes on ``device`` (None without ALiBi)."""
+        if not self.config.use_alibi:
+            return None
+        if device not in self._slopes:
+            self._slopes[device] = alibi_slopes(self.config.n_heads).to(
+                device)
+        return self._slopes[device]
 
     def _final_norm(self, x):
         c = self.config
@@ -540,11 +597,15 @@ class CausalTransformerLM(nn.Module):
     # ------------------------------------------------------------------
     # training forward (DeepSpeedEngine)
     # ------------------------------------------------------------------
-    def _train_layer(self, x, layer, positions, attn_backend):
+    def _train_layer(self, x, layer, positions, attn_backend, window):
+        """One training block.  ``window``: the layer's sliding window from
+        ``local_attn_pattern`` (0 = global) or None; with ALiBi slopes or a
+        window > 0 the attention is the biased flash kernels'."""
         c = self.config
+        slopes = self._alibi_slopes(x.device)
         return self._layer(x, layer, positions, lambda q, k, v: attention(
             q, k, v, causal=True, softmax_scale=c.attn_scale,
-            backend=attn_backend))
+            backend=attn_backend, alibi_slopes=slopes, window=window))
 
     def apply(self, input_ids, positions=None, return_hidden=False,
               attn_backend="auto"):
@@ -562,12 +623,15 @@ class CausalTransformerLM(nn.Module):
             positions = torch.arange(S, device=input_ids.device).expand(B, S)
         x = self._embed(input_ids, positions)
         remat = self.config.remat and torch.is_grad_enabled()
-        for layer in self.layers:
+        windows = self.config.local_attn_pattern or (None,) * len(
+            self.layers)
+        for layer, window in zip(self.layers, windows):
             if remat:
                 x = checkpoint(self._train_layer, x, layer, positions,
-                               attn_backend, use_reentrant=False)
+                               attn_backend, window, use_reentrant=False)
             else:
-                x = self._train_layer(x, layer, positions, attn_backend)
+                x = self._train_layer(x, layer, positions, attn_backend,
+                                      window)
         if return_hidden:
             return self._final_norm(x)
         return self._logits(x)
@@ -592,8 +656,11 @@ class CausalTransformerLM(nn.Module):
     # contiguous KV cache (InferenceEngine.generate)
     # ------------------------------------------------------------------
     def init_caches(self, batch, max_seq, dtype=torch.bfloat16) -> KVCache:
-        """Stacked per-layer caches: k/v [n_layers, B, Hkv, max_seq, D]."""
+        """Stacked per-layer caches: k/v [n_layers, B, Hkv, max_seq, D].
+        Raises for a model the serving paths do not decode
+        (:func:`check_servable`)."""
         c = self.config
+        check_servable(c)
         shape = (c.n_layers, batch, c.kv_heads, max_seq, c.head_dim)
         return KVCache(k=torch.zeros(shape, dtype=dtype, device=self.device),
                        v=torch.zeros(shape, dtype=dtype, device=self.device),
@@ -605,6 +672,7 @@ class CausalTransformerLM(nn.Module):
         """Prefill (T = prompt) or decode (T = 1) over ``caches``, written
         in place.  Returns (logits [B, T, V] fp32, caches at length + T)."""
         c = self.config
+        check_servable(c)
         B, T = input_ids.shape
         start = int(caches.length)
         positions = (start + torch.arange(T, device=input_ids.device)
@@ -626,8 +694,11 @@ class CausalTransformerLM(nn.Module):
     # ------------------------------------------------------------------
     def init_paged_caches(self, num_pages, page_size,
                           dtype=torch.bfloat16) -> PagedKVCache:
-        """Stacked per-layer page pools: [n_layers, P, Hkv, page, D]."""
+        """Stacked per-layer page pools: [n_layers, P, Hkv, page, D].
+        Raises for a model the serving paths do not decode (where the JAX
+        model asserts no ALiBi and no window)."""
         c = self.config
+        check_servable(c)
         shape = (c.n_layers, num_pages, c.kv_heads, page_size, c.head_dim)
         return PagedKVCache(
             k_pages=torch.zeros(shape, dtype=dtype, device=self.device),
@@ -642,6 +713,7 @@ class CausalTransformerLM(nn.Module):
         [B, max_pages] int32; ``lengths``: [B] int32, both on the model's
         device.  Returns (logits [B, T, V] fp32, caches, lengths + T)."""
         c = self.config
+        check_servable(c)
         B, T = input_ids.shape
         positions = lengths.long()[:, None] + torch.arange(
             T, device=lengths.device)[None, :]

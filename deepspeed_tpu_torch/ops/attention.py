@@ -15,7 +15,8 @@ from typing import Optional
 
 import torch
 
-from deepspeed_tpu_torch.ops.flash_attention import flash_attention
+from deepspeed_tpu_torch.ops.flash_attention import (  # noqa: F401
+    alibi_window_bias, flash_attention)
 
 
 def reference_attention(q, k, v, causal=True, bias=None, segment_ids=None,
@@ -51,26 +52,19 @@ def reference_attention(q, k, v, causal=True, bias=None, segment_ids=None,
     return out.to(orig_dtype)
 
 
-
-def alibi_window_bias(Sq, Sk, slopes=None, window=None):
-    """The additive ALiBi / sliding-window bias of the JAX package; not
-    ported yet (ROADMAP A16)."""
-    if slopes is None and window is None:
-        return None
-    raise NotImplementedError("ALiBi slopes and sliding-window attention "
-                              "are not ported yet (ROADMAP A16)")
-
-
 def attention(q, k, v, causal=True, softmax_scale=None, backend="auto",
               alibi_slopes=None, window=None, logit_softcap=None):
     """Dispatching attention entry: flash attention through the CUDA
     kernels for CUDA tensors (``"auto"``/``"cuda"``), through its plain
     versions for CPU tensors (``"auto"``) or on request (``"plain"``).
-    ALiBi, windows and logit softcaps raise (ROADMAP A16)."""
+    ``alibi_slopes`` ([H]) and ``window`` (an int, 0/None = unlimited) go
+    to :func:`flash_attention`'s biased kernels -- where the JAX entry's
+    reference path materialises :func:`alibi_window_bias`, the same values.
+    Logit softcaps raise (ROADMAP A16)."""
     if logit_softcap:
         raise NotImplementedError("attention logit softcap is not ported "
                                   "yet (ROADMAP A16)")
-    alibi_window_bias(q.shape[1], k.shape[1], slopes=alibi_slopes,
-                      window=window)
     return flash_attention(q, k, v, causal=causal,
-                           softmax_scale=softmax_scale, backend=backend)
+                           softmax_scale=softmax_scale,
+                           alibi_slopes=alibi_slopes, window=window,
+                           backend=backend)

@@ -2,21 +2,27 @@
 // attention, O = softmax(scale * Q K^T, causal) V, and the row
 // log-sum-exp LSE that the backward kernels recompute P from.
 //
-// Replaces the TPU kernel deepspeed_tpu/ops/pallas/flash_attention.py:
-// _fwd_kernel (body _fwd_impl; host side _flash_fwd).  Same arithmetic:
-// fp32 online softmax (running max m, sum l, accumulator acc), masked
-// scores -1e30, rows that see no key finalise to 0, LSE = m + log(l) in
-// fp32 [B, H, S].  The biased variant (_fwd_kernel_biased: ALiBi slope,
-// sliding window) is not ported (ROADMAP A16).  Unlike the TPU entry,
-// which sends every S that is not a multiple of its block to the jnp
-// reference, this kernel takes any S: the last q tile and the last key
-// tile are masked.
+// Replaces the TPU kernels deepspeed_tpu/ops/pallas/flash_attention.py:
+// _fwd_kernel and _fwd_kernel_biased (body _fwd_impl; host side
+// _flash_fwd).  Same arithmetic: fp32 online softmax (running max m, sum
+// l, accumulator acc), masked scores -1e30, rows that see no key finalise
+// to 0, LSE = m + log(l) in fp32 [B, H, S].  The biased instantiations add
+// slope[h] * key to the scaled score and mask keys outside a sliding
+// window (flash_tile.cuh's Bias); the key loop then starts at the first
+// tile the window reaches, as _k_range skips far-past blocks.  Unlike the
+// TPU entry, which sends every S that is not a multiple of its block to
+// the jnp reference, this kernel takes any S: the last q tile and the last
+// key tile are masked.
 //
 // What bounds it on the H100: causal attention at the training shape
 // (B=2, S=1024, 16 heads of 128, bf16) does 2*B*H*S^2*D = 8.6 GFLOP on
 // 34 MB (q, k, v, o and the fp32 LSE), 255 flop per byte -- just under the
 // ~295 flop/byte ridge, so the bytes bound it (10.1 us at 3.35 TB/s),
 // with the tensor cores' time (8.7 us at 989 TFLOP/s) close behind.
+// The biased kernels at BLOOM-1b7's shape (B=2, S=2048, ALiBi) do 4x that
+// work on 2x the bytes and are bound by operations; a window of 256 at
+// S=2048 leaves 491,648 of the 2,098,176 causal (q, k) pairs, and the key
+// loop visits 5 of the up to 32 key tiles of a q tile.
 //
 // Design (first version: right before fast).  One block of 256 threads
 // per (64-row q tile, batch * head); the TPU kernel's sequential key-block
@@ -35,14 +41,14 @@ using namespace dsflash;
 
 constexpr size_t kSmemFloats = 2 * 64 * PD + BQ * PT + 3 * BQ;
 
-template <typename T>
+template <typename T, bool SLOPE, bool WINDOW>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int S, int H, int Hkv, float scale,
-                 int causal) {
+                 float* __restrict__ lse, const float* __restrict__ slopes,
+                 int window, int S, int H, int Hkv, float scale, int causal) {
   extern __shared__ float smem[];
-  float* q_s = smem;              // [BQ][PD] Q * scale
+  float* q_s = smem;              // [BQ][PD] Q * scale (Q with ALiBi)
   float* kv_s = q_s + BQ * PD;    // [BK][PD] K, then V
   float* p_s = kv_s + BK * PD;    // [BQ][PT] scores, then probabilities
   float* m_s = p_s + BQ * PT;     // [BQ] running max
@@ -53,8 +59,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = tid / 32, lane = tid % 32;
   const int q0 = blockIdx.x * BQ;
   const Heads hd(S, H, Hkv);
+  const Bias<SLOPE, WINDOW> bias(slopes, hd.h, window);
 
-  load_tile<T>(q_s, q, hd.q_base, hd.q_stride, q0, S, scale);
+  // the ALiBi kernels scale the product, not Q (see masked())
+  load_tile<T>(q_s, q, hd.q_base, hd.q_stride, q0, S, SLOPE ? 1.f : scale);
   if (tid < BQ) {
     m_s[tid] = kNeg;
     l_s[tid] = 0.f;
@@ -66,7 +74,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
   const int kv_hi = causal ? min(S, q0 + BQ) : S;
-  for (int k0 = 0; k0 < kv_hi; k0 += BK) {
+  for (int k0 = bias.key_lo(q0); k0 < kv_hi; k0 += BK) {
     __syncthreads();  // previous tile's P V done; Q and m/l written
     load_tile<T>(kv_s, k, hd.kv_base, hd.kv_stride, k0, S, 1.f);
     __syncthreads();
@@ -82,7 +90,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int r = ty + 16 * i, c = tx + 16 * j;
-        p_s[r * PT + c] = masked(s[i][j], q0 + r, k0 + c, S, causal);
+        const float raw = SLOPE ? __fmul_rn(s[i][j], scale) : s[i][j];
+        p_s[r * PT + c] = masked(raw, q0 + r, k0 + c, S, causal, bias);
       }
     __syncthreads();  // scores complete; K no longer read
 
@@ -131,41 +140,56 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
 }
 
-template <typename T>
+template <typename T, bool SLOPE, bool WINDOW>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int B, int S, int H, int Hkv, int causal, float scale,
-           cudaStream_t stream) {
+           const void* slopes, int window, int B, int S, int H, int Hkv,
+           int causal, float scale, cudaStream_t stream) {
   const size_t smem = kSmemFloats * sizeof(float);
   // once per instantiation, before any graph capture can be running
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fwd_kernel<T, SLOPE, WINDOW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
   dim3 grid((S + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<T, SLOPE, WINDOW><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      S, H, Hkv, scale, causal);
+      static_cast<const float*>(slopes), window, S, H, Hkv, scale, causal);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_biased(const void* q, const void* k, const void* v, void* o,
+                  void* lse, const void* slopes, int window, int B, int S,
+                  int H, int Hkv, int causal, float scale,
+                  cudaStream_t stream) {
+  return with_bias(slopes, window, [&](auto slope, auto win) {
+    return launch<T, decltype(slope)::value, decltype(win)::value>(
+        q, k, v, o, lse, slopes, window, B, S, H, Hkv, causal, scale,
+        stream);
+  });
 }
 
 }  // namespace
 
 // q: [B, S, H, D]; k/v: [B, S, Hkv, D]; o: [B, S, H, D] (q's dtype);
-// lse: fp32 [B, H, S].  dtype: 0 = float32, 1 = bfloat16; D must be 128.
-// Returns cudaGetLastError().
+// lse: fp32 [B, H, S].  slopes: fp32 [H] ALiBi slopes or null; window:
+// the sliding window, <= 0 for none.  dtype: 0 = float32, 1 = bfloat16;
+// D must be 128.  Returns cudaGetLastError().
 extern "C" int ds_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
-                                      int B, int S, int H, int Hkv, int D,
-                                      int causal, int dtype, float scale,
+                                      const void* slopes, int B, int S,
+                                      int H, int Hkv, int D, int causal,
+                                      int dtype, int window, float scale,
                                       void* stream) {
   const int bad = dsflash::check_shape(B, S, H, Hkv, D);
   if (bad) return bad;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k, v, o, lse, B, S, H, Hkv, causal, scale, s);
+    return launch_biased<float>(q, k, v, o, lse, slopes, window, B, S, H,
+                                Hkv, causal, scale, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, o, lse, B, S, H, Hkv, causal,
-                                 scale, s);
+    return launch_biased<__nv_bfloat16>(q, k, v, o, lse, slopes, window, B,
+                                        S, H, Hkv, causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -5,7 +5,8 @@
 //
 // Layout.  q, o, dO: [B, S, H, D]; k, v: [B, S, Hkv, D], contiguous, so row
 // s of head h starts at ((b * S + s) * H + h) * D and rows are H * D apart.
-// Query head h reads kv head h / (H / Hkv) (GQA).  D = 128.
+// Query head h reads kv head h / (H / Hkv) (GQA).  D = 128.  The biased
+// kernels read one fp32 ALiBi slope per QUERY head, slopes[h].
 //
 // Tiles.  64 query rows by 64 keys.  A [64][D] tile is stored with pitch
 // D + 1 and a [64][64] tile with pitch 65, so the column walks of the
@@ -15,6 +16,8 @@
 // broadcast to the 16 threads of each) and 16 consecutive B rows or
 // columns per step.
 #pragma once
+
+#include <type_traits>
 
 #include "attention_tile.cuh"
 
@@ -128,12 +131,56 @@ __device__ __forceinline__ void gemm_tn(float (&acc)[I][J],
   }
 }
 
+// The biased kernels' bias of one query head (_mask_bias of the TPU
+// kernels): ALiBi adds slope[h] * key to the score (the row-constant part
+// of ALiBi cancels in the softmax), and a sliding window masks keys with
+// qrow - key >= window (window <= 0: unlimited).  SLOPE and WINDOW are
+// template flags, so Bias<false, false> -- the unbiased kernels -- adds no
+// instruction to them.
+template <bool SLOPE, bool WINDOW>
+struct Bias {
+  float slope;
+  int window;
+  __device__ __forceinline__ Bias(const float* __restrict__ slopes, int h,
+                                  int w)
+      : slope(SLOPE ? __ldg(slopes + h) : 0.f), window(WINDOW ? w : 0) {}
+
+  // First key of the first key tile that q rows [q0, q0 + BQ) can see: the
+  // tile of key q0 - (window - 1), floored to a tile, or 0 (_k_range's lo).
+  __device__ __forceinline__ int key_lo(int q0) const {
+    if (!WINDOW || window <= 0) return 0;
+    const int first = q0 - (window - 1);
+    return first > 0 ? first / BK * BK : 0;
+  }
+
+  // Query rows at or past this bound cannot see keys [k0, k0 + BK): the
+  // last row that sees key k0 + BK - 1 is k0 + BK - 2 + window (the dK/dV
+  // kernel's q-loop end, _bwd_dkv_impl's hi_w).
+  __device__ __forceinline__ int q_hi(int k0, int S) const {
+    if (!WINDOW || window <= 0) return S;
+    const long long hi = (long long)k0 + BK - 1 + window;
+    return hi < S ? (int)hi : S;
+  }
+};
+
 // Score of query row ``qrow`` and key ``key`` (both absolute) after the
-// mask: the raw score, or kNeg where the key is past S, the query row is
-// past S, or (causal) the key is after the query.
+// bias and the mask: the score plus slope * key, or kNeg where the key is
+// past S, the query row is past S, (causal) the key is after the query, or
+// (window) the key is window or more rows before the query.
+//
+// ALiBi offsets reach slope * S (~1.4e3 at S=2048), where one fp32 ulp is
+// 1.2e-4: any difference in how the score is rounded would come back
+// magnified in P.  So the ALiBi kernels take the score as the plain
+// version computes it -- the product, then times the scale, then plus
+// slope * key rounded on its own (no fused multiply-add) -- and agree with
+// it to the bit there.
+template <bool SLOPE, bool WINDOW>
 __device__ __forceinline__ float masked(float s, int qrow, int key, int S,
-                                        int causal) {
-  const bool ok = qrow < S && key < S && (!causal || key <= qrow);
+                                        int causal,
+                                        const Bias<SLOPE, WINDOW>& bias) {
+  if (SLOPE) s = __fadd_rn(s, __fmul_rn(bias.slope, (float)key));
+  bool ok = qrow < S && key < S && (!causal || key <= qrow);
+  if (WINDOW) ok = ok && (bias.window <= 0 || qrow - key < bias.window);
   return ok ? s : kNeg;
 }
 
@@ -141,16 +188,29 @@ __device__ __forceinline__ float masked(float s, int qrow, int key, int S,
 struct Heads {
   long long q_base, q_stride;    // (b, 0, h, 0) of q/o/dO and its row step
   long long kv_base, kv_stride;  // (b, 0, h / group, 0) of k/v
-  int bh;
+  int bh, h;                     // b * H + h and the query head h
   __device__ __forceinline__ Heads(int S, int H, int Hkv) {
     bh = blockIdx.y;
-    const int b = bh / H, h = bh % H, hk = h / (H / Hkv);
+    h = bh % H;
+    const int b = bh / H, hk = h / (H / Hkv);
     q_base = ((long long)b * S * H + h) * D;
     q_stride = (long long)H * D;
     kv_base = ((long long)b * S * Hkv + hk) * D;
     kv_stride = (long long)Hkv * D;
   }
 };
+
+// Runs ``launch(slope, window)`` with two std::bool_constant flags: the
+// instantiation a host entry needs for its bias -- ALiBi when ``slopes`` is
+// not null, a window when ``window`` > 0.
+template <typename Launch>
+inline int with_bias(const void* slopes, int window, Launch&& launch) {
+  const bool s = slopes != nullptr, w = window > 0;
+  if (s && w) return launch(std::true_type{}, std::true_type{});
+  if (s) return launch(std::true_type{}, std::false_type{});
+  if (w) return launch(std::false_type{}, std::true_type{});
+  return launch(std::false_type{}, std::false_type{});
+}
 
 // Checks shared by the host entries; 0 when the launch may go ahead.
 inline int check_shape(int B, int S, int H, int Hkv, int Dh) {

@@ -1,11 +1,15 @@
 """Flash attention for training: the CUDA kernels' wrappers.
 
 Replaces ``deepspeed_tpu/ops/pallas/flash_attention.py``: the forward
-``_fwd_kernel`` (``ops/csrc/flash_attention_fwd.cu``) and the backward's
-``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (both in
-``ops/csrc/flash_attention_bwd.cu``).  :func:`flash_attention_bwd_cuda` is
-the port of the host side ``_flash_bwd_pallas``: it computes
-``delta = sum(dO * O)`` in fp32, launches both backward kernels and sums the
+``_fwd_kernel`` and ``_fwd_kernel_biased`` (``ops/csrc/
+flash_attention_fwd.cu``) and the backward's ``_bwd_dq_kernel``,
+``_bwd_dkv_kernel`` and their biased variants (both in
+``ops/csrc/flash_attention_bwd.cu``).  One C entry per kernel takes the
+bias too; the unbiased and the biased (ALiBi slopes and/or a sliding
+window) launches have wrappers and launch counts of their own, as the TPU
+kernels are separate functions.  :func:`flash_attention_bwd_cuda` is the
+port of the host side ``_flash_bwd_pallas``: it computes ``delta =
+sum(dO * O)`` in fp32, launches both backward kernels and sums the
 per-query-head fp32 dK/dV over the GQA group.  The plain versions are in
 ``ops/flash_attention.py``, with the ``torch.autograd.Function`` that picks
 between them.
@@ -54,29 +58,94 @@ def _check_rows(name, t, B, H, S):
                          f"{tuple(t.shape)} on {t.device}")
 
 
+def _bias_args(q, alibi_slopes, window, name):
+    """(slopes pointer or 0, window int) for the C entries.  Slopes: a
+    contiguous fp32 [H] tensor on q's card, one per QUERY head; window: an
+    int, None or <= 0 for none.  A biased launch needs at least one."""
+    if alibi_slopes is None and not (window and window > 0):
+        raise ValueError(f"{name} needs ALiBi slopes or a window > 0; the "
+                         f"unbiased wrapper serves neither")
+    ptr = 0
+    if alibi_slopes is not None:
+        H = q.shape[2]
+        if alibi_slopes.dtype != torch.float32 or \
+                tuple(alibi_slopes.shape) != (H,) or \
+                alibi_slopes.device != q.device or \
+                not alibi_slopes.is_contiguous():
+            raise ValueError(f"{name}: ALiBi slopes must be a contiguous "
+                             f"float32 tensor of shape ({H},) on {q.device},"
+                             f" got {alibi_slopes.dtype} "
+                             f"{tuple(alibi_slopes.shape)} on "
+                             f"{alibi_slopes.device}")
+        ptr = alibi_slopes.data_ptr()
+    w = int(window) if window and window > 0 else 0
+    if w >= 2 ** 31 - 128:
+        raise ValueError(f"{name}: window {w} does not fit the kernel's int")
+    return ptr, w
+
+
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _fwd(q, k, v, softmax_scale, causal, slopes, window):
+    B, S, H, D = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    fn = op_builder.load("flash_attention_fwd")
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), slopes, B, S, H, k.shape[2], D,
+            int(bool(causal)), _DTYPE_CODES[q.dtype], window,
+            float(softmax_scale), _stream(q))
+    if rc != 0:
+        raise RuntimeError(f"flash attention forward kernel launch failed: "
+                           f"CUDA error {rc}")
+    return out, lse
 
 
 def flash_attention_fwd_cuda(q, k, v, softmax_scale, causal=True):
     """Launch the forward kernel.  q: [B, S, H, D]; k/v: [B, S, Hkv, D].
     Returns (O [B, S, H, D] in q's dtype, LSE fp32 [B, H, S])."""
     _check("flash_attention_fwd_cuda", q, k, v)
-    B, S, H, D = q.shape
-    out = torch.empty_like(q)
-    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    fn = op_builder.load("flash_attention_fwd")
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), B, S, H, k.shape[2], D, int(bool(causal)),
-            _DTYPE_CODES[q.dtype], float(softmax_scale), _stream(q))
-    if rc != 0:
-        raise RuntimeError(f"flash attention forward kernel launch failed: "
-                           f"CUDA error {rc}")
+    out = _fwd(q, k, v, softmax_scale, causal, 0, 0)
     flash_attention_fwd_cuda.launches += 1
-    return out, lse
+    return out
 
 
 flash_attention_fwd_cuda.launches = 0
+
+
+def flash_attention_fwd_biased_cuda(q, k, v, softmax_scale, causal=True,
+                                    alibi_slopes=None, window=None):
+    """Launch the biased forward kernel: ``alibi_slopes`` (fp32 [H] on the
+    card) adds ``slope[h] * key`` to the scores, ``window`` masks keys
+    ``window`` or more rows back and skips the key tiles it cannot reach.
+    Returns (O, LSE) as :func:`flash_attention_fwd_cuda`."""
+    name = "flash_attention_fwd_biased_cuda"
+    _check(name, q, k, v)
+    slopes, w = _bias_args(q, alibi_slopes, window, name)
+    out = _fwd(q, k, v, softmax_scale, causal, slopes, w)
+    flash_attention_fwd_biased_cuda.launches += 1
+    return out
+
+
+flash_attention_fwd_biased_cuda.launches = 0
+
+
+def _dq(q, k, v, dout, lse, delta, softmax_scale, causal, slopes, window):
+    B, S, H, D = q.shape
+    _check_rows("lse", lse, B, H, S)
+    _check_rows("delta", delta, B, H, S)
+    dq = torch.empty_like(q)
+    fn = op_builder.load("flash_attention_bwd_dq")
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), slopes, B, S, H,
+            k.shape[2], D, int(bool(causal)), _DTYPE_CODES[q.dtype], window,
+            float(softmax_scale), _stream(q))
+    if rc != 0:
+        raise RuntimeError(f"flash attention dQ kernel launch failed: CUDA "
+                           f"error {rc}")
+    return dq
 
 
 def flash_attention_bwd_dq_cuda(q, k, v, dout, lse, delta, softmax_scale,
@@ -84,18 +153,7 @@ def flash_attention_bwd_dq_cuda(q, k, v, dout, lse, delta, softmax_scale,
     """Launch the dQ kernel: dQ [B, S, H, D] in q's dtype.  lse/delta: fp32
     [B, H, S]."""
     _check("flash_attention_bwd_dq_cuda", q, k, v, dout)
-    B, S, H, D = q.shape
-    _check_rows("lse", lse, B, H, S)
-    _check_rows("delta", delta, B, H, S)
-    dq = torch.empty_like(q)
-    fn = op_builder.load("flash_attention_bwd_dq")
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, S, H,
-            k.shape[2], D, int(bool(causal)), _DTYPE_CODES[q.dtype],
-            float(softmax_scale), _stream(q))
-    if rc != 0:
-        raise RuntimeError(f"flash attention dQ kernel launch failed: CUDA "
-                           f"error {rc}")
+    dq = _dq(q, k, v, dout, lse, delta, softmax_scale, causal, 0, 0)
     flash_attention_bwd_dq_cuda.launches += 1
     return dq
 
@@ -103,11 +161,23 @@ def flash_attention_bwd_dq_cuda(q, k, v, dout, lse, delta, softmax_scale,
 flash_attention_bwd_dq_cuda.launches = 0
 
 
-def flash_attention_bwd_dkv_cuda(q, k, v, dout, lse, delta, softmax_scale,
-                                 causal=True):
-    """Launch the dK/dV kernel: (dK, dV), each fp32 [B, S, H, D] -- one
-    block of rows per QUERY head, not yet summed over the GQA group."""
-    _check("flash_attention_bwd_dkv_cuda", q, k, v, dout)
+def flash_attention_bwd_dq_biased_cuda(q, k, v, dout, lse, delta,
+                                       softmax_scale, causal=True,
+                                       alibi_slopes=None, window=None):
+    """Launch the biased dQ kernel (bias as in
+    :func:`flash_attention_fwd_biased_cuda`)."""
+    name = "flash_attention_bwd_dq_biased_cuda"
+    _check(name, q, k, v, dout)
+    slopes, w = _bias_args(q, alibi_slopes, window, name)
+    dq = _dq(q, k, v, dout, lse, delta, softmax_scale, causal, slopes, w)
+    flash_attention_bwd_dq_biased_cuda.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq_biased_cuda.launches = 0
+
+
+def _dkv(q, k, v, dout, lse, delta, softmax_scale, causal, slopes, window):
     B, S, H, D = q.shape
     _check_rows("lse", lse, B, H, S)
     _check_rows("delta", delta, B, H, S)
@@ -116,31 +186,71 @@ def flash_attention_bwd_dkv_cuda(q, k, v, dout, lse, delta, softmax_scale,
     fn = op_builder.load("flash_attention_bwd_dkv")
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, S, H, k.shape[2], D, int(bool(causal)),
-            _DTYPE_CODES[q.dtype], float(softmax_scale), _stream(q))
+            slopes, B, S, H, k.shape[2], D, int(bool(causal)),
+            _DTYPE_CODES[q.dtype], window, float(softmax_scale), _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash attention dK/dV kernel launch failed: "
                            f"CUDA error {rc}")
-    flash_attention_bwd_dkv_cuda.launches += 1
     return dk, dv
+
+
+def flash_attention_bwd_dkv_cuda(q, k, v, dout, lse, delta, softmax_scale,
+                                 causal=True):
+    """Launch the dK/dV kernel: (dK, dV), each fp32 [B, S, H, D] -- one
+    block of rows per QUERY head, not yet summed over the GQA group."""
+    _check("flash_attention_bwd_dkv_cuda", q, k, v, dout)
+    out = _dkv(q, k, v, dout, lse, delta, softmax_scale, causal, 0, 0)
+    flash_attention_bwd_dkv_cuda.launches += 1
+    return out
 
 
 flash_attention_bwd_dkv_cuda.launches = 0
 
 
+def flash_attention_bwd_dkv_biased_cuda(q, k, v, dout, lse, delta,
+                                        softmax_scale, causal=True,
+                                        alibi_slopes=None, window=None):
+    """Launch the biased dK/dV kernel (bias as in
+    :func:`flash_attention_fwd_biased_cuda`); outputs as
+    :func:`flash_attention_bwd_dkv_cuda`."""
+    name = "flash_attention_bwd_dkv_biased_cuda"
+    _check(name, q, k, v, dout)
+    slopes, w = _bias_args(q, alibi_slopes, window, name)
+    out = _dkv(q, k, v, dout, lse, delta, softmax_scale, causal, slopes, w)
+    flash_attention_bwd_dkv_biased_cuda.launches += 1
+    return out
+
+
+flash_attention_bwd_dkv_biased_cuda.launches = 0
+
+
+def is_biased(alibi_slopes, window) -> bool:
+    """True when the call needs the biased kernels: ALiBi slopes, or a
+    window > 0 (a window of 0 or None is unlimited)."""
+    return alibi_slopes is not None or bool(window and window > 0)
+
+
 def flash_attention_bwd_cuda(q, k, v, out, lse, dout, softmax_scale,
-                             causal=True):
+                             causal=True, alibi_slopes=None, window=None):
     """The backward from the saved (q, k, v, O, LSE) and the cotangent dO:
-    (dq, dk, dv) in the dtypes of q, k, v.  The port of
-    ``_flash_bwd_pallas``'s host side."""
+    (dq, dk, dv) in the dtypes of q, k, v, through the biased kernels when
+    :func:`is_biased`.  The port of ``_flash_bwd_pallas``'s host side."""
     B, S, H, D = q.shape
     Hkv = k.shape[2]
     # delta_i = sum_d dO_i * O_i, the softmax-jacobian row term (fp32)
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    dq = flash_attention_bwd_dq_cuda(q, k, v, dout, lse, delta,
-                                     softmax_scale, causal)
-    dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, dout, lse, delta,
-                                          softmax_scale, causal)
+    if is_biased(alibi_slopes, window):
+        dq = flash_attention_bwd_dq_biased_cuda(
+            q, k, v, dout, lse, delta, softmax_scale, causal, alibi_slopes,
+            window)
+        dk, dv = flash_attention_bwd_dkv_biased_cuda(
+            q, k, v, dout, lse, delta, softmax_scale, causal, alibi_slopes,
+            window)
+    else:
+        dq = flash_attention_bwd_dq_cuda(q, k, v, dout, lse, delta,
+                                         softmax_scale, causal)
+        dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, dout, lse, delta,
+                                              softmax_scale, causal)
     group = H // Hkv
     dk = dk.view(B, S, Hkv, group, D).sum(3).to(k.dtype)   # GQA group sum
     dv = dv.view(B, S, Hkv, group, D).sum(3).to(v.dtype)

@@ -38,16 +38,20 @@ SIGNATURES = {
     "ragged_paged_attention": ("ragged_paged_attention",
                                "ds_ragged_paged_attention",
                                [_P] * 10 + [_I] * 8 + [_F, _P]),
+    # the flash entries take the biased kernels' ALiBi slopes (a pointer,
+    # null for none) and sliding window (an int, <= 0 for none) as well
     "flash_attention_fwd": ("flash_attention_fwd", "ds_flash_attention_fwd",
-                            [_P] * 5 + [_I] * 7 + [_F, _P]),
+                            [_P] * 6 + [_I] * 8 + [_F, _P]),
     "flash_attention_bwd_dq": ("flash_attention_bwd",
                                "ds_flash_attention_bwd_dq",
-                               [_P] * 7 + [_I] * 7 + [_F, _P]),
+                               [_P] * 8 + [_I] * 8 + [_F, _P]),
     "flash_attention_bwd_dkv": ("flash_attention_bwd",
                                 "ds_flash_attention_bwd_dkv",
-                                [_P] * 8 + [_I] * 7 + [_F, _P]),
+                                [_P] * 9 + [_I] * 8 + [_F, _P]),
     "fused_adam": ("fused_adam", "ds_fused_adam",
                    [_P] * 4 + [_L, _I, _I] + [_F] * 9 + [_P]),
+    "sparse_attention": ("sparse_attention", "ds_sparse_attention",
+                         [_P] * 6 + [_I] * 8 + [_F, _P]),
 }
 
 _lock = threading.Lock()

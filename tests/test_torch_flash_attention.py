@@ -5,10 +5,13 @@ package's ``_flash_fwd`` and ``_flash_bwd_pallas`` run in the Pallas
 interpreter (blocks of 64, so S=128 takes two tiles) and against the jnp
 ``_flash_bwd``; ``FlashAttentionFunction`` gradients against ``jax.grad``
 through ``flash_attention(..., interpret=True)``; a sequence length that
-does not tile against ``reference_attention``.  fp32 inputs from numpy;
-rtol = atol = 1e-5 (forward) and 1e-4 (gradients): the same arithmetic,
-summed in other orders.  The CUDA kernels themselves are held against
-these plain versions on the card by ``chip_smoke.py``.
+does not tile against ``reference_attention``.  The biased variants (ALiBi
+slopes, sliding windows 32 / 100 / 0, both together, with GQA) the same
+way, at S = 128 and 256, plus ``alibi_window_bias`` against the JAX one.
+fp32 inputs from numpy; rtol = atol = 1e-5 (forward) and 1e-4
+(gradients): the same arithmetic, summed in other orders.  The CUDA
+kernels themselves are held against these plain versions on the card by
+``chip_smoke.py``.
 """
 
 import math
@@ -19,13 +22,17 @@ import numpy as np
 import pytest
 import torch
 
+from deepspeed_tpu.models.transformer import alibi_slopes as jax_slopes
+from deepspeed_tpu.ops.attention import alibi_window_bias as jax_bias
 from deepspeed_tpu.ops.attention import reference_attention as jax_reference
 from deepspeed_tpu.ops.pallas.flash_attention import (_flash_bwd,
                                                       _flash_bwd_pallas,
                                                       _flash_fwd)
 from deepspeed_tpu.ops.pallas.flash_attention import \
     flash_attention as jax_flash_attention
-from deepspeed_tpu_torch.ops.attention import attention, reference_attention
+from deepspeed_tpu_torch.models.transformer import alibi_slopes
+from deepspeed_tpu_torch.ops.attention import (alibi_window_bias, attention,
+                                               reference_attention)
 from deepspeed_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_bwd_plain, flash_attention_fwd_plain)
 
@@ -121,15 +128,119 @@ def test_non_tiling_length_matches_reference():
                                    err_msg=f"d{name}", **BWD_TOL)
 
 
-@pytest.mark.parametrize("kw", [{"alibi_slopes": [0.5] * 4},
-                                {"window": 16}, {"logit_softcap": 30.0}])
-def test_biased_attention_raises(kw):
+# biased cases: (heads, S, ALiBi, window); window 0 is "unlimited" (the
+# port then takes the unbiased path, the JAX entry its biased kernel)
+BIASED = {
+    "alibi": ("mha", 128, True, None),
+    "window32": ("mha", 128, False, 32),
+    "window100_s256": ("mha", 256, False, 100),
+    "window0": ("mha", 128, False, 0),
+    "alibi_window100_s256": ("mha", 256, True, 100),
+    "gqa_alibi_window32": ("gqa", 128, True, 32),
+}
+
+
+def _bias(heads, alibi, window):
+    H = HEADS[heads][0]
+    slopes = np.array(jax_slopes(H)) if alibi else None
+    return slopes, window
+
+
+@pytest.mark.parametrize("case", list(BIASED))
+def test_plain_biased_forward_and_backward_match_pallas(case):
+    heads, S_, alibi, window = BIASED[case]
+    H, Hkv = HEADS[heads]
+    q, k, v, g = _inputs(H, Hkv, S=S_, seed=3)
+    slopes, window = _bias(heads, alibi, window)
+    scale = 1.0 / math.sqrt(D)
+    jkw = dict(alibi_slopes=None if slopes is None else jnp.asarray(slopes),
+               window=None if window is None else jnp.int32(window))
+    jo, jlse = _flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          scale, True, BLOCK, BLOCK, interpret=True, **jkw)
+    tkw = dict(alibi_slopes=None if slopes is None
+               else torch.as_tensor(slopes), window=window)
+    to, tlse = flash_attention_fwd_plain(*_t(q, k, v), scale, True, **tkw)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), **FWD_TOL)
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), **FWD_TOL)
+
+    res = tuple(jnp.asarray(x) for x in (q, k, v, np.asarray(jo),
+                                         np.asarray(jlse)))
+    pallas = _flash_bwd_pallas(scale, True, res, jnp.asarray(g), BLOCK,
+                               BLOCK, interpret=True, **jkw)
+    got = flash_attention_bwd_plain(*_t(q, k, v, np.asarray(jo),
+                                        np.asarray(jlse), g), scale, True,
+                                    **tkw)
+    for name, a, b in zip("qkv", got, pallas):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b),
+                                   err_msg=f"d{name} vs pallas", **BWD_TOL)
+
+
+@pytest.mark.parametrize("case", ["alibi", "window100_s256",
+                                  "gqa_alibi_window32"])
+def test_biased_autograd_function_matches_jax_grad(case):
+    """The JAX entry's gradient (custom VJP over the biased Pallas kernels,
+    slopes constant) against ``FlashAttentionFunction``'s; the forward
+    against ``reference_attention`` with ``alibi_window_bias`` in both
+    packages."""
+    heads, S_, alibi, window = BIASED[case]
+    H, Hkv = HEADS[heads]
+    q, k, v, g = _inputs(H, Hkv, S=S_, seed=4)
+    slopes, window = _bias(heads, alibi, window)
+
+    def jloss(q, k, v):
+        out = jax_flash_attention(
+            q, k, v, causal=True, block_q=BLOCK, block_k=BLOCK,
+            interpret=True, window=window,
+            alibi_slopes=None if slopes is None else jnp.asarray(slopes))
+        return jnp.sum(out * jnp.asarray(g))
+
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (x.requires_grad_() for x in _t(q, k, v))
+    out = attention(tq, tk, tv, causal=True, window=window,
+                    alibi_slopes=None if slopes is None else slopes.tolist())
+    tgrads = torch.autograd.grad(out, (tq, tk, tv), torch.as_tensor(g))
+    for name, a, b in zip("qkv", tgrads, jgrads):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b),
+                                   err_msg=f"d{name}", **BWD_TOL)
+    jref = jax_reference(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         causal=True, bias=jax_bias(S_, S_, slopes, window))
+    with torch.no_grad():
+        tref = reference_attention(
+            *_t(q, k, v), causal=True,
+            bias=alibi_window_bias(S_, S_, slopes, window))
+    np.testing.assert_allclose(tref.numpy(), np.asarray(jref), **FWD_TOL)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jref),
+                               **FWD_TOL)
+
+
+@pytest.mark.parametrize("Sq,window", [(16, 5), (1, 0), (4, None)])
+def test_alibi_window_bias_matches_jax(Sq, window):
+    """The bias the JAX reference path materialises, decode-aligned when
+    the query rows are fewer than the keys."""
+    slopes = np.array(jax_slopes(6))
+    got = alibi_window_bias(Sq, 16, slopes, window)
+    want = jax_bias(Sq, 16, slopes, window)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert alibi_window_bias(Sq, 16) is None
+
+
+@pytest.mark.parametrize("n_heads", [16, 12, 1])
+def test_alibi_slopes_match_jax(n_heads):
+    np.testing.assert_array_equal(alibi_slopes(n_heads).numpy(),
+                                  np.asarray(jax_slopes(n_heads)))
+    if n_heads == 16:     # BLOOM's 16 heads: 2^-0.5 ... 2^-8
+        np.testing.assert_array_equal(alibi_slopes(16).numpy(),
+                                      (2.0 ** -(0.5 * np.arange(1, 17)))
+                                      .astype(np.float32))
+
+
+def test_biased_attention_raises():
+    """Logit softcaps are the one attention switch still unported; ALiBi
+    and windows now run (tests above)."""
     q, k, v, _ = _t(*_inputs(4, 4, S=16))
     with pytest.raises(NotImplementedError, match="ROADMAP A16"):
-        attention(q, k, v, **kw)
-    if "logit_softcap" not in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP A16"):
-            flash_attention(q, k, v, **kw)
+        attention(q, k, v, logit_softcap=30.0)
 
 
 def test_backend_names():

@@ -19,7 +19,8 @@ import torch
 from deepspeed_tpu.models.transformer import (
     CausalTransformerLM as JaxLM, TransformerConfig as JaxConfig)
 from deepspeed_tpu.ops.paged_attention import PagedAllocator as JaxAllocator
-from deepspeed_tpu_torch.models.convert import from_jax_params
+from deepspeed_tpu_torch.models.convert import (from_jax_params,
+                                                to_numpy_params)
 from deepspeed_tpu_torch.models.transformer import (CausalTransformerLM,
                                                     TransformerConfig)
 
@@ -143,9 +144,73 @@ def test_init_distributions():
     assert torch.equal(again.layers[0].wq, layer.wq)
 
 
-@pytest.mark.parametrize("kw", [dict(use_alibi=True), dict(qk_norm="rms"),
+@pytest.mark.parametrize("kw", [dict(parallel_block=True), dict(qk_norm="rms"),
                                 dict(attn_logit_softcap=30.0),
                                 dict(moe_num_experts=4)])
 def test_unported_features_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         CausalTransformerLM(TransformerConfig.tiny(**kw), device="cpu")
+
+
+# the training-only switches: BLOOM-style (ALiBi, embedding LayerNorm, no
+# position table) and GPT-Neo-style (alternating global / local windows)
+BIASED = {
+    "bloom": dict(hidden_size=64, n_heads=4, activation="gelu",
+                  use_rmsnorm=False, use_rope=False, use_alibi=True,
+                  embed_norm=True, use_bias=True, norm_bias=True,
+                  tie_embeddings=True),
+    "gpt_neo": dict(hidden_size=64, n_heads=4, activation="gelu",
+                    use_rmsnorm=False, use_rope=False, use_bias=True,
+                    norm_bias=True, tie_embeddings=True, attn_scale=1.0,
+                    local_attn_pattern=(0, 8)),
+    "embed_norm_rope": dict(hidden_size=64, n_heads=4, n_kv_heads=2,
+                            embed_norm=True),
+}
+
+
+@pytest.mark.parametrize("name", list(BIASED))
+def test_biased_configs_round_trip(name):
+    """``from_jax_params`` takes the JAX params of every biased config
+    (``embed_norm``/``embed_norm_b`` present, ``pos_embed`` absent under
+    ALiBi) and ``to_numpy_params`` gives them back bit for bit."""
+    jcfg, tcfg = JaxConfig.tiny(**BIASED[name]), \
+        TransformerConfig.tiny(**BIASED[name])
+    rng = np.random.default_rng(4)
+    params = jax.tree_util.tree_map(
+        lambda x: (np.asarray(x) + 0.05 * rng.standard_normal(x.shape))
+        .astype(np.float32), JaxLM(jcfg).init(jax.random.key(4)))
+    model = CausalTransformerLM(tcfg, device="cpu")
+    model.load_state_dict(from_jax_params(params, tcfg), strict=True)
+    back = to_numpy_params(model)
+    assert set(back) == set(params)
+    assert ("pos_embed" in back) == (not tcfg.use_alibi and
+                                     not tcfg.use_rope)
+    assert ("embed_norm_b" in back) == (tcfg.embed_norm and tcfg.norm_bias)
+    for key in set(params) - {"layers"}:
+        np.testing.assert_array_equal(back[key], params[key], err_msg=key)
+    assert set(back["layers"]) == set(params["layers"])
+    for key, val in params["layers"].items():
+        np.testing.assert_array_equal(back["layers"][key], val,
+                                      err_msg=key)
+    n = sum(p.numel() for p in model.parameters())
+    biases = sum(p.numel() for name_, p in model.named_parameters()
+                 if name_.endswith("_b"))
+    assert n - biases == JaxConfig.tiny(**BIASED[name]).num_params()
+
+
+@pytest.mark.parametrize("name", list(BIASED))
+def test_biased_models_do_not_serve(name):
+    """ALiBi, windows and the embedding norm train but do not decode yet:
+    the cache paths and both serving entry points raise at construction,
+    naming the ROADMAP item."""
+    import deepspeed_tpu_torch
+    cfg = TransformerConfig.tiny(**BIASED[name])
+    model = CausalTransformerLM(cfg, device="cpu").init(0)
+    for call in (lambda: model.init_caches(1, 8, torch.float32),
+                 lambda: model.init_paged_caches(4, 4, torch.float32),
+                 lambda: deepspeed_tpu_torch.init_inference(model,
+                                                            device="cpu"),
+                 lambda: deepspeed_tpu_torch.create_serving_engine(
+                     model, max_batch=1, page_size=4, max_seq=8)):
+        with pytest.raises(NotImplementedError, match="ROADMAP A18"):
+            call()

@@ -11,6 +11,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -20,15 +21,19 @@ from deepspeed_tpu_torch.models.transformer import (CausalTransformerLM,
 from deepspeed_tpu_torch.ops.adam import fused_adam, init_state
 from deepspeed_tpu_torch.ops.attention import attention
 from deepspeed_tpu_torch.ops.cuda.flash_attention import (
-    flash_attention_bwd_dkv_cuda, flash_attention_bwd_dq_cuda,
-    flash_attention_fwd_cuda)
+    flash_attention_bwd_dkv_biased_cuda, flash_attention_bwd_dkv_cuda,
+    flash_attention_bwd_dq_biased_cuda, flash_attention_bwd_dq_cuda,
+    flash_attention_fwd_biased_cuda, flash_attention_fwd_cuda)
 from deepspeed_tpu_torch.ops.cuda.fused_adam import fused_adam_cuda
 from deepspeed_tpu_torch.ops.cuda.decode_attention import \
     decode_attention_cuda
 from deepspeed_tpu_torch.ops.cuda.ragged_paged_attention import (
     ragged_paged_attention_cuda)
+from deepspeed_tpu_torch.ops.cuda.sparse_attention import \
+    sparse_attention_cuda
 from deepspeed_tpu_torch.ops.decode_attention import (decode_attention,
                                                       init_cache)
+from deepspeed_tpu_torch.ops.sparse_attention import sparse_attention
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -107,6 +112,30 @@ def test_wrappers_refuse_cpu_tensors():
                         True, 0.1, 0.001)
     with pytest.raises(ValueError, match="CUDA"):
         fused_adam(flat, flat, init_state(flat), backend="cuda")
+
+
+def test_biased_and_sparse_wrappers_refuse_cpu_tensors():
+    """The biased flash kernels' and the block-sparse kernel's wrappers,
+    and the ``"cuda"`` backend of their entry points, refuse CPU
+    tensors."""
+    qs = torch.zeros(1, 8, 4, 128)
+    rows = torch.zeros(1, 4, 8)
+    slopes = torch.ones(4)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_fwd_biased_cuda(qs, qs, qs, 0.1, alibi_slopes=slopes)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bwd_dq_biased_cuda(qs, qs, qs, qs, rows, rows, 0.1,
+                                           window=4)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bwd_dkv_biased_cuda(qs, qs, qs, qs, rows, rows, 0.1,
+                                            alibi_slopes=slopes, window=4)
+    with pytest.raises(ValueError, match="CUDA"):
+        attention(qs, qs, qs, backend="cuda", alibi_slopes=[1.0] * 4)
+    layout = np.ones((4, 1, 1), bool)
+    with pytest.raises(ValueError, match="CUDA"):
+        sparse_attention_cuda(qs, qs, qs, layout, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        sparse_attention(qs, qs, qs, layout, 8, backend="cuda")
 
 
 def test_init_inference_refuses_hf_models():

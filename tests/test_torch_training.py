@@ -2,11 +2,13 @@
 
 * Model: ``CausalTransformerLM.apply`` logits and ``loss`` with every
   parameter gradient against the JAX model's ``apply``/``loss`` and
-  ``jax.grad``, fp32, on a Llama-style GQA config and a GPT-style one,
-  with remat on and off and the dense and chunked losses.  Tolerance
-  rtol = atol = 1e-4: the same numbers, summed in other orders (the port
-  runs attention through the flash path's plain versions, the JAX model
-  through ``reference_attention``).
+  ``jax.grad``, fp32, on a Llama-style GQA config, a GPT-style one, a
+  BLOOM-style one (ALiBi, embedding norm) and a GPT-Neo-style one (global
+  and local layers), with remat on and off and the dense and chunked
+  losses.  Tolerance rtol = atol = 1e-4: the same numbers, summed in other
+  orders (the port runs attention through the flash path's plain
+  versions; the JAX model through ``reference_attention``, or for the
+  biased configs through its biased Pallas kernels in interpret mode).
 * Engine: ``deepspeed_tpu_torch.initialize(...).train_batch`` against
   ``deepspeed_tpu.initialize(...).train_batch`` on the same config and
   numpy batches, three steps: per-step losses and grad norms (rtol 1e-4)
@@ -44,6 +46,20 @@ CONFIGS = {
     "gpt": dict(hidden_size=64, n_heads=4, activation="gelu",
                 use_rmsnorm=False, use_rope=False, norm_bias=True,
                 tie_embeddings=True),
+    # BLOOM-style: ALiBi (no position table), embedding LayerNorm, biases;
+    # the JAX model runs its biased flash kernels in interpret mode
+    # (attn_impl "pallas", blocks of 8: the window skips whole blocks)
+    "bloom": dict(hidden_size=64, n_heads=4, activation="gelu",
+                  use_rmsnorm=False, use_rope=False, use_alibi=True,
+                  embed_norm=True, use_bias=True, norm_bias=True,
+                  tie_embeddings=True, attn_impl="pallas", attn_block_q=8,
+                  attn_block_k=8),
+    # GPT-Neo-style: global / local (window 8) layers, unscaled logits
+    "gpt_neo": dict(hidden_size=64, n_heads=4, activation="gelu",
+                    use_rmsnorm=False, use_rope=False, use_bias=True,
+                    norm_bias=True, tie_embeddings=True, attn_scale=1.0,
+                    local_attn_pattern=(0, 8), attn_impl="pallas",
+                    attn_block_q=8, attn_block_k=8),
 }
 # (remat, loss_chunk_size): dense loss, chunked (chunk < B*S), remat'd
 LOSS_MODES = {"dense": (False, 0), "chunked": (False, 10),
@@ -129,11 +145,22 @@ def _batches(gas=GAS):
             for _ in range(STEPS)]
 
 
+# final-parameter atol where 2e-5 (2% of one AdamW step) is too tight: in
+# the GPT-Neo-style config (unscaled logits, window 8) some weights get a
+# first gradient near Adam's eps (1e-8; e.g. -1.4e-8 in w_up, median
+# 2.5e-3), and the first step lr * g / (|g| + eps) turns that gradient's
+# rounding noise into ~5% of a step; losses and grad norms still match to
+# 1e-4 at every step
+PARAM_ATOL = {"gpt_neo": 1e-4}
+
+
 # gas 3 as well: a count that is not a power of two
 @pytest.mark.parametrize("name,clip,gas", [
     pytest.param("llama_gqa", 0.0, GAS, id="llama_gqa-0.0"),
     pytest.param("gpt", 0.5, GAS, id="gpt-0.5"),
-    pytest.param("gpt", 0.0, 3, id="gpt-0.0-gas3")])
+    pytest.param("gpt", 0.0, 3, id="gpt-0.0-gas3"),
+    pytest.param("bloom", 0.0, GAS, id="bloom-0.0"),
+    pytest.param("gpt_neo", 0.0, GAS, id="gpt_neo-0.0")])
 def test_engine_trajectory_matches_jax(name, clip, gas):
     assert jax.device_count() == JAX_DEVICES
     jcfg = JaxConfig.tiny(**CONFIGS[name])
@@ -164,11 +191,22 @@ def test_engine_trajectory_matches_jax(name, clip, gas):
     want = jax.tree_util.tree_map(np.asarray,
                                   jax.device_get(jeng.state.params))
     for key in got["layers"]:
+        if key == "wk_b":
+            # the softmax is invariant to one shift of every key, so the
+            # key bias's true gradient is 0 and each side's is rounding
+            # noise, which Adam turns into steps of up to ~lr: only that
+            # bound is shared (lr 1e-3; 1.5x for Adam's later steps)
+            for side in (got, want):
+                moved = np.abs(side["layers"][key] - params["layers"][key])
+                assert moved.max() <= 1.5e-3 * STEPS, key
+            continue
         np.testing.assert_allclose(got["layers"][key], want["layers"][key],
-                                   rtol=1e-4, atol=2e-5, err_msg=key)
+                                   rtol=1e-4, atol=PARAM_ATOL.get(name, 2e-5),
+                                   err_msg=key)
     for key in set(got) - {"layers"}:
         np.testing.assert_allclose(got[key], want[key], rtol=1e-4,
-                                   atol=2e-5, err_msg=key)
+                                   atol=PARAM_ATOL.get(name, 2e-5),
+                                   err_msg=key)
 
 
 def test_three_call_api_matches_train_batch():
