@@ -15,7 +15,9 @@ full width and depth through ``initialize(...).train_batch``, and calls
 kernels.  Phases:
 
   1 device   card name and power limit (nvidia-smi)
-  2 build    nvcc, one process per kernel source, all at once
+  2 build    nvcc, one process per kernel source, all at once; the SASS
+             of every bf16 tensor-core flash kernel holds wgmma (HGMMA)
+             and TMA loads (UTMALDG)
   3 kernels  each kernel vs its plain version: fp32 and bf16; serving
              attention MHA 32/32 and GQA 32/8; flash attention forward and
              backward at gpt_1b's shape, at GPT-Neo's global layers' (S=2048,
@@ -23,9 +25,10 @@ kernels.  Phases:
              1,000,003 elements in both modes; the biased flash kernels with
              ALiBi at S=2048, windows 256 (S=2048, unscaled, GPT-Neo's local
              layers) and 100 (S=1000), ALiBi + window with GQA, a window
-             past S; the
-             block-sparse kernel for layout blocks 16-128, head dims 64 and
-             128, causal, bidirectional and empty rows
+             past S (bf16 O, dK, dV of the tensor-core kernels: one ulp,
+             or within 2x SDPA's error on the same inputs, both readings
+             printed); the block-sparse kernel for layout blocks 16-128,
+             head dims 64 and 128, causal, bidirectional and empty rows
   4 generate init_inference(llama2_7b).generate, B=4, prompt 128, 32 new
   5 serve    create_serving_engine(max_batch=8, page_size=128,
              max_seq=2048).generate on 12 mixed-length prompts
@@ -43,7 +46,8 @@ kernels.  Phases:
              outputs vs the plain version; the key_padding_mask path and
              the refusal of a gradient request
   9 timing   each kernel at the main path's shapes vs its bound, its plain
-             version and one PyTorch library call (a yardstick only); fused
+             version and one PyTorch library call (a yardstick only), the
+             flash kernels also at GPT-Neo's global layers' shape; fused
              Adam held against its plain version over gpt_1b's 1.01 B
              parameters; the window-256 forward must take well under the
              ALiBi forward's time
@@ -70,6 +74,13 @@ TOL = {"float32": (1e-4, 1e-4),   # both in fp32; only the summation order
        "bfloat16": (1e-5, 8e-3)}  # both round one fp32 result to bf16: at
                                   # most one bf16 ulp apart (<= 2**-7 of the
                                   # value), plus fp32 order noise near 0
+# The bf16 flash forward and dK/dV kernels run on the tensor cores with P
+# (and dS) rounded to bf16 inside the products, as SDPA's kernels do, so
+# their O, dK and dV may leave the one-ulp tolerance above; they then pass
+# if their max abs and relative L2 errors against the exact fp32 answer
+# are each within this factor of SDPA's on the same inputs (see
+# check_witnessed)
+WITNESS_FACTOR = 2.0
 E2E_REL_TOL = 5e-2        # bf16 logits after 2 layers, relative to max|logit|
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -133,23 +144,95 @@ def reference(plain, q, k, v, *rest):
     return plain(q.float(), k.float(), v.float(), *rest).to(q.dtype)
 
 
-def check_close(name, got, want):
-    """Max abs error of kernel output ``got`` vs ``want``; fails outside
-    the tolerance of their dtype."""
+def _outside(name, got, want):
+    """(max abs error, elements outside the tolerance of their dtype) of
+    kernel output ``got`` vs ``want``; fails if ``got`` is not finite."""
     import torch
     atol, rtol = TOL[str(got.dtype).split(".")[-1]]
     got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
         fail(f"{name}: kernel output not finite")
     err = (got - want).abs()
-    bad = err > atol + rtol * want.abs()
-    max_err = err.max().item()
-    if bad.any():
-        fail(f"{name}: {int(bad.sum())} elements outside atol={atol} "
-             f"rtol={rtol}, max abs err {max_err:.3e}")
+    return err.max().item(), int((err > atol + rtol * want.abs()).sum())
+
+
+def check_close(name, got, want):
+    """Max abs error of kernel output ``got`` vs ``want``; fails outside
+    the tolerance of their dtype."""
+    atol, rtol = TOL[str(got.dtype).split(".")[-1]]
+    max_err, bad = _outside(name, got, want)
+    if bad:
+        fail(f"{name}: {bad} elements outside atol={atol} rtol={rtol}, max "
+             f"abs err {max_err:.3e}")
     phase("kernels", f"{name}: max abs err {max_err:.3e} (atol {atol}, "
           f"rtol {rtol})")
     return max_err
+
+
+def _abs_rel(got, exact):
+    """(max abs error, relative L2 error) of ``got`` against ``exact``."""
+    d = got.float() - exact
+    return d.abs().max().item(), (d.norm() / exact.norm()).item()
+
+
+def check_witnessed(name, got, want, exact, sdpa):
+    """A bf16 output of the tensor-core flash kernels (O, dK, dV), which
+    round P and dS to bf16 inside their products.  Passes within the
+    one-ulp tolerance of ``want`` (the plain version in fp32 on the
+    kernels' own O and LSE), or if its max abs error and its relative L2
+    error against ``exact`` (the plain forward and backward run in fp32
+    from the inputs alone) are each at most WITNESS_FACTOR times SDPA's
+    (``sdpa``, the same function by scaled_dot_product_attention in bf16
+    on the same inputs: a yardstick, never the port's path).  Prints both
+    readings; returns the max abs error against ``want``."""
+    max_err, bad = _outside(name, got, want)
+    k_abs, k_rel = _abs_rel(got, exact)
+    s_abs, s_rel = _abs_rel(sdpa, exact)
+    ok = k_abs <= WITNESS_FACTOR * s_abs and k_rel <= WITNESS_FACTOR * s_rel
+    phase("kernels", f"{name}: one-ulp reading max abs err {max_err:.3e}, "
+          f"{bad} elements outside; vs fp32 exact: kernel max abs "
+          f"{k_abs:.3e} rel L2 {k_rel:.3e}, SDPA {s_abs:.3e} / {s_rel:.3e} "
+          f"(kernel/SDPA {k_abs / s_abs:.2f}, {k_rel / s_rel:.2f}; limit "
+          f"{WITNESS_FACTOR})")
+    if bad and not ok:
+        fail(f"{name}: {bad} elements outside the one-ulp tolerance and "
+             f"error {k_abs:.3e} / rel L2 {k_rel:.3e} over {WITNESS_FACTOR}"
+             f" x SDPA's {s_abs:.3e} / {s_rel:.3e}")
+    return max_err
+
+
+def sdpa_witness(q, k, v, dout, scale, causal, alibi_slopes=None,
+                 window=None):
+    """O, dQ, dK, dV of scaled_dot_product_attention in q's dtype on the
+    kernels' inputs ([B, S, H, D] layout; GQA by repeating k/v, whose
+    gradients autograd sums back).  ALiBi goes in as the float mask
+    slope * (key - query), the row-shifted form of slope * key (same
+    softmax), so its rounding to bf16 is smallest where the probabilities
+    are large; the window and the causal rule as -inf."""
+    import torch
+    import torch.nn.functional as F
+    B, S, H, D = q.shape
+    qt, kt, vt = (x.transpose(1, 2).detach().clone().requires_grad_()
+                  for x in (q, k, v))
+    rep = H // k.shape[2]
+    kx, vx = kt.repeat_interleave(rep, 1), vt.repeat_interleave(rep, 1)
+    mask = None
+    if alibi_slopes is not None or window:
+        pos = torch.arange(S, device=q.device)
+        rel = pos[None, :] - pos[:, None]                 # key - query
+        allowed = rel <= 0 if causal else torch.ones_like(rel, dtype=bool)
+        if window:
+            allowed &= -rel < window
+        if alibi_slopes is not None:
+            mask = (alibi_slopes[:, None, None] * rel.float()).masked_fill(
+                ~allowed, float("-inf")).to(q.dtype)[None]
+        else:
+            mask = allowed
+    out = F.scaled_dot_product_attention(
+        qt, kx, vx, attn_mask=mask, is_causal=causal and mask is None,
+        scale=scale)
+    grads = torch.autograd.grad(out, (qt, kt, vt), dout.transpose(1, 2))
+    return [x.detach().transpose(1, 2) for x in (out,) + grads]
 
 
 # ----------------------------------------------------------------------
@@ -181,6 +264,55 @@ def phase_build():
             if "registers" in line or "spill" in line:
                 phase("build", f"{name}: {line.strip()}")
     return dt
+
+
+# the tensor-core kernels: (library source, kernel template); every bf16
+# instantiation (ALiBi x window) must issue wgmma (HGMMA) and TMA loads
+# (UTMALDG)
+TENSOR_CORE_KERNELS = [("flash_attention_fwd", "flash_fwd_kernel"),
+                       ("flash_attention_bwd", "flash_bwd_dkv_kernel")]
+
+
+def sass_counts(sass, kernel):
+    """{(alibi, window): (HGMMA count, UTMALDG count)} of the bf16
+    instantiations of template ``kernel`` in ``cuobjdump -sass`` output;
+    their mangled names end ``<kernel>I13__nv_bfloat16Lb<0|1>ELb<0|1>E``."""
+    import re
+    pat = re.compile(re.escape(kernel) +
+                     r"I13__nv_bfloat16Lb([01])ELb([01])E")
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        m = pat.search(part.split("\n", 1)[0])
+        if m:
+            counts[tuple(bool(int(x)) for x in m.groups())] = (
+                len(re.findall(r"\bHGMMA\b", part)),
+                len(re.findall(r"\bUTMALDG\b", part)))
+    return counts
+
+
+def phase_sass():
+    """Counts HGMMA and UTMALDG in the SASS (cuobjdump -sass) of each bf16
+    instantiation of the tensor-core kernels; fails if one lacks either or
+    an instantiation is missing."""
+    import shutil
+    from deepspeed_tpu_torch.ops import op_builder
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for source, kernel in TENSOR_CORE_KERNELS:
+        lib = op_builder._lib_path(source)
+        run = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                             text=True, timeout=300)
+        if run.returncode != 0:
+            fail(f"cuobjdump -sass {lib.name}: {run.stderr.strip()[:300]}")
+        counts = sass_counts(run.stdout, kernel)
+        for (alibi, window), (n_mma, n_tma) in sorted(counts.items()):
+            phase("build", f"SASS {kernel}<bf16, alibi={alibi}, "
+                  f"window={window}>: {n_mma} HGMMA, {n_tma} UTMALDG")
+            if not n_mma or not n_tma:
+                fail(f"{kernel}<bf16, alibi={alibi}, window={window}> "
+                     f"issues no wgmma or no TMA load")
+        if len(counts) != 4:
+            fail(f"{kernel}: {len(counts)} of its 4 bf16 instantiations "
+                 f"found in {lib.name}")
 
 
 def _rand(shape, dtype, gen):
@@ -378,16 +510,13 @@ def check_adam(label, got, want):
 def phase_train_kernels():
     """B1, B2 (dQ and dK/dV) and B3 vs their plain versions run in fp32
     on the kernels' own inputs: O and LSE of the forward; dQ, dK, dV of
-    the backward from the kernel's own (O, LSE) and one dO.  A bf16
-    gradient, like a bf16 output, is one fp32 value rounded once to bf16
-    by each side, so it is held to the same one-ulp tolerance."""
+    the backward from the kernel's own (O, LSE) and one dO (check_flash:
+    bf16 O, dK and dV also against SDPA's error)."""
     import torch
     from deepspeed_tpu_torch.ops.adam import (AdamState, fused_adam,
                                               reference_impl)
     from deepspeed_tpu_torch.ops.cuda.flash_attention import (
         flash_attention_bwd_cuda, flash_attention_fwd_cuda)
-    from deepspeed_tpu_torch.ops.flash_attention import (
-        flash_attention_bwd_plain, flash_attention_fwd_plain)
     gen = torch.Generator(device="cuda").manual_seed(4321)
     D = 128
     errs = {}
@@ -404,27 +533,11 @@ def phase_train_kernels():
             v = _rand((B, S, Hkv, D), dtype, gen)
             dout = _rand((B, S, H, D), dtype, gen)
             out, lse = flash_attention_fwd_cuda(q, k, v, scale, causal)
-            want_o, want_lse = flash_attention_fwd_plain(
-                q.float(), k.float(), v.float(), scale, causal)
-            note("flash_attention_fwd", dn, check_close(
-                f"flash_attention_fwd {dn} {label} causal={causal} O", out,
-                want_o.to(dtype)))
-            note("flash_attention_fwd", dn, check_close(
-                f"flash_attention_fwd {dn} {label} causal={causal} LSE", lse,
-                want_lse))
             got = flash_attention_bwd_cuda(q, k, v, out, lse, dout, scale,
                                            causal)
-            want = flash_attention_bwd_plain(
-                q.float(), k.float(), v.float(), out.float(), lse,
-                dout.float(), scale, causal)
-            for name, kernel, g, w in zip(
-                    ("dQ", "dK", "dV"),
-                    ("flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-                     "flash_attention_bwd_dkv"), got, want):
-                note(kernel, dn, check_close(
-                    f"{kernel} {dn} {label} causal={causal} {name}", g,
-                    w.to(dtype)))
-            del q, k, v, dout, out, lse, got, want
+            check_flash(note, "", f"{dn} {label} causal={causal}",
+                        (q, k, v, dout), scale, causal, {}, out, lse, got)
+            del q, k, v, dout, out, lse, got
 
     for g_dtype in (torch.float32, torch.bfloat16):
         for adamw in (True, False):
@@ -465,13 +578,12 @@ BIASED_CASES = [("ALiBi B=2 S=2048 H16/16 (bloom_1b7)", 2, 2048, 16, 16,
 
 def phase_biased_kernels():
     """Biased B1 and B2 (ALiBi slopes, sliding windows) vs their plain
-    versions run in fp32 on the kernels' own inputs, fp32 and bf16."""
+    versions run in fp32 on the kernels' own inputs, fp32 and bf16
+    (check_flash)."""
     import torch
     from deepspeed_tpu_torch.models.transformer import alibi_slopes
     from deepspeed_tpu_torch.ops.cuda.flash_attention import (
         flash_attention_bwd_cuda, flash_attention_fwd_biased_cuda)
-    from deepspeed_tpu_torch.ops.flash_attention import (
-        flash_attention_bwd_plain, flash_attention_fwd_plain)
     gen = torch.Generator(device="cuda").manual_seed(5678)
     D = 128
     errs = {}
@@ -491,28 +603,57 @@ def phase_biased_kernels():
             dout = _rand((B, S, H, D), dtype, gen)
             out, lse = flash_attention_fwd_biased_cuda(q, k, v, scale, True,
                                                        **bias)
-            want_o, want_lse = flash_attention_fwd_plain(
-                q.float(), k.float(), v.float(), scale, True, **bias)
-            note("flash_attention_fwd_biased", dn, check_close(
-                f"flash_attention_fwd_biased {dn} {label} O", out,
-                want_o.to(dtype)))
-            note("flash_attention_fwd_biased", dn, check_close(
-                f"flash_attention_fwd_biased {dn} {label} LSE", lse,
-                want_lse))
             got = flash_attention_bwd_cuda(q, k, v, out, lse, dout, scale,
                                            True, **bias)
-            want = flash_attention_bwd_plain(
-                q.float(), k.float(), v.float(), out.float(), lse,
-                dout.float(), scale, True, **bias)
-            for name, kernel, g, w in zip(
-                    ("dQ", "dK", "dV"),
-                    ("flash_attention_bwd_dq_biased",
-                     "flash_attention_bwd_dkv_biased",
-                     "flash_attention_bwd_dkv_biased"), got, want):
-                note(kernel, dn, check_close(f"{kernel} {dn} {label} {name}",
-                                             g, w.to(dtype)))
-            del q, k, v, dout, out, lse, got, want, want_o, want_lse
+            check_flash(note, "_biased", f"{dn} {label}", (q, k, v, dout),
+                        scale, True, bias, out, lse, got)
+            del q, k, v, dout, out, lse, got
     return errs
+
+
+def check_flash(note, kind, label, inputs, scale, causal, bias, out, lse,
+                got):
+    """The flash kernels' (O, LSE) and (dQ, dK, dV) on ``inputs`` (q, k, v,
+    dO) vs the plain versions run in fp32 on the kernels' own inputs, O and
+    LSE.  fp32, LSE and dQ: check_close.  bf16 O, dK, dV (the tensor-core
+    kernels): check_witnessed, against SDPA on the same inputs and the
+    exact fp32 answer.  ``kind``: "" or "_biased", the kernels' names'
+    suffix."""
+    import torch
+    from deepspeed_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_plain, flash_attention_fwd_plain)
+    q, k, v, dout = inputs
+    dtype = q.dtype
+    dn = str(dtype).split(".")[-1]
+    f32 = [x.float() for x in inputs]
+    want_o, want_lse = flash_attention_fwd_plain(*f32[:3], scale, causal,
+                                                 **bias)
+    want = flash_attention_bwd_plain(*f32[:3], out.float(), lse, f32[3],
+                                     scale, causal, **bias)
+    names = ("O", "dQ", "dK", "dV")
+    kernels = [f"flash_attention_{n}{kind}" for n in
+               ("fwd", "bwd_dq", "bwd_dkv", "bwd_dkv")]
+    if dtype == torch.bfloat16:
+        exact = [want_o] + list(flash_attention_bwd_plain(
+            *f32[:3], want_o, want_lse, f32[3], scale, causal, **bias))
+        sdpa = sdpa_witness(q, k, v, dout, scale, causal, **bias)
+    for i, (name, kernel, g, w) in enumerate(zip(
+            names, kernels, (out,) + tuple(got), (want_o,) + tuple(want))):
+        tag = f"{kernel} {label} {name}"
+        if dtype == torch.bfloat16 and name != "dQ":
+            note(kernel, dn, check_witnessed(tag, g, w.to(dtype), exact[i],
+                                             sdpa[i]))
+        else:
+            if dtype == torch.bfloat16:     # dQ: both readings, for scale
+                k_abs, k_rel = _abs_rel(g, exact[i])
+                s_abs, s_rel = _abs_rel(sdpa[i], exact[i])
+                phase("kernels", f"{tag}: vs fp32 exact: kernel max abs "
+                      f"{k_abs:.3e} rel L2 {k_rel:.3e}, SDPA {s_abs:.3e} / "
+                      f"{s_rel:.3e}")
+            note(kernel, dn, check_close(tag, g, w.to(dtype)))
+        if name == "O":
+            note(kernel, dn, check_close(f"{kernel} {label} LSE", lse,
+                                         want_lse))
 
 
 def _sparsity_config(kind, H, block):
@@ -1438,28 +1579,28 @@ def phase_train_timing(errs):
     return res
 
 
-# the biased kernels' timing cases: (label, ALiBi, window, softmax scale)
-# at bf16 B=2 S=2048 16 heads of 128 causal -- BLOOM-1b7's layers and
-# GPT-Neo-1.3B's local layers (unscaled logits); the first is the kernels
-# JSON row
+# the timing cases at S=2048: (label, ALiBi, window, softmax scale) at
+# bf16 B=2 S=2048 16 heads of 128 causal -- BLOOM-1b7's layers, GPT-Neo-
+# 1.3B's local layers and its global layers (unscaled logits; no bias: the
+# unbiased kernels); the first is the kernels JSON row of the biased ones
 BIASED_TIMING = [("ALiBi (bloom_1b7)", True, None, 1.0 / math.sqrt(128)),
-                 ("window 256 (gpt_neo_1_3b local)", False, 256, 1.0)]
+                 ("window 256 (gpt_neo_1_3b local)", False, 256, 1.0),
+                 ("global (gpt_neo_1_3b)", False, None, 1.0)]
 
 
 def phase_biased_timing(errs):
-    """Biased B1 and B2 (dQ, dK/dV) at the new training paths' shapes
-    (BIASED_TIMING): kernel, plain version, library call and bound.  The
-    library call is SDPA with ALiBi as a float ``attn_mask`` (slope * key,
-    -inf above the diagonal) or the window as a boolean one.  The bound
+    """B1 and B2 (dQ, dK/dV) at the S=2048 training paths' shapes
+    (BIASED_TIMING; biased kernels where there is a bias): kernel, plain
+    version, library call and bound.  The library call is SDPA with ALiBi
+    as a float ``attn_mask`` (slope * key, -inf above the diagonal), the
+    window as a boolean one, or causal.  The bound
     counts the operations of the (q, k) pairs the function must visit
     (causal and in the window), each input read once and each output
     written once.  CUDA-graph replay over 4 rotating input sets."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.models.transformer import alibi_slopes
-    from deepspeed_tpu_torch.ops.cuda.flash_attention import (
-        flash_attention_bwd_dkv_biased_cuda,
-        flash_attention_bwd_dq_biased_cuda, flash_attention_fwd_biased_cuda)
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
     from deepspeed_tpu_torch.ops.flash_attention import (
         flash_attention_bwd_plain, flash_attention_fwd_plain)
     B, S, H, D = TRAIN_BATCH, 2048, 16, 128
@@ -1473,8 +1614,11 @@ def phase_biased_timing(errs):
     for label, alibi, window, scale in BIASED_TIMING:
         slopes = alibi_slopes(H).cuda() if alibi else None
         kw = dict(alibi_slopes=slopes, window=window)
-        outs = [flash_attention_fwd_biased_cuda(q[i], k[i], v[i], scale,
-                                                True, **kw) for i in range(c)]
+        kind = "_biased" if fa.is_biased(slopes, window) else ""
+        bkw = kw if kind else {}
+        fwd, dq, dkv = (getattr(fa, f"flash_attention_{n}{kind}_cuda")
+                        for n in ("fwd", "bwd_dq", "bwd_dkv"))
+        outs = [fwd(q[i], k[i], v[i], scale, True, **bkw) for i in range(c)]
         o = torch.stack([x[0] for x in outs])
         lse = torch.stack([x[1] for x in outs])
         delta = (do.float() * o.float()).sum(-1).transpose(2, 3).contiguous()
@@ -1486,42 +1630,42 @@ def phase_biased_timing(errs):
             mask = (slopes[:, None, None] * pos.float()[None, None, :]
                     ).masked_fill(~allowed, float("-inf")).to(dt)[None]
         else:
-            mask = allowed
+            mask = allowed if window else None
         leaves = [[x[i].clone().requires_grad_() for x in (qt, kt, vt)]
                   for i in range(c)]
 
         def sdpa_fwd_bwd(i):
             a, b_, v_ = leaves[i]
-            out = F.scaled_dot_product_attention(a, b_, v_, attn_mask=mask,
-                                                 scale=scale)
+            out = F.scaled_dot_product_attention(
+                a, b_, v_, attn_mask=mask, is_causal=mask is None,
+                scale=scale)
             torch.autograd.grad(out, (a, b_, v_), dot[i])
 
         times = {
-            "fwd": graph_ms(lambda i: flash_attention_fwd_biased_cuda(
-                q[i], k[i], v[i], scale, True, **kw), c),
-            "dq": graph_ms(lambda i: flash_attention_bwd_dq_biased_cuda(
-                q[i], k[i], v[i], do[i], lse[i], delta[i], scale, True,
-                **kw), c),
-            "dkv": graph_ms(lambda i: flash_attention_bwd_dkv_biased_cuda(
-                q[i], k[i], v[i], do[i], lse[i], delta[i], scale, True,
-                **kw), c)}
+            "fwd": graph_ms(lambda i: fwd(q[i], k[i], v[i], scale, True,
+                                          **bkw), c),
+            "dq": graph_ms(lambda i: dq(q[i], k[i], v[i], do[i], lse[i],
+                                        delta[i], scale, True, **bkw), c),
+            "dkv": graph_ms(lambda i: dkv(q[i], k[i], v[i], do[i], lse[i],
+                                          delta[i], scale, True, **bkw), c)}
         plain_fwd = graph_ms(lambda i: flash_attention_fwd_plain(
             q[i], k[i], v[i], scale, True, **kw), c)
         plain_bwd = graph_ms(lambda i: flash_attention_bwd_plain(
             q[i], k[i], v[i], o[i], lse[i], do[i], scale, True, **kw), c)
         lib_fwd = graph_ms(lambda i: F.scaled_dot_product_attention(
-            qt[i], kt[i], vt[i], attn_mask=mask, scale=scale), c)
+            qt[i], kt[i], vt[i], attn_mask=mask, is_causal=mask is None,
+            scale=scale), c)
         lib_bwd = graph_ms(sdpa_fwd_bwd, c) - lib_fwd
         extra = H * 4 if alibi else 0           # the slopes
         flops = {"fwd": 4 * B * H * pairs * D, "dq": 6 * B * H * pairs * D,
                  "dkv": 8 * B * H * pairs * D}
         nbytes = {"fwd": 4 * e + f4 + extra, "dq": 5 * e + 2 * f4 + extra,
                   "dkv": 6 * e + 2 * f4 + extra}
-        for name, key, plain_ms, lib_ms in (
-                ("flash_attention_fwd_biased", "fwd", plain_fwd, lib_fwd),
-                ("flash_attention_bwd_dq_biased", "dq", plain_bwd, lib_bwd),
-                ("flash_attention_bwd_dkv_biased", "dkv", plain_bwd,
-                 lib_bwd)):
+        for key, plain_ms, lib_ms in (("fwd", plain_fwd, lib_fwd),
+                                      ("dq", plain_bwd, lib_bwd),
+                                      ("dkv", plain_bwd, lib_bwd)):
+            name = f"flash_attention_{'bwd_' if key != 'fwd' else ''}" \
+                   f"{key}{kind}"
             bound_ms, bound_by = _bound(nbytes[key], flops[key], "bfloat16")
             res[(name, label)] = dict(
                 ms=times[key], plain_ms=plain_ms, library_ms=lib_ms,
@@ -1616,6 +1760,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     phase_build()
+    phase_sass()
     errs = phase_kernels()
     errs.update(phase_train_kernels())
     errs.update(phase_biased_kernels())
@@ -1761,7 +1906,7 @@ def main():
     timing.update(phase_train_timing(errs))
     biased = phase_biased_timing(errs)
     sparse = phase_sparse_timing(sparse_err)
-    alibi_label, window_label = (b[0] for b in BIASED_TIMING)
+    alibi_label, window_label = (b[0] for b in BIASED_TIMING[:2])
     ratio = (biased[("flash_attention_fwd_biased", window_label)]["ms"] /
              biased[("flash_attention_fwd_biased", alibi_label)]["ms"])
     phase("timing", f"biased forward, window 256 vs ALiBi at S=2048: "

@@ -20,25 +20,44 @@
 // dK/dV kernel's q loop ends after the last q tile that can see its keys.
 // Any S is taken: ragged last tiles are masked.
 //
-// What bounds them on the H100: at the training shape (B=2, S=1024, 16
-// heads of 128, causal, bf16) dQ does 3*B*H*S^2*D = 12.9 GFLOP on 42 MB,
-// 307 flop per byte, over the ~295 flop/byte ridge: the tensor cores
-// bound it (13.0 us).  dK/dV does 4*B*H*S^2*D = 17.2 GFLOP on 51 MB (dK
-// and dV counted in k's dtype at Hkv heads, as the function returns them),
-// 340 flop per byte: the tensor cores bound it too (17.4 us).  This
-// kernel's fp32 per-query-head outputs write 34 MB more than that.  The
-// biased kernels at S=2048 do 4x the work of S=1024 with ALiBi, and a
-// window of 256 leaves 491,648 of the 2,098,176 causal (q, k) pairs: both
-// are bound by operations, as here.
+// What bounds them on the H100: at gpt_1b's training shape (B=2, S=1024,
+// 16 heads of 128, causal, bf16) dQ does 3*B*H*S^2*D = 12.9 GFLOP on 42 MB,
+// 307 flop per byte, over the ~295 flop/byte ridge: the tensor cores bound
+// it (13.0 us).  dK/dV does 4*B*H*S^2*D = 17.2 GFLOP on 51 MB (dK and dV
+// counted in k's dtype at Hkv heads, as the function returns them), 340
+// flop per byte: the tensor cores bound it too (17.4 us); its fp32
+// per-query-head outputs write 34 MB more than that.  BLOOM's ALiBi layers
+// (S=2048) do 4x the work and are bound by operations; a window of 256 at
+// S=2048 leaves 491,648 of the 2,098,176 causal (q, k) pairs and is bound
+// by bytes.
 //
-// Design (first version: right before fast).  256 threads, fp32 products
-// on the CUDA cores (flash_tile.cuh).  The TPU grid's sequential axis is a
-// loop inside the block: the dQ block walks key tiles up to its causal
-// frontier; the dK/dV block walks q tiles from its own diagonal
-// (k0 / BQ -- the TPU's ki * block_k // block_q with equal tiles) to S.
-// Both keep their two operand pairs (Q, dO and K, V) in shared memory at
-// once, ~150-170 KB, so one block runs per SM.  wgmma/TMA are later work.
+// dK/dV, bf16: tensor cores fed by TMA.  One block of three warpgroups per
+// (128-key tile, b * h), the key tiles with the longest causal q loops
+// first.  K and V (32 KB each) stay in shared memory for the block; a
+// producer warp streams 64-row Q and dO tiles through a two-stage ring
+// (TMA, 128-byte swizzle, rows past S zero-filled) and writes their rows'
+// LSE and delta beside them.  Two consumer warpgroups own 64 keys each and
+// compute the products transposed, keys as wgmma's M: S^T = K Q^T and
+// dP^T = V dO^T from shared memory; P^T = exp(S^T (+ slope * key) - LSE)
+// and dS^T = P^T (dP^T - delta) scale on the accumulator registers; then
+// P^T and dS^T, rounded to bf16 in registers, are the A operands of
+// dV += P^T dO and dK += dS^T Q, dO and Q read transposed from the same
+// swizzled tiles -- nothing goes back through shared memory, and dV's
+// product runs while dS is formed.  dK and dV (128 fp32 registers a
+// thread) need setmaxnreg: 240 for the consumers, 24 for the producer.
+// The q loop runs from the diagonal to the last row the window lets see
+// the tile; masks apply only on tiles that touch the diagonal, the window
+// edge or S.
+//
+// dQ (both dtypes) and dK/dV in fp32 run on the CUDA cores (the first kernels,
+// flash_tile.cuh): 256 threads, fp32 products; the dQ block walks key
+// tiles up to its causal frontier.  fp32 stays there because the fp32
+// checks hold it to 1e-4 of the plain version, ALiBi scores of ~1.4e3
+// included, which tf32 products would not meet; the dtype picks the
+// instantiation in the C entry.  dQ on the tensor cores is the next
+// redesign.
 #include "flash_tile.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -145,18 +164,37 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// One parameter block for both dK/dV instantiations; the tensor maps are
+// the bf16 kernel's and stay zero for fp32.
+struct DkvParams {
+  CUtensorMap q_map, k_map, v_map, do_map;
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  const float* lse;
+  const float* delta;
+  float* dk;
+  float* dv;
+  const float* slopes;
+  int window, S, H, Hkv, causal;
+  float scale;
+};
+
+// ---- dK/dV, fp32: CUDA cores --------------------------------------------
+
 constexpr size_t kDkvSmemFloats = 4 * 64 * PD + 2 * BQ * PT + 2 * BQ;
 
-template <typename T, bool SLOPE, bool WINDOW>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dk,
-                     float* __restrict__ dv, const float* __restrict__ slopes,
-                     int window, int S, int H, int Hkv, float scale,
-                     int causal) {
-  extern __shared__ float smem[];
+template <bool SLOPE, bool WINDOW>
+__device__ __forceinline__ void dkv_cuda_cores(const DkvParams& p,
+                                               float* smem) {
+  using T = float;
+  const T* q = static_cast<const T*>(p.q);
+  const T* k = static_cast<const T*>(p.k);
+  const T* v = static_cast<const T*>(p.v);
+  const T* dout = static_cast<const T*>(p.dout);
+  const int S = p.S, causal = p.causal;
+  const float scale = p.scale;
   float* k_s = smem;             // [BK][PD]
   float* v_s = k_s + BK * PD;    // [BK][PD]
   float* q_s = v_s + BK * PD;    // [BQ][PD]
@@ -168,8 +206,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int k0 = blockIdx.x * BK;
-  const Heads hd(S, H, Hkv);
-  const Bias<SLOPE, WINDOW> bias(slopes, hd.h, window);
+  const Heads hd(S, p.H, p.Hkv);
+  const Bias<SLOPE, WINDOW> bias(p.slopes, hd.h, p.window);
   load_tile<T>(k_s, k, hd.kv_base, hd.kv_stride, k0, S, 1.f);
   load_tile<T>(v_s, v, hd.kv_base, hd.kv_stride, k0, S, 1.f);
 
@@ -183,7 +221,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // previous tile's products done
     load_tile<T>(q_s, q, hd.q_base, hd.q_stride, q0, S, 1.f);
     load_tile<T>(do_s, dout, hd.q_base, hd.q_stride, q0, S, 1.f);
-    load_rows(lse_s, dl_s, lse, delta, hd.bh, q0, S);
+    load_rows(lse_s, dl_s, p.lse, p.delta, hd.bh, q0, S);
     __syncthreads();
     float s[4][4], dp[4][4];
     zero(s);
@@ -205,11 +243,230 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const long long at = hd.q_base + (long long)key * hd.q_stride;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        dk[at + tx + 16 * j] = dk_acc[i][j];
-        dv[at + tx + 16 * j] = dv_acc[i][j];
+        p.dk[at + tx + 16 * j] = dk_acc[i][j];
+        p.dv[at + tx + 16 * j] = dv_acc[i][j];
       }
     }
   }
+}
+
+// ---- dK/dV, bf16: tensor cores ------------------------------------------
+
+namespace tc {
+constexpr int BN = 128;                      // keys of a block
+constexpr int BM = 64;                       // query rows of a Q/dO tile
+constexpr int kThreads = 384;                // 2 consumer + 1 producer WG
+constexpr int kKvTile = BN * hopper::kHeadDim * 2;   // 32 KB
+constexpr int kKvHalf = kKvTile / 2;
+constexpr int kQTile = BM * hopper::kHeadDim * 2;    // 16 KB
+constexpr int kQHalf = kQTile / 2;
+constexpr int kStages = 2;
+// K, V, then kStages x (Q, dO), kStages x (lse, delta) rows, the barriers:
+// K/V's, full[], empty[]
+constexpr int kStageOffset = 2 * kKvTile;
+constexpr int kRowsOffset = kStageOffset + kStages * 2 * kQTile;
+constexpr int kBarOffset = kRowsOffset + kStages * 2 * BM * 4;
+constexpr size_t kSmem = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
+}  // namespace tc
+
+template <bool SLOPE, bool WINDOW>
+__device__ __forceinline__ void dkv_tensor_cores(const DkvParams& p,
+                                                 unsigned char* raw) {
+  using namespace hopper;
+  using namespace tc;
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* k_s = base;
+  unsigned char* v_s = base + kKvTile;
+  unsigned char* qdo_s = base + kStageOffset;       // [stage][Q, dO]
+  float* rows_s = reinterpret_cast<float*>(base + kRowsOffset);
+  uint64_t* kv_bar = reinterpret_cast<uint64_t*>(base + kBarOffset);
+  uint64_t* full = kv_bar + 1;
+  uint64_t* empty = full + kStages;
+
+  const int S = p.S, H = p.H, bh = blockIdx.x, h = bh % H, b = bh / H;
+  const int hk = h / (H / p.Hkv);
+  const int k0 = blockIdx.y * BN;          // causal: longest q loops first
+  const int window = WINDOW ? p.window : 0;
+  // the q loop: from the diagonal to the last row that sees key k0 + BN - 1
+  const int q_lo = p.causal ? k0 : 0;
+  const int q_hi = WINDOW && window > 0
+                       ? (int)min((long long)S, (long long)k0 + BN - 1 + window)
+                       : S;
+  const int n_tiles = (q_hi - q_lo + BM - 1) / BM;
+
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);     // the producer warp's lanes
+      mbar_init(&empty[s], 256);   // every consumer thread
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer: warp 0 of the last warpgroup
+    regs_dealloc<24>();
+    if (t < 32) {
+      if (t == 0) {
+        mbar_arrive_expect_tx(kv_bar, 2 * kKvTile);
+        tma_load_rows(k_s, &p.k_map, kv_bar, BN, hk, k0, b);
+        tma_load_rows(v_s, &p.v_map, kv_bar, BN, hk, k0, b);
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % kStages, q0 = q_lo + it * BM;
+        mbar_wait(&empty[st], ((it / kStages) & 1) ^ 1);
+        // lse and delta of the tile's rows (0 past S), by the lanes
+        float* lse_s = rows_s + st * 2 * BM;
+#pragma unroll
+        for (int r = t; r < BM; r += 32) {
+          const long long at = (long long)bh * S + q0 + r;
+          lse_s[r] = q0 + r < S ? p.lse[at] * kLog2e : 0.f;
+          lse_s[BM + r] = q0 + r < S ? p.delta[at] : 0.f;
+        }
+        if (t == 0) {
+          unsigned char* q_t = qdo_s + st * 2 * kQTile;
+          mbar_arrive_expect_tx(&full[st], 2 * kQTile);
+          tma_load_rows(q_t, &p.q_map, &full[st], BM, h, q0, b);
+          tma_load_rows(q_t + kQTile, &p.do_map, &full[st], BM, h, q0, b);
+        } else {
+          mbar_arrive(&full[st]);
+        }
+      }
+    }
+  } else {  // consumers: warpgroup wg owns keys k0 + 64 wg .. + 63
+    regs_alloc<240>();
+    const int kw = k0 + 64 * wg;
+    const int key0 = kw + acc_row(0, t);              // and key0 + 8
+    const float scale = p.scale;
+    const float slope = SLOPE ? __ldg(p.slopes + h) : 0.f;
+    const uint32_t k_addr = smem_u32(k_s) + 64 * wg * 128;
+    const uint32_t v_addr = smem_u32(v_s) + 64 * wg * 128;
+    float dk[64], dv[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+
+    mbar_wait(kv_bar, 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % kStages, q0 = q_lo + it * BM;
+      const bool unseen =
+          (p.causal && q0 + BM - 1 < kw) || kw >= S ||
+          (WINDOW && window > 0 && q0 - (kw + 63) >= window);
+      mbar_wait(&full[st], (it / kStages) & 1);
+      if (!unseen) {
+        const uint32_t q_addr = smem_u32(qdo_s) + st * 2 * kQTile;
+        const uint32_t do_addr = q_addr + kQTile;
+        const float* lse_s = rows_s + st * 2 * BM;
+        const float* dl_s = lse_s + BM;
+        // S^T = K Q^T and dP^T = V dO^T: keys are the rows
+        float s[32], dp[32];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          const uint32_t kv_off = (kk / 4) * kKvHalf + (kk % 4) * 32;
+          const uint32_t q_off = (kk / 4) * kQHalf + (kk % 4) * 32;
+          wgmma_ss_n64(s, desc_kmajor(k_addr + kv_off),
+                       desc_kmajor(q_addr + q_off), kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          const uint32_t kv_off = (kk / 4) * kKvHalf + (kk % 4) * 32;
+          const uint32_t q_off = (kk / 4) * kQHalf + (kk % 4) * 32;
+          wgmma_ss_n64(dp, desc_kmajor(v_addr + kv_off),
+                       desc_kmajor(do_addr + q_off), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+
+        const bool edge =
+            q0 + BM > S || kw + 64 > S || (p.causal && q0 < kw + 63) ||
+            (WINDOW && window > 0 && q0 + BM - 1 - kw >= window);
+        // P^T first: dV += P^T dO starts on the tensor cores (P^T as bf16
+        // A operands from registers, dO read transposed: its rows are the
+        // depth) while dS^T is formed; then dK += dS^T Q the same way
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int c = acc_col(i, t), qrow = q0 + c;
+          const int key = key0 + 8 * ((i / 2) % 2);
+          float x = __fmul_rn(s[i], scale);
+          if (SLOPE) x = __fadd_rn(x, __fmul_rn(slope, (float)key));
+          if (edge) {
+            bool ok = qrow < S && key < S && (!p.causal || key <= qrow);
+            if (WINDOW) ok = ok && (window <= 0 || qrow - key < window);
+            if (!ok) x = kNeg;
+          }
+          s[i] = ex2(fmaf(x, kLog2e, -lse_s[c]));   // 0 where masked
+        }
+        uint32_t pa[16], da[16];
+        acc_to_a(s, pa);
+        fence_regs(dv);
+        fence_regs(pa);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                                 pa[4 * kk + 3]};
+          wgmma_rs_n128(dv, a, desc_mnmajor(do_addr + kk * 2048, kQHalf));
+        }
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int c = acc_col(i, t);
+          dp[i] = s[i] * (dp[i] - dl_s[c]) * scale;
+        }
+        acc_to_a(dp, da);
+        fence_regs(dk);
+        fence_regs(da);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint32_t a[4] = {da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
+                                 da[4 * kk + 3]};
+          wgmma_rs_n128(dk, a, desc_mnmajor(q_addr + kk * 2048, kQHalf));
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dk);
+        fence_regs(dv);
+        fence_regs(pa);
+        fence_regs(da);
+      }
+      mbar_arrive(&empty[st]);
+    }
+
+    // fp32, per query head: row `key` of head h in the [B, S, H, D] layout
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = key0 + 8 * r;
+      if (key >= S) continue;
+      const long long at = (((long long)b * S + key) * H + h) * kHeadDim;
+      float2* dk_row = reinterpret_cast<float2*>(p.dk + at);
+      float2* dv_row = reinterpret_cast<float2*>(p.dv + at);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int c2 = (8 * j + 2 * (t % 4)) / 2;
+        dk_row[c2] = make_float2(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
+        dv_row[c2] = make_float2(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+template <typename T>
+constexpr int dkv_threads() {
+  return std::is_same<T, float>::value ? kThreads : tc::kThreads;
+}
+
+template <typename T, bool SLOPE, bool WINDOW>
+__global__ void __launch_bounds__(dkv_threads<T>(), 1)
+flash_bwd_dkv_kernel(const __grid_constant__ DkvParams p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  if constexpr (std::is_same<T, float>::value)
+    dkv_cuda_cores<SLOPE, WINDOW>(p, reinterpret_cast<float*>(smem_raw));
+  else
+    dkv_tensor_cores<SLOPE, WINDOW>(p, smem_raw);
 }
 
 template <typename T, bool SLOPE, bool WINDOW>
@@ -234,23 +491,18 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 }
 
 template <typename T, bool SLOPE, bool WINDOW>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, void* dk, void* dv,
-               const void* slopes, int window, int B, int S, int H, int Hkv,
-               int causal, float scale, cudaStream_t stream) {
-  const size_t smem = kDkvSmemFloats * sizeof(float);
+int launch_dkv(const DkvParams& p, int B, cudaStream_t stream) {
+  constexpr bool fp32 = std::is_same<T, float>::value;
+  const size_t smem = fp32 ? kDkvSmemFloats * sizeof(float) : tc::kSmem;
   // once per instantiation, before any graph capture can be running
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel<T, SLOPE, WINDOW>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
-  dim3 grid((S + BK - 1) / BK, B * H);
-  flash_bwd_dkv_kernel<T, SLOPE, WINDOW><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dk), static_cast<float*>(dv),
-      static_cast<const float*>(slopes), window, S, H, Hkv, scale, causal);
+  const dim3 grid = fp32 ? dim3((p.S + BK - 1) / BK, B * p.H)
+                         : dim3(B * p.H, (p.S + tc::BN - 1) / tc::BN);
+  flash_bwd_dkv_kernel<T, SLOPE, WINDOW>
+      <<<grid, dkv_threads<T>(), smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -268,15 +520,10 @@ int launch_dq_biased(const void* q, const void* k, const void* v,
 }
 
 template <typename T>
-int launch_dkv_biased(const void* q, const void* k, const void* v,
-                      const void* dout, const void* lse, const void* delta,
-                      void* dk, void* dv, const void* slopes, int window,
-                      int B, int S, int H, int Hkv, int causal, float scale,
-                      cudaStream_t stream) {
-  return with_bias(slopes, window, [&](auto slope, auto win) {
+int launch_dkv_biased(const DkvParams& p, int B, cudaStream_t stream) {
+  return with_bias(p.slopes, p.window, [&](auto slope, auto win) {
     return launch_dkv<T, decltype(slope)::value, decltype(win)::value>(
-        q, k, v, dout, lse, delta, dk, dv, slopes, window, B, S, H, Hkv,
-        causal, scale, stream);
+        p, B, stream);
   });
 }
 
@@ -318,14 +565,28 @@ extern "C" int ds_flash_attention_bwd_dkv(const void* q, const void* k,
                                           void* stream) {
   const int bad = dsflash::check_shape(B, S, H, Hkv, D);
   if (bad) return bad;
+  DkvParams p = {};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.dout = dout;
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.dk = static_cast<float*>(dk);
+  p.dv = static_cast<float*>(dv);
+  p.slopes = static_cast<const float*>(slopes);
+  p.window = window;
+  p.S = S;
+  p.H = H;
+  p.Hkv = Hkv;
+  p.causal = causal;
+  p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_dkv_biased<float>(q, k, v, dout, lse, delta, dk, dv,
-                                    slopes, window, B, S, H, Hkv, causal,
-                                    scale, s);
-  if (dtype == 1)
-    return launch_dkv_biased<__nv_bfloat16>(q, k, v, dout, lse, delta, dk,
-                                            dv, slopes, window, B, S, H, Hkv,
-                                            causal, scale, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return launch_dkv_biased<float>(p, B, s);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  int rc = hopper::make_head_map(&p.q_map, q, B, S, H, tc::BM);
+  if (!rc) rc = hopper::make_head_map(&p.do_map, dout, B, S, H, tc::BM);
+  if (!rc) rc = hopper::make_head_map(&p.k_map, k, B, S, Hkv, tc::BN);
+  if (!rc) rc = hopper::make_head_map(&p.v_map, v, B, S, Hkv, tc::BN);
+  return rc ? rc : launch_dkv_biased<__nv_bfloat16>(p, B, s);
 }

@@ -8,46 +8,77 @@
 // l, accumulator acc), masked scores -1e30, rows that see no key finalise
 // to 0, LSE = m + log(l) in fp32 [B, H, S].  The biased instantiations add
 // slope[h] * key to the scaled score and mask keys outside a sliding
-// window (flash_tile.cuh's Bias); the key loop then starts at the first
-// tile the window reaches, as _k_range skips far-past blocks.  Unlike the
-// TPU entry, which sends every S that is not a multiple of its block to
-// the jnp reference, this kernel takes any S: the last q tile and the last
-// key tile are masked.
+// window (_mask_bias); the key loop then starts at the first tile the
+// window reaches, as _k_range skips far-past blocks.  Unlike the TPU
+// entry, which sends every S that is not a multiple of its block to the
+// jnp reference, this kernel takes any S: the last tiles are masked.
 //
-// What bounds it on the H100: causal attention at the training shape
+// What bounds it on the H100: causal attention at gpt_1b's training shape
 // (B=2, S=1024, 16 heads of 128, bf16) does 2*B*H*S^2*D = 8.6 GFLOP on
 // 34 MB (q, k, v, o and the fp32 LSE), 255 flop per byte -- just under the
-// ~295 flop/byte ridge, so the bytes bound it (10.1 us at 3.35 TB/s),
-// with the tensor cores' time (8.7 us at 989 TFLOP/s) close behind.
-// The biased kernels at BLOOM-1b7's shape (B=2, S=2048, ALiBi) do 4x that
-// work on 2x the bytes and are bound by operations; a window of 256 at
-// S=2048 leaves 491,648 of the 2,098,176 causal (q, k) pairs, and the key
-// loop visits 5 of the up to 32 key tiles of a q tile.
+// ~295 flop/byte ridge, so the bytes bound it (10.1 us at 3.35 TB/s), with
+// the tensor cores' time (8.7 us at 989 TFLOP/s) close behind.  BLOOM's
+// ALiBi layers (S=2048) do 4x that work on 2x the bytes and are bound by
+// operations (34.8 us); a window of 256 at S=2048 leaves 491,648 of the
+// 2,098,176 causal (q, k) pairs and is bound by bytes again.
 //
-// Design (first version: right before fast).  One block of 256 threads
-// per (64-row q tile, batch * head); the TPU kernel's sequential key-block
-// grid axis is the loop over 64-key tiles inside the block, which stops at
-// the tile's causal frontier (as _k_range does).  Q, then K and V in turn,
-// sit in shared memory as fp32; the products run on the CUDA cores in
-// fp32 (flash_tile.cuh), which is exact for the fp32 check and keeps one
-// code path for bf16 and fp32 -- but it caps the kernel near the fp32
-// FMA rate (67 TFLOP/s), far under the bound.  wgmma tiles with TMA loads
-// are the next kernel PR.
+// bf16: tensor cores fed by TMA.  One block of three warpgroups per
+// (128-row q tile, b * h); the blocks with the most key tiles (the causal
+// q tiles at the end of the sequence) are first in launch order.  A
+// producer warp loads the Q tile once and streams 128-key K and V tiles
+// through a two-stage ring in shared memory (TMA, 128-byte swizzle, rows
+// past S zero-filled; one mbarrier per stage each way).  Two consumer
+// warpgroups own 64 query rows each: S = Q K^T by wgmma from shared
+// memory, the fp32 online softmax on the accumulator registers (a row
+// lives in the 4 lanes of a quad: two shuffles reduce it; exponentials
+// are one ex2.approx each, the row max folded into one FFMA), then P,
+// rounded to bf16 in registers, is the A operand of O += P V, V read
+// transposed from the same swizzled tile.  Masks are applied only on
+// tiles that touch the diagonal, the window's edge or S; a warpgroup skips
+// a tile it cannot see at all.  setmaxnreg moves registers from the
+// producer to the consumers (S, O and P take 160 a thread).  The K/V
+// stream is two 64 KB tiles per 128 x 128 block-tile: at S=2048 the card's
+// L2 bandwidth alone sets a floor near half this kernel's time.
+//
+// fp32 stays on the CUDA-core kernel (flash_tile.cuh): the fp32 checks
+// hold it to 1e-4 of the plain version, ALiBi scores of ~1.4e3 included,
+// which tf32 products (10-bit mantissa) would not meet.  The dtype picks
+// the instantiation in the C entry; a bf16 launch never takes this path.
 #include "flash_tile.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace dsflash;
 
+// One parameter block for both instantiations; the tensor maps are the
+// bf16 kernel's and stay zero for fp32.
+struct FwdParams {
+  CUtensorMap q_map, k_map, v_map;
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  float* lse;
+  const float* slopes;
+  int window, S, H, Hkv, causal;
+  float scale;
+};
+
+// ---- fp32: CUDA cores -------------------------------------------------
+
 constexpr size_t kSmemFloats = 2 * 64 * PD + BQ * PT + 3 * BQ;
 
-template <typename T, bool SLOPE, bool WINDOW>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, const float* __restrict__ slopes,
-                 int window, int S, int H, int Hkv, float scale, int causal) {
-  extern __shared__ float smem[];
+template <bool SLOPE, bool WINDOW>
+__device__ __forceinline__ void fwd_cuda_cores(const FwdParams& p,
+                                               float* smem) {
+  using T = float;
+  const T* q = static_cast<const T*>(p.q);
+  const T* k = static_cast<const T*>(p.k);
+  const T* v = static_cast<const T*>(p.v);
+  T* o = static_cast<T*>(p.o);
+  const int S = p.S, causal = p.causal;
+  const float scale = p.scale;
   float* q_s = smem;              // [BQ][PD] Q * scale (Q with ALiBi)
   float* kv_s = q_s + BQ * PD;    // [BK][PD] K, then V
   float* p_s = kv_s + BK * PD;    // [BQ][PT] scores, then probabilities
@@ -58,8 +89,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int warp = tid / 32, lane = tid % 32;
   const int q0 = blockIdx.x * BQ;
-  const Heads hd(S, H, Hkv);
-  const Bias<SLOPE, WINDOW> bias(slopes, hd.h, window);
+  const Heads hd(S, p.H, p.Hkv);
+  const Bias<SLOPE, WINDOW> bias(p.slopes, hd.h, p.window);
 
   // the ALiBi kernels scale the product, not Q (see masked())
   load_tile<T>(q_s, q, hd.q_base, hd.q_stride, q0, S, SLOPE ? 1.f : scale);
@@ -136,37 +167,221 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   if (tid < BQ && q0 + tid < S)
-    lse[(long long)hd.bh * S + q0 + tid] =
+    p.lse[(long long)hd.bh * S + q0 + tid] =
         m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
 }
 
+// ---- bf16: tensor cores -------------------------------------------------
+
+namespace tc {
+constexpr int BM = 128;                       // query rows of a block
+constexpr int BN = 128;                       // keys of a K/V tile
+constexpr int kThreads = 384;                 // 2 consumer + 1 producer WG
+constexpr int kTile = 128 * hopper::kHeadDim * 2;   // 32 KB bf16 tile
+constexpr int kHalf = kTile / 2;              // one 64-column box
+constexpr int kStages = 2;
+// Q, then kStages x (K, V), then the barriers: Q's, full[], empty[]
+constexpr int kBarOffset = kTile + kStages * 2 * kTile;
+constexpr size_t kSmem = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
+}  // namespace tc
+
+template <bool SLOPE, bool WINDOW>
+__device__ __forceinline__ void fwd_tensor_cores(const FwdParams& p,
+                                                 unsigned char* raw) {
+  using namespace hopper;
+  using namespace tc;
+  // tiles on 1024-byte boundaries (the swizzle atom)
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* q_s = base;
+  unsigned char* kv_s = base + kTile;
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(base + kBarOffset);
+  uint64_t* full = q_bar + 1;
+  uint64_t* empty = full + kStages;
+
+  const int S = p.S, H = p.H, bh = blockIdx.x, h = bh % H, b = bh / H;
+  const int hk = h / (H / p.Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;   // longest rows first
+  const int window = WINDOW ? p.window : 0;
+  int k_lo = 0;                          // _k_range: the window's first tile
+  if (WINDOW && window > 0 && q0 - (window - 1) > 0)
+    k_lo = (q0 - (window - 1)) / BN * BN;
+  const int k_hi = p.causal ? min(S, q0 + BM) : S;
+  const int n_tiles = (k_hi - k_lo + BN - 1) / BN;
+
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);   // every consumer thread
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer
+    regs_dealloc<24>();
+    if (t == 0) {
+      mbar_arrive_expect_tx(q_bar, kTile);
+      tma_load_rows(q_s, &p.q_map, q_bar, BM, h, q0, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % kStages;
+        mbar_wait(&empty[st], ((it / kStages) & 1) ^ 1);
+        unsigned char* k_t = kv_s + st * 2 * kTile;
+        const int k0 = k_lo + it * BN;
+        mbar_arrive_expect_tx(&full[st], 2 * kTile);
+        tma_load_rows(k_t, &p.k_map, &full[st], BN, hk, k0, b);
+        tma_load_rows(k_t + kTile, &p.v_map, &full[st], BN, hk, k0, b);
+      }
+    }
+  } else {  // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63
+    regs_alloc<240>();
+    const int r_first = q0 + 64 * wg, r_last = r_first + 63;
+    const int row0 = r_first + acc_row(0, t);       // and row0 + 8
+    const float slope = SLOPE ? __ldg(p.slopes + h) : 0.f;
+    const float scale = p.scale;
+    const uint32_t q_addr = smem_u32(q_s) + 64 * wg * 128;
+    float o[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};   // l: this lane's share
+
+    mbar_wait(q_bar, 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % kStages, k0 = k_lo + it * BN;
+      const bool unseen =
+          (p.causal && k0 > r_last) || r_first >= S ||
+          (WINDOW && window > 0 && r_first - (k0 + BN - 1) >= window);
+      mbar_wait(&full[st], (it / kStages) & 1);
+      if (!unseen) {
+        const uint32_t k_addr = smem_u32(kv_s) + st * 2 * kTile;
+        const uint32_t v_addr = k_addr + kTile;
+        float s[64];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          const uint32_t off = (kk / 4) * kHalf + (kk % 4) * 32;
+          wgmma_ss_n128(s, desc_kmajor(q_addr + off),
+                        desc_kmajor(k_addr + off), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+
+        const bool edge =
+            (p.causal && k0 + BN - 1 > r_first) || k0 + BN > S ||
+            (WINDOW && window > 0 && r_last - k0 >= window);
+        float mx[2] = {kNeg, kNeg};
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const int key = k0 + acc_col(i, t), row = row0 + 8 * ((i / 2) % 2);
+          float x = __fmul_rn(s[i], scale);
+          if (SLOPE) x = __fadd_rn(x, __fmul_rn(slope, (float)key));
+          if (edge) {
+            bool ok = key < S && (!p.causal || key <= row);
+            if (WINDOW) ok = ok && (window <= 0 || row - key < window);
+            if (!ok) x = kNeg;
+          }
+          s[i] = x;
+          mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], x);
+        }
+        float corr[2], ml[2];   // ml: m * log2(e), the exponents' offset
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          // a row that has seen no key yet keeps m = -1e30; its exponents
+          // are taken from 0, so its masked scores give exactly 0
+          const float m_new = fmaxf(m[r], mx[r]);
+          ml[r] = m_new <= kNeg / 2 ? 0.f : m_new * kLog2e;
+          corr[r] = ex2(fmaf(m[r], kLog2e, -ml[r]));
+          m[r] = m_new;
+          l[r] *= corr[r];
+        }
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const int r = (i / 2) % 2;
+          const float pr = ex2(fmaf(s[i], kLog2e, -ml[r]));
+          l[r] += pr;
+          s[i] = pr;
+          o[i] *= corr[r];
+        }
+        uint32_t pa[32];
+        acc_to_a(s, pa);
+        fence_regs(o);
+        fence_regs(pa);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                                 pa[4 * kk + 3]};
+          wgmma_rs_n128(o, a, desc_mnmajor(v_addr + kk * 2048, kHalf));
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_regs(pa);
+      }
+      mbar_arrive(&empty[st]);
+    }
+
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.o);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const int row = row0 + 8 * r;
+      if (row >= S) continue;
+      const float inv = 1.f / fmaxf(l[r], 1e-30f);
+      uint32_t* orow = reinterpret_cast<uint32_t*>(
+          out + (((long long)b * S + row) * H + h) * kHeadDim);
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        orow[(8 * j + 2 * (t % 4)) / 2] =
+            pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+      if (t % 4 == 0)
+        p.lse[(long long)bh * S + row] = m[r] + logf(fmaxf(l[r], 1e-30f));
+    }
+  }
+}
+
+template <typename T>
+constexpr int fwd_threads() {
+  return std::is_same<T, float>::value ? kThreads : tc::kThreads;
+}
+
 template <typename T, bool SLOPE, bool WINDOW>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           const void* slopes, int window, int B, int S, int H, int Hkv,
-           int causal, float scale, cudaStream_t stream) {
-  const size_t smem = kSmemFloats * sizeof(float);
+__global__ void __launch_bounds__(fwd_threads<T>(), 1)
+flash_fwd_kernel(const __grid_constant__ FwdParams p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  if constexpr (std::is_same<T, float>::value)
+    fwd_cuda_cores<SLOPE, WINDOW>(p, reinterpret_cast<float*>(smem_raw));
+  else
+    fwd_tensor_cores<SLOPE, WINDOW>(p, smem_raw);
+}
+
+template <typename T, bool SLOPE, bool WINDOW>
+int launch(const FwdParams& p, int B, cudaStream_t stream) {
+  constexpr bool fp32 = std::is_same<T, float>::value;
+  const size_t smem = fp32 ? kSmemFloats * sizeof(float) : tc::kSmem;
   // once per instantiation, before any graph capture can be running
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd_kernel<T, SLOPE, WINDOW>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
-  dim3 grid((S + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<T, SLOPE, WINDOW><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      static_cast<const float*>(slopes), window, S, H, Hkv, scale, causal);
+  const dim3 grid = fp32 ? dim3((p.S + BQ - 1) / BQ, B * p.H)
+                         : dim3(B * p.H, (p.S + tc::BM - 1) / tc::BM);
+  flash_fwd_kernel<T, SLOPE, WINDOW>
+      <<<grid, fwd_threads<T>(), smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_biased(const void* q, const void* k, const void* v, void* o,
-                  void* lse, const void* slopes, int window, int B, int S,
-                  int H, int Hkv, int causal, float scale,
-                  cudaStream_t stream) {
-  return with_bias(slopes, window, [&](auto slope, auto win) {
-    return launch<T, decltype(slope)::value, decltype(win)::value>(
-        q, k, v, o, lse, slopes, window, B, S, H, Hkv, causal, scale,
-        stream);
+int launch_biased(const FwdParams& p, int B, cudaStream_t stream) {
+  return with_bias(p.slopes, p.window, [&](auto slope, auto win) {
+    return launch<T, decltype(slope)::value, decltype(win)::value>(p, B,
+                                                                   stream);
   });
 }
 
@@ -175,7 +390,7 @@ int launch_biased(const void* q, const void* k, const void* v, void* o,
 // q: [B, S, H, D]; k/v: [B, S, Hkv, D]; o: [B, S, H, D] (q's dtype);
 // lse: fp32 [B, H, S].  slopes: fp32 [H] ALiBi slopes or null; window:
 // the sliding window, <= 0 for none.  dtype: 0 = float32, 1 = bfloat16;
-// D must be 128.  Returns cudaGetLastError().
+// D must be 128.  Returns a CUDA error code, 0 on success.
 extern "C" int ds_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       const void* slopes, int B, int S,
@@ -184,12 +399,24 @@ extern "C" int ds_flash_attention_fwd(const void* q, const void* k,
                                       void* stream) {
   const int bad = dsflash::check_shape(B, S, H, Hkv, D);
   if (bad) return bad;
+  FwdParams p = {};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.o = o;
+  p.lse = static_cast<float*>(lse);
+  p.slopes = static_cast<const float*>(slopes);
+  p.window = window;
+  p.S = S;
+  p.H = H;
+  p.Hkv = Hkv;
+  p.causal = causal;
+  p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_biased<float>(q, k, v, o, lse, slopes, window, B, S, H,
-                                Hkv, causal, scale, s);
-  if (dtype == 1)
-    return launch_biased<__nv_bfloat16>(q, k, v, o, lse, slopes, window, B,
-                                        S, H, Hkv, causal, scale, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return launch_biased<float>(p, B, s);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  int rc = hopper::make_head_map(&p.q_map, q, B, S, H, tc::BM);
+  if (!rc) rc = hopper::make_head_map(&p.k_map, k, B, S, Hkv, tc::BN);
+  if (!rc) rc = hopper::make_head_map(&p.v_map, v, B, S, Hkv, tc::BN);
+  return rc ? rc : launch_biased<__nv_bfloat16>(p, B, s);
 }

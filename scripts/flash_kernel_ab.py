@@ -1,0 +1,206 @@
+#!/usr/bin/env python3
+"""A/B of source variants of the port's flash-attention kernels, on one
+card, in one process.
+
+    python3 scripts/flash_kernel_ab.py VARIANTS.json [--out DIR]
+
+VARIANTS.json maps a variant's name to ``{"dir": <sources>, "edits":
+{<file>: [[regex, replacement], ...]}}``: the variant is a copy of the
+directory (default ``deepspeed_tpu_torch/ops/csrc``; a ``git archive`` of
+another commit's csrc works too) with each regex replaced (each must
+match).  Every variant's ``flash_attention_fwd.cu`` and
+``flash_attention_bwd.cu`` are built with the op builder's nvcc flags, all
+at once, into ``--out`` with their logs (default, gitignored:
+``deepspeed_tpu_torch/_build/ab``).  Then, for each variant: bf16
+forward and dK/dV against the plain versions run in fp32 on a few edge
+cases (relative L2 of O, dK, dV; max LSE error), and device ms by
+CUDA-graph replay over 4 rotating input sets at the training paths'
+shapes (B=2, 16 heads of 128, causal: S=1024; S=2048 with ALiBi, window
+256, and unscaled); the first variant is timed again at the end, so
+drift shows.  Last, the HGMMA and WARPGROUP.DEPBAR counts of each
+variant's bf16 kernels (a DEPBAR after every HGMMA means ptxas
+serialised the wgmma pipeline).
+"""
+
+import argparse
+import ctypes
+import json
+import math
+import os
+import re
+import shutil
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
+CASES = [  # (label, B, S, H, Hkv, causal, ALiBi, window, scale)
+    ("S=1000 H4/2 causal", 1, 1000, 4, 2, True, False, None, None),
+    ("S=1000 H4/2 non-causal", 1, 1000, 4, 2, False, False, None, None),
+    ("window 100 S=1000", 2, 1000, 16, 16, True, False, 100, None),
+    ("ALiBi+window 200 GQA S=640", 2, 640, 32, 8, True, True, 200, None),
+    ("ALiBi S=2048", 1, 2048, 4, 4, True, True, None, None),
+    ("window 256 scale 1 S=2048", 1, 2048, 4, 4, True, False, 256, 1.0)]
+SHAPES = [  # (label, S, ALiBi, window, scale) at B=2, 16 heads of 128
+    ("S=1024", 1024, False, None, None),
+    ("ALiBi S=2048", 2048, True, None, None),
+    ("window 256 S=2048", 2048, False, 256, 1.0),
+    ("global S=2048", 2048, False, None, 1.0)]
+
+
+def build(variants, out):
+    from deepspeed_tpu_torch.ops import op_builder
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    procs = {}
+    for name, spec in variants.items():
+        d = os.path.join(out, name)
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(os.path.join(REPO, spec.get(
+            "dir", "deepspeed_tpu_torch/ops/csrc")), d)
+        for f, subs in spec.get("edits", {}).items():
+            with open(os.path.join(d, f)) as fh:
+                text = fh.read()
+            for pat, rep in subs:
+                text, n = re.subn(pat, rep, text)
+                if not n:
+                    sys.exit(f"{name}: {pat!r} matches nothing in {f}")
+            with open(os.path.join(d, f), "w") as fh:
+                fh.write(text)
+        for src in SOURCES:
+            cmd = [nvcc, *op_builder.ARCH_FLAGS, *op_builder.NVCC_FLAGS,
+                   "-o", os.path.join(d, f"lib{src}.so"),
+                   os.path.join(d, f"{src}.cu")]
+            procs[(name, src)] = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)
+    libs = {}
+    for (name, src), proc in procs.items():
+        log = proc.communicate()[0]
+        with open(os.path.join(out, name, f"{src}.log"), "w") as fh:
+            fh.write(log)
+        if proc.returncode:
+            sys.exit(f"{name}: nvcc failed for {src}:\n{log[-3000:]}")
+        spills = sorted({ln.strip() for ln in log.splitlines()
+                         if "spill" in ln and " 0 bytes spill" not in ln})
+        print(f"{name} {src}: built; spills {spills or 'none'}", flush=True)
+        libs[(name, src)] = ctypes.CDLL(
+            os.path.join(out, name, f"lib{src}.so"))
+    return libs
+
+
+def use(libs, name):
+    """Point the wrappers at variant ``name``'s libraries."""
+    from deepspeed_tpu_torch.ops import op_builder
+    for kernel, (src, symbol, argtypes) in op_builder.SIGNATURES.items():
+        if src in SOURCES:
+            fn = getattr(libs[(name, src)], symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            op_builder._loaded[kernel] = fn
+
+
+def kernels(fa, kw):
+    """(forward, dK/dV) wrappers for bias ``kw``, biased where needed."""
+    if fa.is_biased(kw["alibi_slopes"], kw["window"]):
+        return (lambda *a: fa.flash_attention_fwd_biased_cuda(*a, **kw),
+                lambda *a: fa.flash_attention_bwd_dkv_biased_cuda(*a, **kw))
+    return fa.flash_attention_fwd_cuda, fa.flash_attention_bwd_dkv_cuda
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("variants", help="JSON file of variants")
+    ap.add_argument("--out", default=os.path.join(
+        REPO, "deepspeed_tpu_torch", "_build", "ab"))
+    args = ap.parse_args()
+    sys.path.insert(0, REPO)
+    import torch
+    from chip_smoke import graph_ms
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA device")
+    from deepspeed_tpu_torch.models.transformer import alibi_slopes
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    from deepspeed_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_plain, flash_attention_fwd_plain)
+    with open(args.variants) as fh:
+        variants = json.load(fh)
+    os.makedirs(args.out, exist_ok=True)
+    t0 = time.time()
+    libs = build(variants, args.out)
+    print(f"built in {time.time() - t0:.1f} s", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    def rel(got, want):
+        return ((got.float() - want).norm() / want.norm()).item()
+
+    cases = []
+    for label, B, S, H, Hkv, causal, alibi, window, scale in CASES:
+        q, dout = rnd(B, S, H, 128), rnd(B, S, H, 128)
+        k, v = rnd(B, S, Hkv, 128), rnd(B, S, Hkv, 128)
+        kw = dict(alibi_slopes=alibi_slopes(H).cuda() if alibi else None,
+                  window=window)
+        scale = scale or 1 / math.sqrt(128)
+        f32 = [x.float() for x in (q, k, v, dout)]
+        o, lse = flash_attention_fwd_plain(*f32[:3], scale, causal, **kw)
+        _, dk, dv = flash_attention_bwd_plain(*f32[:3], o, lse, f32[3],
+                                              scale, causal, **kw)
+        cases.append((label, (q, k, v, dout), scale, causal, kw,
+                      (o, lse, dk, dv)))
+    for name in variants:
+        use(libs, name)
+        for label, (q, k, v, dout), scale, causal, kw, want in cases:
+            fwd, _ = kernels(fa, kw)
+            o, lse = fwd(q, k, v, scale, causal)
+            bias = kw if fa.is_biased(**kw) else {}
+            _, dk, dv = fa.flash_attention_bwd_cuda(q, k, v, o, lse, dout,
+                                                    scale, causal, **bias)
+            print(f"{name} {label}: O rel L2 {rel(o, want[0]):.2e}, LSE max "
+                  f"err {(lse - want[1]).abs().max().item():.2e}, dK "
+                  f"{rel(dk, want[2]):.2e}, dV {rel(dv, want[3]):.2e}",
+                  flush=True)
+    c, shapes = 4, []
+    for label, S, alibi, window, scale in SHAPES:
+        x = [torch.randn((c, 2, S, 16, 128), generator=gen,
+                         device="cuda").to(torch.bfloat16) for _ in range(4)]
+        kw = dict(alibi_slopes=alibi_slopes(16).cuda() if alibi else None,
+                  window=window)
+        shapes.append((label, x, scale or 1 / math.sqrt(128), kw))
+    for name in list(variants) + list(variants)[:1]:
+        use(libs, name)
+        row = []
+        for label, (q, k, v, do), scale, kw in shapes:
+            fwd, dkv = kernels(fa, kw)
+            outs = [fwd(q[i], k[i], v[i], scale, True) for i in range(c)]
+            lse = torch.stack([x[1] for x in outs])
+            delta = (do.float() * torch.stack([x[0] for x in outs]).float()
+                     ).sum(-1).transpose(2, 3).contiguous()
+            f_ms = graph_ms(lambda i: fwd(q[i], k[i], v[i], scale, True), c)
+            d_ms = graph_ms(lambda i: dkv(q[i], k[i], v[i], do[i], lse[i],
+                                          delta[i], scale, True), c)
+            row.append(f"{label} fwd {f_ms:.4f} dK/dV {d_ms:.4f}")
+        print(f"device ms {name}: " + " | ".join(row), flush=True)
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for name in variants:
+        for src in SOURCES:
+            sass = subprocess.run(
+                [tool, "-sass", os.path.join(args.out, name, f"lib{src}.so")],
+                capture_output=True, text=True).stdout
+            for part in sass.split("Function : ")[1:]:
+                head = part.split("\n", 1)[0]
+                m = re.search(r"(flash_\w+_kernel)I13__nv_bfloat16Lb(\d)ELb"
+                              r"(\d)E", head)
+                if m and "dq" not in m.group(1):
+                    print(f"SASS {name} {m.group(1)}<bf16, alibi="
+                          f"{m.group(2)}, window={m.group(3)}>: HGMMA "
+                          f"{len(re.findall(r'HGMMA', part))}, DEPBAR "
+                          f"{len(re.findall(r'WARPGROUP.DEPBAR', part))}")
+    print(f"done in {time.time() - t0:.1f} s")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,107 @@
+"""The checks ``chip_smoke.py`` holds the tensor-core flash kernels to, run
+here on the CPU where they need no card.
+
+* ``sdpa_witness`` -- the yardstick the bf16 forward and dK/dV kernels are
+  held against -- computes the same function as the plain versions:
+  causal or not, GQA, ALiBi (as the row-shifted mask ``slope * (key -
+  query)``), a sliding window; in fp32 the two agree to rounding.
+* ``check_witnessed`` passes an output within the one-ulp tolerance, or
+  within WITNESS_FACTOR of SDPA's error, and stops the smoke otherwise.
+* ``sass_counts`` reads the wgmma and TMA counts of exactly the bf16
+  instantiations out of ``cuobjdump -sass`` text.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from deepspeed_tpu_torch.models.transformer import alibi_slopes
+from deepspeed_tpu_torch.ops.flash_attention import (
+    flash_attention_bwd_plain, flash_attention_fwd_plain)
+
+WITNESS_CASES = [  # (B, S, H, Hkv, causal, ALiBi, window)
+    (2, 40, 4, 4, True, False, None),
+    (1, 37, 4, 2, False, False, None),
+    (1, 37, 4, 2, True, True, None),
+    (2, 40, 4, 4, True, False, 9),
+    (1, 33, 8, 2, True, True, 12),
+]
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,causal,alibi,window", WITNESS_CASES)
+def test_sdpa_witness_is_the_plain_function(B, S, H, Hkv, causal, alibi,
+                                            window):
+    rng = np.random.default_rng(7)
+    D, scale = 16, 1.0 / math.sqrt(16)
+    q, dout = (torch.from_numpy(rng.standard_normal((B, S, H, D),
+                                                    dtype=np.float32))
+               for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((B, S, Hkv, D),
+                                                 dtype=np.float32))
+            for _ in range(2))
+    bias = dict(alibi_slopes=alibi_slopes(H) if alibi else None,
+                window=window)
+    o, lse = flash_attention_fwd_plain(q, k, v, scale, causal, **bias)
+    want = (o,) + tuple(flash_attention_bwd_plain(q, k, v, o, lse, dout,
+                                                  scale, causal, **bias))
+    got = chip_smoke.sdpa_witness(q, k, v, dout, scale, causal, **bias)
+    for name, g, w in zip(("O", "dQ", "dK", "dV"), got, want):
+        assert g.shape == w.shape, name
+        torch.testing.assert_close(g, w, atol=2e-5, rtol=2e-5, msg=name)
+
+
+def _readings(seed=3):
+    """(exact, SDPA-like output, want) with SDPA's error 1e-2 relative."""
+    g = torch.Generator().manual_seed(seed)
+    exact = torch.randn(4096, generator=g)
+    sdpa = exact + 1e-2 * torch.randn(4096, generator=g)
+    return exact, sdpa, exact.clone()
+
+
+def test_check_witnessed_passes_one_ulp_outputs():
+    exact, sdpa, want = _readings()
+    got = want.to(torch.bfloat16)         # one rounding of the same value
+    err = chip_smoke.check_witnessed("one-ulp", got, want, exact, sdpa)
+    assert err == pytest.approx((got.float() - want).abs().max().item())
+
+
+def test_check_witnessed_passes_within_sdpa_error():
+    exact, sdpa, want = _readings()
+    g = torch.Generator().manual_seed(4)
+    got = (exact + 1.5e-2 * torch.randn(4096, generator=g)).to(
+        torch.bfloat16)
+    chip_smoke.check_witnessed("within", got, want, exact, sdpa)
+
+
+def test_check_witnessed_stops_beyond_sdpa_error():
+    exact, sdpa, want = _readings()
+    g = torch.Generator().manual_seed(5)
+    got = (exact + 5e-2 * torch.randn(4096, generator=g)).to(torch.bfloat16)
+    with pytest.raises(SystemExit):
+        chip_smoke.check_witnessed("beyond", got, want, exact, sdpa)
+
+
+_SASS = """
+        code for sm_90a
+                Function : _ZN55_GLOBAL__N__0_22_flash_attention_fwd_cu_016flash_fwd_kernelI13__nv_bfloat16Lb1ELb0EEEvNS_9FwdParamsE
+        .headerflags    @"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0100*/                   UTMALDG.4D [UR8], [UR4] ;
+        /*0110*/                   UTMALDG.4D [UR12], [UR4] ;
+        /*0200*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8], RZ, !UPT ;
+        /*0210*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8], R24, gsb0 ;
+                Function : _ZN55_GLOBAL__N__0_22_flash_attention_fwd_cu_016flash_fwd_kernelIfLb1ELb0EEEvNS_9FwdParamsE
+        /*0100*/                   FFMA R1, R2, R3, R4 ;
+                Function : _ZN55_GLOBAL__N__0_22_flash_attention_fwd_cu_016flash_fwd_kernelI13__nv_bfloat16Lb0ELb1EEEvNS_9FwdParamsE
+        /*0100*/                   FFMA R1, R2, R3, R4 ;
+"""
+
+
+def test_sass_counts_reads_the_bf16_instantiations():
+    counts = chip_smoke.sass_counts(_SASS, "flash_fwd_kernel")
+    # the fp32 instantiation is not counted; a bf16 one without wgmma or
+    # TMA shows as zeros, which phase_sass refuses
+    assert counts == {(True, False): (2, 2), (False, True): (0, 0)}
+    assert chip_smoke.sass_counts(_SASS, "flash_bwd_dkv_kernel") == {}
