@@ -25,9 +25,11 @@ kernels.  Phases:
              1,000,003 elements in both modes; the biased flash kernels with
              ALiBi at S=2048, windows 256 (S=2048, unscaled, GPT-Neo's local
              layers) and 100 (S=1000), ALiBi + window with GQA, a window
-             past S (bf16 O, dK, dV of the tensor-core kernels: one ulp,
-             or within 2x SDPA's error on the same inputs, both readings
-             printed); the block-sparse kernel for layout blocks 16-128,
+             past S (bf16 O, dQ, dK, dV of the tensor-core kernels: one
+             ulp, or within 2x SDPA's error on the same inputs, both
+             readings printed); decode attention where its key chunks
+             meet a sequence's length; the block-sparse kernel for layout
+             blocks 16-128,
              head dims 64 and 128, causal, bidirectional and empty rows
   4 generate init_inference(llama2_7b).generate, B=4, prompt 128, 32 new
   5 serve    create_serving_engine(max_batch=8, page_size=128,
@@ -47,7 +49,8 @@ kernels.  Phases:
              the refusal of a gradient request
   9 timing   each kernel at the main path's shapes vs its bound, its plain
              version and one PyTorch library call (a yardstick only), the
-             flash kernels also at GPT-Neo's global layers' shape; fused
+             flash kernels also at GPT-Neo's global layers' shape, the
+             decode kernel also at Llama-2's whole context (len 4096); fused
              Adam held against its plain version over gpt_1b's 1.01 B
              parameters; the window-256 forward must take well under the
              ALiBi forward's time
@@ -74,9 +77,9 @@ TOL = {"float32": (1e-4, 1e-4),   # both in fp32; only the summation order
        "bfloat16": (1e-5, 8e-3)}  # both round one fp32 result to bf16: at
                                   # most one bf16 ulp apart (<= 2**-7 of the
                                   # value), plus fp32 order noise near 0
-# The bf16 flash forward and dK/dV kernels run on the tensor cores with P
-# (and dS) rounded to bf16 inside the products, as SDPA's kernels do, so
-# their O, dK and dV may leave the one-ulp tolerance above; they then pass
+# The bf16 flash forward, dQ and dK/dV kernels run on the tensor cores with
+# P (and dS) rounded to bf16 inside the products, as SDPA's kernels do, so
+# their O, dQ, dK and dV may leave the one-ulp tolerance above; they then pass
 # if their max abs and relative L2 errors against the exact fp32 answer
 # are each within this factor of SDPA's on the same inputs (see
 # check_witnessed)
@@ -176,7 +179,7 @@ def _abs_rel(got, exact):
 
 
 def check_witnessed(name, got, want, exact, sdpa):
-    """A bf16 output of the tensor-core flash kernels (O, dK, dV), which
+    """A bf16 output of the tensor-core flash kernels (O, dQ, dK, dV), which
     round P and dS to bf16 inside their products.  Passes within the
     one-ulp tolerance of ``want`` (the plain version in fp32 on the
     kernels' own O and LSE), or if its max abs error and its relative L2
@@ -270,6 +273,7 @@ def phase_build():
 # instantiation (ALiBi x window) must issue wgmma (HGMMA) and TMA loads
 # (UTMALDG)
 TENSOR_CORE_KERNELS = [("flash_attention_fwd", "flash_fwd_kernel"),
+                       ("flash_attention_bwd", "flash_bwd_dq_kernel"),
                        ("flash_attention_bwd", "flash_bwd_dkv_kernel")]
 
 
@@ -390,7 +394,8 @@ def phase_kernels():
     edge cases; returns max abs err per kernel and dtype."""
     import torch
     from deepspeed_tpu_torch.ops.cuda.decode_attention import (
-        decode_attention_cuda, decode_attention_plain)
+        DECODE_ROWS, decode_attention_cuda, decode_attention_plain,
+        decode_plan)
     from deepspeed_tpu_torch.ops.cuda.ragged_paged_attention import (
         paged_attention_plain, ragged_paged_attention,
         ragged_paged_attention_rect)
@@ -410,18 +415,39 @@ def phase_kernels():
             # B5: ragged lengths over S_max 2048, and generate's own calls
             # (B=4, cache 128 + 32, one int length for every sequence):
             # its prefill (T=128, length 128) and a decode (length 144)
-            b5 = [(T, 2048, i32([T + 5, 700, 1500, 2048]))
-                  for T in (1, 128)] + [(128, 160, 128), (1, 160, 144)]
-            for T, S, lens in b5:
-                q = _rand((4, T, H, D), dtype, gen)
-                k = _rand((4, Hkv, S, D), dtype, gen)
-                v = _rand((4, Hkv, S, D), dtype, gen)
+            b5 = [(4, T, 2048, i32([T + 5, 700, 1500, 2048]))
+                  for T in (1, 128)] + [(4, 128, 160, 128), (4, 1, 160, 144)]
+            # then lengths where the decode form's key chunks meet a
+            # sequence's end, at the wrapper's own plan for S_max 2048 --
+            # one sequence for MHA, four (a ragged batch) for GQA, so that
+            # the keys are split: T, chunk - 1, chunk, chunk + 1, chunk + 3
+            # (T=4: the mask kpos <= len - T + t across the edge), two
+            # chunks + 1, S_max - 1; and one int length over S_max 1536
+            Be = 1 if Hkv == H else 4
+            for T in (1, 4):
+                n, c = decode_plan(Be, T, H, Hkv, 2048, dtype, "cuda")
+                if T * H // Hkv <= DECODE_ROWS and n == 1:
+                    fail(f"decode_attention B={Be} T={T} H{H}/{Hkv}: the "
+                         f"chunk-edge cases take one chunk; they check "
+                         f"nothing")
+                edges = [x for x in (T, c - 1, c, c + 1, c + 3, 2 * c + 1,
+                                     2047) if T <= x <= 2048]
+                edges += [2047] * (-len(edges) % Be)
+                b5 += [(Be, T, 2048, i32(edges[i:i + Be]))
+                       for i in range(0, len(edges), Be)]
+            b5.append((Be, 1, 1536, 1529))
+            for B, T, S, lens in b5:
+                q = _rand((B, T, H, D), dtype, gen)
+                k = _rand((B, Hkv, S, D), dtype, gen)
+                v = _rand((B, Hkv, S, D), dtype, gen)
                 got = decode_attention_cuda(q, k, v, lens)
                 want = reference(decode_attention_plain, q, k, v, lens)
-                how = "int length" if isinstance(lens, int) else "lengths"
+                n, c = decode_plan(B, T, H, Hkv, S, dtype, "cuda")
+                how = f"length {lens}" if isinstance(lens, int) else \
+                    f"lengths {lens.tolist()}"
                 note("decode_attention", dn, check_close(
-                    f"decode_attention {dn} H{H}/{Hkv} B=4 T={T} S_max={S} "
-                    f"{how}", got, want))
+                    f"decode_attention {dn} H{H}/{Hkv} B={B} T={T} "
+                    f"S_max={S} {how} ({n} x {c} keys)", got, want))
             # B4 rect front-end
             ctx = [1, 17, 128, 129, 300, 640, 1000, 2047]
             tables, kp, vp = _paged_state(ctx, page, Hkv, D, dtype, gen)
@@ -511,7 +537,7 @@ def phase_train_kernels():
     """B1, B2 (dQ and dK/dV) and B3 vs their plain versions run in fp32
     on the kernels' own inputs: O and LSE of the forward; dQ, dK, dV of
     the backward from the kernel's own (O, LSE) and one dO (check_flash:
-    bf16 O, dK and dV also against SDPA's error)."""
+    bf16 O, dQ, dK and dV also against SDPA's error)."""
     import torch
     from deepspeed_tpu_torch.ops.adam import (AdamState, fused_adam,
                                               reference_impl)
@@ -615,7 +641,7 @@ def check_flash(note, kind, label, inputs, scale, causal, bias, out, lse,
                 got):
     """The flash kernels' (O, LSE) and (dQ, dK, dV) on ``inputs`` (q, k, v,
     dO) vs the plain versions run in fp32 on the kernels' own inputs, O and
-    LSE.  fp32, LSE and dQ: check_close.  bf16 O, dK, dV (the tensor-core
+    LSE.  fp32 and LSE: check_close.  bf16 O, dQ, dK, dV (the tensor-core
     kernels): check_witnessed, against SDPA on the same inputs and the
     exact fp32 answer.  ``kind``: "" or "_biased", the kernels' names'
     suffix."""
@@ -640,16 +666,10 @@ def check_flash(note, kind, label, inputs, scale, causal, bias, out, lse,
     for i, (name, kernel, g, w) in enumerate(zip(
             names, kernels, (out,) + tuple(got), (want_o,) + tuple(want))):
         tag = f"{kernel} {label} {name}"
-        if dtype == torch.bfloat16 and name != "dQ":
+        if dtype == torch.bfloat16:
             note(kernel, dn, check_witnessed(tag, g, w.to(dtype), exact[i],
                                              sdpa[i]))
         else:
-            if dtype == torch.bfloat16:     # dQ: both readings, for scale
-                k_abs, k_rel = _abs_rel(g, exact[i])
-                s_abs, s_rel = _abs_rel(sdpa[i], exact[i])
-                phase("kernels", f"{tag}: vs fp32 exact: kernel max abs "
-                      f"{k_abs:.3e} rel L2 {k_rel:.3e}, SDPA {s_abs:.3e} / "
-                      f"{s_rel:.3e}")
             note(kernel, dn, check_close(tag, g, w.to(dtype)))
         if name == "O":
             note(kernel, dn, check_close(f"{kernel} {label} LSE", lse,
@@ -983,10 +1003,11 @@ def _measure(fns, copies):
 
 
 def phase_timing(cfg, serve_prompts):
-    """Each kernel at the main path's decode shapes (bf16): kernel, plain
-    version and library time, plus the bound.  Buffers rotate over more
-    than the 50 MB L2 so each call reads its cache cold, as a layer of the
-    decode loop does."""
+    """Each kernel at the main path's decode shapes (bf16), and B5 again at
+    Llama-2's whole context (len 4096): kernel, plain version and library
+    time, plus the bound and the kernel's share of it.  Buffers rotate
+    over more than the 50 MB L2 so each call reads its cache cold, as a
+    layer of the decode loop does."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.cuda.decode_attention import (
@@ -1023,6 +1044,34 @@ def phase_timing(cfg, serve_prompts):
     res["decode_attention"] = dict(
         max_abs_err=err, **times, bound_ms=bound_ms, bound_by=bound_by,
         shape=f"B={B} T=1 H={H} Hkv={Hkv} D={D} len={L} S_max={S} bf16")
+    del q, k, v, qs
+
+    # B5 at Llama-2's whole context: B=4, len 4096 (268 MB of K/V, two
+    # copies: each call reads its cache cold)
+    B, S, L = 4, 4096, 4096
+    copies = 2
+    q = _rand((copies, B, 1, H, D), dt, gen)
+    k = _rand((copies, B, Hkv, S, D), dt, gen)
+    v = _rand((copies, B, Hkv, S, D), dt, gen)
+    err = check_close(
+        "timing decode_attention len 4096",
+        decode_attention_cuda(q[0], k[0], v[0], L),
+        reference(decode_attention_plain, q[0], k[0], v[0], L))
+    qs = q.transpose(2, 3).contiguous()
+    times = _measure({
+        "ms": lambda i: decode_attention_cuda(q[i % copies], k[i % copies],
+                                              v[i % copies], L),
+        "plain_ms": lambda i: decode_attention_plain(
+            q[i % copies], k[i % copies], v[i % copies], L),
+        "library_ms": lambda i: F.scaled_dot_product_attention(
+            qs[i % copies], k[i % copies], v[i % copies])}, copies)
+    nbytes = B * (2 * Hkv * L * D + 2 * H * D) * item
+    bound_ms, bound_by = _bound(nbytes, B * 4 * H * D * L, "bfloat16")
+    res["decode_attention_4096"] = dict(
+        max_abs_err=err, **times, bound_ms=bound_ms, bound_by=bound_by,
+        shape=f"B={B} T=1 H={H} Hkv={Hkv} D={D} len={L} S_max={S} bf16")
+    del q, k, v, qs
+    _free()
 
     # B4: the serving decode step -- 8 slots of the serve run's first 8
     # prompts, 16 tokens into their 32, T=1, page 128
@@ -1074,7 +1123,8 @@ def phase_timing(cfg, serve_prompts):
               f"{r['library_ms']:.4f}; eager ms per call (host included) "
               f"kernel {r['ms_eager']:.4f}, plain {r['plain_ms_eager']:.4f},"
               f" library {r['library_ms_eager']:.4f}; bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max abs err "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
+              f"{r['bound_ms'] / r['ms']:.3f} of bound, max abs err "
               f"{r['max_abs_err']:.3e}")
     return res
 

@@ -49,13 +49,30 @@
 // the tile; masks apply only on tiles that touch the diagonal, the window
 // edge or S.
 //
-// dQ (both dtypes) and dK/dV in fp32 run on the CUDA cores (the first kernels,
+// dQ, bf16: the same shape as the forward with two score products, dS in
+// P's place.  One block of three warpgroups per (128-row q tile, b * h),
+// the q tiles with the longest causal key loops first.  A producer warp
+// loads the Q and dO tiles once and streams 64-key K and V tiles through a
+// two-stage ring (TMA, 128-byte swizzle, rows past S zero-filled); Q and
+// dO are read at H heads, K and V at Hkv, so GQA reads its kv head
+// directly.  Two consumer warpgroups own 64 query rows each and read
+// their rows' LSE (times log2 e) and delta once: S = Q K^T and dP = dO V^T
+// by wgmma from shared memory (64 keys wide: S, dP and dQ take 32 + 32 +
+// 64 fp32 registers a thread, which 128-key products would take past
+// setmaxnreg's 240); P = exp(S scale (+ slope * key) - LSE), masked only
+// on tiles that touch the diagonal, the window's edge or S; dS = P (dP -
+// delta) scale on the accumulator registers, rounded to bf16 as the A
+// operand of dQ += dS K, K read transposed from the same swizzled tile.
+// The key loop starts at the window's first tile and ends at the causal
+// frontier.  dQ stays a kernel of its own, summed in registers: no fp32
+// atomics, so runs repeat bit for bit.
+//
+// fp32 dQ and dK/dV run on the CUDA cores (the first kernels,
 // flash_tile.cuh): 256 threads, fp32 products; the dQ block walks key
 // tiles up to its causal frontier.  fp32 stays there because the fp32
 // checks hold it to 1e-4 of the plain version, ALiBi scores of ~1.4e3
 // included, which tf32 products would not meet; the dtype picks the
-// instantiation in the C entry.  dQ on the tensor cores is the next
-// redesign.
+// instantiation in the C entry.
 #include "flash_tile.cuh"
 #include "hopper.cuh"
 
@@ -107,17 +124,37 @@ __device__ __forceinline__ void zero(float (&a)[I][J]) {
     for (int j = 0; j < J; ++j) a[i][j] = 0.f;
 }
 
+// One parameter block for both dQ instantiations; the tensor maps are the
+// bf16 kernel's and stay zero for fp32.
+struct DqParams {
+  CUtensorMap q_map, do_map, k_map, v_map;
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  const float* lse;
+  const float* delta;
+  void* dq;
+  const float* slopes;
+  int window, S, H, Hkv, causal;
+  float scale;
+};
+
+// ---- dQ, fp32: CUDA cores -------------------------------------------------
+
 constexpr size_t kDqSmemFloats = 4 * 64 * PD + BQ * PT + 2 * BQ;
 
-template <typename T, bool SLOPE, bool WINDOW>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    const float* __restrict__ slopes, int window, int S,
-                    int H, int Hkv, float scale, int causal) {
-  extern __shared__ float smem[];
+template <bool SLOPE, bool WINDOW>
+__device__ __forceinline__ void dq_cuda_cores(const DqParams& p,
+                                              float* smem) {
+  using T = float;
+  const T* q = static_cast<const T*>(p.q);
+  const T* k = static_cast<const T*>(p.k);
+  const T* v = static_cast<const T*>(p.v);
+  const T* dout = static_cast<const T*>(p.dout);
+  T* dq = static_cast<T*>(p.dq);
+  const int S = p.S, causal = p.causal;
+  const float scale = p.scale;
   float* q_s = smem;             // [BQ][PD]
   float* do_s = q_s + BQ * PD;   // [BQ][PD]
   float* k_s = do_s + BQ * PD;   // [BK][PD]
@@ -128,11 +165,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int q0 = blockIdx.x * BQ;
-  const Heads hd(S, H, Hkv);
-  const Bias<SLOPE, WINDOW> bias(slopes, hd.h, window);
+  const Heads hd(S, p.H, p.Hkv);
+  const Bias<SLOPE, WINDOW> bias(p.slopes, hd.h, p.window);
   load_tile<T>(q_s, q, hd.q_base, hd.q_stride, q0, S, 1.f);
   load_tile<T>(do_s, dout, hd.q_base, hd.q_stride, q0, S, 1.f);
-  load_rows(lse_s, dl_s, lse, delta, hd.bh, q0, S);
+  load_rows(lse_s, dl_s, p.lse, p.delta, hd.bh, q0, S);
 
   float acc[4][8];
   zero(acc);
@@ -162,6 +199,197 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 8; ++j) row[tx + 16 * j] = from_f<T>(acc[i][j]);
     }
   }
+}
+
+// ---- dQ, bf16: tensor cores -----------------------------------------------
+
+namespace tcq {
+constexpr int BM = 128;                      // query rows of a block
+constexpr int BN = 64;                       // keys of a K/V tile
+constexpr int kThreads = 384;                // 2 consumer + 1 producer WG
+constexpr int kQTile = BM * hopper::kHeadDim * 2;    // 32 KB
+constexpr int kQHalf = kQTile / 2;
+constexpr int kKvTile = BN * hopper::kHeadDim * 2;
+constexpr int kKvHalf = kKvTile / 2;
+constexpr int kStages = 2;
+// Q, dO, then kStages x (K, V), then the barriers: Q/dO's, full[], empty[]
+constexpr int kStageOffset = 2 * kQTile;
+constexpr int kBarOffset = kStageOffset + kStages * 2 * kKvTile;
+constexpr size_t kSmem = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
+}  // namespace tcq
+
+template <bool SLOPE, bool WINDOW>
+__device__ __forceinline__ void dq_tensor_cores(const DqParams& p,
+                                                unsigned char* raw) {
+  using namespace hopper;
+  using namespace tcq;
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* q_s = base;
+  unsigned char* do_s = base + kQTile;
+  unsigned char* kv_s = base + kStageOffset;       // [stage][K, V]
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(base + kBarOffset);
+  uint64_t* full = q_bar + 1;
+  uint64_t* empty = full + kStages;
+
+  const int S = p.S, H = p.H, bh = blockIdx.x, h = bh % H, b = bh / H;
+  const int hk = h / (H / p.Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;   // longest rows first
+  const int window = WINDOW ? p.window : 0;
+  int k_lo = 0;                          // _k_range: the window's first tile
+  if (WINDOW && window > 0 && q0 - (window - 1) > 0)
+    k_lo = (q0 - (window - 1)) / BN * BN;
+  const int k_hi = p.causal ? min(S, q0 + BM) : S;
+  const int n_tiles = (k_hi - k_lo + BN - 1) / BN;
+
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);   // every consumer thread
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer
+    regs_dealloc<24>();
+    if (t == 0) {
+      mbar_arrive_expect_tx(q_bar, 2 * kQTile);
+      tma_load_rows(q_s, &p.q_map, q_bar, BM, h, q0, b);
+      tma_load_rows(do_s, &p.do_map, q_bar, BM, h, q0, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % kStages;
+        mbar_wait(&empty[st], ((it / kStages) & 1) ^ 1);
+        unsigned char* k_t = kv_s + st * 2 * kKvTile;
+        const int k0 = k_lo + it * BN;
+        mbar_arrive_expect_tx(&full[st], 2 * kKvTile);
+        tma_load_rows(k_t, &p.k_map, &full[st], BN, hk, k0, b);
+        tma_load_rows(k_t + kKvTile, &p.v_map, &full[st], BN, hk, k0, b);
+      }
+    }
+  } else {  // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63
+    regs_alloc<240>();
+    const int r_first = q0 + 64 * wg, r_last = r_first + 63;
+    const int row0 = r_first + acc_row(0, t);       // and row0 + 8
+    const float slope = SLOPE ? __ldg(p.slopes + h) : 0.f;
+    const float scale = p.scale;
+    const uint32_t q_addr = smem_u32(q_s) + 64 * wg * 128;
+    const uint32_t do_addr = smem_u32(do_s) + 64 * wg * 128;
+    // this thread's two rows' LSE (times log2 e) and delta, 0 past S
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      const long long at = (long long)bh * S + row;
+      lse2[r] = row < S ? __ldg(p.lse + at) * kLog2e : 0.f;
+      dl[r] = row < S ? __ldg(p.delta + at) : 0.f;
+    }
+    float dq[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+
+    mbar_wait(q_bar, 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % kStages, k0 = k_lo + it * BN;
+      const bool unseen =
+          (p.causal && k0 > r_last) || r_first >= S ||
+          (WINDOW && window > 0 && r_first - (k0 + BN - 1) >= window);
+      mbar_wait(&full[st], (it / kStages) & 1);
+      if (!unseen) {
+        const uint32_t k_addr = smem_u32(kv_s) + st * 2 * kKvTile;
+        const uint32_t v_addr = k_addr + kKvTile;
+        // S = Q K^T and dP = dO V^T, both operands K-major
+        float s[32], dp[32];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          const uint32_t q_off = (kk / 4) * kQHalf + (kk % 4) * 32;
+          const uint32_t kv_off = (kk / 4) * kKvHalf + (kk % 4) * 32;
+          wgmma_ss_n64(s, desc_kmajor(q_addr + q_off),
+                       desc_kmajor(k_addr + kv_off), kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          const uint32_t q_off = (kk / 4) * kQHalf + (kk % 4) * 32;
+          const uint32_t kv_off = (kk / 4) * kKvHalf + (kk % 4) * 32;
+          wgmma_ss_n64(dp, desc_kmajor(do_addr + q_off),
+                       desc_kmajor(v_addr + kv_off), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+
+        const bool edge =
+            (p.causal && k0 + BN - 1 > r_first) || k0 + BN > S ||
+            (WINDOW && window > 0 && r_last - k0 >= window);
+        // P = exp(S scale (+ slope key) - LSE), 0 where masked; then
+        // dS = P (dP - delta) scale on the accumulator registers
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int r = (i / 2) % 2;
+          const int key = k0 + acc_col(i, t), row = row0 + 8 * r;
+          float x = __fmul_rn(s[i], scale);
+          if (SLOPE) x = __fadd_rn(x, __fmul_rn(slope, (float)key));
+          if (edge) {
+            bool ok = key < S && (!p.causal || key <= row);
+            if (WINDOW) ok = ok && (window <= 0 || row - key < window);
+            if (!ok) x = kNeg;
+          }
+          const float pr = ex2(fmaf(x, kLog2e, -lse2[r]));
+          dp[i] = pr * (dp[i] - dl[r]) * scale;
+        }
+        // dQ += dS K: dS rounded to bf16 as register A operands, K read
+        // transposed (MN-major: its keys are the depth) from the same tile
+        uint32_t da[16];
+        acc_to_a(dp, da);
+        fence_regs(dq);
+        fence_regs(da);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint32_t a[4] = {da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
+                                 da[4 * kk + 3]};
+          wgmma_rs_n128(dq, a, desc_mnmajor(k_addr + kk * 2048, kKvHalf));
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq);
+        fence_regs(da);
+      }
+      mbar_arrive(&empty[st]);
+    }
+
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.dq);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= S) continue;
+      uint32_t* orow = reinterpret_cast<uint32_t*>(
+          out + (((long long)b * S + row) * H + h) * kHeadDim);
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        orow[(8 * j + 2 * (t % 4)) / 2] =
+            pack_bf16(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+template <typename T>
+constexpr int dq_threads() {
+  return std::is_same<T, float>::value ? kThreads : tcq::kThreads;
+}
+
+template <typename T, bool SLOPE, bool WINDOW>
+__global__ void __launch_bounds__(dq_threads<T>(), 1)
+flash_bwd_dq_kernel(const __grid_constant__ DqParams p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  if constexpr (std::is_same<T, float>::value)
+    dq_cuda_cores<SLOPE, WINDOW>(p, reinterpret_cast<float*>(smem_raw));
+  else
+    dq_tensor_cores<SLOPE, WINDOW>(p, smem_raw);
 }
 
 // One parameter block for both dK/dV instantiations; the tensor maps are
@@ -470,23 +698,18 @@ flash_bwd_dkv_kernel(const __grid_constant__ DkvParams p) {
 }
 
 template <typename T, bool SLOPE, bool WINDOW>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const void* lse, const void* delta, void* dq,
-              const void* slopes, int window, int B, int S, int H, int Hkv,
-              int causal, float scale, cudaStream_t stream) {
-  const size_t smem = kDqSmemFloats * sizeof(float);
+int launch_dq(const DqParams& p, int B, cudaStream_t stream) {
+  constexpr bool fp32 = std::is_same<T, float>::value;
+  const size_t smem = fp32 ? kDqSmemFloats * sizeof(float) : tcq::kSmem;
   // once per instantiation, before any graph capture can be running
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<T, SLOPE, WINDOW>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
-  dim3 grid((S + BQ - 1) / BQ, B * H);
-  flash_bwd_dq_kernel<T, SLOPE, WINDOW><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), static_cast<const float*>(slopes), window, S, H,
-      Hkv, scale, causal);
+  const dim3 grid = fp32 ? dim3((p.S + BQ - 1) / BQ, B * p.H)
+                         : dim3(B * p.H, (p.S + tcq::BM - 1) / tcq::BM);
+  flash_bwd_dq_kernel<T, SLOPE, WINDOW>
+      <<<grid, dq_threads<T>(), smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -507,15 +730,10 @@ int launch_dkv(const DkvParams& p, int B, cudaStream_t stream) {
 }
 
 template <typename T>
-int launch_dq_biased(const void* q, const void* k, const void* v,
-                     const void* dout, const void* lse, const void* delta,
-                     void* dq, const void* slopes, int window, int B, int S,
-                     int H, int Hkv, int causal, float scale,
-                     cudaStream_t stream) {
-  return with_bias(slopes, window, [&](auto slope, auto win) {
+int launch_dq_biased(const DqParams& p, int B, cudaStream_t stream) {
+  return with_bias(p.slopes, p.window, [&](auto slope, auto win) {
     return launch_dq<T, decltype(slope)::value, decltype(win)::value>(
-        q, k, v, dout, lse, delta, dq, slopes, window, B, S, H, Hkv, causal,
-        scale, stream);
+        p, B, stream);
   });
 }
 
@@ -542,15 +760,29 @@ extern "C" int ds_flash_attention_bwd_dq(const void* q, const void* k,
                                          float scale, void* stream) {
   const int bad = dsflash::check_shape(B, S, H, Hkv, D);
   if (bad) return bad;
+  DqParams p = {};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.dout = dout;
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.dq = dq;
+  p.slopes = static_cast<const float*>(slopes);
+  p.window = window;
+  p.S = S;
+  p.H = H;
+  p.Hkv = Hkv;
+  p.causal = causal;
+  p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_dq_biased<float>(q, k, v, dout, lse, delta, dq, slopes,
-                                   window, B, S, H, Hkv, causal, scale, s);
-  if (dtype == 1)
-    return launch_dq_biased<__nv_bfloat16>(q, k, v, dout, lse, delta, dq,
-                                           slopes, window, B, S, H, Hkv,
-                                           causal, scale, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return launch_dq_biased<float>(p, B, s);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  int rc = hopper::make_head_map(&p.q_map, q, B, S, H, tcq::BM);
+  if (!rc) rc = hopper::make_head_map(&p.do_map, dout, B, S, H, tcq::BM);
+  if (!rc) rc = hopper::make_head_map(&p.k_map, k, B, S, Hkv, tcq::BN);
+  if (!rc) rc = hopper::make_head_map(&p.v_map, v, B, S, Hkv, tcq::BN);
+  return rc ? rc : launch_dq_biased<__nv_bfloat16>(p, B, s);
 }
 
 // dk/dv: fp32 [B, S, H, D], one row block per QUERY head (summed over the

@@ -22,6 +22,13 @@ from deepspeed_tpu_torch.ops import op_builder
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (128,)   # the kernels are built for head_dim 128 only
+# The decode form (at most DECODE_ROWS query rows per kv head) splits each
+# sequence's keys into chunks of at least DECODE_MIN_CHUNK keys, one block
+# each, merged in chunk order by a second kernel when a sequence spans
+# several.
+DECODE_ROWS = 4
+DECODE_MIN_CHUNK = 512
+_slots = {}   # (device index, rows, dtype code) -> blocks the card holds
 
 
 def _lengths_tensor(lengths, B, device):
@@ -62,6 +69,45 @@ def decode_attention_plain(q, k, v, lengths, softmax_scale=None):
 decode_attention_plain.calls = 0
 
 
+def decode_splits(B, T, H, Hkv, S_max, slots):
+    """(chunks per sequence, keys per chunk) of a launch.  The decode form
+    splits each sequence's keys only as far as its B * Hkv sequences'
+    blocks still fit the ``slots`` blocks the card holds at once (one wave:
+    a second would run on a part of the card), in chunks of at least
+    DECODE_MIN_CHUNK keys rounded up to 64; the prefill form takes one."""
+    if T * (H // Hkv) > DECODE_ROWS:
+        return 1, max(S_max, 1)
+    n = max(1, min(slots // (B * Hkv), S_max // DECODE_MIN_CHUNK))
+    chunk = -(-max(S_max, 1) // n)
+    chunk = -(-chunk // 64) * 64
+    return -(-max(S_max, 1) // chunk), chunk
+
+
+def _decode_slots(device, rows, dtype_code):
+    """Blocks of the decode form the card holds at once (its occupancy
+    query), cached per device, row count and dtype."""
+    index = torch.device(device).index
+    key = (torch.cuda.current_device() if index is None else index, rows,
+           dtype_code)
+    if key not in _slots:
+        slots = op_builder.load("decode_attention_slots")(rows, dtype_code)
+        if slots <= 0:
+            raise RuntimeError(f"decode attention occupancy query failed: "
+                               f"CUDA error {-slots}")
+        _slots[key] = slots
+    return _slots[key]
+
+
+def decode_plan(B, T, H, Hkv, S_max, dtype, device):
+    """(chunks per sequence, keys per chunk) that
+    :func:`decode_attention_cuda` launches for these shapes on ``device``
+    (a CUDA device: the split follows its occupancy)."""
+    rows = T * (H // Hkv)
+    slots = _decode_slots(device, rows, _DTYPE_CODES[dtype]) \
+        if rows <= DECODE_ROWS else 0
+    return decode_splits(B, T, H, Hkv, S_max, slots)
+
+
 def decode_attention_cuda(q, k, v, lengths, softmax_scale=None):
     """Launch the decode kernel on the current stream.
 
@@ -86,9 +132,9 @@ def decode_attention_cuda(q, k, v, lengths, softmax_scale=None):
         raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("decode_attention_cuda needs contiguous q/k/v")
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("decode_attention_cuda needs 16-byte aligned k/v "
-                         "(the kernel reads them in 16-byte vectors)")
+    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("decode_attention_cuda needs 16-byte aligned "
+                         "q/k/v (the kernel reads them in 16-byte vectors)")
     Hkv, S = k.shape[1], k.shape[2]
     if isinstance(lengths, int):
         lens, length_all = None, lengths
@@ -102,10 +148,16 @@ def decode_attention_cuda(q, k, v, lengths, softmax_scale=None):
         lens, length_all = lengths, 0
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
+    n_split, chunk = decode_plan(B, T, H, Hkv, S, q.dtype, q.device)
+    # the chunks' (acc, m, l), from the caching allocator on this stream
+    part = None if n_split == 1 else torch.empty(
+        B * Hkv * n_split * T * (H // Hkv) * (D + 2), dtype=torch.float32,
+        device=q.device)
     fn = op_builder.load("decode_attention")
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lens is None else lens.data_ptr(), length_all, B, T, H,
-            Hkv, S, D, _DTYPE_CODES[q.dtype], float(scale),
+            None if lens is None else lens.data_ptr(),
+            None if part is None else part.data_ptr(), length_all, B, T, H,
+            Hkv, S, D, _DTYPE_CODES[q.dtype], n_split, chunk, float(scale),
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"decode attention kernel launch failed: CUDA "

@@ -34,7 +34,9 @@ _L = ctypes.c_longlong
 # (kernel name -> source, symbol, argtypes)
 SIGNATURES = {
     "decode_attention": ("decode_attention", "ds_decode_attention",
-                         [_P, _P, _P, _P, _P] + [_I] * 8 + [_F, _P]),
+                         [_P] * 6 + [_I] * 10 + [_F, _P]),
+    "decode_attention_slots": ("decode_attention",
+                               "ds_decode_attention_slots", [_I, _I]),
     "ragged_paged_attention": ("ragged_paged_attention",
                                "ds_ragged_paged_attention",
                                [_P] * 10 + [_I] * 8 + [_F, _P]),

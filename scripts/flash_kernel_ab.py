@@ -12,8 +12,9 @@ match).  Every variant's ``flash_attention_fwd.cu`` and
 ``flash_attention_bwd.cu`` are built with the op builder's nvcc flags, all
 at once, into ``--out`` with their logs (default, gitignored:
 ``deepspeed_tpu_torch/_build/ab``).  Then, for each variant: bf16
-forward and dK/dV against the plain versions run in fp32 on a few edge
-cases (relative L2 of O, dK, dV; max LSE error), and device ms by
+forward, dQ and dK/dV against the plain versions run in fp32 on a few
+edge cases -- S=1000 (ragged last tiles), GQA, non-causal, windows and
+ALiBi (relative L2 of O, dQ, dK, dV; max LSE error) -- and device ms by
 CUDA-graph replay over 4 rotating input sets at the training paths'
 shapes (B=2, 16 heads of 128, causal: S=1024; S=2048 with ALiBi, window
 256, and unscaled); the first variant is timed again at the end, so
@@ -49,7 +50,9 @@ SHAPES = [  # (label, S, ALiBi, window, scale) at B=2, 16 heads of 128
     ("global S=2048", 2048, False, None, 1.0)]
 
 
-def build(variants, out):
+def build(variants, out, sources=SOURCES):
+    """Copy, edit and compile each variant's ``sources`` (all nvcc
+    processes at once); returns {(variant, source): ctypes library}."""
     from deepspeed_tpu_torch.ops import op_builder
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     procs = {}
@@ -67,7 +70,7 @@ def build(variants, out):
                     sys.exit(f"{name}: {pat!r} matches nothing in {f}")
             with open(os.path.join(d, f), "w") as fh:
                 fh.write(text)
-        for src in SOURCES:
+        for src in sources:
             cmd = [nvcc, *op_builder.ARCH_FLAGS, *op_builder.NVCC_FLAGS,
                    "-o", os.path.join(d, f"lib{src}.so"),
                    os.path.join(d, f"{src}.cu")]
@@ -89,11 +92,11 @@ def build(variants, out):
     return libs
 
 
-def use(libs, name):
+def use(libs, name, sources=SOURCES):
     """Point the wrappers at variant ``name``'s libraries."""
     from deepspeed_tpu_torch.ops import op_builder
     for kernel, (src, symbol, argtypes) in op_builder.SIGNATURES.items():
-        if src in SOURCES:
+        if src in sources:
             fn = getattr(libs[(name, src)], symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -101,11 +104,14 @@ def use(libs, name):
 
 
 def kernels(fa, kw):
-    """(forward, dK/dV) wrappers for bias ``kw``, biased where needed."""
+    """(forward, dQ, dK/dV) wrappers for bias ``kw``, biased where
+    needed."""
     if fa.is_biased(kw["alibi_slopes"], kw["window"]):
         return (lambda *a: fa.flash_attention_fwd_biased_cuda(*a, **kw),
+                lambda *a: fa.flash_attention_bwd_dq_biased_cuda(*a, **kw),
                 lambda *a: fa.flash_attention_bwd_dkv_biased_cuda(*a, **kw))
-    return fa.flash_attention_fwd_cuda, fa.flash_attention_bwd_dkv_cuda
+    return (fa.flash_attention_fwd_cuda, fa.flash_attention_bwd_dq_cuda,
+            fa.flash_attention_bwd_dkv_cuda)
 
 
 def main():
@@ -147,22 +153,22 @@ def main():
         scale = scale or 1 / math.sqrt(128)
         f32 = [x.float() for x in (q, k, v, dout)]
         o, lse = flash_attention_fwd_plain(*f32[:3], scale, causal, **kw)
-        _, dk, dv = flash_attention_bwd_plain(*f32[:3], o, lse, f32[3],
-                                              scale, causal, **kw)
+        dq, dk, dv = flash_attention_bwd_plain(*f32[:3], o, lse, f32[3],
+                                               scale, causal, **kw)
         cases.append((label, (q, k, v, dout), scale, causal, kw,
-                      (o, lse, dk, dv)))
+                      (o, lse, dq, dk, dv)))
     for name in variants:
         use(libs, name)
         for label, (q, k, v, dout), scale, causal, kw, want in cases:
-            fwd, _ = kernels(fa, kw)
+            fwd = kernels(fa, kw)[0]
             o, lse = fwd(q, k, v, scale, causal)
             bias = kw if fa.is_biased(**kw) else {}
-            _, dk, dv = fa.flash_attention_bwd_cuda(q, k, v, o, lse, dout,
-                                                    scale, causal, **bias)
+            dq, dk, dv = fa.flash_attention_bwd_cuda(q, k, v, o, lse, dout,
+                                                     scale, causal, **bias)
             print(f"{name} {label}: O rel L2 {rel(o, want[0]):.2e}, LSE max "
-                  f"err {(lse - want[1]).abs().max().item():.2e}, dK "
-                  f"{rel(dk, want[2]):.2e}, dV {rel(dv, want[3]):.2e}",
-                  flush=True)
+                  f"err {(lse - want[1]).abs().max().item():.2e}, dQ "
+                  f"{rel(dq, want[2]):.2e}, dK {rel(dk, want[3]):.2e}, dV "
+                  f"{rel(dv, want[4]):.2e}", flush=True)
     c, shapes = 4, []
     for label, S, alibi, window, scale in SHAPES:
         x = [torch.randn((c, 2, S, 16, 128), generator=gen,
@@ -174,15 +180,18 @@ def main():
         use(libs, name)
         row = []
         for label, (q, k, v, do), scale, kw in shapes:
-            fwd, dkv = kernels(fa, kw)
+            fwd, dq, dkv = kernels(fa, kw)
             outs = [fwd(q[i], k[i], v[i], scale, True) for i in range(c)]
             lse = torch.stack([x[1] for x in outs])
             delta = (do.float() * torch.stack([x[0] for x in outs]).float()
                      ).sum(-1).transpose(2, 3).contiguous()
             f_ms = graph_ms(lambda i: fwd(q[i], k[i], v[i], scale, True), c)
+            q_ms = graph_ms(lambda i: dq(q[i], k[i], v[i], do[i], lse[i],
+                                         delta[i], scale, True), c)
             d_ms = graph_ms(lambda i: dkv(q[i], k[i], v[i], do[i], lse[i],
                                           delta[i], scale, True), c)
-            row.append(f"{label} fwd {f_ms:.4f} dK/dV {d_ms:.4f}")
+            row.append(f"{label} fwd {f_ms:.4f} dQ {q_ms:.4f} dK/dV "
+                       f"{d_ms:.4f}")
         print(f"device ms {name}: " + " | ".join(row), flush=True)
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for name in variants:
@@ -194,7 +203,7 @@ def main():
                 head = part.split("\n", 1)[0]
                 m = re.search(r"(flash_\w+_kernel)I13__nv_bfloat16Lb(\d)ELb"
                               r"(\d)E", head)
-                if m and "dq" not in m.group(1):
+                if m:
                     print(f"SASS {name} {m.group(1)}<bf16, alibi="
                           f"{m.group(2)}, window={m.group(3)}>: HGMMA "
                           f"{len(re.findall(r'HGMMA', part))}, DEPBAR "

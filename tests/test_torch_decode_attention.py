@@ -16,7 +16,7 @@ from deepspeed_tpu.ops.decode_attention import init_cache as jax_init_cache
 from deepspeed_tpu.ops.decode_attention import update_cache as jax_update
 from deepspeed_tpu.ops.pallas.decode_attention import decode_attention_pallas
 from deepspeed_tpu_torch.ops.cuda.decode_attention import (
-    decode_attention_plain)
+    DECODE_MIN_CHUNK, decode_attention_plain, decode_splits)
 from deepspeed_tpu_torch.ops.decode_attention import (decode_attention,
                                                       init_cache,
                                                       resolve_backend,
@@ -83,6 +83,48 @@ def test_ragged_lengths_match_pallas(Hkv, T):
                                    jnp.asarray(v), jnp.asarray(lengths),
                                    interpret=True)
     np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("Hkv", [4, 2], ids=["mha", "gqa"])
+def test_chunk_edge_lengths_match_pallas(Hkv):
+    """Lengths where key blocks meet a sequence's end over S_max 1024:
+    64-key blocks (1, 63, 64, 65) and the card's shortest decode-form
+    chunks (DECODE_MIN_CHUNK - 1, .., + 1), in one ragged
+    batch with a long sequence.  The plain version, which the card holds
+    the kernel to, against the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(11)
+    S_max, c = 1024, DECODE_MIN_CHUNK
+    lengths = np.asarray([1, 63, 64, 65, c - 1, c, c + 1, 1000], np.int32)
+    Bn = len(lengths)
+    q = _rand(rng, Bn, 1, H, D)
+    k, v = _rand(rng, Bn, Hkv, S_max, D), _rand(rng, Bn, Hkv, S_max, D)
+    got = decode_attention_plain(torch.from_numpy(q), torch.from_numpy(k),
+                                 torch.from_numpy(v),
+                                 torch.from_numpy(lengths)).numpy()
+    want = decode_attention_pallas(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), jnp.asarray(lengths),
+                                   interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("B,T,H,Hkv,slots,want", [
+    (4, 1, 32, 32, 132, [(1, 192), (1, 4096)]),      # 128 blocks fill it
+    (1, 1, 32, 32, 132, [(1, 192), (4, 1024)]),      # 32 blocks: split
+    (4, 1, 32, 8, 264, [(1, 192), (8, 512)]),        # GQA, 4 rows
+    (4, 128, 32, 32, 132, [(1, 160), (1, 4096)]),    # prefill form
+    (2, 2, 32, 8, 264, [(1, 160), (1, 4096)]),       # 8 rows: prefill
+])
+def test_decode_splits(B, T, H, Hkv, slots, want):
+    """The decode form splits a sequence's keys only as far as one wave
+    of the card's block slots, in chunks of at least DECODE_MIN_CHUNK keys
+    (a multiple of 64) that cover S_max (the C entry refuses less)."""
+    got = [decode_splits(B, T, H, Hkv, S, slots) for S in (160, 4096)]
+    assert got == want
+    for S in (1, 160, 511, 512, 513, 2048, 4096):
+        n, c = decode_splits(B, T, H, Hkv, S, slots)
+        assert n * c >= S > (n - 1) * c
+        assert n == 1 or (c % 64 == 0 and c >= DECODE_MIN_CHUNK and
+                          B * Hkv * n <= slots)
 
 
 def test_update_cache_raises_past_the_buffer():

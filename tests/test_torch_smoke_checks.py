@@ -7,6 +7,8 @@ here on the CPU where they need no card.
   query)``), a sliding window; in fp32 the two agree to rounding.
 * ``check_witnessed`` passes an output within the one-ulp tolerance, or
   within WITNESS_FACTOR of SDPA's error, and stops the smoke otherwise.
+* ``check_flash`` sends every bf16 output of the tensor-core kernels, dQ
+  included, to that rule, and fp32 ones to the plain tolerance.
 * ``sass_counts`` reads the wgmma and TMA counts of exactly the bf16
   instantiations out of ``cuobjdump -sass`` text.
 """
@@ -105,3 +107,92 @@ def test_sass_counts_reads_the_bf16_instantiations():
     # TMA shows as zeros, which phase_sass refuses
     assert counts == {(True, False): (2, 2), (False, True): (0, 0)}
     assert chip_smoke.sass_counts(_SASS, "flash_bwd_dkv_kernel") == {}
+
+
+_SASS_DQ = """
+        code for sm_90a
+                Function : _ZN55_GLOBAL__N__0_22_flash_attention_bwd_cu_019flash_bwd_dq_kernelI13__nv_bfloat16Lb0ELb0EEEvNS_8DqParamsE
+        /*0100*/                   UTMALDG.4D [UR8], [UR4] ;
+        /*0200*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR8], RZ, !UPT ;
+        /*0210*/                   HGMMA.64x128x16.F32.BF16 R88, R152, gdesc[UR12], R88, gsb0 ;
+                Function : _ZN55_GLOBAL__N__0_22_flash_attention_bwd_cu_019flash_bwd_dq_kernelI13__nv_bfloat16Lb1ELb1EEEvNS_8DqParamsE
+        /*0100*/                   UTMALDG.4D [UR8], [UR4] ;
+        /*0110*/                   UTMALDG.4D [UR12], [UR4] ;
+        /*0200*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR8], RZ, !UPT ;
+                Function : _ZN55_GLOBAL__N__0_22_flash_attention_bwd_cu_019flash_bwd_dq_kernelIfLb1ELb1EEEvNS_8DqParamsE
+        /*0100*/                   FFMA R1, R2, R3, R4 ;
+                Function : _ZN55_GLOBAL__N__0_22_flash_attention_bwd_cu_020flash_bwd_dkv_kernelI13__nv_bfloat16Lb0ELb0EEEvNS_9DkvParamsE
+        /*0200*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR8], RZ, !UPT ;
+"""
+
+
+def test_sass_counts_reads_the_dq_instantiations():
+    """The dQ kernel shares its library with dK/dV: each template's bf16
+    instantiations are read apart, its fp32 one not at all."""
+    assert ("flash_attention_bwd", "flash_bwd_dq_kernel") in \
+        chip_smoke.TENSOR_CORE_KERNELS
+    assert chip_smoke.sass_counts(_SASS_DQ, "flash_bwd_dq_kernel") == {
+        (False, False): (2, 1), (True, True): (1, 2)}
+    assert chip_smoke.sass_counts(_SASS_DQ, "flash_bwd_dkv_kernel") == {
+        (False, False): (1, 0)}
+
+
+def _flash_case(dtype):
+    """Inputs of a small causal GQA case in ``dtype``, the plain forward's
+    (O, LSE) as a kernel would return them, the plain backward from those
+    (what check_flash holds a kernel's dQ, dK, dV to, rounded), the exact
+    fp32 gradients and SDPA's."""
+    rng = np.random.default_rng(9)
+    B, S, H, Hkv, D = 1, 48, 4, 2, 16
+    q, dout = (torch.from_numpy(rng.standard_normal(
+        (B, S, H, D), dtype=np.float32)).to(dtype) for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal(
+        (B, S, Hkv, D), dtype=np.float32)).to(dtype) for _ in range(2))
+    scale = 1.0 / math.sqrt(D)
+    f32 = [x.float() for x in (q, k, v, dout)]
+    o, lse = flash_attention_fwd_plain(*f32[:3], scale, True)
+    out = o.to(dtype)
+    want = flash_attention_bwd_plain(*f32[:3], out.float(), lse, f32[3],
+                                     scale, True)
+    exact = flash_attention_bwd_plain(*f32[:3], o, lse, f32[3], scale, True)
+    sdpa = chip_smoke.sdpa_witness(q, k, v, dout, scale, True)[1:]
+    return (q, k, v, dout), scale, out, lse, want, exact, sdpa
+
+
+def _check_flash_dq(dtype, dq):
+    inputs, scale, out, lse, want, _, _ = _flash_case(dtype)
+    noted = {}
+    chip_smoke.check_flash(lambda kern, dn, e: noted.update({kern: e}), "",
+                           "cpu", inputs, scale, True, {}, out, lse,
+                           (dq,) + tuple(w.to(dtype) for w in want[1:]))
+    return noted
+
+
+@pytest.mark.parametrize("factor,passes", [(1.5, True), (3.0, False)])
+def test_check_flash_holds_bf16_dq_to_the_witness(factor, passes, capsys):
+    """A bf16 dQ whose error against the exact answer is ``factor`` times
+    SDPA's: outside the one-ulp tolerance either way, so only the witness
+    rule passes it -- within 2x SDPA's error, and not at 3x."""
+    _, _, _, _, want, exact, sdpa = _flash_case(torch.bfloat16)
+    dq = (exact[0] + factor * (sdpa[0].float() - exact[0])).to(
+        torch.bfloat16)
+    _, bad = chip_smoke._outside("dQ", dq, want[0].to(torch.bfloat16))
+    assert bad > 0
+    if passes:
+        noted = _check_flash_dq(torch.bfloat16, dq)
+        assert set(noted) == {"flash_attention_fwd", "flash_attention_bwd_dq",
+                              "flash_attention_bwd_dkv"}
+        line = [ln for ln in capsys.readouterr().out.splitlines()
+                if "flash_attention_bwd_dq cpu dQ" in ln]
+        assert len(line) == 1 and "kernel/SDPA" in line[0]
+    else:
+        with pytest.raises(SystemExit):
+            _check_flash_dq(torch.bfloat16, dq)
+
+
+def test_check_flash_keeps_fp32_dq_on_the_plain_tolerance():
+    """fp32 dQ keeps check_close's 1e-4: a 1e-3 relative change fails."""
+    _, _, _, _, want, _, _ = _flash_case(torch.float32)
+    _check_flash_dq(torch.float32, want[0].clone())
+    with pytest.raises(SystemExit):
+        _check_flash_dq(torch.float32, want[0] * (1 + 1e-3))
