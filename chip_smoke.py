@@ -16,8 +16,9 @@ kernels.  Phases:
 
   1 device   card name and power limit (nvidia-smi)
   2 build    nvcc, one process per kernel source, all at once; the SASS
-             of every bf16 tensor-core flash kernel holds wgmma (HGMMA)
-             and TMA loads (UTMALDG)
+             of every bf16 tensor-core kernel -- the flash kernels, B6's
+             block-sparse kernel at every block and head dim, B4's
+             prefill kernel -- holds wgmma (HGMMA) and TMA loads (UTMALDG)
   3 kernels  each kernel vs its plain version: fp32 and bf16; serving
              attention MHA 32/32 and GQA 32/8; flash attention forward and
              backward at gpt_1b's shape, at GPT-Neo's global layers' (S=2048,
@@ -28,9 +29,13 @@ kernels.  Phases:
              past S (bf16 O, dQ, dK, dV of the tensor-core kernels: one
              ulp, or within 2x SDPA's error on the same inputs, both
              readings printed); decode attention where its key chunks
-             meet a sequence's length; the block-sparse kernel for layout
-             blocks 16-128,
-             head dims 64 and 128, causal, bidirectional and empty rows
+             meet a sequence's length; ragged paged attention's decode
+             rows, bucketed prefills at 16, 512 and 1024, prefills after
+             cached prefixes, pages 64 and 48, packed mixed batches with
+             shared prefix pages; the block-sparse kernel for layout
+             blocks 16-128, head dims 64 and 128, causal, bidirectional
+             and empty rows (bf16 B4 prefill and B6 outputs, which round P
+             to bf16 in the product, under the same SDPA witness)
   4 generate init_inference(llama2_7b).generate, B=4, prompt 128, 32 new
   5 serve    create_serving_engine(max_batch=8, page_size=128,
              max_seq=2048).generate on 12 mixed-length prompts
@@ -50,7 +55,9 @@ kernels.  Phases:
   9 timing   each kernel at the main path's shapes vs its bound, its plain
              version and one PyTorch library call (a yardstick only), the
              flash kernels also at GPT-Neo's global layers' shape, the
-             decode kernel also at Llama-2's whole context (len 4096); fused
+             decode kernel also at Llama-2's whole context (len 4096), the
+             ragged kernel's prefill tiles at the serve run's buckets 512
+             and 1024 (beside B1's forward on the same work); fused
              Adam held against its plain version over gpt_1b's 1.01 B
              parameters; the window-256 forward must take well under the
              ALiBi forward's time
@@ -77,11 +84,12 @@ TOL = {"float32": (1e-4, 1e-4),   # both in fp32; only the summation order
        "bfloat16": (1e-5, 8e-3)}  # both round one fp32 result to bf16: at
                                   # most one bf16 ulp apart (<= 2**-7 of the
                                   # value), plus fp32 order noise near 0
-# The bf16 flash forward, dQ and dK/dV kernels run on the tensor cores with
-# P (and dS) rounded to bf16 inside the products, as SDPA's kernels do, so
-# their O, dQ, dK and dV may leave the one-ulp tolerance above; they then pass
-# if their max abs and relative L2 errors against the exact fp32 answer
-# are each within this factor of SDPA's on the same inputs (see
+# The bf16 flash forward, dQ and dK/dV kernels, the bf16 block-sparse
+# kernel and the bf16 prefill tiles of ragged paged attention run on the
+# tensor cores with P (and dS) rounded to bf16 inside the products, as
+# SDPA's kernels do, so their outputs may leave the one-ulp tolerance above;
+# they then pass if their max abs and relative L2 errors against the exact
+# fp32 answer are each within this factor of SDPA's on the same inputs (see
 # check_witnessed)
 WITNESS_FACTOR = 2.0
 E2E_REL_TOL = 5e-2        # bf16 logits after 2 layers, relative to max|logit|
@@ -238,6 +246,57 @@ def sdpa_witness(q, k, v, dout, scale, causal, alibi_slopes=None,
     return [x.detach().transpose(1, 2) for x in (out,) + grads]
 
 
+def paged_sdpa(q, k_pages, v_pages, tables, lengths):
+    """scaled_dot_product_attention in q's dtype over each sequence's
+    gathered pages with the causal-ragged mask (key <= lengths - T + t):
+    the yardstick of B4's bf16 error, never the port's path.  q: [B, T, H,
+    D]; returns [B, T, H, D]."""
+    import torch
+    import torch.nn.functional as F
+    B, T, H, D = q.shape
+    Hkv, page = k_pages.shape[1], k_pages.shape[2]
+    S = tables.shape[1] * page
+    tb = tables.long()
+    k, v = (x[tb].transpose(1, 2).reshape(B, Hkv, S, D).repeat_interleave(
+        H // Hkv, 1) for x in (k_pages, v_pages))
+    qpos = lengths.long()[:, None] - T + torch.arange(T, device=q.device)
+    mask = torch.arange(S, device=q.device)[None, None] <= qpos[:, :, None]
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k, v, attn_mask=mask[:, None]).transpose(1, 2)
+
+
+def sparse_sdpa(q, k, v, layout, block, causal):
+    """scaled_dot_product_attention in q's dtype with the layout expanded
+    to a boolean [H, S, S] mask (and causal): the yardstick of B6's bf16
+    error, never the port's path.  Rows that see no key give 0, as the
+    kernel's do.  q/k/v: [B, S, H, D]."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.sparse_attention import expand_layout_mask
+    S = q.shape[1]
+    mask = torch.as_tensor(expand_layout_mask(layout, block, S),
+                           device=q.device)
+    if causal:
+        mask &= torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    out = F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask[None]).transpose(1, 2)
+    seen = mask.any(-1).T[None, :, :, None]               # [1, S, H, 1]
+    return torch.where(seen, out, torch.zeros_like(out))
+
+
+def check_output(name, got, exact, sdpa):
+    """A forward kernel's output against ``exact``, its plain version run
+    in fp32 from the inputs: fp32 by check_close; bf16 -- the tensor-core
+    kernels round P to bf16 inside the product -- by check_witnessed,
+    with ``sdpa`` (a callable: the same function by SDPA in bf16) as the
+    yardstick."""
+    import torch
+    if got.dtype == torch.bfloat16:
+        return check_witnessed(name, got, exact.to(got.dtype), exact, sdpa())
+    return check_close(name, got, exact.to(got.dtype))
+
+
 # ----------------------------------------------------------------------
 def phase_device():
     import torch
@@ -270,25 +329,41 @@ def phase_build():
 
 
 # the tensor-core kernels: (library source, kernel template); every bf16
-# instantiation (ALiBi x window) must issue wgmma (HGMMA) and TMA loads
-# (UTMALDG)
+# instantiation must issue wgmma (HGMMA) and TMA loads (UTMALDG)
 TENSOR_CORE_KERNELS = [("flash_attention_fwd", "flash_fwd_kernel"),
                        ("flash_attention_bwd", "flash_bwd_dq_kernel"),
-                       ("flash_attention_bwd", "flash_bwd_dkv_kernel")]
+                       ("flash_attention_bwd", "flash_bwd_dkv_kernel"),
+                       ("sparse_attention", "sparse_tc_kernel"),
+                       ("ragged_paged_attention", "ragged_prefill_tc_kernel")]
+# kernel template -> (regex of its bf16 instantiations' template arguments
+# in the mangled name, the arguments' reading, how many it has): the flash
+# kernels' <bf16, alibi, window>, B6's <block, head dim>, and B4's prefill
+# kernel, which has none (its mangled name ends the name at "E")
+_FLASH_ARGS = (r"I13__nv_bfloat16Lb([01])ELb([01])E",
+               lambda x: bool(int(x)), 4)
+SASS_TEMPLATES = {
+    "flash_fwd_kernel": _FLASH_ARGS,
+    "flash_bwd_dq_kernel": _FLASH_ARGS,
+    "flash_bwd_dkv_kernel": _FLASH_ARGS,
+    "sparse_tc_kernel": (r"ILi(\d+)ELi(\d+)E", int, 8),
+    "ragged_prefill_tc_kernel": (r"E", int, 1),
+}
 
 
 def sass_counts(sass, kernel):
-    """{(alibi, window): (HGMMA count, UTMALDG count)} of the bf16
-    instantiations of template ``kernel`` in ``cuobjdump -sass`` output;
-    their mangled names end ``<kernel>I13__nv_bfloat16Lb<0|1>ELb<0|1>E``."""
+    """{template arguments: (HGMMA count, UTMALDG count)} of the bf16
+    instantiations of template ``kernel`` in ``cuobjdump -sass`` output,
+    read by SASS_TEMPLATES: e.g. the flash kernels' names end
+    ``<kernel>I13__nv_bfloat16Lb<0|1>ELb<0|1>E`` and give keys (alibi,
+    window)."""
     import re
-    pat = re.compile(re.escape(kernel) +
-                     r"I13__nv_bfloat16Lb([01])ELb([01])E")
+    args, conv, _ = SASS_TEMPLATES[kernel]
+    pat = re.compile(r"\d" + re.escape(kernel) + args)
     counts = {}
     for part in sass.split("Function : ")[1:]:
         m = pat.search(part.split("\n", 1)[0])
         if m:
-            counts[tuple(bool(int(x)) for x in m.groups())] = (
+            counts[tuple(conv(x) for x in m.groups())] = (
                 len(re.findall(r"\bHGMMA\b", part)),
                 len(re.findall(r"\bUTMALDG\b", part)))
     return counts
@@ -308,15 +383,16 @@ def phase_sass():
         if run.returncode != 0:
             fail(f"cuobjdump -sass {lib.name}: {run.stderr.strip()[:300]}")
         counts = sass_counts(run.stdout, kernel)
-        for (alibi, window), (n_mma, n_tma) in sorted(counts.items()):
-            phase("build", f"SASS {kernel}<bf16, alibi={alibi}, "
-                  f"window={window}>: {n_mma} HGMMA, {n_tma} UTMALDG")
+        for args, (n_mma, n_tma) in sorted(counts.items()):
+            phase("build", f"SASS {kernel}<bf16, {args}>: {n_mma} HGMMA, "
+                  f"{n_tma} UTMALDG")
             if not n_mma or not n_tma:
-                fail(f"{kernel}<bf16, alibi={alibi}, window={window}> "
-                     f"issues no wgmma or no TMA load")
-        if len(counts) != 4:
-            fail(f"{kernel}: {len(counts)} of its 4 bf16 instantiations "
-                 f"found in {lib.name}")
+                fail(f"{kernel}<bf16, {args}> issues no wgmma or no TMA "
+                     f"load")
+        want = SASS_TEMPLATES[kernel][2]
+        if len(counts) != want:
+            fail(f"{kernel}: {len(counts)} of its {want} bf16 "
+                 f"instantiations found in {lib.name}")
 
 
 def _rand(shape, dtype, gen):
@@ -448,15 +524,28 @@ def phase_kernels():
                 note("decode_attention", dn, check_close(
                     f"decode_attention {dn} H{H}/{Hkv} B={B} T={T} "
                     f"S_max={S} {how} ({n} x {c} keys)", got, want))
-            # B4 rect front-end
+            # B4 rect front-end: decode rows (the split-key form), then
+            # prefill tiles (bf16: the tensor-core form at pages 128 and
+            # 64; page 48 keeps the CUDA-core tiles)
             ctx = [1, 17, 128, 129, 300, 640, 1000, 2047]
             tables, kp, vp = _paged_state(ctx, page, Hkv, D, dtype, gen)
             cases = [("decode B=8 T=1 ragged", 1, tables, kp, vp, ctx)]
             t1, kp1, vp1 = _paged_state([128], page, Hkv, D, dtype, gen)
             cases.append(("prefill B=1 T=128", 128, t1, kp1, vp1, [128]))
-            # the serve run's own calls: bucketed prefills of its 600- and
-            # 511-token prompts, and a decode step with two idle slots
-            for prompt in (600, 511):
+            # prefills after cached prefixes: ragged last tiles, the first
+            # query past a page edge
+            cases.append(("prefill B=2 T=200 after prefixes, ctx 300/457",
+                           200, *_paged_state([300, 457], page, Hkv, D,
+                                              dtype, gen), [300, 457]))
+            if Hkv == H:
+                for pg in (64, 48):
+                    cases.append((f"prefill page {pg} B=2 T=130, ctx "
+                                  f"130/700", 130, *_paged_state(
+                                      [130, 700], pg, Hkv, D, dtype, gen),
+                                  [130, 700]))
+            # the serve run's own calls: bucketed prefills of its 16-, 511-
+            # and 600-token prompts, and a decode step with two idle slots
+            for prompt in (16, 511, 600):
                 bucket, need = _prefill_need(prompt)
                 cases.append((f"serve prefill B=1 T={bucket} "
                               f"(prompt {prompt})", bucket,
@@ -469,32 +558,40 @@ def phase_kernels():
                           [p + 16 for p in active] + [1, 1]))
             for label, T, tb, kk, vv, ctx in cases:
                 qq = _rand((len(ctx), T, H, D), dtype, gen)
-                got = ragged_paged_attention_rect(qq, kk, vv, tb, i32(ctx))
-                want = reference(paged_attention_plain, qq, kk, vv, tb,
-                                 i32(ctx))
-                note("ragged_paged_attention", dn, check_close(
-                    f"ragged_paged_attention {dn} H{H}/{Hkv} {label}",
-                    got, want))
-            # B4 packed front-end, mixed batch: shared prefix pages,
-            # partial pages
-            q_lens = [37, 1, 1, 128, 9, 1]
-            ctx = [37, 300, 1000, 400, 521, 257]
-            tb, kk, vv = _paged_state(ctx, page, Hkv, D, dtype, gen,
-                                      shared_pages=2)
-            if not (tb[1, 0] == tb[2, 0] and tb[1, 1] == tb[2, 1]):
-                fail("packed case: prefix pages are not shared")
-            qp = _rand((sum(q_lens), H, D), dtype, gen)
-            got = ragged_paged_attention(qp, kk, vv, tb, ctx, q_lens)
-            kf, vf = kk.float(), vv.float()
-            outs, off = [], 0
-            for s, ql in enumerate(q_lens):
-                outs.append(paged_attention_plain(
-                    qp[off:off + ql][None].float(), kf, vf, tb[s:s + 1],
-                    i32([ctx[s]]))[0])
-                off += ql
-            note("ragged_paged_attention", dn, check_close(
-                f"ragged_paged_attention {dn} H{H}/{Hkv} packed mixed", got,
-                torch.cat(outs).to(dtype)))
+                lens = i32(ctx)
+                got = ragged_paged_attention_rect(qq, kk, vv, tb, lens)
+                exact = paged_attention_plain(qq.float(), kk.float(),
+                                              vv.float(), tb, lens)
+                note("ragged_paged_attention", dn, check_output(
+                    f"ragged_paged_attention {dn} H{H}/{Hkv} {label}", got,
+                    exact, lambda: paged_sdpa(qq, kk, vv, tb, lens)))
+            # B4 packed front-end, mixed batches in one call: prefills,
+            # decodes sharing prefix pages, partial pages; then decode rows
+            # of 1-4 tokens (MHA: one decode launch of 4-row blocks) beside
+            # a prefill
+            packed = [([37, 1, 1, 128, 9, 1], [37, 300, 1000, 400, 521, 257])]
+            if Hkv == H:
+                packed.append(([3, 1, 4, 2, 200], [3, 640, 300, 1001, 329]))
+            for q_lens, ctx in packed:
+                tb, kk, vv = _paged_state(ctx, page, Hkv, D, dtype, gen,
+                                          shared_pages=2)
+                if not (tb[1, 0] == tb[2, 0] and tb[1, 1] == tb[2, 1]):
+                    fail("packed case: prefix pages are not shared")
+                qp = _rand((sum(q_lens), H, D), dtype, gen)
+                got = ragged_paged_attention(qp, kk, vv, tb, ctx, q_lens)
+                seqs, off = [], 0
+                for s, ql in enumerate(q_lens):
+                    seqs.append((qp[off:off + ql][None], tb[s:s + 1],
+                                 i32([ctx[s]])))
+                    off += ql
+                kf, vf = kk.float(), vv.float()
+                exact = torch.cat([paged_attention_plain(
+                    x.float(), kf, vf, t, c)[0] for x, t, c in seqs])
+                note("ragged_paged_attention", dn, check_output(
+                    f"ragged_paged_attention {dn} H{H}/{Hkv} packed mixed "
+                    f"q_lens {q_lens}", got, exact,
+                    lambda: torch.cat([paged_sdpa(x, kk, vv, t, c)[0]
+                                       for x, t, c in seqs])))
     return errs
 
 
@@ -699,16 +796,19 @@ def _sparse_layout(kind, H, block, S):
     return cfg.make_layout(S), cfg.attention == "unidirectional"
 
 
-# B6 cases: (layout kind, block, S); each at head dims 64 and 128
+# B6 cases: (layout kind, block, S); each at head dims 64 and 128.  S=1040
+# leaves the bf16 kernel's last 64-row tile a quarter full
 SPARSE_CASES = [("fixed", 16, 1024), ("longformer", 32, 1024),
                 ("bigbird", 64, 1024), ("variable", 128, 1024),
-                ("empty rows", 64, 512)]
+                ("empty rows", 64, 512), ("fixed", 16, 1040)]
 
 
 def phase_sparse_kernels():
     """B6 vs its plain version run in fp32 on the kernel's inputs: every
-    layout block (16, 32, 64, 128), head dims 64 and 128, fp32 and bf16,
-    causal and bidirectional layouts, and q blocks that see no key."""
+    layout block (16, 32, 64, 128), head dims 64 and 128, fp32 (the
+    CUDA-core form) and bf16 (the tensor-core form, check_witnessed
+    against SDPA with the expanded mask), causal and bidirectional
+    layouts, and q blocks that see no key."""
     import numpy as np
     import torch
     from deepspeed_tpu_torch.ops.cuda.sparse_attention import \
@@ -735,15 +835,16 @@ def phase_sparse_kernels():
                 with torch.no_grad():
                     got = sparse_attention_cuda(q, k, v, layout, block,
                                                 causal=causal)
-                    want = sparse_attention_plain(
+                    exact = sparse_attention_plain(
                         q.float(), k.float(), v.float(), layout, block,
                         causal=causal)
                 if kind == "empty rows" and got[:, 2 * block:5 * block].abs(
                         ).max().item() != 0.0:
                     fail("sparse_attention: rows that see no key are not 0")
-                e = check_close(f"sparse_attention {dn} {kind} block {block} "
-                                f"D={D} B={B} S={S} H={H} causal={causal}",
-                                got, want.to(dtype))
+                e = check_output(
+                    f"sparse_attention {dn} {kind} block {block} D={D} B={B} "
+                    f"S={S} H={H} causal={causal}", got, exact,
+                    lambda: sparse_sdpa(q, k, v, layout, block, causal))
                 worst[("sparse_attention", dn)] = max(
                     worst.get(("sparse_attention", dn), 0.0), e)
     return worst
@@ -800,13 +901,14 @@ def phase_sparse_path():
             fail(f"SparseSelfAttention {label}: output {out.dtype} "
                  f"{tuple(out.shape)}")
         causal = attn.sparsity_config.attention == "unidirectional"
-        want_o = sparse_attention_plain(
-            q.float(), k.float(), v.float(), attn.get_layout(S),
-            attn.sparsity_config.block, causal=causal)
-        err = max(err, check_close(
+        layout, block = attn.get_layout(S), attn.sparsity_config.block
+        exact = sparse_attention_plain(q.float(), k.float(), v.float(),
+                                       layout, block, causal=causal)
+        err = max(err, check_output(
             f"SparseSelfAttention {label} B={B} S={S} H={H} bfloat16 "
-            f"causal={causal}", out, want_o.to(out.dtype)))
-        del want_o
+            f"causal={causal}", out, exact,
+            lambda: sparse_sdpa(q, k, v, layout, block, causal)))
+        del exact
     _, attn, q, k, v = calls[0]
     keep = torch.ones((B, S), dtype=torch.bool, device="cuda")
     keep[:, -attn.sparsity_config.block:] = False
@@ -1003,15 +1105,18 @@ def _measure(fns, copies):
 
 
 def phase_timing(cfg, serve_prompts):
-    """Each kernel at the main path's decode shapes (bf16), and B5 again at
-    Llama-2's whole context (len 4096): kernel, plain version and library
-    time, plus the bound and the kernel's share of it.  Buffers rotate
-    over more than the 50 MB L2 so each call reads its cache cold, as a
-    layer of the decode loop does."""
+    """Each kernel at the main path's decode shapes (bf16), B5 again at
+    Llama-2's whole context (len 4096), and B4's prefill tiles at the serve
+    run's buckets 512 and 1024: kernel, plain version and library time,
+    plus the bound and the kernel's share of it.  Buffers rotate over more
+    than the 50 MB L2 so each call reads its cache cold, as a layer of the
+    decode loop does."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.cuda.decode_attention import (
         decode_attention_cuda, decode_attention_plain)
+    from deepspeed_tpu_torch.ops.cuda.flash_attention import \
+        flash_attention_fwd_cuda
     from deepspeed_tpu_torch.ops.cuda.ragged_paged_attention import (
         paged_attention_plain, ragged_paged_attention_rect)
     gen = torch.Generator(device="cuda").manual_seed(99)
@@ -1117,6 +1222,62 @@ def phase_timing(cfg, serve_prompts):
         max_abs_err=err, **times, bound_ms=bound_ms, bound_by=bound_by,
         shape=f"B={B} T=1 H={H} Hkv={Hkv} D={D} page={page} "
               f"ctx={ctx} bf16")
+    del states, dense, q, qs
+    _free()
+
+    # B4 prefill tiles: the serve run's bucketed prefills at 512 (its 511-
+    # token prompt) and 1024 (600), one prompt a call, length = bucket;
+    # the library yardstick is SDPA causal over the dense K/V
+    for prompt in (511, 600):
+        bucket, need = _prefill_need(prompt)
+        copies = 4
+        states = [_engine_state([need], Hkv, D, dt, gen)
+                  for _ in range(copies)]
+        lens = torch.tensor([bucket], dtype=torch.int32, device="cuda")
+        q = _rand((copies, 1, bucket, H, D), dt, gen)
+        tb, kp, vp = states[0]
+        exact = paged_attention_plain(q[0].float(), kp.float(), vp.float(),
+                                      tb, lens)
+        err = check_output(
+            f"timing ragged_paged_attention prefill T={bucket}",
+            ragged_paged_attention_rect(q[0], kp, vp, tb, lens), exact,
+            lambda: paged_sdpa(q[0], kp, vp, tb, lens))
+        del exact
+        dense = []
+        for tb, kp, vp in states:
+            t = tb.long()
+            dense.append(tuple(
+                x[t].transpose(1, 2).reshape(1, Hkv, -1, D)[:, :, :bucket]
+                .contiguous() for x in (kp, vp)))
+        qs = q.transpose(2, 3).contiguous()        # [c, 1, H, T, D]
+        times = _measure({
+            "ms": lambda i: ragged_paged_attention_rect(
+                q[i % copies], *states[i % copies][1:], states[i % copies][0],
+                lens),
+            "plain_ms": lambda i: paged_attention_plain(
+                q[i % copies], *states[i % copies][1:], states[i % copies][0],
+                lens),
+            "library_ms": lambda i: F.scaled_dot_product_attention(
+                qs[i % copies], *dense[i % copies], is_causal=True,
+                enable_gqa=Hkv != H)}, copies)
+        # B1's forward on the same work: the same q and the dense K/V
+        kb1 = [tuple(x.transpose(1, 2).contiguous() for x in kv)
+               for kv in dense]
+        b1_ms = graph_ms(lambda i: flash_attention_fwd_cuda(
+            q[i], kb1[i][0], kb1[i][1], 1.0 / math.sqrt(D)), copies)
+        pairs = bucket * (bucket + 1) // 2
+        nbytes = (2 * bucket * H * D + 2 * Hkv * bucket * D) * item
+        bound_ms, bound_by = _bound(nbytes, 4 * H * D * pairs, "bfloat16")
+        res[f"ragged_paged_attention_prefill_{bucket}"] = dict(
+            max_abs_err=err, **times, bound_ms=bound_ms, bound_by=bound_by,
+            b1_ms=b1_ms,
+            shape=f"prefill B=1 T={bucket} H={H} Hkv={Hkv} D={D} "
+                  f"page={page} len={bucket} causal bf16")
+        phase("timing", f"ragged_paged_attention prefill T={bucket}: "
+              f"{times['ms']:.4f} ms, B1's forward on the same work "
+              f"{b1_ms:.4f} ms: {times['ms'] / b1_ms:.2f}x")
+        del states, dense, q, qs, kb1
+        _free()
     for name, r in res.items():
         phase("timing", f"{name} [{r['shape']}]: device ms (graph replay) "
               f"kernel {r['ms']:.4f}, plain {r['plain_ms']:.4f}, library "
@@ -1131,7 +1292,8 @@ def phase_timing(cfg, serve_prompts):
 
 def profile_device(fn, reps):
     """Device time of ``reps`` calls of fn() by kernel (torch.profiler):
-    returns (device ms per call, top kernels [(name, ms per call)])."""
+    returns (device ms per call, top kernels [(name, ms per call)], every
+    kernel {name: ms per call})."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1152,13 +1314,14 @@ def profile_device(fn, reps):
             per_kernel[ev.key] = per_kernel.get(ev.key, 0.0) + \
                 us / 1e3 / reps
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
-    return sum(per_kernel.values()), top
+    return sum(per_kernel.values()), top, per_kernel
 
 
 def decode_step_ms(eng, cfg, steps=16, profiled=4):
     """Wall ms of a pure decode step with all 8 serving slots busy, then
     the device time of ``profiled`` more steps by kernel (torch.profiler):
-    returns (step ms, device ms per step, top kernels [(name, ms/step)])."""
+    returns (step ms, device ms per step, top kernels [(name, ms/step)],
+    B4's device ms per step: its decode kernels and their combine)."""
     import numpy as np
     import torch
     se = eng.create_serving_engine(max_batch=8, page_size=128, max_seq=2048)
@@ -1173,10 +1336,12 @@ def decode_step_ms(eng, cfg, steps=16, profiled=4):
         se.step()
     torch.cuda.synchronize()
     ms = (time.time() - t0) * 1e3 / steps
-    device_ms, top = profile_device(se.step, profiled)
+    device_ms, top, per_kernel = profile_device(se.step, profiled)
+    b4_ms = sum(v for k, v in per_kernel.items() if "PagedSeqs" in k or
+                "ragged_" in k)
     del se
     torch.cuda.empty_cache()
-    return ms, device_ms, top
+    return ms, device_ms, top, b4_ms
 
 
 # ----------------------------------------------------------------------
@@ -1349,8 +1514,8 @@ def phase_train_fixed(name):
     engine.train_batch(batch=batch)
     torch.cuda.synchronize()
     step_ms = (time.time() - t0) * 1e3
-    device_ms, top = profile_device(lambda: engine.train_batch(batch=batch),
-                                    1)
+    device_ms, top, _ = profile_device(
+        lambda: engine.train_batch(batch=batch), 1)
     del engine
     _free()
     return losses, step_ms, device_ms, top
@@ -1736,7 +1901,7 @@ def phase_biased_timing(errs):
 
 
 def phase_sparse_timing(err):
-    """B6 at the entry point's shapes (SPARSE_PATH): the kernel by
+    """B6 at the entry point's shapes (SPARSE_PATH): the bf16 kernel by
     CUDA-graph replay over 4 rotating input sets; the plain version
     eagerly by CUDA events (it expands the layout on the host at every
     call); the library call, SDPA with the expanded layout (and causal)
@@ -1745,7 +1910,8 @@ def phase_sparse_timing(err):
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.cuda.sparse_attention import (
-        card_tables, layout_tables, sparse_attention_cuda, sparse_flops)
+        card_steps, layout_tables, sparse_attention_cuda, sparse_flops,
+        step_overhead)
     from deepspeed_tpu_torch.ops.sparse_attention import (
         expand_layout_mask, sparse_attention_plain)
     B, S, H = SPARSE_B, SPARSE_S, SPARSE_H
@@ -1761,11 +1927,12 @@ def phase_sparse_timing(err):
         if causal:
             mask &= torch.ones((S, S), dtype=torch.bool,
                                device="cuda").tril()
-        # the tables on the card, made once, as SparseSelfAttention keeps
-        # them (a host-to-card copy cannot run inside a graph capture)
-        tables = card_tables(layout, causal, "cuda")
+        # the bf16 kernel's step tables on the card, made once, as
+        # SparseSelfAttention keeps them (a host-to-card copy cannot run
+        # inside a graph capture)
+        steps = card_steps(layout, block, causal, "cuda")
         ms = graph_ms(lambda i: sparse_attention_cuda(
-            q[i], k[i], v[i], layout, block, causal=causal, tables=tables),
+            q[i], k[i], v[i], layout, block, causal=causal, steps=steps),
             c)
         plain_ms = time_ms(lambda i: sparse_attention_plain(
             q[i % c], k[i % c], v[i % c], layout, block, causal=causal),
@@ -1782,8 +1949,9 @@ def phase_sparse_timing(err):
             bound_by=bound_by, max_abs_err=err,
             shape=f"B={B} S={S} H={H} {label} causal={causal}, "
                   f"{int(counts.sum())} of {H * (S // block) ** 2} blocks "
-                  f"set, bf16")
-        del q, k, v, qt, kt, vt, mask, tables
+                  f"set, steps' union x{step_overhead(layout, block, causal):.3f}"
+                  f" of their work, bf16")
+        del q, k, v, qt, kt, vt, mask, steps
         _free()
     for (name, _), r in res.items():
         phase("timing", f"{name} [{r['shape']}]: device ms kernel "
@@ -1854,6 +2022,7 @@ def main():
           f" decode steps), ragged kernel launches "
           f"{counts['ragged_paged_attention']} = {L} x {calls}, "
           f"leak_report {{}}")
+    se_steps = se.scheduler.sched_stats['decode_steps']
     del se
     torch.cuda.empty_cache()
     # generate's per-step time: its prefill alone, timed after the counted
@@ -1873,11 +2042,22 @@ def main():
           f"{after_gen['decode_attention'] // gen_calls}, "
           f"ragged_paged_attention {counts['ragged_paged_attention'] // calls}"
           f" (one per layer per model call)")
-    step_ms, device_ms, top = decode_step_ms(eng, cfg)
+    # B4's launches by form: one per layer per decode step (the decode
+    # rows) and per bucketed prefill (the prefill tiles), by bucket
+    dec_steps = se_steps
+    b4_launches = {"ragged_paged_attention": L * dec_steps}
+    for prompt in SERVE_PROMPTS:
+        key = f"ragged_paged_attention_prefill_{_prefill_need(prompt)[0]}"
+        b4_launches[key] = b4_launches.get(key, 0) + L
+    phase("timing", f"ragged_paged_attention launches on the serve run by "
+          f"form: {b4_launches} (of {counts['ragged_paged_attention']}: "
+          f"{calls - dec_steps} prefill calls, {dec_steps} decode steps)")
+    step_ms, device_ms, top, b4_ms = decode_step_ms(eng, cfg)
     phase("serve", f"pure decode step, 8 slots busy: {step_ms:.3f} ms "
           f"({8 * 1e3 / step_ms:.1f} tokens/s); device time "
           f"{device_ms:.3f} ms/step (profiler), busy share "
-          f"{device_ms / step_ms:.3f}")
+          f"{device_ms / step_ms:.3f}; B4 (ragged paged attention) "
+          f"{b4_ms:.4f} ms/step, {b4_ms / device_ms:.3f} of the device time")
     for name, k_ms in top:
         phase("serve", f"  device ms/step {k_ms:.4f}  {name[:90]}")
     del eng, model
@@ -1953,6 +2133,11 @@ def main():
           f"gradient request raised")
 
     timing = phase_timing(cfg, SERVE_PROMPTS[:SERVE_SLOTS])
+    for key, n in b4_launches.items():
+        if key in timing:
+            phase("timing", f"{key}: {timing[key]['ms']:.4f} ms x {n} "
+                  f"serve-run launches, bound {timing[key]['bound_ms']:.4f} "
+                  f"ms")
     timing.update(phase_train_timing(errs))
     biased = phase_biased_timing(errs)
     sparse = phase_sparse_timing(sparse_err)

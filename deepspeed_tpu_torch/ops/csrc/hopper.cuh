@@ -2,7 +2,9 @@
 // inline PTX: mbarriers, TMA tile loads, wgmma with its shared-memory
 // descriptors, and the map from a wgmma accumulator element to its row and
 // column.  The bf16 flash-attention kernels (flash_attention_fwd.cu,
-// flash_attention_bwd.cu) are built from them.
+// flash_attention_bwd.cu), the block-sparse kernel (sparse_attention.cu)
+// and the ragged paged prefill kernel (ragged_paged_attention.cu) are
+// built from them.
 //
 // Shared-memory tiles.  A bf16 tile of R rows by 128 columns (one head's
 // rows of a [B, S, Hx, 128] tensor) is loaded by TMA as two boxes of R rows
@@ -91,6 +93,28 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Box at coordinates (c0, c1) of a 2-d tensor map, and (c0, c1, c2) of a
+// 3-d one -> dst, as tma_load_4d.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -260,6 +284,30 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// D[64 x 64] += A[64 x 16] * B[16 x 64], A from registers as in
+// wgmma_rs_n128, B MN-major in shared memory (one 64-column atom).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // ---- accumulator layout ----------------------------------------------------
 
 // Element i of thread t's (t = 0..127 in the warpgroup) m64nN fp32
@@ -326,29 +374,40 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// Tensor map of a contiguous bf16 [B, S, Hx, 128] tensor as 4-d (column,
-// head, row, batch), boxes of ``rows`` rows of one head by 64 columns,
-// 128-byte swizzle.  Rows at or past S (and only those) read as zeros.
+// Tensor map of a contiguous bf16 tensor of ``rank`` dims (dims[0] the
+// columns, contiguous; strides in bytes of dims 1..rank-1), boxes of
+// ``box`` elements per dim (box[0] = 64 columns: 128 bytes), 128-byte
+// swizzle.  Elements past a dim's end (and only those) read as zeros.
 // Built at every launch: nothing is cached by pointer, and the map travels
 // by value in the kernel's parameters, so CUDA-graph capture keeps it.
 // Returns 0 or a CUDA error code.
-inline int make_head_map(CUtensorMap* map, const void* ptr, int B, int S,
-                         int Hx, int rows) {
+inline int make_map(CUtensorMap* map, const void* ptr, int rank,
+                    const cuuint64_t* dims, const cuuint64_t* strides,
+                    const cuuint32_t* box) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t row = kHeadDim * sizeof(__nv_bfloat16);
-  const cuuint64_t dims[4] = {kHeadDim, static_cast<cuuint64_t>(Hx),
+  const cuuint32_t step[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr),
+      dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Tensor map of a contiguous bf16 [B, S, Hx, D] tensor (D 64 or 128) as
+// 4-d (column, head, row, batch), boxes of ``rows`` rows of one head by 64
+// columns.  Rows at or past S read as zeros.
+inline int make_head_map(CUtensorMap* map, const void* ptr, int B, int S,
+                         int Hx, int rows, int D = kHeadDim) {
+  const cuuint64_t row = D * sizeof(__nv_bfloat16);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(Hx),
                               static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {row, row * Hx, row * Hx * S};
   const cuuint32_t box[4] = {kBoxCols, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t step[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+  return make_map(map, ptr, 4, dims, strides, box);
 }
 
 }  // namespace hopper

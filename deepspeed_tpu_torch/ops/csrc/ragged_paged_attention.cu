@@ -1,5 +1,5 @@
-// Ragged paged attention for Hopper (sm_90a): one kernel for decode,
-// prefill and mixed ragged batches over a paged KV cache.
+// Ragged paged attention for Hopper (sm_90a): decode, prefill and mixed
+// ragged batches over a paged KV cache, in one call.
 //
 // Replaces the TPU kernel
 // deepspeed_tpu/ops/pallas/ragged_paged_attention.py: _ragged_kernel
@@ -7,28 +7,325 @@
 // s, the causal attention of its last q_lens[s] tokens over its ctx_lens[s]
 // cached tokens (queries included), with K/V pages [P, Hkv, page, D] read
 // in place through block_tables[s].  The queries are a packed, unpadded
-// [total_q, H, D] stack; sequence s's rows start at q_offs[s].  A tile is
-// q_tile query tokens of one sequence (seq_of_tile / qtile_of_tile, the
-// TPU kernel's metadata) and reads only the keys below its causal frontier
-// ctx - qlen + min(qlen, (qt + 1) * q_tile).  Padding rows (local token >=
-// qlen) are neither read nor written; rows that see no key give 0.
+// [total_q, H, D] stack; sequence s's rows start at q_offs[s].  Rows that
+// see no key give 0.
 //
-// What bounds it on the H100: decode reads each sequence's K/V pages once
-// for ~1 flop per byte -- HBM bandwidth (3.35 TB/s) is the bound, and the
-// gather path it replaces moved the max-length padded view three times.
-// Prefill tiles are bounded by arithmetic.
+// What bounds it on the H100: a decode row reads its sequence's K/V pages
+// once for ~1 flop per byte -- HBM bandwidth (3.35 TB/s) is the bound; a
+// prefill tile of 128 query rows does 512 flops per K/V byte it reads and
+// is bounded by the tensor cores, as the flash forward is.
 //
-// Design (first version; wgmma/TMA, split-K over long contexts and
-// persistent blocks are later work): grid (tiles, Hkv, row chunks), one
-// 128-thread block per (q tile, kv head, row chunk of the tile's
-// q_tile*group rows) -- 4-row chunks for decode tiles of at most 4 rows,
-// 16-row chunks otherwise.  The TPU kernel's sequential page grid axis becomes
-// the key loop inside the block; each key's page is resolved through the
-// block table as it is loaded, so shared prefix pages and partial last
-// pages are read in place and no padded view is ever built.
-#include "attention_tile.cuh"
+// The TPU kernel serves both with one tile shape, q_tile tokens of one
+// sequence by its kv head's group; here the host (ops/cuda/
+// ragged_paged_attention.py plan_launch) splits a call's sequences by
+// form, and one C call launches one kernel (or two) per form present:
+//
+// Decode rows (q_len * group <= 4 rows per kv head: every serving decode
+// step): the split-key, memory-parallel body of split_decode.cuh, shared
+// with decode_attention.cu, over the decode sequences' list; a key's row
+// is resolved through the block table as it is loaded (PagedSeqs), so
+// shared prefix pages and partial last pages are read in place, at any
+// page size.  A page of 128 keys is 32 KB contiguous per kv head, so at
+// the serving engine's page a warp's 16-key group lies in one page.
+//
+// Prefill tiles, bf16, D = 128, a group dividing 64 and a page size that
+// is a multiple of 128 or a multiple of 8 dividing 128 (the serving
+// engine's page 128 among them): the flash forward's pipeline
+// (flash_attention_fwd.cu, hopper.cuh).  One block of three warpgroups per
+// (128-row tile, kv head): the tile is 128 / group tokens of one sequence
+// by the group's heads, so a kv head's group shares every K/V tile.  A
+// producer warp loads the Q tile by TMA straight from the packed stack --
+// a 3-d tensor map (column, head, token) with row stride H * D, one box of
+// 64 rows (64 / group tokens by group heads) per consumer warpgroup -- and
+// streams 128-key K and V tiles through a two-stage ring, each tile's TMA
+// row coordinate resolved through the block table, (page * Hkv + hk) *
+// page_size + offset over k_pages viewed as [P * Hkv * page, D]: one box
+// per tile, or one per page when pages are smaller than the tile.  Two
+// consumer warpgroups own 64 rows each: S = Q K^T by wgmma, the online
+// softmax on the accumulators, P rounded to bf16 as the A operand of O +=
+// P V.  The key loop stops at the tile's causal frontier ctx - qlen +
+// min(qlen, (qt + 1) * tokens); only tiles that cross a row's position are
+// masked, and a warpgroup skips a tile it cannot see.  Rows past qlen may
+// arrive in the Q box (TMA moves whole boxes; past the stack they are
+// zero-filled) but feed no real row and are never written.  Tiles with the
+// most keys are launched first (the host's order).
+//
+// Prefill tiles otherwise (fp32, other page sizes or groups): the CUDA-core
+// tile of attention_tile.cuh, grid (tiles, Hkv, 16-row chunks of the
+// tile's q_tile * group rows), keys staged through fp32 shared memory, each
+// key's page resolved through the block table as it is loaded.  fp32 keeps
+// it for the 1e-4 checks; the selection is by dtype and shape.
+#include "hopper.cuh"
+#include "split_decode.cuh"
 
 namespace {
+
+using dsattn::kNeg;
+using dsdecode::kD;
+
+// ---- decode rows: split_decode.cuh over the paged cache -----------------
+
+struct PagedSeqs {
+  const int* ctx;       // [B] tokens stored, queries included
+  const int* q_lens;    // [B]
+  const int* q_offs;    // [B] first row of each sequence in q
+  const int* seqs;      // [Z] the sequences of the decode form
+  const int* tables;    // [B, max_pages]
+  int max_pages, page, H, Hkv;
+  struct Seq {
+    const int* table;
+    long long q_base;
+    int kv_hi, rows, first_q, H, group, hk, max_pages, page, Hkv;
+    __device__ __forceinline__ long long row(int r) const {
+      return q_base + ((long long)(r / group) * H + hk * group + r % group) *
+                          kD;
+    }
+    __device__ __forceinline__ int lim(int r) const {
+      return first_q + r / group + 1;   // keys < lim: kpos <= qpos
+    }
+    __device__ __forceinline__ long long key(int k) const {
+      const long long pg = __ldg(table + min(k / page, max_pages - 1));
+      return ((pg * Hkv + hk) * page + k % page) * kD;
+    }
+  };
+  __device__ __forceinline__ Seq seq(int z, int hk) const {
+    const int s = seqs[z], c = ctx[s], ql = q_lens[s];
+    const int group = H / Hkv;
+    return Seq{tables + (long long)s * max_pages,
+               (long long)q_offs[s] * H * kD,
+               max(0, min(c, max_pages * page)), ql * group, c - ql, H, group,
+               hk, max_pages, page, Hkv};
+  }
+};
+
+// ---- prefill tiles, bf16: tensor cores fed by TMA -----------------------
+
+namespace tc {
+constexpr int BM = 128;                              // rows of a tile
+constexpr int BN = 128;                              // keys of a K/V tile
+constexpr int kThreads = 384;                        // 2 consumer + 1 producer WG
+constexpr int kTile = 128 * hopper::kHeadDim * 2;    // 32 KB bf16 tile
+constexpr int kHalf = kTile / 2;                     // one 64-column box
+constexpr int kStages = 2;
+constexpr int kBarOffset = kTile + kStages * 2 * kTile;
+constexpr size_t kSmem = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
+}  // namespace tc
+
+struct PrefillParams {
+  CUtensorMap q_map, k_map, v_map;
+  __nv_bfloat16* o;
+  const int* ctx;
+  const int* q_lens;
+  const int* q_offs;
+  const int* tables;
+  const int* seq_of_tile;
+  const int* qtile_of_tile;
+  int max_pages, page, box_rows, H, Hkv;
+  float scale;
+};
+
+__global__ void __launch_bounds__(tc::kThreads, 1)
+ragged_prefill_tc_kernel(const __grid_constant__ PrefillParams p) {
+  using namespace hopper;
+  using namespace tc;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* q_s = base;
+  unsigned char* kv_s = base + kTile;
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(base + kBarOffset);
+  uint64_t* full = q_bar + 1;
+  uint64_t* empty = full + kStages;
+
+  const int tile = blockIdx.x, hk = blockIdx.y;
+  const int group = p.H / p.Hkv, tokens = BM / group;
+  const int s = p.seq_of_tile[tile], qt = p.qtile_of_tile[tile];
+  const int ctx = p.ctx[s], qlen = p.q_lens[s], qoff = p.q_offs[s];
+  const int t0 = qt * tokens;                     // the tile's first token
+  const int first_q = ctx - qlen;                 // position of token 0
+  int kv_hi = first_q + min(qlen, t0 + tokens);   // the causal frontier
+  kv_hi = max(0, min(kv_hi, p.max_pages * p.page));
+  const int n_tiles = (kv_hi + BN - 1) / BN;
+  const int* table = p.tables + (long long)s * p.max_pages;
+
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 256);   // every consumer thread
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer
+    regs_dealloc<24>();
+    if (t == 0) {
+      // Q: one box of 64 rows (64 / group tokens x group heads) per
+      // consumer warpgroup and 64 columns
+      mbar_arrive_expect_tx(q_bar, kTile);
+      for (int w = 0; w < 2; ++w)
+        for (int c = 0; c < 2; ++c)
+          tma_load_3d(q_s + c * kHalf + w * 64 * 128, &p.q_map, q_bar,
+                      c * kBoxCols, hk * group, qoff + t0 + w * 64 / group);
+      const int per = BN / p.box_rows;          // boxes per K/V tile half
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % kStages;
+        mbar_wait(&empty[st], ((it / kStages) & 1) ^ 1);
+        unsigned char* k_t = kv_s + st * 2 * kTile;
+        mbar_arrive_expect_tx(&full[st], 2 * kTile);
+        for (int j = 0; j < per; ++j) {
+          const int key = it * BN + j * p.box_rows;
+          const int pg = __ldg(table + min(key / p.page, p.max_pages - 1));
+          const int row = (pg * p.Hkv + hk) * p.page + key % p.page;
+          for (int c = 0; c < 2; ++c) {
+            unsigned char* dst = k_t + c * kHalf + j * p.box_rows * 128;
+            tma_load_2d(dst, &p.k_map, &full[st], c * kBoxCols, row);
+            tma_load_2d(dst + kTile, &p.v_map, &full[st], c * kBoxCols, row);
+          }
+        }
+      }
+    }
+  } else {  // consumers: warpgroup wg owns tile rows 64 wg .. 64 wg + 63
+    regs_alloc<240>();
+    // row r of the tile is token t0 + r / group, head hk * group + r % group
+    const int tok_first = t0 + 64 * wg / group;
+    const int tok_last = min(tok_first + 64 / group, qlen) - 1;
+    const int row0 = acc_row(0, t);               // and row0 + 8
+    int tok[2], qpos[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      tok[r] = t0 + (64 * wg + row0 + 8 * r) / group;
+      qpos[r] = first_q + tok[r];
+    }
+    const float scale = p.scale;
+    const uint32_t q_addr = smem_u32(q_s) + 64 * wg * 128;
+    float o[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};   // l: this lane's share
+
+    mbar_wait(q_bar, 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % kStages, k0 = it * BN;
+      // no real row (tok_last < tok_first) or every key past the last one
+      const bool unseen = tok_last < tok_first || k0 > first_q + tok_last;
+      mbar_wait(&full[st], (it / kStages) & 1);
+      if (!unseen) {
+        const uint32_t k_addr = smem_u32(kv_s) + st * 2 * kTile;
+        const uint32_t v_addr = k_addr + kTile;
+        float sc[64];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          const uint32_t off = (kk / 4) * kHalf + (kk % 4) * 32;
+          wgmma_ss_n128(sc, desc_kmajor(q_addr + off),
+                        desc_kmajor(k_addr + off), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+
+        const bool edge = k0 + BN - 1 > first_q + tok_first;
+        float mx[2] = {kNeg, kNeg};
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const int r = (i / 2) % 2;
+          float x = __fmul_rn(sc[i], scale);
+          if (edge && k0 + acc_col(i, t) > qpos[r]) x = kNeg;
+          sc[i] = x;
+          mx[r] = fmaxf(mx[r], x);
+        }
+        float corr[2], ml[2];   // ml: m * log2(e), the exponents' offset
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          // a row that has seen no key yet keeps m = -1e30; its exponents
+          // are taken from 0, so its masked scores give exactly 0
+          const float m_new = fmaxf(m[r], mx[r]);
+          ml[r] = m_new <= kNeg / 2 ? 0.f : m_new * kLog2e;
+          corr[r] = ex2(fmaf(m[r], kLog2e, -ml[r]));
+          m[r] = m_new;
+          l[r] *= corr[r];
+        }
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const int r = (i / 2) % 2;
+          const float pr = ex2(fmaf(sc[i], kLog2e, -ml[r]));
+          l[r] += pr;
+          sc[i] = pr;
+          o[i] *= corr[r];
+        }
+        uint32_t pa[32];
+        acc_to_a(sc, pa);
+        fence_regs(o);
+        fence_regs(pa);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                                 pa[4 * kk + 3]};
+          wgmma_rs_n128(o, a, desc_mnmajor(v_addr + kk * 2048, kHalf));
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_regs(pa);
+      }
+      mbar_arrive(&empty[st]);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      if (tok[r] >= qlen) continue;
+      const int g = (64 * wg + row0 + 8 * r) % group;
+      const float inv = 1.f / fmaxf(l[r], 1e-30f);
+      uint32_t* orow = reinterpret_cast<uint32_t*>(
+          p.o + (((long long)qoff + tok[r]) * p.H + hk * group + g) * kD);
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        orow[(8 * j + 2 * (t % 4)) / 2] =
+            pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    }
+  }
+}
+
+int launch_prefill_tc(PrefillParams& p, const void* q, const void* kp,
+                      const void* vp, int n_tiles, int total_q, int P,
+                      cudaStream_t stream) {
+  const int group = p.H / p.Hkv;
+  // q as (column, head, token); pages as (column, row of [P*Hkv*page])
+  const cuuint64_t row = kD * sizeof(__nv_bfloat16);
+  const cuuint64_t q_dims[3] = {kD, static_cast<cuuint64_t>(p.H),
+                                static_cast<cuuint64_t>(total_q)};
+  const cuuint64_t q_strides[2] = {row, row * p.H};
+  const cuuint32_t q_box[3] = {hopper::kBoxCols,
+                               static_cast<cuuint32_t>(group),
+                               static_cast<cuuint32_t>(64 / group)};
+  const cuuint64_t kv_dims[2] = {
+      kD, static_cast<cuuint64_t>(P) * p.Hkv * p.page};
+  const cuuint64_t kv_strides[1] = {row};
+  const cuuint32_t kv_box[2] = {hopper::kBoxCols,
+                                static_cast<cuuint32_t>(p.box_rows)};
+  int rc = hopper::make_map(&p.q_map, q, 3, q_dims, q_strides, q_box);
+  if (!rc) rc = hopper::make_map(&p.k_map, kp, 2, kv_dims, kv_strides, kv_box);
+  if (!rc) rc = hopper::make_map(&p.v_map, vp, 2, kv_dims, kv_strides, kv_box);
+  if (rc) return rc;
+  // once, before any graph capture can be running
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      ragged_prefill_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)tc::kSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  ragged_prefill_tc_kernel<<<dim3(n_tiles, p.Hkv), tc::kThreads, tc::kSmem,
+                             stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// ---- prefill tiles otherwise: CUDA cores --------------------------------
 
 struct PagedKeys {
   const int* table;   // block_tables row of the sequence
@@ -74,68 +371,121 @@ ragged_paged_attention_kernel(
   attend_rows<T, D, ROWS>(q, k_pages, v_pages, o, scale, kv_hi, keys, rm);
 }
 
-template <typename T, int D, int ROWS>
-void launch_rows(const void* q, const void* kp, const void* vp, void* o,
-                 const int* ctx, const int* qlens, const int* qoffs,
-                 const int* sot, const int* qot, const int* tables,
-                 int n_tiles, int max_pages, int H, int Hkv, int page_size,
-                 int q_tile, float scale, cudaStream_t stream) {
+template <typename T>
+int launch_prefill_cores(const void* q, const void* kp, const void* vp,
+                         void* o, const int* ctx, const int* qlens,
+                         const int* qoffs, const int* sot, const int* qot,
+                         const int* tables, int n_tiles, int max_pages, int H,
+                         int Hkv, int page_size, int q_tile, float scale,
+                         cudaStream_t stream) {
+  constexpr int ROWS = 16;
   const int tile_rows = q_tile * (H / Hkv);
   dim3 grid(n_tiles, Hkv, (tile_rows + ROWS - 1) / ROWS);
-  ragged_paged_attention_kernel<T, D, ROWS>
+  ragged_paged_attention_kernel<T, kD, ROWS>
       <<<grid, dsattn::kThreads, 0, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(kp),
           static_cast<const T*>(vp), static_cast<T*>(o), ctx, qlens, qoffs,
           sot, qot, tables, max_pages, H, Hkv, page_size, q_tile, scale);
-}
-
-// decode tiles (q_tile * group <= 4 rows) take the 4-row tile
-template <typename T, int D>
-void launch(const void* q, const void* kp, const void* vp, void* o,
-            const int* ctx, const int* qlens, const int* qoffs,
-            const int* sot, const int* qot, const int* tables, int n_tiles,
-            int max_pages, int H, int Hkv, int page_size, int q_tile,
-            float scale, cudaStream_t stream) {
-  if (q_tile * (H / Hkv) <= 4)
-    launch_rows<T, D, 4>(q, kp, vp, o, ctx, qlens, qoffs, sot, qot, tables,
-                         n_tiles, max_pages, H, Hkv, page_size, q_tile,
-                         scale, stream);
-  else
-    launch_rows<T, D, 16>(q, kp, vp, o, ctx, qlens, qoffs, sot, qot, tables,
-                          n_tiles, max_pages, H, Hkv, page_size, q_tile,
-                          scale, stream);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; D must be 128.  All metadata arrays
-// are int32 on the device.  Returns cudaGetLastError().
+// One call's launches.  q: packed [total_q, H, D]; pages [P, Hkv, page,
+// D]; o like q; dtype: 0 = float32, 1 = bfloat16; D must be 128.  All
+// metadata arrays are int32 on the device: ctx_lens / q_lens / q_offs [B],
+// block_tables [B, max_pages].  Decode form (n_dec > 0): dec_seqs [n_dec]
+// sequences of at most dec_rows = q_len * group <= 4 rows, their keys split
+// in n_split chunks of ``chunk`` keys (n_split * chunk >= max_pages *
+// page); with n_split > 1 ``part`` is fp32 scratch of n_dec * Hkv *
+// n_split * dec_rows * (D + 2) floats.  Prefill form (n_tiles > 0): tiles
+// seq_of_tile / qtile_of_tile [n_tiles] of q_tile tokens; tensor_cores = 1
+// takes the bf16 wgmma kernel (q_tile = 128 / group), 0 the CUDA-core one.
+// Returns cudaGetLastError().
 extern "C" int ds_ragged_paged_attention(
     const void* q, const void* k_pages, const void* v_pages, void* o,
     const void* ctx_lens, const void* q_lens, const void* q_offs,
-    const void* seq_of_tile, const void* qtile_of_tile, const void* tables,
-    int n_tiles, int max_pages, int H, int Hkv, int page_size, int q_tile,
-    int D, int dtype, float scale, void* stream) {
-  if (n_tiles <= 0 || Hkv <= 0 || H % Hkv != 0 || page_size <= 0 ||
-      q_tile <= 0 || max_pages <= 0 || Hkv > 65535 ||
-      (q_tile * (H / Hkv) + 3) / 4 > 65535)
+    const void* tables, const void* dec_seqs, void* part,
+    const void* seq_of_tile, const void* qtile_of_tile, int n_dec,
+    int dec_rows, int n_split, int chunk, int n_tiles, int q_tile,
+    int tensor_cores, int max_pages, int total_q, int P, int H, int Hkv,
+    int page_size, int D, int dtype, float scale, void* stream) {
+  if (n_dec < 0 || n_tiles < 0 || n_dec + n_tiles == 0 || Hkv <= 0 ||
+      H % Hkv != 0 || page_size <= 0 || max_pages <= 0 || Hkv > 65535 ||
+      D != kD || (dtype != 0 && dtype != 1) || n_dec > 65535)
     return (int)cudaErrorInvalidValue;
+  const int group = H / Hkv;
   const int* c = static_cast<const int*>(ctx_lens);
   const int* ql = static_cast<const int*>(q_lens);
   const int* qo = static_cast<const int*>(q_offs);
-  const int* st = static_cast<const int*>(seq_of_tile);
-  const int* qt = static_cast<const int*>(qtile_of_tile);
   const int* tb = static_cast<const int*>(tables);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DS_LAUNCH(T_, D_)                                                    \
-  launch<T_, D_>(q, k_pages, v_pages, o, c, ql, qo, st, qt, tb, n_tiles,      \
-                 max_pages, H, Hkv, page_size, q_tile, scale, s)
-  if (dtype == 0 && D == 128)
-    DS_LAUNCH(float, 128);
-  else if (dtype == 1 && D == 128)
-    DS_LAUNCH(__nv_bfloat16, 128);
-  else
+  if (n_dec > 0) {
+    if (dec_rows < 1 || dec_rows > dsdecode::kMaxRows || n_split <= 0 ||
+        n_split > 65535 || chunk <= 0 ||
+        (long long)n_split * chunk < (long long)max_pages * page_size ||
+        (n_split > 1 && part == nullptr))
+      return (int)cudaErrorInvalidValue;
+    dsdecode::SplitParams<PagedSeqs> p;
+    p.q = q;
+    p.k = k_pages;
+    p.v = v_pages;
+    p.o = o;
+    p.part = static_cast<float*>(part);
+    p.seqs = PagedSeqs{c, ql, qo, static_cast<const int*>(dec_seqs), tb,
+                       max_pages, page_size, H, Hkv};
+    p.Hkv = Hkv;
+    p.n_split = n_split;
+    p.chunk = chunk;
+    p.scale = scale;
+    const int rc =
+        dtype == 0 ? dsdecode::launch_rows<float>(p, n_dec, dec_rows, s)
+                   : dsdecode::launch_rows<__nv_bfloat16>(p, n_dec, dec_rows,
+                                                          s);
+    if (rc != 0) return rc < 0 ? -rc : rc;
+  }
+  if (n_tiles == 0) return (int)cudaGetLastError();
+  const int* sot = static_cast<const int*>(seq_of_tile);
+  const int* qot = static_cast<const int*>(qtile_of_tile);
+  if (tensor_cores) {
+    const int box_rows = page_size < tc::BN ? page_size : tc::BN;
+    if (dtype != 1 || 64 % group != 0 || q_tile != tc::BM / group ||
+        (page_size % tc::BN != 0 &&
+         (tc::BN % page_size != 0 || page_size % 8 != 0)))
+      return (int)cudaErrorInvalidValue;
+    PrefillParams p = {};
+    p.o = static_cast<__nv_bfloat16*>(o);
+    p.ctx = c;
+    p.q_lens = ql;
+    p.q_offs = qo;
+    p.tables = tb;
+    p.seq_of_tile = sot;
+    p.qtile_of_tile = qot;
+    p.max_pages = max_pages;
+    p.page = page_size;
+    p.box_rows = box_rows;
+    p.H = H;
+    p.Hkv = Hkv;
+    p.scale = scale;
+    return launch_prefill_tc(p, q, k_pages, v_pages, n_tiles, total_q, P, s);
+  }
+  if (q_tile <= 0 || (q_tile * group + 15) / 16 > 65535)
     return (int)cudaErrorInvalidValue;
-#undef DS_LAUNCH
-  return (int)cudaGetLastError();
+  return dtype == 0
+             ? launch_prefill_cores<float>(q, k_pages, v_pages, o, c, ql, qo,
+                                           sot, qot, tb, n_tiles, max_pages,
+                                           H, Hkv, page_size, q_tile, scale, s)
+             : launch_prefill_cores<__nv_bfloat16>(
+                   q, k_pages, v_pages, o, c, ql, qo, sot, qot, tb, n_tiles,
+                   max_pages, H, Hkv, page_size, q_tile, scale, s);
+}
+
+// Blocks of the decode form (rows <= 4 query rows per kv head) that the
+// current card holds at once; the wrapper sizes n_split by it.  Returns a
+// negative CUDA error code on failure.
+extern "C" int ds_ragged_decode_slots(int rows, int dtype) {
+  if (dtype == 0) return dsdecode::split_slots<float, PagedSeqs>(rows);
+  if (dtype == 1)
+    return dsdecode::split_slots<__nv_bfloat16, PagedSeqs>(rows);
+  return -(int)cudaErrorInvalidValue;
 }

@@ -4,13 +4,10 @@
 //
 // Replaces the TPU kernel deepspeed_tpu/ops/pallas/sparse_attention.py:
 // _sparse_kernel (host side sparse_attention_pallas and layout_tables).
-// Same arithmetic: the host turns the layout into counts [H, nb] and a
-// table [H, nb, max_active] of the set key blocks of each (head, q block)
-// (the upper triangle dropped when causal); the kernel walks count[h][qi]
-// entries of table[h][qi] with an fp32 online softmax (running max m, sum
-// l, accumulator acc; masked scores -1e30), and a row that sees no key --
-// a q block with no set block -- finalises to 0 (acc 0 / max(l, 1e-30)).
-// Forward only, as on the TPU.
+// Same arithmetic: an fp32 online softmax (running max m, sum l,
+// accumulator acc; masked scores -1e30) over the set key blocks of each
+// query block, and a row that sees no key finalises to 0.  Forward only,
+// as on the TPU.
 //
 // What bounds it on the H100: B * sparse_flops = 4 * set blocks * block^2
 // * D operations per batch row, on q, k, v and o read or written once.  At
@@ -19,18 +16,47 @@
 // both are below the ~295 flop/byte ridge in bf16, so the bytes bound
 // them, and the kernel's time should scale with the set blocks, not S^2.
 //
-// Design (first version: right before fast).  One block of 256 threads per
-// (q block, batch * head); the TPU grid's active-block axis is the loop
-// over the table inside the block, which loads the block's own indices
-// (the TPU's scalar prefetch).  Q, then each set K block and V block in
-// turn, sit in shared memory as fp32 with padded pitch; the two products
-// run on the CUDA cores in fp32 (flash_tile.cuh's products, thread (ty, tx)
-// = (tid / 16, tid % 16) owning rows ty + 16 i and columns tx + 16 j), so
-// every layout block (16, 32, 64, 128) and head dim (64, 128) is one
-// template.  Small blocks leave most of the 256 threads little work per
-// key block, and nothing here uses the tensor cores: wgmma tiles are
-// later work.
+// bf16: tensor cores fed by TMA.  The unit of work is a tile of 64 query
+// rows (wgmma's M): 64 / block q blocks at blocks 16 and 32, one q block
+// at 64, half of one at 128.  Its keys come 64 at a time (wgmma's N):
+// the host (ops/cuda/sparse_attention.py step_tables) takes the union of
+// the key blocks the tile's q blocks set and cuts it into steps of 64
+// keys -- four arbitrary set blocks at block 16, two at 32, one at 64,
+// half of one at 128 -- each with a pair mask of which q block sees which
+// slot.  A q block of a Fixed or BigBird layout shares most of its key
+// blocks with its neighbours (local windows, global columns), so the
+// union costs little: 8.8% more (q, k) work than the set blocks at
+// Fixed-16, none at BigBird-64, S=4096 (step_overhead).  Scores of pairs
+// the layout does not set, and above the diagonal when causal, are masked
+// to -1e30 inside the step; a step whose pairs are all set and all below
+// the diagonal (most steps of the global columns) skips the element mask.
+// One block of one warpgroup (128 threads) per (tile, b * h), the last
+// rows' tiles first (with a causal layout, the tiles with the most steps).  Thread 0 loads the Q tile once and each step's
+// K and V by TMA, one 64-column box per gathered block (16 rows at block
+// 16: 2 KB boxes, which land in the 128-byte swizzle exactly as one
+// 64-row box would, since every box starts on a 1024-byte atom), one step
+// ahead through a two-stage ring (an mbarrier per stage each way).  The
+// warpgroup runs S = Q K^T (wgmma m64n64, both operands K-major from the
+// swizzled tiles), the online softmax on the accumulator registers (one
+// ex2.approx per score, as the flash forward), then O += P V with P
+// rounded to bf16 in registers as the A operand and V read transposed
+// (m64n64 or m64n128 by D).  wgmma rather than mma.sync: with the keys
+// gathered into 64-key steps, every layout block gives wgmma its full
+// 64 x 64 tile, and one instruction shape serves all four blocks.  A
+// single warpgroup with no producer warp keeps a block at 41 KB (D=64) or
+// 82 KB (D=128) of shared memory and ~130 registers a thread, so two to
+// four blocks share an SM and one block's loads hide under another's
+// products.
+//
+// fp32 stays on the CUDA cores, selected by dtype in the C entry: one
+// block of 256 threads per (q block, b * h) walks counts[h][qi] entries of
+// table[h][qi] (layout_tables: the set key blocks of each q block, the
+// upper triangle dropped when causal), Q and each set K and V block staged
+// in shared memory as fp32, both products in fp32 (flash_tile.cuh's
+// products), so every block (16-128) and head dim (64, 128) is one
+// template and the fp32 checks hold it to 1e-4 of the plain version.
 #include "flash_tile.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -188,6 +214,264 @@ sparse_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---- bf16: tensor cores -------------------------------------------------
+
+namespace tc {
+constexpr int BM = 64;          // query rows of a tile
+constexpr int BN = 64;          // keys of a step
+constexpr int kThreads = 128;   // one warpgroup
+constexpr int kStages = 2;
+constexpr int kWidth = 8;       // int32 words of a step (STEP_WIDTH)
+constexpr int kEdge = 1 << 16;  // EDGE_BIT: the step needs the element mask
+constexpr int kHalf = BM * hopper::kBoxCols * 2;   // one 64-column box
+template <int D>
+struct Smem {
+  static constexpr int kTile = BM * D * 2;         // a Q, K or V tile
+  // Q, then kStages x (K, V), then the barriers: Q's, full[], empty[]
+  static constexpr int kBarOffset = kTile + kStages * 2 * kTile;
+  static constexpr size_t kBytes = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
+};
+}  // namespace tc
+
+struct TcParams {
+  CUtensorMap q_map, k_map, v_map;
+  __nv_bfloat16* o;
+  const int* counts;   // [H, n_tiles] steps of each tile
+  const int* starts;   // [H, n_tiles] its first step
+  const int* steps;    // [n, kWidth]: pair mask | edge, key row of each slot
+  int S, H, n_tiles, causal;
+  float scale;
+};
+
+template <int BLOCK, int D>
+__global__ void __launch_bounds__(tc::kThreads)
+sparse_tc_kernel(const __grid_constant__ TcParams p) {
+  using namespace hopper;
+  using namespace tc;
+  constexpr int UNIT = BLOCK < BN ? BLOCK : BN;   // key rows of a slot
+  constexpr int SLOTS = BN / UNIT;
+  constexpr int kTile = Smem<D>::kTile;
+  extern __shared__ __align__(16) unsigned char raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* q_s = base;
+  unsigned char* kv_s = base + kTile;
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(base + Smem<D>::kBarOffset);
+  uint64_t* full = q_bar + 1;
+  uint64_t* empty = full + kStages;
+
+  const int tile = p.n_tiles - 1 - blockIdx.x;   // last rows first
+  const int bh = blockIdx.y, h = bh % p.H, b = bh / p.H;
+  const int q0 = tile * BM, t = threadIdx.x;
+  const int n_steps = p.counts[h * p.n_tiles + tile];
+  const int* steps = p.steps + (long long)kWidth * p.starts[h * p.n_tiles + tile];
+
+  if (t == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], tc::kThreads);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // K and V of step it -> its stage, one box per slot and 64 columns
+  auto issue = [&](int it) {
+    const int st = it % kStages;
+    mbar_wait(&empty[st], ((it / kStages) & 1) ^ 1);   // released by it - 2
+    unsigned char* k_t = kv_s + st * 2 * kTile;
+    mbar_arrive_expect_tx(&full[st], 2 * kTile);
+#pragma unroll
+    for (int j = 0; j < SLOTS; ++j) {
+      const int row = __ldg(steps + kWidth * it + 1 + j);
+#pragma unroll
+      for (int c = 0; c < D / kBoxCols; ++c) {
+        unsigned char* dst = k_t + c * kHalf + j * UNIT * 128;
+        tma_load_4d(dst, &p.k_map, &full[st], c * kBoxCols, h, row, b);
+        tma_load_4d(dst + kTile, &p.v_map, &full[st], c * kBoxCols, h, row,
+                    b);
+      }
+    }
+  };
+  if (t == 0) {
+    mbar_arrive_expect_tx(q_bar, kTile);
+#pragma unroll
+    for (int c = 0; c < D / kBoxCols; ++c)
+      tma_load_4d(q_s + c * kHalf, &p.q_map, q_bar, c * kBoxCols, h, q0, b);
+    if (n_steps > 0) issue(0);
+  }
+  __syncwarp();
+
+  // this thread's two rows: their positions and q block in the tile
+  int qpos[2], qi[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = acc_row(2 * r, t);
+    qpos[r] = q0 + row;
+    qi[r] = BLOCK < BM ? row / BLOCK : 0;
+  }
+  const float scale = p.scale;
+  const uint32_t q_addr = smem_u32(q_s);
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};   // l: this lane's share
+
+  mbar_wait(q_bar, 0);
+  for (int it = 0; it < n_steps; ++it) {
+    const int st = it % kStages;
+    if (t == 0 && it + 1 < n_steps) issue(it + 1);
+    __syncwarp();
+    const int* sp = steps + kWidth * it;
+    const int mask = __ldg(sp);
+    int kstart[SLOTS];
+#pragma unroll
+    for (int j = 0; j < SLOTS; ++j) kstart[j] = __ldg(sp + 1 + j);
+    mbar_wait(&full[st], (it / kStages) & 1);
+    const uint32_t k_addr = smem_u32(kv_s) + st * 2 * kTile;
+    const uint32_t v_addr = k_addr + kTile;
+
+    float s[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kHalf + (kk % 4) * 32;
+      wgmma_ss_n64(s, desc_kmajor(q_addr + off), desc_kmajor(k_addr + off),
+                   kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    const bool edge = mask & kEdge;
+    float mx[2] = {kNeg, kNeg};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i / 2) % 2;
+      float x = __fmul_rn(s[i], scale);
+      if (edge) {
+        // the column's slot is fixed by i alone (a slot is >= 16 columns,
+        // the lane's offset in its 8-column group < 8): kstart stays in
+        // registers
+        const int j = (8 * (i / 4)) / UNIT;
+        const int col = acc_col(i, t);
+        bool ok = (mask >> (qi[r] * SLOTS + j)) & 1;
+        if (p.causal) ok = ok && kstart[j] + col - j * UNIT <= qpos[r];
+        if (!ok) x = kNeg;
+      }
+      s[i] = x;
+      mx[r] = fmaxf(mx[r], x);
+    }
+    float corr[2], ml[2];   // ml: m * log2(e), the exponents' offset
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // a row that has seen no key yet keeps m = -1e30; its exponents are
+      // taken from 0, so its masked scores give exactly 0
+      const float m_new = fmaxf(m[r], mx[r]);
+      ml[r] = m_new <= kNeg / 2 ? 0.f : m_new * kLog2e;
+      corr[r] = ex2(fmaf(m[r], kLog2e, -ml[r]));
+      m[r] = m_new;
+      l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i / 2) % 2;
+      const float pr = ex2(fmaf(s[i], kLog2e, -ml[r]));
+      l[r] += pr;
+      s[i] = pr;
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i / 2) % 2];
+    uint32_t pa[16];
+    acc_to_a(s, pa);
+    fence_regs(o);
+    fence_regs(pa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                             pa[4 * kk + 3]};
+      const uint64_t desc = desc_mnmajor(v_addr + kk * 2048, kHalf);
+      if constexpr (D == 128)
+        wgmma_rs_n128(o, a, desc);
+      else
+        wgmma_rs_n64(o, a, desc);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pa);
+    mbar_arrive(&empty[st]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    if (qpos[r] >= p.S) continue;
+    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    uint32_t* orow = reinterpret_cast<uint32_t*>(
+        p.o + (((long long)b * p.S + qpos[r]) * p.H + h) * D);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      orow[(8 * j + 2 * (t % 4)) / 2] =
+          pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+  }
+}
+
+template <int BLOCK, int D>
+int launch_tc(const TcParams& p, int B, cudaStream_t stream) {
+  constexpr size_t smem = tc::Smem<D>::kBytes;
+  // once per instantiation, before any graph capture can be running
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      sparse_tc_kernel<BLOCK, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
+  sparse_tc_kernel<BLOCK, D>
+      <<<dim3(p.n_tiles, B * p.H), tc::kThreads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// q/k/v/o bf16 [B, S, H, D]: tensor maps (Q by 64-row tiles, K and V by
+// slots of min(block, 64) rows), then the launch by block and D.
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                const void* counts, const void* starts, const void* steps,
+                int B, int S, int H, int D, int block, int causal,
+                float scale, cudaStream_t stream) {
+  TcParams p = {};
+  const int unit = block < tc::BN ? block : tc::BN;
+  int rc = hopper::make_head_map(&p.q_map, q, B, S, H, tc::BM, D);
+  if (!rc) rc = hopper::make_head_map(&p.k_map, k, B, S, H, unit, D);
+  if (!rc) rc = hopper::make_head_map(&p.v_map, v, B, S, H, unit, D);
+  if (rc) return rc;
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.counts = static_cast<const int*>(counts);
+  p.starts = static_cast<const int*>(starts);
+  p.steps = static_cast<const int*>(steps);
+  p.S = S;
+  p.H = H;
+  p.n_tiles = (S + tc::BM - 1) / tc::BM;
+  p.causal = causal;
+  p.scale = scale;
+#define DS_TC(BLK)                                                    \
+  case BLK:                                                           \
+    return D == 64 ? launch_tc<BLK, 64>(p, B, stream)                 \
+                   : launch_tc<BLK, 128>(p, B, stream);
+  switch (block) {
+    DS_TC(16)
+    DS_TC(32)
+    DS_TC(64)
+    DS_TC(128)
+  }
+#undef DS_TC
+  return (int)cudaErrorInvalidValue;
+}
+
+// ---- fp32: launch by block and D ----------------------------------------
+
 template <typename T, int BLOCK, int D>
 int launch(const void* q, const void* k, const void* v, void* o,
            const void* counts, const void* table, int B, int S, int H,
@@ -246,24 +530,27 @@ int launch_dim(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q/k/v/o: [B, S, H, D], one dtype (0 = float32, 1 = bfloat16), D 64 or
-// 128; counts: int32 [H, S / block]; table: int32 [H, S / block,
-// max_active]; block 16, 32, 64 or 128 and S a multiple of it.  Returns
+// 128; block 16, 32, 64 or 128 and S a multiple of it.  float32 reads
+// layout_tables: counts int32 [H, S / block], table int32 [H, S / block,
+// max_active]; bfloat16 reads step_tables: step_counts and step_starts
+// int32 [H, ceil(S / 64)], steps int32 [n, 8].  Returns
 // cudaGetLastError().
 extern "C" int ds_sparse_attention(const void* q, const void* k,
                                    const void* v, void* o, const void* counts,
-                                   const void* table, int B, int S, int H,
-                                   int D, int block, int max_active,
-                                   int causal, int dtype, float scale,
-                                   void* stream) {
+                                   const void* table, const void* step_counts,
+                                   const void* step_starts, const void* steps,
+                                   int B, int S, int H, int D, int block,
+                                   int max_active, int causal, int dtype,
+                                   float scale, void* stream) {
   if (B <= 0 || H <= 0 || block <= 0 || S <= 0 || S % block != 0 ||
-      max_active <= 0 || (long long)B * H > 65535)
+      max_active <= 0 || (long long)B * H > 65535 || (D != 64 && D != 128))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_dim<float>(q, k, v, o, counts, table, B, S, H, D, block,
                              max_active, causal, scale, s);
   if (dtype == 1)
-    return launch_dim<__nv_bfloat16>(q, k, v, o, counts, table, B, S, H, D,
-                                     block, max_active, causal, scale, s);
+    return launch_bf16(q, k, v, o, step_counts, step_starts, steps, B, S, H,
+                       D, block, causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -28,7 +28,7 @@ HEAD_DIMS = (128,)   # the kernels are built for head_dim 128 only
 # several.
 DECODE_ROWS = 4
 DECODE_MIN_CHUNK = 512
-_slots = {}   # (device index, rows, dtype code) -> blocks the card holds
+_slots = {}   # (entry, device index, rows, dtype code) -> blocks held
 
 
 def _lengths_tensor(lengths, B, device):
@@ -69,28 +69,36 @@ def decode_attention_plain(q, k, v, lengths, softmax_scale=None):
 decode_attention_plain.calls = 0
 
 
-def decode_splits(B, T, H, Hkv, S_max, slots):
-    """(chunks per sequence, keys per chunk) of a launch.  The decode form
-    splits each sequence's keys only as far as its B * Hkv sequences'
-    blocks still fit the ``slots`` blocks the card holds at once (one wave:
-    a second would run on a part of the card), in chunks of at least
-    DECODE_MIN_CHUNK keys rounded up to 64; the prefill form takes one."""
-    if T * (H // Hkv) > DECODE_ROWS:
-        return 1, max(S_max, 1)
-    n = max(1, min(slots // (B * Hkv), S_max // DECODE_MIN_CHUNK))
+def key_splits(pairs, S_max, slots):
+    """(chunks per sequence, keys per chunk) of the split-key decode body
+    (``ops/csrc/split_decode.cuh``) over ``pairs`` (sequence, kv head)
+    pairs of up to S_max keys: each sequence's keys split only as far as
+    the pairs' blocks still fit the ``slots`` blocks the card holds at once
+    (one wave: a second would run on a part of the card), in chunks of at
+    least DECODE_MIN_CHUNK keys rounded up to 64."""
+    n = max(1, min(slots // max(pairs, 1), S_max // DECODE_MIN_CHUNK))
     chunk = -(-max(S_max, 1) // n)
     chunk = -(-chunk // 64) * 64
     return -(-max(S_max, 1) // chunk), chunk
 
 
-def _decode_slots(device, rows, dtype_code):
-    """Blocks of the decode form the card holds at once (its occupancy
-    query), cached per device, row count and dtype."""
+def decode_splits(B, T, H, Hkv, S_max, slots):
+    """(chunks per sequence, keys per chunk) of a launch: the decode form
+    (:func:`key_splits` over B * Hkv pairs); the prefill form takes one."""
+    if T * (H // Hkv) > DECODE_ROWS:
+        return 1, max(S_max, 1)
+    return key_splits(B * Hkv, S_max, slots)
+
+
+def _decode_slots(device, rows, dtype_code, entry="decode_attention_slots"):
+    """Blocks of a split-key decode kernel the card holds at once (the
+    occupancy query of C entry ``entry``), cached per entry, device, row
+    count and dtype."""
     index = torch.device(device).index
-    key = (torch.cuda.current_device() if index is None else index, rows,
-           dtype_code)
+    key = (entry, torch.cuda.current_device() if index is None else index,
+           rows, dtype_code)
     if key not in _slots:
-        slots = op_builder.load("decode_attention_slots")(rows, dtype_code)
+        slots = op_builder.load(entry)(rows, dtype_code)
         if slots <= 0:
             raise RuntimeError(f"decode attention occupancy query failed: "
                                f"CUDA error {-slots}")

@@ -37,9 +37,12 @@ SIGNATURES = {
                          [_P] * 6 + [_I] * 10 + [_F, _P]),
     "decode_attention_slots": ("decode_attention",
                                "ds_decode_attention_slots", [_I, _I]),
+    # one call launches the decode form, the prefill form or both
     "ragged_paged_attention": ("ragged_paged_attention",
                                "ds_ragged_paged_attention",
-                               [_P] * 10 + [_I] * 8 + [_F, _P]),
+                               [_P] * 12 + [_I] * 15 + [_F, _P]),
+    "ragged_decode_slots": ("ragged_paged_attention",
+                            "ds_ragged_decode_slots", [_I, _I]),
     # the flash entries take the biased kernels' ALiBi slopes (a pointer,
     # null for none) and sliding window (an int, <= 0 for none) as well
     "flash_attention_fwd": ("flash_attention_fwd", "ds_flash_attention_fwd",
@@ -52,8 +55,10 @@ SIGNATURES = {
                                 [_P] * 9 + [_I] * 8 + [_F, _P]),
     "fused_adam": ("fused_adam", "ds_fused_adam",
                    [_P] * 4 + [_L, _I, _I] + [_F] * 9 + [_P]),
+    # the block-sparse entry takes both forms' tables: the fp32 form's
+    # (counts, table) and the bf16 form's (counts, starts, steps)
     "sparse_attention": ("sparse_attention", "ds_sparse_attention",
-                         [_P] * 6 + [_I] * 8 + [_F, _P]),
+                         [_P] * 9 + [_I] * 8 + [_F, _P]),
 }
 
 _lock = threading.Lock()

@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from deepspeed_tpu_torch.ops.cuda.sparse_attention import (
-    card_tables, sparse_attention_cuda)
+    card_steps, card_tables, sparse_attention_cuda)
 from deepspeed_tpu_torch.ops.decode_attention import (resolve_backend,
                                                       validate_backend)
 from deepspeed_tpu_torch.ops.sparse_attention.sparsity_config import (
@@ -82,16 +82,17 @@ sparse_attention_plain.calls = 0
 def sparse_attention(q, k, v, layout: np.ndarray, block: int,
                      causal: bool = False,
                      softmax_scale: Optional[float] = None,
-                     key_padding_mask=None, backend="auto", tables=None):
+                     key_padding_mask=None, backend="auto", tables=None,
+                     steps=None):
     """Block-sparse attention.  q/k/v: [B, S, H, D]; layout [H, nb, nb].
 
     ``backend``: "auto" (the kernel for CUDA tensors, the plain version
     for CPU tensors), "cuda" or "plain".  Inputs with a
     ``key_padding_mask`` take the plain version on any device (the JAX
     package's rule); ``backend="cuda"`` raises for them, and for a length
-    that does not tile by ``block``, which no path takes.  ``tables``: the
-    layout's ``card_tables`` already on the card, for the kernel (made per
-    call when None)."""
+    that does not tile by ``block``, which no path takes.  ``tables`` /
+    ``steps``: the layout's ``card_tables`` (fp32 kernel) / ``card_steps``
+    (bf16 kernel) already on the card (made per call when None)."""
     backend = validate_backend(backend)
     S = q.shape[1]
     kernel_ok = key_padding_mask is None and S % block == 0
@@ -106,7 +107,7 @@ def sparse_attention(q, k, v, layout: np.ndarray, block: int,
     if resolve_backend(backend, q) == "cuda":
         return sparse_attention_cuda(q, k, v, layout, block, causal=causal,
                                      softmax_scale=softmax_scale,
-                                     tables=tables)
+                                     tables=tables, steps=steps)
     return sparse_attention_plain(q, k, v, layout, block, causal=causal,
                                   softmax_scale=softmax_scale)
 
@@ -114,8 +115,9 @@ def sparse_attention(q, k, v, layout: np.ndarray, block: int,
 class SparseSelfAttention:
     """Parity surface of the reference's ``sparse_self_attention.py``:
     layouts from ``sparsity_config``, cached per sequence length, and the
-    kernel's tables beside them, uploaded once per (length, causal,
-    device).  ``backend`` as in :func:`sparse_attention`."""
+    kernel's tables beside them (``card_tables`` for fp32 inputs,
+    ``card_steps`` for bf16), uploaded once per (length, causal, device,
+    form).  ``backend`` as in :func:`sparse_attention`."""
 
     def __init__(self, sparsity_config: Optional[SparsityConfig] = None,
                  key_padding_mask_mode: str = "add",
@@ -141,17 +143,20 @@ class SparseSelfAttention:
             causal = getattr(sc, "attention", "bidirectional") == \
                 "unidirectional"
         S = q.shape[1]
-        layout, tables = self.get_layout(S), None
+        layout, tables = self.get_layout(S), {}
         if self.backend != "plain" and q.is_cuda and \
                 key_padding_mask is None and S % sc.block == 0:
-            key = (S, bool(causal), q.device)
+            fp32 = q.dtype == torch.float32
+            key = (S, bool(causal), q.device, fp32)
             if key not in self._table_cache:
-                self._table_cache[key] = card_tables(layout, causal,
-                                                     q.device)
+                self._table_cache[key] = (
+                    {"tables": card_tables(layout, causal, q.device)} if fp32
+                    else {"steps": card_steps(layout, sc.block, causal,
+                                              q.device)})
             tables = self._table_cache[key]
         return sparse_attention(q, k, v, layout, sc.block, causal=causal,
                                 key_padding_mask=key_padding_mask,
-                                backend=self.backend, tables=tables)
+                                backend=self.backend, **tables)
 
     forward = __call__
 

@@ -4,17 +4,47 @@ Counterpart of ``deepspeed_tpu/runtime/config.py``, reading the same JSON
 keys: the batch triangle ``train_batch_size = micro * gas * world`` (world
 is 1 here), ``optimizer`` {type, params}, ``bf16.enabled``,
 ``gradient_clipping``, ``seed``, ``steps_per_print`` and
-``zero_optimization``.  Every enabled block the port does not run yet
-raises ``NotImplementedError`` naming its ROADMAP item; other unknown
-top-level keys are ignored, as the JAX package ignores them.
+``zero_optimization``.  Every block the JAX engine acts on and the port
+does not run yet raises ``NotImplementedError`` naming its ROADMAP item,
+when it is enabled or non-empty; the keys the JAX config accepts and
+leaves inert pass silently; any other top-level key logs a warning with
+a "did you mean" hint, as the JAX config's ``_warn_unknown_keys`` does.
 """
 
+import difflib
 import json
+import math
 import os
 from typing import Any, Dict, Union
 
 from deepspeed_tpu_torch.runtime import constants as C
 from deepspeed_tpu_torch.runtime.zero.config import DeepSpeedZeroConfig
+from deepspeed_tpu_torch.utils.logging import logger
+
+# every top-level key the JAX config understands
+# (deepspeed_tpu/runtime/config.py _KNOWN_TOP_LEVEL_KEYS): the port reads
+# some, refuses others in _refuse_unported, and accepts the rest as inert
+KNOWN_TOP_LEVEL_KEYS = frozenset({
+    C.TRAIN_BATCH_SIZE, C.TRAIN_MICRO_BATCH_SIZE_PER_GPU,
+    C.GRADIENT_ACCUMULATION_STEPS, C.OPTIMIZER, C.SCHEDULER, C.FP16,
+    C.BFLOAT16, C.BFLOAT16_OLD, C.AMP, C.GRADIENT_CLIPPING,
+    C.PRESCALE_GRADIENTS, C.GRADIENT_PREDIVIDE_FACTOR, C.STEPS_PER_PRINT,
+    C.WALL_CLOCK_BREAKDOWN, C.DUMP_STATE, C.SPARSE_GRADIENTS,
+    C.ZERO_OPTIMIZATION, C.COMMS_LOGGER, C.COMM, C.MESH,
+    C.ACTIVATION_CHECKPOINTING, C.FLOPS_PROFILER, C.MONITOR_TENSORBOARD,
+    C.MONITOR_WANDB, C.MONITOR_CSV, C.TELEMETRY, C.ASYNC_PIPELINE,
+    C.RESILIENCE, C.DATA_EFFICIENCY, C.CURRICULUM_LEARNING_LEGACY,
+    C.CHECKPOINT, C.ELASTICITY, C.COMPRESSION_TRAINING, C.PIPELINE, C.SEED,
+    C.ZERO_ALLOW_UNTESTED_OPTIMIZER, C.EIGENVALUE, C.PROGRESSIVE_LAYER_DROP,
+    C.AUTOTUNING, "serving", C.MEMORY, "gradient_accumulation_dtype",
+    "communication_data_type", "memory_breakdown", C.DATA_TYPES, "nebula",
+    "disable_allgather", "zero_force_ds_cpu_optimizer", "sparse_attention",
+    "autotuning_model_overrides",
+})
+
+# mesh axes wider than one rank -> the ROADMAP item that ports them
+_MESH_ITEMS = {"dp": "A8", "fsdp": "A8", "tp": "A14", "ep": "A14",
+               "pp": "A14", "sp": "A15"}
 
 
 class DeepSpeedConfigError(Exception):
@@ -29,6 +59,25 @@ class OptimizerConfig:
 
 def _enabled(block) -> bool:
     return bool(isinstance(block, dict) and block.get("enabled", False))
+
+
+def _set(block) -> bool:
+    """A block asks for something: enabled, or a non-empty block without
+    an ``enabled`` switch."""
+    if isinstance(block, dict) and "enabled" in block:
+        return bool(block["enabled"])
+    return bool(block)
+
+
+def _refuse_mesh(mesh):
+    if not isinstance(mesh, dict):
+        return
+    wide = {k: v for k, v in mesh.items() if isinstance(v, int) and v > 1}
+    if math.prod(wide.values()) > 1:
+        items = sorted({_MESH_ITEMS.get(k, "A14") for k in wide})
+        raise NotImplementedError(
+            f"mesh {wide}: a mesh wider than one rank is not ported yet "
+            f"(ROADMAP {', '.join(items)})")
 
 
 def _refuse_unported(pd):
@@ -47,6 +96,25 @@ def _refuse_unported(pd):
             "preemption_handler", "divergence_sentinel", "fault_injection")),
          "resilience (preemption, divergence sentinel, fault injection)",
          "A10"),
+        (_set(pd.get(C.CURRICULUM_LEARNING_LEGACY)), "curriculum_learning",
+         "A17"),
+        (_set(pd.get(C.DATA_EFFICIENCY)), "data_efficiency", "A17"),
+        (_set(pd.get(C.PROGRESSIVE_LAYER_DROP)), "progressive_layer_drop",
+         "A17"),
+        (_set(pd.get(C.EIGENVALUE)), "eigenvalue", "A17"),
+        (_set(pd.get(C.FLOPS_PROFILER)), "flops_profiler", "A17"),
+        (any(_set(pd.get(k)) for k in (C.MONITOR_TENSORBOARD,
+                                       C.MONITOR_WANDB, C.MONITOR_CSV)),
+         "monitors (tensorboard, wandb, csv_monitor)", "A17"),
+        (_set(pd.get(C.COMMS_LOGGER)), "comms_logger", "A17"),
+        (_set(pd.get(C.ELASTICITY)), "elasticity", "A17"),
+        (bool((pd.get(C.AUTOTUNING) or {}).get("overlay_path")),
+         "autotuning.overlay_path (the tuned overlay)", "A17"),
+        (_set(pd.get(C.ACTIVATION_CHECKPOINTING)), "activation_checkpointing",
+         "A6"),
+        (_set(pd.get(C.MEMORY)), "the tiered memory block (memory)", "A12"),
+        (bool((pd.get(C.CHECKPOINT) or {}).get(C.LOAD_UNIVERSAL_CHECKPOINT)),
+         "checkpoint.load_universal", "A10"),
     ]
     for on, what, item in blocks:
         if on:
@@ -57,6 +125,17 @@ def _refuse_unported(pd):
         raise NotImplementedError(
             f"data_types.grad_accum_dtype {accum!r}: only fp32 gradient "
             f"accumulation is ported (ROADMAP A7)")
+    _refuse_mesh(pd.get(C.MESH))
+
+
+def _warn_unknown_keys(pd):
+    """One warning per top-level key no config of either package reads,
+    with the nearest known key as a hint."""
+    for k in sorted(k for k in pd if k not in KNOWN_TOP_LEVEL_KEYS):
+        close = difflib.get_close_matches(k, KNOWN_TOP_LEVEL_KEYS, n=1)
+        hint = f" (did you mean '{close[0]}'?)" if close else ""
+        logger.warning(f"config key '{k}' is not recognized and will be "
+                       f"ignored{hint}")
 
 
 class DeepSpeedConfig:
@@ -73,6 +152,7 @@ class DeepSpeedConfig:
             raise DeepSpeedConfigError(
                 f"Expected a dict or json path, got {type(config)}")
         _refuse_unported(pd)
+        _warn_unknown_keys(pd)
         self.world_size = int(world_size)
 
         self.train_batch_size = pd.get(C.TRAIN_BATCH_SIZE)

@@ -38,3 +38,32 @@ TELEMETRY = "telemetry"
 
 SEED = "seed"
 SEED_DEFAULT = 42
+
+# blocks the JAX engine acts on and the port refuses (runtime/config.py)
+CURRICULUM_LEARNING_LEGACY = "curriculum_learning"
+DATA_EFFICIENCY = "data_efficiency"
+PROGRESSIVE_LAYER_DROP = "progressive_layer_drop"
+EIGENVALUE = "eigenvalue"
+FLOPS_PROFILER = "flops_profiler"
+MONITOR_TENSORBOARD = "tensorboard"
+MONITOR_WANDB = "wandb"
+MONITOR_CSV = "csv_monitor"
+COMMS_LOGGER = "comms_logger"
+ELASTICITY = "elasticity"
+AUTOTUNING = "autotuning"
+ACTIVATION_CHECKPOINTING = "activation_checkpointing"
+MEMORY = "memory"
+CHECKPOINT = "checkpoint"
+LOAD_UNIVERSAL_CHECKPOINT = "load_universal"
+MESH = "mesh"
+
+# top-level keys the JAX config accepts and leaves inert (or that only a
+# serving engine reads): accepted silently here too
+AMP = "amp"
+PRESCALE_GRADIENTS = "prescale_gradients"
+GRADIENT_PREDIVIDE_FACTOR = "gradient_predivide_factor"
+WALL_CLOCK_BREAKDOWN = "wall_clock_breakdown"
+DUMP_STATE = "dump_state"
+SPARSE_GRADIENTS = "sparse_gradients"
+COMM = "comm"
+ZERO_ALLOW_UNTESTED_OPTIMIZER = "zero_allow_untested_optimizer"

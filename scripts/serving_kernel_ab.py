@@ -1,0 +1,227 @@
+#!/usr/bin/env python3
+"""A/B of two trees' block-sparse (B6) and ragged paged-attention (B4)
+kernels on one card, in one run: parent, change, change, parent.
+
+    git archive <parent> | tar -x -C .tmp/parent     # .tmp is gitignored
+    python3 scripts/serving_kernel_ab.py --parent .tmp/parent \\
+        [--change .] [--out results.json]
+
+Each tree runs in a process of its own (the two trees' wrappers differ),
+which puts the tree first on ``sys.path``, builds its ``sparse_attention``,
+``ragged_paged_attention`` and ``flash_attention_fwd`` sources with its own
+op builder, and times, by CUDA-graph replay over rotating input sets (more
+than the 50 MB L2), bf16, at the main paths' shapes of ``chip_smoke.py``:
+
+* B4 decode: the serve run's 8-slot decode step (Llama-2-7B, 32 heads of
+  128, page 128), MHA and GQA 32/8;
+* B4 prefill: the serve run's bucketed prefills at 512 and 1024 (B=1,
+  length = bucket), and B1's forward (``flash_attention_fwd_cuda``) on
+  the same q and dense K/V -- the same work;
+* B6: ``SparseSelfAttention``'s four cases (Fixed block 16 and BigBird
+  block 64, head dims 64 and 128, B=2, S=4096, 16 heads).
+
+Beside each: SDPA on the same inputs (a yardstick, never the port's
+path), and the kernel's max abs error against its plain version run in
+fp32.  Prints one line per (tree, case) and writes every number, with
+the card's name and power limit, to ``--out`` (default, gitignored:
+``deepspeed_tpu_torch/_build/ab_serving.json``).
+"""
+
+import argparse
+import importlib.util
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCES = ("sparse_attention", "ragged_paged_attention", "flash_attention_fwd")
+
+
+def _smoke():
+    """This checkout's chip_smoke.py, loaded by path: its helpers import
+    ``deepspeed_tpu_torch`` only when called, so they use the tree first
+    on sys.path."""
+    spec = importlib.util.spec_from_file_location(
+        "ab_chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def worker(tree):
+    """Times one tree's kernels; prints one JSON line of results."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+    import torch.nn.functional as F
+    import deepspeed_tpu_torch
+    if os.path.dirname(os.path.abspath(deepspeed_tpu_torch.__file__)) != \
+            os.path.join(os.path.abspath(tree), "deepspeed_tpu_torch"):
+        sys.exit(f"imported {deepspeed_tpu_torch.__file__}, not {tree}")
+    from deepspeed_tpu_torch.ops import op_builder
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    from deepspeed_tpu_torch.ops.cuda import sparse_attention as spa
+    from deepspeed_tpu_torch.ops.cuda.flash_attention import \
+        flash_attention_fwd_cuda
+    from deepspeed_tpu_torch.ops.cuda.ragged_paged_attention import (
+        paged_attention_plain, ragged_paged_attention_rect)
+    sm = _smoke()
+    t0 = time.time()
+    op_builder.build(tuple(n for n in op_builder.SIGNATURES
+                           if op_builder.SIGNATURES[n][0] in SOURCES))
+    build_s = time.time() - t0
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    bf = torch.bfloat16
+    H, D = 32, 128
+    res = {}
+
+    def err(got, exact):
+        return (got.float() - exact).abs().max().item()
+
+    # B4 decode: 8 slots, the serve run's first 8 prompts 16 tokens in
+    prompts = sm.SERVE_PROMPTS[:sm.SERVE_SLOTS]
+    ctx = [p + 16 for p in prompts]
+    lens = torch.tensor(ctx, dtype=torch.int32, device="cuda")
+    for Hkv in (32, 8):
+        c = 4
+        states = [sm._engine_state([p + sm.SERVE_NEW for p in prompts], Hkv,
+                                   D, bf, gen) for _ in range(c)]
+        q = sm._rand((c, len(ctx), 1, H, D), bf, gen)
+        tb, kp, vp = states[0]
+        e = err(ragged_paged_attention_rect(q[0], kp, vp, tb, lens),
+                paged_attention_plain(q[0].float(), kp.float(), vp.float(),
+                                      tb, lens))
+        Smax = tb.shape[1] * sm.SERVE_PAGE
+        dense = [tuple(x[t.long()].transpose(1, 2).reshape(
+            len(ctx), Hkv, Smax, D) for x in (k_, v_))
+            for t, k_, v_ in states]
+        mask = (torch.arange(Smax, device="cuda")[None] <
+                lens[:, None].long())[:, None, None]
+        qs = q.transpose(2, 3).contiguous()
+        ms = sm.graph_ms(lambda i: ragged_paged_attention_rect(
+            q[i], states[i][1], states[i][2], states[i][0], lens), c)
+        lib = sm.graph_ms(lambda i: F.scaled_dot_product_attention(
+            qs[i], dense[i][0], dense[i][1], attn_mask=mask,
+            enable_gqa=Hkv != H), c)
+        nbytes = sum(2 * Hkv * n * D + 2 * H * D for n in ctx) * 2
+        res[f"B4 decode 8 slots H32/{Hkv}"] = dict(
+            ms=ms, sdpa_ms=lib, bound_ms=nbytes / sm.HBM_BYTES_PER_S * 1e3,
+            max_abs_err=e)
+        del states, dense, q, qs
+
+    # B4 prefill at the serve run's buckets 512 and 1024, and B1 on the
+    # same work
+    for prompt in (511, 600):
+        bucket, need = sm._prefill_need(prompt)
+        c = 4
+        states = [sm._engine_state([need], 32, D, bf, gen) for _ in range(c)]
+        blen = torch.tensor([bucket], dtype=torch.int32, device="cuda")
+        q = sm._rand((c, 1, bucket, H, D), bf, gen)
+        tb, kp, vp = states[0]
+        e = err(ragged_paged_attention_rect(q[0], kp, vp, tb, blen),
+                paged_attention_plain(q[0].float(), kp.float(), vp.float(),
+                                      tb, blen))
+        dense = [tuple(x[t.long()].transpose(1, 2).reshape(1, 32, -1, D)
+                       [:, :, :bucket].contiguous() for x in (k_, v_))
+                 for t, k_, v_ in states]
+        kb1 = [tuple(x.transpose(1, 2).contiguous() for x in kv)
+               for kv in dense]
+        qs = q.transpose(2, 3).contiguous()
+        ms = sm.graph_ms(lambda i: ragged_paged_attention_rect(
+            q[i], states[i][1], states[i][2], states[i][0], blen), c)
+        b1 = sm.graph_ms(lambda i: flash_attention_fwd_cuda(
+            q[i], kb1[i][0], kb1[i][1], 1.0 / math.sqrt(D)), c)
+        lib = sm.graph_ms(lambda i: F.scaled_dot_product_attention(
+            qs[i], dense[i][0], dense[i][1], is_causal=True), c)
+        pairs = bucket * (bucket + 1) // 2
+        bound = max(4 * bucket * H * D * 2 / sm.HBM_BYTES_PER_S,
+                    4 * H * D * pairs / sm.PEAK_FLOPS["bfloat16"]) * 1e3
+        res[f"B4 prefill T={bucket}"] = dict(
+            ms=ms, b1_ms=b1, sdpa_ms=lib, bound_ms=bound, max_abs_err=e)
+        del states, dense, kb1, q, qs
+
+    # B6: SparseSelfAttention's cases
+    B, S, Hs = sm.SPARSE_B, sm.SPARSE_S, sm.SPARSE_H
+    for kind, block, d in sm.SPARSE_PATH:
+        cfg = sm._sparsity_config(kind, Hs, block)
+        layout = cfg.make_layout(S)
+        causal = cfg.attention == "unidirectional"
+        c = 4
+        q, k, v = (sm._rand((c, B, S, Hs, d), bf, gen) for _ in range(3))
+        kw = ({"steps": spa.card_steps(layout, block, causal, "cuda")}
+              if hasattr(spa, "card_steps") else
+              {"tables": spa.card_tables(layout, causal, "cuda")})
+        with torch.no_grad():
+            e = err(spa.sparse_attention_cuda(q[0], k[0], v[0], layout,
+                                              block, causal=causal, **kw),
+                    sa.sparse_attention_plain(q[0].float(), k[0].float(),
+                                              v[0].float(), layout, block,
+                                              causal=causal))
+        mask = torch.as_tensor(sa.expand_layout_mask(layout, block, S),
+                               device="cuda")
+        if causal:
+            mask &= torch.ones((S, S), dtype=torch.bool,
+                               device="cuda").tril()
+        qt, kt, vt = (x.transpose(2, 3).contiguous() for x in (q, k, v))
+        ms = sm.graph_ms(lambda i: spa.sparse_attention_cuda(
+            q[i], k[i], v[i], layout, block, causal=causal, **kw), c)
+        lib = sm.graph_ms(lambda i: F.scaled_dot_product_attention(
+            qt[i], kt[i], vt[i], attn_mask=mask), c)
+        table, counts, _ = spa.layout_tables(layout, causal)
+        flops = B * spa.sparse_flops(layout, block, causal, d)
+        nbytes = 4 * B * S * Hs * d * 2 + table.nbytes + counts.nbytes
+        res[f"B6 {kind} block {block} D={d}"] = dict(
+            ms=ms, sdpa_ms=lib, max_abs_err=e,
+            bound_ms=max(nbytes / sm.HBM_BYTES_PER_S,
+                         flops / sm.PEAK_FLOPS["bfloat16"]) * 1e3)
+        del q, k, v, qt, kt, vt, mask
+        torch.cuda.empty_cache()
+    print(json.dumps({"tree": tree, "build_s": build_s, "results": res}),
+          flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", help="the parent commit's tree")
+    ap.add_argument("--change", default=REPO, help="this tree (default)")
+    ap.add_argument("--out", default=os.path.join(
+        REPO, "deepspeed_tpu_torch", "_build", "ab_serving.json"))
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.worker:
+        return worker(args.worker)
+    if not args.parent:
+        ap.error("--parent is required")
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA device")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    print(card, flush=True)
+    runs = []
+    for label, tree in (("parent", args.parent), ("change", args.change),
+                        ("change", args.change), ("parent", args.parent)):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--worker", tree], capture_output=True,
+                              text=True, timeout=900)
+        if proc.returncode != 0:
+            sys.exit(f"{label} ({tree}) failed:\n{proc.stdout[-3000:]}\n"
+                     f"{proc.stderr[-3000:]}")
+        run = json.loads(proc.stdout.strip().splitlines()[-1])
+        run["label"] = label
+        runs.append(run)
+        for case, r in run["results"].items():
+            extra = f", B1 {r['b1_ms']:.4f}" if "b1_ms" in r else ""
+            print(f"{label} {case}: {r['ms']:.4f} ms (SDPA "
+                  f"{r['sdpa_ms']:.4f}{extra}; bound {r['bound_ms']:.4f}), "
+                  f"max abs err {r['max_abs_err']:.2e}", flush=True)
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as fh:
+        json.dump({"card": card, "runs": runs}, fh, indent=1)
+
+
+if __name__ == "__main__":
+    main()

@@ -9,6 +9,8 @@ order, hence rtol=atol=2e-5.  The allocator must produce the same tables
 from the same call sequence in both packages.
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,8 +28,11 @@ from deepspeed_tpu.ops.pallas.ragged_paged_attention import (
     ragged_paged_attention as jax_ragged)
 from deepspeed_tpu.ops.pallas.ragged_paged_attention import (
     ragged_paged_attention_rect as jax_ragged_rect)
+from deepspeed_tpu_torch.ops.cuda.decode_attention import (DECODE_ROWS,
+                                                           key_splits)
 from deepspeed_tpu_torch.ops.cuda.ragged_paged_attention import (
-    _pack_metadata, ragged_paged_attention, ragged_paged_attention_rect)
+    DEFAULT_Q_TILE, TC_ROWS, _pack_metadata, plan_launch,
+    ragged_paged_attention, ragged_paged_attention_rect, tensor_core_prefill)
 from deepspeed_tpu_torch.ops.paged_attention import (PageAllocationError,
                                                      PagedAllocator,
                                                      PagedKVCache,
@@ -246,3 +251,155 @@ def test_cuda_backend_refuses_cpu_tensors():
         paged_decode_attention(q, cache, torch.from_numpy(tables),
                                torch.tensor([5], dtype=torch.int32),
                                backend="cuda")
+
+
+# ---- the CUDA wrapper's launch plan (host side, no card needed) ----------
+
+PLAN_CASES = [  # (q_lens, group)
+    ([37, 1, 9, 1], 1), ([1] * 8, 1), ([1024], 1), ([16], 1),
+    ([16], 4), ([37, 1, 1, 128, 9, 1], 4), ([3, 1, 4, 2, 200], 1),
+    ([2, 1, 1, 130], 2), ([5, 4], 1)]
+
+
+def _rows_and_keys(q_lens, ctx_lens, tiles, tokens, decode_seqs=()):
+    """{(sequence, token): (first key not loaded)} of a tiling: a prefill
+    tile (s, qt) loads keys below its causal frontier ctx - qlen +
+    min(qlen, (qt + 1) * tokens), a decode sequence all of its keys.
+    Fails on a row covered twice."""
+    out = {}
+    for s in decode_seqs:
+        for t in range(q_lens[s]):
+            assert (s, t) not in out
+            out[s, t] = ctx_lens[s]
+    for s, qt in tiles:
+        ql, c = q_lens[s], ctx_lens[s]
+        for t in range(qt * tokens, min(ql, (qt + 1) * tokens)):
+            assert (s, t) not in out
+            out[s, t] = c - ql + min(ql, (qt + 1) * tokens)
+    return out
+
+
+@pytest.mark.parametrize("tensor_cores", [True, False])
+@pytest.mark.parametrize("q_lens,group", PLAN_CASES)
+def test_launch_plan_covers_the_jax_tiling(q_lens, group, tensor_cores):
+    """The wrapper's tiles cover exactly the rows _pack_metadata and the
+    JAX tiling give, each once; every row's tile loads all the keys the
+    row sees (key <= its position) and none past the sequence; decode
+    rows go whole to the decode form, at most DECODE_ROWS a kv head."""
+    ctx = [ql + 7 * s for s, ql in enumerate(q_lens)]
+    plan = plan_launch(q_lens, group, tensor_cores)
+    got = _rows_and_keys(q_lens, ctx, zip(plan.seq_of_tile,
+                                          plan.qtile_of_tile),
+                         plan.q_tile, plan.decode_seqs)
+    _, jsot, jqot, _ = jax_pack_metadata(q_lens, DEFAULT_Q_TILE)
+    want = _rows_and_keys(q_lens, ctx, zip(jsot, jqot), DEFAULT_Q_TILE)
+    assert set(got) == set(want)
+    for (s, t), hi in got.items():
+        qpos = ctx[s] - q_lens[s] + t
+        assert qpos + 1 <= hi <= ctx[s]
+    dec = set(plan.decode_seqs.tolist())
+    assert dec == {s for s, ql in enumerate(q_lens)
+                   if ql * group <= DECODE_ROWS}
+    assert plan.decode_rows == max((q_lens[s] * group for s in dec),
+                                   default=0)
+    if tensor_cores:
+        assert plan.q_tile * group == TC_ROWS
+        qt = plan.qtile_of_tile.tolist()
+        assert qt == sorted(qt, reverse=True)      # most keys first
+
+
+@pytest.mark.parametrize("pairs,slots", [(8 * 32, 528), (8 * 8, 528),
+                                         (1, 132), (256, 132)])
+def test_decode_key_chunks_cover_each_key_once(pairs, slots):
+    """The decode form's key chunks (key_splits over S_max = max_pages *
+    page) cover [0, ctx) of every sequence exactly once, in chunks the
+    kernel's active-chunk rule visits."""
+    S_max = 17 * 128
+    n, chunk = key_splits(pairs, S_max, slots)
+    assert n * chunk >= S_max and pairs * n <= max(slots, pairs)
+    for c in (0, 1, 127, 128, 129, 600, chunk, chunk + 1, S_max):
+        c = min(c, S_max)            # the kernel clamps to the table
+        active = max(1, -(-c // chunk))
+        assert active <= n
+        keys = [k for i in range(active)
+                for k in range(i * chunk, min((i + 1) * chunk, c))]
+        assert keys == list(range(c))
+
+
+@pytest.mark.parametrize("dtype,D,group,page,want", [
+    (torch.bfloat16, 128, 1, 128, True), (torch.bfloat16, 128, 4, 256, True),
+    (torch.bfloat16, 128, 4, 64, True), (torch.bfloat16, 128, 1, 8, True),
+    (torch.bfloat16, 128, 1, 48, False), (torch.bfloat16, 128, 1, 4, False),
+    (torch.bfloat16, 128, 3, 128, False), (torch.float32, 128, 1, 128, False),
+    (torch.bfloat16, 64, 1, 128, False)])
+def test_tensor_core_prefill_selection(dtype, D, group, page, want):
+    """The prefill tiles take the tensor-core kernel for bf16 at head dim
+    128, a group dividing 64 and pages that tile or divide the 128-key
+    tile in whole swizzle atoms; anything else takes the CUDA-core one."""
+    assert tensor_core_prefill(dtype, D, group, page) is want
+
+
+def _plan_emulated(q, kp, vp, tables, ctx, q_lens, plan, chunk):
+    """The wrapper's plan executed as the kernels read it, in fp32 on the
+    CPU: each decode sequence's keys in chunks merged by their (m, l),
+    each prefill tile over the keys below its frontier, masked causally."""
+    H, D = q.shape[1], q.shape[2]
+    Hkv, page = kp.shape[1], kp.shape[2]
+    group = H // Hkv
+    offs = np.concatenate([[0], np.cumsum(q_lens)[:-1]])
+    out = torch.zeros_like(q)
+
+    def keys(s, lo, hi):
+        k = torch.arange(lo, hi)
+        pg = tables[s, (k // page).clamp(max=tables.shape[1] - 1)].long()
+        return (kp[pg, :, k % page].repeat_interleave(group, 1),
+                vp[pg, :, k % page].repeat_interleave(group, 1))
+
+    def attend(s, toks, lo, hi):
+        """(m, l, acc) of tokens ``toks`` of s over keys [lo, hi)."""
+        qq = q[offs[s] + toks]                          # [n, H, D]
+        k, v = keys(s, lo, hi)                          # [n_k, H, D]
+        sc = torch.einsum("nhd,khd->hnk", qq, k) / math.sqrt(D)
+        qpos = ctx[s] - q_lens[s] + toks
+        sc = sc.masked_fill(torch.arange(lo, hi)[None, None] >
+                            qpos[None, :, None], -1e30)
+        m = sc.max(-1).values
+        p = torch.exp(sc - m[..., None])
+        return m, p.sum(-1), torch.einsum("hnk,khd->hnd", p, v)
+
+    for s in plan.decode_seqs:
+        toks = torch.arange(q_lens[s])
+        parts = [attend(s, toks, i * chunk, min((i + 1) * chunk, ctx[s]))
+                 for i in range(max(1, -(-ctx[s] // chunk)))]
+        mm = torch.stack([m for m, _, _ in parts]).max(0).values
+        ll = sum(l * torch.exp(m - mm) for m, l, _ in parts)
+        aa = sum(a * torch.exp(m - mm)[..., None] for m, _, a in parts)
+        out[offs[s] + toks] = (aa / ll[..., None]).transpose(0, 1)
+    for s, qt in zip(plan.seq_of_tile, plan.qtile_of_tile):
+        ql = q_lens[s]
+        toks = torch.arange(qt * plan.q_tile, min(ql, (qt + 1) * plan.q_tile))
+        hi = ctx[s] - ql + min(ql, (qt + 1) * plan.q_tile)
+        _, l, a = attend(s, toks, 0, hi)
+        out[offs[s] + toks] = (a / l[..., None]).transpose(0, 1)
+    return out
+
+
+@pytest.mark.parametrize("tensor_cores", [True, False])
+@pytest.mark.parametrize("name,q_lens,ctx_lens", CASES,
+                         ids=[c[0] for c in CASES])
+def test_launch_plan_computes_the_pallas_kernel(name, q_lens, ctx_lens,
+                                                tensor_cores):
+    """The plan, executed as the two forms read it (decode keys in chunks
+    of 4 merged by their maxima; prefill tiles to their frontier), gives
+    the JAX Pallas kernel's output."""
+    _, tables, kp, vp = _build_state(ctx_lens, shared_pages=1)
+    q = np.random.default_rng(5).standard_normal(
+        (sum(q_lens), H, D)).astype(np.float32)
+    plan = plan_launch(q_lens, H // HKV, tensor_cores)
+    got = _plan_emulated(torch.from_numpy(q), torch.from_numpy(kp),
+                         torch.from_numpy(vp), torch.from_numpy(tables),
+                         ctx_lens, q_lens, plan, chunk=4)
+    kern = jax_ragged(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+                      jnp.asarray(tables), jnp.asarray(ctx_lens, jnp.int32),
+                      q_lens, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(kern), **TOL)

@@ -196,3 +196,104 @@ def test_check_flash_keeps_fp32_dq_on_the_plain_tolerance():
     _check_flash_dq(torch.float32, want[0].clone())
     with pytest.raises(SystemExit):
         _check_flash_dq(torch.float32, want[0] * (1 + 1e-3))
+
+
+_SASS_NEW = """
+        code for sm_90a
+                Function : _ZN60_GLOBAL__N__0_19_sparse_attention_cu_016sparse_tc_kernelILi16ELi64EEEvNS_8TcParamsE
+        /*0100*/                   UTMALDG.4D [UR8], [UR4] ;
+        /*0200*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR8], RZ, !UPT ;
+        /*0210*/                   HGMMA.64x64x16.F32.BF16 R24, R88, gdesc[UR12], R24, gsb0 ;
+                Function : _ZN60_GLOBAL__N__0_19_sparse_attention_cu_016sparse_tc_kernelILi128ELi128EEEvNS_8TcParamsE
+        /*0100*/                   UTMALDG.4D [UR8], [UR4] ;
+        /*0110*/                   UTMALDG.4D [UR12], [UR4] ;
+        /*0200*/                   HGMMA.64x128x16.F32.BF16 R24, R88, gdesc[UR12], R24, gsb0 ;
+                Function : _ZN60_GLOBAL__N__0_19_sparse_attention_cu_023sparse_attention_kernelIfLi16ELi64EEEvPKT_S3_S3_PS1_PKiS6_iiiff
+        /*0100*/                   FFMA R1, R2, R3, R4 ;
+                Function : _ZN66_GLOBAL__N__0_25_ragged_paged_attention_cu_024ragged_prefill_tc_kernelENS_13PrefillParamsE
+        /*0100*/                   UTMALDG.3D [UR8], [UR4] ;
+        /*0110*/                   UTMALDG.2D [UR12], [UR4] ;
+        /*0200*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8], RZ, !UPT ;
+                Function : _ZN66_GLOBAL__N__0_25_ragged_paged_attention_cu_029ragged_paged_attention_kernelIfLi128ELi16EEEvPKT_S3_S3_PS1_PKiS6_S6_S6_S6_S6_iiiiif
+        /*0100*/                   FFMA R1, R2, R3, R4 ;
+"""
+
+
+def test_sass_counts_reads_the_sparse_and_prefill_instantiations():
+    """B6's tensor-core kernel by (block, head dim), B4's prefill kernel
+    (no template arguments); their CUDA-core kernels are not counted."""
+    kernels = dict((k, s) for s, k in chip_smoke.TENSOR_CORE_KERNELS)
+    assert kernels["sparse_tc_kernel"] == "sparse_attention"
+    assert kernels["ragged_prefill_tc_kernel"] == "ragged_paged_attention"
+    assert chip_smoke.sass_counts(_SASS_NEW, "sparse_tc_kernel") == {
+        (16, 64): (2, 1), (128, 128): (1, 2)}
+    assert chip_smoke.sass_counts(_SASS_NEW, "ragged_prefill_tc_kernel") == {
+        (): (1, 2)}
+    # every template's expected instantiations: 4 flash, 4 x 2 sparse, 1
+    assert {k: v[2] for k, v in chip_smoke.SASS_TEMPLATES.items()} == {
+        "flash_fwd_kernel": 4, "flash_bwd_dq_kernel": 4,
+        "flash_bwd_dkv_kernel": 4, "sparse_tc_kernel": 8,
+        "ragged_prefill_tc_kernel": 1}
+
+
+def _paged_case(seed=11):
+    """A small paged state: 3 sequences of ragged lengths, GQA 4/2."""
+    from deepspeed_tpu_torch.ops.paged_attention import PagedAllocator
+    rng = np.random.default_rng(seed)
+    ctx, T, H, Hkv, D, page = [9, 13, 5], 4, 4, 2, 16, 4
+    alloc = PagedAllocator(16, page, max_pages_per_seq=4,
+                           reserve_scratch=True)
+    for s, c in enumerate(ctx):
+        alloc.allocate(s, c)
+    tables = torch.as_tensor(alloc.block_table([0, 1, 2]))
+    kp, vp = (torch.from_numpy(rng.standard_normal(
+        (16, Hkv, page, D), dtype=np.float32)) for _ in range(2))
+    q = torch.from_numpy(rng.standard_normal((3, T, H, D), dtype=np.float32))
+    return q, kp, vp, tables, torch.tensor(ctx, dtype=torch.int32)
+
+
+def test_paged_sdpa_is_the_plain_function():
+    """B4's bf16 yardstick computes what the plain version does."""
+    from deepspeed_tpu_torch.ops.cuda.ragged_paged_attention import \
+        paged_attention_plain
+    q, kp, vp, tables, lens = _paged_case()
+    torch.testing.assert_close(
+        chip_smoke.paged_sdpa(q, kp, vp, tables, lens),
+        paged_attention_plain(q, kp, vp, tables, lens), atol=2e-5,
+        rtol=2e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_sparse_sdpa_is_the_plain_function(causal):
+    """B6's bf16 yardstick computes what the plain version does, rows that
+    see no key 0 included."""
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        sparse_attention_plain
+    rng = np.random.default_rng(12)
+    B, S, H, D, block = 2, 64, 4, 16, 16
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (B, S, H, D), dtype=np.float32)) for _ in range(3))
+    layout = rng.random((H, 4, 4)) < 0.5
+    layout[:, 1] = False                       # q block 1 sees nothing
+    want = sparse_attention_plain(q, k, v, layout, block, causal=causal)
+    got = chip_smoke.sparse_sdpa(q, k, v, layout, block, causal)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    assert float(got[:, block:2 * block].abs().max()) == 0.0
+
+
+def test_check_output_holds_bf16_to_the_witness_and_fp32_to_1e4():
+    """A bf16 forward output passes at one ulp or within 2x SDPA's error
+    and stops beyond it; fp32 keeps check_close's 1e-4."""
+    exact, sdpa, _ = _readings()
+    g = torch.Generator().manual_seed(6)
+    noise = torch.randn(4096, generator=g)
+    chip_smoke.check_output("one-ulp", exact.to(torch.bfloat16), exact,
+                            lambda: sdpa)
+    chip_smoke.check_output("within", (exact + 1.5e-2 * noise).to(
+        torch.bfloat16), exact, lambda: sdpa)
+    with pytest.raises(SystemExit):
+        chip_smoke.check_output("beyond", (exact + 5e-2 * noise).to(
+            torch.bfloat16), exact, lambda: sdpa)
+    chip_smoke.check_output("fp32", exact.clone(), exact, None)
+    with pytest.raises(SystemExit):
+        chip_smoke.check_output("fp32 off", exact * (1 + 1e-3), exact, None)

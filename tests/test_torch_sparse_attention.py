@@ -26,7 +26,8 @@ from deepspeed_tpu.ops import sparse_attention as jsa
 from deepspeed_tpu.ops.pallas import sparse_attention as jpallas
 from deepspeed_tpu_torch.ops import sparse_attention as tsa
 from deepspeed_tpu_torch.ops.cuda.sparse_attention import (
-    card_tables, layout_tables, sparse_attention_cuda, sparse_flops)
+    EDGE_BIT, STEP_WIDTH, card_tables, layout_tables, sparse_attention_cuda,
+    sparse_flops, step_overhead, step_tables)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 H = 4
@@ -228,3 +229,153 @@ def test_plain_path_takes_gradients_on_the_cpu():
     tsa.sparse_attention(q, k, v, layout, 16).sum().backward()
     assert all(t.grad is not None and torch.isfinite(t.grad).all()
                for t in (q, k, v))
+
+
+# ---- the bf16 kernel's step tables (host side, no card needed) ----------
+
+def _grid(block):
+    """(rows per q group and key unit, slots per step, q blocks per
+    tile) of the bf16 kernel at layout block ``block``."""
+    unit = min(block, 64)
+    return unit, 64 // unit, max(1, 64 // block)
+
+
+def _coverage(layout, block, causal):
+    """How often the step tables leave each (q group, key unit) pair
+    unmasked, at the resolution of one unit (a block up to 64 rows, a
+    64-row half of a block of 128), and what they should: the layout at
+    that resolution, less what lies above the diagonal when causal."""
+    counts, starts, steps = step_tables(layout, block, causal)
+    H, nb, _ = layout.shape
+    unit, slots, qpt = _grid(block)
+    n = nb * block // unit
+    cov = np.zeros((H, n, n), int)
+    for h in range(H):
+        for t in range(counts.shape[1]):
+            for st in steps[starts[h, t]:starts[h, t] + counts[h, t]]:
+                for i in range(qpt):
+                    for j in range(slots):
+                        if st[0] >> (i * slots + j) & 1:
+                            cov[h, t * qpt + i, st[1 + j] // unit] += 1
+    rep = block // unit
+    want = np.repeat(np.repeat(np.asarray(layout, bool), rep, 1), rep, 2)
+    if causal:
+        want &= np.tril(np.ones((n, n), bool))
+    return cov, want.astype(int)
+
+
+@pytest.mark.parametrize("block", [16, 32, 64, 128])
+@pytest.mark.parametrize("name", list(LAYOUTS))
+def test_step_tables_cover_each_set_pair_once(name, block):
+    """Every layout the JAX package makes, causal and not: each set (q
+    block, k block) pair of ``layout_tables`` is unmasked in exactly one
+    step, and no unset or above-diagonal pair in any."""
+    layout = _configs(name, block)[1].make_layout(512)
+    for causal in (True, False):
+        cov, want = _coverage(layout, block, causal)
+        np.testing.assert_array_equal(cov, want)
+        # the same pairs at block resolution as layout_tables lists them
+        table, counts, _ = layout_tables(layout, causal)
+        rep = block // min(block, 64)
+        seen = cov.reshape(H, -1, rep, cov.shape[2] // rep, rep).any((2, 4))
+        listed = np.zeros_like(seen)
+        for h in range(H):
+            for qb in range(seen.shape[1]):
+                listed[h, qb, table[h, qb, :counts[h, qb]]] = True
+        np.testing.assert_array_equal(seen, listed)
+
+
+def test_step_tables_edge_bit_and_padding():
+    """A step without the edge bit has every pair set and none on the
+    diagonal; a padded slot repeats the step's first unit, unset."""
+    layout = _configs("fixed_uni", 16)[1].make_layout(1024)
+    counts, starts, steps = step_tables(layout, 16, True)
+    assert steps.shape[1] == STEP_WIDTH and steps.dtype == np.int32
+    full = (1 << 16) - 1
+    n_full = 0
+    for st in steps[:int(counts.sum())]:
+        if not st[0] & EDGE_BIT:
+            n_full += 1
+            assert st[0] == full
+    assert n_full > 0
+    # Dense at block 16: four q blocks see 4 k blocks per step; the last
+    # q tile's diagonal step is on the edge
+    dense = np.ones((1, 8, 8), bool)
+    c, s, st = step_tables(dense, 16, True)
+    assert c.tolist() == [[1, 2]]
+    assert st[s[0, 1] + 1, 0] & EDGE_BIT and not st[s[0, 1], 0] & EDGE_BIT
+    # three set blocks in a step of four slots: the fourth repeats the first
+    lay = np.zeros((1, 4, 4), bool)
+    lay[0, :, :3] = True
+    c, s, st = step_tables(lay, 16, False)
+    assert c.tolist() == [[1]] and st[0, 1:5].tolist() == [0, 16, 32, 0]
+    assert st[0, 0] & EDGE_BIT and st[0, 0] & 0xFFFF == 0x7777
+
+
+def _steps_emulated(q, k, v, layout, block, causal, scale):
+    """The bf16 kernel's arithmetic in fp32 on the CPU, over the step
+    tables: per tile and step, the gathered keys' scores, masked by the
+    pair mask (and causally) only on edge steps, an online softmax, rows
+    that see no key 0."""
+    counts, starts, steps = step_tables(layout, block, causal)
+    B, S, Hh, D = q.shape
+    unit, slots, qpt = _grid(block)
+    out = torch.zeros_like(q)
+    for b in range(B):
+        for h in range(Hh):
+            for t in range(counts.shape[1]):
+                r0 = t * 64
+                qt = q[b, r0:r0 + 64, h]
+                rows = torch.arange(r0, r0 + qt.shape[0])
+                m = torch.full((qt.shape[0],), -1e30)
+                l = torch.zeros(qt.shape[0])
+                acc = torch.zeros(qt.shape[0], D)
+                for st in steps[starts[h, t]:starts[h, t] + counts[h, t]]:
+                    keys = torch.cat([torch.arange(int(st[1 + j]),
+                                                   int(st[1 + j]) + unit)
+                                      for j in range(slots)])
+                    s = qt @ k[b, keys, h].T * scale
+                    if st[0] & EDGE_BIT:
+                        qi = (rows - r0) // block if block < 64 else \
+                            torch.zeros_like(rows)
+                        slot = torch.arange(64) // unit
+                        ok = (int(st[0]) >> (qi[:, None] * slots +
+                                             slot[None, :])) & 1 == 1
+                        if causal:
+                            ok &= keys[None, :] <= rows[:, None]
+                        s = s.masked_fill(~ok, -1e30)
+                    m_new = torch.maximum(m, s.max(1).values)
+                    base = torch.where(m_new <= -5e29, 0.0, m_new)
+                    p = torch.exp(s - base[:, None])
+                    corr = torch.exp(m - base)
+                    l = l * corr + p.sum(1)
+                    acc = acc * corr[:, None] + p @ v[b, keys, h]
+                    m = m_new
+                out[b, r0:r0 + 64, h] = acc / l.clamp_min(1e-30)[:, None]
+    return out
+
+
+@pytest.mark.parametrize("name,block,causal", [
+    ("fixed_uni", 16, True), ("bigbird", 32, False),
+    ("longformer_uni", 64, True), ("variable", 128, False),
+    ("sliding", 128, True), ("fixed_heads", 16, True)])
+def test_step_tables_compute_the_plain_function(name, block, causal):
+    """The step tables, read as the bf16 kernel reads them, give the plain
+    version's attention (fp32, the same sums in another order)."""
+    q, k, v = map(torch.as_tensor, _qkv(B=1, S=256, D=16, seed=8))
+    layout = _configs(name, block)[1].make_layout(256)
+    got = _steps_emulated(q, k, v, layout, block, causal, 0.25)
+    want = tsa.sparse_attention_plain(q, k, v, layout, block, causal=causal,
+                                      softmax_scale=0.25)
+    torch.testing.assert_close(got, want, **TOL)
+
+
+def test_step_overhead_of_the_path_layouts():
+    """The union's cost at the smoke's Fixed-16 and BigBird-64 layouts
+    (S=4096, 16 heads): at most 2x the set pairs' work."""
+    for cls, kw, block, causal in (
+            (tsa.FixedSparsityConfig, dict(attention="unidirectional"), 16,
+             True),
+            (tsa.BigBirdSparsityConfig, dict(seed=1), 64, False)):
+        layout = cls(16, block, **kw).make_layout(4096)
+        assert 1.0 <= step_overhead(layout, block, causal) <= 2.0
