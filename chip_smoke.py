@@ -16,14 +16,17 @@ kernels.  Phases:
 
   1 device   card name and power limit (nvidia-smi)
   2 build    nvcc, one process per kernel source, all at once; the SASS
-             of every bf16 tensor-core kernel -- the flash kernels, B6's
-             block-sparse kernel at every block and head dim, B4's
-             prefill kernel -- holds wgmma (HGMMA) and TMA loads (UTMALDG)
-  3 kernels  each kernel vs its plain version: fp32 and bf16; serving
+             of every bf16 and fp16 tensor-core kernel -- the flash
+             kernels in both dtypes, B6's block-sparse kernel at every
+             block and head dim, B4's prefill kernel -- holds wgmma
+             (HGMMA) and TMA loads (UTMALDG)
+  3 kernels  each kernel vs its plain version: fp32 and bf16 (the flash
+             kernels also fp16, held to SDPA-fp16's error); serving
              attention MHA 32/32 and GQA 32/8; flash attention forward and
              backward at gpt_1b's shape, at GPT-Neo's global layers' (S=2048,
              unscaled logits), GQA 32/8 and S=1000; fused Adam over
-             1,000,003 elements in both modes; the biased flash kernels with
+             1,000,003 elements in both modes, and with its skip flag set
+             (p, m, v unchanged bit for bit); the biased flash kernels with
              ALiBi at S=2048, windows 256 (S=2048, unscaled, GPT-Neo's local
              layers) and 100 (S=1000), ALiBi + window with GQA, a window
              past S (bf16 O, dQ, dK, dV of the tensor-core kernels: one
@@ -47,14 +50,21 @@ kernels.  Phases:
              fixed batch again through the plain versions; 2 layers of
              each, kernels vs plain (losses, grad norm, then m and the
              update parameter by parameter; GPT-Neo in fp32 too, and two
-             plain engines that split the batch differently, as a witness)
+             plain engines that split the batch differently, as a witness);
+             fp16: gpt_1b through the ds_bench train CLI (--dtype fp16
+             --scheduler WarmupDecayLR, the loss scale from 2**23: skipped
+             steps, then applied ones; exact launches), a fixed fp16 batch
+             (the loss falls over the applied steps; fp16 vs bf16 wall,
+             device and busy share) and 2 layers kernels vs plain from
+             2**29 (the same skip pattern and loss scales)
   8 sparse   SparseSelfAttention (Fixed block 16, BigBird block 64; head
              dims 64 and 128) at B=2, S=4096, 16 heads: launches counted,
              outputs vs the plain version; the key_padding_mask path and
              the refusal of a gradient request
   9 timing   each kernel at the main path's shapes vs its bound, its plain
              version and one PyTorch library call (a yardstick only), the
-             flash kernels also at GPT-Neo's global layers' shape, the
+             flash kernels in bf16 and fp16 and at GPT-Neo's global
+             layers' shape, the
              decode kernel also at Llama-2's whole context (len 4096), the
              ragged kernel's prefill tiles at the serve run's buckets 512
              and 1024 (beside B1's forward on the same work); fused
@@ -76,21 +86,28 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, per dtype
+PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12,  # dense, per dtype
+              "float32": 67e12}
 # (atol, rtol) of a kernel against its plain version run in fp32 on the
 # kernel's own inputs (see reference()):
 TOL = {"float32": (1e-4, 1e-4),   # both in fp32; only the summation order
                                   # differs
-       "bfloat16": (1e-5, 8e-3)}  # both round one fp32 result to bf16: at
+       "bfloat16": (1e-5, 8e-3),  # both round one fp32 result to bf16: at
                                   # most one bf16 ulp apart (<= 2**-7 of the
                                   # value), plus fp32 order noise near 0
+       "float16": (1.25e-6, 1e-3)}  # the same for fp16: one ulp is <= 2**-10
+                                    # of the value (3 more mantissa bits),
+                                    # the noise floor 2**-3 of bf16's
 # The bf16 flash forward, dQ and dK/dV kernels, the bf16 block-sparse
 # kernel and the bf16 prefill tiles of ragged paged attention run on the
 # tensor cores with P (and dS) rounded to bf16 inside the products, as
 # SDPA's kernels do, so their outputs may leave the one-ulp tolerance above;
 # they then pass if their max abs and relative L2 errors against the exact
 # fp32 answer are each within this factor of SDPA's on the same inputs (see
-# check_witnessed)
+# check_witnessed).  The fp16 forms round P and dS to fp16 (2**-11, where
+# bf16 rounds at 2**-8) and are held to the same factor of SDPA's own fp16
+# error, which is about 8x smaller than its bf16 error, always: against the
+# exact answer and against the plain version on the kernel's inputs.
 WITNESS_FACTOR = 2.0
 E2E_REL_TOL = 5e-2        # bf16 logits after 2 layers, relative to max|logit|
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -196,6 +213,7 @@ def check_witnessed(name, got, want, exact, sdpa):
     (``sdpa``, the same function by scaled_dot_product_attention in bf16
     on the same inputs: a yardstick, never the port's path).  Prints both
     readings; returns the max abs error against ``want``."""
+    import torch
     max_err, bad = _outside(name, got, want)
     k_abs, k_rel = _abs_rel(got, exact)
     s_abs, s_rel = _abs_rel(sdpa, exact)
@@ -205,7 +223,16 @@ def check_witnessed(name, got, want, exact, sdpa):
           f"{k_abs:.3e} rel L2 {k_rel:.3e}, SDPA {s_abs:.3e} / {s_rel:.3e} "
           f"(kernel/SDPA {k_abs / s_abs:.2f}, {k_rel / s_rel:.2f}; limit "
           f"{WITNESS_FACTOR})")
-    if bad and not ok:
+    if got.dtype == torch.float16:
+        # fp16: the SDPA rule always, against the exact answer and against
+        # ``want``, the plain version in fp32 on the kernel's own inputs
+        p_abs, p_rel = _abs_rel(got, want.float())
+        if not ok or p_abs > WITNESS_FACTOR * s_abs or \
+                p_rel > WITNESS_FACTOR * s_rel:
+            fail(f"{name}: error vs exact {k_abs:.3e} / rel L2 {k_rel:.3e}, "
+                 f"vs plain {p_abs:.3e} / {p_rel:.3e}, over "
+                 f"{WITNESS_FACTOR} x SDPA's {s_abs:.3e} / {s_rel:.3e}")
+    elif bad and not ok:
         fail(f"{name}: {bad} elements outside the one-ulp tolerance and "
              f"error {k_abs:.3e} / rel L2 {k_rel:.3e} over {WITNESS_FACTOR}"
              f" x SDPA's {s_abs:.3e} / {s_rel:.3e}")
@@ -329,18 +356,20 @@ def phase_build():
 
 
 # the tensor-core kernels: (library source, kernel template); every bf16
-# instantiation must issue wgmma (HGMMA) and TMA loads (UTMALDG)
+# and fp16 instantiation must issue wgmma (HGMMA) and TMA loads (UTMALDG)
 TENSOR_CORE_KERNELS = [("flash_attention_fwd", "flash_fwd_kernel"),
                        ("flash_attention_bwd", "flash_bwd_dq_kernel"),
                        ("flash_attention_bwd", "flash_bwd_dkv_kernel"),
                        ("sparse_attention", "sparse_tc_kernel"),
                        ("ragged_paged_attention", "ragged_prefill_tc_kernel")]
-# kernel template -> (regex of its bf16 instantiations' template arguments
-# in the mangled name, the arguments' reading, how many it has): the flash
-# kernels' <bf16, alibi, window>, B6's <block, head dim>, and B4's prefill
-# kernel, which has none (its mangled name ends the name at "E")
-_FLASH_ARGS = (r"I13__nv_bfloat16Lb([01])ELb([01])E",
-               lambda x: bool(int(x)), 4)
+# kernel template -> (regex of its tensor-core instantiations' template
+# arguments in the mangled name, the arguments' reading, how many it has):
+# the flash kernels' <bf16 or fp16, alibi, window>, B6's <block, head dim>
+# (bf16), and B4's bf16 prefill kernel, which has none (its mangled name
+# ends the name at "E")
+_FLASH_ARGS = (r"I(13__nv_bfloat16|6__half)Lb([01])ELb([01])E",
+               lambda x: {"13__nv_bfloat16": "bf16",
+                          "6__half": "fp16"}.get(x) or bool(int(x)), 8)
 SASS_TEMPLATES = {
     "flash_fwd_kernel": _FLASH_ARGS,
     "flash_bwd_dq_kernel": _FLASH_ARGS,
@@ -351,11 +380,11 @@ SASS_TEMPLATES = {
 
 
 def sass_counts(sass, kernel):
-    """{template arguments: (HGMMA count, UTMALDG count)} of the bf16
-    instantiations of template ``kernel`` in ``cuobjdump -sass`` output,
-    read by SASS_TEMPLATES: e.g. the flash kernels' names end
-    ``<kernel>I13__nv_bfloat16Lb<0|1>ELb<0|1>E`` and give keys (alibi,
-    window)."""
+    """{template arguments: (HGMMA count, UTMALDG count)} of the
+    tensor-core instantiations of template ``kernel`` in ``cuobjdump
+    -sass`` output, read by SASS_TEMPLATES: e.g. the flash kernels' names
+    end ``<kernel>I13__nv_bfloat16Lb<0|1>ELb<0|1>E`` (``I6__half...`` for
+    fp16) and give keys (dtype, alibi, window)."""
     import re
     args, conv, _ = SASS_TEMPLATES[kernel]
     pat = re.compile(r"\d" + re.escape(kernel) + args)
@@ -371,8 +400,8 @@ def sass_counts(sass, kernel):
 
 def phase_sass():
     """Counts HGMMA and UTMALDG in the SASS (cuobjdump -sass) of each bf16
-    instantiation of the tensor-core kernels; fails if one lacks either or
-    an instantiation is missing."""
+    and fp16 instantiation of the tensor-core kernels; fails if one lacks
+    either or an instantiation is missing."""
     import shutil
     from deepspeed_tpu_torch.ops import op_builder
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -384,14 +413,13 @@ def phase_sass():
             fail(f"cuobjdump -sass {lib.name}: {run.stderr.strip()[:300]}")
         counts = sass_counts(run.stdout, kernel)
         for args, (n_mma, n_tma) in sorted(counts.items()):
-            phase("build", f"SASS {kernel}<bf16, {args}>: {n_mma} HGMMA, "
+            phase("build", f"SASS {kernel}{list(args)}: {n_mma} HGMMA, "
                   f"{n_tma} UTMALDG")
             if not n_mma or not n_tma:
-                fail(f"{kernel}<bf16, {args}> issues no wgmma or no TMA "
-                     f"load")
+                fail(f"{kernel}{list(args)} issues no wgmma or no TMA load")
         want = SASS_TEMPLATES[kernel][2]
         if len(counts) != want:
-            fail(f"{kernel}: {len(counts)} of its {want} bf16 "
+            fail(f"{kernel}: {len(counts)} of its {want} tensor-core "
                  f"instantiations found in {lib.name}")
 
 
@@ -634,10 +662,12 @@ def phase_train_kernels():
     """B1, B2 (dQ and dK/dV) and B3 vs their plain versions run in fp32
     on the kernels' own inputs: O and LSE of the forward; dQ, dK, dV of
     the backward from the kernel's own (O, LSE) and one dO (check_flash:
-    bf16 O, dQ, dK and dV also against SDPA's error)."""
+    bf16 and fp16 O, dQ, dK and dV also against SDPA's error).  B3 with
+    its skip flag 0 against the plain version, and with the flag 1: p, m,
+    v and the count unchanged, bit for bit."""
     import torch
-    from deepspeed_tpu_torch.ops.adam import (AdamState, fused_adam,
-                                              reference_impl)
+    from deepspeed_tpu_torch.ops.adam import (AdamState, adam_hyper,
+                                              fused_adam, reference_impl)
     from deepspeed_tpu_torch.ops.cuda.flash_attention import (
         flash_attention_bwd_cuda, flash_attention_fwd_cuda)
     gen = torch.Generator(device="cuda").manual_seed(4321)
@@ -647,7 +677,7 @@ def phase_train_kernels():
     def note(kernel, dn, e):
         errs[(kernel, dn)] = max(errs.get((kernel, dn), 0.0), e)
 
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         dn = str(dtype).split(".")[-1]
         for label, B, S, H, Hkv, causal, scale in FLASH_CASES:
             scale = scale or 1.0 / math.sqrt(D)
@@ -670,16 +700,48 @@ def phase_train_kernels():
                                 device="cuda").to(g_dtype)
                 m = torch.randn(ADAM_N, generator=gen, device="cuda") * 0.1
                 v = torch.rand(ADAM_N, generator=gen, device="cuda") * 0.01
-                kw = dict(lr=1e-3, weight_decay=0.01, adamw_mode=adamw,
-                          bias_correction=bc)
+                kw = dict(weight_decay=0.01, adamw_mode=adamw)
+                count = torch.full((), 2, dtype=torch.int32, device="cuda")
+                hyper = adam_hyper(count, 1e-3, 0.9, 0.999, bc)
                 ref = [t.clone() for t in (p, m, v)]
-                fused_adam(p, g, AdamState(m, v, 2), backend="cuda", **kw)
-                reference_impl(ref[0], g, AdamState(ref[1], ref[2], 2), **kw)
+                fused_adam(p, g, AdamState(m, v, count.clone()), hyper,
+                           backend="cuda", **kw)
+                reference_impl(ref[0], g, AdamState(ref[1], ref[2],
+                                                    count.clone()), hyper,
+                               **kw)
                 dn = str(g_dtype).split(".")[-1]
                 note("fused_adam", dn, check_adam(
                     f"fused_adam n={ADAM_N} g={dn} adamw={adamw} "
                     f"bias_correction={bc}", (p, m, v), ref))
+                if adamw and bc:
+                    check_adam_skip(p, g, m, v, hyper, f"g={dn}")
     return errs
+
+
+def check_adam_skip(p, g, m, v, hyper, label):
+    """B3 with its skip flag set (an fp16 overflow): p, m, v and the count
+    must come back bit for bit, the count too through the plain version;
+    a NaN gradient, as an overflowed step has, must not leak in."""
+    import torch
+    from deepspeed_tpu_torch.ops.adam import (AdamState, fused_adam,
+                                              reference_impl)
+    skip = torch.ones((), dtype=torch.int32, device="cuda")
+    bad = g.clone()
+    bad[::7] = float("nan")
+    for name, fn in (("kernel", lambda st: fused_adam(
+            p, bad, st, hyper, skip, backend="cuda", weight_decay=0.01)),
+                     ("plain", lambda st: reference_impl(
+                         p, bad, st, hyper, skip, weight_decay=0.01))):
+        before = [t.clone() for t in (p, m, v)]
+        count = torch.full((), 5, dtype=torch.int32, device="cuda")
+        fn(AdamState(m, v, count))
+        if not all(torch.equal(a, b) for a, b in zip((p, m, v), before)) or \
+                int(count) != 5:
+            fail(f"fused_adam {label} skip=1 ({name}): p, m, v or the count "
+                 f"changed")
+    phase("kernels", f"fused_adam n={ADAM_N} {label} skip=1: p, m, v and "
+          f"the count unchanged bit for bit (kernel and plain), NaN "
+          f"gradients held out")
 
 
 # biased B1/B2 cases: (label, B, S, H, Hkv, ALiBi, window, softmax scale;
@@ -701,7 +763,7 @@ BIASED_CASES = [("ALiBi B=2 S=2048 H16/16 (bloom_1b7)", 2, 2048, 16, 16,
 
 def phase_biased_kernels():
     """Biased B1 and B2 (ALiBi slopes, sliding windows) vs their plain
-    versions run in fp32 on the kernels' own inputs, fp32 and bf16
+    versions run in fp32 on the kernels' own inputs, fp32, bf16 and fp16
     (check_flash)."""
     import torch
     from deepspeed_tpu_torch.models.transformer import alibi_slopes
@@ -714,7 +776,7 @@ def phase_biased_kernels():
     def note(kernel, dn, e):
         errs[(kernel, dn)] = max(errs.get((kernel, dn), 0.0), e)
 
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         dn = str(dtype).split(".")[-1]
         for label, B, S, H, Hkv, alibi, window, scale in BIASED_CASES:
             scale = scale or 1.0 / math.sqrt(D)
@@ -738,10 +800,10 @@ def check_flash(note, kind, label, inputs, scale, causal, bias, out, lse,
                 got):
     """The flash kernels' (O, LSE) and (dQ, dK, dV) on ``inputs`` (q, k, v,
     dO) vs the plain versions run in fp32 on the kernels' own inputs, O and
-    LSE.  fp32 and LSE: check_close.  bf16 O, dQ, dK, dV (the tensor-core
-    kernels): check_witnessed, against SDPA on the same inputs and the
-    exact fp32 answer.  ``kind``: "" or "_biased", the kernels' names'
-    suffix."""
+    LSE.  fp32 and LSE: check_close.  bf16 and fp16 O, dQ, dK, dV (the
+    tensor-core kernels): check_witnessed, against SDPA in their dtype on
+    the same inputs and the exact fp32 answer.  ``kind``: "" or "_biased",
+    the kernels' names' suffix."""
     import torch
     from deepspeed_tpu_torch.ops.flash_attention import (
         flash_attention_bwd_plain, flash_attention_fwd_plain)
@@ -756,15 +818,19 @@ def check_flash(note, kind, label, inputs, scale, causal, bias, out, lse,
     names = ("O", "dQ", "dK", "dV")
     kernels = [f"flash_attention_{n}{kind}" for n in
                ("fwd", "bwd_dq", "bwd_dkv", "bwd_dkv")]
-    if dtype == torch.bfloat16:
+    if dtype != torch.float32:
         exact = [want_o] + list(flash_attention_bwd_plain(
             *f32[:3], want_o, want_lse, f32[3], scale, causal, **bias))
         sdpa = sdpa_witness(q, k, v, dout, scale, causal, **bias)
     for i, (name, kernel, g, w) in enumerate(zip(
             names, kernels, (out,) + tuple(got), (want_o,) + tuple(want))):
         tag = f"{kernel} {label} {name}"
-        if dtype == torch.bfloat16:
-            note(kernel, dn, check_witnessed(tag, g, w.to(dtype), exact[i],
+        if dtype != torch.float32:
+            # bf16: the one-ulp reading against the plain version rounded
+            # as the kernel rounds; fp16 holds the unrounded plain version
+            # to the SDPA rule too
+            want = w if dtype == torch.float16 else w.to(dtype)
+            note(kernel, dn, check_witnessed(tag, g, want, exact[i],
                                              sdpa[i]))
         else:
             note(kernel, dn, check_close(tag, g, w.to(dtype)))
@@ -1413,6 +1479,30 @@ E2E_FP32_M_REL_TOL = 1e-3
 # not to the relative limits above.
 ZERO_GRAD = ("wk_b",)
 E2E_LR = 1e-4             # benchmarks.training.ds_config's AdamW lr
+# fp16: gpt_1b with dynamic loss scaling (DeepSpeed's defaults:
+# hysteresis 2, so each halving of the scale takes two skipped steps;
+# window 1000; min scale 1) and WarmupDecayLR.  At init its fp16 gradients
+# overflow from a loss scale of about 2**21.4 at full depth and 2**23.1
+# with 2 layers (scripts/fp16_overflow_threshold.py on an H100, the
+# smoke's seeds and batches).  The full-depth runs start at 2**23: two
+# halvings, 4 skipped steps, then applied ones at 2**21 (0.4 below the
+# threshold, a 30% margin).  The 2-layer comparison starts where the
+# first step overflows by construction: the logits' fp16 gradient of the
+# target token is about scale / tokens per micro-batch, and 2**29 / 2048 =
+# 262144 is 4x fp16's largest value 65504; 12 skipped steps take it to
+# 2**23.
+FP16_SCALE_POWER = 23
+FP16_STEPS = 12
+FP16_E2E_SCALE_POWER = 29
+FP16_E2E_STEPS = 18
+FP16_SCHEDULER = "WarmupDecayLR"
+# the 2-layer fp16 comparison (kernels vs plain, same batches): the skip
+# pattern and the loss scale after every step must be identical; losses,
+# the first applied step's grad norm, m after each applied step and the
+# update keep the bf16 limits above.  fp16 rounds 8x finer than bf16
+# (2**-11 vs 2**-8), so the same limits hold with that margin, which the
+# longer run (3 or more applied steps where bf16 takes 2) spends on the
+# gap's growth from step to step.
 
 
 def _free():
@@ -1519,6 +1609,92 @@ def phase_train_fixed(name):
     del engine
     _free()
     return losses, step_ms, device_ms, top
+
+
+def phase_train_fp16_cli():
+    """The slice's main path: ``python -m deepspeed_tpu_torch.benchmarks
+    .training --model gpt_1b --batch 2 --gas 4 --seq 1024 --dtype fp16``
+    with WarmupDecayLR and the loss scale starting at 2**FP16_SCALE_POWER,
+    through the CLI's ``main`` (its printout captured), counters read
+    around it.  Exact launches; at least one skipped and three applied
+    steps."""
+    import contextlib
+    import io
+    import torch
+    from deepspeed_tpu_torch.benchmarks.training import main, model_config
+    cfg = model_config(TRAIN_MODEL, TRAIN_SEQ)
+    argv = ["--model", TRAIN_MODEL, "--batch", str(TRAIN_BATCH), "--gas",
+            str(TRAIN_GAS), "--seq", str(TRAIN_SEQ), "--dtype", "fp16",
+            "--steps", str(FP16_STEPS - 1), "--scheduler", FP16_SCHEDULER,
+            "--initial-scale-power", str(FP16_SCALE_POWER), "--json"]
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    reset_counters()
+    with contextlib.redirect_stdout(buf):
+        out = main(argv)
+    counts = read_counters()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    _free()
+    phase("train", f"ds_bench train {' '.join(argv)}: "
+          f"{buf.getvalue().strip()}")
+    if not all(math.isfinite(x) for x in out["losses"]):
+        fail(f"fp16 {TRAIN_MODEL}: non-finite loss {out['losses']}")
+    skipped = out["skipped_steps"]
+    if skipped < 1 or FP16_STEPS - skipped < 3:
+        fail(f"fp16 {TRAIN_MODEL}: {skipped} of {FP16_STEPS} steps skipped;"
+             f" at least 1 skipped and 3 applied are required")
+    launched = check_train_launches(counts, cfg, TRAIN_GAS, FP16_STEPS,
+                                    f"ds_bench train --dtype fp16 "
+                                    f"({TRAIN_MODEL})")
+    return out, counts, launched
+
+
+def phase_train_fixed_fp16():
+    """gpt_1b in fp16 (the CLI's config) on ONE fixed batch: skips while
+    the loss scale comes down, then the loss must fall over the applied
+    steps.  Per step (read on the host, outside the engine's step): the
+    loss, whether it was skipped, the scale.  Then one step timed on the
+    wall clock and one profiled, as for bf16."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.benchmarks.training import (ds_config,
+                                                         model_config,
+                                                         scheduler_config)
+    from deepspeed_tpu_torch.models.transformer import CausalTransformerLM
+    cfg = model_config(TRAIN_MODEL, TRAIN_SEQ)
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=CausalTransformerLM(cfg, device="cuda").init(1),
+        config=ds_config(TRAIN_BATCH, TRAIN_GAS, "fp16",
+                         scheduler=scheduler_config(FP16_SCHEDULER,
+                                                    FP16_STEPS),
+                         initial_scale_power=FP16_SCALE_POWER))
+    batch = {"input_ids": np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (TRAIN_GAS, TRAIN_BATCH, TRAIN_SEQ))}
+    reset_counters()
+    losses, skips, scales = [], [], []
+    for _ in range(FP16_STEPS):
+        losses.append(float(engine.train_batch(batch=batch)))
+        skips.append(engine.last_step_overflowed())
+        scales.append(engine.get_loss_scale())
+    check_train_launches(read_counters(), cfg, TRAIN_GAS, FP16_STEPS,
+                         f"fixed batch fp16 {TRAIN_MODEL}")
+    applied = [x for x, s in zip(losses, skips) if not s]
+    if not any(skips) or len(applied) < 3 or \
+            not all(np.isfinite(losses)) or not applied[-1] < applied[0]:
+        fail(f"fixed batch fp16 {TRAIN_MODEL}: losses {losses}, skipped "
+             f"{skips}: need a skip, 3 applied steps and a falling loss "
+             f"over them")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    engine.train_batch(batch=batch)
+    torch.cuda.synchronize()
+    step_ms = (time.time() - t0) * 1e3
+    device_ms, top, _ = profile_device(
+        lambda: engine.train_batch(batch=batch), 1)
+    del engine
+    _free()
+    return losses, skips, scales, step_ms, device_ms, top
 
 
 def phase_train_fixed_plain(name, kernel_losses):
@@ -1669,18 +1845,108 @@ def phase_train_e2e(name=TRAIN_MODEL, bf16=True, steps=2, witness=False):
                 witness_rels=witness_rels)
 
 
+def phase_train_e2e_fp16(steps=FP16_E2E_STEPS):
+    """gpt_1b at full width, cut to 2 layers, micro 2 x gas 2, in fp16 with
+    the CLI's loss scaling and WarmupDecayLR: one engine through the
+    kernels, one through the plain versions, from one init, on the same
+    batches.  Held exactly: the skip pattern and the loss scale after every
+    step (any step where the two disagree on overflow is named); the first
+    step skipped; at least 3 applied.  Held to the bf16 limits: the losses,
+    the first applied step's grad norm, m after each applied step, the
+    update after the last step."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.benchmarks.training import (ds_config,
+                                                         model_config,
+                                                         scheduler_config)
+    from deepspeed_tpu_torch.models.transformer import CausalTransformerLM
+    from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+    from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
+    cfg = dataclasses.replace(model_config(TRAIN_MODEL, TRAIN_SEQ),
+                              n_layers=2)
+    rng = np.random.default_rng(13)
+    batches = [{"input_ids": rng.integers(0, cfg.vocab_size,
+                                          (2, 2, TRAIN_SEQ))}
+               for _ in range(steps)]
+    conf = ds_config(2, 2, "fp16",
+                     scheduler=scheduler_config(FP16_SCHEDULER, steps),
+                     initial_scale_power=FP16_E2E_SCALE_POWER)
+    runs, init = {}, None
+    for backend in ("cuda", "plain"):
+        engine = DeepSpeedEngine(
+            CausalTransformerLM(cfg, device="cuda").init(5),
+            DeepSpeedConfig(conf), backend=backend)
+        if init is None:
+            init = engine.master.clone()
+        elif not torch.equal(engine.master, init):
+            fail("train e2e fp16: the engines start from different weights")
+        rec = dict(losses=[], skips=[], scales=[], norms=[], m=[])
+        for b in batches:
+            rec["losses"].append(float(engine.train_batch(batch=b)))
+            rec["skips"].append(engine.last_step_overflowed())
+            rec["scales"].append(engine.get_loss_scale())
+            rec["norms"].append(engine.get_global_grad_norm())
+            rec["m"].append(None if rec["skips"][-1] else
+                            engine.opt_state.m.clone())
+        rec["master"] = engine.master.clone()
+        runs[backend] = rec
+        names, sizes = zip(*[(n, p.numel())
+                             for n, p in engine.module.named_parameters()])
+        del engine
+        _free()
+    k, p = runs["cuda"], runs["plain"]
+    differ = [i for i in range(steps) if k["skips"][i] != p["skips"][i]]
+    if differ:
+        fail(f"train e2e fp16: kernels and plain disagree on overflow at "
+             f"steps {differ}: kernels {k['skips']}, plain {p['skips']}")
+    if k["scales"] != p["scales"]:
+        fail(f"train e2e fp16: loss scales {k['scales']} vs plain "
+             f"{p['scales']}")
+    applied = [i for i, s in enumerate(k["skips"]) if not s]
+    if not k["skips"][0] or len(applied) < 3:
+        fail(f"train e2e fp16: skip pattern {k['skips']}: the first step "
+             f"must overflow and 3 or more must apply")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(k["losses"],
+                                                       p["losses"]))
+    first = applied[0]
+    norm_rel = abs(k["norms"][first] - p["norms"][first]) / \
+        abs(p["norms"][first])
+
+    def worst(a, b):
+        rels = [((x - y).norm() / y.norm()).item()
+                for x, y in zip(a.split(sizes), b.split(sizes))]
+        i = max(range(len(rels)), key=rels.__getitem__)
+        return rels[i], names[i]
+
+    m_rels = [worst(k["m"][i], p["m"][i]) for i in applied]
+    upd_rel = worst(k["master"] - init, p["master"] - init)
+    if not np.isfinite(k["losses"]).all() or loss_rel > E2E_TRAIN_REL_TOL \
+            or norm_rel > E2E_TRAIN_REL_TOL or \
+            any(r > E2E_M_REL_TOL for r, _ in m_rels) or \
+            upd_rel[0] > E2E_UPDATE_REL_TOL:
+        fail(f"train e2e fp16: losses {k['losses']} vs plain {p['losses']} "
+             f"(max rel {loss_rel:.2e}), grad norm rel {norm_rel:.2e} (tol "
+             f"{E2E_TRAIN_REL_TOL}); m by applied step {m_rels} (tol "
+             f"{E2E_M_REL_TOL}); update {upd_rel} (tol {E2E_UPDATE_REL_TOL})")
+    return dict(k=k, p=p, applied=applied, loss_rel=loss_rel,
+                norm_rel=norm_rel, m_rels=m_rels, upd_rel=upd_rel)
+
+
 def phase_train_timing(errs):
-    """B1, B2 (dQ, dK/dV) and B3 at the training path's shapes, bf16
-    attention B=2 S=1024 16 heads of 128 causal, Adam over gpt_1b's
-    parameter count (held against its plain version there first): kernel,
-    plain version, library call and bound.
-    Attention by CUDA-graph replay over 4 rotating input sets (more than
-    the 50 MB L2); Adam (ms-scale) by CUDA events, eagerly."""
+    """B1, B2 (dQ, dK/dV) and B3 at the training path's shapes, attention
+    B=2 S=1024 16 heads of 128 causal in bf16 and in fp16, Adam over
+    gpt_1b's parameter count (held against its plain version there first,
+    then timed with its skip flag 0 and 1): kernel, plain version, library
+    call (SDPA in the same dtype) and bound.  Attention by CUDA-graph
+    replay over 4 rotating input sets (more than the 50 MB L2); Adam
+    (ms-scale) by CUDA events, eagerly.  Returns {kernel: row} for bf16
+    and {(kernel, "fp16"): row} for fp16."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.benchmarks.training import model_config
-    from deepspeed_tpu_torch.ops.adam import (AdamState, fused_adam,
-                                              reference_impl)
+    from deepspeed_tpu_torch.ops.adam import (AdamState, adam_hyper,
+                                              fused_adam, reference_impl)
     from deepspeed_tpu_torch.ops.cuda.flash_attention import (
         flash_attention_bwd_dkv_cuda, flash_attention_bwd_dq_cuda,
         flash_attention_fwd_cuda)
@@ -1691,25 +1957,8 @@ def phase_train_timing(errs):
     gen = torch.Generator(device="cuda").manual_seed(77)
     B, S, H, D = TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.head_dim
     Hkv = cfg.kv_heads
-    dt, c = torch.bfloat16, 4
+    c = 4
     scale = 1.0 / math.sqrt(D)
-    q, do = (_rand((c, B, S, H, D), dt, gen) for _ in range(2))
-    k, v = (_rand((c, B, S, Hkv, D), dt, gen) for _ in range(2))
-    outs = [flash_attention_fwd_cuda(q[i], k[i], v[i], scale) for i in
-            range(c)]
-    o = torch.stack([x[0] for x in outs])
-    lse = torch.stack([x[1] for x in outs])
-    delta = (do.float() * o.float()).sum(-1).transpose(2, 3).contiguous()
-    # library yardstick: SDPA in [B, H, S, D], forward and backward
-    qt, kt, vt, dot = (x.transpose(2, 3).contiguous() for x in (q, k, v, do))
-    leaves = [[x[i].clone().requires_grad_() for x in (qt, kt, vt)]
-              for i in range(c)]
-
-    def sdpa_fwd_bwd(i):
-        a, b_, v_ = leaves[i]
-        out = F.scaled_dot_product_attention(a, b_, v_, is_causal=True)
-        torch.autograd.grad(out, (a, b_, v_), dot[i])
-
     flops = {"fwd": 2 * B * H * S * S * D, "dq": 3 * B * H * S * S * D,
              "dkv": 4 * B * H * S * S * D}
     # each input read once, each output written once in the function's
@@ -1718,33 +1967,61 @@ def phase_train_timing(errs):
     e, ekv, f4 = B * S * H * D * 2, B * S * Hkv * D * 2, B * H * S * 4
     nbytes = {"fwd": 2 * e + 2 * ekv + f4, "dq": 3 * e + 2 * ekv + 2 * f4,
               "dkv": 2 * e + 4 * ekv + 2 * f4}
-    fwd_ms = graph_ms(lambda i: flash_attention_fwd_cuda(
-        q[i], k[i], v[i], scale), c)
-    plain_fwd_ms = graph_ms(lambda i: flash_attention_fwd_plain(
-        q[i], k[i], v[i], scale), c)
-    plain_bwd_ms = graph_ms(lambda i: flash_attention_bwd_plain(
-        q[i], k[i], v[i], o[i], lse[i], do[i], scale), c)
-    lib_fwd_ms = graph_ms(lambda i: F.scaled_dot_product_attention(
-        qt[i], kt[i], vt[i], is_causal=True), c)
-    lib_bwd_ms = graph_ms(sdpa_fwd_bwd, c) - lib_fwd_ms
-    dq_ms = graph_ms(lambda i: flash_attention_bwd_dq_cuda(
-        q[i], k[i], v[i], do[i], lse[i], delta[i], scale), c)
-    dkv_ms = graph_ms(lambda i: flash_attention_bwd_dkv_cuda(
-        q[i], k[i], v[i], do[i], lse[i], delta[i], scale), c)
-    shape = f"B={B} S={S} H={H}/{H} D={D} causal bf16"
     res = {}
-    for name, key, ms, plain_ms, lib_ms in (
-            ("flash_attention_fwd", "fwd", fwd_ms, plain_fwd_ms, lib_fwd_ms),
-            ("flash_attention_bwd_dq", "dq", dq_ms, plain_bwd_ms,
-             lib_bwd_ms),
-            ("flash_attention_bwd_dkv", "dkv", dkv_ms, plain_bwd_ms,
-             lib_bwd_ms)):
-        bound_ms, bound_by = _bound(nbytes[key], flops[key], "bfloat16")
-        res[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=bound_ms, bound_by=bound_by, shape=shape,
-                         max_abs_err=errs[(name, "bfloat16")])
-    del q, k, v, do, o, lse, delta, qt, kt, vt, dot, leaves, outs
-    _free()
+    for dt in (torch.bfloat16, torch.float16):
+        dn = str(dt).split(".")[-1]
+        q, do = (_rand((c, B, S, H, D), dt, gen) for _ in range(2))
+        k, v = (_rand((c, B, S, Hkv, D), dt, gen) for _ in range(2))
+        outs = [flash_attention_fwd_cuda(q[i], k[i], v[i], scale) for i in
+                range(c)]
+        o = torch.stack([x[0] for x in outs])
+        lse = torch.stack([x[1] for x in outs])
+        delta = (do.float() * o.float()).sum(-1).transpose(2, 3).contiguous()
+        # library yardstick: SDPA in [B, H, S, D], forward and backward
+        qt, kt, vt, dot = (x.transpose(2, 3).contiguous()
+                           for x in (q, k, v, do))
+        leaves = [[x[i].clone().requires_grad_() for x in (qt, kt, vt)]
+                  for i in range(c)]
+
+        def sdpa_fwd_bwd(i):
+            a, b_, v_ = leaves[i]
+            out = F.scaled_dot_product_attention(a, b_, v_, is_causal=True)
+            torch.autograd.grad(out, (a, b_, v_), dot[i])
+
+        fwd_ms = graph_ms(lambda i: flash_attention_fwd_cuda(
+            q[i], k[i], v[i], scale), c)
+        plain_fwd_ms = graph_ms(lambda i: flash_attention_fwd_plain(
+            q[i], k[i], v[i], scale), c)
+        plain_bwd_ms = graph_ms(lambda i: flash_attention_bwd_plain(
+            q[i], k[i], v[i], o[i], lse[i], do[i], scale), c)
+        lib_fwd_ms = graph_ms(lambda i: F.scaled_dot_product_attention(
+            qt[i], kt[i], vt[i], is_causal=True), c)
+        lib_bwd_ms = graph_ms(sdpa_fwd_bwd, c) - lib_fwd_ms
+        dq_ms = graph_ms(lambda i: flash_attention_bwd_dq_cuda(
+            q[i], k[i], v[i], do[i], lse[i], delta[i], scale), c)
+        dkv_ms = graph_ms(lambda i: flash_attention_bwd_dkv_cuda(
+            q[i], k[i], v[i], do[i], lse[i], delta[i], scale), c)
+        shape = f"B={B} S={S} H={H}/{H} D={D} causal {dn}"
+        for name, key, ms, plain_ms, lib_ms in (
+                ("flash_attention_fwd", "fwd", fwd_ms, plain_fwd_ms,
+                 lib_fwd_ms),
+                ("flash_attention_bwd_dq", "dq", dq_ms, plain_bwd_ms,
+                 lib_bwd_ms),
+                ("flash_attention_bwd_dkv", "dkv", dkv_ms, plain_bwd_ms,
+                 lib_bwd_ms)):
+            bound_ms, bound_by = _bound(nbytes[key], flops[key], dn)
+            row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=bound_ms, bound_by=bound_by, shape=shape,
+                       max_abs_err=errs[(name, dn)])
+            res[name if dt == torch.bfloat16 else (name, "fp16")] = row
+        del q, k, v, do, o, lse, delta, qt, kt, vt, dot, leaves, outs
+        _free()
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        phase("timing", f"{name}: fp16 {res[(name, 'fp16')]['ms']:.4f} ms "
+              f"vs bf16 {res[name]['ms']:.4f} ms "
+              f"({res[(name, 'fp16')]['ms'] / res[name]['ms']:.3f}x); "
+              f"SDPA fp16 {res[(name, 'fp16')]['library_ms']:.4f} ms")
 
     # B3 over gpt_1b's flat fp32 buffers (28 bytes per parameter), first
     # held against its plain version at this n, from the same inputs
@@ -1753,24 +2030,32 @@ def phase_train_timing(errs):
     g = torch.randn(n, generator=gen, device="cuda") * 1e-3
     m = torch.randn(n, generator=gen, device="cuda") * 1e-4
     v = torch.rand(n, generator=gen, device="cuda") * 1e-6
-    kw = dict(beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01,
-              adamw_mode=True)
+    kw = dict(beta2=0.999, eps=1e-8, weight_decay=0.01, adamw_mode=True)
+    count = torch.zeros((), dtype=torch.int32, device="cuda")
+    hyper = adam_hyper(count, 1e-4, 0.9, 0.999)
     ref = [t.clone() for t in (p, m, v)]
-    fused_adam(p, g, AdamState(m, v, 1), lr=1e-4, backend="cuda", **kw)
-    reference_impl(ref[0], g, AdamState(ref[1], ref[2], 1), lr=1e-4, **kw)
+    fused_adam(p, g, AdamState(m, v, count.clone()), hyper, backend="cuda",
+               **kw)
+    reference_impl(ref[0], g, AdamState(ref[1], ref[2], count.clone()),
+                   hyper, **kw)
     adam_err = check_adam(f"fused_adam n={n} ({TRAIN_MODEL}) g=float32 "
                           f"adamw=True bias_correction=True", (p, m, v), ref)
     del ref
     _free()
-    # timed from zero moments, as training starts: m and v then follow g
+    # timed from zero moments, as training starts: m and v then follow g;
+    # then with the skip flag set (an fp16 overflow: nothing is moved)
     m.zero_()
     v.zero_()
-    ms = time_ms(lambda i: fused_adam_cuda(p, g, m, v, lr=1e-4, c1=0.1,
-                                           c2=0.001, **kw), iters=5,
-                 warmup=1)
-    plain_ms = time_ms(lambda i: reference_impl(p, g, AdamState(m, v, 1),
-                                                lr=1e-4, **kw), iters=3,
-                       warmup=1)
+    flags = [torch.full((), f, dtype=torch.int32, device="cuda")
+             for f in (0, 1)]
+    ms = time_ms(lambda i: fused_adam_cuda(p, g, m, v, hyper, flags[0],
+                                           **kw), iters=5, warmup=1)
+    skip_ms = time_ms(lambda i: fused_adam_cuda(p, g, m, v, hyper,
+                                                flags[1], **kw),
+                      iters=5, warmup=1)
+    plain_ms = time_ms(lambda i: reference_impl(
+        p, g, AdamState(m, v, count.clone()), hyper, **kw), iters=3,
+        warmup=1)
     steps = [torch.ones((), device="cuda")]
     lib_ms = time_ms(lambda i: torch._fused_adamw_(
         [p], [g], [m], [v], [], steps, lr=1e-4, beta1=0.9, beta2=0.999,
@@ -1781,7 +2066,9 @@ def phase_train_timing(errs):
     bound_ms, bound_by = _bound(28 * n, 20 * n, "float32")
     res["fused_adam"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                              bound_ms=bound_ms, bound_by=bound_by,
-                             shape=f"n={n} fp32 p/g/m/v AdamW",
+                             skip_ms=skip_ms,
+                             shape=f"n={n} fp32 p/g/m/v AdamW, scalars "
+                                   f"from the card",
                              max_abs_err=max(adam_err,
                                              errs[("fused_adam", "float32")]))
     del p, g, m, v
@@ -1791,6 +2078,8 @@ def phase_train_timing(errs):
               f"{r['ms']:.4f}, plain {r['plain_ms']:.4f}, library "
               f"{r['library_ms']:.4f}; bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.3f} of bound")
+    phase("timing", f"fused_adam with its skip flag set: {skip_ms:.4f} ms "
+          f"(nothing read or written)")
     return res
 
 
@@ -2084,8 +2373,27 @@ def main():
               f"{[round(x, 4) for x in out['losses']]}")
         phase("train", f"launches in {TRAIN_STEPS + 1} train_batch calls of "
               f"{name}: {launched}; every other kernel 0, plain versions 0")
+    # the fp16 slice's main path, through the ds_bench train CLI
+    fp16_out, fp16_counts, fp16_launched = phase_train_fp16_cli()
+    for k in launches:
+        launches[k] += fp16_counts[k]
+    phase("train", f"ds_bench train {TRAIN_MODEL} fp16 ({FP16_SCHEDULER}, "
+          f"loss scale from 2**{FP16_SCALE_POWER}): "
+          f"{fp16_out['ms_per_train_batch']:.1f} ms per train_batch, "
+          f"{fp16_out['tokens_per_sec']:.1f} tokens/s, "
+          f"{fp16_out['model_tflops']:.2f} TFLOP/s, MFU "
+          f"{fp16_out['mfu']:.4f} of 989 TFLOP/s; peak memory "
+          f"{fp16_out['peak_gb']:.1f} GB; {fp16_out['skipped_steps']} of "
+          f"{FP16_STEPS} steps skipped, final loss scale "
+          f"{fp16_out['loss_scale']}; losses "
+          f"{[round(x, 4) for x in fp16_out['losses']]}")
+    phase("train", f"launches in {FP16_STEPS} fp16 train_batch calls "
+          f"(skipped ones included): {fp16_launched}; every other kernel "
+          f"0, plain versions 0")
+    fixed = {}
     for name in TRAIN_MODELS:
         losses, step_ms, device_ms, top = phase_train_fixed(name)
+        fixed[name] = (step_ms, device_ms)
         phase("train", f"{name} fixed batch, {FIXED_STEPS} steps: losses "
               f"{[round(x, 4) for x in losses]} (falling); one train_batch "
               f"{step_ms:.1f} ms wall, device {device_ms:.1f} ms (profiler), "
@@ -2099,6 +2407,20 @@ def main():
                   f"(full width and depth): losses "
                   f"{[round(x, 4) for x in plain_losses]}, max rel "
                   f"{rel:.3e} from the kernels' (tol {FIXED_PLAIN_REL_TOL})")
+    losses, skips, scales, step_ms, device_ms, top = phase_train_fixed_fp16()
+    phase("train", f"{TRAIN_MODEL} fp16 fixed batch, {FP16_STEPS} steps: "
+          f"losses {[round(x, 4) for x in losses]}; skipped "
+          f"{[int(x) for x in skips]}; loss scale after each "
+          f"{[int(x) for x in scales]}; the loss falls over the applied "
+          f"steps")
+    b_ms, b_dev = fixed[TRAIN_MODEL]
+    phase("train", f"{TRAIN_MODEL} one train_batch, fp16 vs bf16: "
+          f"{step_ms:.1f} vs {b_ms:.1f} ms wall, device {device_ms:.1f} vs "
+          f"{b_dev:.1f} ms (profiler), busy share {device_ms / step_ms:.3f} "
+          f"vs {b_dev / b_ms:.3f}")
+    for kname, k_ms in top:
+        phase("train", f"  {TRAIN_MODEL} fp16 device ms/train_batch "
+              f"{k_ms:.3f}  {kname[:90]}")
     # 2-layer kernels vs plain: each model in bf16; GPT-Neo in fp32 too,
     # where no bf16 rounding blurs what its unscaled logits amplify
     for name, bf16 in [(n, True) for n in TRAIN_MODELS] + [
@@ -2120,6 +2442,20 @@ def main():
             phase("e2e", f"train {r['label']} witness, plain micro 1 x gas 4"
                   f" vs plain micro 2 x gas 2: m rel L2 by step "
                   f"{[(f'{x:.3e}', n) for x, n in r['witness_rels']]}")
+    r = phase_train_e2e_fp16()
+    phase("e2e", f"train {TRAIN_MODEL} fp16, 2 layers full width, "
+          f"{FP16_E2E_STEPS} train_batch steps from loss scale "
+          f"2**{FP16_E2E_SCALE_POWER}: skipped "
+          f"{[int(x) for x in r['k']['skips']]}"
+          f" on both paths, loss scales {[int(x) for x in r['k']['scales']]}"
+          f" on both; losses kernels {[round(x, 5) for x in r['k']['losses']]}"
+          f" vs plain {[round(x, 5) for x in r['p']['losses']]} (max rel "
+          f"{r['loss_rel']:.2e}); first applied grad norm rel "
+          f"{r['norm_rel']:.2e}; tol {E2E_TRAIN_REL_TOL}")
+    phase("e2e", f"train {TRAIN_MODEL} fp16 state, worst parameter: m rel L2"
+          f" by applied step {[(f'{x:.3e}', n) for x, n in r['m_rels']]} "
+          f"(tol {E2E_M_REL_TOL}), update rel L2 {r['upd_rel'][0]:.3e} "
+          f"({r['upd_rel'][1]}; tol {E2E_UPDATE_REL_TOL})")
 
     # ---- block-sparse entry point, counters read around its calls -----
     sparse_counts, t_sparse, sparse_err = phase_sparse_path()
@@ -2178,6 +2514,13 @@ def main():
         "sparse_attention": (csrc + "sparse_attention.cu",
                              pallas + "sparse_attention.py:54"),
     }
+    # the fp16 forms of B1 and B2: rows of their own, with the launches of
+    # the fp16 main path (the rows above count every main path)
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        meta[f"{name}_fp16"] = meta[name]
+        timing[f"{name}_fp16"] = timing[(name, "fp16")]
+        launches[f"{name}_fp16"] = fp16_counts[name]
     for name, (source, replaces) in meta.items():
         t = timing[name]
         if not launches[name]:

@@ -7,7 +7,8 @@ its path as a hand-written Hopper kernel (``ops/csrc``) beside a plain
 PyTorch version.  Ported so far: serving (``init_inference(...).generate``
 and ``create_serving_engine``) and training on one card
 (``initialize(...)`` -> ``DeepSpeedEngine.train_batch`` or
-``forward``/``backward``/``step``).  Entry points run on the card unless
+``forward``/``backward``/``step``; fp32, bf16, or fp16 with loss scaling;
+LR schedules).  Entry points run on the card unless
 the caller passes ``device="cpu"``; with no card they raise.
 """
 
@@ -28,19 +29,21 @@ from deepspeed_tpu_torch.utils.logging import log_dist, logger  # noqa: F401
 def initialize(args=None, model=None, model_parameters=None, config=None,
                optimizer=None, lr_scheduler=None, device=None):
     """Counterpart of ``deepspeed_tpu.initialize``: returns ``(engine,
-    optimizer, None, None)``.  ``model``: a ``CausalTransformerLM``;
+    optimizer, None, lr_scheduler)``.  ``model``: a ``CausalTransformerLM``;
     ``model_parameters``: None (the module's own weights) or the JAX
     package's param dict with numpy leaves (loaded through
     ``models.convert.from_jax_params``); ``config``: a dict, a JSON path,
-    ``args.deepspeed_config`` or a ``DeepSpeedConfig``.  ``device``
-    defaults to the card and raises without one.  A client optimizer or
-    LR scheduler is not ported (ROADMAP A7)."""
+    ``args.deepspeed_config`` or a ``DeepSpeedConfig``.  ``lr_scheduler``:
+    an ``LRScheduler`` or a callable on the 0-dim fp32 step (the config's
+    ``scheduler`` block takes precedence, as in the JAX engine).
+    ``device`` defaults to the card and raises without one.  A client
+    optimizer is not ported (ROADMAP A7)."""
     if model is None:
         raise ValueError("deepspeed_tpu_torch.initialize: model is required")
-    if optimizer is not None or lr_scheduler is not None:
-        raise NotImplementedError("client optimizers and LR schedulers are "
-                                  "not ported yet (ROADMAP A7); name the "
-                                  "optimizer in the config")
+    if optimizer is not None:
+        raise NotImplementedError("client optimizers are not ported yet "
+                                  "(ROADMAP A7); name the optimizer in the "
+                                  "config")
     if config is None and getattr(args, "deepspeed_config", None):
         config = args.deepspeed_config
     if config is None:
@@ -52,8 +55,9 @@ def initialize(args=None, model=None, model_parameters=None, config=None,
         from deepspeed_tpu_torch.models.convert import from_jax_params
         model.load_state_dict(from_jax_params(model_parameters,
                                               model.config), strict=True)
-    engine = DeepSpeedEngine(model, config, device=device)
-    return engine, engine.optimizer, None, None
+    engine = DeepSpeedEngine(model, config, device=device,
+                             lr_scheduler=lr_scheduler)
+    return engine, engine.optimizer, None, engine.lr_scheduler
 
 
 def init_inference(model=None, config=None, params=None, device=None,

@@ -37,6 +37,7 @@ from deepspeed_tpu_torch.inference.robustness import (
     ServingRobustnessConfig, ServingStalled)
 from deepspeed_tpu_torch.inference.scheduler import (SLO_CLASSES,
                                                      create_scheduler)
+from deepspeed_tpu_torch.ops.decode_attention import check_serving_dtype
 from deepspeed_tpu_torch.ops.paged_attention import (
     PageAllocationError, PagedAllocator, resolve_attention_backend)
 from deepspeed_tpu_torch.utils.logging import logger
@@ -127,6 +128,8 @@ class ServingEngine:
                                       "the fault injector, not ported yet "
                                       "(ROADMAP A10); pass injector=")
         self.cache_dtype = to_torch_dtype(dtype)
+        check_serving_dtype(self.cache_dtype, self.device,
+                            self.serving.attention_backend)
         self.caches = model.init_paged_caches(num_pages, page_size,
                                               dtype=self.cache_dtype)
         self.injector = injector

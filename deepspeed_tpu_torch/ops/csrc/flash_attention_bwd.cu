@@ -31,7 +31,17 @@
 // S=2048 leaves 491,648 of the 2,098,176 causal (q, k) pairs and is bound
 // by bytes.
 //
-// dK/dV, bf16: tensor cores fed by TMA.  One block of three warpgroups per
+// bf16 and fp16 run one tensor-core body each for dQ and dK/dV, templated
+// on the tile's element type E (wgmma .bf16 or .f16, the tensor maps' data
+// type, the rounding of P, dS and dQ).  fp16 rounds at 2^-11 where bf16
+// rounds at 2^-8, with bf16's fp32 accumulators; but its range ends at
+// 65504, and a loss scale rides in dO, so dS (rounded to E as an A
+// operand) can overflow where the TPU kernel, which keeps dS in fp32,
+// overflows only in its outputs; the fp16 training check of chip_smoke.py
+// reports any step where the kernels and the plain versions disagree on
+// overflow.
+//
+// dK/dV: tensor cores fed by TMA.  One block of three warpgroups per
 // (128-key tile, b * h), the key tiles with the longest causal q loops
 // first.  K and V (32 KB each) stay in shared memory for the block; a
 // producer warp streams 64-row Q and dO tiles through a two-stage ring
@@ -40,7 +50,7 @@
 // compute the products transposed, keys as wgmma's M: S^T = K Q^T and
 // dP^T = V dO^T from shared memory; P^T = exp(S^T (+ slope * key) - LSE)
 // and dS^T = P^T (dP^T - delta) scale on the accumulator registers; then
-// P^T and dS^T, rounded to bf16 in registers, are the A operands of
+// P^T and dS^T, rounded to E in registers, are the A operands of
 // dV += P^T dO and dK += dS^T Q, dO and Q read transposed from the same
 // swizzled tiles -- nothing goes back through shared memory, and dV's
 // product runs while dS is formed.  dK and dV (128 fp32 registers a
@@ -49,8 +59,8 @@
 // the tile; masks apply only on tiles that touch the diagonal, the window
 // edge or S.
 //
-// dQ, bf16: the same shape as the forward with two score products, dS in
-// P's place.  One block of three warpgroups per (128-row q tile, b * h),
+// dQ, bf16/fp16: the same shape as the forward with two score products,
+// dS in P's place.  One block of three warpgroups per (128-row q tile, b * h),
 // the q tiles with the longest causal key loops first.  A producer warp
 // loads the Q and dO tiles once and streams 64-key K and V tiles through a
 // two-stage ring (TMA, 128-byte swizzle, rows past S zero-filled); Q and
@@ -61,7 +71,7 @@
 // 64 fp32 registers a thread, which 128-key products would take past
 // setmaxnreg's 240); P = exp(S scale (+ slope * key) - LSE), masked only
 // on tiles that touch the diagonal, the window's edge or S; dS = P (dP -
-// delta) scale on the accumulator registers, rounded to bf16 as the A
+// delta) scale on the accumulator registers, rounded to E as the A
 // operand of dQ += dS K, K read transposed from the same swizzled tile.
 // The key loop starts at the window's first tile and ends at the causal
 // frontier.  dQ stays a kernel of its own, summed in registers: no fp32
@@ -125,7 +135,7 @@ __device__ __forceinline__ void zero(float (&a)[I][J]) {
 }
 
 // One parameter block for both dQ instantiations; the tensor maps are the
-// bf16 kernel's and stay zero for fp32.
+// tensor-core kernels' and stay zero for fp32.
 struct DqParams {
   CUtensorMap q_map, do_map, k_map, v_map;
   const void* q;
@@ -201,7 +211,7 @@ __device__ __forceinline__ void dq_cuda_cores(const DqParams& p,
   }
 }
 
-// ---- dQ, bf16: tensor cores -----------------------------------------------
+// ---- dQ, bf16 / fp16: tensor cores ----------------------------------------
 
 namespace tcq {
 constexpr int BM = 128;                      // query rows of a block
@@ -218,7 +228,7 @@ constexpr int kBarOffset = kStageOffset + kStages * 2 * kKvTile;
 constexpr size_t kSmem = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
 }  // namespace tcq
 
-template <bool SLOPE, bool WINDOW>
+template <typename E, bool SLOPE, bool WINDOW>
 __device__ __forceinline__ void dq_tensor_cores(const DqParams& p,
                                                 unsigned char* raw) {
   using namespace hopper;
@@ -307,15 +317,15 @@ __device__ __forceinline__ void dq_tensor_cores(const DqParams& p,
         for (int kk = 0; kk < 8; ++kk) {
           const uint32_t q_off = (kk / 4) * kQHalf + (kk % 4) * 32;
           const uint32_t kv_off = (kk / 4) * kKvHalf + (kk % 4) * 32;
-          wgmma_ss_n64(s, desc_kmajor(q_addr + q_off),
-                       desc_kmajor(k_addr + kv_off), kk > 0);
+          wgmma_ss_n64<E>(s, desc_kmajor(q_addr + q_off),
+                          desc_kmajor(k_addr + kv_off), kk > 0);
         }
 #pragma unroll
         for (int kk = 0; kk < 8; ++kk) {
           const uint32_t q_off = (kk / 4) * kQHalf + (kk % 4) * 32;
           const uint32_t kv_off = (kk / 4) * kKvHalf + (kk % 4) * 32;
-          wgmma_ss_n64(dp, desc_kmajor(do_addr + q_off),
-                       desc_kmajor(v_addr + kv_off), kk > 0);
+          wgmma_ss_n64<E>(dp, desc_kmajor(do_addr + q_off),
+                          desc_kmajor(v_addr + kv_off), kk > 0);
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -341,10 +351,10 @@ __device__ __forceinline__ void dq_tensor_cores(const DqParams& p,
           const float pr = ex2(fmaf(x, kLog2e, -lse2[r]));
           dp[i] = pr * (dp[i] - dl[r]) * scale;
         }
-        // dQ += dS K: dS rounded to bf16 as register A operands, K read
+        // dQ += dS K: dS rounded to E as register A operands, K read
         // transposed (MN-major: its keys are the depth) from the same tile
         uint32_t da[16];
-        acc_to_a(dp, da);
+        acc_to_a<E>(dp, da);
         fence_regs(dq);
         fence_regs(da);
         wgmma_fence();
@@ -352,7 +362,8 @@ __device__ __forceinline__ void dq_tensor_cores(const DqParams& p,
         for (int kk = 0; kk < 4; ++kk) {
           const uint32_t a[4] = {da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
                                  da[4 * kk + 3]};
-          wgmma_rs_n128(dq, a, desc_mnmajor(k_addr + kk * 2048, kKvHalf));
+          wgmma_rs_n128<E>(dq, a,
+                           desc_mnmajor(k_addr + kk * 2048, kKvHalf));
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -362,7 +373,7 @@ __device__ __forceinline__ void dq_tensor_cores(const DqParams& p,
       mbar_arrive(&empty[st]);
     }
 
-    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.dq);
+    E* out = static_cast<E*>(p.dq);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + 8 * r;
@@ -372,7 +383,7 @@ __device__ __forceinline__ void dq_tensor_cores(const DqParams& p,
 #pragma unroll
       for (int j = 0; j < 16; ++j)
         orow[(8 * j + 2 * (t % 4)) / 2] =
-            pack_bf16(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
+            pack2<E>(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
     }
   }
 }
@@ -389,11 +400,11 @@ flash_bwd_dq_kernel(const __grid_constant__ DqParams p) {
   if constexpr (std::is_same<T, float>::value)
     dq_cuda_cores<SLOPE, WINDOW>(p, reinterpret_cast<float*>(smem_raw));
   else
-    dq_tensor_cores<SLOPE, WINDOW>(p, smem_raw);
+    dq_tensor_cores<T, SLOPE, WINDOW>(p, smem_raw);
 }
 
 // One parameter block for both dK/dV instantiations; the tensor maps are
-// the bf16 kernel's and stay zero for fp32.
+// the tensor-core kernels' and stay zero for fp32.
 struct DkvParams {
   CUtensorMap q_map, k_map, v_map, do_map;
   const void* q;
@@ -478,7 +489,7 @@ __device__ __forceinline__ void dkv_cuda_cores(const DkvParams& p,
   }
 }
 
-// ---- dK/dV, bf16: tensor cores ------------------------------------------
+// ---- dK/dV, bf16 / fp16: tensor cores -------------------------------------
 
 namespace tc {
 constexpr int BN = 128;                      // keys of a block
@@ -497,7 +508,7 @@ constexpr int kBarOffset = kRowsOffset + kStages * 2 * BM * 4;
 constexpr size_t kSmem = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
 }  // namespace tc
 
-template <bool SLOPE, bool WINDOW>
+template <typename E, bool SLOPE, bool WINDOW>
 __device__ __forceinline__ void dkv_tensor_cores(const DkvParams& p,
                                                  unsigned char* raw) {
   using namespace hopper;
@@ -594,14 +605,14 @@ __device__ __forceinline__ void dkv_tensor_cores(const DkvParams& p,
         for (int kk = 0; kk < 8; ++kk) {
           const uint32_t kv_off = (kk / 4) * kKvHalf + (kk % 4) * 32;
           const uint32_t q_off = (kk / 4) * kQHalf + (kk % 4) * 32;
-          wgmma_ss_n64(s, desc_kmajor(k_addr + kv_off),
+          wgmma_ss_n64<E>(s, desc_kmajor(k_addr + kv_off),
                        desc_kmajor(q_addr + q_off), kk > 0);
         }
 #pragma unroll
         for (int kk = 0; kk < 8; ++kk) {
           const uint32_t kv_off = (kk / 4) * kKvHalf + (kk % 4) * 32;
           const uint32_t q_off = (kk / 4) * kQHalf + (kk % 4) * 32;
-          wgmma_ss_n64(dp, desc_kmajor(v_addr + kv_off),
+          wgmma_ss_n64<E>(dp, desc_kmajor(v_addr + kv_off),
                        desc_kmajor(do_addr + q_off), kk > 0);
         }
         wgmma_commit();
@@ -612,7 +623,7 @@ __device__ __forceinline__ void dkv_tensor_cores(const DkvParams& p,
         const bool edge =
             q0 + BM > S || kw + 64 > S || (p.causal && q0 < kw + 63) ||
             (WINDOW && window > 0 && q0 + BM - 1 - kw >= window);
-        // P^T first: dV += P^T dO starts on the tensor cores (P^T as bf16
+        // P^T first: dV += P^T dO starts on the tensor cores (P^T as E
         // A operands from registers, dO read transposed: its rows are the
         // depth) while dS^T is formed; then dK += dS^T Q the same way
 #pragma unroll
@@ -629,7 +640,7 @@ __device__ __forceinline__ void dkv_tensor_cores(const DkvParams& p,
           s[i] = ex2(fmaf(x, kLog2e, -lse_s[c]));   // 0 where masked
         }
         uint32_t pa[16], da[16];
-        acc_to_a(s, pa);
+        acc_to_a<E>(s, pa);
         fence_regs(dv);
         fence_regs(pa);
         wgmma_fence();
@@ -637,14 +648,15 @@ __device__ __forceinline__ void dkv_tensor_cores(const DkvParams& p,
         for (int kk = 0; kk < 4; ++kk) {
           const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
                                  pa[4 * kk + 3]};
-          wgmma_rs_n128(dv, a, desc_mnmajor(do_addr + kk * 2048, kQHalf));
+          wgmma_rs_n128<E>(dv, a,
+                           desc_mnmajor(do_addr + kk * 2048, kQHalf));
         }
 #pragma unroll
         for (int i = 0; i < 32; ++i) {
           const int c = acc_col(i, t);
           dp[i] = s[i] * (dp[i] - dl_s[c]) * scale;
         }
-        acc_to_a(dp, da);
+        acc_to_a<E>(dp, da);
         fence_regs(dk);
         fence_regs(da);
         wgmma_fence();
@@ -652,7 +664,8 @@ __device__ __forceinline__ void dkv_tensor_cores(const DkvParams& p,
         for (int kk = 0; kk < 4; ++kk) {
           const uint32_t a[4] = {da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
                                  da[4 * kk + 3]};
-          wgmma_rs_n128(dk, a, desc_mnmajor(q_addr + kk * 2048, kQHalf));
+          wgmma_rs_n128<E>(dk, a,
+                           desc_mnmajor(q_addr + kk * 2048, kQHalf));
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -694,7 +707,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ DkvParams p) {
   if constexpr (std::is_same<T, float>::value)
     dkv_cuda_cores<SLOPE, WINDOW>(p, reinterpret_cast<float*>(smem_raw));
   else
-    dkv_tensor_cores<SLOPE, WINDOW>(p, smem_raw);
+    dkv_tensor_cores<T, SLOPE, WINDOW>(p, smem_raw);
 }
 
 template <typename T, bool SLOPE, bool WINDOW>
@@ -745,12 +758,37 @@ int launch_dkv_biased(const DkvParams& p, int B, cudaStream_t stream) {
   });
 }
 
+// The tensor-core kernels: their tensor maps (Q and dO at H heads, K and V
+// at Hkv, each kernel's own tile rows), then the launch.
+template <typename E, int Q_ROWS, int KV_ROWS, typename P>
+int make_maps(P& p, int B) {
+  using hopper::make_head_map;
+  const int S = p.S, H = p.H, Hkv = p.Hkv;
+  int rc = make_head_map<E>(&p.q_map, p.q, B, S, H, Q_ROWS);
+  if (!rc) rc = make_head_map<E>(&p.do_map, p.dout, B, S, H, Q_ROWS);
+  if (!rc) rc = make_head_map<E>(&p.k_map, p.k, B, S, Hkv, KV_ROWS);
+  if (!rc) rc = make_head_map<E>(&p.v_map, p.v, B, S, Hkv, KV_ROWS);
+  return rc;
+}
+
+template <typename E>
+int launch_dq_tensor_cores(DqParams& p, int B, cudaStream_t stream) {
+  const int rc = make_maps<E, tcq::BM, tcq::BN>(p, B);
+  return rc ? rc : launch_dq_biased<E>(p, B, stream);
+}
+
+template <typename E>
+int launch_dkv_tensor_cores(DkvParams& p, int B, cudaStream_t stream) {
+  const int rc = make_maps<E, tc::BM, tc::BN>(p, B);
+  return rc ? rc : launch_dkv_biased<E>(p, B, stream);
+}
+
 }  // namespace
 
 // q/dout/dq: [B, S, H, D]; k/v: [B, S, Hkv, D] (one dtype: 0 = float32,
-// 1 = bfloat16); lse/delta: fp32 [B, H, S].  slopes: fp32 [H] ALiBi slopes
-// or null; window: the sliding window, <= 0 for none.  D must be 128.
-// Return cudaGetLastError().
+// 1 = bfloat16, 2 = float16); lse/delta: fp32 [B, H, S].  slopes: fp32 [H]
+// ALiBi slopes or null; window: the sliding window, <= 0 for none.  D must
+// be 128.  Return cudaGetLastError().
 extern "C" int ds_flash_attention_bwd_dq(const void* q, const void* k,
                                          const void* v, const void* dout,
                                          const void* lse, const void* delta,
@@ -777,12 +815,9 @@ extern "C" int ds_flash_attention_bwd_dq(const void* q, const void* k,
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_dq_biased<float>(p, B, s);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  int rc = hopper::make_head_map(&p.q_map, q, B, S, H, tcq::BM);
-  if (!rc) rc = hopper::make_head_map(&p.do_map, dout, B, S, H, tcq::BM);
-  if (!rc) rc = hopper::make_head_map(&p.k_map, k, B, S, Hkv, tcq::BN);
-  if (!rc) rc = hopper::make_head_map(&p.v_map, v, B, S, Hkv, tcq::BN);
-  return rc ? rc : launch_dq_biased<__nv_bfloat16>(p, B, s);
+  if (dtype == 1) return launch_dq_tensor_cores<__nv_bfloat16>(p, B, s);
+  if (dtype == 2) return launch_dq_tensor_cores<__half>(p, B, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // dk/dv: fp32 [B, S, H, D], one row block per QUERY head (summed over the
@@ -815,10 +850,7 @@ extern "C" int ds_flash_attention_bwd_dkv(const void* q, const void* k,
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_dkv_biased<float>(p, B, s);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  int rc = hopper::make_head_map(&p.q_map, q, B, S, H, tc::BM);
-  if (!rc) rc = hopper::make_head_map(&p.do_map, dout, B, S, H, tc::BM);
-  if (!rc) rc = hopper::make_head_map(&p.k_map, k, B, S, Hkv, tc::BN);
-  if (!rc) rc = hopper::make_head_map(&p.v_map, v, B, S, Hkv, tc::BN);
-  return rc ? rc : launch_dkv_biased<__nv_bfloat16>(p, B, s);
+  if (dtype == 1) return launch_dkv_tensor_cores<__nv_bfloat16>(p, B, s);
+  if (dtype == 2) return launch_dkv_tensor_cores<__half>(p, B, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -22,7 +22,9 @@
 // operations (34.8 us); a window of 256 at S=2048 leaves 491,648 of the
 // 2,098,176 causal (q, k) pairs and is bound by bytes again.
 //
-// bf16: tensor cores fed by TMA.  One block of three warpgroups per
+// bf16 and fp16: tensor cores fed by TMA, one body for both (the tile's
+// element type E is a template argument: wgmma .bf16 or .f16, the tensor
+// maps' data type, P's and O's rounding).  One block of three warpgroups per
 // (128-row q tile, b * h); the blocks with the most key tiles (the causal
 // q tiles at the end of the sequence) are first in launch order.  A
 // producer warp loads the Q tile once and streams 128-key K and V tiles
@@ -32,7 +34,7 @@
 // memory, the fp32 online softmax on the accumulator registers (a row
 // lives in the 4 lanes of a quad: two shuffles reduce it; exponentials
 // are one ex2.approx each, the row max folded into one FFMA), then P,
-// rounded to bf16 in registers, is the A operand of O += P V, V read
+// rounded to E in registers, is the A operand of O += P V, V read
 // transposed from the same swizzled tile.  Masks are applied only on
 // tiles that touch the diagonal, the window's edge or S; a warpgroup skips
 // a tile it cannot see at all.  setmaxnreg moves registers from the
@@ -40,10 +42,16 @@
 // stream is two 64 KB tiles per 128 x 128 block-tile: at S=2048 the card's
 // L2 bandwidth alone sets a floor near half this kernel's time.
 //
+// fp16 keeps 3 more mantissa bits than bf16 (P, O and the products' inputs
+// round at 2^-11 instead of 2^-8) and the same fp32 accumulators, LSE and
+// softmax; P <= 1 and O is a convex mix of V's rows, so neither can leave
+// fp16's range where V does not.
+//
 // fp32 stays on the CUDA-core kernel (flash_tile.cuh): the fp32 checks
 // hold it to 1e-4 of the plain version, ALiBi scores of ~1.4e3 included,
 // which tf32 products (10-bit mantissa) would not meet.  The dtype picks
-// the instantiation in the C entry; a bf16 launch never takes this path.
+// the instantiation in the C entry; a bf16 or fp16 launch never takes this
+// path.
 #include "flash_tile.cuh"
 #include "hopper.cuh"
 
@@ -51,8 +59,8 @@ namespace {
 
 using namespace dsflash;
 
-// One parameter block for both instantiations; the tensor maps are the
-// bf16 kernel's and stay zero for fp32.
+// One parameter block for every instantiation; the tensor maps are the
+// tensor-core kernels' and stay zero for fp32.
 struct FwdParams {
   CUtensorMap q_map, k_map, v_map;
   const void* q;
@@ -171,13 +179,13 @@ __device__ __forceinline__ void fwd_cuda_cores(const FwdParams& p,
         m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
 }
 
-// ---- bf16: tensor cores -------------------------------------------------
+// ---- bf16 / fp16: tensor cores --------------------------------------------
 
 namespace tc {
 constexpr int BM = 128;                       // query rows of a block
 constexpr int BN = 128;                       // keys of a K/V tile
 constexpr int kThreads = 384;                 // 2 consumer + 1 producer WG
-constexpr int kTile = 128 * hopper::kHeadDim * 2;   // 32 KB bf16 tile
+constexpr int kTile = 128 * hopper::kHeadDim * 2;   // 32 KB 2-byte tile
 constexpr int kHalf = kTile / 2;              // one 64-column box
 constexpr int kStages = 2;
 // Q, then kStages x (K, V), then the barriers: Q's, full[], empty[]
@@ -185,7 +193,7 @@ constexpr int kBarOffset = kTile + kStages * 2 * kTile;
 constexpr size_t kSmem = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
 }  // namespace tc
 
-template <bool SLOPE, bool WINDOW>
+template <typename E, bool SLOPE, bool WINDOW>
 __device__ __forceinline__ void fwd_tensor_cores(const FwdParams& p,
                                                  unsigned char* raw) {
   using namespace hopper;
@@ -262,7 +270,7 @@ __device__ __forceinline__ void fwd_tensor_cores(const FwdParams& p,
 #pragma unroll
         for (int kk = 0; kk < 8; ++kk) {
           const uint32_t off = (kk / 4) * kHalf + (kk % 4) * 32;
-          wgmma_ss_n128(s, desc_kmajor(q_addr + off),
+          wgmma_ss_n128<E>(s, desc_kmajor(q_addr + off),
                         desc_kmajor(k_addr + off), kk > 0);
         }
         wgmma_commit();
@@ -308,7 +316,7 @@ __device__ __forceinline__ void fwd_tensor_cores(const FwdParams& p,
           o[i] *= corr[r];
         }
         uint32_t pa[32];
-        acc_to_a(s, pa);
+        acc_to_a<E>(s, pa);
         fence_regs(o);
         fence_regs(pa);
         wgmma_fence();
@@ -316,7 +324,8 @@ __device__ __forceinline__ void fwd_tensor_cores(const FwdParams& p,
         for (int kk = 0; kk < 8; ++kk) {
           const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
                                  pa[4 * kk + 3]};
-          wgmma_rs_n128(o, a, desc_mnmajor(v_addr + kk * 2048, kHalf));
+          wgmma_rs_n128<E>(o, a,
+                           desc_mnmajor(v_addr + kk * 2048, kHalf));
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -326,7 +335,7 @@ __device__ __forceinline__ void fwd_tensor_cores(const FwdParams& p,
       mbar_arrive(&empty[st]);
     }
 
-    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.o);
+    E* out = static_cast<E*>(p.o);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -339,7 +348,7 @@ __device__ __forceinline__ void fwd_tensor_cores(const FwdParams& p,
 #pragma unroll
       for (int j = 0; j < 16; ++j)
         orow[(8 * j + 2 * (t % 4)) / 2] =
-            pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+            pack2<E>(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
       if (t % 4 == 0)
         p.lse[(long long)bh * S + row] = m[r] + logf(fmaxf(l[r], 1e-30f));
     }
@@ -358,7 +367,7 @@ flash_fwd_kernel(const __grid_constant__ FwdParams p) {
   if constexpr (std::is_same<T, float>::value)
     fwd_cuda_cores<SLOPE, WINDOW>(p, reinterpret_cast<float*>(smem_raw));
   else
-    fwd_tensor_cores<SLOPE, WINDOW>(p, smem_raw);
+    fwd_tensor_cores<T, SLOPE, WINDOW>(p, smem_raw);
 }
 
 template <typename T, bool SLOPE, bool WINDOW>
@@ -385,12 +394,23 @@ int launch_biased(const FwdParams& p, int B, cudaStream_t stream) {
   });
 }
 
+// The tensor-core kernels: their tensor maps, then the launch.
+template <typename E>
+int launch_tensor_cores(FwdParams& p, int B, cudaStream_t stream) {
+  using hopper::make_head_map;
+  const int S = p.S, Hkv = p.Hkv;
+  int rc = make_head_map<E>(&p.q_map, p.q, B, S, p.H, tc::BM);
+  if (!rc) rc = make_head_map<E>(&p.k_map, p.k, B, S, Hkv, tc::BN);
+  if (!rc) rc = make_head_map<E>(&p.v_map, p.v, B, S, Hkv, tc::BN);
+  return rc ? rc : launch_biased<E>(p, B, stream);
+}
+
 }  // namespace
 
 // q: [B, S, H, D]; k/v: [B, S, Hkv, D]; o: [B, S, H, D] (q's dtype);
 // lse: fp32 [B, H, S].  slopes: fp32 [H] ALiBi slopes or null; window:
-// the sliding window, <= 0 for none.  dtype: 0 = float32, 1 = bfloat16;
-// D must be 128.  Returns a CUDA error code, 0 on success.
+// the sliding window, <= 0 for none.  dtype: 0 = float32, 1 = bfloat16,
+// 2 = float16; D must be 128.  Returns a CUDA error code, 0 on success.
 extern "C" int ds_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       const void* slopes, int B, int S,
@@ -414,9 +434,7 @@ extern "C" int ds_flash_attention_fwd(const void* q, const void* k,
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_biased<float>(p, B, s);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  int rc = hopper::make_head_map(&p.q_map, q, B, S, H, tc::BM);
-  if (!rc) rc = hopper::make_head_map(&p.k_map, k, B, S, Hkv, tc::BN);
-  if (!rc) rc = hopper::make_head_map(&p.v_map, v, B, S, Hkv, tc::BN);
-  return rc ? rc : launch_biased<__nv_bfloat16>(p, B, s);
+  if (dtype == 1) return launch_tensor_cores<__nv_bfloat16>(p, B, s);
+  if (dtype == 2) return launch_tensor_cores<__half>(p, B, s);
+  return (int)cudaErrorInvalidValue;
 }

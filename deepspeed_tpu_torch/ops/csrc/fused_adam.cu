@@ -4,10 +4,18 @@
 // _adam_kernel (host side fused_adam_pallas): one launch updates the
 // master parameters p and the moments m, v IN PLACE from the gradient g
 // (fp32 or bf16), modes 0 (AdamW, decoupled decay) and 1 (L2 decay added
-// to g), bias correction folded into the host-computed fp32 scalars
-// c1 = 1 - beta1^step and c2 = 1 - beta2^step (1 when off):
+// to g), with the bias corrections c1 = 1 - beta1^count and
+// c2 = 1 - beta2^count (1 when off):
 //   m = b1 m + (1 - b1) g;  v = b2 v + (1 - b2) g^2
 //   p = p - lr * ((m / c1) / (sqrt(v / c2) + eps) [+ wd p])
+// The per-step scalars lr, b1, 1 - b1, c1 and c2 are read from a device
+// buffer, as the TPU kernel reads c1, c2 and lr through scalar prefetch:
+// the engine computes them on the card from the count of applied steps
+// and the LR / momentum schedules, so no step waits for the host.  A
+// device int flag (fp16's overflow) makes every thread return before it
+// reads or writes anything: a skipped step leaves p, m and v bit for bit,
+// as the JAX engine's where(overflow, old, new) does.  The kernel makes no
+// host call and allocates nothing, so a CUDA graph can capture it.
 // Every operation is rounded on its own (__fmul_rn, __fadd_rn, IEEE
 // division and sqrt; built without --use_fast_math), in the order the
 // plain PyTorch version (ops/adam.py) issues its elementwise ops, so the
@@ -30,8 +38,13 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kIlp = 4;
 
+// the per-step scalars' order in the device buffer
+enum Hyper { kLr, kB1, kOmb1, kC1, kC2, kHyper };
+
 struct AdamArgs {
-  float lr, b1, omb1, b2, omb2, eps, wd, c1, c2;
+  const float* hyper;  // device [kHyper]
+  const int* skip;     // device; != 0: write nothing
+  float b2, omb2, eps, wd;
   int adamw;
 };
 
@@ -45,6 +58,10 @@ __global__ void __launch_bounds__(kThreads)
 fused_adam_kernel(float* __restrict__ p, const G* __restrict__ g,
                   float* __restrict__ m, float* __restrict__ v, long long n,
                   AdamArgs a) {
+  if (__ldg(a.skip)) return;
+  const float lr = __ldg(a.hyper + kLr), b1 = __ldg(a.hyper + kB1);
+  const float omb1 = __ldg(a.hyper + kOmb1), c1 = __ldg(a.hyper + kC1);
+  const float c2 = __ldg(a.hyper + kC2);
   const long long base =
       (long long)blockIdx.x * kThreads * kIlp + threadIdx.x;
   float pr[kIlp], gr[kIlp], mr[kIlp], vr[kIlp];
@@ -65,13 +82,13 @@ fused_adam_kernel(float* __restrict__ p, const G* __restrict__ g,
     float gi = gr[u];
     const float pi = pr[u];
     if (!a.adamw && a.wd != 0.f) gi = __fadd_rn(gi, __fmul_rn(a.wd, pi));
-    const float mi = __fadd_rn(__fmul_rn(mr[u], a.b1), __fmul_rn(gi, a.omb1));
+    const float mi = __fadd_rn(__fmul_rn(mr[u], b1), __fmul_rn(gi, omb1));
     const float vi = __fadd_rn(__fmul_rn(vr[u], a.b2),
                                __fmul_rn(__fmul_rn(gi, gi), a.omb2));
-    float upd = __fdiv_rn(__fdiv_rn(mi, a.c1),
-                          __fadd_rn(__fsqrt_rn(__fdiv_rn(vi, a.c2)), a.eps));
+    float upd = __fdiv_rn(__fdiv_rn(mi, c1),
+                          __fadd_rn(__fsqrt_rn(__fdiv_rn(vi, c2)), a.eps));
     if (a.adamw && a.wd != 0.f) upd = __fadd_rn(upd, __fmul_rn(a.wd, pi));
-    p[i] = __fsub_rn(pi, __fmul_rn(a.lr, upd));
+    p[i] = __fsub_rn(pi, __fmul_rn(lr, upd));
     m[i] = mi;
     v[i] = vi;
   }
@@ -93,16 +110,17 @@ int launch(void* p, const void* g, void* m, void* v, long long n,
 
 // p, m, v: fp32 [n], updated in place; g: [n], g_dtype 0 = float32,
 // 1 = bfloat16.  adamw: 1 = mode 0 (decoupled decay), 0 = mode 1 (L2).
-// omb1 / omb2 are (1 - beta1) / (1 - beta2) computed on the host in
-// double and rounded once, as the JAX code's Python floats are.  Returns
-// cudaGetLastError().
+// hyper: device fp32 [5] = (lr, beta1, 1 - beta1, c1, c2); skip: device
+// int32, nonzero to leave everything as it is.  omb2 is 1 - beta2, rounded
+// once on the host.  Returns cudaGetLastError().
 extern "C" int ds_fused_adam(void* p, const void* g, void* m, void* v,
-                             long long n, int g_dtype, int adamw, float lr,
-                             float b1, float omb1, float b2, float omb2,
-                             float eps, float wd, float c1, float c2,
-                             void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
-  const AdamArgs a{lr, b1, omb1, b2, omb2, eps, wd, c1, c2, adamw};
+                             long long n, int g_dtype, int adamw,
+                             const void* hyper, const void* skip, float b2,
+                             float omb2, float eps, float wd, void* stream) {
+  if (n <= 0 || hyper == nullptr || skip == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const AdamArgs a{static_cast<const float*>(hyper),
+                   static_cast<const int*>(skip), b2, omb2, eps, wd, adamw};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (g_dtype == 0) return launch<float>(p, g, m, v, n, a, s);
   if (g_dtype == 1) return launch<__nv_bfloat16>(p, g, m, v, n, a, s);

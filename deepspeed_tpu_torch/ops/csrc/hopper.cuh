@@ -1,13 +1,21 @@
 // Hopper (sm_90a) building blocks for the port's tensor-core kernels, in
 // inline PTX: mbarriers, TMA tile loads, wgmma with its shared-memory
 // descriptors, and the map from a wgmma accumulator element to its row and
-// column.  The bf16 flash-attention kernels (flash_attention_fwd.cu,
-// flash_attention_bwd.cu), the block-sparse kernel (sparse_attention.cu)
-// and the ragged paged prefill kernel (ragged_paged_attention.cu) are
-// built from them.
+// column.  The bf16 and fp16 flash-attention kernels
+// (flash_attention_fwd.cu, flash_attention_bwd.cu), the bf16 block-sparse
+// kernel (sparse_attention.cu) and the bf16 ragged paged prefill kernel
+// (ragged_paged_attention.cu) are built from them.
 //
-// Shared-memory tiles.  A bf16 tile of R rows by 128 columns (one head's
-// rows of a [B, S, Hx, 128] tensor) is loaded by TMA as two boxes of R rows
+// Element types.  The wgmma wrappers, acc_to_a and the tensor maps take the
+// tile's element type E, __nv_bfloat16 or __half (no default: a call must
+// name it, so no fp16 tile is read as bf16 by omission): both are 2
+// bytes, so every tile, box, swizzle and descriptor below is the same for
+// both; only the instruction's operand type (.bf16 / .f16), the packing of
+// fp32 values into A-operand registers and the tensor map's data type
+// differ (is_f16, pack2, map_type).
+//
+// Shared-memory tiles.  A tile of R rows by 128 columns (one head's rows
+// of a [B, S, Hx, 128] tensor) is loaded by TMA as two boxes of R rows
 // by 64 columns, each R * 128 bytes, with the 128-byte swizzle: the
 // 16-byte chunk c of row r lands at chunk c ^ (r % 8) of that row, so an
 // 8-row group is one 1024-byte swizzle atom.  Tiles start on 1024-byte
@@ -24,8 +32,11 @@
 #include <cuda.h>  // CUtensorMap and its enums; the driver is reached at run
                    // time through cudaGetDriverEntryPoint, not linked
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace hopper {
 
@@ -189,124 +200,159 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
+// The four wrappers below are one asm statement each, stamped with the
+// operand type by a macro (TY: "bf16" or "f16"); E picks the stamp.
+template <typename E>
+__host__ __device__ constexpr bool is_f16() {
+  static_assert(std::is_same<E, __nv_bfloat16>::value ||
+                    std::is_same<E, __half>::value,
+                "tensor-core tiles are bf16 or fp16");
+  return std::is_same<E, __half>::value;
+}
+
+#define DS_WGMMA_SS_N128(TY)                                        \
+  asm volatile(                                                     \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                  \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                            \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                      \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                    \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                    \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                    \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                    \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                    \
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "                   \
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"                               \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),             \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),             \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),           \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),         \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),         \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),         \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),         \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),         \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),         \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),         \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),         \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),         \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),         \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),         \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),         \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])          \
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate))
+
+#define DS_WGMMA_SS_N64(TY)                                        \
+  asm volatile(                                                    \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                 \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                           \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                     \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                   \
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "                  \
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"                              \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),            \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),            \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),          \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),        \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),        \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),        \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),        \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])         \
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate))
+
+#define DS_WGMMA_RS_N128(TY)                                             \
+  asm volatile(                                                          \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                       \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"      \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                 \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                           \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                         \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                         \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                         \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                         \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                         \
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "                        \
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                      \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                  \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                  \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),              \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),              \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),              \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),              \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),              \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),              \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),              \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),              \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),              \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),              \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),              \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),              \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])               \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1))
+
+#define DS_WGMMA_RS_N64(TY)                                              \
+  asm volatile(                                                          \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                       \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"       \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                 \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                           \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                         \
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "                        \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                      \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                  \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                  \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),              \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),              \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),              \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),              \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])               \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1))
+
 // D[64 x 128] (+)= A[64 x 16] * B[16 x 128], A and B K-major in shared
 // memory; D is zeroed first unless ``accumulate``.
+template <typename E>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
                                               uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+  if constexpr (is_f16<E>()) DS_WGMMA_SS_N128("f16");
+  else DS_WGMMA_SS_N128("bf16");
 }
 
 // D[64 x 64] (+)= A[64 x 16] * B[16 x 64], A and B K-major in shared
 // memory; D is zeroed first unless ``accumulate``.
+template <typename E>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
                                              uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+  if constexpr (is_f16<E>()) DS_WGMMA_SS_N64("f16");
+  else DS_WGMMA_SS_N64("bf16");
 }
 
-// D[64 x 128] += A[64 x 16] * B[16 x 128], A from registers (four bf16x2
-// per thread, the layout of an accumulator's 16-column slice), B MN-major
-// in shared memory (read transposed).
+// D[64 x 128] += A[64 x 16] * B[16 x 128], A from registers (four packed
+// pairs per thread, the layout of an accumulator's 16-column slice), B
+// MN-major in shared memory (read transposed).
+template <typename E>
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
                                               const uint32_t (&a)[4],
                                               uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  if constexpr (is_f16<E>()) DS_WGMMA_RS_N128("f16");
+  else DS_WGMMA_RS_N128("bf16");
 }
 
 // D[64 x 64] += A[64 x 16] * B[16 x 64], A from registers as in
 // wgmma_rs_n128, B MN-major in shared memory (one 64-column atom).
+template <typename E>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
                                              const uint32_t (&a)[4],
                                              uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  if constexpr (is_f16<E>()) DS_WGMMA_RS_N64("f16");
+  else DS_WGMMA_RS_N64("bf16");
 }
+
+#undef DS_WGMMA_SS_N128
+#undef DS_WGMMA_SS_N64
+#undef DS_WGMMA_RS_N128
+#undef DS_WGMMA_RS_N64
 
 // ---- accumulator layout ----------------------------------------------------
 
@@ -332,19 +378,31 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+// Two fp32 values rounded to E and packed into one 32-bit register, lo in
+// the low half: an A-operand pair, or two adjacent output columns.
+template <typename E>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (is_f16<E>()) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  } else {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
 }
 
-// The 16-column slice j of an fp32 accumulator as bf16 A-operand registers
-// of the next product (wgmma's register-A layout matches the accumulator's
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return pack2<__nv_bfloat16>(lo, hi);
+}
+
+// The 16-column slice j of an fp32 accumulator as E A-operand registers of
+// the next product (wgmma's register-A layout matches the accumulator's
 // slice by slice): a[4 j .. 4 j + 3] from acc[8 j .. 8 j + 7].
-template <int N>
+template <typename E, int N>
 __device__ __forceinline__ void acc_to_a(const float (&acc)[N],
                                          uint32_t (&a)[N / 2]) {
 #pragma unroll
-  for (int i = 0; i < N / 2; ++i) a[i] = pack_bf16(acc[2 * i], acc[2 * i + 1]);
+  for (int i = 0; i < N / 2; ++i) a[i] = pack2<E>(acc[2 * i], acc[2 * i + 1]);
 }
 
 // ---- host: tensor maps -----------------------------------------------------
@@ -374,13 +432,21 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// Tensor map of a contiguous bf16 tensor of ``rank`` dims (dims[0] the
+// The tensor map's data type of an element type.
+template <typename E>
+constexpr CUtensorMapDataType map_type() {
+  return is_f16<E>() ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
+// Tensor map of a contiguous E tensor of ``rank`` dims (dims[0] the
 // columns, contiguous; strides in bytes of dims 1..rank-1), boxes of
 // ``box`` elements per dim (box[0] = 64 columns: 128 bytes), 128-byte
 // swizzle.  Elements past a dim's end (and only those) read as zeros.
 // Built at every launch: nothing is cached by pointer, and the map travels
 // by value in the kernel's parameters, so CUDA-graph capture keeps it.
 // Returns 0 or a CUDA error code.
+template <typename E>
 inline int make_map(CUtensorMap* map, const void* ptr, int rank,
                     const cuuint64_t* dims, const cuuint64_t* strides,
                     const cuuint32_t* box) {
@@ -388,26 +454,27 @@ inline int make_map(CUtensorMap* map, const void* ptr, int rank,
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint32_t step[5] = {1, 1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr),
+      map, map_type<E>(), rank, const_cast<void*>(ptr),
       dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Tensor map of a contiguous bf16 [B, S, Hx, D] tensor (D 64 or 128) as
-// 4-d (column, head, row, batch), boxes of ``rows`` rows of one head by 64
+// Tensor map of a contiguous E [B, S, Hx, D] tensor (D 64 or 128) as 4-d
+// (column, head, row, batch), boxes of ``rows`` rows of one head by 64
 // columns.  Rows at or past S read as zeros.
+template <typename E>
 inline int make_head_map(CUtensorMap* map, const void* ptr, int B, int S,
                          int Hx, int rows, int D = kHeadDim) {
-  const cuuint64_t row = D * sizeof(__nv_bfloat16);
+  const cuuint64_t row = D * sizeof(E);
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(Hx),
                               static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {row, row * Hx, row * Hx * S};
   const cuuint32_t box[4] = {kBoxCols, 1, static_cast<cuuint32_t>(rows), 1};
-  return make_map(map, ptr, 4, dims, strides, box);
+  return make_map<E>(map, ptr, 4, dims, strides, box);
 }
 
 }  // namespace hopper

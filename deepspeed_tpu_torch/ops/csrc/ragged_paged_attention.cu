@@ -220,7 +220,7 @@ ragged_prefill_tc_kernel(const __grid_constant__ PrefillParams p) {
 #pragma unroll
         for (int kk = 0; kk < 8; ++kk) {
           const uint32_t off = (kk / 4) * kHalf + (kk % 4) * 32;
-          wgmma_ss_n128(sc, desc_kmajor(q_addr + off),
+          wgmma_ss_n128<__nv_bfloat16>(sc, desc_kmajor(q_addr + off),
                         desc_kmajor(k_addr + off), kk > 0);
         }
         wgmma_commit();
@@ -259,7 +259,7 @@ ragged_prefill_tc_kernel(const __grid_constant__ PrefillParams p) {
           o[i] *= corr[r];
         }
         uint32_t pa[32];
-        acc_to_a(sc, pa);
+        acc_to_a<__nv_bfloat16>(sc, pa);
         fence_regs(o);
         fence_regs(pa);
         wgmma_fence();
@@ -267,7 +267,8 @@ ragged_prefill_tc_kernel(const __grid_constant__ PrefillParams p) {
         for (int kk = 0; kk < 8; ++kk) {
           const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
                                  pa[4 * kk + 3]};
-          wgmma_rs_n128(o, a, desc_mnmajor(v_addr + kk * 2048, kHalf));
+          wgmma_rs_n128<__nv_bfloat16>(
+              o, a, desc_mnmajor(v_addr + kk * 2048, kHalf));
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -311,9 +312,10 @@ int launch_prefill_tc(PrefillParams& p, const void* q, const void* kp,
   const cuuint64_t kv_strides[1] = {row};
   const cuuint32_t kv_box[2] = {hopper::kBoxCols,
                                 static_cast<cuuint32_t>(p.box_rows)};
-  int rc = hopper::make_map(&p.q_map, q, 3, q_dims, q_strides, q_box);
-  if (!rc) rc = hopper::make_map(&p.k_map, kp, 2, kv_dims, kv_strides, kv_box);
-  if (!rc) rc = hopper::make_map(&p.v_map, vp, 2, kv_dims, kv_strides, kv_box);
+  const auto map = hopper::make_map<__nv_bfloat16>;
+  int rc = map(&p.q_map, q, 3, q_dims, q_strides, q_box);
+  if (!rc) rc = map(&p.k_map, kp, 2, kv_dims, kv_strides, kv_box);
+  if (!rc) rc = map(&p.v_map, vp, 2, kv_dims, kv_strides, kv_box);
   if (rc) return rc;
   // once, before any graph capture can be running
   static const cudaError_t attr = cudaFuncSetAttribute(

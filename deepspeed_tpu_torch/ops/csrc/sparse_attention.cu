@@ -337,8 +337,8 @@ sparse_tc_kernel(const __grid_constant__ TcParams p) {
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t off = (kk / 4) * kHalf + (kk % 4) * 32;
-      wgmma_ss_n64(s, desc_kmajor(q_addr + off), desc_kmajor(k_addr + off),
-                   kk > 0);
+      wgmma_ss_n64<__nv_bfloat16>(s, desc_kmajor(q_addr + off),
+                                  desc_kmajor(k_addr + off), kk > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -386,7 +386,7 @@ sparse_tc_kernel(const __grid_constant__ TcParams p) {
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i / 2) % 2];
     uint32_t pa[16];
-    acc_to_a(s, pa);
+    acc_to_a<__nv_bfloat16>(s, pa);
     fence_regs(o);
     fence_regs(pa);
     wgmma_fence();
@@ -396,9 +396,9 @@ sparse_tc_kernel(const __grid_constant__ TcParams p) {
                              pa[4 * kk + 3]};
       const uint64_t desc = desc_mnmajor(v_addr + kk * 2048, kHalf);
       if constexpr (D == 128)
-        wgmma_rs_n128(o, a, desc);
+        wgmma_rs_n128<__nv_bfloat16>(o, a, desc);
       else
-        wgmma_rs_n64(o, a, desc);
+        wgmma_rs_n64<__nv_bfloat16>(o, a, desc);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -443,9 +443,10 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 float scale, cudaStream_t stream) {
   TcParams p = {};
   const int unit = block < tc::BN ? block : tc::BN;
-  int rc = hopper::make_head_map(&p.q_map, q, B, S, H, tc::BM, D);
-  if (!rc) rc = hopper::make_head_map(&p.k_map, k, B, S, H, unit, D);
-  if (!rc) rc = hopper::make_head_map(&p.v_map, v, B, S, H, unit, D);
+  const auto map = hopper::make_head_map<__nv_bfloat16>;
+  int rc = map(&p.q_map, q, B, S, H, tc::BM, D);
+  if (!rc) rc = map(&p.k_map, k, B, S, H, unit, D);
+  if (!rc) rc = map(&p.v_map, v, B, S, H, unit, D);
   if (rc) return rc;
   p.o = static_cast<__nv_bfloat16*>(o);
   p.counts = static_cast<const int*>(counts);

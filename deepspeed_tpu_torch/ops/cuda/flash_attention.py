@@ -18,8 +18,11 @@ between them.
 import torch
 
 from deepspeed_tpu_torch.ops import op_builder
-from deepspeed_tpu_torch.ops.cuda.decode_attention import (HEAD_DIMS,
-                                                           _DTYPE_CODES)
+from deepspeed_tpu_torch.ops.cuda.decode_attention import HEAD_DIMS
+
+# the C entries' dtype codes: fp32 on the CUDA cores, bf16 and fp16 on the
+# tensor cores
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _check(name, q, k, v, *more):
@@ -30,8 +33,8 @@ def _check(name, q, k, v, *more):
         raise ValueError(f"{name} needs CUDA tensors; use the plain version "
                          f"for CPU tensors")
     if q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype for t in ts):
-        raise ValueError(f"{name} takes float32 or bfloat16 tensors of one "
-                         f"dtype, got {[t.dtype for t in ts]}")
+        raise ValueError(f"{name} takes float32, bfloat16 or float16 "
+                         f"tensors of one dtype, got {[t.dtype for t in ts]}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or \
             k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3] or \
             q.shape[2] % k.shape[2] != 0 or \

@@ -11,14 +11,17 @@ import torch
 from deepspeed_tpu_torch.ops import op_builder
 
 _G_CODES = {torch.float32: 0, torch.bfloat16: 1}
+N_HYPER = 5     # lr, beta1, 1 - beta1, c1, c2
 
 
-def fused_adam_cuda(params, grads, m, v, lr, beta1, beta2, eps,
-                    weight_decay, adamw_mode, c1, c2):
+def fused_adam_cuda(params, grads, m, v, hyper, skip, beta2, eps,
+                    weight_decay, adamw_mode):
     """One Adam step, IN PLACE on ``params``, ``m`` and ``v`` (contiguous
     fp32 CUDA tensors of one size); ``grads``: same size, fp32 or bf16.
-    ``c1``/``c2``: the bias corrections 1 - beta**step as fp32 values
-    (1.0 when bias correction is off)."""
+    ``hyper``: fp32 [5] on the card, (lr, beta1, 1 - beta1, c1, c2) with
+    c1/c2 the bias corrections 1 - beta**count (1.0 when off); ``skip``:
+    an int32 scalar on the card, nonzero to leave params, m and v as they
+    are (fp16's overflow).  Neither is read on the host."""
     for name, t in (("params", params), ("grads", grads), ("m", m),
                     ("v", v)):
         if not t.is_cuda:
@@ -39,15 +42,23 @@ def fused_adam_cuda(params, grads, m, v, lr, beta1, beta2, eps,
     if grads.dtype not in _G_CODES:
         raise ValueError(f"fused_adam_cuda: grads must be float32 or "
                          f"bfloat16, got {grads.dtype}")
+    for name, t, dtype, numel in (("hyper", hyper, torch.float32, N_HYPER),
+                                  ("skip", skip, torch.int32, 1)):
+        if t.dtype != dtype or t.numel() != numel or \
+                t.device != params.device or not t.is_contiguous():
+            raise ValueError(f"fused_adam_cuda: {name} must be a contiguous "
+                             f"{dtype} tensor of {numel} element(s) on "
+                             f"{params.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
     n = params.numel()
     if n == 0:
         return params
     fn = op_builder.load("fused_adam")
     rc = fn(params.data_ptr(), grads.data_ptr(), m.data_ptr(), v.data_ptr(),
-            n, _G_CODES[grads.dtype], int(bool(adamw_mode)), float(lr),
-            float(beta1), float(1.0 - beta1), float(beta2),
-            float(1.0 - beta2), float(eps), float(weight_decay), float(c1),
-            float(c2), torch.cuda.current_stream(params.device).cuda_stream)
+            n, _G_CODES[grads.dtype], int(bool(adamw_mode)),
+            hyper.data_ptr(), skip.data_ptr(), float(beta2),
+            float(1.0 - beta2), float(eps), float(weight_decay),
+            torch.cuda.current_stream(params.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused Adam kernel launch failed: CUDA error {rc}")
     fused_adam_cuda.launches += 1

@@ -53,8 +53,10 @@ SIGNATURES = {
     "flash_attention_bwd_dkv": ("flash_attention_bwd",
                                 "ds_flash_attention_bwd_dkv",
                                 [_P] * 9 + [_I] * 8 + [_F, _P]),
+    # fused Adam reads lr, beta1, 1 - beta1, c1, c2 and the skip flag from
+    # device buffers (two pointers after the ints)
     "fused_adam": ("fused_adam", "ds_fused_adam",
-                   [_P] * 4 + [_L, _I, _I] + [_F] * 9 + [_P]),
+                   [_P] * 4 + [_L, _I, _I, _P, _P] + [_F] * 4 + [_P]),
     # the block-sparse entry takes both forms' tables: the fp32 form's
     # (counts, table) and the bf16 form's (counts, starts, steps)
     "sparse_attention": ("sparse_attention", "ds_sparse_attention",

@@ -2,7 +2,8 @@
 
 Counterpart of ``deepspeed_tpu/runtime/config.py``, reading the same JSON
 keys: the batch triangle ``train_batch_size = micro * gas * world`` (world
-is 1 here), ``optimizer`` {type, params}, ``bf16.enabled``,
+is 1 here), ``optimizer`` {type, params}, ``scheduler`` {type, params},
+``fp16`` (loss scaling; ``loss_scale`` 0 means dynamic), ``bf16.enabled``,
 ``gradient_clipping``, ``seed``, ``steps_per_print`` and
 ``zero_optimization``.  Every block the JAX engine acts on and the port
 does not run yet raises ``NotImplementedError`` naming its ROADMAP item,
@@ -18,6 +19,7 @@ import os
 from typing import Any, Dict, Union
 
 from deepspeed_tpu_torch.runtime import constants as C
+from deepspeed_tpu_torch.runtime.config_utils import DeepSpeedConfigModel
 from deepspeed_tpu_torch.runtime.zero.config import DeepSpeedZeroConfig
 from deepspeed_tpu_torch.utils.logging import logger
 
@@ -51,10 +53,27 @@ class DeepSpeedConfigError(Exception):
     pass
 
 
+class FP16Config(DeepSpeedConfigModel):
+    enabled = C.FP16_ENABLED_DEFAULT
+    loss_scale = C.FP16_LOSS_SCALE_DEFAULT
+    initial_scale_power = C.FP16_INITIAL_SCALE_POWER_DEFAULT
+    loss_scale_window = C.FP16_LOSS_SCALE_WINDOW_DEFAULT
+    hysteresis = C.FP16_HYSTERESIS_DEFAULT
+    min_loss_scale = C.FP16_MIN_LOSS_SCALE_DEFAULT
+    fp16_master_weights_and_grads = C.FP16_MASTER_WEIGHTS_AND_GRADS_DEFAULT
+    auto_cast = False          # accepted and inert, as in the JAX config
+
+
 class OptimizerConfig:
     def __init__(self, param_dict):
         self.type = param_dict.get(C.TYPE)
         self.params = dict(param_dict.get(C.OPTIMIZER_PARAMS, {}))
+
+
+class SchedulerConfig:
+    def __init__(self, param_dict):
+        self.type = param_dict.get(C.TYPE)
+        self.params = dict(param_dict.get(C.SCHEDULER_PARAMS, {}))
 
 
 def _enabled(block) -> bool:
@@ -82,11 +101,11 @@ def _refuse_mesh(mesh):
 
 def _refuse_unported(pd):
     """Raise for every block that asks for behaviour this slice lacks."""
+    fp16 = pd.get(C.FP16)
     blocks = [
-        (_enabled(pd.get(C.FP16)), "fp16 mixed precision and loss scaling",
-         "A7"),
-        (bool(pd.get(C.SCHEDULER)), "learning-rate schedules (scheduler)",
-         "A7"),
+        (_enabled(fp16) and bool(fp16.get("fp16_master_weights_and_grads")),
+         "fp16.fp16_master_weights_and_grads (fp16 master weights and "
+         "gradients)", "A7"),
         (bool(pd.get(C.COMPRESSION_TRAINING)),
          "compression_training / MoQ", "A17"),
         (bool(pd.get(C.PIPELINE)), "pipeline parallelism", "A14"),
@@ -171,8 +190,25 @@ class DeepSpeedConfig:
                                                       {}))
         self.bfloat16_enabled = _enabled(pd.get(C.BFLOAT16,
                                                 pd.get(C.BFLOAT16_OLD)))
+        self.fp16_config = FP16Config(pd.get(C.FP16) or {})
+        if self.fp16_config.enabled and self.bfloat16_enabled:
+            raise DeepSpeedConfigError("fp16 and bf16 cannot both be enabled")
         opt = pd.get(C.OPTIMIZER)
         self.optimizer_config = OptimizerConfig(opt) if opt else None
+        sched = pd.get(C.SCHEDULER)
+        self.scheduler_config = SchedulerConfig(sched) if sched else None
+
+    @property
+    def fp16_enabled(self):
+        return bool(self.fp16_config.enabled)
+
+    @property
+    def loss_scale(self):
+        return self.fp16_config.loss_scale
+
+    @property
+    def dynamic_loss_scale(self):
+        return self.fp16_config.loss_scale == 0
 
     # Batch-size triangle: train = micro x gas x dp_world (the JAX
     # package's _configure_train_batch_size / _batch_assertion)

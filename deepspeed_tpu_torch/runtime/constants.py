@@ -14,8 +14,17 @@ OPTIMIZER_PARAMS = "params"
 TYPE = "type"
 
 SCHEDULER = "scheduler"
+SCHEDULER_PARAMS = "params"
 
 FP16 = "fp16"
+FP16_ENABLED_DEFAULT = False
+# loss_scale 0 means dynamic loss scaling
+FP16_LOSS_SCALE_DEFAULT = 0
+FP16_INITIAL_SCALE_POWER_DEFAULT = 16
+FP16_LOSS_SCALE_WINDOW_DEFAULT = 1000
+FP16_HYSTERESIS_DEFAULT = 2
+FP16_MIN_LOSS_SCALE_DEFAULT = 1
+FP16_MASTER_WEIGHTS_AND_GRADS_DEFAULT = False
 BFLOAT16 = "bf16"
 BFLOAT16_OLD = "bfloat16"
 

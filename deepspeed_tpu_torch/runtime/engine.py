@@ -6,24 +6,36 @@ engine keeps it but laid out for eager PyTorch:
 * fp32 master parameters, fp32 gradients and the fp32 Adam moments m and
   v, each ONE flat buffer on the card (16 bytes per parameter);
 * the module's parameters are views into one flat buffer of the compute
-  dtype (bf16 with ``bf16.enabled``, else fp32), refreshed from the
-  master by one copy after each step -- the counterpart of
-  ``_transformed_compute_params``, which casts the fp32 master to the
-  compute dtype every step.
+  dtype (bf16 with ``bf16.enabled``, fp16 with ``fp16.enabled``, else
+  fp32), refreshed from the master by one copy after each step -- the
+  counterpart of ``_transformed_compute_params``, which casts the fp32
+  master to the compute dtype every step;
+* scalars on the card: the loss-scale state (``runtime/loss_scaler``),
+  the count of applied steps (inside the Adam state: it drives the bias
+  correction and the LR / momentum schedules, as optax's count does) and
+  the count of skipped steps.
 
-``train_batch`` runs the module's ``loss`` and its backward once per
-micro-batch, adds each parameter's gradient into the flat fp32 buffer
-(``_forward_grads``: fp32 sum, then divided by gas), takes the fp32 global
-norm, clips when ``gradient_clipping`` > 0 (``clip_f32``), makes ONE
-``fused_adam`` launch over the flat buffer and copies the master into the
-module.  ``forward``/``backward``/``step`` share that accumulation and
-update; ``backward`` divides each micro-batch by gas before adding it, in
-the order of the JAX ``backward``.  Nothing on the step path reads a
-value back to the host: the loss and the grad norm stay device tensors
-until a caller asks.
+``train_batch`` runs the module's ``loss`` (times the loss scale under
+fp16) and its backward once per micro-batch, adds each parameter's
+gradient, unscaled in fp32, into the flat fp32 buffer (``_forward_grads``:
+fp32 sum, then divided by gas), then the update of ``_apply_update``:
+overflow = inf or nan in the flat gradients (fp16 only), the fp32 global
+norm, clipping when ``gradient_clipping`` > 0 (``clip_f32``), the schedules
+at the applied count into Adam's scalar buffer, ONE ``fused_adam`` launch
+over the flat buffer that writes nothing when the step overflowed, the
+loss-scale automaton, and the master copied into the module.
+``forward``/``backward``/``step`` share that accumulation and update;
+``backward`` divides each micro-batch by gas before adding it, in the
+order of the JAX ``backward``.  Nothing on the step path reads a value
+back to the host: the loss, the grad norm, the overflow flag, the scale
+and the counts stay device tensors until a caller asks.  The host's
+``global_steps`` and its ``LRScheduler`` (``get_lr``) advance every batch,
+skipped or not, as the JAX engine's do; so after a skipped step
+``get_lr`` runs ahead of the lr the update used, which follows the applied
+count (the JAX engine behaves the same way).
 
-Not ported yet (each raises naming its ROADMAP item): ``eval_batch``
-(A6), checkpoints and data loading (A10), multi-rank ZeRO (A8).
+Not ported yet (each raises naming its ROADMAP item): checkpoints and
+data loading (A10), multi-rank ZeRO (A8).
 """
 
 import numpy as np
@@ -32,6 +44,14 @@ import torch
 from deepspeed_tpu_torch.accelerator import get_accelerator
 from deepspeed_tpu_torch.ops.decode_attention import validate_backend
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+from deepspeed_tpu_torch.runtime.loss_scaler import (dynamic_loss_scale_state,
+                                                     has_inf_or_nan,
+                                                     static_loss_scale_state,
+                                                     update_scale)
+from deepspeed_tpu_torch.runtime.lr_schedules import (ONE_CYCLE,
+                                                      LRScheduler,
+                                                      build_schedule,
+                                                      one_cycle_mom)
 from deepspeed_tpu_torch.runtime.optimizers import (ADAMW_OPTIMIZER,
                                                     build_optimizer)
 from deepspeed_tpu_torch.utils.logging import log_dist
@@ -50,10 +70,12 @@ class DeepSpeedEngine:
     caller names another (the tests: ``"cpu"``); with no card it raises.
     ``backend``: "auto" (the kernels for CUDA tensors), "cuda" or "plain"
     (the plain versions of attention and Adam: the smoke test's
-    comparison)."""
+    comparison).  ``lr_scheduler``: a client schedule, an
+    :class:`LRScheduler` or a callable on the 0-dim fp32 step (the config's
+    ``scheduler`` block wins, as in the JAX engine)."""
 
     def __init__(self, model, config: DeepSpeedConfig, device=None,
-                 backend="auto"):
+                 backend="auto", lr_scheduler=None):
         if not callable(getattr(model, "loss", None)):
             raise TypeError("model must expose .loss(batch)")
         if _world_size() > 1:
@@ -64,8 +86,12 @@ class DeepSpeedEngine:
         self._config = config
         self.device = get_accelerator().resolve_device(device)
         self.backend = validate_backend(backend)
-        self.compute_dtype = (torch.bfloat16 if config.bfloat16_enabled
-                              else torch.float32)
+        if config.bfloat16_enabled:
+            self.compute_dtype = torch.bfloat16
+        elif config.fp16_enabled:
+            self.compute_dtype = torch.float16
+        else:
+            self.compute_dtype = torch.float32
         self.zero_stage = config.zero_config.stage
 
         # ---- flat state ---------------------------------------------
@@ -93,13 +119,31 @@ class DeepSpeedEngine:
                 p.grad = None
             self._compute.copy_(self.master)
 
-        # ---- optimizer ----------------------------------------------
-        oc = config.optimizer_config
-        if oc is not None and oc.type:
-            self.optimizer = build_optimizer(oc.type, oc.params)
-        else:   # the JAX engine's default: AdamW at lr 1e-3
-            self.optimizer = build_optimizer(ADAMW_OPTIMIZER, {"lr": 1e-3})
+        # ---- optimizer and schedules --------------------------------
+        self.optimizer, base_lr, schedule_fn = self._configure_optimizer(
+            lr_scheduler)
         self.opt_state = self.optimizer.init_state(self.master)
+        # the host-side scheduler get_lr reads (the JAX engine's: a client
+        # LRScheduler as given, else one over the schedule or the base lr)
+        self.lr_scheduler = (
+            lr_scheduler if isinstance(lr_scheduler, LRScheduler) else
+            LRScheduler(schedule_fn or (lambda step: base_lr)))
+
+        # ---- loss scaling and overflow (device scalars) -------------
+        fc = config.fp16_config
+        if config.fp16_enabled and config.dynamic_loss_scale:
+            self.loss_scale_state = dynamic_loss_scale_state(
+                fc.initial_scale_power, hysteresis=fc.hysteresis,
+                device=self.device)
+        else:
+            self.loss_scale_state = static_loss_scale_state(
+                config.loss_scale if config.fp16_enabled else 1.0,
+                device=self.device)
+        self._no_overflow = torch.zeros((), dtype=torch.bool,
+                                        device=self.device)
+        self._overflow = self._no_overflow
+        self.skipped_steps = torch.zeros((), dtype=torch.int32,
+                                         device=self.device)
 
         # ---- host bookkeeping ---------------------------------------
         self.global_steps = 0
@@ -116,6 +160,37 @@ class DeepSpeedEngine:
                  f"params={self.num_params} "
                  f"micro_batch={config.train_micro_batch_size_per_gpu} "
                  f"gas={config.gradient_accumulation_steps}", ranks=[0])
+
+    def _configure_optimizer(self, client_scheduler):
+        """(optimizer, base lr, schedule or None), in the JAX engine's
+        precedence: the config's ``scheduler`` block, else a client
+        :class:`LRScheduler`'s schedule, else a client callable; the
+        schedule becomes Adam's lr, and OneCycle also cycles beta1."""
+        cfg = self._config
+        sc = cfg.scheduler_config
+        schedule_fn = None
+        if sc is not None and sc.type:
+            schedule_fn = build_schedule(sc.type, sc.params)
+        elif isinstance(client_scheduler, LRScheduler):
+            schedule_fn = client_scheduler.schedule_fn
+        elif callable(client_scheduler):
+            schedule_fn = client_scheduler
+        elif client_scheduler is not None:
+            raise TypeError(f"lr_scheduler must be an LRScheduler or a "
+                            f"callable, got {type(client_scheduler)}")
+        oc = cfg.optimizer_config
+        if oc is not None and oc.type:
+            name, params = oc.type, dict(oc.params)
+        else:   # the JAX engine's default: AdamW at lr 1e-3
+            name, params = ADAMW_OPTIMIZER, {"lr": 1e-3}
+        base_lr = params.get("lr", 1e-3)
+        if schedule_fn is not None:
+            params["lr"] = schedule_fn
+        if sc is not None and sc.type == ONE_CYCLE:
+            mom_fn = one_cycle_mom(sc.params)
+            if mom_fn is not None:
+                params["_b1_schedule"] = mom_fn
+        return build_optimizer(name, params), base_lr, schedule_fn
 
     # ------------------------------------------------------------------
     # batches
@@ -144,44 +219,81 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------
     # the step
     # ------------------------------------------------------------------
+    @property
+    def _fp16(self):
+        return self._config.fp16_enabled
+
+    def _scaled_backward(self, loss):
+        """Backward of ``loss`` (fp32) times the loss scale under fp16
+        (``_model_scaled_loss``); of the loss itself otherwise, where the
+        JAX engine's scale is 1."""
+        if self._fp16:
+            loss = loss * self.loss_scale_state.cur_scale
+        loss.backward()
+
     def _accumulate_grads(self, divisor=None):
         """Add every parameter's gradient (compute dtype) into the flat
-        fp32 buffer, divided by ``divisor`` (a 0-dim fp32 tensor) first
-        when given, and release it."""
+        fp32 buffer -- under fp16 unscaled first, in fp32 (``_loss_and_
+        grads``) -- divided by ``divisor`` (a 0-dim fp32 tensor) when
+        given, and release it."""
+        scale = self.loss_scale_state.cur_scale if self._fp16 else None
         with torch.no_grad():
             for p, g in zip(self._params, self._grad_views):
-                if p.grad is not None:
-                    if divisor is None:
-                        g.add_(p.grad)
-                    else:
-                        g.add_(p.grad.float() / divisor)
-                    p.grad = None
+                if p.grad is None:
+                    continue
+                if divisor is None and scale is None:
+                    g.add_(p.grad)
+                elif divisor is None:
+                    # g + grad / scale in fp32: one pass, the same roundings
+                    g.addcdiv_(p.grad, scale)
+                else:
+                    grad = p.grad.float()
+                    if scale is not None:
+                        grad = grad / scale
+                    g.add_(grad / divisor)
+                p.grad = None
         self._accum_count += 1
 
     def _apply_update(self, divisor=None):
-        """The accumulated gradients divided by ``divisor`` when given,
-        fp32 global norm, clipping, one fused Adam launch, master ->
-        module."""
+        """The accumulated gradients divided by ``divisor`` when given;
+        under fp16 the overflow flag (inf or nan anywhere); the fp32 global
+        norm; clipping; one fused Adam launch that writes nothing on
+        overflow; the loss-scale automaton and the skipped count; master
+        -> module (``_finish_step`` / ``_apply_update``)."""
+        cfg = self._config
         with torch.no_grad():
             g = self.grads
             if divisor is not None:
                 g.div_(divisor)
+            overflow = has_inf_or_nan(g) if self._fp16 else self._no_overflow
             norm = torch.linalg.vector_norm(g)
-            clip = float(self._config.gradient_clipping or 0.0)
+            clip = float(cfg.gradient_clipping or 0.0)
             if clip > 0:
                 g.mul_(torch.clamp(clip / (norm + 1e-6), max=1.0))
             self.opt_state = self.optimizer.step(
-                self.master, g, self.opt_state, backend=self.backend)
+                self.master, g, self.opt_state,
+                skip=overflow.to(torch.int32) if self._fp16 else None,
+                backend=self.backend)
+            if self._fp16:
+                fc = cfg.fp16_config
+                self.loss_scale_state = update_scale(
+                    self.loss_scale_state, overflow,
+                    dynamic=cfg.dynamic_loss_scale,
+                    scale_window=fc.loss_scale_window,
+                    min_scale=fc.min_loss_scale, hysteresis=fc.hysteresis)
+                self.skipped_steps.add_(overflow.to(torch.int32))
             self._compute.copy_(self.master)
             g.zero_()
+        self._overflow = overflow
         self._global_grad_norm = norm
         self._accum_count = 0
         self._step_applied = True
         self.global_steps += 1
+        self.lr_scheduler.step()
 
     def _micro_step(self, mb):
         loss = self.module.loss(mb, attn_backend=self.backend)
-        loss.backward()
+        self._scaled_backward(loss)
         self._accumulate_grads()
         return loss.detach()
 
@@ -221,11 +333,12 @@ class DeepSpeedEngine:
     __call__ = forward
 
     def backward(self, loss):
-        """Backpropagate ``loss`` and add its gradients, divided by gas,
-        into the flat fp32 buffer: the order of the JAX engine's
-        ``backward``, which divides each micro-batch before summing
-        (``train_batch`` sums, then divides once, as the JAX one does)."""
-        loss.backward()
+        """Backpropagate ``loss`` (times the loss scale under fp16) and add
+        its gradients, unscaled and divided by gas, into the flat fp32
+        buffer: the order of the JAX engine's ``backward``, which divides
+        each micro-batch before summing (``train_batch`` sums, then divides
+        once, as the JAX one does)."""
+        self._scaled_backward(loss)
         self._accumulate_grads(self._gas)
         return loss
 
@@ -246,9 +359,31 @@ class DeepSpeedEngine:
         return None if n is None else float(n)
 
     def get_lr(self):
-        return [self.optimizer.lr]
+        """The host scheduler's lr, stepped every batch (skipped ones
+        too), as the JAX engine reports it."""
+        return self.lr_scheduler.get_lr()
+
+    def get_loss_scale(self):
+        return float(self.loss_scale_state.cur_scale)
+
+    @property
+    def cur_scale(self):
+        return self.get_loss_scale()
+
+    def applied_steps(self):
+        """Steps whose update was applied (host read of the device
+        count)."""
+        return int(self.opt_state.count)
+
+    def last_step_overflowed(self):
+        """Whether the last update was skipped for an fp16 overflow (host
+        read of the device flag)."""
+        return bool(self._overflow)
 
     def was_step_applied(self):
+        """True once an update ran at the accumulation boundary, skipped
+        or not: the JAX engine's host flag, which reads no device value
+        (an fp16 skip shows in :meth:`last_step_overflowed`)."""
         return self._step_applied
 
     def gradient_accumulation_steps(self):
@@ -266,13 +401,17 @@ class DeepSpeedEngine:
         return {n: v.detach().cpu().clone()
                 for n, v in zip(self._names, self._master_views)}
 
+    def eval_batch(self, batch):
+        """The loss of ``batch`` ([B, S] ids or a dict) under no_grad, with
+        the compute-dtype weights the training forward sees (the JAX
+        ``eval_batch``); a device scalar."""
+        with torch.no_grad():
+            return self.module.loss(self._batch_to_device(batch),
+                                    attn_backend=self.backend)
+
     # ------------------------------------------------------------------
     # not ported yet
     # ------------------------------------------------------------------
-    def eval_batch(self, *args, **kwargs):
-        raise NotImplementedError("eval_batch is not ported yet (ROADMAP "
-                                  "A6)")
-
     def save_checkpoint(self, *args, **kwargs):
         raise NotImplementedError("checkpoints are not ported yet (ROADMAP "
                                   "A10)")

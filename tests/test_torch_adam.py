@@ -4,10 +4,12 @@ The port's ``reference_impl`` and ``fused_adam`` (CPU tensors: the plain
 version) against the JAX package's ``ops/adam.reference_impl`` and
 ``fused_adam_pallas(..., interpret=True)`` over three steps, AdamW and L2
 modes, bias correction on and off, with n not a multiple of 128.  fp32;
-rtol 1e-6 + atol 1e-7: the same operations on the same fp32 scalars, so
-only XLA's contraction or reassociation can move a last bit.  The CUDA
-kernel is held against the plain version on the card by
-``chip_smoke.py``.
+rtol 1e-6 + atol 1e-7: the same operations on fp32 scalars that agree to
+an ulp (the port computes 1 - beta**count in torch from its device count,
+the JAX code in float32 from its step), so only that ulp and XLA's
+contraction or reassociation can move a last bit.  The skip flag leaves
+params, m, v and the count bit for bit.  The CUDA kernel is held against
+the plain version on the card by ``chip_smoke.py``.
 """
 
 import jax.numpy as jnp
@@ -18,8 +20,8 @@ import torch
 from deepspeed_tpu.ops.adam import init_state as jax_init_state
 from deepspeed_tpu.ops.adam import reference_impl as jax_reference
 from deepspeed_tpu.ops.pallas.fused_adam import fused_adam_pallas
-from deepspeed_tpu_torch.ops.adam import (AdamState, fused_adam, init_state,
-                                          reference_impl)
+from deepspeed_tpu_torch.ops.adam import (AdamState, adam_hyper, fused_adam,
+                                          init_state, reference_impl)
 from deepspeed_tpu_torch.runtime.optimizers import FusedAdam, build_optimizer
 
 TOL = dict(rtol=1e-6, atol=1e-7)
@@ -34,6 +36,10 @@ def test_three_steps_match_jax(adamw_mode, bias_correction):
     grads = [rng.standard_normal(N).astype(np.float32) for _ in range(3)]
     kw = dict(lr=1e-3, weight_decay=0.01, adamw_mode=adamw_mode,
               bias_correction=bias_correction)
+    tkw = dict(weight_decay=0.01, adamw_mode=adamw_mode)
+
+    def hyper(st):
+        return adam_hyper(st.count, 1e-3, 0.9, 0.999, bias_correction)
 
     jp, jst = jnp.asarray(p0), jax_init_state(jnp.asarray(p0))
     pp, pst = jnp.asarray(p0), jax_init_state(jnp.asarray(p0))
@@ -45,9 +51,10 @@ def test_three_steps_match_jax(adamw_mode, bias_correction):
         jp, jst = jax_reference(jp, jnp.asarray(g), jst, **kw)
         pp, pst = fused_adam_pallas(pp, jnp.asarray(g), pst, interpret=True,
                                     **kw)
-        tp, tst = reference_impl(tp, torch.as_tensor(g), tst, **kw)
-        fp, fst = fused_adam(fp, torch.as_tensor(g), fst, **kw)
-    assert tst.step == fst.step == int(jst.step) == 3
+        tp, tst = reference_impl(tp, torch.as_tensor(g), tst, hyper(tst),
+                                 **tkw)
+        fp, fst = fused_adam(fp, torch.as_tensor(g), fst, hyper(fst), **tkw)
+    assert int(tst.count) == int(fst.count) == int(jst.step) == 3
     for got, st in ((tp, tst), (fp, fst)):
         for a, b in ((got, jp), (st.m, jst.m), (st.v, jst.v)):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
@@ -64,18 +71,22 @@ def test_bf16_grads_and_updates_in_place():
     p = torch.as_tensor(p0.copy())
     st = init_state(p)
     ptrs = (p.data_ptr(), st.m.data_ptr(), st.v.data_ptr())
-    out, st2 = fused_adam(p, g, st)
+    out, st2 = fused_adam(p, g, st, adam_hyper(st.count, 1e-3, 0.9, 0.999))
     assert out is p
     assert (p.data_ptr(), st2.m.data_ptr(), st2.v.data_ptr()) == ptrs
     want = torch.as_tensor(p0.copy())
-    reference_impl(want, g.float(), init_state(want))
+    wst = init_state(want)
+    reference_impl(want, g.float(), wst,
+                   adam_hyper(wst.count, 1e-3, 0.9, 0.999))
     assert torch.equal(p, want)
 
 
 def test_cuda_backend_refuses_cpu_tensors():
     p = torch.zeros(8)
+    st = init_state(p)
     with pytest.raises(ValueError, match="CUDA"):
-        fused_adam(p, p.clone(), init_state(p), backend="cuda")
+        fused_adam(p, p.clone(), st, adam_hyper(st.count, 1e-3, 0.9, 0.999),
+                   backend="cuda")
 
 
 @pytest.mark.parametrize("name,params,adamw,wd", [
@@ -91,7 +102,7 @@ def test_build_optimizer_defaults(name, params, adamw, wd):
             opt.eps) == (adamw, wd, 1e-3, (0.9, 0.999), 1e-8)
     p = torch.ones(4)
     st = opt.step(p, torch.ones(4), opt.init_state(p))
-    assert isinstance(st, AdamState) and st.step == 1
+    assert isinstance(st, AdamState) and int(st.count) == 1
 
 
 @pytest.mark.parametrize("name,params,item", [

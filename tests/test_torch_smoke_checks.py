@@ -9,8 +9,8 @@ here on the CPU where they need no card.
   within WITNESS_FACTOR of SDPA's error, and stops the smoke otherwise.
 * ``check_flash`` sends every bf16 output of the tensor-core kernels, dQ
   included, to that rule, and fp32 ones to the plain tolerance.
-* ``sass_counts`` reads the wgmma and TMA counts of exactly the bf16
-  instantiations out of ``cuobjdump -sass`` text.
+* ``sass_counts`` reads the wgmma and TMA counts of exactly the bf16 and
+  fp16 tensor-core instantiations out of ``cuobjdump -sass`` text.
 """
 
 import math
@@ -98,14 +98,19 @@ _SASS = """
         /*0100*/                   FFMA R1, R2, R3, R4 ;
                 Function : _ZN55_GLOBAL__N__0_22_flash_attention_fwd_cu_016flash_fwd_kernelI13__nv_bfloat16Lb0ELb1EEEvNS_9FwdParamsE
         /*0100*/                   FFMA R1, R2, R3, R4 ;
+                Function : _ZN55_GLOBAL__N__0_22_flash_attention_fwd_cu_016flash_fwd_kernelI6__halfLb1ELb0EEEvNS_9FwdParamsE
+        /*0100*/                   UTMALDG.4D [UR8], [UR4] ;
+        /*0200*/                   HGMMA.64x128x16.F32.F16 R24, gdesc[UR8], RZ, !UPT ;
 """
 
 
 def test_sass_counts_reads_the_bf16_instantiations():
     counts = chip_smoke.sass_counts(_SASS, "flash_fwd_kernel")
     # the fp32 instantiation is not counted; a bf16 one without wgmma or
-    # TMA shows as zeros, which phase_sass refuses
-    assert counts == {(True, False): (2, 2), (False, True): (0, 0)}
+    # TMA shows as zeros, which phase_sass refuses; fp16 ones are read too
+    assert counts == {("bf16", True, False): (2, 2),
+                      ("bf16", False, True): (0, 0),
+                      ("fp16", True, False): (1, 1)}
     assert chip_smoke.sass_counts(_SASS, "flash_bwd_dkv_kernel") == {}
 
 
@@ -132,9 +137,9 @@ def test_sass_counts_reads_the_dq_instantiations():
     assert ("flash_attention_bwd", "flash_bwd_dq_kernel") in \
         chip_smoke.TENSOR_CORE_KERNELS
     assert chip_smoke.sass_counts(_SASS_DQ, "flash_bwd_dq_kernel") == {
-        (False, False): (2, 1), (True, True): (1, 2)}
+        ("bf16", False, False): (2, 1), ("bf16", True, True): (1, 2)}
     assert chip_smoke.sass_counts(_SASS_DQ, "flash_bwd_dkv_kernel") == {
-        (False, False): (1, 0)}
+        ("bf16", False, False): (1, 0)}
 
 
 def _flash_case(dtype):
@@ -229,10 +234,11 @@ def test_sass_counts_reads_the_sparse_and_prefill_instantiations():
         (16, 64): (2, 1), (128, 128): (1, 2)}
     assert chip_smoke.sass_counts(_SASS_NEW, "ragged_prefill_tc_kernel") == {
         (): (1, 2)}
-    # every template's expected instantiations: 4 flash, 4 x 2 sparse, 1
+    # every template's expected instantiations: 4 flash forms x (bf16,
+    # fp16), 4 x 2 sparse, 1
     assert {k: v[2] for k, v in chip_smoke.SASS_TEMPLATES.items()} == {
-        "flash_fwd_kernel": 4, "flash_bwd_dq_kernel": 4,
-        "flash_bwd_dkv_kernel": 4, "sparse_tc_kernel": 8,
+        "flash_fwd_kernel": 8, "flash_bwd_dq_kernel": 8,
+        "flash_bwd_dkv_kernel": 8, "sparse_tc_kernel": 8,
         "ragged_prefill_tc_kernel": 1}
 
 

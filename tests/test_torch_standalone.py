@@ -18,7 +18,7 @@ import torch
 import deepspeed_tpu_torch
 from deepspeed_tpu_torch.models.transformer import (CausalTransformerLM,
                                                     TransformerConfig)
-from deepspeed_tpu_torch.ops.adam import fused_adam, init_state
+from deepspeed_tpu_torch.ops.adam import adam_hyper, fused_adam, init_state
 from deepspeed_tpu_torch.ops.attention import attention
 from deepspeed_tpu_torch.ops.cuda.flash_attention import (
     flash_attention_bwd_dkv_biased_cuda, flash_attention_bwd_dkv_cuda,
@@ -107,11 +107,14 @@ def test_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         attention(qs, qs, qs, backend="cuda")
     flat = torch.zeros(16)
+    st = init_state(flat)
+    hyper = adam_hyper(st.count, 1e-3, 0.9, 0.999)
     with pytest.raises(ValueError, match="CUDA"):
-        fused_adam_cuda(flat, flat, flat, flat, 1e-3, 0.9, 0.999, 1e-8, 0.0,
-                        True, 0.1, 0.001)
+        fused_adam_cuda(flat, flat, flat, flat, hyper,
+                        torch.zeros((), dtype=torch.int32), 0.999, 1e-8, 0.0,
+                        True)
     with pytest.raises(ValueError, match="CUDA"):
-        fused_adam(flat, flat, init_state(flat), backend="cuda")
+        fused_adam(flat, flat, st, hyper, backend="cuda")
 
 
 def test_biased_and_sparse_wrappers_refuse_cpu_tensors():
