@@ -17,11 +17,11 @@ kernels.  Phases:
   1 device   card name and power limit (nvidia-smi)
   2 build    nvcc, one process per kernel source, all at once; the SASS
              of every bf16 and fp16 tensor-core kernel -- the flash
-             kernels in both dtypes, B6's block-sparse kernel at every
-             block and head dim, B4's prefill kernel -- holds wgmma
-             (HGMMA) and TMA loads (UTMALDG)
-  3 kernels  each kernel vs its plain version: fp32 and bf16 (the flash
-             kernels also fp16, held to SDPA-fp16's error); serving
+             kernels and B4's prefill kernel in both dtypes, B6's
+             block-sparse kernel at every block and head dim -- holds
+             wgmma (HGMMA) and TMA loads (UTMALDG)
+  3 kernels  each kernel vs its plain version: fp32, bf16 and fp16 (the
+             fp16 tensor-core tiles held to SDPA-fp16's error); serving
              attention MHA 32/32 and GQA 32/8; flash attention forward and
              backward at gpt_1b's shape, at GPT-Neo's global layers' (S=2048,
              unscaled logits), GQA 32/8 and S=1000; fused Adam over
@@ -35,14 +35,27 @@ kernels.  Phases:
              meet a sequence's length; ragged paged attention's decode
              rows, bucketed prefills at 16, 512 and 1024, prefills after
              cached prefixes, pages 64 and 48, packed mixed batches with
-             shared prefix pages; the block-sparse kernel for layout
+             shared prefix pages, a 256-token chunk at start 512, the
+             speculative verify window [8, 5], GQA 32/4 (group 8) at head
+             dims 128 and 64 (TinyLlama-1.1B); the block-sparse kernel for
+             layout
              blocks 16-128, head dims 64 and 128, causal, bidirectional
              and empty rows (bf16 B4 prefill and B6 outputs, which round P
              to bf16 in the product, under the same SDPA witness)
   4 generate init_inference(llama2_7b).generate, B=4, prompt 128, 32 new
   5 serve    create_serving_engine(max_batch=8, page_size=128,
              max_seq=2048).generate on 12 mixed-length prompts
-  6 e2e      full width, 2 layers: paged prefill + decode, kernels vs plain
+    serve-features  bf16, full depth: (a) the prefix cache on 12 prompts
+             sharing a 1024-token prefix, (b) the chunked scheduler (chunks
+             of 256, SLO classes) on those 12 and an 1800-token prompt,
+             (c) speculative decoding with a TinyLlama-1.1B-shaped draft,
+             gamma 4, (d) decode_chunk 4, greedy and sampled (the sampled
+             streams the same in reverse arrival order); exact launch
+             counts; tokens vs monolithic baselines by the divergence rule;
+             then phases 4 and 5 in fp16 (tokens vs bf16 by the same rule)
+  6 e2e      full width, 2 layers: paged prefill + decode, kernels vs plain;
+             (a)-(d) in fp32, tokens identical to the monolithic run (the
+             draft also as the target's own weights)
   7 train    run_benchmark for gpt_1b (seq 1024), bloom_1b7 (ALiBi) and
              gpt_neo_1_3b (global / local window 256), seq 2048, micro 2,
              gas 4, bf16, AdamW; exact launches counted; a fixed batch's
@@ -67,7 +80,9 @@ kernels.  Phases:
              layers' shape, the
              decode kernel also at Llama-2's whole context (len 4096), the
              ragged kernel's prefill tiles at the serve run's buckets 512
-             and 1024 (beside B1's forward on the same work); fused
+             and 1024 (beside B1's forward on the same work), B5 and B4 in
+             fp16, the verify window, the TinyLlama decode step, the chunk
+             at an offset; fused
              Adam held against its plain version over gpt_1b's 1.01 B
              parameters; the window-256 forward must take well under the
              ALiBi forward's time
@@ -312,14 +327,17 @@ def sparse_sdpa(q, k, v, layout, block, causal):
     return torch.where(seen, out, torch.zeros_like(out))
 
 
-def check_output(name, got, exact, sdpa):
+def check_output(name, got, exact, sdpa, tensor_cores=False):
     """A forward kernel's output against ``exact``, its plain version run
     in fp32 from the inputs: fp32 by check_close; bf16 -- the tensor-core
     kernels round P to bf16 inside the product -- by check_witnessed,
-    with ``sdpa`` (a callable: the same function by SDPA in bf16) as the
-    yardstick."""
+    with ``sdpa`` (a callable: the same function by SDPA in the kernel's
+    dtype) as the yardstick; fp16 by check_close (TOL["float16"]), or by
+    the fp16 witness rule where ``tensor_cores`` says the output came from
+    tiles that round P to fp16."""
     import torch
-    if got.dtype == torch.bfloat16:
+    if got.dtype == torch.bfloat16 or (got.dtype == torch.float16 and
+                                       tensor_cores):
         return check_witnessed(name, got, exact.to(got.dtype), exact, sdpa())
     return check_close(name, got, exact.to(got.dtype))
 
@@ -365,17 +383,17 @@ TENSOR_CORE_KERNELS = [("flash_attention_fwd", "flash_fwd_kernel"),
 # kernel template -> (regex of its tensor-core instantiations' template
 # arguments in the mangled name, the arguments' reading, how many it has):
 # the flash kernels' <bf16 or fp16, alibi, window>, B6's <block, head dim>
-# (bf16), and B4's bf16 prefill kernel, which has none (its mangled name
-# ends the name at "E")
+# (bf16), and B4's prefill kernel's <bf16 or fp16>
+_DTYPE_ARG = {"13__nv_bfloat16": "bf16", "6__half": "fp16"}
 _FLASH_ARGS = (r"I(13__nv_bfloat16|6__half)Lb([01])ELb([01])E",
-               lambda x: {"13__nv_bfloat16": "bf16",
-                          "6__half": "fp16"}.get(x) or bool(int(x)), 8)
+               lambda x: _DTYPE_ARG.get(x) or bool(int(x)), 8)
 SASS_TEMPLATES = {
     "flash_fwd_kernel": _FLASH_ARGS,
     "flash_bwd_dq_kernel": _FLASH_ARGS,
     "flash_bwd_dkv_kernel": _FLASH_ARGS,
     "sparse_tc_kernel": (r"ILi(\d+)ELi(\d+)E", int, 8),
-    "ragged_prefill_tc_kernel": (r"E", int, 1),
+    "ragged_prefill_tc_kernel": (r"I(13__nv_bfloat16|6__half)E",
+                                 _DTYPE_ARG.get, 2),
 }
 
 
@@ -502,7 +520,7 @@ def phase_kernels():
         decode_plan)
     from deepspeed_tpu_torch.ops.cuda.ragged_paged_attention import (
         paged_attention_plain, ragged_paged_attention,
-        ragged_paged_attention_rect)
+        ragged_paged_attention_rect, tensor_core_prefill)
     gen = torch.Generator(device="cuda").manual_seed(1234)
     D, H, page = 128, 32, 128
     errs = {}
@@ -513,7 +531,13 @@ def phase_kernels():
     def i32(x):
         return torch.tensor(x, dtype=torch.int32, device="cuda")
 
-    for dtype in (torch.float32, torch.bfloat16):
+    def tiles(dtype, D, group, pg, q_lens):
+        """Whether a B4 call's output came (in part) from the tensor-core
+        prefill tiles: some sequence has more than DECODE_ROWS rows."""
+        return tensor_core_prefill(dtype, D, group, pg) and \
+            any(ql * group > DECODE_ROWS for ql in q_lens)
+
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         dn = str(dtype).split(".")[-1]
         for Hkv in (32, 8):
             # B5: ragged lengths over S_max 2048, and generate's own calls
@@ -584,6 +608,17 @@ def phase_kernels():
             cases.append(("serve decode B=8 T=1, 2 idle slots", 1,
                           *_engine_state(needs, Hkv, D, dtype, gen),
                           [p + 16 for p in active] + [1, 1]))
+            # the chunked scheduler's and the verify window's dispatches: a
+            # 256-token prefill chunk at start 512 over cached pages, and
+            # the speculative verify window [8, 5] of 8 slots mid-decode
+            cases.append(("chunk B=1 T=256 at start 512", 256,
+                          *_engine_state([1024 + SERVE_NEW], Hkv, D, dtype,
+                                         gen), [768]))
+            cases.append(("verify window B=8 T=5", 5,
+                          *_engine_state([p + SERVE_NEW for p in
+                                          SERVE_PROMPTS[:8]], Hkv, D,
+                                         dtype, gen),
+                          [p + 9 for p in SERVE_PROMPTS[:8]]))
             for label, T, tb, kk, vv, ctx in cases:
                 qq = _rand((len(ctx), T, H, D), dtype, gen)
                 lens = i32(ctx)
@@ -592,7 +627,8 @@ def phase_kernels():
                                               vv.float(), tb, lens)
                 note("ragged_paged_attention", dn, check_output(
                     f"ragged_paged_attention {dn} H{H}/{Hkv} {label}", got,
-                    exact, lambda: paged_sdpa(qq, kk, vv, tb, lens)))
+                    exact, lambda: paged_sdpa(qq, kk, vv, tb, lens),
+                    tiles(dtype, D, H // Hkv, kk.shape[2], [T])))
             # B4 packed front-end, mixed batches in one call: prefills,
             # decodes sharing prefix pages, partial pages; then decode rows
             # of 1-4 tokens (MHA: one decode launch of 4-row blocks) beside
@@ -619,7 +655,29 @@ def phase_kernels():
                     f"ragged_paged_attention {dn} H{H}/{Hkv} packed mixed "
                     f"q_lens {q_lens}", got, exact,
                     lambda: torch.cat([paged_sdpa(x, kk, vv, t, c)[0]
-                                       for x, t, c in seqs])))
+                                       for x, t, c in seqs]),
+                    tiles(dtype, D, H // Hkv, page, q_lens)))
+        # GQA 32/4 (group 8): Llama-2's width at head dim 128 (its decode
+        # rows exceed DECODE_ROWS and take prefill tiles), then the
+        # TinyLlama-1.1B draft's shape, head dim 64 (CUDA-core tiles
+        # only): its decode step and a 256-token chunk at start 512
+        needs = [p + SERVE_NEW for p in SERVE_PROMPTS[:8]]
+        for Dg in (128, 64):
+            for label, T, st, ctx in (
+                    ("decode B=8 T=1", 1, needs,
+                     [p + 16 for p in SERVE_PROMPTS[:8]]),
+                    ("chunk B=1 T=256 at start 512", 256,
+                     [1024 + SERVE_NEW], [768])):
+                tb, kk, vv = _engine_state(st, 4, Dg, dtype, gen)
+                qq = _rand((len(ctx), T, H, Dg), dtype, gen)
+                lens = i32(ctx)
+                got = ragged_paged_attention_rect(qq, kk, vv, tb, lens)
+                exact = paged_attention_plain(qq.float(), kk.float(),
+                                              vv.float(), tb, lens)
+                note("ragged_paged_attention", dn, check_output(
+                    f"ragged_paged_attention {dn} H{H}/4 D={Dg} {label}",
+                    got, exact, lambda: paged_sdpa(qq, kk, vv, tb, lens),
+                    tiles(dtype, Dg, H // 4, kk.shape[2], [T])))
     return errs
 
 
@@ -1053,23 +1111,28 @@ def plain_calls(counts):
     return {k: v for k, v in counts.items() if k.endswith("_plain") and v}
 
 
-def build_model(n_layers, seed):
+def build_model(n_layers, seed, dtype=None, cfg=None):
+    """Llama-2-7B (or ``cfg``) at ``n_layers`` layers, random weights from
+    ``seed`` (drawn in fp32 and rounded to ``dtype``, bf16 by default: a
+    seed gives the same weights in every dtype, up to rounding)."""
+    import dataclasses
     import torch
     from deepspeed_tpu_torch.models.transformer import (CausalTransformerLM,
                                                         TransformerConfig)
-    cfg = TransformerConfig.llama2_7b(n_layers=n_layers)
+    cfg = dataclasses.replace(cfg or TransformerConfig.llama2_7b(),
+                              n_layers=n_layers)
     t0 = time.time()
     model = CausalTransformerLM(cfg, device="cuda",
-                                dtype=torch.bfloat16).init(seed)
+                                dtype=dtype or torch.bfloat16).init(seed)
     torch.cuda.synchronize()
     return cfg, model, time.time() - t0
 
 
-def phase_generate(model, cfg, B=4, S=128, new=32):
+def phase_generate(model, cfg, B=4, S=128, new=32, dtype="bf16"):
     import numpy as np
     import torch
     import deepspeed_tpu_torch as dst
-    eng = dst.init_inference(model, dtype="bf16")
+    eng = dst.init_inference(model, dtype=dtype)
     ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S))
     torch.cuda.synchronize()
     t0 = time.time()
@@ -1082,7 +1145,7 @@ def phase_generate(model, cfg, B=4, S=128, new=32):
         fail("generate returned out-of-vocab tokens")
     if not torch.equal(out[:, :S].cpu(), torch.as_tensor(ids)):
         fail("generate altered the prompt")
-    return eng, ids, dt
+    return eng, ids, dt, out
 
 
 def phase_serve(eng, cfg):
@@ -1094,6 +1157,7 @@ def phase_serve(eng, cfg):
     se = eng.create_serving_engine(max_batch=SERVE_SLOTS,
                                    page_size=SERVE_PAGE,
                                    max_seq=SERVE_MAX_SEQ)
+    se.margins = record_margins(se)
     torch.cuda.synchronize()
     t0 = time.time()
     outs = se.generate(prompts, max_new_tokens=SERVE_NEW)
@@ -1109,7 +1173,7 @@ def phase_serve(eng, cfg):
         fail(f"leak_report() = {leaks}")
     if se.stats["finished"] != len(prompts):
         fail(f"{se.stats['finished']} of {len(prompts)} requests finished")
-    return se, prompts, dt
+    return se, prompts, dt, outs
 
 
 def phase_e2e(B=4, T=128, steps=4):
@@ -1356,6 +1420,138 @@ def phase_timing(cfg, serve_prompts):
     return res
 
 
+def _time_decode(name, dtype, B, S, L, copies, gen):
+    """B5 at [B, T=1], one int length L over S_max S: kernel, plain and
+    SDPA device times, bound and error (a phase_timing row)."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.cuda.decode_attention import (
+        decode_attention_cuda, decode_attention_plain)
+    H, Hkv, D = 32, 32, 128
+    dn = str(dtype).split(".")[-1]
+    q = _rand((copies, B, 1, H, D), dtype, gen)
+    k = _rand((copies, B, Hkv, S, D), dtype, gen)
+    v = _rand((copies, B, Hkv, S, D), dtype, gen)
+    err = check_close(f"timing {name}",
+                      decode_attention_cuda(q[0], k[0], v[0], L),
+                      reference(decode_attention_plain, q[0], k[0], v[0], L))
+    qs = q.transpose(2, 3).contiguous()
+    times = _measure({
+        "ms": lambda i: decode_attention_cuda(q[i % copies], k[i % copies],
+                                              v[i % copies], L),
+        "plain_ms": lambda i: decode_attention_plain(
+            q[i % copies], k[i % copies], v[i % copies], L),
+        "library_ms": lambda i: F.scaled_dot_product_attention(
+            qs[i % copies], k[i % copies][:, :, :L],
+            v[i % copies][:, :, :L])}, copies)
+    nbytes = B * (2 * Hkv * L * D + 2 * H * D) * q.element_size()
+    bound_ms, bound_by = _bound(nbytes, B * 4 * H * D * L, dn)
+    return dict(max_abs_err=err, **times, bound_ms=bound_ms,
+                bound_by=bound_by,
+                shape=f"B={B} T=1 H={H} Hkv={Hkv} D={D} len={L} S_max={S} "
+                      f"{dn}")
+
+
+def _time_paged(name, dtype, needs, ctx, T, Hkv, D, copies, gen, H=32):
+    """B4's rect front-end at [len(ctx), T] over the serve run's page pools
+    (slot s reserves needs[s] tokens, holds ctx[s] with its last T the
+    queries): kernel, plain and SDPA device times (SDPA over the gathered
+    dense K/V with the causal-ragged mask), bound and error."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.cuda.decode_attention import DECODE_ROWS
+    from deepspeed_tpu_torch.ops.cuda.ragged_paged_attention import (
+        paged_attention_plain, ragged_paged_attention_rect,
+        tensor_core_prefill)
+    dn = str(dtype).split(".")[-1]
+    B, group = len(ctx), H // Hkv
+    states = [_engine_state(needs, Hkv, D, dtype, gen)
+              for _ in range(copies)]
+    lens = torch.tensor(ctx, dtype=torch.int32, device="cuda")
+    q = _rand((copies, B, T, H, D), dtype, gen)
+    tb, kp, vp = states[0]
+    exact = paged_attention_plain(q[0].float(), kp.float(), vp.float(), tb,
+                                  lens)
+    tc = tensor_core_prefill(dtype, D, group, SERVE_PAGE) and \
+        T * group > DECODE_ROWS
+    err = check_output(f"timing {name}",
+                       ragged_paged_attention_rect(q[0], kp, vp, tb, lens),
+                       exact, lambda: paged_sdpa(q[0], kp, vp, tb, lens), tc)
+    del exact
+    Smax = tb.shape[1] * SERVE_PAGE
+    dense = []
+    for t, kx, vx in states:
+        dense.append(tuple(x[t.long()].transpose(1, 2).reshape(
+            B, Hkv, Smax, D) for x in (kx, vx)))
+    qpos = lens.long()[:, None] - T + torch.arange(T, device="cuda")
+    mask = (torch.arange(Smax, device="cuda")[None, None] <=
+            qpos[:, :, None])[:, None]                  # [B, 1, T, Smax]
+    qs = q.transpose(2, 3).contiguous()                 # [c, B, H, T, D]
+    times = _measure({
+        "ms": lambda i: ragged_paged_attention_rect(
+            q[i % copies], states[i % copies][1], states[i % copies][2],
+            states[i % copies][0], lens),
+        "plain_ms": lambda i: paged_attention_plain(
+            q[i % copies], states[i % copies][1], states[i % copies][2],
+            states[i % copies][0], lens),
+        "library_ms": lambda i: F.scaled_dot_product_attention(
+            qs[i % copies], *dense[i % copies], attn_mask=mask,
+            enable_gqa=Hkv != H)}, copies)
+    pairs = sum(int(p) + 1 for p in qpos.flatten().tolist())
+    nbytes = (sum(2 * Hkv * c * D for c in ctx) + 2 * B * T * H * D) * \
+        q.element_size()
+    bound_ms, bound_by = _bound(nbytes, 4 * H * D * pairs, dn)
+    return dict(max_abs_err=err, **times, bound_ms=bound_ms,
+                bound_by=bound_by,
+                shape=f"B={B} T={T} H={H} Hkv={Hkv} D={D} page={SERVE_PAGE}"
+                      f" ctx={ctx} {dn}")
+
+
+def phase_timing_serving():
+    """This slice's forms at the shapes their main paths give them: B5 and
+    B4 in fp16 (generate's decode step, the serve run's decode step and
+    its 512 / 1024 prefills), and, in bf16, the speculative verify window
+    [8, 5] (prefill tiles at group 1), the TinyLlama draft's decode step
+    (group 8, head dim 64: CUDA-core tiles) and a 256-token chunk at start
+    512."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(98)
+    fp16, bf16 = torch.float16, torch.bfloat16
+    prompts = SERVE_PROMPTS[:SERVE_SLOTS]
+    needs = [p + SERVE_NEW for p in prompts]
+    rows = {"decode_attention_fp16": _time_decode(
+        "decode_attention fp16", fp16, 4, 160, 144, 12, gen)}
+    rows["ragged_paged_attention_fp16"] = _time_paged(
+        "ragged_paged_attention fp16 decode", fp16, needs,
+        [p + 16 for p in prompts], 1, 32, 128, 4, gen)
+    _free()
+    for prompt in (511, 600):
+        bucket, need = _prefill_need(prompt)
+        rows[f"ragged_paged_attention_prefill_{bucket}_fp16"] = _time_paged(
+            f"ragged_paged_attention fp16 prefill T={bucket}", fp16, [need],
+            [bucket], bucket, 32, 128, 4, gen)
+        _free()
+    rows["ragged_paged_attention_verify"] = _time_paged(
+        "ragged_paged_attention verify window [8, 5]", bf16, needs,
+        [p + 9 for p in prompts], SPEC_GAMMA + 1, 32, 128, 4, gen)
+    rows["ragged_paged_attention_draft_gqa8"] = _time_paged(
+        "ragged_paged_attention TinyLlama decode step (group 8, D=64)", bf16,
+        needs, [p + 16 for p in prompts], 1, DRAFT_SHAPE["n_kv_heads"],
+        DRAFT_SHAPE["hidden_size"] // DRAFT_SHAPE["n_heads"], 4, gen)
+    rows["ragged_paged_attention_chunk_at_offset"] = _time_paged(
+        "ragged_paged_attention chunk T=256 at start 512", bf16,
+        [1024 + SERVE_NEW], [768], CHUNK_TOKENS, 32, 128, 4, gen)
+    _free()
+    for name, r in rows.items():
+        phase("timing", f"{name} [{r['shape']}]: device ms (graph replay) "
+              f"kernel {r['ms']:.4f}, plain {r['plain_ms']:.4f}, SDPA "
+              f"{r['library_ms']:.4f}; eager ms per call (host included) "
+              f"kernel {r['ms_eager']:.4f}; bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.3f} of bound, "
+              f"max abs err {r['max_abs_err']:.3e}")
+    return rows
+
+
 def profile_device(fn, reps):
     """Device time of ``reps`` calls of fn() by kernel (torch.profiler):
     returns (device ms per call, top kernels [(name, ms per call)], every
@@ -1408,6 +1604,413 @@ def decode_step_ms(eng, cfg, steps=16, profiled=4):
     del se
     torch.cuda.empty_cache()
     return ms, device_ms, top, b4_ms
+
+
+# ----------------------------------------------------------------------
+# serving as users configure it (phase serve-features, and its fp32
+# 2-layer twin in phase e2e): the prefix cache, the chunked scheduler
+# with SLO classes, speculative decoding with a draft model, and
+# decode_chunk > 1, each through create_serving_engine at the serve run's
+# geometry (8 slots, page 128, max_seq 2048)
+
+# The divergence rule.  A feature run reaches the same token positions
+# through other kernel forms and GEMM shapes than the baseline monolithic
+# run (a suffix prefill at an offset, 256-token chunks, the [8, 5] verify
+# window on prefill tiles, fp16 against bf16), so its logits differ from
+# the baseline's by rounding, and a greedy token may flip where the
+# baseline's top-2 margin is small.  The 2-layer kernel-vs-plain e2e run
+# measures a bf16 logit gap of 1.3e-2 of max|logit| (about 3 ulps of
+# 2**-8, on an H100 at 700 W); at 4 ulps for 2 layers, growing as a random
+# walk, 32 layers give 4 * sqrt(16) = 16 ulps, and a flip needs the two
+# top logits to move apart by twice that.  So the first divergence of a
+# request must sit where the baseline's top-2 margin is under
+# DIVERGENCE_ULPS ulps of the coarser dtype of the two runs times the
+# position's max|logit|.  fp32 runs (2 layers) must match exactly.
+UNIT_ROUNDOFF = {"bfloat16": 2.0 ** -8, "float16": 2.0 ** -11,
+                 "float32": 2.0 ** -24}
+DIVERGENCE_ULPS = 32
+# TinyLlama/TinyLlama-1.1B-intermediate-step-1431k-3T config.json:
+# hidden_size 2048, num_hidden_layers 22, num_attention_heads 32,
+# num_key_value_heads 4, intermediate_size 5632, vocab_size 32000,
+# RMSNorm eps 1e-5, rope_theta 10000 -- head dim 64, GQA group 8
+DRAFT_SHAPE = dict(vocab_size=32000, hidden_size=2048, n_layers=22,
+                   n_heads=32, n_kv_heads=4, ffn_hidden_size=5632,
+                   max_seq_len=2048, rope_theta=10000.0, norm_eps=1e-5)
+SPEC_GAMMA = 4
+CHUNK_TOKENS = 256
+DECODE_CHUNK = 4
+PREFIX_TOKENS = 1024          # the shared system prefix of run (a)
+PREFIX_SUFFIXES = [16, 400, 37, 250, 128, 311, 64, 300, 90, 350, 200, 23]
+LONG_PROMPT = 1800            # run (b)'s long prompt
+
+
+def divergence_limit(dtype_name, max_abs_logit):
+    """The largest top-2 margin at which a greedy token may flip between
+    two runs of ``dtype_name`` (the coarser dtype of the two)."""
+    return DIVERGENCE_ULPS * UNIT_ROUNDOFF[dtype_name] * max_abs_logit
+
+
+def record_margins(se):
+    """Wraps ``se._sample`` (the host sampler every monolithic prefill and
+    decode step calls) to record, per (request id, generated index), the
+    baseline's top-2 logit margin and max|logit|; fails on a non-finite
+    logit.  Returns the dict it fills."""
+    import numpy as np
+    margins = {}
+    real = se._sample
+
+    def sample(req, logits):
+        if not np.isfinite(logits).all():
+            fail(f"request {req.req_id!r}: non-finite logits at generated "
+                 f"index {len(req.out)}")
+        top2 = np.partition(logits, -2)[-2:]
+        margins[(req.req_id, len(req.out))] = (
+            float(top2[1] - top2[0]), float(np.abs(logits).max()))
+        return real(req, logits)
+
+    se._sample = sample
+    return margins
+
+
+def first_divergence(base, got, n_prompt):
+    """Generated index of the first token where ``got`` leaves ``base``
+    (None when they agree)."""
+    for i, (a, b) in enumerate(zip(base[n_prompt:], got[n_prompt:])):
+        if a != b:
+            return i
+    if len(base) != len(got):
+        return min(len(base), len(got)) - n_prompt
+    return None
+
+
+def divergences(base_outs, outs, prompts, margins, dtype_name):
+    """(identical requests, [(request, index, margin, limit)] of every
+    first divergence) of ``outs`` against the baseline's ``base_outs``,
+    with the baseline's ``margins`` (``record_margins``)."""
+    same, rows = 0, []
+    for rid, (b, g, p) in enumerate(zip(base_outs, outs, prompts)):
+        i = first_divergence(b, g, len(p))
+        if i is None:
+            same += 1
+            continue
+        margin, top = margins.get((rid, i), (float("inf"), 0.0))
+        rows.append((rid, i, margin, divergence_limit(dtype_name, top)))
+    return same, rows
+
+
+def check_divergence(label, base_outs, outs, prompts, margins, dtype_name):
+    """Fails unless every request matches the baseline or first leaves it
+    at a near-tie of the baseline (:func:`divergences`); prints each
+    divergence's margin and limit and the count of identical requests."""
+    same, rows = divergences(base_outs, outs, prompts, margins, dtype_name)
+    phase("serve-features", f"{label}: {same} of {len(outs)} requests "
+          f"identical to the baseline; first divergences (request, index, "
+          f"margin, limit): {[(r, i, f'{m:.4g}', f'{l:.4g}') for r, i, m, l in rows]}")
+    bad = [r for r in rows if not r[2] < r[3]]
+    if bad:
+        fail(f"{label}: tokens leave the baseline where its top-2 margin is "
+             f"at or over the {dtype_name} limit ({DIVERGENCE_ULPS} ulps x "
+             f"max|logit|): {bad}")
+    return same, rows
+
+
+def prefill_chunks(prompt_lens, chunk, cached=None):
+    """Prefill-chunk dispatches of the chunked scheduler: each prompt's
+    uncached suffix in ``chunk``-token pieces."""
+    cached = cached or [0] * len(prompt_lens)
+    return sum(-(-(p - c) // chunk) for p, c in zip(prompt_lens, cached))
+
+
+def expected_b4_launches(n_layers, stats, n_prefills=0, decode_chunk=1,
+                         draft_layers=0, gamma=0, draft_chunks=0):
+    """(B4 launches, target model calls, draft model calls) of a serve run
+    from its dispatch shapes: the target's model calls are one monolithic
+    prefill per request (``n_prefills``) or the scheduler's prefill chunks
+    (``stats["prefill_chunks"]``), plus ``decode_chunk`` calls per decode
+    dispatch (a verify window is one); the draft's are its own prefill
+    chunks plus gamma + 1 single-token decodes per verify window.  Every
+    model call launches B4 once per layer."""
+    target = stats.get("prefill_chunks", 0) + n_prefills + \
+        decode_chunk * stats["decode_steps"]
+    draft = draft_chunks + (gamma + 1) * stats.get("spec_windows", 0)
+    return n_layers * target + draft_layers * draft, target, draft
+
+
+def _drive(se, items, max_new):
+    """Adds ``items`` [(request id, prompt, add_request kwargs)] and steps
+    until every request is out; returns {request id: tokens}."""
+    for rid, prompt, kw in items:
+        se.add_request(rid, prompt, max_new_tokens=max_new, **kw)
+    out, steps = {}, 0
+    limit = 3 * (max(len(p) for _, p, _ in items) + max_new + 4) * \
+        (len(items) + 1)
+    while se.queue or se.n_active:
+        out.update(se.step())
+        steps += 1
+        if steps > limit:
+            fail(f"serving stalled after {steps} steps")
+    return out
+
+
+def serve_run(label, model, items, max_new, dtype, serving=None,
+              draft=None, **kw):
+    """One counted serve run through create_serving_engine: counters set
+    to 0 just before, read just after; no plain version may run and
+    leak_report() must be {}.  Returns (engine, {id: tokens}, counts,
+    wall s)."""
+    import torch
+    from deepspeed_tpu_torch.inference.serving import create_serving_engine
+    _free()         # the engines before: each holds its page pools
+    se = create_serving_engine(
+        model, {"serving": dict(serving or {})}, max_batch=SERVE_SLOTS,
+        page_size=SERVE_PAGE, max_seq=SERVE_MAX_SEQ, dtype=dtype,
+        draft_model=draft, **kw)
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.time()
+    out = _drive(se, items, max_new)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    counts = read_counters()
+    if plain_calls(counts):
+        fail(f"{label}: plain versions ran: {plain_calls(counts)}")
+    leaks = se.leak_report()
+    if leaks:
+        fail(f"{label}: leak_report() = {leaks}")
+    if se.stats["finished"] != len(items):
+        fail(f"{label}: {se.stats['finished']} of {len(items)} requests "
+             f"finished")
+    return se, out, counts, dt
+
+
+def check_launches(label, counts, want, se, target):
+    """The run's B4 launches and the engine's model calls against
+    :func:`expected_b4_launches`; B5 must not launch in serving."""
+    got = counts["ragged_paged_attention"]
+    if got != want or se.stats["model_calls"] != target:
+        fail(f"{label}: ragged kernel launched {got} times over "
+             f"{se.stats['model_calls']} target model calls, expected "
+             f"{want} over {target}")
+    if counts["decode_attention"]:
+        fail(f"{label}: the decode kernel launched in serving")
+
+
+def _items(prompts, **kw):
+    return [(i, p, dict(kw)) for i, p in enumerate(prompts)]
+
+
+def _outs(out, n):
+    return [out[i] for i in range(n)]
+
+
+def feature_prompts(vocab, seed):
+    """(the (a) prompts: PREFIX_TOKENS shared + PREFIX_SUFFIXES, the
+    (b)-(d) prompts: the serve run's 12 and one LONG_PROMPT-token one)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, (PREFIX_TOKENS,)).tolist()
+    shared = [prefix + rng.integers(0, vocab, (n,)).tolist()
+              for n in PREFIX_SUFFIXES]
+    rng = np.random.default_rng(1)          # phase 5's prompts, then one
+    mixed = [rng.integers(0, vocab, (n,)).tolist() for n in SERVE_PROMPTS]
+    mixed.append(rng.integers(0, vocab, (LONG_PROMPT,)).tolist())
+    return shared, mixed
+
+
+def phase_serve_features(model, cfg, draft, dtype, exact, label):
+    """Runs (a)-(d) on ``model`` (and ``draft`` models for (c): a list of
+    (name, model)) against monolithic baselines, through the kernels.
+    ``exact``: tokens must equal the baseline's (fp32); else the
+    divergence rule.  Returns a summary dict for the timing rows and the
+    kernels JSON."""
+    import numpy as np
+    import torch
+    dn = str(dtype).split(".")[-1]
+    L, N = cfg.n_layers, SERVE_NEW
+    shared, mixed = feature_prompts(cfg.vocab_size, seed=11)
+    res = {}
+
+    def compare(name, base, outs, prompts, margins):
+        if exact:
+            same = sum(b == g for b, g in zip(base, outs))
+            if same != len(outs):
+                fail(f"{label} {name}: {len(outs) - same} requests differ "
+                     f"from the monolithic fp32 run")
+            phase("e2e", f"{label} {name}: tokens identical to the "
+                  f"monolithic run, {same} of {len(outs)} requests")
+        else:
+            check_divergence(f"{label} {name}", base, outs, prompts,
+                             margins, dn)
+
+    def baseline(name, prompts):
+        from deepspeed_tpu_torch.inference.serving import \
+            create_serving_engine
+        _free()
+        se = create_serving_engine(
+            model, {}, max_batch=SERVE_SLOTS, page_size=SERVE_PAGE,
+            max_seq=SERVE_MAX_SEQ, dtype=dtype)
+        margins = record_margins(se)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = _drive(se, _items(prompts), N)
+        torch.cuda.synchronize()
+        phase("serve-features", f"{label} baseline {name}, monolithic: "
+              f"{time.time() - t0:.3f} s")
+        if se.leak_report():
+            fail(f"{label} baseline {name}: {se.leak_report()}")
+        return _outs(out, len(prompts)), margins
+
+    # (a) the prefix cache: cache off (the baseline) vs on.  Each run's
+    # engine is dropped (se = None) before the next one is built.
+    base_a, margins_a = baseline("(a)", shared)
+    se, out, counts, dt = serve_run(
+        f"{label} (a) prefix cache", model, _items(shared), N, dtype,
+        serving={"prefix_cache": {"enabled": True}})
+    want, target, _ = expected_b4_launches(
+        L, se.scheduler.sched_stats, n_prefills=len(shared))
+    check_launches(f"{label} (a)", counts, want, se, target)
+    pc = se.prefix_cache
+    if pc.audit():
+        fail(f"{label} (a): prefix cache audit {pc.audit()}")
+    suffix = sum(len(p) for p in shared) - pc.stats["tokens_reused"]
+    phase("serve-features", f"{label} (a) prefix cache, 12 prompts of "
+          f"{PREFIX_TOKENS} shared + {PREFIX_SUFFIXES} tokens x {N} new: "
+          f"{dt:.3f} s; hits {pc.stats['hits']}, cached pages "
+          f"{pc.cached_page_count}, tokens reused "
+          f"{pc.stats['tokens_reused']}, suffix tokens prefilled {suffix} "
+          f"of {sum(len(p) for p in shared)}; B4 launches {want} = {L} x "
+          f"{target}; audit {{}}, leak_report {{}}")
+    if pc.stats["hits"] < len(shared) - 1:
+        fail(f"{label} (a): {pc.stats['hits']} prefix hits, expected "
+             f"{len(shared) - 1}")
+    compare("(a) prefix cache", base_a, _outs(out, len(shared)), shared,
+            margins_a)
+    res["prefix"] = dict(launches=want, hits=pc.stats["hits"], dt=dt)
+
+    # the (b)-(d) baseline: monolithic on the 13 mixed prompts
+    se = pc = None
+    base, margins = baseline("(b)-(d)", mixed)
+    lens = [len(p) for p in mixed]
+
+    # (b) chunked prefill, SLO classes alternating latency / throughput
+    items = [(i, p, {"slo_class": ("latency", "throughput")[i % 2]})
+             for i, p in enumerate(mixed)]
+    sched = {"policy": "chunked", "prefill_chunk_tokens": CHUNK_TOKENS,
+             "max_prefill_chunks_per_step": 1}
+    se = None
+    se, out, counts, dt = serve_run(f"{label} (b) chunked", model, items,
+                                    N, dtype, serving={"scheduler": sched})
+    st = se.scheduler.sched_stats
+    if st["prefill_chunks"] != prefill_chunks(lens, CHUNK_TOKENS):
+        fail(f"{label} (b): {st['prefill_chunks']} prefill chunks, "
+             f"expected {prefill_chunks(lens, CHUNK_TOKENS)}")
+    want, target, _ = expected_b4_launches(L, st)
+    check_launches(f"{label} (b)", counts, want, se, target)
+    ttft = {"latency": [], "throughput": []}
+    for tr in se.tracer.completed:
+        ttft[items[tr.req_id][2]["slo_class"]].append(tr.ttft_ms())
+    offset = sum(max(0, -(-n // CHUNK_TOKENS) - 1) for n in lens)
+    phase("serve-features", f"{label} (b) chunked, {len(mixed)} prompts "
+          f"{lens} x {N} new, chunks of {CHUNK_TOKENS}, one a step: "
+          f"{dt:.3f} s; {st['prefill_chunks']} prefill chunks "
+          f"({offset} at a start offset), {st['decode_steps']} decode "
+          f"steps; mean TTFT latency class "
+          f"{np.mean(ttft['latency']):.1f} ms, throughput class "
+          f"{np.mean(ttft['throughput']):.1f} ms; B4 launches {want} = "
+          f"{L} x {target}")
+    compare("(b) chunked", base, _outs(out, len(mixed)), mixed, margins)
+    res["chunk"] = dict(launches=L * offset, dt=dt)
+
+    # (c) speculative decoding, gamma SPEC_GAMMA, per draft model
+    spec = dict(sched, speculative={"enabled": True,
+                                    "num_draft_tokens": SPEC_GAMMA})
+    for name, dmodel in draft:
+        se = None
+        se, out, counts, dt = serve_run(
+            f"{label} (c) speculative, draft {name}", model,
+            _items(mixed), N, dtype, serving={"scheduler": spec},
+            draft=dmodel)
+        st = se.scheduler.sched_stats
+        Ld = dmodel.config.n_layers
+        dchunks = prefill_chunks(lens, CHUNK_TOKENS)
+        want, target, dcalls = expected_b4_launches(
+            L, st, draft_layers=Ld, gamma=SPEC_GAMMA, draft_chunks=dchunks)
+        check_launches(f"{label} (c) {name}", counts, want, se, target)
+        if st["draft_calls"] != dcalls:
+            fail(f"{label} (c) {name}: {st['draft_calls']} draft calls, "
+                 f"expected {dcalls}")
+        snap = se.scheduler.snapshot()
+        phase("serve-features", f"{label} (c) speculative gamma "
+              f"{SPEC_GAMMA}, draft {name}: {dt:.3f} s; acceptance rate "
+              f"{snap['spec_acceptance_rate']:.4f} ({st['spec_accepted']} "
+              f"of {st['spec_proposed']}), {st['spec_windows']} verify "
+              f"windows; B4 launches {want}: target {L} x {target}, "
+              f"draft {Ld} x {dcalls}")
+        compare(f"(c) speculative, draft {name}", base,
+                _outs(out, len(mixed)), mixed, margins)
+        res[f"spec_{name}"] = dict(
+            verify_launches=L * st["spec_windows"],
+            draft_decode_launches=Ld * (SPEC_GAMMA + 1) *
+            st["spec_windows"], acceptance=snap["spec_acceptance_rate"],
+            dt=dt)
+
+    # (d) decode_chunk: greedy, then sampled (temperature 0.8, top-p 0.9)
+    # twice, the second time with the requests added in reverse order
+    se = None
+    se, out, counts, dt = serve_run(f"{label} (d) decode_chunk greedy",
+                                    model, _items(mixed), N, dtype,
+                                    decode_chunk=DECODE_CHUNK)
+    want, target, _ = expected_b4_launches(
+        L, se.scheduler.sched_stats, n_prefills=len(mixed),
+        decode_chunk=DECODE_CHUNK)
+    check_launches(f"{label} (d) greedy", counts, want, se, target)
+    phase("serve-features", f"{label} (d) decode_chunk {DECODE_CHUNK} "
+          f"greedy: {dt:.3f} s, {se.scheduler.sched_stats['decode_steps']}"
+          f" decode dispatches")
+    compare(f"(d) decode_chunk {DECODE_CHUNK} greedy", base,
+            _outs(out, len(mixed)), mixed, margins)
+    runs = []
+    for order in (1, -1):
+        items = [(i, p, dict(temperature=0.8, top_p=0.9, seed=1000 + i))
+                 for i, p in enumerate(mixed)][::order]
+        se = None
+        se, out, counts, dt = serve_run(
+            f"{label} (d) decode_chunk sampled", model, items, N, dtype,
+            decode_chunk=DECODE_CHUNK)
+        want, target, _ = expected_b4_launches(
+            L, se.scheduler.sched_stats, n_prefills=len(mixed),
+            decode_chunk=DECODE_CHUNK)
+        check_launches(f"{label} (d) sampled", counts, want, se, target)
+        runs.append((out, dt, se.scheduler.sched_stats["decode_steps"]))
+    if runs[0][0] != runs[1][0]:
+        diff = [i for i in runs[0][0] if runs[0][0][i] != runs[1][0][i]]
+        fail(f"{label} (d): sampled streams changed with the arrival "
+             f"order, requests {diff}")
+    phase("serve-features", f"{label} (d) decode_chunk {DECODE_CHUNK}: "
+          f"sampled (T 0.8, top-p 0.9) {len(mixed) * N / runs[0][1]:.1f} "
+          f"new tokens/s ({runs[0][1]:.3f} s, {runs[0][2]} decode "
+          f"dispatches of {DECODE_CHUNK} tokens); the rerun in reverse "
+          f"arrival order gave the same {len(mixed)} streams")
+    res["decode_chunk"] = dict(dt=runs[0][1])
+    se = None
+    _free()
+    return res
+
+
+def teacher_margins(eng, outs, n_prompt):
+    """{(row, generated index): (top-2 margin, max|logit|)} of ``outs``
+    scored by one forward of the whole sequences (the margins behind
+    ``InferenceEngine.generate``'s greedy tokens)."""
+    import torch
+    logits, _ = eng.forward(outs[:, :-1])
+    lg = logits[:, n_prompt - 1:].float()
+    if not torch.isfinite(lg).all():
+        fail("teacher-forced logits not finite")
+    top2 = lg.topk(2, dim=-1).values
+    marg = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+    top = lg.abs().amax(-1).cpu().numpy()
+    return {(b, i): (float(marg[b, i]), float(top[b, i]))
+            for b in range(marg.shape[0]) for i in range(marg.shape[1])}
 
 
 # ----------------------------------------------------------------------
@@ -2284,10 +2887,11 @@ def main():
 
     # ---- main path: generate + serve, counters read around it ---------
     reset_counters()
-    eng, ids, t_gen = phase_generate(model, cfg)
+    eng, ids, t_gen, gen_out = phase_generate(model, cfg)
     after_gen = read_counters()
-    se, prompts, t_serve = phase_serve(eng, cfg)
+    se, prompts, t_serve, serve_outs = phase_serve(eng, cfg)
     counts = read_counters()
+    serve_margins = se.margins
     calls = se.stats["model_calls"]
     gen_calls = 32                      # 1 prefill + 31 decode calls
     if after_gen["decode_attention"] != L * gen_calls:
@@ -2314,6 +2918,8 @@ def main():
     se_steps = se.scheduler.sched_stats['decode_steps']
     del se
     torch.cuda.empty_cache()
+    # the margins behind generate's greedy tokens, for the fp16 run
+    gen_margins = teacher_margins(eng, gen_out, ids.shape[1])
     # generate's per-step time: its prefill alone, timed after the counted
     # main path, taken out of the generate wall time
     torch.cuda.synchronize()
@@ -2349,13 +2955,81 @@ def main():
           f"{b4_ms:.4f} ms/step, {b4_ms / device_ms:.3f} of the device time")
     for name, k_ms in top:
         phase("serve", f"  device ms/step {k_ms:.4f}  {name[:90]}")
-    del eng, model
-    torch.cuda.empty_cache()
+
+    # ---- serve-features: each run counted on its own (serve_run) ------
+    from deepspeed_tpu_torch.models.transformer import TransformerConfig
+    t0 = time.time()
+    dcfg, draft, _ = build_model(DRAFT_SHAPE["n_layers"], seed=1,
+                                 cfg=TransformerConfig(**DRAFT_SHAPE))
+    feat = phase_serve_features(model, cfg, [("TinyLlama-1.1B", draft)],
+                                torch.bfloat16, exact=False, label="bf16")
+    phase("serve-features", f"bf16 (a)-(d), Llama-2-7B {L} layers, draft "
+          f"TinyLlama-1.1B shape {dcfg.n_layers} layers: "
+          f"{time.time() - t0:.1f} s")
+    del eng, model, draft
+    _free()
+
+    # ---- fp16: phases 4 and 5 again, the same seed's weights in fp16 --
+    cfg16, model16, _ = build_model(32, seed=0, dtype=torch.float16)
+    reset_counters()
+    eng16, _, t_gen16, out16 = phase_generate(model16, cfg16, dtype="fp16")
+    c16 = read_counters()
+    if c16["decode_attention"] != L * gen_calls or \
+            c16["ragged_paged_attention"] or plain_calls(c16):
+        fail(f"fp16 generate launches {c16}, expected decode_attention "
+             f"{L} x {gen_calls} and nothing else")
+    teacher_margins(eng16, out16, ids.shape[1])        # finite or fail
+    check_divergence(
+        "fp16 generate vs bf16", [r.tolist() for r in gen_out.cpu()],
+        [r.tolist() for r in out16.cpu()], [ids[0]] * len(ids),
+        gen_margins, "bfloat16")
+    reset_counters()
+    se16, _, t_serve16, outs16 = phase_serve(eng16, cfg16)
+    s16 = read_counters()
+    calls16 = se16.stats["model_calls"]
+    if s16["ragged_paged_attention"] != L * calls16 or \
+            s16["decode_attention"] or plain_calls(s16):
+        fail(f"fp16 serve launches {s16}, expected ragged_paged_attention "
+             f"{L} x {calls16} and nothing else")
+    check_divergence("fp16 serve vs bf16", serve_outs, outs16, prompts,
+                     serve_margins, "bfloat16")
+    phase("generate", f"fp16 B=4 prompt 128 + 32 new: {t_gen16:.3f} s, "
+          f"decode kernel launches {c16['decode_attention']} = {L} x "
+          f"{gen_calls}; logits finite")
+    phase("serve", f"fp16 12 prompts x 32 new: {t_serve16:.3f} s, "
+          f"{n_new / t_serve16:.1f} new tokens/s, ragged kernel launches "
+          f"{s16['ragged_paged_attention']} = {L} x {calls16}, logits "
+          f"finite, leak_report {{}}")
+    step16, dev16, top16, _ = decode_step_ms(eng16, cfg16)
+    phase("serve", f"fp16 pure decode step, 8 slots busy: {step16:.3f} ms, "
+          f"device {dev16:.3f} ms/step (profiler), busy share "
+          f"{dev16 / step16:.3f} (bf16 in this run: {step_ms:.3f} ms, "
+          f"device {device_ms:.3f})")
+    for name, k_ms in top16:
+        phase("serve", f"  fp16 device ms/step {k_ms:.4f}  {name[:90]}")
+    fp16_prefills = {}
+    for prompt in SERVE_PROMPTS:
+        b = _prefill_need(prompt)[0]
+        fp16_prefills[b] = fp16_prefills.get(b, 0) + L
+    se16_decode_steps = se16.scheduler.sched_stats["decode_steps"]
+    del eng16, se16, model16
+    _free()
 
     rel, agree = phase_e2e()
     phase("e2e", f"2 layers full width, paged prefill T=128 + 4 decodes: "
           f"kernel vs plain logits rel err {rel:.3e} (tol {E2E_REL_TOL}), "
           f"argmax agreement {agree:.4f}")
+    # (a)-(d) in fp32 at 2 layers, full width: tokens identical
+    t0 = time.time()
+    cfg2, m2, _ = build_model(2, seed=7, dtype=torch.float32)
+    _, d2, _ = build_model(2, seed=8, dtype=torch.float32,
+                           cfg=TransformerConfig(**DRAFT_SHAPE))
+    phase_serve_features(m2, cfg2, [("TinyLlama-1.1B 2 layers", d2),
+                                    ("the target's own weights", m2)],
+                         torch.float32, exact=True, label="fp32 2-layer")
+    phase("e2e", f"fp32 2-layer (a)-(d): {time.time() - t0:.1f} s")
+    del m2, d2
+    _free()
 
     # ---- training main paths, counters read around each run_benchmark --
     launches = {k: v for k, v in counts.items() if not k.endswith("_plain")}
@@ -2474,6 +3148,7 @@ def main():
             phase("timing", f"{key}: {timing[key]['ms']:.4f} ms x {n} "
                   f"serve-run launches, bound {timing[key]['bound_ms']:.4f} "
                   f"ms")
+    timing.update(phase_timing_serving())
     timing.update(phase_train_timing(errs))
     biased = phase_biased_timing(errs)
     sparse = phase_sparse_timing(sparse_err)
@@ -2521,6 +3196,26 @@ def main():
         meta[f"{name}_fp16"] = meta[name]
         timing[f"{name}_fp16"] = timing[(name, "fp16")]
         launches[f"{name}_fp16"] = fp16_counts[name]
+    # this slice's forms: B5 and B4 in fp16 (launches of the fp16 main
+    # paths), the verify window, the draft's group-8 decode step and the
+    # chunk at an offset (launches of their serve-features runs)
+    spec = feat["spec_TinyLlama-1.1B"]
+    for name, n in (("decode_attention_fp16", c16["decode_attention"]),
+                    ("ragged_paged_attention_fp16",
+                     L * se16_decode_steps),
+                    ("ragged_paged_attention_prefill_512_fp16",
+                     fp16_prefills.get(512, 0)),
+                    ("ragged_paged_attention_prefill_1024_fp16",
+                     fp16_prefills.get(1024, 0)),
+                    ("ragged_paged_attention_verify",
+                     spec["verify_launches"]),
+                    ("ragged_paged_attention_draft_gqa8",
+                     spec["draft_decode_launches"]),
+                    ("ragged_paged_attention_chunk_at_offset",
+                     feat["chunk"]["launches"])):
+        meta[name] = meta["decode_attention" if name.startswith("decode")
+                          else "ragged_paged_attention"]
+        launches[name] = n
     for name, (source, replaces) in meta.items():
         t = timing[name]
         if not launches[name]:

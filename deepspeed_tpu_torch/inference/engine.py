@@ -25,7 +25,6 @@ from deepspeed_tpu_torch.accelerator import get_accelerator
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
 from deepspeed_tpu_torch.inference.serving import to_torch_dtype
 from deepspeed_tpu_torch.models.transformer import check_servable
-from deepspeed_tpu_torch.ops.decode_attention import check_serving_dtype
 from deepspeed_tpu_torch.utils.logging import log_dist
 
 
@@ -53,7 +52,6 @@ class InferenceEngine:
         self._config = config
         self.dtype = to_torch_dtype(config.dtype)
         self.device = get_accelerator().resolve_device(device)
-        check_serving_dtype(self.dtype, self.device, "auto")
         if params is not None:
             self.set_params(params)
         else:

@@ -30,11 +30,13 @@ REJECT_BAD_SAMPLING = "bad_sampling"      # top_k/top_p/temperature invalid
 REJECT_BAD_REQUEST = "bad_request"        # empty prompt / non-positive budget
 REJECT_QUEUE_FULL = "queue_full"          # bounded queue at hard cap
 REJECT_OVERLOADED = "overloaded"          # watermark overload, policy=reject
+REJECT_DRAINING = "draining"              # drain() stopped admission
 
 # post-admission terminations (RequestResult.reason)
 SHED_OLDEST = "shed_oldest"               # displaced by newer arrival
 SHED_DEADLINE = "deadline"                # TTL expired (queued or mid-flight)
 EVICT_FAULT = "fault"                     # per-slot failure isolated
+SHED_DRAIN = "drain"                      # drain() gave up on it
 
 OVERLOAD_POLICIES = ("reject", "shed-oldest", "block")
 
@@ -122,8 +124,11 @@ class ServingRobustnessConfig(DeepSpeedConfigModel):
     scheduler = {}
 
     def _validate(self):
-        # prefix_cache and fleet stay dicts: the engine refuses an enabled
-        # prefix cache (ROADMAP A10) and a bare engine ignores the fleet
+        # the fleet block stays a dict: a bare engine ignores it
+        if isinstance(self.prefix_cache, dict):
+            from deepspeed_tpu_torch.inference.prefix_cache import \
+                PrefixCacheConfig
+            self.prefix_cache = PrefixCacheConfig(self.prefix_cache)
         if isinstance(self.scheduler, dict):
             from deepspeed_tpu_torch.inference.scheduler import \
                 SchedulerConfig

@@ -9,17 +9,21 @@ powers of two, as in the JAX package, so the two engines run the same
 shapes and emit the same tokens.
 
 Host/device split: page allocation, admission, deadlines, tracing and
-sampling are host control flow; prefill and the batched decode step are
-``CausalTransformerLM.apply_with_paged_cache`` on the model's device,
-whose attention is the ragged paged-attention CUDA kernel on the card.
-The page pools are updated IN PLACE -- the counterpart of the JAX
-engine's buffer donation.
+per-token sampling are host control flow; prefill and the batched decode
+step are ``CausalTransformerLM.apply_with_paged_cache`` on the model's
+device, whose attention is the ragged paged-attention CUDA kernel on the
+card (fp32, bf16 or fp16 caches).  The page pools are updated IN PLACE --
+the counterpart of the JAX engine's buffer donation.  The
+``serving.scheduler`` block picks what each step dispatches
+(``inference/scheduler.py``: monolithic or chunked prefill, speculative
+decoding with a ``draft_model``, ``decode_chunk`` tokens per dispatch
+with on-device sampling), and ``serving.prefix_cache`` attaches cached
+prompt pages instead of prefilling them (``inference/prefix_cache.py``).
 
-Not ported in this slice (each raises ``NotImplementedError`` naming its
-ROADMAP item): tensor/expert parallel serving, ``decode_chunk > 1``, the
-prefix cache and the chunked / speculative schedulers (A5), fault-injection
-specs (A10), the disaggregated-fleet handoff/import plumbing (A11), and
-telemetry events (A17).
+Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
+tensor/expert parallel serving (A14), fault-injection specs (A10), the
+disaggregated-fleet handoff/import plumbing (A11), and telemetry events
+(A17).
 """
 
 import math
@@ -30,21 +34,24 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.inference.prefix_cache import (PrefixCache,
+                                                        PrefixMatch)
 from deepspeed_tpu_torch.inference.robustness import (
-    EVICT_FAULT, REJECT_BAD_REQUEST, REJECT_BAD_SAMPLING, REJECT_DUPLICATE,
-    REJECT_INFEASIBLE, REJECT_OVERLOADED, REJECT_OVERSIZED, REJECT_QUEUE_FULL,
-    SHED_DEADLINE, SHED_OLDEST, AdmissionController, RequestRejected, RequestResult, RequestTracer,
+    EVICT_FAULT, REJECT_BAD_REQUEST, REJECT_BAD_SAMPLING, REJECT_DRAINING,
+    REJECT_DUPLICATE, REJECT_INFEASIBLE, REJECT_OVERLOADED, REJECT_OVERSIZED,
+    REJECT_QUEUE_FULL, SHED_DEADLINE, SHED_DRAIN, SHED_OLDEST,
+    AdmissionController, RequestRejected, RequestResult, RequestTracer,
     ServingRobustnessConfig, ServingStalled)
 from deepspeed_tpu_torch.inference.scheduler import (SLO_CLASSES,
                                                      create_scheduler)
-from deepspeed_tpu_torch.ops.decode_attention import check_serving_dtype
 from deepspeed_tpu_torch.ops.paged_attention import (
     PageAllocationError, PagedAllocator, resolve_attention_backend)
 from deepspeed_tpu_torch.utils.logging import logger
 
-# RequestResult statuses -> lifecycle-trace terminal names
-_TERMINAL_BY_STATUS = {"shed": "shed", "deadline": "deadline",
-                       "evicted": "evict"}
+# RequestResult statuses -> lifecycle-trace terminal names ("drained"
+# folds into "shed": a drain IS a shed, engine-initiated)
+_TERMINAL_BY_STATUS = {"shed": "shed", "drained": "shed",
+                       "deadline": "deadline", "evicted": "evict"}
 
 _DTYPES = {"float32": torch.float32, "fp32": torch.float32,
            "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
@@ -76,7 +83,10 @@ class _Request:
     submit_time: float = 0.0
     deadline: float = 0.0       # absolute clock time; 0.0 = no deadline
     slo_class: str = "throughput"
+    # chunked-prefill progress: prompt tokens already written to the
+    # target / draft KV cache
     prefilled: int = 0
+    draft_filled: int = 0
 
 
 class ServingEngine:
@@ -94,20 +104,21 @@ class ServingEngine:
                  num_pages: Optional[int] = None, max_seq: int = 2048,
                  dtype=torch.bfloat16, eos_token_id: Optional[int] = None,
                  tp_size: int = 1, ep_size: int = 1, decode_chunk: int = 1,
-                 serving=None, injector=None, clock=None, draft_model=None,
-                 draft_params=None):
+                 serving=None, injector=None, clock=None, draft_model=None):
         """``serving``: a :class:`ServingRobustnessConfig` or its dict.
         ``injector``: an object with ``check(site)`` consulted at the
         ``serve_step`` / ``serve_sample`` / ``page_alloc`` sites.
         ``clock``: monotonic-seconds callable, injectable so deadline
-        tests don't sleep."""
+        tests don't sleep.  ``decode_chunk``: decode tokens per dispatch
+        (K > 1 samples on the device).  ``draft_model``: the speculative
+        proposer, a ``CausalTransformerLM`` on the same device with its
+        own weights (``serving.scheduler.speculative``)."""
         if tp_size > 1 or ep_size > 1:
             raise NotImplementedError("tensor/expert-parallel serving is "
                                       "not ported yet (ROADMAP A14)")
-        if int(decode_chunk) != 1:
-            raise NotImplementedError("decode_chunk > 1 (multi-token decode "
-                                      "dispatch) is not ported yet "
-                                      "(ROADMAP A5)")
+        self.decode_chunk = int(decode_chunk)
+        if self.decode_chunk < 1:
+            raise ValueError(f"decode_chunk must be >= 1, got {decode_chunk}")
         self.model = model
         self.config = model.config
         self.device = model.device
@@ -120,22 +131,32 @@ class ServingEngine:
             self.serving = serving
         else:
             self.serving = ServingRobustnessConfig(serving or {})
-        if dict(self.serving.prefix_cache or {}).get("enabled"):
-            raise NotImplementedError("the serving prefix cache is not "
-                                      "ported yet (ROADMAP A5)")
         if self.serving.fault_injection:
             raise NotImplementedError("serving.fault_injection specs need "
                                       "the fault injector, not ported yet "
                                       "(ROADMAP A10); pass injector=")
         self.cache_dtype = to_torch_dtype(dtype)
-        check_serving_dtype(self.cache_dtype, self.device,
-                            self.serving.attention_backend)
         self.caches = model.init_paged_caches(num_pages, page_size,
                                               dtype=self.cache_dtype)
         self.injector = injector
         self.alloc = PagedAllocator(num_pages, page_size,
                                     self.max_pages_per_seq,
                                     reserve_scratch=True, injector=injector)
+        # content-hashed KV-page reuse: the namespace pins cached pages to
+        # this model shape / cache dtype / page size -- the JAX engine's
+        # string for the same model, so both index under the same keys
+        self.prefix_cache = None
+        pc_cfg = self.serving.prefix_cache
+        if pc_cfg.enabled:
+            mc = self.config
+            ns = (f"{type(model).__name__}/L{mc.n_layers}h{mc.hidden_size}"
+                  f"q{mc.n_heads}kv{mc.kv_heads}v{mc.vocab_size}/"
+                  f"{str(self.cache_dtype).split('.')[-1]}/page{page_size}")
+            self.prefix_cache = PrefixCache(
+                self.alloc, page_size, namespace=ns,
+                max_cached_pages=int(pc_cfg.max_cached_pages),
+                min_prefix_tokens=int(pc_cfg.min_prefix_tokens),
+                on_evict=self._on_prefix_evict)
         self.eos = eos_token_id
         if not self.config.use_rope and not self.config.use_alibi:
             # learned positions: bound the serve length to the table
@@ -162,14 +183,15 @@ class ServingEngine:
         self._admission = AdmissionController(self.serving)
         self.tracer = RequestTracer(clock=self._clock)
         self._consec_step_faults = 0
+        self.draining = False
         self.stats = {"admitted": 0, "rejected": 0, "shed": 0,
                       "deadline": 0, "evicted": 0, "finished": 0,
-                      "step_faults": 0,
+                      "step_faults": 0, "drains": 0, "prefix_hits": 0,
+                      "prefix_cow_copies": 0, "prefix_evictions": 0,
                       "slo_attained": 0, "slo_missed": 0,
                       "goodput_tokens": 0, "model_calls": 0}
         self.scheduler = create_scheduler(self, self.serving.scheduler,
-                                          draft_model=draft_model,
-                                          draft_params=draft_params)
+                                          draft_model=draft_model)
 
     # -- lifecycle tracing -------------------------------------------------
     def _close_trace(self, req: _Request, terminal: str, reason: str = ""):
@@ -199,6 +221,9 @@ class ServingEngine:
         :class:`RequestRejected` (typed reason, engine state untouched);
         ``deadline_s`` is a TTL from now."""
         cfg = self.serving
+        if self.draining:
+            self._reject(req_id, REJECT_DRAINING,
+                         "engine is draining; admission stopped")
         prompt = [int(t) for t in np.asarray(prompt_ids).reshape(-1)]
         if not prompt or int(max_new_tokens) <= 0:
             self._reject(req_id, REJECT_BAD_REQUEST,
@@ -336,27 +361,45 @@ class ServingEngine:
             self._admit()
 
     def _admit(self):
+        # policy hook: the chunked scheduler stable-sorts latency-class
+        # requests ahead of throughput-class ones (FIFO within a class)
+        self.scheduler.order_queue()
         for slot in range(self.max_batch):
             if not self.queue or self.slots[slot] is not None:
                 continue
             req = self.queue[0]
             total = len(req.prompt) + req.max_new_tokens
-            padded = self.scheduler.prefill_padded_len(len(req.prompt))
-            # reservation covers the budget AND the padded prefill;
+            # prefix cache: attach every fully cached prefix page without
+            # prefill; a partial next-page match copies on write.  The
+            # lookup is a pure read -- nothing is pinned until allocate().
+            match = (self.prefix_cache.lookup(req.prompt)
+                     if self.prefix_cache is not None else PrefixMatch())
+            cached = match.cached_tokens(self.page_size)
+            padded = self.scheduler.prefill_padded_len(
+                len(req.prompt) - cached)
+            # reservation covers the budget AND the padded suffix prefill;
             # padding writes past it land on the scratch page
-            need_tokens = min(max(total, padded),
+            need_tokens = min(max(total, cached + padded),
                               self.max_pages_per_seq * self.page_size)
-            need = -(-need_tokens // self.page_size)
-            if need > self.alloc.available_page_count:
+            shared = list(match.pages)
+            protect = (match.cow_src,) if match.cow_src is not None else ()
+            need_fresh = -(-need_tokens // self.page_size) - len(shared)
+            pinned = set(shared) | set(protect)
+            evictable = sum(1 for p in self.alloc.reclaimable
+                            if p not in pinned)
+            if need_fresh > self.alloc.free_page_count + evictable:
                 return          # head-of-line: keep FIFO order
             # full reservation (prompt + budget) at admission: an admitted
             # request never deadlocks on pages mid-flight.  Allocate
             # BEFORE popping, so an allocation fault mutates nothing.
             try:
-                pages = self.alloc.allocate(req.req_id, need_tokens)
+                pages = self.alloc.allocate(req.req_id, need_tokens,
+                                            shared=shared, protect=protect)
             except PageAllocationError:
                 self.stats["step_faults"] += 1
                 return
+            if cached:
+                self.stats["prefix_hits"] += 1
             self.queue.pop(0)
             self.tables[slot, :] = 0
             self.tables[slot, :len(pages)] = pages
@@ -364,7 +407,14 @@ class ServingEngine:
             self.slots[slot] = req
             self.tracer.prefill_start(req.req_id, slot)
             try:
-                complete = self.scheduler.fill_slot(slot, req, 0)
+                if match.cow_src is not None:
+                    # the request's first owned page inherits the partial
+                    # match's content; its divergent tail is overwritten
+                    # by the suffix prefill, so the shared source page is
+                    # never touched
+                    self._copy_page(match.cow_src, pages[len(shared)])
+                    self.stats["prefix_cow_copies"] += 1
+                complete = self.scheduler.fill_slot(slot, req, cached)
             except Exception as e:   # fault isolation: only THIS request
                 logger.warning(f"evicting request {req.req_id!r} after "
                                f"prefill fault: {e}")
@@ -373,12 +423,18 @@ class ServingEngine:
                 self.stats["evicted"] += 1
                 continue
             if complete:
+                # monolithic: the whole prefill ran inside fill_slot; the
+                # chunked policy completes at its last chunk
                 self._complete_prefill(slot, req)
 
     def _complete_prefill(self, slot: int, req: _Request):
         """Admission tail once the prompt is in cache: trim the padded
-        reservation to the true need."""
+        reservation to the true need and index the prompt's full pages
+        into the prefix cache."""
         self._trim_reservation(slot, req)
+        if self.prefix_cache is not None:
+            self.prefix_cache.insert(req.prompt,
+                                     self.alloc.seq_pages[req.req_id])
 
     def _trim_reservation(self, slot: int, req: _Request):
         """Trim the slot's reservation to the request's TRUE page need
@@ -395,19 +451,35 @@ class ServingEngine:
         self.tables[slot, :] = 0
         self.tables[slot, :len(pages)] = pages
 
-    def _run_step(self, ids, tables, lengths):
-        """One model call on host arrays: ids [B, T], tables [B, cols],
-        lengths [B].  The page pools update in place; returns the fp32
-        logits [B, T, V] on the model's device."""
-        dev = self.device
+    def _model_call(self, ids, tables, lengths):
+        """One model call on device tensors: ids [B, T] (long), tables
+        [B, cols] and lengths [B] (int32).  The page pools update in
+        place; returns the fp32 logits [B, T, V]."""
         logits, self.caches, _ = self.model.apply_with_paged_cache(
-            torch.as_tensor(ids, dtype=torch.long).to(dev),
-            self.caches,
-            torch.as_tensor(tables, dtype=torch.int32).to(dev),
-            torch.as_tensor(lengths, dtype=torch.int32).to(dev),
+            ids, self.caches, tables, lengths,
             attn_backend=self.attention_backend)
         self.stats["model_calls"] += 1
         return logits
+
+    def _run_step(self, ids, tables, lengths):
+        """:meth:`_model_call` on host arrays."""
+        dev = self.device
+        return self._model_call(
+            torch.as_tensor(ids, dtype=torch.long).to(dev),
+            torch.as_tensor(tables, dtype=torch.int32).to(dev),
+            torch.as_tensor(lengths, dtype=torch.int32).to(dev))
+
+    # -- prefix-cache plumbing ------------------------------------------
+    def _on_prefix_evict(self, page: int):
+        """The allocator reclaimed a cached page for a fresh allocation
+        (the cache already dropped its index entries)."""
+        self.stats["prefix_evictions"] += 1
+
+    def _copy_page(self, src: int, dst: int):
+        """Copy-on-write: copy one KV page (every layer, K and V) into the
+        request's own fresh page, in place on the pools."""
+        for pool in (self.caches.k_pages, self.caches.v_pages):
+            pool[:, dst] = pool[:, src]
 
     def _prefill(self, slot: int, req: _Request, bucket: int,
                  cached: int = 0):
@@ -457,6 +529,13 @@ class ServingEngine:
     def _finish(self, slot: int):
         req = self.slots[slot]
         self.finished[req.req_id] = req.prompt + req.out
+        if self.prefix_cache is not None:
+            # index the finished sequence's full pages (prompt AND
+            # generated tokens: a turn's output is the next turn's prompt)
+            # BEFORE the refcounts drop, so they park in the reclaimable
+            # tier instead of dissolving into the free list
+            self.prefix_cache.insert(req.prompt + req.out,
+                                     self.alloc.seq_pages[req.req_id])
         self.scheduler.release_slot(slot, req)
         self.alloc.free_sequence(req.req_id)
         self._rng.pop(req.req_id, None)
@@ -473,8 +552,13 @@ class ServingEngine:
 
     # -- the batched decode step ---------------------------------------
     def step(self) -> Dict[Any, List[int]]:
-        """Advance every active request by one token.  Returns ONLY the
-        requests that finished during this step (req_id -> full tokens).
+        """Advance the engine by one scheduler step: under the monolithic
+        policy every active request by one token (``decode_chunk`` tokens
+        when configured); under the chunked policy up to
+        ``max_prefill_chunks_per_step`` prefill chunks first, then one
+        decode (or speculative draft + verify) dispatch for every fully
+        prefilled slot.  Returns ONLY the requests that finished during
+        this step (req_id -> full tokens).
         Expired deadlines are cancelled first; an injected ``serve_step``
         fault returns {} without mutating any request, and raises only
         after ``serving.step_fault_limit`` consecutive faults."""
@@ -499,11 +583,88 @@ class ServingEngine:
         self.terminated = {}
         return out
 
+    def drain(self, timeout_s: Optional[float] = None,
+              max_steps: Optional[int] = None) -> Dict[str, Any]:
+        """Gracefully quiesce: stop admission, shed everything still
+        queued, then step until in-flight work finishes or the budget
+        (``max_steps``, default the largest remaining token budget over
+        ``decode_chunk`` plus pending prefill chunks; ``timeout_s`` wall
+        clock) runs out -- whatever is left is shed with its partial
+        output.  Returns ``{"finished", "shed", "steps", "health"}``;
+        afterwards the engine holds no active slot and no page."""
+        self.draining = True
+        shed_ids = []
+        for req in list(self.queue):
+            self._terminate(req, "drained", SHED_DRAIN,
+                            detail="shed from queue by drain()")
+            self.stats["shed"] += 1
+            shed_ids.append(req.req_id)
+        self.queue = []
+        if max_steps is None:
+            remaining = [r.max_new_tokens - len(r.out)
+                         for r in self.slots if r is not None]
+            max_steps = (-(-max(remaining) // self.decode_chunk) + 4) \
+                if remaining else 0
+            # chunked policy: in-flight prefills consume whole steps
+            max_steps += self.scheduler.pending_prefill_steps()
+        start = self._clock()
+        finished: Dict[Any, List[int]] = {}
+        steps = 0
+        while self.n_active and steps < max_steps:
+            if timeout_s is not None and \
+                    self._clock() - start >= timeout_s:
+                break
+            finished.update(self.step())
+            steps += 1
+        for slot, req in enumerate(self.slots):
+            if req is not None:
+                self._evict_slot(slot, "drained", SHED_DRAIN,
+                                 detail="drain budget exhausted")
+                self.stats["shed"] += 1
+                shed_ids.append(req.req_id)
+        self.stats["drains"] += 1
+        return {"finished": finished, "shed": shed_ids, "steps": steps,
+                "health": self.health()}
+
+    def health(self) -> Dict[str, Any]:
+        """Operational snapshot: pages, queue, slots, counters, the
+        scheduler's stats and (when on) the prefix cache's."""
+        now = self._clock()
+        live = list(self.queue) + [r for r in self.slots if r is not None]
+        snap = {
+            "free_pages": self.alloc.free_page_count,
+            # free + reclaimable: what admission actually sees
+            "available_pages": self.alloc.available_page_count,
+            "total_pages": self.alloc.num_pages - 1,
+            "queue_depth": len(self.queue),
+            "active_slots": self.n_active,
+            "max_batch": self.max_batch,
+            "oldest_request_age_s": float(max(
+                (now - r.submit_time for r in live), default=0.0)),
+            "draining": self.draining,
+            "overloaded": self._admission.overloaded,
+            "undelivered_terminated": len(self.terminated),
+            "counters": dict(self.stats),
+            "slo": {"attained": self.stats["slo_attained"],
+                    "missed": self.stats["slo_missed"],
+                    "goodput_tokens": self.stats["goodput_tokens"]},
+            "traces": {"open": len(self.tracer.open),
+                       "admitted": self.tracer.admitted,
+                       "closed": self.tracer.closed,
+                       "terminals": dict(self.tracer.terminals)},
+            "scheduler": self.scheduler.snapshot(),
+        }
+        if self.prefix_cache is not None:
+            snap["prefix_cache"] = self.prefix_cache.snapshot()
+        return snap
+
     def leak_report(self) -> Dict[str, Any]:
         """Invariant audit: every page, RNG stream and table row is owned
-        by a live slot, refcounts match, every active reservation equals
-        its true page need, and every admitted request is live or reached
-        exactly one terminal.  Returns {} when clean."""
+        by a live slot, refcounts match (pages are SHARED under the prefix
+        cache), the prefix-cache index agrees with the allocator's cached
+        set, every active reservation equals its true page need, and every
+        admitted request is live or reached exactly one terminal.  Returns
+        {} when clean."""
         active = {r.req_id for r in self.slots if r is not None}
         leaks: Dict[str, Any] = {}
         stray_pages = sorted(set(self.alloc.seq_pages) - active, key=str)
@@ -513,6 +674,8 @@ class ServingEngine:
         if stray_rng:
             leaks["stray_rng"] = stray_rng
         leaks.update(self.alloc.audit())
+        if self.prefix_cache is not None:
+            leaks.update(self.prefix_cache.audit())
         dirty = [s for s in range(self.max_batch)
                  if self.slots[s] is None and
                  (self.lengths[s] != 0 or self.tables[s].any())]
@@ -549,6 +712,11 @@ class ServingEngine:
         results: Dict[Any, List[int]] = {}
         limit = (max(len(p) for p in prompts) + max_new_tokens + 4) * \
             (len(prompts) + 1)
+        if self.scheduler.policy == "chunked":
+            # prefill chunks (and the draft's own prefill under
+            # speculative decoding) consume whole steps before a slot
+            # decodes: 3x covers target + draft chunks with slack
+            limit *= 3
         while (self.queue or self.n_active) and steps < limit:
             results.update(self.step())
             steps += 1

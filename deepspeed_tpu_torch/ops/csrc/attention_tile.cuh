@@ -22,6 +22,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -36,11 +37,17 @@ template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+template <> __device__ __forceinline__ float to_f<__half>(__half x) {
+  return __half2float(x);
+}
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch's cast
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);   // round to nearest even, as torch's cast
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -113,7 +120,7 @@ __device__ __forceinline__ void attend_rows(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ o, float scale, int kv_hi,
     const KeyOffset& key_off, const RowMeta<ROWS>& rm) {
-  static_assert(D == 128, "head_dim must be 128");
+  static_assert(D == 128 || D == 64, "head_dim must be 128 or 64");
   static_assert(ROWS == 4 || ROWS == 16, "ROWS must be 4 or 16");
   constexpr int RPT = ROWS * D / kThreads;   // accumulator rows per thread
   constexpr int SR = ROWS * kBK / kThreads;  // score rows per thread

@@ -115,7 +115,8 @@ int launch_prefill(const DecodeParams& p, int B, cudaStream_t stream) {
 }  // namespace
 
 // q: [B, T, H, D]; k/v: [B, Hkv, S_max, D]; o: [B, T, H, D].  dtype: 0 =
-// float32, 1 = bfloat16; D must be 128.  lengths may be null: then every
+// float32, 1 = bfloat16, 2 = float16 (fp32 inside, as bf16); D must be
+// 128.  lengths may be null: then every
 // sequence has length_all valid tokens.  The decode form (T * H / Hkv <= 4)
 // splits each sequence's keys into n_split chunks of ``chunk`` keys
 // (n_split * chunk >= S_max); with n_split > 1 ``part`` is fp32 scratch of
@@ -129,7 +130,7 @@ extern "C" int ds_decode_attention(const void* q, const void* k,
                                    int n_split, int chunk, float scale,
                                    void* stream) {
   if (B <= 0 || T <= 0 || Hkv <= 0 || H % Hkv != 0 || B > 65535 ||
-      Hkv > 65535 || D != kD || (dtype != 0 && dtype != 1) ||
+      Hkv > 65535 || D != kD || dtype < 0 || dtype > 2 ||
       n_split <= 0 || n_split > 65535 || chunk <= 0 ||
       (long long)n_split * chunk < S_max || (n_split > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -148,12 +149,13 @@ extern "C" int ds_decode_attention(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rows = T * (H / Hkv);
   if (rows <= dsdecode::kMaxRows)
-    return dtype == 0
-               ? dsdecode::launch_rows<float>(p, B, rows, s)
-               : dsdecode::launch_rows<__nv_bfloat16>(p, B, rows, s);
+    return dtype == 0   ? dsdecode::launch_rows<float>(p, B, rows, s)
+           : dtype == 1 ? dsdecode::launch_rows<__nv_bfloat16>(p, B, rows, s)
+                        : dsdecode::launch_rows<__half>(p, B, rows, s);
   if (n_split != 1) return (int)cudaErrorInvalidValue;
-  return dtype == 0 ? launch_prefill<float>(p, B, s)
-                    : launch_prefill<__nv_bfloat16>(p, B, s);
+  return dtype == 0   ? launch_prefill<float>(p, B, s)
+         : dtype == 1 ? launch_prefill<__nv_bfloat16>(p, B, s)
+                      : launch_prefill<__half>(p, B, s);
 }
 
 // Blocks of the decode form (T * H / Hkv = rows <= 4 query rows per kv
@@ -163,5 +165,6 @@ extern "C" int ds_decode_attention_slots(int rows, int dtype) {
   if (dtype == 0) return dsdecode::split_slots<float, ContiguousSeqs>(rows);
   if (dtype == 1)
     return dsdecode::split_slots<__nv_bfloat16, ContiguousSeqs>(rows);
+  if (dtype == 2) return dsdecode::split_slots<__half, ContiguousSeqs>(rows);
   return -(int)cudaErrorInvalidValue;
 }

@@ -3,8 +3,8 @@
 // descriptors, and the map from a wgmma accumulator element to its row and
 // column.  The bf16 and fp16 flash-attention kernels
 // (flash_attention_fwd.cu, flash_attention_bwd.cu), the bf16 block-sparse
-// kernel (sparse_attention.cu) and the bf16 ragged paged prefill kernel
-// (ragged_paged_attention.cu) are built from them.
+// kernel (sparse_attention.cu) and the bf16 and fp16 ragged paged prefill
+// kernel (ragged_paged_attention.cu) are built from them.
 //
 // Element types.  The wgmma wrappers, acc_to_a and the tensor maps take the
 // tile's element type E, __nv_bfloat16 or __half (no default: a call must

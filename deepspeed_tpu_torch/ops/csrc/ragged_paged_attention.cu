@@ -28,7 +28,7 @@
 // page size.  A page of 128 keys is 32 KB contiguous per kv head, so at
 // the serving engine's page a warp's 16-key group lies in one page.
 //
-// Prefill tiles, bf16, D = 128, a group dividing 64 and a page size that
+// Prefill tiles, bf16 or fp16, D = 128, a group dividing 64 and a page size that
 // is a multiple of 128 or a multiple of 8 dividing 128 (the serving
 // engine's page 128 among them): the flash forward's pipeline
 // (flash_attention_fwd.cu, hopper.cuh).  One block of three warpgroups per
@@ -42,19 +42,23 @@
 // page_size + offset over k_pages viewed as [P * Hkv * page, D]: one box
 // per tile, or one per page when pages are smaller than the tile.  Two
 // consumer warpgroups own 64 rows each: S = Q K^T by wgmma, the online
-// softmax on the accumulators, P rounded to bf16 as the A operand of O +=
-// P V.  The key loop stops at the tile's causal frontier ctx - qlen +
+// softmax on the accumulators, P rounded to the tile's type as the A
+// operand of O += P V.  bf16 and fp16 run one body, templated on the
+// element type E: every wgmma, tensor map and packing names E (hopper.cuh
+// has no default), so no fp16 tile is read as bf16.  The key loop stops at the tile's causal frontier ctx - qlen +
 // min(qlen, (qt + 1) * tokens); only tiles that cross a row's position are
 // masked, and a warpgroup skips a tile it cannot see.  Rows past qlen may
 // arrive in the Q box (TMA moves whole boxes; past the stack they are
 // zero-filled) but feed no real row and are never written.  Tiles with the
 // most keys are launched first (the host's order).
 //
-// Prefill tiles otherwise (fp32, other page sizes or groups): the CUDA-core
-// tile of attention_tile.cuh, grid (tiles, Hkv, 16-row chunks of the
-// tile's q_tile * group rows), keys staged through fp32 shared memory, each
-// key's page resolved through the block table as it is loaded.  fp32 keeps
-// it for the 1e-4 checks; the selection is by dtype and shape.
+// Prefill tiles otherwise (fp32, head dim 64, other page sizes or groups):
+// the CUDA-core tile of attention_tile.cuh, grid (tiles, Hkv, 16-row
+// chunks of the tile's q_tile * group rows), keys staged through fp32
+// shared memory, each key's page resolved through the block table as it
+// is loaded.  fp32 keeps it for the 1e-4 checks; the selection is by dtype
+// and shape.  Head dim 64 (TinyLlama-1.1B, a speculative draft) takes only
+// these tiles: the wrapper plans every such sequence as prefill tiles.
 #include "hopper.cuh"
 #include "split_decode.cuh"
 
@@ -98,13 +102,13 @@ struct PagedSeqs {
   }
 };
 
-// ---- prefill tiles, bf16: tensor cores fed by TMA -----------------------
+// ---- prefill tiles, bf16 / fp16: tensor cores fed by TMA ----------------
 
 namespace tc {
 constexpr int BM = 128;                              // rows of a tile
 constexpr int BN = 128;                              // keys of a K/V tile
 constexpr int kThreads = 384;                        // 2 consumer + 1 producer WG
-constexpr int kTile = 128 * hopper::kHeadDim * 2;    // 32 KB bf16 tile
+constexpr int kTile = 128 * hopper::kHeadDim * 2;    // 32 KB 16-bit tile
 constexpr int kHalf = kTile / 2;                     // one 64-column box
 constexpr int kStages = 2;
 constexpr int kBarOffset = kTile + kStages * 2 * kTile;
@@ -113,7 +117,7 @@ constexpr size_t kSmem = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
 
 struct PrefillParams {
   CUtensorMap q_map, k_map, v_map;
-  __nv_bfloat16* o;
+  void* o;                                        // E [total_q, H, D]
   const int* ctx;
   const int* q_lens;
   const int* q_offs;
@@ -124,6 +128,7 @@ struct PrefillParams {
   float scale;
 };
 
+template <typename E>
 __global__ void __launch_bounds__(tc::kThreads, 1)
 ragged_prefill_tc_kernel(const __grid_constant__ PrefillParams p) {
   using namespace hopper;
@@ -220,7 +225,7 @@ ragged_prefill_tc_kernel(const __grid_constant__ PrefillParams p) {
 #pragma unroll
         for (int kk = 0; kk < 8; ++kk) {
           const uint32_t off = (kk / 4) * kHalf + (kk % 4) * 32;
-          wgmma_ss_n128<__nv_bfloat16>(sc, desc_kmajor(q_addr + off),
+          wgmma_ss_n128<E>(sc, desc_kmajor(q_addr + off),
                         desc_kmajor(k_addr + off), kk > 0);
         }
         wgmma_commit();
@@ -259,7 +264,7 @@ ragged_prefill_tc_kernel(const __grid_constant__ PrefillParams p) {
           o[i] *= corr[r];
         }
         uint32_t pa[32];
-        acc_to_a<__nv_bfloat16>(sc, pa);
+        acc_to_a<E>(sc, pa);
         fence_regs(o);
         fence_regs(pa);
         wgmma_fence();
@@ -267,8 +272,7 @@ ragged_prefill_tc_kernel(const __grid_constant__ PrefillParams p) {
         for (int kk = 0; kk < 8; ++kk) {
           const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
                                  pa[4 * kk + 3]};
-          wgmma_rs_n128<__nv_bfloat16>(
-              o, a, desc_mnmajor(v_addr + kk * 2048, kHalf));
+          wgmma_rs_n128<E>(o, a, desc_mnmajor(v_addr + kk * 2048, kHalf));
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -286,21 +290,23 @@ ragged_prefill_tc_kernel(const __grid_constant__ PrefillParams p) {
       const int g = (64 * wg + row0 + 8 * r) % group;
       const float inv = 1.f / fmaxf(l[r], 1e-30f);
       uint32_t* orow = reinterpret_cast<uint32_t*>(
-          p.o + (((long long)qoff + tok[r]) * p.H + hk * group + g) * kD);
+          static_cast<E*>(p.o) +
+          (((long long)qoff + tok[r]) * p.H + hk * group + g) * kD);
 #pragma unroll
       for (int j = 0; j < 16; ++j)
         orow[(8 * j + 2 * (t % 4)) / 2] =
-            pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+            pack2<E>(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
     }
   }
 }
 
+template <typename E>
 int launch_prefill_tc(PrefillParams& p, const void* q, const void* kp,
                       const void* vp, int n_tiles, int total_q, int P,
                       cudaStream_t stream) {
   const int group = p.H / p.Hkv;
   // q as (column, head, token); pages as (column, row of [P*Hkv*page])
-  const cuuint64_t row = kD * sizeof(__nv_bfloat16);
+  const cuuint64_t row = kD * sizeof(E);
   const cuuint64_t q_dims[3] = {kD, static_cast<cuuint64_t>(p.H),
                                 static_cast<cuuint64_t>(total_q)};
   const cuuint64_t q_strides[2] = {row, row * p.H};
@@ -312,18 +318,18 @@ int launch_prefill_tc(PrefillParams& p, const void* q, const void* kp,
   const cuuint64_t kv_strides[1] = {row};
   const cuuint32_t kv_box[2] = {hopper::kBoxCols,
                                 static_cast<cuuint32_t>(p.box_rows)};
-  const auto map = hopper::make_map<__nv_bfloat16>;
+  const auto map = hopper::make_map<E>;
   int rc = map(&p.q_map, q, 3, q_dims, q_strides, q_box);
   if (!rc) rc = map(&p.k_map, kp, 2, kv_dims, kv_strides, kv_box);
   if (!rc) rc = map(&p.v_map, vp, 2, kv_dims, kv_strides, kv_box);
   if (rc) return rc;
-  // once, before any graph capture can be running
+  // once per element type, before any graph capture can be running
   static const cudaError_t attr = cudaFuncSetAttribute(
-      ragged_prefill_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)tc::kSmem);
+      ragged_prefill_tc_kernel<E>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tc::kSmem);
   if (attr != cudaSuccess) return (int)attr;
-  ragged_prefill_tc_kernel<<<dim3(n_tiles, p.Hkv), tc::kThreads, tc::kSmem,
-                             stream>>>(p);
+  ragged_prefill_tc_kernel<E><<<dim3(n_tiles, p.Hkv), tc::kThreads, tc::kSmem,
+                                stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -374,6 +380,11 @@ ragged_paged_attention_kernel(
 }
 
 template <typename T>
+struct Type {
+  using type = T;
+};
+
+template <typename T, int D>
 int launch_prefill_cores(const void* q, const void* kp, const void* vp,
                          void* o, const int* ctx, const int* qlens,
                          const int* qoffs, const int* sot, const int* qot,
@@ -383,7 +394,7 @@ int launch_prefill_cores(const void* q, const void* kp, const void* vp,
   constexpr int ROWS = 16;
   const int tile_rows = q_tile * (H / Hkv);
   dim3 grid(n_tiles, Hkv, (tile_rows + ROWS - 1) / ROWS);
-  ragged_paged_attention_kernel<T, kD, ROWS>
+  ragged_paged_attention_kernel<T, D, ROWS>
       <<<grid, dsattn::kThreads, 0, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(kp),
           static_cast<const T*>(vp), static_cast<T*>(o), ctx, qlens, qoffs,
@@ -394,7 +405,8 @@ int launch_prefill_cores(const void* q, const void* kp, const void* vp,
 }  // namespace
 
 // One call's launches.  q: packed [total_q, H, D]; pages [P, Hkv, page,
-// D]; o like q; dtype: 0 = float32, 1 = bfloat16; D must be 128.  All
+// D]; o like q; dtype: 0 = float32, 1 = bfloat16, 2 = float16; D is 128,
+// or 64 for CUDA-core prefill tiles alone (no decode form).  All
 // metadata arrays are int32 on the device: ctx_lens / q_lens / q_offs [B],
 // block_tables [B, max_pages].  Decode form (n_dec > 0): dec_seqs [n_dec]
 // sequences of at most dec_rows = q_len * group <= 4 rows, their keys split
@@ -402,7 +414,8 @@ int launch_prefill_cores(const void* q, const void* kp, const void* vp,
 // page); with n_split > 1 ``part`` is fp32 scratch of n_dec * Hkv *
 // n_split * dec_rows * (D + 2) floats.  Prefill form (n_tiles > 0): tiles
 // seq_of_tile / qtile_of_tile [n_tiles] of q_tile tokens; tensor_cores = 1
-// takes the bf16 wgmma kernel (q_tile = 128 / group), 0 the CUDA-core one.
+// takes the bf16 / fp16 wgmma kernel (q_tile = 128 / group), 0 the
+// CUDA-core one.
 // Returns cudaGetLastError().
 extern "C" int ds_ragged_paged_attention(
     const void* q, const void* k_pages, const void* v_pages, void* o,
@@ -414,7 +427,8 @@ extern "C" int ds_ragged_paged_attention(
     int page_size, int D, int dtype, float scale, void* stream) {
   if (n_dec < 0 || n_tiles < 0 || n_dec + n_tiles == 0 || Hkv <= 0 ||
       H % Hkv != 0 || page_size <= 0 || max_pages <= 0 || Hkv > 65535 ||
-      D != kD || (dtype != 0 && dtype != 1) || n_dec > 65535)
+      (D != kD && D != 64) || dtype < 0 || dtype > 2 || n_dec > 65535 ||
+      (D != kD && (n_dec > 0 || tensor_cores)))
     return (int)cudaErrorInvalidValue;
   const int group = H / Hkv;
   const int* c = static_cast<const int*>(ctx_lens);
@@ -441,9 +455,10 @@ extern "C" int ds_ragged_paged_attention(
     p.chunk = chunk;
     p.scale = scale;
     const int rc =
-        dtype == 0 ? dsdecode::launch_rows<float>(p, n_dec, dec_rows, s)
-                   : dsdecode::launch_rows<__nv_bfloat16>(p, n_dec, dec_rows,
-                                                          s);
+        dtype == 0   ? dsdecode::launch_rows<float>(p, n_dec, dec_rows, s)
+        : dtype == 1 ? dsdecode::launch_rows<__nv_bfloat16>(p, n_dec,
+                                                            dec_rows, s)
+                     : dsdecode::launch_rows<__half>(p, n_dec, dec_rows, s);
     if (rc != 0) return rc < 0 ? -rc : rc;
   }
   if (n_tiles == 0) return (int)cudaGetLastError();
@@ -451,12 +466,12 @@ extern "C" int ds_ragged_paged_attention(
   const int* qot = static_cast<const int*>(qtile_of_tile);
   if (tensor_cores) {
     const int box_rows = page_size < tc::BN ? page_size : tc::BN;
-    if (dtype != 1 || 64 % group != 0 || q_tile != tc::BM / group ||
+    if (dtype == 0 || 64 % group != 0 || q_tile != tc::BM / group ||
         (page_size % tc::BN != 0 &&
          (tc::BN % page_size != 0 || page_size % 8 != 0)))
       return (int)cudaErrorInvalidValue;
     PrefillParams p = {};
-    p.o = static_cast<__nv_bfloat16*>(o);
+    p.o = o;
     p.ctx = c;
     p.q_lens = ql;
     p.q_offs = qo;
@@ -469,17 +484,28 @@ extern "C" int ds_ragged_paged_attention(
     p.H = H;
     p.Hkv = Hkv;
     p.scale = scale;
-    return launch_prefill_tc(p, q, k_pages, v_pages, n_tiles, total_q, P, s);
+    return dtype == 1 ? launch_prefill_tc<__nv_bfloat16>(p, q, k_pages, v_pages,
+                                                         n_tiles, total_q, P, s)
+                      : launch_prefill_tc<__half>(p, q, k_pages, v_pages,
+                                                  n_tiles, total_q, P, s);
   }
   if (q_tile <= 0 || (q_tile * group + 15) / 16 > 65535)
     return (int)cudaErrorInvalidValue;
-  return dtype == 0
-             ? launch_prefill_cores<float>(q, k_pages, v_pages, o, c, ql, qo,
-                                           sot, qot, tb, n_tiles, max_pages,
-                                           H, Hkv, page_size, q_tile, scale, s)
-             : launch_prefill_cores<__nv_bfloat16>(
-                   q, k_pages, v_pages, o, c, ql, qo, sot, qot, tb, n_tiles,
-                   max_pages, H, Hkv, page_size, q_tile, scale, s);
+  const auto cores = [&](auto t, auto d) {
+    using T = typename decltype(t)::type;
+    return launch_prefill_cores<T, decltype(d)::value>(
+        q, k_pages, v_pages, o, c, ql, qo, sot, qot, tb, n_tiles, max_pages,
+        H, Hkv, page_size, q_tile, scale, s);
+  };
+  using D128 = std::integral_constant<int, kD>;
+  using D64 = std::integral_constant<int, 64>;
+  if (D == kD)
+    return dtype == 0   ? cores(Type<float>{}, D128{})
+           : dtype == 1 ? cores(Type<__nv_bfloat16>{}, D128{})
+                        : cores(Type<__half>{}, D128{});
+  return dtype == 0   ? cores(Type<float>{}, D64{})
+         : dtype == 1 ? cores(Type<__nv_bfloat16>{}, D64{})
+                      : cores(Type<__half>{}, D64{});
 }
 
 // Blocks of the decode form (rows <= 4 query rows per kv head) that the
@@ -489,5 +515,6 @@ extern "C" int ds_ragged_decode_slots(int rows, int dtype) {
   if (dtype == 0) return dsdecode::split_slots<float, PagedSeqs>(rows);
   if (dtype == 1)
     return dsdecode::split_slots<__nv_bfloat16, PagedSeqs>(rows);
+  if (dtype == 2) return dsdecode::split_slots<__half, PagedSeqs>(rows);
   return -(int)cudaErrorInvalidValue;
 }

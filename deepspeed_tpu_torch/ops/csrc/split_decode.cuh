@@ -235,7 +235,8 @@ split_kernel(const __grid_constant__ SplitParams<Seqs> p) {
     }
   }
 
-  // the warp's key halves (bf16: lanes l and l + 16 hold the same dims)
+  // the warp's key rows (bf16 and fp16: lanes l and l + 16 hold the same
+  // dims; fp32: each lane its own)
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
 #pragma unroll

@@ -20,7 +20,7 @@ import torch
 
 from deepspeed_tpu_torch.ops import op_builder
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 HEAD_DIMS = (128,)   # the kernels are built for head_dim 128 only
 # The decode form (at most DECODE_ROWS query rows per kv head) splits each
 # sequence's keys into chunks of at least DECODE_MIN_CHUNK keys, one block
@@ -120,7 +120,7 @@ def decode_attention_cuda(q, k, v, lengths, softmax_scale=None):
     """Launch the decode kernel on the current stream.
 
     q: [B, T, H, D]; k/v: [B, Hkv, S_max, D] (contiguous, same dtype as q:
-    float32 or bfloat16, D = 128); lengths: a Python int shared by
+    float32, bfloat16 or float16, D = 128); lengths: a Python int shared by
     every sequence, or an int32 CUDA tensor [B].  Returns a new [B, T, H, D]
     tensor in q's dtype."""
     B, T, H, D = q.shape
@@ -129,9 +129,9 @@ def decode_attention_cuda(q, k, v, lengths, softmax_scale=None):
                          "plain version for CPU tensors")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or \
             v.dtype != q.dtype:
-        raise ValueError(f"decode_attention_cuda takes float32 or bfloat16 "
-                         f"q/k/v of one dtype, got {q.dtype}/{k.dtype}/"
-                         f"{v.dtype}")
+        raise ValueError(f"decode_attention_cuda takes float32, bfloat16 or "
+                         f"float16 q/k/v of one dtype, got {q.dtype}/"
+                         f"{k.dtype}/{v.dtype}")
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B or \
             k.shape[3] != D or H % k.shape[1] != 0:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "

@@ -23,8 +23,9 @@ Where the TPU kernel runs every sequence as q_tile-token tiles,
 (``q_len * group <= DECODE_ROWS``, every serving decode step) to the
 split-key decode body shared with B5, and the rest to prefill tiles --
 the tensor-core kernel's 128-row tiles where :func:`tensor_core_prefill`
-holds (bf16, the serving engine's page sizes), else today's CUDA-core
-tiles.  That choice is by dtype and shape, made here, and not a fallback:
+holds (bf16 or fp16, the serving engine's page sizes), else the CUDA-core
+tiles.  Head dim 64 (TinyLlama-1.1B as a speculative draft) has no decode
+form: every such sequence takes the CUDA-core prefill tiles.  That choice is by dtype and shape, made here, and not a fallback:
 both forms are this wrapper's kernel, counted in the same ``launches``.
 """
 
@@ -46,15 +47,19 @@ from deepspeed_tpu_torch.ops.cuda.decode_attention import (DECODE_ROWS,
 DEFAULT_Q_TILE = 8
 TC_ROWS = 128   # query rows (tokens x group heads) of a tensor-core tile
 TC_KEYS = 128   # keys of its K/V tile
+# head dims of the kernel: 128 in every form, 64 in the CUDA-core prefill
+# tiles only
+RAGGED_HEAD_DIMS = HEAD_DIMS + (64,)
 
 
 def tensor_core_prefill(dtype, head_dim, group, page_size):
-    """Whether prefill tiles take the bf16 wgmma + TMA kernel: bf16, head
-    dim 128, a GQA group dividing 64 (a warpgroup's 64 rows hold whole
+    """Whether prefill tiles take the wgmma + TMA kernel: bf16 or fp16,
+    head dim 128, a GQA group dividing 64 (a warpgroup's 64 rows hold whole
     tokens) and a page size that is a multiple of the 128-key tile or a
     multiple of 8 rows dividing it (each TMA box starts on a swizzle
     atom).  Other shapes take the CUDA-core tiles."""
-    return (dtype == torch.bfloat16 and head_dim == 128 and 64 % group == 0
+    return (dtype in (torch.bfloat16, torch.float16) and head_dim == 128
+            and 64 % group == 0
             and (page_size % TC_KEYS == 0 or
                  (TC_KEYS % page_size == 0 and page_size % 8 == 0)))
 
@@ -69,15 +74,17 @@ class LaunchPlan(NamedTuple):
     tensor_cores: bool          # the prefill tiles' form
 
 
-def plan_launch(q_lens, group, tensor_cores, q_tile=DEFAULT_Q_TILE):
+def plan_launch(q_lens, group, tensor_cores, q_tile=DEFAULT_Q_TILE,
+                head_dim=128):
     """Split a call's sequences by form.  A sequence of ``q_len * group``
-    <= DECODE_ROWS rows per kv head takes the decode form, whole; the
-    others are cut into prefill tiles of ``TC_ROWS // group`` tokens
-    (tensor cores; the tiles with the most keys first) or
+    <= DECODE_ROWS rows per kv head takes the decode form, whole (head dim
+    128 only); the others are cut into prefill tiles of ``TC_ROWS //
+    group`` tokens (tensor cores; the tiles with the most keys first) or
     ``min(q_tile, longest prefill)`` tokens (CUDA cores, the JAX tiling's
     order)."""
-    dec = [s for s, ql in enumerate(q_lens) if ql * group <= DECODE_ROWS]
-    pre = [s for s, ql in enumerate(q_lens) if ql * group > DECODE_ROWS]
+    rows = DECODE_ROWS if head_dim in HEAD_DIMS else 0
+    dec = [s for s, ql in enumerate(q_lens) if ql * group <= rows]
+    pre = [s for s, ql in enumerate(q_lens) if ql * group > rows]
     pre_lens = [q_lens[s] for s in pre]
     tokens = TC_ROWS // group if tensor_cores else \
         int(min(q_tile, max(pre_lens, default=1)))
@@ -157,15 +164,15 @@ def ragged_paged_attention_cuda(q, k_pages, v_pages, block_tables, ctx_lens,
                          "use the plain version for CPU tensors")
     if q.dtype not in _DTYPE_CODES or k_pages.dtype != q.dtype or \
             v_pages.dtype != q.dtype:
-        raise ValueError(f"ragged_paged_attention_cuda takes float32 or "
-                         f"bfloat16 q/k/v of one dtype, got {q.dtype}/"
-                         f"{k_pages.dtype}/{v_pages.dtype}")
+        raise ValueError(f"ragged_paged_attention_cuda takes float32, "
+                         f"bfloat16 or float16 q/k/v of one dtype, got "
+                         f"{q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
     if k_pages.dim() != 4 or k_pages.shape != v_pages.shape or \
             k_pages.shape[3] != D or H % k_pages.shape[1] != 0:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, pages "
                          f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
+    if D not in RAGGED_HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not in {RAGGED_HEAD_DIMS}")
     if not (q.is_contiguous() and k_pages.is_contiguous() and
             v_pages.is_contiguous()):
         raise ValueError("ragged_paged_attention_cuda needs contiguous "
@@ -186,6 +193,9 @@ def ragged_paged_attention_cuda(q, k_pages, v_pages, block_tables, ctx_lens,
     _check_int32("qtile_of_tile", qtile_of_tile, (n_tiles,))
     if n_dec:
         _check_int32("decode_seqs", decode_seqs, (n_dec,))
+        if D not in HEAD_DIMS:
+            raise ValueError(f"the decode form needs head_dim in "
+                             f"{HEAD_DIMS}, got {D} (see plan_launch)")
         if not 1 <= decode_rows <= DECODE_ROWS:
             raise ValueError(f"decode_rows {decode_rows} outside [1, "
                              f"{DECODE_ROWS}]")
@@ -276,7 +286,7 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, ctx_lens,
         return torch.cat(outs, dim=0)
     group = q.shape[1] // k_pages.shape[1]
     plan = plan_launch(q_lens, group, tensor_core_prefill(
-        q.dtype, q.shape[2], group, k_pages.shape[2]), q_tile)
+        q.dtype, q.shape[2], group, k_pages.shape[2]), q_tile, q.shape[2])
     offs = np.concatenate([[0], np.cumsum(q_lens)[:-1]])
     dev = q.device
     ctx = (ctx_lens.to(dev, torch.int32) if torch.is_tensor(ctx_lens)
@@ -289,11 +299,11 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, ctx_lens,
 
 
 @functools.lru_cache(maxsize=64)
-def _rect_plan(B, T, group, tensor_cores, q_tile, device):
+def _rect_plan(B, T, group, tensor_cores, q_tile, head_dim, device):
     """(plan, q_lens, q_offs, device plan) of a rectangular batch -- they
     depend only on the shape, so each serving shape uploads them once
     instead of once per layer."""
-    plan = plan_launch([T] * B, group, tensor_cores, q_tile)
+    plan = plan_launch([T] * B, group, tensor_cores, q_tile, head_dim)
     return (plan, _device_int32(np.full(B, T), device),
             _device_int32(np.arange(B) * T, device),
             _plan_tensors(plan, device))
@@ -313,7 +323,7 @@ def ragged_paged_attention_rect(q, k_pages, v_pages, block_tables, lengths,
     group = H // k_pages.shape[1]
     plan, q_lens, q_offs, dev_plan = _rect_plan(
         B, T, group, tensor_core_prefill(q.dtype, D, group, k_pages.shape[2]),
-        int(q_tile), q.device)
+        int(q_tile), D, q.device)
     out = _launch(q.reshape(B * T, H, D), k_pages, v_pages, block_tables,
                   lengths, q_lens, q_offs, plan, dev_plan, softmax_scale)
     return out.reshape(B, T, H, D)

@@ -14,26 +14,11 @@ from dataclasses import dataclass
 import torch
 
 from deepspeed_tpu_torch.ops.cuda.decode_attention import (
-    _DTYPE_CODES, decode_attention_cuda, decode_attention_plain)
+    decode_attention_cuda, decode_attention_plain)
 
 # public vocabulary of the attention backend switch (serving.attention_backend)
 ATTENTION_BACKENDS = ("auto", "cuda", "plain")
 _JAX_SPELLINGS = ("jnp", "pallas", "pallas-interpret")
-
-
-def check_serving_dtype(dtype, device, backend) -> None:
-    """Raise at construction what the decode kernel (B5) and the ragged
-    paged kernel (B4) would refuse at their first launch: a cache dtype
-    they have no form of (fp16), on the card, with the kernels' backend
-    ("auto" or "cuda").  The plain backend and CPU tensors take any
-    dtype."""
-    if dtype in _DTYPE_CODES or validate_backend(backend) == "plain" or \
-            torch.device(device).type != "cuda":
-        return
-    raise NotImplementedError(
-        f"{dtype} inference on the card: the decode and ragged paged "
-        f"attention kernels have fp32 and bf16 forms only; their fp16 forms "
-        f"are not ported yet (ROADMAP A20)")
 
 
 def validate_backend(backend) -> str:

@@ -424,30 +424,25 @@ def test_ds_bench_cli_refuses_unported_flags(tiny_bench, flags, exc, match):
                          "--steps", "1", "--device", "cpu", *flags])
 
 
-# ------------------------------------------------- C2: fp16 serving refused
-def test_fp16_inference_on_the_card_is_refused_at_construction():
-    """B4 and B5 have no fp16 form (ROADMAP A20): init_inference and the
-    serving engine refuse fp16 with the kernels' backend on the card when
-    they are built, not at the first launch.  Reached here without a card:
-    the check runs before anything is put on the device."""
+# ---------------------------------------- fp16 serving, no longer refused
+def test_fp16_inference_on_the_card_is_accepted_at_construction():
+    """B4 and B5 have fp16 forms: init_inference and the serving engine
+    build fp16 engines for the card with the kernels' backend (the refusal
+    they raised before those forms existed is gone).  Reached here
+    without a card by a stub model whose device is "cuda": construction
+    puts nothing on the device."""
     from deepspeed_tpu_torch.inference.serving import ServingEngine
-    from deepspeed_tpu_torch.ops.decode_attention import check_serving_dtype
     model = CausalTransformerLM(TransformerConfig.tiny(**GPT),
                                 device="cpu").init(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A20"):
-        deepspeed_tpu_torch.init_inference(model, dtype="fp16",
-                                           device="cuda")
-    stub = types.SimpleNamespace(config=model.config,
-                                 device=torch.device("cuda"))
+    made = []
+    stub = types.SimpleNamespace(
+        config=model.config, device=torch.device("cuda"),
+        init_paged_caches=lambda *a, **k: made.append(k["dtype"]))
     for backend in ("auto", "cuda"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A20"):
-            ServingEngine(stub, max_batch=2, page_size=8, max_seq=32,
-                          dtype="fp16", serving={"attention_backend": backend})
-    for dtype, device, backend in ((torch.bfloat16, "cuda", "auto"),
-                                   (torch.float32, "cuda", "cuda"),
-                                   (torch.float16, "cuda", "plain"),
-                                   (torch.float16, "cpu", "auto")):
-        check_serving_dtype(dtype, device, backend)     # no raise
+        se = ServingEngine(stub, max_batch=2, page_size=8, max_seq=32,
+                           dtype="fp16", serving={"attention_backend": backend})
+        assert se.cache_dtype == torch.float16
+    assert made == [torch.float16, torch.float16]
     # on the CPU the plain path serves fp16
     eng = deepspeed_tpu_torch.init_inference(model, dtype="fp16",
                                              device="cpu")

@@ -331,12 +331,30 @@ def test_decode_key_chunks_cover_each_key_once(pairs, slots):
     (torch.bfloat16, 128, 4, 64, True), (torch.bfloat16, 128, 1, 8, True),
     (torch.bfloat16, 128, 1, 48, False), (torch.bfloat16, 128, 1, 4, False),
     (torch.bfloat16, 128, 3, 128, False), (torch.float32, 128, 1, 128, False),
-    (torch.bfloat16, 64, 1, 128, False)])
+    (torch.bfloat16, 64, 1, 128, False), (torch.float16, 128, 1, 128, True),
+    (torch.float16, 128, 8, 128, True), (torch.float16, 128, 1, 48, False),
+    (torch.float16, 64, 8, 128, False)])
 def test_tensor_core_prefill_selection(dtype, D, group, page, want):
-    """The prefill tiles take the tensor-core kernel for bf16 at head dim
-    128, a group dividing 64 and pages that tile or divide the 128-key
-    tile in whole swizzle atoms; anything else takes the CUDA-core one."""
+    """The prefill tiles take the tensor-core kernel for bf16 and fp16 at
+    head dim 128, a group dividing 64 and pages that tile or divide the
+    128-key tile in whole swizzle atoms; anything else takes the CUDA-core
+    one."""
     assert tensor_core_prefill(dtype, D, group, page) is want
+
+
+@pytest.mark.parametrize("q_lens,group", [([1] * 8, 8), ([1, 1, 4], 1),
+                                          ([256], 8), ([1, 37, 2], 4)])
+def test_head_dim_64_plans_prefill_tiles_only(q_lens, group):
+    """Head dim 64 (TinyLlama-1.1B as a draft) has no decode form: every
+    sequence, a one-token decode included, is cut into CUDA-core prefill
+    tiles that cover its rows once."""
+    plan = plan_launch(q_lens, group, False, head_dim=64)
+    assert plan.decode_seqs.size == 0 and plan.decode_rows == 0
+    tiles = {}
+    for s, t in zip(plan.seq_of_tile.tolist(), plan.qtile_of_tile.tolist()):
+        tiles.setdefault(s, []).append(t)
+    assert {s: sorted(t) for s, t in tiles.items()} == {
+        s: list(range(-(-ql // plan.q_tile))) for s, ql in enumerate(q_lens)}
 
 
 def _plan_emulated(q, kp, vp, tables, ctx, q_lens, plan, chunk):

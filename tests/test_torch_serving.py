@@ -138,9 +138,8 @@ def test_create_serving_engine_and_config(tiny):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(decode_chunk=2), dict(tp_size=2),
-    dict(serving={"prefix_cache": {"enabled": True}}),
-    dict(serving={"scheduler": {"policy": "chunked"}})])
+    dict(tp_size=2),
+    dict(serving={"fault_injection": {"serve_step": {"fail_at": [1]}}})])
 def test_unported_serving_features_raise(tiny, kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServingEngine(tiny[4], max_batch=1, page_size=8, max_seq=32,
@@ -154,3 +153,76 @@ def test_speculative_zero_drafts_is_off_as_in_the_code(tiny):
                        serving={"scheduler": {"speculative": {
                            "enabled": True, "num_draft_tokens": 0}}})
     assert se.scheduler.policy == "monolithic"
+
+
+# ------------------------------------------------------------ fp16 serving
+# fp16 rounds at 2**-11 relative.  Two layers round their activations at
+# about ten places each, and the two frameworks round at different ones,
+# so per-step logits may differ by some tens of fp16 ulps of the largest
+# logit: held to FP16_LOGIT_TOL * max|logit| (20 ulps of 2**-11).
+FP16_LOGIT_TOL = 1e-2
+
+
+@pytest.fixture(scope="module")
+def tiny_fp16(tiny):
+    cfg, jmodel, params, np_params, _ = tiny
+    half = jax.tree_util.tree_map(lambda x: np.asarray(x, np.float16),
+                                  np_params)
+    tmodel = CausalTransformerLM(cfg, device="cpu", dtype=torch.float16)
+    tmodel.load_state_dict(from_jax_params(half, cfg))
+    return cfg, jmodel, jax.tree_util.tree_map(jnp.asarray, half), tmodel
+
+
+def test_fp16_paged_logits_match_jax_per_step(tiny_fp16):
+    """A bucketed prefill and four decode steps over fp16 page pools:
+    every step's logits within FP16_LOGIT_TOL of the JAX model's, and the
+    same argmax."""
+    cfg, jmodel, jparams, tmodel = tiny_fp16
+    B, T, page = 2, 8, 8
+    rng = np.random.default_rng(3)
+    ids = rng.integers(0, cfg.vocab_size, (B, T)).astype(np.int32)
+    nxt = rng.integers(0, cfg.vocab_size, (4, B, 1)).astype(np.int32)
+    tables = np.array([[1, 2, 0], [3, 4, 0]], np.int32)
+    jc = jmodel.init_paged_caches(5, page, dtype=jnp.float16)
+    tc = tmodel.init_paged_caches(5, page, dtype=torch.float16)
+    jl = jnp.zeros(B, jnp.int32)
+    tl = torch.zeros(B, dtype=torch.int32)
+    tt = torch.as_tensor(tables)
+    for step_ids in [ids] + list(nxt):
+        jlog, jc, jl = jmodel.apply_with_paged_cache(
+            jparams, jnp.asarray(step_ids), jc, jnp.asarray(tables), jl,
+            attn_backend="jnp")
+        tlog, tc, tl = tmodel.apply_with_paged_cache(
+            torch.as_tensor(step_ids, dtype=torch.long), tc, tt, tl)
+        want = np.asarray(jlog, np.float32)
+        got = tlog.float().numpy()
+        assert np.isfinite(got).all()
+        err = np.abs(got - want).max()
+        assert err <= FP16_LOGIT_TOL * np.abs(want).max(), err
+        np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+
+
+def test_fp16_serving_greedy_identical_to_jax(tiny_fp16):
+    cfg, jmodel, jparams, tmodel = tiny_fp16
+    prompts = _prompts(cfg, (4, 9, 6, 12, 5), seed=4)
+    jeng = JaxServing(jmodel, jparams, max_batch=2, page_size=8, max_seq=64,
+                      dtype=jnp.float16, serving={"attention_backend": "jnp"})
+    teng = ServingEngine(tmodel, max_batch=2, page_size=8, max_seq=64,
+                         dtype="fp16")
+    assert teng.cache_dtype == torch.float16
+    assert teng.generate(prompts, max_new_tokens=6) == \
+        jeng.generate(prompts, max_new_tokens=6)
+    assert teng.leak_report() == {}
+
+
+def test_fp16_generate_greedy_identical_to_jax(tiny_fp16):
+    cfg, jmodel, jparams, tmodel = tiny_fp16
+    prompt = np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 5))
+    jeng = deepspeed_tpu.init_inference(model=jmodel,
+                                        config={"dtype": "float16"},
+                                        params=jparams)
+    want = np.asarray(jeng.generate(prompt, max_new_tokens=6))
+    teng = deepspeed_tpu_torch.init_inference(tmodel, dtype="fp16",
+                                              device="cpu")
+    np.testing.assert_array_equal(
+        teng.generate(prompt, max_new_tokens=6).numpy(), want)

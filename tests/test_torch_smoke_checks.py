@@ -11,6 +11,11 @@ here on the CPU where they need no card.
   included, to that rule, and fp32 ones to the plain tolerance.
 * ``sass_counts`` reads the wgmma and TMA counts of exactly the bf16 and
   fp16 tensor-core instantiations out of ``cuobjdump -sass`` text.
+* The serving features' checks: the divergence rule (a greedy token may
+  leave the baseline only at a near-tie of the baseline's logits) and the
+  B4 launch counts expected from the dispatch shapes of chunked,
+  speculative and ``decode_chunk`` runs, held here against a tiny engine
+  whose plain paged attention counts its calls.
 """
 
 import math
@@ -215,10 +220,14 @@ _SASS_NEW = """
         /*0200*/                   HGMMA.64x128x16.F32.BF16 R24, R88, gdesc[UR12], R24, gsb0 ;
                 Function : _ZN60_GLOBAL__N__0_19_sparse_attention_cu_023sparse_attention_kernelIfLi16ELi64EEEvPKT_S3_S3_PS1_PKiS6_iiiff
         /*0100*/                   FFMA R1, R2, R3, R4 ;
-                Function : _ZN66_GLOBAL__N__0_25_ragged_paged_attention_cu_024ragged_prefill_tc_kernelENS_13PrefillParamsE
+                Function : _ZN66_GLOBAL__N__0_25_ragged_paged_attention_cu_024ragged_prefill_tc_kernelI13__nv_bfloat16EEvNS_13PrefillParamsE
         /*0100*/                   UTMALDG.3D [UR8], [UR4] ;
         /*0110*/                   UTMALDG.2D [UR12], [UR4] ;
         /*0200*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8], RZ, !UPT ;
+                Function : _ZN66_GLOBAL__N__0_25_ragged_paged_attention_cu_024ragged_prefill_tc_kernelI6__halfEEvNS_13PrefillParamsE
+        /*0100*/                   UTMALDG.3D [UR8], [UR4] ;
+        /*0200*/                   HGMMA.64x128x16.F32.F16 R24, gdesc[UR8], RZ, !UPT ;
+        /*0210*/                   HGMMA.64x128x16.F32.F16 R24, R88, gdesc[UR12], R24, gsb0 ;
                 Function : _ZN66_GLOBAL__N__0_25_ragged_paged_attention_cu_029ragged_paged_attention_kernelIfLi128ELi16EEEvPKT_S3_S3_PS1_PKiS6_S6_S6_S6_S6_iiiiif
         /*0100*/                   FFMA R1, R2, R3, R4 ;
 """
@@ -226,20 +235,21 @@ _SASS_NEW = """
 
 def test_sass_counts_reads_the_sparse_and_prefill_instantiations():
     """B6's tensor-core kernel by (block, head dim), B4's prefill kernel
-    (no template arguments); their CUDA-core kernels are not counted."""
+    by element type (bf16, fp16); their CUDA-core kernels are not
+    counted."""
     kernels = dict((k, s) for s, k in chip_smoke.TENSOR_CORE_KERNELS)
     assert kernels["sparse_tc_kernel"] == "sparse_attention"
     assert kernels["ragged_prefill_tc_kernel"] == "ragged_paged_attention"
     assert chip_smoke.sass_counts(_SASS_NEW, "sparse_tc_kernel") == {
         (16, 64): (2, 1), (128, 128): (1, 2)}
     assert chip_smoke.sass_counts(_SASS_NEW, "ragged_prefill_tc_kernel") == {
-        (): (1, 2)}
+        ("bf16",): (1, 2), ("fp16",): (2, 1)}
     # every template's expected instantiations: 4 flash forms x (bf16,
-    # fp16), 4 x 2 sparse, 1
+    # fp16), 4 x 2 sparse, 2 (bf16, fp16)
     assert {k: v[2] for k, v in chip_smoke.SASS_TEMPLATES.items()} == {
         "flash_fwd_kernel": 8, "flash_bwd_dq_kernel": 8,
         "flash_bwd_dkv_kernel": 8, "sparse_tc_kernel": 8,
-        "ragged_prefill_tc_kernel": 1}
+        "ragged_prefill_tc_kernel": 2}
 
 
 def _paged_case(seed=11):
@@ -303,3 +313,99 @@ def test_check_output_holds_bf16_to_the_witness_and_fp32_to_1e4():
     chip_smoke.check_output("fp32", exact.clone(), exact, None)
     with pytest.raises(SystemExit):
         chip_smoke.check_output("fp32 off", exact * (1 + 1e-3), exact, None)
+
+
+# ---------------------------------------------------- serving features
+def test_divergence_rule_passes_a_tie_and_fails_a_clear_margin():
+    prompts = [[1, 2], [3, 4, 5]]
+    base = [[1, 2, 7, 8, 9], [3, 4, 5, 6, 6]]
+    same_as_base = [list(b) for b in base]
+    flipped = [[1, 2, 7, 11, 12], [3, 4, 5, 6, 6]]   # request 0, index 1
+    limit = chip_smoke.divergence_limit("bfloat16", 10.0)
+    assert limit == pytest.approx(
+        chip_smoke.DIVERGENCE_ULPS * 2.0 ** -8 * 10.0)
+    tie = {(0, 1): (0.01, 10.0)}
+    clear = {(0, 1): (2.0 * limit, 10.0)}
+    assert chip_smoke.check_divergence(
+        "same", base, same_as_base, prompts, clear, "bfloat16") == (2, [])
+    same, rows = chip_smoke.check_divergence("tie", base, flipped, prompts,
+                                             tie, "bfloat16")
+    assert same == 1 and rows == [(0, 1, 0.01, limit)]
+    with pytest.raises(SystemExit):
+        chip_smoke.check_divergence("clear", base, flipped, prompts, clear,
+                                    "bfloat16")
+    # a margin the baseline never recorded cannot excuse a divergence
+    with pytest.raises(SystemExit):
+        chip_smoke.check_divergence("unknown", base, flipped, prompts, {},
+                                    "bfloat16")
+    # a request cut short (EOS) diverges where the shorter one ends
+    assert chip_smoke.first_divergence([1, 2, 3, 4], [1, 2, 3], 1) == 2
+    assert chip_smoke.first_divergence([1, 2, 3], [1, 2, 3], 1) is None
+
+
+def test_record_margins_keeps_the_top2_gap_and_refuses_nonfinite():
+    sampled = []
+    eng = type("E", (), {})()
+    eng._sample = lambda req, logits: sampled.append(len(req.out)) or 0
+    margins = chip_smoke.record_margins(eng)
+    req = type("R", (), {"req_id": 3, "out": [5, 6]})()
+    eng._sample(req, np.array([0.5, 2.0, 1.25, -4.0], np.float32))
+    assert margins == {(3, 2): (0.75, 4.0)} and sampled == [2]
+    with pytest.raises(SystemExit):
+        eng._sample(req, np.array([0.5, np.nan], np.float32))
+
+
+def _counted_run(sched=None, draft=False, decode_chunk=1, lens=(5, 20, 3,
+                                                               33, 9)):
+    """A tiny fp32 engine on the CPU through the plain paged attention,
+    whose calls count B4's launches: returns (engine, calls, prompts)."""
+    from deepspeed_tpu_torch.inference.serving import ServingEngine
+    from deepspeed_tpu_torch.models.transformer import (CausalTransformerLM,
+                                                        TransformerConfig)
+    from deepspeed_tpu_torch.ops.cuda import ragged_paged_attention as rp
+    cfg = TransformerConfig.tiny(hidden_size=64, n_heads=4, n_kv_heads=2,
+                                 n_layers=3)
+    model = CausalTransformerLM(cfg, device="cpu").init(0)
+    dmodel = CausalTransformerLM(TransformerConfig.tiny(
+        hidden_size=32, n_heads=4, n_kv_heads=1, n_layers=2),
+        device="cpu").init(1) if draft else None
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 256, (n,)).tolist() for n in lens]
+    eng = ServingEngine(model, max_batch=2, page_size=8, max_seq=64,
+                        dtype=torch.float32, decode_chunk=decode_chunk,
+                        serving={"scheduler": sched or {}},
+                        draft_model=dmodel)
+    rp.paged_attention_plain.calls = 0
+    eng.generate(prompts, max_new_tokens=6)
+    return eng, rp.paged_attention_plain.calls, prompts
+
+
+@pytest.mark.parametrize("kind", ["monolithic", "decode_chunk", "chunked",
+                                  "speculative"])
+def test_expected_b4_launches_match_a_counted_run(kind):
+    chunk = 8
+    sched = {"policy": "chunked", "prefill_chunk_tokens": chunk}
+    if kind == "speculative":
+        sched["speculative"] = {"enabled": True, "num_draft_tokens": 3}
+    eng, calls, prompts = _counted_run(
+        sched if kind in ("chunked", "speculative") else None,
+        draft=kind == "speculative",
+        decode_chunk=4 if kind == "decode_chunk" else 1)
+    st = eng.scheduler.sched_stats
+    lens = [len(p) for p in prompts]
+    if kind in ("chunked", "speculative"):
+        assert st["prefill_chunks"] == chip_smoke.prefill_chunks(lens, chunk)
+        n_prefills = 0
+    else:
+        n_prefills = len(prompts)
+    want, target, draft = chip_smoke.expected_b4_launches(
+        3, st, n_prefills=n_prefills,
+        decode_chunk=4 if kind == "decode_chunk" else 1,
+        draft_layers=2 if kind == "speculative" else 0,
+        gamma=3 if kind == "speculative" else 0,
+        draft_chunks=chip_smoke.prefill_chunks(lens, chunk)
+        if kind == "speculative" else 0)
+    assert calls == want and eng.stats["model_calls"] == target
+    if kind == "speculative":
+        assert draft == st["draft_calls"] > 0
+    assert chip_smoke.prefill_chunks([17, 8, 1], 8, cached=[8, 0, 0]) == 4
