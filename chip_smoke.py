@@ -70,6 +70,24 @@ kernels.  Phases:
              (the loss falls over the applied steps; fp16 vs bf16 wall,
              device and busy share) and 2 layers kernels vs plain from
              2**29 (the same skip pattern and loss scales)
+    ckpt     training that survives a restart, gpt_1b through
+             initialize(training_data=...) at full width and depth, micro
+             2 x gas 4, bf16, data through train_batch(data_iter=...): (a)
+             2 steps, save_checkpoint with one injected write failure
+             (committed, checksummed), (b) the same state through the async
+             engine (manifest leaves equal), 2 more steps; the same 2 steps
+             from the async tag (the witness: bitwise, or the gap a step
+             that does not repeat leaves); a new process loads the sync
+             tag and trains them: losses, grad norms and crc32 of master,
+             m and v bit for bit (or within the witness's gap), exact B1 /
+             B2 / B3 launches; (d) the tag as a universal dir served by
+             init_inference(config={"checkpoint": ...}).generate, tokens
+             identical to the in-memory weights', exact B5 launches; (c) 2
+             layers: auto-restore after a poisoned step, fallback from a
+             torn tag, a named torn tag refused, preemption -> emergency
+             tag, keep_last 1, fsck over every status.  Sizes, save and
+             load GB/s and the free disk are printed; it fails up front
+             if the disk is short
   8 sparse   SparseSelfAttention (Fixed block 16, BigBird block 64; head
              dims 64 and 128) at B=2, S=4096, 16 heads: launches counted,
              outputs vs the plain version; the key_padding_mask path and
@@ -93,6 +111,7 @@ last line is printed.  It imports nothing of JAX or ``deepspeed_tpu``.
 """
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -2854,11 +2873,491 @@ def phase_sparse_timing(err):
 
 
 # ----------------------------------------------------------------------
+# phase ckpt: training that survives a restart (the module docstring's
+# "ckpt").  gpt_1b at full width and depth, micro TRAIN_BATCH x gas
+# TRAIN_GAS, seq TRAIN_SEQ, bf16, as in phase 7.
+CKPT_SAMPLES = 16          # token sequences of the phase's dataset
+CKPT_STEPS = 2             # train_batch calls before the save, and after
+CKPT_SEED = 21             # the engine's init (the new process: +1)
+CKPT_DATA_SEED = 22
+CKPT_SMALL_LAYERS = 2
+CKPT_DIR = os.path.join(REPO, ".tmp", "ckpt_smoke")   # gitignored
+# on disk at once, in bytes per parameter: (a)/(b)/(d) hold the sync tag
+# and the async tag (fp32 master, m and v: 12 each) and the universal dir
+# (fp32 weights: 4); (c) holds at most 5 tags of the 2-layer model
+CKPT_FULL_BYTES = 2 * 12 + 4
+CKPT_SMALL_TAGS = 5
+CKPT_DISK_MARGIN = 1.1
+CKPT_CHILD_TIMEOUT = 600
+
+
+def ckpt_disk_need(n_params, n_params_small):
+    """Bytes the phase needs free: the larger of its two stages' peaks,
+    with a 10% margin."""
+    return int(CKPT_DISK_MARGIN * max(CKPT_FULL_BYTES * n_params,
+                                      CKPT_SMALL_TAGS * 12 * n_params_small))
+
+
+def check_disk(free, need, where):
+    if free < need:
+        fail(f"phase ckpt needs {need / 1e9:.1f} GB free under {where}, "
+             f"the disk has {free / 1e9:.1f} GB")
+
+
+def ckpt_resume_launches(cfg):
+    """The kernel launches of the resumed run: phase 7's formula for
+    CKPT_STEPS train_batch calls."""
+    return train_launches(cfg, TRAIN_GAS, CKPT_STEPS)
+
+
+def resume_verdict(ref, got, witness_gap):
+    """The bitwise / witness rule.  ``ref`` and ``got``: {"losses",
+    "norms": [float], "crc": {buffer: crc32}} of the uninterrupted and the
+    resumed run.  ``witness_gap``: None when two runs of the same steps in
+    one process were bitwise equal, else their largest relative gap in
+    loss or grad norm.  Returns (ok, how): bitwise equality when the
+    witness was bitwise; else losses and norms within WITNESS_FACTOR times
+    the witness's gap (the buffers' crcs cannot be held to a gap)."""
+    if witness_gap is None:
+        same = (got["losses"] == ref["losses"] and
+                got["norms"] == ref["norms"] and got["crc"] == ref["crc"])
+        return same, "bitwise"
+    gap = max(abs(a - b) / max(abs(b), 1e-30)
+              for a, b in zip(got["losses"] + got["norms"],
+                              ref["losses"] + ref["norms"]))
+    return gap <= WITNESS_FACTOR * witness_gap, \
+        f"rel gap {gap:.3e} vs witness {witness_gap:.3e}"
+
+
+def ckpt_dataset(cfg, seed=CKPT_DATA_SEED, n=CKPT_SAMPLES):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [{"input_ids": rng.integers(0, cfg.vocab_size, cfg.max_seq_len)}
+            for _ in range(n)]
+
+
+def ckpt_engine(cfg, seed, resilience, device="cuda", training_data=None):
+    """initialize() on CausalTransformerLM(cfg) (random weights from
+    ``seed``), phase 7's bf16 AdamW config plus ``resilience``."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.benchmarks.training import ds_config
+    from deepspeed_tpu_torch.models.transformer import CausalTransformerLM
+    conf = dict(ds_config(TRAIN_BATCH, TRAIN_GAS), resilience=resilience)
+    module = CausalTransformerLM(cfg, device=device).init(seed)
+    engine, _, loader, _ = dst.initialize(model=module, config=conf,
+                                          training_data=training_data,
+                                          device=device)
+    return engine, loader
+
+
+def state_crcs(engine):
+    from deepspeed_tpu_torch.runtime.resilience import leaf_crc32
+    return {"master": leaf_crc32(engine.master),
+            "m": leaf_crc32(engine.opt_state.m),
+            "v": leaf_crc32(engine.opt_state.v)}
+
+
+def skipped_iter(engine, dataset, n_micro):
+    """A fresh loader over ``dataset`` (the engine's seed), repeating,
+    with its first ``n_micro`` micro-batches taken."""
+    from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
+    it = iter(RepeatingLoader(engine.deepspeed_io(dataset)))
+    for _ in range(n_micro):
+        next(it)
+    return it
+
+
+def ckpt_steps(engine, it, steps=CKPT_STEPS):
+    """``steps`` train_batch(data_iter=it) calls: losses and grad norms."""
+    losses, norms = [], []
+    for _ in range(steps):
+        losses.append(float(engine.train_batch(data_iter=it)))
+        norms.append(engine.get_global_grad_norm())
+    return {"losses": losses, "norms": norms}
+
+
+def _sync(device):
+    import torch
+    if str(device).startswith("cuda"):
+        torch.cuda.synchronize()
+
+
+def _spec_cfg(spec):
+    from deepspeed_tpu_torch.models.transformer import TransformerConfig
+    return TransformerConfig(**spec["cfg"])
+
+
+def ckpt_child(root):
+    """The resumed run, in a new process: build the engine as the parent
+    did (other init weights), load ``root/train`` (its latest tag), take a
+    fresh loader past the micro-batches the parent used, train CKPT_STEPS
+    calls; prints one line "CKPT_CHILD {json}"."""
+    with open(os.path.join(root, "child.json")) as f:
+        spec = json.load(f)
+    cfg, device = _spec_cfg(spec), spec["device"]
+    ds = ckpt_dataset(cfg)
+    t0 = time.perf_counter()
+    engine, loader = ckpt_engine(cfg, CKPT_SEED + 1, {}, device=device,
+                                 training_data=ds)
+    _sync(device)
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path, client = engine.load_checkpoint(os.path.join(root, "train"))
+    _sync(device)
+    t_load = time.perf_counter() - t0
+    if path is None:
+        fail("ckpt child: nothing to load")
+    from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
+    it = iter(RepeatingLoader(loader))
+    for _ in range(CKPT_STEPS * TRAIN_GAS):
+        next(it)
+    reset_counters()
+    run = ckpt_steps(engine, it)
+    _sync(device)
+    counts = read_counters()
+    run.update(crc=state_crcs(engine), counts=counts,
+               global_steps=engine.global_steps, client_state=client,
+               build_s=t_build, load_s=t_load,
+               load_bytes=engine.num_params * 12)
+    print("CKPT_CHILD " + json.dumps(run), flush=True)
+
+
+def _equal_or_gap(a, b):
+    """(bitwise equal, max abs difference) of two tensors."""
+    import torch
+    if torch.equal(a, b):
+        return True, 0.0
+    return False, float((a.double() - b.double()).abs().max())
+
+
+def phase_ckpt(cfg, cfg_small, device="cuda", root=CKPT_DIR):
+    """Phase ckpt (see the comment above CKPT_SAMPLES).  Returns the
+    kernel launch counts of its main paths (the parent's 2 resumed-equal
+    steps, the new process's 2 steps, the 2 generates) and its numbers."""
+    import shutil
+    import subprocess as sp
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.checkpoint import ds_to_universal
+    from deepspeed_tpu_torch.checkpoint import fsck as port_fsck
+    from deepspeed_tpu_torch.models.transformer import CausalTransformerLM
+    from deepspeed_tpu_torch.runtime.checkpoint_engine import \
+        get_checkpoint_engine
+    from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
+    from deepspeed_tpu_torch.runtime.resilience import (
+        BAD_MANIFEST, COMMITTED, LEGACY, NO_MARKER, PARTIAL,
+        CheckpointCorruptError, TrainingPreempted, validate_tag)
+    t_phase = time.time()
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    free = shutil.disk_usage(root).free
+    need = ckpt_disk_need(cfg.num_params(), cfg_small.num_params())
+    check_disk(free, need, root)
+    phase("ckpt", f"free disk {free / 1e9:.1f} GB under {root}, the phase "
+          f"needs {need / 1e9:.1f} GB")
+    out, launches = {"free_gb": free / 1e9}, {}
+    train_dir = os.path.join(root, "train")
+    ds = ckpt_dataset(cfg)
+
+    # ---- (a) save with an injected failure, keep training --------------
+    res = {"checksum": True, "retry_backoff_secs": 0, "retry_jitter": 0,
+           "fault_injection": {"ckpt_save": {"fail_times": 1}}}
+    engine, loader = ckpt_engine(cfg, CKPT_SEED, res, device=device,
+                                 training_data=ds)
+    it = iter(RepeatingLoader(loader))
+    ckpt_steps(engine, it)
+    engine.save_checkpoint(train_dir)
+    tag = f"global_step{CKPT_STEPS}"
+    status, manifest = validate_tag(os.path.join(train_dir, tag))
+    calls = engine._injector.calls("ckpt_save")
+    if status != COMMITTED or calls != 2:
+        fail(f"ckpt (a): tag {tag} {status}, ckpt_save called {calls} "
+             f"times (expected committed after one injected failure: 2)")
+    sync_t = engine.last_checkpoint_timing
+    tag_bytes = sum(f["bytes"] for f in manifest["files"])
+    phase("ckpt", f"(a) {cfg.n_layers} layers, 2 train_batch calls, "
+          f"save_checkpoint -> {tag} committed after 1 injected write "
+          f"failure (ckpt_save called {calls} times): {tag_bytes / 1e9:.2f} "
+          f"GB, sync engine: staged {sync_t['staged_s']:.2f} s, written "
+          f"{sync_t['written_s']:.2f} s, committed {sync_t['committed_s']:.2f}"
+          f" s, save_checkpoint returned {sync_t['returned_s']:.2f} s "
+          f"({tag_bytes / 1e9 / sync_t['returned_s']:.2f} GB/s)")
+
+    # ---- (b) the same state through the async engine -------------------
+    atag = "async_" + tag
+    get_checkpoint_engine({"checkpoint": {"engine": "async"}})
+    engine.save_checkpoint(train_dir, tag=atag, save_latest=False)
+    get_checkpoint_engine({"checkpoint": {"engine": "sync"}})
+    async_t = engine.last_checkpoint_timing
+    status, amanifest = validate_tag(os.path.join(train_dir, atag))
+    if status != COMMITTED or amanifest["leaves"] != manifest["leaves"]:
+        fail(f"ckpt (b): async tag {status}; its manifest leaves (with "
+             f"crc32) differ from the sync tag's")
+    phase("ckpt", f"(b) async engine, the same state: manifest leaves "
+          f"(crc32) equal the sync tag's; staged (the engine's save "
+          f"returns) {async_t['staged_s']:.2f} s, written "
+          f"{async_t['written_s']:.2f} s, committed "
+          f"{async_t['committed_s']:.2f} s, save_checkpoint returned "
+          f"{async_t['returned_s']:.2f} s "
+          f"({tag_bytes / 1e9 / async_t['returned_s']:.2f} GB/s)")
+
+    # the weights the tags hold, in memory, for (d)
+    state = engine.module_state_dict()
+
+    # ---- (a) the uninterrupted steps, then the same from the tags ------
+    reset_counters()
+    ref = ckpt_steps(engine, it)
+    _sync(device)
+    counts = read_counters()
+    check_train_launches(counts, cfg, TRAIN_GAS, CKPT_STEPS,
+                         "ckpt (a) uninterrupted steps")
+    ref["crc"] = state_crcs(engine)
+    ref_state = [engine.master.clone(), engine.opt_state.m.clone(),
+                 engine.opt_state.v.clone()]
+    launches = {k: v for k, v in counts.items() if not k.endswith("_plain")}
+
+    def from_tag(t):
+        """The 2 steps again from tag ``t``: (run, load seconds,
+        [(bitwise equal, max abs gap)] of master/m/v vs the
+        uninterrupted run's)."""
+        t0 = time.perf_counter()
+        engine.load_checkpoint(train_dir, tag=t)
+        _sync(device)
+        dt = time.perf_counter() - t0
+        run = ckpt_steps(engine, skipped_iter(engine, ds,
+                                              CKPT_STEPS * TRAIN_GAS))
+        run["state"] = [engine.master.clone(), engine.opt_state.m.clone(),
+                        engine.opt_state.v.clone()]
+        return run, dt, [_equal_or_gap(a, b)
+                         for a, b in zip(run["state"], ref_state)]
+
+    def same_steps(a, b):
+        return a["losses"] == b["losses"] and a["norms"] == b["norms"]
+
+    # the witness: the uninterrupted steps and the same steps from the
+    # async tag, two runs from one saved state in one process.  Only if
+    # they differ, a third run from the sync tag tells a step that does
+    # not repeat (the two loaded runs differ too: the witness's gap) from
+    # a load that is not exact (the two loaded runs agree)
+    w1, load_s, gaps = from_tag(atag)
+    bitwise = same_steps(w1, ref) and all(s_ for s_, _ in gaps)
+    witness_gap = None
+    if not bitwise:
+        w2, _, _ = from_tag(tag)
+        wit = [_equal_or_gap(a, b) for a, b in zip(w1["state"],
+                                                   w2["state"])]
+        if same_steps(w1, w2) and all(s_ for s_, _ in wit):
+            fail(f"ckpt (a): both tags load to the same run, which is not "
+                 f"the uninterrupted one (master/m/v gaps {gaps})")
+        witness_gap = max(abs(a - b) / max(abs(b), 1e-30)
+                          for a, b in zip(w1["losses"] + w1["norms"],
+                                          w2["losses"] + w2["norms"]))
+        gaps = wit
+        del w2
+    phase("ckpt", f"(a) witness, the uninterrupted steps and the same steps "
+          f"from {atag} in one process: "
+          f"{'bitwise equal' if bitwise else 'NOT bitwise'} (losses "
+          f"{ref['losses']} / {w1['losses']}, master/m/v max abs gap "
+          f"{[g for _, g in gaps]}); (b) the async tag loaded in "
+          f"{load_s:.2f} s ({tag_bytes / 1e9 / load_s:.2f} GB/s)")
+    del w1, ref_state
+
+    # the new process
+    with open(os.path.join(root, "child.json"), "w") as f:
+        json.dump({"cfg": dataclasses.asdict(cfg), "device": device}, f)
+    t0 = time.perf_counter()
+    proc = sp.run([sys.executable, os.path.abspath(__file__),
+                   "--ckpt-child", root], capture_output=True, text=True,
+                  timeout=CKPT_CHILD_TIMEOUT, cwd=REPO)
+    t_child = time.perf_counter() - t0
+    line = [ln for ln in proc.stdout.splitlines()
+            if ln.startswith("CKPT_CHILD ")]
+    if proc.returncode != 0 or not line:
+        fail(f"ckpt (a): the new process exited {proc.returncode}: "
+             f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    child = json.loads(line[-1][len("CKPT_CHILD "):])
+    child_launched = check_train_launches(
+        child["counts"], cfg, TRAIN_GAS, CKPT_STEPS,
+        "ckpt (a) the new process's steps")
+    for k in launches:
+        launches[k] += child["counts"][k]
+    ok, how = resume_verdict(ref, child, witness_gap)
+    phase("ckpt", f"(a) new process ({t_child:.1f} s in all; "
+          f"load_checkpoint {child['load_s']:.2f} s = "
+          f"{tag_bytes / 1e9 / child['load_s']:.2f} GB/s): global_steps "
+          f"{child['global_steps']}, losses {child['losses']} vs "
+          f"{ref['losses']}, grad norms {child['norms']} vs {ref['norms']}, "
+          f"crc32 master/m/v {child['crc']} vs {ref['crc']}: {how}; "
+          f"launches {child_launched}, plain versions 0")
+    if not ok or child["global_steps"] != 2 * CKPT_STEPS:
+        fail(f"ckpt (a): the resumed run differs from the uninterrupted "
+             f"one ({how})")
+    out.update(tag_gb=tag_bytes / 1e9, sync=sync_t, async_=async_t,
+               load_s=load_s, child_load_s=child["load_s"],
+               bitwise=bitwise, witness_gap=witness_gap)
+
+    # ---- (d) the trained weights, served from a universal dir ----------
+    udir = os.path.join(root, "universal")
+    t0 = time.perf_counter()
+    ds_to_universal(train_dir, udir, tag=tag)
+    t_univ = time.perf_counter() - t0
+    u_bytes = sum(os.path.getsize(os.path.join(udir, n))
+                  for n in os.listdir(udir))
+    del engine, loader
+    _free_if(device)
+    ids = np.random.default_rng(3).integers(0, cfg.vocab_size, (4, 128))
+    toks, b5 = [], []
+    for kw in ({"config": {"checkpoint": udir}},
+               {"params": state}):
+        model = CausalTransformerLM(cfg, device=device,
+                                    dtype=torch.bfloat16)
+        reset_counters()
+        eng = dst.init_inference(model, dtype="bf16", device=device, **kw)
+        toks.append(eng.generate(ids, max_new_tokens=32).cpu())
+        _sync(device)
+        c = read_counters()
+        b5.append(c["decode_attention"])
+        if plain_calls(c):
+            fail(f"ckpt (d): plain versions ran: {plain_calls(c)}")
+        del model, eng
+        _free_if(device)
+    del state
+    if not torch.equal(toks[0], toks[1]):
+        fail("ckpt (d): greedy tokens from the universal checkpoint differ "
+             "from the in-memory weights'")
+    want_b5 = cfg.n_layers * 32
+    if b5 != [want_b5, want_b5]:
+        fail(f"ckpt (d): decode kernel launches {b5}, expected "
+             f"{cfg.n_layers} x 32 per generate")
+    launches["decode_attention"] = launches.get("decode_attention", 0) + \
+        sum(b5)
+    phase("ckpt", f"(d) ds_to_universal {tag} -> {u_bytes / 1e9:.2f} GB in "
+          f"{t_univ:.1f} s; init_inference(config={{'checkpoint': ...}}, "
+          f"bf16).generate B=4 prompt 128 + 32 new: tokens identical to "
+          f"init_inference(params=engine.module_state_dict()); decode kernel"
+          f" launches {b5} = {cfg.n_layers} x 32 each, plain versions 0")
+    shutil.rmtree(root, ignore_errors=True)
+    get_checkpoint_engine().release()
+
+    # ---- (c) fallback, corruption, retention, fsck, preemption, restore
+    os.makedirs(root)
+    small_dir = os.path.join(root, "small")
+    ds_small = ckpt_dataset(cfg_small)
+    res = {"divergence_sentinel": True, "on_divergence": "restore",
+           "fault_injection": {"poison_grads_at": [CKPT_STEPS]},
+           "preemption_handler": True, "ckpt_dir": small_dir}
+    eng, loader = ckpt_engine(cfg_small, CKPT_SEED, res, device=device,
+                              training_data=ds_small)
+    it = iter(RepeatingLoader(loader))
+    for _ in range(CKPT_STEPS):
+        eng.train_batch(data_iter=it)
+        eng.save_checkpoint(small_dir)
+    good = eng.master.clone()
+    loss = float(eng.train_batch(data_iter=it))     # poisoned -> restored
+    if eng.global_steps != CKPT_STEPS or not torch.equal(eng.master, good):
+        fail(f"ckpt (c): the poisoned step did not roll back to "
+             f"global_step{CKPT_STEPS} (global_steps {eng.global_steps})")
+    retried = float(eng.train_batch(data_iter=it))
+    if not math.isfinite(retried) or math.isfinite(loss):
+        fail(f"ckpt (c): poisoned loss {loss}, retried {retried}")
+    eng.save_checkpoint(small_dir)                   # global_step3
+    newest = f"global_step{CKPT_STEPS + 1}"
+    os.remove(os.path.join(small_dir, newest, ".ds_commit"))
+    eng.load_checkpoint(small_dir)                   # falls back
+    if eng.global_steps != CKPT_STEPS or not torch.equal(eng.master, good):
+        fail(f"ckpt (c): load_checkpoint did not fall back from the torn "
+             f"{newest} to global_step{CKPT_STEPS}")
+    try:
+        eng.load_checkpoint(small_dir, tag=newest)
+        fail(f"ckpt (c): the torn {newest}, named, loaded")
+    except CheckpointCorruptError:
+        pass
+    eng._preempt.request()
+    try:
+        eng.train_batch(data_iter=it)
+        fail("ckpt (c): a requested preemption did not stop train_batch")
+    except TrainingPreempted:
+        pass
+    emergency = f"emergency_step{CKPT_STEPS}"
+    if validate_tag(os.path.join(small_dir, emergency))[0] != COMMITTED:
+        fail(f"ckpt (c): no committed {emergency}")
+    del eng, loader
+    _free_if(device)
+    keep_dir = os.path.join(root, "keep")
+    eng, loader = ckpt_engine(cfg_small, CKPT_SEED, {"keep_last": 1},
+                              device=device, training_data=ds_small)
+    it = iter(RepeatingLoader(loader))
+    for _ in range(2):
+        eng.train_batch(data_iter=it)
+        eng.save_checkpoint(keep_dir)
+    kept = sorted(os.listdir(keep_dir))
+    if kept != ["global_step2", "latest"]:
+        fail(f"ckpt (c): keep_last 1 left {kept}")
+    del eng, loader
+    _free_if(device)
+    # fsck over every status: global_step1 edited, emergency truncated, a
+    # stale tmp dir, a pre-protocol dir
+    gs1 = os.path.join(small_dir, "global_step1")
+    with open(os.path.join(gs1, "ds_manifest.json")) as f:
+        m = json.load(f)
+    m["global_step"] = 999
+    with open(os.path.join(gs1, "ds_manifest.json"), "w") as f:
+        json.dump(m, f)
+    with open(os.path.join(small_dir, emergency, "count.npy"), "r+b") as f:
+        f.truncate(8)
+    os.makedirs(os.path.join(small_dir, ".crashed.tmp"))
+    os.makedirs(os.path.join(small_dir, "legacy"))
+    with open(os.path.join(small_dir, "legacy", "state.bin"), "wb") as f:
+        f.write(b"old")
+    report = port_fsck.fsck(small_dir, deep=True)
+    statuses = {t["tag"]: t["status"] for t in report["tags"]}
+    want = {"global_step1": BAD_MANIFEST, f"global_step{CKPT_STEPS}":
+            COMMITTED, newest: NO_MARKER, emergency: PARTIAL,
+            "legacy": LEGACY}
+    rc_bad = port_fsck.main([small_dir])
+    with open(os.path.join(small_dir, "latest"), "w") as f:
+        f.write(f"global_step{CKPT_STEPS}")
+    rc_good = port_fsck.main([small_dir])
+    if statuses != want or report["stale_tmp_dirs"] != [".crashed.tmp"] or \
+            (rc_bad, rc_good) != (1, 0):
+        fail(f"ckpt (c): fsck statuses {statuses} (expected {want}), stale "
+             f"{report['stale_tmp_dirs']}, exit codes {rc_bad}/{rc_good}")
+    shutil.rmtree(root, ignore_errors=True)
+    get_checkpoint_engine().release()
+    phase("ckpt", f"(c) {cfg_small.n_layers} layers: the poisoned step "
+          f"rolled back to global_step{CKPT_STEPS} (loss {loss}), retried "
+          f"{retried:.4f}; torn {newest} -> fell back to "
+          f"global_step{CKPT_STEPS}, named it raised CheckpointCorruptError;"
+          f" keep_last 1 left {kept[0]}; preemption -> {emergency} committed"
+          f" and TrainingPreempted; fsck {statuses}, stale "
+          f"{report['stale_tmp_dirs']}, exit 1 then 0")
+    out["seconds"] = time.time() - t_phase
+    phase("ckpt", f"phase time {out['seconds']:.1f} s")
+    return launches, out
+
+
+def _free_if(device):
+    if str(device).startswith("cuda"):
+        _free()
+
+
+
+# ----------------------------------------------------------------------
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel phase")
+    ap.add_argument("--ckpt-child", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args()
+
+    if args.ckpt_child:     # phase ckpt's resumed run, a process of its own
+        import torch
+        sys.path.insert(0, REPO)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        ckpt_child(args.ckpt_child)
+        return
 
     t_start = time.time()
     import torch
@@ -3130,6 +3629,15 @@ def main():
           f" by applied step {[(f'{x:.3e}', n) for x, n in r['m_rels']]} "
           f"(tol {E2E_M_REL_TOL}), update rel L2 {r['upd_rel'][0]:.3e} "
           f"({r['upd_rel'][1]}; tol {E2E_UPDATE_REL_TOL})")
+
+    # ---- phase ckpt: save, a new process resumes, serve the tag --------
+    from deepspeed_tpu_torch.benchmarks.training import model_config
+    ckpt_cfg = model_config(TRAIN_MODEL, TRAIN_SEQ)
+    ckpt_counts, _ = phase_ckpt(
+        ckpt_cfg, dataclasses.replace(ckpt_cfg, n_layers=CKPT_SMALL_LAYERS))
+    for k in launches:
+        launches[k] += ckpt_counts.get(k, 0)
+    _free()
 
     # ---- block-sparse entry point, counters read around its calls -----
     sparse_counts, t_sparse, sparse_err = phase_sparse_path()

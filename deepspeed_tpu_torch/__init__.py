@@ -8,7 +8,10 @@ PyTorch version.  Ported so far: serving (``init_inference(...).generate``
 and ``create_serving_engine``) and training on one card
 (``initialize(...)`` -> ``DeepSpeedEngine.train_batch`` or
 ``forward``/``backward``/``step``; fp32, bf16, or fp16 with loss scaling;
-LR schedules).  Entry points run on the card unless
+LR schedules; durable checkpoints, the data loader and the
+fault-tolerance layer), serving from a checkpoint
+(``init_inference(config={"checkpoint": dir})``) and the checkpoint tools
+(``checkpoint/``).  Entry points run on the card unless
 the caller passes ``device="cpu"``; with no card they raise.
 """
 
@@ -27,9 +30,12 @@ from deepspeed_tpu_torch.utils.logging import log_dist, logger  # noqa: F401
 
 
 def initialize(args=None, model=None, model_parameters=None, config=None,
-               optimizer=None, lr_scheduler=None, device=None):
+               optimizer=None, lr_scheduler=None, device=None,
+               training_data=None, collate_fn=None):
     """Counterpart of ``deepspeed_tpu.initialize``: returns ``(engine,
-    optimizer, None, lr_scheduler)``.  ``model``: a ``CausalTransformerLM``;
+    optimizer, training_dataloader, lr_scheduler)``; the loader is the
+    engine's ``deepspeed_io(training_data, collate_fn=collate_fn)``, or
+    None without ``training_data``.  ``model``: a ``CausalTransformerLM``;
     ``model_parameters``: None (the module's own weights) or the JAX
     package's param dict with numpy leaves (loaded through
     ``models.convert.from_jax_params``); ``config``: a dict, a JSON path,
@@ -56,15 +62,20 @@ def initialize(args=None, model=None, model_parameters=None, config=None,
         model.load_state_dict(from_jax_params(model_parameters,
                                               model.config), strict=True)
     engine = DeepSpeedEngine(model, config, device=device,
-                             lr_scheduler=lr_scheduler)
-    return engine, engine.optimizer, None, engine.lr_scheduler
+                             lr_scheduler=lr_scheduler,
+                             training_data=training_data,
+                             collate_fn=collate_fn)
+    return (engine, engine.optimizer, engine.training_dataloader,
+            engine.lr_scheduler)
 
 
 def init_inference(model=None, config=None, params=None, device=None,
                    **kwargs):
     """Counterpart of ``deepspeed_tpu.init_inference``: config kwargs
     (``dtype="bf16"`` etc.) merge into ``config``; ``params`` is an
-    optional state dict to load (see ``models.convert.from_jax_params``).
+    optional state dict to load (see ``models.convert.from_jax_params``);
+    without it, ``config["checkpoint"]`` names a universal checkpoint dir
+    or a training checkpoint dir to load.
     ``device`` defaults to the card and raises without one.  The HF
     ``module_inject`` path is not ported (ROADMAP A16)."""
     if model is None or not isinstance(model, CausalTransformerLM):

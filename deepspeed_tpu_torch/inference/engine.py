@@ -10,12 +10,16 @@ Greedy decoding is bit-identical to the JAX engine at equal logits;
 temperature / top-k sampling draws from a seeded ``torch.Generator`` on
 the engine's device, so its streams are not the JAX engine's.
 
+``config["checkpoint"]`` loads the weights from a universal checkpoint
+dir (``universal_meta.json``, either package's) or a port training
+checkpoint (``load_model_with_checkpoint``).
+
 Not ported in this slice: tensor parallelism (ROADMAP A14), ZeRO-Inference
-weight streaming and int8 weight-only quantization (A12), checkpoint
-loading (A10), decoding ALiBi / sliding-window / embedding-norm models
-(A18).
+weight streaming and int8 weight-only quantization (A12), decoding ALiBi /
+sliding-window / embedding-norm models (A18).
 """
 
+import os
 from typing import Any, Optional
 
 import numpy as np
@@ -42,9 +46,6 @@ class InferenceEngine:
         if dict(config.zero or {}).get("offload_param"):
             raise NotImplementedError("ZeRO-Inference weight streaming is "
                                       "not ported yet (ROADMAP A12)")
-        if config.checkpoint:
-            raise NotImplementedError("checkpoint loading is not ported yet "
-                                      "(ROADMAP A10)")
         # ALiBi / window / embedding-norm models raise here, not at the
         # first token
         check_servable(model.config)
@@ -52,6 +53,8 @@ class InferenceEngine:
         self._config = config
         self.dtype = to_torch_dtype(config.dtype)
         self.device = get_accelerator().resolve_device(device)
+        if params is None and config.checkpoint:
+            params = self.load_model_with_checkpoint(config.checkpoint)
         if params is not None:
             self.set_params(params)
         else:
@@ -81,6 +84,27 @@ class InferenceEngine:
                 if t.is_floating_point():
                     t = t.to(self.dtype)
                 own[name].data = t.to(self.device)
+
+    # ------------------------------------------------------------------
+    def load_model_with_checkpoint(self, checkpoint: str):
+        """The state dict (numpy, by parameter name) of a universal
+        checkpoint dir or a port training checkpoint dir (its ``latest``
+        tag's fp32 master)."""
+        from deepspeed_tpu_torch.checkpoint import (load_checkpoint_tree,
+                                                    load_universal_checkpoint,
+                                                    universal_to_state_dict)
+        from deepspeed_tpu_torch.checkpoint.universal_checkpoint import \
+            META_NAME
+        if os.path.exists(os.path.join(checkpoint, META_NAME)):
+            flat = load_universal_checkpoint(checkpoint)
+            log_dist(f"loaded universal checkpoint: {len(flat)} tensors",
+                     ranks=[0])
+            return universal_to_state_dict(flat, self.module)
+        from deepspeed_tpu_torch.models.convert import from_jax_params
+        params = load_checkpoint_tree(checkpoint,
+                                      load_optimizer_states=False)["params"]
+        log_dist(f"loaded checkpoint params from {checkpoint}", ranks=[0])
+        return from_jax_params(params, self.module.config)
 
     # ------------------------------------------------------------------
     def forward(self, input_ids, caches=None):

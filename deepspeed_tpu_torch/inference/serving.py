@@ -20,10 +20,12 @@ decoding with a ``draft_model``, ``decode_chunk`` tokens per dispatch
 with on-device sampling), and ``serving.prefix_cache`` attaches cached
 prompt pages instead of prefilling them (``inference/prefix_cache.py``).
 
+``serving.fault_injection`` builds the engine's ``FaultInjector``
+(``runtime/resilience.py``) when no ``injector`` is passed.
+
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
-tensor/expert parallel serving (A14), fault-injection specs (A10), the
-disaggregated-fleet handoff/import plumbing (A11), and telemetry events
-(A17).
+tensor/expert parallel serving (A14), the disaggregated-fleet
+handoff/import plumbing (A11), and telemetry events (A17).
 """
 
 import math
@@ -46,6 +48,7 @@ from deepspeed_tpu_torch.inference.scheduler import (SLO_CLASSES,
                                                      create_scheduler)
 from deepspeed_tpu_torch.ops.paged_attention import (
     PageAllocationError, PagedAllocator, resolve_attention_backend)
+from deepspeed_tpu_torch.runtime.resilience import FaultInjector
 from deepspeed_tpu_torch.utils.logging import logger
 
 # RequestResult statuses -> lifecycle-trace terminal names ("drained"
@@ -107,7 +110,8 @@ class ServingEngine:
                  serving=None, injector=None, clock=None, draft_model=None):
         """``serving``: a :class:`ServingRobustnessConfig` or its dict.
         ``injector``: an object with ``check(site)`` consulted at the
-        ``serve_step`` / ``serve_sample`` / ``page_alloc`` sites.
+        ``serve_step`` / ``serve_sample`` / ``page_alloc`` sites (built
+        from ``serving.fault_injection`` when omitted).
         ``clock``: monotonic-seconds callable, injectable so deadline
         tests don't sleep.  ``decode_chunk``: decode tokens per dispatch
         (K > 1 samples on the device).  ``draft_model``: the speculative
@@ -131,13 +135,12 @@ class ServingEngine:
             self.serving = serving
         else:
             self.serving = ServingRobustnessConfig(serving or {})
-        if self.serving.fault_injection:
-            raise NotImplementedError("serving.fault_injection specs need "
-                                      "the fault injector, not ported yet "
-                                      "(ROADMAP A10); pass injector=")
         self.cache_dtype = to_torch_dtype(dtype)
         self.caches = model.init_paged_caches(num_pages, page_size,
                                               dtype=self.cache_dtype)
+        if injector is None:
+            injector = FaultInjector.from_config(
+                self.serving.fault_injection)
         self.injector = injector
         self.alloc = PagedAllocator(num_pages, page_size,
                                     self.max_pages_per_seq,

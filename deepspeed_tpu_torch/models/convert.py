@@ -58,13 +58,20 @@ def to_numpy_params(model) -> Dict:
         t = t.detach().cpu()
         return (t.float() if t.is_floating_point() else t).numpy()
 
+    return stack_layers({name: leaf(t) for name, t in state.items()})
+
+
+def stack_layers(named: Dict[str, np.ndarray]) -> Dict:
+    """A port state dict of numpy arrays in the JAX param layout:
+    ``layers.<i>.<key>`` stacked along a leading ``n_layers`` dim under
+    ``["layers"][key]``, the other names as they are."""
     out, layers = {}, {}
-    for name, t in state.items():
+    for name, a in named.items():
         if name.startswith("layers."):
             _, i, key = name.split(".", 2)
-            layers.setdefault(key, {})[int(i)] = leaf(t)
+            layers.setdefault(key, {})[int(i)] = a
         else:
-            out[name] = leaf(t)
+            out[name] = a
     out["layers"] = {k: np.stack([v[i] for i in sorted(v)])
                      for k, v in layers.items()}
     return out

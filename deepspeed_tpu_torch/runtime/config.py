@@ -4,8 +4,8 @@ Counterpart of ``deepspeed_tpu/runtime/config.py``, reading the same JSON
 keys: the batch triangle ``train_batch_size = micro * gas * world`` (world
 is 1 here), ``optimizer`` {type, params}, ``scheduler`` {type, params},
 ``fp16`` (loss scaling; ``loss_scale`` 0 means dynamic), ``bf16.enabled``,
-``gradient_clipping``, ``seed``, ``steps_per_print`` and
-``zero_optimization``.  Every block the JAX engine acts on and the port
+``gradient_clipping``, ``seed``, ``steps_per_print``,
+``zero_optimization``, ``checkpoint`` and ``resilience``.  Every block the JAX engine acts on and the port
 does not run yet raises ``NotImplementedError`` naming its ROADMAP item,
 when it is enabled or non-empty; the keys the JAX config accepts and
 leaves inert pass silently; any other top-level key logs a warning with
@@ -64,6 +64,63 @@ class FP16Config(DeepSpeedConfigModel):
     auto_cast = False          # accepted and inert, as in the JAX config
 
 
+class ResilienceConfig(DeepSpeedConfigModel):
+    """``"resilience"`` block (``runtime/resilience.py``): durable
+    checkpoints with validation and fallback, the retry policy of
+    checkpoint and filesystem I/O, preemption handling, the divergence
+    sentinel and the fault injector -- the JAX config's fields and
+    checks.  The ``dataloader_*`` retries belong to the prefetcher: they
+    parse, and act once ``async_pipeline`` is ported (ROADMAP A17)."""
+    enabled = True                  # durable ckpt protocol + retries
+    max_retries = 3                 # checkpoint/fs I/O retry budget
+    retry_backoff_secs = 0.5        # first-retry backoff
+    retry_backoff_max_secs = 30.0   # backoff cap
+    retry_jitter = 0.25             # jitter fraction on each delay
+    keep_last = 0                   # committed tags retained (0 = all)
+    checksum = False                # per-leaf crc32 in the manifest
+    preemption_handler = False      # hook SIGTERM/SIGINT
+    ckpt_dir = ""                   # emergency-save / auto-restore dir
+    divergence_sentinel = False     # watch loss / overflow streaks
+    max_consecutive_skips = 8       # fp16 skip streak that counts as divergence
+    sentinel_interval = 1           # steps between sentinel host readbacks
+    on_divergence = "halt"          # "halt" | "restore"
+    dataloader_max_retries = 2      # prefetch-worker transient retry budget
+    dataloader_retry_backoff_secs = 0.05
+    fault_injection = {}            # deterministic FaultInjector spec
+
+    def _validate(self):
+        if int(self.max_retries) < 0:
+            raise ValueError("resilience.max_retries must be >= 0")
+        if int(self.keep_last) < 0:
+            raise ValueError("resilience.keep_last must be >= 0")
+        if self.on_divergence not in ("halt", "restore"):
+            raise ValueError("resilience.on_divergence must be 'halt' or "
+                             "'restore'")
+        if int(self.sentinel_interval) < 1:
+            raise ValueError("resilience.sentinel_interval must be >= 1")
+        if int(self.dataloader_max_retries) < 0:
+            raise ValueError("resilience.dataloader_max_retries must be >= 0")
+
+
+class CheckpointConfig(DeepSpeedConfigModel):
+    """``"checkpoint"`` block.  ``engine`` picks the checkpoint engine
+    (``runtime/checkpoint_engine.py``): "sync" (also "orbax" and "torch",
+    the JAX names) or "async" / "nebula".  ``load_universal`` and the other
+    keys parse and, as in the JAX engine, change nothing."""
+    tag_validation = "Warn"
+    load_universal = False
+    use_node_local_storage = False
+    parallel_write = {}
+    engine = "sync"
+
+    def _validate(self):
+        if str(self.engine).lower() not in ("sync", "async", "nebula",
+                                            "torch", "orbax"):
+            raise ValueError(
+                "checkpoint.engine must be one of sync|async|nebula "
+                f"(got {self.engine!r})")
+
+
 class OptimizerConfig:
     def __init__(self, param_dict):
         self.type = param_dict.get(C.TYPE)
@@ -111,10 +168,6 @@ def _refuse_unported(pd):
         (bool(pd.get(C.PIPELINE)), "pipeline parallelism", "A14"),
         (_enabled(pd.get(C.ASYNC_PIPELINE)), "async_pipeline", "A17"),
         (_enabled(pd.get(C.TELEMETRY)), "telemetry", "A17"),
-        (any((pd.get(C.RESILIENCE) or {}).get(k) for k in (
-            "preemption_handler", "divergence_sentinel", "fault_injection")),
-         "resilience (preemption, divergence sentinel, fault injection)",
-         "A10"),
         (_set(pd.get(C.CURRICULUM_LEARNING_LEGACY)), "curriculum_learning",
          "A17"),
         (_set(pd.get(C.DATA_EFFICIENCY)), "data_efficiency", "A17"),
@@ -132,8 +185,6 @@ def _refuse_unported(pd):
         (_set(pd.get(C.ACTIVATION_CHECKPOINTING)), "activation_checkpointing",
          "A6"),
         (_set(pd.get(C.MEMORY)), "the tiered memory block (memory)", "A12"),
-        (bool((pd.get(C.CHECKPOINT) or {}).get(C.LOAD_UNIVERSAL_CHECKPOINT)),
-         "checkpoint.load_universal", "A10"),
     ]
     for on, what, item in blocks:
         if on:
@@ -197,6 +248,8 @@ class DeepSpeedConfig:
         self.optimizer_config = OptimizerConfig(opt) if opt else None
         sched = pd.get(C.SCHEDULER)
         self.scheduler_config = SchedulerConfig(sched) if sched else None
+        self.checkpoint_config = CheckpointConfig(pd.get(C.CHECKPOINT) or {})
+        self.resilience_config = ResilienceConfig(pd.get(C.RESILIENCE) or {})
 
     @property
     def fp16_enabled(self):

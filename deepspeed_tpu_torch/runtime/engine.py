@@ -34,16 +34,38 @@ skipped or not, as the JAX engine's do; so after a skipped step
 ``get_lr`` runs ahead of the lr the update used, which follows the applied
 count (the JAX engine behaves the same way).
 
-Not ported yet (each raises naming its ROADMAP item): checkpoints and
-data loading (A10), multi-rank ZeRO (A8).
+Checkpoints (``save_checkpoint`` / ``load_checkpoint``) keep the JAX
+engine's durable protocol (``runtime/resilience.py``: tmp tag, manifest,
+commit marker, retries, fallback to the newest valid tag, keep-last
+retention, checksums) around the port's payload
+(``runtime/checkpoint_engine.py``): master, m, v and the device scalars,
+restored bit for bit; the compute-dtype weights are rebuilt from the
+master, the host ``global_steps``, ``micro_steps`` and LR scheduler come
+back from ``client_state``.  The state is flat at every ZeRO stage, so a
+tag saved at one stage loads at another.  ``train_batch`` polls the
+preemption handler before and after each step (an emergency checkpoint,
+then ``TrainingPreempted``), pushes the loss and overflow flag to the
+divergence sentinel (halt, or restore the last good tag) and poisons the
+step's weights when the fault injector says so.  ``deepspeed_io`` /
+``training_data`` build the numpy loader of ``runtime/dataloader.py``.
+
+Not ported yet (each raises naming its ROADMAP item): multi-rank ZeRO
+(A8), the async input pipeline (A17).
 """
+
+import json
+import os
+import time
 
 import numpy as np
 import torch
 
 from deepspeed_tpu_torch.accelerator import get_accelerator
 from deepspeed_tpu_torch.ops.decode_attention import validate_backend
+from deepspeed_tpu_torch.runtime.checkpoint_engine import (
+    LAYOUT_NAME, get_checkpoint_engine, unflatten)
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
 from deepspeed_tpu_torch.runtime.loss_scaler import (dynamic_loss_scale_state,
                                                      has_inf_or_nan,
                                                      static_loss_scale_state,
@@ -54,7 +76,13 @@ from deepspeed_tpu_torch.runtime.lr_schedules import (ONE_CYCLE,
                                                       one_cycle_mom)
 from deepspeed_tpu_torch.runtime.optimizers import (ADAMW_OPTIMIZER,
                                                     build_optimizer)
-from deepspeed_tpu_torch.utils.logging import log_dist
+from deepspeed_tpu_torch.runtime.resilience import (
+    COMMITTED, LEGACY, CheckpointCorruptError, CheckpointTransaction,
+    DivergenceError, DivergenceSentinel, FaultInjector, PreemptionHandler,
+    RetryPolicy, TrainingPreempted, atomic_write_text, build_manifest,
+    fault_event, flatten_with_keystr, gc_tags, meta_event, poison_tree,
+    retry_io, scan_tags, validate_tag, verify_restored)
+from deepspeed_tpu_torch.utils.logging import log_dist, logger
 
 
 def _world_size():
@@ -72,10 +100,12 @@ class DeepSpeedEngine:
     (the plain versions of attention and Adam: the smoke test's
     comparison).  ``lr_scheduler``: a client schedule, an
     :class:`LRScheduler` or a callable on the 0-dim fp32 step (the config's
-    ``scheduler`` block wins, as in the JAX engine)."""
+    ``scheduler`` block wins, as in the JAX engine).  ``training_data``: a
+    dataset for :meth:`deepspeed_io` (``collate_fn`` for its batches)."""
 
     def __init__(self, model, config: DeepSpeedConfig, device=None,
-                 backend="auto", lr_scheduler=None):
+                 backend="auto", lr_scheduler=None, training_data=None,
+                 collate_fn=None):
         if not callable(getattr(model, "loss", None)):
             raise TypeError("model must expose .loss(batch)")
         if _world_size() > 1:
@@ -103,6 +133,7 @@ class DeepSpeedEngine:
             spans.append((off, p.numel(), p.shape))
             off += p.numel()
         self.num_params = off
+        self._spans = spans
         self.master = torch.empty(off, dtype=torch.float32,
                                   device=self.device)
         self.grads = torch.zeros(off, dtype=torch.float32, device=self.device)
@@ -122,6 +153,9 @@ class DeepSpeedEngine:
         # ---- optimizer and schedules --------------------------------
         self.optimizer, base_lr, schedule_fn = self._configure_optimizer(
             lr_scheduler)
+        # the JAX engine has no scheduler (None in client_state) without a
+        # schedule; the port's host scheduler then reports the base lr
+        self._has_schedule = schedule_fn is not None
         self.opt_state = self.optimizer.init_state(self.master)
         # the host-side scheduler get_lr reads (the JAX engine's: a client
         # LRScheduler as given, else one over the schedule or the base lr)
@@ -147,6 +181,7 @@ class DeepSpeedEngine:
 
         # ---- host bookkeeping ---------------------------------------
         self.global_steps = 0
+        self.micro_steps = 0     # three-call backward()s, as in JAX
         self._accum_count = 0
         self._step_applied = False
         self._global_grad_norm = None
@@ -155,6 +190,30 @@ class DeepSpeedEngine:
         # multiply by its reciprocal) and needs no copy to the card per step
         self._gas = torch.tensor(float(config.gradient_accumulation_steps),
                                  dtype=torch.float32, device=self.device)
+
+        # ---- fault tolerance (runtime/resilience.py) -----------------
+        rc = config.resilience_config
+        self._resilience = rc
+        self._injector = FaultInjector.from_config(rc.fault_injection)
+        self._retry_policy = RetryPolicy.from_config(rc)
+        self._last_good_ckpt = None   # (dir, tag) of last committed/loaded
+        self.last_checkpoint_timing = {}
+        self._preempt = None
+        if rc.preemption_handler:
+            self._preempt = PreemptionHandler().install()
+        self._sentinel = None
+        if rc.divergence_sentinel:
+            self._sentinel = DivergenceSentinel(
+                max_consecutive_skips=rc.max_consecutive_skips,
+                interval=rc.sentinel_interval, action=rc.on_divergence)
+        # the process's checkpoint engine, from checkpoint.engine (save and
+        # load use whatever is current, as in the JAX engine)
+        get_checkpoint_engine(config)
+        self.training_dataloader = None
+        if training_data is not None:
+            self.training_dataloader = self.deepspeed_io(
+                training_data, collate_fn=collate_fn)
+
         log_dist(f"DeepSpeedEngine ready: zero_stage={self.zero_stage} "
                  f"dtype={self.compute_dtype} device={self.device} "
                  f"params={self.num_params} "
@@ -300,26 +359,63 @@ class DeepSpeedEngine:
     def train_batch(self, data_iter=None, batch=None):
         """One optimizer step over gas micro-batches.  ``batch``: a dict
         with ``input_ids`` [gas, B, S] ([B, S] when gas is 1; optional
-        ``labels`` / ``loss_mask`` alike) or a raw token array.  Returns
-        the mean loss over the micro-batches (a device scalar).  Data
-        iterators are not ported yet (ROADMAP A10)."""
-        if batch is None or data_iter is not None:
-            raise NotImplementedError("train_batch takes batch=; data "
-                                      "iterators, training_data and "
-                                      "deepspeed_io are not ported yet "
-                                      "(ROADMAP A10)")
+        ``labels`` / ``loss_mask`` alike) or a raw token array;
+        ``data_iter``: an iterator of micro-batches, gas of which it takes;
+        neither: a fresh iterator over ``training_data`` on every call, as
+        the JAX engine's synchronous loader does (so every such call reads
+        the same first gas micro-batches).  Returns the mean loss over the
+        micro-batches (a device scalar).  The preemption handler is polled
+        before and after the step, the divergence sentinel after it."""
+        if self._preempt is not None and self._preempt.requested:
+            self._handle_preemption()
+        loss = self._train_batch_inner(data_iter, batch)
+        # the sentinel first (its restore clears state a preemption save
+        # would persist), then a preemption signalled during the step
+        if self._sentinel is not None:
+            self._handle_sentinel()
+        if self._preempt is not None and self._preempt.requested:
+            self._handle_preemption()
+        return loss
+
+    def _train_batch_inner(self, data_iter, batch):
         if self._accum_count:
             raise RuntimeError("train_batch called with gradients of an "
                                "unfinished forward/backward/step cycle")
         gas = self._config.gradient_accumulation_steps
+        if batch is None:
+            if data_iter is None:
+                if self.training_dataloader is None:
+                    raise ValueError("train_batch needs data_iter, batch= or "
+                                     "training_data")
+                data_iter = iter(self.training_dataloader)
+            micro_batches = [self._batch_to_device(next(data_iter))
+                             for _ in range(gas)]
+        else:
+            micro_batches = self._micro_batches(batch, gas)
+        if self._injector is not None and \
+                self._injector.poison_grads(self.global_steps):
+            # the deterministic divergence trigger: NaN the float inputs,
+            # or (a token batch has none) the weights this step computes
+            # with, so its gradients go non-finite
+            micro_batches, n_poisoned = poison_tree(micro_batches)
+            if n_poisoned == 0:
+                poison_tree(self._compute)
+            logger.warning(f"fault injector: poisoned gradients at step "
+                           f"{self.global_steps}")
         lsum = None
-        for mb in self._micro_batches(batch, gas):
+        for mb in micro_batches:
             loss = self._micro_step(mb)
             lsum = loss if lsum is None else lsum + loss
         # the sum of the micro-batches' gradients, divided once
         # (``_forward_grads``)
         self._apply_update(self._gas if gas > 1 else None)
-        return lsum / gas
+        loss = lsum / gas
+        if self._sentinel is not None:
+            # device tensors only: the sentinel reads them back in one
+            # copy every ``sentinel_interval`` steps
+            self._sentinel.push(self.global_steps, loss=loss,
+                                overflow=self._overflow)
+        return loss
 
     # ------------------------------------------------------------------
     # the three-call API
@@ -340,6 +436,7 @@ class DeepSpeedEngine:
         once, as the JAX one does)."""
         self._scaled_backward(loss)
         self._accumulate_grads(self._gas)
+        self.micro_steps += 1
         return loss
 
     def is_gradient_accumulation_boundary(self):
@@ -410,16 +507,289 @@ class DeepSpeedEngine:
                                     attn_backend=self.backend)
 
     # ------------------------------------------------------------------
-    # not ported yet
+    # data
     # ------------------------------------------------------------------
-    def save_checkpoint(self, *args, **kwargs):
-        raise NotImplementedError("checkpoints are not ported yet (ROADMAP "
-                                  "A10)")
+    def deepspeed_io(self, dataset, batch_size=None, collate_fn=None,
+                     num_local_io_workers=None):
+        """A :class:`DeepSpeedDataLoader` over ``dataset``: global batches
+        of ``batch_size`` (default: the micro-batch times the world size,
+        1) in the config seed's order, numpy until the engine moves them;
+        ``num_local_io_workers`` threads fetch each batch's samples."""
+        if batch_size is None:
+            batch_size = (self.train_micro_batch_size_per_gpu() *
+                          _world_size())
+        return DeepSpeedDataLoader(dataset, batch_size=batch_size,
+                                   collate_fn=collate_fn,
+                                   seed=self._config.seed,
+                                   num_workers=num_local_io_workers or 0)
 
-    def load_checkpoint(self, *args, **kwargs):
-        raise NotImplementedError("checkpoints are not ported yet (ROADMAP "
-                                  "A10)")
+    # ------------------------------------------------------------------
+    # fault tolerance (runtime/resilience.py)
+    # ------------------------------------------------------------------
+    def _shutdown_workers(self):
+        """Stop the training loader's fetch threads."""
+        if self.training_dataloader is not None:
+            self.training_dataloader.close()
 
-    def deepspeed_io(self, *args, **kwargs):
-        raise NotImplementedError("deepspeed_io / training_data are not "
-                                  "ported yet (ROADMAP A10)")
+    def _handle_preemption(self):
+        """Step-boundary answer to SIGTERM / SIGINT: an emergency
+        checkpoint into ``resilience.ckpt_dir`` when it is set, the
+        workers stopped, then :class:`TrainingPreempted`."""
+        rc = self._resilience
+        tag = f"emergency_step{self.global_steps}" if rc.ckpt_dir else None
+        if tag is not None:
+            try:
+                self.save_checkpoint(rc.ckpt_dir, tag=tag)
+            except Exception as exc:
+                logger.error(f"emergency checkpoint failed: {exc!r}")
+                tag = None
+        self._shutdown_workers()
+        fault_event(None, "fault/preempted", step=self.global_steps,
+                    attrs={"tag": tag, "dir": rc.ckpt_dir or None})
+        self._preempt.uninstall()
+        self._preempt.clear()
+        where = f"; emergency checkpoint {rc.ckpt_dir}/{tag}" if tag else ""
+        raise TrainingPreempted(
+            f"training preempted at step {self.global_steps}{where}")
+
+    def _handle_sentinel(self):
+        """Act on a tripped divergence sentinel: restore the last good
+        checkpoint when configured and one exists, else halt with
+        :class:`DivergenceError`."""
+        action = self._sentinel.poll()
+        if action is None:
+            return
+        if action == "restore" and self._last_good_ckpt is not None:
+            load_dir, tag = self._last_good_ckpt
+            logger.warning(
+                f"divergence ({self._sentinel.reason} at step "
+                f"{self._sentinel.trip_step}): auto-restoring {load_dir}/{tag}")
+            self.load_checkpoint(load_dir, tag=tag)
+            fault_event(None, "fault/auto_restore", step=self.global_steps,
+                        attrs={"dir": load_dir, "tag": tag,
+                               "reason": self._sentinel.reason})
+            self._sentinel.reset()
+            return
+        reason, step = self._sentinel.reason, self._sentinel.trip_step
+        self._shutdown_workers()
+        raise DivergenceError(
+            f"training diverged at step {step}: {reason} "
+            f"(no checkpoint to restore)" if action == "restore" else
+            f"training diverged at step {step}: {reason}")
+
+    # ------------------------------------------------------------------
+    # checkpoints
+    # ------------------------------------------------------------------
+    def _ckpt_state(self):
+        """The state a checkpoint holds: the named device buffers."""
+        ls = self.loss_scale_state
+        return {"master": self.master, "m": self.opt_state.m,
+                "v": self.opt_state.v, "count": self.opt_state.count,
+                "loss_scale": {"cur_scale": ls.cur_scale,
+                               "cur_hysteresis": ls.cur_hysteresis,
+                               "last_overflow_iter": ls.last_overflow_iter,
+                               "iteration": ls.iteration},
+                "skipped_steps": self.skipped_steps}
+
+    def _ckpt_layout(self):
+        """Where each parameter lies in the flat buffers (``layout.json``):
+        a checkpoint loads only into an engine with the same layout."""
+        return {"params": [[n, o, list(shape)] for n, (o, _, shape)
+                           in zip(self._names, self._spans)],
+                "numel": self.num_params,
+                "compute_dtype": str(self.compute_dtype).replace("torch.",
+                                                                 ""),
+                "zero_stage": self.zero_stage}
+
+    def save_checkpoint(self, save_dir, tag=None, client_state=None,
+                        save_latest=True):
+        """Save the training state as ``save_dir/tag`` (default tag
+        ``global_step<N>``).  With ``resilience.enabled`` (the default)
+        through the durable protocol: the payload into ``.{tag}.tmp``, the
+        manifest and commit marker, the rename, all under the retry policy
+        (fault-injection site ``ckpt_save``), then ``latest`` (site
+        ``fs``) and the keep-last retention; else in place, the legacy
+        layout."""
+        t0 = time.perf_counter()
+        eng = get_checkpoint_engine()
+        tag = tag or f"global_step{self.global_steps}"
+        client_state = dict(client_state or {})
+        client_state.update({
+            "global_steps": self.global_steps,
+            "skipped_steps": int(self.skipped_steps),
+            "micro_steps": self.micro_steps,
+            "lr_scheduler": (self.lr_scheduler.state_dict()
+                             if self._has_schedule else None),
+        })
+        state, layout = self._ckpt_state(), self._ckpt_layout()
+        rc = self._resilience
+        if not rc.enabled:
+            eng.save(state, save_dir, tag, client_state=client_state,
+                     layout=layout)
+            if save_latest:
+                with open(os.path.join(save_dir, "latest"), "w") as f:
+                    f.write(tag)
+            return True
+        txn = CheckpointTransaction(save_dir, tag)
+
+        def _attempt():
+            txn.begin()
+            staged = eng.save(state, save_dir, txn.tmp_tag,
+                              client_state=client_state, layout=layout)
+            # an async engine finishes its background write here: the
+            # commit marker never precedes the payload
+            eng.commit(txn.tmp_tag)
+            # the manifest's checksums read the host copies just written
+            return txn.commit(build_manifest(
+                unflatten(dict(staged), state), tag, self.global_steps,
+                checksum=rc.checksum))
+
+        retry_io(_attempt, self._retry_policy, op=f"ckpt_save[{tag}]",
+                 injector=self._injector, site="ckpt_save",
+                 cleanup=txn.abort)
+        t_commit = time.perf_counter()
+        self._last_good_ckpt = (save_dir, tag)
+        if save_latest:
+            retry_io(lambda: atomic_write_text(
+                os.path.join(save_dir, "latest"), tag),
+                self._retry_policy, op=f"latest[{tag}]",
+                injector=self._injector, site="fs")
+        if rc.keep_last > 0:
+            gc_tags(save_dir, rc.keep_last, protect=(tag,))
+        meta_event(None, "ckpt/committed",
+                   {"dir": os.path.abspath(save_dir), "tag": tag,
+                    "step": self.global_steps})
+        self.last_checkpoint_timing = dict(
+            eng.last_timing, committed_s=t_commit - t0,
+            returned_s=time.perf_counter() - t0)
+        return True
+
+    def _load_candidates(self, load_dir, tag):
+        """The tags to try, in order: ``[(tag, status, manifest,
+        is_fallback)]``.  An explicit ``tag`` is loaded or refused, never
+        substituted; with ``tag=None`` the ``latest`` pointer comes first,
+        then every other COMMITTED tag, newest first."""
+        if tag is not None:
+            status, manifest = validate_tag(os.path.join(load_dir, tag))
+            if status == LEGACY:
+                logger.warning(f"checkpoint {load_dir}/{tag} predates the "
+                               "durable-commit protocol; loading unvalidated")
+            elif status != COMMITTED:
+                raise CheckpointCorruptError(
+                    f"checkpoint {load_dir}/{tag} failed validation: "
+                    f"{status}")
+            return [(tag, status, manifest, False)]
+        latest_tag = _read_latest(load_dir)
+        tags = scan_tags(load_dir)
+        by_tag = {t: (s, m) for t, s, m in tags}
+        out = []
+        if latest_tag:
+            status, manifest = by_tag.get(latest_tag, (None, None))
+            if status is None:
+                status, manifest = validate_tag(
+                    os.path.join(load_dir, latest_tag))
+            if status in (COMMITTED, LEGACY):
+                out.append((latest_tag, status, manifest, False))
+            else:
+                logger.error(f"latest checkpoint {load_dir}/{latest_tag} is "
+                             f"{status}; scanning for newest valid tag")
+        for t, s_, m in tags:
+            if s_ == COMMITTED and t != latest_tag:
+                out.append((t, s_, m, True))
+        return out
+
+    def _read_tag(self, eng, load_dir, tag, keys):
+        """The host copies of tag ``tag``'s buffers (``keys`` only, when
+        given) and its client_state, after checking its layout."""
+        layout_path = os.path.join(load_dir, tag, LAYOUT_NAME)
+        with open(layout_path) as f:
+            saved = json.load(f).get("params")
+        if saved != self._ckpt_layout()["params"]:
+            raise ValueError(f"{layout_path}: the checkpoint's parameters "
+                             f"are not this model's")
+        return eng.load(self._ckpt_state(), load_dir, tag, keys=keys)
+
+    def load_checkpoint(self, load_dir, tag=None, load_optimizer_states=True,
+                        load_lr_scheduler_states=True,
+                        load_module_strict=True, load_module_only=False):
+        """Load ``load_dir/tag`` (default: ``latest``, falling back to the
+        newest committed tag when it is torn or missing).  Every buffer is
+        read and checked on the host before any is written to the card;
+        ``load_module_only`` or ``load_optimizer_states=False`` restores
+        the master weights alone (``load_module_strict`` is accepted, as in
+        the JAX engine: the names must match).  Returns ``(load_dir,
+        client_state)``, or ``(None, {})`` when there is nothing to
+        load."""
+        eng = get_checkpoint_engine()
+        rc = self._resilience
+        if not rc.enabled:
+            if tag is None:
+                tag = _read_latest(load_dir)
+                if tag is None:
+                    logger.warning(f"no 'latest' file at {load_dir}")
+                    return None, {}
+            candidates = [(tag, LEGACY, None, False)]
+        else:
+            candidates = self._load_candidates(load_dir, tag)
+            if not candidates:
+                logger.warning(f"no loadable checkpoint under {load_dir}")
+                return None, {}
+        keys = (None if load_optimizer_states and not load_module_only
+                else {"['master']"})
+        host = client_state = chosen = last_exc = None
+        for cand_tag, status, manifest, is_fallback in candidates:
+            if is_fallback:
+                fault_event(None, "fault/ckpt_fallback",
+                            attrs={"dir": os.path.abspath(load_dir),
+                                   "to": cand_tag,
+                                   "step": (manifest or {}).get(
+                                       "global_step")})
+                logger.warning(f"falling back to checkpoint {cand_tag}")
+            try:
+                def _attempt():
+                    return self._read_tag(eng, load_dir, cand_tag, keys)
+                if rc.enabled:
+                    host, client_state = retry_io(
+                        _attempt, self._retry_policy,
+                        op=f"ckpt_load[{cand_tag}]",
+                        injector=self._injector, site="ckpt_load")
+                else:
+                    host, client_state = _attempt()
+                verify_restored(host, manifest)
+                chosen = cand_tag
+                break
+            except (KeyboardInterrupt, SystemExit):
+                raise
+            except Exception as exc:
+                last_exc = exc
+                logger.error(f"loading checkpoint {load_dir}/{cand_tag} "
+                             f"failed: {exc!r}")
+        if chosen is None:
+            if last_exc is not None:
+                raise last_exc
+            logger.warning(f"no loadable checkpoint under {load_dir}")
+            return None, {}
+        flat = dict(flatten_with_keystr(host))
+        with torch.no_grad():
+            for key, dst in flatten_with_keystr(self._ckpt_state()):
+                if key in flat:
+                    dst.copy_(flat[key], non_blocking=True)
+            # the compute-dtype weights are a cast of the master
+            self._compute.copy_(self.master)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)  # the host copies are reused
+        self.global_steps = client_state.get("global_steps", 0)
+        self.micro_steps = client_state.get("micro_steps", 0)
+        if load_lr_scheduler_states and client_state.get("lr_scheduler"):
+            self.lr_scheduler.load_state_dict(client_state["lr_scheduler"])
+        if rc.enabled:
+            self._last_good_ckpt = (load_dir, chosen)
+        return load_dir, client_state
+
+
+def _read_latest(ckpt_dir):
+    latest = os.path.join(ckpt_dir, "latest")
+    if os.path.exists(latest):
+        with open(latest) as f:
+            return f.read().strip()
+    return None

@@ -42,7 +42,6 @@ REFUSED = [
     ({"autotuning": {"overlay_path": "overlay.json"}}, "A17"),
     ({"activation_checkpointing": {"partition_activations": True}}, "A6"),
     ({"memory": {"placement_policy": "nvme", "nvme_dir": "d"}}, "A12"),
-    ({"checkpoint": {"load_universal": True}}, "A10"),
     ({"mesh": {"dp": 2}}, "A8"),
     ({"mesh": {"fsdp": 4}}, "A8"),
     ({"mesh": {"tp": 2}}, "A14"),
@@ -82,6 +81,42 @@ ACCEPTED_OFF = [
                          ids=[next(iter(b)) for b in ACCEPTED_OFF])
 def test_switched_off_block_passes(block):
     DeepSpeedConfig({**BASE, **block})
+
+
+# blocks once refused that the engine now runs, or that the JAX engine
+# parses and never reads (checkpoint.load_universal)
+PORTED = {
+    "load_universal": {"checkpoint": {"load_universal": True}},
+    "checkpoint_engine": {"checkpoint": {"engine": "nebula"}},
+    "resilience": {"resilience": {
+        "preemption_handler": True, "ckpt_dir": "ckpt",
+        "divergence_sentinel": True, "on_divergence": "restore",
+        "keep_last": 2, "checksum": True,
+        "fault_injection": {"ckpt_save": {"fail_times": 1}}}},
+}
+
+
+@pytest.mark.parametrize("name", list(PORTED))
+def test_ported_block_passes_as_in_jax(name):
+    block = PORTED[name]
+    cfg = DeepSpeedConfig({**BASE, **block})
+    want = JaxConfig({**BASE, **block})
+    for attr in ("checkpoint_config", "resilience_config"):
+        assert getattr(cfg, attr).to_dict() == \
+            getattr(want, attr).to_dict(), attr
+
+
+@pytest.mark.parametrize("block", [
+    {"resilience": {"max_retries": -1}}, {"resilience": {"keep_last": -1}},
+    {"resilience": {"on_divergence": "rewind"}},
+    {"resilience": {"sentinel_interval": 0}},
+    {"resilience": {"dataloader_max_retries": -1}},
+    {"checkpoint": {"engine": "tensorstore"}}])
+def test_bad_resilience_and_checkpoint_values_raise_as_in_jax(block):
+    with pytest.raises(ValueError):
+        JaxConfig({**BASE, **block})
+    with pytest.raises(ValueError):
+        DeepSpeedConfig({**BASE, **block})
 
 
 class _Records(logging.Handler):

@@ -137,9 +137,9 @@ def test_create_serving_engine_and_config(tiny):
         se.add_request("big", list(range(30)), max_new_tokens=8)
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(tp_size=2),
-    dict(serving={"fault_injection": {"serve_step": {"fail_at": [1]}}})])
+# (serving.fault_injection specs build the engine's injector now:
+# tests/test_torch_resilience.py)
+@pytest.mark.parametrize("kwargs", [dict(tp_size=2), dict(ep_size=2)])
 def test_unported_serving_features_raise(tiny, kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServingEngine(tiny[4], max_batch=1, page_size=8, max_seq=32,

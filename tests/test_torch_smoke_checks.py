@@ -16,6 +16,10 @@ here on the CPU where they need no card.
   B4 launch counts expected from the dispatch shapes of chunked,
   speculative and ``decode_chunk`` runs, held here against a tiny engine
   whose plain paged attention counts its calls.
+* Phase ckpt's helpers: the launch count of the resumed run (phase 7's
+  formula for its train_batch calls, held here against a counted CPU run
+  through the plain versions), the disk-space reckoning (it fails up front
+  when the disk is short), and the bitwise / witness rule.
 """
 
 import math
@@ -409,3 +413,67 @@ def test_expected_b4_launches_match_a_counted_run(kind):
     if kind == "speculative":
         assert draft == st["draft_calls"] > 0
     assert chip_smoke.prefill_chunks([17, 8, 1], 8, cached=[8, 0, 0]) == 4
+
+
+# ------------------------------------------------------------ phase ckpt
+def test_resume_launches_are_phase_7s_formula_for_a_counted_run():
+    """The plain versions count one call per kernel launch: a 2-step run
+    of a 3-layer model from ``initialize(training_data=...)`` and
+    ``train_batch(data_iter=...)`` calls them as the formula says."""
+    import dataclasses
+    from deepspeed_tpu_torch.benchmarks.training import model_config
+    from deepspeed_tpu_torch.ops import adam, flash_attention
+    cfg = model_config(dict(hidden_size=64, n_layers=3, n_heads=4), 16,
+                       vocab_size=256)
+    engine, loader = chip_smoke.ckpt_engine(
+        cfg, 0, {}, device="cpu", training_data=chip_smoke.ckpt_dataset(cfg))
+    it = iter(chip_smoke.skipped_iter(engine, chip_smoke.ckpt_dataset(cfg),
+                                      chip_smoke.TRAIN_GAS))
+    flash_attention.flash_attention_fwd_plain.calls = 0
+    flash_attention.flash_attention_bwd_plain.calls = 0
+    adam.reference_impl.calls = 0
+    run = chip_smoke.ckpt_steps(engine, it)
+    want = chip_smoke.ckpt_resume_launches(cfg)
+    assert flash_attention.flash_attention_fwd_plain.calls == \
+        want["flash_attention_fwd"] == 2 * 3 * chip_smoke.TRAIN_GAS * 2
+    # one plain backward computes dQ, dK and dV together
+    assert flash_attention.flash_attention_bwd_plain.calls == \
+        want["flash_attention_bwd_dq"] == want["flash_attention_bwd_dkv"]
+    assert adam.reference_impl.calls == want["fused_adam"] == 2
+    assert not any(v for k, v in want.items() if "biased" in k or k in (
+        "decode_attention", "ragged_paged_attention", "sparse_attention"))
+    assert len(run["losses"]) == len(run["norms"]) == chip_smoke.CKPT_STEPS
+    # the child rebuilds this config from its spec file
+    spec = {"cfg": dataclasses.asdict(cfg)}
+    assert chip_smoke._spec_cfg(spec) == cfg
+
+
+def test_disk_reckoning_fails_when_short(capsys):
+    n, n_small = 1_011_165_184, 205_000_000
+    need = chip_smoke.ckpt_disk_need(n, n_small)
+    # the sync and async tags (12 B / param each) and the universal dir
+    assert need == int(1.1 * 28 * n)
+    assert chip_smoke.ckpt_disk_need(1000, 10_000) == int(1.1 * 60 * 10_000)
+    chip_smoke.check_disk(need, need, "/x")
+    with pytest.raises(SystemExit):
+        chip_smoke.check_disk(need - 1, need, "/x")
+    assert "needs 31.1 GB free under /x" in capsys.readouterr().out
+
+
+def test_resume_verdict_bitwise_or_within_the_witness_gap():
+    ref = {"losses": [10.5, 10.25], "norms": [0.8, 0.7],
+           "crc": {"master": 1, "m": 2, "v": 3}}
+    same = {k: (dict(v) if isinstance(v, dict) else list(v))
+            for k, v in ref.items()}
+    assert chip_smoke.resume_verdict(ref, same, None) == (True, "bitwise")
+    # bitwise witness: any difference fails, a crc as much as a loss
+    off_crc = dict(same, crc={"master": 1, "m": 2, "v": 4})
+    assert not chip_smoke.resume_verdict(ref, off_crc, None)[0]
+    off_loss = dict(same, losses=[10.5, np.nextafter(10.25, 11)])
+    assert not chip_smoke.resume_verdict(ref, off_loss, None)[0]
+    # a witness that did not repeat: held to WITNESS_FACTOR x its gap
+    gap = 1e-3
+    near = dict(off_crc, losses=[10.5 * (1 + 1.5 * gap), 10.25])
+    far = dict(off_crc, losses=[10.5 * (1 + 2.5 * gap), 10.25])
+    assert chip_smoke.resume_verdict(ref, near, gap)[0]
+    assert not chip_smoke.resume_verdict(ref, far, gap)[0]

@@ -1,7 +1,8 @@
 """The port stands alone and never carries on on the CPU by accident.
 
-* ``deepspeed_tpu_torch`` (every module of it) and ``chip_smoke.py``
-  import with ``jax`` blocked, and load no ``deepspeed_tpu`` module;
+* ``deepspeed_tpu_torch`` (every module of it, the checkpoint tools and
+  the fault-tolerance layer among them) and ``chip_smoke.py`` import with
+  ``jax`` and ``orbax`` blocked, and load no ``deepspeed_tpu`` module;
 * with no card, entry points called without ``device`` raise
   (``init_inference``, ``initialize``, the model);
 * the kernel wrappers and the ``"cuda"`` backend refuse CPU tensors.
@@ -40,6 +41,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any "import jax" now raises
+sys.modules["orbax"] = None        # the JAX checkpoint library too
 import deepspeed_tpu_torch
 for mod in pkgutil.walk_packages(deepspeed_tpu_torch.__path__,
                                  "deepspeed_tpu_torch."):

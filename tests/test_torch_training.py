@@ -304,6 +304,9 @@ def test_unported_blocks_raise(block, item, client):
 
 
 def test_unported_engine_methods_raise():
+    """What the engine still cannot run raises: ``train_batch()`` with no
+    batch, iterator or ``training_data`` (the JAX engine asserts), and the
+    client-state broadcast over ranks (ROADMAP A8)."""
     eng, *_ = deepspeed_tpu_torch.initialize(
         model=CausalTransformerLM(TransformerConfig.tiny(),
                                   device="cpu").init(0),
@@ -311,12 +314,11 @@ def test_unported_engine_methods_raise():
     assert (eng.train_batch_size(), eng.train_micro_batch_size_per_gpu(),
             eng.gradient_accumulation_steps()) == (2, 2, 1)
     assert eng.get_lr() == [1e-3]
-    for call, item in ((eng.deepspeed_io, "A10"), (eng.save_checkpoint,
-                                                   "A10"),
-                       (eng.load_checkpoint, "A10"), (eng.train_batch,
-                                                      "A10")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            call()
+    with pytest.raises(ValueError, match="training_data"):
+        eng.train_batch()
+    from deepspeed_tpu_torch.runtime import checkpoint_engine
+    cs = {"global_steps": 3}
+    assert checkpoint_engine.broadcast_client_state(cs) is cs
 
 
 def test_benchmark_builds_the_jax_benchmark_shapes():
