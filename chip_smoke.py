@@ -31,18 +31,22 @@ kernels.  Phases:
              layers) and 100 (S=1000), ALiBi + window with GQA, a window
              past S (bf16 O, dQ, dK, dV of the tensor-core kernels: one
              ulp, or within 2x SDPA's error on the same inputs, both
-             readings printed); decode attention where its key chunks
-             meet a sequence's length; ragged paged attention's decode
-             rows, bucketed prefills at 16, 512 and 1024, prefills after
-             cached prefixes, pages 64 and 48, packed mixed batches with
-             shared prefix pages, a 256-token chunk at start 512, the
-             speculative verify window [8, 5], GQA 32/4 (group 8) at head
-             dims 128 and 64 (TinyLlama-1.1B); the block-sparse kernel for
-             layout
+             readings printed); decode attention at head dims 128 and 64
+             (TinyLlama-1.1B's 32/4 heads: T=1, 5, 128), where its key
+             chunks meet a sequence's length at 1, 4 and 8 rows a kv
+             head; ragged paged attention's decode rows (1-8 rows a kv
+             head, one ulp), bucketed prefills at 16, 512 and 1024,
+             prefills after cached prefixes, pages 64 and 48, packed mixed
+             batches with shared prefix pages (with 5-8-row and group-8
+             decodes), a 256-token chunk at start 512, the speculative
+             verify window [8, 5], GQA 32/4 (group 8) at head dims 128
+             and 64; the block-sparse kernel for layout
              blocks 16-128, head dims 64 and 128, causal, bidirectional
              and empty rows (bf16 B4 prefill and B6 outputs, which round P
              to bf16 in the product, under the same SDPA witness)
-  4 generate init_inference(llama2_7b).generate, B=4, prompt 128, 32 new
+  4 generate init_inference(llama2_7b).generate, B=4, prompt 128, 32 new;
+             then a TinyLlama-1.1B-shaped model (22 layers, head dim 64,
+             group 8) the same way, through B5 at head dim 64
   5 serve    create_serving_engine(max_batch=8, page_size=128,
              max_seq=2048).generate on 12 mixed-length prompts
     serve-features  bf16, full depth: (a) the prefix cache on 12 prompts
@@ -55,7 +59,8 @@ kernels.  Phases:
              then phases 4 and 5 in fp16 (tokens vs bf16 by the same rule)
   6 e2e      full width, 2 layers: paged prefill + decode, kernels vs plain;
              (a)-(d) in fp32, tokens identical to the monolithic run (the
-             draft also as the target's own weights)
+             draft also as the target's own weights); the TinyLlama-shaped
+             generate in fp32, tokens identical to the plain versions'
   7 train    run_benchmark for gpt_1b (seq 1024), bloom_1b7 (ALiBi) and
              gpt_neo_1_3b (global / local window 256), seq 2048, micro 2,
              gas 4, bf16, AdamW; exact launches counted; a fixed batch's
@@ -99,8 +104,9 @@ kernels.  Phases:
              decode kernel also at Llama-2's whole context (len 4096), the
              ragged kernel's prefill tiles at the serve run's buckets 512
              and 1024 (beside B1's forward on the same work), B5 and B4 in
-             fp16, the verify window, the TinyLlama decode step, the chunk
-             at an offset; fused
+             fp16, the verify window, the TinyLlama decode step, B5 at
+             head dim 64, the chunk at an offset at head dims 128 and 64,
+             Llama-2-70B's group-8 decode step (B4, B5; off the paths); fused
              Adam held against its plain version over gpt_1b's 1.01 B
              parameters; the window-256 forward must take well under the
              ALiBi forward's time
@@ -378,17 +384,56 @@ def phase_device():
     return card
 
 
+def ptxas_usage(log):
+    """{kernel (demangled where c++filt is there): (registers, spill store
+    bytes, spill load bytes)} from an ``nvcc -Xptxas -v`` log."""
+    import re
+    import shutil
+    usage, name, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spills = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            usage[name] = (int(m.group(1)),) + spills
+            name = None
+    tool = shutil.which("c++filt")
+    if tool and usage:
+        out = subprocess.run([tool], input="\n".join(usage),
+                             capture_output=True, text=True, timeout=60)
+        names = out.stdout.splitlines()
+        if out.returncode == 0 and len(names) == len(usage):
+            usage = dict(zip(names, usage.values()))
+    return usage
+
+
 def phase_build():
+    """Builds every kernel source; prints each kernel's registers and
+    spills (ptxas), and fails if an instantiation of the split-key decode
+    body (split_kernel, split_tc_kernel, combine_kernel) spills."""
     from deepspeed_tpu_torch.ops import op_builder
     t0 = time.time()
     logs = op_builder.build()
     dt = time.time() - t0
     phase("build", f"nvcc sm_90a, {len(logs)} kernel sources built in "
           f"{dt:.1f} s")
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                phase("build", f"{name}: {line.strip()}")
+    spilled = []
+    for source, log in logs.items():
+        for kernel, (regs, st, ld) in ptxas_usage(log).items():
+            phase("build", f"{source}: {kernel[:150]}: {regs} registers, "
+                  f"spill stores {st} B, loads {ld} B")
+            if (st or ld) and any(x in kernel for x in (
+                    "split_kernel", "split_tc_kernel", "combine_kernel")):
+                spilled.append(kernel)
+    if spilled:
+        fail(f"split-key decode instantiations spill: {spilled[:4]}")
     return dt
 
 
@@ -535,8 +580,8 @@ def phase_kernels():
     edge cases; returns max abs err per kernel and dtype."""
     import torch
     from deepspeed_tpu_torch.ops.cuda.decode_attention import (
-        DECODE_ROWS, decode_attention_cuda, decode_attention_plain,
-        decode_plan)
+        DECODE_MIN_CHUNK, DECODE_ROWS, decode_attention_cuda,
+        decode_attention_plain, decode_plan, min_chunk)
     from deepspeed_tpu_torch.ops.cuda.ragged_paged_attention import (
         paged_attention_plain, ragged_paged_attention,
         ragged_paged_attention_rect, tensor_core_prefill)
@@ -556,45 +601,97 @@ def phase_kernels():
         return tensor_core_prefill(dtype, D, group, pg) and \
             any(ql * group > DECODE_ROWS for ql in q_lens)
 
+    def check_b4(name, got, exact, sdpa, tc):
+        """A B4 output: the tensor-core prefill tiles' (P rounded inside
+        the product) by check_output's SDPA rule; every other form -- the
+        decode rows, whose P enters the product as two terms, and the
+        CUDA-core tiles -- by the one-ulp rule."""
+        if tc:
+            return check_output(name, got, exact, sdpa, True)
+        return check_close(name, got, exact.to(got.dtype))
+
+    def packed_b4(label, q_lens, ctx, Hkv, Dh):
+        """B4's packed front-end on one mixed batch, prefix pages shared
+        by the sequences past two pages."""
+        tb, kk, vv = _paged_state(ctx, page, Hkv, Dh, dtype, gen,
+                                  shared_pages=2)
+        if not (tb[1, 0] == tb[2, 0] and tb[1, 1] == tb[2, 1]):
+            fail("packed case: prefix pages are not shared")
+        qp = _rand((sum(q_lens), H, Dh), dtype, gen)
+        got = ragged_paged_attention(qp, kk, vv, tb, ctx, q_lens)
+        seqs, off = [], 0
+        for s, ql in enumerate(q_lens):
+            seqs.append((qp[off:off + ql][None], tb[s:s + 1], i32([ctx[s]])))
+            off += ql
+        kf, vf = kk.float(), vv.float()
+        exact = torch.cat([paged_attention_plain(x.float(), kf, vf, t, c)[0]
+                           for x, t, c in seqs])
+        note("ragged_paged_attention", dn, check_b4(
+            f"ragged_paged_attention {dn} {label} D={Dh} packed mixed "
+            f"q_lens {q_lens}", got, exact,
+            lambda: torch.cat([paged_sdpa(x, kk, vv, t, c)[0]
+                               for x, t, c in seqs]),
+            tiles(dtype, Dh, H // Hkv, page, q_lens)))
+
+    def check_b5(label, B, T, Hkv, S, lens, Dh=D):
+        q = _rand((B, T, H, Dh), dtype, gen)
+        k = _rand((B, Hkv, S, Dh), dtype, gen)
+        v = _rand((B, Hkv, S, Dh), dtype, gen)
+        got = decode_attention_cuda(q, k, v, lens)
+        want = reference(decode_attention_plain, q, k, v, lens)
+        n, c = decode_plan(B, T, H, Hkv, S, Dh, dtype, "cuda")
+        how = f"length {lens}" if isinstance(lens, int) else \
+            f"lengths {lens.tolist()}"
+        form = "decode" if T * H // Hkv <= DECODE_ROWS else "prefill"
+        note("decode_attention", dn, check_close(
+            f"decode_attention {dn} H{H}/{Hkv} D={Dh} {label} B={B} T={T} "
+            f"S_max={S} {how} ({form} form, {n} x {c} keys)", got, want))
+
+    def edge_cache(rows):
+        """S_max at which the decode form splits: 2048, or 8192 where the
+        tensor-core body's longer chunks need it."""
+        return 2048 if min_chunk(rows, dtype) == DECODE_MIN_CHUNK else 8192
+
+    def chunk_edges(B, T, Hkv, Dh, S):
+        """Lengths where the decode form's key chunks meet a sequence's
+        end, at the wrapper's own plan for S_max S: T, around one, two
+        and n chunks of c keys (the mask kpos <= len - T + t across the
+        edge when T > 1), S - 1; fails if the plan takes one chunk (the
+        cases would check nothing)."""
+        n, c = decode_plan(B, T, H, Hkv, S, Dh, dtype, "cuda")
+        if T * H // Hkv > DECODE_ROWS:         # the prefill form
+            n, c = 1, DECODE_MIN_CHUNK
+        elif n == 1:
+            fail(f"decode_attention B={B} T={T} H{H}/{Hkv} D={Dh}: the "
+                 f"chunk-edge cases take one chunk; they check nothing")
+        edges = [x for x in (T, c - 1, c, c + 1, c + 3, 2 * c - 1, 2 * c,
+                             2 * c + 1, n * c - 1, n * c + 1, S - 1)
+                 if T <= x <= S]
+        edges += [S - 1] * (-len(edges) % B)
+        return [i32(edges[i:i + B]) for i in range(0, len(edges), B)]
+
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         dn = str(dtype).split(".")[-1]
         for Hkv in (32, 8):
             # B5: ragged lengths over S_max 2048, and generate's own calls
             # (B=4, cache 128 + 32, one int length for every sequence):
             # its prefill (T=128, length 128) and a decode (length 144)
-            b5 = [(4, T, 2048, i32([T + 5, 700, 1500, 2048]))
-                  for T in (1, 128)] + [(4, 128, 160, 128), (4, 1, 160, 144)]
+            for T in (1, 128):
+                check_b5("ragged", 4, T, Hkv, 2048, i32([T + 5, 700, 1500,
+                                                          2048]))
+            check_b5("generate prefill", 4, 128, Hkv, 160, 128)
+            check_b5("generate decode", 4, 1, Hkv, 160, 144)
             # then lengths where the decode form's key chunks meet a
-            # sequence's end, at the wrapper's own plan for S_max 2048 --
-            # one sequence for MHA, four (a ragged batch) for GQA, so that
-            # the keys are split: T, chunk - 1, chunk, chunk + 1, chunk + 3
-            # (T=4: the mask kpos <= len - T + t across the edge), two
-            # chunks + 1, S_max - 1; and one int length over S_max 1536
+            # sequence's end -- one sequence for MHA, four (a ragged
+            # batch) for GQA, so that the keys are split: T=1, T=4 (4 rows
+            # at MHA), and 8 rows (T=8 at MHA, T=2 at group 4, the
+            # tensor-core form); and one int length over S_max 1536
             Be = 1 if Hkv == H else 4
-            for T in (1, 4):
-                n, c = decode_plan(Be, T, H, Hkv, 2048, dtype, "cuda")
-                if T * H // Hkv <= DECODE_ROWS and n == 1:
-                    fail(f"decode_attention B={Be} T={T} H{H}/{Hkv}: the "
-                         f"chunk-edge cases take one chunk; they check "
-                         f"nothing")
-                edges = [x for x in (T, c - 1, c, c + 1, c + 3, 2 * c + 1,
-                                     2047) if T <= x <= 2048]
-                edges += [2047] * (-len(edges) % Be)
-                b5 += [(Be, T, 2048, i32(edges[i:i + Be]))
-                       for i in range(0, len(edges), Be)]
-            b5.append((Be, 1, 1536, 1529))
-            for B, T, S, lens in b5:
-                q = _rand((B, T, H, D), dtype, gen)
-                k = _rand((B, Hkv, S, D), dtype, gen)
-                v = _rand((B, Hkv, S, D), dtype, gen)
-                got = decode_attention_cuda(q, k, v, lens)
-                want = reference(decode_attention_plain, q, k, v, lens)
-                n, c = decode_plan(B, T, H, Hkv, S, dtype, "cuda")
-                how = f"length {lens}" if isinstance(lens, int) else \
-                    f"lengths {lens.tolist()}"
-                note("decode_attention", dn, check_close(
-                    f"decode_attention {dn} H{H}/{Hkv} B={B} T={T} "
-                    f"S_max={S} {how} ({n} x {c} keys)", got, want))
+            for T in (1, 4, 8 * Hkv // H):
+                S = edge_cache(T * H // Hkv)
+                for lens in chunk_edges(Be, T, Hkv, D, S):
+                    check_b5("chunk edges", Be, T, Hkv, S, lens)
+            check_b5("int length", Be, 1, Hkv, 1536, 1529)
             # B4 rect front-end: decode rows (the split-key form), then
             # prefill tiles (bf16: the tensor-core form at pages 128 and
             # 64; page 48 keeps the CUDA-core tiles)
@@ -644,42 +741,27 @@ def phase_kernels():
                 got = ragged_paged_attention_rect(qq, kk, vv, tb, lens)
                 exact = paged_attention_plain(qq.float(), kk.float(),
                                               vv.float(), tb, lens)
-                note("ragged_paged_attention", dn, check_output(
+                note("ragged_paged_attention", dn, check_b4(
                     f"ragged_paged_attention {dn} H{H}/{Hkv} {label}", got,
                     exact, lambda: paged_sdpa(qq, kk, vv, tb, lens),
                     tiles(dtype, D, H // Hkv, kk.shape[2], [T])))
             # B4 packed front-end, mixed batches in one call: prefills,
             # decodes sharing prefix pages, partial pages; then decode rows
             # of 1-4 tokens (MHA: one decode launch of 4-row blocks) beside
-            # a prefill
-            packed = [([37, 1, 1, 128, 9, 1], [37, 300, 1000, 400, 521, 257])]
+            # a prefill, and of 5-8 tokens (MHA: 5-8 rows a kv head, one
+            # launch of the tensor-core body at 8 rows) beside a prefill
+            packed_b4(f"H{H}/{Hkv}", [37, 1, 1, 128, 9, 1],
+                      [37, 300, 1000, 400, 521, 257], Hkv, D)
             if Hkv == H:
-                packed.append(([3, 1, 4, 2, 200], [3, 640, 300, 1001, 329]))
-            for q_lens, ctx in packed:
-                tb, kk, vv = _paged_state(ctx, page, Hkv, D, dtype, gen,
-                                          shared_pages=2)
-                if not (tb[1, 0] == tb[2, 0] and tb[1, 1] == tb[2, 1]):
-                    fail("packed case: prefix pages are not shared")
-                qp = _rand((sum(q_lens), H, D), dtype, gen)
-                got = ragged_paged_attention(qp, kk, vv, tb, ctx, q_lens)
-                seqs, off = [], 0
-                for s, ql in enumerate(q_lens):
-                    seqs.append((qp[off:off + ql][None], tb[s:s + 1],
-                                 i32([ctx[s]])))
-                    off += ql
-                kf, vf = kk.float(), vv.float()
-                exact = torch.cat([paged_attention_plain(
-                    x.float(), kf, vf, t, c)[0] for x, t, c in seqs])
-                note("ragged_paged_attention", dn, check_output(
-                    f"ragged_paged_attention {dn} H{H}/{Hkv} packed mixed "
-                    f"q_lens {q_lens}", got, exact,
-                    lambda: torch.cat([paged_sdpa(x, kk, vv, t, c)[0]
-                                       for x, t, c in seqs]),
-                    tiles(dtype, D, H // Hkv, page, q_lens)))
-        # GQA 32/4 (group 8): Llama-2's width at head dim 128 (its decode
-        # rows exceed DECODE_ROWS and take prefill tiles), then the
-        # TinyLlama-1.1B draft's shape, head dim 64 (CUDA-core tiles
-        # only): its decode step and a 256-token chunk at start 512
+                packed_b4(f"H{H}/{Hkv}", [3, 1, 4, 2, 200],
+                          [3, 640, 300, 1001, 329], Hkv, D)
+                packed_b4(f"H{H}/{Hkv}", [5, 8, 6, 200, 7, 1],
+                          [5, 640, 300, 1001, 329, 2047], Hkv, D)
+        # GQA 32/4 (group 8): Llama-2's width at head dim 128, then the
+        # TinyLlama-1.1B draft's shape, head dim 64: the decode step (8
+        # rows a kv head: the decode form's tensor-core body in bf16 and
+        # fp16) and a 256-token chunk at start 512 (prefill tiles), then a
+        # packed batch of group-8 decodes beside a prefill
         needs = [p + SERVE_NEW for p in SERVE_PROMPTS[:8]]
         for Dg in (128, 64):
             for label, T, st, ctx in (
@@ -693,10 +775,25 @@ def phase_kernels():
                 got = ragged_paged_attention_rect(qq, kk, vv, tb, lens)
                 exact = paged_attention_plain(qq.float(), kk.float(),
                                               vv.float(), tb, lens)
-                note("ragged_paged_attention", dn, check_output(
+                note("ragged_paged_attention", dn, check_b4(
                     f"ragged_paged_attention {dn} H{H}/4 D={Dg} {label}",
                     got, exact, lambda: paged_sdpa(qq, kk, vv, tb, lens),
                     tiles(dtype, Dg, H // 4, kk.shape[2], [T])))
+            packed_b4(f"H{H}/4 D={Dg}", [1, 1, 37, 1, 1],
+                      [300, 1000, 400, 17, 2047], 4, Dg)
+        # B5 at head dim 64, TinyLlama-1.1B's 32/4 heads (group 8): T=1 (8
+        # rows, the decode form), T=5 and T=128 (the prefill form) over
+        # ragged lengths, generate's own calls and key-chunk edges at 8
+        # rows; and group 8 at head dim 128
+        for T in (1, 5, 128):
+            check_b5("ragged", 4, T, 4, 2048, i32([T + 5, 700, 1500, 2048]),
+                     Dh=64)
+        check_b5("generate prefill", 4, 128, 4, 160, 128, Dh=64)
+        check_b5("generate decode", 4, 1, 4, 160, 144, Dh=64)
+        for Dg in (64, 128):
+            S = edge_cache(8)
+            for lens in chunk_edges(4, 1, 4, Dg, S):
+                check_b5("chunk edges", 4, 1, 4, S, lens, Dh=Dg)
     return errs
 
 
@@ -1167,6 +1264,47 @@ def phase_generate(model, cfg, B=4, S=128, new=32, dtype="bf16"):
     return eng, ids, dt, out
 
 
+def phase_generate_vs_plain(model, B=4, S=128, new=32):
+    """Greedy tokens of ``init_inference(model).generate`` (the kernels)
+    against the same loop through the plain versions
+    (``apply_with_cache(..., attn_backend="plain")``); fails unless they
+    are identical and each path ran only its own attention.  Returns
+    (identical rows, B5 launches)."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch as dst
+    cfg = model.config
+    ids = np.random.default_rng(4).integers(0, cfg.vocab_size, (B, S))
+    reset_counters()
+    got = dst.init_inference(model, dtype="fp32").generate(ids, new)
+    k_counts = read_counters()
+    reset_counters()
+    with torch.no_grad():
+        x = torch.as_tensor(ids, device="cuda")
+        caches = model.init_caches(B, S + new, torch.float32)
+        toks = []
+        for _ in range(new):
+            logits, caches = model.apply_with_cache(x, caches,
+                                                    attn_backend="plain")
+            x = logits[:, -1].argmax(-1)[:, None]
+            toks.append(x)
+        want = torch.cat([torch.as_tensor(ids, device="cuda")] + toks, 1)
+    p_counts = read_counters()
+    calls = cfg.n_layers * new
+    if k_counts["decode_attention"] != calls or plain_calls(k_counts):
+        fail(f"generate (kernels) launches {k_counts}, expected "
+             f"decode_attention {calls} and no plain version")
+    if p_counts["decode_attention_plain"] != calls or \
+            p_counts["decode_attention"]:
+        fail(f"generate (plain) counts {p_counts}, expected "
+             f"decode_attention_plain {calls} and no kernel")
+    same = int((got == want).all(-1).sum())
+    if same != B:
+        fail(f"generate through the kernels differs from the plain "
+             f"versions in {B - same} of {B} rows (fp32)")
+    return same, calls
+
+
 def phase_serve(eng, cfg):
     import numpy as np
     import torch
@@ -1439,14 +1577,13 @@ def phase_timing(cfg, serve_prompts):
     return res
 
 
-def _time_decode(name, dtype, B, S, L, copies, gen):
+def _time_decode(name, dtype, B, S, L, copies, gen, H=32, Hkv=32, D=128):
     """B5 at [B, T=1], one int length L over S_max S: kernel, plain and
     SDPA device times, bound and error (a phase_timing row)."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.cuda.decode_attention import (
         decode_attention_cuda, decode_attention_plain)
-    H, Hkv, D = 32, 32, 128
     dn = str(dtype).split(".")[-1]
     q = _rand((copies, B, 1, H, D), dtype, gen)
     k = _rand((copies, B, Hkv, S, D), dtype, gen)
@@ -1462,7 +1599,7 @@ def _time_decode(name, dtype, B, S, L, copies, gen):
             q[i % copies], k[i % copies], v[i % copies], L),
         "library_ms": lambda i: F.scaled_dot_product_attention(
             qs[i % copies], k[i % copies][:, :, :L],
-            v[i % copies][:, :, :L])}, copies)
+            v[i % copies][:, :, :L], enable_gqa=Hkv != H)}, copies)
     nbytes = B * (2 * Hkv * L * D + 2 * H * D) * q.element_size()
     bound_ms, bound_by = _bound(nbytes, B * 4 * H * D * L, dn)
     return dict(max_abs_err=err, **times, bound_ms=bound_ms,
@@ -1493,9 +1630,10 @@ def _time_paged(name, dtype, needs, ctx, T, Hkv, D, copies, gen, H=32):
                                   lens)
     tc = tensor_core_prefill(dtype, D, group, SERVE_PAGE) and \
         T * group > DECODE_ROWS
-    err = check_output(f"timing {name}",
-                       ragged_paged_attention_rect(q[0], kp, vp, tb, lens),
-                       exact, lambda: paged_sdpa(q[0], kp, vp, tb, lens), tc)
+    got = ragged_paged_attention_rect(q[0], kp, vp, tb, lens)
+    err = check_output(f"timing {name}", got, exact,
+                       lambda: paged_sdpa(q[0], kp, vp, tb, lens), tc) \
+        if tc else check_close(f"timing {name}", got, exact.to(dtype))
     del exact
     Smax = tb.shape[1] * SERVE_PAGE
     dense = []
@@ -1527,17 +1665,22 @@ def _time_paged(name, dtype, needs, ctx, T, Hkv, D, copies, gen, H=32):
 
 
 def phase_timing_serving():
-    """This slice's forms at the shapes their main paths give them: B5 and
-    B4 in fp16 (generate's decode step, the serve run's decode step and
-    its 512 / 1024 prefills), and, in bf16, the speculative verify window
-    [8, 5] (prefill tiles at group 1), the TinyLlama draft's decode step
-    (group 8, head dim 64: CUDA-core tiles) and a 256-token chunk at start
-    512."""
+    """This slice's forms and PR 8's at the shapes their main paths give
+    them: B5 and B4 in fp16 (generate's decode step, the serve run's
+    decode step and its 512 / 1024 prefills), and, in bf16, the
+    speculative verify window [8, 5] and the TinyLlama draft's decode step
+    (group 8, head dim 64: both decode rows), B5 at head dim 64 (the
+    TinyLlama-shaped generate's decode step), a 256-token chunk at start
+    512 at head dims 128 and 64, and, off the main paths, Llama-2-70B's
+    attention shape (64 / 8 heads of 128: group 8) in B4's 8-slot decode
+    step and B5's generate step."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(98)
     fp16, bf16 = torch.float16, torch.bfloat16
     prompts = SERVE_PROMPTS[:SERVE_SLOTS]
     needs = [p + SERVE_NEW for p in prompts]
+    d_kv = DRAFT_SHAPE["n_kv_heads"]
+    d_dim = DRAFT_SHAPE["hidden_size"] // DRAFT_SHAPE["n_heads"]
     rows = {"decode_attention_fp16": _time_decode(
         "decode_attention fp16", fp16, 4, 160, 144, 12, gen)}
     rows["ragged_paged_attention_fp16"] = _time_paged(
@@ -1555,11 +1698,25 @@ def phase_timing_serving():
         [p + 9 for p in prompts], SPEC_GAMMA + 1, 32, 128, 4, gen)
     rows["ragged_paged_attention_draft_gqa8"] = _time_paged(
         "ragged_paged_attention TinyLlama decode step (group 8, D=64)", bf16,
-        needs, [p + 16 for p in prompts], 1, DRAFT_SHAPE["n_kv_heads"],
-        DRAFT_SHAPE["hidden_size"] // DRAFT_SHAPE["n_heads"], 4, gen)
+        needs, [p + 16 for p in prompts], 1, d_kv, d_dim, 4, gen)
+    rows["decode_attention_d64"] = _time_decode(
+        "decode_attention TinyLlama generate step (group 8, D=64)", bf16, 4,
+        160, 144, 12, gen, Hkv=d_kv, D=d_dim)
     rows["ragged_paged_attention_chunk_at_offset"] = _time_paged(
         "ragged_paged_attention chunk T=256 at start 512", bf16,
         [1024 + SERVE_NEW], [768], CHUNK_TOKENS, 32, 128, 4, gen)
+    rows["ragged_paged_attention_draft_chunk_at_offset"] = _time_paged(
+        "ragged_paged_attention TinyLlama chunk T=256 at start 512 (D=64)",
+        bf16, [1024 + SERVE_NEW], [768], CHUNK_TOKENS, d_kv, d_dim, 4, gen)
+    _free()
+    # off the main paths: Llama-2-70B's 64 / 8 heads of 128
+    rows["ragged_paged_attention_gqa8_d128"] = _time_paged(
+        "ragged_paged_attention Llama-2-70B-shaped decode step (group 8, "
+        "D=128)", bf16, needs, [p + 16 for p in prompts], 1, 8, 128, 4, gen,
+        H=64)
+    rows["decode_attention_gqa8_d128"] = _time_decode(
+        "decode_attention Llama-2-70B-shaped generate step (group 8, "
+        "D=128)", bf16, 4, 160, 144, 12, gen, H=64, Hkv=8)
     _free()
     for name, r in rows.items():
         phase("timing", f"{name} [{r['shape']}]: device ms (graph replay) "
@@ -1970,8 +2127,8 @@ def phase_serve_features(model, cfg, draft, dtype, exact, label):
         res[f"spec_{name}"] = dict(
             verify_launches=L * st["spec_windows"],
             draft_decode_launches=Ld * (SPEC_GAMMA + 1) *
-            st["spec_windows"], acceptance=snap["spec_acceptance_rate"],
-            dt=dt)
+            st["spec_windows"], draft_chunk_launches=Ld * offset,
+            acceptance=snap["spec_acceptance_rate"], dt=dt)
 
     # (d) decode_chunk: greedy, then sampled (temperature 0.8, top-p 0.9)
     # twice, the second time with the requests added in reverse order
@@ -3455,11 +3612,27 @@ def main():
     for name, k_ms in top:
         phase("serve", f"  device ms/step {k_ms:.4f}  {name[:90]}")
 
-    # ---- serve-features: each run counted on its own (serve_run) ------
+    # ---- a TinyLlama-1.1B-shaped generate: B5 at head dim 64, group 8 --
     from deepspeed_tpu_torch.models.transformer import TransformerConfig
     t0 = time.time()
     dcfg, draft, _ = build_model(DRAFT_SHAPE["n_layers"], seed=1,
                                  cfg=TransformerConfig(**DRAFT_SHAPE))
+    reset_counters()
+    _, _, t_dgen, _ = phase_generate(draft, dcfg)
+    d_counts = read_counters()
+    d_want = dcfg.n_layers * gen_calls
+    if d_counts["decode_attention"] != d_want or \
+            d_counts["ragged_paged_attention"] or plain_calls(d_counts):
+        fail(f"TinyLlama-shaped generate launches {d_counts}, expected "
+             f"decode_attention {dcfg.n_layers} x {gen_calls} and nothing "
+             f"else")
+    phase("generate", f"TinyLlama-1.1B shape ({dcfg.n_layers} layers, "
+          f"{dcfg.n_heads}/{dcfg.kv_heads} heads of {dcfg.head_dim}) bf16 "
+          f"B=4 prompt 128 + 32 new: {t_dgen:.3f} s, decode kernel launches"
+          f" {d_counts['decode_attention']} = {dcfg.n_layers} x {gen_calls},"
+          f" plain versions 0")
+
+    # ---- serve-features: each run counted on its own (serve_run) ------
     feat = phase_serve_features(model, cfg, [("TinyLlama-1.1B", draft)],
                                 torch.bfloat16, exact=False, label="bf16")
     phase("serve-features", f"bf16 (a)-(d), Llama-2-7B {L} layers, draft "
@@ -3527,6 +3700,11 @@ def main():
                                     ("the target's own weights", m2)],
                          torch.float32, exact=True, label="fp32 2-layer")
     phase("e2e", f"fp32 2-layer (a)-(d): {time.time() - t0:.1f} s")
+    n_same, d_calls = phase_generate_vs_plain(d2)
+    phase("e2e", f"fp32 2-layer TinyLlama-1.1B-shaped generate, B=4 prompt "
+          f"128 + 32 new: tokens through B5 (head dim 64, group 8; "
+          f"{d_calls} launches) identical to the plain versions', {n_same} "
+          f"of 4 rows")
     del m2, d2
     _free()
 
@@ -3704,9 +3882,10 @@ def main():
         meta[f"{name}_fp16"] = meta[name]
         timing[f"{name}_fp16"] = timing[(name, "fp16")]
         launches[f"{name}_fp16"] = fp16_counts[name]
-    # this slice's forms: B5 and B4 in fp16 (launches of the fp16 main
-    # paths), the verify window, the draft's group-8 decode step and the
-    # chunk at an offset (launches of their serve-features runs)
+    # PR 8's and this slice's forms: B5 and B4 in fp16 (launches of the
+    # fp16 main paths), the verify window, the draft's group-8 decode step
+    # and the chunks at an offset (launches of their serve-features runs),
+    # B5 at head dim 64 (the TinyLlama-shaped generate's launches)
     spec = feat["spec_TinyLlama-1.1B"]
     for name, n in (("decode_attention_fp16", c16["decode_attention"]),
                     ("ragged_paged_attention_fp16",
@@ -3720,7 +3899,10 @@ def main():
                     ("ragged_paged_attention_draft_gqa8",
                      spec["draft_decode_launches"]),
                     ("ragged_paged_attention_chunk_at_offset",
-                     feat["chunk"]["launches"])):
+                     feat["chunk"]["launches"]),
+                    ("decode_attention_d64", d_counts["decode_attention"]),
+                    ("ragged_paged_attention_draft_chunk_at_offset",
+                     spec["draft_chunk_launches"])):
         meta[name] = meta["decode_attention" if name.startswith("decode")
                           else "ragged_paged_attention"]
         launches[name] = n

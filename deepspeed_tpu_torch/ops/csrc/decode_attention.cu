@@ -14,12 +14,13 @@
 // the bound.  Prefill (T = prompt) has T*group query rows per kv head and
 // is bounded by arithmetic.
 //
-// Decode form (at most 4 query rows per kv head: generate's decode steps):
-// the split-key, memory-parallel body of split_decode.cuh, shared with the
-// paged cache's decode rows, over a contiguous cache: sequence b's keys
-// are rows of cache[b, hk], query row r is token r / group of q[b].
+// Decode form (at most 8 query rows per kv head: generate's decode steps,
+// a GQA group of up to 8 folded in): the split-key, memory-parallel body
+// of split_decode.cuh, shared with the paged cache's decode rows, over a
+// contiguous cache: sequence b's keys are rows of cache[b, hk], query row
+// r is token r / group of q[b].  Head dim 64 or 128.
 //
-// Prefill form (more than 4 rows per kv head; generate's T=128 prefill):
+// Prefill form (more than 8 rows per kv head; generate's T=128 prefill):
 // grid (row tiles, Hkv, B), one block of 128 threads per 16-row tile
 // walking its keys in blocks of 64 through fp32 shared memory
 // (attention_tile.cuh, shared with the ragged paged kernel), never reading
@@ -29,11 +30,11 @@
 
 namespace {
 
-using dsdecode::kD;
-
 // The contiguous cache's sequences for split_decode.cuh: q [B, T, H, D],
 // k/v [B, Hkv, S_max, D], lengths [B] (or length_all for every sequence).
+template <int D>
 struct ContiguousSeqs {
+  static constexpr int kDim = D;
   const int* lengths;
   int length_all, T, H, Hkv, S_max;
   struct Seq {
@@ -41,25 +42,24 @@ struct ContiguousSeqs {
     int kv_hi, rows, len, T, H, group, hk;
     __device__ __forceinline__ long long row(int r) const {
       return q_base + ((long long)(r / group) * H + hk * group + r % group) *
-                          kD;
+                          D;
     }
     __device__ __forceinline__ int lim(int r) const {
       return len - T + r / group + 1;   // keys < lim: kpos <= qpos
     }
     __device__ __forceinline__ long long key(int k) const {
-      return kv_base + (long long)k * kD;
+      return kv_base + (long long)k * D;
     }
+    __device__ __forceinline__ int run(int) const { return 1 << 30; }
   };
   __device__ __forceinline__ Seq seq(int b, int hk) const {
     const int len = lengths != nullptr ? lengths[b] : length_all;
     const int group = H / Hkv;
-    return Seq{(long long)b * T * H * kD,
-               ((long long)b * Hkv + hk) * S_max * kD,
+    return Seq{(long long)b * T * H * D,
+               ((long long)b * Hkv + hk) * S_max * D,
                max(0, min(len, S_max)), T * group, len, T, H, group, hk};
   }
 };
-
-using DecodeParams = dsdecode::SplitParams<ContiguousSeqs>;
 
 // ---- prefill form: 16-row tiles on attend_rows ----------------------------
 
@@ -99,29 +99,60 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   attend_rows<T, D, ROWS>(q, k, v, o, scale, kv_hi, keys, rm);
 }
 
-template <typename T>
-int launch_prefill(const DecodeParams& p, int B, cudaStream_t stream) {
+template <typename T, int D>
+int launch_prefill(const dsdecode::SplitParams<ContiguousSeqs<D>>& p, int B,
+                   cudaStream_t stream) {
   constexpr int ROWS = 16;
-  const ContiguousSeqs& c = p.seqs;
+  const ContiguousSeqs<D>& c = p.seqs;
   const int n_rows = c.T * (c.H / c.Hkv);
   dim3 grid((n_rows + ROWS - 1) / ROWS, c.Hkv, B);
-  decode_attention_kernel<T, kD, ROWS><<<grid, dsattn::kThreads, 0, stream>>>(
+  decode_attention_kernel<T, D, ROWS><<<grid, dsattn::kThreads, 0, stream>>>(
       static_cast<const T*>(p.q), static_cast<const T*>(p.k),
       static_cast<const T*>(p.v), static_cast<T*>(p.o), c.lengths,
       c.length_all, c.T, c.H, c.Hkv, c.S_max, p.scale);
   return (int)cudaGetLastError();
 }
 
+// One call at head dim D: the decode form for rows <= kMaxRows, else the
+// prefill form.
+template <int D>
+int run(const void* q, const void* k, const void* v, void* o,
+        const void* lengths, void* part, int length_all, int B, int T, int H,
+        int Hkv, int S_max, int dtype, int n_split, int chunk, float scale,
+        cudaStream_t s) {
+  dsdecode::SplitParams<ContiguousSeqs<D>> p;
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.o = o;
+  p.part = static_cast<float*>(part);
+  p.seqs = ContiguousSeqs<D>{static_cast<const int*>(lengths), length_all, T,
+                             H, Hkv, S_max};
+  p.Hkv = Hkv;
+  p.n_split = n_split;
+  p.chunk = chunk;
+  p.scale = scale;
+  const int rows = T * (H / Hkv);
+  if (rows <= dsdecode::kMaxRows)
+    return dtype == 0   ? dsdecode::launch_rows<float>(p, B, rows, s)
+           : dtype == 1 ? dsdecode::launch_rows<__nv_bfloat16>(p, B, rows, s)
+                        : dsdecode::launch_rows<__half>(p, B, rows, s);
+  if (n_split != 1) return (int)cudaErrorInvalidValue;
+  return dtype == 0   ? launch_prefill<float, D>(p, B, s)
+         : dtype == 1 ? launch_prefill<__nv_bfloat16, D>(p, B, s)
+                      : launch_prefill<__half, D>(p, B, s);
+}
+
 }  // namespace
 
 // q: [B, T, H, D]; k/v: [B, Hkv, S_max, D]; o: [B, T, H, D].  dtype: 0 =
-// float32, 1 = bfloat16, 2 = float16 (fp32 inside, as bf16); D must be
-// 128.  lengths may be null: then every
-// sequence has length_all valid tokens.  The decode form (T * H / Hkv <= 4)
-// splits each sequence's keys into n_split chunks of ``chunk`` keys
-// (n_split * chunk >= S_max); with n_split > 1 ``part`` is fp32 scratch of
-// B * Hkv * n_split * T * (H / Hkv) * (D + 2) floats.  The prefill form
-// takes n_split = 1 and no scratch.  Returns cudaGetLastError().
+// float32, 1 = bfloat16, 2 = float16 (fp32 inside, as bf16); D is 64 or
+// 128.  lengths may be null: then every sequence has length_all valid
+// tokens.  The decode form (T * H / Hkv <= 8) splits each sequence's
+// keys into n_split chunks of ``chunk`` keys (n_split * chunk >= S_max);
+// with n_split > 1 ``part`` is fp32 scratch of B * Hkv * n_split * T *
+// (H / Hkv) * (D + 2) floats.  The prefill form takes n_split = 1 and no
+// scratch.  Returns cudaGetLastError().
 extern "C" int ds_decode_attention(const void* q, const void* k,
                                    const void* v, void* o,
                                    const void* lengths, void* part,
@@ -130,41 +161,28 @@ extern "C" int ds_decode_attention(const void* q, const void* k,
                                    int n_split, int chunk, float scale,
                                    void* stream) {
   if (B <= 0 || T <= 0 || Hkv <= 0 || H % Hkv != 0 || B > 65535 ||
-      Hkv > 65535 || D != kD || dtype < 0 || dtype > 2 ||
+      Hkv > 65535 || (D != 64 && D != 128) || dtype < 0 || dtype > 2 ||
       n_split <= 0 || n_split > 65535 || chunk <= 0 ||
       (long long)n_split * chunk < S_max || (n_split > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
-  DecodeParams p;
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.o = o;
-  p.part = static_cast<float*>(part);
-  p.seqs = ContiguousSeqs{static_cast<const int*>(lengths), length_all, T, H,
-                          Hkv, S_max};
-  p.Hkv = Hkv;
-  p.n_split = n_split;
-  p.chunk = chunk;
-  p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rows = T * (H / Hkv);
-  if (rows <= dsdecode::kMaxRows)
-    return dtype == 0   ? dsdecode::launch_rows<float>(p, B, rows, s)
-           : dtype == 1 ? dsdecode::launch_rows<__nv_bfloat16>(p, B, rows, s)
-                        : dsdecode::launch_rows<__half>(p, B, rows, s);
-  if (n_split != 1) return (int)cudaErrorInvalidValue;
-  return dtype == 0   ? launch_prefill<float>(p, B, s)
-         : dtype == 1 ? launch_prefill<__nv_bfloat16>(p, B, s)
-                      : launch_prefill<__half>(p, B, s);
+  const int rc = dsdecode::with_head_dim(D, [&](auto d) {
+    return run<decltype(d)::value>(q, k, v, o, lengths, part, length_all, B,
+                                   T, H, Hkv, S_max, dtype, n_split, chunk,
+                                   scale, s);
+  });
+  return rc < 0 ? -rc : rc;
 }
 
-// Blocks of the decode form (T * H / Hkv = rows <= 4 query rows per kv
-// head) that the current card holds at once; the wrapper sizes n_split by
-// it.  Returns a negative CUDA error code on failure.
-extern "C" int ds_decode_attention_slots(int rows, int dtype) {
-  if (dtype == 0) return dsdecode::split_slots<float, ContiguousSeqs>(rows);
-  if (dtype == 1)
-    return dsdecode::split_slots<__nv_bfloat16, ContiguousSeqs>(rows);
-  if (dtype == 2) return dsdecode::split_slots<__half, ContiguousSeqs>(rows);
-  return -(int)cudaErrorInvalidValue;
+// Blocks of the decode form (T * H / Hkv = rows <= 8 query rows per kv
+// head) at head dim D that the current card holds at once; the wrapper
+// sizes n_split by it.  Returns a negative CUDA error code on failure.
+extern "C" int ds_decode_attention_slots(int rows, int D, int dtype) {
+  if (dtype < 0 || dtype > 2) return -(int)cudaErrorInvalidValue;
+  return dsdecode::with_head_dim(D, [&](auto d) {
+    using S = ContiguousSeqs<decltype(d)::value>;
+    return dtype == 0   ? dsdecode::split_slots<float, S>(rows)
+           : dtype == 1 ? dsdecode::split_slots<__nv_bfloat16, S>(rows)
+                        : dsdecode::split_slots<__half, S>(rows);
+  });
 }

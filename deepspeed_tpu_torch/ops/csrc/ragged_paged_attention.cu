@@ -20,13 +20,15 @@
 // ragged_paged_attention.py plan_launch) splits a call's sequences by
 // form, and one C call launches one kernel (or two) per form present:
 //
-// Decode rows (q_len * group <= 4 rows per kv head: every serving decode
-// step): the split-key, memory-parallel body of split_decode.cuh, shared
-// with decode_attention.cu, over the decode sequences' list; a key's row
-// is resolved through the block table as it is loaded (PagedSeqs), so
-// shared prefix pages and partial last pages are read in place, at any
-// page size.  A page of 128 keys is 32 KB contiguous per kv head, so at
-// the serving engine's page a warp's 16-key group lies in one page.
+// Decode rows (q_len * group <= 8 rows per kv head: every serving decode
+// step, a speculative verify window of up to 8 tokens at group 1, a GQA
+// group of up to 8 heads; head dim 64 or 128): the split-key,
+// memory-parallel body of split_decode.cuh, shared with decode_attention.cu,
+// over the decode sequences' list; a key's row is resolved through the
+// block table as it is loaded (PagedSeqs), so shared prefix pages and
+// partial last pages are read in place, at any page size.  A page of 128
+// keys is 32 KB contiguous per kv head at D = 128, so at the serving
+// engine's page a warp's key group lies in one page.
 //
 // Prefill tiles, bf16 or fp16, D = 128, a group dividing 64 and a page size that
 // is a multiple of 128 or a multiple of 8 dividing 128 (the serving
@@ -57,19 +59,20 @@
 // chunks of the tile's q_tile * group rows), keys staged through fp32
 // shared memory, each key's page resolved through the block table as it
 // is loaded.  fp32 keeps it for the 1e-4 checks; the selection is by dtype
-// and shape.  Head dim 64 (TinyLlama-1.1B, a speculative draft) takes only
-// these tiles: the wrapper plans every such sequence as prefill tiles.
+// and shape.
 #include "hopper.cuh"
 #include "split_decode.cuh"
 
 namespace {
 
 using dsattn::kNeg;
-using dsdecode::kD;
+constexpr int kD = hopper::kHeadDim;   // the tensor-core tiles' head dim
 
 // ---- decode rows: split_decode.cuh over the paged cache -----------------
 
+template <int D>
 struct PagedSeqs {
+  static constexpr int kDim = D;
   const int* ctx;       // [B] tokens stored, queries included
   const int* q_lens;    // [B]
   const int* q_offs;    // [B] first row of each sequence in q
@@ -82,25 +85,52 @@ struct PagedSeqs {
     int kv_hi, rows, first_q, H, group, hk, max_pages, page, Hkv;
     __device__ __forceinline__ long long row(int r) const {
       return q_base + ((long long)(r / group) * H + hk * group + r % group) *
-                          kD;
+                          D;
     }
     __device__ __forceinline__ int lim(int r) const {
       return first_q + r / group + 1;   // keys < lim: kpos <= qpos
     }
     __device__ __forceinline__ long long key(int k) const {
       const long long pg = __ldg(table + min(k / page, max_pages - 1));
-      return ((pg * Hkv + hk) * page + k % page) * kD;
+      return ((pg * Hkv + hk) * page + k % page) * D;
     }
+    __device__ __forceinline__ int run(int k) const { return page - k % page; }
   };
   __device__ __forceinline__ Seq seq(int z, int hk) const {
     const int s = seqs[z], c = ctx[s], ql = q_lens[s];
     const int group = H / Hkv;
     return Seq{tables + (long long)s * max_pages,
-               (long long)q_offs[s] * H * kD,
+               (long long)q_offs[s] * H * D,
                max(0, min(c, max_pages * page)), ql * group, c - ql, H, group,
                hk, max_pages, page, Hkv};
   }
 };
+
+// The decode form's launches at head dim D.
+template <int D>
+int launch_decode(const void* q, const void* k_pages, const void* v_pages,
+                  void* o, const int* c, const int* ql, const int* qo,
+                  const int* tb, const void* dec_seqs, void* part, int n_dec,
+                  int dec_rows, int n_split, int chunk, int max_pages,
+                  int page_size, int H, int Hkv, int dtype, float scale,
+                  cudaStream_t s) {
+  dsdecode::SplitParams<PagedSeqs<D>> p;
+  p.q = q;
+  p.k = k_pages;
+  p.v = v_pages;
+  p.o = o;
+  p.part = static_cast<float*>(part);
+  p.seqs = PagedSeqs<D>{c, ql, qo, static_cast<const int*>(dec_seqs), tb,
+                        max_pages, page_size, H, Hkv};
+  p.Hkv = Hkv;
+  p.n_split = n_split;
+  p.chunk = chunk;
+  p.scale = scale;
+  return dtype == 0   ? dsdecode::launch_rows<float>(p, n_dec, dec_rows, s)
+         : dtype == 1 ? dsdecode::launch_rows<__nv_bfloat16>(p, n_dec,
+                                                             dec_rows, s)
+                      : dsdecode::launch_rows<__half>(p, n_dec, dec_rows, s);
+}
 
 // ---- prefill tiles, bf16 / fp16: tensor cores fed by TMA ----------------
 
@@ -406,16 +436,16 @@ int launch_prefill_cores(const void* q, const void* kp, const void* vp,
 
 // One call's launches.  q: packed [total_q, H, D]; pages [P, Hkv, page,
 // D]; o like q; dtype: 0 = float32, 1 = bfloat16, 2 = float16; D is 128,
-// or 64 for CUDA-core prefill tiles alone (no decode form).  All
+// or 64 for the decode form and the CUDA-core prefill tiles.  All
 // metadata arrays are int32 on the device: ctx_lens / q_lens / q_offs [B],
 // block_tables [B, max_pages].  Decode form (n_dec > 0): dec_seqs [n_dec]
-// sequences of at most dec_rows = q_len * group <= 4 rows, their keys split
-// in n_split chunks of ``chunk`` keys (n_split * chunk >= max_pages *
+// sequences of at most dec_rows = q_len * group <= 8 rows, their keys
+// split in n_split chunks of ``chunk`` keys (n_split * chunk >= max_pages *
 // page); with n_split > 1 ``part`` is fp32 scratch of n_dec * Hkv *
 // n_split * dec_rows * (D + 2) floats.  Prefill form (n_tiles > 0): tiles
 // seq_of_tile / qtile_of_tile [n_tiles] of q_tile tokens; tensor_cores = 1
-// takes the bf16 / fp16 wgmma kernel (q_tile = 128 / group), 0 the
-// CUDA-core one.
+// takes the bf16 / fp16 wgmma kernel (q_tile = 128 / group, D = 128), 0
+// the CUDA-core one.
 // Returns cudaGetLastError().
 extern "C" int ds_ragged_paged_attention(
     const void* q, const void* k_pages, const void* v_pages, void* o,
@@ -428,7 +458,7 @@ extern "C" int ds_ragged_paged_attention(
   if (n_dec < 0 || n_tiles < 0 || n_dec + n_tiles == 0 || Hkv <= 0 ||
       H % Hkv != 0 || page_size <= 0 || max_pages <= 0 || Hkv > 65535 ||
       (D != kD && D != 64) || dtype < 0 || dtype > 2 || n_dec > 65535 ||
-      (D != kD && (n_dec > 0 || tensor_cores)))
+      (D != kD && tensor_cores))
     return (int)cudaErrorInvalidValue;
   const int group = H / Hkv;
   const int* c = static_cast<const int*>(ctx_lens);
@@ -442,23 +472,12 @@ extern "C" int ds_ragged_paged_attention(
         (long long)n_split * chunk < (long long)max_pages * page_size ||
         (n_split > 1 && part == nullptr))
       return (int)cudaErrorInvalidValue;
-    dsdecode::SplitParams<PagedSeqs> p;
-    p.q = q;
-    p.k = k_pages;
-    p.v = v_pages;
-    p.o = o;
-    p.part = static_cast<float*>(part);
-    p.seqs = PagedSeqs{c, ql, qo, static_cast<const int*>(dec_seqs), tb,
-                       max_pages, page_size, H, Hkv};
-    p.Hkv = Hkv;
-    p.n_split = n_split;
-    p.chunk = chunk;
-    p.scale = scale;
-    const int rc =
-        dtype == 0   ? dsdecode::launch_rows<float>(p, n_dec, dec_rows, s)
-        : dtype == 1 ? dsdecode::launch_rows<__nv_bfloat16>(p, n_dec,
-                                                            dec_rows, s)
-                     : dsdecode::launch_rows<__half>(p, n_dec, dec_rows, s);
+    const int rc = dsdecode::with_head_dim(D, [&](auto d) {
+      return launch_decode<decltype(d)::value>(
+          q, k_pages, v_pages, o, c, ql, qo, tb, dec_seqs, part, n_dec,
+          dec_rows, n_split, chunk, max_pages, page_size, H, Hkv, dtype,
+          scale, s);
+    });
     if (rc != 0) return rc < 0 ? -rc : rc;
   }
   if (n_tiles == 0) return (int)cudaGetLastError();
@@ -508,13 +527,15 @@ extern "C" int ds_ragged_paged_attention(
                       : cores(Type<__half>{}, D64{});
 }
 
-// Blocks of the decode form (rows <= 4 query rows per kv head) that the
-// current card holds at once; the wrapper sizes n_split by it.  Returns a
-// negative CUDA error code on failure.
-extern "C" int ds_ragged_decode_slots(int rows, int dtype) {
-  if (dtype == 0) return dsdecode::split_slots<float, PagedSeqs>(rows);
-  if (dtype == 1)
-    return dsdecode::split_slots<__nv_bfloat16, PagedSeqs>(rows);
-  if (dtype == 2) return dsdecode::split_slots<__half, PagedSeqs>(rows);
-  return -(int)cudaErrorInvalidValue;
+// Blocks of the decode form (rows <= 8 query rows per kv head) at head
+// dim D that the current card holds at once; the wrapper sizes n_split by
+// it.  Returns a negative CUDA error code on failure.
+extern "C" int ds_ragged_decode_slots(int rows, int D, int dtype) {
+  if (dtype < 0 || dtype > 2) return -(int)cudaErrorInvalidValue;
+  return dsdecode::with_head_dim(D, [&](auto d) {
+    using S = PagedSeqs<decltype(d)::value>;
+    return dtype == 0   ? dsdecode::split_slots<float, S>(rows)
+           : dtype == 1 ? dsdecode::split_slots<__nv_bfloat16, S>(rows)
+                        : dsdecode::split_slots<__half, S>(rows);
+  });
 }

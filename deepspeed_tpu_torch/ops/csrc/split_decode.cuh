@@ -4,48 +4,80 @@
 // (ragged_paged_attention.cu).  They differ only in where a sequence's
 // query rows and keys live, which the caller's ``Seqs`` functor says.
 //
-// Computes, for each sequence z and kv head hk, the attention of ROWS <= 4
+// Computes, for each sequence z and kv head hk, the attention of ROWS <= 8
 // query rows (a GQA group folded in: row r is token r / group of head
 // hk * group + r % group) over keys [0, kv_hi) with the causal-ragged mask
 // key < lim(r), an fp32 online softmax, and 0 for a row that sees no key.
+// Head dim D is 64 or 128, the element type fp32, bf16 or fp16.
 //
 // What bounds it on the H100: every cached K/V byte is read once for 4*D
-// flops per key per row -- about 1 flop per byte, far under the card's
-// ~295 flop/byte ridge, so HBM bandwidth (3.35 TB/s) is the bound, and a
-// decode step is short enough that the memory system has to be kept busy
-// from the first cycle: memory-level parallelism is the design.
+// flops per key per row -- at most 8 flops per byte at 8 rows, far under
+// the card's ~295 flop/byte ridge, so HBM bandwidth (3.35 TB/s) is the
+// bound, and a decode step is short enough that the memory system has to
+// be kept busy from the first cycle: memory-level parallelism is the
+// design.  What it must not become is bound by instructions: a CUDA-core
+// dot product costs a lane its FMAs, log2(lanes) shuffles and the softmax
+// per row and key, which at 5-8 rows outruns the bytes.
 //
 // One block per (key chunk, kv head, sequence): grid (n_split, Hkv, Z).
 // The keys of a sequence go to one block, or are split into chunks of
 // ``chunk`` keys, one block each (flash-decoding), when Z * Hkv blocks
 // would leave the card's block slots idle -- the wrapper sizes the split
-// from the occupancy query (split_slots).  A block has 16, 8 or 4 warps
-// for 1, 2 or 3-4 rows (as many as one SM's registers hold), and each warp
-// takes every n-th group of 16 keys (8 for fp32) of the block's keys.  A
-// warp issues all 16 of a group's 16-byte K and V loads into registers
-// before it uses any (kept out of L1: each byte is read once), so some
-// 128 KB are in flight on every SM; nothing is staged in shared memory.
-// The query rows live in registers, a lane holding 8 (fp32: 4) of a row's
-// 128 dims, so a score is a warp dot product: 16 (32) lanes each multiply
-// their slice of one key row and four (five) shuffles sum it.  The online
-// softmax is fp32 in base 2 (q prescaled by scale * log2 e); each lane
-// accumulates P V for its own keys' V slices.  Only real rows are computed.
-// Merges run in a fixed order, so runs repeat bit for bit: the key halves
-// of a warp by one shuffle, the warps in shared memory by warp index, and,
-// when a sequence spans several chunks, the chunks' (m, l, acc) by a
-// second small kernel in chunk order, launched early (programmatic
-// dependent launch) so that its launch latency hides under the chunks'
-// tail.  The caller gives the partial buffer (fp32, from torch's caching
-// allocator on the launch stream); nothing is allocated here, so the
-// launch can be captured in a CUDA graph.  A sequence whose keys fit one
-// chunk is finished by that chunk's block and the combine skips it.
+// from the occupancy query (split_slots) and the body's shortest chunk
+// that pays for the merge (ops/cuda/decode_attention.py min_chunk).  Two
+// block bodies:
 //
-// ``Seqs`` provides ``seq(z, hk)``, a per-block view with ``kv_hi`` (keys
-// of the sequence), ``rows`` (its real query rows, <= ROWS), ``row(r)``
-// (element offset of query row r in q and o), ``lim(r)`` (keys below it
-// are visible to row r) and ``key(k)`` (element offset of key k's K and V
-// row).
+// * CUDA cores (1-4 rows; fp32 at any row count): each lane holds 16 bytes
+//   of a key row's dims (8 bf16 / fp16, 4 fp32), LPR lanes a row slice;
+//   the warp's other lane groups take other keys, and every lane holds
+//   every row's q and accumulator in registers.  A block has 16, 8 or 4
+//   warps for 1, 2 or 3-8 rows (as many as one SM's registers hold), and
+//   each warp takes every n-th group of KEYS keys of the block's keys.  A
+//   warp issues all of a group's 16-byte K and V loads into registers
+//   before it uses any (kept out of L1: each byte is read once), so some
+//   128 KB are in flight on every SM; nothing is staged in shared memory.
+//   (fp32 at 5-8 rows keeps 1 load a lane in flight, not 8, so that
+//   nothing spills: it serves the 1e-4 checks, not a main path's speed.)
+//   A score is a dot product over a row slice's LPR lanes, summed by
+//   log2(LPR) shuffles.  The online softmax is fp32 in base 2 (q
+//   prescaled by scale * log2 e); each lane accumulates P V for its own
+//   keys' V slices.
+// * Tensor cores (5-8 rows, bf16 / fp16): mma.sync.m16n8k16, the rows as
+//   the 8 columns of an n8 tile, so nothing is padded.  A block has 8
+//   warps, and a warp takes 16 keys at a time: S^T = K Q^T (16 keys x 8
+//   rows, fp32) from K rows loaded straight into A-operand registers -- a
+//   lane's 16-byte loads give it the same dims of two keys as of its q
+//   row, and a dot product does not care which dims a k step holds, so no
+//   shuffle is needed -- then the online softmax on the accumulators
+//   (each lane owns 2 rows of 2 keys; a row's max is three shuffles), P^T
+//   moved to the B-operand layout by movmatrix, and O^T += V^T P^T (16
+//   dims x 8 rows a tile) with V's key pairs packed by prmt.  P enters the
+//   product as two terms of the element type, the rounded value and the
+//   rest, so P V keeps ~16 bits of P and the result is one rounding of an
+//   fp32 value, as on the CUDA cores.  Each warp keeps two 16-key tiles
+//   in registers, the next one's loads in flight while it uses the
+//   current one, and reads a tile's page once (``run``), a tile earlier.
+//   Instructions per key fall ~10x below the CUDA-core body's at 5 rows.
+//
+// Only real rows are computed.  Merges run in a fixed order, so runs
+// repeat bit for bit: the warps in shared memory by warp index, and, when
+// a sequence spans several chunks, the chunks' (m, l, acc) by a second
+// small kernel in chunk order, launched early (programmatic dependent
+// launch) so that its launch latency hides under the chunks' tail.  The
+// caller gives the partial buffer (fp32, from torch's caching allocator
+// on the launch stream); nothing is allocated here, so the launch can be
+// captured in a CUDA graph.  A sequence whose keys fit one chunk is
+// finished by that chunk's block and the combine skips it.
+//
+// ``Seqs`` has ``kDim`` (the head dim) and provides ``seq(z, hk)``, a
+// per-block view with ``kv_hi`` (keys of the sequence), ``rows`` (its real
+// query rows, <= ROWS), ``row(r)`` (element offset of query row r in q and
+// o), ``lim(r)`` (keys below it are visible to row r), ``key(k)`` (element
+// offset of key k's K and V row) and ``run(k)`` (how many keys from k on
+// are stored D elements apart).
 #pragma once
+
+#include <stdint.h>
 
 #include <type_traits>
 
@@ -57,16 +89,32 @@ using dsattn::from_f;
 using dsattn::kNeg;
 using dsattn::to_f;
 
-constexpr int kD = 128;             // head_dim
-constexpr int kLoads = 8;           // 16-byte K (and V) loads a lane per group
-constexpr int kMaxRows = 4;         // query rows per kv head of the form
+constexpr int kMaxRows = 8;         // query rows per kv head of the form
+constexpr float kLog2e = 1.4426950408889634f;
 
-// Warps of a decode block by its row count: as many as the registers of
-// one SM allow for 2-4 blocks (a row's q, accumulator and scores cost a
-// lane 24 registers beside the 64 of a group's loads).
-__host__ __device__ constexpr int decode_warps(int rows) {
-  return rows == 1 ? 16 : rows == 2 ? 8 : 4;
-}
+// Whether ROWS rows of element type T take the tensor-core body.
+template <typename T, int ROWS>
+constexpr bool kTensorCores = ROWS > 4 && !std::is_same<T, float>::value;
+
+// Lane layout of the CUDA-core body for element type T, head dim D and
+// ROWS query rows: a key row is LPR lanes of VEC elements, a warp load
+// covers KPL keys, a group is LOADS loads a lane, KEYS keys; WARPS warps a
+// block (the registers of one SM hold 2-4 blocks: a row's q, accumulator
+// and scores cost a lane 2 * VEC + LOADS registers beside the 8 * LOADS of
+// a group's loads).  The tensor-core body has WARPS = 8 warps (4 measured
+// slower, PERF.md).
+template <typename T, int D, int ROWS>
+struct Layout {
+  static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  static_assert(ROWS >= 1 && ROWS <= kMaxRows, "1-8 rows");
+  static constexpr int VEC = 16 / sizeof(T);
+  static constexpr int LPR = D / VEC;
+  static constexpr int KPL = 32 / LPR;
+  static constexpr int LOADS = ROWS > 4 ? 1 : 8;
+  static constexpr int KEYS = LOADS * KPL;
+  static constexpr int WARPS = kTensorCores<T, ROWS> ? 8
+                               : ROWS == 1 ? 16 : ROWS == 2 ? 8 : 4;
+};
 
 // One 16-byte load of a K/V row slice, which is read once: kept out of L1.
 __device__ __forceinline__ uint4 load16(const void* p) {
@@ -76,16 +124,6 @@ __device__ __forceinline__ uint4 load16(const void* p) {
                : "l"(p));
   return r;
 }
-
-// Lane layout of one key group for element type T: a key row is LPR lanes
-// of VEC elements, a warp load covers KPL rows, a group KEYS rows.
-template <typename T>
-struct Lanes {
-  static constexpr int VEC = 16 / sizeof(T);   // dims per lane
-  static constexpr int LPR = kD / VEC;         // lanes per key row
-  static constexpr int KPL = 32 / LPR;         // key rows per warp load
-  static constexpr int KEYS = kLoads * KPL;    // keys per group
-};
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -118,14 +156,57 @@ __device__ __forceinline__ int active_chunks(int kv_hi, int chunk) {
   return max(1, (kv_hi + chunk - 1) / chunk);
 }
 
+// The end of both bodies: the block's warps, whose (acc, m, l) per row are
+// in shared memory, merged in warp order; thread d < D owns dim d of every
+// row and writes the row's output at off[r] (one chunk) or the chunk's
+// partial.
+template <typename T, int ROWS, int WARPS, typename Seqs, typename Seq>
+__device__ __forceinline__ void finish(
+    const SplitParams<Seqs>& p, const Seq& seq, int n_chunks, int split,
+    int z, int hk, const long long (&off)[ROWS],
+    const float (&acc_s)[WARPS][ROWS][Seqs::kDim],
+    const float (&m_s)[WARPS][ROWS], const float (&l_s)[WARPS][ROWS]) {
+  constexpr int D = Seqs::kDim;
+  static_assert(WARPS * 32 >= D, "the merge gives thread d dim d");
+  const int d = threadIdx.x;
+  if (d >= D) return;
+  const long long zhk = (long long)z * p.Hkv + hk;
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    if (r >= seq.rows) break;
+    float mm = kNeg;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) mm = fmaxf(mm, m_s[w][r]);
+    float ll = 0.f, aa = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float c = ex2(m_s[w][r] - mm);
+      ll = fmaf(l_s[w][r], c, ll);
+      aa = fmaf(acc_s[w][r][d], c, aa);
+    }
+    if (n_chunks == 1) {
+      static_cast<T*>(p.o)[off[r] + d] = from_f<T>(aa / fmaxf(ll, 1e-30f));
+    } else {
+      const long long at = (zhk * p.n_split + split) * ROWS + r;
+      p.part[at * (D + 2) + d] = aa;
+      if (d == 0) {
+        p.part[at * (D + 2) + D] = mm;
+        p.part[at * (D + 2) + D + 1] = ll;
+      }
+    }
+  }
+}
+
+// ---- the CUDA-core body --------------------------------------------------
+
 template <typename T, int ROWS, typename Seqs>
-__global__ void __launch_bounds__(decode_warps(ROWS) * 32)
+__global__ void __launch_bounds__(Layout<T, Seqs::kDim, ROWS>::WARPS * 32)
 split_kernel(const __grid_constant__ SplitParams<Seqs> p) {
-  using L = Lanes<T>;
-  constexpr int VEC = L::VEC, LPR = L::LPR, KPL = L::KPL, KEYS = L::KEYS;
-  constexpr int kWarps = decode_warps(ROWS);
-  static_assert(kWarps * 32 >= kD, "the merge gives thread d dim d");
-  __shared__ float acc_s[kWarps][ROWS][kD];
+  constexpr int D = Seqs::kDim;
+  using L = Layout<T, D, ROWS>;
+  constexpr int VEC = L::VEC, LPR = L::LPR, KPL = L::KPL;
+  constexpr int LOADS = L::LOADS, KEYS = L::KEYS, kWarps = L::WARPS;
+  __shared__ float acc_s[kWarps][ROWS][D];
   __shared__ float m_s[kWarps][ROWS], l_s[kWarps][ROWS];
 
   const int split = blockIdx.x, hk = blockIdx.y, z = blockIdx.z;
@@ -144,7 +225,7 @@ split_kernel(const __grid_constant__ SplitParams<Seqs> p) {
   const T* vp = static_cast<const T*>(p.v) + d0;
 
   // the rows' q slices (prescaled to base 2), key limits and offsets
-  const float qscale = p.scale * 1.4426950408889634f;
+  const float qscale = p.scale * kLog2e;
   float qr[ROWS][VEC];
   int lim[ROWS];
   long long off[ROWS];
@@ -171,9 +252,9 @@ split_kernel(const __grid_constant__ SplitParams<Seqs> p) {
 
   for (int g0 = k_begin + warp * KEYS; g0 < k_end; g0 += kWarps * KEYS) {
     // every load of the group in flight before any is used
-    uint4 kr[kLoads], vr[kLoads];
+    uint4 kr[LOADS], vr[LOADS];
 #pragma unroll
-    for (int j = 0; j < kLoads; ++j) {
+    for (int j = 0; j < LOADS; ++j) {
       const int key = g0 + j * KPL + kl;
       const bool in = key < k_end;
       const long long at = in ? seq.key(key) : 0;
@@ -181,9 +262,9 @@ split_kernel(const __grid_constant__ SplitParams<Seqs> p) {
       vr[j] = in ? load16(vp + at) : make_uint4(0u, 0u, 0u, 0u);
     }
     // scores: each lane's slice of key row j, summed over the row's lanes
-    float s[ROWS][kLoads];
+    float s[ROWS][LOADS];
 #pragma unroll
-    for (int j = 0; j < kLoads; ++j) {
+    for (int j = 0; j < LOADS; ++j) {
       float kf[VEC];
       unpack<T>(kr[j], kf);
 #pragma unroll
@@ -202,7 +283,7 @@ split_kernel(const __grid_constant__ SplitParams<Seqs> p) {
     for (int r = 0; r < ROWS; ++r) {
       float mx = kNeg;
 #pragma unroll
-      for (int j = 0; j < kLoads; ++j) {
+      for (int j = 0; j < LOADS; ++j) {
         if (g0 + j * KPL + kl >= lim[r]) s[r][j] = kNeg;
         mx = fmaxf(mx, s[r][j]);
       }
@@ -216,7 +297,7 @@ split_kernel(const __grid_constant__ SplitParams<Seqs> p) {
 #pragma unroll
       for (int x = 0; x < VEC; ++x) acc[r][x] *= corr;
 #pragma unroll
-      for (int j = 0; j < kLoads; ++j) {
+      for (int j = 0; j < LOADS; ++j) {
         // a masked key is 0, also while the row has seen no key (m = kNeg)
         const float pr = s[r][j] <= kNeg / 2 ? 0.f : ex2(s[r][j] - m_new);
         s[r][j] = pr;
@@ -224,7 +305,7 @@ split_kernel(const __grid_constant__ SplitParams<Seqs> p) {
       }
     }
 #pragma unroll
-    for (int j = 0; j < kLoads; ++j) {
+    for (int j = 0; j < LOADS; ++j) {
       float vf[VEC];
       unpack<T>(vr[j], vf);
 #pragma unroll
@@ -235,8 +316,8 @@ split_kernel(const __grid_constant__ SplitParams<Seqs> p) {
     }
   }
 
-  // the warp's key rows (bf16 and fp16: lanes l and l + 16 hold the same
-  // dims; fp32: each lane its own)
+  // the warp's key rows (bf16 and fp16 at D = 128: lanes l and l + 16 hold
+  // the same dims; fp32 at D = 128: each lane its own)
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
 #pragma unroll
@@ -256,43 +337,287 @@ split_kernel(const __grid_constant__ SplitParams<Seqs> p) {
     }
   }
   __syncthreads();
+  finish<T, ROWS, kWarps, Seqs>(p, seq, n_active, split, z, hk, off, acc_s,
+                                m_s, l_s);
+}
 
-  // the warps in warp order; thread d < D owns dim d of every row
-  const int d = threadIdx.x;
-  if (d >= kD) return;
-  const long long zhk = (long long)z * p.Hkv + hk;
+// ---- the tensor-core body (5-8 rows, bf16 / fp16) ------------------------
+
+// D = C + A B, m16n8k16, fp32 accumulators, A and B of element type T.
+template <typename T>
+__device__ __forceinline__ void mma16816(float (&c)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  if constexpr (std::is_same<T, __half>::value)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// The transpose of the warp's 8x8 16-bit matrix (lane l holds row l / 4,
+// columns 2 (l % 4) and 2 (l % 4) + 1) in the same layout.
+__device__ __forceinline__ uint32_t trans8x8(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;"
+               : "=r"(y) : "r"(x));
+  return y;
+}
+
+// Bytes of {b, a} picked by ``sel`` (prmt): 0x5410 gives (a.lo, b.lo),
+// 0x7632 (a.hi, b.hi), the first in the low half.
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b,
+                                         uint32_t sel) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
+  return d;
+}
+
+// Two fp32 values rounded to T and packed, lo in the low half; and back.
+template <typename T>
+__device__ __forceinline__ uint32_t pack_t2(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  } else {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+}
+template <typename T>
+__device__ __forceinline__ float half_f(uint32_t x, int hi) {
+  const T* e = reinterpret_cast<const T*>(&x);
+  return to_f(e[hi]);
+}
+
+__device__ __forceinline__ uint32_t word(const uint4& u, int i) {
+  return i == 0 ? u.x : i == 1 ? u.y : i == 2 ? u.z : u.w;
+}
+
+// Lane (g, t) = (lane / 4, lane % 4) of a warp's 16 keys kb.. kb + 15:
+// * S^T = K Q^T, an m16n8 tile per 16 dims of the head (the k step): A is
+//   keys g and g + 8, B is q row g, both from the lane's dims 32 j + 8 t ..
+//   + 7 (j < D / 32), whose 32-bit words 2 s and 2 s + 1 feed k step s;
+//   the accumulators are (key g, rows 2 t, 2 t + 1) and (key g + 8, the
+//   same rows).
+// * O^T += V^T P^T, an m16n8 tile per 16 dims of the output: A is V of
+//   keys 2 t, 2 t + 1, 2 t + 8, 2 t + 9 at the lane's dims 64 h + 8 g .. +
+//   7, word w = 4 h + e feeding output tile w with dims (64 h + 8 g + 2 e,
+//   + 1) as its rows g and g + 8; B is P^T, (keys 2 t, 2 t + 1 | 2 t + 8,
+//   2 t + 9; row g), the transpose of the S^T accumulators' pairs.
+template <typename T, int ROWS, typename Seqs>
+__global__ void __launch_bounds__(Layout<T, Seqs::kDim, ROWS>::WARPS * 32)
+split_tc_kernel(const __grid_constant__ SplitParams<Seqs> p) {
+  constexpr int D = Seqs::kDim;
+  constexpr int kWarps = Layout<T, D, ROWS>::WARPS;
+  constexpr int KJ = D / 32;    // 16-byte loads of a K row's or q's slice
+  constexpr int VH = D / 64;    // 16-byte loads of a V row's slice
+  constexpr int MT = D / 16;    // output tiles, and k steps of S^T
+  static_assert(kTensorCores<T, ROWS>, "5-8 rows, bf16 or fp16");
+  __shared__ float acc_s[kWarps][ROWS][D];
+  __shared__ float m_s[kWarps][ROWS], l_s[kWarps][ROWS];
+
+  const int split = blockIdx.x, hk = blockIdx.y, z = blockIdx.z;
+  // the combine kernel may be scheduled now; it waits for this grid
+  asm volatile("griddepcontrol.launch_dependents;");
+  const auto seq = p.seqs.seq(z, hk);
+  const int n_active = active_chunks(seq.kv_hi, p.chunk);
+  if (split >= n_active) return;
+  const int k_begin = split * p.chunk;
+  const int k_end = min(seq.kv_hi, k_begin + p.chunk);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const T* kp = static_cast<const T*>(p.k) + 8 * t;
+  const T* vp = static_cast<const T*>(p.v) + 8 * g;
+
+  // q row g's slice (the B operand of S^T), rows 2 t and 2 t + 1's limits
+  uint4 qf[KJ];
+  {
+    const bool real = g < seq.rows;
+    const T* q = static_cast<const T*>(p.q) + (real ? seq.row(g) : 0) + 8 * t;
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    if (r >= seq.rows) break;
-    float mm = kNeg;
+    for (int j = 0; j < KJ; ++j)
+      qf[j] = real ? *reinterpret_cast<const uint4*>(q + 32 * j)
+                   : make_uint4(0u, 0u, 0u, 0u);
+  }
+  int lim[2];
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, m_s[w][r]);
-    float ll = 0.f, aa = 0.f;
+  for (int j = 0; j < 2; ++j)
+    lim[j] = 2 * t + j < seq.rows ? min(seq.lim(2 * t + j), k_end) : k_begin;
+  const float qscale = p.scale * kLog2e;
+
+  float o[MT][4], m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float c = ex2(m_s[w][r] - mm);
-      ll = fmaf(l_s[w][r], c, ll);
-      aa = fmaf(acc_s[w][r][d], c, aa);
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) o[i][x] = 0.f;
+
+  // the warp's K and V slices of the 16 keys from k0 on
+  struct Tile {
+    uint4 k[2][KJ], v[4][VH];
+  };
+  // where a tile's keys lie: the 16 keys usually lie in one page, so one
+  // table read, a tile ahead of the loads, gives rows D apart
+  struct Where {
+    long long base;
+    bool flat;
+  };
+  const auto where = [&](int k0) {
+    return Where{seq.key(k0), seq.run(k0) >= 16};
+  };
+  const auto issue = [&](Tile& tl, int k0, const Where& w) {
+    const auto at = [&](int i) {
+      return w.flat ? w.base + (long long)i * D : seq.key(k0 + i);
+    };
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int i = g + 8 * c;
+      const bool in = k0 + i < k_end;
+      const long long a = in ? at(i) : 0;
+#pragma unroll
+      for (int j = 0; j < KJ; ++j)
+        tl.k[c][j] = in ? load16(kp + a + 32 * j) : make_uint4(0u, 0u, 0u, 0u);
     }
-    if (n_active == 1) {
-      static_cast<T*>(p.o)[off[r] + d] = from_f<T>(aa / fmaxf(ll, 1e-30f));
-    } else {
-      const long long at = (zhk * p.n_split + split) * ROWS + r;
-      p.part[at * (kD + 2) + d] = aa;
-      if (d == 0) {
-        p.part[at * (kD + 2) + kD] = mm;
-        p.part[at * (kD + 2) + kD + 1] = ll;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int i = 2 * t + (c & 1) + 8 * (c >> 1);
+      const bool in = k0 + i < k_end;
+      const long long a = in ? at(i) : 0;
+#pragma unroll
+      for (int h = 0; h < VH; ++h)
+        tl.v[c][h] = in ? load16(vp + a + 64 * h) : make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+  const auto consume = [&](const Tile& tl, int k0) {
+    // S^T = K Q^T over the head's k steps: s[0], s[2] are row 2 t's keys
+    // g, g + 8; s[1], s[3] row 2 t + 1's
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int st = 0; st < MT; ++st) {
+      const int j = st / 2, w = 2 * (st % 2);
+      mma16816<T>(s, word(tl.k[0][j], w), word(tl.k[1][j], w),
+                  word(tl.k[0][j], w + 1), word(tl.k[1][j], w + 1),
+                  word(qf[j], w), word(qf[j], w + 1));
+    }
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      s[x] *= qscale;
+      if (k0 + g + 8 * (x / 2) >= lim[x % 2]) s[x] = kNeg;
+    }
+    // online softmax; a row's keys are spread over the lanes of one t
+    float corr[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float mx = fmaxf(s[j], s[j + 2]);
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[j], mx);
+      corr[j] = ex2(m[j] - m_new);    // 0 from kNeg, 1 if unchanged
+      m[j] = m_new;
+      l[j] *= corr[j];
+    }
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      // a masked key is 0, also while the row has seen no key (m = kNeg)
+      s[x] = s[x] <= kNeg / 2 ? 0.f : ex2(s[x] - m[x % 2]);
+      l[x % 2] += s[x];
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) o[i][x] *= corr[x % 2];
+    // P^T as B operands: P rounded to T, and the rest rounded to T
+    uint32_t bh[2], bl[2];
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const uint32_t hi = pack_t2<T>(s[2 * c], s[2 * c + 1]);
+      const uint32_t lo = pack_t2<T>(s[2 * c] - half_f<T>(hi, 0),
+                                     s[2 * c + 1] - half_f<T>(hi, 1));
+      bh[c] = trans8x8(hi);
+      bl[c] = trans8x8(lo);
+    }
+    // O^T += V^T P^T, V's key pairs packed per output tile
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int h = i / 4, e = i % 4;
+      const uint32_t v0 = word(tl.v[0][h], e), v1 = word(tl.v[1][h], e);
+      const uint32_t v2 = word(tl.v[2][h], e), v3 = word(tl.v[3][h], e);
+      const uint32_t a0 = prmt(v0, v1, 0x5410), a1 = prmt(v0, v1, 0x7632);
+      const uint32_t a2 = prmt(v2, v3, 0x5410), a3 = prmt(v2, v3, 0x7632);
+      mma16816<T>(o[i], a0, a1, a2, a3, bh[0], bh[1]);
+      mma16816<T>(o[i], a0, a1, a2, a3, bl[0], bl[1]);
+    }
+  };
+  // two tiles in registers: the next one's loads are in flight while the
+  // current one is used, and the one after's page is being read
+  constexpr int kStride = kWarps * 16;
+  Tile ta, tb;
+  int k0 = k_begin + warp * 16;
+  Where w = where(k0 + kStride);
+  if (k0 < k_end) issue(ta, k0, where(k0));
+  while (k0 < k_end) {
+    if (k0 + kStride < k_end) issue(tb, k0 + kStride, w);
+    w = where(k0 + 2 * kStride);
+    consume(ta, k0);
+    k0 += kStride;
+    if (k0 >= k_end) break;
+    if (k0 + kStride < k_end) issue(ta, k0 + kStride, w);
+    w = where(k0 + 2 * kStride);
+    consume(tb, k0);
+    k0 += kStride;
+  }
+
+  // l: this lane's keys, summed over the lanes of its rows
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1)
+      l[j] += __shfl_xor_sync(0xffffffffu, l[j], off);
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int d = 64 * (i / 4) + 8 * g + 2 * (i % 4);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (2 * t + j < ROWS) {
+        acc_s[warp][2 * t + j][d] = o[i][j];
+        acc_s[warp][2 * t + j][d + 1] = o[i][2 + j];
       }
     }
   }
+  if (g == 0) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (2 * t + j < ROWS) {
+        m_s[warp][2 * t + j] = m[j];
+        l_s[warp][2 * t + j] = l[j];
+      }
+    }
+  }
+  __syncthreads();
+  long long off[ROWS];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) off[r] = r < seq.rows ? seq.row(r) : 0;
+  finish<T, ROWS, kWarps, Seqs>(p, seq, n_active, split, z, hk, off, acc_s,
+                                m_s, l_s);
 }
 
 // Merges the chunks of every sequence that spans more than one, in chunk
 // order: grid (Hkv, Z), thread d owns dim d of every row.  The loops are
 // unrolled so that a row's loads are in flight together.
 template <typename T, int ROWS, typename Seqs>
-__global__ void __launch_bounds__(kD)
+__global__ void __launch_bounds__(Seqs::kDim)
 combine_kernel(const __grid_constant__ SplitParams<Seqs> p) {
+  constexpr int D = Seqs::kDim;
   asm volatile("griddepcontrol.wait;" ::: "memory");   // the chunks' results
   const int hk = blockIdx.x, z = blockIdx.y, d = threadIdx.x;
   const auto seq = p.seqs.seq(z, hk);
@@ -302,28 +627,42 @@ combine_kernel(const __grid_constant__ SplitParams<Seqs> p) {
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
     if (r >= seq.rows) break;
-    const float* row = p.part + (zhk * p.n_split * ROWS + r) * (kD + 2);
-    constexpr long long step = (long long)ROWS * (kD + 2);
+    const float* row = p.part + (zhk * p.n_split * ROWS + r) * (D + 2);
+    constexpr long long step = (long long)ROWS * (D + 2);
     float mm = kNeg;
 #pragma unroll 8
-    for (int c = 0; c < n_active; ++c) mm = fmaxf(mm, row[c * step + kD]);
+    for (int c = 0; c < n_active; ++c) mm = fmaxf(mm, row[c * step + D]);
     float ll = 0.f, aa = 0.f;
 #pragma unroll 8
     for (int c = 0; c < n_active; ++c) {
-      const float w = ex2(row[c * step + kD] - mm);
-      ll = fmaf(row[c * step + kD + 1], w, ll);
+      const float w = ex2(row[c * step + D] - mm);
+      ll = fmaf(row[c * step + D + 1], w, ll);
       aa = fmaf(row[c * step + d], w, aa);
     }
     static_cast<T*>(p.o)[seq.row(r) + d] = from_f<T>(aa / fmaxf(ll, 1e-30f));
   }
 }
 
+// The split kernel of ROWS rows of T: the tensor-core body or the
+// CUDA-core one.
+template <typename T, int ROWS, typename Seqs>
+constexpr auto split_form() {
+  if constexpr (kTensorCores<T, ROWS>)
+    return split_tc_kernel<T, ROWS, Seqs>;
+  else
+    return split_kernel<T, ROWS, Seqs>;
+}
+
 // The split kernel over Z sequences, then, when a sequence may span
 // several chunks, the combine kernel launched early.
 template <typename T, int ROWS, typename Seqs>
 int launch_split(const SplitParams<Seqs>& p, int Z, cudaStream_t stream) {
-  split_kernel<T, ROWS, Seqs>
-      <<<dim3(p.n_split, p.Hkv, Z), decode_warps(ROWS) * 32, 0, stream>>>(p);
+  constexpr int kThreads = Layout<T, Seqs::kDim, ROWS>::WARPS * 32;
+  const dim3 grid(p.n_split, p.Hkv, Z);
+  if constexpr (kTensorCores<T, ROWS>)
+    split_tc_kernel<T, ROWS, Seqs><<<grid, kThreads, 0, stream>>>(p);
+  else
+    split_kernel<T, ROWS, Seqs><<<grid, kThreads, 0, stream>>>(p);
   if (p.n_split > 1) {
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
@@ -334,7 +673,7 @@ int launch_split(const SplitParams<Seqs>& p, int Z, cudaStream_t stream) {
     attr[0].val.programmaticStreamSerializationAllowed = 1;
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(p.Hkv, Z);
-    cfg.blockDim = dim3(kD);
+    cfg.blockDim = dim3(Seqs::kDim);
     cfg.stream = stream;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
@@ -353,6 +692,10 @@ int with_rows(int rows, F&& f) {
     case 2: return f(std::integral_constant<int, 2>{});
     case 3: return f(std::integral_constant<int, 3>{});
     case 4: return f(std::integral_constant<int, 4>{});
+    case 5: return f(std::integral_constant<int, 5>{});
+    case 6: return f(std::integral_constant<int, 6>{});
+    case 7: return f(std::integral_constant<int, 7>{});
+    case 8: return f(std::integral_constant<int, 8>{});
   }
   return -(int)cudaErrorInvalidValue;
 }
@@ -377,9 +720,20 @@ int split_slots(int rows) {
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, split_kernel<T, R, Seqs>, decode_warps(R) * 32, 0);
+          &per_sm, split_form<T, R, Seqs>(),
+          Layout<T, Seqs::kDim, R>::WARPS * 32, 0);
     return e == cudaSuccess ? sms * per_sm : -(int)e;
   });
+}
+
+// Runs ``f(std::integral_constant<int, D>)`` for head dims 64 and 128.
+template <typename F>
+int with_head_dim(int D, F&& f) {
+  switch (D) {
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+  }
+  return -(int)cudaErrorInvalidValue;
 }
 
 }  // namespace dsdecode

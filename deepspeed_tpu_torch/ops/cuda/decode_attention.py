@@ -21,14 +21,19 @@ import torch
 from deepspeed_tpu_torch.ops import op_builder
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-HEAD_DIMS = (128,)   # the kernels are built for head_dim 128 only
+HEAD_DIMS = (64, 128)   # the kernel's head dims, in both forms
 # The decode form (at most DECODE_ROWS query rows per kv head) splits each
 # sequence's keys into chunks of at least DECODE_MIN_CHUNK keys, one block
 # each, merged in chunk order by a second kernel when a sequence spans
-# several.
-DECODE_ROWS = 4
+# several.  The tensor-core body (5-8 rows, bf16 / fp16; the kernel's
+# ``kTensorCores``) finishes a chunk so fast that a split pays for the merge
+# only from DECODE_MIN_CHUNK_TC keys on; shorter chunks cost more than they
+# save at the serving shapes, also when few (sequence, kv head) pairs
+# leave most of the card idle (PERF.md, PR 10).
+DECODE_ROWS = 8
 DECODE_MIN_CHUNK = 512
-_slots = {}   # (entry, device index, rows, dtype code) -> blocks held
+DECODE_MIN_CHUNK_TC = 2048
+_slots = {}   # (entry, device index, rows, head dim, dtype code) -> blocks
 
 
 def _lengths_tensor(lengths, B, device):
@@ -69,36 +74,46 @@ def decode_attention_plain(q, k, v, lengths, softmax_scale=None):
 decode_attention_plain.calls = 0
 
 
-def key_splits(pairs, S_max, slots):
+def min_chunk(rows, dtype):
+    """The shortest key chunk a decode launch of ``rows`` query rows per kv
+    head splits into: DECODE_MIN_CHUNK_TC on the tensor-core body (5-8
+    rows in bf16 or fp16), else DECODE_MIN_CHUNK."""
+    tc = rows > 4 and dtype in (torch.bfloat16, torch.float16)
+    return DECODE_MIN_CHUNK_TC if tc else DECODE_MIN_CHUNK
+
+
+def key_splits(pairs, S_max, slots, least=DECODE_MIN_CHUNK):
     """(chunks per sequence, keys per chunk) of the split-key decode body
     (``ops/csrc/split_decode.cuh``) over ``pairs`` (sequence, kv head)
     pairs of up to S_max keys: each sequence's keys split only as far as
     the pairs' blocks still fit the ``slots`` blocks the card holds at once
     (one wave: a second would run on a part of the card), in chunks of at
-    least DECODE_MIN_CHUNK keys rounded up to 64."""
-    n = max(1, min(slots // max(pairs, 1), S_max // DECODE_MIN_CHUNK))
+    least ``least`` keys (:func:`min_chunk`) rounded up to 64."""
+    n = max(1, min(slots // max(pairs, 1), S_max // least))
     chunk = -(-max(S_max, 1) // n)
     chunk = -(-chunk // 64) * 64
     return -(-max(S_max, 1) // chunk), chunk
 
 
-def decode_splits(B, T, H, Hkv, S_max, slots):
+def decode_splits(B, T, H, Hkv, S_max, slots, dtype):
     """(chunks per sequence, keys per chunk) of a launch: the decode form
     (:func:`key_splits` over B * Hkv pairs); the prefill form takes one."""
-    if T * (H // Hkv) > DECODE_ROWS:
+    rows = T * (H // Hkv)
+    if rows > DECODE_ROWS:
         return 1, max(S_max, 1)
-    return key_splits(B * Hkv, S_max, slots)
+    return key_splits(B * Hkv, S_max, slots, min_chunk(rows, dtype))
 
 
-def _decode_slots(device, rows, dtype_code, entry="decode_attention_slots"):
+def _decode_slots(device, rows, head_dim, dtype_code,
+                  entry="decode_attention_slots"):
     """Blocks of a split-key decode kernel the card holds at once (the
     occupancy query of C entry ``entry``), cached per entry, device, row
-    count and dtype."""
+    count, head dim and dtype."""
     index = torch.device(device).index
     key = (entry, torch.cuda.current_device() if index is None else index,
-           rows, dtype_code)
+           rows, head_dim, dtype_code)
     if key not in _slots:
-        slots = op_builder.load(entry)(rows, dtype_code)
+        slots = op_builder.load(entry)(rows, head_dim, dtype_code)
         if slots <= 0:
             raise RuntimeError(f"decode attention occupancy query failed: "
                                f"CUDA error {-slots}")
@@ -106,23 +121,23 @@ def _decode_slots(device, rows, dtype_code, entry="decode_attention_slots"):
     return _slots[key]
 
 
-def decode_plan(B, T, H, Hkv, S_max, dtype, device):
+def decode_plan(B, T, H, Hkv, S_max, D, dtype, device):
     """(chunks per sequence, keys per chunk) that
     :func:`decode_attention_cuda` launches for these shapes on ``device``
     (a CUDA device: the split follows its occupancy)."""
     rows = T * (H // Hkv)
-    slots = _decode_slots(device, rows, _DTYPE_CODES[dtype]) \
+    slots = _decode_slots(device, rows, D, _DTYPE_CODES[dtype]) \
         if rows <= DECODE_ROWS else 0
-    return decode_splits(B, T, H, Hkv, S_max, slots)
+    return decode_splits(B, T, H, Hkv, S_max, slots, dtype)
 
 
 def decode_attention_cuda(q, k, v, lengths, softmax_scale=None):
     """Launch the decode kernel on the current stream.
 
     q: [B, T, H, D]; k/v: [B, Hkv, S_max, D] (contiguous, same dtype as q:
-    float32, bfloat16 or float16, D = 128); lengths: a Python int shared by
-    every sequence, or an int32 CUDA tensor [B].  Returns a new [B, T, H, D]
-    tensor in q's dtype."""
+    float32, bfloat16 or float16, D = 64 or 128); lengths: a Python int
+    shared by every sequence, or an int32 CUDA tensor [B].  Returns a new
+    [B, T, H, D] tensor in q's dtype."""
     B, T, H, D = q.shape
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("decode_attention_cuda needs CUDA tensors; use the "
@@ -156,7 +171,7 @@ def decode_attention_cuda(q, k, v, lengths, softmax_scale=None):
         lens, length_all = lengths, 0
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
-    n_split, chunk = decode_plan(B, T, H, Hkv, S, q.dtype, q.device)
+    n_split, chunk = decode_plan(B, T, H, Hkv, S, D, q.dtype, q.device)
     # the chunks' (acc, m, l), from the caching allocator on this stream
     part = None if n_split == 1 else torch.empty(
         B * Hkv * n_split * T * (H // Hkv) * (D + 2), dtype=torch.float32,

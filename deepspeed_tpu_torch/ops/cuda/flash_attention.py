@@ -18,17 +18,22 @@ between them.
 import torch
 
 from deepspeed_tpu_torch.ops import op_builder
-from deepspeed_tpu_torch.ops.cuda.decode_attention import HEAD_DIMS
 
 # the C entries' dtype codes: fp32 on the CUDA cores, bf16 and fp16 on the
 # tensor cores
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the flash kernels are built for head dim 128 only (training at head dim
+# 64 is ROADMAP A16)
+FLASH_HEAD_DIMS = (128,)
 
 
 def _check(name, q, k, v, *more):
-    """Device, dtype, shape, contiguity and alignment of q [B, S, H, D],
-    k/v [B, S, Hkv, D] and same-shape-as-q tensors ``more``."""
+    """Head dim, device, dtype, shape, contiguity and alignment of q [B, S,
+    H, D], k/v [B, S, Hkv, D] and same-shape-as-q tensors ``more``."""
     ts = (q, k, v) + more
+    if q.dim() != 4 or q.shape[3] not in FLASH_HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {q.shape[-1]} not in "
+                         f"{FLASH_HEAD_DIMS}")
     if not all(t.is_cuda for t in ts):
         raise ValueError(f"{name} needs CUDA tensors; use the plain version "
                          f"for CPU tensors")
@@ -41,8 +46,6 @@ def _check(name, q, k, v, *more):
             any(t.shape != q.shape for t in more):
         raise ValueError(f"{name}: shape mismatch "
                          f"{[tuple(t.shape) for t in ts]}")
-    if q.shape[3] not in HEAD_DIMS:
-        raise ValueError(f"head_dim {q.shape[3]} not in {HEAD_DIMS}")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError(f"{name} needs contiguous tensors")
     if any(t.data_ptr() % 16 for t in ts):

@@ -20,13 +20,14 @@ so no q_tile-padded copy of q is made.
 
 Where the TPU kernel runs every sequence as q_tile-token tiles,
 :func:`plan_launch` sends each sequence to one of two forms: decode rows
-(``q_len * group <= DECODE_ROWS``, every serving decode step) to the
-split-key decode body shared with B5, and the rest to prefill tiles --
-the tensor-core kernel's 128-row tiles where :func:`tensor_core_prefill`
-holds (bf16 or fp16, the serving engine's page sizes), else the CUDA-core
-tiles.  Head dim 64 (TinyLlama-1.1B as a speculative draft) has no decode
-form: every such sequence takes the CUDA-core prefill tiles.  That choice is by dtype and shape, made here, and not a fallback:
-both forms are this wrapper's kernel, counted in the same ``launches``.
+(``q_len * group <= DECODE_ROWS``: every serving decode step, a
+speculative verify window of up to 8 tokens at group 1, a group-8 draft's
+decode step; head dim 64 or 128) to the split-key decode body shared with
+B5, and the rest to prefill tiles -- the tensor-core kernel's 128-row
+tiles where :func:`tensor_core_prefill` holds (bf16 or fp16, head dim
+128, the serving engine's page sizes), else the CUDA-core tiles.  That
+choice is by dtype and shape, made here, and not a fallback: both forms
+are this wrapper's kernel, counted in the same ``launches``.
 """
 
 import functools
@@ -42,14 +43,12 @@ from deepspeed_tpu_torch.ops.cuda.decode_attention import (DECODE_ROWS,
                                                            _DTYPE_CODES,
                                                            _decode_slots,
                                                            dense_attention,
-                                                           key_splits)
+                                                           key_splits,
+                                                           min_chunk)
 
 DEFAULT_Q_TILE = 8
 TC_ROWS = 128   # query rows (tokens x group heads) of a tensor-core tile
 TC_KEYS = 128   # keys of its K/V tile
-# head dims of the kernel: 128 in every form, 64 in the CUDA-core prefill
-# tiles only
-RAGGED_HEAD_DIMS = HEAD_DIMS + (64,)
 
 
 def tensor_core_prefill(dtype, head_dim, group, page_size):
@@ -74,17 +73,14 @@ class LaunchPlan(NamedTuple):
     tensor_cores: bool          # the prefill tiles' form
 
 
-def plan_launch(q_lens, group, tensor_cores, q_tile=DEFAULT_Q_TILE,
-                head_dim=128):
+def plan_launch(q_lens, group, tensor_cores, q_tile=DEFAULT_Q_TILE):
     """Split a call's sequences by form.  A sequence of ``q_len * group``
-    <= DECODE_ROWS rows per kv head takes the decode form, whole (head dim
-    128 only); the others are cut into prefill tiles of ``TC_ROWS //
-    group`` tokens (tensor cores; the tiles with the most keys first) or
-    ``min(q_tile, longest prefill)`` tokens (CUDA cores, the JAX tiling's
-    order)."""
-    rows = DECODE_ROWS if head_dim in HEAD_DIMS else 0
-    dec = [s for s, ql in enumerate(q_lens) if ql * group <= rows]
-    pre = [s for s, ql in enumerate(q_lens) if ql * group > rows]
+    <= DECODE_ROWS rows per kv head takes the decode form, whole; the
+    others are cut into prefill tiles of ``TC_ROWS // group`` tokens
+    (tensor cores; the tiles with the most keys first) or ``min(q_tile,
+    longest prefill)`` tokens (CUDA cores, the JAX tiling's order)."""
+    dec = [s for s, ql in enumerate(q_lens) if ql * group <= DECODE_ROWS]
+    pre = [s for s, ql in enumerate(q_lens) if ql * group > DECODE_ROWS]
     pre_lens = [q_lens[s] for s in pre]
     tokens = TC_ROWS // group if tensor_cores else \
         int(min(q_tile, max(pre_lens, default=1)))
@@ -171,8 +167,8 @@ def ragged_paged_attention_cuda(q, k_pages, v_pages, block_tables, ctx_lens,
             k_pages.shape[3] != D or H % k_pages.shape[1] != 0:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, pages "
                          f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)}")
-    if D not in RAGGED_HEAD_DIMS:
-        raise ValueError(f"head_dim {D} not in {RAGGED_HEAD_DIMS}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
     if not (q.is_contiguous() and k_pages.is_contiguous() and
             v_pages.is_contiguous()):
         raise ValueError("ragged_paged_attention_cuda needs contiguous "
@@ -193,9 +189,6 @@ def ragged_paged_attention_cuda(q, k_pages, v_pages, block_tables, ctx_lens,
     _check_int32("qtile_of_tile", qtile_of_tile, (n_tiles,))
     if n_dec:
         _check_int32("decode_seqs", decode_seqs, (n_dec,))
-        if D not in HEAD_DIMS:
-            raise ValueError(f"the decode form needs head_dim in "
-                             f"{HEAD_DIMS}, got {D} (see plan_launch)")
         if not 1 <= decode_rows <= DECODE_ROWS:
             raise ValueError(f"decode_rows {decode_rows} outside [1, "
                              f"{DECODE_ROWS}]")
@@ -210,9 +203,10 @@ def ragged_paged_attention_cuda(q, k_pages, v_pages, block_tables, ctx_lens,
     code = _DTYPE_CODES[q.dtype]
     n_split, chunk, part = 1, max_pages * page, None
     if n_dec:
-        slots = _decode_slots(q.device, decode_rows, code,
+        slots = _decode_slots(q.device, decode_rows, D, code,
                               entry="ragged_decode_slots")
-        n_split, chunk = key_splits(n_dec * Hkv, max_pages * page, slots)
+        n_split, chunk = key_splits(n_dec * Hkv, max_pages * page, slots,
+                                    min_chunk(decode_rows, q.dtype))
         # the chunks' (acc, m, l), from the caching allocator on this stream
         if n_split > 1:
             part = torch.empty(n_dec * Hkv * n_split * decode_rows * (D + 2),
@@ -286,7 +280,7 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, ctx_lens,
         return torch.cat(outs, dim=0)
     group = q.shape[1] // k_pages.shape[1]
     plan = plan_launch(q_lens, group, tensor_core_prefill(
-        q.dtype, q.shape[2], group, k_pages.shape[2]), q_tile, q.shape[2])
+        q.dtype, q.shape[2], group, k_pages.shape[2]), q_tile)
     offs = np.concatenate([[0], np.cumsum(q_lens)[:-1]])
     dev = q.device
     ctx = (ctx_lens.to(dev, torch.int32) if torch.is_tensor(ctx_lens)
@@ -299,11 +293,11 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, ctx_lens,
 
 
 @functools.lru_cache(maxsize=64)
-def _rect_plan(B, T, group, tensor_cores, q_tile, head_dim, device):
+def _rect_plan(B, T, group, tensor_cores, q_tile, device):
     """(plan, q_lens, q_offs, device plan) of a rectangular batch -- they
     depend only on the shape, so each serving shape uploads them once
     instead of once per layer."""
-    plan = plan_launch([T] * B, group, tensor_cores, q_tile, head_dim)
+    plan = plan_launch([T] * B, group, tensor_cores, q_tile)
     return (plan, _device_int32(np.full(B, T), device),
             _device_int32(np.arange(B) * T, device),
             _plan_tensors(plan, device))
@@ -323,7 +317,7 @@ def ragged_paged_attention_rect(q, k_pages, v_pages, block_tables, lengths,
     group = H // k_pages.shape[1]
     plan, q_lens, q_offs, dev_plan = _rect_plan(
         B, T, group, tensor_core_prefill(q.dtype, D, group, k_pages.shape[2]),
-        int(q_tile), D, q.device)
+        int(q_tile), q.device)
     out = _launch(q.reshape(B * T, H, D), k_pages, v_pages, block_tables,
                   lengths, q_lens, q_offs, plan, dev_plan, softmax_scale)
     return out.reshape(B, T, H, D)

@@ -36,13 +36,13 @@ SIGNATURES = {
     "decode_attention": ("decode_attention", "ds_decode_attention",
                          [_P] * 6 + [_I] * 10 + [_F, _P]),
     "decode_attention_slots": ("decode_attention",
-                               "ds_decode_attention_slots", [_I, _I]),
+                               "ds_decode_attention_slots", [_I] * 3),
     # one call launches the decode form, the prefill form or both
     "ragged_paged_attention": ("ragged_paged_attention",
                                "ds_ragged_paged_attention",
                                [_P] * 12 + [_I] * 15 + [_F, _P]),
     "ragged_decode_slots": ("ragged_paged_attention",
-                            "ds_ragged_decode_slots", [_I, _I]),
+                            "ds_ragged_decode_slots", [_I] * 3),
     # the flash entries take the biased kernels' ALiBi slopes (a pointer,
     # null for none) and sliding window (an int, <= 0 for none) as well
     "flash_attention_fwd": ("flash_attention_fwd", "ds_flash_attention_fwd",

@@ -1,25 +1,32 @@
 #!/usr/bin/env python3
-"""A/B of source variants and split plans of the port's decode-attention
-kernel (B5), on one card, in one process.
+"""A/B of source variants and split plans of the split-key decode body
+(``ops/csrc/split_decode.cuh``) in both its kernels -- decode attention
+(B5) and the decode rows of ragged paged attention (B4) -- on one card, in
+one process.
 
     python3 scripts/decode_kernel_ab.py VARIANTS.json [--out DIR]
 
 VARIANTS.json maps a variant's name to ``{"dir": <sources>, "edits":
-{<file>: [[regex, replacement], ...]}, "slots": N}``, as in
-``scripts/flash_kernel_ab.py`` (whose build it shares); ``slots``, when
-given, replaces the card's block slots in the wrapper's split plan
-(``decode_plan``): 1 keeps one block per (sequence, kv head), a large
-number splits every sequence into DECODE_MIN_CHUNK-key chunks.  Each
-variant's ``decode_attention.cu`` is built with the op builder's nvcc
-flags into ``--out`` (default, gitignored: ``deepspeed_tpu_torch/_build/
-ab_decode``).  Then, for each variant, at Llama-2-7B's decode shapes (B=4,
-T=1, 32 query heads of 128, bf16; 32 kv heads and GQA with 8): generate's
-step (len 144 over a 160-token cache), the whole context (len 4096) and a
-half-full 2048-token cache (len 1000): the split plan, the max abs error
-against the plain version run in fp32, and device ms by CUDA-graph replay
-over rotating caches (more than the 50 MB L2) beside SDPA's on the same
-inputs and the bound (K/V and q bytes over 3.35 TB/s).  The first variant
-is timed again at the end, so drift shows.
+{<file>: [[regex, replacement], ...]}, "splits": [n, ...]}``, as in
+``scripts/flash_kernel_ab.py`` (whose build it shares); ``splits``, when
+given, replaces the wrappers' split plan (``key_splits``) by each listed
+count in turn: every sequence's keys in chunks of S_max / n (rounded up
+to 64), n = 1 one block per (sequence, kv head).  Each variant's
+``decode_attention.cu`` and ``ragged_paged_attention.cu`` are built with
+the op builder's nvcc flags into ``--out`` (default, gitignored:
+``deepspeed_tpu_torch/_build/ab_decode``), with every split kernel's
+registers and spills printed.  Then, for each variant and plan, bf16, at
+the main paths' decode shapes: B4 over the serve run's 8 slots (page 128)
+-- the 1-row step (Llama-2-7B, 32 heads of 128) and its GQA 32 / 8 form
+(4 rows), the speculative verify window [8, 5], the TinyLlama-1.1B
+draft's step (32 / 4 heads of 64) and a Llama-2-70B-shaped step (64 / 8
+heads of 128) -- and B5's generate step
+(B=4, length 144 over a 160-token cache) at the same three attention
+shapes, and at Llama-2-70B's at length 4096: the max abs error against
+the plain version run in fp32, device ms by CUDA-graph replay over
+rotating inputs (more than the 50 MB L2) beside SDPA's on the same inputs
+and the bound (K/V and q bytes over 3.35 TB/s).  The first variant is
+timed again at the end, so drift shows.
 """
 
 import argparse
@@ -29,11 +36,79 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = ("decode_attention",)
-# (B, S_max, len, Hkv, rotating copies) at H = 32, D = 128
-SHAPES = [(4, 160, 144, 32, 12), (4, 160, 144, 8, 12),
-          (4, 4096, 4096, 32, 2), (4, 4096, 4096, 8, 4),
-          (4, 2048, 1000, 32, 4)]
+SOURCES = ("decode_attention", "ragged_paged_attention")
+# B4 cases: (label, T, H, Hkv, D, tokens past each prompt)
+PAGED = [("B4 1-row step H32/32", 1, 32, 32, 128, 16),
+         ("B4 4-row step H32/8", 1, 32, 8, 128, 16),
+         ("B4 verify window [8, 5] H32/32", 5, 32, 32, 128, 9),
+         ("B4 TinyLlama step H32/4 D=64", 1, 32, 4, 64, 16),
+         ("B4 Llama-2-70B-shaped step H64/8", 1, 64, 8, 128, 16)]
+# B5 cases: (label, B, H, Hkv, D, S_max, length, rotating copies)
+CONTIGUOUS = [("B5 step H32/32", 4, 32, 32, 128, 160, 144, 12),
+              ("B5 TinyLlama step H32/4 D=64", 4, 32, 4, 64, 160, 144, 12),
+              ("B5 Llama-2-70B-shaped step H64/8", 4, 64, 8, 128, 160, 144,
+               12),
+              ("B5 Llama-2-70B-shaped len 4096 H64/8", 4, 64, 8, 128, 4096,
+               4096, 4)]
+
+
+def cases(sm, torch, F, da, rp):
+    """[(label, kernel fn(i), SDPA fn(i), copies, plain fp32 output of
+    input 0, bound ms)] at the shapes above."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    bf = torch.bfloat16
+    out = []
+    prompts = sm.SERVE_PROMPTS[:sm.SERVE_SLOTS]
+    for label, T, H, Hkv, D, off in PAGED:
+        c = 4
+        states = [sm._engine_state([p + sm.SERVE_NEW for p in prompts], Hkv,
+                                   D, bf, gen) for _ in range(c)]
+        ctx = [p + off for p in prompts]
+        lens = torch.tensor(ctx, dtype=torch.int32, device="cuda")
+        q = sm._rand((c, len(ctx), T, H, D), bf, gen)
+        tb, kp, vp = states[0]
+        want = rp.paged_attention_plain(q[0].float(), kp.float(), vp.float(),
+                                        tb, lens)
+        Smax = tb.shape[1] * sm.SERVE_PAGE
+        dense = [tuple(x[t.long()].transpose(1, 2).reshape(
+            len(ctx), Hkv, Smax, D) for x in (k_, v_)) for t, k_, v_ in states]
+        qpos = lens.long()[:, None] - T + torch.arange(T, device="cuda")
+        mask = (torch.arange(Smax, device="cuda")[None, None] <=
+                qpos[:, :, None])[:, None]
+        qs = q.transpose(2, 3).contiguous()
+        nbytes = sum(2 * Hkv * n * D + 2 * T * H * D for n in ctx) * 2
+        out.append((
+            label,
+            lambda i, q=q, st=states, lens=lens: rp.ragged_paged_attention_rect(
+                q[i], st[i][1], st[i][2], st[i][0], lens),
+            lambda i, qs=qs, dn=dense, m=mask, g=Hkv != H:
+                F.scaled_dot_product_attention(qs[i], dn[i][0], dn[i][1],
+                                               attn_mask=m, enable_gqa=g),
+            c, want, nbytes / sm.HBM_BYTES_PER_S * 1e3))
+    for label, B, H, Hkv, D, S, L, c in CONTIGUOUS:
+        q = sm._rand((c, B, 1, H, D), bf, gen)
+        k = sm._rand((c, B, Hkv, S, D), bf, gen)
+        v = sm._rand((c, B, Hkv, S, D), bf, gen)
+        want = da.decode_attention_plain(q[0].float(), k[0].float(),
+                                         v[0].float(), L)
+        qs = q.transpose(2, 3).contiguous()
+        nbytes = B * (2 * Hkv * L * D + 2 * H * D) * 2
+        out.append((
+            label,
+            lambda i, q=q, k=k, v=v, L=L: da.decode_attention_cuda(
+                q[i], k[i], v[i], L),
+            lambda i, qs=qs, k=k, v=v, L=L, g=Hkv != H:
+                F.scaled_dot_product_attention(
+                    qs[i], k[i][:, :, :L], v[i][:, :, :L], enable_gqa=g),
+            c, want, nbytes / sm.HBM_BYTES_PER_S * 1e3))
+    return out
+
+
+def chunks_of(S, n):
+    """(chunks, keys per chunk) of S keys cut n ways, chunks a multiple of
+    64 keys, as the wrapper's plan gives them."""
+    c = -(-(-(-S // n)) // 64) * 64
+    return -(-S // c), c
 
 
 def main():
@@ -45,48 +120,43 @@ def main():
     sys.path.insert(0, REPO)
     import torch
     import torch.nn.functional as F
-    from chip_smoke import _rand, graph_ms, reference
+    import chip_smoke as sm
     from flash_kernel_ab import build, use
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
     from deepspeed_tpu_torch.ops.cuda import decode_attention as da
+    from deepspeed_tpu_torch.ops.cuda import ragged_paged_attention as rp
     with open(args.variants) as fh:
         variants = json.load(fh)
     os.makedirs(args.out, exist_ok=True)
     t0 = time.time()
     libs = build(variants, args.out, SOURCES)
     print(f"built in {time.time() - t0:.1f} s", flush=True)
-    card_slots = da._decode_slots
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    H, D = 32, 128
-    cases = []
-    for B, S, L, Hkv, c in SHAPES:
-        q = _rand((c, B, 1, H, D), torch.bfloat16, gen)
-        k = _rand((c, B, Hkv, S, D), torch.bfloat16, gen)
-        v = _rand((c, B, Hkv, S, D), torch.bfloat16, gen)
-        qs = q.transpose(2, 3).contiguous()
-        lib = graph_ms(lambda i: F.scaled_dot_product_attention(
-            qs[i], k[i][:, :, :L], v[i][:, :, :L], enable_gqa=Hkv != H), c)
-        want = reference(da.decode_attention_plain, q[0], k[0], v[0], L)
-        bound = B * (2 * Hkv * L * D + 2 * H * D) * 2 / 3.35e12 * 1e3
-        cases.append((f"len {L} S_max {S} H{H}/{Hkv}", B, S, L, Hkv, c,
-                      (q, k, v), want, lib, bound))
+    for name in variants:
+        for src in SOURCES:
+            with open(os.path.join(args.out, name, f"{src}.log")) as fh:
+                usage = sm.ptxas_usage(fh.read())
+            for kernel, (regs, st, ld) in usage.items():
+                if "split" in kernel:
+                    print(f"{name} {src}: {kernel[:110]}: {regs} registers, "
+                          f"spills {st}/{ld} B", flush=True)
+    card_splits = da.key_splits
+    todo = cases(sm, torch, F, da, rp)
+    lib_ms = {label: sm.graph_ms(lib, c) for label, _, lib, c, _, _ in todo}
     for name in list(variants) + list(variants)[:1]:
         use(libs, name, SOURCES)
-        slots = variants[name].get("slots")
-        da._decode_slots = card_slots if slots is None else \
-            (lambda *a, n=slots: n)
-        for label, B, S, L, Hkv, c, (q, k, v), want, lib, bound in cases:
-            got = da.decode_attention_cuda(q[0], k[0], v[0], L)
-            err = (got.float() - want.float()).abs().max().item()
-            ms = graph_ms(lambda i: da.decode_attention_cuda(
-                q[i], k[i], v[i], L), c)
-            n, chunk = da.decode_plan(B, 1, H, Hkv, S, torch.bfloat16,
-                                      q.device)
-            print(f"{name} {label}: {n} x {chunk} keys, device ms {ms:.4f} "
-                  f"(SDPA {lib:.4f}), {bound / ms:.3f} of bound "
-                  f"{bound:.4f}, max abs err {err:.2e}", flush=True)
-    da._decode_slots = card_slots
+        da._slots.clear()
+        for n in variants[name].get("splits", [None]):
+            da.key_splits = rp.key_splits = card_splits if n is None else \
+                (lambda pairs, S, slots, least=0, n=n: chunks_of(S, n))
+            for label, fn, _, c, want, bound in todo:
+                err = (fn(0).float() - want).abs().max().item()
+                ms = sm.graph_ms(fn, c)
+                print(f"{name} splits {n or 'card'} {label}: device ms "
+                      f"{ms:.4f} (SDPA {lib_ms[label]:.4f}), {bound / ms:.3f}"
+                      f" of bound {bound:.4f}, max abs err {err:.2e}",
+                      flush=True)
+    da.key_splits = rp.key_splits = card_splits
     print(f"done in {time.time() - t0:.1f} s")
 
 

@@ -1,29 +1,36 @@
 #!/usr/bin/env python3
-"""A/B of two trees' block-sparse (B6) and ragged paged-attention (B4)
-kernels on one card, in one run: parent, change, change, parent.
+"""A/B of two trees' serving kernels on one card, in one run: parent,
+change, change, parent.
 
     git archive <parent> | tar -x -C .tmp/parent     # .tmp is gitignored
     python3 scripts/serving_kernel_ab.py --parent .tmp/parent \\
-        [--change .] [--out results.json]
+        [--change .] [--cases decode] [--out results.json]
 
 Each tree runs in a process of its own (the two trees' wrappers differ),
-which puts the tree first on ``sys.path``, builds its ``sparse_attention``,
-``ragged_paged_attention`` and ``flash_attention_fwd`` sources with its own
-op builder, and times, by CUDA-graph replay over rotating input sets (more
-than the 50 MB L2), bf16, at the main paths' shapes of ``chip_smoke.py``:
+which puts the tree first on ``sys.path``, builds its kernel sources with
+its own op builder, and times, by CUDA-graph replay over rotating input
+sets (more than the 50 MB L2), bf16, at the main paths' shapes of
+``chip_smoke.py``:
 
 * B4 decode: the serve run's 8-slot decode step (Llama-2-7B, 32 heads of
-  128, page 128), MHA and GQA 32/8;
+  128, page 128), MHA and GQA 32/8; the speculative verify window [8, 5]
+  (MHA, 5 tokens a slot); the TinyLlama-1.1B draft's decode step (32 / 4
+  heads of 64: group 8); Llama-2-70B's attention shape (64 / 8 heads of
+  128: group 8);
+* B5: generate's decode step (B=4, length 144 over a 160-token cache) at
+  Llama-2-7B's, TinyLlama-1.1B's and Llama-2-70B's attention shapes (a
+  tree whose B5 refuses a head dim reports it and times nothing);
 * B4 prefill: the serve run's bucketed prefills at 512 and 1024 (B=1,
   length = bucket), and B1's forward (``flash_attention_fwd_cuda``) on
   the same q and dense K/V -- the same work;
 * B6: ``SparseSelfAttention``'s four cases (Fixed block 16 and BigBird
   block 64, head dims 64 and 128, B=2, S=4096, 16 heads).
 
-Beside each: SDPA on the same inputs (a yardstick, never the port's
-path), and the kernel's max abs error against its plain version run in
-fp32.  Prints one line per (tree, case) and writes every number, with
-the card's name and power limit, to ``--out`` (default, gitignored:
+``--cases decode`` times the B4 decode and B5 cases alone.  Beside each:
+SDPA on the same inputs (a yardstick, never the port's path), and the
+kernel's max abs error against its plain version run in fp32.  Prints one
+line per (tree, case) and writes every number, with the card's name and
+power limit, to ``--out`` (default, gitignored:
 ``deepspeed_tpu_torch/_build/ab_serving.json``).
 """
 
@@ -37,7 +44,8 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = ("sparse_attention", "ragged_paged_attention", "flash_attention_fwd")
+SOURCES = ("sparse_attention", "ragged_paged_attention", "flash_attention_fwd",
+           "decode_attention")
 
 
 def _smoke():
@@ -51,7 +59,7 @@ def _smoke():
     return mod
 
 
-def worker(tree):
+def worker(tree, cases):
     """Times one tree's kernels; prints one JSON line of results."""
     sys.path.insert(0, os.path.abspath(tree))
     import torch
@@ -62,15 +70,18 @@ def worker(tree):
         sys.exit(f"imported {deepspeed_tpu_torch.__file__}, not {tree}")
     from deepspeed_tpu_torch.ops import op_builder
     from deepspeed_tpu_torch.ops import sparse_attention as sa
+    from deepspeed_tpu_torch.ops.cuda import decode_attention as da
     from deepspeed_tpu_torch.ops.cuda import sparse_attention as spa
     from deepspeed_tpu_torch.ops.cuda.flash_attention import \
         flash_attention_fwd_cuda
     from deepspeed_tpu_torch.ops.cuda.ragged_paged_attention import (
         paged_attention_plain, ragged_paged_attention_rect)
     sm = _smoke()
+    sources = SOURCES if cases == "all" else \
+        ("ragged_paged_attention", "decode_attention")
     t0 = time.time()
     op_builder.build(tuple(n for n in op_builder.SIGNATURES
-                           if op_builder.SIGNATURES[n][0] in SOURCES))
+                           if op_builder.SIGNATURES[n][0] in sources))
     build_s = time.time() - t0
     gen = torch.Generator(device="cuda").manual_seed(31)
     bf = torch.bfloat16
@@ -80,36 +91,78 @@ def worker(tree):
     def err(got, exact):
         return (got.float() - exact).abs().max().item()
 
-    # B4 decode: 8 slots, the serve run's first 8 prompts 16 tokens in
+    # B4 decode rows: 8 slots, the serve run's first 8 prompts (T tokens
+    # a slot, ctx_off tokens past the prompt)
     prompts = sm.SERVE_PROMPTS[:sm.SERVE_SLOTS]
-    ctx = [p + 16 for p in prompts]
-    lens = torch.tensor(ctx, dtype=torch.int32, device="cuda")
-    for Hkv in (32, 8):
+    for label, T, Hq, Hkv, Dh, ctx_off in (
+            ("B4 decode 8 slots H32/32", 1, 32, 32, 128, 16),
+            ("B4 decode 8 slots H32/8", 1, 32, 8, 128, 16),
+            ("B4 verify window [8, 5] H32/32", 5, 32, 32, 128, 9),
+            ("B4 TinyLlama decode H32/4 D=64", 1, 32, 4, 64, 16),
+            ("B4 Llama-2-70B-shaped decode H64/8", 1, 64, 8, 128, 16)):
+        ctx = [p + ctx_off for p in prompts]
+        lens = torch.tensor(ctx, dtype=torch.int32, device="cuda")
         c = 4
         states = [sm._engine_state([p + sm.SERVE_NEW for p in prompts], Hkv,
-                                   D, bf, gen) for _ in range(c)]
-        q = sm._rand((c, len(ctx), 1, H, D), bf, gen)
+                                   Dh, bf, gen) for _ in range(c)]
+        q = sm._rand((c, len(ctx), T, Hq, Dh), bf, gen)
         tb, kp, vp = states[0]
         e = err(ragged_paged_attention_rect(q[0], kp, vp, tb, lens),
                 paged_attention_plain(q[0].float(), kp.float(), vp.float(),
                                       tb, lens))
         Smax = tb.shape[1] * sm.SERVE_PAGE
         dense = [tuple(x[t.long()].transpose(1, 2).reshape(
-            len(ctx), Hkv, Smax, D) for x in (k_, v_))
+            len(ctx), Hkv, Smax, Dh) for x in (k_, v_))
             for t, k_, v_ in states]
-        mask = (torch.arange(Smax, device="cuda")[None] <
-                lens[:, None].long())[:, None, None]
+        qpos = lens.long()[:, None] - T + torch.arange(T, device="cuda")
+        mask = (torch.arange(Smax, device="cuda")[None, None] <=
+                qpos[:, :, None])[:, None]
         qs = q.transpose(2, 3).contiguous()
         ms = sm.graph_ms(lambda i: ragged_paged_attention_rect(
             q[i], states[i][1], states[i][2], states[i][0], lens), c)
         lib = sm.graph_ms(lambda i: F.scaled_dot_product_attention(
             qs[i], dense[i][0], dense[i][1], attn_mask=mask,
-            enable_gqa=Hkv != H), c)
-        nbytes = sum(2 * Hkv * n * D + 2 * H * D for n in ctx) * 2
-        res[f"B4 decode 8 slots H32/{Hkv}"] = dict(
+            enable_gqa=Hkv != Hq), c)
+        nbytes = sum(2 * Hkv * n * Dh + 2 * T * Hq * Dh for n in ctx) * 2
+        res[label] = dict(
             ms=ms, sdpa_ms=lib, bound_ms=nbytes / sm.HBM_BYTES_PER_S * 1e3,
             max_abs_err=e)
         del states, dense, q, qs
+        torch.cuda.empty_cache()
+
+    # B5: generate's decode step, B=4, length 144 over a 160-token cache
+    B, S, L = 4, 160, 144
+    for label, Hq, Hkv, Dh in (("B5 generate step H32/32", 32, 32, 128),
+                               ("B5 TinyLlama generate step H32/4 D=64", 32,
+                                4, 64),
+                               ("B5 Llama-2-70B-shaped generate step H64/8",
+                                64, 8, 128)):
+        if Dh not in da.HEAD_DIMS:
+            res[label] = dict(refused=f"head_dim {Dh} not in "
+                                      f"{da.HEAD_DIMS}")
+            continue
+        c = 12
+        q = sm._rand((c, B, 1, Hq, Dh), bf, gen)
+        k = sm._rand((c, B, Hkv, S, Dh), bf, gen)
+        v = sm._rand((c, B, Hkv, S, Dh), bf, gen)
+        e = err(da.decode_attention_cuda(q[0], k[0], v[0], L),
+                da.decode_attention_plain(q[0].float(), k[0].float(),
+                                          v[0].float(), L))
+        qs = q.transpose(2, 3).contiguous()
+        ms = sm.graph_ms(lambda i: da.decode_attention_cuda(
+            q[i], k[i], v[i], L), c)
+        lib = sm.graph_ms(lambda i: F.scaled_dot_product_attention(
+            qs[i], k[i][:, :, :L], v[i][:, :, :L], enable_gqa=Hkv != Hq), c)
+        nbytes = B * (2 * Hkv * L * Dh + 2 * Hq * Dh) * 2
+        res[label] = dict(
+            ms=ms, sdpa_ms=lib, bound_ms=nbytes / sm.HBM_BYTES_PER_S * 1e3,
+            max_abs_err=e)
+        del q, k, v, qs
+        torch.cuda.empty_cache()
+    if cases != "all":
+        print(json.dumps({"tree": tree, "build_s": build_s, "results": res}),
+              flush=True)
+        return
 
     # B4 prefill at the serve run's buckets 512 and 1024, and B1 on the
     # same work
@@ -188,10 +241,12 @@ def main():
     ap.add_argument("--change", default=REPO, help="this tree (default)")
     ap.add_argument("--out", default=os.path.join(
         REPO, "deepspeed_tpu_torch", "_build", "ab_serving.json"))
+    ap.add_argument("--cases", choices=("all", "decode"), default="all",
+                    help="decode: the B4 decode and B5 cases alone")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        return worker(args.worker)
+        return worker(args.worker, args.cases)
     if not args.parent:
         ap.error("--parent is required")
     import torch
@@ -205,8 +260,8 @@ def main():
     for label, tree in (("parent", args.parent), ("change", args.change),
                         ("change", args.change), ("parent", args.parent)):
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--worker", tree], capture_output=True,
-                              text=True, timeout=900)
+                               "--worker", tree, "--cases", args.cases],
+                              capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             sys.exit(f"{label} ({tree}) failed:\n{proc.stdout[-3000:]}\n"
                      f"{proc.stderr[-3000:]}")
@@ -214,6 +269,10 @@ def main():
         run["label"] = label
         runs.append(run)
         for case, r in run["results"].items():
+            if "refused" in r:
+                print(f"{label} {case}: refused ({r['refused']})",
+                      flush=True)
+                continue
             extra = f", B1 {r['b1_ms']:.4f}" if "b1_ms" in r else ""
             print(f"{label} {case}: {r['ms']:.4f} ms (SDPA "
                   f"{r['sdpa_ms']:.4f}{extra}; bound {r['bound_ms']:.4f}), "

@@ -16,7 +16,8 @@ from deepspeed_tpu.ops.decode_attention import init_cache as jax_init_cache
 from deepspeed_tpu.ops.decode_attention import update_cache as jax_update
 from deepspeed_tpu.ops.pallas.decode_attention import decode_attention_pallas
 from deepspeed_tpu_torch.ops.cuda.decode_attention import (
-    DECODE_MIN_CHUNK, decode_attention_plain, decode_splits)
+    DECODE_MIN_CHUNK, DECODE_MIN_CHUNK_TC, DECODE_ROWS,
+    decode_attention_plain, decode_splits, min_chunk)
 from deepspeed_tpu_torch.ops.decode_attention import (decode_attention,
                                                       init_cache,
                                                       resolve_backend,
@@ -107,24 +108,66 @@ def test_chunk_edge_lengths_match_pallas(Hkv):
     np.testing.assert_allclose(got, np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("T,Hkv", [(1, 1), (1, 2), (2, 1)],
+                         ids=["decode", "decode_g4", "prefill_form"])
+def test_head_dim_64_group_8_matches_pallas(T, Hkv):
+    """Head dim 64 with a GQA group of 8 (TinyLlama-1.1B's shape, 32/4
+    heads, cut to 8/1) and of 4, on ragged lengths: decode steps (8 and 4
+    rows a kv head, the decode form on the card) and two tokens at group 8
+    (16 rows, the prefill form).  The plain version, which the card holds
+    the kernel to, against the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(13)
+    Hq, Dh, Sm = 8, 64, 32
+    q = _rand(rng, 3, T, Hq, Dh)
+    k, v = _rand(rng, 3, Hkv, Sm, Dh), _rand(rng, 3, Hkv, Sm, Dh)
+    lengths = np.asarray([T, 17, Sm], np.int32)
+    assert (T * Hq // Hkv <= DECODE_ROWS) == (T == 1)
+    got = decode_attention_plain(torch.from_numpy(q), torch.from_numpy(k),
+                                 torch.from_numpy(v),
+                                 torch.from_numpy(lengths)).numpy()
+    want = decode_attention_pallas(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), jnp.asarray(lengths),
+                                   interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
 @pytest.mark.parametrize("B,T,H,Hkv,slots,want", [
     (4, 1, 32, 32, 132, [(1, 192), (1, 4096)]),      # 128 blocks fill it
     (1, 1, 32, 32, 132, [(1, 192), (4, 1024)]),      # 32 blocks: split
     (4, 1, 32, 8, 264, [(1, 192), (8, 512)]),        # GQA, 4 rows
     (4, 128, 32, 32, 132, [(1, 160), (1, 4096)]),    # prefill form
-    (2, 2, 32, 8, 264, [(1, 160), (1, 4096)]),       # 8 rows: prefill
+    (2, 2, 32, 8, 264, [(1, 192), (2, 2048)]),       # 8 rows: decode form
+    (4, 1, 32, 4, 132, [(1, 192), (2, 2048)]),       # group 8 (TinyLlama)
+    (8, 5, 32, 32, 132, [(1, 192), (1, 4096)]),      # 5 rows, 256 pairs
+    (1, 9, 32, 32, 132, [(1, 160), (1, 4096)]),      # 9 rows: prefill
 ])
 def test_decode_splits(B, T, H, Hkv, slots, want):
-    """The decode form splits a sequence's keys only as far as one wave
-    of the card's block slots, in chunks of at least DECODE_MIN_CHUNK keys
-    (a multiple of 64) that cover S_max (the C entry refuses less)."""
-    got = [decode_splits(B, T, H, Hkv, S, slots) for S in (160, 4096)]
+    """The decode form (at most DECODE_ROWS rows a kv head) splits a
+    sequence's keys only as far as one wave of the card's block slots, in
+    chunks of at least DECODE_MIN_CHUNK keys (a multiple of 64; 2048 on the
+    tensor-core body, bf16 at 5-8 rows) that cover S_max (the C entry
+    refuses less); the prefill form takes one."""
+    got = [decode_splits(B, T, H, Hkv, S, slots, torch.bfloat16)
+           for S in (160, 4096)]
     assert got == want
     for S in (1, 160, 511, 512, 513, 2048, 4096):
-        n, c = decode_splits(B, T, H, Hkv, S, slots)
+        n, c = decode_splits(B, T, H, Hkv, S, slots, torch.bfloat16)
         assert n * c >= S > (n - 1) * c
         assert n == 1 or (c % 64 == 0 and c >= DECODE_MIN_CHUNK and
                           B * Hkv * n <= slots)
+
+
+@pytest.mark.parametrize("rows,dtype,want", [
+    (1, torch.bfloat16, DECODE_MIN_CHUNK), (4, torch.float16, DECODE_MIN_CHUNK),
+    (5, torch.bfloat16, DECODE_MIN_CHUNK_TC),
+    (8, torch.float16, DECODE_MIN_CHUNK_TC), (8, torch.float32, DECODE_MIN_CHUNK)])
+def test_min_chunk_by_form(rows, dtype, want):
+    """The tensor-core body (5-8 rows in bf16 or fp16) splits only into
+    chunks of DECODE_MIN_CHUNK_TC keys; the CUDA-core body (1-4 rows, and
+    fp32 at any row count) into chunks of DECODE_MIN_CHUNK."""
+    assert min_chunk(rows, dtype) == want
+    n, c = decode_splits(1, rows, 32, 32, 8192, 32 * 16, dtype)
+    assert c == want and n == 8192 // want
 
 
 def test_update_cache_raises_past_the_buffer():

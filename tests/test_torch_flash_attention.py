@@ -33,6 +33,7 @@ from deepspeed_tpu.ops.pallas.flash_attention import \
 from deepspeed_tpu_torch.models.transformer import alibi_slopes
 from deepspeed_tpu_torch.ops.attention import (alibi_window_bias, attention,
                                                reference_attention)
+from deepspeed_tpu_torch.ops.cuda import flash_attention as flash_cuda
 from deepspeed_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_bwd_plain, flash_attention_fwd_plain)
 
@@ -250,3 +251,21 @@ def test_backend_names():
     # "plain" is the CPU path "auto" takes
     torch.testing.assert_close(attention(q, k, v, backend="plain"),
                                attention(q, k, v))
+
+
+@pytest.mark.parametrize("wrapper", [
+    "flash_attention_fwd_cuda", "flash_attention_fwd_biased_cuda",
+    "flash_attention_bwd_dq_cuda", "flash_attention_bwd_dq_biased_cuda",
+    "flash_attention_bwd_dkv_cuda", "flash_attention_bwd_dkv_biased_cuda"])
+def test_flash_wrappers_refuse_head_dim_64(wrapper):
+    """The serving kernels take head dim 64; the flash kernels are built
+    for 128 only and refuse 64 before anything else (training at head dim
+    64 is ROADMAP A16)."""
+    assert flash_cuda.FLASH_HEAD_DIMS == (128,)
+    q = torch.zeros(1, 64, 4, 64)
+    k = torch.zeros(1, 64, 2, 64)
+    lse = torch.zeros(1, 4, 64)
+    fwd = "fwd" in wrapper
+    args = (q, k, k, 0.125) if fwd else (q, k, k, q, lse, lse, 0.125)
+    with pytest.raises(ValueError, match="head_dim 64 not in"):
+        getattr(flash_cuda, wrapper)(*args)

@@ -258,7 +258,10 @@ def test_cuda_backend_refuses_cpu_tensors():
 PLAN_CASES = [  # (q_lens, group)
     ([37, 1, 9, 1], 1), ([1] * 8, 1), ([1024], 1), ([16], 1),
     ([16], 4), ([37, 1, 1, 128, 9, 1], 4), ([3, 1, 4, 2, 200], 1),
-    ([2, 1, 1, 130], 2), ([5, 4], 1)]
+    ([2, 1, 1, 130], 2), ([5, 4], 1),
+    # 5-8 rows a kv head: the verify window [8, 5], a group-8 decode step,
+    # 8 and 9 tokens at group 1, 2 and 3 tokens at group 4
+    ([5] * 8, 1), ([1] * 8, 8), ([8, 9, 1], 1), ([2, 3, 1, 40], 4)]
 
 
 def _rows_and_keys(q_lens, ctx_lens, tiles, tokens, decode_seqs=()):
@@ -309,7 +312,7 @@ def test_launch_plan_covers_the_jax_tiling(q_lens, group, tensor_cores):
 
 
 @pytest.mark.parametrize("pairs,slots", [(8 * 32, 528), (8 * 8, 528),
-                                         (1, 132), (256, 132)])
+                                         (1, 132), (256, 132), (8 * 4, 264)])
 def test_decode_key_chunks_cover_each_key_once(pairs, slots):
     """The decode form's key chunks (key_splits over S_max = max_pages *
     page) cover [0, ctx) of every sequence exactly once, in chunks the
@@ -345,16 +348,24 @@ def test_tensor_core_prefill_selection(dtype, D, group, page, want):
 @pytest.mark.parametrize("q_lens,group", [([1] * 8, 8), ([1, 1, 4], 1),
                                           ([256], 8), ([1, 37, 2], 4)])
 def test_head_dim_64_plans_prefill_tiles_only(q_lens, group):
-    """Head dim 64 (TinyLlama-1.1B as a draft) has no decode form: every
-    sequence, a one-token decode included, is cut into CUDA-core prefill
-    tiles that cover its rows once."""
-    plan = plan_launch(q_lens, group, False, head_dim=64)
-    assert plan.decode_seqs.size == 0 and plan.decode_rows == 0
+    """Head dim 64 (TinyLlama-1.1B as a draft) never takes the tensor-core
+    prefill tiles: its sequences of at most DECODE_ROWS rows a kv head (a
+    group-8 decode step among them) take the decode form, every other one
+    CUDA-core prefill tiles that cover its rows once."""
+    tc = any(tensor_core_prefill(dt, 64, group, page)
+             for dt in (torch.bfloat16, torch.float16) for page in (8, 128))
+    assert not tc
+    plan = plan_launch(q_lens, group, tc)
+    dec = [s for s, ql in enumerate(q_lens) if ql * group <= DECODE_ROWS]
+    assert plan.decode_seqs.tolist() == dec
+    assert plan.decode_rows == max((q_lens[s] * group for s in dec),
+                                   default=0)
     tiles = {}
     for s, t in zip(plan.seq_of_tile.tolist(), plan.qtile_of_tile.tolist()):
         tiles.setdefault(s, []).append(t)
     assert {s: sorted(t) for s, t in tiles.items()} == {
-        s: list(range(-(-ql // plan.q_tile))) for s, ql in enumerate(q_lens)}
+        s: list(range(-(-ql // plan.q_tile))) for s, ql in enumerate(q_lens)
+        if s not in dec}
 
 
 def _plan_emulated(q, kp, vp, tables, ctx, q_lens, plan, chunk):
@@ -421,3 +432,49 @@ def test_launch_plan_computes_the_pallas_kernel(name, q_lens, ctx_lens,
                       jnp.asarray(tables), jnp.asarray(ctx_lens, jnp.int32),
                       q_lens, interpret=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(kern), **TOL)
+
+
+ROWS8_CASES = [  # (name, Hq, Hkv, q_lens, ctx_lens): head dim 64
+    ("group8_decode", 8, 1, [1, 1, 1], [9, 30, 16]),
+    ("group8_mixed", 8, 1, [6, 1, 3, 1], [6, 13, 7, 29]),
+    ("verify_window", 4, 4, [5, 5, 5], [5, 21, 30]),
+    ("rows_8_and_9", 4, 4, [8, 9, 1, 7], [8, 26, 13, 31]),
+    ("group4_two_tokens", 8, 2, [2, 1, 3], [11, 30, 17]),
+]
+
+
+@pytest.mark.parametrize("name,Hq,Hkv,q_lens,ctx_lens", ROWS8_CASES,
+                         ids=[c[0] for c in ROWS8_CASES])
+def test_launch_plan_8_rows_head_dim_64(name, Hq, Hkv, q_lens, ctx_lens):
+    """Decode rows of 5-8 a kv head at head dim 64 (group-8 decode steps,
+    verify windows of 5 tokens, 8 tokens at group 1) beside prefills, the
+    plan executed as the kernels read it -- decode keys in several chunks
+    merged by their maxima -- against the JAX Pallas kernel in interpret
+    mode."""
+    rng = np.random.default_rng(6)
+    alloc = PagedAllocator(NPAGES, PAGE, max_pages_per_seq=8,
+                           reserve_scratch=True)
+    for s, c in enumerate(ctx_lens):
+        alloc.allocate(s, c)
+    tables = alloc.block_table(list(range(len(ctx_lens))))
+    kp = rng.standard_normal((NPAGES, Hkv, PAGE, 64)).astype(np.float32)
+    vp = rng.standard_normal((NPAGES, Hkv, PAGE, 64)).astype(np.float32)
+    q = rng.standard_normal((sum(q_lens), Hq, 64)).astype(np.float32)
+    group = Hq // Hkv
+    plan = plan_launch(q_lens, group, tensor_core_prefill(
+        torch.bfloat16, 64, group, PAGE))
+    assert plan.decode_rows == max(
+        (ql * group for ql in q_lens if ql * group <= DECODE_ROWS), default=0)
+    assert plan.decode_rows > 4 or name == "group4_two_tokens"
+    got = _plan_emulated(torch.from_numpy(q), torch.from_numpy(kp),
+                         torch.from_numpy(vp), torch.from_numpy(tables),
+                         ctx_lens, q_lens, plan, chunk=8)
+    kern = jax_ragged(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+                      jnp.asarray(tables), jnp.asarray(ctx_lens, jnp.int32),
+                      q_lens, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(kern), **TOL)
+    rect = ragged_paged_attention(torch.from_numpy(q), torch.from_numpy(kp),
+                                  torch.from_numpy(vp),
+                                  torch.from_numpy(tables), ctx_lens,
+                                  q_lens).numpy()
+    np.testing.assert_allclose(rect, np.asarray(kern), **TOL)

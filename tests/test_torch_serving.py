@@ -82,6 +82,49 @@ def test_generate_eos_padding_matches_jax(tiny):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+# TinyLlama-1.1B's attention shape at a tiny width: head dim 64, a GQA
+# group of 8 (its 32 / 4 heads cut to 8 / 1)
+KW_D64 = dict(hidden_size=512, n_heads=8, n_kv_heads=1)
+
+
+@pytest.fixture(scope="module")
+def tiny_d64():
+    jmodel = JaxLM(JaxConfig.tiny(**KW_D64))
+    params = jmodel.init(jax.random.key(3))
+    np_params = jax.tree_util.tree_map(np.asarray, params)
+    cfg = TransformerConfig.tiny(**KW_D64)
+    assert cfg.head_dim == 64 and cfg.n_heads // cfg.kv_heads == 8
+    return cfg, jmodel, params, np_params
+
+
+@pytest.mark.parametrize("entry", ["generate", "serve"])
+def test_head_dim_64_group_8_tokens_identical(tiny_d64, entry):
+    """A head-dim-64, group-8 model (the draft shape the decode kernels now
+    serve): greedy tokens of ``init_inference(...).generate`` and of a
+    ``ServingEngine`` equal the JAX package's."""
+    cfg, jmodel, params, np_params = tiny_d64
+    tmodel = CausalTransformerLM(cfg, device="cpu")
+    tmodel.load_state_dict(from_jax_params(np_params, cfg))
+    if entry == "generate":
+        prompt = np.random.default_rng(8).integers(0, cfg.vocab_size, (3, 6))
+        jeng = deepspeed_tpu.init_inference(
+            model=jmodel, config={"dtype": "float32"}, params=params)
+        want = np.asarray(jeng.generate(prompt, max_new_tokens=8))
+        got = deepspeed_tpu_torch.init_inference(
+            tmodel, dtype="fp32", device="cpu").generate(prompt, 8)
+        np.testing.assert_array_equal(got.numpy(), want)
+        return
+    prompts = _prompts(cfg, [3, 11, 6], seed=9)
+    jeng = JaxServing(jmodel, params, max_batch=2, page_size=8, max_seq=64,
+                      dtype=jnp.float32,
+                      serving={"attention_backend": "jnp"})
+    teng = ServingEngine(tmodel, max_batch=2, page_size=8, max_seq=64,
+                         dtype=torch.float32)
+    assert teng.generate(prompts, max_new_tokens=7) == \
+        jeng.generate(prompts, max_new_tokens=7)
+    assert teng.leak_report() == {}
+
+
 def _serve_both(tiny, prompts, max_batch, max_new, eos=None, **sampling):
     cfg, jmodel, params, _, tmodel = tiny
     jeng = JaxServing(jmodel, params, max_batch=max_batch, page_size=8,
