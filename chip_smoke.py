@@ -10,14 +10,16 @@ its plain PyTorch version, then serves Llama-2-7B at full width (random
 bf16 weights from a seeded generator) through the port's two serving
 entry points -- ``init_inference(...).generate`` and
 ``create_serving_engine`` -- trains gpt_1b, BLOOM-1b7 and GPT-Neo-1.3B at
-full width and depth through ``initialize(...).train_batch``, and calls
+full width and depth through ``initialize(...).train_batch``, runs
+``ds_bench train`` with no flags (gpt_350m, head dim 64), and calls
 ``SparseSelfAttention``, checking that those runs went through the
 kernels.  Phases:
 
   1 device   card name and power limit (nvidia-smi)
   2 build    nvcc, one process per kernel source, all at once; the SASS
              of every bf16 and fp16 tensor-core kernel -- the flash
-             kernels and B4's prefill kernel in both dtypes, B6's
+             kernels at head dims 64 and 128 and B4's prefill kernel in
+             both dtypes, B6's
              block-sparse kernel at every block and head dim -- holds
              wgmma (HGMMA) and TMA loads (UTMALDG)
   3 kernels  each kernel vs its plain version: fp32, bf16 and fp16 (the
@@ -29,7 +31,11 @@ kernels.  Phases:
              (p, m, v unchanged bit for bit); the biased flash kernels with
              ALiBi at S=2048, windows 256 (S=2048, unscaled, GPT-Neo's local
              layers) and 100 (S=1000), ALiBi + window with GQA, a window
-             past S (bf16 O, dQ, dK, dV of the tensor-core kernels: one
+             past S; the flash kernels at head dim 64 too (gpt_350m's
+             shape, GQA, gpt2_1_5b's 25 heads over S=1000, non-causal;
+             ALiBi at BLOOM-560m's S=2048, window 256 at GPT-Neo-125M's 12
+             heads, window 100, ALiBi + window with GQA) (bf16 O, dQ, dK,
+             dV of the tensor-core kernels: one
              ulp, or within 2x SDPA's error on the same inputs, both
              readings printed); decode attention at head dims 128 and 64
              (TinyLlama-1.1B's 32/4 heads: T=1, 5, 128), where its key
@@ -63,10 +69,15 @@ kernels.  Phases:
              generate in fp32, tokens identical to the plain versions'
   7 train    run_benchmark for gpt_1b (seq 1024), bloom_1b7 (ALiBi) and
              gpt_neo_1_3b (global / local window 256), seq 2048, micro 2,
-             gas 4, bf16, AdamW; exact launches counted; a fixed batch's
+             gas 4, bf16, AdamW; exact launches counted; ``ds_bench
+             train`` with no flags (gpt_350m, 24 layers of 16 heads of 64,
+             micro 8, seq 1024: the flash kernels' D=64 forms; exact
+             launches, one train_batch profiled); a fixed batch's
              loss falls and one train_batch is profiled, for each; BLOOM's
              fixed batch again through the plain versions; 2 layers of
-             each, kernels vs plain (losses, grad norm, then m and the
+             each, and of gpt_350m, gpt2_1_5b (25 heads), BLOOM-560m and
+             GPT-Neo-125M (head dim 64), kernels vs plain (exact launches;
+             losses, grad norm, then m and the
              update parameter by parameter; GPT-Neo in fp32 too, and two
              plain engines that split the batch differently, as a witness);
              fp16: gpt_1b through the ds_bench train CLI (--dtype fp16
@@ -74,7 +85,8 @@ kernels.  Phases:
              steps, then applied ones; exact launches), a fixed fp16 batch
              (the loss falls over the applied steps; fp16 vs bf16 wall,
              device and busy share) and 2 layers kernels vs plain from
-             2**29 (the same skip pattern and loss scales)
+             2**29 (the same skip pattern and loss scales), for gpt_1b and
+             for gpt_350m (head dim 64)
     ckpt     training that survives a restart, gpt_1b through
              initialize(training_data=...) at full width and depth, micro
              2 x gas 4, bf16, data through train_batch(data_iter=...): (a)
@@ -100,7 +112,8 @@ kernels.  Phases:
   9 timing   each kernel at the main path's shapes vs its bound, its plain
              version and one PyTorch library call (a yardstick only), the
              flash kernels in bf16 and fp16 and at GPT-Neo's global
-             layers' shape, the
+             layers' shape, at head dim 64 at gpt_350m's training shape
+             (bf16, fp16), BLOOM-560m's ALiBi and GPT-Neo-125M's window, the
              decode kernel also at Llama-2's whole context (len 4096), the
              ragged kernel's prefill tiles at the serve run's buckets 512
              and 1024 (beside B1's forward on the same work), B5 and B4 in
@@ -446,11 +459,21 @@ TENSOR_CORE_KERNELS = [("flash_attention_fwd", "flash_fwd_kernel"),
                        ("ragged_paged_attention", "ragged_prefill_tc_kernel")]
 # kernel template -> (regex of its tensor-core instantiations' template
 # arguments in the mangled name, the arguments' reading, how many it has):
-# the flash kernels' <bf16 or fp16, alibi, window>, B6's <block, head dim>
-# (bf16), and B4's prefill kernel's <bf16 or fp16>
+# the flash kernels' <bf16 or fp16, alibi, window, head dim 64 or 128>,
+# B6's <block, head dim> (bf16), and B4's prefill kernel's <bf16 or fp16>
 _DTYPE_ARG = {"13__nv_bfloat16": "bf16", "6__half": "fp16"}
-_FLASH_ARGS = (r"I(13__nv_bfloat16|6__half)Lb([01])ELb([01])E",
-               lambda x: _DTYPE_ARG.get(x) or bool(int(x)), 8)
+
+
+def _flash_arg(x):
+    """A flash kernel's mangled template argument: its dtype, a bias flag
+    (0 / 1) or its head dim."""
+    if x in _DTYPE_ARG:
+        return _DTYPE_ARG[x]
+    return bool(int(x)) if x in ("0", "1") else int(x)
+
+
+_FLASH_ARGS = (r"I(13__nv_bfloat16|6__half)Lb([01])ELb([01])ELi(\d+)E",
+               _flash_arg, 16)
 SASS_TEMPLATES = {
     "flash_fwd_kernel": _FLASH_ARGS,
     "flash_bwd_dq_kernel": _FLASH_ARGS,
@@ -465,8 +488,9 @@ def sass_counts(sass, kernel):
     """{template arguments: (HGMMA count, UTMALDG count)} of the
     tensor-core instantiations of template ``kernel`` in ``cuobjdump
     -sass`` output, read by SASS_TEMPLATES: e.g. the flash kernels' names
-    end ``<kernel>I13__nv_bfloat16Lb<0|1>ELb<0|1>E`` (``I6__half...`` for
-    fp16) and give keys (dtype, alibi, window)."""
+    end ``<kernel>I13__nv_bfloat16Lb<0|1>ELb<0|1>ELi<64|128>E``
+    (``I6__half...`` for fp16) and give keys (dtype, alibi, window, head
+    dim)."""
     import re
     args, conv, _ = SASS_TEMPLATES[kernel]
     pat = re.compile(r"\d" + re.escape(kernel) + args)
@@ -808,6 +832,16 @@ FLASH_CASES = [("path B=2 S=1024 H16/16", 2, 1024, 16, 16, True, None),
                ("non-tiling B=2 S=1000 H16/16", 2, 1000, 16, 16, True, None),
                ("non-tiling non-causal B=1 S=1000 H4/2", 1, 1000, 4, 2,
                 False, None)]
+# the same at head dim 64: gpt_350m's training shape (the CLI's default),
+# GQA, and gpt2_1_5b's 25 heads (B * H odd) over a length that does not
+# tile
+FLASH_CASES_D64 = [("gpt_350m B=8 S=1024 H16/16", 8, 1024, 16, 16, True,
+                    None),
+                   ("GQA B=2 S=256 H16/4", 2, 256, 16, 4, True, None),
+                   ("gpt2_1_5b heads non-tiling B=1 S=1000 H25/25", 1, 1000,
+                    25, 25, True, None),
+                   ("non-tiling non-causal B=1 S=1000 H4/2", 1, 1000, 4, 2,
+                    False, None)]
 ADAM_N = 1_000_003
 # the fused Adam kernel and its plain version round the same operations
 # in the same order: they should agree to the last bit; allow 1e-6
@@ -845,26 +879,27 @@ def phase_train_kernels():
     from deepspeed_tpu_torch.ops.cuda.flash_attention import (
         flash_attention_bwd_cuda, flash_attention_fwd_cuda)
     gen = torch.Generator(device="cuda").manual_seed(4321)
-    D = 128
     errs = {}
 
     def note(kernel, dn, e):
         errs[(kernel, dn)] = max(errs.get((kernel, dn), 0.0), e)
 
-    for dtype in (torch.float32, torch.bfloat16, torch.float16):
-        dn = str(dtype).split(".")[-1]
-        for label, B, S, H, Hkv, causal, scale in FLASH_CASES:
-            scale = scale or 1.0 / math.sqrt(D)
-            q = _rand((B, S, H, D), dtype, gen)
-            k = _rand((B, S, Hkv, D), dtype, gen)
-            v = _rand((B, S, Hkv, D), dtype, gen)
-            dout = _rand((B, S, H, D), dtype, gen)
-            out, lse = flash_attention_fwd_cuda(q, k, v, scale, causal)
-            got = flash_attention_bwd_cuda(q, k, v, out, lse, dout, scale,
-                                           causal)
-            check_flash(note, "", f"{dn} {label} causal={causal}",
-                        (q, k, v, dout), scale, causal, {}, out, lse, got)
-            del q, k, v, dout, out, lse, got
+    for D, cases in ((128, FLASH_CASES), (64, FLASH_CASES_D64)):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            dn = str(dtype).split(".")[-1]
+            for label, B, S, H, Hkv, causal, scale in cases:
+                scale = scale or 1.0 / math.sqrt(D)
+                q = _rand((B, S, H, D), dtype, gen)
+                k = _rand((B, S, Hkv, D), dtype, gen)
+                v = _rand((B, S, Hkv, D), dtype, gen)
+                dout = _rand((B, S, H, D), dtype, gen)
+                out, lse = flash_attention_fwd_cuda(q, k, v, scale, causal)
+                got = flash_attention_bwd_cuda(q, k, v, out, lse, dout,
+                                               scale, causal)
+                check_flash(note, d_suffix(D), f"{dn} {label} D={D} "
+                            f"causal={causal}", (q, k, v, dout), scale,
+                            causal, {}, out, lse, got)
+                del q, k, v, dout, out, lse, got
 
     for g_dtype in (torch.float32, torch.bfloat16):
         for adamw in (True, False):
@@ -933,6 +968,23 @@ BIASED_CASES = [("ALiBi B=2 S=2048 H16/16 (bloom_1b7)", 2, 2048, 16, 16,
                  200, None),
                 ("ALiBi+window 4096 >= S B=1 S=1000 H4/2", 1, 1000, 4, 2,
                  True, 4096, None)]
+# the same at head dim 64: BLOOM-560m's training inputs (ALiBi, S=2048),
+# GPT-Neo-125M's local layers' (12 heads, window 256, unscaled), a window
+# over a ragged last tile, ALiBi and a window with GQA
+BIASED_CASES_D64 = [("ALiBi B=2 S=2048 H16/16 (bloom_560m)", 2, 2048, 16, 16,
+                     True, None, None),
+                    ("window 256 scale 1 B=2 S=2048 H12/12 (gpt_neo_125m "
+                     "local)", 2, 2048, 12, 12, False, 256, 1.0),
+                    ("window 100 B=2 S=1000 H16/16", 2, 1000, 16, 16, False,
+                     100, None),
+                    ("ALiBi+window 200 GQA B=2 S=640 H16/4", 2, 640, 16, 4,
+                     True, 200, None)]
+
+
+def d_suffix(D):
+    """The kernels-JSON suffix of a flash form's head dim: "" at 128, the
+    head dim the flash rows were first measured at, "_d64" at 64."""
+    return "" if D == 128 else f"_d{D}"
 
 
 def phase_biased_kernels():
@@ -944,29 +996,30 @@ def phase_biased_kernels():
     from deepspeed_tpu_torch.ops.cuda.flash_attention import (
         flash_attention_bwd_cuda, flash_attention_fwd_biased_cuda)
     gen = torch.Generator(device="cuda").manual_seed(5678)
-    D = 128
     errs = {}
 
     def note(kernel, dn, e):
         errs[(kernel, dn)] = max(errs.get((kernel, dn), 0.0), e)
 
-    for dtype in (torch.float32, torch.bfloat16, torch.float16):
-        dn = str(dtype).split(".")[-1]
-        for label, B, S, H, Hkv, alibi, window, scale in BIASED_CASES:
-            scale = scale or 1.0 / math.sqrt(D)
-            bias = dict(alibi_slopes=alibi_slopes(H).cuda() if alibi
-                        else None, window=window)
-            q = _rand((B, S, H, D), dtype, gen)
-            k = _rand((B, S, Hkv, D), dtype, gen)
-            v = _rand((B, S, Hkv, D), dtype, gen)
-            dout = _rand((B, S, H, D), dtype, gen)
-            out, lse = flash_attention_fwd_biased_cuda(q, k, v, scale, True,
-                                                       **bias)
-            got = flash_attention_bwd_cuda(q, k, v, out, lse, dout, scale,
-                                           True, **bias)
-            check_flash(note, "_biased", f"{dn} {label}", (q, k, v, dout),
-                        scale, True, bias, out, lse, got)
-            del q, k, v, dout, out, lse, got
+    for D, cases in ((128, BIASED_CASES), (64, BIASED_CASES_D64)):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            dn = str(dtype).split(".")[-1]
+            for label, B, S, H, Hkv, alibi, window, scale in cases:
+                scale = scale or 1.0 / math.sqrt(D)
+                bias = dict(alibi_slopes=alibi_slopes(H).cuda() if alibi
+                            else None, window=window)
+                q = _rand((B, S, H, D), dtype, gen)
+                k = _rand((B, S, Hkv, D), dtype, gen)
+                v = _rand((B, S, Hkv, D), dtype, gen)
+                dout = _rand((B, S, H, D), dtype, gen)
+                out, lse = flash_attention_fwd_biased_cuda(q, k, v, scale,
+                                                           True, **bias)
+                got = flash_attention_bwd_cuda(q, k, v, out, lse, dout,
+                                               scale, True, **bias)
+                check_flash(note, "_biased" + d_suffix(D), f"{dn} {label} "
+                            f"D={D}", (q, k, v, dout), scale, True, bias,
+                            out, lse, got)
+                del q, k, v, dout, out, lse, got
     return errs
 
 
@@ -976,8 +1029,8 @@ def check_flash(note, kind, label, inputs, scale, causal, bias, out, lse,
     dO) vs the plain versions run in fp32 on the kernels' own inputs, O and
     LSE.  fp32 and LSE: check_close.  bf16 and fp16 O, dQ, dK, dV (the
     tensor-core kernels): check_witnessed, against SDPA in their dtype on
-    the same inputs and the exact fp32 answer.  ``kind``: "" or "_biased",
-    the kernels' names' suffix."""
+    the same inputs and the exact fp32 answer.  ``kind``: the kernels'
+    names' suffix: "" or "_biased", then "_d64" at head dim 64."""
     import torch
     from deepspeed_tpu_torch.ops.flash_attention import (
         flash_attention_bwd_plain, flash_attention_fwd_plain)
@@ -2214,6 +2267,29 @@ GPT_NEO_1_3B = dict(hidden_size=2048, n_layers=24, n_heads=16,
 TRAIN_MODELS = {TRAIN_MODEL: (TRAIN_MODEL, TRAIN_SEQ, None),
                 "bloom_1b7": (BLOOM_1B7, 2048, 250880),
                 "gpt_neo_1_3b": (GPT_NEO_1_3B, 2048, 50257)}
+# This slice's main path: ``ds_bench train`` with no flags, as a user runs
+# it -- gpt_350m (1024 wide, 24 layers, 16 heads of 64: the flash kernels'
+# D=64 forms), micro 8, gas 1, seq 1024, bf16, ZeRO 3, AdamW, 10 timed
+# steps after one warm-up; nothing cut.  The CLI's own defaults, checked
+# against its printout.
+CLI_DEFAULTS = dict(model="gpt_350m", batch=8, gas=1, seq=1024, steps=10)
+# Head-dim-64 models held kernels vs plain at 2 layers of full width (their
+# own seq), random weights from a seed: name -> (run_benchmark's model, seq,
+# vocab_size).  bigscience/bloom-560m config.json: hidden_size 1024,
+# n_layer 24, n_head 16, vocab_size 250880, layer_norm_epsilon 1e-5;
+# ALiBi, word_embeddings_layernorm, biases; seq 2048.  EleutherAI/
+# gpt-neo-125M config.json: hidden_size 768, num_layers 12, num_heads 12,
+# vocab_size 50257, max_position_embeddings 2048, attention_types
+# [[["global", "local"], 6]], window_size 256, layer_norm_epsilon 1e-5;
+# unscaled logits, biases.  These add shapes, not features: BLOOM's ALiBi
+# and GPT-Neo's windows train at head dim 128 above.
+BLOOM_560M = dict(BLOOM_1B7, hidden_size=1024)
+GPT_NEO_125M = dict(GPT_NEO_1_3B, hidden_size=768, n_layers=12, n_heads=12,
+                    local_attn_pattern=(0, 256) * 6)
+D64_MODELS = {"gpt_350m": ("gpt_350m", 1024, None),
+              "gpt2_1_5b": ("gpt2_1_5b", 1024, None),
+              "bloom_560m": (BLOOM_560M, 2048, 250880),
+              "gpt_neo_125m": (GPT_NEO_125M, 2048, 50257)}
 TRAIN_STEPS = 4            # timed steps after run_benchmark's warm-up step
 FIXED_STEPS = 4            # steps on one fixed batch: the loss must fall
 # BLOOM's fixed-batch loss does not fall at every step; the same 4 steps
@@ -2282,6 +2358,11 @@ FP16_SCHEDULER = "WarmupDecayLR"
 # (2**-11 vs 2**-8), so the same limits hold with that margin, which the
 # longer run (3 or more applied steps where bf16 takes 2) spends on the
 # gap's growth from step to step.
+
+
+def _train_model(name):
+    """(run_benchmark's model, seq, vocab_size) of a phase-7 model."""
+    return TRAIN_MODELS[name] if name in TRAIN_MODELS else D64_MODELS[name]
 
 
 def _free():
@@ -2428,6 +2509,60 @@ def phase_train_fp16_cli():
     return out, counts, launched
 
 
+def phase_train_cli_default():
+    """This slice's main path: ``python -m deepspeed_tpu_torch.benchmarks
+    .training`` with no flags, through the CLI's ``main([])`` (its
+    printout captured), counters read around it: gpt_350m at full width
+    and depth through the D=64 flash forms.  The printout must show the
+    CLI_DEFAULTS; exact launches, plain versions 0, finite losses.  Then
+    one train_batch of the same config timed on the wall clock and one
+    profiled (a fresh engine from the same seed): the busy share."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.benchmarks.training import (ds_config, main,
+                                                         model_config)
+    from deepspeed_tpu_torch.models.transformer import CausalTransformerLM
+    d = CLI_DEFAULTS
+    cfg = model_config(d["model"], d["seq"])
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    reset_counters()
+    with contextlib.redirect_stdout(buf):
+        out = main([])
+    counts = read_counters()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    _free()
+    phase("train", "ds_bench train (no flags): " +
+          " | ".join(buf.getvalue().split()))
+    got = {k: out[k] for k in d}
+    if got != d or out["dtype"] != "bf16" or cfg.head_dim != 64:
+        fail(f"ds_bench train's defaults {got}, {out['dtype']}, head dim "
+             f"{cfg.head_dim}: expected {d}, bf16, 64")
+    if not all(math.isfinite(x) for x in out["losses"]):
+        fail(f"ds_bench train (no flags): non-finite loss {out['losses']}")
+    launched = check_train_launches(counts, cfg, d["gas"], d["steps"] + 1,
+                                    "ds_bench train (no flags)")
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=CausalTransformerLM(cfg, device="cuda").init(0),
+        config=ds_config(d["batch"], d["gas"]))
+    batch = {"input_ids": np.random.default_rng(14).integers(
+        0, cfg.vocab_size, (d["batch"], d["seq"]))}
+    engine.train_batch(batch=batch)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    engine.train_batch(batch=batch)
+    torch.cuda.synchronize()
+    step_ms = (time.time() - t0) * 1e3
+    device_ms, top, _ = profile_device(
+        lambda: engine.train_batch(batch=batch), 1)
+    del engine
+    _free()
+    return out, counts, launched, step_ms, device_ms, top
+
+
 def phase_train_fixed_fp16():
     """gpt_1b in fp16 (the CLI's config) on ONE fixed batch: skips while
     the loss scale comes down, then the loss must fall over the applied
@@ -2532,7 +2667,7 @@ def phase_train_e2e(name=TRAIN_MODEL, bf16=True, steps=2, witness=False):
     from deepspeed_tpu_torch.models.transformer import CausalTransformerLM
     from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
-    model, seq, vocab_size = TRAIN_MODELS[name]
+    model, seq, vocab_size = _train_model(name)
     cfg = model_config(model, seq, vocab_size=vocab_size)
     cfg = dataclasses.replace(cfg, n_layers=2, local_attn_pattern=(
         cfg.local_attn_pattern[:2] if cfg.local_attn_pattern else None))
@@ -2554,11 +2689,16 @@ def phase_train_e2e(name=TRAIN_MODEL, bf16=True, steps=2, witness=False):
         elif not torch.equal(engine.master, init):
             fail("train e2e: the engines start from different weights")
         losses, norms, moments = [], [], []
+        reset_counters()
         for b in batches:
             ids = b["input_ids"].reshape(gas, micro, seq)
             losses.append(float(engine.train_batch(batch={"input_ids": ids})))
             norms.append(engine.get_global_grad_norm())
             moments.append(engine.opt_state.m.clone())
+        if backend == "cuda":
+            counts = read_counters()
+            check_train_launches(counts, cfg, gas, steps,
+                                 f"train e2e {name} 2 layers")
         res[backend, micro] = (losses, norms)
         state[backend, micro] = (engine.master.clone(), moments)
         names, sizes = zip(*[(n, p.numel())
@@ -2621,11 +2761,13 @@ def phase_train_e2e(name=TRAIN_MODEL, bf16=True, steps=2, witness=False):
     return dict(label=label, lk=lk, lp=lp, nk=nk[0], n_p=n_p[0],
                 loss_rel=loss_rel, norm_rel=norm_rel, m_rels=m_rels,
                 m_tols=m_tols, upd_rel=upd_rel, master_err=master_err,
-                witness_rels=witness_rels)
+                witness_rels=witness_rels, counts=counts)
 
 
-def phase_train_e2e_fp16(steps=FP16_E2E_STEPS):
-    """gpt_1b at full width, cut to 2 layers, micro 2 x gas 2, in fp16 with
+def phase_train_e2e_fp16(name=TRAIN_MODEL, seq=TRAIN_SEQ,
+                         steps=FP16_E2E_STEPS):
+    """``name`` (gpt_1b; gpt_350m at head dim 64) at full width, cut to 2
+    layers, micro 2 x gas 2, in fp16 with
     the CLI's loss scaling and WarmupDecayLR: one engine through the
     kernels, one through the plain versions, from one init, on the same
     batches.  Held exactly: the skip pattern and the loss scale after every
@@ -2642,11 +2784,9 @@ def phase_train_e2e_fp16(steps=FP16_E2E_STEPS):
     from deepspeed_tpu_torch.models.transformer import CausalTransformerLM
     from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
-    cfg = dataclasses.replace(model_config(TRAIN_MODEL, TRAIN_SEQ),
-                              n_layers=2)
+    cfg = dataclasses.replace(model_config(name, seq), n_layers=2)
     rng = np.random.default_rng(13)
-    batches = [{"input_ids": rng.integers(0, cfg.vocab_size,
-                                          (2, 2, TRAIN_SEQ))}
+    batches = [{"input_ids": rng.integers(0, cfg.vocab_size, (2, 2, seq))}
                for _ in range(steps)]
     conf = ds_config(2, 2, "fp16",
                      scheduler=scheduler_config(FP16_SCHEDULER, steps),
@@ -2661,6 +2801,7 @@ def phase_train_e2e_fp16(steps=FP16_E2E_STEPS):
         elif not torch.equal(engine.master, init):
             fail("train e2e fp16: the engines start from different weights")
         rec = dict(losses=[], skips=[], scales=[], norms=[], m=[])
+        reset_counters()
         for b in batches:
             rec["losses"].append(float(engine.train_batch(batch=b)))
             rec["skips"].append(engine.last_step_overflowed())
@@ -2669,6 +2810,10 @@ def phase_train_e2e_fp16(steps=FP16_E2E_STEPS):
             rec["m"].append(None if rec["skips"][-1] else
                             engine.opt_state.m.clone())
         rec["master"] = engine.master.clone()
+        if backend == "cuda":
+            rec["counts"] = read_counters()
+            check_train_launches(rec["counts"], cfg, 2, steps,
+                                 f"train e2e fp16 {name} 2 layers")
         runs[backend] = rec
         names, sizes = zip(*[(n, p.numel())
                              for n, p in engine.module.named_parameters()])
@@ -2677,15 +2822,16 @@ def phase_train_e2e_fp16(steps=FP16_E2E_STEPS):
     k, p = runs["cuda"], runs["plain"]
     differ = [i for i in range(steps) if k["skips"][i] != p["skips"][i]]
     if differ:
-        fail(f"train e2e fp16: kernels and plain disagree on overflow at "
-             f"steps {differ}: kernels {k['skips']}, plain {p['skips']}")
+        fail(f"train e2e fp16 {name}: kernels and plain disagree on "
+             f"overflow at steps {differ}: kernels {k['skips']}, plain "
+             f"{p['skips']}")
     if k["scales"] != p["scales"]:
-        fail(f"train e2e fp16: loss scales {k['scales']} vs plain "
+        fail(f"train e2e fp16 {name}: loss scales {k['scales']} vs plain "
              f"{p['scales']}")
     applied = [i for i, s in enumerate(k["skips"]) if not s]
     if not k["skips"][0] or len(applied) < 3:
-        fail(f"train e2e fp16: skip pattern {k['skips']}: the first step "
-             f"must overflow and 3 or more must apply")
+        fail(f"train e2e fp16 {name}: skip pattern {k['skips']}: the first "
+             f"step must overflow and 3 or more must apply")
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(k["losses"],
                                                        p["losses"]))
     first = applied[0]
@@ -2704,7 +2850,8 @@ def phase_train_e2e_fp16(steps=FP16_E2E_STEPS):
             or norm_rel > E2E_TRAIN_REL_TOL or \
             any(r > E2E_M_REL_TOL for r, _ in m_rels) or \
             upd_rel[0] > E2E_UPDATE_REL_TOL:
-        fail(f"train e2e fp16: losses {k['losses']} vs plain {p['losses']} "
+        fail(f"train e2e fp16 {name}: losses {k['losses']} vs plain "
+             f"{p['losses']} "
              f"(max rel {loss_rel:.2e}), grad norm rel {norm_rel:.2e} (tol "
              f"{E2E_TRAIN_REL_TOL}); m by applied step {m_rels} (tol "
              f"{E2E_M_REL_TOL}); update {upd_rel} (tol {E2E_UPDATE_REL_TOL})")
@@ -2712,30 +2859,20 @@ def phase_train_e2e_fp16(steps=FP16_E2E_STEPS):
                 norm_rel=norm_rel, m_rels=m_rels, upd_rel=upd_rel)
 
 
-def phase_train_timing(errs):
-    """B1, B2 (dQ, dK/dV) and B3 at the training path's shapes, attention
-    B=2 S=1024 16 heads of 128 causal in bf16 and in fp16, Adam over
-    gpt_1b's parameter count (held against its plain version there first,
-    then timed with its skip flag 0 and 1): kernel, plain version, library
-    call (SDPA in the same dtype) and bound.  Attention by CUDA-graph
-    replay over 4 rotating input sets (more than the 50 MB L2); Adam
-    (ms-scale) by CUDA events, eagerly.  Returns {kernel: row} for bf16
-    and {(kernel, "fp16"): row} for fp16."""
+def flash_timing(errs, B, S, H, Hkv, D, gen):
+    """B1 and B2 (dQ, dK/dV) at one causal training shape [B, S, H (Hkv),
+    D] in bf16 and in fp16: kernel, plain version, library call (SDPA in
+    the same dtype) and bound, by CUDA-graph replay over 4 rotating input
+    sets (more than the 50 MB L2).  Returns {kernel: row} for bf16 and
+    {(kernel, "fp16"): row} for fp16, the kernels named with d_suffix(D).
+    """
     import torch
     import torch.nn.functional as F
-    from deepspeed_tpu_torch.benchmarks.training import model_config
-    from deepspeed_tpu_torch.ops.adam import (AdamState, adam_hyper,
-                                              fused_adam, reference_impl)
     from deepspeed_tpu_torch.ops.cuda.flash_attention import (
         flash_attention_bwd_dkv_cuda, flash_attention_bwd_dq_cuda,
         flash_attention_fwd_cuda)
-    from deepspeed_tpu_torch.ops.cuda.fused_adam import fused_adam_cuda
     from deepspeed_tpu_torch.ops.flash_attention import (
         flash_attention_bwd_plain, flash_attention_fwd_plain)
-    cfg = model_config(TRAIN_MODEL, TRAIN_SEQ)
-    gen = torch.Generator(device="cuda").manual_seed(77)
-    B, S, H, D = TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.head_dim
-    Hkv = cfg.kv_heads
     c = 4
     scale = 1.0 / math.sqrt(D)
     flops = {"fwd": 2 * B * H * S * S * D, "dq": 3 * B * H * S * S * D,
@@ -2780,14 +2917,15 @@ def phase_train_timing(errs):
             q[i], k[i], v[i], do[i], lse[i], delta[i], scale), c)
         dkv_ms = graph_ms(lambda i: flash_attention_bwd_dkv_cuda(
             q[i], k[i], v[i], do[i], lse[i], delta[i], scale), c)
-        shape = f"B={B} S={S} H={H}/{H} D={D} causal {dn}"
-        for name, key, ms, plain_ms, lib_ms in (
+        shape = f"B={B} S={S} H={H}/{Hkv} D={D} causal {dn}"
+        for base, key, ms, plain_ms, lib_ms in (
                 ("flash_attention_fwd", "fwd", fwd_ms, plain_fwd_ms,
                  lib_fwd_ms),
                 ("flash_attention_bwd_dq", "dq", dq_ms, plain_bwd_ms,
                  lib_bwd_ms),
                 ("flash_attention_bwd_dkv", "dkv", dkv_ms, plain_bwd_ms,
                  lib_bwd_ms)):
+            name = base + d_suffix(D)
             bound_ms, bound_by = _bound(nbytes[key], flops[key], dn)
             row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=bound_ms, bound_by=bound_by, shape=shape,
@@ -2795,12 +2933,45 @@ def phase_train_timing(errs):
             res[name if dt == torch.bfloat16 else (name, "fp16")] = row
         del q, k, v, do, o, lse, delta, qt, kt, vt, dot, leaves, outs
         _free()
-    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+    for base in ("flash_attention_fwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv"):
+        name = base + d_suffix(D)
         phase("timing", f"{name}: fp16 {res[(name, 'fp16')]['ms']:.4f} ms "
               f"vs bf16 {res[name]['ms']:.4f} ms "
               f"({res[(name, 'fp16')]['ms'] / res[name]['ms']:.3f}x); "
               f"SDPA fp16 {res[(name, 'fp16')]['library_ms']:.4f} ms")
+    for key, r in res.items():
+        name = key if isinstance(key, str) else f"{key[0]} {key[1]}"
+        phase("timing", f"{name} [{r['shape']}]: device ms kernel "
+              f"{r['ms']:.4f}, plain {r['plain_ms']:.4f}, library "
+              f"{r['library_ms']:.4f}; bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.3f} of bound, "
+              f"{r['ms'] / r['library_ms']:.2f}x the library's time")
+    return res
+
+
+def phase_train_timing(errs):
+    """B1, B2 (dQ, dK/dV) and B3 at the training paths' shapes: attention
+    at gpt_1b's (B=2 S=1024 16 heads of 128 causal) and at gpt_350m's,
+    ds_bench train's default (B=8 S=1024 16 heads of 64), each in bf16 and
+    fp16 (:func:`flash_timing`); Adam over gpt_1b's parameter count (held
+    against its plain version there first, then timed with its skip flag 0
+    and 1; ms-scale, so by CUDA events, eagerly): kernel, plain version,
+    library call and bound.  Returns {kernel: row} for bf16 and {(kernel,
+    "fp16"): row} for fp16."""
+    import torch
+    from deepspeed_tpu_torch.benchmarks.training import model_config
+    from deepspeed_tpu_torch.ops.adam import (AdamState, adam_hyper,
+                                              fused_adam, reference_impl)
+    from deepspeed_tpu_torch.ops.cuda.fused_adam import fused_adam_cuda
+    cfg = model_config(TRAIN_MODEL, TRAIN_SEQ)
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    res = flash_timing(errs, TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads,
+                       cfg.kv_heads, cfg.head_dim, gen)
+    d = CLI_DEFAULTS
+    c350 = model_config(d["model"], d["seq"])
+    res.update(flash_timing(errs, d["batch"], d["seq"], c350.n_heads,
+                            c350.kv_heads, c350.head_dim, gen))
 
     # B3 over gpt_1b's flat fp32 buffers (28 bytes per parameter), first
     # held against its plain version at this n, from the same inputs
@@ -2852,11 +3023,11 @@ def phase_train_timing(errs):
                                              errs[("fused_adam", "float32")]))
     del p, g, m, v
     _free()
-    for name, r in res.items():
-        phase("timing", f"{name} [{r['shape']}]: device ms kernel "
-              f"{r['ms']:.4f}, plain {r['plain_ms']:.4f}, library "
-              f"{r['library_ms']:.4f}; bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.3f} of bound")
+    r = res["fused_adam"]
+    phase("timing", f"fused_adam [{r['shape']}]: device ms kernel "
+          f"{r['ms']:.4f}, plain {r['plain_ms']:.4f}, library "
+          f"{r['library_ms']:.4f}; bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.3f} of bound")
     phase("timing", f"fused_adam with its skip flag set: {skip_ms:.4f} ms "
           f"(nothing read or written)")
     return res
@@ -2869,11 +3040,18 @@ def phase_train_timing(errs):
 BIASED_TIMING = [("ALiBi (bloom_1b7)", True, None, 1.0 / math.sqrt(128)),
                  ("window 256 (gpt_neo_1_3b local)", False, 256, 1.0),
                  ("global (gpt_neo_1_3b)", False, None, 1.0)]
+# the same at head dim 64, each case with its model's heads: BLOOM-560m's
+# layers (16 heads) and GPT-Neo-125M's local layers (12 heads); the first
+# is the kernels JSON row of the biased D=64 forms
+BIASED_TIMING_D64 = [("ALiBi (bloom_560m)", True, None, 1.0 / 8.0, 16),
+                     ("window 256 (gpt_neo_125m local)", False, 256, 1.0,
+                      12)]
 
 
-def phase_biased_timing(errs):
+def phase_biased_timing(errs, cases=BIASED_TIMING, D=128, seed=78):
     """B1 and B2 (dQ, dK/dV) at the S=2048 training paths' shapes
-    (BIASED_TIMING; biased kernels where there is a bias): kernel, plain
+    (``cases``, 16 heads of ``D`` unless a case names its heads; biased
+    kernels where there is a bias, named with d_suffix(D)): kernel, plain
     version, library call and bound.  The library call is SDPA with ALiBi
     as a float ``attn_mask`` (slope * key, -inf above the diagonal), the
     window as a boolean one, or causal.  The bound
@@ -2886,15 +3064,17 @@ def phase_biased_timing(errs):
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
     from deepspeed_tpu_torch.ops.flash_attention import (
         flash_attention_bwd_plain, flash_attention_fwd_plain)
-    B, S, H, D = TRAIN_BATCH, 2048, 16, 128
+    B, S = TRAIN_BATCH, 2048
     dt, c = torch.bfloat16, 4
-    gen = torch.Generator(device="cuda").manual_seed(78)
-    q, k, v, do = (_rand((c, B, S, H, D), dt, gen) for _ in range(4))
-    qt, kt, vt, dot = (x.transpose(2, 3).contiguous() for x in (q, k, v, do))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     pos = torch.arange(S, device="cuda")
-    e, f4 = B * S * H * D * 2, B * H * S * 4
     res = {}
-    for label, alibi, window, scale in BIASED_TIMING:
+    for label, alibi, window, scale, *heads in cases:
+        H = heads[0] if heads else 16
+        q, k, v, do = (_rand((c, B, S, H, D), dt, gen) for _ in range(4))
+        qt, kt, vt, dot = (x.transpose(2, 3).contiguous()
+                           for x in (q, k, v, do))
+        e, f4 = B * S * H * D * 2, B * H * S * 4
         slopes = alibi_slopes(H).cuda() if alibi else None
         kw = dict(alibi_slopes=slopes, window=window)
         kind = "_biased" if fa.is_biased(slopes, window) else ""
@@ -2948,7 +3128,7 @@ def phase_biased_timing(errs):
                                       ("dq", plain_bwd, lib_bwd),
                                       ("dkv", plain_bwd, lib_bwd)):
             name = f"flash_attention_{'bwd_' if key != 'fwd' else ''}" \
-                   f"{key}{kind}"
+                   f"{key}{kind}{d_suffix(D)}"
             bound_ms, bound_by = _bound(nbytes[key], flops[key], "bfloat16")
             res[(name, label)] = dict(
                 ms=times[key], plain_ms=plain_ms, library_ms=lib_ms,
@@ -2956,10 +3136,8 @@ def phase_biased_timing(errs):
                 max_abs_err=errs[(name, "bfloat16")],
                 shape=f"B={B} S={S} H={H}/{H} D={D} {label}, {pairs} (q, k) "
                       f"pairs, bf16")
-        del outs, o, lse, delta, mask, leaves
+        del outs, o, lse, delta, mask, leaves, q, k, v, do, qt, kt, vt, dot
         _free()
-    del q, k, v, do, qt, kt, vt, dot
-    _free()
     for (name, _), r in res.items():
         phase("timing", f"{name} [{r['shape']}]: device ms kernel "
               f"{r['ms']:.4f}, plain {r['plain_ms']:.4f}, library "
@@ -3724,6 +3902,29 @@ def main():
               f"{[round(x, 4) for x in out['losses']]}")
         phase("train", f"launches in {TRAIN_STEPS + 1} train_batch calls of "
               f"{name}: {launched}; every other kernel 0, plain versions 0")
+    # this slice's main path: ds_bench train with no flags (gpt_350m, the
+    # flash kernels' D=64 forms); B3's launches join its row
+    cli, cli_counts, cli_launched, cli_ms, cli_dev, cli_top = \
+        phase_train_cli_default()
+    launches["fused_adam"] += cli_counts["fused_adam"]
+    phase("train", f"ds_bench train (no flags): {cli['model']}, "
+          f"{cli['n_layers']} layers, {cli['n_params'] / 1e9:.3f} B params, "
+          f"micro {cli['batch']} x gas {cli['gas']} x seq {cli['seq']}, "
+          f"{cli['dtype']}, ZeRO {cli['zero_stage']}, AdamW lr 1e-4, "
+          f"{cli['steps']} timed steps: {cli['ms_per_train_batch']:.1f} ms "
+          f"per train_batch, {cli['tokens_per_sec']:.1f} tokens/s, "
+          f"{cli['model_tflops']:.2f} TFLOP/s, MFU {cli['mfu']:.4f} of 989 "
+          f"TFLOP/s; peak memory {cli['peak_gb']:.1f} GB; losses "
+          f"{[round(x, 4) for x in cli['losses']]}")
+    phase("train", f"launches in {cli['steps'] + 1} train_batch calls of "
+          f"ds_bench train (no flags): {cli_launched}; every other kernel 0,"
+          f" plain versions 0")
+    phase("train", f"{cli['model']} one train_batch (the CLI's config): "
+          f"{cli_ms:.1f} ms wall, device {cli_dev:.1f} ms (profiler), busy "
+          f"share {cli_dev / cli_ms:.3f}")
+    for kname, k_ms in cli_top:
+        phase("train", f"  {cli['model']} device ms/train_batch {k_ms:.3f}  "
+              f"{kname[:90]}")
     # the fp16 slice's main path, through the ds_bench train CLI
     fp16_out, fp16_counts, fp16_launched = phase_train_fp16_cli()
     for k in launches:
@@ -3773,11 +3974,16 @@ def main():
         phase("train", f"  {TRAIN_MODEL} fp16 device ms/train_batch "
               f"{k_ms:.3f}  {kname[:90]}")
     # 2-layer kernels vs plain: each model in bf16; GPT-Neo in fp32 too,
-    # where no bf16 rounding blurs what its unscaled logits amplify
+    # where no bf16 rounding blurs what its unscaled logits amplify; then
+    # the head-dim-64 models (GPT-Neo-125M's unscaled logits with the
+    # witness too)
+    e2e_counts = {}
     for name, bf16 in [(n, True) for n in TRAIN_MODELS] + [
-            ("gpt_neo_1_3b", False)]:
+            ("gpt_neo_1_3b", False)] + [(n, True) for n in D64_MODELS]:
         r = phase_train_e2e(name, bf16=bf16,
-                            witness=name == "gpt_neo_1_3b")
+                            witness=name.startswith("gpt_neo"))
+        if bf16:
+            e2e_counts[name] = r["counts"]
         phase("e2e", f"train {r['label']}, 2 layers full width, 2 "
               f"train_batch steps: losses kernels {r['lk']} vs plain "
               f"{r['lp']} (max rel {r['loss_rel']:.2e}); first grad norm "
@@ -3806,6 +4012,24 @@ def main():
     phase("e2e", f"train {TRAIN_MODEL} fp16 state, worst parameter: m rel L2"
           f" by applied step {[(f'{x:.3e}', n) for x, n in r['m_rels']]} "
           f"(tol {E2E_M_REL_TOL}), update rel L2 {r['upd_rel'][0]:.3e} "
+          f"({r['upd_rel'][1]}; tol {E2E_UPDATE_REL_TOL})")
+    # the same fp16 check at head dim 64: gpt_350m, 2 layers of full width
+    name = CLI_DEFAULTS["model"]
+    r = phase_train_e2e_fp16(name, CLI_DEFAULTS["seq"])
+    fp16_d64_counts = r["k"]["counts"]
+    phase("e2e", f"train {name} fp16 (D=64), 2 layers full width, "
+          f"{FP16_E2E_STEPS} train_batch steps from loss scale "
+          f"2**{FP16_E2E_SCALE_POWER}: skipped "
+          f"{[int(x) for x in r['k']['skips']]}"
+          f" on both paths, loss scales {[int(x) for x in r['k']['scales']]}"
+          f" on both; losses kernels {[round(x, 5) for x in r['k']['losses']]}"
+          f" vs plain {[round(x, 5) for x in r['p']['losses']]} (max rel "
+          f"{r['loss_rel']:.2e}); first applied grad norm rel "
+          f"{r['norm_rel']:.2e}; tol {E2E_TRAIN_REL_TOL}")
+    phase("e2e", f"train {name} fp16 (D=64) state, worst parameter: m rel "
+          f"L2 by applied step "
+          f"{[(f'{x:.3e}', n) for x, n in r['m_rels']]} (tol "
+          f"{E2E_M_REL_TOL}), update rel L2 {r['upd_rel'][0]:.3e} "
           f"({r['upd_rel'][1]}; tol {E2E_UPDATE_REL_TOL})")
 
     # ---- phase ckpt: save, a new process resumes, serve the tag --------
@@ -3837,6 +4061,7 @@ def main():
     timing.update(phase_timing_serving())
     timing.update(phase_train_timing(errs))
     biased = phase_biased_timing(errs)
+    biased_d64 = phase_biased_timing(errs, BIASED_TIMING_D64, D=64, seed=79)
     sparse = phase_sparse_timing(sparse_err)
     alibi_label, window_label = (b[0] for b in BIASED_TIMING[:2])
     ratio = (biased[("flash_attention_fwd_biased", window_label)]["ms"] /
@@ -3906,6 +4131,24 @@ def main():
         meta[name] = meta["decode_attention" if name.startswith("decode")
                           else "ragged_paged_attention"]
         launches[name] = n
+    # this slice's D=64 forms, rows of their own: the unbiased ones with the
+    # launches of ds_bench train's default run, their fp16 forms with those
+    # of the fp16 2-layer run's kernel engine, the biased ones with those of
+    # the BLOOM-560m and GPT-Neo-125M 2-layer runs' kernel engines
+    bloom_label = BIASED_TIMING_D64[0][0]
+    for base in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        name = base + d_suffix(64)
+        meta[name] = meta[f"{name}_fp16"] = meta[base]
+        launches[name] = cli_counts[base]
+        timing[f"{name}_fp16"] = timing[(name, "fp16")]
+        launches[f"{name}_fp16"] = fp16_d64_counts[base]
+        biased_name = base + "_biased"
+        meta[biased_name + d_suffix(64)] = meta[biased_name]
+        timing[biased_name + d_suffix(64)] = biased_d64[
+            (biased_name + d_suffix(64), bloom_label)]
+        launches[biased_name + d_suffix(64)] = sum(
+            e2e_counts[m][biased_name] for m in ("bloom_560m", "gpt_neo_125m"))
     for name, (source, replaces) in meta.items():
         t = timing[name]
         if not launches[name]:

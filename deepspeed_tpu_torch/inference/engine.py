@@ -46,13 +46,13 @@ class InferenceEngine:
         if dict(config.zero or {}).get("offload_param"):
             raise NotImplementedError("ZeRO-Inference weight streaming is "
                                       "not ported yet (ROADMAP A12)")
-        # ALiBi / window / embedding-norm models raise here, not at the
-        # first token
-        check_servable(model.config)
         self.module = model
         self._config = config
         self.dtype = to_torch_dtype(config.dtype)
         self.device = get_accelerator().resolve_device(device)
+        # ALiBi / window / embedding-norm models, and on the card a head
+        # dim no kernel takes, raise here, not at the first token
+        check_servable(model.config, self.device)
         if params is None and config.checkpoint:
             params = self.load_model_with_checkpoint(config.checkpoint)
         if params is not None:

@@ -46,6 +46,7 @@ from deepspeed_tpu_torch.inference.robustness import (
     ServingRobustnessConfig, ServingStalled)
 from deepspeed_tpu_torch.inference.scheduler import (SLO_CLASSES,
                                                      create_scheduler)
+from deepspeed_tpu_torch.models.transformer import check_servable
 from deepspeed_tpu_torch.ops.paged_attention import (
     PageAllocationError, PagedAllocator, resolve_attention_backend)
 from deepspeed_tpu_torch.runtime.resilience import FaultInjector
@@ -136,6 +137,14 @@ class ServingEngine:
         else:
             self.serving = ServingRobustnessConfig(serving or {})
         self.cache_dtype = to_torch_dtype(dtype)
+        # "auto" (the CUDA kernel for tensors on the card, the plain
+        # version for CPU tensors), "cuda" or "plain"
+        self.attention_backend = resolve_attention_backend(
+            self.serving.attention_backend)
+        # a head dim the kernels do not take raises before the page pool
+        # is allocated on the card
+        check_servable(self.config, None if self.attention_backend ==
+                       "plain" else self.device)
         self.caches = model.init_paged_caches(num_pages, page_size,
                                               dtype=self.cache_dtype)
         if injector is None:
@@ -177,10 +186,6 @@ class ServingEngine:
         # +1 overrun column, permanently the scratch page (page 0)
         self.tables = np.zeros((max_batch, self.max_pages_per_seq + 1),
                                np.int32)
-        # "auto" (the CUDA kernel for tensors on the card, the plain
-        # version for CPU tensors), "cuda" or "plain"
-        self.attention_backend = resolve_attention_backend(
-            self.serving.attention_backend)
         self._rng = {}
         self._clock = clock if clock is not None else time.monotonic
         self._admission = AdmissionController(self.serving)

@@ -44,6 +44,10 @@ from torch.utils.checkpoint import checkpoint
 
 from deepspeed_tpu_torch.accelerator import get_accelerator
 from deepspeed_tpu_torch.ops.attention import attention
+from deepspeed_tpu_torch.ops.cuda.decode_attention import \
+    HEAD_DIMS as SERVE_HEAD_DIMS
+from deepspeed_tpu_torch.ops.cuda.flash_attention import (FLASH_HEAD_DIMS,
+                                                          check_head_dim)
 from deepspeed_tpu_torch.ops.decode_attention import (KVCache,
                                                       decode_attention,
                                                       update_cache)
@@ -271,16 +275,32 @@ def check_supported(c: TransformerConfig):
                          f"{c.n_layers} layers")
 
 
-def check_servable(c: TransformerConfig):
+def _on_card(device) -> bool:
+    return device is not None and torch.device(device).type == "cuda"
+
+
+def check_servable(c: TransformerConfig, device=None):
     """Raise ``NotImplementedError`` for a configuration the serving paths
     (contiguous and paged KV caches) do not decode: ALiBi, local windows
     and the embedding norm train, but decoding them waits for ROADMAP
-    A18."""
+    A18.  On the card (``device`` a CUDA device) the head dim must be one
+    the serving kernels (B4, B5) take, else it raises naming A16; on the
+    CPU the plain versions take every head dim."""
     for attr, what in _NOT_SERVED:
         if getattr(c, attr):
             raise NotImplementedError(
                 f"decoding a model with {what} ({attr}) is not ported yet "
                 f"(ROADMAP A18); the training path takes it")
+    if _on_card(device):
+        check_head_dim("serving on the card", c.head_dim, SERVE_HEAD_DIMS)
+
+
+def check_trainable(c: TransformerConfig, device=None):
+    """On the card, raise ``NotImplementedError`` naming A16 for a head dim
+    the flash kernels (B1, B2) do not take; on the CPU the plain versions
+    train every head dim."""
+    if _on_card(device):
+        check_head_dim("training on the card", c.head_dim, FLASH_HEAD_DIMS)
 
 
 def alibi_slopes(n_heads: int) -> torch.Tensor:

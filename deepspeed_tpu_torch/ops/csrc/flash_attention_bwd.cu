@@ -77,6 +77,19 @@
 // frontier.  dQ stays a kernel of its own, summed in registers: no fp32
 // atomics, so runs repeat bit for bit.
 //
+// Head dim 64: the same bodies with D = 64 as a template argument.  Every
+// Q, dO, K and V tile is one 64-column TMA box instead of two, so the
+// score products (S = Q K^T, dP = dO V^T and their transposes), whose depth
+// is D, walk 4 slices instead of 8; the products whose N is D (dQ += dS K,
+// dV += P^T dO, dK += dS^T Q) are m64n64, which halves the accumulators:
+// dQ takes 32 fp32 registers a thread, dK + dV 64 instead of 128.  The
+// tiles are half the bytes, so each ring holds 4 stages instead of 2.  One
+// block still runs on an SM: two would leave the consumers under 116
+// registers, below S + dP + the accumulators, so setmaxnreg stays 240 / 24.
+// At gpt_350m's training shape (B=8, S=1024, 16 heads of 64, causal) dQ
+// does 25.8 GFLOP on 85 MB and dK/dV 34.4 GFLOP on 102 MB: both bound by
+// the tensor cores (26.1 and 34.7 us).
+//
 // fp32 dQ and dK/dV run on the CUDA cores (the first kernels,
 // flash_tile.cuh): 256 threads, fp32 products; the dQ block walks key
 // tiles up to its causal frontier.  fp32 stays there because the fp32
@@ -152,12 +165,16 @@ struct DqParams {
 
 // ---- dQ, fp32: CUDA cores -------------------------------------------------
 
-constexpr size_t kDqSmemFloats = 4 * 64 * PD + BQ * PT + 2 * BQ;
+template <int D>
+constexpr size_t dq_smem_floats() {
+  return 4 * 64 * pitch<D>() + BQ * PT + 2 * BQ;
+}
 
-template <bool SLOPE, bool WINDOW>
+template <bool SLOPE, bool WINDOW, int D>
 __device__ __forceinline__ void dq_cuda_cores(const DqParams& p,
                                               float* smem) {
   using T = float;
+  constexpr int PD = pitch<D>(), J = D / 16;   // J: output columns a thread
   const T* q = static_cast<const T*>(p.q);
   const T* k = static_cast<const T*>(p.k);
   const T* v = static_cast<const T*>(p.v);
@@ -175,19 +192,19 @@ __device__ __forceinline__ void dq_cuda_cores(const DqParams& p,
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int q0 = blockIdx.x * BQ;
-  const Heads hd(S, p.H, p.Hkv);
+  const Heads hd(S, p.H, p.Hkv, D);
   const Bias<SLOPE, WINDOW> bias(p.slopes, hd.h, p.window);
-  load_tile<T>(q_s, q, hd.q_base, hd.q_stride, q0, S, 1.f);
-  load_tile<T>(do_s, dout, hd.q_base, hd.q_stride, q0, S, 1.f);
+  load_tile<T, D>(q_s, q, hd.q_base, hd.q_stride, q0, S, 1.f);
+  load_tile<T, D>(do_s, dout, hd.q_base, hd.q_stride, q0, S, 1.f);
   load_rows(lse_s, dl_s, p.lse, p.delta, hd.bh, q0, S);
 
-  float acc[4][8];
+  float acc[4][J];
   zero(acc);
   const int kv_hi = causal ? min(S, q0 + BQ) : S;
   for (int k0 = bias.key_lo(q0); k0 < kv_hi; k0 += BK) {
     __syncthreads();  // previous dS K done
-    load_tile<T>(k_s, k, hd.kv_base, hd.kv_stride, k0, S, 1.f);
-    load_tile<T>(v_s, v, hd.kv_base, hd.kv_stride, k0, S, 1.f);
+    load_tile<T, D>(k_s, k, hd.kv_base, hd.kv_stride, k0, S, 1.f);
+    load_tile<T, D>(v_s, v, hd.kv_base, hd.kv_stride, k0, S, 1.f);
     __syncthreads();
     float s[4][4], dp[4][4];
     zero(s);
@@ -197,7 +214,7 @@ __device__ __forceinline__ void dq_cuda_cores(const DqParams& p,
     probs_and_ds(s, dp, lse_s, dl_s, nullptr, ds_s, q0, k0, S, scale, causal,
                  bias, ty, tx);
     __syncthreads();
-    gemm_nn<4, 8, BK, PT, PD>(acc, ds_s, k_s, ty, tx);
+    gemm_nn<4, J, BK, PT, PD>(acc, ds_s, k_s, ty, tx);
   }
 
 #pragma unroll
@@ -206,7 +223,7 @@ __device__ __forceinline__ void dq_cuda_cores(const DqParams& p,
     if (qrow < S) {
       T* row = dq + hd.q_base + (long long)qrow * hd.q_stride;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) row[tx + 16 * j] = from_f<T>(acc[i][j]);
+      for (int j = 0; j < J; ++j) row[tx + 16 * j] = from_f<T>(acc[i][j]);
     }
   }
 }
@@ -217,22 +234,30 @@ namespace tcq {
 constexpr int BM = 128;                      // query rows of a block
 constexpr int BN = 64;                       // keys of a K/V tile
 constexpr int kThreads = 384;                // 2 consumer + 1 producer WG
-constexpr int kQTile = BM * hopper::kHeadDim * 2;    // 32 KB
-constexpr int kQHalf = kQTile / 2;
-constexpr int kKvTile = BN * hopper::kHeadDim * 2;
-constexpr int kKvHalf = kKvTile / 2;
-constexpr int kStages = 2;
-// Q, dO, then kStages x (K, V), then the barriers: Q/dO's, full[], empty[]
-constexpr int kStageOffset = 2 * kQTile;
-constexpr int kBarOffset = kStageOffset + kStages * 2 * kKvTile;
-constexpr size_t kSmem = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
+constexpr int kQBox = BM * hopper::kBoxCols * 2;    // one 64-column box
+constexpr int kKvBox = BN * hopper::kBoxCols * 2;
+// The shared-memory plan at head dim D: Q, dO, then kStages x (K, V),
+// then the barriers: Q/dO's, full[], empty[]
+template <int D>
+struct Smem {
+  static constexpr int kQTile = BM * D * 2;    // 32 KB at D = 128
+  static constexpr int kKvTile = BN * D * 2;
+  static constexpr int kStages = D == 64 ? 4 : 2;
+  static constexpr int kStageOffset = 2 * kQTile;
+  static constexpr int kBarOffset = kStageOffset + kStages * 2 * kKvTile;
+  static constexpr size_t kBytes = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
+};
 }  // namespace tcq
 
-template <typename E, bool SLOPE, bool WINDOW>
+template <typename E, bool SLOPE, bool WINDOW, int D>
 __device__ __forceinline__ void dq_tensor_cores(const DqParams& p,
                                                 unsigned char* raw) {
   using namespace hopper;
   using namespace tcq;
+  constexpr int kQTile = Smem<D>::kQTile, kKvTile = Smem<D>::kKvTile;
+  constexpr int kStages = Smem<D>::kStages;
+  constexpr int kStageOffset = Smem<D>::kStageOffset;
+  constexpr int kBarOffset = Smem<D>::kBarOffset;
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
   unsigned char* q_s = base;
@@ -267,16 +292,16 @@ __device__ __forceinline__ void dq_tensor_cores(const DqParams& p,
     regs_dealloc<24>();
     if (t == 0) {
       mbar_arrive_expect_tx(q_bar, 2 * kQTile);
-      tma_load_rows(q_s, &p.q_map, q_bar, BM, h, q0, b);
-      tma_load_rows(do_s, &p.do_map, q_bar, BM, h, q0, b);
+      tma_load_rows<D>(q_s, &p.q_map, q_bar, BM, h, q0, b);
+      tma_load_rows<D>(do_s, &p.do_map, q_bar, BM, h, q0, b);
       for (int it = 0; it < n_tiles; ++it) {
         const int st = it % kStages;
         mbar_wait(&empty[st], ((it / kStages) & 1) ^ 1);
         unsigned char* k_t = kv_s + st * 2 * kKvTile;
         const int k0 = k_lo + it * BN;
         mbar_arrive_expect_tx(&full[st], 2 * kKvTile);
-        tma_load_rows(k_t, &p.k_map, &full[st], BN, hk, k0, b);
-        tma_load_rows(k_t + kKvTile, &p.v_map, &full[st], BN, hk, k0, b);
+        tma_load_rows<D>(k_t, &p.k_map, &full[st], BN, hk, k0, b);
+        tma_load_rows<D>(k_t + kKvTile, &p.v_map, &full[st], BN, hk, k0, b);
       }
     }
   } else {  // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63
@@ -296,9 +321,9 @@ __device__ __forceinline__ void dq_tensor_cores(const DqParams& p,
       lse2[r] = row < S ? __ldg(p.lse + at) * kLog2e : 0.f;
       dl[r] = row < S ? __ldg(p.delta + at) : 0.f;
     }
-    float dq[64];
+    float dq[D / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
 
     mbar_wait(q_bar, 0);
     for (int it = 0; it < n_tiles; ++it) {
@@ -314,16 +339,16 @@ __device__ __forceinline__ void dq_tensor_cores(const DqParams& p,
         float s[32], dp[32];
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
-          const uint32_t q_off = (kk / 4) * kQHalf + (kk % 4) * 32;
-          const uint32_t kv_off = (kk / 4) * kKvHalf + (kk % 4) * 32;
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t q_off = kslice(kk, kQBox);
+          const uint32_t kv_off = kslice(kk, kKvBox);
           wgmma_ss_n64<E>(s, desc_kmajor(q_addr + q_off),
                           desc_kmajor(k_addr + kv_off), kk > 0);
         }
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
-          const uint32_t q_off = (kk / 4) * kQHalf + (kk % 4) * 32;
-          const uint32_t kv_off = (kk / 4) * kKvHalf + (kk % 4) * 32;
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t q_off = kslice(kk, kQBox);
+          const uint32_t kv_off = kslice(kk, kKvBox);
           wgmma_ss_n64<E>(dp, desc_kmajor(do_addr + q_off),
                           desc_kmajor(v_addr + kv_off), kk > 0);
         }
@@ -359,11 +384,10 @@ __device__ __forceinline__ void dq_tensor_cores(const DqParams& p,
         fence_regs(da);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
+        for (int kk = 0; kk < BN / 16; ++kk) {
           const uint32_t a[4] = {da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
                                  da[4 * kk + 3]};
-          wgmma_rs_n128<E>(dq, a,
-                           desc_mnmajor(k_addr + kk * 2048, kKvHalf));
+          wgmma_rs<E, D>(dq, a, desc_mnmajor(k_addr + kk * 2048, kKvBox));
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -379,9 +403,9 @@ __device__ __forceinline__ void dq_tensor_cores(const DqParams& p,
       const int row = row0 + 8 * r;
       if (row >= S) continue;
       uint32_t* orow = reinterpret_cast<uint32_t*>(
-          out + (((long long)b * S + row) * H + h) * kHeadDim);
+          out + (((long long)b * S + row) * H + h) * D);
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+      for (int j = 0; j < D / 8; ++j)
         orow[(8 * j + 2 * (t % 4)) / 2] =
             pack2<E>(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
     }
@@ -393,14 +417,14 @@ constexpr int dq_threads() {
   return std::is_same<T, float>::value ? kThreads : tcq::kThreads;
 }
 
-template <typename T, bool SLOPE, bool WINDOW>
+template <typename T, bool SLOPE, bool WINDOW, int D>
 __global__ void __launch_bounds__(dq_threads<T>(), 1)
 flash_bwd_dq_kernel(const __grid_constant__ DqParams p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   if constexpr (std::is_same<T, float>::value)
-    dq_cuda_cores<SLOPE, WINDOW>(p, reinterpret_cast<float*>(smem_raw));
+    dq_cuda_cores<SLOPE, WINDOW, D>(p, reinterpret_cast<float*>(smem_raw));
   else
-    dq_tensor_cores<T, SLOPE, WINDOW>(p, smem_raw);
+    dq_tensor_cores<T, SLOPE, WINDOW, D>(p, smem_raw);
 }
 
 // One parameter block for both dK/dV instantiations; the tensor maps are
@@ -422,12 +446,16 @@ struct DkvParams {
 
 // ---- dK/dV, fp32: CUDA cores --------------------------------------------
 
-constexpr size_t kDkvSmemFloats = 4 * 64 * PD + 2 * BQ * PT + 2 * BQ;
+template <int D>
+constexpr size_t dkv_smem_floats() {
+  return 4 * 64 * pitch<D>() + 2 * BQ * PT + 2 * BQ;
+}
 
-template <bool SLOPE, bool WINDOW>
+template <bool SLOPE, bool WINDOW, int D>
 __device__ __forceinline__ void dkv_cuda_cores(const DkvParams& p,
                                                float* smem) {
   using T = float;
+  constexpr int PD = pitch<D>(), J = D / 16;   // J: output columns a thread
   const T* q = static_cast<const T*>(p.q);
   const T* k = static_cast<const T*>(p.k);
   const T* v = static_cast<const T*>(p.v);
@@ -445,12 +473,12 @@ __device__ __forceinline__ void dkv_cuda_cores(const DkvParams& p,
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int k0 = blockIdx.x * BK;
-  const Heads hd(S, p.H, p.Hkv);
+  const Heads hd(S, p.H, p.Hkv, D);
   const Bias<SLOPE, WINDOW> bias(p.slopes, hd.h, p.window);
-  load_tile<T>(k_s, k, hd.kv_base, hd.kv_stride, k0, S, 1.f);
-  load_tile<T>(v_s, v, hd.kv_base, hd.kv_stride, k0, S, 1.f);
+  load_tile<T, D>(k_s, k, hd.kv_base, hd.kv_stride, k0, S, 1.f);
+  load_tile<T, D>(v_s, v, hd.kv_base, hd.kv_stride, k0, S, 1.f);
 
-  float dk_acc[4][8], dv_acc[4][8];
+  float dk_acc[4][J], dv_acc[4][J];
   zero(dk_acc);
   zero(dv_acc);
   // causal: q tiles before this key tile's diagonal see none of its keys;
@@ -458,8 +486,8 @@ __device__ __forceinline__ void dkv_cuda_cores(const DkvParams& p,
   const int q_hi = bias.q_hi(k0, S);
   for (int q0 = causal ? k0 : 0; q0 < q_hi; q0 += BQ) {
     __syncthreads();  // previous tile's products done
-    load_tile<T>(q_s, q, hd.q_base, hd.q_stride, q0, S, 1.f);
-    load_tile<T>(do_s, dout, hd.q_base, hd.q_stride, q0, S, 1.f);
+    load_tile<T, D>(q_s, q, hd.q_base, hd.q_stride, q0, S, 1.f);
+    load_tile<T, D>(do_s, dout, hd.q_base, hd.q_stride, q0, S, 1.f);
     load_rows(lse_s, dl_s, p.lse, p.delta, hd.bh, q0, S);
     __syncthreads();
     float s[4][4], dp[4][4];
@@ -470,8 +498,8 @@ __device__ __forceinline__ void dkv_cuda_cores(const DkvParams& p,
     probs_and_ds(s, dp, lse_s, dl_s, p_s, ds_s, q0, k0, S, scale, causal,
                  bias, ty, tx);
     __syncthreads();
-    gemm_tn<4, 8, BQ, PT, PD>(dv_acc, p_s, do_s, ty, tx);
-    gemm_tn<4, 8, BQ, PT, PD>(dk_acc, ds_s, q_s, ty, tx);
+    gemm_tn<4, J, BQ, PT, PD>(dv_acc, p_s, do_s, ty, tx);
+    gemm_tn<4, J, BQ, PT, PD>(dk_acc, ds_s, q_s, ty, tx);
   }
 
   // fp32, per query head: row `key` of head h in the [B, S, H, D] layout
@@ -481,7 +509,7 @@ __device__ __forceinline__ void dkv_cuda_cores(const DkvParams& p,
     if (key < S) {
       const long long at = hd.q_base + (long long)key * hd.q_stride;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < J; ++j) {
         p.dk[at + tx + 16 * j] = dk_acc[i][j];
         p.dv[at + tx + 16 * j] = dv_acc[i][j];
       }
@@ -495,24 +523,32 @@ namespace tc {
 constexpr int BN = 128;                      // keys of a block
 constexpr int BM = 64;                       // query rows of a Q/dO tile
 constexpr int kThreads = 384;                // 2 consumer + 1 producer WG
-constexpr int kKvTile = BN * hopper::kHeadDim * 2;   // 32 KB
-constexpr int kKvHalf = kKvTile / 2;
-constexpr int kQTile = BM * hopper::kHeadDim * 2;    // 16 KB
-constexpr int kQHalf = kQTile / 2;
-constexpr int kStages = 2;
-// K, V, then kStages x (Q, dO), kStages x (lse, delta) rows, the barriers:
-// K/V's, full[], empty[]
-constexpr int kStageOffset = 2 * kKvTile;
-constexpr int kRowsOffset = kStageOffset + kStages * 2 * kQTile;
-constexpr int kBarOffset = kRowsOffset + kStages * 2 * BM * 4;
-constexpr size_t kSmem = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
+constexpr int kKvBox = BN * hopper::kBoxCols * 2;   // one 64-column box
+constexpr int kQBox = BM * hopper::kBoxCols * 2;
+// The shared-memory plan at head dim D: K, V, then kStages x (Q, dO),
+// kStages x (lse, delta) rows, the barriers: K/V's, full[], empty[]
+template <int D>
+struct Smem {
+  static constexpr int kKvTile = BN * D * 2;   // 32 KB at D = 128
+  static constexpr int kQTile = BM * D * 2;    // 16 KB at D = 128
+  static constexpr int kStages = D == 64 ? 4 : 2;
+  static constexpr int kStageOffset = 2 * kKvTile;
+  static constexpr int kRowsOffset = kStageOffset + kStages * 2 * kQTile;
+  static constexpr int kBarOffset = kRowsOffset + kStages * 2 * BM * 4;
+  static constexpr size_t kBytes = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
+};
 }  // namespace tc
 
-template <typename E, bool SLOPE, bool WINDOW>
+template <typename E, bool SLOPE, bool WINDOW, int D>
 __device__ __forceinline__ void dkv_tensor_cores(const DkvParams& p,
                                                  unsigned char* raw) {
   using namespace hopper;
   using namespace tc;
+  constexpr int kKvTile = Smem<D>::kKvTile, kQTile = Smem<D>::kQTile;
+  constexpr int kStages = Smem<D>::kStages;
+  constexpr int kStageOffset = Smem<D>::kStageOffset;
+  constexpr int kRowsOffset = Smem<D>::kRowsOffset;
+  constexpr int kBarOffset = Smem<D>::kBarOffset;
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
   unsigned char* k_s = base;
@@ -550,8 +586,8 @@ __device__ __forceinline__ void dkv_tensor_cores(const DkvParams& p,
     if (t < 32) {
       if (t == 0) {
         mbar_arrive_expect_tx(kv_bar, 2 * kKvTile);
-        tma_load_rows(k_s, &p.k_map, kv_bar, BN, hk, k0, b);
-        tma_load_rows(v_s, &p.v_map, kv_bar, BN, hk, k0, b);
+        tma_load_rows<D>(k_s, &p.k_map, kv_bar, BN, hk, k0, b);
+        tma_load_rows<D>(v_s, &p.v_map, kv_bar, BN, hk, k0, b);
       }
       for (int it = 0; it < n_tiles; ++it) {
         const int st = it % kStages, q0 = q_lo + it * BM;
@@ -567,8 +603,9 @@ __device__ __forceinline__ void dkv_tensor_cores(const DkvParams& p,
         if (t == 0) {
           unsigned char* q_t = qdo_s + st * 2 * kQTile;
           mbar_arrive_expect_tx(&full[st], 2 * kQTile);
-          tma_load_rows(q_t, &p.q_map, &full[st], BM, h, q0, b);
-          tma_load_rows(q_t + kQTile, &p.do_map, &full[st], BM, h, q0, b);
+          tma_load_rows<D>(q_t, &p.q_map, &full[st], BM, h, q0, b);
+          tma_load_rows<D>(q_t + kQTile, &p.do_map, &full[st], BM, h, q0,
+                           b);
         } else {
           mbar_arrive(&full[st]);
         }
@@ -582,9 +619,9 @@ __device__ __forceinline__ void dkv_tensor_cores(const DkvParams& p,
     const float slope = SLOPE ? __ldg(p.slopes + h) : 0.f;
     const uint32_t k_addr = smem_u32(k_s) + 64 * wg * 128;
     const uint32_t v_addr = smem_u32(v_s) + 64 * wg * 128;
-    float dk[64], dv[64];
+    float dk[D / 2], dv[D / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
 
     mbar_wait(kv_bar, 0);
     for (int it = 0; it < n_tiles; ++it) {
@@ -602,18 +639,18 @@ __device__ __forceinline__ void dkv_tensor_cores(const DkvParams& p,
         float s[32], dp[32];
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
-          const uint32_t kv_off = (kk / 4) * kKvHalf + (kk % 4) * 32;
-          const uint32_t q_off = (kk / 4) * kQHalf + (kk % 4) * 32;
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t kv_off = kslice(kk, kKvBox);
+          const uint32_t q_off = kslice(kk, kQBox);
           wgmma_ss_n64<E>(s, desc_kmajor(k_addr + kv_off),
-                       desc_kmajor(q_addr + q_off), kk > 0);
+                          desc_kmajor(q_addr + q_off), kk > 0);
         }
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
-          const uint32_t kv_off = (kk / 4) * kKvHalf + (kk % 4) * 32;
-          const uint32_t q_off = (kk / 4) * kQHalf + (kk % 4) * 32;
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t kv_off = kslice(kk, kKvBox);
+          const uint32_t q_off = kslice(kk, kQBox);
           wgmma_ss_n64<E>(dp, desc_kmajor(v_addr + kv_off),
-                       desc_kmajor(do_addr + q_off), kk > 0);
+                          desc_kmajor(do_addr + q_off), kk > 0);
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -645,11 +682,10 @@ __device__ __forceinline__ void dkv_tensor_cores(const DkvParams& p,
         fence_regs(pa);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
+        for (int kk = 0; kk < BM / 16; ++kk) {
           const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
                                  pa[4 * kk + 3]};
-          wgmma_rs_n128<E>(dv, a,
-                           desc_mnmajor(do_addr + kk * 2048, kQHalf));
+          wgmma_rs<E, D>(dv, a, desc_mnmajor(do_addr + kk * 2048, kQBox));
         }
 #pragma unroll
         for (int i = 0; i < 32; ++i) {
@@ -661,11 +697,10 @@ __device__ __forceinline__ void dkv_tensor_cores(const DkvParams& p,
         fence_regs(da);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
+        for (int kk = 0; kk < BM / 16; ++kk) {
           const uint32_t a[4] = {da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
                                  da[4 * kk + 3]};
-          wgmma_rs_n128<E>(dk, a,
-                           desc_mnmajor(q_addr + kk * 2048, kQHalf));
+          wgmma_rs<E, D>(dk, a, desc_mnmajor(q_addr + kk * 2048, kQBox));
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -682,11 +717,11 @@ __device__ __forceinline__ void dkv_tensor_cores(const DkvParams& p,
     for (int r = 0; r < 2; ++r) {
       const int key = key0 + 8 * r;
       if (key >= S) continue;
-      const long long at = (((long long)b * S + key) * H + h) * kHeadDim;
+      const long long at = (((long long)b * S + key) * H + h) * D;
       float2* dk_row = reinterpret_cast<float2*>(p.dk + at);
       float2* dv_row = reinterpret_cast<float2*>(p.dv + at);
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < D / 8; ++j) {
         const int c2 = (8 * j + 2 * (t % 4)) / 2;
         dk_row[c2] = make_float2(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
         dv_row[c2] = make_float2(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
@@ -700,95 +735,97 @@ constexpr int dkv_threads() {
   return std::is_same<T, float>::value ? kThreads : tc::kThreads;
 }
 
-template <typename T, bool SLOPE, bool WINDOW>
+template <typename T, bool SLOPE, bool WINDOW, int D>
 __global__ void __launch_bounds__(dkv_threads<T>(), 1)
 flash_bwd_dkv_kernel(const __grid_constant__ DkvParams p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   if constexpr (std::is_same<T, float>::value)
-    dkv_cuda_cores<SLOPE, WINDOW>(p, reinterpret_cast<float*>(smem_raw));
+    dkv_cuda_cores<SLOPE, WINDOW, D>(p, reinterpret_cast<float*>(smem_raw));
   else
-    dkv_tensor_cores<T, SLOPE, WINDOW>(p, smem_raw);
+    dkv_tensor_cores<T, SLOPE, WINDOW, D>(p, smem_raw);
 }
 
-template <typename T, bool SLOPE, bool WINDOW>
+template <typename T, bool SLOPE, bool WINDOW, int D>
 int launch_dq(const DqParams& p, int B, cudaStream_t stream) {
   constexpr bool fp32 = std::is_same<T, float>::value;
-  const size_t smem = fp32 ? kDqSmemFloats * sizeof(float) : tcq::kSmem;
+  const size_t smem =
+      fp32 ? dq_smem_floats<D>() * sizeof(float) : tcq::Smem<D>::kBytes;
   // once per instantiation, before any graph capture can be running
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, SLOPE, WINDOW>,
+      flash_bwd_dq_kernel<T, SLOPE, WINDOW, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid = fp32 ? dim3((p.S + BQ - 1) / BQ, B * p.H)
                          : dim3(B * p.H, (p.S + tcq::BM - 1) / tcq::BM);
-  flash_bwd_dq_kernel<T, SLOPE, WINDOW>
+  flash_bwd_dq_kernel<T, SLOPE, WINDOW, D>
       <<<grid, dq_threads<T>(), smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool SLOPE, bool WINDOW>
+template <typename T, bool SLOPE, bool WINDOW, int D>
 int launch_dkv(const DkvParams& p, int B, cudaStream_t stream) {
   constexpr bool fp32 = std::is_same<T, float>::value;
-  const size_t smem = fp32 ? kDkvSmemFloats * sizeof(float) : tc::kSmem;
+  const size_t smem =
+      fp32 ? dkv_smem_floats<D>() * sizeof(float) : tc::Smem<D>::kBytes;
   // once per instantiation, before any graph capture can be running
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, SLOPE, WINDOW>,
+      flash_bwd_dkv_kernel<T, SLOPE, WINDOW, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid = fp32 ? dim3((p.S + BK - 1) / BK, B * p.H)
                          : dim3(B * p.H, (p.S + tc::BN - 1) / tc::BN);
-  flash_bwd_dkv_kernel<T, SLOPE, WINDOW>
+  flash_bwd_dkv_kernel<T, SLOPE, WINDOW, D>
       <<<grid, dkv_threads<T>(), smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int D>
 int launch_dq_biased(const DqParams& p, int B, cudaStream_t stream) {
   return with_bias(p.slopes, p.window, [&](auto slope, auto win) {
-    return launch_dq<T, decltype(slope)::value, decltype(win)::value>(
+    return launch_dq<T, decltype(slope)::value, decltype(win)::value, D>(
         p, B, stream);
   });
 }
 
-template <typename T>
+template <typename T, int D>
 int launch_dkv_biased(const DkvParams& p, int B, cudaStream_t stream) {
   return with_bias(p.slopes, p.window, [&](auto slope, auto win) {
-    return launch_dkv<T, decltype(slope)::value, decltype(win)::value>(
+    return launch_dkv<T, decltype(slope)::value, decltype(win)::value, D>(
         p, B, stream);
   });
 }
 
 // The tensor-core kernels: their tensor maps (Q and dO at H heads, K and V
 // at Hkv, each kernel's own tile rows), then the launch.
-template <typename E, int Q_ROWS, int KV_ROWS, typename P>
+template <typename E, int Q_ROWS, int KV_ROWS, int D, typename P>
 int make_maps(P& p, int B) {
   using hopper::make_head_map;
   const int S = p.S, H = p.H, Hkv = p.Hkv;
-  int rc = make_head_map<E>(&p.q_map, p.q, B, S, H, Q_ROWS);
-  if (!rc) rc = make_head_map<E>(&p.do_map, p.dout, B, S, H, Q_ROWS);
-  if (!rc) rc = make_head_map<E>(&p.k_map, p.k, B, S, Hkv, KV_ROWS);
-  if (!rc) rc = make_head_map<E>(&p.v_map, p.v, B, S, Hkv, KV_ROWS);
+  int rc = make_head_map<E>(&p.q_map, p.q, B, S, H, Q_ROWS, D);
+  if (!rc) rc = make_head_map<E>(&p.do_map, p.dout, B, S, H, Q_ROWS, D);
+  if (!rc) rc = make_head_map<E>(&p.k_map, p.k, B, S, Hkv, KV_ROWS, D);
+  if (!rc) rc = make_head_map<E>(&p.v_map, p.v, B, S, Hkv, KV_ROWS, D);
   return rc;
 }
 
-template <typename E>
+template <typename E, int D>
 int launch_dq_tensor_cores(DqParams& p, int B, cudaStream_t stream) {
-  const int rc = make_maps<E, tcq::BM, tcq::BN>(p, B);
-  return rc ? rc : launch_dq_biased<E>(p, B, stream);
+  const int rc = make_maps<E, tcq::BM, tcq::BN, D>(p, B);
+  return rc ? rc : launch_dq_biased<E, D>(p, B, stream);
 }
 
-template <typename E>
+template <typename E, int D>
 int launch_dkv_tensor_cores(DkvParams& p, int B, cudaStream_t stream) {
-  const int rc = make_maps<E, tc::BM, tc::BN>(p, B);
-  return rc ? rc : launch_dkv_biased<E>(p, B, stream);
+  const int rc = make_maps<E, tc::BM, tc::BN, D>(p, B);
+  return rc ? rc : launch_dkv_biased<E, D>(p, B, stream);
 }
 
 }  // namespace
 
 // q/dout/dq: [B, S, H, D]; k/v: [B, S, Hkv, D] (one dtype: 0 = float32,
 // 1 = bfloat16, 2 = float16); lse/delta: fp32 [B, H, S].  slopes: fp32 [H]
-// ALiBi slopes or null; window: the sliding window, <= 0 for none.  D must
-// be 128.  Return cudaGetLastError().
+// ALiBi slopes or null; window: the sliding window, <= 0 for none.  D is 64
+// or 128.  Return cudaGetLastError().
 extern "C" int ds_flash_attention_bwd_dq(const void* q, const void* k,
                                          const void* v, const void* dout,
                                          const void* lse, const void* delta,
@@ -814,10 +851,13 @@ extern "C" int ds_flash_attention_bwd_dq(const void* q, const void* k,
   p.causal = causal;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_dq_biased<float>(p, B, s);
-  if (dtype == 1) return launch_dq_tensor_cores<__nv_bfloat16>(p, B, s);
-  if (dtype == 2) return launch_dq_tensor_cores<__half>(p, B, s);
-  return (int)cudaErrorInvalidValue;
+  return dsflash::with_head_dim(D, [&](auto d) {
+    constexpr int Dc = decltype(d)::value;
+    if (dtype == 0) return launch_dq_biased<float, Dc>(p, B, s);
+    if (dtype == 1) return launch_dq_tensor_cores<__nv_bfloat16, Dc>(p, B, s);
+    if (dtype == 2) return launch_dq_tensor_cores<__half, Dc>(p, B, s);
+    return (int)cudaErrorInvalidValue;
+  });
 }
 
 // dk/dv: fp32 [B, S, H, D], one row block per QUERY head (summed over the
@@ -849,8 +889,11 @@ extern "C" int ds_flash_attention_bwd_dkv(const void* q, const void* k,
   p.causal = causal;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_dkv_biased<float>(p, B, s);
-  if (dtype == 1) return launch_dkv_tensor_cores<__nv_bfloat16>(p, B, s);
-  if (dtype == 2) return launch_dkv_tensor_cores<__half>(p, B, s);
-  return (int)cudaErrorInvalidValue;
+  return dsflash::with_head_dim(D, [&](auto d) {
+    constexpr int Dc = decltype(d)::value;
+    if (dtype == 0) return launch_dkv_biased<float, Dc>(p, B, s);
+    if (dtype == 1) return launch_dkv_tensor_cores<__nv_bfloat16, Dc>(p, B, s);
+    if (dtype == 2) return launch_dkv_tensor_cores<__half, Dc>(p, B, s);
+    return (int)cudaErrorInvalidValue;
+  });
 }

@@ -42,6 +42,20 @@
 // stream is two 64 KB tiles per 128 x 128 block-tile: at S=2048 the card's
 // L2 bandwidth alone sets a floor near half this kernel's time.
 //
+// Head dim 64 (gpt2_125m, gpt_350m, gpt2_1_5b, BLOOM-560m, GPT-Neo-125M):
+// the same bodies with D = 64 as a template argument.  A Q, K or V tile is
+// one 64-column TMA box instead of two, S = Q K^T walks 4 depth slices
+// instead of 8, and O += P V is m64n64 (O takes 32 fp32 registers a
+// thread instead of 64).  A tile is half the bytes, so the ring holds 4
+// stages of K and V instead of 2 (144 KB of shared memory).  Registers
+// keep one block on an SM at either D: S alone takes 64 a thread, so two
+// blocks (consumers under 116 registers each) do not fit, and setmaxnreg
+// stays 240 / 24.  At gpt_350m's training shape (B=8, S=1024, 16 heads of
+// 64, causal) the forward does 17.2 GFLOP on 67.6 MB: bound by bytes
+// (20.2 us), the tensor cores' 17.4 us close behind, and its 67.1 M
+// exponentials take ~17 us of the SFUs (16 a clock an SM): a body that
+// does not overlap the softmax with wgmma lands near twice its bound.
+//
 // fp16 keeps 3 more mantissa bits than bf16 (P, O and the products' inputs
 // round at 2^-11 instead of 2^-8) and the same fp32 accumulators, LSE and
 // softmax; P <= 1 and O is a convex mix of V's rows, so neither can leave
@@ -75,12 +89,16 @@ struct FwdParams {
 
 // ---- fp32: CUDA cores -------------------------------------------------
 
-constexpr size_t kSmemFloats = 2 * 64 * PD + BQ * PT + 3 * BQ;
+template <int D>
+constexpr size_t smem_floats() {
+  return 2 * 64 * pitch<D>() + BQ * PT + 3 * BQ;
+}
 
-template <bool SLOPE, bool WINDOW>
+template <bool SLOPE, bool WINDOW, int D>
 __device__ __forceinline__ void fwd_cuda_cores(const FwdParams& p,
                                                float* smem) {
   using T = float;
+  constexpr int PD = pitch<D>(), J = D / 16;   // J: output columns a thread
   const T* q = static_cast<const T*>(p.q);
   const T* k = static_cast<const T*>(p.k);
   const T* v = static_cast<const T*>(p.v);
@@ -97,25 +115,26 @@ __device__ __forceinline__ void fwd_cuda_cores(const FwdParams& p,
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int warp = tid / 32, lane = tid % 32;
   const int q0 = blockIdx.x * BQ;
-  const Heads hd(S, p.H, p.Hkv);
+  const Heads hd(S, p.H, p.Hkv, D);
   const Bias<SLOPE, WINDOW> bias(p.slopes, hd.h, p.window);
 
   // the ALiBi kernels scale the product, not Q (see masked())
-  load_tile<T>(q_s, q, hd.q_base, hd.q_stride, q0, S, SLOPE ? 1.f : scale);
+  load_tile<T, D>(q_s, q, hd.q_base, hd.q_stride, q0, S,
+                  SLOPE ? 1.f : scale);
   if (tid < BQ) {
     m_s[tid] = kNeg;
     l_s[tid] = 0.f;
   }
-  float acc[4][8];
+  float acc[4][J];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < J; ++j) acc[i][j] = 0.f;
 
   const int kv_hi = causal ? min(S, q0 + BQ) : S;
   for (int k0 = bias.key_lo(q0); k0 < kv_hi; k0 += BK) {
     __syncthreads();  // previous tile's P V done; Q and m/l written
-    load_tile<T>(kv_s, k, hd.kv_base, hd.kv_stride, k0, S, 1.f);
+    load_tile<T, D>(kv_s, k, hd.kv_base, hd.kv_stride, k0, S, 1.f);
     __syncthreads();
 
     float s[4][4];
@@ -151,16 +170,16 @@ __device__ __forceinline__ void fwd_cuda_cores(const FwdParams& p,
         c_s[r] = corr;
       }
     }
-    load_tile<T>(kv_s, v, hd.kv_base, hd.kv_stride, k0, S, 1.f);
+    load_tile<T, D>(kv_s, v, hd.kv_base, hd.kv_stride, k0, S, 1.f);
     __syncthreads();
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float corr = c_s[ty + 16 * i];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] *= corr;
+      for (int j = 0; j < J; ++j) acc[i][j] *= corr;
     }
-    gemm_nn<4, 8, BK, PT, PD>(acc, p_s, kv_s, ty, tx);
+    gemm_nn<4, J, BK, PT, PD>(acc, p_s, kv_s, ty, tx);
   }
   __syncthreads();
 
@@ -171,7 +190,7 @@ __device__ __forceinline__ void fwd_cuda_cores(const FwdParams& p,
       const float l = fmaxf(l_s[r], 1e-30f);
       T* orow = o + hd.q_base + (long long)qrow * hd.q_stride;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) orow[tx + 16 * j] = from_f<T>(acc[i][j] / l);
+      for (int j = 0; j < J; ++j) orow[tx + 16 * j] = from_f<T>(acc[i][j] / l);
     }
   }
   if (tid < BQ && q0 + tid < S)
@@ -185,19 +204,25 @@ namespace tc {
 constexpr int BM = 128;                       // query rows of a block
 constexpr int BN = 128;                       // keys of a K/V tile
 constexpr int kThreads = 384;                 // 2 consumer + 1 producer WG
-constexpr int kTile = 128 * hopper::kHeadDim * 2;   // 32 KB 2-byte tile
-constexpr int kHalf = kTile / 2;              // one 64-column box
-constexpr int kStages = 2;
-// Q, then kStages x (K, V), then the barriers: Q's, full[], empty[]
-constexpr int kBarOffset = kTile + kStages * 2 * kTile;
-constexpr size_t kSmem = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
+constexpr int kBox = 128 * hopper::kBoxCols * 2;   // one 64-column box
+// The shared-memory plan at head dim D: Q, then kStages x (K, V), then the
+// barriers: Q's, full[], empty[]
+template <int D>
+struct Smem {
+  static constexpr int kTile = 128 * D * 2;   // 32 KB at D = 128, 16 at 64
+  static constexpr int kStages = D == 64 ? 4 : 2;
+  static constexpr int kBarOffset = kTile + kStages * 2 * kTile;
+  static constexpr size_t kBytes = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
+};
 }  // namespace tc
 
-template <typename E, bool SLOPE, bool WINDOW>
+template <typename E, bool SLOPE, bool WINDOW, int D>
 __device__ __forceinline__ void fwd_tensor_cores(const FwdParams& p,
                                                  unsigned char* raw) {
   using namespace hopper;
   using namespace tc;
+  constexpr int kTile = Smem<D>::kTile, kStages = Smem<D>::kStages;
+  constexpr int kBarOffset = Smem<D>::kBarOffset;
   // tiles on 1024-byte boundaries (the swizzle atom)
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
@@ -232,15 +257,15 @@ __device__ __forceinline__ void fwd_tensor_cores(const FwdParams& p,
     regs_dealloc<24>();
     if (t == 0) {
       mbar_arrive_expect_tx(q_bar, kTile);
-      tma_load_rows(q_s, &p.q_map, q_bar, BM, h, q0, b);
+      tma_load_rows<D>(q_s, &p.q_map, q_bar, BM, h, q0, b);
       for (int it = 0; it < n_tiles; ++it) {
         const int st = it % kStages;
         mbar_wait(&empty[st], ((it / kStages) & 1) ^ 1);
         unsigned char* k_t = kv_s + st * 2 * kTile;
         const int k0 = k_lo + it * BN;
         mbar_arrive_expect_tx(&full[st], 2 * kTile);
-        tma_load_rows(k_t, &p.k_map, &full[st], BN, hk, k0, b);
-        tma_load_rows(k_t + kTile, &p.v_map, &full[st], BN, hk, k0, b);
+        tma_load_rows<D>(k_t, &p.k_map, &full[st], BN, hk, k0, b);
+        tma_load_rows<D>(k_t + kTile, &p.v_map, &full[st], BN, hk, k0, b);
       }
     }
   } else {  // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63
@@ -250,9 +275,9 @@ __device__ __forceinline__ void fwd_tensor_cores(const FwdParams& p,
     const float slope = SLOPE ? __ldg(p.slopes + h) : 0.f;
     const float scale = p.scale;
     const uint32_t q_addr = smem_u32(q_s) + 64 * wg * 128;
-    float o[64];
+    float o[D / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
     float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};   // l: this lane's share
 
     mbar_wait(q_bar, 0);
@@ -268,10 +293,10 @@ __device__ __forceinline__ void fwd_tensor_cores(const FwdParams& p,
         float s[64];
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
-          const uint32_t off = (kk / 4) * kHalf + (kk % 4) * 32;
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t off = kslice(kk, kBox);
           wgmma_ss_n128<E>(s, desc_kmajor(q_addr + off),
-                        desc_kmajor(k_addr + off), kk > 0);
+                           desc_kmajor(k_addr + off), kk > 0);
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -313,19 +338,19 @@ __device__ __forceinline__ void fwd_tensor_cores(const FwdParams& p,
           const float pr = ex2(fmaf(s[i], kLog2e, -ml[r]));
           l[r] += pr;
           s[i] = pr;
-          o[i] *= corr[r];
         }
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i / 2) % 2];
         uint32_t pa[32];
         acc_to_a<E>(s, pa);
         fence_regs(o);
         fence_regs(pa);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
+        for (int kk = 0; kk < BN / 16; ++kk) {
           const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
                                  pa[4 * kk + 3]};
-          wgmma_rs_n128<E>(o, a,
-                           desc_mnmajor(v_addr + kk * 2048, kHalf));
+          wgmma_rs<E, D>(o, a, desc_mnmajor(v_addr + kk * 2048, kBox));
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -344,9 +369,9 @@ __device__ __forceinline__ void fwd_tensor_cores(const FwdParams& p,
       if (row >= S) continue;
       const float inv = 1.f / fmaxf(l[r], 1e-30f);
       uint32_t* orow = reinterpret_cast<uint32_t*>(
-          out + (((long long)b * S + row) * H + h) * kHeadDim);
+          out + (((long long)b * S + row) * H + h) * D);
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+      for (int j = 0; j < D / 8; ++j)
         orow[(8 * j + 2 * (t % 4)) / 2] =
             pack2<E>(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
       if (t % 4 == 0)
@@ -360,49 +385,50 @@ constexpr int fwd_threads() {
   return std::is_same<T, float>::value ? kThreads : tc::kThreads;
 }
 
-template <typename T, bool SLOPE, bool WINDOW>
+template <typename T, bool SLOPE, bool WINDOW, int D>
 __global__ void __launch_bounds__(fwd_threads<T>(), 1)
 flash_fwd_kernel(const __grid_constant__ FwdParams p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   if constexpr (std::is_same<T, float>::value)
-    fwd_cuda_cores<SLOPE, WINDOW>(p, reinterpret_cast<float*>(smem_raw));
+    fwd_cuda_cores<SLOPE, WINDOW, D>(p, reinterpret_cast<float*>(smem_raw));
   else
-    fwd_tensor_cores<T, SLOPE, WINDOW>(p, smem_raw);
+    fwd_tensor_cores<T, SLOPE, WINDOW, D>(p, smem_raw);
 }
 
-template <typename T, bool SLOPE, bool WINDOW>
+template <typename T, bool SLOPE, bool WINDOW, int D>
 int launch(const FwdParams& p, int B, cudaStream_t stream) {
   constexpr bool fp32 = std::is_same<T, float>::value;
-  const size_t smem = fp32 ? kSmemFloats * sizeof(float) : tc::kSmem;
+  const size_t smem =
+      fp32 ? smem_floats<D>() * sizeof(float) : tc::Smem<D>::kBytes;
   // once per instantiation, before any graph capture can be running
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, SLOPE, WINDOW>,
+      flash_fwd_kernel<T, SLOPE, WINDOW, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid = fp32 ? dim3((p.S + BQ - 1) / BQ, B * p.H)
                          : dim3(B * p.H, (p.S + tc::BM - 1) / tc::BM);
-  flash_fwd_kernel<T, SLOPE, WINDOW>
+  flash_fwd_kernel<T, SLOPE, WINDOW, D>
       <<<grid, fwd_threads<T>(), smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int D>
 int launch_biased(const FwdParams& p, int B, cudaStream_t stream) {
   return with_bias(p.slopes, p.window, [&](auto slope, auto win) {
-    return launch<T, decltype(slope)::value, decltype(win)::value>(p, B,
-                                                                   stream);
+    return launch<T, decltype(slope)::value, decltype(win)::value, D>(
+        p, B, stream);
   });
 }
 
 // The tensor-core kernels: their tensor maps, then the launch.
-template <typename E>
+template <typename E, int D>
 int launch_tensor_cores(FwdParams& p, int B, cudaStream_t stream) {
   using hopper::make_head_map;
   const int S = p.S, Hkv = p.Hkv;
-  int rc = make_head_map<E>(&p.q_map, p.q, B, S, p.H, tc::BM);
-  if (!rc) rc = make_head_map<E>(&p.k_map, p.k, B, S, Hkv, tc::BN);
-  if (!rc) rc = make_head_map<E>(&p.v_map, p.v, B, S, Hkv, tc::BN);
-  return rc ? rc : launch_biased<E>(p, B, stream);
+  int rc = make_head_map<E>(&p.q_map, p.q, B, S, p.H, tc::BM, D);
+  if (!rc) rc = make_head_map<E>(&p.k_map, p.k, B, S, Hkv, tc::BN, D);
+  if (!rc) rc = make_head_map<E>(&p.v_map, p.v, B, S, Hkv, tc::BN, D);
+  return rc ? rc : launch_biased<E, D>(p, B, stream);
 }
 
 }  // namespace
@@ -410,7 +436,7 @@ int launch_tensor_cores(FwdParams& p, int B, cudaStream_t stream) {
 // q: [B, S, H, D]; k/v: [B, S, Hkv, D]; o: [B, S, H, D] (q's dtype);
 // lse: fp32 [B, H, S].  slopes: fp32 [H] ALiBi slopes or null; window:
 // the sliding window, <= 0 for none.  dtype: 0 = float32, 1 = bfloat16,
-// 2 = float16; D must be 128.  Returns a CUDA error code, 0 on success.
+// 2 = float16; D is 64 or 128.  Returns a CUDA error code, 0 on success.
 extern "C" int ds_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       const void* slopes, int B, int S,
@@ -433,8 +459,11 @@ extern "C" int ds_flash_attention_fwd(const void* q, const void* k,
   p.causal = causal;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_biased<float>(p, B, s);
-  if (dtype == 1) return launch_tensor_cores<__nv_bfloat16>(p, B, s);
-  if (dtype == 2) return launch_tensor_cores<__half>(p, B, s);
-  return (int)cudaErrorInvalidValue;
+  return dsflash::with_head_dim(D, [&](auto d) {
+    constexpr int Dc = decltype(d)::value;
+    if (dtype == 0) return launch_biased<float, Dc>(p, B, s);
+    if (dtype == 1) return launch_tensor_cores<__nv_bfloat16, Dc>(p, B, s);
+    if (dtype == 2) return launch_tensor_cores<__half, Dc>(p, B, s);
+    return (int)cudaErrorInvalidValue;
+  });
 }

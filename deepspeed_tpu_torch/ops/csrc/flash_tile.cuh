@@ -5,15 +5,16 @@
 //
 // Layout.  q, o, dO: [B, S, H, D]; k, v: [B, S, Hkv, D], contiguous, so row
 // s of head h starts at ((b * S + s) * H + h) * D and rows are H * D apart.
-// Query head h reads kv head h / (H / Hkv) (GQA).  D = 128.  The biased
-// kernels read one fp32 ALiBi slope per QUERY head, slopes[h].
+// Query head h reads kv head h / (H / Hkv) (GQA).  D (the head dim) is a
+// template argument, 64 or 128.  The biased kernels read one fp32 ALiBi
+// slope per QUERY head, slopes[h].
 //
 // Tiles.  64 query rows by 64 keys.  A [64][D] tile is stored with pitch
-// D + 1 and a [64][64] tile with pitch 65, so the column walks of the
-// products below hit 16 (or 32) different banks.  A block has 256 threads;
-// thread (ty, tx) = (tid / 16, tid % 16) owns rows ty + 16 i and columns
-// tx + 16 j of every product tile: a warp reads two A rows (two banks,
-// broadcast to the 16 threads of each) and 16 consecutive B rows or
+// D + 1 (pitch<D>) and a [64][64] tile with pitch 65, so the column walks
+// of the products below hit 16 (or 32) different banks.  A block has 256
+// threads; thread (ty, tx) = (tid / 16, tid % 16) owns rows ty + 16 i and
+// columns tx + 16 j of every product tile: a warp reads two A rows (two
+// banks, broadcast to the 16 threads of each) and 16 consecutive B rows or
 // columns per step.
 #pragma once
 
@@ -27,19 +28,24 @@ using dsattn::from_f;
 using dsattn::kNeg;
 using dsattn::to_f;
 
-constexpr int D = 128;         // head_dim
 constexpr int BQ = 64;         // query rows per tile
 constexpr int BK = 64;         // keys per tile
 constexpr int kThreads = 256;
-constexpr int PD = D + 1;      // pitch of [64][D] tiles
 constexpr int PT = BK + 1;     // pitch of [BQ][BK] tiles
+
+// pitch of [64][D] tiles
+template <int D>
+__host__ __device__ constexpr int pitch() {
+  static_assert(D == 64 || D == 128, "the flash kernels take D 64 or 128");
+  return D + 1;
+}
 static_assert(BQ == BK, "the dK/dV kernel starts its q loop at its k tile");
 
-// Rows [r0, r0 + 64) of one head of a [B, S, Hx, D] tensor -> dst [64][PD]
-// as fp32 times ``mul``; rows at or past S are 0.  ``base`` is the element
-// offset of (b, 0, hx, 0), ``stride`` = Hx * D.  Each thread issues all its
-// 16-byte loads before storing any of them.
-template <typename T>
+// Rows [r0, r0 + 64) of one head of a [B, S, Hx, D] tensor -> dst
+// [64][pitch<D>()] as fp32 times ``mul``; rows at or past S are 0.
+// ``base`` is the element offset of (b, 0, hx, 0), ``stride`` = Hx * D.
+// Each thread issues all its 16-byte loads before storing any of them.
+template <typename T, int D>
 __device__ __forceinline__ void load_tile(float* __restrict__ dst,
                                           const T* __restrict__ src,
                                           long long base, long long stride,
@@ -62,7 +68,7 @@ __device__ __forceinline__ void load_tile(float* __restrict__ dst,
   for (int it = 0; it < PER; ++it) {
     const int i = it * kThreads + threadIdx.x;
     const T* e = reinterpret_cast<const T*>(&buf[it]);
-    float* row = dst + (i / LANES) * PD + (i % LANES) * VEC;
+    float* row = dst + (i / LANES) * pitch<D>() + (i % LANES) * VEC;
 #pragma unroll
     for (int x = 0; x < VEC; ++x) row[x] = to_f(e[x]) * mul;
   }
@@ -189,7 +195,7 @@ struct Heads {
   long long q_base, q_stride;    // (b, 0, h, 0) of q/o/dO and its row step
   long long kv_base, kv_stride;  // (b, 0, h / group, 0) of k/v
   int bh, h;                     // b * H + h and the query head h
-  __device__ __forceinline__ Heads(int S, int H, int Hkv) {
+  __device__ __forceinline__ Heads(int S, int H, int Hkv, int D) {
     bh = blockIdx.y;
     h = bh % H;
     const int b = bh / H, hk = h / (H / Hkv);
@@ -213,11 +219,20 @@ inline int with_bias(const void* slopes, int window, Launch&& launch) {
 }
 
 // Checks shared by the host entries; 0 when the launch may go ahead.
-inline int check_shape(int B, int S, int H, int Hkv, int Dh) {
-  if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0 || Dh != D ||
-      (long long)B * H > 65535)
+inline int check_shape(int B, int S, int H, int Hkv, int D) {
+  if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0 ||
+      (D != 64 && D != 128) || (long long)B * H > 65535)
     return (int)cudaErrorInvalidValue;
   return 0;
+}
+
+// Runs ``launch(d)`` with d a std::integral_constant of the head dim D
+// (64 or 128): the instantiation a host entry needs; check_shape has
+// refused every other D.
+template <typename Launch>
+inline int with_head_dim(int D, Launch&& launch) {
+  if (D == 64) return launch(std::integral_constant<int, 64>{});
+  return launch(std::integral_constant<int, 128>{});
 }
 
 }  // namespace dsflash

@@ -14,19 +14,21 @@
 // fp32 values into A-operand registers and the tensor map's data type
 // differ (is_f16, pack2, map_type).
 //
-// Shared-memory tiles.  A tile of R rows by 128 columns (one head's rows
-// of a [B, S, Hx, 128] tensor) is loaded by TMA as two boxes of R rows
-// by 64 columns, each R * 128 bytes, with the 128-byte swizzle: the
+// Shared-memory tiles.  A tile of R rows by D columns (one head's rows of
+// a [B, S, Hx, D] tensor, D 64 or 128) is loaded by TMA as D / 64 boxes of
+// R rows by 64 columns, each R * 128 bytes, with the 128-byte swizzle: the
 // 16-byte chunk c of row r lands at chunk c ^ (r % 8) of that row, so an
 // 8-row group is one 1024-byte swizzle atom.  Tiles start on 1024-byte
 // boundaries, where the swizzle pattern of TMA and of wgmma line up.  The
 // same tile feeds wgmma two ways:
-//   K-major (the 128 columns are the product's depth, e.g. K in Q K^T):
-//     desc_kmajor(tile + (k / 4) * half + (k % 4) * 32) is the k-th
-//     16-column slice;
+//   K-major (the D columns are the product's depth, e.g. K in Q K^T):
+//     desc_kmajor(tile + kslice(k, box)) is the k-th 16-column slice, k <
+//     D / 16: eight slices over two boxes at D = 128, four over one at
+//     D = 64 (``box`` = R * 128, the bytes of one box);
 //   MN-major (the rows are the depth, e.g. V in P V): desc_mnmajor(tile +
-//     k * 2048, half) is the k-th 16-row slice, both 64-column halves, with
-//     the transpose bit set on the instruction.
+//     k * 2048, box) is the k-th 16-row slice, all D / 64 boxes, with the
+//     transpose bit set on the instruction; D is then the product's N
+//     (wgmma_rs<E, D>: m64n128 at D = 128, m64n64 at D = 64).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the driver is reached at run
@@ -40,7 +42,6 @@
 
 namespace hopper {
 
-constexpr int kHeadDim = 128;            // columns of a tile
 constexpr int kBoxCols = 64;             // columns of a TMA box (128 bytes)
 constexpr int kAtomBytes = 1024;         // 8 rows of 128 bytes
 
@@ -130,14 +131,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
 }
 
 // Rows [r0, r0 + R) of head hx, batch b, of the tensor behind ``map`` (made
-// by make_head_map with box rows R) -> the two 64-column halves at dst and
-// dst + R * 128.
+// by make_head_map with box rows R and head dim D) -> the D / 64 boxes of
+// 64 columns at dst, dst + R * 128, ...
+template <int D>
 __device__ __forceinline__ void tma_load_rows(void* dst, const CUtensorMap* map,
                                               uint64_t* bar, int rows, int hx,
                                               int r0, int b) {
-  tma_load_4d(dst, map, bar, 0, hx, r0, b);
-  tma_load_4d(static_cast<char*>(dst) + rows * kBoxCols * 2, map, bar,
-              kBoxCols, hx, r0, b);
+  static_assert(D % kBoxCols == 0, "a tile is whole 64-column boxes");
+#pragma unroll
+  for (int c = 0; c < D / kBoxCols; ++c)
+    tma_load_4d(static_cast<char*>(dst) + c * rows * kBoxCols * 2, map, bar,
+                c * kBoxCols, hx, r0, b);
 }
 
 // ---- register budget of warp-specialised kernels ---------------------------
@@ -174,6 +178,13 @@ __device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
 __device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr,
                                                  uint32_t half) {
   return make_desc(addr, half, kAtomBytes);
+}
+
+// Byte offset of the k-th 16-column depth slice of a K-major tile whose
+// 64-column boxes are ``box`` bytes long: slices 0-3 lie in the first box,
+// 4-7 in the second (D = 128 only; a D = 64 tile walks k < 4).
+__device__ __forceinline__ uint32_t kslice(int k, uint32_t box) {
+  return (k / 4) * box + (k % 4) * 32;
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -349,6 +360,18 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
   else DS_WGMMA_RS_N64("bf16");
 }
 
+// D[64 x N] += A[64 x 16] * B[16 x N] with B MN-major, N the head dim
+// (64 or 128): the products whose N is D (O += P V, dQ += dS K, dV += P^T
+// dO, dK += dS^T Q).
+template <typename E, int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  static_assert(N == 64 || N == 128, "wgmma_rs takes N = 64 or 128");
+  if constexpr (N == 128) wgmma_rs_n128<E>(d, a, desc_b);
+  else wgmma_rs_n64<E>(d, a, desc_b);
+}
+
 #undef DS_WGMMA_SS_N128
 #undef DS_WGMMA_SS_N64
 #undef DS_WGMMA_RS_N128
@@ -466,7 +489,7 @@ inline int make_map(CUtensorMap* map, const void* ptr, int rank,
 // columns.  Rows at or past S read as zeros.
 template <typename E>
 inline int make_head_map(CUtensorMap* map, const void* ptr, int B, int S,
-                         int Hx, int rows, int D = kHeadDim) {
+                         int Hx, int rows, int D) {
   const cuuint64_t row = D * sizeof(E);
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(Hx),

@@ -66,7 +66,7 @@
 namespace {
 
 using dsattn::kNeg;
-constexpr int kD = hopper::kHeadDim;   // the tensor-core tiles' head dim
+constexpr int kD = 128;   // the tensor-core tiles' head dim
 
 // ---- decode rows: split_decode.cuh over the paged cache -----------------
 
@@ -138,7 +138,7 @@ namespace tc {
 constexpr int BM = 128;                              // rows of a tile
 constexpr int BN = 128;                              // keys of a K/V tile
 constexpr int kThreads = 384;                        // 2 consumer + 1 producer WG
-constexpr int kTile = 128 * hopper::kHeadDim * 2;    // 32 KB 16-bit tile
+constexpr int kTile = 128 * kD * 2;                  // 32 KB 16-bit tile
 constexpr int kHalf = kTile / 2;                     // one 64-column box
 constexpr int kStages = 2;
 constexpr int kBarOffset = kTile + kStages * 2 * kTile;

@@ -12,7 +12,10 @@ port of the host side ``_flash_bwd_pallas``: it computes ``delta =
 sum(dO * O)`` in fp32, launches both backward kernels and sums the
 per-query-head fp32 dK/dV over the GQA group.  The plain versions are in
 ``ops/flash_attention.py``, with the ``torch.autograd.Function`` that picks
-between them.
+between them.  The kernels are built for head dims 64 and 128
+(:data:`FLASH_HEAD_DIMS`, each a template instantiation of the same
+bodies); any other head dim raises ``NotImplementedError`` naming ROADMAP
+A16, as :func:`check_head_dim` does at the entry points' construction.
 """
 
 import torch
@@ -22,18 +25,28 @@ from deepspeed_tpu_torch.ops import op_builder
 # the C entries' dtype codes: fp32 on the CUDA cores, bf16 and fp16 on the
 # tensor cores
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# the flash kernels are built for head dim 128 only (training at head dim
-# 64 is ROADMAP A16)
-FLASH_HEAD_DIMS = (128,)
+# the head dims the flash kernels are built for
+FLASH_HEAD_DIMS = (64, 128)
+
+
+def check_head_dim(name, head_dim, head_dims=FLASH_HEAD_DIMS):
+    """Raise ``NotImplementedError`` naming ROADMAP A16 unless a kernel
+    takes ``head_dim``."""
+    if head_dim not in head_dims:
+        raise NotImplementedError(
+            f"{name}: head_dim {head_dim} not in {tuple(head_dims)}: the "
+            f"kernels at other head dims are not ported yet (ROADMAP A16); "
+            f"the plain versions take it on the CPU")
 
 
 def _check(name, q, k, v, *more):
     """Head dim, device, dtype, shape, contiguity and alignment of q [B, S,
     H, D], k/v [B, S, Hkv, D] and same-shape-as-q tensors ``more``."""
     ts = (q, k, v) + more
-    if q.dim() != 4 or q.shape[3] not in FLASH_HEAD_DIMS:
-        raise ValueError(f"{name}: head_dim {q.shape[-1]} not in "
-                         f"{FLASH_HEAD_DIMS}")
+    if q.dim() != 4:
+        raise ValueError(f"{name}: q must be [B, S, H, D], got "
+                         f"{tuple(q.shape)}")
+    check_head_dim(name, q.shape[3])
     if not all(t.is_cuda for t in ts):
         raise ValueError(f"{name} needs CUDA tensors; use the plain version "
                          f"for CPU tensors")

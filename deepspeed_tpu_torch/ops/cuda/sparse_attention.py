@@ -20,6 +20,7 @@ import torch
 
 from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops.cuda.decode_attention import _DTYPE_CODES
+from deepspeed_tpu_torch.ops.cuda.flash_attention import check_head_dim
 
 SPARSE_BLOCKS = (16, 32, 64, 128)   # layout blocks the kernel is built for
 SPARSE_HEAD_DIMS = (64, 128)
@@ -164,6 +165,8 @@ def sparse_attention_cuda(q, k, v, layout, block, causal=False,
     [B, S, H, D] in q's dtype."""
     name = "sparse_attention_cuda"
     ts = (q, k, v)
+    if q.dim() == 4:
+        check_head_dim(name, q.shape[3], SPARSE_HEAD_DIMS)
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         raise NotImplementedError(
             "the block-sparse attention kernel is forward only, as the TPU "
@@ -179,8 +182,6 @@ def sparse_attention_cuda(q, k, v, layout, block, causal=False,
         raise ValueError(f"{name}: q, k, v must share one [B, S, H, D] "
                          f"shape, got {[tuple(t.shape) for t in ts]}")
     B, S, H, D = q.shape
-    if D not in SPARSE_HEAD_DIMS:
-        raise ValueError(f"{name}: head_dim {D} not in {SPARSE_HEAD_DIMS}")
     if block not in SPARSE_BLOCKS or S % block:
         raise ValueError(f"{name}: layout block {block} must be one of "
                          f"{SPARSE_BLOCKS} and divide S={S}")

@@ -61,6 +61,7 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.accelerator import get_accelerator
+from deepspeed_tpu_torch.models.transformer import check_trainable
 from deepspeed_tpu_torch.ops.decode_attention import validate_backend
 from deepspeed_tpu_torch.runtime.checkpoint_engine import (
     LAYOUT_NAME, get_checkpoint_engine, unflatten)
@@ -116,6 +117,10 @@ class DeepSpeedEngine:
         self._config = config
         self.device = get_accelerator().resolve_device(device)
         self.backend = validate_backend(backend)
+        # on the card a head dim the flash kernels do not take raises
+        # here, before anything is allocated there
+        if self.backend != "plain" and hasattr(model, "config"):
+            check_trainable(model.config, self.device)
         if config.bfloat16_enabled:
             self.compute_dtype = torch.bfloat16
         elif config.fp16_enabled:

@@ -3,6 +3,7 @@
 card, in one process.
 
     python3 scripts/flash_kernel_ab.py VARIANTS.json [--out DIR]
+        [--head-dim 64]
 
 VARIANTS.json maps a variant's name to ``{"dir": <sources>, "edits":
 {<file>: [[regex, replacement], ...]}}``: the variant is a copy of the
@@ -17,10 +18,12 @@ edge cases -- S=1000 (ragged last tiles), GQA, non-causal, windows and
 ALiBi (relative L2 of O, dQ, dK, dV; max LSE error) -- and device ms by
 CUDA-graph replay over 4 rotating input sets at the training paths'
 shapes (B=2, 16 heads of 128, causal: S=1024; S=2048 with ALiBi, window
-256, and unscaled); the first variant is timed again at the end, so
-drift shows.  Last, the HGMMA and WARPGROUP.DEPBAR counts of each
-variant's bf16 kernels (a DEPBAR after every HGMMA means ptxas
-serialised the wgmma pipeline).
+256, and unscaled; with ``--head-dim 64``: gpt_350m's B=8 S=1024, 16
+heads, and B=2 S=2048 with ALiBi and with window 256, 16 heads of 64);
+the first variant is timed again at the end, so drift shows.  Last, the
+HGMMA and WARPGROUP.DEPBAR counts of each variant's bf16 kernels at that
+head dim (a DEPBAR after every HGMMA means ptxas serialised the wgmma
+pipeline).
 """
 
 import argparse
@@ -43,11 +46,14 @@ CASES = [  # (label, B, S, H, Hkv, causal, ALiBi, window, scale)
     ("ALiBi+window 200 GQA S=640", 2, 640, 32, 8, True, True, 200, None),
     ("ALiBi S=2048", 1, 2048, 4, 4, True, True, None, None),
     ("window 256 scale 1 S=2048", 1, 2048, 4, 4, True, False, 256, 1.0)]
-SHAPES = [  # (label, S, ALiBi, window, scale) at B=2, 16 heads of 128
-    ("S=1024", 1024, False, None, None),
-    ("ALiBi S=2048", 2048, True, None, None),
-    ("window 256 S=2048", 2048, False, 256, 1.0),
-    ("global S=2048", 2048, False, None, 1.0)]
+SHAPES = {  # head dim -> [(label, B, S, ALiBi, window, scale)], 16 heads
+    128: [("S=1024", 2, 1024, False, None, None),
+          ("ALiBi S=2048", 2, 2048, True, None, None),
+          ("window 256 S=2048", 2, 2048, False, 256, 1.0),
+          ("global S=2048", 2, 2048, False, None, 1.0)],
+    64: [("gpt_350m B=8 S=1024", 8, 1024, False, None, None),
+         ("ALiBi S=2048", 2, 2048, True, None, None),
+         ("window 256 S=2048", 2, 2048, False, 256, 1.0)]}
 
 
 def build(variants, out, sources=SOURCES):
@@ -119,7 +125,10 @@ def main():
     ap.add_argument("variants", help="JSON file of variants")
     ap.add_argument("--out", default=os.path.join(
         REPO, "deepspeed_tpu_torch", "_build", "ab"))
+    ap.add_argument("--head-dim", type=int, choices=sorted(SHAPES),
+                    default=128)
     args = ap.parse_args()
+    D = args.head_dim
     sys.path.insert(0, REPO)
     import torch
     from chip_smoke import graph_ms
@@ -146,11 +155,11 @@ def main():
 
     cases = []
     for label, B, S, H, Hkv, causal, alibi, window, scale in CASES:
-        q, dout = rnd(B, S, H, 128), rnd(B, S, H, 128)
-        k, v = rnd(B, S, Hkv, 128), rnd(B, S, Hkv, 128)
+        q, dout = rnd(B, S, H, D), rnd(B, S, H, D)
+        k, v = rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
         kw = dict(alibi_slopes=alibi_slopes(H).cuda() if alibi else None,
                   window=window)
-        scale = scale or 1 / math.sqrt(128)
+        scale = scale or 1 / math.sqrt(D)
         f32 = [x.float() for x in (q, k, v, dout)]
         o, lse = flash_attention_fwd_plain(*f32[:3], scale, causal, **kw)
         dq, dk, dv = flash_attention_bwd_plain(*f32[:3], o, lse, f32[3],
@@ -170,12 +179,12 @@ def main():
                   f"{rel(dq, want[2]):.2e}, dK {rel(dk, want[3]):.2e}, dV "
                   f"{rel(dv, want[4]):.2e}", flush=True)
     c, shapes = 4, []
-    for label, S, alibi, window, scale in SHAPES:
-        x = [torch.randn((c, 2, S, 16, 128), generator=gen,
+    for label, B, S, alibi, window, scale in SHAPES[D]:
+        x = [torch.randn((c, B, S, 16, D), generator=gen,
                          device="cuda").to(torch.bfloat16) for _ in range(4)]
         kw = dict(alibi_slopes=alibi_slopes(16).cuda() if alibi else None,
                   window=window)
-        shapes.append((label, x, scale or 1 / math.sqrt(128), kw))
+        shapes.append((label, x, scale or 1 / math.sqrt(D), kw))
     for name in list(variants) + list(variants)[:1]:
         use(libs, name)
         row = []
@@ -202,10 +211,10 @@ def main():
             for part in sass.split("Function : ")[1:]:
                 head = part.split("\n", 1)[0]
                 m = re.search(r"(flash_\w+_kernel)I13__nv_bfloat16Lb(\d)ELb"
-                              r"(\d)E", head)
-                if m:
+                              r"(\d)ELi(\d+)E", head)
+                if m and int(m.group(4)) == D:
                     print(f"SASS {name} {m.group(1)}<bf16, alibi="
-                          f"{m.group(2)}, window={m.group(3)}>: HGMMA "
+                          f"{m.group(2)}, window={m.group(3)}, D={D}>: HGMMA "
                           f"{len(re.findall(r'HGMMA', part))}, DEPBAR "
                           f"{len(re.findall(r'WARPGROUP.DEPBAR', part))}")
     print(f"done in {time.time() - t0:.1f} s")

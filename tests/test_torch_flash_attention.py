@@ -8,7 +8,9 @@ through ``flash_attention(..., interpret=True)``; a sequence length that
 does not tile against ``reference_attention``.  The biased variants (ALiBi
 slopes, sliding windows 32 / 100 / 0, both together, with GQA) the same
 way, at S = 128 and 256, plus ``alibi_window_bias`` against the JAX one.
-fp32 inputs from numpy; rtol = atol = 1e-5 (forward) and 1e-4
+The plain forward and backward, biased or not, run at head dims 32 and
+64 (the flash kernels' D=64 forms compute what these do).  fp32 inputs
+from numpy; rtol = atol = 1e-5 (forward) and 1e-4
 (gradients): the same arithmetic, summed in other orders.  The CUDA
 kernels themselves are held against these plain versions on the card by
 ``chip_smoke.py``.
@@ -41,9 +43,10 @@ FWD_TOL = dict(rtol=1e-5, atol=1e-5)
 BWD_TOL = dict(rtol=1e-4, atol=1e-4)
 B, S, D, BLOCK = 2, 128, 32, 64
 HEADS = {"mha": (4, 4), "gqa": (4, 2)}
+HEAD_DIMS = (32, 64)
 
 
-def _inputs(H, Hkv, S=S, seed=0):
+def _inputs(H, Hkv, S=S, seed=0, D=D):
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((B, S, H, D)).astype(np.float32)
     k = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
@@ -56,12 +59,13 @@ def _t(*xs):
     return [torch.as_tensor(np.array(x)) for x in xs]
 
 
+@pytest.mark.parametrize("head_dim", HEAD_DIMS)
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("heads", list(HEADS))
-def test_plain_forward_and_backward_match_pallas(heads, causal):
+def test_plain_forward_and_backward_match_pallas(heads, causal, head_dim):
     H, Hkv = HEADS[heads]
-    q, k, v, g = _inputs(H, Hkv)
-    scale = 1.0 / math.sqrt(D)
+    q, k, v, g = _inputs(H, Hkv, D=head_dim)
+    scale = 1.0 / math.sqrt(head_dim)
     jo, jlse = _flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                           scale, causal, BLOCK, BLOCK, interpret=True)
     to, tlse = flash_attention_fwd_plain(*_t(q, k, v), scale, causal)
@@ -147,13 +151,14 @@ def _bias(heads, alibi, window):
     return slopes, window
 
 
+@pytest.mark.parametrize("head_dim", HEAD_DIMS)
 @pytest.mark.parametrize("case", list(BIASED))
-def test_plain_biased_forward_and_backward_match_pallas(case):
+def test_plain_biased_forward_and_backward_match_pallas(case, head_dim):
     heads, S_, alibi, window = BIASED[case]
     H, Hkv = HEADS[heads]
-    q, k, v, g = _inputs(H, Hkv, S=S_, seed=3)
+    q, k, v, g = _inputs(H, Hkv, S=S_, seed=3, D=head_dim)
     slopes, window = _bias(heads, alibi, window)
-    scale = 1.0 / math.sqrt(D)
+    scale = 1.0 / math.sqrt(head_dim)
     jkw = dict(alibi_slopes=None if slopes is None else jnp.asarray(slopes),
                window=None if window is None else jnp.int32(window))
     jo, jlse = _flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
@@ -258,14 +263,36 @@ def test_backend_names():
     "flash_attention_bwd_dq_cuda", "flash_attention_bwd_dq_biased_cuda",
     "flash_attention_bwd_dkv_cuda", "flash_attention_bwd_dkv_biased_cuda"])
 def test_flash_wrappers_refuse_head_dim_64(wrapper):
-    """The serving kernels take head dim 64; the flash kernels are built
-    for 128 only and refuse 64 before anything else (training at head dim
-    64 is ROADMAP A16)."""
-    assert flash_cuda.FLASH_HEAD_DIMS == (128,)
+    """The flash kernels are built for head dims 64 and 128 (64 was the
+    one this test saw refused before its forms were ported); every other
+    head dim -- gpt_760m's 96, gpt_2_7b's 80, a Gemma-style 256 -- is
+    refused before anything else, naming ROADMAP A16, and launches
+    nothing."""
+    assert flash_cuda.FLASH_HEAD_DIMS == (64, 128)
+    fn = getattr(flash_cuda, wrapper)
+    before = fn.launches
+    for head_dim in (80, 96, 256):
+        q = torch.zeros(1, 64, 4, head_dim)
+        k = torch.zeros(1, 64, 2, head_dim)
+        lse = torch.zeros(1, 4, 64)
+        fwd = "fwd" in wrapper
+        args = (q, k, k, 0.125) if fwd else (q, k, k, q, lse, lse, 0.125)
+        with pytest.raises(NotImplementedError,
+                           match=f"head_dim {head_dim} not in .*ROADMAP A16"):
+            fn(*args)
+    assert fn.launches == before
+
+
+@pytest.mark.parametrize("wrapper", [
+    "flash_attention_fwd_cuda", "flash_attention_bwd_dq_cuda",
+    "flash_attention_bwd_dkv_cuda"])
+def test_flash_wrappers_take_head_dim_64_to_the_device_check(wrapper):
+    """Head dim 64 passes the head-dim check: a CPU tensor is then refused
+    only for its device (the kernels run on the card)."""
     q = torch.zeros(1, 64, 4, 64)
     k = torch.zeros(1, 64, 2, 64)
     lse = torch.zeros(1, 4, 64)
-    fwd = "fwd" in wrapper
-    args = (q, k, k, 0.125) if fwd else (q, k, k, q, lse, lse, 0.125)
-    with pytest.raises(ValueError, match="head_dim 64 not in"):
+    args = ((q, k, k, 0.125) if "fwd" in wrapper
+            else (q, k, k, q, lse, lse, 0.125))
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
         getattr(flash_cuda, wrapper)(*args)

@@ -430,10 +430,13 @@ def test_fp16_inference_on_the_card_is_accepted_at_construction():
     build fp16 engines for the card with the kernels' backend (the refusal
     they raised before those forms existed is gone).  Reached here
     without a card by a stub model whose device is "cuda": construction
-    puts nothing on the device."""
+    puts nothing on the device.  The model has 2 heads of 64, a head dim
+    the serving kernels take (any other is refused on the card at
+    construction, ROADMAP A16)."""
     from deepspeed_tpu_torch.inference.serving import ServingEngine
-    model = CausalTransformerLM(TransformerConfig.tiny(**GPT),
-                                device="cpu").init(0)
+    model = CausalTransformerLM(
+        TransformerConfig.tiny(**dict(GPT, hidden_size=128, n_heads=2)),
+        device="cpu").init(0)
     made = []
     stub = types.SimpleNamespace(
         config=model.config, device=torch.device("cuda"),

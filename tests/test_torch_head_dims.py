@@ -1,0 +1,126 @@
+"""Head dims no kernel takes are refused at construction on the card.
+
+The flash kernels (B1, B2) and the serving kernels (B4, B5) take head
+dims 64 and 128, the block-sparse kernel (B6) too.  A model of any other
+head dim -- gpt_760m's 96, gpt_2_7b's 80, a Gemma-style 256 -- raises
+``NotImplementedError`` naming ROADMAP A16 where it is built for the card:
+``initialize`` (which ``ds_bench train``'s ``run_benchmark`` reaches),
+``init_inference`` and ``create_serving_engine``; ``SparseSelfAttention``
+learns the head dim only at its call and raises there.  On the CPU the
+same model runs through the plain versions.  The card path is reached
+without a card: a device of "cuda" is checked before anything is put on
+it (the serving engine through a stub model whose device is "cuda", as
+``tests/test_torch_fp16_training.py`` does).
+"""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import deepspeed_tpu_torch
+from deepspeed_tpu_torch.inference.serving import ServingEngine
+from deepspeed_tpu_torch.models.transformer import (CausalTransformerLM,
+                                                    TransformerConfig,
+                                                    check_servable,
+                                                    check_trainable)
+from deepspeed_tpu_torch.ops import sparse_attention as tsa
+
+# GPT-style, 2 layers, 2 heads of 96 (gpt_760m's head dim)
+GPT96 = dict(hidden_size=192, n_heads=2, activation="gelu",
+             use_rmsnorm=False, use_rope=False, norm_bias=True,
+             tie_embeddings=True)
+TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": 2,
+                "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}}}
+A16 = "head_dim 96 not in .*ROADMAP A16"
+
+
+def _model(**kw):
+    cfg = TransformerConfig.tiny(**dict(GPT96, **kw))
+    return CausalTransformerLM(cfg, device="cpu").init(0)
+
+
+def _ids(shape, seed=0):
+    return np.random.default_rng(seed).integers(0, 256, shape)
+
+
+@pytest.mark.parametrize("head_dim", [64, 128, 80, 96, 256])
+def test_card_checks_by_head_dim(head_dim):
+    """64 and 128 pass both checks on the card; 80, 96 and 256 raise
+    naming A16 there and pass on the CPU."""
+    cfg = TransformerConfig.tiny(hidden_size=2 * head_dim, n_heads=2)
+    assert cfg.head_dim == head_dim
+    for check in (check_trainable, check_servable):
+        check(cfg, "cpu")
+        if head_dim in (64, 128):
+            check(cfg, torch.device("cuda"))
+        else:
+            with pytest.raises(NotImplementedError,
+                               match=f"head_dim {head_dim} .*ROADMAP A16"):
+                check(cfg, "cuda")
+
+
+def test_initialize_refuses_head_dim_96_on_the_card():
+    model = _model()
+    with pytest.raises(NotImplementedError, match=A16):
+        deepspeed_tpu_torch.initialize(model=model, config=TRAIN_CONFIG,
+                                       device="cuda")
+    # the same model trains on the CPU through the plain versions
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model,
+                                                config=TRAIN_CONFIG,
+                                                device="cpu")
+    losses = [float(engine.train_batch(batch={"input_ids": _ids((2, 16))}))
+              for _ in range(2)]
+    assert np.isfinite(losses).all()
+
+
+def test_init_inference_refuses_head_dim_96_on_the_card():
+    model = _model()
+    with pytest.raises(NotImplementedError, match=A16):
+        deepspeed_tpu_torch.init_inference(model, dtype="fp32",
+                                           device="cuda")
+    eng = deepspeed_tpu_torch.init_inference(model, dtype="fp32",
+                                             device="cpu")
+    out = eng.generate(_ids((2, 5)), 3)
+    assert np.asarray(out).shape == (2, 8)
+
+
+def test_serving_engine_refuses_head_dim_96_on_the_card():
+    """The serving engine raises before it allocates its page pool on the
+    card; with the plain backend (the smoke's comparison) it goes on."""
+    model = _model()
+    made = []
+    stub = types.SimpleNamespace(
+        config=model.config, device=torch.device("cuda"),
+        init_paged_caches=lambda *a, **k: made.append(k["dtype"]))
+    with pytest.raises(NotImplementedError, match=A16):
+        deepspeed_tpu_torch.create_serving_engine(
+            stub, max_batch=2, page_size=8, max_seq=32)
+    assert made == []
+    ServingEngine(stub, max_batch=2, page_size=8, max_seq=32,
+                  serving={"attention_backend": "plain"})
+    assert made == [torch.bfloat16]
+    # on the CPU the plain versions serve it
+    se = deepspeed_tpu_torch.create_serving_engine(
+        model, max_batch=2, page_size=8, max_seq=32, dtype="fp32")
+    out = se.generate([list(range(1, 6)), list(range(7, 10))], 3)
+    assert [len(x) for x in out] == [5 + 3, 3 + 3]   # prompt + new
+    assert se.leak_report() == {}
+
+
+def test_sparse_self_attention_refuses_head_dim_96_on_the_card():
+    """SparseSelfAttention sees the head dim at its call: the kernel path
+    raises naming A16 before any device check; the CPU's plain path takes
+    it."""
+    attn = tsa.SparseSelfAttention(tsa.FixedSparsityConfig(
+        num_heads=2, block=16, num_local_blocks=2), backend="cuda")
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (1, 64, 2, 96), dtype=np.float32)) for _ in range(3))
+    with pytest.raises(NotImplementedError, match=A16):
+        attn(q, k, v)
+    plain = tsa.SparseSelfAttention(tsa.FixedSparsityConfig(
+        num_heads=2, block=16, num_local_blocks=2))
+    out = plain(q, k, v)
+    assert out.shape == q.shape and torch.isfinite(out).all()

@@ -97,17 +97,17 @@ def test_check_witnessed_stops_beyond_sdpa_error():
 
 _SASS = """
         code for sm_90a
-                Function : _ZN55_GLOBAL__N__0_22_flash_attention_fwd_cu_016flash_fwd_kernelI13__nv_bfloat16Lb1ELb0EEEvNS_9FwdParamsE
+                Function : _ZN55_GLOBAL__N__0_22_flash_attention_fwd_cu_016flash_fwd_kernelI13__nv_bfloat16Lb1ELb0ELi128EEEvNS_9FwdParamsE
         .headerflags    @"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
         /*0100*/                   UTMALDG.4D [UR8], [UR4] ;
         /*0110*/                   UTMALDG.4D [UR12], [UR4] ;
         /*0200*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8], RZ, !UPT ;
         /*0210*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8], R24, gsb0 ;
-                Function : _ZN55_GLOBAL__N__0_22_flash_attention_fwd_cu_016flash_fwd_kernelIfLb1ELb0EEEvNS_9FwdParamsE
+                Function : _ZN55_GLOBAL__N__0_22_flash_attention_fwd_cu_016flash_fwd_kernelIfLb1ELb0ELi128EEEvNS_9FwdParamsE
         /*0100*/                   FFMA R1, R2, R3, R4 ;
-                Function : _ZN55_GLOBAL__N__0_22_flash_attention_fwd_cu_016flash_fwd_kernelI13__nv_bfloat16Lb0ELb1EEEvNS_9FwdParamsE
+                Function : _ZN55_GLOBAL__N__0_22_flash_attention_fwd_cu_016flash_fwd_kernelI13__nv_bfloat16Lb0ELb1ELi128EEEvNS_9FwdParamsE
         /*0100*/                   FFMA R1, R2, R3, R4 ;
-                Function : _ZN55_GLOBAL__N__0_22_flash_attention_fwd_cu_016flash_fwd_kernelI6__halfLb1ELb0EEEvNS_9FwdParamsE
+                Function : _ZN55_GLOBAL__N__0_22_flash_attention_fwd_cu_016flash_fwd_kernelI6__halfLb1ELb0ELi64EEEvNS_9FwdParamsE
         /*0100*/                   UTMALDG.4D [UR8], [UR4] ;
         /*0200*/                   HGMMA.64x128x16.F32.F16 R24, gdesc[UR8], RZ, !UPT ;
 """
@@ -116,26 +116,27 @@ _SASS = """
 def test_sass_counts_reads_the_bf16_instantiations():
     counts = chip_smoke.sass_counts(_SASS, "flash_fwd_kernel")
     # the fp32 instantiation is not counted; a bf16 one without wgmma or
-    # TMA shows as zeros, which phase_sass refuses; fp16 ones are read too
-    assert counts == {("bf16", True, False): (2, 2),
-                      ("bf16", False, True): (0, 0),
-                      ("fp16", True, False): (1, 1)}
+    # TMA shows as zeros, which phase_sass refuses; fp16 ones and the head
+    # dim (the last template argument) are read too
+    assert counts == {("bf16", True, False, 128): (2, 2),
+                      ("bf16", False, True, 128): (0, 0),
+                      ("fp16", True, False, 64): (1, 1)}
     assert chip_smoke.sass_counts(_SASS, "flash_bwd_dkv_kernel") == {}
 
 
 _SASS_DQ = """
         code for sm_90a
-                Function : _ZN55_GLOBAL__N__0_22_flash_attention_bwd_cu_019flash_bwd_dq_kernelI13__nv_bfloat16Lb0ELb0EEEvNS_8DqParamsE
+                Function : _ZN55_GLOBAL__N__0_22_flash_attention_bwd_cu_019flash_bwd_dq_kernelI13__nv_bfloat16Lb0ELb0ELi128EEEvNS_8DqParamsE
         /*0100*/                   UTMALDG.4D [UR8], [UR4] ;
         /*0200*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR8], RZ, !UPT ;
         /*0210*/                   HGMMA.64x128x16.F32.BF16 R88, R152, gdesc[UR12], R88, gsb0 ;
-                Function : _ZN55_GLOBAL__N__0_22_flash_attention_bwd_cu_019flash_bwd_dq_kernelI13__nv_bfloat16Lb1ELb1EEEvNS_8DqParamsE
+                Function : _ZN55_GLOBAL__N__0_22_flash_attention_bwd_cu_019flash_bwd_dq_kernelI13__nv_bfloat16Lb1ELb1ELi64EEEvNS_8DqParamsE
         /*0100*/                   UTMALDG.4D [UR8], [UR4] ;
         /*0110*/                   UTMALDG.4D [UR12], [UR4] ;
         /*0200*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR8], RZ, !UPT ;
-                Function : _ZN55_GLOBAL__N__0_22_flash_attention_bwd_cu_019flash_bwd_dq_kernelIfLb1ELb1EEEvNS_8DqParamsE
+                Function : _ZN55_GLOBAL__N__0_22_flash_attention_bwd_cu_019flash_bwd_dq_kernelIfLb1ELb1ELi64EEEvNS_8DqParamsE
         /*0100*/                   FFMA R1, R2, R3, R4 ;
-                Function : _ZN55_GLOBAL__N__0_22_flash_attention_bwd_cu_020flash_bwd_dkv_kernelI13__nv_bfloat16Lb0ELb0EEEvNS_9DkvParamsE
+                Function : _ZN55_GLOBAL__N__0_22_flash_attention_bwd_cu_020flash_bwd_dkv_kernelI13__nv_bfloat16Lb0ELb0ELi128EEEvNS_9DkvParamsE
         /*0200*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR8], RZ, !UPT ;
 """
 
@@ -146,9 +147,9 @@ def test_sass_counts_reads_the_dq_instantiations():
     assert ("flash_attention_bwd", "flash_bwd_dq_kernel") in \
         chip_smoke.TENSOR_CORE_KERNELS
     assert chip_smoke.sass_counts(_SASS_DQ, "flash_bwd_dq_kernel") == {
-        ("bf16", False, False): (2, 1), ("bf16", True, True): (1, 2)}
+        ("bf16", False, False, 128): (2, 1), ("bf16", True, True, 64): (1, 2)}
     assert chip_smoke.sass_counts(_SASS_DQ, "flash_bwd_dkv_kernel") == {
-        ("bf16", False, False): (1, 0)}
+        ("bf16", False, False, 128): (1, 0)}
 
 
 def _flash_case(dtype):
@@ -249,10 +250,10 @@ def test_sass_counts_reads_the_sparse_and_prefill_instantiations():
     assert chip_smoke.sass_counts(_SASS_NEW, "ragged_prefill_tc_kernel") == {
         ("bf16",): (1, 2), ("fp16",): (2, 1)}
     # every template's expected instantiations: 4 flash forms x (bf16,
-    # fp16), 4 x 2 sparse, 2 (bf16, fp16)
+    # fp16) x head dims (64, 128), 4 x 2 sparse, 2 (bf16, fp16)
     assert {k: v[2] for k, v in chip_smoke.SASS_TEMPLATES.items()} == {
-        "flash_fwd_kernel": 8, "flash_bwd_dq_kernel": 8,
-        "flash_bwd_dkv_kernel": 8, "sparse_tc_kernel": 8,
+        "flash_fwd_kernel": 16, "flash_bwd_dq_kernel": 16,
+        "flash_bwd_dkv_kernel": 16, "sparse_tc_kernel": 8,
         "ragged_prefill_tc_kernel": 2}
 
 

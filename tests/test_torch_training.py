@@ -60,6 +60,11 @@ CONFIGS = {
                     norm_bias=True, tie_embeddings=True, attn_scale=1.0,
                     local_attn_pattern=(0, 8), attn_impl="pallas",
                     attn_block_q=8, attn_block_k=8),
+    # GPT-style at head dim 64 (2 heads of 64), the head dim of gpt2_125m,
+    # gpt_350m (ds_bench train's default) and gpt2_1_5b
+    "gpt_d64": dict(hidden_size=128, n_heads=2, activation="gelu",
+                    use_rmsnorm=False, use_rope=False, norm_bias=True,
+                    tie_embeddings=True),
 }
 # (remat, loss_chunk_size): dense loss, chunked (chunk < B*S), remat'd
 LOSS_MODES = {"dense": (False, 0), "chunked": (False, 10),
@@ -160,7 +165,8 @@ PARAM_ATOL = {"gpt_neo": 1e-4}
     pytest.param("gpt", 0.5, GAS, id="gpt-0.5"),
     pytest.param("gpt", 0.0, 3, id="gpt-0.0-gas3"),
     pytest.param("bloom", 0.0, GAS, id="bloom-0.0"),
-    pytest.param("gpt_neo", 0.0, GAS, id="gpt_neo-0.0")])
+    pytest.param("gpt_neo", 0.0, GAS, id="gpt_neo-0.0"),
+    pytest.param("gpt_d64", 0.0, GAS, id="gpt_d64-0.0")])
 def test_engine_trajectory_matches_jax(name, clip, gas):
     assert jax.device_count() == JAX_DEVICES
     jcfg = JaxConfig.tiny(**CONFIGS[name])
@@ -339,3 +345,25 @@ def test_benchmark_builds_the_jax_benchmark_shapes():
     assert len(out["losses"]) == 3 and np.isfinite(out["losses"]).all()
     assert out["mfu"] is None            # no MFU for a run off the card
     assert out["tokens_per_sec"] > 0 and out["n_params"] > 0
+
+
+def test_benchmark_runs_the_cli_default_shape_on_the_cpu():
+    """``ds_bench train``'s default model (gpt_350m: 1024 wide, 16 heads
+    of 64) at run_benchmark's defaults (bf16, ZeRO 3, AdamW), cut to 2
+    layers and a short sequence, on the CPU: the plain versions train head
+    dim 64."""
+    import inspect
+    from deepspeed_tpu_torch.benchmarks import training as bench
+    defaults = {k: v.default for k, v in
+                inspect.signature(bench.run_benchmark).parameters.items()}
+    assert (defaults["model"], defaults["batch"], defaults["gas"],
+            defaults["seq"]) == ("gpt_350m", 8, 1, 1024)
+    shape = dict(bench.MODELS[defaults["model"]], n_layers=2)
+    cfg = bench.model_config(shape, 32)
+    assert (cfg.hidden_size, cfg.n_heads, cfg.head_dim) == (1024, 16, 64)
+    out = bench.run_benchmark(shape, batch=2, seq=32, steps=2,
+                              vocab_size=512, device="cpu")
+    assert out["n_layers"] == 2 and out["dtype"] == "bf16"
+    assert out["zero_stage"] == 3 and out["gas"] == 1
+    assert len(out["losses"]) == 3 and np.isfinite(out["losses"]).all()
+    assert out["tokens_per_sec"] > 0
