@@ -16,12 +16,14 @@ full width and depth through ``initialize(...).train_batch``, runs
 kernels.  Phases:
 
   1 device   card name and power limit (nvidia-smi)
-  2 build    nvcc, one process per kernel source, all at once; the SASS
-             of every bf16 and fp16 tensor-core kernel -- the flash
-             kernels at head dims 64 and 128 and B4's prefill kernel in
-             both dtypes, B6's
-             block-sparse kernel at every block and head dim -- holds
-             wgmma (HGMMA) and TMA loads (UTMALDG)
+  2 build    nvcc, one process per kernel source, all at once; ptxas's
+             registers and spills of every kernel, none allowed in the
+             split-key decode body or the head-dim-64 tensor-core
+             consumer (NO_SPILL); the SASS of every bf16 and fp16
+             tensor-core kernel -- the flash kernels and B4's prefill
+             kernel at head dims 64 and 128, B6's block-sparse kernel at
+             every block and head dim -- holds wgmma (HGMMA) and TMA loads
+             (UTMALDG), its wgmma waits (WARPGROUP.DEPBAR) printed
   3 kernels  each kernel vs its plain version: fp32, bf16 and fp16 (the
              fp16 tensor-core tiles held to SDPA-fp16's error); serving
              attention MHA 32/32 and GQA 32/8; flash attention forward and
@@ -46,7 +48,10 @@ kernels.  Phases:
              batches with shared prefix pages (with 5-8-row and group-8
              decodes), a 256-token chunk at start 512, the speculative
              verify window [8, 5], GQA 32/4 (group 8) at head dims 128
-             and 64; the block-sparse kernel for layout
+             and 64; its prefill tiles at head dim 64 at groups 1, 4 and
+             8 and pages 16 and 128 (prefills after prefixes with a
+             ragged last tile, a chunk at start 512, packed batches
+             sharing prefix pages); the block-sparse kernel for layout
              blocks 16-128, head dims 64 and 128, causal, bidirectional
              and empty rows (bf16 B4 prefill and B6 outputs, which round P
              to bf16 in the product, under the same SDPA witness)
@@ -427,10 +432,30 @@ def ptxas_usage(log):
     return usage
 
 
+# kernels that must not spill (ptxas): the split-key decode body, whose
+# registers hold the loads in flight, and the head-dim-64 tensor-core
+# consumer of B1's forward and B4's prefill tiles (wgmma_attention64.cuh:
+# S, P and O in registers while products run), by demangled or mangled
+# name
+NO_SPILL = (r"split_kernel|split_tc_kernel|combine_kernel|"
+            r"flash_fwd_kernel(<(__nv_bfloat16|__half), \w+, \w+, 64>|"
+            r"I(13__nv_bfloat16|6__half)Lb[01]ELb[01]ELi64E)|"
+            r"ragged_prefill_tc_kernel(<(__nv_bfloat16|__half), 64>|"
+            r"I(13__nv_bfloat16|6__half)Li64E)")
+
+
+def must_not_spill(kernel):
+    """Whether kernel (a name from :func:`ptxas_usage`) is one that
+    NO_SPILL names."""
+    import re
+    return re.search(NO_SPILL, kernel) is not None
+
+
 def phase_build():
     """Builds every kernel source; prints each kernel's registers and
-    spills (ptxas), and fails if an instantiation of the split-key decode
-    body (split_kernel, split_tc_kernel, combine_kernel) spills."""
+    spills (ptxas), and fails if an instantiation NO_SPILL names -- the
+    split-key decode body, the head-dim-64 tensor-core consumer --
+    spills."""
     from deepspeed_tpu_torch.ops import op_builder
     t0 = time.time()
     logs = op_builder.build()
@@ -442,11 +467,10 @@ def phase_build():
         for kernel, (regs, st, ld) in ptxas_usage(log).items():
             phase("build", f"{source}: {kernel[:150]}: {regs} registers, "
                   f"spill stores {st} B, loads {ld} B")
-            if (st or ld) and any(x in kernel for x in (
-                    "split_kernel", "split_tc_kernel", "combine_kernel")):
+            if (st or ld) and must_not_spill(kernel):
                 spilled.append(kernel)
     if spilled:
-        fail(f"split-key decode instantiations spill: {spilled[:4]}")
+        fail(f"instantiations that must not spill do: {spilled[:4]}")
     return dt
 
 
@@ -460,7 +484,8 @@ TENSOR_CORE_KERNELS = [("flash_attention_fwd", "flash_fwd_kernel"),
 # kernel template -> (regex of its tensor-core instantiations' template
 # arguments in the mangled name, the arguments' reading, how many it has):
 # the flash kernels' <bf16 or fp16, alibi, window, head dim 64 or 128>,
-# B6's <block, head dim> (bf16), and B4's prefill kernel's <bf16 or fp16>
+# B6's <block, head dim> (bf16), and B4's prefill kernel's <bf16 or fp16,
+# head dim 64 or 128>
 _DTYPE_ARG = {"13__nv_bfloat16": "bf16", "6__half": "fp16"}
 
 
@@ -479,18 +504,19 @@ SASS_TEMPLATES = {
     "flash_bwd_dq_kernel": _FLASH_ARGS,
     "flash_bwd_dkv_kernel": _FLASH_ARGS,
     "sparse_tc_kernel": (r"ILi(\d+)ELi(\d+)E", int, 8),
-    "ragged_prefill_tc_kernel": (r"I(13__nv_bfloat16|6__half)E",
-                                 _DTYPE_ARG.get, 2),
+    "ragged_prefill_tc_kernel": (r"I(13__nv_bfloat16|6__half)Li(\d+)E",
+                                 _flash_arg, 4),
 }
 
 
 def sass_counts(sass, kernel):
-    """{template arguments: (HGMMA count, UTMALDG count)} of the
-    tensor-core instantiations of template ``kernel`` in ``cuobjdump
-    -sass`` output, read by SASS_TEMPLATES: e.g. the flash kernels' names
-    end ``<kernel>I13__nv_bfloat16Lb<0|1>ELb<0|1>ELi<64|128>E``
-    (``I6__half...`` for fp16) and give keys (dtype, alibi, window, head
-    dim)."""
+    """{template arguments: (HGMMA count, UTMALDG count, WARPGROUP.DEPBAR
+    count)} of the tensor-core instantiations of template ``kernel`` in
+    ``cuobjdump -sass`` output, read by SASS_TEMPLATES: e.g. the flash
+    kernels' names end ``<kernel>I13__nv_bfloat16Lb<0|1>ELb<0|1>ELi<64|
+    128>E`` (``I6__half...`` for fp16) and give keys (dtype, alibi, window,
+    head dim).  A DEPBAR after every HGMMA means ptxas serialised the
+    wgmma pipeline."""
     import re
     args, conv, _ = SASS_TEMPLATES[kernel]
     pat = re.compile(r"\d" + re.escape(kernel) + args)
@@ -500,14 +526,16 @@ def sass_counts(sass, kernel):
         if m:
             counts[tuple(conv(x) for x in m.groups())] = (
                 len(re.findall(r"\bHGMMA\b", part)),
-                len(re.findall(r"\bUTMALDG\b", part)))
+                len(re.findall(r"\bUTMALDG\b", part)),
+                len(re.findall(r"\bWARPGROUP\.DEPBAR\b", part)))
     return counts
 
 
 def phase_sass():
-    """Counts HGMMA and UTMALDG in the SASS (cuobjdump -sass) of each bf16
-    and fp16 instantiation of the tensor-core kernels; fails if one lacks
-    either or an instantiation is missing."""
+    """Counts HGMMA and UTMALDG (and prints WARPGROUP.DEPBAR) in the SASS
+    (cuobjdump -sass) of each bf16 and fp16 instantiation of the
+    tensor-core kernels; fails if one lacks either or an instantiation is
+    missing."""
     import shutil
     from deepspeed_tpu_torch.ops import op_builder
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -518,9 +546,9 @@ def phase_sass():
         if run.returncode != 0:
             fail(f"cuobjdump -sass {lib.name}: {run.stderr.strip()[:300]}")
         counts = sass_counts(run.stdout, kernel)
-        for args, (n_mma, n_tma) in sorted(counts.items()):
+        for args, (n_mma, n_tma, n_bar) in sorted(counts.items()):
             phase("build", f"SASS {kernel}{list(args)}: {n_mma} HGMMA, "
-                  f"{n_tma} UTMALDG")
+                  f"{n_tma} UTMALDG, {n_bar} WARPGROUP.DEPBAR")
             if not n_mma or not n_tma:
                 fail(f"{kernel}{list(args)} issues no wgmma or no TMA load")
         want = SASS_TEMPLATES[kernel][2]
@@ -537,11 +565,14 @@ def _rand(shape, dtype, gen):
 def _paged_state(ctx_lens, page, Hkv, D, dtype, gen, shared_pages=0):
     """K/V pools and allocator-made block tables for the kernel phase's
     edge cases (prefix pages shared across sequences when
-    ``shared_pages`` > 0); :func:`_engine_state` builds the serve run's."""
+    ``shared_pages`` > 0); :func:`_engine_state` builds the serve run's.
+    Tables hold at least 16 pages, pools at least 160: more where small
+    pages need them."""
     import torch
     from deepspeed_tpu_torch.ops.paged_attention import PagedAllocator
-    n_pages = 160
-    alloc = PagedAllocator(n_pages, page, max_pages_per_seq=16,
+    per_seq = max(16, -(-max(ctx_lens) // page))
+    n_pages = max(160, sum(-(-c // page) for c in ctx_lens) + shared_pages + 1)
+    alloc = PagedAllocator(n_pages, page, max_pages_per_seq=per_seq,
                            reserve_scratch=True)
     shared = []
     if shared_pages:
@@ -634,10 +665,10 @@ def phase_kernels():
             return check_output(name, got, exact, sdpa, True)
         return check_close(name, got, exact.to(got.dtype))
 
-    def packed_b4(label, q_lens, ctx, Hkv, Dh):
+    def packed_b4(label, q_lens, ctx, Hkv, Dh, pg=page):
         """B4's packed front-end on one mixed batch, prefix pages shared
         by the sequences past two pages."""
-        tb, kk, vv = _paged_state(ctx, page, Hkv, Dh, dtype, gen,
+        tb, kk, vv = _paged_state(ctx, pg, Hkv, Dh, dtype, gen,
                                   shared_pages=2)
         if not (tb[1, 0] == tb[2, 0] and tb[1, 1] == tb[2, 1]):
             fail("packed case: prefix pages are not shared")
@@ -655,7 +686,7 @@ def phase_kernels():
             f"q_lens {q_lens}", got, exact,
             lambda: torch.cat([paged_sdpa(x, kk, vv, t, c)[0]
                                for x, t, c in seqs]),
-            tiles(dtype, Dh, H // Hkv, page, q_lens)))
+            tiles(dtype, Dh, H // Hkv, pg, q_lens)))
 
     def check_b5(label, B, T, Hkv, S, lens, Dh=D):
         q = _rand((B, T, H, Dh), dtype, gen)
@@ -805,6 +836,37 @@ def phase_kernels():
                     tiles(dtype, Dg, H // 4, kk.shape[2], [T])))
             packed_b4(f"H{H}/4 D={Dg}", [1, 1, 37, 1, 1],
                       [300, 1000, 400, 17, 2047], 4, Dg)
+        # B4's prefill tiles at head dim 64 -- the tensor-core tiles in bf16
+        # and fp16, the CUDA-core ones in fp32 -- at groups 1, 4 and 8 (32
+        # query heads over 32, 8 and 4 kv heads) and pages 16 and 128:
+        # prefills after cached prefixes whose q_len leaves a ragged last
+        # tile (200 tokens: 72 past one 128-token tile, 8 past 32- and
+        # 16-token ones), a 256-token chunk at start 512, and a packed
+        # batch whose sequences share prefix pages
+        for Hkv64 in (32, 8, 4):
+            for pg in (16, 128):
+                group = H // Hkv64
+                tc = tensor_core_prefill(dtype, 64, group, pg)
+                if tc != (dtype != torch.float32):
+                    fail(f"tensor_core_prefill({dn}, 64, {group}, {pg}) is "
+                         f"{tc}")
+                for label, T, ctx in (
+                        ("prefill B=2 T=200 after prefixes, ctx 300/457",
+                         200, [300, 457]),
+                        ("chunk B=1 T=256 at start 512", 256, [768])):
+                    tb, kk, vv = _paged_state(ctx, pg, Hkv64, 64, dtype,
+                                              gen)
+                    qq = _rand((len(ctx), T, H, 64), dtype, gen)
+                    lens = i32(ctx)
+                    got = ragged_paged_attention_rect(qq, kk, vv, tb, lens)
+                    exact = paged_attention_plain(qq.float(), kk.float(),
+                                                  vv.float(), tb, lens)
+                    note("ragged_paged_attention", dn, check_b4(
+                        f"ragged_paged_attention {dn} H{H}/{Hkv64} D=64 "
+                        f"page {pg} {label}", got, exact,
+                        lambda: paged_sdpa(qq, kk, vv, tb, lens), tc))
+                packed_b4(f"H{H}/{Hkv64} page {pg}", [37, 1, 130, 9, 1],
+                          [37, 300, 1000, 521, 257], Hkv64, 64, pg)
         # B5 at head dim 64, TinyLlama-1.1B's 32/4 heads (group 8): T=1 (8
         # rows, the decode form), T=5 and T=128 (the prefill form) over
         # ragged lengths, generate's own calls and key-chunk edges at 8
@@ -2054,6 +2116,8 @@ def phase_serve_features(model, cfg, draft, dtype, exact, label):
     kernels JSON."""
     import numpy as np
     import torch
+    from deepspeed_tpu_torch.ops.cuda.ragged_paged_attention import \
+        tensor_core_prefill
     dn = str(dtype).split(".")[-1]
     L, N = cfg.n_layers, SERVE_NEW
     shared, mixed = feature_prompts(cfg.vocab_size, seed=11)
@@ -2154,6 +2218,14 @@ def phase_serve_features(model, cfg, draft, dtype, exact, label):
     spec = dict(sched, speculative={"enabled": True,
                                     "num_draft_tokens": SPEC_GAMMA})
     for name, dmodel in draft:
+        # a bf16 / fp16 draft's prefills and chunks take B4's tensor-core
+        # tiles at its head dim (64 for TinyLlama-1.1B), group and page
+        dc = dmodel.config
+        if dtype != torch.float32 and not tensor_core_prefill(
+                dtype, dc.head_dim, dc.n_heads // dc.kv_heads, SERVE_PAGE):
+            fail(f"{label} (c) {name}: its prefills would not take the "
+                 f"tensor-core tiles (head dim {dc.head_dim}, group "
+                 f"{dc.n_heads // dc.kv_heads}, page {SERVE_PAGE})")
         se = None
         se, out, counts, dt = serve_run(
             f"{label} (c) speculative, draft {name}", model,

@@ -43,18 +43,30 @@
 // L2 bandwidth alone sets a floor near half this kernel's time.
 //
 // Head dim 64 (gpt2_125m, gpt_350m, gpt2_1_5b, BLOOM-560m, GPT-Neo-125M):
-// the same bodies with D = 64 as a template argument.  A Q, K or V tile is
-// one 64-column TMA box instead of two, S = Q K^T walks 4 depth slices
-// instead of 8, and O += P V is m64n64 (O takes 32 fp32 registers a
-// thread instead of 64).  A tile is half the bytes, so the ring holds 4
-// stages of K and V instead of 2 (144 KB of shared memory).  Registers
-// keep one block on an SM at either D: S alone takes 64 a thread, so two
-// blocks (consumers under 116 registers each) do not fit, and setmaxnreg
-// stays 240 / 24.  At gpt_350m's training shape (B=8, S=1024, 16 heads of
-// 64, causal) the forward does 17.2 GFLOP on 67.6 MB: bound by bytes
-// (20.2 us), the tensor cores' 17.4 us close behind, and its 67.1 M
-// exponentials take ~17 us of the SFUs (16 a clock an SM): a body that
-// does not overlap the softmax with wgmma lands near twice its bound.
+// a body of its own.  At gpt_350m's training shape (B=8, S=1024, 16 heads
+// of 64, causal) the forward does 17.2 GFLOP on 67.6 MB: bound by bytes
+// (20.2 us), the tensor cores' 17.4 us close behind; but its 67.1 M
+// exponentials take ~17 us of the SFUs (16 a clock an SM) on their own,
+// a 128 x 128 tile's products are now shorter than its softmax, and a q
+// tile has only 4.5 key tiles on average.  The D = 128 design (one block
+// per q tile, S, softmax and P V in series in each warpgroup) measured
+// 0.125 ms there.  At D = 64:
+//   * the consumer warpgroups run wgmma_attention64.cuh (shared with the
+//     ragged paged prefill tiles): FA3's order (S of the next tile and P V
+//     of this one issued together, the next softmax under P V), the two
+//     warpgroups taking turns to issue their products (ping-pong), and a
+//     softmax with fewer FP32 operations a score (the row max on the raw
+//     products -- ALiBi's on the scaled scores plus slope * key -- and the
+//     scale and log2(e) folded into the FFMA that feeds ex2).  LSE is
+//     written in the units the backward kernels read (m * scale + log l).
+//   * the grid is persistent, one block an SM (Walk, below): a block's
+//     start is paid once, the producer loads the next q tile's Q into a
+//     second buffer while the consumers finish this one, and the q tiles
+//     come in pairs of equal causal work, head by head, so the heads whose
+//     K and V are being read at once stay in L2.
+// A Q, K or V tile is one 64-column TMA box; the ring holds 4 stages of K
+// and V (160 KB of shared memory with the two Q tiles); registers: S 64,
+// P 32, O 32 of the 240 setmaxnreg gives a consumer thread.
 //
 // fp16 keeps 3 more mantissa bits than bf16 (P, O and the products' inputs
 // round at 2^-11 instead of 2^-8) and the same fp32 accumulators, LSE and
@@ -68,6 +80,7 @@
 // path.
 #include "flash_tile.cuh"
 #include "hopper.cuh"
+#include "wgmma_attention64.cuh"
 
 namespace {
 
@@ -83,7 +96,7 @@ struct FwdParams {
   void* o;
   float* lse;
   const float* slopes;
-  int window, S, H, Hkv, causal;
+  int window, B, S, H, Hkv, causal;
   float scale;
 };
 
@@ -205,15 +218,19 @@ constexpr int BM = 128;                       // query rows of a block
 constexpr int BN = 128;                       // keys of a K/V tile
 constexpr int kThreads = 384;                 // 2 consumer + 1 producer WG
 constexpr int kBox = 128 * hopper::kBoxCols * 2;   // one 64-column box
-// The shared-memory plan at head dim D: Q, then kStages x (K, V), then the
-// barriers: Q's, full[], empty[]
+// The shared-memory plan at head dim D: kQBufs Q tiles, then kStages x
+// (K, V), then the barriers -- at D = 128 Q's, full[], empty[]; at D = 64
+// q_full[2], q_empty[2], full[], empty[]
 template <int D>
 struct Smem {
   static constexpr int kTile = 128 * D * 2;   // 32 KB at D = 128, 16 at 64
   static constexpr int kStages = D == 64 ? 4 : 2;
-  static constexpr int kBarOffset = kTile + kStages * 2 * kTile;
-  static constexpr size_t kBytes = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
+  static constexpr int kQBufs = D == 64 ? 2 : 1;
+  static constexpr int kBarOffset = kQBufs * kTile + kStages * 2 * kTile;
+  static constexpr int kBars = D == 64 ? 4 + 2 * kStages : 1 + 2 * kStages;
+  static constexpr size_t kBytes = 1024 + kBarOffset + 8 * kBars;
 };
+constexpr int kFar = 1 << 30;   // a key bound no tile reaches
 }  // namespace tc
 
 template <typename E, bool SLOPE, bool WINDOW, int D>
@@ -380,6 +397,236 @@ __device__ __forceinline__ void fwd_tensor_cores(const FwdParams& p,
   }
 }
 
+// ---- bf16 / fp16, head dim 64: persistent, on the shared consumer -------
+
+// What a consumer thread's two rows (row0, row0 + 8) see at D = 64, as
+// bounds for the shared consumer of wgmma_attention64.cuh: a tile at key
+// k0 needs the mask if k0 > e_hi (it crosses the diagonal or S) or k0 <=
+// e_lo (the window's edge); row r sees keys lo[r] < key <= hi[r].
+// Unbiased logits are the raw products (the scale goes into c, the
+// exponent's multiplier); ALiBi's are scale * s + slope * key, in scaled
+// units.
+template <bool SLOPE, bool WINDOW>
+struct FlashRows {
+  float c, scale, slope;
+  int e_hi, e_lo, hi[2], lo[2];
+  int kt;   // 2 (t % 4): this lane's first column
+  __device__ __forceinline__ bool edge(int k0) const {
+    return k0 > e_hi || (WINDOW && k0 <= e_lo);
+  }
+  __device__ __forceinline__ bool keep(int key, int r) const {
+    return key <= hi[r] && (!WINDOW || key > lo[r]);
+  }
+  // slope * key = slope * (k0 + kt) + slope * (the column's offset)
+  __device__ __forceinline__ float key_base(int k0) const {
+    return SLOPE ? slope * (float)(k0 + kt) : 0.f;
+  }
+  __device__ __forceinline__ float logit(float s, int i, float kb) const {
+    if (!SLOPE) return s;
+    return fmaf(s, scale, fmaf(slope, (float)(8 * (i / 4) + i % 2), kb));
+  }
+};
+
+// A work item of the persistent D = 64 forward: one 128-row q tile of one
+// (batch, head).
+struct Item {
+  int b, h, hk, q0, k_lo, n_tiles;
+};
+
+__device__ __forceinline__ Item fwd_item(const FwdParams& p, int bh, int qi,
+                                         int window) {
+  Item it;
+  it.q0 = qi * tc::BM;
+  it.b = bh / p.H;
+  it.h = bh % p.H;
+  it.hk = it.h / (p.H / p.Hkv);
+  it.k_lo = 0;                           // _k_range: the window's first tile
+  if (window > 0 && it.q0 - (window - 1) > 0)
+    it.k_lo = (it.q0 - (window - 1)) / tc::BN * tc::BN;
+  const int k_hi = p.causal ? min(p.S, it.q0 + tc::BM) : p.S;
+  it.n_tiles = (k_hi - it.k_lo + tc::BN - 1) / tc::BN;
+  return it;
+}
+
+// The items a block walks, in units: unit u is q tiles n_qt - 1 - k and k
+// (k = u % per_head; one tile where they meet) of (batch, head) u /
+// per_head -- under the causal mask every unit but a middle one has
+// n_qt + 1 key tiles, so equal shares of units are equal shares of work.
+// A block takes units blockIdx.x, then round by round one per gridDim.x,
+// forward in even rounds and backward in odd ones; the units running at
+// once belong to ~gridDim.x / per_head heads, whose K and V stay in L2
+// while their q tiles read them.
+struct Walk {
+  int n_qt, per_head, n_units;
+  __device__ __forceinline__ int unit(int r) const {   // round r's unit
+    const int G = gridDim.x, b = blockIdx.x;
+    return r * G + (r & 1 ? G - 1 - b : b);
+  }
+  // q tile i (0 or 1) of unit u, or -1
+  __device__ __forceinline__ int q_tile(int u, int i) const {
+    const int k = u % per_head;
+    const int q = i ? k : n_qt - 1 - k;
+    return i && q == n_qt - 1 - k ? -1 : q;
+  }
+};
+
+// One work item of the persistent D = 64 forward, consumer side: the
+// rows' bounds, the walk over the item's tiles (ring slots g .. g +
+// n_tiles - 1, Q in buffer j % 2), then O and LSE.
+template <typename E, bool SLOPE, bool WINDOW>
+__device__ __forceinline__ void consume_item(
+    const FwdParams& p, const Item& it, int j, int g, int wg, int t,
+    unsigned char* q_s, unsigned char* kv_s, uint64_t* q_full,
+    uint64_t* q_empty, uint64_t* full, uint64_t* empty, int window) {
+  using namespace hopper;
+  using namespace tc;
+  constexpr int kTile = Smem<64>::kTile, kStages = Smem<64>::kStages;
+  const int S = p.S, H = p.H;
+  const float scale = p.scale;
+  const int r_first = it.q0 + 64 * wg, r_last = r_first + 63;
+  const int row0 = r_first + acc_row(0, t);   // and row0 + 8
+  const auto unseen = [&](int i) {
+    const int k0 = it.k_lo + i * BN;
+    return (p.causal && k0 > r_last) || r_first >= S ||
+           (WINDOW && window > 0 && r_first - (k0 + BN - 1) >= window);
+  };
+  int first = 0;       // the tiles this warpgroup sees: [first, last)
+  while (first < it.n_tiles && unseen(first)) ++first;
+  int last = first;
+  while (last < it.n_tiles && !unseen(last)) ++last;
+  FlashRows<SLOPE, WINDOW> rows;
+  rows.c = SLOPE ? kLog2e : scale * kLog2e;
+  rows.scale = scale;
+  rows.slope = SLOPE ? __ldg(p.slopes + it.h) : 0.f;
+  rows.e_hi = min(p.causal ? r_first - BN + 1 : kFar, S - BN);
+  rows.e_lo = WINDOW && window > 0 ? r_last - window : -kFar;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    rows.hi[r] = p.causal ? min(S - 1, row) : S - 1;
+    rows.lo[r] = WINDOW && window > 0 ? row - window : -kFar;
+  }
+  rows.kt = 2 * (t % 4);
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};   // l: this lane's share
+
+  mbar_wait(&q_full[j & 1], (j >> 1) & 1);
+  dswg::attend_tiles<E, kStages, kTile>(
+      rows, smem_u32(q_s + (j & 1) * kTile) + 64 * wg * 128, smem_u32(kv_s),
+      full, empty, g, it.n_tiles, first, last, it.k_lo, t, o, m, l);
+  mbar_arrive(&q_empty[j & 1]);   // every product that read Q retired
+
+  E* out = static_cast<E*>(p.o);
+  const int bh = it.b * H + it.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = row0 + 8 * r;
+    if (row >= S) continue;
+    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    uint32_t* orow = reinterpret_cast<uint32_t*>(
+        out + (((long long)it.b * S + row) * H + it.h) * 64);
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      orow[(8 * c + 2 * (t % 4)) / 2] =
+          pack2<E>(o[4 * c + 2 * r] * inv, o[4 * c + 2 * r + 1] * inv);
+    // LSE in scaled units, as the backward kernels read it
+    const float ms = SLOPE || m[r] <= kNeg / 2 ? m[r] : m[r] * scale;
+    if (t % 4 == 0)
+      p.lse[(long long)bh * S + row] = ms + logf(fmaxf(l[r], 1e-30f));
+  }
+}
+
+// One block an SM walks its share of the items (Walk): a block's start
+// (barriers, the first Q and K/V loads, the pipeline's fill) is paid once,
+// not once per q tile -- at gpt_350m's shape a q tile has 4.5 key tiles
+// on average, and that start cost about as much as 3 of them.  The
+// producer loads the next item's Q into the second Q buffer while the
+// consumers run this one, and streams every item's K/V tiles through one
+// ring.
+template <typename E, bool SLOPE, bool WINDOW>
+__device__ __forceinline__ void fwd_tensor_cores_d64(const FwdParams& p,
+                                                     unsigned char* raw) {
+  using namespace hopper;
+  using namespace tc;
+  using Plan = Smem<64>;
+  constexpr int kTile = Plan::kTile, kStages = Plan::kStages;
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* q_s = base;                     // Q tiles 0 and 1
+  unsigned char* kv_s = base + 2 * kTile;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(base + Plan::kBarOffset);
+  uint64_t* q_empty = q_full + 2;
+  uint64_t* full = q_empty + 2;
+  uint64_t* empty = full + kStages;
+
+  const int S = p.S, H = p.H;
+  const int n_qt = (S + BM - 1) / BM;
+  const Walk walk{n_qt, (n_qt + 1) / 2, p.B * H * ((n_qt + 1) / 2)};
+  const int window = WINDOW ? p.window : 0;
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&q_full[i], 1);
+      mbar_init(&q_empty[i], 256);   // every consumer thread
+    }
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 256);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer
+    regs_dealloc<24>();
+    if (t == 0) {
+      int g = 0;   // K/V tiles streamed so far: the ring's slot
+      int j = 0;   // items so far: the Q buffer's and its barriers' phase
+      for (int r = 0, u = walk.unit(0); u < walk.n_units;
+           u = walk.unit(++r)) {
+        for (int i = 0; i < 2; ++i, ++j) {
+          const int qi = walk.q_tile(u, i);
+          if (qi < 0) break;
+          const Item it = fwd_item(p, u / walk.per_head, qi, window);
+          const int qb = j & 1;
+          mbar_wait(&q_empty[qb], ((j >> 1) & 1) ^ 1);
+          mbar_arrive_expect_tx(&q_full[qb], kTile);
+          tma_load_rows<64>(q_s + qb * kTile, &p.q_map, &q_full[qb], BM,
+                            it.h, it.q0, it.b);
+          for (int c = 0; c < it.n_tiles; ++c, ++g) {
+            const int st = g % kStages;
+            mbar_wait(&empty[st], ((g / kStages) & 1) ^ 1);
+            unsigned char* k_t = kv_s + st * 2 * kTile;
+            const int k0 = it.k_lo + c * BN;
+            mbar_arrive_expect_tx(&full[st], 2 * kTile);
+            tma_load_rows<64>(k_t, &p.k_map, &full[st], BN, it.hk, k0, it.b);
+            tma_load_rows<64>(k_t + kTile, &p.v_map, &full[st], BN, it.hk,
+                              k0, it.b);
+          }
+        }
+      }
+    }
+  } else {  // consumers: warpgroup wg owns rows q0 + 64 wg .. + 63 of each
+    regs_alloc<240>();
+    dswg::first_turn(wg);
+    int g = 0, j = 0;
+    for (int r = 0, u = walk.unit(0); u < walk.n_units; u = walk.unit(++r)) {
+      for (int i = 0; i < 2; ++i, ++j) {
+        const int qi = walk.q_tile(u, i);
+        if (qi < 0) break;
+        const Item it = fwd_item(p, u / walk.per_head, qi, window);
+        consume_item<E, SLOPE, WINDOW>(p, it, j, g, wg, t, q_s, kv_s, q_full,
+                                       q_empty, full, empty, window);
+        g += it.n_tiles;
+      }
+    }
+  }
+}
+
 template <typename T>
 constexpr int fwd_threads() {
   return std::is_same<T, float>::value ? kThreads : tc::kThreads;
@@ -391,6 +638,8 @@ flash_fwd_kernel(const __grid_constant__ FwdParams p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   if constexpr (std::is_same<T, float>::value)
     fwd_cuda_cores<SLOPE, WINDOW, D>(p, reinterpret_cast<float*>(smem_raw));
+  else if constexpr (D == 64)
+    fwd_tensor_cores_d64<T, SLOPE, WINDOW>(p, smem_raw);
   else
     fwd_tensor_cores<T, SLOPE, WINDOW, D>(p, smem_raw);
 }
@@ -405,8 +654,17 @@ int launch(const FwdParams& p, int B, cudaStream_t stream) {
       flash_fwd_kernel<T, SLOPE, WINDOW, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid = fp32 ? dim3((p.S + BQ - 1) / BQ, B * p.H)
-                         : dim3(B * p.H, (p.S + tc::BM - 1) / tc::BM);
+  dim3 grid = fp32 ? dim3((p.S + BQ - 1) / BQ, B * p.H)
+                   : dim3(B * p.H, (p.S + tc::BM - 1) / tc::BM);
+  if (!fp32 && D == 64) {   // persistent: one block an SM, at most
+    int dev = 0, sms = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    const unsigned units = grid.x * ((grid.y + 1) / 2);   // Walk's units
+    grid = dim3(units < (unsigned)sms ? units : (unsigned)sms);
+  }
   flash_fwd_kernel<T, SLOPE, WINDOW, D>
       <<<grid, fwd_threads<T>(), smem, stream>>>(p);
   return (int)cudaGetLastError();
@@ -453,6 +711,7 @@ extern "C" int ds_flash_attention_fwd(const void* q, const void* k,
   p.lse = static_cast<float*>(lse);
   p.slopes = static_cast<const float*>(slopes);
   p.window = window;
+  p.B = B;
   p.S = S;
   p.H = H;
   p.Hkv = Hkv;

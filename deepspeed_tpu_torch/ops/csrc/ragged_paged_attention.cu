@@ -30,43 +30,53 @@
 // keys is 32 KB contiguous per kv head at D = 128, so at the serving
 // engine's page a warp's key group lies in one page.
 //
-// Prefill tiles, bf16 or fp16, D = 128, a group dividing 64 and a page size that
-// is a multiple of 128 or a multiple of 8 dividing 128 (the serving
-// engine's page 128 among them): the flash forward's pipeline
-// (flash_attention_fwd.cu, hopper.cuh).  One block of three warpgroups per
-// (128-row tile, kv head): the tile is 128 / group tokens of one sequence
-// by the group's heads, so a kv head's group shares every K/V tile.  A
-// producer warp loads the Q tile by TMA straight from the packed stack --
-// a 3-d tensor map (column, head, token) with row stride H * D, one box of
-// 64 rows (64 / group tokens by group heads) per consumer warpgroup -- and
-// streams 128-key K and V tiles through a two-stage ring, each tile's TMA
-// row coordinate resolved through the block table, (page * Hkv + hk) *
-// page_size + offset over k_pages viewed as [P * Hkv * page, D]: one box
-// per tile, or one per page when pages are smaller than the tile.  Two
+// Prefill tiles, bf16 or fp16, head dim 64 or 128, a group dividing 64
+// and a page size that is a multiple of 128 or a multiple of 8 dividing
+// 128 (the serving engine's page 128 among them; a row of 64 or 128
+// columns is one or two 128-byte swizzle rows, so the same boxes hold at
+// both head dims): the flash forward's pipeline (flash_attention_fwd.cu,
+// hopper.cuh).  One block of three warpgroups per (128-row tile, kv head):
+// the tile is 128 / group tokens of one sequence by the group's heads, so
+// a kv head's group shares every K/V tile.  A producer warp loads the Q
+// tile by TMA straight from the packed stack -- a 3-d tensor map (column,
+// head, token) with row stride H * D, D / 64 boxes of 64 rows (64 / group
+// tokens by group heads) per consumer warpgroup -- and streams 128-key K
+// and V tiles through a ring (2 stages at D = 128, 4 at 64), each tile's
+// TMA row coordinate resolved through the block table, (page * Hkv + hk)
+// * page_size + offset over k_pages viewed as [P * Hkv * page, D]: D / 64
+// boxes per tile, or per page when pages are smaller than the tile.  Two
 // consumer warpgroups own 64 rows each: S = Q K^T by wgmma, the online
 // softmax on the accumulators, P rounded to the tile's type as the A
-// operand of O += P V.  bf16 and fp16 run one body, templated on the
+// operand of O += P V.  At D = 128 each warpgroup runs the three in
+// series; at D = 64 the products are half as long and the softmax is not,
+// so the body is the flash forward's D = 64 consumer (wgmma_attention64
+// .cuh): each tile's softmax runs under the products of the tile before
+// and of the other warpgroup, which take turns to issue them.  A
+// TinyLlama-shaped 256-token chunk (group 8) is 64 blocks of at most 6
+// K/V tiles each: it fills 64 of the 132 SMs; its bound is the tensor
+// cores' 1.4 us.  bf16 and fp16 run one body, templated on the
 // element type E: every wgmma, tensor map and packing names E (hopper.cuh
-// has no default), so no fp16 tile is read as bf16.  The key loop stops at the tile's causal frontier ctx - qlen +
-// min(qlen, (qt + 1) * tokens); only tiles that cross a row's position are
-// masked, and a warpgroup skips a tile it cannot see.  Rows past qlen may
-// arrive in the Q box (TMA moves whole boxes; past the stack they are
-// zero-filled) but feed no real row and are never written.  Tiles with the
-// most keys are launched first (the host's order).
+// has no default), so no fp16 tile is read as bf16.  The key loop stops at
+// the tile's causal frontier ctx - qlen + min(qlen, (qt + 1) * tokens);
+// only tiles that cross a row's position are masked, and a warpgroup
+// skips a tile it cannot see.  Rows past qlen may arrive in the Q box (TMA
+// moves whole boxes; past the stack they are zero-filled) but feed no real
+// row and are never written.  Tiles with the most keys are launched first
+// (the host's order).
 //
-// Prefill tiles otherwise (fp32, head dim 64, other page sizes or groups):
-// the CUDA-core tile of attention_tile.cuh, grid (tiles, Hkv, 16-row
-// chunks of the tile's q_tile * group rows), keys staged through fp32
-// shared memory, each key's page resolved through the block table as it
-// is loaded.  fp32 keeps it for the 1e-4 checks; the selection is by dtype
+// Prefill tiles otherwise (fp32, other page sizes or groups): the
+// CUDA-core tile of attention_tile.cuh, grid (tiles, Hkv, 16-row chunks
+// of the tile's q_tile * group rows), keys staged through fp32 shared
+// memory, each key's page resolved through the block table as it is
+// loaded.  fp32 keeps it for the 1e-4 checks; the selection is by dtype
 // and shape.
 #include "hopper.cuh"
 #include "split_decode.cuh"
+#include "wgmma_attention64.cuh"
 
 namespace {
 
 using dsattn::kNeg;
-constexpr int kD = 128;   // the tensor-core tiles' head dim
 
 // ---- decode rows: split_decode.cuh over the paged cache -----------------
 
@@ -138,12 +148,36 @@ namespace tc {
 constexpr int BM = 128;                              // rows of a tile
 constexpr int BN = 128;                              // keys of a K/V tile
 constexpr int kThreads = 384;                        // 2 consumer + 1 producer WG
-constexpr int kTile = 128 * kD * 2;                  // 32 KB 16-bit tile
-constexpr int kHalf = kTile / 2;                     // one 64-column box
-constexpr int kStages = 2;
-constexpr int kBarOffset = kTile + kStages * 2 * kTile;
-constexpr size_t kSmem = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
+constexpr int kBox = 128 * hopper::kBoxCols * 2;     // one 64-column box
+// The shared-memory plan at head dim D: Q, then kStages x (K, V), then the
+// barriers: Q's, full[], empty[]
+template <int D>
+struct Smem {
+  static constexpr int kTile = 128 * D * 2;   // 32 KB at D = 128, 16 at 64
+  static constexpr int kStages = D == 64 ? 4 : 2;
+  static constexpr int kBarOffset = kTile + kStages * 2 * kTile;
+  static constexpr size_t kBytes = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
+};
 }  // namespace tc
+
+// What a consumer thread's two rows see at D = 64, for the shared consumer
+// of wgmma_attention64.cuh: keys up to the row's position, masked only on
+// tiles that cross the warpgroup's first row's; logits are the raw products
+// (the scale goes into c).
+struct PagedRows {
+  float c;
+  int qpos[2], front;   // front: the position of the warpgroup's first row
+  __device__ __forceinline__ bool edge(int k0) const {
+    return k0 + tc::BN - 1 > front;
+  }
+  __device__ __forceinline__ bool keep(int key, int r) const {
+    return key <= qpos[r];
+  }
+  __device__ __forceinline__ float key_base(int) const { return 0.f; }
+  __device__ __forceinline__ float logit(float s, int, float) const {
+    return s;
+  }
+};
 
 struct PrefillParams {
   CUtensorMap q_map, k_map, v_map;
@@ -158,11 +192,13 @@ struct PrefillParams {
   float scale;
 };
 
-template <typename E>
+template <typename E, int D>
 __global__ void __launch_bounds__(tc::kThreads, 1)
 ragged_prefill_tc_kernel(const __grid_constant__ PrefillParams p) {
   using namespace hopper;
   using namespace tc;
+  constexpr int kTile = Smem<D>::kTile, kStages = Smem<D>::kStages;
+  constexpr int kBarOffset = Smem<D>::kBarOffset;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -201,10 +237,10 @@ ragged_prefill_tc_kernel(const __grid_constant__ PrefillParams p) {
       // consumer warpgroup and 64 columns
       mbar_arrive_expect_tx(q_bar, kTile);
       for (int w = 0; w < 2; ++w)
-        for (int c = 0; c < 2; ++c)
-          tma_load_3d(q_s + c * kHalf + w * 64 * 128, &p.q_map, q_bar,
+        for (int c = 0; c < D / kBoxCols; ++c)
+          tma_load_3d(q_s + c * kBox + w * 64 * 128, &p.q_map, q_bar,
                       c * kBoxCols, hk * group, qoff + t0 + w * 64 / group);
-      const int per = BN / p.box_rows;          // boxes per K/V tile half
+      const int per = BN / p.box_rows;          // boxes per K or V tile
       for (int it = 0; it < n_tiles; ++it) {
         const int st = it % kStages;
         mbar_wait(&empty[st], ((it / kStages) & 1) ^ 1);
@@ -214,8 +250,8 @@ ragged_prefill_tc_kernel(const __grid_constant__ PrefillParams p) {
           const int key = it * BN + j * p.box_rows;
           const int pg = __ldg(table + min(key / p.page, p.max_pages - 1));
           const int row = (pg * p.Hkv + hk) * p.page + key % p.page;
-          for (int c = 0; c < 2; ++c) {
-            unsigned char* dst = k_t + c * kHalf + j * p.box_rows * 128;
+          for (int c = 0; c < D / kBoxCols; ++c) {
+            unsigned char* dst = k_t + c * kBox + j * p.box_rows * 128;
             tma_load_2d(dst, &p.k_map, &full[st], c * kBoxCols, row);
             tma_load_2d(dst + kTile, &p.v_map, &full[st], c * kBoxCols, row);
           }
@@ -236,80 +272,92 @@ ragged_prefill_tc_kernel(const __grid_constant__ PrefillParams p) {
     }
     const float scale = p.scale;
     const uint32_t q_addr = smem_u32(q_s) + 64 * wg * 128;
-    float o[64];
+    float o[D / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
     float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};   // l: this lane's share
 
     mbar_wait(q_bar, 0);
-    for (int it = 0; it < n_tiles; ++it) {
-      const int st = it % kStages, k0 = it * BN;
-      // no real row (tok_last < tok_first) or every key past the last one
-      const bool unseen = tok_last < tok_first || k0 > first_q + tok_last;
-      mbar_wait(&full[st], (it / kStages) & 1);
-      if (!unseen) {
-        const uint32_t k_addr = smem_u32(kv_s) + st * 2 * kTile;
-        const uint32_t v_addr = k_addr + kTile;
-        float sc[64];
-        wgmma_fence();
+    if constexpr (D == 64) {
+      // the tiles this warpgroup sees: every key up to its last row's
+      const int last = tok_last < tok_first ? 0 :
+          min(n_tiles, (first_q + tok_last) / BN + 1);
+      const PagedRows rows{scale * kLog2e, {qpos[0], qpos[1]},
+                           first_q + tok_first};
+      dswg::first_turn(wg);
+      dswg::attend_tiles<E, kStages, kTile>(rows, q_addr, smem_u32(kv_s),
+                                            full, empty, 0, n_tiles, 0, last,
+                                            0, t, o, m, l);
+    } else {
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % kStages, k0 = it * BN;
+        // no real row (tok_last < tok_first) or every key past the last one
+        const bool unseen = tok_last < tok_first || k0 > first_q + tok_last;
+        mbar_wait(&full[st], (it / kStages) & 1);
+        if (!unseen) {
+          const uint32_t k_addr = smem_u32(kv_s) + st * 2 * kTile;
+          const uint32_t v_addr = k_addr + kTile;
+          float sc[64];
+          wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
-          const uint32_t off = (kk / 4) * kHalf + (kk % 4) * 32;
-          wgmma_ss_n128<E>(sc, desc_kmajor(q_addr + off),
-                        desc_kmajor(k_addr + off), kk > 0);
-        }
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(sc);
+          for (int kk = 0; kk < D / 16; ++kk) {
+            const uint32_t off = kslice(kk, kBox);
+            wgmma_ss_n128<E>(sc, desc_kmajor(q_addr + off),
+                          desc_kmajor(k_addr + off), kk > 0);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(sc);
 
-        const bool edge = k0 + BN - 1 > first_q + tok_first;
-        float mx[2] = {kNeg, kNeg};
+          const bool edge = k0 + BN - 1 > first_q + tok_first;
+          float mx[2] = {kNeg, kNeg};
 #pragma unroll
-        for (int i = 0; i < 64; ++i) {
-          const int r = (i / 2) % 2;
-          float x = __fmul_rn(sc[i], scale);
-          if (edge && k0 + acc_col(i, t) > qpos[r]) x = kNeg;
-          sc[i] = x;
-          mx[r] = fmaxf(mx[r], x);
-        }
-        float corr[2], ml[2];   // ml: m * log2(e), the exponents' offset
+          for (int i = 0; i < 64; ++i) {
+            const int r = (i / 2) % 2;
+            float x = __fmul_rn(sc[i], scale);
+            if (edge && k0 + acc_col(i, t) > qpos[r]) x = kNeg;
+            sc[i] = x;
+            mx[r] = fmaxf(mx[r], x);
+          }
+          float corr[2], ml[2];   // ml: m * log2(e), the exponents' offset
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-          // a row that has seen no key yet keeps m = -1e30; its exponents
-          // are taken from 0, so its masked scores give exactly 0
-          const float m_new = fmaxf(m[r], mx[r]);
-          ml[r] = m_new <= kNeg / 2 ? 0.f : m_new * kLog2e;
-          corr[r] = ex2(fmaf(m[r], kLog2e, -ml[r]));
-          m[r] = m_new;
-          l[r] *= corr[r];
-        }
+          for (int r = 0; r < 2; ++r) {
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+            // a row that has seen no key yet keeps m = -1e30; its exponents
+            // are taken from 0, so its masked scores give exactly 0
+            const float m_new = fmaxf(m[r], mx[r]);
+            ml[r] = m_new <= kNeg / 2 ? 0.f : m_new * kLog2e;
+            corr[r] = ex2(fmaf(m[r], kLog2e, -ml[r]));
+            m[r] = m_new;
+            l[r] *= corr[r];
+          }
 #pragma unroll
-        for (int i = 0; i < 64; ++i) {
-          const int r = (i / 2) % 2;
-          const float pr = ex2(fmaf(sc[i], kLog2e, -ml[r]));
-          l[r] += pr;
-          sc[i] = pr;
-          o[i] *= corr[r];
-        }
-        uint32_t pa[32];
-        acc_to_a<E>(sc, pa);
-        fence_regs(o);
-        fence_regs(pa);
-        wgmma_fence();
+          for (int i = 0; i < 64; ++i) {
+            const int r = (i / 2) % 2;
+            const float pr = ex2(fmaf(sc[i], kLog2e, -ml[r]));
+            l[r] += pr;
+            sc[i] = pr;
+            o[i] *= corr[r];
+          }
+          uint32_t pa[32];
+          acc_to_a<E>(sc, pa);
+          fence_regs(o);
+          fence_regs(pa);
+          wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
-          const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
-                                 pa[4 * kk + 3]};
-          wgmma_rs_n128<E>(o, a, desc_mnmajor(v_addr + kk * 2048, kHalf));
+          for (int kk = 0; kk < 8; ++kk) {
+            const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                                   pa[4 * kk + 3]};
+            wgmma_rs<E, D>(o, a, desc_mnmajor(v_addr + kk * 2048, kBox));
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(o);
+          fence_regs(pa);
         }
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(o);
-        fence_regs(pa);
+        mbar_arrive(&empty[st]);
       }
-      mbar_arrive(&empty[st]);
     }
 
 #pragma unroll
@@ -321,30 +369,30 @@ ragged_prefill_tc_kernel(const __grid_constant__ PrefillParams p) {
       const float inv = 1.f / fmaxf(l[r], 1e-30f);
       uint32_t* orow = reinterpret_cast<uint32_t*>(
           static_cast<E*>(p.o) +
-          (((long long)qoff + tok[r]) * p.H + hk * group + g) * kD);
+          (((long long)qoff + tok[r]) * p.H + hk * group + g) * D);
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+      for (int j = 0; j < D / 8; ++j)
         orow[(8 * j + 2 * (t % 4)) / 2] =
             pack2<E>(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
     }
   }
 }
 
-template <typename E>
+template <typename E, int D>
 int launch_prefill_tc(PrefillParams& p, const void* q, const void* kp,
                       const void* vp, int n_tiles, int total_q, int P,
                       cudaStream_t stream) {
   const int group = p.H / p.Hkv;
   // q as (column, head, token); pages as (column, row of [P*Hkv*page])
-  const cuuint64_t row = kD * sizeof(E);
-  const cuuint64_t q_dims[3] = {kD, static_cast<cuuint64_t>(p.H),
+  const cuuint64_t row = D * sizeof(E);
+  const cuuint64_t q_dims[3] = {D, static_cast<cuuint64_t>(p.H),
                                 static_cast<cuuint64_t>(total_q)};
   const cuuint64_t q_strides[2] = {row, row * p.H};
   const cuuint32_t q_box[3] = {hopper::kBoxCols,
                                static_cast<cuuint32_t>(group),
                                static_cast<cuuint32_t>(64 / group)};
   const cuuint64_t kv_dims[2] = {
-      kD, static_cast<cuuint64_t>(P) * p.Hkv * p.page};
+      D, static_cast<cuuint64_t>(P) * p.Hkv * p.page};
   const cuuint64_t kv_strides[1] = {row};
   const cuuint32_t kv_box[2] = {hopper::kBoxCols,
                                 static_cast<cuuint32_t>(p.box_rows)};
@@ -353,13 +401,14 @@ int launch_prefill_tc(PrefillParams& p, const void* q, const void* kp,
   if (!rc) rc = map(&p.k_map, kp, 2, kv_dims, kv_strides, kv_box);
   if (!rc) rc = map(&p.v_map, vp, 2, kv_dims, kv_strides, kv_box);
   if (rc) return rc;
-  // once per element type, before any graph capture can be running
+  constexpr size_t smem = tc::Smem<D>::kBytes;
+  // once per instantiation, before any graph capture can be running
   static const cudaError_t attr = cudaFuncSetAttribute(
-      ragged_prefill_tc_kernel<E>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tc::kSmem);
+      ragged_prefill_tc_kernel<E, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
-  ragged_prefill_tc_kernel<E><<<dim3(n_tiles, p.Hkv), tc::kThreads, tc::kSmem,
-                                stream>>>(p);
+  ragged_prefill_tc_kernel<E, D><<<dim3(n_tiles, p.Hkv), tc::kThreads, smem,
+                                   stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -435,8 +484,8 @@ int launch_prefill_cores(const void* q, const void* kp, const void* vp,
 }  // namespace
 
 // One call's launches.  q: packed [total_q, H, D]; pages [P, Hkv, page,
-// D]; o like q; dtype: 0 = float32, 1 = bfloat16, 2 = float16; D is 128,
-// or 64 for the decode form and the CUDA-core prefill tiles.  All
+// D]; o like q; dtype: 0 = float32, 1 = bfloat16, 2 = float16; D is 64 or
+// 128 in every form.  All
 // metadata arrays are int32 on the device: ctx_lens / q_lens / q_offs [B],
 // block_tables [B, max_pages].  Decode form (n_dec > 0): dec_seqs [n_dec]
 // sequences of at most dec_rows = q_len * group <= 8 rows, their keys
@@ -444,8 +493,8 @@ int launch_prefill_cores(const void* q, const void* kp, const void* vp,
 // page); with n_split > 1 ``part`` is fp32 scratch of n_dec * Hkv *
 // n_split * dec_rows * (D + 2) floats.  Prefill form (n_tiles > 0): tiles
 // seq_of_tile / qtile_of_tile [n_tiles] of q_tile tokens; tensor_cores = 1
-// takes the bf16 / fp16 wgmma kernel (q_tile = 128 / group, D = 128), 0
-// the CUDA-core one.
+// takes the bf16 / fp16 wgmma kernel (q_tile = 128 / group), 0 the
+// CUDA-core one.
 // Returns cudaGetLastError().
 extern "C" int ds_ragged_paged_attention(
     const void* q, const void* k_pages, const void* v_pages, void* o,
@@ -457,8 +506,7 @@ extern "C" int ds_ragged_paged_attention(
     int page_size, int D, int dtype, float scale, void* stream) {
   if (n_dec < 0 || n_tiles < 0 || n_dec + n_tiles == 0 || Hkv <= 0 ||
       H % Hkv != 0 || page_size <= 0 || max_pages <= 0 || Hkv > 65535 ||
-      (D != kD && D != 64) || dtype < 0 || dtype > 2 || n_dec > 65535 ||
-      (D != kD && tensor_cores))
+      (D != 128 && D != 64) || dtype < 0 || dtype > 2 || n_dec > 65535)
     return (int)cudaErrorInvalidValue;
   const int group = H / Hkv;
   const int* c = static_cast<const int*>(ctx_lens);
@@ -503,10 +551,13 @@ extern "C" int ds_ragged_paged_attention(
     p.H = H;
     p.Hkv = Hkv;
     p.scale = scale;
-    return dtype == 1 ? launch_prefill_tc<__nv_bfloat16>(p, q, k_pages, v_pages,
-                                                         n_tiles, total_q, P, s)
-                      : launch_prefill_tc<__half>(p, q, k_pages, v_pages,
-                                                  n_tiles, total_q, P, s);
+    return dsdecode::with_head_dim(D, [&](auto d) {
+      constexpr int Dc = decltype(d)::value;
+      return dtype == 1 ? launch_prefill_tc<__nv_bfloat16, Dc>(
+                              p, q, k_pages, v_pages, n_tiles, total_q, P, s)
+                        : launch_prefill_tc<__half, Dc>(
+                              p, q, k_pages, v_pages, n_tiles, total_q, P, s);
+    });
   }
   if (q_tile <= 0 || (q_tile * group + 15) / 16 > 65535)
     return (int)cudaErrorInvalidValue;
@@ -516,9 +567,9 @@ extern "C" int ds_ragged_paged_attention(
         q, k_pages, v_pages, o, c, ql, qo, sot, qot, tb, n_tiles, max_pages,
         H, Hkv, page_size, q_tile, scale, s);
   };
-  using D128 = std::integral_constant<int, kD>;
+  using D128 = std::integral_constant<int, 128>;
   using D64 = std::integral_constant<int, 64>;
-  if (D == kD)
+  if (D == 128)
     return dtype == 0   ? cores(Type<float>{}, D128{})
            : dtype == 1 ? cores(Type<__nv_bfloat16>{}, D128{})
                         : cores(Type<__half>{}, D128{});

@@ -14,8 +14,10 @@ per-query-head fp32 dK/dV over the GQA group.  The plain versions are in
 ``ops/flash_attention.py``, with the ``torch.autograd.Function`` that picks
 between them.  The kernels are built for head dims 64 and 128
 (:data:`FLASH_HEAD_DIMS`, each a template instantiation of the same
-bodies); any other head dim raises ``NotImplementedError`` naming ROADMAP
-A16, as :func:`check_head_dim` does at the entry points' construction.
+bodies; the bf16 / fp16 forward's consumer at 64 is a body of its own,
+which runs each tile's softmax under the products of its neighbours);
+any other head dim raises ``NotImplementedError`` naming ROADMAP A16, as
+:func:`check_head_dim` does at the entry points' construction.
 """
 
 import torch

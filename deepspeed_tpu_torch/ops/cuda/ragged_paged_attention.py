@@ -24,10 +24,11 @@ Where the TPU kernel runs every sequence as q_tile-token tiles,
 speculative verify window of up to 8 tokens at group 1, a group-8 draft's
 decode step; head dim 64 or 128) to the split-key decode body shared with
 B5, and the rest to prefill tiles -- the tensor-core kernel's 128-row
-tiles where :func:`tensor_core_prefill` holds (bf16 or fp16, head dim
-128, the serving engine's page sizes), else the CUDA-core tiles.  That
-choice is by dtype and shape, made here, and not a fallback: both forms
-are this wrapper's kernel, counted in the same ``launches``.
+tiles where :func:`tensor_core_prefill` holds (bf16 or fp16, head dim 64
+or 128, the serving engine's page sizes), else the CUDA-core tiles (fp32,
+other groups and pages).  That choice is by dtype and shape, made here,
+and not a fallback: both forms are this wrapper's kernel, counted in the
+same ``launches``.
 """
 
 import functools
@@ -49,16 +50,18 @@ from deepspeed_tpu_torch.ops.cuda.decode_attention import (DECODE_ROWS,
 DEFAULT_Q_TILE = 8
 TC_ROWS = 128   # query rows (tokens x group heads) of a tensor-core tile
 TC_KEYS = 128   # keys of its K/V tile
+TC_HEAD_DIMS = (64, 128)   # head dims of its instantiations
 
 
 def tensor_core_prefill(dtype, head_dim, group, page_size):
     """Whether prefill tiles take the wgmma + TMA kernel: bf16 or fp16,
-    head dim 128, a GQA group dividing 64 (a warpgroup's 64 rows hold whole
-    tokens) and a page size that is a multiple of the 128-key tile or a
-    multiple of 8 rows dividing it (each TMA box starts on a swizzle
-    atom).  Other shapes take the CUDA-core tiles."""
-    return (dtype in (torch.bfloat16, torch.float16) and head_dim == 128
-            and 64 % group == 0
+    head dim 64 or 128, a GQA group dividing 64 (a warpgroup's 64 rows
+    hold whole tokens) and a page size that is a multiple of the 128-key
+    tile or a multiple of 8 rows dividing it (each TMA box starts on a
+    swizzle atom; a row of 64 or 128 columns is one or two 128-byte swizzle
+    rows).  Other shapes take the CUDA-core tiles."""
+    return (dtype in (torch.bfloat16, torch.float16)
+            and head_dim in TC_HEAD_DIMS and 64 % group == 0
             and (page_size % TC_KEYS == 0 or
                  (TC_KEYS % page_size == 0 and page_size % 8 == 0)))
 

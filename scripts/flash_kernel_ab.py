@@ -24,6 +24,17 @@ the first variant is timed again at the end, so drift shows.  Last, the
 HGMMA and WARPGROUP.DEPBAR counts of each variant's bf16 kernels at that
 head dim (a DEPBAR after every HGMMA means ptxas serialised the wgmma
 pipeline).
+
+To time a change against its parent commit in one call, unpack the
+parent's sources into the gitignored ``.tmp/`` and name both:
+
+    mkdir -p .tmp/parent
+    git archive <parent> deepspeed_tpu_torch/ops/csrc | tar -x -C .tmp/parent
+    echo '{"parent": {"dir": ".tmp/parent/deepspeed_tpu_torch/ops/csrc"},
+           "change": {"dir": "deepspeed_tpu_torch/ops/csrc"}}' > .tmp/ab.json
+    python3 scripts/flash_kernel_ab.py .tmp/ab.json --head-dim 64
+
+The parent is timed first and again last.
 """
 
 import argparse
@@ -53,7 +64,10 @@ SHAPES = {  # head dim -> [(label, B, S, ALiBi, window, scale)], 16 heads
           ("global S=2048", 2, 2048, False, None, 1.0)],
     64: [("gpt_350m B=8 S=1024", 8, 1024, False, None, None),
          ("ALiBi S=2048", 2, 2048, True, None, None),
-         ("window 256 S=2048", 2, 2048, False, 256, 1.0)]}
+         ("window 256 S=2048", 2, 2048, False, 256, 1.0),
+         # blocks of up to 64 key tiles: the cost of a tile apart from a
+         # block's start and end
+         ("long B=1 S=8192", 1, 8192, False, None, None)]}
 
 
 def build(variants, out, sources=SOURCES):

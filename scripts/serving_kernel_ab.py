@@ -23,6 +23,10 @@ sets (more than the 50 MB L2), bf16, at the main paths' shapes of
 * B4 prefill: the serve run's bucketed prefills at 512 and 1024 (B=1,
   length = bucket), and B1's forward (``flash_attention_fwd_cuda``) on
   the same q and dense K/V -- the same work;
+* B4 prefill at head dim 64: the TinyLlama-1.1B draft's 256-token chunk
+  at start 512 and its bucket-512 prefill (32 / 4 heads: group 8), and a
+  bucket-512 prefill at gpt2_125m's shape (12 heads of 64: group 1), each
+  beside SDPA with the causal-ragged mask (``chip_smoke._time_paged``);
 * B6: ``SparseSelfAttention``'s four cases (Fixed block 16 and BigBird
   block 64, head dims 64 and 128, B=2, S=4096, 16 heads).
 
@@ -194,6 +198,23 @@ def worker(tree, cases):
         res[f"B4 prefill T={bucket}"] = dict(
             ms=ms, b1_ms=b1, sdpa_ms=lib, bound_ms=bound, max_abs_err=e)
         del states, dense, kb1, q, qs
+
+    # B4 prefill tiles at head dim 64 (a parent whose tensor-core tiles
+    # take head dim 128 only runs them on its CUDA-core tiles)
+    _, need512 = sm._prefill_need(511)
+    for label, Hq, Hkv, T, need, ctx in (
+            ("B4 TinyLlama chunk T=256 at start 512 H32/4 D=64", 32, 4,
+             sm.CHUNK_TOKENS, 1024 + sm.SERVE_NEW, 768),
+            ("B4 TinyLlama prefill T=512 H32/4 D=64", 32, 4, 512, need512,
+             512),
+            ("B4 gpt2_125m-shaped prefill T=512 H12/12 D=64", 12, 12, 512,
+             need512, 512)):
+        r = sm._time_paged(label, bf, [need], [ctx], T, Hkv, 64, 4, gen,
+                           H=Hq)
+        res[label] = dict(ms=r["ms"], sdpa_ms=r["library_ms"],
+                          bound_ms=r["bound_ms"],
+                          max_abs_err=r["max_abs_err"])
+        torch.cuda.empty_cache()
 
     # B6: SparseSelfAttention's cases
     B, S, Hs = sm.SPARSE_B, sm.SPARSE_S, sm.SPARSE_H

@@ -334,28 +334,37 @@ def test_decode_key_chunks_cover_each_key_once(pairs, slots):
     (torch.bfloat16, 128, 4, 64, True), (torch.bfloat16, 128, 1, 8, True),
     (torch.bfloat16, 128, 1, 48, False), (torch.bfloat16, 128, 1, 4, False),
     (torch.bfloat16, 128, 3, 128, False), (torch.float32, 128, 1, 128, False),
-    (torch.bfloat16, 64, 1, 128, False), (torch.float16, 128, 1, 128, True),
+    (torch.bfloat16, 64, 1, 128, True), (torch.float16, 128, 1, 128, True),
     (torch.float16, 128, 8, 128, True), (torch.float16, 128, 1, 48, False),
-    (torch.float16, 64, 8, 128, False)])
+    (torch.float16, 64, 8, 128, True),
+    # head dim 64 (a row is one 128-byte swizzle row): the same pages and
+    # groups as 128; fp32 and other head dims keep the CUDA-core tiles
+    (torch.bfloat16, 64, 8, 8, True), (torch.float16, 64, 4, 16, True),
+    (torch.bfloat16, 64, 1, 48, False), (torch.bfloat16, 64, 3, 128, False),
+    (torch.float32, 64, 8, 128, False), (torch.bfloat16, 80, 1, 128, False)])
 def test_tensor_core_prefill_selection(dtype, D, group, page, want):
     """The prefill tiles take the tensor-core kernel for bf16 and fp16 at
-    head dim 128, a group dividing 64 and pages that tile or divide the
-    128-key tile in whole swizzle atoms; anything else takes the CUDA-core
-    one."""
+    head dims 64 and 128, a group dividing 64 and pages that tile or
+    divide the 128-key tile in whole swizzle atoms; anything else takes
+    the CUDA-core one."""
     assert tensor_core_prefill(dtype, D, group, page) is want
 
 
 @pytest.mark.parametrize("q_lens,group", [([1] * 8, 8), ([1, 1, 4], 1),
                                           ([256], 8), ([1, 37, 2], 4)])
 def test_head_dim_64_plans_prefill_tiles_only(q_lens, group):
-    """Head dim 64 (TinyLlama-1.1B as a draft) never takes the tensor-core
-    prefill tiles: its sequences of at most DECODE_ROWS rows a kv head (a
-    group-8 decode step among them) take the decode form, every other one
-    CUDA-core prefill tiles that cover its rows once."""
-    tc = any(tensor_core_prefill(dt, 64, group, page)
-             for dt in (torch.bfloat16, torch.float16) for page in (8, 128))
-    assert not tc
-    plan = plan_launch(q_lens, group, tc)
+    """Head dim 64 (TinyLlama-1.1B as a draft) in bf16 and fp16 plans the
+    tensor-core prefill tiles: its sequences of at most DECODE_ROWS rows a
+    kv head (a group-8 decode step among them) take the decode form, every
+    other one 128-row tiles of ``128 // group`` tokens, the tiles with the
+    most keys first, that cover its rows once."""
+    tc = [tensor_core_prefill(dt, 64, group, page)
+          for dt in (torch.bfloat16, torch.float16) for page in (8, 128)]
+    assert all(tc)
+    plan = plan_launch(q_lens, group, True)
+    assert plan.tensor_cores and plan.q_tile == TC_ROWS // group
+    qt = plan.qtile_of_tile.tolist()
+    assert qt == sorted(qt, reverse=True)
     dec = [s for s, ql in enumerate(q_lens) if ql * group <= DECODE_ROWS]
     assert plan.decode_seqs.tolist() == dec
     assert plan.decode_rows == max((q_lens[s] * group for s in dec),
@@ -478,3 +487,46 @@ def test_launch_plan_8_rows_head_dim_64(name, Hq, Hkv, q_lens, ctx_lens):
                                   torch.from_numpy(tables), ctx_lens,
                                   q_lens).numpy()
     np.testing.assert_allclose(rect, np.asarray(kern), **TOL)
+
+
+TC64_CASES = [  # (name, Hq, Hkv, page, q_lens, ctx_lens): head dim 64
+    ("group1_page8_ragged_last_tile", 2, 2, 8, [200, 1, 9], [230, 40, 9]),
+    ("group4_page128", 4, 1, 128, [37, 1, 70], [37, 300, 500]),
+    ("group8_chunk_256_at_start_512", 8, 1, 128, [256], [768]),
+    ("group8_page8_ragged_last_tile", 8, 1, 8, [19, 1, 3], [50, 33, 17]),
+]
+
+
+@pytest.mark.parametrize("name,Hq,Hkv,page,q_lens,ctx_lens", TC64_CASES,
+                         ids=[c[0] for c in TC64_CASES])
+def test_launch_plan_tensor_cores_head_dim_64(name, Hq, Hkv, page, q_lens,
+                                              ctx_lens):
+    """The tensor-core plan at head dim 64 -- prefill tiles of 128 // group
+    tokens, most keys first, beside decode rows -- executed as the kernels
+    read it, against the JAX Pallas kernel in interpret mode: groups 1, 4
+    and 8, pages 8 and 128, a ragged last tile, a 256-token chunk after
+    512 cached tokens."""
+    group = Hq // Hkv
+    assert tensor_core_prefill(torch.bfloat16, 64, group, page)
+    rng = np.random.default_rng(7)
+    n_pages = sum(-(-c // page) for c in ctx_lens) + 2
+    alloc = PagedAllocator(n_pages, page,
+                           max(-(-c // page) for c in ctx_lens),
+                           reserve_scratch=True)
+    for s, c in enumerate(ctx_lens):
+        alloc.allocate(s, c)
+    tables = alloc.block_table(list(range(len(ctx_lens))))
+    kp = rng.standard_normal((n_pages, Hkv, page, 64)).astype(np.float32)
+    vp = rng.standard_normal((n_pages, Hkv, page, 64)).astype(np.float32)
+    q = rng.standard_normal((sum(q_lens), Hq, 64)).astype(np.float32)
+    plan = plan_launch(q_lens, group, True)
+    assert plan.q_tile == TC_ROWS // group and len(plan.seq_of_tile)
+    assert any(ql % plan.q_tile for ql in q_lens if ql * group >
+               DECODE_ROWS) or name.startswith("group8_chunk")
+    got = _plan_emulated(torch.from_numpy(q), torch.from_numpy(kp),
+                         torch.from_numpy(vp), torch.from_numpy(tables),
+                         ctx_lens, q_lens, plan, chunk=64)
+    kern = jax_ragged(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+                      jnp.asarray(tables), jnp.asarray(ctx_lens, jnp.int32),
+                      q_lens, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(kern), **TOL)

@@ -9,8 +9,10 @@ here on the CPU where they need no card.
   within WITNESS_FACTOR of SDPA's error, and stops the smoke otherwise.
 * ``check_flash`` sends every bf16 output of the tensor-core kernels, dQ
   included, to that rule, and fp32 ones to the plain tolerance.
-* ``sass_counts`` reads the wgmma and TMA counts of exactly the bf16 and
-  fp16 tensor-core instantiations out of ``cuobjdump -sass`` text.
+* ``sass_counts`` reads the wgmma, TMA and wgmma-wait (WARPGROUP.DEPBAR)
+  counts of exactly the bf16 and fp16 tensor-core instantiations out of
+  ``cuobjdump -sass`` text; ``must_not_spill`` names the instantiations
+  whose ptxas spills fail the build phase.
 * The serving features' checks: the divergence rule (a greedy token may
   leave the baseline only at a near-tie of the baseline's logits) and the
   B4 launch counts expected from the dispatch shapes of chunked,
@@ -103,6 +105,7 @@ _SASS = """
         /*0110*/                   UTMALDG.4D [UR12], [UR4] ;
         /*0200*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8], RZ, !UPT ;
         /*0210*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8], R24, gsb0 ;
+        /*0220*/                   WARPGROUP.DEPBAR.LE gsb0, 0x0 ;
                 Function : _ZN55_GLOBAL__N__0_22_flash_attention_fwd_cu_016flash_fwd_kernelIfLb1ELb0ELi128EEEvNS_9FwdParamsE
         /*0100*/                   FFMA R1, R2, R3, R4 ;
                 Function : _ZN55_GLOBAL__N__0_22_flash_attention_fwd_cu_016flash_fwd_kernelI13__nv_bfloat16Lb0ELb1ELi128EEEvNS_9FwdParamsE
@@ -118,9 +121,9 @@ def test_sass_counts_reads_the_bf16_instantiations():
     # the fp32 instantiation is not counted; a bf16 one without wgmma or
     # TMA shows as zeros, which phase_sass refuses; fp16 ones and the head
     # dim (the last template argument) are read too
-    assert counts == {("bf16", True, False, 128): (2, 2),
-                      ("bf16", False, True, 128): (0, 0),
-                      ("fp16", True, False, 64): (1, 1)}
+    assert counts == {("bf16", True, False, 128): (2, 2, 1),
+                      ("bf16", False, True, 128): (0, 0, 0),
+                      ("fp16", True, False, 64): (1, 1, 0)}
     assert chip_smoke.sass_counts(_SASS, "flash_bwd_dkv_kernel") == {}
 
 
@@ -147,9 +150,10 @@ def test_sass_counts_reads_the_dq_instantiations():
     assert ("flash_attention_bwd", "flash_bwd_dq_kernel") in \
         chip_smoke.TENSOR_CORE_KERNELS
     assert chip_smoke.sass_counts(_SASS_DQ, "flash_bwd_dq_kernel") == {
-        ("bf16", False, False, 128): (2, 1), ("bf16", True, True, 64): (1, 2)}
+        ("bf16", False, False, 128): (2, 1, 0),
+        ("bf16", True, True, 64): (1, 2, 0)}
     assert chip_smoke.sass_counts(_SASS_DQ, "flash_bwd_dkv_kernel") == {
-        ("bf16", False, False, 128): (1, 0)}
+        ("bf16", False, False, 128): (1, 0, 0)}
 
 
 def _flash_case(dtype):
@@ -225,14 +229,19 @@ _SASS_NEW = """
         /*0200*/                   HGMMA.64x128x16.F32.BF16 R24, R88, gdesc[UR12], R24, gsb0 ;
                 Function : _ZN60_GLOBAL__N__0_19_sparse_attention_cu_023sparse_attention_kernelIfLi16ELi64EEEvPKT_S3_S3_PS1_PKiS6_iiiff
         /*0100*/                   FFMA R1, R2, R3, R4 ;
-                Function : _ZN66_GLOBAL__N__0_25_ragged_paged_attention_cu_024ragged_prefill_tc_kernelI13__nv_bfloat16EEvNS_13PrefillParamsE
+                Function : _ZN66_GLOBAL__N__0_25_ragged_paged_attention_cu_024ragged_prefill_tc_kernelI13__nv_bfloat16Li128EEEvNS_13PrefillParamsE
         /*0100*/                   UTMALDG.3D [UR8], [UR4] ;
         /*0110*/                   UTMALDG.2D [UR12], [UR4] ;
         /*0200*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8], RZ, !UPT ;
-                Function : _ZN66_GLOBAL__N__0_25_ragged_paged_attention_cu_024ragged_prefill_tc_kernelI6__halfEEvNS_13PrefillParamsE
+                Function : _ZN66_GLOBAL__N__0_25_ragged_paged_attention_cu_024ragged_prefill_tc_kernelI6__halfLi128EEEvNS_13PrefillParamsE
         /*0100*/                   UTMALDG.3D [UR8], [UR4] ;
         /*0200*/                   HGMMA.64x128x16.F32.F16 R24, gdesc[UR8], RZ, !UPT ;
         /*0210*/                   HGMMA.64x128x16.F32.F16 R24, R88, gdesc[UR12], R24, gsb0 ;
+                Function : _ZN66_GLOBAL__N__0_25_ragged_paged_attention_cu_024ragged_prefill_tc_kernelI13__nv_bfloat16Li64EEEvNS_13PrefillParamsE
+        /*0100*/                   UTMALDG.3D [UR8], [UR4] ;
+        /*0200*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8], RZ, !UPT ;
+        /*0210*/                   HGMMA.64x64x16.F32.BF16 R88, R152, gdesc[UR12], R88, gsb0 ;
+        /*0220*/                   WARPGROUP.DEPBAR.LE gsb0, 0x1 ;
                 Function : _ZN66_GLOBAL__N__0_25_ragged_paged_attention_cu_029ragged_paged_attention_kernelIfLi128ELi16EEEvPKT_S3_S3_PS1_PKiS6_S6_S6_S6_S6_iiiiif
         /*0100*/                   FFMA R1, R2, R3, R4 ;
 """
@@ -240,21 +249,52 @@ _SASS_NEW = """
 
 def test_sass_counts_reads_the_sparse_and_prefill_instantiations():
     """B6's tensor-core kernel by (block, head dim), B4's prefill kernel
-    by element type (bf16, fp16); their CUDA-core kernels are not
-    counted."""
+    by element type (bf16, fp16) and head dim (64, 128); their CUDA-core
+    kernels are not counted."""
     kernels = dict((k, s) for s, k in chip_smoke.TENSOR_CORE_KERNELS)
     assert kernels["sparse_tc_kernel"] == "sparse_attention"
     assert kernels["ragged_prefill_tc_kernel"] == "ragged_paged_attention"
     assert chip_smoke.sass_counts(_SASS_NEW, "sparse_tc_kernel") == {
-        (16, 64): (2, 1), (128, 128): (1, 2)}
+        (16, 64): (2, 1, 0), (128, 128): (1, 2, 0)}
     assert chip_smoke.sass_counts(_SASS_NEW, "ragged_prefill_tc_kernel") == {
-        ("bf16",): (1, 2), ("fp16",): (2, 1)}
+        ("bf16", 128): (1, 2, 0), ("fp16", 128): (2, 1, 0),
+        ("bf16", 64): (2, 1, 1)}
     # every template's expected instantiations: 4 flash forms x (bf16,
-    # fp16) x head dims (64, 128), 4 x 2 sparse, 2 (bf16, fp16)
+    # fp16) x head dims (64, 128), 4 x 2 sparse, (bf16, fp16) x (64, 128)
     assert {k: v[2] for k, v in chip_smoke.SASS_TEMPLATES.items()} == {
         "flash_fwd_kernel": 16, "flash_bwd_dq_kernel": 16,
         "flash_bwd_dkv_kernel": 16, "sparse_tc_kernel": 8,
-        "ragged_prefill_tc_kernel": 2}
+        "ragged_prefill_tc_kernel": 4}
+
+
+@pytest.mark.parametrize("kernel,want", [
+    ("void dsdecode::split_tc_kernel<__nv_bfloat16, Seqs<64>, 8>(P)", True),
+    ("void (anonymous namespace)::flash_fwd_kernel<__nv_bfloat16, true, "
+     "false, 64>((anonymous namespace)::FwdParams)", True),
+    ("void (anonymous namespace)::flash_fwd_kernel<__half, false, false, "
+     "64>((anonymous namespace)::FwdParams)", True),
+    ("void (anonymous namespace)::ragged_prefill_tc_kernel<__half, 64>("
+     "(anonymous namespace)::PrefillParams)", True),
+    ("_ZN66_GLOBAL__N__0_25_ragged_paged_attention_cu_024ragged_prefill_tc_"
+     "kernelI13__nv_bfloat16Li64EEEvNS_13PrefillParamsE", True),
+    ("_ZN55_GLOBAL__N__0_22_flash_attention_fwd_cu_016flash_fwd_kernelI6__"
+     "halfLb0ELb1ELi64EEEvNS_9FwdParamsE", True),
+    # the D = 128 bodies, the fp32 CUDA-core ones and the backward are
+    # printed, not held
+    ("void (anonymous namespace)::flash_fwd_kernel<__nv_bfloat16, false, "
+     "false, 128>((anonymous namespace)::FwdParams)", False),
+    ("void (anonymous namespace)::flash_fwd_kernel<float, false, false, "
+     "64>((anonymous namespace)::FwdParams)", False),
+    ("void (anonymous namespace)::ragged_prefill_tc_kernel<__nv_bfloat16, "
+     "128>((anonymous namespace)::PrefillParams)", False),
+    ("void (anonymous namespace)::flash_bwd_dq_kernel<__nv_bfloat16, false, "
+     "false, 64>((anonymous namespace)::DqParams)", False)])
+def test_must_not_spill_names_decode_and_d64_consumers(kernel, want):
+    """The build phase fails on a spill in the split-key decode body and
+    in every bf16 / fp16 head-dim-64 instantiation of B1's forward and
+    B4's prefill tiles (the shared D = 64 consumer), by demangled or
+    mangled name; other kernels' spills are only printed."""
+    assert chip_smoke.must_not_spill(kernel) is want
 
 
 def _paged_case(seed=11):
