@@ -11,16 +11,18 @@ bf16 weights from a seeded generator) through the port's two serving
 entry points -- ``init_inference(...).generate`` and
 ``create_serving_engine`` -- trains gpt_1b, BLOOM-1b7 and GPT-Neo-1.3B at
 full width and depth through ``initialize(...).train_batch``, runs
-``ds_bench train`` with no flags (gpt_350m, head dim 64), and calls
-``SparseSelfAttention``, checking that those runs went through the
+``ds_bench train`` with no flags (gpt_350m, head dim 64), with ``--model
+gpt_760m`` (head dim 96) and with ``--model gpt_2_7b`` (head dim 80), and
+calls ``SparseSelfAttention``, checking that those runs went through the
 kernels.  Phases:
 
   1 device   card name and power limit (nvidia-smi)
   2 build    nvcc, one process per kernel source, all at once; ptxas's
              registers and spills of every kernel, none allowed in the
-             split-key decode body or the head-dim-64 tensor-core
-             consumer (NO_SPILL); the SASS of every bf16 and fp16
-             tensor-core kernel -- the flash kernels and B4's prefill
+             split-key decode body, the head-dim-64 tensor-core
+             consumer or the head-dim-80 and -96 flash forms (NO_SPILL);
+             the SASS of every bf16 and fp16 tensor-core kernel -- the
+             flash kernels at head dims 64, 80, 96 and 128, B4's prefill
              kernel at head dims 64 and 128, B6's block-sparse kernel at
              every block and head dim -- holds wgmma (HGMMA) and TMA loads
              (UTMALDG), its wgmma waits (WARPGROUP.DEPBAR) printed
@@ -36,7 +38,10 @@ kernels.  Phases:
              past S; the flash kernels at head dim 64 too (gpt_350m's
              shape, GQA, gpt2_1_5b's 25 heads over S=1000, non-causal;
              ALiBi at BLOOM-560m's S=2048, window 256 at GPT-Neo-125M's 12
-             heads, window 100, ALiBi + window with GQA) (bf16 O, dQ, dK,
+             heads, window 100, ALiBi + window with GQA); at head dims 96
+             and 80 (gpt_760m's 16 heads and gpt_2_7b's 32 at B=8 S=1024,
+             GQA 32/8, S=1000, non-causal; ALiBi and window 256 at
+             S=2048, window 100, ALiBi + window with GQA) (bf16 O, dQ, dK,
              dV of the tensor-core kernels: one
              ulp, or within 2x SDPA's error on the same inputs, both
              readings printed); decode attention at head dims 128 and 64
@@ -76,12 +81,16 @@ kernels.  Phases:
              gpt_neo_1_3b (global / local window 256), seq 2048, micro 2,
              gas 4, bf16, AdamW; exact launches counted; ``ds_bench
              train`` with no flags (gpt_350m, 24 layers of 16 heads of 64,
-             micro 8, seq 1024: the flash kernels' D=64 forms; exact
-             launches, one train_batch profiled); a fixed batch's
+             micro 8, seq 1024: the flash kernels' D=64 forms), with
+             --model gpt_760m (24 layers of 16 heads of 96: D=96) and with
+             --model gpt_2_7b (32 layers of 32 heads of 80: D=80) (exact
+             launches, peak memory, one train_batch profiled); a fixed
+             batch's
              loss falls and one train_batch is profiled, for each; BLOOM's
              fixed batch again through the plain versions; 2 layers of
              each, and of gpt_350m, gpt2_1_5b (25 heads), BLOOM-560m and
-             GPT-Neo-125M (head dim 64), kernels vs plain (exact launches;
+             GPT-Neo-125M (head dim 64), gpt_760m and gpt_2_7b (head dims
+             96 and 80), kernels vs plain (exact launches;
              losses, grad norm, then m and the
              update parameter by parameter; GPT-Neo in fp32 too, and two
              plain engines that split the batch differently, as a witness);
@@ -90,8 +99,9 @@ kernels.  Phases:
              steps, then applied ones; exact launches), a fixed fp16 batch
              (the loss falls over the applied steps; fp16 vs bf16 wall,
              device and busy share) and 2 layers kernels vs plain from
-             2**29 (the same skip pattern and loss scales), for gpt_1b and
-             for gpt_350m (head dim 64)
+             2**29 (the same skip pattern and loss scales), for gpt_1b,
+             gpt_350m (head dim 64) and FP16_CLI_MODEL (gpt_760m, head
+             dim 96)
     ckpt     training that survives a restart, gpt_1b through
              initialize(training_data=...) at full width and depth, micro
              2 x gas 4, bf16, data through train_batch(data_iter=...): (a)
@@ -118,16 +128,18 @@ kernels.  Phases:
              version and one PyTorch library call (a yardstick only), the
              flash kernels in bf16 and fp16 and at GPT-Neo's global
              layers' shape, at head dim 64 at gpt_350m's training shape
-             (bf16, fp16), BLOOM-560m's ALiBi and GPT-Neo-125M's window, the
-             decode kernel also at Llama-2's whole context (len 4096), the
-             ragged kernel's prefill tiles at the serve run's buckets 512
-             and 1024 (beside B1's forward on the same work), B5 and B4 in
-             fp16, the verify window, the TinyLlama decode step, B5 at
-             head dim 64, the chunk at an offset at head dims 128 and 64,
-             Llama-2-70B's group-8 decode step (B4, B5; off the paths); fused
-             Adam held against its plain version over gpt_1b's 1.01 B
-             parameters; the window-256 forward must take well under the
-             ALiBi forward's time
+             (bf16, fp16), at gpt_760m's and gpt_2_7b's (head dims 96
+             and 80: bf16, fp16), BLOOM-560m's ALiBi and GPT-Neo-125M's
+             window, ALiBi at head dims 96 and 80 (printed only: off the
+             paths), the decode kernel also at Llama-2's whole context
+             (len 4096), the ragged kernel's prefill tiles at the serve
+             run's buckets 512 and 1024 (beside B1's forward on the same
+             work), B5 and B4 in fp16, the verify window, the TinyLlama
+             decode step, B5 at head dim 64, the chunk at an offset at
+             head dims 128 and 64, Llama-2-70B's group-8 decode step (B4,
+             B5; off the paths); fused Adam held against its plain
+             version over gpt_1b's 1.01 B parameters; the window-256
+             forward must take well under the ALiBi forward's time
 
 The second-to-last line of stdout is the kernels JSON, the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
@@ -433,13 +445,16 @@ def ptxas_usage(log):
 
 
 # kernels that must not spill (ptxas): the split-key decode body, whose
-# registers hold the loads in flight, and the head-dim-64 tensor-core
+# registers hold the loads in flight, the head-dim-64 tensor-core
 # consumer of B1's forward and B4's prefill tiles (wgmma_attention64.cuh:
-# S, P and O in registers while products run), by demangled or mangled
-# name
+# S, P and O in registers while products run), and the head-dim-80 and
+# -96 tensor-core forms of B1 and B2, by demangled or mangled name
 NO_SPILL = (r"split_kernel|split_tc_kernel|combine_kernel|"
             r"flash_fwd_kernel(<(__nv_bfloat16|__half), \w+, \w+, 64>|"
             r"I(13__nv_bfloat16|6__half)Lb[01]ELb[01]ELi64E)|"
+            r"flash_(fwd|bwd_dq|bwd_dkv)_kernel("
+            r"<(__nv_bfloat16|__half), \w+, \w+, (80|96)>|"
+            r"I(13__nv_bfloat16|6__half)Lb[01]ELb[01]ELi(80|96)E)|"
             r"ragged_prefill_tc_kernel(<(__nv_bfloat16|__half), 64>|"
             r"I(13__nv_bfloat16|6__half)Li64E)")
 
@@ -483,7 +498,8 @@ TENSOR_CORE_KERNELS = [("flash_attention_fwd", "flash_fwd_kernel"),
                        ("ragged_paged_attention", "ragged_prefill_tc_kernel")]
 # kernel template -> (regex of its tensor-core instantiations' template
 # arguments in the mangled name, the arguments' reading, how many it has):
-# the flash kernels' <bf16 or fp16, alibi, window, head dim 64 or 128>,
+# the flash kernels' <bf16 or fp16, alibi, window, head dim 64, 80, 96 or
+# 128>,
 # B6's <block, head dim> (bf16), and B4's prefill kernel's <bf16 or fp16,
 # head dim 64 or 128>
 _DTYPE_ARG = {"13__nv_bfloat16": "bf16", "6__half": "fp16"}
@@ -498,7 +514,7 @@ def _flash_arg(x):
 
 
 _FLASH_ARGS = (r"I(13__nv_bfloat16|6__half)Lb([01])ELb([01])ELi(\d+)E",
-               _flash_arg, 16)
+               _flash_arg, 32)
 SASS_TEMPLATES = {
     "flash_fwd_kernel": _FLASH_ARGS,
     "flash_bwd_dq_kernel": _FLASH_ARGS,
@@ -904,6 +920,18 @@ FLASH_CASES_D64 = [("gpt_350m B=8 S=1024 H16/16", 8, 1024, 16, 16, True,
                     25, 25, True, None),
                    ("non-tiling non-causal B=1 S=1000 H4/2", 1, 1000, 4, 2,
                     False, None)]
+# the same at head dims 96 and 80: gpt_760m's and gpt_2_7b's training
+# shapes (B=8, S=1024, 16 heads of 96, 32 of 80), GQA 32/8, a length that
+# does not tile, non-causal
+FLASH_CASES_D96 = [("gpt_760m B=8 S=1024 H16/16", 8, 1024, 16, 16, True,
+                    None),
+                   ("GQA B=2 S=256 H32/8", 2, 256, 32, 8, True, None),
+                   ("non-tiling B=1 S=1000 H16/16", 1, 1000, 16, 16, True,
+                    None),
+                   ("non-tiling non-causal B=1 S=1000 H4/2", 1, 1000, 4, 2,
+                    False, None)]
+FLASH_CASES_D80 = [("gpt_2_7b B=8 S=1024 H32/32", 8, 1024, 32, 32, True,
+                    None)] + FLASH_CASES_D96[1:]
 ADAM_N = 1_000_003
 # the fused Adam kernel and its plain version round the same operations
 # in the same order: they should agree to the last bit; allow 1e-6
@@ -946,7 +974,8 @@ def phase_train_kernels():
     def note(kernel, dn, e):
         errs[(kernel, dn)] = max(errs.get((kernel, dn), 0.0), e)
 
-    for D, cases in ((128, FLASH_CASES), (64, FLASH_CASES_D64)):
+    for D, cases in ((128, FLASH_CASES), (64, FLASH_CASES_D64),
+                     (96, FLASH_CASES_D96), (80, FLASH_CASES_D80)):
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
             dn = str(dtype).split(".")[-1]
             for label, B, S, H, Hkv, causal, scale in cases:
@@ -1041,11 +1070,24 @@ BIASED_CASES_D64 = [("ALiBi B=2 S=2048 H16/16 (bloom_560m)", 2, 2048, 16, 16,
                      100, None),
                     ("ALiBi+window 200 GQA B=2 S=640 H16/4", 2, 640, 16, 4,
                      True, 200, None)]
+# the same at head dims 96 and 80 (no model of the repo has ALiBi or
+# windows at these head dims; the biased forms are held all the same):
+# ALiBi at S=2048, window 256 at S=2048, a window over a ragged last tile,
+# ALiBi and a window with GQA 32/8
+BIASED_CASES_D80_96 = [("ALiBi B=2 S=2048 H16/16", 2, 2048, 16, 16, True,
+                        None, None),
+                       ("window 256 B=2 S=2048 H16/16", 2, 2048, 16, 16,
+                        False, 256, None),
+                       ("window 100 B=2 S=1000 H16/16", 2, 1000, 16, 16,
+                        False, 100, None),
+                       ("ALiBi+window 200 GQA B=2 S=640 H32/8", 2, 640, 32,
+                        8, True, 200, None)]
 
 
 def d_suffix(D):
     """The kernels-JSON suffix of a flash form's head dim: "" at 128, the
-    head dim the flash rows were first measured at, "_d64" at 64."""
+    head dim the flash rows were first measured at, else "_d<D>" ("_d64",
+    "_d80", "_d96")."""
     return "" if D == 128 else f"_d{D}"
 
 
@@ -1063,7 +1105,8 @@ def phase_biased_kernels():
     def note(kernel, dn, e):
         errs[(kernel, dn)] = max(errs.get((kernel, dn), 0.0), e)
 
-    for D, cases in ((128, BIASED_CASES), (64, BIASED_CASES_D64)):
+    for D, cases in ((128, BIASED_CASES), (64, BIASED_CASES_D64),
+                     (96, BIASED_CASES_D80_96), (80, BIASED_CASES_D80_96)):
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
             dn = str(dtype).split(".")[-1]
             for label, B, S, H, Hkv, alibi, window, scale in cases:
@@ -2345,6 +2388,13 @@ TRAIN_MODELS = {TRAIN_MODEL: (TRAIN_MODEL, TRAIN_SEQ, None),
 # steps after one warm-up; nothing cut.  The CLI's own defaults, checked
 # against its printout.
 CLI_DEFAULTS = dict(model="gpt_350m", batch=8, gas=1, seq=1024, steps=10)
+# The slices that follow: ``ds_bench train --model gpt_760m`` and
+# ``--model gpt_2_7b`` with the CLI's other defaults, at full width and
+# depth: the JAX benchmark's shapes (deepspeed_tpu/benchmarks/training.py
+# :27, :35; 0.758 B and 2.648 B parameters), nothing cut.  Each CLI run's
+# model -> the head dim of its flash forms (D=64 on the default run, D=96
+# and D=80 on these).
+CLI_HEAD_DIMS = {"gpt_350m": 64, "gpt_760m": 96, "gpt_2_7b": 80}
 # Head-dim-64 models held kernels vs plain at 2 layers of full width (their
 # own seq), random weights from a seed: name -> (run_benchmark's model, seq,
 # vocab_size).  bigscience/bloom-560m config.json: hidden_size 1024,
@@ -2362,6 +2412,11 @@ D64_MODELS = {"gpt_350m": ("gpt_350m", 1024, None),
               "gpt2_1_5b": ("gpt2_1_5b", 1024, None),
               "bloom_560m": (BLOOM_560M, 2048, 250880),
               "gpt_neo_125m": (GPT_NEO_125M, 2048, 50257)}
+# the CLI models at head dims 96 and 80, held kernels vs plain the same way
+# (2 layers of full width, seq 1024); FP16_CLI_MODEL also in fp16
+D80_96_MODELS = {"gpt_760m": ("gpt_760m", 1024, None),
+                 "gpt_2_7b": ("gpt_2_7b", 1024, None)}
+FP16_CLI_MODEL = "gpt_760m"
 TRAIN_STEPS = 4            # timed steps after run_benchmark's warm-up step
 FIXED_STEPS = 4            # steps on one fixed batch: the loss must fall
 # BLOOM's fixed-batch loss does not fall at every step; the same 4 steps
@@ -2434,7 +2489,7 @@ FP16_SCHEDULER = "WarmupDecayLR"
 
 def _train_model(name):
     """(run_benchmark's model, seq, vocab_size) of a phase-7 model."""
-    return TRAIN_MODELS[name] if name in TRAIN_MODELS else D64_MODELS[name]
+    return {**TRAIN_MODELS, **D64_MODELS, **D80_96_MODELS}[name]
 
 
 def _free():
@@ -2581,14 +2636,24 @@ def phase_train_fp16_cli():
     return out, counts, launched
 
 
-def phase_train_cli_default():
-    """This slice's main path: ``python -m deepspeed_tpu_torch.benchmarks
-    .training`` with no flags, through the CLI's ``main([])`` (its
-    printout captured), counters read around it: gpt_350m at full width
-    and depth through the D=64 flash forms.  The printout must show the
-    CLI_DEFAULTS; exact launches, plain versions 0, finite losses.  Then
-    one train_batch of the same config timed on the wall clock and one
-    profiled (a fresh engine from the same seed): the busy share."""
+def cli_label(model=None):
+    """How the smoke names a ``ds_bench train`` run: "(no flags)" or its
+    ``--model`` flag."""
+    return f"--model {model}" if model else "(no flags)"
+
+
+def phase_train_cli(model=None):
+    """A training main path as a user runs it: ``python -m
+    deepspeed_tpu_torch.benchmarks.training`` with no flags (gpt_350m,
+    the D=64 flash forms) or with ``--model model`` alone (gpt_760m,
+    gpt_2_7b: the D=96 and D=80 forms), through the CLI's ``main`` (its
+    printout captured), counters read around it, at full width and depth.
+    The printout must show the CLI's defaults (CLI_DEFAULTS, the model
+    replaced) and the model's head dim CLI_HEAD_DIMS; exact launches,
+    plain versions 0, finite losses; the peak device memory is recorded.
+    Then one train_batch of the same config timed on the wall clock and
+    one profiled (a fresh engine from the same seed, after the CLI's is
+    freed): the busy share."""
     import contextlib
     import io
     import numpy as np
@@ -2597,26 +2662,28 @@ def phase_train_cli_default():
     from deepspeed_tpu_torch.benchmarks.training import (ds_config, main,
                                                          model_config)
     from deepspeed_tpu_torch.models.transformer import CausalTransformerLM
-    d = CLI_DEFAULTS
+    d = dict(CLI_DEFAULTS, **({"model": model} if model else {}))
+    label = cli_label(model)
     cfg = model_config(d["model"], d["seq"])
     torch.cuda.reset_peak_memory_stats()
     buf = io.StringIO()
     reset_counters()
     with contextlib.redirect_stdout(buf):
-        out = main([])
+        out = main(["--model", model] if model else [])
     counts = read_counters()
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     _free()
-    phase("train", "ds_bench train (no flags): " +
+    phase("train", f"ds_bench train {label}: " +
           " | ".join(buf.getvalue().split()))
     got = {k: out[k] for k in d}
-    if got != d or out["dtype"] != "bf16" or cfg.head_dim != 64:
-        fail(f"ds_bench train's defaults {got}, {out['dtype']}, head dim "
-             f"{cfg.head_dim}: expected {d}, bf16, 64")
+    want_d = CLI_HEAD_DIMS[d["model"]]
+    if got != d or out["dtype"] != "bf16" or cfg.head_dim != want_d:
+        fail(f"ds_bench train {label}: {got}, {out['dtype']}, head dim "
+             f"{cfg.head_dim}: expected {d}, bf16, {want_d}")
     if not all(math.isfinite(x) for x in out["losses"]):
-        fail(f"ds_bench train (no flags): non-finite loss {out['losses']}")
+        fail(f"ds_bench train {label}: non-finite loss {out['losses']}")
     launched = check_train_launches(counts, cfg, d["gas"], d["steps"] + 1,
-                                    "ds_bench train (no flags)")
+                                    f"ds_bench train {label}")
     engine, *_ = deepspeed_tpu_torch.initialize(
         model=CausalTransformerLM(cfg, device="cuda").init(0),
         config=ds_config(d["batch"], d["gas"]))
@@ -3024,9 +3091,10 @@ def flash_timing(errs, B, S, H, Hkv, D, gen):
 
 def phase_train_timing(errs):
     """B1, B2 (dQ, dK/dV) and B3 at the training paths' shapes: attention
-    at gpt_1b's (B=2 S=1024 16 heads of 128 causal) and at gpt_350m's,
-    ds_bench train's default (B=8 S=1024 16 heads of 64), each in bf16 and
-    fp16 (:func:`flash_timing`); Adam over gpt_1b's parameter count (held
+    at gpt_1b's (B=2 S=1024 16 heads of 128 causal) and at the ds_bench
+    train CLI models' (B=8 S=1024): gpt_350m's 16 heads of 64, gpt_760m's
+    16 of 96, gpt_2_7b's 32 of 80, each in bf16 and fp16
+    (:func:`flash_timing`); Adam over gpt_1b's parameter count (held
     against its plain version there first, then timed with its skip flag 0
     and 1; ms-scale, so by CUDA events, eagerly): kernel, plain version,
     library call and bound.  Returns {kernel: row} for bf16 and {(kernel,
@@ -3041,9 +3109,10 @@ def phase_train_timing(errs):
     res = flash_timing(errs, TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads,
                        cfg.kv_heads, cfg.head_dim, gen)
     d = CLI_DEFAULTS
-    c350 = model_config(d["model"], d["seq"])
-    res.update(flash_timing(errs, d["batch"], d["seq"], c350.n_heads,
-                            c350.kv_heads, c350.head_dim, gen))
+    for model in CLI_HEAD_DIMS:       # gpt_350m, gpt_760m, gpt_2_7b
+        c = model_config(model, d["seq"])
+        res.update(flash_timing(errs, d["batch"], d["seq"], c.n_heads,
+                                c.kv_heads, c.head_dim, gen))
 
     # B3 over gpt_1b's flat fp32 buffers (28 bytes per parameter), first
     # held against its plain version at this n, from the same inputs
@@ -3118,6 +3187,13 @@ BIASED_TIMING = [("ALiBi (bloom_1b7)", True, None, 1.0 / math.sqrt(128)),
 BIASED_TIMING_D64 = [("ALiBi (bloom_560m)", True, None, 1.0 / 8.0, 16),
                      ("window 256 (gpt_neo_125m local)", False, 256, 1.0,
                       12)]
+# and at head dims 96 and 80 with gpt_760m's and gpt_2_7b's heads: ALiBi,
+# the biased forms' heaviest case (off every main path: no model of the
+# repo has ALiBi or windows at these head dims; printed, not in the JSON)
+BIASED_TIMING_D96 = [("ALiBi (gpt_760m heads)", True, None,
+                      1.0 / math.sqrt(96), 16)]
+BIASED_TIMING_D80 = [("ALiBi (gpt_2_7b heads)", True, None,
+                      1.0 / math.sqrt(80), 32)]
 
 
 def phase_biased_timing(errs, cases=BIASED_TIMING, D=128, seed=78):
@@ -3974,29 +4050,36 @@ def main():
               f"{[round(x, 4) for x in out['losses']]}")
         phase("train", f"launches in {TRAIN_STEPS + 1} train_batch calls of "
               f"{name}: {launched}; every other kernel 0, plain versions 0")
-    # this slice's main path: ds_bench train with no flags (gpt_350m, the
-    # flash kernels' D=64 forms); B3's launches join its row
-    cli, cli_counts, cli_launched, cli_ms, cli_dev, cli_top = \
-        phase_train_cli_default()
-    launches["fused_adam"] += cli_counts["fused_adam"]
-    phase("train", f"ds_bench train (no flags): {cli['model']}, "
-          f"{cli['n_layers']} layers, {cli['n_params'] / 1e9:.3f} B params, "
-          f"micro {cli['batch']} x gas {cli['gas']} x seq {cli['seq']}, "
-          f"{cli['dtype']}, ZeRO {cli['zero_stage']}, AdamW lr 1e-4, "
-          f"{cli['steps']} timed steps: {cli['ms_per_train_batch']:.1f} ms "
-          f"per train_batch, {cli['tokens_per_sec']:.1f} tokens/s, "
-          f"{cli['model_tflops']:.2f} TFLOP/s, MFU {cli['mfu']:.4f} of 989 "
-          f"TFLOP/s; peak memory {cli['peak_gb']:.1f} GB; losses "
-          f"{[round(x, 4) for x in cli['losses']]}")
-    phase("train", f"launches in {cli['steps'] + 1} train_batch calls of "
-          f"ds_bench train (no flags): {cli_launched}; every other kernel 0,"
-          f" plain versions 0")
-    phase("train", f"{cli['model']} one train_batch (the CLI's config): "
-          f"{cli_ms:.1f} ms wall, device {cli_dev:.1f} ms (profiler), busy "
-          f"share {cli_dev / cli_ms:.3f}")
-    for kname, k_ms in cli_top:
-        phase("train", f"  {cli['model']} device ms/train_batch {k_ms:.3f}  "
-              f"{kname[:90]}")
+    # the ds_bench train main paths: no flags (gpt_350m, the flash
+    # kernels' D=64 forms), --model gpt_760m (D=96) and --model gpt_2_7b
+    # (D=80), each counted on its own; B3's launches join its row, the
+    # flash forms' go to their head dim's rows
+    cli_counts = {}
+    for model in (None, "gpt_760m", "gpt_2_7b"):
+        label = cli_label(model)
+        cli, counts_m, cli_launched, cli_ms, cli_dev, cli_top = \
+            phase_train_cli(model)
+        cli_counts[cli["model"]] = counts_m
+        launches["fused_adam"] += counts_m["fused_adam"]
+        phase("train", f"ds_bench train {label}: {cli['model']}, "
+              f"{cli['n_layers']} layers, {cli['n_params'] / 1e9:.3f} B "
+              f"params, head dim {CLI_HEAD_DIMS[cli['model']]}, micro "
+              f"{cli['batch']} x gas {cli['gas']} x seq {cli['seq']}, "
+              f"{cli['dtype']}, ZeRO {cli['zero_stage']}, AdamW lr 1e-4, "
+              f"{cli['steps']} timed steps: {cli['ms_per_train_batch']:.1f} "
+              f"ms per train_batch, {cli['tokens_per_sec']:.1f} tokens/s, "
+              f"{cli['model_tflops']:.2f} TFLOP/s, MFU {cli['mfu']:.4f} of "
+              f"989 TFLOP/s; peak memory {cli['peak_gb']:.1f} GB; losses "
+              f"{[round(x, 4) for x in cli['losses']]}")
+        phase("train", f"launches in {cli['steps'] + 1} train_batch calls "
+              f"of ds_bench train {label}: {cli_launched}; every other "
+              f"kernel 0, plain versions 0")
+        phase("train", f"{cli['model']} one train_batch (the CLI's config):"
+              f" {cli_ms:.1f} ms wall, device {cli_dev:.1f} ms (profiler), "
+              f"busy share {cli_dev / cli_ms:.3f}")
+        for kname, k_ms in cli_top:
+            phase("train", f"  {cli['model']} device ms/train_batch "
+                  f"{k_ms:.3f}  {kname[:90]}")
     # the fp16 slice's main path, through the ds_bench train CLI
     fp16_out, fp16_counts, fp16_launched = phase_train_fp16_cli()
     for k in launches:
@@ -4051,7 +4134,8 @@ def main():
     # witness too)
     e2e_counts = {}
     for name, bf16 in [(n, True) for n in TRAIN_MODELS] + [
-            ("gpt_neo_1_3b", False)] + [(n, True) for n in D64_MODELS]:
+            ("gpt_neo_1_3b", False)] + [(n, True) for n in D64_MODELS] + [
+            (n, True) for n in D80_96_MODELS]:
         r = phase_train_e2e(name, bf16=bf16,
                             witness=name.startswith("gpt_neo"))
         if bf16:
@@ -4071,38 +4155,32 @@ def main():
             phase("e2e", f"train {r['label']} witness, plain micro 1 x gas 4"
                   f" vs plain micro 2 x gas 2: m rel L2 by step "
                   f"{[(f'{x:.3e}', n) for x, n in r['witness_rels']]}")
-    r = phase_train_e2e_fp16()
-    phase("e2e", f"train {TRAIN_MODEL} fp16, 2 layers full width, "
-          f"{FP16_E2E_STEPS} train_batch steps from loss scale "
-          f"2**{FP16_E2E_SCALE_POWER}: skipped "
-          f"{[int(x) for x in r['k']['skips']]}"
-          f" on both paths, loss scales {[int(x) for x in r['k']['scales']]}"
-          f" on both; losses kernels {[round(x, 5) for x in r['k']['losses']]}"
-          f" vs plain {[round(x, 5) for x in r['p']['losses']]} (max rel "
-          f"{r['loss_rel']:.2e}); first applied grad norm rel "
-          f"{r['norm_rel']:.2e}; tol {E2E_TRAIN_REL_TOL}")
-    phase("e2e", f"train {TRAIN_MODEL} fp16 state, worst parameter: m rel L2"
-          f" by applied step {[(f'{x:.3e}', n) for x, n in r['m_rels']]} "
-          f"(tol {E2E_M_REL_TOL}), update rel L2 {r['upd_rel'][0]:.3e} "
-          f"({r['upd_rel'][1]}; tol {E2E_UPDATE_REL_TOL})")
-    # the same fp16 check at head dim 64: gpt_350m, 2 layers of full width
-    name = CLI_DEFAULTS["model"]
-    r = phase_train_e2e_fp16(name, CLI_DEFAULTS["seq"])
-    fp16_d64_counts = r["k"]["counts"]
-    phase("e2e", f"train {name} fp16 (D=64), 2 layers full width, "
-          f"{FP16_E2E_STEPS} train_batch steps from loss scale "
-          f"2**{FP16_E2E_SCALE_POWER}: skipped "
-          f"{[int(x) for x in r['k']['skips']]}"
-          f" on both paths, loss scales {[int(x) for x in r['k']['scales']]}"
-          f" on both; losses kernels {[round(x, 5) for x in r['k']['losses']]}"
-          f" vs plain {[round(x, 5) for x in r['p']['losses']]} (max rel "
-          f"{r['loss_rel']:.2e}); first applied grad norm rel "
-          f"{r['norm_rel']:.2e}; tol {E2E_TRAIN_REL_TOL}")
-    phase("e2e", f"train {name} fp16 (D=64) state, worst parameter: m rel "
-          f"L2 by applied step "
-          f"{[(f'{x:.3e}', n) for x, n in r['m_rels']]} (tol "
-          f"{E2E_M_REL_TOL}), update rel L2 {r['upd_rel'][0]:.3e} "
-          f"({r['upd_rel'][1]}; tol {E2E_UPDATE_REL_TOL})")
+    # fp16, 2 layers of full width: gpt_1b (D=128), gpt_350m (D=64) and
+    # FP16_CLI_MODEL (its CLI head dim); the fp16 JSON rows take their
+    # kernel engines' launches
+    fp16_e2e_counts = {}
+    for name, seq, label in (
+            (TRAIN_MODEL, TRAIN_SEQ, TRAIN_MODEL),
+            (CLI_DEFAULTS["model"], CLI_DEFAULTS["seq"],
+             f"{CLI_DEFAULTS['model']} (D=64)"),
+            (FP16_CLI_MODEL, D80_96_MODELS[FP16_CLI_MODEL][1],
+             f"{FP16_CLI_MODEL} (D={CLI_HEAD_DIMS[FP16_CLI_MODEL]})")):
+        r = phase_train_e2e_fp16(name, seq)
+        fp16_e2e_counts[name] = r["k"]["counts"]
+        phase("e2e", f"train {label} fp16, 2 layers full width, "
+              f"{FP16_E2E_STEPS} train_batch steps from loss scale "
+              f"2**{FP16_E2E_SCALE_POWER}: skipped "
+              f"{[int(x) for x in r['k']['skips']]} on both paths, loss "
+              f"scales {[int(x) for x in r['k']['scales']]} on both; losses "
+              f"kernels {[round(x, 5) for x in r['k']['losses']]} vs plain "
+              f"{[round(x, 5) for x in r['p']['losses']]} (max rel "
+              f"{r['loss_rel']:.2e}); first applied grad norm rel "
+              f"{r['norm_rel']:.2e}; tol {E2E_TRAIN_REL_TOL}")
+        phase("e2e", f"train {label} fp16 state, worst parameter: m rel L2 "
+              f"by applied step "
+              f"{[(f'{x:.3e}', n) for x, n in r['m_rels']]} (tol "
+              f"{E2E_M_REL_TOL}), update rel L2 {r['upd_rel'][0]:.3e} "
+              f"({r['upd_rel'][1]}; tol {E2E_UPDATE_REL_TOL})")
 
     # ---- phase ckpt: save, a new process resumes, serve the tag --------
     from deepspeed_tpu_torch.benchmarks.training import model_config
@@ -4134,6 +4212,8 @@ def main():
     timing.update(phase_train_timing(errs))
     biased = phase_biased_timing(errs)
     biased_d64 = phase_biased_timing(errs, BIASED_TIMING_D64, D=64, seed=79)
+    phase_biased_timing(errs, BIASED_TIMING_D96, D=96, seed=80)
+    phase_biased_timing(errs, BIASED_TIMING_D80, D=80, seed=81)
     sparse = phase_sparse_timing(sparse_err)
     alibi_label, window_label = (b[0] for b in BIASED_TIMING[:2])
     ratio = (biased[("flash_attention_fwd_biased", window_label)]["ms"] /
@@ -4203,18 +4283,24 @@ def main():
         meta[name] = meta["decode_attention" if name.startswith("decode")
                           else "ragged_paged_attention"]
         launches[name] = n
-    # this slice's D=64 forms, rows of their own: the unbiased ones with the
-    # launches of ds_bench train's default run, their fp16 forms with those
-    # of the fp16 2-layer run's kernel engine, the biased ones with those of
-    # the BLOOM-560m and GPT-Neo-125M 2-layer runs' kernel engines
+    # the D=64, D=96 and D=80 forms, rows of their own: the unbiased ones
+    # with the launches of their ds_bench train run (no flags, --model
+    # gpt_760m, --model gpt_2_7b), the fp16 forms at D=64 and at
+    # FP16_CLI_MODEL's head dim with those of their fp16 2-layer run's
+    # kernel engine, the biased D=64 ones with those of the BLOOM-560m and
+    # GPT-Neo-125M 2-layer runs' kernel engines
     bloom_label = BIASED_TIMING_D64[0][0]
+    fp16_models = (CLI_DEFAULTS["model"], FP16_CLI_MODEL)
     for base in ("flash_attention_fwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv"):
-        name = base + d_suffix(64)
-        meta[name] = meta[f"{name}_fp16"] = meta[base]
-        launches[name] = cli_counts[base]
-        timing[f"{name}_fp16"] = timing[(name, "fp16")]
-        launches[f"{name}_fp16"] = fp16_d64_counts[base]
+        for model, D in CLI_HEAD_DIMS.items():
+            name = base + d_suffix(D)
+            meta[name] = meta[base]
+            launches[name] = cli_counts[model][base]
+            if model in fp16_models:
+                meta[f"{name}_fp16"] = meta[base]
+                timing[f"{name}_fp16"] = timing[(name, "fp16")]
+                launches[f"{name}_fp16"] = fp16_e2e_counts[model][base]
         biased_name = base + "_biased"
         meta[biased_name + d_suffix(64)] = meta[biased_name]
         timing[biased_name + d_suffix(64)] = biased_d64[

@@ -297,8 +297,9 @@ def check_servable(c: TransformerConfig, device=None):
 
 def check_trainable(c: TransformerConfig, device=None):
     """On the card, raise ``NotImplementedError`` naming A16 for a head dim
-    the flash kernels (B1, B2) do not take; on the CPU the plain versions
-    train every head dim."""
+    the flash kernels (B1, B2) do not take -- they take 64, 80, 96 and 128,
+    where serving takes 64 and 128 (:func:`check_servable`); on the CPU
+    the plain versions train every head dim."""
     if _on_card(device):
         check_head_dim("training on the card", c.head_dim, FLASH_HEAD_DIMS)
 

@@ -90,6 +90,16 @@
 // does 25.8 GFLOP on 85 MB and dK/dV 34.4 GFLOP on 102 MB: both bound by
 // the tensor cores (26.1 and 34.7 us).
 //
+// Head dims 80 (gpt_2_7b) and 96 (gpt_760m): the same bodies again, with
+// D = 128's tiles and stages.  A tile is two 64-column TMA boxes whose
+// columns past D TMA fills with zeros without reading HBM; the score
+// products walk D / 16 slices (5 or 6), and the products whose N is D are
+// m64n80 or m64n96, reading only the D columns of dO, Q or K: dQ takes 40
+// or 48 fp32 registers a thread, dK + dV 80 or 96.  At gpt_2_7b's training
+// shape (B=8, S=1024, 32 heads of 80, causal) dQ does 64.4 GFLOP and dK/dV
+// 85.9, at gpt_760m's (16 heads of 96) 38.7 and 51.5: all bound by the
+// tensor cores (65.1 and 86.9 us; 39.1 and 52.1 us).
+//
 // fp32 dQ and dK/dV run on the CUDA cores (the first kernels,
 // flash_tile.cuh): 256 threads, fp32 products; the dQ block walks key
 // tiles up to its causal frontier.  fp32 stays there because the fp32
@@ -237,11 +247,13 @@ constexpr int kThreads = 384;                // 2 consumer + 1 producer WG
 constexpr int kQBox = BM * hopper::kBoxCols * 2;    // one 64-column box
 constexpr int kKvBox = BN * hopper::kBoxCols * 2;
 // The shared-memory plan at head dim D: Q, dO, then kStages x (K, V),
-// then the barriers: Q/dO's, full[], empty[]
+// then the barriers: Q/dO's, full[], empty[].  Tiles are whole 64-column
+// boxes (D = 80 and 96 take D = 128's).
 template <int D>
 struct Smem {
-  static constexpr int kQTile = BM * D * 2;    // 32 KB at D = 128
-  static constexpr int kKvTile = BN * D * 2;
+  // 32 and 16 KB, half that at D = 64
+  static constexpr int kQTile = BM * hopper::box_cols<D>() * 2;
+  static constexpr int kKvTile = BN * hopper::box_cols<D>() * 2;
   static constexpr int kStages = D == 64 ? 4 : 2;
   static constexpr int kStageOffset = 2 * kQTile;
   static constexpr int kBarOffset = kStageOffset + kStages * 2 * kKvTile;
@@ -526,11 +538,13 @@ constexpr int kThreads = 384;                // 2 consumer + 1 producer WG
 constexpr int kKvBox = BN * hopper::kBoxCols * 2;   // one 64-column box
 constexpr int kQBox = BM * hopper::kBoxCols * 2;
 // The shared-memory plan at head dim D: K, V, then kStages x (Q, dO),
-// kStages x (lse, delta) rows, the barriers: K/V's, full[], empty[]
+// kStages x (lse, delta) rows, the barriers: K/V's, full[], empty[].
+// Tiles are whole 64-column boxes (D = 80 and 96 take D = 128's).
 template <int D>
 struct Smem {
-  static constexpr int kKvTile = BN * D * 2;   // 32 KB at D = 128
-  static constexpr int kQTile = BM * D * 2;    // 16 KB at D = 128
+  // 32 and 16 KB, half that at D = 64
+  static constexpr int kKvTile = BN * hopper::box_cols<D>() * 2;
+  static constexpr int kQTile = BM * hopper::box_cols<D>() * 2;
   static constexpr int kStages = D == 64 ? 4 : 2;
   static constexpr int kStageOffset = 2 * kKvTile;
   static constexpr int kRowsOffset = kStageOffset + kStages * 2 * kQTile;
@@ -824,8 +838,8 @@ int launch_dkv_tensor_cores(DkvParams& p, int B, cudaStream_t stream) {
 
 // q/dout/dq: [B, S, H, D]; k/v: [B, S, Hkv, D] (one dtype: 0 = float32,
 // 1 = bfloat16, 2 = float16); lse/delta: fp32 [B, H, S].  slopes: fp32 [H]
-// ALiBi slopes or null; window: the sliding window, <= 0 for none.  D is 64
-// or 128.  Return cudaGetLastError().
+// ALiBi slopes or null; window: the sliding window, <= 0 for none.  D is 64,
+// 80, 96 or 128.  Return cudaGetLastError().
 extern "C" int ds_flash_attention_bwd_dq(const void* q, const void* k,
                                          const void* v, const void* dout,
                                          const void* lse, const void* delta,

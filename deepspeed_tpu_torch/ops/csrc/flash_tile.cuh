@@ -6,8 +6,9 @@
 // Layout.  q, o, dO: [B, S, H, D]; k, v: [B, S, Hkv, D], contiguous, so row
 // s of head h starts at ((b * S + s) * H + h) * D and rows are H * D apart.
 // Query head h reads kv head h / (H / Hkv) (GQA).  D (the head dim) is a
-// template argument, 64 or 128.  The biased kernels read one fp32 ALiBi
-// slope per QUERY head, slopes[h].
+// template argument, 64, 80, 96 or 128 (a thread's D / 16 output columns:
+// 4, 5, 6 or 8).  The biased kernels read one fp32 ALiBi slope per QUERY
+// head, slopes[h].
 //
 // Tiles.  64 query rows by 64 keys.  A [64][D] tile is stored with pitch
 // D + 1 (pitch<D>) and a [64][64] tile with pitch 65, so the column walks
@@ -36,7 +37,8 @@ constexpr int PT = BK + 1;     // pitch of [BQ][BK] tiles
 // pitch of [64][D] tiles
 template <int D>
 __host__ __device__ constexpr int pitch() {
-  static_assert(D == 64 || D == 128, "the flash kernels take D 64 or 128");
+  static_assert(D == 64 || D == 80 || D == 96 || D == 128,
+                "the flash kernels take D 64, 80, 96 or 128");
   return D + 1;
 }
 static_assert(BQ == BK, "the dK/dV kernel starts its q loop at its k tile");
@@ -221,17 +223,20 @@ inline int with_bias(const void* slopes, int window, Launch&& launch) {
 // Checks shared by the host entries; 0 when the launch may go ahead.
 inline int check_shape(int B, int S, int H, int Hkv, int D) {
   if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0 ||
-      (D != 64 && D != 128) || (long long)B * H > 65535)
+      (D != 64 && D != 80 && D != 96 && D != 128) ||
+      (long long)B * H > 65535)
     return (int)cudaErrorInvalidValue;
   return 0;
 }
 
 // Runs ``launch(d)`` with d a std::integral_constant of the head dim D
-// (64 or 128): the instantiation a host entry needs; check_shape has
-// refused every other D.
+// (64, 80, 96 or 128): the instantiation a host entry needs; check_shape
+// has refused every other D.
 template <typename Launch>
 inline int with_head_dim(int D, Launch&& launch) {
   if (D == 64) return launch(std::integral_constant<int, 64>{});
+  if (D == 80) return launch(std::integral_constant<int, 80>{});
+  if (D == 96) return launch(std::integral_constant<int, 96>{});
   return launch(std::integral_constant<int, 128>{});
 }
 

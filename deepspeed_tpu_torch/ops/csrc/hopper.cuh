@@ -15,20 +15,24 @@
 // differ (is_f16, pack2, map_type).
 //
 // Shared-memory tiles.  A tile of R rows by D columns (one head's rows of
-// a [B, S, Hx, D] tensor, D 64 or 128) is loaded by TMA as D / 64 boxes of
-// R rows by 64 columns, each R * 128 bytes, with the 128-byte swizzle: the
-// 16-byte chunk c of row r lands at chunk c ^ (r % 8) of that row, so an
-// 8-row group is one 1024-byte swizzle atom.  Tiles start on 1024-byte
-// boundaries, where the swizzle pattern of TMA and of wgmma line up.  The
-// same tile feeds wgmma two ways:
+// a [B, S, Hx, D] tensor, D 64, 80, 96 or 128) is loaded by TMA as
+// boxes<D>() boxes of R rows by 64 columns, each R * 128 bytes, with the
+// 128-byte swizzle: the 16-byte chunk c of row r lands at chunk c ^ (r % 8)
+// of that row, so an 8-row group is one 1024-byte swizzle atom.  At D = 80
+// and 96 the second box reaches past D: TMA reads only the D columns that
+// exist and fills the rest of the box with zeros, which no product reads.
+// Tiles start on 1024-byte boundaries, where the swizzle pattern of TMA and
+// of wgmma line up.  The same tile feeds wgmma two ways:
 //   K-major (the D columns are the product's depth, e.g. K in Q K^T):
 //     desc_kmajor(tile + kslice(k, box)) is the k-th 16-column slice, k <
-//     D / 16: eight slices over two boxes at D = 128, four over one at
-//     D = 64 (``box`` = R * 128, the bytes of one box);
+//     D / 16: slices 0-3 in the first box, 4 and up in the second (eight
+//     at D = 128, six at 96, five at 80, four at 64; ``box`` = R * 128, the
+//     bytes of one box);
 //   MN-major (the rows are the depth, e.g. V in P V): desc_mnmajor(tile +
-//     k * 2048, box) is the k-th 16-row slice, all D / 64 boxes, with the
-//     transpose bit set on the instruction; D is then the product's N
-//     (wgmma_rs<E, D>: m64n128 at D = 128, m64n64 at D = 64).
+//     k * 2048, box) is the k-th 16-row slice, its columns across the
+//     boxes, with the transpose bit set on the instruction; D is then the
+//     product's N (wgmma_rs<E, D>: m64nD, the first 64 columns in the first
+//     box's swizzle atoms, the rest in the second's).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the driver is reached at run
@@ -44,6 +48,19 @@ namespace hopper {
 
 constexpr int kBoxCols = 64;             // columns of a TMA box (128 bytes)
 constexpr int kAtomBytes = 1024;         // 8 rows of 128 bytes
+
+// The 64-column boxes of a D-column tile, and the columns they hold: a
+// tile's shared-memory size is R * box_cols<D>() * 2 bytes.
+template <int D>
+__host__ __device__ constexpr int boxes() {
+  static_assert(D == 64 || D == 80 || D == 96 || D == 128,
+                "the tensor-core tiles take head dims 64, 80, 96 and 128");
+  return (D + kBoxCols - 1) / kBoxCols;
+}
+template <int D>
+__host__ __device__ constexpr int box_cols() {
+  return boxes<D>() * kBoxCols;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -131,15 +148,15 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
 }
 
 // Rows [r0, r0 + R) of head hx, batch b, of the tensor behind ``map`` (made
-// by make_head_map with box rows R and head dim D) -> the D / 64 boxes of
-// 64 columns at dst, dst + R * 128, ...
+// by make_head_map with box rows R and head dim D) -> the boxes<D>() boxes
+// of 64 columns at dst, dst + R * 128, ...; columns past D read as zeros,
+// and every box's full R * 128 bytes complete the transaction on ``bar``.
 template <int D>
 __device__ __forceinline__ void tma_load_rows(void* dst, const CUtensorMap* map,
                                               uint64_t* bar, int rows, int hx,
                                               int r0, int b) {
-  static_assert(D % kBoxCols == 0, "a tile is whole 64-column boxes");
 #pragma unroll
-  for (int c = 0; c < D / kBoxCols; ++c)
+  for (int c = 0; c < boxes<D>(); ++c)
     tma_load_4d(static_cast<char*>(dst) + c * rows * kBoxCols * 2, map, bar,
                 c * kBoxCols, hx, r0, b);
 }
@@ -182,7 +199,7 @@ __device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr,
 
 // Byte offset of the k-th 16-column depth slice of a K-major tile whose
 // 64-column boxes are ``box`` bytes long: slices 0-3 lie in the first box,
-// 4-7 in the second (D = 128 only; a D = 64 tile walks k < 4).
+// 4-7 in the second (a tile of D columns walks k < D / 16).
 __device__ __forceinline__ uint32_t kslice(int k, uint32_t box) {
   return (k / 4) * box + (k % 4) * 32;
 }
@@ -321,6 +338,53 @@ __host__ __device__ constexpr bool is_f16() {
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])               \
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1))
 
+#define DS_WGMMA_RS_N80(TY)                                              \
+  asm volatile(                                                          \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"                       \
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32." TY "." TY " {"       \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                 \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                           \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                         \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                         \
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "                        \
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"                      \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                  \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                  \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),              \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),              \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),              \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),              \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),              \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),              \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])               \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1))
+
+#define DS_WGMMA_RS_N96(TY)                                              \
+  asm volatile(                                                          \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"                       \
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32." TY "." TY " {"       \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                 \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                           \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                         \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                         \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                         \
+      "%40, %41, %42, %43, %44, %45, %46, %47}, "                        \
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"                      \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                  \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                  \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),              \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),              \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),              \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),              \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),              \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),              \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),              \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),              \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])               \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1))
+
 // D[64 x 128] (+)= A[64 x 16] * B[16 x 128], A and B K-major in shared
 // memory; D is zeroed first unless ``accumulate``.
 template <typename E>
@@ -361,21 +425,36 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
 }
 
 // D[64 x N] += A[64 x 16] * B[16 x N] with B MN-major, N the head dim
-// (64 or 128): the products whose N is D (O += P V, dQ += dS K, dV += P^T
-// dO, dK += dS^T Q).
+// (64, 80, 96 or 128): the products whose N is D (O += P V, dQ += dS K,
+// dV += P^T dO, dK += dS^T Q).  At N = 80 and 96, B's columns 64 and up
+// are the first 16 or 32 of the second box's atoms (the descriptor's
+// leading offset, ``box``, reaches them as at N = 128); its zero columns
+// past N are not read.
 template <typename E, int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t desc_b) {
-  static_assert(N == 64 || N == 128, "wgmma_rs takes N = 64 or 128");
-  if constexpr (N == 128) wgmma_rs_n128<E>(d, a, desc_b);
-  else wgmma_rs_n64<E>(d, a, desc_b);
+  static_assert(N == 64 || N == 80 || N == 96 || N == 128,
+                "wgmma_rs takes N = 64, 80, 96 or 128");
+  if constexpr (N == 128) {
+    wgmma_rs_n128<E>(d, a, desc_b);
+  } else if constexpr (N == 96) {
+    if constexpr (is_f16<E>()) DS_WGMMA_RS_N96("f16");
+    else DS_WGMMA_RS_N96("bf16");
+  } else if constexpr (N == 80) {
+    if constexpr (is_f16<E>()) DS_WGMMA_RS_N80("f16");
+    else DS_WGMMA_RS_N80("bf16");
+  } else {
+    wgmma_rs_n64<E>(d, a, desc_b);
+  }
 }
 
 #undef DS_WGMMA_SS_N128
 #undef DS_WGMMA_SS_N64
 #undef DS_WGMMA_RS_N128
 #undef DS_WGMMA_RS_N64
+#undef DS_WGMMA_RS_N96
+#undef DS_WGMMA_RS_N80
 
 // ---- accumulator layout ----------------------------------------------------
 
@@ -484,9 +563,10 @@ inline int make_map(CUtensorMap* map, const void* ptr, int rank,
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Tensor map of a contiguous E [B, S, Hx, D] tensor (D 64 or 128) as 4-d
-// (column, head, row, batch), boxes of ``rows`` rows of one head by 64
-// columns.  Rows at or past S read as zeros.
+// Tensor map of a contiguous E [B, S, Hx, D] tensor (D 64, 80, 96 or 128:
+// rows of a multiple of 16 bytes) as 4-d (column, head, row, batch), boxes
+// of ``rows`` rows of one head by 64 columns.  Rows at or past S, and
+// columns at or past D, read as zeros.
 template <typename E>
 inline int make_head_map(CUtensorMap* map, const void* ptr, int B, int S,
                          int Hx, int rows, int D) {

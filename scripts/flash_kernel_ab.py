@@ -3,7 +3,7 @@
 card, in one process.
 
     python3 scripts/flash_kernel_ab.py VARIANTS.json [--out DIR]
-        [--head-dim 64]
+        [--head-dim 64 [80 96 ...]]
 
 VARIANTS.json maps a variant's name to ``{"dir": <sources>, "edits":
 {<file>: [[regex, replacement], ...]}}``: the variant is a copy of the
@@ -19,11 +19,13 @@ ALiBi (relative L2 of O, dQ, dK, dV; max LSE error) -- and device ms by
 CUDA-graph replay over 4 rotating input sets at the training paths'
 shapes (B=2, 16 heads of 128, causal: S=1024; S=2048 with ALiBi, window
 256, and unscaled; with ``--head-dim 64``: gpt_350m's B=8 S=1024, 16
-heads, and B=2 S=2048 with ALiBi and with window 256, 16 heads of 64);
-the first variant is timed again at the end, so drift shows.  Last, the
-HGMMA and WARPGROUP.DEPBAR counts of each variant's bf16 kernels at that
-head dim (a DEPBAR after every HGMMA means ptxas serialised the wgmma
-pipeline).
+heads, and B=2 S=2048 with ALiBi and with window 256, 16 heads of 64;
+``--head-dim 96``: gpt_760m's B=8 S=1024, 16 heads; ``--head-dim 80``:
+gpt_2_7b's B=8 S=1024, 32 heads); the first variant is timed again at the
+end, so drift shows.  Several head dims run one after the other on one
+build.  Last, the HGMMA and WARPGROUP.DEPBAR counts of each variant's bf16
+kernels at those head dims (a DEPBAR after every HGMMA means ptxas
+serialised the wgmma pipeline).
 
 To time a change against its parent commit in one call, unpack the
 parent's sources into the gitignored ``.tmp/`` and name both:
@@ -57,7 +59,8 @@ CASES = [  # (label, B, S, H, Hkv, causal, ALiBi, window, scale)
     ("ALiBi+window 200 GQA S=640", 2, 640, 32, 8, True, True, 200, None),
     ("ALiBi S=2048", 1, 2048, 4, 4, True, True, None, None),
     ("window 256 scale 1 S=2048", 1, 2048, 4, 4, True, False, 256, 1.0)]
-SHAPES = {  # head dim -> [(label, B, S, ALiBi, window, scale)], 16 heads
+SHAPES = {  # head dim -> [(label, B, S, ALiBi, window, scale[, heads])],
+    # 16 heads unless a shape names its own
     128: [("S=1024", 2, 1024, False, None, None),
           ("ALiBi S=2048", 2, 2048, True, None, None),
           ("window 256 S=2048", 2, 2048, False, 256, 1.0),
@@ -67,7 +70,9 @@ SHAPES = {  # head dim -> [(label, B, S, ALiBi, window, scale)], 16 heads
          ("window 256 S=2048", 2, 2048, False, 256, 1.0),
          # blocks of up to 64 key tiles: the cost of a tile apart from a
          # block's start and end
-         ("long B=1 S=8192", 1, 8192, False, None, None)]}
+         ("long B=1 S=8192", 1, 8192, False, None, None)],
+    96: [("gpt_760m B=8 S=1024", 8, 1024, False, None, None)],
+    80: [("gpt_2_7b B=8 S=1024 H32", 8, 1024, False, None, None, 32)]}
 
 
 def build(variants, out, sources=SOURCES):
@@ -140,18 +145,12 @@ def main():
     ap.add_argument("--out", default=os.path.join(
         REPO, "deepspeed_tpu_torch", "_build", "ab"))
     ap.add_argument("--head-dim", type=int, choices=sorted(SHAPES),
-                    default=128)
+                    nargs="+", default=[128])
     args = ap.parse_args()
-    D = args.head_dim
     sys.path.insert(0, REPO)
     import torch
-    from chip_smoke import graph_ms
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
-    from deepspeed_tpu_torch.models.transformer import alibi_slopes
-    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
-    from deepspeed_tpu_torch.ops.flash_attention import (
-        flash_attention_bwd_plain, flash_attention_fwd_plain)
     with open(args.variants) as fh:
         variants = json.load(fh)
     os.makedirs(args.out, exist_ok=True)
@@ -159,6 +158,20 @@ def main():
     libs = build(variants, args.out)
     print(f"built in {time.time() - t0:.1f} s", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(1)
+    for D in args.head_dim:
+        run_head_dim(D, variants, libs, gen, args.out)
+    print(f"done in {time.time() - t0:.1f} s")
+
+
+def run_head_dim(D, variants, libs, gen, out):
+    """The checks, timings and SASS counts of every variant at head dim
+    ``D``."""
+    import torch
+    from chip_smoke import graph_ms
+    from deepspeed_tpu_torch.models.transformer import alibi_slopes
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    from deepspeed_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_plain, flash_attention_fwd_plain)
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(
@@ -188,15 +201,16 @@ def main():
             bias = kw if fa.is_biased(**kw) else {}
             dq, dk, dv = fa.flash_attention_bwd_cuda(q, k, v, o, lse, dout,
                                                      scale, causal, **bias)
-            print(f"{name} {label}: O rel L2 {rel(o, want[0]):.2e}, LSE max "
-                  f"err {(lse - want[1]).abs().max().item():.2e}, dQ "
+            print(f"{name} D={D} {label}: O rel L2 {rel(o, want[0]):.2e}, "
+                  f"LSE max err {(lse - want[1]).abs().max().item():.2e}, dQ "
                   f"{rel(dq, want[2]):.2e}, dK {rel(dk, want[3]):.2e}, dV "
                   f"{rel(dv, want[4]):.2e}", flush=True)
     c, shapes = 4, []
-    for label, B, S, alibi, window, scale in SHAPES[D]:
-        x = [torch.randn((c, B, S, 16, D), generator=gen,
+    for label, B, S, alibi, window, scale, *heads in SHAPES[D]:
+        H = heads[0] if heads else 16
+        x = [torch.randn((c, B, S, H, D), generator=gen,
                          device="cuda").to(torch.bfloat16) for _ in range(4)]
-        kw = dict(alibi_slopes=alibi_slopes(16).cuda() if alibi else None,
+        kw = dict(alibi_slopes=alibi_slopes(H).cuda() if alibi else None,
                   window=window)
         shapes.append((label, x, scale or 1 / math.sqrt(D), kw))
     for name in list(variants) + list(variants)[:1]:
@@ -215,12 +229,12 @@ def main():
                                           delta[i], scale, True), c)
             row.append(f"{label} fwd {f_ms:.4f} dQ {q_ms:.4f} dK/dV "
                        f"{d_ms:.4f}")
-        print(f"device ms {name}: " + " | ".join(row), flush=True)
+        print(f"device ms {name} D={D}: " + " | ".join(row), flush=True)
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for name in variants:
         for src in SOURCES:
             sass = subprocess.run(
-                [tool, "-sass", os.path.join(args.out, name, f"lib{src}.so")],
+                [tool, "-sass", os.path.join(out, name, f"lib{src}.so")],
                 capture_output=True, text=True).stdout
             for part in sass.split("Function : ")[1:]:
                 head = part.split("\n", 1)[0]
@@ -231,7 +245,6 @@ def main():
                           f"{m.group(2)}, window={m.group(3)}, D={D}>: HGMMA "
                           f"{len(re.findall(r'HGMMA', part))}, DEPBAR "
                           f"{len(re.findall(r'WARPGROUP.DEPBAR', part))}")
-    print(f"done in {time.time() - t0:.1f} s")
 
 
 if __name__ == "__main__":

@@ -8,8 +8,9 @@ through ``flash_attention(..., interpret=True)``; a sequence length that
 does not tile against ``reference_attention``.  The biased variants (ALiBi
 slopes, sliding windows 32 / 100 / 0, both together, with GQA) the same
 way, at S = 128 and 256, plus ``alibi_window_bias`` against the JAX one.
-The plain forward and backward, biased or not, run at head dims 32 and
-64 (the flash kernels' D=64 forms compute what these do).  fp32 inputs
+The plain forward and backward, biased or not, run at head dims 32, 64,
+80 and 96 (the flash kernels' D=64, D=80 and D=96 forms compute what
+these do; 80 and 96 are gpt_2_7b's and gpt_760m's).  fp32 inputs
 from numpy; rtol = atol = 1e-5 (forward) and 1e-4
 (gradients): the same arithmetic, summed in other orders.  The CUDA
 kernels themselves are held against these plain versions on the card by
@@ -43,7 +44,7 @@ FWD_TOL = dict(rtol=1e-5, atol=1e-5)
 BWD_TOL = dict(rtol=1e-4, atol=1e-4)
 B, S, D, BLOCK = 2, 128, 32, 64
 HEADS = {"mha": (4, 4), "gqa": (4, 2)}
-HEAD_DIMS = (32, 64)
+HEAD_DIMS = (32, 64, 80, 96)
 
 
 def _inputs(H, Hkv, S=S, seed=0, D=D):
@@ -263,15 +264,15 @@ def test_backend_names():
     "flash_attention_bwd_dq_cuda", "flash_attention_bwd_dq_biased_cuda",
     "flash_attention_bwd_dkv_cuda", "flash_attention_bwd_dkv_biased_cuda"])
 def test_flash_wrappers_refuse_head_dim_64(wrapper):
-    """The flash kernels are built for head dims 64 and 128 (64 was the
-    one this test saw refused before its forms were ported); every other
-    head dim -- gpt_760m's 96, gpt_2_7b's 80, a Gemma-style 256 -- is
-    refused before anything else, naming ROADMAP A16, and launches
+    """The flash kernels are built for head dims 64, 80, 96 and 128 (64,
+    then 80 and 96, were the ones this test saw refused before their forms
+    were ported); every other head dim -- a Gemma-style 256, an odd 48 --
+    is refused before anything else, naming ROADMAP A16, and launches
     nothing."""
-    assert flash_cuda.FLASH_HEAD_DIMS == (64, 128)
+    assert flash_cuda.FLASH_HEAD_DIMS == (64, 80, 96, 128)
     fn = getattr(flash_cuda, wrapper)
     before = fn.launches
-    for head_dim in (80, 96, 256):
+    for head_dim in (256, 48):
         q = torch.zeros(1, 64, 4, head_dim)
         k = torch.zeros(1, 64, 2, head_dim)
         lse = torch.zeros(1, 4, 64)
@@ -283,14 +284,16 @@ def test_flash_wrappers_refuse_head_dim_64(wrapper):
     assert fn.launches == before
 
 
+@pytest.mark.parametrize("head_dim", [64, 80, 96])
 @pytest.mark.parametrize("wrapper", [
     "flash_attention_fwd_cuda", "flash_attention_bwd_dq_cuda",
     "flash_attention_bwd_dkv_cuda"])
-def test_flash_wrappers_take_head_dim_64_to_the_device_check(wrapper):
-    """Head dim 64 passes the head-dim check: a CPU tensor is then refused
-    only for its device (the kernels run on the card)."""
-    q = torch.zeros(1, 64, 4, 64)
-    k = torch.zeros(1, 64, 2, 64)
+def test_flash_wrappers_take_head_dim_64_to_the_device_check(wrapper,
+                                                             head_dim):
+    """Head dims 64, 80 and 96 pass the head-dim check: a CPU tensor is
+    then refused only for its device (the kernels run on the card)."""
+    q = torch.zeros(1, 64, 4, head_dim)
+    k = torch.zeros(1, 64, 2, head_dim)
     lse = torch.zeros(1, 4, 64)
     args = ((q, k, k, 0.125) if "fwd" in wrapper
             else (q, k, k, q, lse, lse, 0.125))

@@ -1,13 +1,15 @@
 """Head dims no kernel takes are refused at construction on the card.
 
-The flash kernels (B1, B2) and the serving kernels (B4, B5) take head
-dims 64 and 128, the block-sparse kernel (B6) too.  A model of any other
-head dim -- gpt_760m's 96, gpt_2_7b's 80, a Gemma-style 256 -- raises
-``NotImplementedError`` naming ROADMAP A16 where it is built for the card:
-``initialize`` (which ``ds_bench train``'s ``run_benchmark`` reaches),
-``init_inference`` and ``create_serving_engine``; ``SparseSelfAttention``
-learns the head dim only at its call and raises there.  On the CPU the
-same model runs through the plain versions.  The card path is reached
+The flash kernels (B1, B2) take head dims 64, 80, 96 and 128; the serving
+kernels (B4, B5) and the block-sparse kernel (B6) take 64 and 128.  So
+gpt_760m (96) and gpt_2_7b (80) train on the card but are not served
+there, and a Gemma-style 256 does neither.  A model of a head dim its
+path's kernels do not take raises ``NotImplementedError`` naming ROADMAP
+A16 where it is built for the card: ``initialize`` (which ``ds_bench
+train``'s ``run_benchmark`` reaches), ``init_inference`` and
+``create_serving_engine``; ``SparseSelfAttention`` learns the head dim
+only at its call and raises there.  On the CPU the same model runs
+through the plain versions.  The card path is reached
 without a card: a device of "cuda" is checked before anything is put on
 it (the serving engine through a stub model whose device is "cuda", as
 ``tests/test_torch_fp16_training.py`` does).
@@ -47,13 +49,15 @@ def _ids(shape, seed=0):
 
 @pytest.mark.parametrize("head_dim", [64, 128, 80, 96, 256])
 def test_card_checks_by_head_dim(head_dim):
-    """64 and 128 pass both checks on the card; 80, 96 and 256 raise
-    naming A16 there and pass on the CPU."""
+    """64 and 128 pass both checks on the card; 80 and 96 pass training's
+    and raise naming A16 at serving's; 256 raises at both.  Every head
+    dim passes both on the CPU."""
     cfg = TransformerConfig.tiny(hidden_size=2 * head_dim, n_heads=2)
     assert cfg.head_dim == head_dim
-    for check in (check_trainable, check_servable):
+    for check, taken in ((check_trainable, (64, 80, 96, 128)),
+                         (check_servable, (64, 128))):
         check(cfg, "cpu")
-        if head_dim in (64, 128):
+        if head_dim in taken:
             check(cfg, torch.device("cuda"))
         else:
             with pytest.raises(NotImplementedError,
@@ -62,8 +66,13 @@ def test_card_checks_by_head_dim(head_dim):
 
 
 def test_initialize_refuses_head_dim_96_on_the_card():
-    model = _model()
-    with pytest.raises(NotImplementedError, match=A16):
+    """Head dim 256 (a Gemma-style model) is refused on the card: 96, which
+    this test refused before its flash forms were ported, now trains there
+    (``test_card_checks_by_head_dim``)."""
+    model = _model(hidden_size=512)
+    assert model.config.head_dim == 256
+    with pytest.raises(NotImplementedError,
+                       match="head_dim 256 not in .*ROADMAP A16"):
         deepspeed_tpu_torch.initialize(model=model, config=TRAIN_CONFIG,
                                        device="cuda")
     # the same model trains on the CPU through the plain versions

@@ -18,6 +18,10 @@ here on the CPU where they need no card.
   B4 launch counts expected from the dispatch shapes of chunked,
   speculative and ``decode_chunk`` runs, held here against a tiny engine
   whose plain paged attention counts its calls.
+* Phase 7's ``ds_bench train`` runs: each CLI model's head dim and shape,
+  how a run is named, and the launches ``train_launches`` expects of a
+  run, held against a counted CPU run through the plain versions at head
+  dims 80 and 96; ``d_suffix`` names each head dim's kernel rows.
 * Phase ckpt's helpers: the launch count of the resumed run (phase 7's
   formula for its train_batch calls, held here against a counted CPU run
   through the plain versions), the disk-space reckoning (it fails up front
@@ -260,11 +264,90 @@ def test_sass_counts_reads_the_sparse_and_prefill_instantiations():
         ("bf16", 128): (1, 2, 0), ("fp16", 128): (2, 1, 0),
         ("bf16", 64): (2, 1, 1)}
     # every template's expected instantiations: 4 flash forms x (bf16,
-    # fp16) x head dims (64, 128), 4 x 2 sparse, (bf16, fp16) x (64, 128)
+    # fp16) x head dims (64, 80, 96, 128), 4 x 2 sparse, (bf16, fp16) x
+    # (64, 128)
     assert {k: v[2] for k, v in chip_smoke.SASS_TEMPLATES.items()} == {
-        "flash_fwd_kernel": 16, "flash_bwd_dq_kernel": 16,
-        "flash_bwd_dkv_kernel": 16, "sparse_tc_kernel": 8,
+        "flash_fwd_kernel": 32, "flash_bwd_dq_kernel": 32,
+        "flash_bwd_dkv_kernel": 32, "sparse_tc_kernel": 8,
         "ragged_prefill_tc_kernel": 4}
+
+
+_SASS_D80_96 = """
+        code for sm_90a
+                Function : _ZN55_GLOBAL__N__0_22_flash_attention_bwd_cu_020flash_bwd_dkv_kernelI13__nv_bfloat16Lb0ELb0ELi80EEEvNS_9DkvParamsE
+        /*0100*/                   UTMALDG.4D [UR8], [UR4] ;
+        /*0200*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR8], RZ, !UPT ;
+        /*0210*/                   HGMMA.64x80x16.F32.BF16 R88, R152, gdesc[UR12], R88, gsb0 ;
+        /*0220*/                   WARPGROUP.DEPBAR.LE gsb0, 0x0 ;
+                Function : _ZN55_GLOBAL__N__0_22_flash_attention_bwd_cu_020flash_bwd_dkv_kernelI6__halfLb1ELb0ELi96EEEvNS_9DkvParamsE
+        /*0100*/                   UTMALDG.4D [UR8], [UR4] ;
+        /*0210*/                   HGMMA.64x96x16.F32.F16 R88, R152, gdesc[UR12], R88, gsb0 ;
+                Function : _ZN55_GLOBAL__N__0_22_flash_attention_bwd_cu_020flash_bwd_dkv_kernelIfLb0ELb0ELi96EEEvNS_9DkvParamsE
+        /*0100*/                   FFMA R1, R2, R3, R4 ;
+"""
+
+
+def test_sass_counts_reads_the_head_dim_80_and_96_instantiations():
+    """The flash kernels' D=80 and D=96 forms are read by their last
+    template argument, bf16 and fp16 apart; the fp32 form is not
+    counted."""
+    assert chip_smoke.sass_counts(_SASS_D80_96, "flash_bwd_dkv_kernel") == {
+        ("bf16", False, False, 80): (2, 1, 1),
+        ("fp16", True, False, 96): (1, 1, 0)}
+
+
+@pytest.mark.parametrize("D,suffix", [(128, ""), (64, "_d64"), (80, "_d80"),
+                                      (96, "_d96")])
+def test_d_suffix_names_each_head_dim(D, suffix):
+    """The kernels JSON names a flash form by its head dim: the rows first
+    measured at 128 keep their bare names."""
+    assert chip_smoke.d_suffix(D) == suffix
+
+
+def test_cli_models_are_the_benchmark_shapes_at_their_head_dims():
+    """Each ds_bench train model the smoke drives has the head dim its
+    rows are named for, and is the JAX benchmark's shape; the flags name
+    the run."""
+    from deepspeed_tpu_torch.benchmarks.training import MODELS, model_config
+    for model, D in chip_smoke.CLI_HEAD_DIMS.items():
+        cfg = model_config(model, chip_smoke.CLI_DEFAULTS["seq"])
+        assert cfg.head_dim == D and model in MODELS
+    assert chip_smoke.CLI_DEFAULTS["model"] == "gpt_350m"
+    assert sorted(chip_smoke.CLI_HEAD_DIMS.values()) == [64, 80, 96]
+    assert chip_smoke.cli_label() == "(no flags)"
+    assert chip_smoke.cli_label("gpt_2_7b") == "--model gpt_2_7b"
+    for name in chip_smoke.D80_96_MODELS:
+        model, seq, _ = chip_smoke._train_model(name)
+        assert model_config(model, seq).head_dim == \
+            chip_smoke.CLI_HEAD_DIMS[name]
+    assert chip_smoke.FP16_CLI_MODEL in chip_smoke.D80_96_MODELS
+
+
+@pytest.mark.parametrize("head_dim", [80, 96])
+def test_train_launches_match_a_counted_cli_run(head_dim):
+    """The launches phase 7 expects of a ds_bench train run --
+    ``train_launches`` of its config over the warm-up and the timed steps
+    -- against a counted CPU run of ``run_benchmark`` through the plain
+    versions, 2 layers of 2 heads at head dim 80 and 96."""
+    from deepspeed_tpu_torch.benchmarks.training import (model_config,
+                                                         run_benchmark)
+    from deepspeed_tpu_torch.ops import adam, flash_attention
+    shape = dict(hidden_size=2 * head_dim, n_layers=2, n_heads=2)
+    cfg = model_config(shape, 16, vocab_size=256)
+    assert cfg.head_dim == head_dim
+    flash_attention.flash_attention_fwd_plain.calls = 0
+    flash_attention.flash_attention_bwd_plain.calls = 0
+    adam.reference_impl.calls = 0
+    out = run_benchmark(shape, batch=2, gas=2, seq=16, steps=2,
+                        vocab_size=256, device="cpu")
+    want = chip_smoke.train_launches(cfg, 2, 3)
+    assert flash_attention.flash_attention_fwd_plain.calls == \
+        want["flash_attention_fwd"] == 2 * 2 * 2 * 3
+    assert flash_attention.flash_attention_bwd_plain.calls == \
+        want["flash_attention_bwd_dq"] == want["flash_attention_bwd_dkv"]
+    assert adam.reference_impl.calls == want["fused_adam"] == 3
+    assert not any(v for k, v in want.items() if "biased" in k)
+    assert np.isfinite(out["losses"]).all()
 
 
 @pytest.mark.parametrize("kernel,want", [
@@ -279,8 +362,19 @@ def test_sass_counts_reads_the_sparse_and_prefill_instantiations():
      "kernelI13__nv_bfloat16Li64EEEvNS_13PrefillParamsE", True),
     ("_ZN55_GLOBAL__N__0_22_flash_attention_fwd_cu_016flash_fwd_kernelI6__"
      "halfLb0ELb1ELi64EEEvNS_9FwdParamsE", True),
-    # the D = 128 bodies, the fp32 CUDA-core ones and the backward are
-    # printed, not held
+    # the bf16 / fp16 head-dim-80 and -96 forms of B1 and B2
+    ("void (anonymous namespace)::flash_fwd_kernel<__nv_bfloat16, false, "
+     "false, 96>((anonymous namespace)::FwdParams)", True),
+    ("void (anonymous namespace)::flash_bwd_dq_kernel<__half, true, "
+     "false, 80>((anonymous namespace)::DqParams)", True),
+    ("void (anonymous namespace)::flash_bwd_dkv_kernel<__nv_bfloat16, "
+     "false, true, 96>((anonymous namespace)::DkvParams)", True),
+    ("_ZN55_GLOBAL__N__0_22_flash_attention_bwd_cu_020flash_bwd_dkv_"
+     "kernelI13__nv_bfloat16Lb0ELb0ELi80EEEvNS_9DkvParamsE", True),
+    # the D = 128 bodies, the fp32 CUDA-core ones and the D = 64 backward
+    # are printed, not held
+    ("void (anonymous namespace)::flash_bwd_dkv_kernel<float, false, "
+     "false, 96>((anonymous namespace)::DkvParams)", False),
     ("void (anonymous namespace)::flash_fwd_kernel<__nv_bfloat16, false, "
      "false, 128>((anonymous namespace)::FwdParams)", False),
     ("void (anonymous namespace)::flash_fwd_kernel<float, false, false, "
@@ -290,10 +384,11 @@ def test_sass_counts_reads_the_sparse_and_prefill_instantiations():
     ("void (anonymous namespace)::flash_bwd_dq_kernel<__nv_bfloat16, false, "
      "false, 64>((anonymous namespace)::DqParams)", False)])
 def test_must_not_spill_names_decode_and_d64_consumers(kernel, want):
-    """The build phase fails on a spill in the split-key decode body and
-    in every bf16 / fp16 head-dim-64 instantiation of B1's forward and
-    B4's prefill tiles (the shared D = 64 consumer), by demangled or
-    mangled name; other kernels' spills are only printed."""
+    """The build phase fails on a spill in the split-key decode body, in
+    every bf16 / fp16 head-dim-64 instantiation of B1's forward and B4's
+    prefill tiles (the shared D = 64 consumer) and in every bf16 / fp16
+    head-dim-80 and -96 form of B1 and B2, by demangled or mangled name;
+    other kernels' spills are only printed."""
     assert chip_smoke.must_not_spill(kernel) is want
 
 
