@@ -12,20 +12,24 @@ entry points -- ``init_inference(...).generate`` and
 ``create_serving_engine`` -- trains gpt_1b, BLOOM-1b7 and GPT-Neo-1.3B at
 full width and depth through ``initialize(...).train_batch``, runs
 ``ds_bench train`` with no flags (gpt_350m, head dim 64), with ``--model
-gpt_760m`` (head dim 96) and with ``--model gpt_2_7b`` (head dim 80), and
-calls ``SparseSelfAttention``, checking that those runs went through the
+gpt_760m`` (head dim 96) and with ``--model gpt_2_7b`` (head dim 80),
+serves gpt_2_7b (head dim 80) and a Phi-3-mini-4k-shaped model (head dim
+96) at full width and depth through both serving entry points, and calls
+``SparseSelfAttention``, checking that those runs went through the
 kernels.  Phases:
 
   1 device   card name and power limit (nvidia-smi)
   2 build    nvcc, one process per kernel source, all at once; ptxas's
              registers and spills of every kernel, none allowed in the
-             split-key decode body, the head-dim-64 tensor-core
-             consumer or the head-dim-80 and -96 flash forms (NO_SPILL);
-             the SASS of every bf16 and fp16 tensor-core kernel -- the
-             flash kernels at head dims 64, 80, 96 and 128, B4's prefill
-             kernel at head dims 64 and 128, B6's block-sparse kernel at
-             every block and head dim -- holds wgmma (HGMMA) and TMA loads
-             (UTMALDG), its wgmma waits (WARPGROUP.DEPBAR) printed
+             split-key decode body (every head dim), the head-dim-64
+             tensor-core consumer, the head-dim-80 and -96 flash forms,
+             B4's tensor-core prefill tiles at 80 and 96 or the CUDA-core
+             tiles of B4 and B5 at 80 and 96 (NO_SPILL); the SASS of every
+             bf16 and fp16 tensor-core kernel -- the flash kernels and
+             B4's prefill kernel at head dims 64, 80, 96 and 128, B6's
+             block-sparse kernel at every block and head dim -- holds
+             wgmma (HGMMA) and TMA loads (UTMALDG), its wgmma waits
+             (WARPGROUP.DEPBAR) printed
   3 kernels  each kernel vs its plain version: fp32, bf16 and fp16 (the
              fp16 tensor-core tiles held to SDPA-fp16's error); serving
              attention MHA 32/32 and GQA 32/8; flash attention forward and
@@ -56,7 +60,13 @@ kernels.  Phases:
              and 64; its prefill tiles at head dim 64 at groups 1, 4 and
              8 and pages 16 and 128 (prefills after prefixes with a
              ragged last tile, a chunk at start 512, packed batches
-             sharing prefix pages); the block-sparse kernel for layout
+             sharing prefix pages); B5 and B4 at head dims 80 and 96 at
+             groups 1, 4 and 8: every decode row count 1-8, ragged
+             lengths (one chunk) and key-chunk edges (several), B5's
+             prefill form at T=128 and generate's calls, B4's serve
+             buckets 512 and 1024, prefills after prefixes and a chunk at
+             start 512 at pages 128 and 16, packed mixed batches sharing
+             prefix pages; the block-sparse kernel for layout
              blocks 16-128, head dims 64 and 128, causal, bidirectional
              and empty rows (bf16 B4 prefill and B6 outputs, which round P
              to bf16 in the product, under the same SDPA witness)
@@ -73,10 +83,20 @@ kernels.  Phases:
              streams the same in reverse arrival order); exact launch
              counts; tokens vs monolithic baselines by the divergence rule;
              then phases 4 and 5 in fp16 (tokens vs bf16 by the same rule)
+    serve-d80-d96  gpt_2_7b (32 layers, 32 heads of 80, the ds_bench
+             train CLI's config at seq 2048) through phases 4 and 5 in
+             bf16 and fp16 (tokens vs bf16 by the divergence rule) and
+             serve-features (a)-(d) in bf16 with the CLI's gpt_350m as
+             (c)'s draft (head dim 64); a Phi-3-mini-4k-shaped model (32
+             layers, 32 heads of 96, SwiGLU, untied) through phases 4
+             and 5 in bf16; exact launches, plain versions 0
   6 e2e      full width, 2 layers: paged prefill + decode, kernels vs plain;
              (a)-(d) in fp32, tokens identical to the monolithic run (the
              draft also as the target's own weights); the TinyLlama-shaped
-             generate in fp32, tokens identical to the plain versions'
+             generate in fp32, tokens identical to the plain versions';
+             at the gpt_2_7b and Phi-3-mini shapes: bf16 paged logits vs
+             plain, fp32 generate and serve tokens identical to the plain
+             versions'
   7 train    run_benchmark for gpt_1b (seq 1024), bloom_1b7 (ALiBi) and
              gpt_neo_1_3b (global / local window 256), seq 2048, micro 2,
              gas 4, bf16, AdamW; exact launches counted; ``ds_bench
@@ -137,7 +157,10 @@ kernels.  Phases:
              work), B5 and B4 in fp16, the verify window, the TinyLlama
              decode step, B5 at head dim 64, the chunk at an offset at
              head dims 128 and 64, Llama-2-70B's group-8 decode step (B4,
-             B5; off the paths); fused Adam held against its plain
+             B5; off the paths); B5's generate step and B4's decode step
+             and prefill buckets 512 and 1024 at head dims 80 (bf16,
+             fp16) and 96, B4's chunk at start 512 and verify window at
+             80; fused Adam held against its plain
              version over gpt_1b's 1.01 B parameters; the window-256
              forward must take well under the ALiBi forward's time
 
@@ -445,18 +468,22 @@ def ptxas_usage(log):
 
 
 # kernels that must not spill (ptxas): the split-key decode body, whose
-# registers hold the loads in flight, the head-dim-64 tensor-core
-# consumer of B1's forward and B4's prefill tiles (wgmma_attention64.cuh:
-# S, P and O in registers while products run), and the head-dim-80 and
-# -96 tensor-core forms of B1 and B2, by demangled or mangled name
+# registers hold the loads in flight (every row count, dtype and head
+# dim), the head-dim-64 tensor-core consumer of B1's forward and B4's
+# prefill tiles (wgmma_attention64.cuh: S, P and O in registers while
+# products run), the head-dim-80 and -96 tensor-core forms of B1, B2 and
+# B4's prefill tiles, and the head-dim-80 and -96 CUDA-core tiles of B4
+# and B5 (attention_tile.cuh), by demangled or mangled name
 NO_SPILL = (r"split_kernel|split_tc_kernel|combine_kernel|"
             r"flash_fwd_kernel(<(__nv_bfloat16|__half), \w+, \w+, 64>|"
             r"I(13__nv_bfloat16|6__half)Lb[01]ELb[01]ELi64E)|"
             r"flash_(fwd|bwd_dq|bwd_dkv)_kernel("
             r"<(__nv_bfloat16|__half), \w+, \w+, (80|96)>|"
             r"I(13__nv_bfloat16|6__half)Lb[01]ELb[01]ELi(80|96)E)|"
-            r"ragged_prefill_tc_kernel(<(__nv_bfloat16|__half), 64>|"
-            r"I(13__nv_bfloat16|6__half)Li64E)")
+            r"ragged_prefill_tc_kernel(<(__nv_bfloat16|__half), (64|80|96)>|"
+            r"I(13__nv_bfloat16|6__half)Li(64|80|96)E)|"
+            r"(ragged_paged|decode)_attention_kernel(<\w+, (80|96), 16>|"
+            r"I\w+Li(80|96)ELi16E)")
 
 
 def must_not_spill(kernel):
@@ -499,9 +526,8 @@ TENSOR_CORE_KERNELS = [("flash_attention_fwd", "flash_fwd_kernel"),
 # kernel template -> (regex of its tensor-core instantiations' template
 # arguments in the mangled name, the arguments' reading, how many it has):
 # the flash kernels' <bf16 or fp16, alibi, window, head dim 64, 80, 96 or
-# 128>,
-# B6's <block, head dim> (bf16), and B4's prefill kernel's <bf16 or fp16,
-# head dim 64 or 128>
+# 128>, B6's <block, head dim> (bf16), and B4's prefill kernel's <bf16 or
+# fp16, head dim 64, 80, 96 or 128>
 _DTYPE_ARG = {"13__nv_bfloat16": "bf16", "6__half": "fp16"}
 
 
@@ -521,7 +547,7 @@ SASS_TEMPLATES = {
     "flash_bwd_dkv_kernel": _FLASH_ARGS,
     "sparse_tc_kernel": (r"ILi(\d+)ELi(\d+)E", int, 8),
     "ragged_prefill_tc_kernel": (r"I(13__nv_bfloat16|6__half)Li(\d+)E",
-                                 _flash_arg, 4),
+                                 _flash_arg, 8),
 }
 
 
@@ -610,6 +636,9 @@ def _paged_state(ctx_lens, page, Hkv, D, dtype, gen, shared_pages=0):
 # of these lengths with SERVE_NEW new tokens each
 SERVE_SLOTS, SERVE_PAGE, SERVE_MAX_SEQ, SERVE_NEW = 8, 128, 2048, 32
 SERVE_PROMPTS = [16, 600, 37, 250, 128, 511, 64, 300, 90, 450, 200, 23]
+# the serving kernels' (B4, B5) head dims beside 64 and 128: GPT-3 2.7B's
+# 80 and Phi-3-mini's 96
+HEAD_DIMS_80_96 = (80, 96)
 
 
 def _engine_state(needs, Hkv, D, dtype, gen):
@@ -896,6 +925,70 @@ def phase_kernels():
             S = edge_cache(8)
             for lens in chunk_edges(4, 1, 4, Dg, S):
                 check_b5("chunk edges", 4, 1, 4, S, lens, Dh=Dg)
+        # head dims 80 (GPT-3 2.7B's) and 96 (Phi-3-mini's) at groups 1, 4
+        # and 8 (32 query heads over 32, 8 and 4 kv heads)
+        for Dn, Hkv in ((Dn, Hkv) for Dn in HEAD_DIMS_80_96
+                        for Hkv in (32, 8, 4)):
+            group = H // Hkv
+            for pg in (16, 128):
+                tc = tensor_core_prefill(dtype, Dn, group, pg)
+                if tc != (dtype != torch.float32):
+                    fail(f"tensor_core_prefill({dn}, {Dn}, {group}, {pg}) "
+                         f"is {tc}")
+            # B5: every row count of the decode form, 1-8 rows a kv head
+            # (T = 1..8 at group 1, 1-2 at group 4, 1 at group 8) over
+            # ragged lengths -- at B=4 one chunk a sequence at MHA --
+            # generate's own calls (its T=128 prefill takes the prefill
+            # form), and lengths where several key chunks meet a
+            # sequence's end (B=1 at MHA, B=4 at GQA)
+            for T in range(1, DECODE_ROWS // group + 1):
+                check_b5("ragged", 4, T, Hkv, 2048, i32(
+                    [T + 5, 700, 1500, 2048]), Dh=Dn)
+            check_b5("generate prefill", 4, 128, Hkv, 160, 128, Dh=Dn)
+            check_b5("generate decode", 4, 1, Hkv, 160, 144, Dh=Dn)
+            Be = 1 if group == 1 else 4
+            for T in sorted({1, 4 // group or 1, DECODE_ROWS // group}):
+                S = edge_cache(T * group)
+                for lens in chunk_edges(Be, T, Hkv, Dn, S):
+                    check_b5("chunk edges", Be, T, Hkv, S, lens, Dh=Dn)
+            # B4: the decode rows at every row count over the serve run's
+            # 8 slots (T = 5 at group 1 is the verify window), its
+            # bucketed prefills at 512 and 1024 (page 128), and at pages
+            # 128 and 16 prefills after cached prefixes (a ragged last
+            # tile), a 256-token chunk at start 512 and a packed mixed
+            # batch sharing prefix pages, with 5-row and 1-row decodes
+            slots = _engine_state([p + SERVE_NEW for p in
+                                   SERVE_PROMPTS[:8]], Hkv, Dn, dtype, gen)
+            cases = [(f"decode rows B=8 T={T}", T, *slots,
+                      [p + 9 for p in SERVE_PROMPTS[:8]])
+                     for T in range(1, DECODE_ROWS // group + 1)]
+            for prompt in (511, 600):
+                bucket, need = _prefill_need(prompt)
+                cases.append((f"serve prefill B=1 T={bucket} (prompt "
+                              f"{prompt})", bucket, *_engine_state(
+                                  [need], Hkv, Dn, dtype, gen), [bucket]))
+            for pg in (128, 16):
+                for label, T, ctx in (
+                        ("prefill B=2 T=200 after prefixes, ctx 300/457",
+                         200, [300, 457]),
+                        ("chunk B=1 T=256 at start 512", 256, [768])):
+                    cases.append((f"page {pg} {label}", T, *_paged_state(
+                        ctx, pg, Hkv, Dn, dtype, gen), ctx))
+            for label, T, tb, kk, vv, ctx in cases:
+                qq = _rand((len(ctx), T, H, Dn), dtype, gen)
+                lens = i32(ctx)
+                got = ragged_paged_attention_rect(qq, kk, vv, tb, lens)
+                exact = paged_attention_plain(qq.float(), kk.float(),
+                                              vv.float(), tb, lens)
+                note("ragged_paged_attention", dn, check_b4(
+                    f"ragged_paged_attention {dn} H{H}/{Hkv} D={Dn} "
+                    f"{label}", got, exact,
+                    lambda: paged_sdpa(qq, kk, vv, tb, lens),
+                    tiles(dtype, Dn, group, kk.shape[2], [T])))
+            del cases, slots
+            for pg in (128, 16):
+                packed_b4(f"H{H}/{Hkv} page {pg}", [37, 1, 130, 5, 1],
+                          [37, 300, 1000, 521, 257], Hkv, Dn, pg)
     return errs
 
 
@@ -1491,12 +1584,13 @@ def phase_serve(eng, cfg):
     return se, prompts, dt, outs
 
 
-def phase_e2e(B=4, T=128, steps=4):
-    """2 layers at full width: paged prefill + decode through the kernels
-    and through the plain versions, from identical states."""
+def phase_e2e(B=4, T=128, steps=4, cfg=None, seed=7):
+    """2 layers at full width of Llama-2-7B (or ``cfg``): paged prefill +
+    decode through the kernels and through the plain versions, from
+    identical states."""
     import numpy as np
     import torch
-    cfg, model, _ = build_model(2, seed=7)
+    cfg, model, _ = build_model(2, seed=seed, cfg=cfg)
     page, P = 128, 1 + B * 2
     tables = torch.zeros((B, 3), dtype=torch.int32, device="cuda")
     tables[:, :2] = torch.arange(1, P, dtype=torch.int32,
@@ -1758,8 +1852,8 @@ def _time_decode(name, dtype, B, S, L, copies, gen, H=32, Hkv=32, D=128):
         "library_ms": lambda i: F.scaled_dot_product_attention(
             qs[i % copies], k[i % copies][:, :, :L],
             v[i % copies][:, :, :L], enable_gqa=Hkv != H)}, copies)
-    nbytes = B * (2 * Hkv * L * D + 2 * H * D) * q.element_size()
-    bound_ms, bound_by = _bound(nbytes, B * 4 * H * D * L, dn)
+    bound_ms, bound_by = _bound(*decode_work(B, H, Hkv, L, D,
+                                             q.element_size()), dn)
     return dict(max_abs_err=err, **times, bound_ms=bound_ms,
                 bound_by=bound_by,
                 shape=f"B={B} T=1 H={H} Hkv={Hkv} D={D} len={L} S_max={S} "
@@ -1812,10 +1906,8 @@ def _time_paged(name, dtype, needs, ctx, T, Hkv, D, copies, gen, H=32):
         "library_ms": lambda i: F.scaled_dot_product_attention(
             qs[i % copies], *dense[i % copies], attn_mask=mask,
             enable_gqa=Hkv != H)}, copies)
-    pairs = sum(int(p) + 1 for p in qpos.flatten().tolist())
-    nbytes = (sum(2 * Hkv * c * D for c in ctx) + 2 * B * T * H * D) * \
-        q.element_size()
-    bound_ms, bound_by = _bound(nbytes, 4 * H * D * pairs, dn)
+    bound_ms, bound_by = _bound(*paged_work(ctx, T, H, Hkv, D,
+                                            q.element_size()), dn)
     return dict(max_abs_err=err, **times, bound_ms=bound_ms,
                 bound_by=bound_by,
                 shape=f"B={B} T={T} H={H} Hkv={Hkv} D={D} page={SERVE_PAGE}"
@@ -2355,6 +2447,279 @@ def teacher_margins(eng, outs, n_prompt):
     top = lg.abs().amax(-1).cpu().numpy()
     return {(b, i): (float(marg[b, i]), float(top[b, i]))
             for b in range(marg.shape[0]) for i in range(marg.shape[1])}
+
+
+# ----------------------------------------------------------------------
+# serving at head dims 80 and 96 (phase serve-d80-d96): gpt_2_7b -- the
+# ds_bench train CLI's GPT-3 2.7B shape (GPT-3 paper, Table 2.1: 32 layers,
+# d 2560, 32 heads of 80), built as the CLI builds it at GPT-3's context
+# of 2048 -- and a Phi-3-mini-4k-shaped model, each at full width and
+# depth, random weights from a seed, through both serving entry points
+SERVE_D80_MODEL, SERVE_D80_SEQ = "gpt_2_7b", 2048
+# serve-features (c)'s draft for gpt_2_7b: the CLI's gpt_350m at the same
+# context, head dim 64 and the same vocab of 50304
+SERVE_D80_DRAFT = "gpt_350m"
+# microsoft/Phi-3-mini-4k-instruct config.json as the injection policy maps
+# it (deepspeed_tpu/module_inject/policies.py Phi3Policy.build): vocab_size
+# 32064, hidden_size 3072, num_hidden_layers 32, num_attention_heads 32,
+# num_key_value_heads 32, intermediate_size 8192, max_position_embeddings
+# 4096, rope_theta 10000, rms_norm_eps 1e-5, untied; llama wiring (SwiGLU,
+# RMSNorm, RoPE) -- head dim 96, 3.82 B parameters.  The policy ignores
+# config.json's sliding_window of 2047, which no sequence here reaches.
+PHI3_MINI = dict(vocab_size=32064, hidden_size=3072, n_layers=32, n_heads=32,
+                 ffn_hidden_size=8192, max_seq_len=4096, rope_theta=10000.0,
+                 norm_eps=1e-5, activation="silu", use_rmsnorm=True,
+                 use_rope=True, tie_embeddings=False, remat=False)
+GEN_NEW = 32            # generate's new tokens: its prompt's prefill and
+                        # 31 decode steps, one model call each
+TIMED_BUCKETS = (512, 1024)   # the serve run's prefill buckets phase 9
+                              # times (its 511- and 600-token prompts)
+
+
+def generate_launches(n_layers, new=GEN_NEW):
+    """B5 launches of ``init_inference(model).generate(ids, new)``: one a
+    layer a model call -- the prompt's prefill and new - 1 decode steps."""
+    return n_layers * new
+
+
+def b4_form_launches(n_layers, decode_steps, prompts, suffix="",
+                     buckets=None):
+    """B4's launches on a monolithic serve run (phase 5's engine) by form,
+    keyed by the kernels JSON's rows: one a layer a decode step (the decode
+    rows) and a layer a prompt's bucketed prefill (the prefill tiles), by
+    bucket -- only the ``buckets`` given, where given; ``suffix`` names the
+    rows' head dim and dtype."""
+    out = {f"ragged_paged_attention{suffix}": n_layers * decode_steps}
+    for prompt in prompts:
+        bucket = _prefill_need(prompt)[0]
+        if buckets is None or bucket in buckets:
+            key = f"ragged_paged_attention_prefill_{bucket}{suffix}"
+            out[key] = out.get(key, 0) + n_layers
+    return out
+
+
+def decode_work(B, H, Hkv, L, D, item):
+    """(bytes, operations) of one B5 decode step: B sequences of one query
+    token over L cached keys -- every K and V byte of the L keys read
+    once, q read and o written once -- and 4 D operations a head per
+    (query, key) pair."""
+    return B * (2 * Hkv * L * D + 2 * H * D) * item, B * 4 * H * D * L
+
+
+def paged_work(ctx, T, H, Hkv, D, item):
+    """(bytes, operations) of one B4 call over sequences holding ctx[s]
+    tokens, the last T of them the queries: each sequence's K and V read
+    once, q read and o written once, and 4 D operations a head per (query,
+    key at or before its position) pair."""
+    pairs = sum(c - T + t + 1 for c in ctx for t in range(T))
+    nbytes = (sum(2 * Hkv * c * D for c in ctx) + 2 * len(ctx) * T * H * D)
+    return nbytes * item, 4 * H * D * pairs
+
+
+def serve_entry_points(label, model, cfg, dtype_name):
+    """``init_inference(model).generate`` (phase 4's B=4, prompt 128, 32
+    new), then its ``create_serving_engine`` on phase 5's 12 prompts, each
+    counted on its own: B5 exactly :func:`generate_launches` times in
+    generate and B4 a layer a model call in serving, nothing else, no plain
+    version; logits finite (the serve run's sampler fails on one that is
+    not; generate's are scored by one forward).  Returns what the fp16
+    comparison, the kernels JSON and the printout need."""
+    L = cfg.n_layers
+    reset_counters()
+    eng, ids, t_gen, gen_out = phase_generate(model, cfg, dtype=dtype_name)
+    g = read_counters()
+    want = generate_launches(L)
+    if g["decode_attention"] != want or g["ragged_paged_attention"] or \
+            plain_calls(g):
+        fail(f"{label} generate launches {g}, expected decode_attention "
+             f"{L} x {GEN_NEW} and nothing else")
+    margins = teacher_margins(eng, gen_out, ids.shape[1])
+    reset_counters()
+    se, prompts, t_serve, outs = phase_serve(eng, cfg)
+    c = read_counters()
+    calls = se.stats["model_calls"]
+    if c["ragged_paged_attention"] != L * calls or c["decode_attention"] \
+            or plain_calls(c):
+        fail(f"{label} serve launches {c}, expected ragged_paged_attention "
+             f"{L} x {calls} and nothing else")
+    steps = se.scheduler.sched_stats["decode_steps"]
+    phase("serve", f"{label}: generate B=4 prompt 128 + {GEN_NEW} "
+          f"new {t_gen:.3f} s, decode kernel launches {want} = {L} x "
+          f"{GEN_NEW}; serve 12 prompts x {SERVE_NEW} new, 8 slots "
+          f"{t_serve:.3f} s ({len(prompts) * SERVE_NEW / t_serve:.1f} new "
+          f"tokens/s), ragged kernel launches {L * calls} = {L} x {calls} "
+          f"model calls ({steps} decode steps); plain versions 0, logits "
+          f"finite, leak_report {{}}")
+    res = dict(gen_launches=want, decode_steps=steps, gen_out=gen_out,
+               gen_margins=margins, ids=ids, prompts=prompts,
+               serve_outs=outs, serve_margins=se.margins, L=L)
+    del se, eng
+    _free()
+    return res
+
+
+def phase_serve_head_dims():
+    """gpt_2_7b (head dim 80) through both entry points in bf16 and fp16
+    (tokens vs bf16 by the divergence rule) and serve-features (a)-(d) in
+    bf16 with the gpt_350m draft; then the Phi-3-mini-4k shape (head dim
+    96) through both in bf16.  Full width and depth.  Returns {kernels
+    JSON row: launches} and the two configs."""
+    import torch
+    from deepspeed_tpu_torch.benchmarks.training import model_config
+    from deepspeed_tpu_torch.models.transformer import TransformerConfig
+    t0 = time.time()
+    cfg80 = model_config(SERVE_D80_MODEL, SERVE_D80_SEQ, remat=False)
+    _, model, t_init = build_model(cfg80.n_layers, seed=2, cfg=cfg80)
+    n_params = sum(p.numel() for p in model.parameters()) / 1e9
+    if cfg80.head_dim != 80:
+        fail(f"{SERVE_D80_MODEL} has head dim {cfg80.head_dim}")
+    phase("model", f"{SERVE_D80_MODEL} ({cfg80.n_layers} layers, "
+          f"{cfg80.n_heads} heads of {cfg80.head_dim}, vocab "
+          f"{cfg80.vocab_size}, seq {SERVE_D80_SEQ}), {n_params:.3f} B "
+          f"params, bf16, init {t_init:.1f} s")
+    bf = serve_entry_points(f"{SERVE_D80_MODEL} bf16", model, cfg80, "bf16")
+    L = bf["L"]
+    launches = {"decode_attention_d80": bf["gen_launches"]}
+    launches.update(b4_form_launches(L, bf["decode_steps"], SERVE_PROMPTS,
+                                     "_d80", TIMED_BUCKETS))
+    dcfg = model_config(SERVE_D80_DRAFT, SERVE_D80_SEQ, remat=False)
+    _, draft, _ = build_model(dcfg.n_layers, seed=3, cfg=dcfg)
+    t1 = time.time()
+    feat = phase_serve_features(model, cfg80, [(SERVE_D80_DRAFT, draft)],
+                                torch.bfloat16, exact=False,
+                                label=f"{SERVE_D80_MODEL} bf16")
+    phase("serve-features", f"{SERVE_D80_MODEL} bf16 (a)-(d), {L} layers, "
+          f"draft {SERVE_D80_DRAFT} {dcfg.n_layers} layers: "
+          f"{time.time() - t1:.1f} s")
+    launches["ragged_paged_attention_chunk_at_offset_d80"] = \
+        feat["chunk"]["launches"]
+    launches["ragged_paged_attention_verify_d80"] = \
+        feat[f"spec_{SERVE_D80_DRAFT}"]["verify_launches"]
+    del model, draft
+    _free()
+    _, model16, _ = build_model(cfg80.n_layers, seed=2, dtype=torch.float16,
+                                cfg=cfg80)
+    f16 = serve_entry_points(f"{SERVE_D80_MODEL} fp16", model16, cfg80,
+                             "fp16")
+    del model16
+    _free()
+    check_divergence(
+        f"{SERVE_D80_MODEL} fp16 generate vs bf16",
+        [r.tolist() for r in bf["gen_out"].cpu()],
+        [r.tolist() for r in f16["gen_out"].cpu()],
+        [bf["ids"][0]] * len(bf["ids"]), bf["gen_margins"], "bfloat16")
+    check_divergence(f"{SERVE_D80_MODEL} fp16 serve vs bf16",
+                     bf["serve_outs"], f16["serve_outs"], bf["prompts"],
+                     bf["serve_margins"], "bfloat16")
+    launches["decode_attention_d80_fp16"] = f16["gen_launches"]
+    launches.update(b4_form_launches(L, f16["decode_steps"], SERVE_PROMPTS,
+                                     "_d80_fp16", TIMED_BUCKETS))
+    cfg96 = TransformerConfig(**PHI3_MINI)
+    _, phi, t_init = build_model(cfg96.n_layers, seed=4, cfg=cfg96)
+    n_params = sum(p.numel() for p in phi.parameters()) / 1e9
+    phase("model", f"Phi-3-mini-4k shape ({cfg96.n_layers} layers, "
+          f"{cfg96.n_heads} heads of {cfg96.head_dim}, ffn "
+          f"{cfg96.ffn_hidden_size}, vocab {cfg96.vocab_size}, untied), "
+          f"{n_params:.3f} B params, bf16, init {t_init:.1f} s")
+    ph = serve_entry_points("Phi-3-mini-4k shape bf16", phi, cfg96, "bf16")
+    del phi
+    _free()
+    launches["decode_attention_d96"] = ph["gen_launches"]
+    launches.update(b4_form_launches(ph["L"], ph["decode_steps"],
+                                     SERVE_PROMPTS, "_d96", TIMED_BUCKETS))
+    phase("serve-d80-d96", f"done in {time.time() - t0:.1f} s; launches by "
+          f"kernels JSON row {launches}")
+    return launches, cfg80, cfg96
+
+
+def phase_serve_vs_plain(model, n_prompts=6):
+    """Greedy tokens of ``create_serving_engine(model)`` in fp32 through
+    B4 against the same engine with ``attention_backend`` "plain" (phase
+    5's geometry, its first ``n_prompts`` prompt lengths); fails unless
+    they are identical and each ran only its own attention.  Returns
+    (identical requests, B4 launches)."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.inference.serving import create_serving_engine
+    cfg = model.config
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).tolist()
+               for n in SERVE_PROMPTS[:n_prompts]]
+    outs, counts, calls = [], [], []
+    for serving in ({}, {"attention_backend": "plain"}):
+        _free()
+        se = create_serving_engine(
+            model, {"serving": serving}, max_batch=SERVE_SLOTS,
+            page_size=SERVE_PAGE, max_seq=SERVE_MAX_SEQ,
+            dtype=torch.float32)
+        reset_counters()
+        outs.append(se.generate(prompts, max_new_tokens=SERVE_NEW))
+        counts.append(read_counters())
+        calls.append(cfg.n_layers * se.stats["model_calls"])
+        if se.leak_report():
+            fail(f"serve vs plain: leak_report() = {se.leak_report()}")
+        se = None
+    (k, p), (nk, n_p) = counts, calls
+    if k["ragged_paged_attention"] != nk or plain_calls(k):
+        fail(f"serve (kernels) counts {k}, expected ragged_paged_attention "
+             f"{nk} and no plain version")
+    if p["paged_attention_plain"] != n_p or p["ragged_paged_attention"]:
+        fail(f"serve (plain) counts {p}, expected paged_attention_plain "
+             f"{n_p} and no kernel")
+    same = sum(a == b for a, b in zip(*outs))
+    if same != len(prompts):
+        fail(f"serving through the kernels differs from the plain "
+             f"versions in {len(prompts) - same} of {len(prompts)} "
+             f"requests (fp32)")
+    return same, nk
+
+
+def phase_timing_head_dims():
+    """B5 and B4 at head dims 80 and 96 at the shapes the new serving
+    phases give them: generate's decode step (B=4, length 144), the serve
+    run's 8-slot decode step and its prefill buckets 512 and 1024, in bf16
+    at both head dims and in fp16 at 80 (gpt_2_7b's fp16 run), and at 80
+    the 256-token chunk at start 512 and the verify window [8, 5] of
+    serve-features (b) and (c)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(97)
+    prompts = SERVE_PROMPTS[:SERVE_SLOTS]
+    needs = [p + SERVE_NEW for p in prompts]
+    rows = {}
+    for D, dtype in ((80, torch.bfloat16), (80, torch.float16),
+                     (96, torch.bfloat16)):
+        dn = str(dtype).split(".")[-1]
+        sfx = d_suffix(D) + ("_fp16" if dtype == torch.float16 else "")
+        rows[f"decode_attention{sfx}"] = _time_decode(
+            f"decode_attention generate step D={D} {dn}", dtype, 4, 160,
+            144, 12, gen, D=D)
+        rows[f"ragged_paged_attention{sfx}"] = _time_paged(
+            f"ragged_paged_attention 8-slot decode step D={D} {dn}", dtype,
+            needs, [p + 16 for p in prompts], 1, 32, D, 4, gen)
+        _free()
+        for prompt in (511, 600):       # their buckets: TIMED_BUCKETS
+            bucket, need = _prefill_need(prompt)
+            rows[f"ragged_paged_attention_prefill_{bucket}{sfx}"] = \
+                _time_paged(f"ragged_paged_attention prefill T={bucket} "
+                            f"D={D} {dn}", dtype, [need], [bucket], bucket,
+                            32, D, 4, gen)
+            _free()
+    rows["ragged_paged_attention_chunk_at_offset_d80"] = _time_paged(
+        "ragged_paged_attention chunk T=256 at start 512 D=80",
+        torch.bfloat16, [1024 + SERVE_NEW], [768], CHUNK_TOKENS, 32, 80, 4,
+        gen)
+    rows["ragged_paged_attention_verify_d80"] = _time_paged(
+        "ragged_paged_attention verify window [8, 5] D=80", torch.bfloat16,
+        needs, [p + 9 for p in prompts], SPEC_GAMMA + 1, 32, 80, 4, gen)
+    _free()
+    for name, r in rows.items():
+        phase("timing", f"{name} [{r['shape']}]: device ms (graph replay) "
+              f"kernel {r['ms']:.4f}, plain {r['plain_ms']:.4f}, SDPA "
+              f"{r['library_ms']:.4f}; eager ms per call (host included) "
+              f"kernel {r['ms_eager']:.4f}; bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.3f} of bound, "
+              f"max abs err {r['max_abs_err']:.3e}")
+    return rows
 
 
 # ----------------------------------------------------------------------
@@ -3875,7 +4240,7 @@ def main():
     counts = read_counters()
     serve_margins = se.margins
     calls = se.stats["model_calls"]
-    gen_calls = 32                      # 1 prefill + 31 decode calls
+    gen_calls = GEN_NEW                 # 1 prefill + 31 decode calls
     if after_gen["decode_attention"] != L * gen_calls:
         fail(f"decode kernel launched {after_gen['decode_attention']} times"
              f" in generate, expected {L} x {gen_calls}")
@@ -3922,10 +4287,7 @@ def main():
     # B4's launches by form: one per layer per decode step (the decode
     # rows) and per bucketed prefill (the prefill tiles), by bucket
     dec_steps = se_steps
-    b4_launches = {"ragged_paged_attention": L * dec_steps}
-    for prompt in SERVE_PROMPTS:
-        key = f"ragged_paged_attention_prefill_{_prefill_need(prompt)[0]}"
-        b4_launches[key] = b4_launches.get(key, 0) + L
+    b4_launches = b4_form_launches(L, dec_steps, SERVE_PROMPTS)
     phase("timing", f"ragged_paged_attention launches on the serve run by "
           f"form: {b4_launches} (of {counts['ragged_paged_attention']}: "
           f"{calls - dec_steps} prefill calls, {dec_steps} decode steps)")
@@ -3968,50 +4330,30 @@ def main():
     _free()
 
     # ---- fp16: phases 4 and 5 again, the same seed's weights in fp16 --
+    import deepspeed_tpu_torch as dst
     cfg16, model16, _ = build_model(32, seed=0, dtype=torch.float16)
-    reset_counters()
-    eng16, _, t_gen16, out16 = phase_generate(model16, cfg16, dtype="fp16")
-    c16 = read_counters()
-    if c16["decode_attention"] != L * gen_calls or \
-            c16["ragged_paged_attention"] or plain_calls(c16):
-        fail(f"fp16 generate launches {c16}, expected decode_attention "
-             f"{L} x {gen_calls} and nothing else")
-    teacher_margins(eng16, out16, ids.shape[1])        # finite or fail
+    f16 = serve_entry_points("llama2_7b fp16", model16, cfg16, "fp16")
     check_divergence(
         "fp16 generate vs bf16", [r.tolist() for r in gen_out.cpu()],
-        [r.tolist() for r in out16.cpu()], [ids[0]] * len(ids),
+        [r.tolist() for r in f16["gen_out"].cpu()], [ids[0]] * len(ids),
         gen_margins, "bfloat16")
-    reset_counters()
-    se16, _, t_serve16, outs16 = phase_serve(eng16, cfg16)
-    s16 = read_counters()
-    calls16 = se16.stats["model_calls"]
-    if s16["ragged_paged_attention"] != L * calls16 or \
-            s16["decode_attention"] or plain_calls(s16):
-        fail(f"fp16 serve launches {s16}, expected ragged_paged_attention "
-             f"{L} x {calls16} and nothing else")
-    check_divergence("fp16 serve vs bf16", serve_outs, outs16, prompts,
-                     serve_margins, "bfloat16")
-    phase("generate", f"fp16 B=4 prompt 128 + 32 new: {t_gen16:.3f} s, "
-          f"decode kernel launches {c16['decode_attention']} = {L} x "
-          f"{gen_calls}; logits finite")
-    phase("serve", f"fp16 12 prompts x 32 new: {t_serve16:.3f} s, "
-          f"{n_new / t_serve16:.1f} new tokens/s, ragged kernel launches "
-          f"{s16['ragged_paged_attention']} = {L} x {calls16}, logits "
-          f"finite, leak_report {{}}")
-    step16, dev16, top16, _ = decode_step_ms(eng16, cfg16)
+    check_divergence("fp16 serve vs bf16", serve_outs, f16["serve_outs"],
+                     prompts, serve_margins, "bfloat16")
+    step16, dev16, top16, _ = decode_step_ms(
+        dst.init_inference(model16, dtype="fp16"), cfg16)
     phase("serve", f"fp16 pure decode step, 8 slots busy: {step16:.3f} ms, "
           f"device {dev16:.3f} ms/step (profiler), busy share "
           f"{dev16 / step16:.3f} (bf16 in this run: {step_ms:.3f} ms, "
           f"device {device_ms:.3f})")
     for name, k_ms in top16:
         phase("serve", f"  fp16 device ms/step {k_ms:.4f}  {name[:90]}")
-    fp16_prefills = {}
-    for prompt in SERVE_PROMPTS:
-        b = _prefill_need(prompt)[0]
-        fp16_prefills[b] = fp16_prefills.get(b, 0) + L
-    se16_decode_steps = se16.scheduler.sched_stats["decode_steps"]
-    del eng16, se16, model16
+    fp16_launches = b4_form_launches(L, f16["decode_steps"], SERVE_PROMPTS,
+                                     "_fp16")
+    del model16
     _free()
+
+    # ---- serving at head dims 80 and 96: gpt_2_7b, the Phi-3-mini shape -
+    hd_launches, cfg80, cfg96 = phase_serve_head_dims()
 
     rel, agree = phase_e2e()
     phase("e2e", f"2 layers full width, paged prefill T=128 + 4 decodes: "
@@ -4033,6 +4375,26 @@ def main():
           f"of 4 rows")
     del m2, d2
     _free()
+    # head dims 80 and 96, 2 layers of full width: bf16 logits through B4
+    # vs the plain versions, then fp32 greedy tokens through B5 and B4 vs
+    # the plain versions'
+    for label, hcfg, seed in ((SERVE_D80_MODEL, cfg80, 12),
+                              ("Phi-3-mini-4k shape", cfg96, 13)):
+        rel, agree = phase_e2e(cfg=hcfg, seed=seed)
+        phase("e2e", f"{label} (head dim {hcfg.head_dim}) 2 layers full "
+              f"width, paged prefill T=128 + 4 decodes, bf16: kernel vs "
+              f"plain logits rel err {rel:.3e} (tol {E2E_REL_TOL}), argmax "
+              f"agreement {agree:.4f}")
+        _, m2, _ = build_model(2, seed=seed, dtype=torch.float32, cfg=hcfg)
+        n_same, g_calls = phase_generate_vs_plain(m2)
+        s_same, s_calls = phase_serve_vs_plain(m2)
+        phase("e2e", f"{label} 2 layers fp32: generate B=4 prompt 128 + 32 "
+              f"new through B5 ({g_calls} launches) identical to the plain "
+              f"versions' in {n_same} of 4 rows; serving 6 prompts x "
+              f"{SERVE_NEW} new through B4 ({s_calls} launches) identical "
+              f"in {s_same} of 6 requests")
+        del m2
+        _free()
 
     # ---- training main paths, counters read around each run_benchmark --
     launches = {k: v for k, v in counts.items() if not k.endswith("_plain")}
@@ -4209,6 +4571,7 @@ def main():
                   f"serve-run launches, bound {timing[key]['bound_ms']:.4f} "
                   f"ms")
     timing.update(phase_timing_serving())
+    timing.update(phase_timing_head_dims())
     timing.update(phase_train_timing(errs))
     biased = phase_biased_timing(errs)
     biased_d64 = phase_biased_timing(errs, BIASED_TIMING_D64, D=64, seed=79)
@@ -4264,13 +4627,15 @@ def main():
     # and the chunks at an offset (launches of their serve-features runs),
     # B5 at head dim 64 (the TinyLlama-shaped generate's launches)
     spec = feat["spec_TinyLlama-1.1B"]
-    for name, n in (("decode_attention_fp16", c16["decode_attention"]),
+    for name, n in (("decode_attention_fp16", f16["gen_launches"]),
                     ("ragged_paged_attention_fp16",
-                     L * se16_decode_steps),
+                     fp16_launches["ragged_paged_attention_fp16"]),
                     ("ragged_paged_attention_prefill_512_fp16",
-                     fp16_prefills.get(512, 0)),
+                     fp16_launches.get(
+                         "ragged_paged_attention_prefill_512_fp16", 0)),
                     ("ragged_paged_attention_prefill_1024_fp16",
-                     fp16_prefills.get(1024, 0)),
+                     fp16_launches.get(
+                         "ragged_paged_attention_prefill_1024_fp16", 0)),
                     ("ragged_paged_attention_verify",
                      spec["verify_launches"]),
                     ("ragged_paged_attention_draft_gqa8",
@@ -4280,6 +4645,13 @@ def main():
                     ("decode_attention_d64", d_counts["decode_attention"]),
                     ("ragged_paged_attention_draft_chunk_at_offset",
                      spec["draft_chunk_launches"])):
+        meta[name] = meta["decode_attention" if name.startswith("decode")
+                          else "ragged_paged_attention"]
+        launches[name] = n
+    # B5 and B4 at head dims 80 and 96: rows of their own, with the
+    # launches of the serving runs of gpt_2_7b (bf16, fp16, serve-features)
+    # and of the Phi-3-mini shape
+    for name, n in hd_launches.items():
         meta[name] = meta["decode_attention" if name.startswith("decode")
                           else "ragged_paged_attention"]
         launches[name] = n

@@ -7,16 +7,19 @@
 // and hands a functor mapping a key index to the element offset of its K/V
 // row, which is where the contiguous and the paged cache differ.
 //
-// One block = 128 threads and ROWS (4 or 16) query rows.  Per key block
-// of BK keys:
-//   1. K rows -> shared (16-byte vector loads, stored as fp32 with row
-//      pitch D+1 so the dot-product reads of neighbouring threads hit
-//      different banks);
+// One block = 128 threads and ROWS (4 or 16) query rows, head dim D = 64,
+// 80, 96 or 128.  Per key block of BK keys:
+//   1. K rows -> shared (16-byte vector loads, the block's 128 threads
+//      walking the tile's BK * D / VEC vectors in order, stored as fp32
+//      with row pitch D+1 so the dot-product reads of neighbouring threads
+//      hit different banks);
 //   2. scores: thread (key = tid % BK, ROWS/2 rows) -- the q
 //      rows are broadcast reads, the K row is private to the thread;
 //   3. online softmax: one warp per row, two keys per lane;
-//   4. V rows -> shared, then acc[row][d] += p[row][:] . V[:, d] with
-//      thread d = tid % D owning ROWS*D/128 accumulators in registers.
+//   4. V rows -> shared, then acc[row][d] += p[row][:] . V[:, d], the
+//      ROWS * D outputs dealt to the threads in order (element tid + 128 i
+//      of the [ROWS][D] tile to thread tid), each thread owning
+//      ceil(ROWS * D / 128) accumulators in registers.
 // Nothing carries between blocks: the TPU kernel's sequential key-block
 // grid axis is the loop below.
 #pragma once
@@ -64,41 +67,51 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Keys [kb, kb + kBK) of K or V -> dst (fp32, zero past kv_hi).  Each
-// thread moves 16-byte vectors: D / VEC threads cover one key row, and a
-// thread resolves the offset of each of its rows once (for the paged
-// cache: one block-table read per row, not per element), then issues a
-// batch of independent loads before storing any of them, so up to eight
+// The largest divisor of n that is at most 8.
+__host__ __device__ constexpr int batch_of(int n) {
+  int b = n < 8 ? n : 8;
+  while (n % b != 0) --b;
+  return b;
+}
+
+// Keys [kb, kb + kBK) of K or V -> dst (fp32, zero past kv_hi).  A key row
+// is LANES = D / VEC 16-byte vectors; the tile's kBK * LANES vectors go to
+// the threads in order (vector tid + 128 p to thread tid in pass p), so
+// at D = 64 and 128, where LANES divides 128, a thread keeps one column of
+// every row it loads, and at D = 80 and 96 (10 or 12 vectors a row in
+// bf16 / fp16, 20 or 24 in fp32) rows straddle threads and no lane idles.
+// A thread resolves the row offset of each of its vectors (for the paged
+// cache: one block-table read per vector, not per element), then issues
+// a batch of independent loads before storing any of them, so up to eight
 // loads per thread are in flight at once.
 template <typename T, int D, typename KeyOffset>
 __device__ __forceinline__ void load_rows(float (*dst)[D + 1],
                                           const T* __restrict__ src, int kb,
                                           int kv_hi, const KeyOffset& key_off) {
   constexpr int VEC = 16 / sizeof(T);
-  constexpr int LANES = D / VEC;            // threads per key row
-  constexpr int KPP = kThreads / LANES;     // key rows per pass
-  constexpr int PASSES = kBK / KPP;
-  constexpr int BATCH = PASSES < 8 ? PASSES : 8;
-  static_assert(kThreads % LANES == 0 && kBK % KPP == 0 &&
-                PASSES % BATCH == 0, "tile shape");
-  const int lane = threadIdx.x % LANES, krow = threadIdx.x / LANES;
+  constexpr int LANES = D / VEC;                      // vectors per key row
+  constexpr int PASSES = kBK * LANES / kThreads;      // vectors per thread
+  constexpr int BATCH = batch_of(PASSES);
+  static_assert(D % VEC == 0 && kBK * LANES % kThreads == 0, "tile shape");
 #pragma unroll
   for (int p0 = 0; p0 < PASSES; p0 += BATCH) {
     uint4 buf[BATCH];
 #pragma unroll
     for (int p = 0; p < BATCH; ++p) {
-      const int key = kb + (p0 + p) * KPP + krow;
+      const int i = (p0 + p) * kThreads + threadIdx.x;
+      const int key = kb + i / LANES;
       buf[p] = key < kv_hi
                    ? __ldg(reinterpret_cast<const uint4*>(
-                         src + key_off(key) + lane * VEC))
+                         src + key_off(key) + (i % LANES) * VEC))
                    : make_uint4(0u, 0u, 0u, 0u);
     }
 #pragma unroll
     for (int p = 0; p < BATCH; ++p) {
-      const int j = (p0 + p) * KPP + krow;
+      const int i = (p0 + p) * kThreads + threadIdx.x;
+      const int j = i / LANES, c = (i % LANES) * VEC;
       const T* e = reinterpret_cast<const T*>(&buf[p]);
 #pragma unroll
-      for (int x = 0; x < VEC; ++x) dst[j][lane * VEC + x] = to_f(e[x]);
+      for (int x = 0; x < VEC; ++x) dst[j][c + x] = to_f(e[x]);
     }
   }
 }
@@ -120,9 +133,11 @@ __device__ __forceinline__ void attend_rows(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ o, float scale, int kv_hi,
     const KeyOffset& key_off, const RowMeta<ROWS>& rm) {
-  static_assert(D == 128 || D == 64, "head_dim must be 128 or 64");
+  static_assert(D == 64 || D == 80 || D == 96 || D == 128,
+                "head_dim must be 64, 80, 96 or 128");
   static_assert(ROWS == 4 || ROWS == 16, "ROWS must be 4 or 16");
-  constexpr int RPT = ROWS * D / kThreads;   // accumulator rows per thread
+  // outputs per thread: element tid + kThreads * r of the [ROWS][D] tile
+  constexpr int RPT = (ROWS * D + kThreads - 1) / kThreads;
   constexpr int SR = ROWS * kBK / kThreads;  // score rows per thread
   __shared__ float q_s[ROWS][D];
   __shared__ float kv_s[kBK][D + 1];
@@ -139,8 +154,14 @@ __device__ __forceinline__ void attend_rows(
     m_s[tid] = kNeg;
     l_s[tid] = 0.f;
   }
-  const int od = tid % D;
-  const int orow0 = (tid / D) * RPT;
+  int orow[RPT], od[RPT];
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    const int e = tid + kThreads * r;
+    // past the tile (ROWS * D not a multiple of 128): no row
+    orow[r] = ROWS * D % kThreads == 0 || e < ROWS * D ? e / D : -1;
+    od[r] = e % D;
+  }
   const int sk = tid % kBK;
   const int srow0 = (tid / kBK) * SR;
   const int warp = tid / 32, lane = tid % 32;
@@ -192,10 +213,11 @@ __device__ __forceinline__ void attend_rows(
 
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
-      const int row = orow0 + r;
+      const int row = orow[r];
+      if (row < 0) continue;
       float a = acc[r] * c_s[row];
 #pragma unroll 8
-      for (int j = 0; j < kBK; ++j) a = fmaf(p_s[row][j], kv_s[j][od], a);
+      for (int j = 0; j < kBK; ++j) a = fmaf(p_s[row][j], kv_s[j][od[r]], a);
       acc[r] = a;
     }
     __syncthreads();  // before the next block overwrites kv_s and p_s
@@ -203,10 +225,10 @@ __device__ __forceinline__ void attend_rows(
 
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
-    const int row = orow0 + r;
-    if (rm.valid[row]) {
+    const int row = orow[r];
+    if (row >= 0 && rm.valid[row]) {
       const float l = fmaxf(l_s[row], 1e-30f);
-      o[rm.off[row] + od] = from_f<T>(acc[r] / l);
+      o[rm.off[row] + od[r]] = from_f<T>(acc[r] / l);
     }
   }
 }

@@ -22,7 +22,7 @@
 //
 // Decode rows (q_len * group <= 8 rows per kv head: every serving decode
 // step, a speculative verify window of up to 8 tokens at group 1, a GQA
-// group of up to 8 heads; head dim 64 or 128): the split-key,
+// group of up to 8 heads; head dim 64, 80, 96 or 128): the split-key,
 // memory-parallel body of split_decode.cuh, shared with decode_attention.cu,
 // over the decode sequences' list; a key's row is resolved through the
 // block table as it is loaded (PagedSeqs), so shared prefix pages and
@@ -30,28 +30,37 @@
 // keys is 32 KB contiguous per kv head at D = 128, so at the serving
 // engine's page a warp's key group lies in one page.
 //
-// Prefill tiles, bf16 or fp16, head dim 64 or 128, a group dividing 64
-// and a page size that is a multiple of 128 or a multiple of 8 dividing
-// 128 (the serving engine's page 128 among them; a row of 64 or 128
-// columns is one or two 128-byte swizzle rows, so the same boxes hold at
-// both head dims): the flash forward's pipeline (flash_attention_fwd.cu,
-// hopper.cuh).  One block of three warpgroups per (128-row tile, kv head):
-// the tile is 128 / group tokens of one sequence by the group's heads, so
-// a kv head's group shares every K/V tile.  A producer warp loads the Q
-// tile by TMA straight from the packed stack -- a 3-d tensor map (column,
-// head, token) with row stride H * D, D / 64 boxes of 64 rows (64 / group
-// tokens by group heads) per consumer warpgroup -- and streams 128-key K
-// and V tiles through a ring (2 stages at D = 128, 4 at 64), each tile's
-// TMA row coordinate resolved through the block table, (page * Hkv + hk)
-// * page_size + offset over k_pages viewed as [P * Hkv * page, D]: D / 64
-// boxes per tile, or per page when pages are smaller than the tile.  Two
-// consumer warpgroups own 64 rows each: S = Q K^T by wgmma, the online
-// softmax on the accumulators, P rounded to the tile's type as the A
-// operand of O += P V.  At D = 128 each warpgroup runs the three in
-// series; at D = 64 the products are half as long and the softmax is not,
-// so the body is the flash forward's D = 64 consumer (wgmma_attention64
-// .cuh): each tile's softmax runs under the products of the tile before
-// and of the other warpgroup, which take turns to issue them.  A
+// Prefill tiles, bf16 or fp16, head dim 64, 80, 96 or 128, a group
+// dividing 64 and a page size that is a multiple of 128 or a multiple of 8
+// dividing 128 (the serving engine's page 128 among them; a tile is
+// hopper::boxes<D>() 64-column boxes of 128-byte swizzle rows, so the same
+// boxes hold at every head dim): the flash forward's pipeline
+// (flash_attention_fwd.cu, hopper.cuh).  One block of three warpgroups per
+// (128-row tile, kv head): the tile is 128 / group tokens of one sequence
+// by the group's heads, so a kv head's group shares every K/V tile.  A
+// producer warp loads the Q tile by TMA straight from the packed stack --
+// a 3-d tensor map (column, head, token) with row stride H * D, a box of
+// 64 rows (64 / group tokens by group heads) per consumer warpgroup and
+// column box -- and streams 128-key K and V tiles through a ring (2
+// stages at D = 80, 96 and 128, 4 at 64), each tile's TMA row coordinate
+// resolved through the block table, (page * Hkv + hk) * page_size +
+// offset over k_pages viewed as [P * Hkv * page, D]: boxes<D>() column
+// boxes per tile, or per page when pages are smaller than the tile.  At
+// D = 80 and 96 (GPT-3 2.7B's and Phi-3-mini's heads) the second box
+// reaches past D: TMA reads the D columns there are (rows of 160 or 192
+// bytes) and zero-fills the rest, and every transaction count is of whole
+// boxes, so a tile costs D = 128's 32 KB of shared memory but D columns of
+// HBM traffic.  Two consumer warpgroups own 64 rows each: S = Q K^T by
+// wgmma, the online softmax on the accumulators, P rounded to the tile's
+// type as the A operand of O += P V.  At D = 80, 96 and 128 each
+// warpgroup runs the three in series, S = Q K^T over D / 16 slices (5, 6
+// or 8) and O += P V as one m64nD product a 16-key slice, which reads V's
+// first D columns only (O: D / 2 fp32 registers a thread, as in B1's
+// forward at those head dims).  At D = 64 the products are half as long
+// and the softmax is not, so the body is the flash forward's D = 64
+// consumer (wgmma_attention64.cuh): each tile's softmax runs under the
+// products of the tile before and of the other warpgroup, which take
+// turns to issue them.  A
 // TinyLlama-shaped 256-token chunk (group 8) is 64 blocks of at most 6
 // K/V tiles each: it fills 64 of the 132 SMs; its bound is the tensor
 // cores' 1.4 us.  bf16 and fp16 run one body, templated on the
@@ -64,8 +73,9 @@
 // row and are never written.  Tiles with the most keys are launched first
 // (the host's order).
 //
-// Prefill tiles otherwise (fp32, other page sizes or groups): the
-// CUDA-core tile of attention_tile.cuh, grid (tiles, Hkv, 16-row chunks
+// Prefill tiles otherwise (fp32, other page sizes or groups; every head
+// dim above): the CUDA-core tile of attention_tile.cuh, grid (tiles, Hkv,
+// 16-row chunks
 // of the tile's q_tile * group rows), keys staged through fp32 shared
 // memory, each key's page resolved through the block table as it is
 // loaded.  fp32 keeps it for the 1e-4 checks; the selection is by dtype
@@ -150,10 +160,11 @@ constexpr int BN = 128;                              // keys of a K/V tile
 constexpr int kThreads = 384;                        // 2 consumer + 1 producer WG
 constexpr int kBox = 128 * hopper::kBoxCols * 2;     // one 64-column box
 // The shared-memory plan at head dim D: Q, then kStages x (K, V), then the
-// barriers: Q's, full[], empty[]
+// barriers: Q's, full[], empty[].  A tile is whole 64-column boxes.
 template <int D>
 struct Smem {
-  static constexpr int kTile = 128 * D * 2;   // 32 KB at D = 128, 16 at 64
+  // 32 KB at D = 80, 96 and 128, 16 at 64
+  static constexpr int kTile = 128 * hopper::box_cols<D>() * 2;
   static constexpr int kStages = D == 64 ? 4 : 2;
   static constexpr int kBarOffset = kTile + kStages * 2 * kTile;
   static constexpr size_t kBytes = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
@@ -234,10 +245,11 @@ ragged_prefill_tc_kernel(const __grid_constant__ PrefillParams p) {
     regs_dealloc<24>();
     if (t == 0) {
       // Q: one box of 64 rows (64 / group tokens x group heads) per
-      // consumer warpgroup and 64 columns
+      // consumer warpgroup and 64 columns; the transaction counts whole
+      // boxes, the columns TMA zero-fills past D included
       mbar_arrive_expect_tx(q_bar, kTile);
       for (int w = 0; w < 2; ++w)
-        for (int c = 0; c < D / kBoxCols; ++c)
+        for (int c = 0; c < boxes<D>(); ++c)
           tma_load_3d(q_s + c * kBox + w * 64 * 128, &p.q_map, q_bar,
                       c * kBoxCols, hk * group, qoff + t0 + w * 64 / group);
       const int per = BN / p.box_rows;          // boxes per K or V tile
@@ -250,7 +262,7 @@ ragged_prefill_tc_kernel(const __grid_constant__ PrefillParams p) {
           const int key = it * BN + j * p.box_rows;
           const int pg = __ldg(table + min(key / p.page, p.max_pages - 1));
           const int row = (pg * p.Hkv + hk) * p.page + key % p.page;
-          for (int c = 0; c < D / kBoxCols; ++c) {
+          for (int c = 0; c < boxes<D>(); ++c) {
             unsigned char* dst = k_t + c * kBox + j * p.box_rows * 128;
             tma_load_2d(dst, &p.k_map, &full[st], c * kBoxCols, row);
             tma_load_2d(dst + kTile, &p.v_map, &full[st], c * kBoxCols, row);
@@ -338,8 +350,9 @@ ragged_prefill_tc_kernel(const __grid_constant__ PrefillParams p) {
             const float pr = ex2(fmaf(sc[i], kLog2e, -ml[r]));
             l[r] += pr;
             sc[i] = pr;
-            o[i] *= corr[r];
           }
+#pragma unroll
+          for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i / 2) % 2];
           uint32_t pa[32];
           acc_to_a<E>(sc, pa);
           fence_regs(o);
@@ -484,8 +497,8 @@ int launch_prefill_cores(const void* q, const void* kp, const void* vp,
 }  // namespace
 
 // One call's launches.  q: packed [total_q, H, D]; pages [P, Hkv, page,
-// D]; o like q; dtype: 0 = float32, 1 = bfloat16, 2 = float16; D is 64 or
-// 128 in every form.  All
+// D]; o like q; dtype: 0 = float32, 1 = bfloat16, 2 = float16; D is 64,
+// 80, 96 or 128 in every form (any other: cudaErrorInvalidValue).  All
 // metadata arrays are int32 on the device: ctx_lens / q_lens / q_offs [B],
 // block_tables [B, max_pages].  Decode form (n_dec > 0): dec_seqs [n_dec]
 // sequences of at most dec_rows = q_len * group <= 8 rows, their keys
@@ -506,7 +519,8 @@ extern "C" int ds_ragged_paged_attention(
     int page_size, int D, int dtype, float scale, void* stream) {
   if (n_dec < 0 || n_tiles < 0 || n_dec + n_tiles == 0 || Hkv <= 0 ||
       H % Hkv != 0 || page_size <= 0 || max_pages <= 0 || Hkv > 65535 ||
-      (D != 128 && D != 64) || dtype < 0 || dtype > 2 || n_dec > 65535)
+      !dsdecode::head_dim_taken(D) || dtype < 0 || dtype > 2 ||
+      n_dec > 65535)
     return (int)cudaErrorInvalidValue;
   const int group = H / Hkv;
   const int* c = static_cast<const int*>(ctx_lens);
@@ -567,15 +581,13 @@ extern "C" int ds_ragged_paged_attention(
         q, k_pages, v_pages, o, c, ql, qo, sot, qot, tb, n_tiles, max_pages,
         H, Hkv, page_size, q_tile, scale, s);
   };
-  using D128 = std::integral_constant<int, 128>;
-  using D64 = std::integral_constant<int, 64>;
-  if (D == 128)
-    return dtype == 0   ? cores(Type<float>{}, D128{})
-           : dtype == 1 ? cores(Type<__nv_bfloat16>{}, D128{})
-                        : cores(Type<__half>{}, D128{});
-  return dtype == 0   ? cores(Type<float>{}, D64{})
-         : dtype == 1 ? cores(Type<__nv_bfloat16>{}, D64{})
-                      : cores(Type<__half>{}, D64{});
+  // one instantiation per head dim, each named (none falls to another)
+  const int rc = dsdecode::with_head_dim(D, [&](auto d) {
+    return dtype == 0   ? cores(Type<float>{}, d)
+           : dtype == 1 ? cores(Type<__nv_bfloat16>{}, d)
+                        : cores(Type<__half>{}, d);
+  });
+  return rc < 0 ? -rc : rc;
 }
 
 // Blocks of the decode form (rows <= 8 query rows per kv head) at head

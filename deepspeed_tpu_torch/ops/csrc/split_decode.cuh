@@ -8,7 +8,7 @@
 // query rows (a GQA group folded in: row r is token r / group of head
 // hk * group + r % group) over keys [0, kv_hi) with the causal-ragged mask
 // key < lim(r), an fp32 online softmax, and 0 for a row that sees no key.
-// Head dim D is 64 or 128, the element type fp32, bf16 or fp16.
+// Head dim D is 64, 80, 96 or 128, the element type fp32, bf16 or fp16.
 //
 // What bounds it on the H100: every cached K/V byte is read once for 4*D
 // flops per key per row -- at most 8 flops per byte at 8 rows, far under
@@ -30,7 +30,12 @@
 // * CUDA cores (1-4 rows; fp32 at any row count): each lane holds 16 bytes
 //   of a key row's dims (8 bf16 / fp16, 4 fp32), LPR lanes a row slice;
 //   the warp's other lane groups take other keys, and every lane holds
-//   every row's q and accumulator in registers.  A block has 16, 8 or 4
+//   every row's q and accumulator in registers.  LPR is D / VEC rounded
+//   up to a power of two, so that a row's lanes sum by shuffles and a warp
+//   holds whole rows: at D = 80 and 96 the lanes past D / VEC (6 and 4 of
+//   16 in bf16 / fp16, 12 and 8 of 32 in fp32) load nothing and add 0, so
+//   a warp load moves 10/16 or 12/16 of the bytes it moves at D = 64 and
+//   128, in the same 16-byte loads.  A block has 16, 8 or 4
 //   warps for 1, 2 or 3-8 rows (as many as one SM's registers hold), and
 //   each warp takes every n-th group of KEYS keys of the block's keys.  A
 //   warp issues all of a group's 16-byte K and V loads into registers
@@ -58,6 +63,12 @@
 //   in registers, the next one's loads in flight while it uses the
 //   current one, and reads a tile's page once (``run``), a tile earlier.
 //   Instructions per key fall ~10x below the CUDA-core body's at 5 rows.
+//   At D = 80 and 96 the head's last 16 or 32 dims are a tail: a lane's
+//   K, q and V loads that would start past D are not issued and read as
+//   zeros, so the products run 6 k steps of S^T at both (at 80 the last
+//   one half zero) and D = 128's 8 output tiles of O^T (3 or 2 of them on
+//   zero rows, never stored): tensor-core work the body has to spare, for
+//   loads that stay 16 bytes and registers no more than D = 128's.
 //
 // Only real rows are computed.  Merges run in a fixed order, so runs
 // repeat bit for bit: the warps in shared memory by warp index, and, when
@@ -97,7 +108,8 @@ template <typename T, int ROWS>
 constexpr bool kTensorCores = ROWS > 4 && !std::is_same<T, float>::value;
 
 // Lane layout of the CUDA-core body for element type T, head dim D and
-// ROWS query rows: a key row is LPR lanes of VEC elements, a warp load
+// ROWS query rows: a key row is LPR lanes (DL of them with dims) of VEC
+// elements, a warp load
 // covers KPL keys, a group is LOADS loads a lane, KEYS keys; WARPS warps a
 // block (the registers of one SM hold 2-4 blocks: a row's q, accumulator
 // and scores cost a lane 2 * VEC + LOADS registers beside the 8 * LOADS of
@@ -105,10 +117,12 @@ constexpr bool kTensorCores = ROWS > 4 && !std::is_same<T, float>::value;
 // slower, PERF.md).
 template <typename T, int D, int ROWS>
 struct Layout {
-  static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  static_assert(D == 64 || D == 80 || D == 96 || D == 128,
+                "head dim 64, 80, 96 or 128");
   static_assert(ROWS >= 1 && ROWS <= kMaxRows, "1-8 rows");
   static constexpr int VEC = 16 / sizeof(T);
-  static constexpr int LPR = D / VEC;
+  static constexpr int DL = D / VEC;   // lanes that hold a key row's dims
+  static constexpr int LPR = DL <= 8 ? 8 : DL <= 16 ? 16 : 32;
   static constexpr int KPL = 32 / LPR;
   static constexpr int LOADS = ROWS > 4 ? 1 : 8;
   static constexpr int KEYS = LOADS * KPL;
@@ -204,7 +218,7 @@ __global__ void __launch_bounds__(Layout<T, Seqs::kDim, ROWS>::WARPS * 32)
 split_kernel(const __grid_constant__ SplitParams<Seqs> p) {
   constexpr int D = Seqs::kDim;
   using L = Layout<T, D, ROWS>;
-  constexpr int VEC = L::VEC, LPR = L::LPR, KPL = L::KPL;
+  constexpr int VEC = L::VEC, DL = L::DL, LPR = L::LPR, KPL = L::KPL;
   constexpr int LOADS = L::LOADS, KEYS = L::KEYS, kWarps = L::WARPS;
   __shared__ float acc_s[kWarps][ROWS][D];
   __shared__ float m_s[kWarps][ROWS], l_s[kWarps][ROWS];
@@ -220,6 +234,7 @@ split_kernel(const __grid_constant__ SplitParams<Seqs> p) {
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int d0 = (lane % LPR) * VEC, kl = lane / LPR;
+  const bool dims = DL == LPR || lane % LPR < DL;   // lanes past D idle
   const T* q = static_cast<const T*>(p.q);
   const T* kp = static_cast<const T*>(p.k) + d0;
   const T* vp = static_cast<const T*>(p.v) + d0;
@@ -234,8 +249,9 @@ split_kernel(const __grid_constant__ SplitParams<Seqs> p) {
     const bool real = r < seq.rows;
     off[r] = real ? seq.row(r) : 0;
     lim[r] = real ? min(seq.lim(r), k_end) : k_begin;   // keys < lim
-    const uint4 u = real ? *reinterpret_cast<const uint4*>(q + off[r] + d0)
-                         : make_uint4(0u, 0u, 0u, 0u);
+    const uint4 u = real && dims
+                        ? *reinterpret_cast<const uint4*>(q + off[r] + d0)
+                        : make_uint4(0u, 0u, 0u, 0u);
     unpack<T>(u, qr[r]);
 #pragma unroll
     for (int x = 0; x < VEC; ++x) qr[r][x] *= qscale;
@@ -256,7 +272,7 @@ split_kernel(const __grid_constant__ SplitParams<Seqs> p) {
 #pragma unroll
     for (int j = 0; j < LOADS; ++j) {
       const int key = g0 + j * KPL + kl;
-      const bool in = key < k_end;
+      const bool in = key < k_end && dims;
       const long long at = in ? seq.key(key) : 0;
       kr[j] = in ? load16(kp + at) : make_uint4(0u, 0u, 0u, 0u);
       vr[j] = in ? load16(vp + at) : make_uint4(0u, 0u, 0u, 0u);
@@ -316,8 +332,8 @@ split_kernel(const __grid_constant__ SplitParams<Seqs> p) {
     }
   }
 
-  // the warp's key rows (bf16 and fp16 at D = 128: lanes l and l + 16 hold
-  // the same dims; fp32 at D = 128: each lane its own)
+  // the warp's key rows (bf16 and fp16 at D = 80, 96 and 128: lanes l and
+  // l + 16 hold the same dims; fp32 at those: each lane its own)
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
 #pragma unroll
@@ -327,7 +343,7 @@ split_kernel(const __grid_constant__ SplitParams<Seqs> p) {
       for (int x = 0; x < VEC; ++x)
         acc[r][x] += __shfl_xor_sync(0xffffffffu, acc[r][x], o);
     }
-    if (lane < LPR) {
+    if (lane < DL) {
 #pragma unroll
       for (int x = 0; x < VEC; ++x) acc_s[warp][r][d0 + x] = acc[r][x];
     }
@@ -405,22 +421,24 @@ __device__ __forceinline__ uint32_t word(const uint4& u, int i) {
 // Lane (g, t) = (lane / 4, lane % 4) of a warp's 16 keys kb.. kb + 15:
 // * S^T = K Q^T, an m16n8 tile per 16 dims of the head (the k step): A is
 //   keys g and g + 8, B is q row g, both from the lane's dims 32 j + 8 t ..
-//   + 7 (j < D / 32), whose 32-bit words 2 s and 2 s + 1 feed k step s;
-//   the accumulators are (key g, rows 2 t, 2 t + 1) and (key g + 8, the
-//   same rows).
+//   + 7 (j < KJ; zeros past D), whose 32-bit words 2 s and 2 s + 1 feed k
+//   step 2 j + s; the accumulators are (key g, rows 2 t, 2 t + 1) and (key
+//   g + 8, the same rows).
 // * O^T += V^T P^T, an m16n8 tile per 16 dims of the output: A is V of
 //   keys 2 t, 2 t + 1, 2 t + 8, 2 t + 9 at the lane's dims 64 h + 8 g .. +
-//   7, word w = 4 h + e feeding output tile w with dims (64 h + 8 g + 2 e,
-//   + 1) as its rows g and g + 8; B is P^T, (keys 2 t, 2 t + 1 | 2 t + 8,
-//   2 t + 9; row g), the transpose of the S^T accumulators' pairs.
+//   7 (zeros past D), word e of load h feeding output tile 4 h + e with
+//   dims (64 h + 8 g + 2 e, + 1) as its rows g and g + 8 (a row past D is
+//   computed, and not stored); B is P^T, (keys 2 t, 2 t + 1 | 2 t + 8, 2 t
+//   + 9; row g), the transpose of the S^T accumulators' pairs.
 template <typename T, int ROWS, typename Seqs>
 __global__ void __launch_bounds__(Layout<T, Seqs::kDim, ROWS>::WARPS * 32)
 split_tc_kernel(const __grid_constant__ SplitParams<Seqs> p) {
   constexpr int D = Seqs::kDim;
   constexpr int kWarps = Layout<T, D, ROWS>::WARPS;
-  constexpr int KJ = D / 32;    // 16-byte loads of a K row's or q's slice
-  constexpr int VH = D / 64;    // 16-byte loads of a V row's slice
-  constexpr int MT = D / 16;    // output tiles, and k steps of S^T
+  constexpr int KJ = (D + 31) / 32;   // 16-byte loads of a K / q slice
+  constexpr int VH = (D + 63) / 64;   // 16-byte loads of a V slice
+  constexpr int KS = 2 * KJ;          // k steps of S^T
+  constexpr int MT = 4 * VH;          // output tiles of O^T
   static_assert(kTensorCores<T, ROWS>, "5-8 rows, bf16 or fp16");
   __shared__ float acc_s[kWarps][ROWS][D];
   __shared__ float m_s[kWarps][ROWS], l_s[kWarps][ROWS];
@@ -438,6 +456,9 @@ split_tc_kernel(const __grid_constant__ SplitParams<Seqs> p) {
   const int g = lane / 4, t = lane % 4;
   const T* kp = static_cast<const T*>(p.k) + 8 * t;
   const T* vp = static_cast<const T*>(p.v) + 8 * g;
+  // whether the lane's j-th K / q load and h-th V load lie inside the head
+  const auto k_in = [&](int j) { return 32 * j + 8 * t < D; };
+  const auto v_in = [&](int h) { return 64 * h + 8 * g < D; };
 
   // q row g's slice (the B operand of S^T), rows 2 t and 2 t + 1's limits
   uint4 qf[KJ];
@@ -446,8 +467,8 @@ split_tc_kernel(const __grid_constant__ SplitParams<Seqs> p) {
     const T* q = static_cast<const T*>(p.q) + (real ? seq.row(g) : 0) + 8 * t;
 #pragma unroll
     for (int j = 0; j < KJ; ++j)
-      qf[j] = real ? *reinterpret_cast<const uint4*>(q + 32 * j)
-                   : make_uint4(0u, 0u, 0u, 0u);
+      qf[j] = real && k_in(j) ? *reinterpret_cast<const uint4*>(q + 32 * j)
+                              : make_uint4(0u, 0u, 0u, 0u);
   }
   int lim[2];
 #pragma unroll
@@ -485,7 +506,8 @@ split_tc_kernel(const __grid_constant__ SplitParams<Seqs> p) {
       const long long a = in ? at(i) : 0;
 #pragma unroll
       for (int j = 0; j < KJ; ++j)
-        tl.k[c][j] = in ? load16(kp + a + 32 * j) : make_uint4(0u, 0u, 0u, 0u);
+        tl.k[c][j] = in && k_in(j) ? load16(kp + a + 32 * j)
+                                   : make_uint4(0u, 0u, 0u, 0u);
     }
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
@@ -494,7 +516,8 @@ split_tc_kernel(const __grid_constant__ SplitParams<Seqs> p) {
       const long long a = in ? at(i) : 0;
 #pragma unroll
       for (int h = 0; h < VH; ++h)
-        tl.v[c][h] = in ? load16(vp + a + 64 * h) : make_uint4(0u, 0u, 0u, 0u);
+        tl.v[c][h] = in && v_in(h) ? load16(vp + a + 64 * h)
+                                   : make_uint4(0u, 0u, 0u, 0u);
     }
   };
   const auto consume = [&](const Tile& tl, int k0) {
@@ -502,7 +525,7 @@ split_tc_kernel(const __grid_constant__ SplitParams<Seqs> p) {
     // g, g + 8; s[1], s[3] row 2 t + 1's
     float s[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int st = 0; st < MT; ++st) {
+    for (int st = 0; st < KS; ++st) {
       const int j = st / 2, w = 2 * (st % 2);
       mma16816<T>(s, word(tl.k[0][j], w), word(tl.k[1][j], w),
                   word(tl.k[0][j], w + 1), word(tl.k[1][j], w + 1),
@@ -588,7 +611,7 @@ split_tc_kernel(const __grid_constant__ SplitParams<Seqs> p) {
     const int d = 64 * (i / 4) + 8 * g + 2 * (i % 4);
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      if (2 * t + j < ROWS) {
+      if (2 * t + j < ROWS && d < D) {
         acc_s[warp][2 * t + j][d] = o[i][j];
         acc_s[warp][2 * t + j][d + 1] = o[i][2 + j];
       }
@@ -726,14 +749,23 @@ int split_slots(int rows) {
   });
 }
 
-// Runs ``f(std::integral_constant<int, D>)`` for head dims 64 and 128.
+// Runs ``f(std::integral_constant<int, D>)`` for head dims 64, 80, 96 and
+// 128, the ones every form of both serving kernels is instantiated at; a
+// negative CUDA error for any other.
 template <typename F>
 int with_head_dim(int D, F&& f) {
   switch (D) {
     case 64: return f(std::integral_constant<int, 64>{});
+    case 80: return f(std::integral_constant<int, 80>{});
+    case 96: return f(std::integral_constant<int, 96>{});
     case 128: return f(std::integral_constant<int, 128>{});
   }
   return -(int)cudaErrorInvalidValue;
+}
+
+// Whether with_head_dim has an instantiation at head dim D.
+inline bool head_dim_taken(int D) {
+  return with_head_dim(D, [](auto) { return 0; }) == 0;
 }
 
 }  // namespace dsdecode

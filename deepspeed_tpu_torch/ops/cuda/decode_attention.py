@@ -19,9 +19,11 @@ import math
 import torch
 
 from deepspeed_tpu_torch.ops import op_builder
+from deepspeed_tpu_torch.ops.cuda.flash_attention import check_head_dim
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-HEAD_DIMS = (64, 128)   # the kernel's head dims, in both forms
+# the kernel's head dims, in both forms (and B4's, in all of its forms)
+HEAD_DIMS = (64, 80, 96, 128)
 # The decode form (at most DECODE_ROWS query rows per kv head) splits each
 # sequence's keys into chunks of at least DECODE_MIN_CHUNK keys, one block
 # each, merged in chunk order by a second kernel when a sequence spans
@@ -135,10 +137,12 @@ def decode_attention_cuda(q, k, v, lengths, softmax_scale=None):
     """Launch the decode kernel on the current stream.
 
     q: [B, T, H, D]; k/v: [B, Hkv, S_max, D] (contiguous, same dtype as q:
-    float32, bfloat16 or float16, D = 64 or 128); lengths: a Python int
+    float32, bfloat16 or float16, D in :data:`HEAD_DIMS`, else
+    ``NotImplementedError`` naming ROADMAP A16); lengths: a Python int
     shared by every sequence, or an int32 CUDA tensor [B].  Returns a new
     [B, T, H, D] tensor in q's dtype."""
     B, T, H, D = q.shape
+    check_head_dim("decode_attention_cuda", D, HEAD_DIMS)
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("decode_attention_cuda needs CUDA tensors; use the "
                          "plain version for CPU tensors")
@@ -151,8 +155,6 @@ def decode_attention_cuda(q, k, v, lengths, softmax_scale=None):
             k.shape[3] != D or H % k.shape[1] != 0:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("decode_attention_cuda needs contiguous q/k/v")
     if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:

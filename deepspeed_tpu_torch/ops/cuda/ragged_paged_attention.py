@@ -22,13 +22,14 @@ Where the TPU kernel runs every sequence as q_tile-token tiles,
 :func:`plan_launch` sends each sequence to one of two forms: decode rows
 (``q_len * group <= DECODE_ROWS``: every serving decode step, a
 speculative verify window of up to 8 tokens at group 1, a group-8 draft's
-decode step; head dim 64 or 128) to the split-key decode body shared with
-B5, and the rest to prefill tiles -- the tensor-core kernel's 128-row
-tiles where :func:`tensor_core_prefill` holds (bf16 or fp16, head dim 64
-or 128, the serving engine's page sizes), else the CUDA-core tiles (fp32,
-other groups and pages).  That choice is by dtype and shape, made here,
-and not a fallback: both forms are this wrapper's kernel, counted in the
-same ``launches``.
+decode step) to the split-key decode body shared with B5, and the rest to
+prefill tiles -- the tensor-core kernel's 128-row tiles where
+:func:`tensor_core_prefill` holds (bf16 or fp16, the serving engine's page
+sizes), else the CUDA-core tiles (fp32, other groups and pages).  That
+choice is by dtype and shape, made here, and not a fallback: both forms
+are this wrapper's kernel, counted in the same ``launches``.  Every form
+takes head dims 64, 80, 96 and 128 (``HEAD_DIMS``); another raises
+``NotImplementedError`` naming ROADMAP A16.
 """
 
 import functools
@@ -46,22 +47,24 @@ from deepspeed_tpu_torch.ops.cuda.decode_attention import (DECODE_ROWS,
                                                            dense_attention,
                                                            key_splits,
                                                            min_chunk)
+from deepspeed_tpu_torch.ops.cuda.flash_attention import check_head_dim
 
 DEFAULT_Q_TILE = 8
 TC_ROWS = 128   # query rows (tokens x group heads) of a tensor-core tile
 TC_KEYS = 128   # keys of its K/V tile
-TC_HEAD_DIMS = (64, 128)   # head dims of its instantiations
 
 
 def tensor_core_prefill(dtype, head_dim, group, page_size):
     """Whether prefill tiles take the wgmma + TMA kernel: bf16 or fp16,
-    head dim 64 or 128, a GQA group dividing 64 (a warpgroup's 64 rows
-    hold whole tokens) and a page size that is a multiple of the 128-key
-    tile or a multiple of 8 rows dividing it (each TMA box starts on a
-    swizzle atom; a row of 64 or 128 columns is one or two 128-byte swizzle
-    rows).  Other shapes take the CUDA-core tiles."""
+    a head dim of ``HEAD_DIMS`` (64, 80, 96 or 128: each has a tensor-core
+    instantiation), a GQA group dividing 64 (a warpgroup's 64 rows hold
+    whole tokens) and a page size that is a multiple of the 128-key tile
+    or a multiple of 8 rows dividing it (each TMA box starts on a swizzle
+    atom; a row of D columns is 64-column boxes of 128-byte swizzle rows,
+    zero-filled past D at 80 and 96).  Other shapes take the CUDA-core
+    tiles."""
     return (dtype in (torch.bfloat16, torch.float16)
-            and head_dim in TC_HEAD_DIMS and 64 % group == 0
+            and head_dim in HEAD_DIMS and 64 % group == 0
             and (page_size % TC_KEYS == 0 or
                  (TC_KEYS % page_size == 0 and page_size % 8 == 0)))
 
@@ -158,6 +161,7 @@ def ragged_paged_attention_cuda(q, k_pages, v_pages, block_tables, ctx_lens,
     combine, when a sequence's keys are split) and the prefill tiles'
     kernel, each where it has work.  Returns [total_q, H, D]."""
     total_q, H, D = q.shape
+    check_head_dim("ragged_paged_attention_cuda", D, HEAD_DIMS)
     if not (q.is_cuda and k_pages.is_cuda and v_pages.is_cuda):
         raise ValueError("ragged_paged_attention_cuda needs CUDA tensors; "
                          "use the plain version for CPU tensors")
@@ -170,8 +174,6 @@ def ragged_paged_attention_cuda(q, k_pages, v_pages, block_tables, ctx_lens,
             k_pages.shape[3] != D or H % k_pages.shape[1] != 0:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, pages "
                          f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
     if not (q.is_contiguous() and k_pages.is_contiguous() and
             v_pages.is_contiguous()):
         raise ValueError("ragged_paged_attention_cuda needs contiguous "

@@ -16,8 +16,10 @@ from deepspeed_tpu.ops.decode_attention import init_cache as jax_init_cache
 from deepspeed_tpu.ops.decode_attention import update_cache as jax_update
 from deepspeed_tpu.ops.pallas.decode_attention import decode_attention_pallas
 from deepspeed_tpu_torch.ops.cuda.decode_attention import (
-    DECODE_MIN_CHUNK, DECODE_MIN_CHUNK_TC, DECODE_ROWS,
-    decode_attention_plain, decode_splits, min_chunk)
+    DECODE_MIN_CHUNK, DECODE_MIN_CHUNK_TC, DECODE_ROWS, HEAD_DIMS,
+    decode_attention_cuda, decode_attention_plain, decode_splits, min_chunk)
+from deepspeed_tpu_torch.ops.cuda.ragged_paged_attention import \
+    ragged_paged_attention_cuda
 from deepspeed_tpu_torch.ops.decode_attention import (decode_attention,
                                                       init_cache,
                                                       resolve_backend,
@@ -31,18 +33,19 @@ def _rand(rng, *shape):
     return rng.standard_normal(shape).astype(np.float32)
 
 
-def _caches(Hkv, T, prefix=7, seed=0):
-    """The same prefix + T new tokens appended to a JAX and a port cache."""
+def _caches(Hkv, T, prefix=7, seed=0, Dh=D):
+    """The same prefix + T new tokens appended to a JAX and a port cache
+    of head dim Dh."""
     rng = np.random.default_rng(seed)
-    k0, v0 = _rand(rng, B, prefix, Hkv, D), _rand(rng, B, prefix, Hkv, D)
-    k1, v1 = _rand(rng, B, T, Hkv, D), _rand(rng, B, T, Hkv, D)
-    jc = jax_init_cache(B, S, Hkv, D, jnp.float32)
+    k0, v0 = _rand(rng, B, prefix, Hkv, Dh), _rand(rng, B, prefix, Hkv, Dh)
+    k1, v1 = _rand(rng, B, T, Hkv, Dh), _rand(rng, B, T, Hkv, Dh)
+    jc = jax_init_cache(B, S, Hkv, Dh, jnp.float32)
     jc = jax_update(jc, jnp.asarray(k0), jnp.asarray(v0))
     jc = jax_update(jc, jnp.asarray(k1), jnp.asarray(v1))
-    tc = init_cache(B, S, Hkv, D, torch.float32, device="cpu")
+    tc = init_cache(B, S, Hkv, Dh, torch.float32, device="cpu")
     tc = update_cache(tc, torch.from_numpy(k0), torch.from_numpy(v0))
     tc = update_cache(tc, torch.from_numpy(k1), torch.from_numpy(v1))
-    q = _rand(rng, B, T, H, D)
+    q = _rand(rng, B, T, H, Dh)
     return jc, tc, q
 
 
@@ -129,6 +132,59 @@ def test_head_dim_64_group_8_matches_pallas(T, Hkv):
                                    jnp.asarray(v), jnp.asarray(lengths),
                                    interpret=True)
     np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("T", [1, 5])
+@pytest.mark.parametrize("Hkv", [4, 2], ids=["mha", "gqa"])
+@pytest.mark.parametrize("Dh", [80, 96])
+def test_head_dims_80_96_match_jnp_and_pallas(Dh, Hkv, T):
+    """Head dims 80 (GPT-3 2.7B's) and 96 (Phi-3-mini's), MHA and GQA,
+    a decode step and 5 tokens: the port's decode attention on a cache
+    (the plain version on the CPU) against the JAX package's jnp path and
+    its Pallas kernel in interpret mode, then ragged lengths (the kernel's
+    [B] operand) against the Pallas kernel."""
+    jc, tc, q = _caches(Hkv, T, seed=Dh, Dh=Dh)
+    got = decode_attention(torch.from_numpy(q), tc).numpy()
+    np.testing.assert_allclose(
+        got, np.asarray(jax_decode(jnp.asarray(q), jc, impl="jnp")), **TOL)
+    lengths = jnp.full((B,), jc.length, jnp.int32)
+    kern = decode_attention_pallas(jnp.asarray(q), jc.k, jc.v, lengths,
+                                   interpret=True)
+    np.testing.assert_allclose(got, np.asarray(kern), **TOL)
+    rng = np.random.default_rng(Dh + T)
+    k, v = _rand(rng, B, Hkv, S, Dh), _rand(rng, B, Hkv, S, Dh)
+    ragged = np.asarray([T + 2, S], np.int32)
+    got = decode_attention_plain(torch.from_numpy(q), torch.from_numpy(k),
+                                 torch.from_numpy(v),
+                                 torch.from_numpy(ragged)).numpy()
+    kern = decode_attention_pallas(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), jnp.asarray(ragged),
+                                   interpret=True)
+    np.testing.assert_allclose(got, np.asarray(kern), **TOL)
+
+
+@pytest.mark.parametrize("Dh", [64, 80, 96, 128, 48, 256])
+def test_wrappers_check_the_head_dim_first(Dh):
+    """B5's and B4's wrappers take head dims 64, 80, 96 and 128 and refuse
+    any other with ``NotImplementedError`` naming ROADMAP A16, before any
+    other check: a head dim they take goes on to the device check, which
+    CPU tensors fail with ``ValueError``."""
+    assert HEAD_DIMS == (64, 80, 96, 128)
+    q, kv = torch.zeros(1, 1, 2, Dh), torch.zeros(1, 2, 8, Dh)
+    pages = torch.zeros(4, 2, 8, Dh)
+    meta = torch.zeros(1, dtype=torch.int32)
+    calls = [lambda: decode_attention_cuda(q, kv, kv, 1),
+             lambda: ragged_paged_attention_cuda(
+                 q[0], pages, pages, torch.zeros(1, 1, dtype=torch.int32),
+                 meta, meta, meta, meta[:0], meta[:0], 8)]
+    for call in calls:
+        if Dh in HEAD_DIMS:
+            with pytest.raises(ValueError, match="CUDA tensors"):
+                call()
+        else:
+            with pytest.raises(NotImplementedError,
+                               match=f"head_dim {Dh} .*ROADMAP A16"):
+                call()
 
 
 @pytest.mark.parametrize("B,T,H,Hkv,slots,want", [

@@ -1,11 +1,12 @@
 """Head dims no kernel takes are refused at construction on the card.
 
-The flash kernels (B1, B2) take head dims 64, 80, 96 and 128; the serving
-kernels (B4, B5) and the block-sparse kernel (B6) take 64 and 128.  So
-gpt_760m (96) and gpt_2_7b (80) train on the card but are not served
-there, and a Gemma-style 256 does neither.  A model of a head dim its
-path's kernels do not take raises ``NotImplementedError`` naming ROADMAP
-A16 where it is built for the card: ``initialize`` (which ``ds_bench
+The flash kernels (B1, B2) and the serving kernels (B4, B5) take head
+dims 64, 80, 96 and 128; the block-sparse kernel (B6) takes 64 and 128.
+So gpt_760m (96), gpt_2_7b (80) and a Phi-3-mini-shaped model (96) train
+and are served on the card, and a Gemma-style 256 (or a 48) does
+neither.  A model of a head dim its path's kernels do not take raises
+``NotImplementedError`` naming ROADMAP A16 where it is built for the
+card: ``initialize`` (which ``ds_bench
 train``'s ``run_benchmark`` reaches), ``init_inference`` and
 ``create_serving_engine``; ``SparseSelfAttention`` learns the head dim
 only at its call and raises there.  On the CPU the same model runs
@@ -36,6 +37,7 @@ GPT96 = dict(hidden_size=192, n_heads=2, activation="gelu",
 TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": 2,
                 "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}}}
 A16 = "head_dim 96 not in .*ROADMAP A16"
+A16_256 = "head_dim 256 not in .*ROADMAP A16"
 
 
 def _model(**kw):
@@ -47,15 +49,15 @@ def _ids(shape, seed=0):
     return np.random.default_rng(seed).integers(0, 256, shape)
 
 
-@pytest.mark.parametrize("head_dim", [64, 128, 80, 96, 256])
+@pytest.mark.parametrize("head_dim", [64, 128, 80, 96, 256, 48])
 def test_card_checks_by_head_dim(head_dim):
-    """64 and 128 pass both checks on the card; 80 and 96 pass training's
-    and raise naming A16 at serving's; 256 raises at both.  Every head
-    dim passes both on the CPU."""
+    """64, 80, 96 and 128 pass both checks on the card (80 and 96 pass
+    serving's since B4 and B5 take them); 256 and 48 raise naming A16 at
+    both.  Every head dim passes both on the CPU."""
     cfg = TransformerConfig.tiny(hidden_size=2 * head_dim, n_heads=2)
     assert cfg.head_dim == head_dim
     for check, taken in ((check_trainable, (64, 80, 96, 128)),
-                         (check_servable, (64, 128))):
+                         (check_servable, (64, 80, 96, 128))):
         check(cfg, "cpu")
         if head_dim in taken:
             check(cfg, torch.device("cuda"))
@@ -85,8 +87,12 @@ def test_initialize_refuses_head_dim_96_on_the_card():
 
 
 def test_init_inference_refuses_head_dim_96_on_the_card():
-    model = _model()
-    with pytest.raises(NotImplementedError, match=A16):
+    """Head dim 256 is refused on the card: 96, which this test refused
+    before B5's forms at 80 and 96 were ported, now passes
+    ``check_servable`` there (``test_card_checks_by_head_dim``)."""
+    model = _model(hidden_size=512)
+    assert model.config.head_dim == 256
+    with pytest.raises(NotImplementedError, match=A16_256):
         deepspeed_tpu_torch.init_inference(model, dtype="fp32",
                                            device="cuda")
     eng = deepspeed_tpu_torch.init_inference(model, dtype="fp32",
@@ -96,21 +102,33 @@ def test_init_inference_refuses_head_dim_96_on_the_card():
 
 
 def test_serving_engine_refuses_head_dim_96_on_the_card():
-    """The serving engine raises before it allocates its page pool on the
-    card; with the plain backend (the smoke's comparison) it goes on."""
-    model = _model()
+    """Head dim 256: the serving engine raises before it allocates its
+    page pool on the card; with the plain backend (the smoke's
+    comparison) it goes on.  Head dim 96, which this test refused before
+    B4's forms at 80 and 96 were ported, now reaches the page pool on the
+    card."""
+    model = _model(hidden_size=512)
+    assert model.config.head_dim == 256
     made = []
-    stub = types.SimpleNamespace(
-        config=model.config, device=torch.device("cuda"),
-        init_paged_caches=lambda *a, **k: made.append(k["dtype"]))
-    with pytest.raises(NotImplementedError, match=A16):
+
+    def stub(cfg):
+        return types.SimpleNamespace(
+            config=cfg, device=torch.device("cuda"),
+            init_paged_caches=lambda *a, **k: made.append(k["dtype"]))
+
+    with pytest.raises(NotImplementedError, match=A16_256):
         deepspeed_tpu_torch.create_serving_engine(
-            stub, max_batch=2, page_size=8, max_seq=32)
+            stub(model.config), max_batch=2, page_size=8, max_seq=32)
     assert made == []
-    ServingEngine(stub, max_batch=2, page_size=8, max_seq=32,
+    ServingEngine(stub(model.config), max_batch=2, page_size=8, max_seq=32,
                   serving={"attention_backend": "plain"})
     assert made == [torch.bfloat16]
-    # on the CPU the plain versions serve it
+    d96 = _model().config
+    assert d96.head_dim == 96
+    deepspeed_tpu_torch.create_serving_engine(
+        stub(d96), max_batch=2, page_size=8, max_seq=32)
+    assert made == [torch.bfloat16, torch.bfloat16]
+    # on the CPU the plain versions serve head dim 256
     se = deepspeed_tpu_torch.create_serving_engine(
         model, max_batch=2, page_size=8, max_seq=32, dtype="fp32")
     out = se.generate([list(range(1, 6)), list(range(7, 10))], 3)

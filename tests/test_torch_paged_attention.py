@@ -341,11 +341,17 @@ def test_decode_key_chunks_cover_each_key_once(pairs, slots):
     # groups as 128; fp32 and other head dims keep the CUDA-core tiles
     (torch.bfloat16, 64, 8, 8, True), (torch.float16, 64, 4, 16, True),
     (torch.bfloat16, 64, 1, 48, False), (torch.bfloat16, 64, 3, 128, False),
-    (torch.float32, 64, 8, 128, False), (torch.bfloat16, 80, 1, 128, False)])
+    (torch.float32, 64, 8, 128, False),
+    # head dims 80 and 96 (two 64-column boxes, zero-filled past D): the
+    # same pages and groups; fp32 and head dims no form takes do not
+    (torch.bfloat16, 80, 1, 128, True), (torch.float16, 80, 4, 16, True),
+    (torch.bfloat16, 96, 1, 128, True), (torch.float16, 96, 8, 128, True),
+    (torch.bfloat16, 80, 1, 48, False), (torch.bfloat16, 96, 3, 128, False),
+    (torch.float32, 96, 1, 128, False), (torch.bfloat16, 256, 1, 128, False)])
 def test_tensor_core_prefill_selection(dtype, D, group, page, want):
     """The prefill tiles take the tensor-core kernel for bf16 and fp16 at
-    head dims 64 and 128, a group dividing 64 and pages that tile or
-    divide the 128-key tile in whole swizzle atoms; anything else takes
+    head dims 64, 80, 96 and 128, a group dividing 64 and pages that tile
+    or divide the 128-key tile in whole swizzle atoms; anything else takes
     the CUDA-core one."""
     assert tensor_core_prefill(dtype, D, group, page) is want
 
@@ -523,6 +529,111 @@ def test_launch_plan_tensor_cores_head_dim_64(name, Hq, Hkv, page, q_lens,
     assert plan.q_tile == TC_ROWS // group and len(plan.seq_of_tile)
     assert any(ql % plan.q_tile for ql in q_lens if ql * group >
                DECODE_ROWS) or name.startswith("group8_chunk")
+    got = _plan_emulated(torch.from_numpy(q), torch.from_numpy(kp),
+                         torch.from_numpy(vp), torch.from_numpy(tables),
+                         ctx_lens, q_lens, plan, chunk=64)
+    kern = jax_ragged(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+                      jnp.asarray(tables), jnp.asarray(ctx_lens, jnp.int32),
+                      q_lens, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(kern), **TOL)
+
+
+def _state_dh(ctx_lens, page, Hkv, Dh, seed, shared_pages=0):
+    """Pools of head dim Dh and allocator-made block tables (numpy), with
+    ``shared_pages`` prefix pages shared by the sequences that reach past
+    them."""
+    rng = np.random.default_rng(seed)
+    n_pages = sum(-(-c // page) for c in ctx_lens) + shared_pages + 2
+    alloc = PagedAllocator(n_pages, page,
+                           max(-(-c // page) for c in ctx_lens),
+                           reserve_scratch=True)
+    shared = []
+    if shared_pages:
+        shared = alloc.allocate("__prefix__",
+                                shared_pages * page)[:shared_pages]
+    for s, c in enumerate(ctx_lens):
+        alloc.allocate(s, c, shared=shared[:min(shared_pages,
+                                                max(0, (c - 1) // page))])
+    assert alloc.audit() == {}
+    tables = alloc.block_table(list(range(len(ctx_lens))))
+    kp = rng.standard_normal((n_pages, Hkv, page, Dh)).astype(np.float32)
+    vp = rng.standard_normal((n_pages, Hkv, page, Dh)).astype(np.float32)
+    return tables, kp, vp
+
+
+@pytest.mark.parametrize("T", [1, 5])
+@pytest.mark.parametrize("Hkv", [4, 2], ids=["mha", "gqa"])
+@pytest.mark.parametrize("Dh", [80, 96])
+def test_head_dims_80_96_match_pallas_and_oracle(Dh, Hkv, T):
+    """Head dims 80 (GPT-3 2.7B's) and 96 (Phi-3-mini's), MHA and GQA, a
+    decode step and 5 tokens over ragged contexts: the rectangular
+    front-end (the plain version on the CPU) against the JAX package's
+    rect Pallas kernel in interpret mode and its jnp gather path, then the
+    packed front-end on a mixed batch sharing a prefix page against the
+    ragged Pallas kernel."""
+    ctx = [T + 3, T, T + 9]
+    tables, kp, vp = _state_dh(ctx, PAGE, Hkv, Dh, seed=Dh)
+    q = np.random.default_rng(Dh + T).standard_normal(
+        (3, T, H, Dh)).astype(np.float32)
+    lengths = np.asarray(ctx, np.int32)
+    got = ragged_paged_attention_rect(
+        torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
+        torch.from_numpy(tables), torch.from_numpy(lengths)).numpy()
+    kern = jax_ragged_rect(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+                           jnp.asarray(tables), jnp.asarray(lengths),
+                           interpret=True)
+    np.testing.assert_allclose(got, np.asarray(kern), **TOL)
+    want = jax_paged(jnp.asarray(q), JaxPagedKVCache(jnp.asarray(kp),
+                                                     jnp.asarray(vp)),
+                     jnp.asarray(tables), jnp.asarray(lengths), impl="jnp")
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+    q_lens, ctx_lens = [T, 1, 9, 1], [T + 6, 13, 9, 11]
+    tables, kp, vp = _state_dh(ctx_lens, PAGE, Hkv, Dh, seed=Dh + 1,
+                               shared_pages=1)
+    qp = np.random.default_rng(Dh + 2).standard_normal(
+        (sum(q_lens), H, Dh)).astype(np.float32)
+    got = ragged_paged_attention(torch.from_numpy(qp), torch.from_numpy(kp),
+                                 torch.from_numpy(vp),
+                                 torch.from_numpy(tables), ctx_lens,
+                                 q_lens).numpy()
+    kern = jax_ragged(jnp.asarray(qp), jnp.asarray(kp), jnp.asarray(vp),
+                      jnp.asarray(tables), jnp.asarray(ctx_lens, jnp.int32),
+                      q_lens, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(kern), **TOL)
+
+
+TC80_96_CASES = [  # (name, Dh, Hq, Hkv, page, q_lens, ctx_lens)
+    ("d80_group1_page128_ragged_last_tile", 80, 2, 2, 128, [200, 1, 5],
+     [230, 300, 9]),
+    ("d80_group4_page16_chunk_256_at_start_512", 80, 4, 1, 16, [256, 1],
+     [768, 40]),
+    ("d96_group1_page16_ragged_last_tile", 96, 2, 2, 16, [200, 1, 9],
+     [230, 40, 9]),
+    ("d96_group8_page128_chunk_256_at_start_512", 96, 8, 1, 128, [256, 1],
+     [768, 300]),
+]
+
+
+@pytest.mark.parametrize("name,Dh,Hq,Hkv,page,q_lens,ctx_lens",
+                         TC80_96_CASES, ids=[c[0] for c in TC80_96_CASES])
+def test_launch_plan_tensor_cores_head_dims_80_96(name, Dh, Hq, Hkv, page,
+                                                  q_lens, ctx_lens):
+    """The tensor-core plan at head dims 80 and 96 -- which bf16 and fp16
+    now select -- executed as the kernels read it (prefill tiles of 128 //
+    group tokens, most keys first, to their frontier; decode rows in key
+    chunks merged by their maxima), against the JAX Pallas kernel in
+    interpret mode: groups 1, 4 and 8, pages 16 and 128, a ragged last
+    tile, a 256-token chunk after 512 cached tokens."""
+    group = Hq // Hkv
+    assert tensor_core_prefill(torch.bfloat16, Dh, group, page)
+    assert tensor_core_prefill(torch.float16, Dh, group, page)
+    tables, kp, vp = _state_dh(ctx_lens, page, Hkv, Dh, seed=len(name))
+    q = np.random.default_rng(Dh).standard_normal(
+        (sum(q_lens), Hq, Dh)).astype(np.float32)
+    plan = plan_launch(q_lens, group, True)
+    assert plan.q_tile == TC_ROWS // group and len(plan.seq_of_tile)
+    assert len(plan.decode_seqs) == sum(ql * group <= DECODE_ROWS
+                                        for ql in q_lens)
     got = _plan_emulated(torch.from_numpy(q), torch.from_numpy(kp),
                          torch.from_numpy(vp), torch.from_numpy(tables),
                          ctx_lens, q_lens, plan, chunk=64)

@@ -125,6 +125,63 @@ def test_head_dim_64_group_8_tokens_identical(tiny_d64, entry):
     assert teng.leak_report() == {}
 
 
+# The two shapes the serving kernels take at head dims 80 and 96, at a
+# tiny width: GPT-3 2.7B's wiring (GPT-style: learned positions,
+# LayerNorm, GELU, tied head) with 2 heads of 80, and Phi-3-mini-4k's
+# (llama wiring as the injection policy builds it: RMSNorm, RoPE, SwiGLU,
+# untied head) with 2 heads of 96
+HEAD_DIM_MODELS = {
+    "gpt_d80": dict(hidden_size=160, n_heads=2, activation="gelu",
+                    use_rmsnorm=False, use_rope=False, norm_bias=True,
+                    tie_embeddings=True),
+    "phi3_d96": dict(hidden_size=192, n_heads=2, ffn_hidden_size=512,
+                     activation="silu", use_rmsnorm=True, use_rope=True,
+                     tie_embeddings=False),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(HEAD_DIM_MODELS))
+def tiny_d80_96(request):
+    kw = HEAD_DIM_MODELS[request.param]
+    jmodel = JaxLM(JaxConfig.tiny(**kw))
+    params = jmodel.init(jax.random.key(4))
+    np_params = jax.tree_util.tree_map(np.asarray, params)
+    cfg = TransformerConfig.tiny(**kw)
+    assert cfg.head_dim == {"gpt_d80": 80, "phi3_d96": 96}[request.param]
+    return cfg, jmodel, params, np_params
+
+
+@pytest.mark.parametrize("entry", ["generate", "serve"])
+def test_head_dims_80_96_tokens_identical(tiny_d80_96, entry):
+    """A GPT-wired model of head dim 80 and a Phi-3-wired one of head dim
+    96 (the shapes B4 and B5 now serve on the card), weights carried from
+    the JAX package by ``from_jax_params``: greedy tokens of
+    ``init_inference(...).generate`` and of a ``ServingEngine`` (more
+    requests than slots) equal the JAX package's, fp32."""
+    cfg, jmodel, params, np_params = tiny_d80_96
+    tmodel = CausalTransformerLM(cfg, device="cpu")
+    tmodel.load_state_dict(from_jax_params(np_params, cfg))
+    if entry == "generate":
+        prompt = np.random.default_rng(10).integers(0, cfg.vocab_size,
+                                                    (3, 6))
+        jeng = deepspeed_tpu.init_inference(
+            model=jmodel, config={"dtype": "float32"}, params=params)
+        want = np.asarray(jeng.generate(prompt, max_new_tokens=8))
+        got = deepspeed_tpu_torch.init_inference(
+            tmodel, dtype="fp32", device="cpu").generate(prompt, 8)
+        np.testing.assert_array_equal(got.numpy(), want)
+        return
+    prompts = _prompts(cfg, [3, 11, 6], seed=12)
+    jeng = JaxServing(jmodel, params, max_batch=2, page_size=8, max_seq=64,
+                      dtype=jnp.float32,
+                      serving={"attention_backend": "jnp"})
+    teng = ServingEngine(tmodel, max_batch=2, page_size=8, max_seq=64,
+                         dtype=torch.float32)
+    assert teng.generate(prompts, max_new_tokens=7) == \
+        jeng.generate(prompts, max_new_tokens=7)
+    assert teng.leak_report() == {}
+
+
 def _serve_both(tiny, prompts, max_batch, max_new, eos=None, **sampling):
     cfg, jmodel, params, _, tmodel = tiny
     jeng = JaxServing(jmodel, params, max_batch=max_batch, page_size=8,

@@ -253,8 +253,8 @@ _SASS_NEW = """
 
 def test_sass_counts_reads_the_sparse_and_prefill_instantiations():
     """B6's tensor-core kernel by (block, head dim), B4's prefill kernel
-    by element type (bf16, fp16) and head dim (64, 128); their CUDA-core
-    kernels are not counted."""
+    by element type (bf16, fp16) and head dim (64, 80, 96, 128); their
+    CUDA-core kernels are not counted."""
     kernels = dict((k, s) for s, k in chip_smoke.TENSOR_CORE_KERNELS)
     assert kernels["sparse_tc_kernel"] == "sparse_attention"
     assert kernels["ragged_prefill_tc_kernel"] == "ragged_paged_attention"
@@ -265,11 +265,11 @@ def test_sass_counts_reads_the_sparse_and_prefill_instantiations():
         ("bf16", 64): (2, 1, 1)}
     # every template's expected instantiations: 4 flash forms x (bf16,
     # fp16) x head dims (64, 80, 96, 128), 4 x 2 sparse, (bf16, fp16) x
-    # (64, 128)
+    # (64, 80, 96, 128)
     assert {k: v[2] for k, v in chip_smoke.SASS_TEMPLATES.items()} == {
         "flash_fwd_kernel": 32, "flash_bwd_dq_kernel": 32,
         "flash_bwd_dkv_kernel": 32, "sparse_tc_kernel": 8,
-        "ragged_prefill_tc_kernel": 4}
+        "ragged_prefill_tc_kernel": 8}
 
 
 _SASS_D80_96 = """
@@ -549,6 +549,102 @@ def test_expected_b4_launches_match_a_counted_run(kind):
     if kind == "speculative":
         assert draft == st["draft_calls"] > 0
     assert chip_smoke.prefill_chunks([17, 8, 1], 8, cached=[8, 0, 0]) == 4
+
+
+# --------------------------------------- serving at head dims 80 and 96
+@pytest.mark.parametrize("head_dim", [80, 96])
+def test_b4_form_launches_match_a_counted_serve_run(head_dim, monkeypatch):
+    """The kernels JSON's B4 rows of a monolithic serve run --
+    ``b4_form_launches``: a launch a layer a decode step, and a layer a
+    prompt's prefill by its bucket -- against a tiny engine of head dim 80
+    and 96 on the CPU whose plain paged attention records each call's
+    query length (through the dense attention it calls); only the buckets
+    asked for are kept."""
+    from deepspeed_tpu_torch.inference.serving import ServingEngine
+    from deepspeed_tpu_torch.models.transformer import (CausalTransformerLM,
+                                                        TransformerConfig)
+    from deepspeed_tpu_torch.ops.cuda import ragged_paged_attention as rp
+    seen, real = [], rp.dense_attention    # what the plain version calls
+    monkeypatch.setattr(rp, "dense_attention",
+                        lambda q, *a, **k: seen.append(q.shape[1]) or
+                        real(q, *a, **k))
+    cfg = TransformerConfig.tiny(hidden_size=2 * head_dim, n_heads=2,
+                                 n_layers=3)
+    model = CausalTransformerLM(cfg, device="cpu").init(0)
+    lens = [5, 20, 3, 33, 9, 16]
+    rng = np.random.default_rng(1)
+    eng = ServingEngine(model, max_batch=2, page_size=8, max_seq=64,
+                        dtype=torch.float32)
+    eng.generate([rng.integers(0, 256, (n,)).tolist() for n in lens],
+                 max_new_tokens=6)
+    steps = eng.scheduler.sched_stats["decode_steps"]
+    got = chip_smoke.b4_form_launches(3, steps, lens, "_d80")
+    assert got["ragged_paged_attention_d80"] == 3 * steps == \
+        seen.count(1)
+    by_bucket = {}
+    for T in seen:
+        if T > 1:
+            key = f"ragged_paged_attention_prefill_{T}_d80"
+            by_bucket[key] = by_bucket.get(key, 0) + 1
+    assert {k: v for k, v in got.items() if "prefill" in k} == by_bucket
+    assert sum(got.values()) == len(seen) == 3 * eng.stats["model_calls"]
+    assert chip_smoke.b4_form_launches(3, steps, lens, "_d80", (8, 16)) == {
+        "ragged_paged_attention_d80": 3 * steps,
+        "ragged_paged_attention_prefill_8_d80": 3 * 2,     # prompts 5, 3
+        "ragged_paged_attention_prefill_16_d80": 3 * 2}    # 9, 16
+
+
+def test_generate_launches_match_a_counted_generate():
+    """``generate_launches``: one B5 launch a layer a model call of
+    ``generate`` (the prompt's prefill, then new - 1 decode steps),
+    against a counted CPU run through the plain version at head dim 96."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer import (CausalTransformerLM,
+                                                        TransformerConfig)
+    from deepspeed_tpu_torch.ops.cuda import decode_attention as da
+    cfg = TransformerConfig.tiny(hidden_size=192, n_heads=2, n_layers=3)
+    model = CausalTransformerLM(cfg, device="cpu").init(0)
+    ids = np.random.default_rng(2).integers(0, 256, (2, 7))
+    da.decode_attention_plain.calls = 0
+    out = deepspeed_tpu_torch.init_inference(
+        model, dtype="fp32", device="cpu").generate(ids, 5)
+    assert tuple(out.shape) == (2, 12)
+    assert da.decode_attention_plain.calls == \
+        chip_smoke.generate_launches(3, 5) == 15
+    assert chip_smoke.generate_launches(32) == 32 * chip_smoke.GEN_NEW
+
+
+def test_decode_work_is_the_bytes_and_operations_of_a_step():
+    """B5's decode step at the new serving paths' shapes (B=4, 32 kv heads,
+    length 144): every K and V byte once plus q and o -- at head dim 80
+    5.90 MB of K/V and 40,960 bytes of q and o, a bound of 1.77 us at
+    3.35 TB/s; at 96, 7.08 MB and 49,152 -- and 4 D operations a head per
+    (query, key) pair: bound by bytes."""
+    for D, kv in ((80, 5_898_240), (96, 7_077_888)):
+        nbytes, ops = chip_smoke.decode_work(4, 32, 32, 144, D, 2)
+        assert nbytes == kv + 4 * 2 * 32 * D * 2
+        assert ops == 4 * 4 * 32 * D * 144
+        bound_ms, by = chip_smoke._bound(nbytes, ops, "bfloat16")
+        assert by == "bytes" and bound_ms == nbytes / 3.35e12 * 1e3
+    assert chip_smoke._bound(*chip_smoke.decode_work(
+        4, 32, 32, 144, 80, 2), "bfloat16")[0] == pytest.approx(1.773e-3,
+                                                                 rel=1e-3)
+
+
+@pytest.mark.parametrize("ctx,T", [([137, 145, 9], 1), ([300, 457], 200),
+                                   ([768], 256), ([14, 30], 5)])
+def test_paged_work_counts_what_the_mask_lets_through(ctx, T):
+    """B4's work over sequences of ``ctx`` tokens, the last T the queries:
+    the (query, key) pairs are those the causal-ragged mask of the plain
+    version lets through, counted here from the mask itself; the bytes
+    are each sequence's K and V once, q and o once."""
+    H, Hkv, D = 4, 2, 96
+    S = max(ctx)
+    qpos = torch.tensor(ctx)[:, None] - T + torch.arange(T)[None]
+    mask = torch.arange(S)[None, None] <= qpos[:, :, None]
+    nbytes, ops = chip_smoke.paged_work(ctx, T, H, Hkv, D, 2)
+    assert ops == 4 * H * D * int(mask.sum())
+    assert nbytes == 2 * (2 * Hkv * D * sum(ctx) + 2 * len(ctx) * T * H * D)
 
 
 # ------------------------------------------------------------ phase ckpt
