@@ -13,8 +13,9 @@ entry points -- ``init_inference(...).generate`` and
 full width and depth through ``initialize(...).train_batch``, runs
 ``ds_bench train`` with no flags (gpt_350m, head dim 64), with ``--model
 gpt_760m`` (head dim 96) and with ``--model gpt_2_7b`` (head dim 80),
-serves gpt_2_7b (head dim 80) and a Phi-3-mini-4k-shaped model (head dim
-96) at full width and depth through both serving entry points, and calls
+serves gpt_2_7b (head dim 80), a Phi-3-mini-4k-shaped model (head dim
+96) and Gemma-7B- and Gemma-2B-shaped models (head dim 256) at full width
+and depth through both serving entry points, and calls
 ``SparseSelfAttention``, checking that those runs went through the
 kernels.  Phases:
 
@@ -23,10 +24,11 @@ kernels.  Phases:
              registers and spills of every kernel, none allowed in the
              split-key decode body (every head dim), the head-dim-64
              tensor-core consumer, the head-dim-80 and -96 flash forms,
-             B4's tensor-core prefill tiles at 80 and 96 or the CUDA-core
-             tiles of B4 and B5 at 80 and 96 (NO_SPILL); the SASS of every
-             bf16 and fp16 tensor-core kernel -- the flash kernels and
-             B4's prefill kernel at head dims 64, 80, 96 and 128, B6's
+             B4's tensor-core prefill tiles at 80, 96 and 256 or the
+             CUDA-core tiles of B4 and B5 at 80, 96 and 256 (NO_SPILL);
+             the SASS of every bf16 and fp16 tensor-core kernel -- the
+             flash kernels at head dims 64, 80, 96 and 128, B4's prefill
+             kernel at those and 256, B6's
              block-sparse kernel at every block and head dim -- holds
              wgmma (HGMMA) and TMA loads (UTMALDG), its wgmma waits
              (WARPGROUP.DEPBAR) printed
@@ -66,7 +68,8 @@ kernels.  Phases:
              prefill form at T=128 and generate's calls, B4's serve
              buckets 512 and 1024, prefills after prefixes and a chunk at
              start 512 at pages 128 and 16, packed mixed batches sharing
-             prefix pages; the block-sparse kernel for layout
+             prefix pages; the same at head dim 256 at Gemma's heads
+             (16 / 16, 16 / 4, 8 / 1); the block-sparse kernel for layout
              blocks 16-128, head dims 64 and 128, causal, bidirectional
              and empty rows (bf16 B4 prefill and B6 outputs, which round P
              to bf16 in the product, under the same SDPA witness)
@@ -75,7 +78,9 @@ kernels.  Phases:
              group 8) the same way, through B5 at head dim 64
   5 serve    create_serving_engine(max_batch=8, page_size=128,
              max_seq=2048).generate on 12 mixed-length prompts
-    serve-features  bf16, full depth: (a) the prefix cache on 12 prompts
+    serve-features  bf16, Llama-2-7B at 16 of its 32 layers with the
+             TinyLlama draft at 11 of 22 (FEATURES_LAYERS_LLAMA): (a) the
+             prefix cache on 12 prompts
              sharing a 1024-token prefix, (b) the chunked scheduler (chunks
              of 256, SLO classes) on those 12 and an 1800-token prompt,
              (c) speculative decoding with a TinyLlama-1.1B-shaped draft,
@@ -86,17 +91,25 @@ kernels.  Phases:
     serve-d80-d96  gpt_2_7b (32 layers, 32 heads of 80, the ds_bench
              train CLI's config at seq 2048) through phases 4 and 5 in
              bf16 and fp16 (tokens vs bf16 by the divergence rule) and
-             serve-features (a)-(d) in bf16 with the CLI's gpt_350m as
-             (c)'s draft (head dim 64); a Phi-3-mini-4k-shaped model (32
+             serve-features (a)-(d) in bf16 at 8 of its layers with the
+             CLI's gpt_350m at 6 as (c)'s draft (head dim 64;
+             FEATURES_LAYERS_D80); a Phi-3-mini-4k-shaped model (32
              layers, 32 heads of 96, SwiGLU, untied) through phases 4
              and 5 in bf16; exact launches, plain versions 0
+    serve-d256  a Gemma-7B shape (28 layers, 16 heads of 256, d 3072,
+             vocab 256000, GeGLU, embedding scale sqrt(d), tied) through
+             phases 4 and 5 in bf16 and serve-features (a)-(d) with a
+             Gemma-2B shape (18 layers, 8 heads of 256 over one kv head)
+             as (c)'s draft; Gemma-2B through phases 4 and 5 in bf16 and
+             fp16 (tokens vs bf16 by the divergence rule); exact
+             launches, plain versions 0
   6 e2e      full width, 2 layers: paged prefill + decode, kernels vs plain;
              (a)-(d) in fp32, tokens identical to the monolithic run (the
              draft also as the target's own weights); the TinyLlama-shaped
              generate in fp32, tokens identical to the plain versions';
-             at the gpt_2_7b and Phi-3-mini shapes: bf16 paged logits vs
-             plain, fp32 generate and serve tokens identical to the plain
-             versions'
+             at the gpt_2_7b, Phi-3-mini, Gemma-7B and Gemma-2B shapes:
+             bf16 paged logits vs plain, fp32 generate and serve tokens
+             identical to the plain versions'
   7 train    run_benchmark for gpt_1b (seq 1024), bloom_1b7 (ALiBi) and
              gpt_neo_1_3b (global / local window 256), seq 2048, micro 2,
              gas 4, bf16, AdamW; exact launches counted; ``ds_bench
@@ -160,7 +173,9 @@ kernels.  Phases:
              B5; off the paths); B5's generate step and B4's decode step
              and prefill buckets 512 and 1024 at head dims 80 (bf16,
              fp16) and 96, B4's chunk at start 512 and verify window at
-             80; fused Adam held against its plain
+             80; the same at 256 (Gemma-7B's heads in bf16, Gemma-2B's
+             in bf16 and fp16; chunk and verify window at Gemma-7B's);
+             fused Adam held against its plain
              version over gpt_1b's 1.01 B parameters; the window-256
              forward must take well under the ALiBi forward's time
 
@@ -469,21 +484,22 @@ def ptxas_usage(log):
 
 # kernels that must not spill (ptxas): the split-key decode body, whose
 # registers hold the loads in flight (every row count, dtype and head
-# dim), the head-dim-64 tensor-core consumer of B1's forward and B4's
-# prefill tiles (wgmma_attention64.cuh: S, P and O in registers while
-# products run), the head-dim-80 and -96 tensor-core forms of B1, B2 and
-# B4's prefill tiles, and the head-dim-80 and -96 CUDA-core tiles of B4
-# and B5 (attention_tile.cuh), by demangled or mangled name
+# dim, 256 included), the head-dim-64 tensor-core consumer of B1's forward
+# and B4's prefill tiles (wgmma_attention64.cuh: S, P and O in registers
+# while products run), the head-dim-80 and -96 tensor-core forms of B1, B2
+# and B4's prefill tiles, B4's prefill tiles at 256, and the head-dim-80,
+# -96 and -256 CUDA-core tiles of B4 and B5 (attention_tile.cuh), by
+# demangled or mangled name
 NO_SPILL = (r"split_kernel|split_tc_kernel|combine_kernel|"
             r"flash_fwd_kernel(<(__nv_bfloat16|__half), \w+, \w+, 64>|"
             r"I(13__nv_bfloat16|6__half)Lb[01]ELb[01]ELi64E)|"
             r"flash_(fwd|bwd_dq|bwd_dkv)_kernel("
             r"<(__nv_bfloat16|__half), \w+, \w+, (80|96)>|"
             r"I(13__nv_bfloat16|6__half)Lb[01]ELb[01]ELi(80|96)E)|"
-            r"ragged_prefill_tc_kernel(<(__nv_bfloat16|__half), (64|80|96)>|"
-            r"I(13__nv_bfloat16|6__half)Li(64|80|96)E)|"
-            r"(ragged_paged|decode)_attention_kernel(<\w+, (80|96), 16>|"
-            r"I\w+Li(80|96)ELi16E)")
+            r"ragged_prefill_tc_kernel(<(__nv_bfloat16|__half), "
+            r"(64|80|96|256)>|I(13__nv_bfloat16|6__half)Li(64|80|96|256)E)|"
+            r"(ragged_paged|decode)_attention_kernel(<\w+, (80|96|256), 16>|"
+            r"I\w+Li(80|96|256)ELi16E)")
 
 
 def must_not_spill(kernel):
@@ -527,7 +543,7 @@ TENSOR_CORE_KERNELS = [("flash_attention_fwd", "flash_fwd_kernel"),
 # arguments in the mangled name, the arguments' reading, how many it has):
 # the flash kernels' <bf16 or fp16, alibi, window, head dim 64, 80, 96 or
 # 128>, B6's <block, head dim> (bf16), and B4's prefill kernel's <bf16 or
-# fp16, head dim 64, 80, 96 or 128>
+# fp16, head dim 64, 80, 96, 128 or 256>
 _DTYPE_ARG = {"13__nv_bfloat16": "bf16", "6__half": "fp16"}
 
 
@@ -547,7 +563,7 @@ SASS_TEMPLATES = {
     "flash_bwd_dkv_kernel": _FLASH_ARGS,
     "sparse_tc_kernel": (r"ILi(\d+)ELi(\d+)E", int, 8),
     "ragged_prefill_tc_kernel": (r"I(13__nv_bfloat16|6__half)Li(\d+)E",
-                                 _flash_arg, 8),
+                                 _flash_arg, 10),
 }
 
 
@@ -639,6 +655,9 @@ SERVE_PROMPTS = [16, 600, 37, 250, 128, 511, 64, 300, 90, 450, 200, 23]
 # the serving kernels' (B4, B5) head dims beside 64 and 128: GPT-3 2.7B's
 # 80 and Phi-3-mini's 96
 HEAD_DIMS_80_96 = (80, 96)
+# (query heads, kv heads) of the head-dim-256 cases: Gemma-7B's 16 / 16,
+# a group of 4, and Gemma-2B's 8 / 1
+GEMMA_HEADS = ((16, 16), (16, 4), (8, 1))
 
 
 def _engine_state(needs, Hkv, D, dtype, gen):
@@ -710,14 +729,14 @@ def phase_kernels():
             return check_output(name, got, exact, sdpa, True)
         return check_close(name, got, exact.to(got.dtype))
 
-    def packed_b4(label, q_lens, ctx, Hkv, Dh, pg=page):
+    def packed_b4(label, q_lens, ctx, Hkv, Dh, pg=page, Hq=H):
         """B4's packed front-end on one mixed batch, prefix pages shared
         by the sequences past two pages."""
         tb, kk, vv = _paged_state(ctx, pg, Hkv, Dh, dtype, gen,
                                   shared_pages=2)
         if not (tb[1, 0] == tb[2, 0] and tb[1, 1] == tb[2, 1]):
             fail("packed case: prefix pages are not shared")
-        qp = _rand((sum(q_lens), H, Dh), dtype, gen)
+        qp = _rand((sum(q_lens), Hq, Dh), dtype, gen)
         got = ragged_paged_attention(qp, kk, vv, tb, ctx, q_lens)
         seqs, off = [], 0
         for s, ql in enumerate(q_lens):
@@ -731,20 +750,20 @@ def phase_kernels():
             f"q_lens {q_lens}", got, exact,
             lambda: torch.cat([paged_sdpa(x, kk, vv, t, c)[0]
                                for x, t, c in seqs]),
-            tiles(dtype, Dh, H // Hkv, pg, q_lens)))
+            tiles(dtype, Dh, Hq // Hkv, pg, q_lens)))
 
-    def check_b5(label, B, T, Hkv, S, lens, Dh=D):
-        q = _rand((B, T, H, Dh), dtype, gen)
+    def check_b5(label, B, T, Hkv, S, lens, Dh=D, Hq=H):
+        q = _rand((B, T, Hq, Dh), dtype, gen)
         k = _rand((B, Hkv, S, Dh), dtype, gen)
         v = _rand((B, Hkv, S, Dh), dtype, gen)
         got = decode_attention_cuda(q, k, v, lens)
         want = reference(decode_attention_plain, q, k, v, lens)
-        n, c = decode_plan(B, T, H, Hkv, S, Dh, dtype, "cuda")
+        n, c = decode_plan(B, T, Hq, Hkv, S, Dh, dtype, "cuda")
         how = f"length {lens}" if isinstance(lens, int) else \
             f"lengths {lens.tolist()}"
-        form = "decode" if T * H // Hkv <= DECODE_ROWS else "prefill"
+        form = "decode" if T * Hq // Hkv <= DECODE_ROWS else "prefill"
         note("decode_attention", dn, check_close(
-            f"decode_attention {dn} H{H}/{Hkv} D={Dh} {label} B={B} T={T} "
+            f"decode_attention {dn} H{Hq}/{Hkv} D={Dh} {label} B={B} T={T} "
             f"S_max={S} {how} ({form} form, {n} x {c} keys)", got, want))
 
     def edge_cache(rows):
@@ -752,17 +771,17 @@ def phase_kernels():
         tensor-core body's longer chunks need it."""
         return 2048 if min_chunk(rows, dtype) == DECODE_MIN_CHUNK else 8192
 
-    def chunk_edges(B, T, Hkv, Dh, S):
+    def chunk_edges(B, T, Hkv, Dh, S, Hq=H):
         """Lengths where the decode form's key chunks meet a sequence's
         end, at the wrapper's own plan for S_max S: T, around one, two
         and n chunks of c keys (the mask kpos <= len - T + t across the
         edge when T > 1), S - 1; fails if the plan takes one chunk (the
         cases would check nothing)."""
-        n, c = decode_plan(B, T, H, Hkv, S, Dh, dtype, "cuda")
-        if T * H // Hkv > DECODE_ROWS:         # the prefill form
+        n, c = decode_plan(B, T, Hq, Hkv, S, Dh, dtype, "cuda")
+        if T * Hq // Hkv > DECODE_ROWS:        # the prefill form
             n, c = 1, DECODE_MIN_CHUNK
         elif n == 1:
-            fail(f"decode_attention B={B} T={T} H{H}/{Hkv} D={Dh}: the "
+            fail(f"decode_attention B={B} T={T} H{Hq}/{Hkv} D={Dh}: the "
                  f"chunk-edge cases take one chunk; they check nothing")
         edges = [x for x in (T, c - 1, c, c + 1, c + 3, 2 * c - 1, 2 * c,
                              2 * c + 1, n * c - 1, n * c + 1, S - 1)
@@ -989,6 +1008,60 @@ def phase_kernels():
             for pg in (128, 16):
                 packed_b4(f"H{H}/{Hkv} page {pg}", [37, 1, 130, 5, 1],
                           [37, 300, 1000, 521, 257], Hkv, Dn, pg)
+        # head dim 256 (Gemma's) at the Gemma shapes' groups: 16 heads over
+        # 16 (Gemma-7B: group 1), over 4 (group 4), and 8 over 1 (Gemma-2B:
+        # MQA, group 8); the same cases as at 80 and 96
+        for Hq, Hkv in GEMMA_HEADS:
+            group, Dn = Hq // Hkv, 256
+            for pg in (16, 128):
+                tc = tensor_core_prefill(dtype, Dn, group, pg)
+                if tc != (dtype != torch.float32):
+                    fail(f"tensor_core_prefill({dn}, {Dn}, {group}, {pg}) "
+                         f"is {tc}")
+            for T in range(1, DECODE_ROWS // group + 1):
+                check_b5("ragged", 4, T, Hkv, 2048, i32(
+                    [T + 5, 700, 1500, 2048]), Dh=Dn, Hq=Hq)
+            check_b5("generate prefill", 4, 128, Hkv, 160, 128, Dh=Dn, Hq=Hq)
+            check_b5("generate decode", 4, 1, Hkv, 160, 144, Dh=Dn, Hq=Hq)
+            Be = 1 if group == 1 else 4
+            for T in sorted({1, 4 // group or 1, DECODE_ROWS // group}):
+                S = edge_cache(T * group)
+                for lens in chunk_edges(Be, T, Hkv, Dn, S, Hq=Hq):
+                    check_b5("chunk edges", Be, T, Hkv, S, lens, Dh=Dn,
+                             Hq=Hq)
+            slots = _engine_state([p + SERVE_NEW for p in
+                                   SERVE_PROMPTS[:8]], Hkv, Dn, dtype, gen)
+            cases = [(f"decode rows B=8 T={T}", T, *slots,
+                      [p + 9 for p in SERVE_PROMPTS[:8]])
+                     for T in range(1, DECODE_ROWS // group + 1)]
+            for prompt in (511, 600):
+                bucket, need = _prefill_need(prompt)
+                cases.append((f"serve prefill B=1 T={bucket} (prompt "
+                              f"{prompt})", bucket, *_engine_state(
+                                  [need], Hkv, Dn, dtype, gen), [bucket]))
+            for pg in (128, 16):
+                for label, T, ctx in (
+                        ("prefill B=2 T=200 after prefixes, ctx 300/457",
+                         200, [300, 457]),
+                        ("chunk B=1 T=256 at start 512", 256, [768])):
+                    cases.append((f"page {pg} {label}", T, *_paged_state(
+                        ctx, pg, Hkv, Dn, dtype, gen), ctx))
+            for label, T, tb, kk, vv, ctx in cases:
+                qq = _rand((len(ctx), T, Hq, Dn), dtype, gen)
+                lens = i32(ctx)
+                got = ragged_paged_attention_rect(qq, kk, vv, tb, lens)
+                exact = paged_attention_plain(qq.float(), kk.float(),
+                                              vv.float(), tb, lens)
+                note("ragged_paged_attention", dn, check_b4(
+                    f"ragged_paged_attention {dn} H{Hq}/{Hkv} D={Dn} "
+                    f"{label}", got, exact,
+                    lambda: paged_sdpa(qq, kk, vv, tb, lens),
+                    tiles(dtype, Dn, group, kk.shape[2], [T])))
+            del cases, slots
+            for pg in (128, 16):
+                packed_b4(f"H{Hq}/{Hkv} page {pg}", [37, 1, 130, 5, 1],
+                          [37, 300, 1000, 521, 257], Hkv, Dn, pg, Hq=Hq)
+            _free()
     return errs
 
 
@@ -1491,6 +1564,15 @@ def build_model(n_layers, seed, dtype=None, cfg=None):
     t0 = time.time()
     model = CausalTransformerLM(cfg, device="cuda",
                                 dtype=dtype or torch.bfloat16).init(seed)
+    if cfg.embed_scale:
+        # Gemma: random rows of norm ~1 times sqrt(d) would outweigh every
+        # layer's output in the residual, and the tied head would give the
+        # input token the top logit at every step -- greedy decoding would
+        # echo the last prompt token and every token check would pass
+        # vacuously.  Rows of norm 1 / sqrt(d), scaled, carry the
+        # embedding other models start from.
+        with torch.no_grad():
+            model.tok_embed.mul_(1.0 / cfg.embed_scale)
     torch.cuda.synchronize()
     return cfg, model, time.time() - t0
 
@@ -2063,6 +2145,13 @@ DRAFT_SHAPE = dict(vocab_size=32000, hidden_size=2048, n_layers=22,
                    n_heads=32, n_kv_heads=4, ffn_hidden_size=5632,
                    max_seq_len=2048, rope_theta=10000.0, norm_eps=1e-5)
 SPEC_GAMMA = 4
+# serve-features' depth (target, draft), cut so that the whole smoke stays
+# under 900 s (a run of the uncut phases read 919.4 s): the Llama-2-7B run
+# at half of its 32 layers with TinyLlama's 22 at half, the gpt_2_7b run
+# at a quarter of its 32 with gpt_350m's 24 at a quarter.  Every form each
+# run drives still runs; the Gemma runs are not cut.
+FEATURES_LAYERS_LLAMA = (16, 11)
+FEATURES_LAYERS_D80 = (8, 6)
 CHUNK_TOKENS = 256
 DECODE_CHUNK = 4
 PREFIX_TOKENS = 1024          # the shared system prefix of run (a)
@@ -2470,6 +2559,29 @@ PHI3_MINI = dict(vocab_size=32064, hidden_size=3072, n_layers=32, n_heads=32,
                  ffn_hidden_size=8192, max_seq_len=4096, rope_theta=10000.0,
                  norm_eps=1e-5, activation="silu", use_rmsnorm=True,
                  use_rope=True, tie_embeddings=False, remat=False)
+# serving at head dim 256 (phase serve-d256): Gemma-7B and Gemma-2B
+# shapes.  google/gemma-7b config.json as the injection policy maps it
+# (deepspeed_tpu/module_inject/policies.py GemmaPolicy.build): vocab_size
+# 256000, hidden_size 3072, num_hidden_layers 28, num_attention_heads 16,
+# num_key_value_heads 16, head_dim 256 (H * dh = 4096 != d = 3072),
+# intermediate_size 24576, max_position_embeddings 8192, rope_theta 10000,
+# rms_norm_eps 1e-6; GeGLU (tanh GELU), its (1 + w) RMSNorm folded into
+# the weights, input embeddings times sqrt(3072), tied head -- 8.54 B
+# parameters
+GEMMA_7B = dict(vocab_size=256000, hidden_size=3072, n_layers=28,
+                n_heads=16, head_dim_override=256, ffn_hidden_size=24576,
+                max_seq_len=8192, rope_theta=10000.0, norm_eps=1e-6,
+                activation="gelu", gated_mlp=True, embed_scale=3072 ** 0.5,
+                use_rmsnorm=True, use_rope=True, tie_embeddings=True,
+                remat=False)
+# google/gemma-2b config.json, mapped the same way: hidden_size 2048,
+# num_hidden_layers 18, num_attention_heads 8, num_key_value_heads 1 (MQA:
+# a group of 8), head_dim 256 (= d / H, so the policy sets no override),
+# intermediate_size 16384, embeddings times sqrt(2048) -- 2.51 B
+GEMMA_2B = dict(GEMMA_7B, hidden_size=2048, n_layers=18, n_heads=8,
+                n_kv_heads=1, head_dim_override=None, ffn_hidden_size=16384,
+                embed_scale=2048 ** 0.5)
+GEMMA_PARAMS = {"Gemma-7B": 8_537_680_896, "Gemma-2B": 2_506_172_416}
 GEN_NEW = 32            # generate's new tokens: its prompt's prefill and
                         # 31 decode steps, one model call each
 TIMED_BUCKETS = (512, 1024)   # the serve run's prefill buckets phase 9
@@ -2561,9 +2673,10 @@ def serve_entry_points(label, model, cfg, dtype_name):
 def phase_serve_head_dims():
     """gpt_2_7b (head dim 80) through both entry points in bf16 and fp16
     (tokens vs bf16 by the divergence rule) and serve-features (a)-(d) in
-    bf16 with the gpt_350m draft; then the Phi-3-mini-4k shape (head dim
-    96) through both in bf16.  Full width and depth.  Returns {kernels
-    JSON row: launches} and the two configs."""
+    bf16 with the gpt_350m draft, both at FEATURES_LAYERS_D80's depth;
+    then the Phi-3-mini-4k shape (head dim 96) through both in bf16.
+    Full width, full depth but in serve-features.  Returns {kernels JSON
+    row: launches} and the two configs."""
     import torch
     from deepspeed_tpu_torch.benchmarks.training import model_config
     from deepspeed_tpu_torch.models.transformer import TransformerConfig
@@ -2582,20 +2695,25 @@ def phase_serve_head_dims():
     launches = {"decode_attention_d80": bf["gen_launches"]}
     launches.update(b4_form_launches(L, bf["decode_steps"], SERVE_PROMPTS,
                                      "_d80", TIMED_BUCKETS))
-    dcfg = model_config(SERVE_D80_DRAFT, SERVE_D80_SEQ, remat=False)
-    _, draft, _ = build_model(dcfg.n_layers, seed=3, cfg=dcfg)
+    del model
+    _free()
+    # serve-features at the cut depth of FEATURES_LAYERS_D80
+    fcfg, fmodel, _ = build_model(FEATURES_LAYERS_D80[0], seed=2, cfg=cfg80)
+    dcfg, draft, _ = build_model(FEATURES_LAYERS_D80[1], seed=3,
+                                 cfg=model_config(SERVE_D80_DRAFT,
+                                                  SERVE_D80_SEQ, remat=False))
     t1 = time.time()
-    feat = phase_serve_features(model, cfg80, [(SERVE_D80_DRAFT, draft)],
+    feat = phase_serve_features(fmodel, fcfg, [(SERVE_D80_DRAFT, draft)],
                                 torch.bfloat16, exact=False,
                                 label=f"{SERVE_D80_MODEL} bf16")
-    phase("serve-features", f"{SERVE_D80_MODEL} bf16 (a)-(d), {L} layers, "
-          f"draft {SERVE_D80_DRAFT} {dcfg.n_layers} layers: "
-          f"{time.time() - t1:.1f} s")
+    phase("serve-features", f"{SERVE_D80_MODEL} bf16 (a)-(d), "
+          f"{fcfg.n_layers} of {L} layers, draft {SERVE_D80_DRAFT} "
+          f"{dcfg.n_layers} layers: {time.time() - t1:.1f} s")
     launches["ragged_paged_attention_chunk_at_offset_d80"] = \
         feat["chunk"]["launches"]
     launches["ragged_paged_attention_verify_d80"] = \
         feat[f"spec_{SERVE_D80_DRAFT}"]["verify_launches"]
-    del model, draft
+    del fmodel, draft
     _free()
     _, model16, _ = build_model(cfg80.n_layers, seed=2, dtype=torch.float16,
                                 cfg=cfg80)
@@ -2630,6 +2748,88 @@ def phase_serve_head_dims():
     phase("serve-d80-d96", f"done in {time.time() - t0:.1f} s; launches by "
           f"kernels JSON row {launches}")
     return launches, cfg80, cfg96
+
+
+def gemma_configs():
+    """(Gemma-7B, Gemma-2B) TransformerConfigs; fails unless each has
+    head dim 256 and its published parameter count."""
+    from deepspeed_tpu_torch.models.transformer import TransformerConfig
+    cfgs = (TransformerConfig(**GEMMA_7B), TransformerConfig(**GEMMA_2B))
+    for (name, n), cfg in zip(GEMMA_PARAMS.items(), cfgs):
+        if cfg.head_dim != 256 or cfg.num_params() != n:
+            fail(f"{name}: head dim {cfg.head_dim}, {cfg.num_params()} "
+                 f"parameters, expected 256 and {n}")
+    return cfgs
+
+
+def phase_serve_gemma():
+    """Gemma-7B (16 heads of 256, group 1) through both entry points in
+    bf16 and serve-features (a)-(d) in bf16 with Gemma-2B as (c)'s draft;
+    then Gemma-2B (8 heads of 256 over one kv head: group 8) through both
+    in bf16 and fp16 (tokens vs bf16 by the divergence rule).  Full width
+    and depth, each model freed before the next.  Returns {kernels JSON
+    row: launches} and the two configs."""
+    import torch
+    t0 = time.time()
+    cfg7, cfg2 = gemma_configs()
+    _, g7, t_init = build_model(cfg7.n_layers, seed=5, cfg=cfg7)
+    phase("model", f"Gemma-7B shape ({cfg7.n_layers} layers, "
+          f"{cfg7.n_heads} heads of {cfg7.head_dim}, d {cfg7.hidden_size}, "
+          f"GeGLU ffn {cfg7.ffn_hidden_size}, vocab {cfg7.vocab_size}, "
+          f"embed scale {cfg7.embed_scale:.4f}, tied), "
+          f"{cfg7.num_params() / 1e9:.3f} B params, bf16, init "
+          f"{t_init:.1f} s")
+    g7_bf = serve_entry_points("Gemma-7B bf16", g7, cfg7, "bf16")
+    L7 = g7_bf["L"]
+    launches = {"decode_attention_d256": g7_bf["gen_launches"]}
+    launches.update(b4_form_launches(L7, g7_bf["decode_steps"],
+                                     SERVE_PROMPTS, "_d256", TIMED_BUCKETS))
+    _, g2, _ = build_model(cfg2.n_layers, seed=6, cfg=cfg2)
+    phase("model", f"Gemma-2B shape ({cfg2.n_layers} layers, "
+          f"{cfg2.n_heads}/{cfg2.kv_heads} heads of {cfg2.head_dim}, d "
+          f"{cfg2.hidden_size}, ffn {cfg2.ffn_hidden_size}), "
+          f"{cfg2.num_params() / 1e9:.3f} B params, bf16")
+    t1 = time.time()
+    feat = phase_serve_features(g7, cfg7, [("Gemma-2B", g2)],
+                                torch.bfloat16, exact=False,
+                                label="Gemma-7B bf16")
+    phase("serve-features", f"Gemma-7B bf16 (a)-(d), {L7} layers, draft "
+          f"Gemma-2B {cfg2.n_layers} layers: {time.time() - t1:.1f} s")
+    spec = feat["spec_Gemma-2B"]
+    launches["ragged_paged_attention_chunk_at_offset_d256"] = \
+        feat["chunk"]["launches"]
+    launches["ragged_paged_attention_verify_d256"] = spec["verify_launches"]
+    del g7
+    _free()
+    g2_bf = serve_entry_points("Gemma-2B bf16", g2, cfg2, "bf16")
+    del g2
+    _free()
+    _, g2h, _ = build_model(cfg2.n_layers, seed=6, dtype=torch.float16,
+                            cfg=cfg2)
+    g2_h = serve_entry_points("Gemma-2B fp16", g2h, cfg2, "fp16")
+    del g2h
+    _free()
+    check_divergence(
+        "Gemma-2B fp16 generate vs bf16",
+        [r.tolist() for r in g2_bf["gen_out"].cpu()],
+        [r.tolist() for r in g2_h["gen_out"].cpu()],
+        [g2_bf["ids"][0]] * len(g2_bf["ids"]), g2_bf["gen_margins"],
+        "bfloat16")
+    check_divergence("Gemma-2B fp16 serve vs bf16", g2_bf["serve_outs"],
+                     g2_h["serve_outs"], g2_bf["prompts"],
+                     g2_bf["serve_margins"], "bfloat16")
+    L2 = g2_bf["L"]
+    for sfx, r in (("_d256_gqa8", g2_bf), ("_d256_gqa8_fp16", g2_h)):
+        launches[f"decode_attention{sfx}"] = r["gen_launches"]
+        launches.update(b4_form_launches(L2, r["decode_steps"],
+                                         SERVE_PROMPTS, sfx, TIMED_BUCKETS))
+    # the draft's group-8 decode steps in (c) take the same form as
+    # Gemma-2B's own serve run: their launches join its row
+    launches["ragged_paged_attention_d256_gqa8"] += \
+        spec["draft_decode_launches"]
+    phase("serve-d256", f"done in {time.time() - t0:.1f} s; launches by "
+          f"kernels JSON row {launches}")
+    return launches, cfg7, cfg2
 
 
 def phase_serve_vs_plain(model, n_prompts=6):
@@ -2711,6 +2911,56 @@ def phase_timing_head_dims():
     rows["ragged_paged_attention_verify_d80"] = _time_paged(
         "ragged_paged_attention verify window [8, 5] D=80", torch.bfloat16,
         needs, [p + 9 for p in prompts], SPEC_GAMMA + 1, 32, 80, 4, gen)
+    _free()
+    for name, r in rows.items():
+        phase("timing", f"{name} [{r['shape']}]: device ms (graph replay) "
+              f"kernel {r['ms']:.4f}, plain {r['plain_ms']:.4f}, SDPA "
+              f"{r['library_ms']:.4f}; eager ms per call (host included) "
+              f"kernel {r['ms_eager']:.4f}; bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.3f} of bound, "
+              f"max abs err {r['max_abs_err']:.3e}")
+    return rows
+
+
+def phase_timing_head_dim_256():
+    """B5 and B4 at head dim 256 at the shapes phase serve-d256 gives
+    them: generate's decode step (B=4, length 144), the serve run's 8-slot
+    decode step and its prefill buckets 512 and 1024 -- Gemma-7B's 16 / 16
+    heads in bf16, Gemma-2B's 8 / 1 in bf16 and fp16 -- and at Gemma-7B's
+    heads the 256-token chunk at start 512 and the verify window [8, 5]
+    of serve-features (b) and (c)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(96)
+    prompts = SERVE_PROMPTS[:SERVE_SLOTS]
+    needs = [p + SERVE_NEW for p in prompts]
+    rows, D = {}, 256
+    for sfx, H, Hkv, dtype in (("_d256", 16, 16, torch.bfloat16),
+                               ("_d256_gqa8", 8, 1, torch.bfloat16),
+                               ("_d256_gqa8_fp16", 8, 1, torch.float16)):
+        dn = str(dtype).split(".")[-1]
+        heads = f"H{H}/{Hkv} D={D} {dn}"
+        rows[f"decode_attention{sfx}"] = _time_decode(
+            f"decode_attention generate step {heads}", dtype, 4, 160, 144,
+            12, gen, H=H, Hkv=Hkv, D=D)
+        rows[f"ragged_paged_attention{sfx}"] = _time_paged(
+            f"ragged_paged_attention 8-slot decode step {heads}", dtype,
+            needs, [p + 16 for p in prompts], 1, Hkv, D, 4, gen, H=H)
+        _free()
+        for prompt in (511, 600):       # their buckets: TIMED_BUCKETS
+            bucket, need = _prefill_need(prompt)
+            rows[f"ragged_paged_attention_prefill_{bucket}{sfx}"] = \
+                _time_paged(f"ragged_paged_attention prefill T={bucket} "
+                            f"{heads}", dtype, [need], [bucket], bucket, Hkv,
+                            D, 4, gen, H=H)
+            _free()
+    rows["ragged_paged_attention_chunk_at_offset_d256"] = _time_paged(
+        "ragged_paged_attention chunk T=256 at start 512 H16/16 D=256",
+        torch.bfloat16, [1024 + SERVE_NEW], [768], CHUNK_TOKENS, 16, D, 4,
+        gen, H=16)
+    rows["ragged_paged_attention_verify_d256"] = _time_paged(
+        "ragged_paged_attention verify window [8, 5] H16/16 D=256",
+        torch.bfloat16, needs, [p + 9 for p in prompts], SPEC_GAMMA + 1, 16,
+        D, 4, gen, H=16)
     _free()
     for name, r in rows.items():
         phase("timing", f"{name} [{r['shape']}]: device ms (graph replay) "
@@ -4320,13 +4570,19 @@ def main():
           f" {d_counts['decode_attention']} = {dcfg.n_layers} x {gen_calls},"
           f" plain versions 0")
 
-    # ---- serve-features: each run counted on its own (serve_run) ------
-    feat = phase_serve_features(model, cfg, [("TinyLlama-1.1B", draft)],
-                                torch.bfloat16, exact=False, label="bf16")
-    phase("serve-features", f"bf16 (a)-(d), Llama-2-7B {L} layers, draft "
-          f"TinyLlama-1.1B shape {dcfg.n_layers} layers: "
-          f"{time.time() - t0:.1f} s")
+    # ---- serve-features: each run counted on its own (serve_run), at the
+    # cut depth of FEATURES_LAYERS_LLAMA --------------------------------
     del eng, model, draft
+    _free()
+    fcfg, fmodel, _ = build_model(FEATURES_LAYERS_LLAMA[0], seed=0)
+    fdcfg, fdraft, _ = build_model(FEATURES_LAYERS_LLAMA[1], seed=1,
+                                   cfg=TransformerConfig(**DRAFT_SHAPE))
+    feat = phase_serve_features(fmodel, fcfg, [("TinyLlama-1.1B", fdraft)],
+                                torch.bfloat16, exact=False, label="bf16")
+    phase("serve-features", f"bf16 (a)-(d), Llama-2-7B {fcfg.n_layers} of "
+          f"{L} layers, draft TinyLlama-1.1B shape {fdcfg.n_layers} of "
+          f"{dcfg.n_layers} layers: {time.time() - t0:.1f} s")
+    del fmodel, fdraft
     _free()
 
     # ---- fp16: phases 4 and 5 again, the same seed's weights in fp16 --
@@ -4354,6 +4610,9 @@ def main():
 
     # ---- serving at head dims 80 and 96: gpt_2_7b, the Phi-3-mini shape -
     hd_launches, cfg80, cfg96 = phase_serve_head_dims()
+    # ---- serving at head dim 256: the Gemma-7B and Gemma-2B shapes ------
+    g_launches, cfg_g7, cfg_g2 = phase_serve_gemma()
+    hd_launches.update(g_launches)
 
     rel, agree = phase_e2e()
     phase("e2e", f"2 layers full width, paged prefill T=128 + 4 decodes: "
@@ -4375,11 +4634,13 @@ def main():
           f"of 4 rows")
     del m2, d2
     _free()
-    # head dims 80 and 96, 2 layers of full width: bf16 logits through B4
-    # vs the plain versions, then fp32 greedy tokens through B5 and B4 vs
-    # the plain versions'
+    # head dims 80, 96 and 256, 2 layers of full width: bf16 logits
+    # through B4 vs the plain versions, then fp32 greedy tokens through B5
+    # and B4 vs the plain versions'
     for label, hcfg, seed in ((SERVE_D80_MODEL, cfg80, 12),
-                              ("Phi-3-mini-4k shape", cfg96, 13)):
+                              ("Phi-3-mini-4k shape", cfg96, 13),
+                              ("Gemma-7B shape", cfg_g7, 14),
+                              ("Gemma-2B shape", cfg_g2, 15)):
         rel, agree = phase_e2e(cfg=hcfg, seed=seed)
         phase("e2e", f"{label} (head dim {hcfg.head_dim}) 2 layers full "
               f"width, paged prefill T=128 + 4 decodes, bf16: kernel vs "
@@ -4572,6 +4833,7 @@ def main():
                   f"ms")
     timing.update(phase_timing_serving())
     timing.update(phase_timing_head_dims())
+    timing.update(phase_timing_head_dim_256())
     timing.update(phase_train_timing(errs))
     biased = phase_biased_timing(errs)
     biased_d64 = phase_biased_timing(errs, BIASED_TIMING_D64, D=64, seed=79)
@@ -4648,9 +4910,11 @@ def main():
         meta[name] = meta["decode_attention" if name.startswith("decode")
                           else "ragged_paged_attention"]
         launches[name] = n
-    # B5 and B4 at head dims 80 and 96: rows of their own, with the
-    # launches of the serving runs of gpt_2_7b (bf16, fp16, serve-features)
-    # and of the Phi-3-mini shape
+    # B5 and B4 at head dims 80, 96 and 256: rows of their own, with the
+    # launches of the serving runs of gpt_2_7b (bf16, fp16, serve-features),
+    # of the Phi-3-mini shape, of Gemma-7B (bf16, serve-features) and of
+    # Gemma-2B (bf16 -- its draft decode steps in serve-features (c) too --
+    # and fp16)
     for name, n in hd_launches.items():
         meta[name] = meta["decode_attention" if name.startswith("decode")
                           else "ragged_paged_attention"]

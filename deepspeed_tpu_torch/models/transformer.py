@@ -11,14 +11,16 @@ parameters carry the JAX param-tree names (``tok_embed``,
 
 Ported: RoPE (full, partial ``rope_dim``, or a scaled ``rope_inv_freq``
 table) or learned positions; RMSNorm or LayerNorm (with or without bias);
-SwiGLU / GLU or plain MLPs over the activation table; linear biases; GQA;
+SwiGLU / GLU or plain MLPs over the activation table (GeGLU: Gemma); linear
+biases; GQA; an explicit head dim (``head_dim_override``, H * dh != d);
+the embedding scale (``embed_scale``, Gemma's sqrt(d) on the input side);
 tied or untied heads with an optional head bias; ``attn_scale``; and, on
 the training path only, ALiBi (BLOOM: no position table), per-layer
 sliding windows (``local_attn_pattern``, GPT-Neo) and the LayerNorm after
 the embedding (``embed_norm``).  The serving paths raise for those three
 (ROADMAP A18: the JAX package decodes them with a materialised bias).  The
 other architecture switches (softcaps, qk-norm, clip_qkv, parallel blocks,
-sandwich / post norms, residual or embedding scales, logit scale, MoE)
+sandwich / post norms, residual scale, logit scale, MoE)
 raise ``NotImplementedError`` naming ROADMAP A16 / A14.
 
 Two paths use it: serving (``apply_with_cache``, ``apply_with_paged_cache``,
@@ -249,7 +251,6 @@ _UNSUPPORTED = (
     ("parallel_block", "parallel blocks", "A16"),
     ("post_norm_only", "post-norm blocks", "A16"),
     ("residual_scale", "residual scale", "A16"),
-    ("embed_scale", "embedding scale", "A16"),
     ("is_moe", "MoE layers", "A14"),
 )
 # switches the training path takes and the serving paths do not
@@ -284,7 +285,7 @@ def check_servable(c: TransformerConfig, device=None):
     (contiguous and paged KV caches) do not decode: ALiBi, local windows
     and the embedding norm train, but decoding them waits for ROADMAP
     A18.  On the card (``device`` a CUDA device) the head dim must be one
-    the serving kernels (B4, B5) take -- 64, 80, 96 or 128 -- else it
+    the serving kernels (B4, B5) take -- 64, 80, 96, 128 or 256 -- else it
     raises naming A16; on the CPU the plain versions take every head
     dim."""
     for attr, what in _NOT_SERVED:
@@ -299,8 +300,8 @@ def check_servable(c: TransformerConfig, device=None):
 def check_trainable(c: TransformerConfig, device=None):
     """On the card, raise ``NotImplementedError`` naming A16 for a head dim
     the flash kernels (B1, B2) do not take -- they take 64, 80, 96 and 128,
-    as serving does (:func:`check_servable`); on the CPU the plain versions
-    train every head dim."""
+    serving also 256 (:func:`check_servable`); on the CPU the plain
+    versions train every head dim."""
     if _on_card(device):
         check_head_dim("training on the card", c.head_dim, FLASH_HEAD_DIMS)
 
@@ -570,6 +571,11 @@ class CausalTransformerLM(nn.Module):
     def _embed(self, input_ids, positions):
         c = self.config
         x = self.tok_embed[input_ids]
+        if c.embed_scale is not None:
+            # Gemma: sqrt(d) rounded to the activation dtype first (55.5 in
+            # bf16 at d = 3072), on the input side only -- the tied head
+            # reads the unscaled table
+            x = x * torch.tensor(c.embed_scale, dtype=x.dtype)
         if not c.use_rope and not c.use_alibi:
             x = x + self.pos_embed[positions].to(x.dtype)
         if c.embed_norm:

@@ -8,14 +8,18 @@
 // row, which is where the contiguous and the paged cache differ.
 //
 // One block = 128 threads and ROWS (4 or 16) query rows, head dim D = 64,
-// 80, 96 or 128.  Per key block of BK keys:
+// 80, 96, 128 or 256.  Per key block of BK keys (kBK = 64; 16 at D = 256,
+// where 64 fp32 key rows alone would take 64 KB of shared memory and 32
+// rows beside the 16 fp32 q rows of 1 KB each still exceed the 48 KB a
+// block has without opting in):
 //   1. K rows -> shared (16-byte vector loads, the block's 128 threads
 //      walking the tile's BK * D / VEC vectors in order, stored as fp32
 //      with row pitch D+1 so the dot-product reads of neighbouring threads
 //      hit different banks);
-//   2. scores: thread (key = tid % BK, ROWS/2 rows) -- the q
+//   2. scores: thread (key = tid % BK, ROWS * BK / 128 rows) -- the q
 //      rows are broadcast reads, the K row is private to the thread;
-//   3. online softmax: one warp per row, two keys per lane;
+//   3. online softmax: one warp per row, keys lane and lane + 32 per lane
+//      (at BK = 16 half the lanes hold one key, the rest none);
 //   4. V rows -> shared, then acc[row][d] += p[row][:] . V[:, d], the
 //      ROWS * D outputs dealt to the threads in order (element tid + 128 i
 //      of the [ROWS][D] tile to thread tid), each thread owning
@@ -34,6 +38,12 @@ namespace dsattn {
 constexpr float kNeg = -1e30f;
 constexpr int kBK = 64;       // keys per inner step
 constexpr int kThreads = 128;
+
+// Keys per inner step at head dim D: kBK, and 16 at 256 (see above).
+template <int D>
+__host__ __device__ constexpr int keys_per_step() {
+  return D > 128 ? 16 : kBK;
+}
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
@@ -74,8 +84,8 @@ __host__ __device__ constexpr int batch_of(int n) {
   return b;
 }
 
-// Keys [kb, kb + kBK) of K or V -> dst (fp32, zero past kv_hi).  A key row
-// is LANES = D / VEC 16-byte vectors; the tile's kBK * LANES vectors go to
+// Keys [kb, kb + BK) of K or V -> dst (fp32, zero past kv_hi).  A key row
+// is LANES = D / VEC 16-byte vectors; the tile's BK * LANES vectors go to
 // the threads in order (vector tid + 128 p to thread tid in pass p), so
 // at D = 64 and 128, where LANES divides 128, a thread keeps one column of
 // every row it loads, and at D = 80 and 96 (10 or 12 vectors a row in
@@ -84,15 +94,15 @@ __host__ __device__ constexpr int batch_of(int n) {
 // cache: one block-table read per vector, not per element), then issues
 // a batch of independent loads before storing any of them, so up to eight
 // loads per thread are in flight at once.
-template <typename T, int D, typename KeyOffset>
+template <typename T, int D, int BK, typename KeyOffset>
 __device__ __forceinline__ void load_rows(float (*dst)[D + 1],
                                           const T* __restrict__ src, int kb,
                                           int kv_hi, const KeyOffset& key_off) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int LANES = D / VEC;                      // vectors per key row
-  constexpr int PASSES = kBK * LANES / kThreads;      // vectors per thread
+  constexpr int PASSES = BK * LANES / kThreads;       // vectors per thread
   constexpr int BATCH = batch_of(PASSES);
-  static_assert(D % VEC == 0 && kBK * LANES % kThreads == 0, "tile shape");
+  static_assert(D % VEC == 0 && BK * LANES % kThreads == 0, "tile shape");
 #pragma unroll
   for (int p0 = 0; p0 < PASSES; p0 += BATCH) {
     uint4 buf[BATCH];
@@ -133,15 +143,17 @@ __device__ __forceinline__ void attend_rows(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ o, float scale, int kv_hi,
     const KeyOffset& key_off, const RowMeta<ROWS>& rm) {
-  static_assert(D == 64 || D == 80 || D == 96 || D == 128,
-                "head_dim must be 64, 80, 96 or 128");
+  static_assert(D == 64 || D == 80 || D == 96 || D == 128 || D == 256,
+                "head_dim must be 64, 80, 96, 128 or 256");
   static_assert(ROWS == 4 || ROWS == 16, "ROWS must be 4 or 16");
+  constexpr int BK = keys_per_step<D>();
+  static_assert(BK <= 64, "the softmax gives a lane two keys at most");
   // outputs per thread: element tid + kThreads * r of the [ROWS][D] tile
   constexpr int RPT = (ROWS * D + kThreads - 1) / kThreads;
-  constexpr int SR = ROWS * kBK / kThreads;  // score rows per thread
+  constexpr int SR = ROWS * BK / kThreads;   // score rows per thread
   __shared__ float q_s[ROWS][D];
-  __shared__ float kv_s[kBK][D + 1];
-  __shared__ float p_s[ROWS][kBK];
+  __shared__ float kv_s[BK][D + 1];
+  __shared__ float p_s[ROWS][BK];
   __shared__ float m_s[ROWS], l_s[ROWS], c_s[ROWS];
 
   const int tid = threadIdx.x;
@@ -162,16 +174,16 @@ __device__ __forceinline__ void attend_rows(
     orow[r] = ROWS * D % kThreads == 0 || e < ROWS * D ? e / D : -1;
     od[r] = e % D;
   }
-  const int sk = tid % kBK;
-  const int srow0 = (tid / kBK) * SR;
+  const int sk = tid % BK;
+  const int srow0 = (tid / BK) * SR;
   const int warp = tid / 32, lane = tid % 32;
   float acc[RPT];
 #pragma unroll
   for (int r = 0; r < RPT; ++r) acc[r] = 0.f;
   __syncthreads();
 
-  for (int kb = 0; kb < kv_hi; kb += kBK) {
-    load_rows<T, D>(kv_s, k, kb, kv_hi, key_off);
+  for (int kb = 0; kb < kv_hi; kb += BK) {
+    load_rows<T, D, BK>(kv_s, k, kb, kv_hi, key_off);
     __syncthreads();
 
     float s[SR];
@@ -193,13 +205,15 @@ __device__ __forceinline__ void attend_rows(
     __syncthreads();  // scores complete; K no longer read
 
     for (int row = warp; row < ROWS; row += kThreads / 32) {
-      const float a = p_s[row][lane], b = p_s[row][lane + 32];
+      // keys lane and lane + 32 of the step; past BK (at BK = 16) masked
+      const float a = lane < BK ? p_s[row][lane] : kNeg;
+      const float b = lane + 32 < BK ? p_s[row][lane + 32] : kNeg;
       const float m_prev = m_s[row];
       const float m_new = fmaxf(m_prev, warp_max(fmaxf(a, b)));
       float pa = expf(a - m_new), pb = expf(b - m_new);
       if (m_new <= kNeg / 2) pa = pb = 0.f;
-      p_s[row][lane] = pa;
-      p_s[row][lane + 32] = pb;
+      if (lane < BK) p_s[row][lane] = pa;
+      if (lane + 32 < BK) p_s[row][lane + 32] = pb;
       const float sum = warp_sum(pa + pb);
       if (lane == 0) {
         const float corr = m_prev <= kNeg / 2 ? 0.f : expf(m_prev - m_new);
@@ -208,7 +222,7 @@ __device__ __forceinline__ void attend_rows(
         c_s[row] = corr;
       }
     }
-    load_rows<T, D>(kv_s, v, kb, kv_hi, key_off);
+    load_rows<T, D, BK>(kv_s, v, kb, kv_hi, key_off);
     __syncthreads();
 
 #pragma unroll
@@ -217,7 +231,7 @@ __device__ __forceinline__ void attend_rows(
       if (row < 0) continue;
       float a = acc[r] * c_s[row];
 #pragma unroll 8
-      for (int j = 0; j < kBK; ++j) a = fmaf(p_s[row][j], kv_s[j][od[r]], a);
+      for (int j = 0; j < BK; ++j) a = fmaf(p_s[row][j], kv_s[j][od[r]], a);
       acc[r] = a;
     }
     __syncthreads();  // before the next block overwrites kv_s and p_s

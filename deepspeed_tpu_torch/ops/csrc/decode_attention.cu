@@ -18,16 +18,17 @@
 // a GQA group of up to 8 folded in): the split-key, memory-parallel body
 // of split_decode.cuh, shared with the paged cache's decode rows, over a
 // contiguous cache: sequence b's keys are rows of cache[b, hk], query row
-// r is token r / group of q[b].  Head dim 64, 80, 96 or 128 (80: GPT-3
-// 2.7B's shape; 96: Phi-3-mini's).  A D = 80 step of a B=4 generate over
-// 144 cached tokens and 32 kv heads moves 5.90 MB: 1.76 us at 3.35 TB/s.
+// r is token r / group of q[b].  Head dim 64, 80, 96, 128 or 256 (80:
+// GPT-3 2.7B's shape; 96: Phi-3-mini's; 256: Gemma's).  A D = 80 step of
+// a B=4 generate over 144 cached tokens and 32 kv heads moves 5.90 MB:
+// 1.76 us at 3.35 TB/s.
 //
 // Prefill form (more than 8 rows per kv head; generate's T=128 prefill):
 // grid (row tiles, Hkv, B), one block of 128 threads per 16-row tile
-// walking its keys in blocks of 64 through fp32 shared memory
-// (attention_tile.cuh, shared with the ragged paged kernel), never reading
-// keys at or past the tile's causal frontier min(length, last row's
-// position + 1).  Every form is instantiated at every head dim above; the
+// walking its keys in blocks of 64 (16 at D = 256) through fp32 shared
+// memory (attention_tile.cuh, shared with the ragged paged kernel), never
+// reading keys at or past the tile's causal frontier min(length, last
+// row's position + 1).  Every form is instantiated at every head dim above; the
 // C entry refuses any other.
 #include "split_decode.cuh"
 
@@ -150,8 +151,8 @@ int run(const void* q, const void* k, const void* v, void* o,
 
 // q: [B, T, H, D]; k/v: [B, Hkv, S_max, D]; o: [B, T, H, D].  dtype: 0 =
 // float32, 1 = bfloat16, 2 = float16 (fp32 inside, as bf16); D is 64, 80,
-// 96 or 128.  lengths may be null: then every sequence has length_all valid
-// tokens.  The decode form (T * H / Hkv <= 8) splits each sequence's
+// 96, 128 or 256.  lengths may be null: then every sequence has
+// length_all valid tokens.  The decode form (T * H / Hkv <= 8) splits each sequence's
 // keys into n_split chunks of ``chunk`` keys (n_split * chunk >= S_max);
 // with n_split > 1 ``part`` is fp32 scratch of B * Hkv * n_split * T *
 // (H / Hkv) * (D + 2) floats.  The prefill form takes n_split = 1 and no

@@ -22,7 +22,7 @@
 //
 // Decode rows (q_len * group <= 8 rows per kv head: every serving decode
 // step, a speculative verify window of up to 8 tokens at group 1, a GQA
-// group of up to 8 heads; head dim 64, 80, 96 or 128): the split-key,
+// group of up to 8 heads; head dim 64, 80, 96, 128 or 256): the split-key,
 // memory-parallel body of split_decode.cuh, shared with decode_attention.cu,
 // over the decode sequences' list; a key's row is resolved through the
 // block table as it is loaded (PagedSeqs), so shared prefix pages and
@@ -30,9 +30,10 @@
 // keys is 32 KB contiguous per kv head at D = 128, so at the serving
 // engine's page a warp's key group lies in one page.
 //
-// Prefill tiles, bf16 or fp16, head dim 64, 80, 96 or 128, a group
-// dividing 64 and a page size that is a multiple of 128 or a multiple of 8
-// dividing 128 (the serving engine's page 128 among them; a tile is
+// Prefill tiles, bf16 or fp16, head dim 64, 80, 96, 128 or 256, a group
+// dividing 64 and a page size that is a multiple of the K/V tile's keys
+// (128; 64 at D = 256) or a multiple of 8 dividing them (the serving
+// engine's page 128 among them; a tile is
 // hopper::boxes<D>() 64-column boxes of 128-byte swizzle rows, so the same
 // boxes hold at every head dim): the flash forward's pipeline
 // (flash_attention_fwd.cu, hopper.cuh).  One block of three warpgroups per
@@ -60,7 +61,16 @@
 // and the softmax is not, so the body is the flash forward's D = 64
 // consumer (wgmma_attention64.cuh): each tile's softmax runs under the
 // products of the tile before and of the other warpgroup, which take
-// turns to issue them.  A
+// turns to issue them.  At D = 256 (Gemma's heads) a 128-row tile is 64
+// KB, so Q and two stages of 128-key K and V tiles would need 320 KB of
+// the 227 KB a block has, and O alone is 128 fp32 registers a thread,
+// which beside a 128-key S (64) and its P (32) exceeds the consumers'
+// 240: the K/V tiles are 64 keys there (Q + 2 x (K, V) = 192 KB; S = Q
+// K^T an m64n64 product over 16 k steps across Q's four boxes, 32
+// registers, P 16, O += P V one m64n256 product a 16-key slice across V's
+// four boxes; in fp16 P enters it as two fp16 terms, so O is one
+// rounding of an fp32 value).  Public FA3 takes 80-key tiles at this head
+// dim, for the same reasons.  A
 // TinyLlama-shaped 256-token chunk (group 8) is 64 blocks of at most 6
 // K/V tiles each: it fills 64 of the 132 SMs; its bound is the tensor
 // cores' 1.4 us.  bf16 and fp16 run one body, templated on the
@@ -158,17 +168,23 @@ namespace tc {
 constexpr int BM = 128;                              // rows of a tile
 constexpr int BN = 128;                              // keys of a K/V tile
 constexpr int kThreads = 384;                        // 2 consumer + 1 producer WG
-constexpr int kBox = 128 * hopper::kBoxCols * 2;     // one 64-column box
 // The shared-memory plan at head dim D: Q, then kStages x (K, V), then the
-// barriers: Q's, full[], empty[].  A tile is whole 64-column boxes.
+// barriers: Q's, full[], empty[].  A tile is whole 64-column boxes; the
+// K/V tiles are 64 keys at D = 256 (the header says why).
 template <int D>
 struct Smem {
-  // 32 KB at D = 80, 96 and 128, 16 at 64
-  static constexpr int kTile = 128 * hopper::box_cols<D>() * 2;
+  static constexpr int kKeys = D == 256 ? 64 : BN;   // keys of a K/V tile
+  // 16 KB at D = 64, 32 at 80, 96 and 128, 64 at 256
+  static constexpr int kQTile = BM * hopper::box_cols<D>() * 2;
+  static constexpr int kTile = kKeys * hopper::box_cols<D>() * 2;  // K or V
+  static constexpr int kQBox = BM * 128;              // a box of Q
+  static constexpr int kKVBox = kKeys * 128;          // a box of K or V
   static constexpr int kStages = D == 64 ? 4 : 2;
-  static constexpr int kBarOffset = kTile + kStages * 2 * kTile;
+  static constexpr int kBarOffset = kQTile + kStages * 2 * kTile;
   static constexpr size_t kBytes = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
 };
+// The keys of a K/V tile at head dim D, on the host.
+inline int tile_keys(int D) { return D == 256 ? Smem<256>::kKeys : BN; }
 }  // namespace tc
 
 // What a consumer thread's two rows see at D = 64, for the shared consumer
@@ -209,12 +225,14 @@ ragged_prefill_tc_kernel(const __grid_constant__ PrefillParams p) {
   using namespace hopper;
   using namespace tc;
   constexpr int kTile = Smem<D>::kTile, kStages = Smem<D>::kStages;
+  constexpr int kQTile = Smem<D>::kQTile, kKeys = Smem<D>::kKeys;
+  constexpr int kQBox = Smem<D>::kQBox, kKVBox = Smem<D>::kKVBox;
   constexpr int kBarOffset = Smem<D>::kBarOffset;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   unsigned char* q_s = base;
-  unsigned char* kv_s = base + kTile;
+  unsigned char* kv_s = base + kQTile;
   uint64_t* q_bar = reinterpret_cast<uint64_t*>(base + kBarOffset);
   uint64_t* full = q_bar + 1;
   uint64_t* empty = full + kStages;
@@ -227,7 +245,7 @@ ragged_prefill_tc_kernel(const __grid_constant__ PrefillParams p) {
   const int first_q = ctx - qlen;                 // position of token 0
   int kv_hi = first_q + min(qlen, t0 + tokens);   // the causal frontier
   kv_hi = max(0, min(kv_hi, p.max_pages * p.page));
-  const int n_tiles = (kv_hi + BN - 1) / BN;
+  const int n_tiles = (kv_hi + kKeys - 1) / kKeys;
   const int* table = p.tables + (long long)s * p.max_pages;
 
   const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
@@ -247,23 +265,23 @@ ragged_prefill_tc_kernel(const __grid_constant__ PrefillParams p) {
       // Q: one box of 64 rows (64 / group tokens x group heads) per
       // consumer warpgroup and 64 columns; the transaction counts whole
       // boxes, the columns TMA zero-fills past D included
-      mbar_arrive_expect_tx(q_bar, kTile);
+      mbar_arrive_expect_tx(q_bar, kQTile);
       for (int w = 0; w < 2; ++w)
         for (int c = 0; c < boxes<D>(); ++c)
-          tma_load_3d(q_s + c * kBox + w * 64 * 128, &p.q_map, q_bar,
+          tma_load_3d(q_s + c * kQBox + w * 64 * 128, &p.q_map, q_bar,
                       c * kBoxCols, hk * group, qoff + t0 + w * 64 / group);
-      const int per = BN / p.box_rows;          // boxes per K or V tile
+      const int per = kKeys / p.box_rows;       // boxes per K or V tile
       for (int it = 0; it < n_tiles; ++it) {
         const int st = it % kStages;
         mbar_wait(&empty[st], ((it / kStages) & 1) ^ 1);
         unsigned char* k_t = kv_s + st * 2 * kTile;
         mbar_arrive_expect_tx(&full[st], 2 * kTile);
         for (int j = 0; j < per; ++j) {
-          const int key = it * BN + j * p.box_rows;
+          const int key = it * kKeys + j * p.box_rows;
           const int pg = __ldg(table + min(key / p.page, p.max_pages - 1));
           const int row = (pg * p.Hkv + hk) * p.page + key % p.page;
           for (int c = 0; c < boxes<D>(); ++c) {
-            unsigned char* dst = k_t + c * kBox + j * p.box_rows * 128;
+            unsigned char* dst = k_t + c * kKVBox + j * p.box_rows * 128;
             tma_load_2d(dst, &p.k_map, &full[st], c * kBoxCols, row);
             tma_load_2d(dst + kTile, &p.v_map, &full[st], c * kBoxCols, row);
           }
@@ -301,30 +319,42 @@ ragged_prefill_tc_kernel(const __grid_constant__ PrefillParams p) {
                                             full, empty, 0, n_tiles, 0, last,
                                             0, t, o, m, l);
     } else {
+      // S: kKeys / 2 fp32 accumulators a thread (an m64n128 product, or
+      // m64n64 at D = 256), P: half as many registers.  fp16 at D = 256
+      // enters P into O += P V as two fp16 terms, the rounded value and
+      // the rest (as the split-key decode body does), so O is one rounding
+      // of an fp32 value: with P rounded once its error vs the exact
+      // answer reached an ulp of fp16, and the fp16 rule compares the
+      // output with the exact answer rounded to fp16
+      constexpr int kS = kKeys / 2;
+      constexpr bool kTwoTerms = is_f16<E>() && D == 256;
       for (int it = 0; it < n_tiles; ++it) {
-        const int st = it % kStages, k0 = it * BN;
+        const int st = it % kStages, k0 = it * kKeys;
         // no real row (tok_last < tok_first) or every key past the last one
         const bool unseen = tok_last < tok_first || k0 > first_q + tok_last;
         mbar_wait(&full[st], (it / kStages) & 1);
         if (!unseen) {
           const uint32_t k_addr = smem_u32(kv_s) + st * 2 * kTile;
           const uint32_t v_addr = k_addr + kTile;
-          float sc[64];
+          float sc[kS];
           wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < D / 16; ++kk) {
-            const uint32_t off = kslice(kk, kBox);
-            wgmma_ss_n128<E>(sc, desc_kmajor(q_addr + off),
-                          desc_kmajor(k_addr + off), kk > 0);
+            const uint64_t qd = desc_kmajor(q_addr + kslice(kk, kQBox));
+            const uint64_t kd = desc_kmajor(k_addr + kslice(kk, kKVBox));
+            if constexpr (kKeys == 128)
+              wgmma_ss_n128<E>(sc, qd, kd, kk > 0);
+            else
+              wgmma_ss_n64<E>(sc, qd, kd, kk > 0);
           }
           wgmma_commit();
           wgmma_wait<0>();
           fence_regs(sc);
 
-          const bool edge = k0 + BN - 1 > first_q + tok_first;
+          const bool edge = k0 + kKeys - 1 > first_q + tok_first;
           float mx[2] = {kNeg, kNeg};
 #pragma unroll
-          for (int i = 0; i < 64; ++i) {
+          for (int i = 0; i < kS; ++i) {
             const int r = (i / 2) % 2;
             float x = __fmul_rn(sc[i], scale);
             if (edge && k0 + acc_col(i, t) > qpos[r]) x = kNeg;
@@ -345,7 +375,7 @@ ragged_prefill_tc_kernel(const __grid_constant__ PrefillParams p) {
             l[r] *= corr[r];
           }
 #pragma unroll
-          for (int i = 0; i < 64; ++i) {
+          for (int i = 0; i < kS; ++i) {
             const int r = (i / 2) % 2;
             const float pr = ex2(fmaf(sc[i], kLog2e, -ml[r]));
             l[r] += pr;
@@ -353,21 +383,36 @@ ragged_prefill_tc_kernel(const __grid_constant__ PrefillParams p) {
           }
 #pragma unroll
           for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i / 2) % 2];
-          uint32_t pa[32];
+          uint32_t pa[kS / 2], pl[kTwoTerms ? kS / 2 : 1];
           acc_to_a<E>(sc, pa);
+          if constexpr (kTwoTerms) {
+            // the rest of P, rounded: P V as P_hi V + P_lo V
+#pragma unroll
+            for (int i = 0; i < kS / 2; ++i)
+              pl[i] = pack2<E>(sc[2 * i] - dsdecode::half_f<E>(pa[i], 0),
+                               sc[2 * i + 1] - dsdecode::half_f<E>(pa[i], 1));
+          }
           fence_regs(o);
           fence_regs(pa);
+          if constexpr (kTwoTerms) fence_regs(pl);
           wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < 8; ++kk) {
+          for (int kk = 0; kk < kKeys / 16; ++kk) {
+            const uint64_t vd = desc_mnmajor(v_addr + kk * 2048, kKVBox);
             const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
                                    pa[4 * kk + 3]};
-            wgmma_rs<E, D>(o, a, desc_mnmajor(v_addr + kk * 2048, kBox));
+            wgmma_rs<E, D>(o, a, vd);
+            if constexpr (kTwoTerms) {
+              const uint32_t b[4] = {pl[4 * kk], pl[4 * kk + 1],
+                                     pl[4 * kk + 2], pl[4 * kk + 3]};
+              wgmma_rs<E, D>(o, b, vd);
+            }
           }
           wgmma_commit();
           wgmma_wait<0>();
           fence_regs(o);
           fence_regs(pa);
+          if constexpr (kTwoTerms) fence_regs(pl);
         }
         mbar_arrive(&empty[st]);
       }
@@ -498,7 +543,7 @@ int launch_prefill_cores(const void* q, const void* kp, const void* vp,
 
 // One call's launches.  q: packed [total_q, H, D]; pages [P, Hkv, page,
 // D]; o like q; dtype: 0 = float32, 1 = bfloat16, 2 = float16; D is 64,
-// 80, 96 or 128 in every form (any other: cudaErrorInvalidValue).  All
+// 80, 96, 128 or 256 in every form (any other: cudaErrorInvalidValue).  All
 // metadata arrays are int32 on the device: ctx_lens / q_lens / q_offs [B],
 // block_tables [B, max_pages].  Decode form (n_dec > 0): dec_seqs [n_dec]
 // sequences of at most dec_rows = q_len * group <= 8 rows, their keys
@@ -546,10 +591,11 @@ extern "C" int ds_ragged_paged_attention(
   const int* sot = static_cast<const int*>(seq_of_tile);
   const int* qot = static_cast<const int*>(qtile_of_tile);
   if (tensor_cores) {
-    const int box_rows = page_size < tc::BN ? page_size : tc::BN;
+    const int keys = tc::tile_keys(D);
+    const int box_rows = page_size < keys ? page_size : keys;
     if (dtype == 0 || 64 % group != 0 || q_tile != tc::BM / group ||
-        (page_size % tc::BN != 0 &&
-         (tc::BN % page_size != 0 || page_size % 8 != 0)))
+        (page_size % keys != 0 &&
+         (keys % page_size != 0 || page_size % 8 != 0)))
       return (int)cudaErrorInvalidValue;
     PrefillParams p = {};
     p.o = o;

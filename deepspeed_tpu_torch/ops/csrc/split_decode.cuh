@@ -8,7 +8,8 @@
 // query rows (a GQA group folded in: row r is token r / group of head
 // hk * group + r % group) over keys [0, kv_hi) with the causal-ragged mask
 // key < lim(r), an fp32 online softmax, and 0 for a row that sees no key.
-// Head dim D is 64, 80, 96 or 128, the element type fp32, bf16 or fp16.
+// Head dim D is 64, 80, 96, 128 or 256, the element type fp32, bf16 or
+// fp16.
 //
 // What bounds it on the H100: every cached K/V byte is read once for 4*D
 // flops per key per row -- at most 8 flops per byte at 8 rows, far under
@@ -35,7 +36,10 @@
 //   holds whole rows: at D = 80 and 96 the lanes past D / VEC (6 and 4 of
 //   16 in bf16 / fp16, 12 and 8 of 32 in fp32) load nothing and add 0, so
 //   a warp load moves 10/16 or 12/16 of the bytes it moves at D = 64 and
-//   128, in the same 16-byte loads.  A block has 16, 8 or 4
+//   128, in the same 16-byte loads.  At D = 256 a key row is a whole
+//   warp's: 32 lanes of one 16-byte vector in bf16 / fp16, of two in fp32
+//   (its groups hold half as many keys, so that a lane's loads in flight
+//   stay 64 registers).  A block has 16, 8 or 4
 //   warps for 1, 2 or 3-8 rows (as many as one SM's registers hold), and
 //   each warp takes every n-th group of KEYS keys of the block's keys.  A
 //   warp issues all of a group's 16-byte K and V loads into registers
@@ -68,7 +72,18 @@
 //   zeros, so the products run 6 k steps of S^T at both (at 80 the last
 //   one half zero) and D = 128's 8 output tiles of O^T (3 or 2 of them on
 //   zero rows, never stored): tensor-core work the body has to spare, for
-//   loads that stay 16 bytes and registers no more than D = 128's.
+//   loads that stay 16 bytes and registers no more than D = 128's.  At D =
+//   256 a tile's K and V slices are 32 16-byte loads a lane, 128 registers,
+//   beside O^T's 64: two tiles in flight would need 256 before anything
+//   else, over the 255 a thread has.  So a warp keeps ONE tile, and its
+//   loads still overlap the arithmetic: the next tile's K is issued as
+//   soon as S^T has read this one's, its V once P V has read this V; q is
+//   read from shared memory a k step at a time (its 32 registers would
+//   leave too few); and a block is 4 warps, whose merge takes 32 KB of
+//   shared memory where 8 would take 64, over the static 48 KB.  A warp's
+//   16 keys are 16 KB of K and V in flight, and 2-3 blocks a SM keep the
+//   memory system as busy as the two-tile body at 128 does (registers, not
+//   shared memory, were the reason not to stage K and V through it).
 //
 // Only real rows are computed.  Merges run in a fixed order, so runs
 // repeat bit for bit: the warps in shared memory by warp index, and, when
@@ -108,25 +123,33 @@ template <typename T, int ROWS>
 constexpr bool kTensorCores = ROWS > 4 && !std::is_same<T, float>::value;
 
 // Lane layout of the CUDA-core body for element type T, head dim D and
-// ROWS query rows: a key row is LPR lanes (DL of them with dims) of VEC
-// elements, a warp load
-// covers KPL keys, a group is LOADS loads a lane, KEYS keys; WARPS warps a
-// block (the registers of one SM hold 2-4 blocks: a row's q, accumulator
-// and scores cost a lane 2 * VEC + LOADS registers beside the 8 * LOADS of
-// a group's loads).  The tensor-core body has WARPS = 8 warps (4 measured
-// slower, PERF.md).
+// ROWS query rows: a key row is DL vectors of VEC elements (16 bytes), NV
+// of them a lane's (2 in fp32 at D = 256, where a row is 64 vectors: more
+// than a warp's lanes), so LD lanes hold its dims, LPR lanes a row slice; a
+// warp load covers KPL keys, a group is LOADS loads a lane, KEYS keys;
+// WARPS warps a block (the registers of one SM hold 2-4 blocks: a row's q,
+// accumulator and scores cost a lane 2 * NV * VEC + LOADS registers beside
+// the 8 * NV * LOADS of a group's loads, which stay 64 at NV = 2 by halving
+// LOADS, and are halved again at D = 256 for 3-4 rows, where 8 loads
+// spilled).  The tensor-core body has WARPS = 8 warps (4 measured slower,
+// PERF.md) at D <= 128, and 4 at D = 256, whose 8 warps' fp32 accumulators
+// would take 64 KB of shared memory for the merge, over the 48 KB a block
+// has without opting in.
 template <typename T, int D, int ROWS>
 struct Layout {
-  static_assert(D == 64 || D == 80 || D == 96 || D == 128,
-                "head dim 64, 80, 96 or 128");
+  static_assert(D == 64 || D == 80 || D == 96 || D == 128 || D == 256,
+                "head dim 64, 80, 96, 128 or 256");
   static_assert(ROWS >= 1 && ROWS <= kMaxRows, "1-8 rows");
   static constexpr int VEC = 16 / sizeof(T);
-  static constexpr int DL = D / VEC;   // lanes that hold a key row's dims
-  static constexpr int LPR = DL <= 8 ? 8 : DL <= 16 ? 16 : 32;
+  static constexpr int DL = D / VEC;   // vectors of a key row
+  static constexpr int NV = DL > 32 ? DL / 32 : 1;   // of them a lane's
+  static constexpr int LD = DL / NV;   // lanes that hold a key row's dims
+  static constexpr int LPR = LD <= 8 ? 8 : LD <= 16 ? 16 : 32;
   static constexpr int KPL = 32 / LPR;
-  static constexpr int LOADS = ROWS > 4 ? 1 : 8;
+  static constexpr int LOADS =
+      ROWS > 4 ? 1 : (D > 128 && ROWS > 2 ? 4 : 8) / NV;
   static constexpr int KEYS = LOADS * KPL;
-  static constexpr int WARPS = kTensorCores<T, ROWS> ? 8
+  static constexpr int WARPS = kTensorCores<T, ROWS> ? (D > 128 ? 4 : 8)
                                : ROWS == 1 ? 16 : ROWS == 2 ? 8 : 4;
 };
 
@@ -171,9 +194,10 @@ __device__ __forceinline__ int active_chunks(int kv_hi, int chunk) {
 }
 
 // The end of both bodies: the block's warps, whose (acc, m, l) per row are
-// in shared memory, merged in warp order; thread d < D owns dim d of every
-// row and writes the row's output at off[r] (one chunk) or the chunk's
-// partial.
+// in shared memory, merged in warp order; thread i owns dims i, i + the
+// block's threads, .. (one dim at D <= 128, two at D = 256 on 4 warps) of
+// every row and writes the row's output at off[r] (one chunk) or the
+// chunk's partial.
 template <typename T, int ROWS, int WARPS, typename Seqs, typename Seq>
 __device__ __forceinline__ void finish(
     const SplitParams<Seqs>& p, const Seq& seq, int n_chunks, int split,
@@ -181,33 +205,42 @@ __device__ __forceinline__ void finish(
     const float (&acc_s)[WARPS][ROWS][Seqs::kDim],
     const float (&m_s)[WARPS][ROWS], const float (&l_s)[WARPS][ROWS]) {
   constexpr int D = Seqs::kDim;
-  static_assert(WARPS * 32 >= D, "the merge gives thread d dim d");
-  const int d = threadIdx.x;
-  if (d >= D) return;
+  constexpr int kThreads = WARPS * 32;
   const long long zhk = (long long)z * p.Hkv + hk;
+  // one dim a thread where the block's threads cover D (every D <= 128:
+  // the form measured before D = 256 came), a loop over dims otherwise
+  const auto merge = [&](int d) {
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    if (r >= seq.rows) break;
-    float mm = kNeg;
+    for (int r = 0; r < ROWS; ++r) {
+      if (r >= seq.rows) break;
+      float mm = kNeg;
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) mm = fmaxf(mm, m_s[w][r]);
-    float ll = 0.f, aa = 0.f;
+      for (int w = 0; w < WARPS; ++w) mm = fmaxf(mm, m_s[w][r]);
+      float ll = 0.f, aa = 0.f;
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      const float c = ex2(m_s[w][r] - mm);
-      ll = fmaf(l_s[w][r], c, ll);
-      aa = fmaf(acc_s[w][r][d], c, aa);
-    }
-    if (n_chunks == 1) {
-      static_cast<T*>(p.o)[off[r] + d] = from_f<T>(aa / fmaxf(ll, 1e-30f));
-    } else {
-      const long long at = (zhk * p.n_split + split) * ROWS + r;
-      p.part[at * (D + 2) + d] = aa;
-      if (d == 0) {
-        p.part[at * (D + 2) + D] = mm;
-        p.part[at * (D + 2) + D + 1] = ll;
+      for (int w = 0; w < WARPS; ++w) {
+        const float c = ex2(m_s[w][r] - mm);
+        ll = fmaf(l_s[w][r], c, ll);
+        aa = fmaf(acc_s[w][r][d], c, aa);
+      }
+      if (n_chunks == 1) {
+        static_cast<T*>(p.o)[off[r] + d] = from_f<T>(aa / fmaxf(ll, 1e-30f));
+      } else {
+        const long long at = (zhk * p.n_split + split) * ROWS + r;
+        p.part[at * (D + 2) + d] = aa;
+        if (d == 0) {
+          p.part[at * (D + 2) + D] = mm;
+          p.part[at * (D + 2) + D + 1] = ll;
+        }
       }
     }
+  };
+  if constexpr (kThreads >= D) {
+    const int d = threadIdx.x;
+    if (d >= D) return;
+    merge(d);
+  } else {
+    for (int d = threadIdx.x; d < D; d += kThreads) merge(d);
   }
 }
 
@@ -218,8 +251,14 @@ __global__ void __launch_bounds__(Layout<T, Seqs::kDim, ROWS>::WARPS * 32)
 split_kernel(const __grid_constant__ SplitParams<Seqs> p) {
   constexpr int D = Seqs::kDim;
   using L = Layout<T, D, ROWS>;
-  constexpr int VEC = L::VEC, DL = L::DL, LPR = L::LPR, KPL = L::KPL;
-  constexpr int LOADS = L::LOADS, KEYS = L::KEYS, kWarps = L::WARPS;
+  constexpr int VEC = L::VEC, NV = L::NV, LD = L::LD, LPR = L::LPR;
+  constexpr int KPL = L::KPL, LOADS = L::LOADS, KEYS = L::KEYS;
+  constexpr int kWarps = L::WARPS;
+  constexpr int E = NV * VEC;          // a lane's elements of a key row
+  constexpr int kVecStride = LPR * VEC;   // between a lane's vectors
+  // NV = 1 (every head dim but fp32 at 256) keeps its own statements
+  // below: the loops over a lane's vectors, with the same registers,
+  // compiled to a B4 decode step 6% slower at D = 128 (PERF.md §6)
   __shared__ float acc_s[kWarps][ROWS][D];
   __shared__ float m_s[kWarps][ROWS], l_s[kWarps][ROWS];
 
@@ -234,14 +273,14 @@ split_kernel(const __grid_constant__ SplitParams<Seqs> p) {
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int d0 = (lane % LPR) * VEC, kl = lane / LPR;
-  const bool dims = DL == LPR || lane % LPR < DL;   // lanes past D idle
+  const bool dims = LD == LPR || lane % LPR < LD;   // lanes past D idle
   const T* q = static_cast<const T*>(p.q);
   const T* kp = static_cast<const T*>(p.k) + d0;
   const T* vp = static_cast<const T*>(p.v) + d0;
 
   // the rows' q slices (prescaled to base 2), key limits and offsets
   const float qscale = p.scale * kLog2e;
-  float qr[ROWS][VEC];
+  float qr[ROWS][E];
   int lim[ROWS];
   long long off[ROWS];
 #pragma unroll
@@ -249,45 +288,78 @@ split_kernel(const __grid_constant__ SplitParams<Seqs> p) {
     const bool real = r < seq.rows;
     off[r] = real ? seq.row(r) : 0;
     lim[r] = real ? min(seq.lim(r), k_end) : k_begin;   // keys < lim
-    const uint4 u = real && dims
-                        ? *reinterpret_cast<const uint4*>(q + off[r] + d0)
-                        : make_uint4(0u, 0u, 0u, 0u);
-    unpack<T>(u, qr[r]);
+    if constexpr (NV == 1) {
+      const uint4 u = real && dims
+                          ? *reinterpret_cast<const uint4*>(q + off[r] + d0)
+                          : make_uint4(0u, 0u, 0u, 0u);
+      unpack<T>(u, qr[r]);
 #pragma unroll
-    for (int x = 0; x < VEC; ++x) qr[r][x] *= qscale;
+      for (int x = 0; x < VEC; ++x) qr[r][x] *= qscale;
+    } else {
+#pragma unroll
+      for (int n = 0; n < NV; ++n) {
+        const uint4 u = real && dims ? *reinterpret_cast<const uint4*>(
+                                           q + off[r] + d0 + n * kVecStride)
+                                     : make_uint4(0u, 0u, 0u, 0u);
+        float f[VEC];
+        unpack<T>(u, f);
+#pragma unroll
+        for (int x = 0; x < VEC; ++x) qr[r][n * VEC + x] = f[x] * qscale;
+      }
+    }
   }
 
-  float m[ROWS], l[ROWS], acc[ROWS][VEC];
+  float m[ROWS], l[ROWS], acc[ROWS][E];
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
     m[r] = kNeg;
     l[r] = 0.f;
 #pragma unroll
-    for (int x = 0; x < VEC; ++x) acc[r][x] = 0.f;
+    for (int x = 0; x < E; ++x) acc[r][x] = 0.f;
   }
 
   for (int g0 = k_begin + warp * KEYS; g0 < k_end; g0 += kWarps * KEYS) {
     // every load of the group in flight before any is used
-    uint4 kr[LOADS], vr[LOADS];
+    uint4 kr[LOADS * NV], vr[LOADS * NV];   // load j's vector n: j * NV + n
 #pragma unroll
     for (int j = 0; j < LOADS; ++j) {
       const int key = g0 + j * KPL + kl;
       const bool in = key < k_end && dims;
       const long long at = in ? seq.key(key) : 0;
-      kr[j] = in ? load16(kp + at) : make_uint4(0u, 0u, 0u, 0u);
-      vr[j] = in ? load16(vp + at) : make_uint4(0u, 0u, 0u, 0u);
+      if constexpr (NV == 1) {
+        kr[j] = in ? load16(kp + at) : make_uint4(0u, 0u, 0u, 0u);
+        vr[j] = in ? load16(vp + at) : make_uint4(0u, 0u, 0u, 0u);
+      } else {
+#pragma unroll
+        for (int n = 0; n < NV; ++n) {
+          kr[j * NV + n] = in ? load16(kp + at + n * kVecStride)
+                              : make_uint4(0u, 0u, 0u, 0u);
+          vr[j * NV + n] = in ? load16(vp + at + n * kVecStride)
+                              : make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
     }
     // scores: each lane's slice of key row j, summed over the row's lanes
     float s[ROWS][LOADS];
 #pragma unroll
     for (int j = 0; j < LOADS; ++j) {
-      float kf[VEC];
-      unpack<T>(kr[j], kf);
+      float kf[E];
+      if constexpr (NV == 1) {
+        unpack<T>(kr[j], kf);
+      } else {
+#pragma unroll
+        for (int n = 0; n < NV; ++n) {
+          float f[VEC];
+          unpack<T>(kr[j * NV + n], f);
+#pragma unroll
+          for (int x = 0; x < VEC; ++x) kf[n * VEC + x] = f[x];
+        }
+      }
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) {
         float a = 0.f;
 #pragma unroll
-        for (int x = 0; x < VEC; ++x) a = fmaf(qr[r][x], kf[x], a);
+        for (int x = 0; x < E; ++x) a = fmaf(qr[r][x], kf[x], a);
 #pragma unroll
         for (int o = LPR / 2; o > 0; o >>= 1)
           a += __shfl_xor_sync(0xffffffffu, a, o);
@@ -311,7 +383,7 @@ split_kernel(const __grid_constant__ SplitParams<Seqs> p) {
       m[r] = m_new;
       l[r] *= corr;
 #pragma unroll
-      for (int x = 0; x < VEC; ++x) acc[r][x] *= corr;
+      for (int x = 0; x < E; ++x) acc[r][x] *= corr;
 #pragma unroll
       for (int j = 0; j < LOADS; ++j) {
         // a masked key is 0, also while the row has seen no key (m = kNeg)
@@ -322,30 +394,49 @@ split_kernel(const __grid_constant__ SplitParams<Seqs> p) {
     }
 #pragma unroll
     for (int j = 0; j < LOADS; ++j) {
-      float vf[VEC];
-      unpack<T>(vr[j], vf);
+      float vf[E];
+      if constexpr (NV == 1) {
+        unpack<T>(vr[j], vf);
+      } else {
+#pragma unroll
+        for (int n = 0; n < NV; ++n) {
+          float f[VEC];
+          unpack<T>(vr[j * NV + n], f);
+#pragma unroll
+          for (int x = 0; x < VEC; ++x) vf[n * VEC + x] = f[x];
+        }
+      }
 #pragma unroll
       for (int r = 0; r < ROWS; ++r)
 #pragma unroll
-        for (int x = 0; x < VEC; ++x)
+        for (int x = 0; x < E; ++x)
           acc[r][x] = fmaf(s[r][j], vf[x], acc[r][x]);
     }
   }
 
   // the warp's key rows (bf16 and fp16 at D = 80, 96 and 128: lanes l and
-  // l + 16 hold the same dims; fp32 at those: each lane its own)
+  // l + 16 hold the same dims; fp32 at those and every dtype at 256: each
+  // lane its own)
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
 #pragma unroll
     for (int o = 16; o >= LPR; o >>= 1) {
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], o);
 #pragma unroll
-      for (int x = 0; x < VEC; ++x)
+      for (int x = 0; x < E; ++x)
         acc[r][x] += __shfl_xor_sync(0xffffffffu, acc[r][x], o);
     }
-    if (lane < DL) {
+    if (lane < LD) {
+      if constexpr (NV == 1) {
 #pragma unroll
-      for (int x = 0; x < VEC; ++x) acc_s[warp][r][d0 + x] = acc[r][x];
+        for (int x = 0; x < VEC; ++x) acc_s[warp][r][d0 + x] = acc[r][x];
+      } else {
+#pragma unroll
+        for (int n = 0; n < NV; ++n)
+#pragma unroll
+          for (int x = 0; x < VEC; ++x)
+            acc_s[warp][r][d0 + n * kVecStride + x] = acc[r][n * VEC + x];
+      }
     }
     if (lane == 0) {
       m_s[warp][r] = m[r];
@@ -439,9 +530,14 @@ split_tc_kernel(const __grid_constant__ SplitParams<Seqs> p) {
   constexpr int VH = (D + 63) / 64;   // 16-byte loads of a V slice
   constexpr int KS = 2 * KJ;          // k steps of S^T
   constexpr int MT = 4 * VH;          // output tiles of O^T
+  // D = 256: a tile's slices are 32 loads a lane (128 registers), so one
+  // tile is in flight, not two, and q is read from shared memory
+  constexpr bool kOne = D > 128;
+  constexpr int kQPitch = 4 * KJ + 4;   // q rows' 16-byte vectors, padded
   static_assert(kTensorCores<T, ROWS>, "5-8 rows, bf16 or fp16");
   __shared__ float acc_s[kWarps][ROWS][D];
   __shared__ float m_s[kWarps][ROWS], l_s[kWarps][ROWS];
+  __shared__ uint4 q_s[kOne ? 8 : 1][kOne ? kQPitch : 1];
 
   const int split = blockIdx.x, hk = blockIdx.y, z = blockIdx.z;
   // the combine kernel may be scheduled now; it waits for this grid
@@ -460,9 +556,20 @@ split_tc_kernel(const __grid_constant__ SplitParams<Seqs> p) {
   const auto k_in = [&](int j) { return 32 * j + 8 * t < D; };
   const auto v_in = [&](int h) { return 64 * h + 8 * g < D; };
 
-  // q row g's slice (the B operand of S^T), rows 2 t and 2 t + 1's limits
-  uint4 qf[KJ];
-  {
+  // q row g's slice (the B operand of S^T): registers, or at D = 256 the
+  // block's 8 q rows in shared memory (vector c of row r at q_s[r][c]; the
+  // pad puts rows g and g + 1 16 banks apart), read a k step at a time
+  uint4 qf[kOne ? 1 : KJ];
+  if constexpr (kOne) {
+    const T* q = static_cast<const T*>(p.q);
+    for (int i = threadIdx.x; i < 8 * 4 * KJ; i += kWarps * 32) {
+      const int r = i / (4 * KJ), c = i % (4 * KJ);
+      q_s[r][c] = r < seq.rows
+                      ? *reinterpret_cast<const uint4*>(q + seq.row(r) + 8 * c)
+                      : make_uint4(0u, 0u, 0u, 0u);
+    }
+    __syncthreads();
+  } else {
     const bool real = g < seq.rows;
     const T* q = static_cast<const T*>(p.q) + (real ? seq.row(g) : 0) + 8 * t;
 #pragma unroll
@@ -470,6 +577,13 @@ split_tc_kernel(const __grid_constant__ SplitParams<Seqs> p) {
       qf[j] = real && k_in(j) ? *reinterpret_cast<const uint4*>(q + 32 * j)
                               : make_uint4(0u, 0u, 0u, 0u);
   }
+  const auto qvec = [&](int j) {
+    if constexpr (kOne)
+      return q_s[g][4 * j + t];
+    else
+      return qf[j];
+  };
+  // rows 2 t and 2 t + 1's limits
   int lim[2];
 #pragma unroll
   for (int j = 0; j < 2; ++j)
@@ -495,41 +609,48 @@ split_tc_kernel(const __grid_constant__ SplitParams<Seqs> p) {
   const auto where = [&](int k0) {
     return Where{seq.key(k0), seq.run(k0) >= 16};
   };
-  const auto issue = [&](Tile& tl, int k0, const Where& w) {
-    const auto at = [&](int i) {
-      return w.flat ? w.base + (long long)i * D : seq.key(k0 + i);
-    };
+  const auto at = [&](int k0, const Where& w, int i) {
+    return w.flat ? w.base + (long long)i * D : seq.key(k0 + i);
+  };
+  const auto issue_k = [&](Tile& tl, int k0, const Where& w) {
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
       const int i = g + 8 * c;
       const bool in = k0 + i < k_end;
-      const long long a = in ? at(i) : 0;
+      const long long a = in ? at(k0, w, i) : 0;
 #pragma unroll
       for (int j = 0; j < KJ; ++j)
         tl.k[c][j] = in && k_in(j) ? load16(kp + a + 32 * j)
                                    : make_uint4(0u, 0u, 0u, 0u);
     }
+  };
+  const auto issue_v = [&](Tile& tl, int k0, const Where& w) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int i = 2 * t + (c & 1) + 8 * (c >> 1);
       const bool in = k0 + i < k_end;
-      const long long a = in ? at(i) : 0;
+      const long long a = in ? at(k0, w, i) : 0;
 #pragma unroll
       for (int h = 0; h < VH; ++h)
         tl.v[c][h] = in && v_in(h) ? load16(vp + a + 64 * h)
                                    : make_uint4(0u, 0u, 0u, 0u);
     }
   };
-  const auto consume = [&](const Tile& tl, int k0) {
-    // S^T = K Q^T over the head's k steps: s[0], s[2] are row 2 t's keys
-    // g, g + 8; s[1], s[3] row 2 t + 1's
+  // S^T = K Q^T, the online softmax (o rescaled) and P^T as B operands:
+  // bh the rounded P, bl the rest rounded
+  const auto scores = [&](const Tile& tl, int k0, uint32_t (&bh)[2],
+                          uint32_t (&bl)[2]) {
+    // S^T over the head's k steps: s[0], s[2] are row 2 t's keys g, g + 8;
+    // s[1], s[3] row 2 t + 1's
     float s[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int st = 0; st < KS; ++st) {
-      const int j = st / 2, w = 2 * (st % 2);
-      mma16816<T>(s, word(tl.k[0][j], w), word(tl.k[1][j], w),
-                  word(tl.k[0][j], w + 1), word(tl.k[1][j], w + 1),
-                  word(qf[j], w), word(qf[j], w + 1));
+    for (int j = 0; j < KJ; ++j) {
+      const uint4 qv = qvec(j);
+#pragma unroll
+      for (int w = 0; w < 4; w += 2)
+        mma16816<T>(s, word(tl.k[0][j], w), word(tl.k[1][j], w),
+                    word(tl.k[0][j], w + 1), word(tl.k[1][j], w + 1),
+                    word(qv, w), word(qv, w + 1));
     }
 #pragma unroll
     for (int x = 0; x < 4; ++x) {
@@ -559,8 +680,6 @@ split_tc_kernel(const __grid_constant__ SplitParams<Seqs> p) {
     for (int i = 0; i < MT; ++i)
 #pragma unroll
       for (int x = 0; x < 4; ++x) o[i][x] *= corr[x % 2];
-    // P^T as B operands: P rounded to T, and the rest rounded to T
-    uint32_t bh[2], bl[2];
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
       const uint32_t hi = pack_t2<T>(s[2 * c], s[2 * c + 1]);
@@ -569,7 +688,10 @@ split_tc_kernel(const __grid_constant__ SplitParams<Seqs> p) {
       bh[c] = trans8x8(hi);
       bl[c] = trans8x8(lo);
     }
-    // O^T += V^T P^T, V's key pairs packed per output tile
+  };
+  // O^T += V^T P^T, V's key pairs packed per output tile
+  const auto pv = [&](const Tile& tl, const uint32_t (&bh)[2],
+                      const uint32_t (&bl)[2]) {
 #pragma unroll
     for (int i = 0; i < MT; ++i) {
       const int h = i / 4, e = i % 4;
@@ -581,23 +703,53 @@ split_tc_kernel(const __grid_constant__ SplitParams<Seqs> p) {
       mma16816<T>(o[i], a0, a1, a2, a3, bl[0], bl[1]);
     }
   };
-  // two tiles in registers: the next one's loads are in flight while the
-  // current one is used, and the one after's page is being read
   constexpr int kStride = kWarps * 16;
-  Tile ta, tb;
   int k0 = k_begin + warp * 16;
-  Where w = where(k0 + kStride);
-  if (k0 < k_end) issue(ta, k0, where(k0));
-  while (k0 < k_end) {
-    if (k0 + kStride < k_end) issue(tb, k0 + kStride, w);
-    w = where(k0 + 2 * kStride);
-    consume(ta, k0);
-    k0 += kStride;
-    if (k0 >= k_end) break;
-    if (k0 + kStride < k_end) issue(ta, k0 + kStride, w);
-    w = where(k0 + 2 * kStride);
-    consume(tb, k0);
-    k0 += kStride;
+  if constexpr (kOne) {
+    // one tile in registers: the next tile's K loads are issued as soon as
+    // S^T has read this one's K, its V loads once P V has read this V
+    Tile tl;
+    if (k0 < k_end) {
+      const Where w0 = where(k0);
+      issue_k(tl, k0, w0);
+      issue_v(tl, k0, w0);
+    }
+    while (k0 < k_end) {
+      const int k1 = k0 + kStride;
+      const Where w = where(k1);
+      uint32_t bh[2], bl[2];
+      scores(tl, k0, bh, bl);
+      if (k1 < k_end) issue_k(tl, k1, w);
+      pv(tl, bh, bl);
+      if (k1 < k_end) issue_v(tl, k1, w);
+      k0 = k1;
+    }
+  } else {
+    // two tiles in registers: the next one's loads are in flight while the
+    // current one is used, and the one after's page is being read
+    const auto issue = [&](Tile& tl, int kx, const Where& w) {
+      issue_k(tl, kx, w);
+      issue_v(tl, kx, w);
+    };
+    const auto consume = [&](const Tile& tl, int kx) {
+      uint32_t bh[2], bl[2];
+      scores(tl, kx, bh, bl);
+      pv(tl, bh, bl);
+    };
+    Tile ta, tb;
+    Where w = where(k0 + kStride);
+    if (k0 < k_end) issue(ta, k0, where(k0));
+    while (k0 < k_end) {
+      if (k0 + kStride < k_end) issue(tb, k0 + kStride, w);
+      w = where(k0 + 2 * kStride);
+      consume(ta, k0);
+      k0 += kStride;
+      if (k0 >= k_end) break;
+      if (k0 + kStride < k_end) issue(ta, k0 + kStride, w);
+      w = where(k0 + 2 * kStride);
+      consume(tb, k0);
+      k0 += kStride;
+    }
   }
 
   // l: this lane's keys, summed over the lanes of its rows
@@ -749,9 +901,9 @@ int split_slots(int rows) {
   });
 }
 
-// Runs ``f(std::integral_constant<int, D>)`` for head dims 64, 80, 96 and
-// 128, the ones every form of both serving kernels is instantiated at; a
-// negative CUDA error for any other.
+// Runs ``f(std::integral_constant<int, D>)`` for head dims 64, 80, 96, 128
+// and 256, the ones every form of both serving kernels is instantiated at;
+// a negative CUDA error for any other.
 template <typename F>
 int with_head_dim(int D, F&& f) {
   switch (D) {
@@ -759,6 +911,7 @@ int with_head_dim(int D, F&& f) {
     case 80: return f(std::integral_constant<int, 80>{});
     case 96: return f(std::integral_constant<int, 96>{});
     case 128: return f(std::integral_constant<int, 128>{});
+    case 256: return f(std::integral_constant<int, 256>{});
   }
   return -(int)cudaErrorInvalidValue;
 }

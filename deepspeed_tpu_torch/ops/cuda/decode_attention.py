@@ -23,7 +23,7 @@ from deepspeed_tpu_torch.ops.cuda.flash_attention import check_head_dim
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # the kernel's head dims, in both forms (and B4's, in all of its forms)
-HEAD_DIMS = (64, 80, 96, 128)
+HEAD_DIMS = (64, 80, 96, 128, 256)
 # The decode form (at most DECODE_ROWS query rows per kv head) splits each
 # sequence's keys into chunks of at least DECODE_MIN_CHUNK keys, one block
 # each, merged in chunk order by a second kernel when a sequence spans
@@ -32,6 +32,9 @@ HEAD_DIMS = (64, 80, 96, 128)
 # only from DECODE_MIN_CHUNK_TC keys on; shorter chunks cost more than they
 # save at the serving shapes, also when few (sequence, kv head) pairs
 # leave most of the card idle (PERF.md, PR 10).
+# Re-measured at head dim 256: right for the serving shapes there too,
+# but a 4096-token step of 8 rows over one kv head would take 512-key
+# chunks (PERF.md §6).
 DECODE_ROWS = 8
 DECODE_MIN_CHUNK = 512
 DECODE_MIN_CHUNK_TC = 2048

@@ -28,7 +28,7 @@ prefill tiles -- the tensor-core kernel's 128-row tiles where
 sizes), else the CUDA-core tiles (fp32, other groups and pages).  That
 choice is by dtype and shape, made here, and not a fallback: both forms
 are this wrapper's kernel, counted in the same ``launches``.  Every form
-takes head dims 64, 80, 96 and 128 (``HEAD_DIMS``); another raises
+takes head dims 64, 80, 96, 128 and 256 (``HEAD_DIMS``); another raises
 ``NotImplementedError`` naming ROADMAP A16.
 """
 
@@ -51,22 +51,30 @@ from deepspeed_tpu_torch.ops.cuda.flash_attention import check_head_dim
 
 DEFAULT_Q_TILE = 8
 TC_ROWS = 128   # query rows (tokens x group heads) of a tensor-core tile
-TC_KEYS = 128   # keys of its K/V tile
+
+
+def tc_keys(head_dim):
+    """Keys of the tensor-core tile's K/V tile: 128, and 64 at head dim
+    256, where 128-key tiles beside a 128-row Q tile would not fit a
+    block's shared memory (``ops/csrc/ragged_paged_attention.cu``)."""
+    return 64 if head_dim == 256 else 128
 
 
 def tensor_core_prefill(dtype, head_dim, group, page_size):
     """Whether prefill tiles take the wgmma + TMA kernel: bf16 or fp16,
-    a head dim of ``HEAD_DIMS`` (64, 80, 96 or 128: each has a tensor-core
-    instantiation), a GQA group dividing 64 (a warpgroup's 64 rows hold
-    whole tokens) and a page size that is a multiple of the 128-key tile
-    or a multiple of 8 rows dividing it (each TMA box starts on a swizzle
-    atom; a row of D columns is 64-column boxes of 128-byte swizzle rows,
-    zero-filled past D at 80 and 96).  Other shapes take the CUDA-core
-    tiles."""
+    a head dim of ``HEAD_DIMS`` (64, 80, 96, 128 or 256: each has a
+    tensor-core instantiation), a GQA group dividing 64 (a warpgroup's 64
+    rows hold whole tokens) and a page size that is a multiple of the K/V
+    tile's keys (:func:`tc_keys`: 128, 64 at 256) or a multiple of 8 rows
+    dividing them (each TMA box starts on a swizzle atom; a row of D
+    columns is 64-column boxes of 128-byte swizzle rows, zero-filled past
+    D at 80 and 96).  The serving engine's page 128 and a page of 16 take
+    it at every head dim.  Other shapes take the CUDA-core tiles."""
+    keys = tc_keys(head_dim)
     return (dtype in (torch.bfloat16, torch.float16)
             and head_dim in HEAD_DIMS and 64 % group == 0
-            and (page_size % TC_KEYS == 0 or
-                 (TC_KEYS % page_size == 0 and page_size % 8 == 0)))
+            and (page_size % keys == 0 or
+                 (keys % page_size == 0 and page_size % 8 == 0)))
 
 
 class LaunchPlan(NamedTuple):

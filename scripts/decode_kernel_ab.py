@@ -5,6 +5,7 @@
 one process.
 
     python3 scripts/decode_kernel_ab.py VARIANTS.json [--out DIR]
+        [--head-dim 256]
 
 VARIANTS.json maps a variant's name to ``{"dir": <sources>, "edits":
 {<file>: [[regex, replacement], ...]}, "splits": [n, ...]}``, as in
@@ -22,7 +23,10 @@ the main paths' decode shapes: B4 over the serve run's 8 slots (page 128)
 draft's step (32 / 4 heads of 64) and a Llama-2-70B-shaped step (64 / 8
 heads of 128) -- and B5's generate step
 (B=4, length 144 over a 160-token cache) at the same three attention
-shapes, and at Llama-2-70B's at length 4096: the max abs error against
+shapes, and at Llama-2-70B's at length 4096 (with ``--head-dim 256``
+instead: the Gemma-7B (16 / 16 heads of 256) and Gemma-2B (8 / 1) shapes'
+B4 8-slot steps, Gemma-7B's verify window, and B5's generate steps and
+length-4096 steps at both): the max abs error against
 the plain version run in fp32, device ms by CUDA-graph replay over
 rotating inputs (more than the 50 MB L2) beside SDPA's on the same inputs
 and the bound (K/V and q bytes over 3.35 TB/s).  The first variant is
@@ -51,15 +55,29 @@ CONTIGUOUS = [("B5 step H32/32", 4, 32, 32, 128, 160, 144, 12),
               ("B5 Llama-2-70B-shaped len 4096 H64/8", 4, 64, 8, 128, 4096,
                4096, 4)]
 
+# --head-dim 256: the Gemma shapes of phase serve-d256
+PAGED_256 = [("B4 Gemma-7B step H16/16 D=256", 1, 16, 16, 256, 16),
+             ("B4 Gemma-7B verify window [8, 5] H16/16 D=256", 5, 16, 16,
+              256, 9),
+             ("B4 Gemma-2B step H8/1 D=256", 1, 8, 1, 256, 16)]
+CONTIGUOUS_256 = [("B5 Gemma-7B step H16/16 D=256", 4, 16, 16, 256, 160,
+                   144, 12),
+                  ("B5 Gemma-2B step H8/1 D=256", 4, 8, 1, 256, 160, 144,
+                   12),
+                  ("B5 Gemma-7B len 4096 H16/16 D=256", 4, 16, 16, 256,
+                   4096, 4096, 2),
+                  ("B5 Gemma-2B len 4096 H8/1 D=256", 4, 8, 1, 256, 4096,
+                   4096, 4)]
 
-def cases(sm, torch, F, da, rp):
+
+def cases(sm, torch, F, da, rp, paged=PAGED, contiguous=CONTIGUOUS):
     """[(label, kernel fn(i), SDPA fn(i), copies, plain fp32 output of
     input 0, bound ms)] at the shapes above."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     bf = torch.bfloat16
     out = []
     prompts = sm.SERVE_PROMPTS[:sm.SERVE_SLOTS]
-    for label, T, H, Hkv, D, off in PAGED:
+    for label, T, H, Hkv, D, off in paged:
         c = 4
         states = [sm._engine_state([p + sm.SERVE_NEW for p in prompts], Hkv,
                                    D, bf, gen) for _ in range(c)]
@@ -85,7 +103,7 @@ def cases(sm, torch, F, da, rp):
                 F.scaled_dot_product_attention(qs[i], dn[i][0], dn[i][1],
                                                attn_mask=m, enable_gqa=g),
             c, want, nbytes / sm.HBM_BYTES_PER_S * 1e3))
-    for label, B, H, Hkv, D, S, L, c in CONTIGUOUS:
+    for label, B, H, Hkv, D, S, L, c in contiguous:
         q = sm._rand((c, B, 1, H, D), bf, gen)
         k = sm._rand((c, B, Hkv, S, D), bf, gen)
         v = sm._rand((c, B, Hkv, S, D), bf, gen)
@@ -116,6 +134,8 @@ def main():
     ap.add_argument("variants", help="JSON file of variants")
     ap.add_argument("--out", default=os.path.join(
         REPO, "deepspeed_tpu_torch", "_build", "ab_decode"))
+    ap.add_argument("--head-dim", type=int, choices=(256,),
+                    help="the Gemma shapes at head dim 256 instead")
     args = ap.parse_args()
     sys.path.insert(0, REPO)
     import torch
@@ -141,7 +161,8 @@ def main():
                     print(f"{name} {src}: {kernel[:110]}: {regs} registers, "
                           f"spills {st}/{ld} B", flush=True)
     card_splits = da.key_splits
-    todo = cases(sm, torch, F, da, rp)
+    todo = cases(sm, torch, F, da, rp) if args.head_dim is None else \
+        cases(sm, torch, F, da, rp, PAGED_256, CONTIGUOUS_256)
     lib_ms = {label: sm.graph_ms(lib, c) for label, _, lib, c, _, _ in todo}
     for name in list(variants) + list(variants)[:1]:
         use(libs, name, SOURCES)

@@ -163,13 +163,51 @@ def test_head_dims_80_96_match_jnp_and_pallas(Dh, Hkv, T):
     np.testing.assert_allclose(got, np.asarray(kern), **TOL)
 
 
+@pytest.mark.parametrize("T", [1, 5])
+@pytest.mark.parametrize("Hq,Hkv", [(2, 2), (8, 1)], ids=["group1", "group8"])
+def test_head_dim_256_matches_jnp_and_pallas(Hq, Hkv, T):
+    """Head dim 256 (Gemma's) at group 1 (Gemma-7B's MHA) and group 8 over
+    one kv head (Gemma-2B's MQA), a decode step and 5 tokens (the verify
+    window): the port's decode attention on a cache (the plain version on
+    the CPU) against the JAX package's jnp path and its Pallas kernel in
+    interpret mode, then ragged lengths against the Pallas kernel.  fp32,
+    rtol = atol = 1e-5."""
+    tol = dict(rtol=1e-5, atol=1e-5)
+    Dh = 256
+    rng = np.random.default_rng(Hq + T)
+    k0, v0 = _rand(rng, B, 7, Hkv, Dh), _rand(rng, B, 7, Hkv, Dh)
+    k1, v1 = _rand(rng, B, T, Hkv, Dh), _rand(rng, B, T, Hkv, Dh)
+    jc = jax_init_cache(B, S, Hkv, Dh, jnp.float32)
+    tc = init_cache(B, S, Hkv, Dh, torch.float32, device="cpu")
+    for k, v in ((k0, v0), (k1, v1)):
+        jc = jax_update(jc, jnp.asarray(k), jnp.asarray(v))
+        tc = update_cache(tc, torch.from_numpy(k), torch.from_numpy(v))
+    q = _rand(rng, B, T, Hq, Dh)
+    got = decode_attention(torch.from_numpy(q), tc).numpy()
+    np.testing.assert_allclose(
+        got, np.asarray(jax_decode(jnp.asarray(q), jc, impl="jnp")), **tol)
+    lengths = jnp.full((B,), jc.length, jnp.int32)
+    kern = decode_attention_pallas(jnp.asarray(q), jc.k, jc.v, lengths,
+                                   interpret=True)
+    np.testing.assert_allclose(got, np.asarray(kern), **tol)
+    k, v = _rand(rng, B, Hkv, S, Dh), _rand(rng, B, Hkv, S, Dh)
+    ragged = np.asarray([T + 2, S], np.int32)
+    got = decode_attention_plain(torch.from_numpy(q), torch.from_numpy(k),
+                                 torch.from_numpy(v),
+                                 torch.from_numpy(ragged)).numpy()
+    kern = decode_attention_pallas(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), jnp.asarray(ragged),
+                                   interpret=True)
+    np.testing.assert_allclose(got, np.asarray(kern), **tol)
+
+
 @pytest.mark.parametrize("Dh", [64, 80, 96, 128, 48, 256])
 def test_wrappers_check_the_head_dim_first(Dh):
-    """B5's and B4's wrappers take head dims 64, 80, 96 and 128 and refuse
-    any other with ``NotImplementedError`` naming ROADMAP A16, before any
-    other check: a head dim they take goes on to the device check, which
-    CPU tensors fail with ``ValueError``."""
-    assert HEAD_DIMS == (64, 80, 96, 128)
+    """B5's and B4's wrappers take head dims 64, 80, 96, 128 and 256 and
+    refuse any other with ``NotImplementedError`` naming ROADMAP A16,
+    before any other check: a head dim they take goes on to the device
+    check, which CPU tensors fail with ``ValueError``."""
+    assert HEAD_DIMS == (64, 80, 96, 128, 256)
     q, kv = torch.zeros(1, 1, 2, Dh), torch.zeros(1, 2, 8, Dh)
     pages = torch.zeros(4, 2, 8, Dh)
     meta = torch.zeros(1, dtype=torch.int32)

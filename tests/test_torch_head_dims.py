@@ -1,10 +1,11 @@
 """Head dims no kernel takes are refused at construction on the card.
 
-The flash kernels (B1, B2) and the serving kernels (B4, B5) take head
-dims 64, 80, 96 and 128; the block-sparse kernel (B6) takes 64 and 128.
-So gpt_760m (96), gpt_2_7b (80) and a Phi-3-mini-shaped model (96) train
-and are served on the card, and a Gemma-style 256 (or a 48) does
-neither.  A model of a head dim its path's kernels do not take raises
+The flash kernels (B1, B2) take head dims 64, 80, 96 and 128, the serving
+kernels (B4, B5) those and 256; the block-sparse kernel (B6) takes 64 and
+128.  So gpt_760m (96), gpt_2_7b (80) and a Phi-3-mini-shaped model (96)
+train and are served on the card, a Gemma-style 256 is served there but
+does not train there, and a 48 does neither.  A model of a head dim its
+path's kernels do not take raises
 ``NotImplementedError`` naming ROADMAP A16 where it is built for the
 card: ``initialize`` (which ``ds_bench
 train``'s ``run_benchmark`` reaches), ``init_inference`` and
@@ -38,6 +39,7 @@ TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": 2,
                 "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}}}
 A16 = "head_dim 96 not in .*ROADMAP A16"
 A16_256 = "head_dim 256 not in .*ROADMAP A16"
+A16_48 = "head_dim 48 not in .*ROADMAP A16"
 
 
 def _model(**kw):
@@ -52,12 +54,13 @@ def _ids(shape, seed=0):
 @pytest.mark.parametrize("head_dim", [64, 128, 80, 96, 256, 48])
 def test_card_checks_by_head_dim(head_dim):
     """64, 80, 96 and 128 pass both checks on the card (80 and 96 pass
-    serving's since B4 and B5 take them); 256 and 48 raise naming A16 at
-    both.  Every head dim passes both on the CPU."""
+    serving's since B4 and B5 take them); 256 passes serving's (B4 and B5
+    take it) and raises naming A16 at training's; 48 raises at both.
+    Every head dim passes both on the CPU."""
     cfg = TransformerConfig.tiny(hidden_size=2 * head_dim, n_heads=2)
     assert cfg.head_dim == head_dim
     for check, taken in ((check_trainable, (64, 80, 96, 128)),
-                         (check_servable, (64, 80, 96, 128))):
+                         (check_servable, (64, 80, 96, 128, 256))):
         check(cfg, "cpu")
         if head_dim in taken:
             check(cfg, torch.device("cuda"))
@@ -87,12 +90,13 @@ def test_initialize_refuses_head_dim_96_on_the_card():
 
 
 def test_init_inference_refuses_head_dim_96_on_the_card():
-    """Head dim 256 is refused on the card: 96, which this test refused
-    before B5's forms at 80 and 96 were ported, now passes
-    ``check_servable`` there (``test_card_checks_by_head_dim``)."""
-    model = _model(hidden_size=512)
-    assert model.config.head_dim == 256
-    with pytest.raises(NotImplementedError, match=A16_256):
+    """Head dim 48 is refused on the card: 96, which this test refused
+    before B5's forms at 80 and 96 were ported, and 256, which it refused
+    before B5's forms at 256 were, now pass ``check_servable`` there
+    (``test_card_checks_by_head_dim``)."""
+    model = _model(hidden_size=96)
+    assert model.config.head_dim == 48
+    with pytest.raises(NotImplementedError, match=A16_48):
         deepspeed_tpu_torch.init_inference(model, dtype="fp32",
                                            device="cuda")
     eng = deepspeed_tpu_torch.init_inference(model, dtype="fp32",
@@ -102,13 +106,13 @@ def test_init_inference_refuses_head_dim_96_on_the_card():
 
 
 def test_serving_engine_refuses_head_dim_96_on_the_card():
-    """Head dim 256: the serving engine raises before it allocates its
+    """Head dim 48: the serving engine raises before it allocates its
     page pool on the card; with the plain backend (the smoke's
-    comparison) it goes on.  Head dim 96, which this test refused before
-    B4's forms at 80 and 96 were ported, now reaches the page pool on the
-    card."""
-    model = _model(hidden_size=512)
-    assert model.config.head_dim == 256
+    comparison) it goes on.  Head dims 96 and 256, which this test
+    refused before B4's forms at 80 and 96, then at 256, were ported, now
+    reach the page pool on the card."""
+    model = _model(hidden_size=96)
+    assert model.config.head_dim == 48
     made = []
 
     def stub(cfg):
@@ -116,19 +120,20 @@ def test_serving_engine_refuses_head_dim_96_on_the_card():
             config=cfg, device=torch.device("cuda"),
             init_paged_caches=lambda *a, **k: made.append(k["dtype"]))
 
-    with pytest.raises(NotImplementedError, match=A16_256):
+    with pytest.raises(NotImplementedError, match=A16_48):
         deepspeed_tpu_torch.create_serving_engine(
             stub(model.config), max_batch=2, page_size=8, max_seq=32)
     assert made == []
     ServingEngine(stub(model.config), max_batch=2, page_size=8, max_seq=32,
                   serving={"attention_backend": "plain"})
     assert made == [torch.bfloat16]
-    d96 = _model().config
-    assert d96.head_dim == 96
-    deepspeed_tpu_torch.create_serving_engine(
-        stub(d96), max_batch=2, page_size=8, max_seq=32)
-    assert made == [torch.bfloat16, torch.bfloat16]
-    # on the CPU the plain versions serve head dim 256
+    for hidden, head_dim in ((192, 96), (512, 256)):
+        cfg = _model(hidden_size=hidden).config
+        assert cfg.head_dim == head_dim
+        deepspeed_tpu_torch.create_serving_engine(
+            stub(cfg), max_batch=2, page_size=8, max_seq=32)
+    assert made == [torch.bfloat16] * 3
+    # on the CPU the plain versions serve head dim 48
     se = deepspeed_tpu_torch.create_serving_engine(
         model, max_batch=2, page_size=8, max_seq=32, dtype="fp32")
     out = se.generate([list(range(1, 6)), list(range(7, 10))], 3)
@@ -138,11 +143,14 @@ def test_serving_engine_refuses_head_dim_96_on_the_card():
 
 def test_sparse_self_attention_refuses_head_dim_96_on_the_card():
     """SparseSelfAttention sees the head dim at its call: the kernel path
-    raises naming A16 before any device check; the CPU's plain path takes
-    it."""
+    raises naming A16 before any device check, at 96 and at Gemma's 256
+    (which B4 and B5 now serve); the CPU's plain path takes it."""
     attn = tsa.SparseSelfAttention(tsa.FixedSparsityConfig(
         num_heads=2, block=16, num_local_blocks=2), backend="cuda")
     rng = np.random.default_rng(3)
+    q256 = torch.zeros(1, 64, 2, 256)
+    with pytest.raises(NotImplementedError, match=A16_256):
+        attn(q256, q256, q256)
     q, k, v = (torch.from_numpy(rng.standard_normal(
         (1, 64, 2, 96), dtype=np.float32)) for _ in range(3))
     with pytest.raises(NotImplementedError, match=A16):

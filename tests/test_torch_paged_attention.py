@@ -347,12 +347,20 @@ def test_decode_key_chunks_cover_each_key_once(pairs, slots):
     (torch.bfloat16, 80, 1, 128, True), (torch.float16, 80, 4, 16, True),
     (torch.bfloat16, 96, 1, 128, True), (torch.float16, 96, 8, 128, True),
     (torch.bfloat16, 80, 1, 48, False), (torch.bfloat16, 96, 3, 128, False),
-    (torch.float32, 96, 1, 128, False), (torch.bfloat16, 256, 1, 128, False)])
+    (torch.float32, 96, 1, 128, False), (torch.bfloat16, 256, 1, 128, True),
+    # head dim 256 (64-key K/V tiles): groups 1 and 8 (Gemma-7B's and
+    # Gemma-2B's), pages 16 and 128, bf16 and fp16; a page of 192 tiles
+    # the 64-key tile; fp32, a group not dividing 64, a page of 48 and a
+    # head dim no form takes do not
+    (torch.bfloat16, 256, 8, 128, True), (torch.float16, 256, 1, 16, True),
+    (torch.float16, 256, 8, 16, True), (torch.bfloat16, 256, 1, 192, True),
+    (torch.float32, 256, 8, 128, False), (torch.bfloat16, 256, 3, 128, False),
+    (torch.bfloat16, 256, 1, 48, False), (torch.bfloat16, 48, 1, 128, False)])
 def test_tensor_core_prefill_selection(dtype, D, group, page, want):
     """The prefill tiles take the tensor-core kernel for bf16 and fp16 at
-    head dims 64, 80, 96 and 128, a group dividing 64 and pages that tile
-    or divide the 128-key tile in whole swizzle atoms; anything else takes
-    the CUDA-core one."""
+    head dims 64, 80, 96, 128 and 256, a group dividing 64 and pages that
+    tile or divide the K/V tile (128 keys; 64 at head dim 256) in whole
+    swizzle atoms; anything else takes the CUDA-core one."""
     assert tensor_core_prefill(dtype, D, group, page) is want
 
 
@@ -630,6 +638,86 @@ def test_launch_plan_tensor_cores_head_dims_80_96(name, Dh, Hq, Hkv, page,
     tables, kp, vp = _state_dh(ctx_lens, page, Hkv, Dh, seed=len(name))
     q = np.random.default_rng(Dh).standard_normal(
         (sum(q_lens), Hq, Dh)).astype(np.float32)
+    plan = plan_launch(q_lens, group, True)
+    assert plan.q_tile == TC_ROWS // group and len(plan.seq_of_tile)
+    assert len(plan.decode_seqs) == sum(ql * group <= DECODE_ROWS
+                                        for ql in q_lens)
+    got = _plan_emulated(torch.from_numpy(q), torch.from_numpy(kp),
+                         torch.from_numpy(vp), torch.from_numpy(tables),
+                         ctx_lens, q_lens, plan, chunk=64)
+    kern = jax_ragged(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+                      jnp.asarray(tables), jnp.asarray(ctx_lens, jnp.int32),
+                      q_lens, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(kern), **TOL)
+
+
+@pytest.mark.parametrize("Hkv", [1, 2])
+def test_head_dim_256_matches_pallas_and_oracle(Hkv):
+    """Head dim 256 (Gemma's), MQA (Hkv 1: the group of 4 query heads over
+    one kv head, as Gemma-2B's 8 over 1) and GQA (Hkv 2): decode rows over
+    ragged contexts through the rectangular front-end (the plain version
+    on the CPU) against the JAX package's rect Pallas kernel in interpret
+    mode and its jnp gather path; then the packed front-end on a batch of
+    decode rows, a prefill, and a chunk after a cached prefix, sharing a
+    prefix page, against the ragged Pallas kernel and the jnp oracle."""
+    Dh = 256
+    ctx = [4, 1, 10]
+    tables, kp, vp = _state_dh(ctx, PAGE, Hkv, Dh, seed=Hkv)
+    q = np.random.default_rng(Hkv + 1).standard_normal(
+        (3, 1, H, Dh)).astype(np.float32)
+    lengths = np.asarray(ctx, np.int32)
+    got = ragged_paged_attention_rect(
+        torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
+        torch.from_numpy(tables), torch.from_numpy(lengths)).numpy()
+    kern = jax_ragged_rect(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+                           jnp.asarray(tables), jnp.asarray(lengths),
+                           interpret=True)
+    np.testing.assert_allclose(got, np.asarray(kern), **TOL)
+    want = jax_paged(jnp.asarray(q), JaxPagedKVCache(jnp.asarray(kp),
+                                                     jnp.asarray(vp)),
+                     jnp.asarray(tables), jnp.asarray(lengths), impl="jnp")
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+    # decode, a 9-token prefill, a 5-token chunk after 9 cached tokens
+    q_lens, ctx_lens = [1, 9, 5, 1], [13, 9, 14, 6]
+    tables, kp, vp = _state_dh(ctx_lens, PAGE, Hkv, Dh, seed=Hkv + 2,
+                               shared_pages=1)
+    qp = np.random.default_rng(Hkv + 3).standard_normal(
+        (sum(q_lens), H, Dh)).astype(np.float32)
+    got = ragged_paged_attention(torch.from_numpy(qp), torch.from_numpy(kp),
+                                 torch.from_numpy(vp),
+                                 torch.from_numpy(tables), ctx_lens,
+                                 q_lens).numpy()
+    kern = jax_ragged(jnp.asarray(qp), jnp.asarray(kp), jnp.asarray(vp),
+                      jnp.asarray(tables), jnp.asarray(ctx_lens, jnp.int32),
+                      q_lens, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(kern), **TOL)
+    np.testing.assert_allclose(
+        got, _jnp_oracle(qp, q_lens, ctx_lens, kp, vp, tables), **TOL)
+
+
+TC256_CASES = [  # (name, Hq, Hkv, page, q_lens, ctx_lens): head dim 256
+    ("group1_page128_ragged_last_tile", 2, 2, 128, [150, 1, 5],
+     [170, 200, 9]),
+    ("group8_page16_chunk_at_start_128", 8, 1, 16, [64, 1], [192, 40]),
+]
+
+
+@pytest.mark.parametrize("name,Hq,Hkv,page,q_lens,ctx_lens", TC256_CASES,
+                         ids=[c[0] for c in TC256_CASES])
+def test_launch_plan_tensor_cores_head_dim_256(name, Hq, Hkv, page, q_lens,
+                                               ctx_lens):
+    """The tensor-core plan at head dim 256, which bf16 and fp16 select at
+    groups 1 and 8 and pages 16 and 128 -- prefill tiles of 128 // group
+    tokens, most keys first, to their frontier; decode rows in key chunks
+    merged by their maxima -- executed as the kernels read it, against
+    the JAX Pallas kernel in interpret mode: a ragged last tile at group
+    1, and a chunk after cached tokens at group 8 (Gemma-2B's MQA)."""
+    group = Hq // Hkv
+    for dt in (torch.bfloat16, torch.float16):
+        assert tensor_core_prefill(dt, 256, group, page)
+    tables, kp, vp = _state_dh(ctx_lens, page, Hkv, 256, seed=len(name))
+    q = np.random.default_rng(256).standard_normal(
+        (sum(q_lens), Hq, 256)).astype(np.float32)
     plan = plan_launch(q_lens, group, True)
     assert plan.q_tile == TC_ROWS // group and len(plan.seq_of_tile)
     assert len(plan.decode_seqs) == sum(ql * group <= DECODE_ROWS

@@ -326,3 +326,62 @@ def test_fp16_generate_greedy_identical_to_jax(tiny_fp16):
                                               device="cpu")
     np.testing.assert_array_equal(
         teng.generate(prompt, max_new_tokens=6).numpy(), want)
+
+
+# Gemma at a tiny width, as the injection policy maps it from a Hugging
+# Face GemmaForCausalLM (random weights): 2 layers, hidden 64, 2 heads of
+# 256 (head dim 256 with H * dh != d, Gemma-7B's), 1 kv head (Gemma-2B's
+# MQA) or 2, GeGLU, (1 + w) RMSNorm folded into the weights, the input
+# embedding scaled by sqrt(d), tied head
+@pytest.fixture(scope="module", params=[1, 2], ids=["mqa", "mha"])
+def tiny_gemma(request):
+    import dataclasses
+    import transformers
+    from deepspeed_tpu.module_inject.policies import GemmaPolicy
+    hf_cfg = transformers.GemmaConfig(
+        vocab_size=256, hidden_size=64, num_hidden_layers=2,
+        num_attention_heads=2, num_key_value_heads=request.param,
+        head_dim=256, intermediate_size=128, max_position_embeddings=64,
+        hidden_activation="gelu_pytorch_tanh")
+    torch.manual_seed(request.param)
+    hf = transformers.GemmaForCausalLM(hf_cfg)
+    jcfg, np_params = GemmaPolicy.build(hf.config, hf.state_dict())
+    jmodel = JaxLM(jcfg)
+    params = jax.tree_util.tree_map(jnp.asarray, np_params)
+    cfg = TransformerConfig(**dataclasses.asdict(jcfg))
+    assert cfg.head_dim == 256 and cfg.n_heads * cfg.head_dim != \
+        cfg.hidden_size and cfg.embed_scale == 64 ** 0.5
+    tmodel = CausalTransformerLM(cfg, device="cpu")
+    tmodel.load_state_dict(from_jax_params(np_params, cfg))
+    return cfg, jmodel, params, tmodel
+
+
+def test_gemma_tokens_identical(tiny_gemma):
+    """A Gemma-wired model of head dim 256 (the shape B4 and B5 now serve
+    on the card), built by ``GemmaPolicy.build`` from a Hugging Face
+    model and carried over by ``from_jax_params``: one forward's logits
+    within 1e-5 of max|logit| of the JAX model's, then greedy tokens of
+    ``init_inference(...).generate`` and of a ``ServingEngine`` with more
+    requests than slots equal the JAX package's, fp32."""
+    cfg, jmodel, params, tmodel = tiny_gemma
+    ids = np.random.default_rng(13).integers(0, cfg.vocab_size, (2, 9))
+    want = np.asarray(jmodel.apply(params, jnp.asarray(ids), train=False))
+    with torch.no_grad():
+        got = tmodel.apply(torch.from_numpy(ids), attn_backend="plain")
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+    prompt = ids[:, :6]
+    jeng = deepspeed_tpu.init_inference(
+        model=jmodel, config={"dtype": "float32"}, params=params)
+    want = np.asarray(jeng.generate(prompt, max_new_tokens=8))
+    got = deepspeed_tpu_torch.init_inference(
+        tmodel, dtype="fp32", device="cpu").generate(prompt, 8)
+    np.testing.assert_array_equal(got.numpy(), want)
+    prompts = _prompts(cfg, [3, 11, 6], seed=14)
+    jserve = JaxServing(jmodel, params, max_batch=2, page_size=8,
+                        max_seq=64, dtype=jnp.float32,
+                        serving={"attention_backend": "jnp"})
+    tserve = ServingEngine(tmodel, max_batch=2, page_size=8, max_seq=64,
+                           dtype=torch.float32)
+    assert tserve.generate(prompts, max_new_tokens=7) == \
+        jserve.generate(prompts, max_new_tokens=7)
+    assert tserve.leak_report() == {}

@@ -265,11 +265,11 @@ def test_sass_counts_reads_the_sparse_and_prefill_instantiations():
         ("bf16", 64): (2, 1, 1)}
     # every template's expected instantiations: 4 flash forms x (bf16,
     # fp16) x head dims (64, 80, 96, 128), 4 x 2 sparse, (bf16, fp16) x
-    # (64, 80, 96, 128)
+    # (64, 80, 96, 128, 256)
     assert {k: v[2] for k, v in chip_smoke.SASS_TEMPLATES.items()} == {
         "flash_fwd_kernel": 32, "flash_bwd_dq_kernel": 32,
         "flash_bwd_dkv_kernel": 32, "sparse_tc_kernel": 8,
-        "ragged_prefill_tc_kernel": 8}
+        "ragged_prefill_tc_kernel": 10}
 
 
 _SASS_D80_96 = """
@@ -371,6 +371,19 @@ def test_train_launches_match_a_counted_cli_run(head_dim):
      "false, true, 96>((anonymous namespace)::DkvParams)", True),
     ("_ZN55_GLOBAL__N__0_22_flash_attention_bwd_cu_020flash_bwd_dkv_"
      "kernelI13__nv_bfloat16Lb0ELb0ELi80EEEvNS_9DkvParamsE", True),
+    # head dim 256: B4's tensor-core prefill tiles and the CUDA-core tiles
+    # of B4 and B5 (the split-key body is held at every head dim)
+    ("void (anonymous namespace)::ragged_prefill_tc_kernel<__half, 256>("
+     "(anonymous namespace)::PrefillParams)", True),
+    ("_ZN66_GLOBAL__N__0_25_ragged_paged_attention_cu_024ragged_prefill_tc_"
+     "kernelI13__nv_bfloat16Li256EEEvNS_13PrefillParamsE", True),
+    ("void (anonymous namespace)::decode_attention_kernel<float, 256, 16>("
+     "float const*, float const*, float const*, float*, int const*, int, "
+     "int, int, int, int, float)", True),
+    ("void (anonymous namespace)::ragged_paged_attention_kernel<__half, "
+     "256, 16>(__half const*)", True),
+    ("void dsdecode::split_tc_kernel<__half, 8, (anonymous namespace)::"
+     "PagedSeqs<256> >(P)", True),
     # the D = 128 bodies, the fp32 CUDA-core ones and the D = 64 backward
     # are printed, not held
     ("void (anonymous namespace)::flash_bwd_dkv_kernel<float, false, "
@@ -552,14 +565,14 @@ def test_expected_b4_launches_match_a_counted_run(kind):
 
 
 # --------------------------------------- serving at head dims 80 and 96
-@pytest.mark.parametrize("head_dim", [80, 96])
+@pytest.mark.parametrize("head_dim", [80, 96, 256])
 def test_b4_form_launches_match_a_counted_serve_run(head_dim, monkeypatch):
     """The kernels JSON's B4 rows of a monolithic serve run --
     ``b4_form_launches``: a launch a layer a decode step, and a layer a
     prompt's prefill by its bucket -- against a tiny engine of head dim 80
-    and 96 on the CPU whose plain paged attention records each call's
-    query length (through the dense attention it calls); only the buckets
-    asked for are kept."""
+    and 96 (and Gemma's 256) on the CPU whose plain paged attention
+    records each call's query length (through the dense attention it
+    calls); only the buckets asked for are kept."""
     from deepspeed_tpu_torch.inference.serving import ServingEngine
     from deepspeed_tpu_torch.models.transformer import (CausalTransformerLM,
                                                         TransformerConfig)
@@ -645,6 +658,70 @@ def test_paged_work_counts_what_the_mask_lets_through(ctx, T):
     nbytes, ops = chip_smoke.paged_work(ctx, T, H, Hkv, D, 2)
     assert ops == 4 * H * D * int(mask.sum())
     assert nbytes == 2 * (2 * Hkv * D * sum(ctx) + 2 * len(ctx) * T * H * D)
+
+
+# ---------------------------------------------- serving at head dim 256
+def test_gemma_configs_are_the_published_shapes():
+    """The serve-d256 phase's two models: Gemma-7B's 8,537,680,896
+    parameters (HF's "8.54B": 16 heads of 256, H * dh = 4096 != d = 3072)
+    and Gemma-2B's 2,506,172,416 (8 heads of 256 over one kv head), both
+    with GeGLU, the embedding scale sqrt(d) and a tied head, as
+    ``GemmaPolicy.build`` maps google/gemma-7b's and -2b's config.json;
+    the smoke's own check passes them."""
+    from deepspeed_tpu_torch.models.transformer import TransformerConfig
+    g7, g2 = (TransformerConfig(**chip_smoke.GEMMA_7B),
+              TransformerConfig(**chip_smoke.GEMMA_2B))
+    assert g7.num_params() == 8_537_680_896
+    assert g2.num_params() == 2_506_172_416
+    assert g7.head_dim == g2.head_dim == 256
+    assert g7.n_heads * g7.head_dim == 4096 != g7.hidden_size
+    assert (g7.kv_heads, g2.n_heads // g2.kv_heads) == (16, 8)
+    for g in (g7, g2):
+        assert g.gated and g.tie_embeddings and g.activation == "gelu"
+        assert g.embed_scale == g.hidden_size ** 0.5
+    assert chip_smoke.gemma_configs() == (g7, g2)
+
+
+def test_generate_launches_match_a_counted_gemma_generate():
+    """``generate_launches`` at head dim 256 and a group of 8 over one kv
+    head (Gemma-2B's attention), the embedding scale on: one B5 launch a
+    layer a model call, against a counted CPU run through the plain
+    version."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer import (CausalTransformerLM,
+                                                        TransformerConfig)
+    from deepspeed_tpu_torch.ops.cuda import decode_attention as da
+    cfg = TransformerConfig.tiny(hidden_size=64, n_heads=8, n_kv_heads=1,
+                                 head_dim_override=256, n_layers=2,
+                                 activation="gelu", gated_mlp=True,
+                                 embed_scale=8.0, tie_embeddings=True)
+    model = CausalTransformerLM(cfg, device="cpu").init(0)
+    ids = np.random.default_rng(3).integers(0, 256, (2, 5))
+    da.decode_attention_plain.calls = 0
+    out = deepspeed_tpu_torch.init_inference(
+        model, dtype="fp32", device="cpu").generate(ids, 4)
+    assert tuple(out.shape) == (2, 9)
+    assert da.decode_attention_plain.calls == \
+        chip_smoke.generate_launches(2, 4) == 8
+
+
+def test_work_of_the_gemma_steps():
+    """B5's decode step and B4's prefill at the Gemma shapes: Gemma-7B's
+    step (B=4, 16 / 16 heads of 256, length 144) moves 9,437,184 bytes of
+    K/V and Gemma-2B's (8 / 1) 589,824, both bound by bytes; a 1024-token
+    prefill of Gemma-7B's heads does 4 D operations per pair of the causal
+    mask, 8.7 us at 989 TFLOP/s, under the 10.0 us its 33.6 MB take at
+    3.35 TB/s: bytes bound it too."""
+    for H, Hkv, kv in ((16, 16, 9_437_184), (8, 1, 589_824)):
+        nbytes, ops = chip_smoke.decode_work(4, H, Hkv, 144, 256, 2)
+        assert nbytes == kv + 4 * 2 * H * 256 * 2
+        assert ops == 4 * 4 * H * 256 * 144
+        assert chip_smoke._bound(nbytes, ops, "bfloat16")[1] == "bytes"
+    nbytes, ops = chip_smoke.paged_work([1024], 1024, 16, 16, 256, 2)
+    assert ops == 4 * 16 * 256 * 1024 * 1025 // 2
+    assert nbytes == 4 * 1024 * 16 * 256 * 2
+    assert chip_smoke._bound(nbytes, ops, "bfloat16") == (
+        nbytes / 3.35e12 * 1e3, "bytes")
 
 
 # ------------------------------------------------------------ phase ckpt

@@ -165,13 +165,14 @@ def _batches(gas=GAS):
 # 1e-4 at every step
 PARAM_ATOL = {"gpt_neo": 1e-4}
 # the same cause at head dims 80 and 96 (hidden 160 and 192: more weights,
-# so more of them meet it): a handful of weights get a first gradient of
+# so more of them meet it; and in the Gemma-wired model of
+# test_embed_scale_matches_jax, 2 heads of 256): a handful of weights get a first gradient of
 # 1e-9 to 1e-8 (Adam's eps; the median is ~1e-3), whose first step lr * g
 # / (|g| + eps) is then a fraction of lr fixed by rounding noise.  Weights
 # whose first gradient (the port's) is under this floor are held to
 # Adam's step bound, as the key bias is; every other weight keeps the
 # limits above
-FIRST_GRAD_FLOOR = {"gpt_d80": 1e-7, "gpt_d96": 1e-7}
+FIRST_GRAD_FLOOR = {"gpt_d80": 1e-7, "gpt_d96": 1e-7, "gemma": 1e-7}
 
 
 # gas 3 as well: a count that is not a power of two
@@ -418,3 +419,89 @@ def test_benchmark_runs_the_cli_default_shape_on_the_cpu():
     assert out["zero_stage"] == 3 and out["gas"] == 1
     assert len(out["losses"]) == 3 and np.isfinite(out["losses"]).all()
     assert out["tokens_per_sec"] > 0
+
+
+# Gemma's wiring at a tiny width (as ``GemmaPolicy.build`` maps it): 2
+# heads of 256 over 1 kv head (H * dh != d), GeGLU, the input embedding
+# scaled by sqrt(d), tied head
+GEMMA_TINY = dict(hidden_size=64, n_heads=2, n_kv_heads=1,
+                  head_dim_override=256, ffn_hidden_size=128,
+                  activation="gelu", gated_mlp=True, embed_scale=64 ** 0.5,
+                  norm_eps=1e-6, tie_embeddings=True)
+
+
+def test_embed_scale_matches_jax():
+    """Gemma's embedding scale: sqrt(d) rounded to the activation dtype
+    before the product (55.5 in bf16 at d = 3072, 55.4375 in fp16), so
+    the port's bf16 ``_embed`` equals the JAX model's embedding step bit
+    for bit -- where the fp32 scale would not -- and the tied head still
+    reads the unscaled table.  Then one fp32 training step of a tiny
+    Gemma-wired model on the CPU against the JAX engine: loss and grad
+    norm rtol 1e-4, parameters atol 2e-5 + rtol 1e-4."""
+    d = 3072
+    assert float(torch.tensor(d ** 0.5, dtype=torch.bfloat16)) == 55.5
+    assert float(torch.tensor(d ** 0.5, dtype=torch.float16)) == 55.4375
+    kw = dict(hidden_size=d, n_layers=1, n_heads=1, head_dim_override=64,
+              ffn_hidden_size=64, activation="gelu", gated_mlp=True,
+              embed_scale=d ** 0.5, tie_embeddings=True)
+    jcfg, tcfg = JaxConfig.tiny(**kw), TransformerConfig.tiny(**kw)
+    table = np.random.default_rng(3).standard_normal(
+        (tcfg.vocab_size, d)).astype(np.float32)
+    ids = _ids((2, 7))
+    x = jnp.asarray(table, jnp.bfloat16)[jnp.asarray(ids)]
+    want = np.asarray((x * jnp.asarray(jcfg.embed_scale, x.dtype))
+                      .astype(jnp.float32))
+    model = CausalTransformerLM(tcfg, device="cpu", dtype=torch.bfloat16)
+    with torch.no_grad():
+        model.tok_embed.copy_(torch.from_numpy(table))
+    table_bf16 = model.tok_embed.detach().clone()
+    with torch.no_grad():
+        got = model._embed(torch.as_tensor(ids), None).float().numpy()
+    np.testing.assert_array_equal(got, want)
+    fp32_scale = (table_bf16[torch.as_tensor(ids)].float() * d ** 0.5).to(
+        torch.bfloat16).float().numpy()
+    assert (fp32_scale != want).any()      # the rounding is the point
+    assert torch.equal(model.tok_embed, table_bf16)
+    assert torch.equal(model._head(), table_bf16.T)
+
+    jcfg, tcfg = JaxConfig.tiny(**GEMMA_TINY), TransformerConfig.tiny(
+        **GEMMA_TINY)
+    assert tcfg.head_dim == 256 and tcfg.gated
+    params = _params(jcfg)
+    batch = _batches()[0]
+    jeng, *_ = deepspeed_tpu.initialize(
+        model=JaxLM(jcfg), model_parameters=params,
+        config=_engine_config(1, 0.0))
+    teng, *_ = deepspeed_tpu_torch.initialize(
+        model=CausalTransformerLM(tcfg, device="cpu"),
+        model_parameters=params, config=_engine_config(JAX_DEVICES, 0.0),
+        device="cpu")
+    np.testing.assert_allclose(float(teng.train_batch(batch=batch)),
+                               float(jeng.train_batch(batch=batch)),
+                               rtol=1e-4)
+    np.testing.assert_allclose(teng.get_global_grad_norm(),
+                               jeng.get_global_grad_norm(), rtol=1e-4)
+    # the first gradient (m after one step is (1 - beta1) * gradient): as
+    # at head dims 80 and 96, a weight whose first gradient is under
+    # FIRST_GRAD_FLOOR takes a first step lr * g / (|g| + eps) set by
+    # rounding noise, and is held to Adam's step bound (lr 1e-3) only
+    named = list(teng.module.named_parameters())
+    first = to_numpy_params({n: (m / (1 - 0.9)).view(p.shape) for (n, p), m
+                             in zip(named, teng.opt_state.m.split(
+                                 [p.numel() for _, p in named]))})
+    got = to_numpy_params(teng.module_state_dict())
+    want = jax.tree_util.tree_map(np.asarray,
+                                  jax.device_get(jeng.state.params))
+
+    def close(g, w, init, g1, key):
+        noise = np.abs(g1) < FIRST_GRAD_FLOOR["gemma"]
+        for side in (g, w):
+            assert np.abs(side - init)[noise].max(initial=0.0) <= 1.5e-3
+        np.testing.assert_allclose(g[~noise], w[~noise], rtol=1e-4,
+                                   atol=2e-5, err_msg=key)
+
+    for key in got["layers"]:
+        close(got["layers"][key], want["layers"][key],
+              params["layers"][key], first["layers"][key], key)
+    for key in set(got) - {"layers"}:
+        close(got[key], want[key], params[key], first[key], key)
