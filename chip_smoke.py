@@ -9,8 +9,9 @@ Builds the port's hand-written CUDA kernels from this checkout with
 its plain PyTorch version, then serves Llama-2-7B at full width (random
 bf16 weights from a seeded generator) through the port's two serving
 entry points -- ``init_inference(...).generate`` and
-``create_serving_engine`` -- trains gpt_1b, BLOOM-1b7 and GPT-Neo-1.3B at
-full width and depth through ``initialize(...).train_batch``, runs
+``create_serving_engine`` -- trains gpt_1b, BLOOM-1b7, GPT-Neo-1.3B and a
+Gemma-2B shape (head dim 256) at full width and depth through
+``initialize(...).train_batch``, runs
 ``ds_bench train`` with no flags (gpt_350m, head dim 64), with ``--model
 gpt_760m`` (head dim 96) and with ``--model gpt_2_7b`` (head dim 80),
 serves gpt_2_7b (head dim 80), a Phi-3-mini-4k-shaped model (head dim
@@ -24,11 +25,12 @@ kernels.  Phases:
              registers and spills of every kernel, none allowed in the
              split-key decode body (every head dim), the head-dim-64
              tensor-core consumer, the head-dim-80 and -96 flash forms,
+             every head-dim-256 flash form (fp32 too), B6's fp16 form,
              B4's tensor-core prefill tiles at 80, 96 and 256 or the
              CUDA-core tiles of B4 and B5 at 80, 96 and 256 (NO_SPILL);
              the SASS of every bf16 and fp16 tensor-core kernel -- the
-             flash kernels at head dims 64, 80, 96 and 128, B4's prefill
-             kernel at those and 256, B6's
+             flash kernels and B4's prefill kernel at head dims 64, 80,
+             96, 128 and 256, B6's
              block-sparse kernel at every block and head dim -- holds
              wgmma (HGMMA) and TMA loads (UTMALDG), its wgmma waits
              (WARPGROUP.DEPBAR) printed
@@ -47,7 +49,10 @@ kernels.  Phases:
              heads, window 100, ALiBi + window with GQA); at head dims 96
              and 80 (gpt_760m's 16 heads and gpt_2_7b's 32 at B=8 S=1024,
              GQA 32/8, S=1000, non-causal; ALiBi and window 256 at
-             S=2048, window 100, ALiBi + window with GQA) (bf16 O, dQ, dK,
+             S=2048, window 100, ALiBi + window with GQA); at head dim 256
+             (Gemma-2B's 8 / 1 heads at B=2 S=2048, MHA 8 / 8, MQA over
+             S=1000, non-causal; ALiBi, window 256 with MQA, window 100,
+             ALiBi + window with MQA) (bf16 O, dQ, dK,
              dV of the tensor-core kernels: one
              ulp, or within 2x SDPA's error on the same inputs, both
              readings printed); decode attention at head dims 128 and 64
@@ -71,8 +76,9 @@ kernels.  Phases:
              prefix pages; the same at head dim 256 at Gemma's heads
              (16 / 16, 16 / 4, 8 / 1); the block-sparse kernel for layout
              blocks 16-128, head dims 64 and 128, causal, bidirectional
-             and empty rows (bf16 B4 prefill and B6 outputs, which round P
-             to bf16 in the product, under the same SDPA witness)
+             and empty rows, fp32, bf16 and fp16 (bf16 B4 prefill and B6
+             outputs, which round P to bf16 in the product, under the
+             same SDPA witness; fp16 B6 under SDPA-fp16's)
   4 generate init_inference(llama2_7b).generate, B=4, prompt 128, 32 new;
              then a TinyLlama-1.1B-shaped model (22 layers, head dim 64,
              group 8) the same way, through B5 at head dim 64
@@ -98,9 +104,10 @@ kernels.  Phases:
              and 5 in bf16; exact launches, plain versions 0
     serve-d256  a Gemma-7B shape (28 layers, 16 heads of 256, d 3072,
              vocab 256000, GeGLU, embedding scale sqrt(d), tied) through
-             phases 4 and 5 in bf16 and serve-features (a)-(d) with a
-             Gemma-2B shape (18 layers, 8 heads of 256 over one kv head)
-             as (c)'s draft; Gemma-2B through phases 4 and 5 in bf16 and
+             phases 4 and 5 in bf16 and serve-features (a)-(d) at 14 of
+             its layers with a Gemma-2B shape (18 layers, 8 heads of 256
+             over one kv head) at 9 as (c)'s draft (FEATURES_LAYERS_GEMMA);
+             Gemma-2B through phases 4 and 5 in bf16 and
              fp16 (tokens vs bf16 by the divergence rule); exact
              launches, plain versions 0
   6 e2e      full width, 2 layers: paged prefill + decode, kernels vs plain;
@@ -117,13 +124,19 @@ kernels.  Phases:
              micro 8, seq 1024: the flash kernels' D=64 forms), with
              --model gpt_760m (24 layers of 16 heads of 96: D=96) and with
              --model gpt_2_7b (32 layers of 32 heads of 80: D=80) (exact
-             launches, peak memory, one train_batch profiled); a fixed
+             launches, peak memory, one train_batch profiled); the
+             Gemma-2B shape (GEMMA_TRAIN: 18 layers, 8 heads of 256 over
+             one kv head, vocab 256000, remat) through initialize(...)
+             .train_batch at seq 2048, micro 2 x gas 4, bf16 (exact
+             launches, peak memory, its fixed batch's loss falls, one
+             train_batch profiled); a fixed
              batch's
              loss falls and one train_batch is profiled, for each; BLOOM's
              fixed batch again through the plain versions; 2 layers of
              each, and of gpt_350m, gpt2_1_5b (25 heads), BLOOM-560m and
              GPT-Neo-125M (head dim 64), gpt_760m and gpt_2_7b (head dims
-             96 and 80), kernels vs plain (exact launches;
+             96 and 80) and the Gemma-2B shape (head dim 256, seq 2048),
+             kernels vs plain (exact launches;
              losses, grad norm, then m and the
              update parameter by parameter; GPT-Neo in fp32 too, and two
              plain engines that split the batch differently, as a witness);
@@ -133,8 +146,8 @@ kernels.  Phases:
              (the loss falls over the applied steps; fp16 vs bf16 wall,
              device and busy share) and 2 layers kernels vs plain from
              2**29 (the same skip pattern and loss scales), for gpt_1b,
-             gpt_350m (head dim 64) and FP16_CLI_MODEL (gpt_760m, head
-             dim 96)
+             gpt_350m (head dim 64), FP16_CLI_MODEL (gpt_760m, head dim
+             96) and the Gemma-2B shape (head dim 256)
     ckpt     training that survives a restart, gpt_1b through
              initialize(training_data=...) at full width and depth, micro
              2 x gas 4, bf16, data through train_batch(data_iter=...): (a)
@@ -154,7 +167,8 @@ kernels.  Phases:
              load GB/s and the free disk are printed; it fails up front
              if the disk is short
   8 sparse   SparseSelfAttention (Fixed block 16, BigBird block 64; head
-             dims 64 and 128) at B=2, S=4096, 16 heads: launches counted,
+             dims 64 and 128) at B=2, S=4096, 16 heads in bf16, and two of
+             them in fp16: launches counted,
              outputs vs the plain version; the key_padding_mask path and
              the refusal of a gradient request
   9 timing   each kernel at the main path's shapes vs its bound, its plain
@@ -164,7 +178,9 @@ kernels.  Phases:
              (bf16, fp16), at gpt_760m's and gpt_2_7b's (head dims 96
              and 80: bf16, fp16), BLOOM-560m's ALiBi and GPT-Neo-125M's
              window, ALiBi at head dims 96 and 80 (printed only: off the
-             paths), the decode kernel also at Llama-2's whole context
+             paths), at Gemma-2B's (head dim 256, 8 / 1 heads, S=2048:
+             bf16, fp16) and ALiBi and window 256 at its heads (printed
+             only), B6 in fp16, the decode kernel also at Llama-2's whole context
              (len 4096), the ragged kernel's prefill tiles at the serve
              run's buckets 512 and 1024 (beside B1's forward on the same
              work), B5 and B4 in fp16, the verify window, the TinyLlama
@@ -488,14 +504,18 @@ def ptxas_usage(log):
 # and B4's prefill tiles (wgmma_attention64.cuh: S, P and O in registers
 # while products run), the head-dim-80 and -96 tensor-core forms of B1, B2
 # and B4's prefill tiles, B4's prefill tiles at 256, and the head-dim-80,
-# -96 and -256 CUDA-core tiles of B4 and B5 (attention_tile.cuh), by
-# demangled or mangled name
+# -96 and -256 CUDA-core tiles of B4 and B5 (attention_tile.cuh); every
+# form of B1 and B2 at head dim 256 (fp32 included) and B6's fp16 form;
+# by demangled or mangled name
 NO_SPILL = (r"split_kernel|split_tc_kernel|combine_kernel|"
             r"flash_fwd_kernel(<(__nv_bfloat16|__half), \w+, \w+, 64>|"
             r"I(13__nv_bfloat16|6__half)Lb[01]ELb[01]ELi64E)|"
             r"flash_(fwd|bwd_dq|bwd_dkv)_kernel("
             r"<(__nv_bfloat16|__half), \w+, \w+, (80|96)>|"
             r"I(13__nv_bfloat16|6__half)Lb[01]ELb[01]ELi(80|96)E)|"
+            r"flash_(fwd|bwd_dq|bwd_dkv)_kernel(<\w+, \w+, \w+, 256>|"
+            r"I\w+Lb[01]ELb[01]ELi256E)|"
+            r"sparse_tc_kernel(<__half, |I6__half)|"
             r"ragged_prefill_tc_kernel(<(__nv_bfloat16|__half), "
             r"(64|80|96|256)>|I(13__nv_bfloat16|6__half)Li(64|80|96|256)E)|"
             r"(ragged_paged|decode)_attention_kernel(<\w+, (80|96|256), 16>|"
@@ -541,9 +561,9 @@ TENSOR_CORE_KERNELS = [("flash_attention_fwd", "flash_fwd_kernel"),
                        ("ragged_paged_attention", "ragged_prefill_tc_kernel")]
 # kernel template -> (regex of its tensor-core instantiations' template
 # arguments in the mangled name, the arguments' reading, how many it has):
-# the flash kernels' <bf16 or fp16, alibi, window, head dim 64, 80, 96 or
-# 128>, B6's <block, head dim> (bf16), and B4's prefill kernel's <bf16 or
-# fp16, head dim 64, 80, 96, 128 or 256>
+# the flash kernels' <bf16 or fp16, alibi, window, head dim 64, 80, 96,
+# 128 or 256>, B6's <bf16 or fp16, block, head dim>, and B4's prefill
+# kernel's <bf16 or fp16, head dim 64, 80, 96, 128 or 256>
 _DTYPE_ARG = {"13__nv_bfloat16": "bf16", "6__half": "fp16"}
 
 
@@ -556,12 +576,13 @@ def _flash_arg(x):
 
 
 _FLASH_ARGS = (r"I(13__nv_bfloat16|6__half)Lb([01])ELb([01])ELi(\d+)E",
-               _flash_arg, 32)
+               _flash_arg, 40)
 SASS_TEMPLATES = {
     "flash_fwd_kernel": _FLASH_ARGS,
     "flash_bwd_dq_kernel": _FLASH_ARGS,
     "flash_bwd_dkv_kernel": _FLASH_ARGS,
-    "sparse_tc_kernel": (r"ILi(\d+)ELi(\d+)E", int, 8),
+    "sparse_tc_kernel": (r"I(13__nv_bfloat16|6__half)Li(\d+)ELi(\d+)E",
+                         _flash_arg, 16),
     "ragged_prefill_tc_kernel": (r"I(13__nv_bfloat16|6__half)Li(\d+)E",
                                  _flash_arg, 10),
 }
@@ -1098,6 +1119,15 @@ FLASH_CASES_D96 = [("gpt_760m B=8 S=1024 H16/16", 8, 1024, 16, 16, True,
                     False, None)]
 FLASH_CASES_D80 = [("gpt_2_7b B=8 S=1024 H32/32", 8, 1024, 32, 32, True,
                     None)] + FLASH_CASES_D96[1:]
+# and at head dim 256: Gemma-2B's training shape (B=2, S=2048, 8 heads of
+# 256 over one kv head: MQA, a group of 8), the same heads without the
+# group (MHA 8/8), MQA over a length that does not tile, non-causal GQA
+FLASH_CASES_D256 = [("gemma_2b B=2 S=2048 H8/1", 2, 2048, 8, 1, True, None),
+                    ("MHA B=2 S=1024 H8/8", 2, 1024, 8, 8, True, None),
+                    ("non-tiling MQA B=1 S=1000 H8/1", 1, 1000, 8, 1, True,
+                     None),
+                    ("non-tiling non-causal B=1 S=1000 H4/2", 1, 1000, 4, 2,
+                     False, None)]
 ADAM_N = 1_000_003
 # the fused Adam kernel and its plain version round the same operations
 # in the same order: they should agree to the last bit; allow 1e-6
@@ -1141,7 +1171,8 @@ def phase_train_kernels():
         errs[(kernel, dn)] = max(errs.get((kernel, dn), 0.0), e)
 
     for D, cases in ((128, FLASH_CASES), (64, FLASH_CASES_D64),
-                     (96, FLASH_CASES_D96), (80, FLASH_CASES_D80)):
+                     (96, FLASH_CASES_D96), (80, FLASH_CASES_D80),
+                     (256, FLASH_CASES_D256)):
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
             dn = str(dtype).split(".")[-1]
             for label, B, S, H, Hkv, causal, scale in cases:
@@ -1248,12 +1279,22 @@ BIASED_CASES_D80_96 = [("ALiBi B=2 S=2048 H16/16", 2, 2048, 16, 16, True,
                         False, 100, None),
                        ("ALiBi+window 200 GQA B=2 S=640 H32/8", 2, 640, 32,
                         8, True, 200, None)]
+# and at head dim 256, with Gemma-2B's heads, MQA (8/1) and MHA (8/8): no
+# Gemma model has ALiBi or windows; the biased forms are held all the same
+BIASED_CASES_D256 = [("ALiBi B=2 S=2048 H8/8", 2, 2048, 8, 8, True, None,
+                      None),
+                     ("window 256 B=2 S=2048 H8/1", 2, 2048, 8, 1, False,
+                      256, None),
+                     ("window 100 B=2 S=1000 H8/8", 2, 1000, 8, 8, False,
+                      100, None),
+                     ("ALiBi+window 200 MQA B=2 S=640 H8/1", 2, 640, 8, 1,
+                      True, 200, None)]
 
 
 def d_suffix(D):
     """The kernels-JSON suffix of a flash form's head dim: "" at 128, the
     head dim the flash rows were first measured at, else "_d<D>" ("_d64",
-    "_d80", "_d96")."""
+    "_d80", "_d96", "_d256")."""
     return "" if D == 128 else f"_d{D}"
 
 
@@ -1272,7 +1313,8 @@ def phase_biased_kernels():
         errs[(kernel, dn)] = max(errs.get((kernel, dn), 0.0), e)
 
     for D, cases in ((128, BIASED_CASES), (64, BIASED_CASES_D64),
-                     (96, BIASED_CASES_D80_96), (80, BIASED_CASES_D80_96)):
+                     (96, BIASED_CASES_D80_96), (80, BIASED_CASES_D80_96),
+                     (256, BIASED_CASES_D256)):
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
             dn = str(dtype).split(".")[-1]
             for label, B, S, H, Hkv, alibi, window, scale in cases:
@@ -1370,9 +1412,9 @@ SPARSE_CASES = [("fixed", 16, 1024), ("longformer", 32, 1024),
 def phase_sparse_kernels():
     """B6 vs its plain version run in fp32 on the kernel's inputs: every
     layout block (16, 32, 64, 128), head dims 64 and 128, fp32 (the
-    CUDA-core form) and bf16 (the tensor-core form, check_witnessed
-    against SDPA with the expanded mask), causal and bidirectional
-    layouts, and q blocks that see no key."""
+    CUDA-core form), bf16 and fp16 (the tensor-core form, check_witnessed
+    against SDPA in the same dtype with the expanded mask), causal and
+    bidirectional layouts, and q blocks that see no key."""
     import numpy as np
     import torch
     from deepspeed_tpu_torch.ops.cuda.sparse_attention import \
@@ -1382,7 +1424,7 @@ def phase_sparse_kernels():
     gen = torch.Generator(device="cuda").manual_seed(8765)
     B, H = 2, 16
     worst = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         dn = str(dtype).split(".")[-1]
         for kind, block, S in SPARSE_CASES:
             if kind == "empty rows":
@@ -1408,7 +1450,8 @@ def phase_sparse_kernels():
                 e = check_output(
                     f"sparse_attention {dn} {kind} block {block} D={D} B={B} "
                     f"S={S} H={H} causal={causal}", got, exact,
-                    lambda: sparse_sdpa(q, k, v, layout, block, causal))
+                    lambda: sparse_sdpa(q, k, v, layout, block, causal),
+                    tensor_cores=True)
                 worst[("sparse_attention", dn)] = max(
                     worst.get(("sparse_attention", dn), 0.0), e)
     return worst
@@ -1420,15 +1463,18 @@ def phase_sparse_kernels():
 # 64 (the reference's BERT-style users) and 128 (BLOOM's width)
 SPARSE_PATH = [("fixed", 16, 64), ("fixed", 16, 128), ("bigbird", 64, 64),
                ("bigbird", 64, 128)]
+# the entry point's fp16 calls (a form the card once refused), and the fp16
+# row's timing case (the first)
+SPARSE_PATH_FP16 = [("fixed", 16, 64), ("bigbird", 64, 128)]
 SPARSE_B, SPARSE_S, SPARSE_H = 2, 4096, 16
 
 
 def phase_sparse_path():
     """The block-sparse entry point as a user calls it: one
     ``SparseSelfAttention(config)`` per SPARSE_PATH case, called under
-    ``torch.no_grad()`` on bf16 [B, S, H, D] CUDA tensors, counters read
-    around the calls (each call launches the kernel once, no plain version
-    runs).  Then each output is held against the plain version run in fp32
+    ``torch.no_grad()`` on bf16 [B, S, H, D] CUDA tensors, and per
+    SPARSE_PATH_FP16 case on fp16 ones, counters read around the calls
+    (each call launches the kernel once, no plain version runs).  Then each output is held against the plain version run in fp32
     on its inputs; a call with a ``key_padding_mask`` takes the dense path
     (the JAX package's rule) and launches nothing; and a call whose inputs
     need a gradient raises (the kernel is forward only)."""
@@ -1438,12 +1484,14 @@ def phase_sparse_path():
     gen = torch.Generator(device="cuda").manual_seed(2468)
     B, S, H = SPARSE_B, SPARSE_S, SPARSE_H
     calls = []
-    for kind, block, D in SPARSE_PATH:
-        attn = SparseSelfAttention(_sparsity_config(kind, H, block),
-                                   max_seq_length=S)
-        calls.append((f"{kind} block {block} D={D}", attn,
-                      *(_rand((B, S, H, D), torch.bfloat16, gen)
-                        for _ in range(3))))
+    for dtype, cases in ((torch.bfloat16, SPARSE_PATH),
+                         (torch.float16, SPARSE_PATH_FP16)):
+        for kind, block, D in cases:
+            attn = SparseSelfAttention(_sparsity_config(kind, H, block),
+                                       max_seq_length=S)
+            calls.append((f"{kind} block {block} D={D}", attn,
+                          *(_rand((B, S, H, D), dtype, gen)
+                            for _ in range(3))))
     reset_counters()
     torch.cuda.synchronize()
     t0 = time.time()
@@ -1458,20 +1506,21 @@ def phase_sparse_path():
     if got != want or plain_calls(counts):
         fail(f"SparseSelfAttention: launches {got}, expected {want}; plain "
              f"versions {plain_calls(counts)}")
-    err = 0.0
+    errs = {torch.bfloat16: 0.0, torch.float16: 0.0}
     for (label, attn, q, k, v), out in zip(calls, outs):
         if tuple(out.shape) != (B, S, H, q.shape[-1]) or \
-                out.dtype != torch.bfloat16:
+                out.dtype != q.dtype:
             fail(f"SparseSelfAttention {label}: output {out.dtype} "
                  f"{tuple(out.shape)}")
         causal = attn.sparsity_config.attention == "unidirectional"
         layout, block = attn.get_layout(S), attn.sparsity_config.block
         exact = sparse_attention_plain(q.float(), k.float(), v.float(),
                                        layout, block, causal=causal)
-        err = max(err, check_output(
-            f"SparseSelfAttention {label} B={B} S={S} H={H} bfloat16 "
-            f"causal={causal}", out, exact,
-            lambda: sparse_sdpa(q, k, v, layout, block, causal)))
+        errs[q.dtype] = max(errs[q.dtype], check_output(
+            f"SparseSelfAttention {label} B={B} S={S} H={H} "
+            f"{str(q.dtype).split('.')[-1]} causal={causal}", out, exact,
+            lambda: sparse_sdpa(q, k, v, layout, block, causal),
+            tensor_cores=True))
         del exact
     _, attn, q, k, v = calls[0]
     keep = torch.ones((B, S), dtype=torch.bool, device="cuda")
@@ -1495,7 +1544,7 @@ def phase_sparse_path():
              "raise")
     del calls, outs, padded
     _free()
-    return counts, dt, err
+    return counts, dt, errs[torch.bfloat16], errs[torch.float16]
 
 
 def _counted():
@@ -1562,19 +1611,26 @@ def build_model(n_layers, seed, dtype=None, cfg=None):
     cfg = dataclasses.replace(cfg or TransformerConfig.llama2_7b(),
                               n_layers=n_layers)
     t0 = time.time()
-    model = CausalTransformerLM(cfg, device="cuda",
-                                dtype=dtype or torch.bfloat16).init(seed)
-    if cfg.embed_scale:
-        # Gemma: random rows of norm ~1 times sqrt(d) would outweigh every
-        # layer's output in the residual, and the tied head would give the
-        # input token the top logit at every step -- greedy decoding would
-        # echo the last prompt token and every token check would pass
-        # vacuously.  Rows of norm 1 / sqrt(d), scaled, carry the
-        # embedding other models start from.
-        with torch.no_grad():
-            model.tok_embed.mul_(1.0 / cfg.embed_scale)
+    model = scale_embedding(CausalTransformerLM(
+        cfg, device="cuda", dtype=dtype or torch.bfloat16).init(seed))
     torch.cuda.synchronize()
     return cfg, model, time.time() - t0
+
+
+def scale_embedding(model):
+    """``model`` with its token embedding at 1 / embed_scale of the seeded
+    init when its config scales embeddings (Gemma), else as it is.  Random
+    rows of norm ~1 times sqrt(d) would outweigh every layer's output in
+    the residual, and the tied head would give the input token the top
+    logit at every step -- greedy decoding would echo the last prompt
+    token and every token check would pass vacuously; a training loss
+    would say as little.  Rows of norm 1 / sqrt(d), scaled, carry the
+    embedding other models start from."""
+    import torch
+    if model.config.embed_scale:
+        with torch.no_grad():
+            model.tok_embed.mul_(1.0 / model.config.embed_scale)
+    return model
 
 
 def phase_generate(model, cfg, B=4, S=128, new=32, dtype="bf16"):
@@ -2146,12 +2202,14 @@ DRAFT_SHAPE = dict(vocab_size=32000, hidden_size=2048, n_layers=22,
                    max_seq_len=2048, rope_theta=10000.0, norm_eps=1e-5)
 SPEC_GAMMA = 4
 # serve-features' depth (target, draft), cut so that the whole smoke stays
-# under 900 s (a run of the uncut phases read 919.4 s): the Llama-2-7B run
-# at half of its 32 layers with TinyLlama's 22 at half, the gpt_2_7b run
-# at a quarter of its 32 with gpt_350m's 24 at a quarter.  Every form each
-# run drives still runs; the Gemma runs are not cut.
+# under 900 s (a run of the uncut phases read 919.4 s; with Gemma-2B
+# training added, 881.3 s): the Llama-2-7B run at half of its 32 layers
+# with TinyLlama's 22 at half, the gpt_2_7b run at a quarter of its 32
+# with gpt_350m's 24 at a quarter, the Gemma-7B run at half of its 28 with
+# Gemma-2B's 18 at half.  Every form each run drives still runs.
 FEATURES_LAYERS_LLAMA = (16, 11)
 FEATURES_LAYERS_D80 = (8, 6)
+FEATURES_LAYERS_GEMMA = (14, 9)
 CHUNK_TOKENS = 256
 DECODE_CHUNK = 4
 PREFIX_TOKENS = 1024          # the shared system prefix of run (a)
@@ -2764,11 +2822,12 @@ def gemma_configs():
 
 def phase_serve_gemma():
     """Gemma-7B (16 heads of 256, group 1) through both entry points in
-    bf16 and serve-features (a)-(d) in bf16 with Gemma-2B as (c)'s draft;
-    then Gemma-2B (8 heads of 256 over one kv head: group 8) through both
-    in bf16 and fp16 (tokens vs bf16 by the divergence rule).  Full width
-    and depth, each model freed before the next.  Returns {kernels JSON
-    row: launches} and the two configs."""
+    bf16, and serve-features (a)-(d) in bf16 with Gemma-2B as (c)'s draft
+    at FEATURES_LAYERS_GEMMA's depth; then Gemma-2B (8 heads of 256 over
+    one kv head: group 8) through both in bf16 and fp16 (tokens vs bf16
+    by the divergence rule).  Full width, full depth but for
+    serve-features, each model freed before the next.  Returns {kernels
+    JSON row: launches} and the two configs."""
     import torch
     t0 = time.time()
     cfg7, cfg2 = gemma_configs()
@@ -2784,23 +2843,29 @@ def phase_serve_gemma():
     launches = {"decode_attention_d256": g7_bf["gen_launches"]}
     launches.update(b4_form_launches(L7, g7_bf["decode_steps"],
                                      SERVE_PROMPTS, "_d256", TIMED_BUCKETS))
+    del g7
+    _free()
+    # serve-features at the cut depth of FEATURES_LAYERS_GEMMA
+    t1 = time.time()
+    fcfg, g7f, _ = build_model(FEATURES_LAYERS_GEMMA[0], seed=5, cfg=cfg7)
+    fdcfg, g2f, _ = build_model(FEATURES_LAYERS_GEMMA[1], seed=6, cfg=cfg2)
+    feat = phase_serve_features(g7f, fcfg, [("Gemma-2B", g2f)],
+                                torch.bfloat16, exact=False,
+                                label="Gemma-7B bf16")
+    phase("serve-features", f"Gemma-7B bf16 (a)-(d), {fcfg.n_layers} of "
+          f"{L7} layers, draft Gemma-2B {fdcfg.n_layers} of "
+          f"{cfg2.n_layers} layers: {time.time() - t1:.1f} s")
+    spec = feat["spec_Gemma-2B"]
+    launches["ragged_paged_attention_chunk_at_offset_d256"] = \
+        feat["chunk"]["launches"]
+    launches["ragged_paged_attention_verify_d256"] = spec["verify_launches"]
+    del g7f, g2f
+    _free()
     _, g2, _ = build_model(cfg2.n_layers, seed=6, cfg=cfg2)
     phase("model", f"Gemma-2B shape ({cfg2.n_layers} layers, "
           f"{cfg2.n_heads}/{cfg2.kv_heads} heads of {cfg2.head_dim}, d "
           f"{cfg2.hidden_size}, ffn {cfg2.ffn_hidden_size}), "
           f"{cfg2.num_params() / 1e9:.3f} B params, bf16")
-    t1 = time.time()
-    feat = phase_serve_features(g7, cfg7, [("Gemma-2B", g2)],
-                                torch.bfloat16, exact=False,
-                                label="Gemma-7B bf16")
-    phase("serve-features", f"Gemma-7B bf16 (a)-(d), {L7} layers, draft "
-          f"Gemma-2B {cfg2.n_layers} layers: {time.time() - t1:.1f} s")
-    spec = feat["spec_Gemma-2B"]
-    launches["ragged_paged_attention_chunk_at_offset_d256"] = \
-        feat["chunk"]["launches"]
-    launches["ragged_paged_attention_verify_d256"] = spec["verify_launches"]
-    del g7
-    _free()
     g2_bf = serve_entry_points("Gemma-2B bf16", g2, cfg2, "bf16")
     del g2
     _free()
@@ -3032,6 +3097,17 @@ D64_MODELS = {"gpt_350m": ("gpt_350m", 1024, None),
 D80_96_MODELS = {"gpt_760m": ("gpt_760m", 1024, None),
                  "gpt_2_7b": ("gpt_2_7b", 1024, None)}
 FP16_CLI_MODEL = "gpt_760m"
+# Training at head dim 256: the Gemma-2B shape (GEMMA_2B, google/gemma-2b's
+# config.json as GemmaPolicy.build maps it: 18 layers, 8 heads of 256
+# over one kv head, GeGLU, vocab 256000, tied, embeddings times sqrt(d);
+# 2,506,172,416 parameters) with per-layer remat, at seq 2048, micro
+# TRAIN_BATCH x gas TRAIN_GAS, bf16, AdamW (benchmarks.training.ds_config)
+# through initialize(...).train_batch, random weights from a seed (the
+# embedding as build_model draws it for Gemma); nothing cut.  Gemma-7B's
+# 8.54 B parameters would need ~137 GB of fp32 master weights, gradients
+# and moments: past one card until offload (ROADMAP A12).
+GEMMA_TRAIN = dict(GEMMA_2B, remat=True)
+GEMMA_TRAIN_SEQ = 2048
 TRAIN_STEPS = 4            # timed steps after run_benchmark's warm-up step
 FIXED_STEPS = 4            # steps on one fixed batch: the loss must fall
 # BLOOM's fixed-batch loss does not fall at every step; the same 4 steps
@@ -3365,6 +3441,101 @@ def phase_train_fixed_fp16():
     return losses, skips, scales, step_ms, device_ms, top
 
 
+def phase_train_gemma():
+    """The Gemma-2B shape's training path (GEMMA_TRAIN): initialize ->
+    train_batch, one warm-up call and TRAIN_STEPS timed ones on fresh
+    random batches (as run_benchmark times them), then FIXED_STEPS on one
+    fixed batch (the loss must fall), one step on the wall clock and one
+    profiled; counters read around the first two runs, which must launch
+    exactly :func:`train_launches` and no plain version.  Prints the run
+    and returns {"counts": the launches of both runs, "fused_adam": its
+    launches}."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.benchmarks.training import (H100_PEAK_TFLOPS,
+                                                         ds_config)
+    from deepspeed_tpu_torch.models.transformer import (CausalTransformerLM,
+                                                        TransformerConfig)
+    cfg = TransformerConfig(**GEMMA_TRAIN)
+    n, seq = cfg.num_params(), GEMMA_TRAIN_SEQ
+    if cfg.head_dim != 256 or n != GEMMA_PARAMS["Gemma-2B"]:
+        fail(f"Gemma-2B training shape: head dim {cfg.head_dim}, {n} "
+             f"parameters")
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=scale_embedding(CausalTransformerLM(cfg, device="cuda").init(0)),
+        config=ds_config(TRAIN_BATCH, TRAIN_GAS))
+    torch.cuda.synchronize()
+    t_init = time.time() - t0
+    rng = np.random.default_rng(0)
+    shape = (TRAIN_GAS, TRAIN_BATCH, seq)
+
+    def batch():
+        return {"input_ids": rng.integers(0, cfg.vocab_size, shape)}
+
+    reset_counters()
+    losses = [engine.train_batch(batch=batch())]          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(TRAIN_STEPS):
+        losses.append(engine.train_batch(batch=batch()))
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    counts = read_counters()
+    losses = [float(x) for x in losses]
+    launched = check_train_launches(counts, cfg, TRAIN_GAS, TRAIN_STEPS + 1,
+                                    "Gemma-2B train_batch")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"Gemma-2B training: non-finite loss {losses}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    tps = TRAIN_GAS * TRAIN_BATCH * seq * TRAIN_STEPS / dt
+    tflops = 6.0 * n * tps / 1e12
+    phase("train", f"Gemma-2B shape ({cfg.n_layers} layers, {cfg.n_heads}/"
+          f"{cfg.kv_heads} heads of {cfg.head_dim}, vocab {cfg.vocab_size}, "
+          f"{n / 1e9:.3f} B params) through initialize(...).train_batch: "
+          f"micro {TRAIN_BATCH} x gas {TRAIN_GAS} x seq {seq}, bf16, AdamW "
+          f"lr 1e-4, remat; init {t_init:.1f} s; {dt * 1e3 / TRAIN_STEPS:.1f}"
+          f" ms per train_batch, {tps:.1f} tokens/s, {tflops:.2f} TFLOP/s, "
+          f"MFU {tflops / H100_PEAK_TFLOPS:.4f} of 989 TFLOP/s; peak memory "
+          f"{peak:.1f} GB; losses {[round(x, 4) for x in losses]}")
+    phase("train", f"launches in {TRAIN_STEPS + 1} Gemma-2B train_batch "
+          f"calls: {launched}; every other kernel 0, plain versions 0")
+    fixed = {"input_ids": np.random.default_rng(11).integers(
+        0, cfg.vocab_size, shape)}
+    reset_counters()
+    f_losses = [float(engine.train_batch(batch=fixed))
+                for _ in range(FIXED_STEPS)]
+    f_counts = read_counters()
+    check_train_launches(f_counts, cfg, TRAIN_GAS, FIXED_STEPS,
+                         "Gemma-2B fixed batch")
+    if not all(np.isfinite(f_losses)) or not f_losses[-1] < f_losses[0]:
+        fail(f"Gemma-2B fixed batch: losses {f_losses} are not finite and "
+             f"falling")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    engine.train_batch(batch=fixed)
+    torch.cuda.synchronize()
+    step_ms = (time.time() - t0) * 1e3
+    device_ms, top, _ = profile_device(
+        lambda: engine.train_batch(batch=fixed), 1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    phase("train", f"Gemma-2B fixed batch, {FIXED_STEPS} steps: losses "
+          f"{[round(x, 4) for x in f_losses]} (falling); one train_batch "
+          f"{step_ms:.1f} ms wall, device {device_ms:.1f} ms (profiler), "
+          f"busy share {device_ms / step_ms:.3f}; peak memory over the "
+          f"phase {peak:.1f} GB")
+    for kname, k_ms in top:
+        phase("train", f"  Gemma-2B device ms/train_batch {k_ms:.3f}  "
+              f"{kname[:90]}")
+    del engine
+    _free()
+    both = {k: counts[k] + f_counts[k] for k in counts}
+    return {"counts": both, "fused_adam": both["fused_adam"]}
+
+
 def phase_train_fixed_plain(name, kernel_losses):
     """The fixed batch of :func:`phase_train_fixed` again, at full width and
     depth, from the same init, through an engine that runs the plain
@@ -3402,8 +3573,10 @@ def phase_train_fixed_plain(name, kernel_losses):
     return losses, rel
 
 
-def phase_train_e2e(name=TRAIN_MODEL, bf16=True, steps=2, witness=False):
-    """TRAIN_MODELS[name] at full width and its own seq, cut to its first
+def phase_train_e2e(name=TRAIN_MODEL, bf16=True, steps=2, witness=False,
+                    cfg=None, seq=None):
+    """TRAIN_MODELS[name] (or the config ``cfg``, named ``name``, at seq
+    ``seq``) at full width and its own seq, cut to its first
     2 layers (GPT-Neo: one global and one local layer), micro 2, gas 2,
     bf16 (or fp32): one engine through the kernels and one through the
     plain versions of attention and Adam, from one init, on the same
@@ -3421,8 +3594,9 @@ def phase_train_e2e(name=TRAIN_MODEL, bf16=True, steps=2, witness=False):
     from deepspeed_tpu_torch.models.transformer import CausalTransformerLM
     from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
-    model, seq, vocab_size = _train_model(name)
-    cfg = model_config(model, seq, vocab_size=vocab_size)
+    if cfg is None:
+        model, seq, vocab_size = _train_model(name)
+        cfg = model_config(model, seq, vocab_size=vocab_size)
     cfg = dataclasses.replace(cfg, n_layers=2, local_attn_pattern=(
         cfg.local_attn_pattern[:2] if cfg.local_attn_pattern else None))
     rng = np.random.default_rng(12)
@@ -3436,7 +3610,7 @@ def phase_train_e2e(name=TRAIN_MODEL, bf16=True, steps=2, witness=False):
         if not bf16:
             del conf["bf16"]
         engine = DeepSpeedEngine(
-            CausalTransformerLM(cfg, device="cuda").init(5),
+            scale_embedding(CausalTransformerLM(cfg, device="cuda").init(5)),
             DeepSpeedConfig(conf), backend=backend)
         if init is None:
             init = engine.master.clone()
@@ -3519,9 +3693,10 @@ def phase_train_e2e(name=TRAIN_MODEL, bf16=True, steps=2, witness=False):
 
 
 def phase_train_e2e_fp16(name=TRAIN_MODEL, seq=TRAIN_SEQ,
-                         steps=FP16_E2E_STEPS):
-    """``name`` (gpt_1b; gpt_350m at head dim 64) at full width, cut to 2
-    layers, micro 2 x gas 2, in fp16 with
+                         steps=FP16_E2E_STEPS, cfg=None):
+    """``name`` (gpt_1b; gpt_350m at head dim 64; or the config ``cfg``,
+    named ``name``) at full width and seq ``seq``, cut to 2 layers, micro
+    2 x gas 2, in fp16 with
     the CLI's loss scaling and WarmupDecayLR: one engine through the
     kernels, one through the plain versions, from one init, on the same
     batches.  Held exactly: the skip pattern and the loss scale after every
@@ -3538,39 +3713,53 @@ def phase_train_e2e_fp16(name=TRAIN_MODEL, seq=TRAIN_SEQ,
     from deepspeed_tpu_torch.models.transformer import CausalTransformerLM
     from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
-    cfg = dataclasses.replace(model_config(name, seq), n_layers=2)
+    cfg = dataclasses.replace(cfg or model_config(name, seq), n_layers=2)
     rng = np.random.default_rng(13)
     batches = [{"input_ids": rng.integers(0, cfg.vocab_size, (2, 2, seq))}
                for _ in range(steps)]
     conf = ds_config(2, 2, "fp16",
                      scheduler=scheduler_config(FP16_SCHEDULER, steps),
                      initial_scale_power=FP16_E2E_SCALE_POWER)
+    def worst(a, b):
+        rels = [((x - y).norm() / y.norm()).item()
+                for x, y in zip(a.split(sizes), b.split(sizes))]
+        i = max(range(len(rels)), key=rels.__getitem__)
+        return rels[i], names[i]
+
+    # the kernel engine's m after each applied step waits on the host (a
+    # 2-layer Gemma-2B shape's is 3 GB); the plain engine's is compared
+    # with it as each step ends: the entry is (rel L2, parameter)
     runs, init = {}, None
     for backend in ("cuda", "plain"):
         engine = DeepSpeedEngine(
-            CausalTransformerLM(cfg, device="cuda").init(5),
+            scale_embedding(CausalTransformerLM(cfg, device="cuda").init(5)),
             DeepSpeedConfig(conf), backend=backend)
+        names, sizes = zip(*[(n, p.numel())
+                             for n, p in engine.module.named_parameters()])
         if init is None:
             init = engine.master.clone()
         elif not torch.equal(engine.master, init):
             fail("train e2e fp16: the engines start from different weights")
         rec = dict(losses=[], skips=[], scales=[], norms=[], m=[])
         reset_counters()
-        for b in batches:
+        for i, b in enumerate(batches):
             rec["losses"].append(float(engine.train_batch(batch=b)))
             rec["skips"].append(engine.last_step_overflowed())
             rec["scales"].append(engine.get_loss_scale())
             rec["norms"].append(engine.get_global_grad_norm())
-            rec["m"].append(None if rec["skips"][-1] else
-                            engine.opt_state.m.clone())
+            m = None
+            if not rec["skips"][-1] and backend == "cuda":
+                m = engine.opt_state.m.to("cpu", copy=True)
+            elif not rec["skips"][-1] and runs["cuda"]["m"][i] is not None:
+                m = worst(runs["cuda"]["m"][i].to(engine.opt_state.m.device),
+                          engine.opt_state.m)
+            rec["m"].append(m)
         rec["master"] = engine.master.clone()
         if backend == "cuda":
             rec["counts"] = read_counters()
             check_train_launches(rec["counts"], cfg, 2, steps,
                                  f"train e2e fp16 {name} 2 layers")
         runs[backend] = rec
-        names, sizes = zip(*[(n, p.numel())
-                             for n, p in engine.module.named_parameters()])
         del engine
         _free()
     k, p = runs["cuda"], runs["plain"]
@@ -3592,13 +3781,7 @@ def phase_train_e2e_fp16(name=TRAIN_MODEL, seq=TRAIN_SEQ,
     norm_rel = abs(k["norms"][first] - p["norms"][first]) / \
         abs(p["norms"][first])
 
-    def worst(a, b):
-        rels = [((x - y).norm() / y.norm()).item()
-                for x, y in zip(a.split(sizes), b.split(sizes))]
-        i = max(range(len(rels)), key=rels.__getitem__)
-        return rels[i], names[i]
-
-    m_rels = [worst(k["m"][i], p["m"][i]) for i in applied]
+    m_rels = [p["m"][i] for i in applied]
     upd_rel = worst(k["master"] - init, p["master"] - init)
     if not np.isfinite(k["losses"]).all() or loss_rel > E2E_TRAIN_REL_TOL \
             or norm_rel > E2E_TRAIN_REL_TOL or \
@@ -3647,9 +3830,12 @@ def flash_timing(errs, B, S, H, Hkv, D, gen):
         o = torch.stack([x[0] for x in outs])
         lse = torch.stack([x[1] for x in outs])
         delta = (do.float() * o.float()).sum(-1).transpose(2, 3).contiguous()
-        # library yardstick: SDPA in [B, H, S, D], forward and backward
+        # library yardstick: SDPA in [B, H, S, D], forward and backward;
+        # a GQA group's kv heads repeated for it (made before the timing)
         qt, kt, vt, dot = (x.transpose(2, 3).contiguous()
                            for x in (q, k, v, do))
+        if H != Hkv:
+            kt, vt = (x.repeat_interleave(H // Hkv, 2) for x in (kt, vt))
         leaves = [[x[i].clone().requires_grad_() for x in (qt, kt, vt)]
                   for i in range(c)]
 
@@ -3706,9 +3892,10 @@ def flash_timing(errs, B, S, H, Hkv, D, gen):
 
 def phase_train_timing(errs):
     """B1, B2 (dQ, dK/dV) and B3 at the training paths' shapes: attention
-    at gpt_1b's (B=2 S=1024 16 heads of 128 causal) and at the ds_bench
+    at gpt_1b's (B=2 S=1024 16 heads of 128 causal), at the ds_bench
     train CLI models' (B=8 S=1024): gpt_350m's 16 heads of 64, gpt_760m's
-    16 of 96, gpt_2_7b's 32 of 80, each in bf16 and fp16
+    16 of 96, gpt_2_7b's 32 of 80, and at Gemma-2B's (B=2 S=2048 8 heads
+    of 256 over one kv head), each in bf16 and fp16
     (:func:`flash_timing`); Adam over gpt_1b's parameter count (held
     against its plain version there first, then timed with its skip flag 0
     and 1; ms-scale, so by CUDA events, eagerly): kernel, plain version,
@@ -3728,6 +3915,9 @@ def phase_train_timing(errs):
         c = model_config(model, d["seq"])
         res.update(flash_timing(errs, d["batch"], d["seq"], c.n_heads,
                                 c.kv_heads, c.head_dim, gen))
+    g = GEMMA_TRAIN
+    res.update(flash_timing(errs, TRAIN_BATCH, GEMMA_TRAIN_SEQ,
+                            g["n_heads"], g["n_kv_heads"], 256, gen))
 
     # B3 over gpt_1b's flat fp32 buffers (28 bytes per parameter), first
     # held against its plain version at this n, from the same inputs
@@ -3803,12 +3993,16 @@ BIASED_TIMING_D64 = [("ALiBi (bloom_560m)", True, None, 1.0 / 8.0, 16),
                      ("window 256 (gpt_neo_125m local)", False, 256, 1.0,
                       12)]
 # and at head dims 96 and 80 with gpt_760m's and gpt_2_7b's heads: ALiBi,
-# the biased forms' heaviest case (off every main path: no model of the
+# the biased forms' heaviest case, and at 256 with Gemma-2B's 8 heads
+# (MHA) ALiBi and a window of 256 (off every main path: no model of the
 # repo has ALiBi or windows at these head dims; printed, not in the JSON)
 BIASED_TIMING_D96 = [("ALiBi (gpt_760m heads)", True, None,
                       1.0 / math.sqrt(96), 16)]
 BIASED_TIMING_D80 = [("ALiBi (gpt_2_7b heads)", True, None,
                       1.0 / math.sqrt(80), 32)]
+BIASED_TIMING_D256 = [("ALiBi (Gemma-2B heads)", True, None, 1.0 / 16.0, 8),
+                      ("window 256 (Gemma-2B heads)", False, 256, 1.0 / 16.0,
+                       8)]
 
 
 def phase_biased_timing(errs, cases=BIASED_TIMING, D=128, seed=78):
@@ -3909,8 +4103,10 @@ def phase_biased_timing(errs, cases=BIASED_TIMING, D=128, seed=78):
     return res
 
 
-def phase_sparse_timing(err):
-    """B6 at the entry point's shapes (SPARSE_PATH): the bf16 kernel by
+def phase_sparse_timing(err, err16):
+    """B6 at the entry point's shapes (SPARSE_PATH in bf16, the first of
+    SPARSE_PATH_FP16 in fp16; ``err``, ``err16``: the max abs errors of
+    each dtype): the kernel by
     CUDA-graph replay over 4 rotating input sets; the plain version
     eagerly by CUDA events (it expands the layout on the host at every
     call); the library call, SDPA with the expanded layout (and causal)
@@ -3924,10 +4120,13 @@ def phase_sparse_timing(err):
     from deepspeed_tpu_torch.ops.sparse_attention import (
         expand_layout_mask, sparse_attention_plain)
     B, S, H = SPARSE_B, SPARSE_S, SPARSE_H
-    dt, c = torch.bfloat16, 4
+    c = 4
     gen = torch.Generator(device="cuda").manual_seed(79)
     res = {}
-    for kind, block, D in SPARSE_PATH:
+    for dt, (kind, block, D) in [(torch.bfloat16, x) for x in SPARSE_PATH] + [
+            (torch.float16, SPARSE_PATH_FP16[0])]:
+        dn = str(dt).split(".")[-1]
+        name = "sparse_attention" + ("_fp16" if dt == torch.float16 else "")
         layout, causal = _sparse_layout(kind, H, block, S)
         q, k, v = (_rand((c, B, S, H, D), dt, gen) for _ in range(3))
         qt, kt, vt = (x.transpose(2, 3).contiguous() for x in (q, k, v))
@@ -3936,7 +4135,7 @@ def phase_sparse_timing(err):
         if causal:
             mask &= torch.ones((S, S), dtype=torch.bool,
                                device="cuda").tril()
-        # the bf16 kernel's step tables on the card, made once, as
+        # the tensor-core kernel's step tables on the card, made once, as
         # SparseSelfAttention keeps them (a host-to-card copy cannot run
         # inside a graph capture)
         steps = card_steps(layout, block, causal, "cuda")
@@ -3951,15 +4150,16 @@ def phase_sparse_timing(err):
         table, counts, _ = layout_tables(layout, causal)
         flops = B * sparse_flops(layout, block, causal, D)
         nbytes = 4 * B * S * H * D * 2 + table.nbytes + counts.nbytes
-        bound_ms, bound_by = _bound(nbytes, flops, "bfloat16")
+        bound_ms, bound_by = _bound(nbytes, flops, dn)
         label = f"{kind} block {block} D={D}"
-        res[("sparse_attention", label)] = dict(
+        res[(name, label)] = dict(
             ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-            bound_by=bound_by, max_abs_err=err,
+            bound_by=bound_by,
+            max_abs_err=err16 if dt == torch.float16 else err,
             shape=f"B={B} S={S} H={H} {label} causal={causal}, "
                   f"{int(counts.sum())} of {H * (S // block) ** 2} blocks "
                   f"set, steps' union x{step_overhead(layout, block, causal):.3f}"
-                  f" of their work, bf16")
+                  f" of their work, {dn}")
         del q, k, v, qt, kt, vt, mask, steps
         _free()
     for (name, _), r in res.items():
@@ -4673,6 +4873,10 @@ def main():
               f"{[round(x, 4) for x in out['losses']]}")
         phase("train", f"launches in {TRAIN_STEPS + 1} train_batch calls of "
               f"{name}: {launched}; every other kernel 0, plain versions 0")
+    # this slice's path: the Gemma-2B shape at head dim 256 (its flash
+    # launches go to the D=256 rows, B3's to B3's row)
+    gemma = phase_train_gemma()
+    launches["fused_adam"] += gemma["fused_adam"]
     # the ds_bench train main paths: no flags (gpt_350m, the flash
     # kernels' D=64 forms), --model gpt_760m (D=96) and --model gpt_2_7b
     # (D=80), each counted on its own; B3's launches join its row, the
@@ -4778,17 +4982,33 @@ def main():
             phase("e2e", f"train {r['label']} witness, plain micro 1 x gas 4"
                   f" vs plain micro 2 x gas 2: m rel L2 by step "
                   f"{[(f'{x:.3e}', n) for x, n in r['witness_rels']]}")
+    # head dim 256: the Gemma-2B shape, 2 layers of full width, bf16 and
+    # (below) fp16
+    from deepspeed_tpu_torch.models.transformer import TransformerConfig
+    gemma_cfg = TransformerConfig(**GEMMA_TRAIN)
+    r = phase_train_e2e("gemma_2b", cfg=gemma_cfg, seq=GEMMA_TRAIN_SEQ)
+    phase("e2e", f"train Gemma-2B shape bf16 (head dim 256, 8/1 heads), 2 "
+          f"layers full width, seq {GEMMA_TRAIN_SEQ}, 2 train_batch steps: "
+          f"losses kernels {r['lk']} vs plain {r['lp']} (max rel "
+          f"{r['loss_rel']:.2e}); first grad norm {r['nk']:.5f} vs "
+          f"{r['n_p']:.5f} (rel {r['norm_rel']:.2e}); tol "
+          f"{E2E_TRAIN_REL_TOL}; m rel L2 by step "
+          f"{[(f'{x:.3e}', n) for x, n in r['m_rels']]} (tol "
+          f"{E2E_M_REL_TOL}), update rel L2 {r['upd_rel'][0]:.3e} "
+          f"({r['upd_rel'][1]}; tol {E2E_UPDATE_REL_TOL})")
     # fp16, 2 layers of full width: gpt_1b (D=128), gpt_350m (D=64) and
     # FP16_CLI_MODEL (its CLI head dim); the fp16 JSON rows take their
     # kernel engines' launches
     fp16_e2e_counts = {}
-    for name, seq, label in (
-            (TRAIN_MODEL, TRAIN_SEQ, TRAIN_MODEL),
+    for name, seq, label, fcfg in (
+            (TRAIN_MODEL, TRAIN_SEQ, TRAIN_MODEL, None),
             (CLI_DEFAULTS["model"], CLI_DEFAULTS["seq"],
-             f"{CLI_DEFAULTS['model']} (D=64)"),
+             f"{CLI_DEFAULTS['model']} (D=64)", None),
             (FP16_CLI_MODEL, D80_96_MODELS[FP16_CLI_MODEL][1],
-             f"{FP16_CLI_MODEL} (D={CLI_HEAD_DIMS[FP16_CLI_MODEL]})")):
-        r = phase_train_e2e_fp16(name, seq)
+             f"{FP16_CLI_MODEL} (D={CLI_HEAD_DIMS[FP16_CLI_MODEL]})", None),
+            ("gemma_2b", GEMMA_TRAIN_SEQ, "Gemma-2B shape (D=256)",
+             gemma_cfg)):
+        r = phase_train_e2e_fp16(name, seq, cfg=fcfg)
         fp16_e2e_counts[name] = r["k"]["counts"]
         phase("e2e", f"train {label} fp16, 2 layers full width, "
               f"{FP16_E2E_STEPS} train_batch steps from loss scale "
@@ -4815,12 +5035,16 @@ def main():
     _free()
 
     # ---- block-sparse entry point, counters read around its calls -----
-    sparse_counts, t_sparse, sparse_err = phase_sparse_path()
+    sparse_counts, t_sparse, sparse_err, sparse_err16 = phase_sparse_path()
     for k in launches:
         launches[k] += sparse_counts[k]
+    # the fp16 calls' launches go to the fp16 row
+    launches["sparse_attention"] -= len(SPARSE_PATH_FP16)
     phase("sparse", f"SparseSelfAttention x {len(SPARSE_PATH)} "
-          f"{[f'{k} block {b} D={d}' for k, b, d in SPARSE_PATH]} at B="
-          f"{SPARSE_B} S={SPARSE_S} H={SPARSE_H} bf16: {t_sparse * 1e3:.1f} ms"
+          f"{[f'{k} block {b} D={d}' for k, b, d in SPARSE_PATH]} bf16 and x "
+          f"{len(SPARSE_PATH_FP16)} "
+          f"{[f'{k} block {b} D={d}' for k, b, d in SPARSE_PATH_FP16]} fp16 "
+          f"at B={SPARSE_B} S={SPARSE_S} H={SPARSE_H}: {t_sparse * 1e3:.1f} ms"
           f" wall, kernel launches {sparse_counts['sparse_attention']}, plain "
           f"versions 0; a key_padding_mask call took the dense path, a "
           f"gradient request raised")
@@ -4839,7 +5063,8 @@ def main():
     biased_d64 = phase_biased_timing(errs, BIASED_TIMING_D64, D=64, seed=79)
     phase_biased_timing(errs, BIASED_TIMING_D96, D=96, seed=80)
     phase_biased_timing(errs, BIASED_TIMING_D80, D=80, seed=81)
-    sparse = phase_sparse_timing(sparse_err)
+    phase_biased_timing(errs, BIASED_TIMING_D256, D=256, seed=82)
+    sparse = phase_sparse_timing(sparse_err, sparse_err16)
     alibi_label, window_label = (b[0] for b in BIASED_TIMING[:2])
     ratio = (biased[("flash_attention_fwd_biased", window_label)]["ms"] /
              biased[("flash_attention_fwd_biased", alibi_label)]["ms"])
@@ -4849,10 +5074,13 @@ def main():
         fail(f"the window-256 forward takes {ratio:.3f} of the ALiBi "
              f"forward's time: its key-tile skip does not work")
     sparse_label = "{} block {} D={}".format(*SPARSE_PATH[0])
+    sparse_label16 = "{} block {} D={}".format(*SPARSE_PATH_FP16[0])
     for name in ("flash_attention_fwd_biased", "flash_attention_bwd_dq_biased",
                  "flash_attention_bwd_dkv_biased"):
         timing[name] = biased[(name, alibi_label)]
     timing["sparse_attention"] = sparse[("sparse_attention", sparse_label)]
+    timing["sparse_attention_fp16"] = sparse[("sparse_attention_fp16",
+                                              sparse_label16)]
     kernels = []
     pallas = "deepspeed_tpu/ops/pallas/"
     csrc = "deepspeed_tpu_torch/ops/csrc/"
@@ -4877,6 +5105,9 @@ def main():
         "sparse_attention": (csrc + "sparse_attention.cu",
                              pallas + "sparse_attention.py:54"),
     }
+    # B6's fp16 form: the fp16 calls of the entry point
+    meta["sparse_attention_fp16"] = meta["sparse_attention"]
+    launches["sparse_attention_fp16"] = len(SPARSE_PATH_FP16)
     # the fp16 forms of B1 and B2: rows of their own, with the launches of
     # the fp16 main path (the rows above count every main path)
     for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
@@ -4943,6 +5174,17 @@ def main():
             (biased_name + d_suffix(64), bloom_label)]
         launches[biased_name + d_suffix(64)] = sum(
             e2e_counts[m][biased_name] for m in ("bloom_560m", "gpt_neo_125m"))
+    # the D=256 forms (this slice's): the unbiased ones with the launches of
+    # the Gemma-2B training run, their fp16 forms with those of its fp16
+    # 2-layer run's kernel engine (the biased D=256 forms are on no path:
+    # printed, not in the JSON)
+    for base in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        name = base + d_suffix(256)
+        meta[name] = meta[f"{name}_fp16"] = meta[base]
+        launches[name] = gemma["counts"][base]
+        timing[f"{name}_fp16"] = timing[(name, "fp16")]
+        launches[f"{name}_fp16"] = fp16_e2e_counts["gemma_2b"][base]
     for name, (source, replaces) in meta.items():
         t = timing[name]
         if not launches[name]:

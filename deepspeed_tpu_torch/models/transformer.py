@@ -299,8 +299,8 @@ def check_servable(c: TransformerConfig, device=None):
 
 def check_trainable(c: TransformerConfig, device=None):
     """On the card, raise ``NotImplementedError`` naming A16 for a head dim
-    the flash kernels (B1, B2) do not take -- they take 64, 80, 96 and 128,
-    serving also 256 (:func:`check_servable`); on the CPU the plain
+    the flash kernels (B1, B2) do not take -- they take 64, 80, 96, 128 and
+    256, as serving does (:func:`check_servable`); on the CPU the plain
     versions train every head dim."""
     if _on_card(device):
         check_head_dim("training on the card", c.head_dim, FLASH_HEAD_DIMS)

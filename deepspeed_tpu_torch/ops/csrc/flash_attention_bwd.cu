@@ -100,12 +100,37 @@
 // 85.9, at gpt_760m's (16 heads of 96) 38.7 and 51.5: all bound by the
 // tensor cores (65.1 and 86.9 us; 39.1 and 52.1 us).
 //
+// Head dim 256 (Gemma): a tile is four 64-column boxes, and every
+// accumulator whose N is D is 128 fp32 registers a thread.
+//   * dQ: the body as it is (dQ 128 + S 32 + dP 32 registers of the
+//     consumers' 240, no spill); Q and dO take 64 KB each, so the K/V ring
+//     has one stage of 64-key tiles (192 KB in all), and a tile's loads no
+//     longer overlap the products of the one before.
+//   * dK/dV: dK + dV for 64 keys a warpgroup would be 256 registers, and
+//     K and V resident for 128 keys with the Q/dO ring 256 KB.  A block
+//     takes 64 keys (K, V 64 KB; two stages of 64-row Q and dO 128 KB),
+//     and both consumer warpgroups compute S^T and dP^T for those keys;
+//     each then owns 128 of dK's and dV's columns (m64n128 products over
+//     its half of dO and Q): 64 + 64 + 32 + 32 registers, no spill.  The
+//     score products are done twice, 1.5x the block's tensor-core work.
+//     A design that split them instead (one warpgroup S^T, the other dP^T,
+//     trading P^T in fp32 and dS^T in E through 24 KB of shared memory and
+//     two named barriers a tile) measured slower on an H100 (0.1966-0.1989
+//     against 0.1950 ms at Gemma-2B's shape, scripts/flash_kernel_ab.py):
+//     it spilled 48 bytes and ptxas serialised its wgmma pipeline (a
+//     WARPGROUP.DEPBAR after each of its 46 HGMMA).
+// At Gemma-2B's training shape (B=2, S=2048, 8 heads of 256 over one kv
+// head, causal) dQ does 51.5 GFLOP and dK/dV 68.7: bound by the tensor
+// cores (52.1 and 69.5 us).
+//
 // fp32 dQ and dK/dV run on the CUDA cores (the first kernels,
 // flash_tile.cuh): 256 threads, fp32 products; the dQ block walks key
 // tiles up to its causal frontier.  fp32 stays there because the fp32
 // checks hold it to 1e-4 of the plain version, ALiBi scores of ~1.4e3
 // included, which tf32 products would not meet; the dtype picks the
-// instantiation in the C entry.
+// instantiation in the C entry.  At D = 256 their tiles are 32 rows by 32
+// keys (flash_tile.cuh bwd_rows): four 64-row [64][257] fp32 tiles would
+// not fit a block's shared memory.
 #include "flash_tile.cuh"
 #include "hopper.cuh"
 
@@ -113,35 +138,38 @@ namespace {
 
 using namespace dsflash;
 
-// Per-row P and dS of one (q tile, key tile) pair from the shared Q, dO,
-// K, V tiles; row r of the q tile is query q0 + r, column c key k0 + c.
-// s, dp: this thread's scores and dO V^T; writes P (if p_s) and dS.
-template <bool SLOPE, bool WINDOW>
+// Per-row P and dS of one (q tile, key tile) pair of R rows and keys from
+// the shared Q, dO, K, V tiles; row r of the q tile is query q0 + r,
+// column c key k0 + c.  s, dp: this thread's scores and dO V^T (I = R / 16
+// rows and columns); writes P (if p_s) and dS, pitch R + 1.
+template <bool SLOPE, bool WINDOW, int I>
 __device__ __forceinline__ void probs_and_ds(
-    float (&s)[4][4], float (&dp)[4][4], const float* __restrict__ lse_s,
+    float (&s)[I][I], float (&dp)[I][I], const float* __restrict__ lse_s,
     const float* __restrict__ dl_s, float* __restrict__ p_s,
     float* __restrict__ ds_s, int q0, int k0, int S, float scale, int causal,
     const Bias<SLOPE, WINDOW>& bias, int ty, int tx) {
+  constexpr int P = 16 * I + 1;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < I; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < I; ++j) {
       const int r = ty + 16 * i, c = tx + 16 * j;
       const float x = masked(SLOPE ? __fmul_rn(s[i][j], scale)
                                    : s[i][j] * scale,
                              q0 + r, k0 + c, S, causal, bias);
       const float p = x <= kNeg / 2 ? 0.f : expf(x - lse_s[r]);
-      if (p_s != nullptr) p_s[r * PT + c] = p;
-      ds_s[r * PT + c] = p * (dp[i][j] - dl_s[r]) * scale;
+      if (p_s != nullptr) p_s[r * P + c] = p;
+      ds_s[r * P + c] = p * (dp[i][j] - dl_s[r]) * scale;
     }
 }
 
-// lse / delta of rows [q0, q0 + BQ) of head bh -> shared (0 past S)
+// lse / delta of rows [q0, q0 + R) of head bh -> shared (0 past S)
+template <int R>
 __device__ __forceinline__ void load_rows(float* lse_s, float* dl_s,
                                           const float* __restrict__ lse,
                                           const float* __restrict__ delta,
                                           int bh, int q0, int S) {
-  if (threadIdx.x < BQ) {
+  if (threadIdx.x < R) {
     const int row = q0 + threadIdx.x;
     const long long at = (long long)bh * S + row;
     lse_s[threadIdx.x] = row < S ? lse[at] : 0.f;
@@ -177,7 +205,8 @@ struct DqParams {
 
 template <int D>
 constexpr size_t dq_smem_floats() {
-  return 4 * 64 * pitch<D>() + BQ * PT + 2 * BQ;
+  constexpr int R = bwd_rows<D>();
+  return 4 * R * pitch<D>() + R * (R + 1) + 2 * R;
 }
 
 template <bool SLOPE, bool WINDOW, int D>
@@ -185,6 +214,8 @@ __device__ __forceinline__ void dq_cuda_cores(const DqParams& p,
                                               float* smem) {
   using T = float;
   constexpr int PD = pitch<D>(), J = D / 16;   // J: output columns a thread
+  // R rows and keys a tile, I = R / 16 of them a thread, pitch PR
+  constexpr int R = bwd_rows<D>(), I = R / 16, PR = R + 1;
   const T* q = static_cast<const T*>(p.q);
   const T* k = static_cast<const T*>(p.k);
   const T* v = static_cast<const T*>(p.v);
@@ -192,43 +223,43 @@ __device__ __forceinline__ void dq_cuda_cores(const DqParams& p,
   T* dq = static_cast<T*>(p.dq);
   const int S = p.S, causal = p.causal;
   const float scale = p.scale;
-  float* q_s = smem;             // [BQ][PD]
-  float* do_s = q_s + BQ * PD;   // [BQ][PD]
-  float* k_s = do_s + BQ * PD;   // [BK][PD]
-  float* v_s = k_s + BK * PD;    // [BK][PD]
-  float* ds_s = v_s + BK * PD;   // [BQ][PT]
-  float* lse_s = ds_s + BQ * PT;
-  float* dl_s = lse_s + BQ;
+  float* q_s = smem;             // [R][PD]
+  float* do_s = q_s + R * PD;    // [R][PD]
+  float* k_s = do_s + R * PD;    // [R][PD]
+  float* v_s = k_s + R * PD;     // [R][PD]
+  float* ds_s = v_s + R * PD;    // [R][PR]
+  float* lse_s = ds_s + R * PR;
+  float* dl_s = lse_s + R;
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * R;
   const Heads hd(S, p.H, p.Hkv, D);
   const Bias<SLOPE, WINDOW> bias(p.slopes, hd.h, p.window);
-  load_tile<T, D>(q_s, q, hd.q_base, hd.q_stride, q0, S, 1.f);
-  load_tile<T, D>(do_s, dout, hd.q_base, hd.q_stride, q0, S, 1.f);
-  load_rows(lse_s, dl_s, p.lse, p.delta, hd.bh, q0, S);
+  load_tile<T, D, R>(q_s, q, hd.q_base, hd.q_stride, q0, S, 1.f);
+  load_tile<T, D, R>(do_s, dout, hd.q_base, hd.q_stride, q0, S, 1.f);
+  load_rows<R>(lse_s, dl_s, p.lse, p.delta, hd.bh, q0, S);
 
-  float acc[4][J];
+  float acc[I][J];
   zero(acc);
-  const int kv_hi = causal ? min(S, q0 + BQ) : S;
-  for (int k0 = bias.key_lo(q0); k0 < kv_hi; k0 += BK) {
+  const int kv_hi = causal ? min(S, q0 + R) : S;
+  for (int k0 = bias.template key_lo<R>(q0); k0 < kv_hi; k0 += R) {
     __syncthreads();  // previous dS K done
-    load_tile<T, D>(k_s, k, hd.kv_base, hd.kv_stride, k0, S, 1.f);
-    load_tile<T, D>(v_s, v, hd.kv_base, hd.kv_stride, k0, S, 1.f);
+    load_tile<T, D, R>(k_s, k, hd.kv_base, hd.kv_stride, k0, S, 1.f);
+    load_tile<T, D, R>(v_s, v, hd.kv_base, hd.kv_stride, k0, S, 1.f);
     __syncthreads();
-    float s[4][4], dp[4][4];
+    float s[I][I], dp[I][I];
     zero(s);
     zero(dp);
-    gemm_nt<4, 4, D, PD, PD>(s, q_s, k_s, ty, tx);
-    gemm_nt<4, 4, D, PD, PD>(dp, do_s, v_s, ty, tx);
+    gemm_nt<I, I, D, PD, PD>(s, q_s, k_s, ty, tx);
+    gemm_nt<I, I, D, PD, PD>(dp, do_s, v_s, ty, tx);
     probs_and_ds(s, dp, lse_s, dl_s, nullptr, ds_s, q0, k0, S, scale, causal,
                  bias, ty, tx);
     __syncthreads();
-    gemm_nn<4, J, BK, PT, PD>(acc, ds_s, k_s, ty, tx);
+    gemm_nn<I, J, R, PR, PD>(acc, ds_s, k_s, ty, tx);
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < I; ++i) {
     const int qrow = q0 + ty + 16 * i;
     if (qrow < S) {
       T* row = dq + hd.q_base + (long long)qrow * hd.q_stride;
@@ -248,13 +279,14 @@ constexpr int kQBox = BM * hopper::kBoxCols * 2;    // one 64-column box
 constexpr int kKvBox = BN * hopper::kBoxCols * 2;
 // The shared-memory plan at head dim D: Q, dO, then kStages x (K, V),
 // then the barriers: Q/dO's, full[], empty[].  Tiles are whole 64-column
-// boxes (D = 80 and 96 take D = 128's).
+// boxes (D = 80 and 96 take D = 128's).  At D = 256 Q and dO take 64 KB
+// each and a K/V stage 64 KB, so the ring has one stage (192 KB).
 template <int D>
 struct Smem {
-  // 32 and 16 KB, half that at D = 64
+  // 32 and 16 KB at D = 80, 96 and 128; half that at 64, twice at 256
   static constexpr int kQTile = BM * hopper::box_cols<D>() * 2;
   static constexpr int kKvTile = BN * hopper::box_cols<D>() * 2;
-  static constexpr int kStages = D == 64 ? 4 : 2;
+  static constexpr int kStages = D == 64 ? 4 : D == 256 ? 1 : 2;
   static constexpr int kStageOffset = 2 * kQTile;
   static constexpr int kBarOffset = kStageOffset + kStages * 2 * kKvTile;
   static constexpr size_t kBytes = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
@@ -460,7 +492,8 @@ struct DkvParams {
 
 template <int D>
 constexpr size_t dkv_smem_floats() {
-  return 4 * 64 * pitch<D>() + 2 * BQ * PT + 2 * BQ;
+  constexpr int R = bwd_rows<D>();
+  return 4 * R * pitch<D>() + 2 * R * (R + 1) + 2 * R;
 }
 
 template <bool SLOPE, bool WINDOW, int D>
@@ -468,55 +501,57 @@ __device__ __forceinline__ void dkv_cuda_cores(const DkvParams& p,
                                                float* smem) {
   using T = float;
   constexpr int PD = pitch<D>(), J = D / 16;   // J: output columns a thread
+  // R keys and rows a tile, I = R / 16 of them a thread, pitch PR
+  constexpr int R = bwd_rows<D>(), I = R / 16, PR = R + 1;
   const T* q = static_cast<const T*>(p.q);
   const T* k = static_cast<const T*>(p.k);
   const T* v = static_cast<const T*>(p.v);
   const T* dout = static_cast<const T*>(p.dout);
   const int S = p.S, causal = p.causal;
   const float scale = p.scale;
-  float* k_s = smem;             // [BK][PD]
-  float* v_s = k_s + BK * PD;    // [BK][PD]
-  float* q_s = v_s + BK * PD;    // [BQ][PD]
-  float* do_s = q_s + BQ * PD;   // [BQ][PD]
-  float* p_s = do_s + BQ * PD;   // [BQ][PT]
-  float* ds_s = p_s + BQ * PT;   // [BQ][PT]
-  float* lse_s = ds_s + BQ * PT;
-  float* dl_s = lse_s + BQ;
+  float* k_s = smem;             // [R][PD]
+  float* v_s = k_s + R * PD;     // [R][PD]
+  float* q_s = v_s + R * PD;     // [R][PD]
+  float* do_s = q_s + R * PD;    // [R][PD]
+  float* p_s = do_s + R * PD;    // [R][PR]
+  float* ds_s = p_s + R * PR;    // [R][PR]
+  float* lse_s = ds_s + R * PR;
+  float* dl_s = lse_s + R;
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int k0 = blockIdx.x * BK;
+  const int k0 = blockIdx.x * R;
   const Heads hd(S, p.H, p.Hkv, D);
   const Bias<SLOPE, WINDOW> bias(p.slopes, hd.h, p.window);
-  load_tile<T, D>(k_s, k, hd.kv_base, hd.kv_stride, k0, S, 1.f);
-  load_tile<T, D>(v_s, v, hd.kv_base, hd.kv_stride, k0, S, 1.f);
+  load_tile<T, D, R>(k_s, k, hd.kv_base, hd.kv_stride, k0, S, 1.f);
+  load_tile<T, D, R>(v_s, v, hd.kv_base, hd.kv_stride, k0, S, 1.f);
 
-  float dk_acc[4][J], dv_acc[4][J];
+  float dk_acc[I][J], dv_acc[I][J];
   zero(dk_acc);
   zero(dv_acc);
   // causal: q tiles before this key tile's diagonal see none of its keys;
   // window: q tiles from q_hi on are past the window of all of them
-  const int q_hi = bias.q_hi(k0, S);
-  for (int q0 = causal ? k0 : 0; q0 < q_hi; q0 += BQ) {
+  const int q_hi = bias.template q_hi<R>(k0, S);
+  for (int q0 = causal ? k0 : 0; q0 < q_hi; q0 += R) {
     __syncthreads();  // previous tile's products done
-    load_tile<T, D>(q_s, q, hd.q_base, hd.q_stride, q0, S, 1.f);
-    load_tile<T, D>(do_s, dout, hd.q_base, hd.q_stride, q0, S, 1.f);
-    load_rows(lse_s, dl_s, p.lse, p.delta, hd.bh, q0, S);
+    load_tile<T, D, R>(q_s, q, hd.q_base, hd.q_stride, q0, S, 1.f);
+    load_tile<T, D, R>(do_s, dout, hd.q_base, hd.q_stride, q0, S, 1.f);
+    load_rows<R>(lse_s, dl_s, p.lse, p.delta, hd.bh, q0, S);
     __syncthreads();
-    float s[4][4], dp[4][4];
+    float s[I][I], dp[I][I];
     zero(s);
     zero(dp);
-    gemm_nt<4, 4, D, PD, PD>(s, q_s, k_s, ty, tx);
-    gemm_nt<4, 4, D, PD, PD>(dp, do_s, v_s, ty, tx);
+    gemm_nt<I, I, D, PD, PD>(s, q_s, k_s, ty, tx);
+    gemm_nt<I, I, D, PD, PD>(dp, do_s, v_s, ty, tx);
     probs_and_ds(s, dp, lse_s, dl_s, p_s, ds_s, q0, k0, S, scale, causal,
                  bias, ty, tx);
     __syncthreads();
-    gemm_tn<4, J, BQ, PT, PD>(dv_acc, p_s, do_s, ty, tx);
-    gemm_tn<4, J, BQ, PT, PD>(dk_acc, ds_s, q_s, ty, tx);
+    gemm_tn<I, J, R, PR, PD>(dv_acc, p_s, do_s, ty, tx);
+    gemm_tn<I, J, R, PR, PD>(dk_acc, ds_s, q_s, ty, tx);
   }
 
   // fp32, per query head: row `key` of head h in the [B, S, H, D] layout
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < I; ++i) {
     const int key = k0 + ty + 16 * i;
     if (key < S) {
       const long long at = hd.q_base + (long long)key * hd.q_stride;
@@ -535,15 +570,20 @@ namespace tc {
 constexpr int BN = 128;                      // keys of a block
 constexpr int BM = 64;                       // query rows of a Q/dO tile
 constexpr int kThreads = 384;                // 2 consumer + 1 producer WG
-constexpr int kKvBox = BN * hopper::kBoxCols * 2;   // one 64-column box
-constexpr int kQBox = BM * hopper::kBoxCols * 2;
+constexpr int kQBox = BM * hopper::kBoxCols * 2;   // one 64-column box
 // The shared-memory plan at head dim D: K, V, then kStages x (Q, dO),
 // kStages x (lse, delta) rows, the barriers: K/V's, full[], empty[].
-// Tiles are whole 64-column boxes (D = 80 and 96 take D = 128's).
+// Tiles are whole 64-column boxes (D = 80 and 96 take D = 128's).  At D =
+// 256 a block takes 64 keys, which both consumer warpgroups share: each
+// owns 128 of dK's and dV's 256 columns (kSplit; the header says why).
 template <int D>
 struct Smem {
-  // 32 and 16 KB, half that at D = 64
-  static constexpr int kKvTile = BN * hopper::box_cols<D>() * 2;
+  static constexpr int kKeys = D == 256 ? 64 : BN;   // keys of a block
+  static constexpr bool kSplit = D == 256;   // warpgroups split D, not keys
+  // K, V: 32 KB at D = 80, 96, 128 and 256, 16 at 64; Q, dO: half that
+  // but 32 at 256
+  static constexpr int kKvTile = kKeys * hopper::box_cols<D>() * 2;
+  static constexpr int kKvBox = kKeys * hopper::kBoxCols * 2;
   static constexpr int kQTile = BM * hopper::box_cols<D>() * 2;
   static constexpr int kStages = D == 64 ? 4 : 2;
   static constexpr int kStageOffset = 2 * kKvTile;
@@ -558,30 +598,34 @@ __device__ __forceinline__ void dkv_tensor_cores(const DkvParams& p,
                                                  unsigned char* raw) {
   using namespace hopper;
   using namespace tc;
-  constexpr int kKvTile = Smem<D>::kKvTile, kQTile = Smem<D>::kQTile;
-  constexpr int kStages = Smem<D>::kStages;
-  constexpr int kStageOffset = Smem<D>::kStageOffset;
-  constexpr int kRowsOffset = Smem<D>::kRowsOffset;
-  constexpr int kBarOffset = Smem<D>::kBarOffset;
+  using Plan = Smem<D>;
+  constexpr int kKvTile = Plan::kKvTile, kQTile = Plan::kQTile;
+  constexpr int kKvBox = Plan::kKvBox, kKeys = Plan::kKeys;
+  constexpr int kStages = Plan::kStages;
+  constexpr bool kSplit = Plan::kSplit;
+  // the columns of dK and dV a warpgroup owns: all D, or 128 at D = 256
+  constexpr int N = kSplit ? 128 : D;
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
   unsigned char* k_s = base;
   unsigned char* v_s = base + kKvTile;
-  unsigned char* qdo_s = base + kStageOffset;       // [stage][Q, dO]
-  float* rows_s = reinterpret_cast<float*>(base + kRowsOffset);
-  uint64_t* kv_bar = reinterpret_cast<uint64_t*>(base + kBarOffset);
+  unsigned char* qdo_s = base + Plan::kStageOffset;   // [stage][Q, dO]
+  float* rows_s = reinterpret_cast<float*>(base + Plan::kRowsOffset);
+  uint64_t* kv_bar = reinterpret_cast<uint64_t*>(base + Plan::kBarOffset);
   uint64_t* full = kv_bar + 1;
   uint64_t* empty = full + kStages;
 
   const int S = p.S, H = p.H, bh = blockIdx.x, h = bh % H, b = bh / H;
   const int hk = h / (H / p.Hkv);
-  const int k0 = blockIdx.y * BN;          // causal: longest q loops first
+  const int k0 = blockIdx.y * kKeys;       // causal: longest q loops first
   const int window = WINDOW ? p.window : 0;
-  // the q loop: from the diagonal to the last row that sees key k0 + BN - 1
+  // the q loop: from the diagonal to the last row that sees key k0 +
+  // kKeys - 1
   const int q_lo = p.causal ? k0 : 0;
-  const int q_hi = WINDOW && window > 0
-                       ? (int)min((long long)S, (long long)k0 + BN - 1 + window)
-                       : S;
+  const int q_hi =
+      WINDOW && window > 0
+          ? (int)min((long long)S, (long long)k0 + kKeys - 1 + window)
+          : S;
   const int n_tiles = (q_hi - q_lo + BM - 1) / BM;
 
   const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
@@ -600,8 +644,8 @@ __device__ __forceinline__ void dkv_tensor_cores(const DkvParams& p,
     if (t < 32) {
       if (t == 0) {
         mbar_arrive_expect_tx(kv_bar, 2 * kKvTile);
-        tma_load_rows<D>(k_s, &p.k_map, kv_bar, BN, hk, k0, b);
-        tma_load_rows<D>(v_s, &p.v_map, kv_bar, BN, hk, k0, b);
+        tma_load_rows<D>(k_s, &p.k_map, kv_bar, kKeys, hk, k0, b);
+        tma_load_rows<D>(v_s, &p.v_map, kv_bar, kKeys, hk, k0, b);
       }
       for (int it = 0; it < n_tiles; ++it) {
         const int st = it % kStages, q0 = q_lo + it * BM;
@@ -625,17 +669,20 @@ __device__ __forceinline__ void dkv_tensor_cores(const DkvParams& p,
         }
       }
     }
-  } else {  // consumers: warpgroup wg owns keys k0 + 64 wg .. + 63
+  } else {  // consumers: warpgroup wg owns keys k0 + 64 wg .. + 63, or at
+            // D = 256 all 64 keys and columns 128 wg .. + 127
     regs_alloc<240>();
-    const int kw = k0 + 64 * wg;
+    const int kw = kSplit ? k0 : k0 + 64 * wg;
     const int key0 = kw + acc_row(0, t);              // and key0 + 8
     const float scale = p.scale;
     const float slope = SLOPE ? __ldg(p.slopes + h) : 0.f;
-    const uint32_t k_addr = smem_u32(k_s) + 64 * wg * 128;
-    const uint32_t v_addr = smem_u32(v_s) + 64 * wg * 128;
-    float dk[D / 2], dv[D / 2];
+    const uint32_t k_addr = smem_u32(k_s) + (kSplit ? 0 : 64 * wg * 128);
+    const uint32_t v_addr = smem_u32(v_s) + (kSplit ? 0 : 64 * wg * 128);
+    // byte offset of this warpgroup's columns in a Q or dO tile
+    const uint32_t c_off = kSplit ? 2 * wg * kQBox : 0;
+    float dk[N / 2], dv[N / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    for (int i = 0; i < N / 2; ++i) dk[i] = dv[i] = 0.f;
 
     mbar_wait(kv_bar, 0);
     for (int it = 0; it < n_tiles; ++it) {
@@ -649,34 +696,30 @@ __device__ __forceinline__ void dkv_tensor_cores(const DkvParams& p,
         const uint32_t do_addr = q_addr + kQTile;
         const float* lse_s = rows_s + st * 2 * BM;
         const float* dl_s = lse_s + BM;
-        // S^T = K Q^T and dP^T = V dO^T: keys are the rows
+        const bool edge =
+            q0 + BM > S || kw + 64 > S || (p.causal && q0 < kw + 63) ||
+            (WINDOW && window > 0 && q0 + BM - 1 - kw >= window);
+        // S^T = K Q^T and dP^T = V dO^T: keys are the rows (at D = 256
+        // both warpgroups compute both, for the same 64 keys)
         float s[32], dp[32];
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          const uint32_t kv_off = kslice(kk, kKvBox);
-          const uint32_t q_off = kslice(kk, kQBox);
-          wgmma_ss_n64<E>(s, desc_kmajor(k_addr + kv_off),
-                          desc_kmajor(q_addr + q_off), kk > 0);
-        }
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_n64<E>(s, desc_kmajor(k_addr + kslice(kk, kKvBox)),
+                          desc_kmajor(q_addr + kslice(kk, kQBox)), kk > 0);
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          const uint32_t kv_off = kslice(kk, kKvBox);
-          const uint32_t q_off = kslice(kk, kQBox);
-          wgmma_ss_n64<E>(dp, desc_kmajor(v_addr + kv_off),
-                          desc_kmajor(do_addr + q_off), kk > 0);
-        }
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_n64<E>(dp, desc_kmajor(v_addr + kslice(kk, kKvBox)),
+                          desc_kmajor(do_addr + kslice(kk, kQBox)), kk > 0);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(s);
         fence_regs(dp);
 
-        const bool edge =
-            q0 + BM > S || kw + 64 > S || (p.causal && q0 < kw + 63) ||
-            (WINDOW && window > 0 && q0 + BM - 1 - kw >= window);
         // P^T first: dV += P^T dO starts on the tensor cores (P^T as E
         // A operands from registers, dO read transposed: its rows are the
-        // depth) while dS^T is formed; then dK += dS^T Q the same way
+        // depth) while dS^T is formed; then dK += dS^T Q the same way --
+        // both over this warpgroup's N columns of dO and Q
 #pragma unroll
         for (int i = 0; i < 32; ++i) {
           const int c = acc_col(i, t), qrow = q0 + c;
@@ -699,7 +742,8 @@ __device__ __forceinline__ void dkv_tensor_cores(const DkvParams& p,
         for (int kk = 0; kk < BM / 16; ++kk) {
           const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
                                  pa[4 * kk + 3]};
-          wgmma_rs<E, D>(dv, a, desc_mnmajor(do_addr + kk * 2048, kQBox));
+          wgmma_rs<E, N>(dv, a, desc_mnmajor(do_addr + c_off + kk * 2048,
+                                             kQBox));
         }
 #pragma unroll
         for (int i = 0; i < 32; ++i) {
@@ -714,7 +758,8 @@ __device__ __forceinline__ void dkv_tensor_cores(const DkvParams& p,
         for (int kk = 0; kk < BM / 16; ++kk) {
           const uint32_t a[4] = {da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
                                  da[4 * kk + 3]};
-          wgmma_rs<E, D>(dk, a, desc_mnmajor(q_addr + kk * 2048, kQBox));
+          wgmma_rs<E, N>(dk, a, desc_mnmajor(q_addr + c_off + kk * 2048,
+                                             kQBox));
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -726,16 +771,18 @@ __device__ __forceinline__ void dkv_tensor_cores(const DkvParams& p,
       mbar_arrive(&empty[st]);
     }
 
-    // fp32, per query head: row `key` of head h in the [B, S, H, D] layout
+    // fp32, per query head: row `key` of head h in the [B, S, H, D]
+    // layout, this warpgroup's N columns from column c0
+    const int c0 = kSplit ? 128 * wg : 0;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int key = key0 + 8 * r;
       if (key >= S) continue;
-      const long long at = (((long long)b * S + key) * H + h) * D;
+      const long long at = (((long long)b * S + key) * H + h) * D + c0;
       float2* dk_row = reinterpret_cast<float2*>(p.dk + at);
       float2* dv_row = reinterpret_cast<float2*>(p.dv + at);
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < N / 8; ++j) {
         const int c2 = (8 * j + 2 * (t % 4)) / 2;
         dk_row[c2] = make_float2(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
         dv_row[c2] = make_float2(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
@@ -769,7 +816,8 @@ int launch_dq(const DqParams& p, int B, cudaStream_t stream) {
       flash_bwd_dq_kernel<T, SLOPE, WINDOW, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid = fp32 ? dim3((p.S + BQ - 1) / BQ, B * p.H)
+  constexpr int R = bwd_rows<D>();
+  const dim3 grid = fp32 ? dim3((p.S + R - 1) / R, B * p.H)
                          : dim3(B * p.H, (p.S + tcq::BM - 1) / tcq::BM);
   flash_bwd_dq_kernel<T, SLOPE, WINDOW, D>
       <<<grid, dq_threads<T>(), smem, stream>>>(p);
@@ -786,8 +834,9 @@ int launch_dkv(const DkvParams& p, int B, cudaStream_t stream) {
       flash_bwd_dkv_kernel<T, SLOPE, WINDOW, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid = fp32 ? dim3((p.S + BK - 1) / BK, B * p.H)
-                         : dim3(B * p.H, (p.S + tc::BN - 1) / tc::BN);
+  constexpr int R = fp32 ? bwd_rows<D>() : tc::Smem<D>::kKeys;
+  const dim3 grid = fp32 ? dim3((p.S + R - 1) / R, B * p.H)
+                         : dim3(B * p.H, (p.S + R - 1) / R);
   flash_bwd_dkv_kernel<T, SLOPE, WINDOW, D>
       <<<grid, dkv_threads<T>(), smem, stream>>>(p);
   return (int)cudaGetLastError();
@@ -830,7 +879,7 @@ int launch_dq_tensor_cores(DqParams& p, int B, cudaStream_t stream) {
 
 template <typename E, int D>
 int launch_dkv_tensor_cores(DkvParams& p, int B, cudaStream_t stream) {
-  const int rc = make_maps<E, tc::BM, tc::BN, D>(p, B);
+  const int rc = make_maps<E, tc::BM, tc::Smem<D>::kKeys, D>(p, B);
   return rc ? rc : launch_dkv_biased<E, D>(p, B, stream);
 }
 
@@ -839,7 +888,7 @@ int launch_dkv_tensor_cores(DkvParams& p, int B, cudaStream_t stream) {
 // q/dout/dq: [B, S, H, D]; k/v: [B, S, Hkv, D] (one dtype: 0 = float32,
 // 1 = bfloat16, 2 = float16); lse/delta: fp32 [B, H, S].  slopes: fp32 [H]
 // ALiBi slopes or null; window: the sliding window, <= 0 for none.  D is 64,
-// 80, 96 or 128.  Return cudaGetLastError().
+// 80, 96, 128 or 256.  Return cudaGetLastError().
 extern "C" int ds_flash_attention_bwd_dq(const void* q, const void* k,
                                          const void* v, const void* dout,
                                          const void* lse, const void* delta,

@@ -80,6 +80,20 @@
 // 42.9 GFLOP on 168.8 MB, at gpt_760m's (16 heads of 96) 25.8 GFLOP on
 // 101.2 MB: both bound by bytes (50.4 and 30.2 us).
 //
+// Head dim 256 (Gemma): the same body with B4's prefill tiles at that head
+// dim (ragged_paged_attention.cu).  A 128-row Q tile is four 64-column
+// boxes, 64 KB; two stages of 128-key K and V tiles would take 256 KB
+// more, and O alone is 128 fp32 registers a thread, which beside a
+// 128-key S (64) and P (32) passes the consumers' 240.  So the K/V tiles
+// are 64 keys (Q + 2 x (K, V) = 192 KB of the 227 KB a block has): S = Q
+// K^T is an m64n64 product over 16 k steps across Q's four boxes (32
+// registers), O += P V one m64n256 product a 16-key slice across V's four
+// boxes.  In fp16 P enters P V as two fp16 terms (the rounded value and
+// the rest), so O is one rounding of an fp32 value, as in B4's tiles.  At
+// Gemma-2B's training shape (B=2, S=2048, 8 heads of 256 over one kv
+// head, causal) the forward does 34.4 GFLOP on 38 MB: bound by the tensor
+// cores (34.7 us).
+//
 // fp16 keeps 3 more mantissa bits than bf16 (P, O and the products' inputs
 // round at 2^-11 instead of 2^-8) and the same fp32 accumulators, LSE and
 // softmax; P <= 1 and O is a convex mix of V's rows, so neither can leave
@@ -87,7 +101,8 @@
 //
 // fp32 stays on the CUDA-core kernel (flash_tile.cuh): the fp32 checks
 // hold it to 1e-4 of the plain version, ALiBi scores of ~1.4e3 included,
-// which tf32 products (10-bit mantissa) would not meet.  The dtype picks
+// which tf32 products (10-bit mantissa) would not meet.  At D = 256 its
+// tiles (Q, K or V and S, 146 KB) still fit.  The dtype picks
 // the instantiation in the C entry; a bf16 or fp16 launch never takes this
 // path.
 #include "flash_tile.cuh"
@@ -229,17 +244,22 @@ namespace tc {
 constexpr int BM = 128;                       // query rows of a block
 constexpr int BN = 128;                       // keys of a K/V tile
 constexpr int kThreads = 384;                 // 2 consumer + 1 producer WG
-constexpr int kBox = 128 * hopper::kBoxCols * 2;   // one 64-column box
+constexpr int kQBox = BM * hopper::kBoxCols * 2;   // one 64-column Q box
 // The shared-memory plan at head dim D: kQBufs Q tiles, then kStages x
-// (K, V), then the barriers -- at D = 80, 96 and 128 Q's, full[], empty[];
-// at D = 64 q_full[2], q_empty[2], full[], empty[].  A tile is whole
-// 64-column boxes: 32 KB at D = 80, 96 and 128, 16 at 64.
+// (K, V), then the barriers -- at D = 80, 96, 128 and 256 Q's, full[],
+// empty[]; at D = 64 q_full[2], q_empty[2], full[], empty[].  A tile is
+// whole 64-column boxes: a Q tile 16 KB at D = 64, 32 at 80, 96 and 128,
+// 64 at 256; a K or V tile of kKeys keys the same but at 256, where it
+// takes 64 keys (32 KB; the header says why).
 template <int D>
 struct Smem {
-  static constexpr int kTile = 128 * hopper::box_cols<D>() * 2;
+  static constexpr int kKeys = D == 256 ? 64 : BN;   // keys of a K/V tile
+  static constexpr int kQTile = BM * hopper::box_cols<D>() * 2;
+  static constexpr int kTile = kKeys * hopper::box_cols<D>() * 2;
+  static constexpr int kKVBox = kKeys * hopper::kBoxCols * 2;
   static constexpr int kStages = D == 64 ? 4 : 2;
   static constexpr int kQBufs = D == 64 ? 2 : 1;
-  static constexpr int kBarOffset = kQBufs * kTile + kStages * 2 * kTile;
+  static constexpr int kBarOffset = kQBufs * kQTile + kStages * 2 * kTile;
   static constexpr int kBars = D == 64 ? 4 + 2 * kStages : 1 + 2 * kStages;
   static constexpr size_t kBytes = 1024 + kBarOffset + 8 * kBars;
 };
@@ -252,12 +272,20 @@ __device__ __forceinline__ void fwd_tensor_cores(const FwdParams& p,
   using namespace hopper;
   using namespace tc;
   constexpr int kTile = Smem<D>::kTile, kStages = Smem<D>::kStages;
+  constexpr int kQTile = Smem<D>::kQTile, kKeys = Smem<D>::kKeys;
+  constexpr int kKVBox = Smem<D>::kKVBox;
   constexpr int kBarOffset = Smem<D>::kBarOffset;
+  // S: kKeys / 2 fp32 accumulators a thread (m64n128, or m64n64 at D =
+  // 256), P half as many registers.  fp16 at D = 256 enters P into O += P
+  // V as two fp16 terms, the rounded value and the rest (as B4's prefill
+  // tiles do at that head dim), so O is one rounding of an fp32 value.
+  constexpr int kS = kKeys / 2;
+  constexpr bool kTwoTerms = is_f16<E>() && D == 256;
   // tiles on 1024-byte boundaries (the swizzle atom)
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
   unsigned char* q_s = base;
-  unsigned char* kv_s = base + kTile;
+  unsigned char* kv_s = base + kQTile;
   uint64_t* q_bar = reinterpret_cast<uint64_t*>(base + kBarOffset);
   uint64_t* full = q_bar + 1;
   uint64_t* empty = full + kStages;
@@ -268,9 +296,9 @@ __device__ __forceinline__ void fwd_tensor_cores(const FwdParams& p,
   const int window = WINDOW ? p.window : 0;
   int k_lo = 0;                          // _k_range: the window's first tile
   if (WINDOW && window > 0 && q0 - (window - 1) > 0)
-    k_lo = (q0 - (window - 1)) / BN * BN;
+    k_lo = (q0 - (window - 1)) / kKeys * kKeys;
   const int k_hi = p.causal ? min(S, q0 + BM) : S;
-  const int n_tiles = (k_hi - k_lo + BN - 1) / BN;
+  const int n_tiles = (k_hi - k_lo + kKeys - 1) / kKeys;
 
   const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
   if (threadIdx.x == 0) {
@@ -286,16 +314,16 @@ __device__ __forceinline__ void fwd_tensor_cores(const FwdParams& p,
   if (wg == 2) {  // producer
     regs_dealloc<24>();
     if (t == 0) {
-      mbar_arrive_expect_tx(q_bar, kTile);
+      mbar_arrive_expect_tx(q_bar, kQTile);
       tma_load_rows<D>(q_s, &p.q_map, q_bar, BM, h, q0, b);
       for (int it = 0; it < n_tiles; ++it) {
         const int st = it % kStages;
         mbar_wait(&empty[st], ((it / kStages) & 1) ^ 1);
         unsigned char* k_t = kv_s + st * 2 * kTile;
-        const int k0 = k_lo + it * BN;
+        const int k0 = k_lo + it * kKeys;
         mbar_arrive_expect_tx(&full[st], 2 * kTile);
-        tma_load_rows<D>(k_t, &p.k_map, &full[st], BN, hk, k0, b);
-        tma_load_rows<D>(k_t + kTile, &p.v_map, &full[st], BN, hk, k0, b);
+        tma_load_rows<D>(k_t, &p.k_map, &full[st], kKeys, hk, k0, b);
+        tma_load_rows<D>(k_t + kTile, &p.v_map, &full[st], kKeys, hk, k0, b);
       }
     }
   } else {  // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63
@@ -312,32 +340,35 @@ __device__ __forceinline__ void fwd_tensor_cores(const FwdParams& p,
 
     mbar_wait(q_bar, 0);
     for (int it = 0; it < n_tiles; ++it) {
-      const int st = it % kStages, k0 = k_lo + it * BN;
+      const int st = it % kStages, k0 = k_lo + it * kKeys;
       const bool unseen =
           (p.causal && k0 > r_last) || r_first >= S ||
-          (WINDOW && window > 0 && r_first - (k0 + BN - 1) >= window);
+          (WINDOW && window > 0 && r_first - (k0 + kKeys - 1) >= window);
       mbar_wait(&full[st], (it / kStages) & 1);
       if (!unseen) {
         const uint32_t k_addr = smem_u32(kv_s) + st * 2 * kTile;
         const uint32_t v_addr = k_addr + kTile;
-        float s[64];
+        float s[kS];
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
-          const uint32_t off = kslice(kk, kBox);
-          wgmma_ss_n128<E>(s, desc_kmajor(q_addr + off),
-                           desc_kmajor(k_addr + off), kk > 0);
+          const uint64_t qd = desc_kmajor(q_addr + kslice(kk, kQBox));
+          const uint64_t kd = desc_kmajor(k_addr + kslice(kk, kKVBox));
+          if constexpr (kKeys == 128)
+            wgmma_ss_n128<E>(s, qd, kd, kk > 0);
+          else
+            wgmma_ss_n64<E>(s, qd, kd, kk > 0);
         }
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(s);
 
         const bool edge =
-            (p.causal && k0 + BN - 1 > r_first) || k0 + BN > S ||
+            (p.causal && k0 + kKeys - 1 > r_first) || k0 + kKeys > S ||
             (WINDOW && window > 0 && r_last - k0 >= window);
         float mx[2] = {kNeg, kNeg};
 #pragma unroll
-        for (int i = 0; i < 64; ++i) {
+        for (int i = 0; i < kS; ++i) {
           const int key = k0 + acc_col(i, t), row = row0 + 8 * ((i / 2) % 2);
           float x = __fmul_rn(s[i], scale);
           if (SLOPE) x = __fadd_rn(x, __fmul_rn(slope, (float)key));
@@ -363,7 +394,7 @@ __device__ __forceinline__ void fwd_tensor_cores(const FwdParams& p,
           l[r] *= corr[r];
         }
 #pragma unroll
-        for (int i = 0; i < 64; ++i) {
+        for (int i = 0; i < kS; ++i) {
           const int r = (i / 2) % 2;
           const float pr = ex2(fmaf(s[i], kLog2e, -ml[r]));
           l[r] += pr;
@@ -371,21 +402,38 @@ __device__ __forceinline__ void fwd_tensor_cores(const FwdParams& p,
         }
 #pragma unroll
         for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i / 2) % 2];
-        uint32_t pa[32];
+        uint32_t pa[kS / 2], pl[kTwoTerms ? kS / 2 : 1];
         acc_to_a<E>(s, pa);
+        if constexpr (kTwoTerms) {
+          // the rest of P, rounded: P V as P_hi V + P_lo V
+#pragma unroll
+          for (int i = 0; i < kS / 2; ++i) {
+            const __half2 hi = *reinterpret_cast<const __half2*>(&pa[i]);
+            pl[i] = pack2<E>(s[2 * i] - __low2float(hi),
+                             s[2 * i + 1] - __high2float(hi));
+          }
+        }
         fence_regs(o);
         fence_regs(pa);
+        if constexpr (kTwoTerms) fence_regs(pl);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < BN / 16; ++kk) {
+        for (int kk = 0; kk < kKeys / 16; ++kk) {
+          const uint64_t vd = desc_mnmajor(v_addr + kk * 2048, kKVBox);
           const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
                                  pa[4 * kk + 3]};
-          wgmma_rs<E, D>(o, a, desc_mnmajor(v_addr + kk * 2048, kBox));
+          wgmma_rs<E, D>(o, a, vd);
+          if constexpr (kTwoTerms) {
+            const uint32_t c[4] = {pl[4 * kk], pl[4 * kk + 1],
+                                   pl[4 * kk + 2], pl[4 * kk + 3]};
+            wgmma_rs<E, D>(o, c, vd);
+          }
         }
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(o);
         fence_regs(pa);
+        if constexpr (kTwoTerms) fence_regs(pl);
       }
       mbar_arrive(&empty[st]);
     }
@@ -696,9 +744,10 @@ template <typename E, int D>
 int launch_tensor_cores(FwdParams& p, int B, cudaStream_t stream) {
   using hopper::make_head_map;
   const int S = p.S, Hkv = p.Hkv;
+  constexpr int kKeys = tc::Smem<D>::kKeys;
   int rc = make_head_map<E>(&p.q_map, p.q, B, S, p.H, tc::BM, D);
-  if (!rc) rc = make_head_map<E>(&p.k_map, p.k, B, S, Hkv, tc::BN, D);
-  if (!rc) rc = make_head_map<E>(&p.v_map, p.v, B, S, Hkv, tc::BN, D);
+  if (!rc) rc = make_head_map<E>(&p.k_map, p.k, B, S, Hkv, kKeys, D);
+  if (!rc) rc = make_head_map<E>(&p.v_map, p.v, B, S, Hkv, kKeys, D);
   return rc ? rc : launch_biased<E, D>(p, B, stream);
 }
 
@@ -707,8 +756,8 @@ int launch_tensor_cores(FwdParams& p, int B, cudaStream_t stream) {
 // q: [B, S, H, D]; k/v: [B, S, Hkv, D]; o: [B, S, H, D] (q's dtype);
 // lse: fp32 [B, H, S].  slopes: fp32 [H] ALiBi slopes or null; window:
 // the sliding window, <= 0 for none.  dtype: 0 = float32, 1 = bfloat16,
-// 2 = float16; D is 64, 80, 96 or 128.  Returns a CUDA error code, 0 on
-// success.
+// 2 = float16; D is 64, 80, 96, 128 or 256.  Returns a CUDA error code, 0
+// on success.
 extern "C" int ds_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       const void* slopes, int B, int S,

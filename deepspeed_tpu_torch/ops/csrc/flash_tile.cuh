@@ -6,17 +6,20 @@
 // Layout.  q, o, dO: [B, S, H, D]; k, v: [B, S, Hkv, D], contiguous, so row
 // s of head h starts at ((b * S + s) * H + h) * D and rows are H * D apart.
 // Query head h reads kv head h / (H / Hkv) (GQA).  D (the head dim) is a
-// template argument, 64, 80, 96 or 128 (a thread's D / 16 output columns:
-// 4, 5, 6 or 8).  The biased kernels read one fp32 ALiBi slope per QUERY
-// head, slopes[h].
+// template argument, 64, 80, 96, 128 or 256 (a thread's D / 16 output
+// columns: 4, 5, 6, 8 or 16).  The biased kernels read one fp32 ALiBi
+// slope per QUERY head, slopes[h].
 //
-// Tiles.  64 query rows by 64 keys.  A [64][D] tile is stored with pitch
-// D + 1 (pitch<D>) and a [64][64] tile with pitch 65, so the column walks
-// of the products below hit 16 (or 32) different banks.  A block has 256
-// threads; thread (ty, tx) = (tid / 16, tid % 16) owns rows ty + 16 i and
-// columns tx + 16 j of every product tile: a warp reads two A rows (two
-// banks, broadcast to the 16 threads of each) and 16 consecutive B rows or
-// columns per step.
+// Tiles.  R query rows by R keys, R = 64 (the forward at every head dim,
+// the backward up to D = 128) or 32 (the backward at D = 256: four
+// [64][257] fp32 tiles, 263 KB, would not fit a block's 227 KB of shared
+// memory; four [32][257] take 132 KB).  An [R][D] tile is stored with
+// pitch D + 1 (pitch<D>) and an [R][R] tile with pitch R + 1, so the
+// column walks of the products below hit 16 (or 32) different banks.  A
+// block has 256 threads; thread (ty, tx) = (tid / 16, tid % 16) owns rows
+// ty + 16 i and columns tx + 16 j of every product tile: a warp reads two
+// A rows (two banks, broadcast to the 16 threads of each) and 16
+// consecutive B rows or columns per step.
 #pragma once
 
 #include <type_traits>
@@ -37,25 +40,31 @@ constexpr int PT = BK + 1;     // pitch of [BQ][BK] tiles
 // pitch of [64][D] tiles
 template <int D>
 __host__ __device__ constexpr int pitch() {
-  static_assert(D == 64 || D == 80 || D == 96 || D == 128,
-                "the flash kernels take D 64, 80, 96 or 128");
+  static_assert(D == 64 || D == 80 || D == 96 || D == 128 || D == 256,
+                "the flash kernels take D 64, 80, 96, 128 or 256");
   return D + 1;
 }
 static_assert(BQ == BK, "the dK/dV kernel starts its q loop at its k tile");
 
-// Rows [r0, r0 + 64) of one head of a [B, S, Hx, D] tensor -> dst
-// [64][pitch<D>()] as fp32 times ``mul``; rows at or past S are 0.
+// Rows (= keys) of the backward's fp32 tiles at head dim D (see Tiles).
+template <int D>
+__host__ __device__ constexpr int bwd_rows() {
+  return D == 256 ? 32 : BQ;
+}
+
+// Rows [r0, r0 + R) of one head of a [B, S, Hx, D] tensor -> dst
+// [R][pitch<D>()] as fp32 times ``mul``; rows at or past S are 0.
 // ``base`` is the element offset of (b, 0, hx, 0), ``stride`` = Hx * D.
 // Each thread issues all its 16-byte loads before storing any of them.
-template <typename T, int D>
+template <typename T, int D, int R = 64>
 __device__ __forceinline__ void load_tile(float* __restrict__ dst,
                                           const T* __restrict__ src,
                                           long long base, long long stride,
                                           int r0, int S, float mul) {
   constexpr int VEC = 16 / sizeof(T);        // elements per 16-byte vector
   constexpr int LANES = D / VEC;             // vectors per row
-  constexpr int PER = 64 * LANES / kThreads;  // vectors per thread
-  static_assert(64 * LANES % kThreads == 0, "tile shape");
+  constexpr int PER = R * LANES / kThreads;  // vectors per thread
+  static_assert(R * LANES % kThreads == 0, "tile shape");
   uint4 buf[PER];
 #pragma unroll
   for (int it = 0; it < PER; ++it) {
@@ -153,20 +162,23 @@ struct Bias {
                                   int w)
       : slope(SLOPE ? __ldg(slopes + h) : 0.f), window(WINDOW ? w : 0) {}
 
-  // First key of the first key tile that q rows [q0, q0 + BQ) can see: the
-  // tile of key q0 - (window - 1), floored to a tile, or 0 (_k_range's lo).
+  // First key of the first key tile (of R keys) that q rows [q0, q0 + R)
+  // can see: the tile of key q0 - (window - 1), floored to a tile, or 0
+  // (_k_range's lo).
+  template <int R = BK>
   __device__ __forceinline__ int key_lo(int q0) const {
     if (!WINDOW || window <= 0) return 0;
     const int first = q0 - (window - 1);
-    return first > 0 ? first / BK * BK : 0;
+    return first > 0 ? first / R * R : 0;
   }
 
-  // Query rows at or past this bound cannot see keys [k0, k0 + BK): the
-  // last row that sees key k0 + BK - 1 is k0 + BK - 2 + window (the dK/dV
+  // Query rows at or past this bound cannot see keys [k0, k0 + R): the
+  // last row that sees key k0 + R - 1 is k0 + R - 2 + window (the dK/dV
   // kernel's q-loop end, _bwd_dkv_impl's hi_w).
+  template <int R = BK>
   __device__ __forceinline__ int q_hi(int k0, int S) const {
     if (!WINDOW || window <= 0) return S;
-    const long long hi = (long long)k0 + BK - 1 + window;
+    const long long hi = (long long)k0 + R - 1 + window;
     return hi < S ? (int)hi : S;
   }
 };
@@ -223,20 +235,21 @@ inline int with_bias(const void* slopes, int window, Launch&& launch) {
 // Checks shared by the host entries; 0 when the launch may go ahead.
 inline int check_shape(int B, int S, int H, int Hkv, int D) {
   if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0 ||
-      (D != 64 && D != 80 && D != 96 && D != 128) ||
+      (D != 64 && D != 80 && D != 96 && D != 128 && D != 256) ||
       (long long)B * H > 65535)
     return (int)cudaErrorInvalidValue;
   return 0;
 }
 
 // Runs ``launch(d)`` with d a std::integral_constant of the head dim D
-// (64, 80, 96 or 128): the instantiation a host entry needs; check_shape
-// has refused every other D.
+// (64, 80, 96, 128 or 256): the instantiation a host entry needs;
+// check_shape has refused every other D.
 template <typename Launch>
 inline int with_head_dim(int D, Launch&& launch) {
   if (D == 64) return launch(std::integral_constant<int, 64>{});
   if (D == 80) return launch(std::integral_constant<int, 80>{});
   if (D == 96) return launch(std::integral_constant<int, 96>{});
+  if (D == 256) return launch(std::integral_constant<int, 256>{});
   return launch(std::integral_constant<int, 128>{});
 }
 

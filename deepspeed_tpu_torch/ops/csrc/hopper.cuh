@@ -2,9 +2,9 @@
 // inline PTX: mbarriers, TMA tile loads, wgmma with its shared-memory
 // descriptors, and the map from a wgmma accumulator element to its row and
 // column.  The bf16 and fp16 flash-attention kernels
-// (flash_attention_fwd.cu, flash_attention_bwd.cu), the bf16 block-sparse
-// kernel (sparse_attention.cu) and the bf16 and fp16 ragged paged prefill
-// kernel (ragged_paged_attention.cu) are built from them.
+// (flash_attention_fwd.cu, flash_attention_bwd.cu), block-sparse kernel
+// (sparse_attention.cu) and ragged paged prefill kernel
+// (ragged_paged_attention.cu) are built from them.
 //
 // Element types.  The wgmma wrappers, acc_to_a and the tensor maps take the
 // tile's element type E, __nv_bfloat16 or __half (no default: a call must
@@ -53,8 +53,6 @@ constexpr int kAtomBytes = 1024;         // 8 rows of 128 bytes
 // tile's shared-memory size is R * box_cols<D>() * 2 bytes.
 template <int D>
 __host__ __device__ constexpr int boxes() {
-  // 256: the serving kernel's prefill tiles only (the flash kernels' own
-  // tile shapes refuse it, flash_tile.cuh)
   static_assert(D == 64 || D == 80 || D == 96 || D == 128 || D == 256,
                 "the tensor-core tiles take head dims 64, 80, 96, 128 and "
                 "256");
@@ -487,8 +485,8 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
 // K, dV += P^T dO, dK += dS^T Q).  At N = 80 and 96, B's columns 64 and up
 // are the first 16 or 32 of the second box's atoms (the descriptor's
 // leading offset, ``box``, reaches them as at N = 128); its zero columns
-// past N are not read.  At N = 256 (the serving prefill tiles' O += P V)
-// the four boxes' atoms are ``box`` bytes apart in the same way.
+// past N are not read.  At N = 256 (O += P V and dQ += dS K at head dim
+// 256) the four boxes' atoms are ``box`` bytes apart in the same way.
 template <typename E, int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4],
@@ -626,9 +624,9 @@ inline int make_map(CUtensorMap* map, const void* ptr, int rank,
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Tensor map of a contiguous E [B, S, Hx, D] tensor (D 64, 80, 96 or 128:
-// rows of a multiple of 16 bytes) as 4-d (column, head, row, batch), boxes
-// of ``rows`` rows of one head by 64 columns.  Rows at or past S, and
+// Tensor map of a contiguous E [B, S, Hx, D] tensor (D 64, 80, 96, 128 or
+// 256: rows of a multiple of 16 bytes) as 4-d (column, head, row, batch),
+// boxes of ``rows`` rows of one head by 64 columns.  Rows at or past S, and
 // columns at or past D, read as zeros.
 template <typename E>
 inline int make_head_map(CUtensorMap* map, const void* ptr, int B, int S,

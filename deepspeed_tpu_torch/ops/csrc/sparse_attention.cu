@@ -16,9 +16,12 @@
 // both are below the ~295 flop/byte ridge in bf16, so the bytes bound
 // them, and the kernel's time should scale with the set blocks, not S^2.
 //
-// bf16: tensor cores fed by TMA.  The unit of work is a tile of 64 query
-// rows (wgmma's M): 64 / block q blocks at blocks 16 and 32, one q block
-// at 64, half of one at 128.  Its keys come 64 at a time (wgmma's N):
+// bf16 and fp16: tensor cores fed by TMA, one body templated on the
+// element type E (wgmma .bf16 or .f16, the tensor maps' data type, P's
+// and O's rounding; the TPU kernel too accumulates in fp32 and writes
+// the input dtype, fp16 included).  The unit of work is a tile of 64
+// query rows (wgmma's M): 64 / block q blocks at blocks 16 and 32, one q
+// block at 64, half of one at 128.  Its keys come 64 at a time (wgmma's N):
 // the host (ops/cuda/sparse_attention.py step_tables) takes the union of
 // the key blocks the tile's q blocks set and cuts it into steps of 64
 // keys -- four arbitrary set blocks at block 16, two at 32, one at 64,
@@ -39,7 +42,7 @@
 // warpgroup runs S = Q K^T (wgmma m64n64, both operands K-major from the
 // swizzled tiles), the online softmax on the accumulator registers (one
 // ex2.approx per score, as the flash forward), then O += P V with P
-// rounded to bf16 in registers as the A operand and V read transposed
+// rounded to E in registers as the A operand and V read transposed
 // (m64n64 or m64n128 by D).  wgmma rather than mma.sync: with the keys
 // gathered into 64-key steps, every layout block gives wgmma its full
 // 64 x 64 tile, and one instruction shape serves all four blocks.  A
@@ -214,7 +217,7 @@ sparse_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---- bf16: tensor cores -------------------------------------------------
+// ---- bf16 / fp16: tensor cores ------------------------------------------
 
 namespace tc {
 constexpr int BM = 64;          // query rows of a tile
@@ -235,7 +238,7 @@ struct Smem {
 
 struct TcParams {
   CUtensorMap q_map, k_map, v_map;
-  __nv_bfloat16* o;
+  void* o;                                          // E [B, S, H, D]
   const int* counts;   // [H, n_tiles] steps of each tile
   const int* starts;   // [H, n_tiles] its first step
   const int* steps;    // [n, kWidth]: pair mask | edge, key row of each slot
@@ -243,7 +246,7 @@ struct TcParams {
   float scale;
 };
 
-template <int BLOCK, int D>
+template <typename E, int BLOCK, int D>
 __global__ void __launch_bounds__(tc::kThreads)
 sparse_tc_kernel(const __grid_constant__ TcParams p) {
   using namespace hopper;
@@ -337,8 +340,8 @@ sparse_tc_kernel(const __grid_constant__ TcParams p) {
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t off = (kk / 4) * kHalf + (kk % 4) * 32;
-      wgmma_ss_n64<__nv_bfloat16>(s, desc_kmajor(q_addr + off),
-                                  desc_kmajor(k_addr + off), kk > 0);
+      wgmma_ss_n64<E>(s, desc_kmajor(q_addr + off), desc_kmajor(k_addr + off),
+                      kk > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -386,7 +389,7 @@ sparse_tc_kernel(const __grid_constant__ TcParams p) {
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i / 2) % 2];
     uint32_t pa[16];
-    acc_to_a<__nv_bfloat16>(s, pa);
+    acc_to_a<E>(s, pa);
     fence_regs(o);
     fence_regs(pa);
     wgmma_fence();
@@ -395,10 +398,7 @@ sparse_tc_kernel(const __grid_constant__ TcParams p) {
       const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
                              pa[4 * kk + 3]};
       const uint64_t desc = desc_mnmajor(v_addr + kk * 2048, kHalf);
-      if constexpr (D == 128)
-        wgmma_rs_n128<__nv_bfloat16>(o, a, desc);
-      else
-        wgmma_rs_n64<__nv_bfloat16>(o, a, desc);
+      wgmma_rs<E, D>(o, a, desc);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -414,41 +414,44 @@ sparse_tc_kernel(const __grid_constant__ TcParams p) {
     if (qpos[r] >= p.S) continue;
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
     uint32_t* orow = reinterpret_cast<uint32_t*>(
-        p.o + (((long long)b * p.S + qpos[r]) * p.H + h) * D);
+        static_cast<E*>(p.o) + (((long long)b * p.S + qpos[r]) * p.H + h) * D);
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       orow[(8 * j + 2 * (t % 4)) / 2] =
-          pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+          pack2<E>(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
   }
 }
 
-template <int BLOCK, int D>
+template <typename E, int BLOCK, int D>
 int launch_tc(const TcParams& p, int B, cudaStream_t stream) {
   constexpr size_t smem = tc::Smem<D>::kBytes;
   // once per instantiation, before any graph capture can be running
   static const cudaError_t attr = cudaFuncSetAttribute(
-      sparse_tc_kernel<BLOCK, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      sparse_tc_kernel<E, BLOCK, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
-  sparse_tc_kernel<BLOCK, D>
+  sparse_tc_kernel<E, BLOCK, D>
       <<<dim3(p.n_tiles, B * p.H), tc::kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-// q/k/v/o bf16 [B, S, H, D]: tensor maps (Q by 64-row tiles, K and V by
-// slots of min(block, 64) rows), then the launch by block and D.
-int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                const void* counts, const void* starts, const void* steps,
-                int B, int S, int H, int D, int block, int causal,
-                float scale, cudaStream_t stream) {
+// q/k/v/o E [B, S, H, D] (bf16 or fp16): tensor maps (Q by 64-row tiles,
+// K and V by slots of min(block, 64) rows), then the launch by block and
+// D.
+template <typename E>
+int launch_tensor_cores(const void* q, const void* k, const void* v,
+                        void* o, const void* counts, const void* starts,
+                        const void* steps, int B, int S, int H, int D,
+                        int block, int causal, float scale,
+                        cudaStream_t stream) {
   TcParams p = {};
   const int unit = block < tc::BN ? block : tc::BN;
-  const auto map = hopper::make_head_map<__nv_bfloat16>;
+  const auto map = hopper::make_head_map<E>;
   int rc = map(&p.q_map, q, B, S, H, tc::BM, D);
   if (!rc) rc = map(&p.k_map, k, B, S, H, unit, D);
   if (!rc) rc = map(&p.v_map, v, B, S, H, unit, D);
   if (rc) return rc;
-  p.o = static_cast<__nv_bfloat16*>(o);
+  p.o = o;
   p.counts = static_cast<const int*>(counts);
   p.starts = static_cast<const int*>(starts);
   p.steps = static_cast<const int*>(steps);
@@ -459,8 +462,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   p.scale = scale;
 #define DS_TC(BLK)                                                    \
   case BLK:                                                           \
-    return D == 64 ? launch_tc<BLK, 64>(p, B, stream)                 \
-                   : launch_tc<BLK, 128>(p, B, stream);
+    return D == 64 ? launch_tc<E, BLK, 64>(p, B, stream)              \
+                   : launch_tc<E, BLK, 128>(p, B, stream);
   switch (block) {
     DS_TC(16)
     DS_TC(32)
@@ -530,12 +533,12 @@ int launch_dim(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// q/k/v/o: [B, S, H, D], one dtype (0 = float32, 1 = bfloat16), D 64 or
-// 128; block 16, 32, 64 or 128 and S a multiple of it.  float32 reads
-// layout_tables: counts int32 [H, S / block], table int32 [H, S / block,
-// max_active]; bfloat16 reads step_tables: step_counts and step_starts
-// int32 [H, ceil(S / 64)], steps int32 [n, 8].  Returns
-// cudaGetLastError().
+// q/k/v/o: [B, S, H, D], one dtype (0 = float32, 1 = bfloat16, 2 =
+// float16), D 64 or 128; block 16, 32, 64 or 128 and S a multiple of it.
+// float32 reads layout_tables: counts int32 [H, S / block], table int32
+// [H, S / block, max_active]; bfloat16 and float16 read step_tables:
+// step_counts and step_starts int32 [H, ceil(S / 64)], steps int32 [n,
+// 8].  Returns cudaGetLastError().
 extern "C" int ds_sparse_attention(const void* q, const void* k,
                                    const void* v, void* o, const void* counts,
                                    const void* table, const void* step_counts,
@@ -551,7 +554,12 @@ extern "C" int ds_sparse_attention(const void* q, const void* k,
     return launch_dim<float>(q, k, v, o, counts, table, B, S, H, D, block,
                              max_active, causal, scale, s);
   if (dtype == 1)
-    return launch_bf16(q, k, v, o, step_counts, step_starts, steps, B, S, H,
-                       D, block, causal, scale, s);
+    return launch_tensor_cores<__nv_bfloat16>(q, k, v, o, step_counts,
+                                              step_starts, steps, B, S, H, D,
+                                              block, causal, scale, s);
+  if (dtype == 2)
+    return launch_tensor_cores<__half>(q, k, v, o, step_counts, step_starts,
+                                       steps, B, S, H, D, block, causal,
+                                       scale, s);
   return (int)cudaErrorInvalidValue;
 }

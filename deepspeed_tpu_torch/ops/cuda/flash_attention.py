@@ -12,15 +12,16 @@ port of the host side ``_flash_bwd_pallas``: it computes ``delta =
 sum(dO * O)`` in fp32, launches both backward kernels and sums the
 per-query-head fp32 dK/dV over the GQA group.  The plain versions are in
 ``ops/flash_attention.py``, with the ``torch.autograd.Function`` that picks
-between them.  The kernels are built for head dims 64, 80, 96 and 128
+between them.  The kernels are built for head dims 64, 80, 96, 128 and 256
 (:data:`FLASH_HEAD_DIMS`, each a template instantiation of the same
 bodies; the bf16 / fp16 forward's consumer at 64 is a body of its own,
 which runs each tile's softmax under the products of its neighbours; 80
 and 96 -- gpt_2_7b's and gpt_760m's -- take the tiles of 128, whose
 columns past the head dim TMA fills with zeros, and read q, k, v and dO
-as they are: no padded copy); any other head dim raises
-``NotImplementedError`` naming ROADMAP A16, as :func:`check_head_dim`
-does at the entry points' construction.
+as they are: no padded copy; 256 -- Gemma's -- takes 64-key K/V tiles,
+and its dK/dV blocks split the head dim between their two warpgroups);
+any other head dim raises ``NotImplementedError`` naming ROADMAP A16, as
+:func:`check_head_dim` does at the entry points' construction.
 """
 
 import torch
@@ -31,7 +32,7 @@ from deepspeed_tpu_torch.ops import op_builder
 # tensor cores
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # the head dims the flash kernels are built for
-FLASH_HEAD_DIMS = (64, 80, 96, 128)
+FLASH_HEAD_DIMS = (64, 80, 96, 128, 256)
 
 
 def check_head_dim(name, head_dim, head_dims=FLASH_HEAD_DIMS):

@@ -5,8 +5,9 @@ Replaces ``deepspeed_tpu/ops/pallas/sparse_attention.py``: the kernel
 ``sparse_attention_pallas``; :func:`layout_tables` and :func:`sparse_flops`
 are the port's own copies of the functions of the same names there.  The
 kernel has two forms, chosen by dtype: fp32 walks :func:`layout_tables`
-on the CUDA cores; bf16 runs on the tensor cores over 64-row query tiles
-and 64-key steps gathered from the layout, :func:`step_tables`.  The
+on the CUDA cores; bf16 and fp16 run on the tensor cores over 64-row
+query tiles and 64-key steps gathered from the layout,
+:func:`step_tables`.  The
 layout is static config: :func:`card_tables` and :func:`card_steps` put
 the tables on the card, and ``SparseSelfAttention`` keeps them with its
 per-length layout cache.  Forward only, as on the TPU: a
@@ -19,11 +20,14 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.ops import op_builder
-from deepspeed_tpu_torch.ops.cuda.decode_attention import _DTYPE_CODES
 from deepspeed_tpu_torch.ops.cuda.flash_attention import check_head_dim
 
 SPARSE_BLOCKS = (16, 32, 64, 128)   # layout blocks the kernel is built for
 SPARSE_HEAD_DIMS = (64, 128)
+# the C entry's dtype codes: fp32 on the CUDA cores, bf16 and fp16 on the
+# tensor cores -- this kernel's own, so that a dtype another kernel takes
+# reaches this one only when it is built for it
+SPARSE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def layout_tables(layout: np.ndarray, causal: bool):
@@ -50,7 +54,8 @@ EDGE_BIT = 1 << 16  # the step needs the element mask (see step_tables)
 
 
 def step_tables(layout: np.ndarray, block: int, causal: bool):
-    """The bf16 kernel's schedule of layout [H, nb, nb] at block ``block``.
+    """The tensor-core (bf16 / fp16) kernel's schedule of layout [H, nb,
+    nb] at block ``block``.
 
     Query tile t is rows [64 t, 64 t + 64): 64 / block q blocks at blocks
     16 and 32, one q block at 64, half of one at 128.  Its keys are the
@@ -156,10 +161,11 @@ def _stream(t):
 def sparse_attention_cuda(q, k, v, layout, block, causal=False,
                           softmax_scale=None, tables=None, steps=None):
     """Launch the block-sparse kernel.  q/k/v: [B, S, H, D] CUDA tensors of
-    one dtype (fp32 or bf16), D in :data:`SPARSE_HEAD_DIMS`, S a multiple
-    of ``block`` (in :data:`SPARSE_BLOCKS`); ``layout``: [H, >= S/block,
-    >= S/block] (numpy, static).  The fp32 form reads ``tables``
-    (:func:`card_tables`), the bf16 form ``steps`` (:func:`card_steps`),
+    one dtype (:data:`SPARSE_DTYPES`: fp32, bf16 or fp16), D in
+    :data:`SPARSE_HEAD_DIMS`, S a multiple of ``block`` (in
+    :data:`SPARSE_BLOCKS`); ``layout``: [H, >= S/block, >= S/block] (numpy,
+    static).  The fp32 form reads ``tables`` (:func:`card_tables`), the
+    bf16 and fp16 form ``steps`` (:func:`card_steps`),
     of the layout's first S/block rows and columns on q's device; each is
     made here when None, which a CUDA-graph capture cannot do.  Returns O
     [B, S, H, D] in q's dtype."""
@@ -172,12 +178,13 @@ def sparse_attention_cuda(q, k, v, layout, block, causal=False,
             "the block-sparse attention kernel is forward only, as the TPU "
             "kernel is: its backward is not ported (ROADMAP A15); call it "
             "under torch.no_grad() or with inputs that need no gradient")
+    if q.dtype not in SPARSE_DTYPES or any(t.dtype != q.dtype for t in ts):
+        raise ValueError(f"{name} takes float32, bfloat16 or float16 "
+                         f"tensors of one dtype, got "
+                         f"{[t.dtype for t in ts]}")
     if not all(t.is_cuda for t in ts):
         raise ValueError(f"{name} needs CUDA tensors; use the plain version "
                          f"for CPU tensors")
-    if q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype for t in ts):
-        raise ValueError(f"{name} takes float32 or bfloat16 tensors of one "
-                         f"dtype, got {[t.dtype for t in ts]}")
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"{name}: q, k, v must share one [B, S, H, D] "
                          f"shape, got {[tuple(t.shape) for t in ts]}")
@@ -211,7 +218,7 @@ def sparse_attention_cuda(q, k, v, layout, block, causal=False,
     fn = op_builder.load("sparse_attention")
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *ptrs,
             B, S, H, D, block, max_active, int(bool(causal)),
-            _DTYPE_CODES[q.dtype], float(scale), _stream(q))
+            SPARSE_DTYPES[q.dtype], float(scale), _stream(q))
     if rc != 0:
         raise RuntimeError(f"block-sparse attention kernel launch failed: "
                            f"CUDA error {rc}")

@@ -92,7 +92,8 @@ def sparse_attention(q, k, v, layout: np.ndarray, block: int,
     package's rule); ``backend="cuda"`` raises for them, and for a length
     that does not tile by ``block``, which no path takes.  ``tables`` /
     ``steps``: the layout's ``card_tables`` (fp32 kernel) / ``card_steps``
-    (bf16 kernel) already on the card (made per call when None)."""
+    (bf16 and fp16 kernel) already on the card (made per call when
+    None)."""
     backend = validate_backend(backend)
     S = q.shape[1]
     kernel_ok = key_padding_mask is None and S % block == 0
@@ -116,8 +117,8 @@ class SparseSelfAttention:
     """Parity surface of the reference's ``sparse_self_attention.py``:
     layouts from ``sparsity_config``, cached per sequence length, and the
     kernel's tables beside them (``card_tables`` for fp32 inputs,
-    ``card_steps`` for bf16), uploaded once per (length, causal, device,
-    form).  ``backend`` as in :func:`sparse_attention`."""
+    ``card_steps`` for bf16 and fp16), uploaded once per (length, causal,
+    device, form).  ``backend`` as in :func:`sparse_attention`."""
 
     def __init__(self, sparsity_config: Optional[SparsityConfig] = None,
                  key_padding_mask_mode: str = "add",

@@ -21,7 +21,9 @@ shapes (B=2, 16 heads of 128, causal: S=1024; S=2048 with ALiBi, window
 256, and unscaled; with ``--head-dim 64``: gpt_350m's B=8 S=1024, 16
 heads, and B=2 S=2048 with ALiBi and with window 256, 16 heads of 64;
 ``--head-dim 96``: gpt_760m's B=8 S=1024, 16 heads; ``--head-dim 80``:
-gpt_2_7b's B=8 S=1024, 32 heads); the first variant is timed again at the
+gpt_2_7b's B=8 S=1024, 32 heads; ``--head-dim 256``: Gemma-2B's B=2
+S=2048, 8 heads over one kv head, and B=2 S=2048 with ALiBi, 8 heads);
+the first variant is timed again at the
 end, so drift shows.  Several head dims run one after the other on one
 build.  Last, the HGMMA and WARPGROUP.DEPBAR counts of each variant's bf16
 kernels at those head dims (a DEPBAR after every HGMMA means ptxas
@@ -59,8 +61,9 @@ CASES = [  # (label, B, S, H, Hkv, causal, ALiBi, window, scale)
     ("ALiBi+window 200 GQA S=640", 2, 640, 32, 8, True, True, 200, None),
     ("ALiBi S=2048", 1, 2048, 4, 4, True, True, None, None),
     ("window 256 scale 1 S=2048", 1, 2048, 4, 4, True, False, 256, 1.0)]
-SHAPES = {  # head dim -> [(label, B, S, ALiBi, window, scale[, heads])],
-    # 16 heads unless a shape names its own
+SHAPES = {  # head dim -> [(label, B, S, ALiBi, window, scale[, heads[,
+    # kv heads]])], 16 heads unless a shape names its own, as many kv heads
+    # as heads unless it names them
     128: [("S=1024", 2, 1024, False, None, None),
           ("ALiBi S=2048", 2, 2048, True, None, None),
           ("window 256 S=2048", 2, 2048, False, 256, 1.0),
@@ -72,7 +75,9 @@ SHAPES = {  # head dim -> [(label, B, S, ALiBi, window, scale[, heads])],
          # block's start and end
          ("long B=1 S=8192", 1, 8192, False, None, None)],
     96: [("gpt_760m B=8 S=1024", 8, 1024, False, None, None)],
-    80: [("gpt_2_7b B=8 S=1024 H32", 8, 1024, False, None, None, 32)]}
+    80: [("gpt_2_7b B=8 S=1024 H32", 8, 1024, False, None, None, 32)],
+    256: [("gemma_2b B=2 S=2048 H8/1", 2, 2048, False, None, None, 8, 1),
+          ("ALiBi S=2048 H8", 2, 2048, True, None, None, 8)]}
 
 
 def build(variants, out, sources=SOURCES):
@@ -208,8 +213,10 @@ def run_head_dim(D, variants, libs, gen, out):
     c, shapes = 4, []
     for label, B, S, alibi, window, scale, *heads in SHAPES[D]:
         H = heads[0] if heads else 16
-        x = [torch.randn((c, B, S, H, D), generator=gen,
-                         device="cuda").to(torch.bfloat16) for _ in range(4)]
+        Hkv = heads[1] if len(heads) > 1 else H
+        x = [torch.randn((c, B, S, h, D), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+             for h in (H, Hkv, Hkv, H)]
         kw = dict(alibi_slopes=alibi_slopes(H).cuda() if alibi else None,
                   window=window)
         shapes.append((label, x, scale or 1 / math.sqrt(D), kw))

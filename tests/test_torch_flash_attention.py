@@ -9,8 +9,10 @@ does not tile against ``reference_attention``.  The biased variants (ALiBi
 slopes, sliding windows 32 / 100 / 0, both together, with GQA) the same
 way, at S = 128 and 256, plus ``alibi_window_bias`` against the JAX one.
 The plain forward and backward, biased or not, run at head dims 32, 64,
-80 and 96 (the flash kernels' D=64, D=80 and D=96 forms compute what
-these do; 80 and 96 are gpt_2_7b's and gpt_760m's).  fp32 inputs
+80, 96 and 256 (the flash kernels' D=64, D=80, D=96 and D=256 forms
+compute what these do; 80 and 96 are gpt_2_7b's and gpt_760m's, 256
+Gemma's), and at 256 with Gemma-2B's 8 query heads over one kv head, whose
+dK and dV sum a group of 8.  fp32 inputs
 from numpy; rtol = atol = 1e-5 (forward) and 1e-4
 (gradients): the same arithmetic, summed in other orders.  The CUDA
 kernels themselves are held against these plain versions on the card by
@@ -44,7 +46,7 @@ FWD_TOL = dict(rtol=1e-5, atol=1e-5)
 BWD_TOL = dict(rtol=1e-4, atol=1e-4)
 B, S, D, BLOCK = 2, 128, 32, 64
 HEADS = {"mha": (4, 4), "gqa": (4, 2)}
-HEAD_DIMS = (32, 64, 80, 96)
+HEAD_DIMS = (32, 64, 80, 96, 256)
 
 
 def _inputs(H, Hkv, S=S, seed=0, D=D):
@@ -87,6 +89,30 @@ def test_plain_forward_and_backward_match_pallas(heads, causal, head_dim):
         np.testing.assert_allclose(a.numpy(), np.asarray(c),
                                    err_msg=f"d{name} vs _flash_bwd",
                                    **BWD_TOL)
+
+
+def test_plain_mqa_group_of_8_at_head_dim_256_matches_pallas():
+    """Gemma-2B's heads: 8 query heads of 256 over one kv head (MQA).  The
+    plain backward's dK and dV, summed over the group of 8, against
+    ``_flash_bwd_pallas`` in interpret mode, which sums the same group."""
+    H, Hkv, D = 8, 1, 256
+    q, k, v, g = _inputs(H, Hkv, D=D, seed=6)
+    scale = 1.0 / math.sqrt(D)
+    jo, jlse = _flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          scale, True, BLOCK, BLOCK, interpret=True)
+    to, tlse = flash_attention_fwd_plain(*_t(q, k, v), scale, True)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), **FWD_TOL)
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), **FWD_TOL)
+    res = tuple(jnp.asarray(x) for x in (q, k, v, np.asarray(jo),
+                                         np.asarray(jlse)))
+    pallas = _flash_bwd_pallas(scale, True, res, jnp.asarray(g), BLOCK,
+                               BLOCK, interpret=True)
+    got = flash_attention_bwd_plain(*_t(q, k, v, np.asarray(jo),
+                                        np.asarray(jlse), g), scale, True)
+    assert got[1].shape == (B, S, Hkv, D) == np.asarray(pallas[1]).shape
+    for name, a, b in zip("qkv", got, pallas):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b),
+                                   err_msg=f"d{name} vs pallas", **BWD_TOL)
 
 
 @pytest.mark.parametrize("heads", list(HEADS))
@@ -264,15 +290,15 @@ def test_backend_names():
     "flash_attention_bwd_dq_cuda", "flash_attention_bwd_dq_biased_cuda",
     "flash_attention_bwd_dkv_cuda", "flash_attention_bwd_dkv_biased_cuda"])
 def test_flash_wrappers_refuse_head_dim_64(wrapper):
-    """The flash kernels are built for head dims 64, 80, 96 and 128 (64,
-    then 80 and 96, were the ones this test saw refused before their forms
-    were ported); every other head dim -- a Gemma-style 256, an odd 48 --
-    is refused before anything else, naming ROADMAP A16, and launches
-    nothing."""
-    assert flash_cuda.FLASH_HEAD_DIMS == (64, 80, 96, 128)
+    """The flash kernels are built for head dims 64, 80, 96, 128 and 256
+    (64, then 80 and 96, then Gemma's 256, were the ones this test saw
+    refused before their forms were ported); every other head dim -- an
+    odd 48 -- is refused before anything else, naming ROADMAP A16, and
+    launches nothing."""
+    assert flash_cuda.FLASH_HEAD_DIMS == (64, 80, 96, 128, 256)
     fn = getattr(flash_cuda, wrapper)
     before = fn.launches
-    for head_dim in (256, 48):
+    for head_dim in (48,):
         q = torch.zeros(1, 64, 4, head_dim)
         k = torch.zeros(1, 64, 2, head_dim)
         lse = torch.zeros(1, 4, 64)
@@ -284,14 +310,14 @@ def test_flash_wrappers_refuse_head_dim_64(wrapper):
     assert fn.launches == before
 
 
-@pytest.mark.parametrize("head_dim", [64, 80, 96])
+@pytest.mark.parametrize("head_dim", [64, 80, 96, 256])
 @pytest.mark.parametrize("wrapper", [
     "flash_attention_fwd_cuda", "flash_attention_bwd_dq_cuda",
     "flash_attention_bwd_dkv_cuda"])
 def test_flash_wrappers_take_head_dim_64_to_the_device_check(wrapper,
                                                              head_dim):
-    """Head dims 64, 80 and 96 pass the head-dim check: a CPU tensor is
-    then refused only for its device (the kernels run on the card)."""
+    """Head dims 64, 80, 96 and 256 pass the head-dim check: a CPU tensor
+    is then refused only for its device (the kernels run on the card)."""
     q = torch.zeros(1, 64, 4, head_dim)
     k = torch.zeros(1, 64, 2, head_dim)
     lse = torch.zeros(1, 4, 64)

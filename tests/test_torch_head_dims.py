@@ -1,10 +1,10 @@
 """Head dims no kernel takes are refused at construction on the card.
 
-The flash kernels (B1, B2) take head dims 64, 80, 96 and 128, the serving
-kernels (B4, B5) those and 256; the block-sparse kernel (B6) takes 64 and
-128.  So gpt_760m (96), gpt_2_7b (80) and a Phi-3-mini-shaped model (96)
-train and are served on the card, a Gemma-style 256 is served there but
-does not train there, and a 48 does neither.  A model of a head dim its
+The flash kernels (B1, B2) and the serving kernels (B4, B5) take head
+dims 64, 80, 96, 128 and 256; the block-sparse kernel (B6) takes 64 and
+128.  So gpt_760m (96), gpt_2_7b (80), a Phi-3-mini-shaped model (96) and
+the Gemma shapes (256) train and are served on the card, and a 48 does
+neither.  A model of a head dim its
 path's kernels do not take raises
 ``NotImplementedError`` naming ROADMAP A16 where it is built for the
 card: ``initialize`` (which ``ds_bench
@@ -53,13 +53,13 @@ def _ids(shape, seed=0):
 
 @pytest.mark.parametrize("head_dim", [64, 128, 80, 96, 256, 48])
 def test_card_checks_by_head_dim(head_dim):
-    """64, 80, 96 and 128 pass both checks on the card (80 and 96 pass
-    serving's since B4 and B5 take them); 256 passes serving's (B4 and B5
-    take it) and raises naming A16 at training's; 48 raises at both.
-    Every head dim passes both on the CPU."""
+    """64, 80, 96, 128 and 256 pass both checks on the card (80 and 96
+    pass serving's since B4 and B5 take them, 256 training's since B1 and
+    B2 do); 48 raises naming A16 at both.  Every head dim passes both on
+    the CPU."""
     cfg = TransformerConfig.tiny(hidden_size=2 * head_dim, n_heads=2)
     assert cfg.head_dim == head_dim
-    for check, taken in ((check_trainable, (64, 80, 96, 128)),
+    for check, taken in ((check_trainable, (64, 80, 96, 128, 256)),
                          (check_servable, (64, 80, 96, 128, 256))):
         check(cfg, "cpu")
         if head_dim in taken:
@@ -71,13 +71,13 @@ def test_card_checks_by_head_dim(head_dim):
 
 
 def test_initialize_refuses_head_dim_96_on_the_card():
-    """Head dim 256 (a Gemma-style model) is refused on the card: 96, which
-    this test refused before its flash forms were ported, now trains there
-    (``test_card_checks_by_head_dim``)."""
-    model = _model(hidden_size=512)
-    assert model.config.head_dim == 256
-    with pytest.raises(NotImplementedError,
-                       match="head_dim 256 not in .*ROADMAP A16"):
+    """Head dim 48 is refused on the card: 96 and then 256, which this test
+    refused before their flash forms were ported, now train there
+    (``test_card_checks_by_head_dim``,
+    ``test_gemma_2b_shape_passes_the_card_checks``)."""
+    model = _model(hidden_size=96)
+    assert model.config.head_dim == 48
+    with pytest.raises(NotImplementedError, match=A16_48):
         deepspeed_tpu_torch.initialize(model=model, config=TRAIN_CONFIG,
                                        device="cuda")
     # the same model trains on the CPU through the plain versions
@@ -87,6 +87,25 @@ def test_initialize_refuses_head_dim_96_on_the_card():
     losses = [float(engine.train_batch(batch={"input_ids": _ids((2, 16))}))
               for _ in range(2)]
     assert np.isfinite(losses).all()
+
+
+def test_gemma_2b_shape_passes_the_card_checks():
+    """google/gemma-2b's shape as ``GemmaPolicy.build`` maps it: 8 query
+    heads of 256 over one kv head (MQA), GeGLU, embeddings times sqrt(d),
+    tied -- the port builds and trains it on the card: both checks pass
+    there (no weights are made here)."""
+    from deepspeed_tpu_torch.models.transformer import check_supported
+    cfg = TransformerConfig(
+        vocab_size=256000, hidden_size=2048, n_layers=18, n_heads=8,
+        n_kv_heads=1, ffn_hidden_size=16384, max_seq_len=8192,
+        rope_theta=10000.0, norm_eps=1e-6, activation="gelu",
+        gated_mlp=True, embed_scale=2048 ** 0.5, use_rmsnorm=True,
+        use_rope=True, tie_embeddings=True, remat=True)
+    assert (cfg.head_dim, cfg.n_heads, cfg.kv_heads) == (256, 8, 1)
+    assert cfg.num_params() == 2_506_172_416
+    check_supported(cfg)
+    check_trainable(cfg, "cuda")
+    check_servable(cfg, "cuda")
 
 
 def test_init_inference_refuses_head_dim_96_on_the_card():

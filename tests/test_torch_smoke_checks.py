@@ -21,7 +21,9 @@ here on the CPU where they need no card.
 * Phase 7's ``ds_bench train`` runs: each CLI model's head dim and shape,
   how a run is named, and the launches ``train_launches`` expects of a
   run, held against a counted CPU run through the plain versions at head
-  dims 80 and 96; ``d_suffix`` names each head dim's kernel rows.
+  dims 80 and 96, and of the Gemma-2B training path's train_batch calls
+  (head dim 256, 8 heads over one kv head); ``d_suffix`` names each head
+  dim's kernel rows.
 * Phase ckpt's helpers: the launch count of the resumed run (phase 7's
   formula for its train_batch calls, held here against a counted CPU run
   through the plain versions), the disk-space reckoning (it fails up front
@@ -223,14 +225,18 @@ def test_check_flash_keeps_fp32_dq_on_the_plain_tolerance():
 
 _SASS_NEW = """
         code for sm_90a
-                Function : _ZN60_GLOBAL__N__0_19_sparse_attention_cu_016sparse_tc_kernelILi16ELi64EEEvNS_8TcParamsE
+                Function : _ZN60_GLOBAL__N__0_19_sparse_attention_cu_016sparse_tc_kernelI13__nv_bfloat16Li16ELi64EEEvNS_8TcParamsE
         /*0100*/                   UTMALDG.4D [UR8], [UR4] ;
         /*0200*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR8], RZ, !UPT ;
         /*0210*/                   HGMMA.64x64x16.F32.BF16 R24, R88, gdesc[UR12], R24, gsb0 ;
-                Function : _ZN60_GLOBAL__N__0_19_sparse_attention_cu_016sparse_tc_kernelILi128ELi128EEEvNS_8TcParamsE
+                Function : _ZN60_GLOBAL__N__0_19_sparse_attention_cu_016sparse_tc_kernelI13__nv_bfloat16Li128ELi128EEEvNS_8TcParamsE
         /*0100*/                   UTMALDG.4D [UR8], [UR4] ;
         /*0110*/                   UTMALDG.4D [UR12], [UR4] ;
         /*0200*/                   HGMMA.64x128x16.F32.BF16 R24, R88, gdesc[UR12], R24, gsb0 ;
+                Function : _ZN60_GLOBAL__N__0_19_sparse_attention_cu_016sparse_tc_kernelI6__halfLi32ELi128EEEvNS_8TcParamsE
+        /*0100*/                   UTMALDG.4D [UR8], [UR4] ;
+        /*0200*/                   HGMMA.64x64x16.F32.F16 R24, gdesc[UR8], RZ, !UPT ;
+        /*0210*/                   HGMMA.64x128x16.F32.F16 R24, R88, gdesc[UR12], R24, gsb0 ;
                 Function : _ZN60_GLOBAL__N__0_19_sparse_attention_cu_023sparse_attention_kernelIfLi16ELi64EEEvPKT_S3_S3_PS1_PKiS6_iiiff
         /*0100*/                   FFMA R1, R2, R3, R4 ;
                 Function : _ZN66_GLOBAL__N__0_25_ragged_paged_attention_cu_024ragged_prefill_tc_kernelI13__nv_bfloat16Li128EEEvNS_13PrefillParamsE
@@ -252,23 +258,24 @@ _SASS_NEW = """
 
 
 def test_sass_counts_reads_the_sparse_and_prefill_instantiations():
-    """B6's tensor-core kernel by (block, head dim), B4's prefill kernel
-    by element type (bf16, fp16) and head dim (64, 80, 96, 128); their
-    CUDA-core kernels are not counted."""
+    """B6's tensor-core kernel by element type (bf16, fp16), block and head
+    dim; B4's prefill kernel by element type (bf16, fp16) and head dim
+    (64, 80, 96, 128); their CUDA-core kernels are not counted."""
     kernels = dict((k, s) for s, k in chip_smoke.TENSOR_CORE_KERNELS)
     assert kernels["sparse_tc_kernel"] == "sparse_attention"
     assert kernels["ragged_prefill_tc_kernel"] == "ragged_paged_attention"
     assert chip_smoke.sass_counts(_SASS_NEW, "sparse_tc_kernel") == {
-        (16, 64): (2, 1, 0), (128, 128): (1, 2, 0)}
+        ("bf16", 16, 64): (2, 1, 0), ("bf16", 128, 128): (1, 2, 0),
+        ("fp16", 32, 128): (2, 1, 0)}
     assert chip_smoke.sass_counts(_SASS_NEW, "ragged_prefill_tc_kernel") == {
         ("bf16", 128): (1, 2, 0), ("fp16", 128): (2, 1, 0),
         ("bf16", 64): (2, 1, 1)}
     # every template's expected instantiations: 4 flash forms x (bf16,
-    # fp16) x head dims (64, 80, 96, 128), 4 x 2 sparse, (bf16, fp16) x
-    # (64, 80, 96, 128, 256)
+    # fp16) x head dims (64, 80, 96, 128, 256), (bf16, fp16) x 4 blocks x
+    # 2 head dims sparse, (bf16, fp16) x (64, 80, 96, 128, 256)
     assert {k: v[2] for k, v in chip_smoke.SASS_TEMPLATES.items()} == {
-        "flash_fwd_kernel": 32, "flash_bwd_dq_kernel": 32,
-        "flash_bwd_dkv_kernel": 32, "sparse_tc_kernel": 8,
+        "flash_fwd_kernel": 40, "flash_bwd_dq_kernel": 40,
+        "flash_bwd_dkv_kernel": 40, "sparse_tc_kernel": 16,
         "ragged_prefill_tc_kernel": 10}
 
 
@@ -296,8 +303,31 @@ def test_sass_counts_reads_the_head_dim_80_and_96_instantiations():
         ("fp16", True, False, 96): (1, 1, 0)}
 
 
+_SASS_D256 = """
+        code for sm_90a
+                Function : _ZN55_GLOBAL__N__0_22_flash_attention_fwd_cu_016flash_fwd_kernelI13__nv_bfloat16Lb0ELb0ELi256EEEvNS_9FwdParamsE
+        /*0100*/                   UTMALDG.4D [UR8], [UR4] ;
+        /*0200*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR8], RZ, !UPT ;
+        /*0210*/                   HGMMA.64x256x16.F32.BF16 R88, R152, gdesc[UR12], R88, gsb0 ;
+                Function : _ZN55_GLOBAL__N__0_22_flash_attention_fwd_cu_016flash_fwd_kernelI6__halfLb1ELb1ELi256EEEvNS_9FwdParamsE
+        /*0100*/                   UTMALDG.4D [UR8], [UR4] ;
+        /*0210*/                   HGMMA.64x256x16.F32.F16 R88, R152, gdesc[UR12], R88, gsb0 ;
+                Function : _ZN55_GLOBAL__N__0_22_flash_attention_fwd_cu_016flash_fwd_kernelIfLb0ELb0ELi256EEEvNS_9FwdParamsE
+        /*0100*/                   FFMA R1, R2, R3, R4 ;
+"""
+
+
+def test_sass_counts_reads_the_head_dim_256_instantiations():
+    """The flash kernels' D=256 forms are read by their last template
+    argument, bf16 and fp16 apart; the fp32 form (CUDA cores) is not
+    counted."""
+    assert chip_smoke.sass_counts(_SASS_D256, "flash_fwd_kernel") == {
+        ("bf16", False, False, 256): (2, 1, 0),
+        ("fp16", True, True, 256): (1, 1, 0)}
+
+
 @pytest.mark.parametrize("D,suffix", [(128, ""), (64, "_d64"), (80, "_d80"),
-                                      (96, "_d96")])
+                                      (96, "_d96"), (256, "_d256")])
 def test_d_suffix_names_each_head_dim(D, suffix):
     """The kernels JSON names a flash form by its head dim: the rows first
     measured at 128 keep their bare names."""
@@ -350,6 +380,47 @@ def test_train_launches_match_a_counted_cli_run(head_dim):
     assert np.isfinite(out["losses"]).all()
 
 
+def test_gemma_train_launches_match_a_counted_run():
+    """This slice's path: the Gemma-2B training shape is GEMMA_2B with
+    per-layer remat (8 heads of 256 over one kv head, 2,506,172,416
+    parameters), and the launches phase 7 expects of its train_batch calls
+    (``train_launches``: the forward twice a layer and micro-batch, remat
+    recomputing it; dQ and dK/dV once; B3 once a call) hold against a
+    counted CPU run through the plain versions of a 2-layer Gemma-wired
+    model with those heads, through ``initialize(...).train_batch``."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.benchmarks.training import ds_config
+    from deepspeed_tpu_torch.models.transformer import (CausalTransformerLM,
+                                                        TransformerConfig)
+    from deepspeed_tpu_torch.ops import adam, flash_attention
+    assert chip_smoke.GEMMA_TRAIN == dict(chip_smoke.GEMMA_2B, remat=True)
+    full = TransformerConfig(**chip_smoke.GEMMA_TRAIN)
+    assert (full.n_layers, full.n_heads, full.kv_heads, full.head_dim) == \
+        (18, 8, 1, 256)
+    assert full.num_params() == chip_smoke.GEMMA_PARAMS["Gemma-2B"]
+    cfg = TransformerConfig(**dict(
+        chip_smoke.GEMMA_TRAIN, hidden_size=64, n_layers=2,
+        head_dim_override=256, ffn_hidden_size=128, vocab_size=256,
+        embed_scale=8.0))
+    model = chip_smoke.scale_embedding(
+        CausalTransformerLM(cfg, device="cpu").init(0))
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=model, config=ds_config(2, 2), device="cpu")
+    flash_attention.flash_attention_fwd_plain.calls = 0
+    flash_attention.flash_attention_bwd_plain.calls = 0
+    adam.reference_impl.calls = 0
+    ids = np.random.default_rng(4).integers(0, 256, (3, 2, 2, 16))
+    losses = [float(engine.train_batch(batch={"input_ids": x})) for x in ids]
+    want = chip_smoke.train_launches(cfg, 2, 3)
+    assert flash_attention.flash_attention_fwd_plain.calls == \
+        want["flash_attention_fwd"] == 2 * 2 * 2 * 3
+    assert flash_attention.flash_attention_bwd_plain.calls == \
+        want["flash_attention_bwd_dq"] == want["flash_attention_bwd_dkv"]
+    assert adam.reference_impl.calls == want["fused_adam"] == 3
+    assert not any(v for k, v in want.items() if "biased" in k)
+    assert np.isfinite(losses).all()
+
+
 @pytest.mark.parametrize("kernel,want", [
     ("void dsdecode::split_tc_kernel<__nv_bfloat16, Seqs<64>, 8>(P)", True),
     ("void (anonymous namespace)::flash_fwd_kernel<__nv_bfloat16, true, "
@@ -384,6 +455,22 @@ def test_train_launches_match_a_counted_cli_run(head_dim):
      "256, 16>(__half const*)", True),
     ("void dsdecode::split_tc_kernel<__half, 8, (anonymous namespace)::"
      "PagedSeqs<256> >(P)", True),
+    # head dim 256 of B1 and B2, every dtype (the fp32 CUDA-core form
+    # too), and B6's fp16 form
+    ("void (anonymous namespace)::flash_bwd_dkv_kernel<__half, false, "
+     "false, 256>((anonymous namespace)::DkvParams)", True),
+    ("void (anonymous namespace)::flash_bwd_dq_kernel<float, true, true, "
+     "256>((anonymous namespace)::DqParams)", True),
+    ("_ZN55_GLOBAL__N__0_22_flash_attention_fwd_cu_016flash_fwd_kernelI13__"
+     "nv_bfloat16Lb1ELb0ELi256EEEvNS_9FwdParamsE", True),
+    ("_ZN55_GLOBAL__N__0_22_flash_attention_bwd_cu_020flash_bwd_dkv_"
+     "kernelIfLb0ELb0ELi256EEEvNS_9DkvParamsE", True),
+    ("void (anonymous namespace)::sparse_tc_kernel<__half, 16, 128>("
+     "(anonymous namespace)::TcParams)", True),
+    ("_ZN60_GLOBAL__N__0_19_sparse_attention_cu_016sparse_tc_kernelI6__"
+     "halfLi64ELi64EEEvNS_8TcParamsE", True),
+    ("void (anonymous namespace)::sparse_tc_kernel<__nv_bfloat16, 16, "
+     "128>((anonymous namespace)::TcParams)", False),
     # the D = 128 bodies, the fp32 CUDA-core ones and the D = 64 backward
     # are printed, not held
     ("void (anonymous namespace)::flash_bwd_dkv_kernel<float, false, "
@@ -399,9 +486,10 @@ def test_train_launches_match_a_counted_cli_run(head_dim):
 def test_must_not_spill_names_decode_and_d64_consumers(kernel, want):
     """The build phase fails on a spill in the split-key decode body, in
     every bf16 / fp16 head-dim-64 instantiation of B1's forward and B4's
-    prefill tiles (the shared D = 64 consumer) and in every bf16 / fp16
-    head-dim-80 and -96 form of B1 and B2, by demangled or mangled name;
-    other kernels' spills are only printed."""
+    prefill tiles (the shared D = 64 consumer), in every bf16 / fp16
+    head-dim-80 and -96 form of B1 and B2, in every head-dim-256 form of
+    B1 and B2 (fp32 included) and in B6's fp16 form, by demangled or
+    mangled name; other kernels' spills are only printed."""
     assert chip_smoke.must_not_spill(kernel) is want
 
 

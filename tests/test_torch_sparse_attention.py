@@ -11,7 +11,8 @@
   kernel-vs-oracle tolerance: the same sums in other orders).
 * ``SparseSelfAttention`` (layout cache, causal from the config) and
   ``SparseAttentionUtils`` round-trip; the dispatch rule; the CUDA path
-  refuses CPU tensors and inputs that need a gradient.
+  refuses CPU tensors, dtypes it is not built for and inputs that need a
+  gradient.
 
 The CUDA kernel itself is held against the plain version on the card by
 ``chip_smoke.py``.
@@ -220,6 +221,32 @@ def test_cuda_path_refuses_cpu_tensors_and_gradients():
     # the gradient check comes first, so it is seen here too
     with pytest.raises(NotImplementedError, match="backward"):
         sparse_attention_cuda(q.requires_grad_(), q, q, layout, 16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_cuda_path_takes_its_own_dtypes_to_the_device_check(dtype):
+    """The kernel's wrapper keeps its own dtype table (fp32 on the CUDA
+    cores, bf16 and fp16 on the tensor cores), apart from the decode
+    kernel's: fp16 passes the dtype check and is refused on the CPU only
+    for its device; an int dtype is refused for its dtype, by a message
+    that names the three the kernel takes."""
+    from deepspeed_tpu_torch.ops.cuda import decode_attention
+    from deepspeed_tpu_torch.ops.cuda import \
+        sparse_attention as cuda_sparse
+    assert cuda_sparse.SPARSE_DTYPES == {
+        torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+    assert cuda_sparse.SPARSE_DTYPES is not decode_attention._DTYPE_CODES
+    layout = np.ones((H, 4, 4), bool)
+    q = torch.zeros(1, 64, H, 64, dtype=dtype)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        sparse_attention_cuda(q, q, q, layout, 16)
+    bad = torch.zeros(1, 64, H, 64, dtype=torch.int32)
+    with pytest.raises(ValueError,
+                       match="takes float32, bfloat16 or float16 tensors"):
+        sparse_attention_cuda(bad, bad, bad, layout, 16)
+    with pytest.raises(ValueError, match="of one dtype"):
+        sparse_attention_cuda(q, q, q.to(torch.int32), layout, 16)
 
 
 def test_plain_path_takes_gradients_on_the_cpu():
