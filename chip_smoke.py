@@ -501,7 +501,7 @@ def ptxas_usage(log):
 # kernels that must not spill (ptxas): the split-key decode body, whose
 # registers hold the loads in flight (every row count, dtype and head
 # dim, 256 included), the head-dim-64 tensor-core consumer of B1's forward
-# and B4's prefill tiles (wgmma_attention64.cuh: S, P and O in registers
+# and B4's prefill tiles (wgmma_attention.cuh: S, P and O in registers
 # while products run), the head-dim-80 and -96 tensor-core forms of B1, B2
 # and B4's prefill tiles, B4's prefill tiles at 256, and the head-dim-80,
 # -96 and -256 CUDA-core tiles of B4 and B5 (attention_tile.cuh); every
@@ -1109,14 +1109,18 @@ FLASH_CASES_D64 = [("gpt_350m B=8 S=1024 H16/16", 8, 1024, 16, 16, True,
                     False, None)]
 # the same at head dims 96 and 80: gpt_760m's and gpt_2_7b's training
 # shapes (B=8, S=1024, 16 heads of 96, 32 of 80), GQA 32/8, a length that
-# does not tile, non-causal
+# does not tile, non-causal, and for the persistent walk (pairs of q
+# tiles, head by head) an odd q-tile count over an odd B * H: 9 tiles, the
+# last ragged, 5 heads
 FLASH_CASES_D96 = [("gpt_760m B=8 S=1024 H16/16", 8, 1024, 16, 16, True,
                     None),
                    ("GQA B=2 S=256 H32/8", 2, 256, 32, 8, True, None),
                    ("non-tiling B=1 S=1000 H16/16", 1, 1000, 16, 16, True,
                     None),
                    ("non-tiling non-causal B=1 S=1000 H4/2", 1, 1000, 4, 2,
-                    False, None)]
+                    False, None),
+                   ("odd q tiles, odd B*H B=1 S=1100 H5/5", 1, 1100, 5, 5,
+                    True, None)]
 FLASH_CASES_D80 = [("gpt_2_7b B=8 S=1024 H32/32", 8, 1024, 32, 32, True,
                     None)] + FLASH_CASES_D96[1:]
 # and at head dim 256: Gemma-2B's training shape (B=2, S=2048, 8 heads of

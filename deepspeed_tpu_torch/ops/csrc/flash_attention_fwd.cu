@@ -42,43 +42,46 @@
 // stream is two 64 KB tiles per 128 x 128 block-tile: at S=2048 the card's
 // L2 bandwidth alone sets a floor near half this kernel's time.
 //
-// Head dim 64 (gpt2_125m, gpt_350m, gpt2_1_5b, BLOOM-560m, GPT-Neo-125M):
-// a body of its own.  At gpt_350m's training shape (B=8, S=1024, 16 heads
-// of 64, causal) the forward does 17.2 GFLOP on 67.6 MB: bound by bytes
-// (20.2 us), the tensor cores' 17.4 us close behind; but its 67.1 M
-// exponentials take ~17 us of the SFUs (16 a clock an SM) on their own,
-// a 128 x 128 tile's products are now shorter than its softmax, and a q
-// tile has only 4.5 key tiles on average.  The D = 128 design (one block
-// per q tile, S, softmax and P V in series in each warpgroup) measured
-// 0.125 ms there.  At D = 64:
-//   * the consumer warpgroups run wgmma_attention64.cuh (shared with the
-//     ragged paged prefill tiles): FA3's order (S of the next tile and P V
-//     of this one issued together, the next softmax under P V), the two
-//     warpgroups taking turns to issue their products (ping-pong), and a
-//     softmax with fewer FP32 operations a score (the row max on the raw
-//     products -- ALiBi's on the scaled scores plus slope * key -- and the
-//     scale and log2(e) folded into the FFMA that feeds ex2).  LSE is
-//     written in the units the backward kernels read (m * scale + log l).
+// Head dims 64, 80 and 96: a body of their own.  At gpt_350m's training
+// shape (B=8, S=1024, 16 heads of 64, causal) the forward does 17.2 GFLOP
+// on 67.6 MB: bound by bytes (20.2 us), the tensor cores' 17.4 us close
+// behind; but its 67.1 M exponentials take ~17 us of the SFUs (16 a clock
+// an SM) on their own, a 128 x 128 tile's products are now shorter than
+// its softmax, and a q tile has only 4.5 key tiles on average.  The D =
+// 128 design (one block per q tile, S, softmax and P V in series in each
+// warpgroup) measured 0.125 ms there.  At gpt_2_7b's training shape (B=8,
+// S=1024, 32 heads of 80) the forward does 42.9 GFLOP on 168.8 MB, at
+// gpt_760m's (16 heads of 96) 25.8 GFLOP on 101.2 MB: both bound by bytes
+// (50.4 and 30.2 us), with the same 4.5 key tiles a q tile and products
+// 5/8 and 3/4 of D = 128's; the D = 128 body measured 0.2676 and 0.1421 ms
+// there, 1.85x and 1.76x SDPA's time.  So at all three head dims:
+//   * the consumer warpgroups run wgmma_attention.cuh (shared with the
+//     ragged paged prefill tiles at D = 64): FA3's order (S of the next
+//     tile and P V of this one issued together, the next softmax under P
+//     V), the two warpgroups taking turns to issue their products
+//     (ping-pong), and a softmax with fewer FP32 operations a score (the
+//     row max on the raw products -- ALiBi's on the scaled scores plus
+//     slope * key -- and the scale and log2(e) folded into the FFMA that
+//     feeds ex2).  LSE is written in the units the backward kernels read
+//     (m * scale + log l).
 //   * the grid is persistent, one block an SM (Walk, below): a block's
-//     start is paid once, the producer loads the next q tile's Q into a
-//     second buffer while the consumers finish this one, and the q tiles
-//     come in pairs of equal causal work, head by head, so the heads whose
-//     K and V are being read at once stay in L2.
-// A Q, K or V tile is one 64-column TMA box; the ring holds 4 stages of K
-// and V (160 KB of shared memory with the two Q tiles); registers: S 64,
-// P 32, O 32 of the 240 setmaxnreg gives a consumer thread.
-//
-// Head dims 80 (gpt_2_7b) and 96 (gpt_760m): the D = 128 body with D as its
-// template argument.  A Q, K or V tile is two 64-column TMA boxes, as at
-// D = 128; TMA reads the D columns there are and zero-fills the rest of
-// the second box, so the tile costs D = 128's shared memory (the same two
-// stages) but only D columns of HBM traffic.  S = Q K^T walks D / 16
-// slices (5 or 6) and O += P V is one m64nD wgmma a 16-key slice, which
-// reads V's first D columns only: no product touches the zero columns.
-// O takes 40 or 48 fp32 registers a thread (64 at D = 128).  At gpt_2_7b's
-// training shape (B=8, S=1024, 32 heads of 80, causal) the forward does
-// 42.9 GFLOP on 168.8 MB, at gpt_760m's (16 heads of 96) 25.8 GFLOP on
-// 101.2 MB: both bound by bytes (50.4 and 30.2 us).
+//     start is paid once, the producer streams every q tile's K and V
+//     through one ring, and the q tiles come in pairs of equal causal
+//     work, head by head, so the heads whose K and V are being read at
+//     once stay in L2.
+// At D = 64 a Q, K or V tile is one 64-column TMA box, and the ring holds
+// 4 stages of K and V (160 KB of shared memory with two Q tiles: the next
+// q tile's Q loads while the consumers finish this one).  At 80 and 96 a
+// tile is two boxes, as at D = 128: TMA reads the D columns there are and
+// zero-fills the rest of the second box, so a tile costs 32 KB of shared
+// memory but only D columns of HBM traffic; S = Q K^T walks D / 16 slices
+// (5 or 6) and O += P V is one m64nD wgmma a 16-key slice, which reads V's
+// first D columns only.  The ring there is one Q tile and 3 stages (224
+// KB): a third stage was worth more than a second Q buffer.  Registers: S
+// 64, P 32, O D / 2 (32, 40, 48) of the 240 setmaxnreg gives a consumer
+// thread; no spill.  Measured on the H100 by scripts/flash_kernel_ab.py
+// (bf16): gpt_2_7b's shape 0.2659 -> 0.1378 ms, gpt_760m's 0.1419 ->
+// 0.0775 ms, 0.95x and 0.96x SDPA's time and 2.7x and 2.6x their bounds.
 //
 // Head dim 256 (Gemma): the same body with B4's prefill tiles at that head
 // dim (ragged_paged_attention.cu).  A 128-row Q tile is four 64-column
@@ -107,7 +110,7 @@
 // path.
 #include "flash_tile.cuh"
 #include "hopper.cuh"
-#include "wgmma_attention64.cuh"
+#include "wgmma_attention.cuh"
 
 namespace {
 
@@ -245,23 +248,34 @@ constexpr int BM = 128;                       // query rows of a block
 constexpr int BN = 128;                       // keys of a K/V tile
 constexpr int kThreads = 384;                 // 2 consumer + 1 producer WG
 constexpr int kQBox = BM * hopper::kBoxCols * 2;   // one 64-column Q box
+// The ring at head dims 80 and 96: one Q buffer and 3 stages of K and V,
+// 32 KB a tile (224 KB).  Two Q buffers and two stages (192 KB) ran 1.2x
+// its time at gpt_2_7b's and gpt_760m's shapes, and plans with a narrow
+// second box (D - 64 columns: 20 or 24 KB tiles, 4-5 stages) read -3% to
+// +5% of it (scripts/flash_kernel_ab.py; PERF.md has the numbers).
+constexpr int kQBufs8096 = 1, kStages8096 = 3;
+// Head dims 64, 80 and 96 run the persistent body on the shared consumer
+// (wgmma_attention.cuh); 128 and 256 one block per q tile.
+__host__ __device__ constexpr bool persistent(int D) { return D <= 96; }
 // The shared-memory plan at head dim D: kQBufs Q tiles, then kStages x
-// (K, V), then the barriers -- at D = 80, 96, 128 and 256 Q's, full[],
-// empty[]; at D = 64 q_full[2], q_empty[2], full[], empty[].  A tile is
-// whole 64-column boxes: a Q tile 16 KB at D = 64, 32 at 80, 96 and 128,
-// 64 at 256; a K or V tile of kKeys keys the same but at 256, where it
-// takes 64 keys (32 KB; the header says why).
+// (K, V), then the barriers -- at D = 128 and 256 Q's, full[], empty[];
+// at 64, 80 and 96 q_full[kQBufs], q_empty[kQBufs], full[], empty[].  A
+// tile is whole 64-column boxes: a Q tile 16 KB at D = 64, 32 at 80, 96
+// and 128, 64 at 256; a K or V tile of kKeys keys the same but at 256,
+// where it takes 64 keys (32 KB; the header says why).
 template <int D>
 struct Smem {
   static constexpr int kKeys = D == 256 ? 64 : BN;   // keys of a K/V tile
   static constexpr int kQTile = BM * hopper::box_cols<D>() * 2;
   static constexpr int kTile = kKeys * hopper::box_cols<D>() * 2;
   static constexpr int kKVBox = kKeys * hopper::kBoxCols * 2;
-  static constexpr int kStages = D == 64 ? 4 : 2;
-  static constexpr int kQBufs = D == 64 ? 2 : 1;
+  static constexpr int kStages = D == 64 ? 4 : D <= 96 ? kStages8096 : 2;
+  static constexpr int kQBufs = D == 64 ? 2 : D <= 96 ? kQBufs8096 : 1;
   static constexpr int kBarOffset = kQBufs * kQTile + kStages * 2 * kTile;
-  static constexpr int kBars = D == 64 ? 4 + 2 * kStages : 1 + 2 * kStages;
+  static constexpr int kBars =
+      persistent(D) ? 2 * kQBufs + 2 * kStages : 1 + 2 * kStages;
   static constexpr size_t kBytes = 1024 + kBarOffset + 8 * kBars;
+  static_assert(kBytes <= 232448, "a block has 227 KB of shared memory");
 };
 constexpr int kFar = 1 << 30;   // a key bound no tile reaches
 }  // namespace tc
@@ -458,10 +472,10 @@ __device__ __forceinline__ void fwd_tensor_cores(const FwdParams& p,
   }
 }
 
-// ---- bf16 / fp16, head dim 64: persistent, on the shared consumer -------
+// ---- bf16 / fp16, head dims 64, 80, 96: persistent, on the shared consumer
 
-// What a consumer thread's two rows (row0, row0 + 8) see at D = 64, as
-// bounds for the shared consumer of wgmma_attention64.cuh: a tile at key
+// What a consumer thread's two rows (row0, row0 + 8) see at D = 64, 80 and
+// 96, as bounds for the shared consumer of wgmma_attention.cuh: a tile at key
 // k0 needs the mask if k0 > e_hi (it crosses the diagonal or S) or k0 <=
 // e_lo (the window's edge); row r sees keys lo[r] < key <= hi[r].
 // Unbiased logits are the raw products (the scale goes into c, the
@@ -488,8 +502,8 @@ struct FlashRows {
   }
 };
 
-// A work item of the persistent D = 64 forward: one 128-row q tile of one
-// (batch, head).
+// A work item of the persistent forward: one 128-row q tile of one (batch,
+// head).
 struct Item {
   int b, h, hk, q0, k_lo, n_tiles;
 };
@@ -531,17 +545,19 @@ struct Walk {
   }
 };
 
-// One work item of the persistent D = 64 forward, consumer side: the
-// rows' bounds, the walk over the item's tiles (ring slots g .. g +
-// n_tiles - 1, Q in buffer j % 2), then O and LSE.
-template <typename E, bool SLOPE, bool WINDOW>
+// One work item of the persistent forward, consumer side: the rows'
+// bounds, the walk over the item's tiles (ring slots g .. g + n_tiles - 1,
+// Q in buffer j % kQBufs), then O and LSE.
+template <typename E, bool SLOPE, bool WINDOW, int D>
 __device__ __forceinline__ void consume_item(
     const FwdParams& p, const Item& it, int j, int g, int wg, int t,
     unsigned char* q_s, unsigned char* kv_s, uint64_t* q_full,
     uint64_t* q_empty, uint64_t* full, uint64_t* empty, int window) {
   using namespace hopper;
   using namespace tc;
-  constexpr int kTile = Smem<64>::kTile, kStages = Smem<64>::kStages;
+  constexpr int kTile = Smem<D>::kTile, kStages = Smem<D>::kStages;
+  constexpr int kQTile = Smem<D>::kQTile;
+  constexpr unsigned kQBufs = Smem<D>::kQBufs;
   const int S = p.S, H = p.H;
   const float scale = p.scale;
   const int r_first = it.q0 + 64 * wg, r_last = r_first + 63;
@@ -568,16 +584,17 @@ __device__ __forceinline__ void consume_item(
     rows.lo[r] = WINDOW && window > 0 ? row - window : -kFar;
   }
   rows.kt = 2 * (t % 4);
-  float o[32];
+  float o[D / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};   // l: this lane's share
 
-  mbar_wait(&q_full[j & 1], (j >> 1) & 1);
-  dswg::attend_tiles<E, kStages, kTile>(
-      rows, smem_u32(q_s + (j & 1) * kTile) + 64 * wg * 128, smem_u32(kv_s),
+  const unsigned qb = (unsigned)j % kQBufs;
+  mbar_wait(&q_full[qb], ((unsigned)j / kQBufs) & 1);
+  dswg::attend_tiles<E, D, kStages, kTile>(
+      rows, smem_u32(q_s + qb * kQTile) + 64 * wg * 128, smem_u32(kv_s),
       full, empty, g, it.n_tiles, first, last, it.k_lo, t, o, m, l);
-  mbar_arrive(&q_empty[j & 1]);   // every product that read Q retired
+  mbar_arrive(&q_empty[qb]);   // every product that read Q retired
 
   E* out = static_cast<E*>(p.o);
   const int bh = it.b * H + it.h;
@@ -589,9 +606,9 @@ __device__ __forceinline__ void consume_item(
     if (row >= S) continue;
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
     uint32_t* orow = reinterpret_cast<uint32_t*>(
-        out + (((long long)it.b * S + row) * H + it.h) * 64);
+        out + (((long long)it.b * S + row) * H + it.h) * D);
 #pragma unroll
-    for (int c = 0; c < 8; ++c)
+    for (int c = 0; c < D / 8; ++c)
       orow[(8 * c + 2 * (t % 4)) / 2] =
           pack2<E>(o[4 * c + 2 * r] * inv, o[4 * c + 2 * r + 1] * inv);
     // LSE in scaled units, as the backward kernels read it
@@ -604,24 +621,27 @@ __device__ __forceinline__ void consume_item(
 // One block an SM walks its share of the items (Walk): a block's start
 // (barriers, the first Q and K/V loads, the pipeline's fill) is paid once,
 // not once per q tile -- at gpt_350m's shape a q tile has 4.5 key tiles
-// on average, and that start cost about as much as 3 of them.  The
-// producer loads the next item's Q into the second Q buffer while the
-// consumers run this one, and streams every item's K/V tiles through one
-// ring.
-template <typename E, bool SLOPE, bool WINDOW>
-__device__ __forceinline__ void fwd_tensor_cores_d64(const FwdParams& p,
-                                                     unsigned char* raw) {
+// on average, and that start cost about as much as 3 of them.  With two Q
+// buffers the producer loads the next item's Q while the consumers run
+// this one; with one it loads it after the item's first K/V tile, once
+// the consumers are done with Q.  Every item's K/V tiles stream through
+// one ring.
+template <typename E, bool SLOPE, bool WINDOW, int D>
+__device__ __forceinline__ void fwd_tensor_cores_persistent(
+    const FwdParams& p, unsigned char* raw) {
   using namespace hopper;
   using namespace tc;
-  using Plan = Smem<64>;
+  using Plan = Smem<D>;
   constexpr int kTile = Plan::kTile, kStages = Plan::kStages;
+  constexpr int kQTile = Plan::kQTile;
+  constexpr unsigned kQBufs = Plan::kQBufs;
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
-  unsigned char* q_s = base;                     // Q tiles 0 and 1
-  unsigned char* kv_s = base + 2 * kTile;
+  unsigned char* q_s = base;                     // Q tiles 0 .. kQBufs - 1
+  unsigned char* kv_s = base + kQBufs * kQTile;
   uint64_t* q_full = reinterpret_cast<uint64_t*>(base + Plan::kBarOffset);
-  uint64_t* q_empty = q_full + 2;
-  uint64_t* full = q_empty + 2;
+  uint64_t* q_empty = q_full + kQBufs;
+  uint64_t* full = q_empty + kQBufs;
   uint64_t* empty = full + kStages;
 
   const int S = p.S, H = p.H;
@@ -630,7 +650,7 @@ __device__ __forceinline__ void fwd_tensor_cores_d64(const FwdParams& p,
   const int window = WINDOW ? p.window : 0;
   const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
   if (threadIdx.x == 0) {
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < (int)kQBufs; ++i) {
       mbar_init(&q_full[i], 1);
       mbar_init(&q_empty[i], 256);   // every consumer thread
     }
@@ -653,20 +673,24 @@ __device__ __forceinline__ void fwd_tensor_cores_d64(const FwdParams& p,
           const int qi = walk.q_tile(u, i);
           if (qi < 0) break;
           const Item it = fwd_item(p, u / walk.per_head, qi, window);
-          const int qb = j & 1;
-          mbar_wait(&q_empty[qb], ((j >> 1) & 1) ^ 1);
-          mbar_arrive_expect_tx(&q_full[qb], kTile);
-          tma_load_rows<64>(q_s + qb * kTile, &p.q_map, &q_full[qb], BM,
-                            it.h, it.q0, it.b);
+          const unsigned qb = (unsigned)j % kQBufs;
+          const auto load_q = [&] {
+            mbar_wait(&q_empty[qb], (((unsigned)j / kQBufs) & 1) ^ 1);
+            mbar_arrive_expect_tx(&q_full[qb], kQTile);
+            tma_load_rows<D>(q_s + qb * kQTile, &p.q_map, &q_full[qb], BM,
+                             it.h, it.q0, it.b);
+          };
+          if (kQBufs > 1) load_q();
           for (int c = 0; c < it.n_tiles; ++c, ++g) {
             const int st = g % kStages;
             mbar_wait(&empty[st], ((g / kStages) & 1) ^ 1);
             unsigned char* k_t = kv_s + st * 2 * kTile;
             const int k0 = it.k_lo + c * BN;
             mbar_arrive_expect_tx(&full[st], 2 * kTile);
-            tma_load_rows<64>(k_t, &p.k_map, &full[st], BN, it.hk, k0, it.b);
-            tma_load_rows<64>(k_t + kTile, &p.v_map, &full[st], BN, it.hk,
-                              k0, it.b);
+            tma_load_rows<D>(k_t, &p.k_map, &full[st], BN, it.hk, k0, it.b);
+            tma_load_rows<D>(k_t + kTile, &p.v_map, &full[st], BN, it.hk,
+                             k0, it.b);
+            if (kQBufs == 1 && c == 0) load_q();
           }
         }
       }
@@ -680,8 +704,9 @@ __device__ __forceinline__ void fwd_tensor_cores_d64(const FwdParams& p,
         const int qi = walk.q_tile(u, i);
         if (qi < 0) break;
         const Item it = fwd_item(p, u / walk.per_head, qi, window);
-        consume_item<E, SLOPE, WINDOW>(p, it, j, g, wg, t, q_s, kv_s, q_full,
-                                       q_empty, full, empty, window);
+        consume_item<E, SLOPE, WINDOW, D>(p, it, j, g, wg, t, q_s, kv_s,
+                                          q_full, q_empty, full, empty,
+                                          window);
         g += it.n_tiles;
       }
     }
@@ -699,8 +724,8 @@ flash_fwd_kernel(const __grid_constant__ FwdParams p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   if constexpr (std::is_same<T, float>::value)
     fwd_cuda_cores<SLOPE, WINDOW, D>(p, reinterpret_cast<float*>(smem_raw));
-  else if constexpr (D == 64)
-    fwd_tensor_cores_d64<T, SLOPE, WINDOW>(p, smem_raw);
+  else if constexpr (tc::persistent(D))
+    fwd_tensor_cores_persistent<T, SLOPE, WINDOW, D>(p, smem_raw);
   else
     fwd_tensor_cores<T, SLOPE, WINDOW, D>(p, smem_raw);
 }
@@ -717,7 +742,7 @@ int launch(const FwdParams& p, int B, cudaStream_t stream) {
   if (attr != cudaSuccess) return (int)attr;
   dim3 grid = fp32 ? dim3((p.S + BQ - 1) / BQ, B * p.H)
                    : dim3(B * p.H, (p.S + tc::BM - 1) / tc::BM);
-  if (!fp32 && D == 64) {   // persistent: one block an SM, at most
+  if (!fp32 && tc::persistent(D)) {   // one block an SM, at most
     int dev = 0, sms = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess)

@@ -59,7 +59,7 @@
 // first D columns only (O: D / 2 fp32 registers a thread, as in B1's
 // forward at those head dims).  At D = 64 the products are half as long
 // and the softmax is not, so the body is the flash forward's D = 64
-// consumer (wgmma_attention64.cuh): each tile's softmax runs under the
+// consumer (wgmma_attention.cuh): each tile's softmax runs under the
 // products of the tile before and of the other warpgroup, which take
 // turns to issue them.  At D = 256 (Gemma's heads) a 128-row tile is 64
 // KB, so Q and two stages of 128-key K and V tiles would need 320 KB of
@@ -92,7 +92,7 @@
 // and shape.
 #include "hopper.cuh"
 #include "split_decode.cuh"
-#include "wgmma_attention64.cuh"
+#include "wgmma_attention.cuh"
 
 namespace {
 
@@ -188,7 +188,7 @@ inline int tile_keys(int D) { return D == 256 ? Smem<256>::kKeys : BN; }
 }  // namespace tc
 
 // What a consumer thread's two rows see at D = 64, for the shared consumer
-// of wgmma_attention64.cuh: keys up to the row's position, masked only on
+// of wgmma_attention.cuh: keys up to the row's position, masked only on
 // tiles that cross the warpgroup's first row's; logits are the raw products
 // (the scale goes into c).
 struct PagedRows {
@@ -315,9 +315,9 @@ ragged_prefill_tc_kernel(const __grid_constant__ PrefillParams p) {
       const PagedRows rows{scale * kLog2e, {qpos[0], qpos[1]},
                            first_q + tok_first};
       dswg::first_turn(wg);
-      dswg::attend_tiles<E, kStages, kTile>(rows, q_addr, smem_u32(kv_s),
-                                            full, empty, 0, n_tiles, 0, last,
-                                            0, t, o, m, l);
+      dswg::attend_tiles<E, 64, kStages, kTile>(rows, q_addr, smem_u32(kv_s),
+                                                full, empty, 0, n_tiles, 0,
+                                                last, 0, t, o, m, l);
     } else {
       // S: kKeys / 2 fp32 accumulators a thread (an m64n128 product, or
       // m64n64 at D = 256), P: half as many registers.  fp16 at D = 256

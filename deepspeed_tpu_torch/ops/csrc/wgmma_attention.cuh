@@ -1,18 +1,21 @@
-// The consumer warpgroup of the tensor-core attention kernels at head dim
-// 64: the flash forward (flash_attention_fwd.cu) and the ragged paged
-// prefill tiles (ragged_paged_attention.cu) run it over their K/V ring.
+// The consumer warpgroup of the tensor-core attention kernels at head dims
+// 64, 80 and 96: the flash forward (flash_attention_fwd.cu) runs it over
+// its K/V ring at all three, the ragged paged prefill tiles
+// (ragged_paged_attention.cu) at 64.
 //
-// Why a body of its own at D = 64.  A 64-row warpgroup's share of a
-// 128 x 128 tile is two products of 1 MFLOP each (S = Q K^T, O += P V)
-// and a softmax of 8,192 scores: an exponential each on the SFU (16 a
-// clock an SM) and a handful of FP32 operations.  At D = 128 the products
-// are twice as long and hide much of the softmax; at D = 64 the softmax
-// is the longer part, and the D = 128 body -- S, softmax, P V in series
-// in each warpgroup, the two warpgroups in step -- leaves the tensor cores
-// idle through every softmax and the SFUs idle through every product.
+// Why a body of its own at these head dims.  A 64-row warpgroup's share of
+// a 128 x 128 tile is two products of 2 * 64 * 128 * D flops each (S = Q
+// K^T, O += P V) and a softmax of 8,192 scores: an exponential each on the
+// SFU (16 a clock an SM) and a handful of FP32 operations, whatever D is.
+// At D = 128 the products are long enough to hide much of the softmax; at
+// D = 64, 80 and 96 they are 1/2, 5/8 and 3/4 as long and the softmax is
+// not, so the D = 128 body -- S, softmax, P V in series in each
+// warpgroup, the two warpgroups in step -- leaves the tensor cores idle
+// through every softmax and the SFUs idle through every product.
 //
 // What this body does about it (each step timed on its own at gpt_350m's
-// training shape by scripts/flash_kernel_ab.py; PERF.md has the numbers):
+// training shape by scripts/flash_kernel_ab.py, and at gpt_760m's and
+// gpt_2_7b's for D = 96 and 80; PERF.md has the numbers):
 //   * fewer FP32 operations a score: the row max is taken on the raw
 //     product (the softmax scale is positive, so the max commutes with
 //     it) and scale * log2(e) is folded into the one FFMA that feeds ex2;
@@ -23,13 +26,19 @@
 //   * FA3's order within a warpgroup: S_{j+1} = Q K_{j+1}^T and O +=
 //     P_j V_j are issued together, then softmax(S_{j+1}) runs while
 //     P_j V_j is still in the tensor cores; O is rescaled once that
-//     product retired.  S, P and O take 64 + 32 + 32 registers a thread.
+//     product retired.  S, P and O take 64 + 32 + D / 2 registers a
+//     thread (128, 136, 144).
 //   * ping-pong between the two consumer warpgroups: each issues its
 //     products only on its turn (two named barriers), so one warpgroup's
 //     products run under the other's softmax instead of beside it.  Every
 //     work item gives each warpgroup n_tiles + 1 turns, tiles it does not
 //     see included, so the turns stay paired whatever the masks skip.
 //   * a K/V stage is released once the product that read it retired.
+//
+// Tiles: Q, K and V are 128 rows of boxes<D>() 64-column boxes (one at D =
+// 64, two at 80 and 96, whose columns past D TMA fills with zeros); S = Q
+// K^T walks D / 16 slices across them, O += P V is one m64nD product a
+// 16-key slice, which reads V's first D columns only.
 //
 // The kernel supplies a Rows policy: what its rows see and how a raw
 // score becomes a logit --
@@ -55,23 +64,23 @@ using dsattn::kNeg;               // masked score
 constexpr int kBN = 128;         // keys of a K/V tile
 constexpr int kBox = 128 * kBoxCols * 2;   // one 64-column box of 128 rows
 
-// S = Q K^T over depth 64 (four 16-column slices of one box); committed,
-// not waited for.
-template <typename E>
+// S = Q K^T over depth D (D / 16 16-column slices: four a box, the second
+// box's from slice 4 on); committed, not waited for.
+template <typename E, int D>
 __device__ __forceinline__ void issue_s(float (&s)[64], uint32_t q_addr,
                                         uint32_t k_addr) {
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+  for (int kk = 0; kk < D / 16; ++kk)
     wgmma_ss_n128<E>(s, desc_kmajor(q_addr + kslice(kk, kBox)),
                      desc_kmajor(k_addr + kslice(kk, kBox)), kk > 0);
   wgmma_commit();
 }
 
-// O += P V: P from registers, V read transposed from the stage's tile;
-// committed, not waited for.
-template <typename E>
-__device__ __forceinline__ void issue_pv(float (&o)[32],
+// O += P V: P from registers, V read transposed from the stage's tile
+// (m64nD, its columns across V's boxes); committed, not waited for.
+template <typename E, int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
                                          const uint32_t (&pa)[32],
                                          uint32_t v_addr) {
   wgmma_fence();
@@ -79,7 +88,7 @@ __device__ __forceinline__ void issue_pv(float (&o)[32],
   for (int kk = 0; kk < kBN / 16; ++kk) {
     const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
                            pa[4 * kk + 3]};
-    wgmma_rs<E, 64>(o, a, desc_mnmajor(v_addr + kk * 2048, kBox));
+    wgmma_rs<E, D>(o, a, desc_mnmajor(v_addr + kk * 2048, kBox));
   }
   wgmma_commit();
 }
@@ -129,13 +138,13 @@ __device__ __forceinline__ void softmax_tile(const Rows& rows, float (&s)[64],
 }
 
 // Rescale O by the step's corr, then P (E pairs) from the probabilities.
-template <typename E>
-__device__ __forceinline__ void rescale_pack(float (&o)[32],
+template <typename E, int D>
+__device__ __forceinline__ void rescale_pack(float (&o)[D / 2],
                                              const float (&corr)[2],
                                              const float (&s)[64],
                                              uint32_t (&pa)[32]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] *= corr[(i / 2) % 2];
+  for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i / 2) % 2];
   acc_to_a<E>(s, pa);
 }
 
@@ -160,12 +169,14 @@ __device__ __forceinline__ void first_turn(int wg) {
 // kernels' producers (empty[] counts 256 arrivals: both consumer
 // warpgroups).  This warpgroup sees tiles [first, last) (keys k_lo + it *
 // kBN); the others it only waits for, passes its turn on and releases.
-// Returns with every product retired.
-template <typename E, int kStages, int kTile, class Rows>
+// Returns with every product retired.  D is the head dim (64, 80 or 96).
+template <typename E, int D, int kStages, int kTile, class Rows>
 __device__ __forceinline__ void attend_tiles(
     const Rows& rows, uint32_t q_addr, uint32_t kv0, uint64_t* full,
     uint64_t* empty, int g0, int n_tiles, int first, int last, int k_lo,
-    int t, float (&o)[32], float (&m)[2], float (&l)[2]) {
+    int t, float (&o)[D / 2], float (&m)[2], float (&l)[2]) {
+  static_assert(D == 64 || D == 80 || D == 96,
+                "the shared consumer takes head dims 64, 80 and 96");
   const int wg = threadIdx.x / 128;
   const auto k_at = [&](int g) {
     return kv0 + (uint32_t)((g % kStages) * 2 * kTile);
@@ -184,7 +195,7 @@ __device__ __forceinline__ void attend_tiles(
     int g = g0 + first;
     mbar_wait(&full[g % kStages], (g / kStages) & 1);
     turn_wait(wg);
-    issue_s<E>(s, q_addr, k_at(g));
+    issue_s<E, D>(s, q_addr, k_at(g));
     turn_pass(wg);
     wgmma_wait<0>();
     fence_regs(s);
@@ -193,10 +204,10 @@ __device__ __forceinline__ void attend_tiles(
     for (int it = first; it + 1 < last; ++it, ++g) {
       mbar_wait(&full[(g + 1) % kStages], ((g + 1) / kStages) & 1);
       turn_wait(wg);
-      issue_s<E>(s, q_addr, k_at(g + 1));
+      issue_s<E, D>(s, q_addr, k_at(g + 1));
       fence_regs(o);
       fence_regs(pa);
-      issue_pv<E>(o, pa, k_at(g) + kTile);
+      issue_pv<E, D>(o, pa, k_at(g) + kTile);
       turn_pass(wg);
       wgmma_wait<1>();                  // S of the next tile complete
       fence_regs(s);
@@ -205,12 +216,12 @@ __device__ __forceinline__ void attend_tiles(
       fence_regs(o);
       fence_regs(pa);
       mbar_arrive(&empty[g % kStages]);
-      rescale_pack<E>(o, corr, s, pa);
+      rescale_pack<E, D>(o, corr, s, pa);
     }
     turn_wait(wg);                      // the last tile's P V
     fence_regs(o);
     fence_regs(pa);
-    issue_pv<E>(o, pa, k_at(g) + kTile);
+    issue_pv<E, D>(o, pa, k_at(g) + kTile);
     turn_pass(wg);
     wgmma_wait<0>();
     fence_regs(o);

@@ -14,12 +14,13 @@ per-query-head fp32 dK/dV over the GQA group.  The plain versions are in
 ``ops/flash_attention.py``, with the ``torch.autograd.Function`` that picks
 between them.  The kernels are built for head dims 64, 80, 96, 128 and 256
 (:data:`FLASH_HEAD_DIMS`, each a template instantiation of the same
-bodies; the bf16 / fp16 forward's consumer at 64 is a body of its own,
-which runs each tile's softmax under the products of its neighbours; 80
-and 96 -- gpt_2_7b's and gpt_760m's -- take the tiles of 128, whose
-columns past the head dim TMA fills with zeros, and read q, k, v and dO
-as they are: no padded copy; 256 -- Gemma's -- takes 64-key K/V tiles,
-and its dK/dV blocks split the head dim between their two warpgroups);
+bodies; the bf16 / fp16 forward at 64, 80 and 96 is a persistent body
+of its own, which runs each tile's softmax under the products of its
+neighbours; 80 and 96 -- gpt_2_7b's and gpt_760m's -- take the tiles of
+128, whose columns past the head dim TMA fills with zeros, and read q, k,
+v and dO as they are: no padded copy; 256 -- Gemma's -- takes 64-key K/V
+tiles, and its dK/dV blocks split the head dim between their two
+warpgroups);
 any other head dim raises ``NotImplementedError`` naming ROADMAP A16, as
 :func:`check_head_dim` does at the entry points' construction.
 """

@@ -20,8 +20,9 @@ CUDA-graph replay over 4 rotating input sets at the training paths'
 shapes (B=2, 16 heads of 128, causal: S=1024; S=2048 with ALiBi, window
 256, and unscaled; with ``--head-dim 64``: gpt_350m's B=8 S=1024, 16
 heads, and B=2 S=2048 with ALiBi and with window 256, 16 heads of 64;
-``--head-dim 96``: gpt_760m's B=8 S=1024, 16 heads; ``--head-dim 80``:
-gpt_2_7b's B=8 S=1024, 32 heads; ``--head-dim 256``: Gemma-2B's B=2
+``--head-dim 96``: gpt_760m's B=8 S=1024, 16 heads, and B=2 S=2048 with
+ALiBi; ``--head-dim 80``: gpt_2_7b's B=8 S=1024, 32 heads, and B=2 S=2048
+with ALiBi, 32 heads; ``--head-dim 256``: Gemma-2B's B=2
 S=2048, 8 heads over one kv head, and B=2 S=2048 with ALiBi, 8 heads);
 the first variant is timed again at the
 end, so drift shows.  Several head dims run one after the other on one
@@ -74,8 +75,10 @@ SHAPES = {  # head dim -> [(label, B, S, ALiBi, window, scale[, heads[,
          # blocks of up to 64 key tiles: the cost of a tile apart from a
          # block's start and end
          ("long B=1 S=8192", 1, 8192, False, None, None)],
-    96: [("gpt_760m B=8 S=1024", 8, 1024, False, None, None)],
-    80: [("gpt_2_7b B=8 S=1024 H32", 8, 1024, False, None, None, 32)],
+    96: [("gpt_760m B=8 S=1024", 8, 1024, False, None, None),
+         ("ALiBi S=2048", 2, 2048, True, None, None)],
+    80: [("gpt_2_7b B=8 S=1024 H32", 8, 1024, False, None, None, 32),
+         ("ALiBi S=2048 H32", 2, 2048, True, None, None, 32)],
     256: [("gemma_2b B=2 S=2048 H8/1", 2, 2048, False, None, None, 8, 1),
           ("ALiBi S=2048 H8", 2, 2048, True, None, None, 8)]}
 

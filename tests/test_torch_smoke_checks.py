@@ -334,6 +334,24 @@ def test_d_suffix_names_each_head_dim(D, suffix):
     assert chip_smoke.d_suffix(D) == suffix
 
 
+@pytest.mark.parametrize("name", ["FLASH_CASES_D64", "FLASH_CASES_D80",
+                                  "FLASH_CASES_D96"])
+def test_persistent_forward_cases_keep_an_odd_walk(name):
+    """The persistent forward (head dims 64, 80, 96) walks q tiles in pairs
+    of one (batch, head): its kernel phase keeps a causal case over an odd
+    B * H whose length does not tile, a GQA and a non-causal case, and at
+    80 and 96 one with an odd count of 128-row q tiles (a unit of one
+    tile)."""
+    cases = getattr(chip_smoke, name)
+    odd = [(S, causal) for _, B, S, H, _, causal, _ in cases
+           if (B * H) % 2 and S % 128]
+    assert any(causal for _, causal in odd)
+    assert any(H != Hkv for _, _, _, H, Hkv, _, _ in cases)
+    assert not all(causal for *_, causal, _ in cases)
+    if name != "FLASH_CASES_D64":
+        assert any(causal and -(-S // 128) % 2 for S, causal in odd)
+
+
 def test_cli_models_are_the_benchmark_shapes_at_their_head_dims():
     """Each ds_bench train model the smoke drives has the head dim its
     rows are named for, and is the JAX benchmark's shape; the flags name
