@@ -24,7 +24,8 @@ kernels.  Phases:
   2 build    nvcc, one process per kernel source, all at once; ptxas's
              registers and spills of every kernel, none allowed in the
              split-key decode body (every head dim), the head-dim-64
-             tensor-core consumer, the head-dim-80 and -96 flash forms,
+             tensor-core consumer, B2's persistent bodies at head dim
+             64, the head-dim-80 and -96 flash forms,
              every head-dim-256 flash form (fp32 too), B6's fp16 form,
              B4's tensor-core prefill tiles at 80, 96 and 256 or the
              CUDA-core tiles of B4 and B5 at 80, 96 and 256 (NO_SPILL);
@@ -55,7 +56,10 @@ kernels.  Phases:
              ALiBi + window with MQA) (bf16 O, dQ, dK,
              dV of the tensor-core kernels: one
              ulp, or within 2x SDPA's error on the same inputs, both
-             readings printed); decode attention at head dims 128 and 64
+             readings printed); the backward's delta kernel against its
+             plain version on every flash case, and at gpt_2_7b's shape
+             dK, dV in k's dtype from the kernel, returned as they are
+             (group 1: no sum, no cast); decode attention at head dims 128 and 64
              (TinyLlama-1.1B's 32/4 heads: T=1, 5, 128), where its key
              chunks meet a sequence's length at 1, 4 and 8 rows a kv
              head; ragged paged attention's decode rows (1-8 rows a kv
@@ -174,7 +178,9 @@ kernels.  Phases:
   9 timing   each kernel at the main path's shapes vs its bound, its plain
              version and one PyTorch library call (a yardstick only), the
              flash kernels in bf16 and fp16 and at GPT-Neo's global
-             layers' shape, at head dim 64 at gpt_350m's training shape
+             layers' shape, and B2 at each training shape as a pair (dQ +
+             dK/dV) and as the training path calls it (delta, dQ, dK/dV,
+             a group's sum and cast), both against SDPA's backward, at head dim 64 at gpt_350m's training shape
              (bf16, fp16), at gpt_760m's and gpt_2_7b's (head dims 96
              and 80: bf16, fp16), BLOOM-560m's ALiBi and GPT-Neo-125M's
              window, ALiBi at head dims 96 and 80 (printed only: off the
@@ -202,6 +208,7 @@ last line is printed.  It imports nothing of JAX or ``deepspeed_tpu``.
 
 import argparse
 import dataclasses
+import faulthandler
 import json
 import math
 import os
@@ -234,6 +241,7 @@ TOL = {"float32": (1e-4, 1e-4),   # both in fp32; only the summation order
 # exact answer and against the plain version on the kernel's inputs.
 WITNESS_FACTOR = 2.0
 E2E_REL_TOL = 5e-2        # bf16 logits after 2 layers, relative to max|logit|
+KERNEL_PHASES_TIMEOUT = 600   # s: phase 3's four kernel checks (~130 s)
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -502,17 +510,16 @@ def ptxas_usage(log):
 # registers hold the loads in flight (every row count, dtype and head
 # dim, 256 included), the head-dim-64 tensor-core consumer of B1's forward
 # and B4's prefill tiles (wgmma_attention.cuh: S, P and O in registers
-# while products run), the head-dim-80 and -96 tensor-core forms of B1, B2
-# and B4's prefill tiles, B4's prefill tiles at 256, and the head-dim-80,
+# while products run), the persistent bodies of B2 (dQ and dK/dV) at head
+# dims 64, 80 and 96, the head-dim-80 and -96 tensor-core forms of B1 and
+# B4's prefill tiles, B4's prefill tiles at 256, and the head-dim-80,
 # -96 and -256 CUDA-core tiles of B4 and B5 (attention_tile.cuh); every
 # form of B1 and B2 at head dim 256 (fp32 included) and B6's fp16 form;
 # by demangled or mangled name
 NO_SPILL = (r"split_kernel|split_tc_kernel|combine_kernel|"
-            r"flash_fwd_kernel(<(__nv_bfloat16|__half), \w+, \w+, 64>|"
-            r"I(13__nv_bfloat16|6__half)Lb[01]ELb[01]ELi64E)|"
             r"flash_(fwd|bwd_dq|bwd_dkv)_kernel("
-            r"<(__nv_bfloat16|__half), \w+, \w+, (80|96)>|"
-            r"I(13__nv_bfloat16|6__half)Lb[01]ELb[01]ELi(80|96)E)|"
+            r"<(__nv_bfloat16|__half), \w+, \w+, (64|80|96)>|"
+            r"I(13__nv_bfloat16|6__half)Lb[01]ELb[01]ELi(64|80|96)E)|"
             r"flash_(fwd|bwd_dq|bwd_dkv)_kernel(<\w+, \w+, \w+, 256>|"
             r"I\w+Lb[01]ELb[01]ELi256E)|"
             r"sparse_tc_kernel(<__half, |I6__half)|"
@@ -1098,20 +1105,23 @@ FLASH_CASES = [("path B=2 S=1024 H16/16", 2, 1024, 16, 16, True, None),
                ("non-tiling non-causal B=1 S=1000 H4/2", 1, 1000, 4, 2,
                 False, None)]
 # the same at head dim 64: gpt_350m's training shape (the CLI's default),
-# GQA, and gpt2_1_5b's 25 heads (B * H odd) over a length that does not
-# tile
+# GQA, gpt2_1_5b's 25 heads (B * H odd) over a length that does not
+# tile, and for the persistent walks (pairs of 128-row tiles, head by
+# head) an odd tile count over an odd B * H: 9 tiles, the last ragged, 5
+# heads
 FLASH_CASES_D64 = [("gpt_350m B=8 S=1024 H16/16", 8, 1024, 16, 16, True,
                     None),
                    ("GQA B=2 S=256 H16/4", 2, 256, 16, 4, True, None),
                    ("gpt2_1_5b heads non-tiling B=1 S=1000 H25/25", 1, 1000,
                     25, 25, True, None),
                    ("non-tiling non-causal B=1 S=1000 H4/2", 1, 1000, 4, 2,
-                    False, None)]
+                    False, None),
+                   ("odd q tiles, odd B*H B=1 S=1100 H5/5", 1, 1100, 5, 5,
+                    True, None)]
 # the same at head dims 96 and 80: gpt_760m's and gpt_2_7b's training
 # shapes (B=8, S=1024, 16 heads of 96, 32 of 80), GQA 32/8, a length that
-# does not tile, non-causal, and for the persistent walk (pairs of q
-# tiles, head by head) an odd q-tile count over an odd B * H: 9 tiles, the
-# last ragged, 5 heads
+# does not tile, non-causal, and for the persistent walks an odd tile
+# count over an odd B * H
 FLASH_CASES_D96 = [("gpt_760m B=8 S=1024 H16/16", 8, 1024, 16, 16, True,
                     None),
                    ("GQA B=2 S=256 H32/8", 2, 256, 32, 8, True, None),
@@ -1156,18 +1166,84 @@ def check_adam(label, got, want):
     return worst
 
 
+# the delta kernel against its plain version (both fp32 sums of the same
+# products, in another order): |kernel - plain| <= atol + rtol * sum_d
+# |dO * O|, the scale of a reordered sum's rounding
+DELTA_TOL = (1e-6, 1e-6)
+
+
+def check_delta(name, got, out, dout):
+    """The delta kernel's fp32 [B, H, S] ``got`` against its plain version
+    on the same O and dO, within DELTA_TOL; returns the max abs error."""
+    import torch
+    from deepspeed_tpu_torch.ops.flash_attention import \
+        flash_attention_bwd_delta_plain
+    want = flash_attention_bwd_delta_plain(out, dout)
+    if got.dtype != want.dtype or got.shape != want.shape or \
+            not torch.isfinite(got).all():
+        fail(f"{name}: {got.dtype} {tuple(got.shape)}, finite "
+             f"{bool(torch.isfinite(got).all())}; want {want.dtype} "
+             f"{tuple(want.shape)}")
+    mag = (dout.float() * out.float()).abs().sum(-1).transpose(1, 2)
+    err = (got - want).abs()
+    atol, rtol = DELTA_TOL
+    bad = int((err > atol + rtol * mag).sum())
+    if bad:
+        fail(f"{name}: {bad} elements outside atol {atol} + rtol {rtol} x "
+             f"sum|dO O|, max abs err {err.max().item():.3e}")
+    phase("kernels", f"{name}: max abs err {err.max().item():.3e} (atol "
+          f"{atol} + rtol {rtol} x sum|dO O|)")
+    return err.max().item()
+
+
+def check_group1_outputs(label, q, k, v, out, lse, dout, scale):
+    """At group 1 the dK/dV kernel's wrapper returns dK and dV in k's dtype
+    at k's shape, and ``flash_attention_bwd_cuda`` returns those very
+    tensors: no group sum and no cast runs after the kernel."""
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    if k.shape[2] != q.shape[2]:
+        fail(f"{label}: not a group-1 case")
+    made = []
+    dkv = fa.flash_attention_bwd_dkv_cuda
+
+    def spy(*a, **kw):
+        made.append(dkv(*a, **kw))
+        return made[-1]
+
+    spy.launches = 0
+    fa.flash_attention_bwd_dkv_cuda = spy
+    try:
+        _, dk, dv = fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout,
+                                                scale)
+    finally:
+        fa.flash_attention_bwd_dkv_cuda = dkv
+    kdk, kdv = made[0]
+    if (kdk.dtype, kdv.dtype) != (k.dtype, v.dtype) or \
+            kdk.shape != k.shape or kdv.shape != v.shape:
+        fail(f"{label}: the dK/dV kernel returned {kdk.dtype} "
+             f"{tuple(kdk.shape)}, not k's {k.dtype} {tuple(k.shape)}")
+    if dk is not kdk or dv is not kdv:
+        fail(f"{label}: flash_attention_bwd_cuda did not return the dK/dV "
+             f"kernel's own outputs at group 1 (a sum or cast ran)")
+    phase("kernels", f"{label}: dK, dV in {k.dtype} at {tuple(k.shape)} "
+          f"from the kernel, returned as they are")
+
+
 def phase_train_kernels():
     """B1, B2 (dQ and dK/dV) and B3 vs their plain versions run in fp32
     on the kernels' own inputs: O and LSE of the forward; dQ, dK, dV of
     the backward from the kernel's own (O, LSE) and one dO (check_flash:
-    bf16 and fp16 O, dQ, dK and dV also against SDPA's error).  B3 with
+    bf16 and fp16 O, dQ, dK and dV also against SDPA's error); the delta
+    kernel against its plain version on every case (check_delta), and at
+    gpt_2_7b's shape the group-1 outputs (check_group1_outputs).  B3 with
     its skip flag 0 against the plain version, and with the flag 1: p, m,
     v and the count unchanged, bit for bit."""
     import torch
     from deepspeed_tpu_torch.ops.adam import (AdamState, adam_hyper,
                                               fused_adam, reference_impl)
     from deepspeed_tpu_torch.ops.cuda.flash_attention import (
-        flash_attention_bwd_cuda, flash_attention_fwd_cuda)
+        flash_attention_bwd_cuda, flash_attention_bwd_delta_cuda,
+        flash_attention_fwd_cuda)
     gen = torch.Generator(device="cuda").manual_seed(4321)
     errs = {}
 
@@ -1191,6 +1267,13 @@ def phase_train_kernels():
                 check_flash(note, d_suffix(D), f"{dn} {label} D={D} "
                             f"causal={causal}", (q, k, v, dout), scale,
                             causal, {}, out, lse, got)
+                note("flash_attention_bwd_delta", dn, check_delta(
+                    f"flash_attention_bwd_delta {dn} {label} D={D}",
+                    flash_attention_bwd_delta_cuda(out, dout), out, dout))
+                if D == 80 and dtype == torch.bfloat16 and H == Hkv and \
+                        label.startswith("gpt_2_7b"):
+                    check_group1_outputs(f"{dn} {label} D={D}", q, k, v,
+                                         out, lse, dout, scale)
                 del q, k, v, dout, out, lse, got
 
     for g_dtype in (torch.float32, torch.bfloat16):
@@ -1578,6 +1661,8 @@ def _counted():
             fa.flash_attention_bwd_dq_biased_cuda, "launches"),
         "flash_attention_bwd_dkv_biased": (
             fa.flash_attention_bwd_dkv_biased_cuda, "launches"),
+        "flash_attention_bwd_delta": (fa.flash_attention_bwd_delta_cuda,
+                                      "launches"),
         "sparse_attention": (spa.sparse_attention_cuda, "launches"),
         "decode_attention_plain": (da.decode_attention_plain, "calls"),
         "paged_attention_plain": (rp.paged_attention_plain, "calls"),
@@ -1585,6 +1670,8 @@ def _counted():
             flash_attention.flash_attention_fwd_plain, "calls"),
         "flash_attention_bwd_plain": (
             flash_attention.flash_attention_bwd_plain, "calls"),
+        "flash_attention_bwd_delta_plain": (
+            flash_attention.flash_attention_bwd_delta_plain, "calls"),
         "fused_adam_plain": (adam.reference_impl, "calls"),
         "sparse_attention_plain": (ssa.sparse_attention_plain, "calls"),
     }
@@ -3197,8 +3284,9 @@ def _free():
 def train_launches(cfg, gas, calls):
     """Kernel launches of ``calls`` train_batch calls of a model with
     config ``cfg``: per layer and micro-batch the flash forward twice
-    (remat recomputes it in the backward) and each backward kernel once,
-    then fused Adam once per call.  A layer with ALiBi slopes or a window
+    (remat recomputes it in the backward) and each backward kernel once
+    (the delta kernel beside dQ, biased or not), then fused Adam once per
+    call.  A layer with ALiBi slopes or a window
     > 0 takes the biased kernels; the others -- GPT-Neo's global layers,
     window 0, among them -- the unbiased ones, which compute the same
     values.  Every other kernel launches 0 times."""
@@ -3213,6 +3301,7 @@ def train_launches(cfg, gas, calls):
                  "flash_attention_fwd_biased": 2 * biased * n,
                  "flash_attention_bwd_dq_biased": biased * n,
                  "flash_attention_bwd_dkv_biased": biased * n,
+                 "flash_attention_bwd_delta": cfg.n_layers * n,
                  "fused_adam": calls})
     return want
 
@@ -3800,18 +3889,28 @@ def phase_train_e2e_fp16(name=TRAIN_MODEL, seq=TRAIN_SEQ,
                 norm_rel=norm_rel, m_rels=m_rels, upd_rel=upd_rel)
 
 
+def backward_factors(called_ms, pair_ms, sdpa_bwd_ms):
+    """B2 against the one library call that computes the same function --
+    SDPA's backward, which returns dQ, dK and dV together: the backward as
+    the training path calls it (delta, dQ, dK/dV, a group's sum and cast)
+    and the pair of kernels dQ + dK/dV, each over SDPA's time."""
+    return {"called": called_ms / sdpa_bwd_ms, "pair": pair_ms / sdpa_bwd_ms}
+
+
 def flash_timing(errs, B, S, H, Hkv, D, gen):
     """B1 and B2 (dQ, dK/dV) at one causal training shape [B, S, H (Hkv),
     D] in bf16 and in fp16: kernel, plain version, library call (SDPA in
     the same dtype) and bound, by CUDA-graph replay over 4 rotating input
-    sets (more than the 50 MB L2).  Returns {kernel: row} for bf16 and
-    {(kernel, "fp16"): row} for fp16, the kernels named with d_suffix(D).
-    """
+    sets (more than the 50 MB L2); and the backward as the training path
+    calls it (``flash_attention_bwd_cuda``) and the pair dQ + dK/dV, each
+    against SDPA's backward (:func:`backward_factors`).  Returns {kernel:
+    row} for bf16 and {(kernel, "fp16"): row} for fp16, the kernels named
+    with d_suffix(D)."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.cuda.flash_attention import (
-        flash_attention_bwd_dkv_cuda, flash_attention_bwd_dq_cuda,
-        flash_attention_fwd_cuda)
+        flash_attention_bwd_cuda, flash_attention_bwd_dkv_cuda,
+        flash_attention_bwd_dq_cuda, flash_attention_fwd_cuda)
     from deepspeed_tpu_torch.ops.flash_attention import (
         flash_attention_bwd_plain, flash_attention_fwd_plain)
     c = 4
@@ -3861,7 +3960,21 @@ def flash_timing(errs, B, S, H, Hkv, D, gen):
             q[i], k[i], v[i], do[i], lse[i], delta[i], scale), c)
         dkv_ms = graph_ms(lambda i: flash_attention_bwd_dkv_cuda(
             q[i], k[i], v[i], do[i], lse[i], delta[i], scale), c)
+        pair_ms = graph_ms(lambda i: (
+            flash_attention_bwd_dq_cuda(q[i], k[i], v[i], do[i], lse[i],
+                                        delta[i], scale),
+            flash_attention_bwd_dkv_cuda(q[i], k[i], v[i], do[i], lse[i],
+                                         delta[i], scale)), c)
+        called_ms = graph_ms(lambda i: flash_attention_bwd_cuda(
+            q[i], k[i], v[i], o[i], lse[i], do[i], scale), c)
         shape = f"B={B} S={S} H={H}/{Hkv} D={D} causal {dn}"
+        f = backward_factors(called_ms, pair_ms, lib_bwd_ms)
+        phase("timing", f"B2 backward as called [{shape}]: "
+              f"flash_attention_bwd_cuda {called_ms:.4f} ms (delta, dQ, "
+              f"dK/dV{', group sum and cast' if H != Hkv else ''}) = "
+              f"{f['called']:.2f}x SDPA's backward {lib_bwd_ms:.4f} ms; "
+              f"pair dQ + dK/dV {pair_ms:.4f} ms (dQ {dq_ms:.4f}, dK/dV "
+              f"{dkv_ms:.4f}) = {f['pair']:.2f}x")
         for base, key, ms, plain_ms, lib_ms in (
                 ("flash_attention_fwd", "fwd", fwd_ms, plain_fwd_ms,
                  lib_fwd_ms),
@@ -3886,11 +3999,15 @@ def flash_timing(errs, B, S, H, Hkv, D, gen):
               f"SDPA fp16 {res[(name, 'fp16')]['library_ms']:.4f} ms")
     for key, r in res.items():
         name = key if isinstance(key, str) else f"{key[0]} {key[1]}"
+        # B2's kernels are each half of the library call's function: their
+        # factor is the pair's, printed above
+        versus = (f", {r['ms'] / r['library_ms']:.2f}x the library's time"
+                  if name.startswith("flash_attention_fwd") else "")
         phase("timing", f"{name} [{r['shape']}]: device ms kernel "
               f"{r['ms']:.4f}, plain {r['plain_ms']:.4f}, library "
               f"{r['library_ms']:.4f}; bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.3f} of bound, "
-              f"{r['ms'] / r['library_ms']:.2f}x the library's time")
+              f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.3f} of "
+              f"bound{versus}")
     return res
 
 
@@ -4672,10 +4789,14 @@ def main():
 
     phase_build()
     phase_sass()
+    # a kernel that hangs (its warpgroups' turns out of step) ends the run
+    # here, not at its time limit
+    faulthandler.dump_traceback_later(KERNEL_PHASES_TIMEOUT, exit=True)
     errs = phase_kernels()
     errs.update(phase_train_kernels())
     errs.update(phase_biased_kernels())
     errs.update(phase_sparse_kernels())
+    faulthandler.cancel_dump_traceback_later()
     if args.kernels_only:
         phase("done", f"kernels only, {time.time() - t_start:.1f} s")
         return

@@ -4,29 +4,31 @@
 // and _bwd_dq_kernel_biased (body _bwd_dq_impl), _bwd_dkv_kernel and
 // _bwd_dkv_kernel_biased (body _bwd_dkv_impl); host side
 // _flash_bwd_pallas.  Both recompute P = exp(scale * Q K^T - LSE) tile by
-// tile from the forward's fp32 LSE, zeroing it where the masked score is
-// <= -1e30 / 2 (so a masked entry contributes exactly 0), and use
-// delta = sum_d dO * O (fp32 [B, H, S], computed by the wrapper):
+// tile from the forward's fp32 LSE, zeroing it where the score is masked
+// (so a masked entry contributes exactly 0), and use delta = sum_d dO * O
+// (fp32 [B, H, S], the delta kernel at the end of this file):
 //   dS = P * (dO V^T - delta) * scale
-//   dQ = sum over key tiles of dS K          (one block per q tile)
+//   dQ = sum over key tiles of dS K          (items of 128 query rows)
 //   dK = sum over q tiles of dS^T Q,  dV = sum over q tiles of P^T dO
-//                                            (one block per key tile)
-// dQ is stored in q's dtype.  dK and dV are stored in fp32 per QUERY head
-// ([B, S, H, D]); the wrapper sums them over the GQA group and casts, as
-// _flash_bwd_pallas does, so no atomics are needed and runs repeat bit for
-// bit.  The biased instantiations add slope[h] * key after the scale and
-// mask keys outside the sliding window, as the TPU kernels do; the dQ
-// kernel's key loop starts at the first tile the window reaches, and the
-// dK/dV kernel's q loop ends after the last q tile that can see its keys.
-// Any S is taken: ragged last tiles are masked.
+//                                            (items of 128 keys)
+// dQ is stored in q's dtype.  dK and dV are stored in k's dtype when the
+// GQA group is 1; at a larger group in fp32 per QUERY head ([B, S, H, D]),
+// which the wrapper sums over the group and casts, as _flash_bwd_pallas
+// does.  No atomics either way, so runs repeat bit for bit.  The biased
+// instantiations add slope[h] * key after the scale and mask keys outside
+// the sliding window, as the TPU kernels do; the dQ kernel's key loop
+// starts at the first tile the window reaches, and the dK/dV kernel's q
+// loop ends after the last q tile that can see its keys.  Any S is taken:
+// ragged last tiles are masked.
 //
 // What bounds them on the H100: at gpt_1b's training shape (B=2, S=1024,
 // 16 heads of 128, causal, bf16) dQ does 3*B*H*S^2*D = 12.9 GFLOP on 42 MB,
 // 307 flop per byte, over the ~295 flop/byte ridge: the tensor cores bound
 // it (13.0 us).  dK/dV does 4*B*H*S^2*D = 17.2 GFLOP on 51 MB (dK and dV
 // counted in k's dtype at Hkv heads, as the function returns them), 340
-// flop per byte: the tensor cores bound it too (17.4 us); its fp32
-// per-query-head outputs write 34 MB more than that.  BLOOM's ALiBi layers
+// flop per byte: the tensor cores bound it too (17.4 us).  At group 1 it
+// writes dK and dV in k's dtype, as counted; at a larger group its fp32
+// per-query-head outputs write 2 x group x as many bytes.  BLOOM's ALiBi layers
 // (S=2048) do 4x the work and are bound by operations; a window of 256 at
 // S=2048 leaves 491,648 of the 2,098,176 causal (q, k) pairs and is bound
 // by bytes.
@@ -41,9 +43,9 @@
 // reports any step where the kernels and the plain versions disagree on
 // overflow.
 //
-// dK/dV: tensor cores fed by TMA.  One block of three warpgroups per
-// (128-key tile, b * h), the key tiles with the longest causal q loops
-// first.  K and V (32 KB each) stay in shared memory for the block; a
+// dK/dV at head dims 128 and 256: tensor cores fed by TMA.  One block of
+// three warpgroups per (128-key tile, b * h), the key tiles with the
+// longest causal q loops first.  K and V (32 KB each) stay in shared memory for the block; a
 // producer warp streams 64-row Q and dO tiles through a two-stage ring
 // (TMA, 128-byte swizzle, rows past S zero-filled) and writes their rows'
 // LSE and delta beside them.  Two consumer warpgroups own 64 keys each and
@@ -59,9 +61,10 @@
 // the tile; masks apply only on tiles that touch the diagonal, the window
 // edge or S.
 //
-// dQ, bf16/fp16: the same shape as the forward with two score products,
-// dS in P's place.  One block of three warpgroups per (128-row q tile, b * h),
-// the q tiles with the longest causal key loops first.  A producer warp
+// dQ at head dims 128 and 256, bf16/fp16: the same shape as the forward
+// with two score products, dS in P's place.  One block of three
+// warpgroups per (128-row q tile, b * h), the q tiles with the longest
+// causal key loops first.  A producer warp
 // loads the Q and dO tiles once and streams 64-key K and V tiles through a
 // two-stage ring (TMA, 128-byte swizzle, rows past S zero-filled); Q and
 // dO are read at H heads, K and V at Hkv, so GQA reads its kv head
@@ -77,28 +80,57 @@
 // frontier.  dQ stays a kernel of its own, summed in registers: no fp32
 // atomics, so runs repeat bit for bit.
 //
-// Head dim 64: the same bodies with D = 64 as a template argument.  Every
-// Q, dO, K and V tile is one 64-column TMA box instead of two, so the
-// score products (S = Q K^T, dP = dO V^T and their transposes), whose depth
-// is D, walk 4 slices instead of 8; the products whose N is D (dQ += dS K,
-// dV += P^T dO, dK += dS^T Q) are m64n64, which halves the accumulators:
-// dQ takes 32 fp32 registers a thread, dK + dV 64 instead of 128.  The
-// tiles are half the bytes, so each ring holds 4 stages instead of 2.  One
-// block still runs on an SM: two would leave the consumers under 116
-// registers, below S + dP + the accumulators, so setmaxnreg stays 240 / 24.
-// At gpt_350m's training shape (B=8, S=1024, 16 heads of 64, causal) dQ
-// does 25.8 GFLOP on 85 MB and dK/dV 34.4 GFLOP on 102 MB: both bound by
-// the tensor cores (26.1 and 34.7 us).
-//
-// Head dims 80 (gpt_2_7b) and 96 (gpt_760m): the same bodies again, with
-// D = 128's tiles and stages.  A tile is two 64-column TMA boxes whose
-// columns past D TMA fills with zeros without reading HBM; the score
-// products walk D / 16 slices (5 or 6), and the products whose N is D are
-// m64n80 or m64n96, reading only the D columns of dO, Q or K: dQ takes 40
-// or 48 fp32 registers a thread, dK + dV 80 or 96.  At gpt_2_7b's training
-// shape (B=8, S=1024, 32 heads of 80, causal) dQ does 64.4 GFLOP and dK/dV
-// 85.9, at gpt_760m's (16 heads of 96) 38.7 and 51.5: all bound by the
-// tensor cores (65.1 and 86.9 us; 39.1 and 52.1 us).
+// Head dims 64 (gpt_350m), 80 (gpt_2_7b) and 96 (gpt_760m), bf16 / fp16:
+// bodies of their own (pb:: below).  At gpt_2_7b's training shape (B=8,
+// S=1024, 32 heads of 80, causal) dQ does 64.4 GFLOP and dK/dV 85.9, at
+// gpt_760m's (16 heads of 96) 38.7 and 51.5, at gpt_350m's (16 of 64)
+// 25.8 and 34.4: all bound by the tensor cores (dQ 65.1, 39.1, 26.1 us;
+// dK/dV 86.9, 52.1, 34.7 us).  The D = 128 bodies above ran them at 4.0,
+// 3.6 and 4.4x (dQ) and 5.0, 4.2 and 4.6x (dK/dV) those bounds: each
+// warpgroup ran its score products, then the exponentials and dS on the
+// accumulators, then the accumulating products, in series and in step
+// with the other; a 64-key (or 64-row) tile's products at these D are
+// 1/2 to 3/4 as long as at 128, and the elementwise work a score is not;
+// and every block paid its own start (barriers, the resident tiles, the
+// ring's fill) for 2-16 tiles.  What the bodies do about it:
+//   * persistent: one block an SM walks items -- dQ a 128-row q tile, dK/dV
+//     a 128-key tile -- in pairs of equal causal work, head by head
+//     (pb::Pairs), the producer streaming every item's 64-row tiles
+//     through one ring, so a block's start is paid once;
+//   * fewer FP32 operations a score: scale * log2(e) folded into the FFMA
+//     that feeds ex2 (ALiBi's slope * key * log2(e) into the same chain),
+//     dS = P * fma(dP, scale, -delta * scale) with delta * scale formed once
+//     a row (dS keeps its magnitude: in fp16 it is rounded to an A operand
+//     while the loss scale rides in dO), masks only on tiles that cross a
+//     row's bounds, as two compares;
+//   * the tensor cores kept busy through the elementwise work
+//     (pb::walk_tiles): dQ in FA3's order within a warpgroup -- S and dP
+//     of the next key tile issued with dQ += dS K of this one, its P and
+//     dS formed while that product runs; dK/dV with the two warpgroups
+//     taking turns to issue (ping-pong on named barriers 1 and 2), so one
+//     warpgroup's products run under the other's exponentials;
+//   * a deeper ring: at 80 and 96 one resident buffer and 4 stages of
+//     32 KB (192 KB; the producer loads an item's resident tiles after its
+//     first streamed one), at 64 two buffers and 6 stages of 16 KB;
+//   * dK/dV's producer in two warps, one issuing TMA, one writing the
+//     stages' LSE and delta rows, whose global loads had held up the ring
+//     when one warp did both;
+//   * dQ, dK and dV stored 16 bytes a lane (store_rows).
+// A tile is two 64-column TMA boxes at 80 and 96, whose columns past D
+// TMA fills with zeros without reading HBM; the score products walk D / 16
+// slices and the products whose N is D are m64nD.  Registers: dQ's
+// consumers hold S, dP (32 + 32), dS as A operands (16) and dQ (D / 2) of
+// setmaxnreg's 240; dK/dV's hold S^T, dP^T (32 + 32), P^T and dS^T (16 +
+// 16, not while S^T and dP^T are), dK and dV (D) of 232, its producer
+// warps 40 (at 24 they spilled; at D = 96 the consumers spill unless the
+// walk's constants and the item's indices are formed anew where used).
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W by
+// scripts/flash_kernel_ab.py (parent, this body, parent; bf16), dQ / dK/dV
+// ms: gpt_2_7b's shape 0.2623 / 0.4297 -> 0.1601 / 0.2413, gpt_760m's
+// 0.1389 / 0.2254 -> 0.0909 / 0.1337, gpt_350m's 0.1146 / 0.1596 ->
+// 0.0691 / 0.1087: the pair 0.79x, 0.79x and 0.87x SDPA's backward (was
+// 1.34x, 1.27x and 1.32x), 2.5, 2.3 and 2.6x (dQ) and 2.8, 2.6 and 3.1x
+// (dK/dV) their bounds.  PERF.md has every plan tried.
 //
 // Head dim 256 (Gemma): a tile is four 64-column boxes, and every
 // accumulator whose N is D is 128 fp32 registers a thread.
@@ -133,6 +165,7 @@
 // not fit a block's shared memory.
 #include "flash_tile.cuh"
 #include "hopper.cuh"
+#include "wgmma_attention.cuh"
 
 namespace {
 
@@ -197,7 +230,7 @@ struct DqParams {
   const float* delta;
   void* dq;
   const float* slopes;
-  int window, S, H, Hkv, causal;
+  int window, B, S, H, Hkv, causal;
   float scale;
 };
 
@@ -277,16 +310,17 @@ constexpr int BN = 64;                       // keys of a K/V tile
 constexpr int kThreads = 384;                // 2 consumer + 1 producer WG
 constexpr int kQBox = BM * hopper::kBoxCols * 2;    // one 64-column box
 constexpr int kKvBox = BN * hopper::kBoxCols * 2;
-// The shared-memory plan at head dim D: Q, dO, then kStages x (K, V),
-// then the barriers: Q/dO's, full[], empty[].  Tiles are whole 64-column
-// boxes (D = 80 and 96 take D = 128's).  At D = 256 Q and dO take 64 KB
-// each and a K/V stage 64 KB, so the ring has one stage (192 KB).
+// The shared-memory plan at head dim D (128 or 256; 64, 80 and 96 run the
+// persistent body): Q, dO, then kStages x (K, V), then the barriers:
+// Q/dO's, full[], empty[].  Tiles are whole 64-column boxes.  At D = 256 Q
+// and dO take 64 KB each and a K/V stage 64 KB, so the ring has one stage
+// (192 KB).
 template <int D>
 struct Smem {
-  // 32 and 16 KB at D = 80, 96 and 128; half that at 64, twice at 256
+  // 32 and 16 KB at D = 128, twice that at 256
   static constexpr int kQTile = BM * hopper::box_cols<D>() * 2;
   static constexpr int kKvTile = BN * hopper::box_cols<D>() * 2;
-  static constexpr int kStages = D == 64 ? 4 : D == 256 ? 1 : 2;
+  static constexpr int kStages = D == 256 ? 1 : 2;
   static constexpr int kStageOffset = 2 * kQTile;
   static constexpr int kBarOffset = kStageOffset + kStages * 2 * kKvTile;
   static constexpr size_t kBytes = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
@@ -456,21 +490,6 @@ __device__ __forceinline__ void dq_tensor_cores(const DqParams& p,
   }
 }
 
-template <typename T>
-constexpr int dq_threads() {
-  return std::is_same<T, float>::value ? kThreads : tcq::kThreads;
-}
-
-template <typename T, bool SLOPE, bool WINDOW, int D>
-__global__ void __launch_bounds__(dq_threads<T>(), 1)
-flash_bwd_dq_kernel(const __grid_constant__ DqParams p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  if constexpr (std::is_same<T, float>::value)
-    dq_cuda_cores<SLOPE, WINDOW, D>(p, reinterpret_cast<float*>(smem_raw));
-  else
-    dq_tensor_cores<T, SLOPE, WINDOW, D>(p, smem_raw);
-}
-
 // One parameter block for both dK/dV instantiations; the tensor maps are
 // the tensor-core kernels' and stay zero for fp32.
 struct DkvParams {
@@ -481,11 +500,12 @@ struct DkvParams {
   const void* dout;
   const float* lse;
   const float* delta;
-  float* dk;
-  float* dv;
+  void* dk;   // k's dtype at [B, S, Hkv, D] when H == Hkv, else fp32 at
+  void* dv;   // [B, S, H, D] (one row block per query head)
   const float* slopes;
-  int window, S, H, Hkv, causal;
-  float scale;
+  int window, B, S, H, Hkv, causal;
+  float scale, scale_log2e;   // the latter scale * log2(e), as the card
+                              // rounds it
 };
 
 // ---- dK/dV, fp32: CUDA cores --------------------------------------------
@@ -557,8 +577,8 @@ __device__ __forceinline__ void dkv_cuda_cores(const DkvParams& p,
       const long long at = hd.q_base + (long long)key * hd.q_stride;
 #pragma unroll
       for (int j = 0; j < J; ++j) {
-        p.dk[at + tx + 16 * j] = dk_acc[i][j];
-        p.dv[at + tx + 16 * j] = dv_acc[i][j];
+        static_cast<float*>(p.dk)[at + tx + 16 * j] = dk_acc[i][j];
+        static_cast<float*>(p.dv)[at + tx + 16 * j] = dv_acc[i][j];
       }
     }
   }
@@ -566,26 +586,124 @@ __device__ __forceinline__ void dkv_cuda_cores(const DkvParams& p,
 
 // ---- dK/dV, bf16 / fp16: tensor cores -------------------------------------
 
+// Rows row0 and row0 + 8 (r = 0, 1) of a warpgroup's m64nN fp32
+// accumulator ``acc``, rounded to E, to rows[r] (N columns; a null row is
+// not written).  The 4 lanes of a quad hold a row's column pairs 8 j + 2
+// (t % 4); for each 4 groups j they transpose them by two shuffles, so
+// that a lane writes the 8 columns of one group as one 16-byte store.
+// Groups past a multiple of 4 (N = 80: 2) go a pair a lane.  Every lane of
+// the warp must call it.
+template <typename E, int N>
+__device__ __forceinline__ void store_rows(E* const (&rows)[2],
+                                           const float (&acc)[N / 2],
+                                           int t) {
+  using hopper::pack2;
+  constexpr int kGroups = N / 8, kWide = kGroups / 4 * 4;
+  const int q = t % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int m = 0; m < kWide; m += 4) {
+      uint32_t v[4];   // v[k]: this lane's pair of group m + k
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        v[k] = pack2<E>(acc[4 * (m + k) + 2 * r], acc[4 * (m + k) + 2 * r + 1]);
+      uint32_t a0 = q & 1 ? v[0] : v[1], a1 = q & 1 ? v[2] : v[3];
+      a0 = __shfl_xor_sync(0xffffffffu, a0, 1);
+      a1 = __shfl_xor_sync(0xffffffffu, a1, 1);
+      if (q & 1) {
+        v[0] = a0;
+        v[2] = a1;
+      } else {
+        v[1] = a0;
+        v[3] = a1;
+      }
+      a0 = q & 2 ? v[0] : v[2];
+      a1 = q & 2 ? v[1] : v[3];
+      a0 = __shfl_xor_sync(0xffffffffu, a0, 2);
+      a1 = __shfl_xor_sync(0xffffffffu, a1, 2);
+      if (q & 2) {
+        v[0] = a0;
+        v[1] = a1;
+      } else {
+        v[2] = a0;
+        v[3] = a1;
+      }
+      // v[k] is now lane k's pair of group m + q: its 8 columns in order
+      if (rows[r] != nullptr)
+        *reinterpret_cast<uint4*>(rows[r] + 8 * (m + q)) =
+            make_uint4(v[0], v[1], v[2], v[3]);
+    }
+#pragma unroll
+    for (int j = kWide; j < kGroups; ++j)
+      if (rows[r] != nullptr)
+        *reinterpret_cast<uint32_t*>(rows[r] + 8 * j + 2 * q) =
+            pack2<E>(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+  }
+}
+
+// A consumer thread's rows of dK and dV (keys key0 and key0 + 8 of head
+// h, N of the D columns from c0; rows past S are not stored): in E at [B,
+// S, Hkv, D] when the group is 1 (H == Hkv), the function's own output,
+// 16 bytes a lane (store_rows; a column pair a lane measured 11% slower
+// at gpt_2_7b's shape); else in fp32 at [B, S, H, D], one row block per
+// query head, which the wrapper sums over the group and casts.
+template <typename E, int D, int N>
+__device__ __forceinline__ void store_dkv(const DkvParams& p,
+                                          const float (&dk)[N / 2],
+                                          const float (&dv)[N / 2], int b,
+                                          int h, int key0, int t, int c0) {
+  const int S = p.S, H = p.H;
+  if (H == p.Hkv) {
+    E* rk[2];
+    E* rv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = key0 + 8 * r;
+      const long long at = (((long long)b * S + key) * H + h) * D + c0;
+      rk[r] = key < S ? static_cast<E*>(p.dk) + at : nullptr;
+      rv[r] = key < S ? static_cast<E*>(p.dv) + at : nullptr;
+    }
+    store_rows<E, N>(rk, dk, t);
+    store_rows<E, N>(rv, dv, t);
+    return;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    if (key >= S) continue;
+    const long long at = (((long long)b * S + key) * H + h) * D + c0;
+    float2* dk_row = reinterpret_cast<float2*>(static_cast<float*>(p.dk) + at);
+    float2* dv_row = reinterpret_cast<float2*>(static_cast<float*>(p.dv) + at);
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const int c2 = (8 * j + 2 * (t % 4)) / 2;
+      dk_row[c2] = make_float2(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
+      dv_row[c2] = make_float2(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
 namespace tc {
 constexpr int BN = 128;                      // keys of a block
 constexpr int BM = 64;                       // query rows of a Q/dO tile
 constexpr int kThreads = 384;                // 2 consumer + 1 producer WG
 constexpr int kQBox = BM * hopper::kBoxCols * 2;   // one 64-column box
-// The shared-memory plan at head dim D: K, V, then kStages x (Q, dO),
-// kStages x (lse, delta) rows, the barriers: K/V's, full[], empty[].
-// Tiles are whole 64-column boxes (D = 80 and 96 take D = 128's).  At D =
-// 256 a block takes 64 keys, which both consumer warpgroups share: each
-// owns 128 of dK's and dV's 256 columns (kSplit; the header says why).
+// The shared-memory plan at head dim D (128 or 256; 64, 80 and 96 run the
+// persistent body, whose blocks take kKeys keys too): K, V, then kStages
+// x (Q, dO), kStages x (lse, delta) rows, the barriers: K/V's, full[],
+// empty[].  Tiles are whole 64-column boxes.  At D = 256 a block takes 64
+// keys, which both consumer warpgroups share: each owns 128 of dK's and
+// dV's 256 columns (kSplit; the header says why).
 template <int D>
 struct Smem {
   static constexpr int kKeys = D == 256 ? 64 : BN;   // keys of a block
   static constexpr bool kSplit = D == 256;   // warpgroups split D, not keys
-  // K, V: 32 KB at D = 80, 96, 128 and 256, 16 at 64; Q, dO: half that
-  // but 32 at 256
+  // K, V: 32 KB at D = 128 and 256; Q, dO: half that but 32 at 256
   static constexpr int kKvTile = kKeys * hopper::box_cols<D>() * 2;
   static constexpr int kKvBox = kKeys * hopper::kBoxCols * 2;
   static constexpr int kQTile = BM * hopper::box_cols<D>() * 2;
-  static constexpr int kStages = D == 64 ? 4 : 2;
+  static constexpr int kStages = 2;
   static constexpr int kStageOffset = 2 * kKvTile;
   static constexpr int kRowsOffset = kStageOffset + kStages * 2 * kQTile;
   static constexpr int kBarOffset = kRowsOffset + kStages * 2 * BM * 4;
@@ -771,74 +889,826 @@ __device__ __forceinline__ void dkv_tensor_cores(const DkvParams& p,
       mbar_arrive(&empty[st]);
     }
 
-    // fp32, per query head: row `key` of head h in the [B, S, H, D]
-    // layout, this warpgroup's N columns from column c0
-    const int c0 = kSplit ? 128 * wg : 0;
+    // this warpgroup's N columns from column c0
+    store_dkv<E, D, N>(p, dk, dv, b, h, key0, t, kSplit ? 128 * wg : 0);
+  }
+}
+
+// ---- dQ and dK/dV, bf16 / fp16, head dims 64, 80, 96: persistent ---------
+
+namespace pb {
+constexpr int BM = 128;     // rows of an item: q rows (dQ), keys (dK/dV)
+constexpr int BN = 64;      // rows of a streamed tile: keys (dQ), q rows
+                            // (dK/dV)
+constexpr int kFar = 1 << 30;   // a bound no tile reaches
+// The resident buffers (an item's Q and dO for dQ, its K and V for dK/dV)
+// and the stages of the ring of streamed tiles (K and V, or Q and dO),
+// each kernel at D = 64 and at D = 80 and 96.  With one resident buffer
+// the producer loads an item's after its first streamed tile, once the
+// consumers are done with the one before.
+constexpr int kDqBufs64 = 2, kDqStages64 = 6;
+constexpr int kDqBufs8096 = 1, kDqStages8096 = 4;
+constexpr int kDkvBufs64 = 2, kDkvStages64 = 6;
+constexpr int kDkvBufs8096 = 1, kDkvStages8096 = 4;
+// The consumers' order within a warpgroup (walk_tiles): kSeries -- a
+// tile's score products, its elementwise work, its accumulating products,
+// each waited for; kFa3 -- FA3's order, the next tile's score products
+// issued with this tile's accumulating ones and its elementwise work run
+// under them.  kTurns: the two warpgroups take turns to issue their
+// products (ping-pong on named barriers 1 and 2).
+enum Order { kSeries, kFa3 };
+constexpr Order kDqOrder = kFa3, kDkvOrder = kSeries;
+constexpr bool kDqTurns = false, kDkvTurns = true;
+// setmaxnreg's split of the launch's 168 registers a thread (384 x 168 =
+// 128 x producer + 256 x consumer): the dK/dV producer warp walks the
+// items and writes each stage's LSE and delta rows, which 24 registers do
+// not hold without a spill.
+constexpr int kDqProducerRegs = 24, kDqConsumerRegs = 240;
+constexpr int kDkvProducerRegs = 40, kDkvConsumerRegs = 232;
+__host__ __device__ constexpr bool persistent(int D) { return D <= 96; }
+
+// The shared-memory plan of the dQ (DQ) or dK/dV kernel at head dim D:
+// kBufs resident buffers of two BM-row tiles, kStages stages of two BN-row
+// tiles, the dK/dV kernel's LSE and delta rows of each stage, then the
+// barriers r_full[kBufs], r_empty[kBufs], full[kStages], empty[kStages].
+// A tile is whole 64-column boxes (one at D = 64, two at 80 and 96).
+template <int D, bool DQ>
+struct Plan {
+  static constexpr int kResTile = BM * hopper::box_cols<D>() * 2;
+  static constexpr int kTile = BN * hopper::box_cols<D>() * 2;
+  static constexpr int kResBox = BM * hopper::kBoxCols * 2;
+  static constexpr int kBox = BN * hopper::kBoxCols * 2;
+  static constexpr int kBufs = DQ ? (D == 64 ? kDqBufs64 : kDqBufs8096)
+                                  : (D == 64 ? kDkvBufs64 : kDkvBufs8096);
+  static constexpr int kStages = DQ ? (D == 64 ? kDqStages64 : kDqStages8096)
+                                    : (D == 64 ? kDkvStages64
+                                               : kDkvStages8096);
+  static constexpr Order kOrder = DQ ? kDqOrder : kDkvOrder;
+  static constexpr bool kTurns = DQ ? kDqTurns : kDkvTurns;
+  static constexpr int kStageOffset = kBufs * 2 * kResTile;
+  static constexpr int kRowsOffset = kStageOffset + kStages * 2 * kTile;
+  static constexpr int kBarOffset =
+      kRowsOffset + (DQ ? 0 : kStages * 2 * BN * 4);
+  static constexpr size_t kBytes =
+      1024 + kBarOffset + 8 * (2 * kBufs + 2 * kStages);
+  static_assert(kBytes <= 232448, "a block has 227 KB of shared memory");
+};
+
+// The items a block walks, as the persistent forward walks its q tiles:
+// unit u is tiles n_t - 1 - k and k (k = u % per_head; one tile where they
+// meet) of (batch, head) u / per_head.  Under the causal mask a dQ q tile
+// i has 2 (i + 1) key tiles and a dK/dV key tile i 2 (n_t - i) q tiles,
+// so every unit but a middle one has 2 n_t + 2: equal shares of units are
+// equal shares of work.  A block takes units blockIdx.x, then round by
+// round one per gridDim.x, forward in even rounds and backward in odd
+// ones; the units running at once belong to ~gridDim.x / per_head heads,
+// whose streamed tiles stay in L2 while their items read them.
+struct Pairs {
+  int n_t, per_head, n_units;
+  __device__ __forceinline__ int unit(int r) const {   // round r's unit
+    const int G = gridDim.x, b = blockIdx.x;
+    return r * G + (r & 1 ? G - 1 - b : b);
+  }
+  // tile i (0 or 1) of unit u, or -1
+  __device__ __forceinline__ int tile(int u, int i) const {
+    const int k = u % per_head;
+    const int x = i ? k : n_t - 1 - k;
+    return i && x == n_t - 1 - k ? -1 : x;
+  }
+};
+
+// x, as a value the compiler cannot see through: what is computed from it
+// is computed again where it is used, not held in a register.
+__device__ __forceinline__ int opaque(int x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+// A work item: one BM-row tile (x0: its first q row, or key) of (b, h),
+// and the BN-row tiles it streams from lo (n of them).
+struct Item {
+  int b, h, hk, x0, lo, n;
+};
+
+// The consumers' walk over one item's tiles, ring slots g0 .. g0 + n_tiles
+// - 1 (stage g % kStages; full[] / empty[] as the producers use them,
+// empty[] counting both consumer warpgroups).  This warpgroup sees tiles
+// [first, last); the others it waits for, takes its turns for (kTurns)
+// and releases.  Body supplies the products and the elementwise work:
+//   issue_a(g): the score products of slot g (S and dP, or their
+//               transposes), one commit group;
+//   score(i, g): P and dS of tile i from them, in fp32 registers;
+//   pack():     the next products' A operands from those registers;
+//   issue_b(g): the accumulating products of slot g, one commit group;
+//   fence_a(), fence_b(): the registers of each group.
+// With kTurns every item gives each warpgroup the same number of turns --
+// 2 n_tiles in kSeries, n_tiles + 1 otherwise, tiles it does not see
+// included -- so the turns stay paired whatever the masks skip.  Returns
+// with every product retired.
+template <int kStages, Order kOrder, bool kTurns, class Body>
+__device__ __forceinline__ void walk_tiles(Body& body, uint64_t* full,
+                                           uint64_t* empty, int g0,
+                                           int n_tiles, int first, int last) {
+  using namespace hopper;
+  const int wg = threadIdx.x / 128;
+  const auto ready = [&](int g) {
+    mbar_wait(&full[g % kStages], (g / kStages) & 1);
+  };
+  const auto release = [&](int g) { mbar_arrive(&empty[g % kStages]); };
+  const auto turn = [&] {
+    if constexpr (kTurns) dswg::turn_wait(wg);
+  };
+  const auto pass = [&] {
+    if constexpr (kTurns) dswg::turn_pass(wg);
+  };
+  const auto skip = [&](int g) {
+    ready(g);
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int key = key0 + 8 * r;
-      if (key >= S) continue;
-      const long long at = (((long long)b * S + key) * H + h) * D + c0;
-      float2* dk_row = reinterpret_cast<float2*>(p.dk + at);
-      float2* dv_row = reinterpret_cast<float2*>(p.dv + at);
+    for (int i = 0; i < (kOrder == kSeries ? 2 : 1); ++i) {
+      turn();
+      pass();
+    }
+    release(g);
+  };
+  last = max(first, last);
+  for (int it = 0; it < first; ++it) skip(g0 + it);
+  if constexpr (kOrder == kFa3) {
+    if (first < last) {
+      int g = g0 + first;
+      ready(g);
+      turn();
+      body.issue_a(g);
+      pass();
+      wgmma_wait<0>();
+      body.fence_a();
+      body.score(first, g);
+      body.pack();
+      for (int it = first; it + 1 < last; ++it, ++g) {
+        ready(g + 1);
+        turn();
+        body.issue_a(g + 1);
+        body.issue_b(g);
+        pass();
+        wgmma_wait<1>();              // the next tile's scores complete
+        body.fence_a();
+        body.score(it + 1, g + 1);
+        wgmma_wait<0>();              // this tile's accumulating products
+        body.fence_b();
+        release(g);
+        body.pack();
+      }
+      turn();
+      body.issue_b(g);
+      pass();
+      wgmma_wait<0>();
+      body.fence_b();
+      release(g);
+    } else {                          // the turn of the last products
+      turn();
+      pass();
+    }
+  } else {
+    for (int it = first; it < last; ++it) {
+      const int g = g0 + it;
+      ready(g);
+      turn();
+      body.issue_a(g);
+      pass();
+      wgmma_wait<0>();
+      body.fence_a();
+      body.score(it, g);
+      body.pack();
+      turn();
+      body.issue_b(g);
+      pass();
+      wgmma_wait<0>();
+      body.fence_b();
+      release(g);
+    }
+  }
+  for (int it = last; it < n_tiles; ++it) skip(g0 + it);
+}
+
+// The first and last + 1 of an item's tiles a warpgroup sees: the seen
+// tiles are contiguous (the causal rule cuts one end, the window the
+// other).
+template <class Unseen>
+__device__ __forceinline__ void seen_range(int n, Unseen unseen, int& first,
+                                           int& last) {
+  first = 0;
+  while (first < n && unseen(first)) ++first;
+  last = first;
+  while (last < n && !unseen(last)) ++last;
+}
+}  // namespace pb
+
+// dQ: a consumer warpgroup's registers and work over one item.  Rows row0
+// and row0 + 8 of the warpgroup's 64 see keys lo[r] < key <= hi[r]; a key
+// tile at k0 needs the mask if k0 > e_hi (it crosses the diagonal or S) or
+// k0 <= e_lo (the window's edge).  P = 2^(S c - LSE log2 e) with c = scale
+// log2 e, ALiBi's slope * key log2 e folded into the same FFMA chain; dS =
+// P (dP scale - delta scale), delta scale formed once a row.
+template <typename E, bool SLOPE, bool WINDOW, int D>
+struct DqBody {
+  using P = pb::Plan<D, true>;
+  float s[32], dp[32], dq[D / 2];
+  uint32_t da[16];
+  uint32_t q_addr, do_addr, ring;
+  float c, scale, slope2, lse2[2], dls[2];
+  int hi[2], lo[2], e_hi, e_lo, kt, k_lo;
+
+  __device__ __forceinline__ uint32_t k_addr(int g) const {
+    return ring + (uint32_t)((g % P::kStages) * 2 * P::kTile);
+  }
+  __device__ __forceinline__ void issue_a(int g) {
+    using namespace hopper;
+    const uint32_t k = k_addr(g), v = k + P::kTile;
+    wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < N / 8; ++j) {
-        const int c2 = (8 * j + 2 * (t % 4)) / 2;
-        dk_row[c2] = make_float2(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
-        dv_row[c2] = make_float2(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64<E>(s, desc_kmajor(q_addr + kslice(kk, P::kResBox)),
+                      desc_kmajor(k + kslice(kk, P::kBox)), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64<E>(dp, desc_kmajor(do_addr + kslice(kk, P::kResBox)),
+                      desc_kmajor(v + kslice(kk, P::kBox)), kk > 0);
+    wgmma_commit();
+  }
+  // dQ += dS K: K read transposed (its keys are the depth)
+  __device__ __forceinline__ void issue_b(int g) {
+    using namespace hopper;
+    const uint32_t k = k_addr(g);
+    fence_regs(dq);
+    fence_regs(da);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < pb::BN / 16; ++kk) {
+      const uint32_t a[4] = {da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
+                             da[4 * kk + 3]};
+      wgmma_rs<E, D>(dq, a, desc_mnmajor(k + kk * 2048, P::kBox));
+    }
+    wgmma_commit();
+  }
+  __device__ __forceinline__ void fence_a() {
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+  }
+  __device__ __forceinline__ void fence_b() {
+    hopper::fence_regs(dq);
+    hopper::fence_regs(da);
+  }
+  __device__ __forceinline__ void score(int i, int) {
+    using hopper::ex2;
+    const int k0 = k_lo + i * pb::BN;
+    const bool edge = k0 > e_hi || (WINDOW && k0 <= e_lo);
+    float base[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      base[r] = SLOPE ? fmaf(slope2, (float)(k0 + kt), -lse2[r]) : -lse2[r];
+#pragma unroll
+    for (int i2 = 0; i2 < 32; ++i2) {
+      const int r = (i2 / 2) % 2, col = 8 * (i2 / 4) + i2 % 2;
+      const float b = SLOPE ? fmaf(slope2, (float)col, base[r]) : base[r];
+      float pr = ex2(fmaf(s[i2], c, b));
+      if (edge) {
+        const int key = k0 + kt + col;
+        if (!(key <= hi[r] && (!WINDOW || key > lo[r]))) pr = 0.f;
+      }
+      dp[i2] = pr * fmaf(dp[i2], scale, -dls[r]);
+    }
+  }
+  __device__ __forceinline__ void pack() { hopper::acc_to_a<E>(dp, da); }
+};
+
+// dK/dV: a consumer warpgroup's registers and work over one item, keys as
+// the rows of the products.  Keys key0 and key0 + 8 are seen by q rows
+// lo[r] <= q <= hi[r]; a q tile at q0 needs the mask if q0 < e_lo or q0 >
+// e_hi.  S^T's logits are scaled as dQ's, with slope * key log2 e a
+// constant of the thread's two keys; the rows' LSE (times log2 e) and
+// delta scale come from the stage's rows, which the producer wrote.  The
+// scales are read from the kernel's parameters where they are used.
+template <typename E, bool SLOPE, bool WINDOW, int D>
+struct DkvBody {
+  using P = pb::Plan<D, false>;
+  const DkvParams& p;
+  float s[32], dp[32], dk[D / 2], dv[D / 2];
+  uint32_t pa[16], da[16];
+  uint32_t k_addr, ring;
+  const float* rows;
+  float sk[2];
+  int hi[2], lo[2], e_lo, e_hi, q_lo;
+
+  __device__ __forceinline__ uint32_t q_addr(int g) const {
+    return ring + (uint32_t)((g % P::kStages) * 2 * P::kTile);
+  }
+  __device__ __forceinline__ void issue_a(int g) {
+    using namespace hopper;
+    const uint32_t q = q_addr(g), o = q + P::kTile;
+    const uint32_t v_addr = k_addr + P::kResTile;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64<E>(s, desc_kmajor(k_addr + kslice(kk, P::kResBox)),
+                      desc_kmajor(q + kslice(kk, P::kBox)), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64<E>(dp, desc_kmajor(v_addr + kslice(kk, P::kResBox)),
+                      desc_kmajor(o + kslice(kk, P::kBox)), kk > 0);
+    wgmma_commit();
+  }
+  // dV += P^T dO and dK += dS^T Q: dO and Q read transposed
+  __device__ __forceinline__ void issue_b(int g) {
+    using namespace hopper;
+    const uint32_t q = q_addr(g), o = q + P::kTile;
+    fence_regs(dk);
+    fence_regs(dv);
+    fence_regs(pa);
+    fence_regs(da);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < pb::BN / 16; ++kk) {
+      const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                             pa[4 * kk + 3]};
+      wgmma_rs<E, D>(dv, a, desc_mnmajor(o + kk * 2048, P::kBox));
+    }
+#pragma unroll
+    for (int kk = 0; kk < pb::BN / 16; ++kk) {
+      const uint32_t a[4] = {da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
+                             da[4 * kk + 3]};
+      wgmma_rs<E, D>(dk, a, desc_mnmajor(q + kk * 2048, P::kBox));
+    }
+    wgmma_commit();
+  }
+  __device__ __forceinline__ void fence_a() {
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+  }
+  __device__ __forceinline__ void fence_b() {
+    hopper::fence_regs(dk);
+    hopper::fence_regs(dv);
+    hopper::fence_regs(pa);
+    hopper::fence_regs(da);
+  }
+  __device__ __forceinline__ void score(int i, int g) {
+    using hopper::acc_col;
+    using hopper::ex2;
+    const int q0 = q_lo + i * pb::BN, t = threadIdx.x % 128;
+    const float* lse_s = rows + (g % P::kStages) * 2 * pb::BN;
+    const float* dl_s = lse_s + pb::BN;
+    const float c = p.scale_log2e, scale = p.scale;
+    const bool edge = q0 < e_lo || q0 > e_hi;
+#pragma unroll
+    for (int i2 = 0; i2 < 32; ++i2) {
+      const int r = (i2 / 2) % 2, col = acc_col(i2, t);
+      float pr = ex2(fmaf(s[i2], c, SLOPE ? sk[r] - lse_s[col] : -lse_s[col]));
+      if (edge) {
+        const int q = q0 + col;
+        if (!(q >= lo[r] && q <= hi[r])) pr = 0.f;
+      }
+      s[i2] = pr;
+      dp[i2] = pr * fmaf(dp[i2], scale, -dl_s[col]);
+    }
+  }
+  __device__ __forceinline__ void pack() {
+    hopper::acc_to_a<E>(s, pa);
+    hopper::acc_to_a<E>(dp, da);
+  }
+};
+
+__device__ __forceinline__ pb::Item dq_item(const DqParams& p, int bh, int qi,
+                                            int window) {
+  pb::Item it;
+  it.b = bh / p.H;
+  it.h = bh % p.H;
+  it.hk = it.h / (p.H / p.Hkv);
+  it.x0 = qi * pb::BM;
+  it.lo = 0;                              // _k_range: the window's first tile
+  if (window > 0 && it.x0 - (window - 1) > 0)
+    it.lo = (it.x0 - (window - 1)) / pb::BN * pb::BN;
+  const int hi = p.causal ? min(p.S, it.x0 + pb::BM) : p.S;
+  it.n = (hi - it.lo + pb::BN - 1) / pb::BN;
+  return it;
+}
+
+// dQ at head dims 64, 80 and 96, bf16 / fp16: one block an SM walks its
+// share of the q tiles (pb::Pairs).  A producer thread loads each item's Q
+// and dO into a resident buffer and streams its 64-key K and V tiles
+// through one ring; two consumer warpgroups own 64 of the item's rows each
+// and run pb::walk_tiles over DqBody, then store dQ.
+template <typename E, bool SLOPE, bool WINDOW, int D>
+__device__ __forceinline__ void dq_persistent(const DqParams& p,
+                                              unsigned char* raw) {
+  using namespace hopper;
+  using P = pb::Plan<D, true>;
+  constexpr int kBufs = P::kBufs, kStages = P::kStages;
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* res_s = base;                   // [buf][Q, dO]
+  unsigned char* ring_s = base + P::kStageOffset;   // [stage][K, V]
+  uint64_t* r_full = reinterpret_cast<uint64_t*>(base + P::kBarOffset);
+  uint64_t* r_empty = r_full + kBufs;
+  uint64_t* full = r_empty + kBufs;
+  uint64_t* empty = full + kStages;
+
+  const int S = p.S, H = p.H;
+  const int n_t = (S + pb::BM - 1) / pb::BM;
+  const pb::Pairs walk{n_t, (n_t + 1) / 2, p.B * H * ((n_t + 1) / 2)};
+  const int window = WINDOW ? p.window : 0;
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kBufs; ++i) {
+      mbar_init(&r_full[i], 1);
+      mbar_init(&r_empty[i], 256);   // every consumer thread
+    }
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 256);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer
+    regs_dealloc<pb::kDqProducerRegs>();
+    if (t == 0) {
+      int g = 0, j = 0;   // streamed tiles and items so far
+      for (int r = 0, u = walk.unit(0); u < walk.n_units;
+           u = walk.unit(++r)) {
+        for (int i = 0; i < 2; ++i, ++j) {
+          const int qi = walk.tile(u, i);
+          if (qi < 0) break;
+          const pb::Item it = dq_item(p, u / walk.per_head, qi, window);
+          const int rb = j % kBufs;
+          const auto load_res = [&] {
+            mbar_wait(&r_empty[rb], ((j / kBufs) & 1) ^ 1);
+            unsigned char* q_t = res_s + rb * 2 * P::kResTile;
+            mbar_arrive_expect_tx(&r_full[rb], 2 * P::kResTile);
+            tma_load_rows<D>(q_t, &p.q_map, &r_full[rb], pb::BM, it.h, it.x0,
+                             it.b);
+            tma_load_rows<D>(q_t + P::kResTile, &p.do_map, &r_full[rb],
+                             pb::BM, it.h, it.x0, it.b);
+          };
+          if (kBufs > 1) load_res();
+          for (int c = 0; c < it.n; ++c, ++g) {
+            const int st = g % kStages;
+            mbar_wait(&empty[st], ((g / kStages) & 1) ^ 1);
+            unsigned char* k_t = ring_s + st * 2 * P::kTile;
+            const int k0 = it.lo + c * pb::BN;
+            mbar_arrive_expect_tx(&full[st], 2 * P::kTile);
+            tma_load_rows<D>(k_t, &p.k_map, &full[st], pb::BN, it.hk, k0,
+                             it.b);
+            tma_load_rows<D>(k_t + P::kTile, &p.v_map, &full[st], pb::BN,
+                             it.hk, k0, it.b);
+            if (kBufs == 1 && c == 0) load_res();
+          }
+        }
+      }
+    }
+  } else {  // consumers: warpgroup wg owns rows x0 + 64 wg .. + 63 of each
+    regs_alloc<pb::kDqConsumerRegs>();
+    if constexpr (P::kTurns) dswg::first_turn(wg);
+    DqBody<E, SLOPE, WINDOW, D> body;
+    body.scale = p.scale;
+    body.c = p.scale * kLog2e;
+    body.slope2 = 0.f;
+    body.kt = 2 * (t % 4);
+    body.ring = smem_u32(ring_s);
+    int g = 0, j = 0;
+    for (int r = 0, u = walk.unit(0); u < walk.n_units; u = walk.unit(++r)) {
+      for (int i = 0; i < 2; ++i, ++j) {
+        const int qi = walk.tile(u, i);
+        if (qi < 0) break;
+        const pb::Item it = dq_item(p, u / walk.per_head, qi, window);
+        const int r_first = it.x0 + 64 * wg, r_last = r_first + 63;
+        const int row0 = r_first + acc_row(0, t);   // and row0 + 8
+        const int bh = it.b * H + it.h;
+        if (SLOPE) body.slope2 = __ldg(p.slopes + it.h) * kLog2e;
+        body.k_lo = it.lo;
+        body.e_hi = min(p.causal ? r_first - pb::BN + 1 : pb::kFar,
+                        S - pb::BN);
+        body.e_lo = WINDOW && window > 0 ? r_last - window : -pb::kFar;
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int row = row0 + 8 * rr;
+          const long long at = (long long)bh * S + row;
+          body.lse2[rr] = row < S ? __ldg(p.lse + at) * kLog2e : 0.f;
+          body.dls[rr] = row < S ? __ldg(p.delta + at) * p.scale : 0.f;
+          body.hi[rr] = p.causal ? min(S - 1, row) : S - 1;
+          body.lo[rr] = WINDOW && window > 0 ? row - window : -pb::kFar;
+        }
+#pragma unroll
+        for (int d = 0; d < D / 2; ++d) body.dq[d] = 0.f;
+        int first, last;
+        pb::seen_range(it.n, [&](int x) {
+          const int k0 = it.lo + x * pb::BN;
+          return (p.causal && k0 > r_last) || r_first >= S ||
+                 (WINDOW && window > 0 &&
+                  r_first - (k0 + pb::BN - 1) >= window);
+        }, first, last);
+        const int rb = j % kBufs;
+        body.q_addr = smem_u32(res_s + rb * 2 * P::kResTile) + 64 * wg * 128;
+        body.do_addr = body.q_addr + P::kResTile;
+        mbar_wait(&r_full[rb], (j / kBufs) & 1);
+        pb::walk_tiles<kStages, P::kOrder, P::kTurns>(body, full, empty, g,
+                                                        it.n, first, last);
+        mbar_arrive(&r_empty[rb]);   // every product that read Q, dO retired
+        g += it.n;
+
+        E* out = static_cast<E*>(p.dq);
+        E* rows[2];
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int row = row0 + 8 * rr;
+          rows[rr] = row < S ? out + (((long long)it.b * S + row) * H + it.h) *
+                                         D
+                             : nullptr;
+        }
+        store_rows<E, D>(rows, body.dq, t);
+      }
+    }
+  }
+}
+
+// The Pairs of a launch, from its parameters, formed where they are used.
+__device__ __forceinline__ pb::Pairs pairs_of(const DkvParams& p) {
+  const int n_t = (pb::opaque(p.S) + pb::BM - 1) / pb::BM;
+  return {n_t, (n_t + 1) / 2, p.B * pb::opaque(p.H) * ((n_t + 1) / 2)};
+}
+
+__device__ __forceinline__ pb::Item dkv_item(const DkvParams& p, int bh,
+                                             int ki, int window) {
+  pb::Item it;
+  it.b = bh / p.H;
+  it.h = bh % p.H;
+  it.hk = it.h / (p.H / p.Hkv);
+  it.x0 = ki * pb::BM;
+  // the q loop: from the diagonal to the last row that sees key x0 + BM - 1
+  it.lo = p.causal ? it.x0 : 0;
+  const int hi =
+      window > 0
+          ? (int)min((long long)p.S, (long long)it.x0 + pb::BM - 1 + window)
+          : p.S;
+  it.n = (hi - it.lo + pb::BN - 1) / pb::BN;
+  return it;
+}
+
+// dK/dV at head dims 64, 80 and 96, bf16 / fp16: one block an SM walks its
+// share of the key tiles (pb::Pairs).  A producer thread loads each item's
+// K and V into a resident buffer and streams its 64-row Q and dO tiles
+// through one ring; a second producer warp writes each tile's rows' LSE
+// (times log2 e) and delta (times the scale) beside it, its 32 lanes and
+// the TMA thread completing the stage's barrier together (one warp doing
+// both waited out the rows' loads before each tile's TMA: 12-15% slower).
+// Two consumer warpgroups own 64 of the item's keys each and run
+// pb::walk_tiles over DkvBody, then store dK and dV (store_dkv).
+template <typename E, bool SLOPE, bool WINDOW, int D>
+__device__ __forceinline__ void dkv_persistent(const DkvParams& p,
+                                               unsigned char* raw) {
+  using namespace hopper;
+  using P = pb::Plan<D, false>;
+  constexpr int kBufs = P::kBufs, kStages = P::kStages;
+  constexpr int BN = pb::BN;
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* res_s = base;                   // [buf][K, V]
+  unsigned char* ring_s = base + P::kStageOffset;   // [stage][Q, dO]
+  float* rows_s = reinterpret_cast<float*>(base + P::kRowsOffset);
+  uint64_t* r_full = reinterpret_cast<uint64_t*>(base + P::kBarOffset);
+  uint64_t* r_empty = r_full + kBufs;
+  uint64_t* full = r_empty + kBufs;
+  uint64_t* empty = full + kStages;
+
+  const int S = p.S, H = p.H;
+  const int n_t = (S + pb::BM - 1) / pb::BM;
+  const pb::Pairs walk{n_t, (n_t + 1) / 2, p.B * H * ((n_t + 1) / 2)};
+  const int window = WINDOW ? p.window : 0;
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kBufs; ++i) {
+      mbar_init(&r_full[i], 1);
+      mbar_init(&r_empty[i], 256);   // every consumer thread
+    }
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full[st], 33);      // the TMA thread, the rows warp's lanes
+      mbar_init(&empty[st], 256);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer: warps 0 (TMA) and 1 (rows) of the last WG
+    regs_dealloc<pb::kDkvProducerRegs>();
+    const int warp = t / 32, lane = t % 32;
+    if (warp > 1 || (warp == 0 && lane > 0)) return;
+    int g = 0, j = 0;   // streamed tiles and items so far
+    for (int r = 0, u = walk.unit(0); u < walk.n_units; u = walk.unit(++r)) {
+      for (int i = 0; i < 2; ++i, ++j) {
+        const int ki = walk.tile(u, i);
+        if (ki < 0) break;
+        const pb::Item it = dkv_item(p, u / walk.per_head, ki, window);
+        const int rb = j % kBufs;
+        const auto load_res = [&] {
+          mbar_wait(&r_empty[rb], ((j / kBufs) & 1) ^ 1);
+          unsigned char* k_t = res_s + rb * 2 * P::kResTile;
+          mbar_arrive_expect_tx(&r_full[rb], 2 * P::kResTile);
+          tma_load_rows<D>(k_t, &p.k_map, &r_full[rb], pb::BM, it.hk, it.x0,
+                           it.b);
+          tma_load_rows<D>(k_t + P::kResTile, &p.v_map, &r_full[rb],
+                           pb::BM, it.hk, it.x0, it.b);
+        };
+        if (warp == 0 && kBufs > 1) load_res();
+        // the rows' LSE and delta: this (batch, head)'s
+        const float* lse = p.lse + (long long)(it.b * H + it.h) * S;
+        const float* delta = p.delta + (long long)(it.b * H + it.h) * S;
+        for (int c = 0; c < it.n; ++c, ++g) {
+          const int st = g % kStages, q0 = it.lo + c * BN;
+          mbar_wait(&empty[st], ((g / kStages) & 1) ^ 1);
+          if (warp == 0) {
+            unsigned char* q_t = ring_s + st * 2 * P::kTile;
+            mbar_arrive_expect_tx(&full[st], 2 * P::kTile);
+            tma_load_rows<D>(q_t, &p.q_map, &full[st], BN, it.h, q0, it.b);
+            tma_load_rows<D>(q_t + P::kTile, &p.do_map, &full[st], BN, it.h,
+                             q0, it.b);
+            if (kBufs == 1 && c == 0) load_res();
+          } else {
+            // LSE (times log2 e) and delta (times the scale), 0 past S
+            float* lse_s = rows_s + st * 2 * BN;
+#pragma unroll
+            for (int x = lane; x < BN; x += 32) {
+              const int q = q0 + x;
+              lse_s[x] = q < S ? lse[q] * kLog2e : 0.f;
+              lse_s[BN + x] = q < S ? delta[q] * p.scale : 0.f;
+            }
+            mbar_arrive(&full[st]);
+          }
+        }
+      }
+    }
+  } else {  // consumers: warpgroup wg owns keys x0 + 64 wg .. + 63 of each
+    regs_alloc<pb::kDkvConsumerRegs>();
+    if constexpr (P::kTurns) dswg::first_turn(wg);
+    DkvBody<E, SLOPE, WINDOW, D> body{p};
+    body.ring = smem_u32(ring_s);
+    body.rows = rows_s;
+    int g = 0, j = 0;
+    for (int r = 0;; ++r) {
+      // the walk and the item are formed anew where they are used, not
+      // held across an item's tiles: at D = 96 dK and dV take 96 of the
+      // consumers' 232 registers
+      const pb::Pairs walk = pairs_of(p);
+      const int u = walk.unit(r);
+      if (u >= walk.n_units) break;
+      for (int i = 0; i < 2; ++i, ++j) {
+        const int ki = walk.tile(u, i);
+        if (ki < 0) break;
+        const pb::Item it = dkv_item(p, u / walk.per_head, ki, window);
+        const int kw = it.x0 + 64 * wg;
+        const int key0 = kw + acc_row(0, t);   // and key0 + 8
+        const float slope2 = SLOPE ? __ldg(p.slopes + it.h) * kLog2e : 0.f;
+        body.q_lo = it.lo;
+        // a q tile needs the mask where it reaches past S, crosses the
+        // diagonal or the window's edge, or the keys reach past S
+        body.e_lo = kw + 64 > S ? pb::kFar : p.causal ? kw + 63 : -pb::kFar;
+        body.e_hi = S - BN;
+        if (WINDOW && window > 0)
+          body.e_hi = (int)min((long long)body.e_hi,
+                               (long long)kw + window - BN);
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int key = key0 + 8 * rr;
+          body.sk[rr] = slope2 * (float)key;
+          body.lo[rr] = p.causal ? key : 0;
+          body.hi[rr] =
+              key >= S ? -1
+                       : (int)min((long long)S - 1,
+                                  WINDOW && window > 0
+                                      ? (long long)key + window - 1
+                                      : (long long)S - 1);
+        }
+#pragma unroll
+        for (int d = 0; d < D / 2; ++d) body.dk[d] = body.dv[d] = 0.f;
+        int first, last;
+        pb::seen_range(it.n, [&](int x) {
+          const int q0 = it.lo + x * BN;
+          return (p.causal && q0 + BN - 1 < kw) || kw >= S ||
+                 (WINDOW && window > 0 && q0 - (kw + 63) >= window);
+        }, first, last);
+        const int rb = j % kBufs;
+        body.k_addr = smem_u32(res_s + rb * 2 * P::kResTile) + 64 * wg * 128;
+        mbar_wait(&r_full[rb], (j / kBufs) & 1);
+        pb::walk_tiles<kStages, P::kOrder, P::kTurns>(body, full, empty, g,
+                                                        it.n, first, last);
+        mbar_arrive(&r_empty[rb]);   // every product that read K, V retired
+        g += it.n;
+        const pb::Pairs w = pairs_of(p);
+        const int un = pb::opaque(u);
+        const pb::Item done = dkv_item(p, un / w.per_head, w.tile(un, i),
+                                       window);
+        store_dkv<E, D, D>(p, body.dk, body.dv, done.b, done.h,
+                           done.x0 + 64 * wg + acc_row(0, t), t, 0);
       }
     }
   }
 }
 
 template <typename T>
-constexpr int dkv_threads() {
+constexpr int bwd_threads() {
   return std::is_same<T, float>::value ? kThreads : tc::kThreads;
 }
 
 template <typename T, bool SLOPE, bool WINDOW, int D>
-__global__ void __launch_bounds__(dkv_threads<T>(), 1)
+__global__ void __launch_bounds__(bwd_threads<T>(), 1)
+flash_bwd_dq_kernel(const __grid_constant__ DqParams p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  if constexpr (std::is_same<T, float>::value)
+    dq_cuda_cores<SLOPE, WINDOW, D>(p, reinterpret_cast<float*>(smem_raw));
+  else if constexpr (pb::persistent(D))
+    dq_persistent<T, SLOPE, WINDOW, D>(p, smem_raw);
+  else
+    dq_tensor_cores<T, SLOPE, WINDOW, D>(p, smem_raw);
+}
+
+template <typename T, bool SLOPE, bool WINDOW, int D>
+__global__ void __launch_bounds__(bwd_threads<T>(), 1)
 flash_bwd_dkv_kernel(const __grid_constant__ DkvParams p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   if constexpr (std::is_same<T, float>::value)
     dkv_cuda_cores<SLOPE, WINDOW, D>(p, reinterpret_cast<float*>(smem_raw));
+  else if constexpr (pb::persistent(D))
+    dkv_persistent<T, SLOPE, WINDOW, D>(p, smem_raw);
   else
     dkv_tensor_cores<T, SLOPE, WINDOW, D>(p, smem_raw);
+}
+
+// The grid of a tensor-core launch: the persistent bodies (head dims 64,
+// 80, 96) take one block an SM at most, as many as pb::Pairs has units;
+// the others one block per (b * h, BM-row tile).
+template <int D>
+int tensor_core_grid(int B, int H, int S, int rows, dim3* grid) {
+  const unsigned tiles = (S + rows - 1) / rows;
+  *grid = dim3(B * H, tiles);
+  if (!pb::persistent(D)) return 0;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned units = B * H * ((tiles + 1) / 2);
+  *grid = dim3(units < (unsigned)sms ? units : (unsigned)sms);
+  return 0;
+}
+
+// Dynamic shared memory of the dQ (DQ) or dK/dV kernel's body for T, D.
+template <typename T, int D, bool DQ>
+constexpr size_t bwd_smem() {
+  if constexpr (std::is_same<T, float>::value)
+    return (DQ ? dq_smem_floats<D>() : dkv_smem_floats<D>()) * sizeof(float);
+  else if constexpr (pb::persistent(D))
+    return pb::Plan<D, DQ>::kBytes;
+  else if constexpr (DQ)
+    return tcq::Smem<D>::kBytes;
+  else
+    return tc::Smem<D>::kBytes;
 }
 
 template <typename T, bool SLOPE, bool WINDOW, int D>
 int launch_dq(const DqParams& p, int B, cudaStream_t stream) {
   constexpr bool fp32 = std::is_same<T, float>::value;
-  const size_t smem =
-      fp32 ? dq_smem_floats<D>() * sizeof(float) : tcq::Smem<D>::kBytes;
+  constexpr size_t smem = bwd_smem<T, D, true>();
   // once per instantiation, before any graph capture can be running
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<T, SLOPE, WINDOW, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
   constexpr int R = bwd_rows<D>();
-  const dim3 grid = fp32 ? dim3((p.S + R - 1) / R, B * p.H)
-                         : dim3(B * p.H, (p.S + tcq::BM - 1) / tcq::BM);
+  dim3 grid((p.S + R - 1) / R, B * p.H);
+  if (!fp32) {
+    const int rc = tensor_core_grid<D>(B, p.H, p.S, tcq::BM, &grid);
+    if (rc) return rc;
+  }
   flash_bwd_dq_kernel<T, SLOPE, WINDOW, D>
-      <<<grid, dq_threads<T>(), smem, stream>>>(p);
+      <<<grid, bwd_threads<T>(), smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 template <typename T, bool SLOPE, bool WINDOW, int D>
 int launch_dkv(const DkvParams& p, int B, cudaStream_t stream) {
   constexpr bool fp32 = std::is_same<T, float>::value;
-  const size_t smem =
-      fp32 ? dkv_smem_floats<D>() * sizeof(float) : tc::Smem<D>::kBytes;
+  constexpr size_t smem = bwd_smem<T, D, false>();
   // once per instantiation, before any graph capture can be running
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel<T, SLOPE, WINDOW, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
-  constexpr int R = fp32 ? bwd_rows<D>() : tc::Smem<D>::kKeys;
-  const dim3 grid = fp32 ? dim3((p.S + R - 1) / R, B * p.H)
-                         : dim3(B * p.H, (p.S + R - 1) / R);
+  constexpr int R = bwd_rows<D>();
+  dim3 grid((p.S + R - 1) / R, B * p.H);
+  if (!fp32) {
+    const int rc =
+        tensor_core_grid<D>(B, p.H, p.S, tc::Smem<D>::kKeys, &grid);
+    if (rc) return rc;
+  }
   flash_bwd_dkv_kernel<T, SLOPE, WINDOW, D>
-      <<<grid, dkv_threads<T>(), smem, stream>>>(p);
+      <<<grid, bwd_threads<T>(), smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -908,6 +1778,7 @@ extern "C" int ds_flash_attention_bwd_dq(const void* q, const void* k,
   p.dq = dq;
   p.slopes = static_cast<const float*>(slopes);
   p.window = window;
+  p.B = B;
   p.S = S;
   p.H = H;
   p.Hkv = Hkv;
@@ -923,8 +1794,9 @@ extern "C" int ds_flash_attention_bwd_dq(const void* q, const void* k,
   });
 }
 
-// dk/dv: fp32 [B, S, H, D], one row block per QUERY head (summed over the
-// GQA group by the caller).
+// dk/dv: in k's dtype at [B, S, Hkv, D] when H == Hkv; else fp32 [B, S, H,
+// D], one row block per QUERY head (summed over the GQA group by the
+// caller).
 extern "C" int ds_flash_attention_bwd_dkv(const void* q, const void* k,
                                           const void* v, const void* dout,
                                           const void* lse, const void* delta,
@@ -942,15 +1814,17 @@ extern "C" int ds_flash_attention_bwd_dkv(const void* q, const void* k,
   p.dout = dout;
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
-  p.dk = static_cast<float*>(dk);
-  p.dv = static_cast<float*>(dv);
+  p.dk = dk;
+  p.dv = dv;
   p.slopes = static_cast<const float*>(slopes);
   p.window = window;
+  p.B = B;
   p.S = S;
   p.H = H;
   p.Hkv = Hkv;
   p.causal = causal;
   p.scale = scale;
+  p.scale_log2e = scale * hopper::kLog2e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dsflash::with_head_dim(D, [&](auto d) {
     constexpr int Dc = decltype(d)::value;
@@ -959,4 +1833,100 @@ extern "C" int ds_flash_attention_bwd_dkv(const void* q, const void* k,
     if (dtype == 2) return launch_dkv_tensor_cores<__half, Dc>(p, B, s);
     return (int)cudaErrorInvalidValue;
   });
+}
+
+// ---- delta = sum_d dO * O: the backward's row term -------------------------
+//
+// Replaces no Pallas kernel: _flash_bwd_pallas forms delta on the host side
+// of the TPU kernels (deepspeed_tpu/ops/pallas/flash_attention.py), and XLA
+// fuses it into its neighbours; the port formed it as four eager passes
+// (two fp32 copies, a product and a sum).  One pass here: each row of D
+// elements (16-byte vectors of O and dO in their own dtype) is read by 8
+// lanes, summed in fp32 and reduced by three shuffles; a block takes 32
+// neighbouring positions of one (batch, head), so its sums are stored
+// next to each other in delta's [B, H, S] layout.  Bound by
+// bytes: 2 x 42 MB read and 1 MB written at gpt_2_7b's training shape
+// (B=8, S=1024, 32 heads of 80, bf16), 25.4 us at 3.35 TB/s.
+namespace {
+
+// The two elements of a 32-bit word of T pairs as floats (lo, hi); for
+// float the word itself.
+template <typename T>
+__device__ __forceinline__ float lo_f(uint32_t w) {
+  if constexpr (std::is_same<T, float>::value) return __uint_as_float(w);
+  else if constexpr (std::is_same<T, __half>::value)
+    return __half2float(__ushort_as_half((unsigned short)(w & 0xffffu)));
+  else return __uint_as_float(w << 16);
+}
+template <typename T>
+__device__ __forceinline__ float hi_f(uint32_t w) {
+  if constexpr (std::is_same<T, __half>::value)
+    return __half2float(__ushort_as_half((unsigned short)(w >> 16)));
+  else return __uint_as_float(w & 0xffff0000u);
+}
+
+// sum of the elementwise products of two 16-byte vectors of T, in fp32
+template <typename T>
+__device__ __forceinline__ float dot16(const uint4& a, const uint4& b) {
+  const uint32_t x[4] = {a.x, a.y, a.z, a.w}, y[4] = {b.x, b.y, b.z, b.w};
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    acc = fmaf(lo_f<T>(x[i]), lo_f<T>(y[i]), acc);
+    if constexpr (!std::is_same<T, float>::value)
+      acc = fmaf(hi_f<T>(x[i]), hi_f<T>(y[i]), acc);
+  }
+  return acc;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+             float* __restrict__ delta, int S, int H, int D) {
+  constexpr int kLanes = 8;                   // lanes of a row
+  const int vecs = D * (int)sizeof(T) / 16;   // 16-byte vectors of a row
+  // block (x, bh): positions 32 x .. + 31 of (batch, head) bh
+  const int s = blockIdx.x * (256 / kLanes) + threadIdx.x / kLanes;
+  const int bh = blockIdx.y, lane = threadIdx.x % kLanes;
+  float acc = 0.f;
+  if (s < S) {
+    const long long at =
+        (((long long)(bh / H) * S + s) * H + bh % H) * D;
+    const uint4* ov = reinterpret_cast<const uint4*>(o + at);
+    const uint4* dv = reinterpret_cast<const uint4*>(dout + at);
+    for (int v = lane; v < vecs; v += kLanes)
+      acc += dot16<T>(__ldg(ov + v), __ldg(dv + v));
+  }
+#pragma unroll
+  for (int m = kLanes / 2; m > 0; m /= 2)
+    acc += __shfl_xor_sync(0xffffffffu, acc, m);
+  if (s < S && lane == 0) delta[(long long)bh * S + s] = acc;
+}
+
+template <typename T>
+int launch_delta(const void* o, const void* dout, float* delta, int B, int S,
+                 int H, int D, cudaStream_t stream) {
+  const dim3 grid((S + 31) / 32, B * H);
+  delta_kernel<T><<<grid, 256, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), delta, S, H, D);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// o/dout: [B, S, H, D] (dtype 0 = float32, 1 = bfloat16, 2 = float16);
+// delta: fp32 [B, H, S].  D is 64, 80, 96, 128 or 256.  Returns
+// cudaGetLastError().
+extern "C" int ds_flash_attention_bwd_delta(const void* o, const void* dout,
+                                            void* delta, int B, int S, int H,
+                                            int D, int dtype, void* stream) {
+  const int bad = dsflash::check_shape(B, S, H, H, D);
+  if (bad) return bad;
+  float* out = static_cast<float*>(delta);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_delta<float>(o, dout, out, B, S, H, D, s);
+  if (dtype == 1)
+    return launch_delta<__nv_bfloat16>(o, dout, out, B, S, H, D, s);
+  if (dtype == 2) return launch_delta<__half>(o, dout, out, B, S, H, D, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -8,17 +8,20 @@ flash_attention_fwd.cu``) and the backward's ``_bwd_dq_kernel``,
 bias too; the unbiased and the biased (ALiBi slopes and/or a sliding
 window) launches have wrappers and launch counts of their own, as the TPU
 kernels are separate functions.  :func:`flash_attention_bwd_cuda` is the
-port of the host side ``_flash_bwd_pallas``: it computes ``delta =
-sum(dO * O)`` in fp32, launches both backward kernels and sums the
-per-query-head fp32 dK/dV over the GQA group.  The plain versions are in
+port of the host side ``_flash_bwd_pallas``: it forms ``delta = sum(dO *
+O)`` in fp32 by a kernel of its own (:func:`flash_attention_bwd_delta_cuda`),
+launches both backward kernels and, at a GQA group > 1, sums the
+per-query-head fp32 dK/dV over the group (at group 1 the dK/dV kernel
+writes them in k's dtype).  The plain versions are in
 ``ops/flash_attention.py``, with the ``torch.autograd.Function`` that picks
 between them.  The kernels are built for head dims 64, 80, 96, 128 and 256
 (:data:`FLASH_HEAD_DIMS`, each a template instantiation of the same
-bodies; the bf16 / fp16 forward at 64, 80 and 96 is a persistent body
-of its own, which runs each tile's softmax under the products of its
-neighbours; 80 and 96 -- gpt_2_7b's and gpt_760m's -- take the tiles of
-128, whose columns past the head dim TMA fills with zeros, and read q, k,
-v and dO as they are: no padded copy; 256 -- Gemma's -- takes 64-key K/V
+bodies; the bf16 / fp16 forward, dQ and dK/dV at 64, 80 and 96 are
+persistent bodies of their own, which run each tile's elementwise work
+under the products of its neighbours; at 80 and 96 -- gpt_2_7b's and
+gpt_760m's -- a tile is two 64-column boxes, whose columns past the head
+dim TMA fills with zeros, and q, k, v and dO are read as they are: no
+padded copy; 256 -- Gemma's -- takes 64-key K/V
 tiles, and its dK/dV blocks split the head dim between their two
 warpgroups);
 any other head dim raises ``NotImplementedError`` naming ROADMAP A16, as
@@ -207,8 +210,11 @@ def _dkv(q, k, v, dout, lse, delta, softmax_scale, causal, slopes, window):
     B, S, H, D = q.shape
     _check_rows("lse", lse, B, H, S)
     _check_rows("delta", delta, B, H, S)
-    dk = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    dv = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    if k.shape[2] == H:     # group 1: the function's own outputs
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+    else:
+        dk = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        dv = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     fn = op_builder.load("flash_attention_bwd_dkv")
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -222,8 +228,11 @@ def _dkv(q, k, v, dout, lse, delta, softmax_scale, causal, slopes, window):
 
 def flash_attention_bwd_dkv_cuda(q, k, v, dout, lse, delta, softmax_scale,
                                  causal=True):
-    """Launch the dK/dV kernel: (dK, dV), each fp32 [B, S, H, D] -- one
-    block of rows per QUERY head, not yet summed over the GQA group."""
+    """Launch the dK/dV kernel: (dK, dV).  At group 1 (k at as many heads
+    as q) they are the function's outputs, in k's dtype at [B, S, Hkv, D];
+    at a larger group each is fp32 [B, S, H, D] -- one block of rows per
+    QUERY head, not yet summed over the group (the caller sums and
+    casts)."""
     _check("flash_attention_bwd_dkv_cuda", q, k, v, dout)
     out = _dkv(q, k, v, dout, lse, delta, softmax_scale, causal, 0, 0)
     flash_attention_bwd_dkv_cuda.launches += 1
@@ -250,6 +259,28 @@ def flash_attention_bwd_dkv_biased_cuda(q, k, v, dout, lse, delta,
 flash_attention_bwd_dkv_biased_cuda.launches = 0
 
 
+def flash_attention_bwd_delta_cuda(out, dout):
+    """Launch the delta kernel: ``delta = sum_d dO * O`` in fp32 [B, H, S]
+    from O and dO [B, S, H, D] in their own dtype -- the backward's row
+    term, one pass.  Its plain version is ``flash_attention_bwd_delta_plain``
+    in ``ops/flash_attention.py``."""
+    name = "flash_attention_bwd_delta_cuda"
+    _check(name, out, out, out, dout)
+    B, S, H, D = out.shape
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=out.device)
+    fn = op_builder.load("flash_attention_bwd_delta")
+    rc = fn(out.data_ptr(), dout.data_ptr(), delta.data_ptr(), B, S, H, D,
+            _DTYPE_CODES[out.dtype], _stream(out))
+    if rc != 0:
+        raise RuntimeError(f"flash attention delta kernel launch failed: "
+                           f"CUDA error {rc}")
+    flash_attention_bwd_delta_cuda.launches += 1
+    return delta
+
+
+flash_attention_bwd_delta_cuda.launches = 0
+
+
 def is_biased(alibi_slopes, window) -> bool:
     """True when the call needs the biased kernels: ALiBi slopes, or a
     window > 0 (a window of 0 or None is unlimited)."""
@@ -260,11 +291,13 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, softmax_scale,
                              causal=True, alibi_slopes=None, window=None):
     """The backward from the saved (q, k, v, O, LSE) and the cotangent dO:
     (dq, dk, dv) in the dtypes of q, k, v, through the biased kernels when
-    :func:`is_biased`.  The port of ``_flash_bwd_pallas``'s host side."""
+    :func:`is_biased`.  The port of ``_flash_bwd_pallas``'s host side: the
+    delta kernel, dQ, dK/dV, and at a GQA group > 1 the group sum and
+    cast (at group 1 the dK/dV kernel writes k's dtype itself)."""
     B, S, H, D = q.shape
     Hkv = k.shape[2]
     # delta_i = sum_d dO_i * O_i, the softmax-jacobian row term (fp32)
-    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    delta = flash_attention_bwd_delta_cuda(out, dout)
     if is_biased(alibi_slopes, window):
         dq = flash_attention_bwd_dq_biased_cuda(
             q, k, v, dout, lse, delta, softmax_scale, causal, alibi_slopes,
@@ -278,6 +311,7 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, softmax_scale,
         dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, dout, lse, delta,
                                               softmax_scale, causal)
     group = H // Hkv
-    dk = dk.view(B, S, Hkv, group, D).sum(3).to(k.dtype)   # GQA group sum
-    dv = dv.view(B, S, Hkv, group, D).sum(3).to(v.dtype)
+    if group > 1:                                           # GQA group sum
+        dk = dk.view(B, S, Hkv, group, D).sum(3).to(k.dtype)
+        dv = dv.view(B, S, Hkv, group, D).sum(3).to(v.dtype)
     return dq, dk, dv

@@ -105,6 +105,17 @@ def flash_attention_fwd_plain(q, k, v, softmax_scale, causal=True,
 flash_attention_fwd_plain.calls = 0
 
 
+def flash_attention_bwd_delta_plain(out, dout):
+    """Plain delta, the backward's row term: ``sum_d dO * O`` in fp32,
+    [B, H, S] from O and dO [B, S, H, D] -- ``_flash_bwd_pallas``'s
+    ``delta``, the plain version of ``flash_attention_bwd_delta_cuda``."""
+    flash_attention_bwd_delta_plain.calls += 1
+    return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+flash_attention_bwd_delta_plain.calls = 0
+
+
 def flash_attention_bwd_plain(q, k, v, out, lse, dout, softmax_scale,
                               causal=True, alibi_slopes=None, window=None):
     """Plain backward, the port of ``_flash_bwd``: dense fp32 einsums from
@@ -117,13 +128,13 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, softmax_scale,
     Hkv = k.shape[2]
     kf, vf = _expand_kv(k, v, H)
     qf, kf, vf = q.float(), kf.float(), vf.float()
-    gf, of = dout.float(), out.float()
+    gf = dout.float()
     s = _scores(qf, kf, softmax_scale, causal, alibi_slopes, window)
     p = torch.exp(s - lse[..., None])                    # [B, H, S, S]
     dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
     dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
-    delta = torch.sum(gf * of, dim=-1)                   # [B, S, H]
-    ds = p * (dp - delta.transpose(1, 2)[..., None]) * softmax_scale
+    delta = flash_attention_bwd_delta_plain(out, dout)   # [B, H, S]
+    ds = p * (dp - delta[..., None]) * softmax_scale
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
     if Hkv != H:

@@ -53,6 +53,10 @@ SIGNATURES = {
     "flash_attention_bwd_dkv": ("flash_attention_bwd",
                                 "ds_flash_attention_bwd_dkv",
                                 [_P] * 9 + [_I] * 8 + [_F, _P]),
+    # the backward's row term delta = sum_d dO * O, beside its kernels
+    "flash_attention_bwd_delta": ("flash_attention_bwd",
+                                  "ds_flash_attention_bwd_delta",
+                                  [_P] * 3 + [_I] * 5 + [_P]),
     # fused Adam reads lr, beta1, 1 - beta1, c1, c2 and the skip flag from
     # device buffers (two pointers after the ints)
     "fused_adam": ("fused_adam", "ds_fused_adam",

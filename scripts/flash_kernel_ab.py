@@ -25,10 +25,17 @@ ALiBi; ``--head-dim 80``: gpt_2_7b's B=8 S=1024, 32 heads, and B=2 S=2048
 with ALiBi, 32 heads; ``--head-dim 256``: Gemma-2B's B=2
 S=2048, 8 heads over one kv head, and B=2 S=2048 with ALiBi, 8 heads);
 the first variant is timed again at the
-end, so drift shows.  Several head dims run one after the other on one
-build.  Last, the HGMMA and WARPGROUP.DEPBAR counts of each variant's bf16
-kernels at those head dims (a DEPBAR after every HGMMA means ptxas
-serialised the wgmma pipeline).
+end, so drift shows.  Beside the three kernels each shape times the
+backward as the training path calls it (``flash_attention_bwd_cuda``:
+delta, dQ, dK/dV and, at a GQA group, the group sum and cast), the pair
+dQ + dK/dV, and SDPA's backward (forward and backward less forward), with
+each one's factor against the last.  A variant whose library has no delta
+kernel is a commit from before it (its dK/dV kernel writes fp32 per query
+head at every group): it is driven as that commit's wrappers drove it --
+delta by eager PyTorch, the group sum and cast at every group.  Several
+head dims run one after the other on one build.  Last, the HGMMA and
+WARPGROUP.DEPBAR counts of each variant's bf16 kernels at those head dims
+(a DEPBAR after every HGMMA means ptxas serialised the wgmma pipeline).
 
 To time a change against its parent commit in one call, unpack the
 parent's sources into the gitignored ``.tmp/`` and name both:
@@ -126,25 +133,77 @@ def build(variants, out, sources=SOURCES):
 
 
 def use(libs, name, sources=SOURCES):
-    """Point the wrappers at variant ``name``'s libraries."""
+    """Point the wrappers at variant ``name``'s libraries; returns whether
+    the variant is from before the delta kernel (see the module's
+    docstring)."""
     from deepspeed_tpu_torch.ops import op_builder
+    legacy = False
     for kernel, (src, symbol, argtypes) in op_builder.SIGNATURES.items():
         if src in sources:
-            fn = getattr(libs[(name, src)], symbol)
+            fn = getattr(libs[(name, src)], symbol, None)
+            if fn is None:
+                legacy = True
+                op_builder._loaded.pop(kernel, None)
+                continue
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             op_builder._loaded[kernel] = fn
+    return legacy
 
 
-def kernels(fa, kw):
-    """(forward, dQ, dK/dV) wrappers for bias ``kw``, biased where
-    needed."""
-    if fa.is_biased(kw["alibi_slopes"], kw["window"]):
-        return (lambda *a: fa.flash_attention_fwd_biased_cuda(*a, **kw),
-                lambda *a: fa.flash_attention_bwd_dq_biased_cuda(*a, **kw),
-                lambda *a: fa.flash_attention_bwd_dkv_biased_cuda(*a, **kw))
-    return (fa.flash_attention_fwd_cuda, fa.flash_attention_bwd_dq_cuda,
-            fa.flash_attention_bwd_dkv_cuda)
+def legacy_dkv(fa, kw):
+    """The dK/dV wrapper of a commit from before the delta kernel: its
+    kernel writes fp32 [B, S, H, D] at every group."""
+    import torch
+    from deepspeed_tpu_torch.ops import op_builder
+
+    def call(q, k, v, dout, lse, delta, scale, causal=True):
+        B, S, H, D = q.shape
+        slopes, w = (fa._bias_args(q, kw["alibi_slopes"], kw["window"], "ab")
+                     if fa.is_biased(**kw) else (0, 0))
+        dk = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        dv = torch.empty_like(dk)
+        rc = op_builder.load("flash_attention_bwd_dkv")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            slopes, B, S, H, k.shape[2], D, int(bool(causal)),
+            fa._DTYPE_CODES[q.dtype], w, float(scale), fa._stream(q))
+        if rc:
+            raise RuntimeError(f"dK/dV launch failed: CUDA error {rc}")
+        return dk, dv
+    return call
+
+
+def kernels(fa, kw, legacy=False):
+    """(forward, dQ, dK/dV, the backward as called) for bias ``kw``,
+    biased where needed; ``legacy``: as a commit from before the delta
+    kernel drove them."""
+    import torch
+    biased = fa.is_biased(kw["alibi_slopes"], kw["window"])
+    if biased:
+        fwd = lambda *a: fa.flash_attention_fwd_biased_cuda(*a, **kw)
+        dq = lambda *a: fa.flash_attention_bwd_dq_biased_cuda(*a, **kw)
+        dkv = lambda *a: fa.flash_attention_bwd_dkv_biased_cuda(*a, **kw)
+    else:
+        fwd, dq, dkv = (fa.flash_attention_fwd_cuda,
+                        fa.flash_attention_bwd_dq_cuda,
+                        fa.flash_attention_bwd_dkv_cuda)
+    bias = kw if biased else {}
+    if not legacy:
+        return fwd, dq, dkv, lambda *a: fa.flash_attention_bwd_cuda(*a,
+                                                                    **bias)
+    dkv = legacy_dkv(fa, kw)
+
+    def called(q, k, v, o, lse, dout, scale, causal=True):
+        B, S, H, D = q.shape
+        delta = (dout.float() * o.float()).sum(-1).transpose(1, 2)
+        delta = delta.contiguous()
+        dq_ = dq(q, k, v, dout, lse, delta, scale, causal)
+        dk, dv = dkv(q, k, v, dout, lse, delta, scale, causal)
+        g = H // k.shape[2]
+        return (dq_, dk.view(B, S, -1, g, D).sum(3).to(k.dtype),
+                dv.view(B, S, -1, g, D).sum(3).to(v.dtype))
+    return fwd, dq, dkv, called
 
 
 def main():
@@ -169,6 +228,44 @@ def main():
     for D in args.head_dim:
         run_head_dim(D, variants, libs, gen, args.out)
     print(f"done in {time.time() - t0:.1f} s")
+
+
+def sdpa_backward_ms(q, k, v, do, scale, kw, c):
+    """Device ms of SDPA's backward (forward and backward, less forward) on
+    the c input sets [c, B, S, H, D]: ALiBi as a float mask (slope * key,
+    -inf above the diagonal), a window as a boolean one; a GQA group's kv
+    heads repeated for it.  The yardstick of the backward, not the port's
+    path."""
+    import torch
+    import torch.nn.functional as F
+    from chip_smoke import graph_ms
+    S, H = q.shape[2], q.shape[3]
+    qt, kt, vt, dot = (x.transpose(2, 3).contiguous() for x in (q, k, v, do))
+    if k.shape[3] != H:
+        kt, vt = (x.repeat_interleave(H // k.shape[3], 2) for x in (kt, vt))
+    pos = torch.arange(S, device=q.device)
+    allowed = pos[:, None] >= pos[None, :]
+    mask = None
+    if kw["window"]:
+        allowed &= pos[:, None] - pos[None, :] < kw["window"]
+        mask = allowed
+    if kw["alibi_slopes"] is not None:
+        mask = (kw["alibi_slopes"][:, None, None] * pos.float()[None, None]
+                ).masked_fill(~allowed, float("-inf")).to(q.dtype)[None]
+    leaves = [[x[i].clone().requires_grad_() for x in (qt, kt, vt)]
+              for i in range(c)]
+
+    def fwd(i, xs):
+        return F.scaled_dot_product_attention(
+            *xs, attn_mask=mask, is_causal=mask is None, scale=scale)
+
+    def fwd_bwd(i):
+        torch.autograd.grad(fwd(i, leaves[i]), leaves[i], dot[i])
+
+    ms = graph_ms(fwd_bwd, c) - graph_ms(
+        lambda i: fwd(i, (qt[i], kt[i], vt[i])), c)
+    del leaves, qt, kt, vt, dot
+    return ms
 
 
 def run_head_dim(D, variants, libs, gen, out):
@@ -202,13 +299,11 @@ def run_head_dim(D, variants, libs, gen, out):
         cases.append((label, (q, k, v, dout), scale, causal, kw,
                       (o, lse, dq, dk, dv)))
     for name in variants:
-        use(libs, name)
+        legacy = use(libs, name)
         for label, (q, k, v, dout), scale, causal, kw, want in cases:
-            fwd = kernels(fa, kw)[0]
+            fwd, *_, called = kernels(fa, kw, legacy)
             o, lse = fwd(q, k, v, scale, causal)
-            bias = kw if fa.is_biased(**kw) else {}
-            dq, dk, dv = fa.flash_attention_bwd_cuda(q, k, v, o, lse, dout,
-                                                     scale, causal, **bias)
+            dq, dk, dv = called(q, k, v, o, lse, dout, scale, causal)
             print(f"{name} D={D} {label}: O rel L2 {rel(o, want[0]):.2e}, "
                   f"LSE max err {(lse - want[1]).abs().max().item():.2e}, dQ "
                   f"{rel(dq, want[2]):.2e}, dK {rel(dk, want[3]):.2e}, dV "
@@ -223,22 +318,36 @@ def run_head_dim(D, variants, libs, gen, out):
         kw = dict(alibi_slopes=alibi_slopes(H).cuda() if alibi else None,
                   window=window)
         shapes.append((label, x, scale or 1 / math.sqrt(D), kw))
+    sdpa_bwd = {label: sdpa_backward_ms(q, k, v, do, scale, kw, c)
+                for label, (q, k, v, do), scale, kw in shapes}
+    print(f"device ms SDPA backward D={D}: " + " | ".join(
+        f"{label} {ms:.4f}" for label, ms in sdpa_bwd.items()), flush=True)
     for name in list(variants) + list(variants)[:1]:
-        use(libs, name)
+        legacy = use(libs, name)
         row = []
         for label, (q, k, v, do), scale, kw in shapes:
-            fwd, dq, dkv = kernels(fa, kw)
+            fwd, dq, dkv, called = kernels(fa, kw, legacy)
             outs = [fwd(q[i], k[i], v[i], scale, True) for i in range(c)]
+            o = torch.stack([x[0] for x in outs])
             lse = torch.stack([x[1] for x in outs])
-            delta = (do.float() * torch.stack([x[0] for x in outs]).float()
-                     ).sum(-1).transpose(2, 3).contiguous()
+            delta = (do.float() * o.float()).sum(-1).transpose(2, 3)
+            delta = delta.contiguous()
             f_ms = graph_ms(lambda i: fwd(q[i], k[i], v[i], scale, True), c)
             q_ms = graph_ms(lambda i: dq(q[i], k[i], v[i], do[i], lse[i],
                                          delta[i], scale, True), c)
             d_ms = graph_ms(lambda i: dkv(q[i], k[i], v[i], do[i], lse[i],
                                           delta[i], scale, True), c)
+            p_ms = graph_ms(lambda i: (
+                dq(q[i], k[i], v[i], do[i], lse[i], delta[i], scale, True),
+                dkv(q[i], k[i], v[i], do[i], lse[i], delta[i], scale,
+                    True)), c)
+            c_ms = graph_ms(lambda i: called(q[i], k[i], v[i], o[i], lse[i],
+                                             do[i], scale, True), c)
+            ref = sdpa_bwd[label]
             row.append(f"{label} fwd {f_ms:.4f} dQ {q_ms:.4f} dK/dV "
-                       f"{d_ms:.4f}")
+                       f"{d_ms:.4f} pair {p_ms:.4f} ({p_ms / ref:.2f}x SDPA"
+                       f" bwd) as called {c_ms:.4f} ({c_ms / ref:.2f}x)")
+            del outs, o, lse, delta
         print(f"device ms {name} D={D}: " + " | ".join(row), flush=True)
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for name in variants:

@@ -317,6 +317,66 @@ _SASS_D256 = """
 """
 
 
+_SASS_D64_BWD = """
+        code for sm_90a
+                Function : _ZN55_GLOBAL__N__0_22_flash_attention_bwd_cu_019flash_bwd_dq_kernelI13__nv_bfloat16Lb0ELb0ELi64EEEvNS_8DqParamsE
+        /*0100*/                   UTMALDG.4D [UR8], [UR4] ;
+        /*0110*/                   UTMALDG.4D [UR8], [UR4] ;
+        /*0200*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR8], RZ, !UPT ;
+        /*0210*/                   HGMMA.64x64x16.F32.BF16 R88, R152, gdesc[UR12], R88, gsb0 ;
+                Function : _ZN55_GLOBAL__N__0_22_flash_attention_bwd_cu_019flash_bwd_dq_kernelI6__halfLb1ELb1ELi64EEEvNS_8DqParamsE
+        /*0100*/                   UTMALDG.4D [UR8], [UR4] ;
+        /*0210*/                   HGMMA.64x64x16.F32.F16 R88, R152, gdesc[UR12], R88, gsb0 ;
+        /*0220*/                   WARPGROUP.DEPBAR.LE gsb0, 0x1 ;
+                Function : _ZN55_GLOBAL__N__0_22_flash_attention_bwd_cu_019flash_bwd_dq_kernelIfLb0ELb0ELi64EEEvNS_8DqParamsE
+        /*0100*/                   FFMA R1, R2, R3, R4 ;
+"""
+
+
+def test_sass_counts_reads_the_head_dim_64_backward_instantiations():
+    """B2's persistent bodies at head dim 64 are read by their template
+    arguments, bf16 and fp16 apart (phase 2 then holds each to HGMMA and
+    UTMALDG); the fp32 CUDA-core form is not counted."""
+    assert chip_smoke.sass_counts(_SASS_D64_BWD, "flash_bwd_dq_kernel") == {
+        ("bf16", False, False, 64): (2, 2, 0),
+        ("fp16", True, True, 64): (1, 1, 1)}
+
+
+def test_backward_factors_hold_b2_against_sdpas_whole_backward():
+    """B2's two kernels are judged as a pair against SDPA's backward, which
+    returns dQ, dK and dV together, and so is the backward as the training
+    path calls it; a kernel alone is never set against the whole call."""
+    f = chip_smoke.backward_factors(called_ms=1.07, pair_ms=0.6961,
+                                    sdpa_bwd_ms=0.5059)
+    assert f == pytest.approx({"called": 1.07 / 0.5059,
+                               "pair": 0.6961 / 0.5059})
+    assert f["pair"] == pytest.approx(1.376, abs=1e-3)
+    assert chip_smoke.backward_factors(0.2, 0.1, 0.2) == {"called": 1.0,
+                                                          "pair": 0.5}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_check_delta_holds_a_reordered_sum_and_stops_a_wrong_one(dtype,
+                                                                 capsys):
+    """The delta check passes the plain version's values summed in another
+    order (fp32, within DELTA_TOL of sum |dO O|) and stops a result that
+    misses one element of a row."""
+    from deepspeed_tpu_torch.ops.flash_attention import \
+        flash_attention_bwd_delta_plain
+    rng = np.random.default_rng(3)
+    out, dout = (torch.from_numpy(rng.standard_normal(
+        (2, 40, 3, 80)).astype(np.float32)).to(dtype) for _ in range(2))
+    prod = (dout.float() * out.float()).transpose(1, 2)
+    reordered = prod.flip(-1).cumsum(-1)[..., -1].contiguous()
+    chip_smoke.check_delta("delta", reordered, out, dout)
+    want = flash_attention_bwd_delta_plain(out, dout)
+    short = want - prod[..., 7]
+    with pytest.raises(SystemExit):
+        chip_smoke.check_delta("delta", short, out, dout)
+    assert "FAIL: delta" in capsys.readouterr().out
+
+
 def test_sass_counts_reads_the_head_dim_256_instantiations():
     """The flash kernels' D=256 forms are read by their last template
     argument, bf16 and fp16 apart; the fp32 form (CUDA cores) is not
@@ -338,18 +398,18 @@ def test_d_suffix_names_each_head_dim(D, suffix):
                                   "FLASH_CASES_D96"])
 def test_persistent_forward_cases_keep_an_odd_walk(name):
     """The persistent forward (head dims 64, 80, 96) walks q tiles in pairs
-    of one (batch, head): its kernel phase keeps a causal case over an odd
-    B * H whose length does not tile, a GQA and a non-causal case, and at
-    80 and 96 one with an odd count of 128-row q tiles (a unit of one
-    tile)."""
+    of one (batch, head), and the persistent backward at the same head
+    dims walks its dQ q tiles and dK/dV key tiles the same way: the kernel
+    phase keeps a causal case over an odd B * H whose length does not
+    tile, a GQA and a non-causal case, and at every one of the three head
+    dims one with an odd count of 128-row tiles (a unit of one tile)."""
     cases = getattr(chip_smoke, name)
     odd = [(S, causal) for _, B, S, H, _, causal, _ in cases
            if (B * H) % 2 and S % 128]
     assert any(causal for _, causal in odd)
     assert any(H != Hkv for _, _, _, H, Hkv, _, _ in cases)
     assert not all(causal for *_, causal, _ in cases)
-    if name != "FLASH_CASES_D64":
-        assert any(causal and -(-S // 128) % 2 for S, causal in odd)
+    assert any(causal and -(-S // 128) % 2 for S, causal in odd)
 
 
 def test_cli_models_are_the_benchmark_shapes_at_their_head_dims():
@@ -385,6 +445,7 @@ def test_train_launches_match_a_counted_cli_run(head_dim):
     assert cfg.head_dim == head_dim
     flash_attention.flash_attention_fwd_plain.calls = 0
     flash_attention.flash_attention_bwd_plain.calls = 0
+    flash_attention.flash_attention_bwd_delta_plain.calls = 0
     adam.reference_impl.calls = 0
     out = run_benchmark(shape, batch=2, gas=2, seq=16, steps=2,
                         vocab_size=256, device="cpu")
@@ -393,6 +454,8 @@ def test_train_launches_match_a_counted_cli_run(head_dim):
         want["flash_attention_fwd"] == 2 * 2 * 2 * 3
     assert flash_attention.flash_attention_bwd_plain.calls == \
         want["flash_attention_bwd_dq"] == want["flash_attention_bwd_dkv"]
+    assert flash_attention.flash_attention_bwd_delta_plain.calls == \
+        want["flash_attention_bwd_delta"] == want["flash_attention_bwd_dq"]
     assert adam.reference_impl.calls == want["fused_adam"] == 3
     assert not any(v for k, v in want.items() if "biased" in k)
     assert np.isfinite(out["losses"]).all()
@@ -489,8 +552,7 @@ def test_gemma_train_launches_match_a_counted_run():
      "halfLi64ELi64EEEvNS_8TcParamsE", True),
     ("void (anonymous namespace)::sparse_tc_kernel<__nv_bfloat16, 16, "
      "128>((anonymous namespace)::TcParams)", False),
-    # the D = 128 bodies, the fp32 CUDA-core ones and the D = 64 backward
-    # are printed, not held
+    # the D = 128 bodies and the fp32 CUDA-core ones are printed, not held
     ("void (anonymous namespace)::flash_bwd_dkv_kernel<float, false, "
      "false, 96>((anonymous namespace)::DkvParams)", False),
     ("void (anonymous namespace)::flash_fwd_kernel<__nv_bfloat16, false, "
@@ -500,14 +562,20 @@ def test_gemma_train_launches_match_a_counted_run():
     ("void (anonymous namespace)::ragged_prefill_tc_kernel<__nv_bfloat16, "
      "128>((anonymous namespace)::PrefillParams)", False),
     ("void (anonymous namespace)::flash_bwd_dq_kernel<__nv_bfloat16, false, "
-     "false, 64>((anonymous namespace)::DqParams)", False)])
+     "false, 128>((anonymous namespace)::DqParams)", False),
+    # the persistent backward at head dim 64 (dQ and dK/dV)
+    ("void (anonymous namespace)::flash_bwd_dq_kernel<__nv_bfloat16, false, "
+     "false, 64>((anonymous namespace)::DqParams)", True),
+    ("_ZN55_GLOBAL__N__0_22_flash_attention_bwd_cu_020flash_bwd_dkv_"
+     "kernelI6__halfLb1ELb1ELi64EEEvNS_9DkvParamsE", True)])
 def test_must_not_spill_names_decode_and_d64_consumers(kernel, want):
     """The build phase fails on a spill in the split-key decode body, in
     every bf16 / fp16 head-dim-64 instantiation of B1's forward and B4's
     prefill tiles (the shared D = 64 consumer), in every bf16 / fp16
-    head-dim-80 and -96 form of B1 and B2, in every head-dim-256 form of
-    B1 and B2 (fp32 included) and in B6's fp16 form, by demangled or
-    mangled name; other kernels' spills are only printed."""
+    head-dim-64, -80 and -96 form of B1 and B2 (B2's persistent bodies at
+    all three), in every head-dim-256 form of B1 and B2 (fp32 included)
+    and in B6's fp16 form, by demangled or mangled name; other kernels'
+    spills are only printed."""
     assert chip_smoke.must_not_spill(kernel) is want
 
 
