@@ -1135,13 +1135,17 @@ FLASH_CASES_D80 = [("gpt_2_7b B=8 S=1024 H32/32", 8, 1024, 32, 32, True,
                     None)] + FLASH_CASES_D96[1:]
 # and at head dim 256: Gemma-2B's training shape (B=2, S=2048, 8 heads of
 # 256 over one kv head: MQA, a group of 8), the same heads without the
-# group (MHA 8/8), MQA over a length that does not tile, non-causal GQA
+# group (MHA 8/8), MQA over a length that does not tile, non-causal GQA,
+# and MQA at a group of 16 (dK/dV's cluster of 8 blocks, two query heads
+# a block)
 FLASH_CASES_D256 = [("gemma_2b B=2 S=2048 H8/1", 2, 2048, 8, 1, True, None),
                     ("MHA B=2 S=1024 H8/8", 2, 1024, 8, 8, True, None),
                     ("non-tiling MQA B=1 S=1000 H8/1", 1, 1000, 8, 1, True,
                      None),
                     ("non-tiling non-causal B=1 S=1000 H4/2", 1, 1000, 4, 2,
-                     False, None)]
+                     False, None),
+                    ("MQA group 16 B=1 S=1024 H16/1", 1, 1024, 16, 1, True,
+                     None)]
 ADAM_N = 1_000_003
 # the fused Adam kernel and its plain version round the same operations
 # in the same order: they should agree to the last bit; allow 1e-6
@@ -1196,13 +1200,19 @@ def check_delta(name, got, out, dout):
     return err.max().item()
 
 
-def check_group1_outputs(label, q, k, v, out, lse, dout, scale):
-    """At group 1 the dK/dV kernel's wrapper returns dK and dV in k's dtype
-    at k's shape, and ``flash_attention_bwd_cuda`` returns those very
-    tensors: no group sum and no cast runs after the kernel."""
+def check_dkv_outputs(label, q, k, v, out, lse, dout, scale, causal=True):
+    """Where the dK/dV kernel returns the function's outputs -- at group 1,
+    and at every group where it sums the group on the card
+    (``dkv_sums_group``: bf16 / fp16 at head dim 256) -- its wrapper returns
+    dK and dV in k's dtype at k's shape, and ``flash_attention_bwd_cuda``
+    returns those very tensors: no group sum and no cast runs after the
+    kernel.  A second call on the same inputs gives the same bits (no
+    atomics: the cluster sums in rank order)."""
+    import torch
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
-    if k.shape[2] != q.shape[2]:
-        fail(f"{label}: not a group-1 case")
+    group = q.shape[2] // k.shape[2]
+    if group != 1 and not fa.dkv_sums_group(q.shape[3], q.dtype):
+        fail(f"{label}: the dK/dV kernel does not return k's dtype here")
     made = []
     dkv = fa.flash_attention_bwd_dkv_cuda
 
@@ -1213,10 +1223,11 @@ def check_group1_outputs(label, q, k, v, out, lse, dout, scale):
     spy.launches = 0
     fa.flash_attention_bwd_dkv_cuda = spy
     try:
-        _, dk, dv = fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout,
-                                                scale)
+        runs = [fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, scale,
+                                            causal) for _ in range(2)]
     finally:
         fa.flash_attention_bwd_dkv_cuda = dkv
+    (_, dk, dv), again = runs
     kdk, kdv = made[0]
     if (kdk.dtype, kdv.dtype) != (k.dtype, v.dtype) or \
             kdk.shape != k.shape or kdv.shape != v.shape:
@@ -1224,9 +1235,14 @@ def check_group1_outputs(label, q, k, v, out, lse, dout, scale):
              f"{tuple(kdk.shape)}, not k's {k.dtype} {tuple(k.shape)}")
     if dk is not kdk or dv is not kdv:
         fail(f"{label}: flash_attention_bwd_cuda did not return the dK/dV "
-             f"kernel's own outputs at group 1 (a sum or cast ran)")
+             f"kernel's own outputs (a sum or cast ran)")
+    for name, a, b in zip(("dQ", "dK", "dV"), runs[0], again):
+        if not torch.equal(a, b):
+            fail(f"{label}: a second backward on the same inputs changed "
+                 f"{name}")
     phase("kernels", f"{label}: dK, dV in {k.dtype} at {tuple(k.shape)} "
-          f"from the kernel, returned as they are")
+          f"from the kernel (group {group}), returned as they are; a "
+          f"second call bit for bit")
 
 
 def phase_train_kernels():
@@ -1235,9 +1251,10 @@ def phase_train_kernels():
     the backward from the kernel's own (O, LSE) and one dO (check_flash:
     bf16 and fp16 O, dQ, dK and dV also against SDPA's error); the delta
     kernel against its plain version on every case (check_delta), and at
-    gpt_2_7b's shape the group-1 outputs (check_group1_outputs).  B3 with
-    its skip flag 0 against the plain version, and with the flag 1: p, m,
-    v and the count unchanged, bit for bit."""
+    gpt_2_7b's shape and every head-dim-256 case in bf16 and fp16 dK/dV
+    in k's dtype from the kernel, bit for bit again (check_dkv_outputs).
+    B3 with its skip flag 0 against the plain version, and with the flag
+    1: p, m, v and the count unchanged, bit for bit."""
     import torch
     from deepspeed_tpu_torch.ops.adam import (AdamState, adam_hyper,
                                               fused_adam, reference_impl)
@@ -1270,10 +1287,11 @@ def phase_train_kernels():
                 note("flash_attention_bwd_delta", dn, check_delta(
                     f"flash_attention_bwd_delta {dn} {label} D={D}",
                     flash_attention_bwd_delta_cuda(out, dout), out, dout))
-                if D == 80 and dtype == torch.bfloat16 and H == Hkv and \
-                        label.startswith("gpt_2_7b"):
-                    check_group1_outputs(f"{dn} {label} D={D}", q, k, v,
-                                         out, lse, dout, scale)
+                if (D == 80 and dtype == torch.bfloat16 and H == Hkv and
+                        label.startswith("gpt_2_7b")) or \
+                        (D == 256 and dtype != torch.float32):
+                    check_dkv_outputs(f"{dn} {label} D={D}", q, k, v, out,
+                                      lse, dout, scale, causal)
                 del q, k, v, dout, out, lse, got
 
     for g_dtype in (torch.float32, torch.bfloat16):
@@ -3909,8 +3927,9 @@ def flash_timing(errs, B, S, H, Hkv, D, gen):
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.cuda.flash_attention import (
-        flash_attention_bwd_cuda, flash_attention_bwd_dkv_cuda,
-        flash_attention_bwd_dq_cuda, flash_attention_fwd_cuda)
+        dkv_sums_group, flash_attention_bwd_cuda,
+        flash_attention_bwd_dkv_cuda, flash_attention_bwd_dq_cuda,
+        flash_attention_fwd_cuda)
     from deepspeed_tpu_torch.ops.flash_attention import (
         flash_attention_bwd_plain, flash_attention_fwd_plain)
     c = 4
@@ -3918,8 +3937,9 @@ def flash_timing(errs, B, S, H, Hkv, D, gen):
     flops = {"fwd": 2 * B * H * S * S * D, "dq": 3 * B * H * S * S * D,
              "dkv": 4 * B * H * S * S * D}
     # each input read once, each output written once in the function's
-    # dtype: O and dQ like q; dK and dV like k, at Hkv heads (the kernel's
-    # fp32 per-query-head scratch is its own layout, not the function's)
+    # dtype: O and dQ like q; dK and dV like k, at Hkv heads (where the
+    # kernel writes fp32 per query head, that is its own layout, not the
+    # function's)
     e, ekv, f4 = B * S * H * D * 2, B * S * Hkv * D * 2, B * H * S * 4
     nbytes = {"fwd": 2 * e + 2 * ekv + f4, "dq": 3 * e + 2 * ekv + 2 * f4,
               "dkv": 2 * e + 4 * ekv + 2 * f4}
@@ -3969,9 +3989,11 @@ def flash_timing(errs, B, S, H, Hkv, D, gen):
             q[i], k[i], v[i], o[i], lse[i], do[i], scale), c)
         shape = f"B={B} S={S} H={H}/{Hkv} D={D} causal {dn}"
         f = backward_factors(called_ms, pair_ms, lib_bwd_ms)
+        glue = ", group sum and cast" if H != Hkv and \
+            not dkv_sums_group(D, dt) else ""
         phase("timing", f"B2 backward as called [{shape}]: "
               f"flash_attention_bwd_cuda {called_ms:.4f} ms (delta, dQ, "
-              f"dK/dV{', group sum and cast' if H != Hkv else ''}) = "
+              f"dK/dV{glue}) = "
               f"{f['called']:.2f}x SDPA's backward {lib_bwd_ms:.4f} ms; "
               f"pair dQ + dK/dV {pair_ms:.4f} ms (dQ {dq_ms:.4f}, dK/dV "
               f"{dkv_ms:.4f}) = {f['pair']:.2f}x")

@@ -11,10 +11,13 @@
 //   dQ = sum over key tiles of dS K          (items of 128 query rows)
 //   dK = sum over q tiles of dS^T Q,  dV = sum over q tiles of P^T dO
 //                                            (items of 128 keys)
-// dQ is stored in q's dtype.  dK and dV are stored in k's dtype when the
-// GQA group is 1; at a larger group in fp32 per QUERY head ([B, S, H, D]),
-// which the wrapper sums over the group and casts, as _flash_bwd_pallas
-// does.  No atomics either way, so runs repeat bit for bit.  The biased
+// dQ is stored in q's dtype.  dK and dV are stored in k's dtype at [B, S,
+// Hkv, D], as the function returns them, when the GQA group is 1 and, in
+// bf16 / fp16 at head dim 256, at every group (the group summed on the
+// card, in a thread-block cluster); otherwise at a larger group in fp32
+// per QUERY head ([B, S, H, D]), which the wrapper sums over the group
+// and casts, as _flash_bwd_pallas does.  No atomics either way, so runs
+// repeat bit for bit.  The biased
 // instantiations add slope[h] * key after the scale and mask keys outside
 // the sliding window, as the TPU kernels do; the dQ kernel's key loop
 // starts at the first tile the window reaches, and the dK/dV kernel's q
@@ -28,7 +31,8 @@
 // counted in k's dtype at Hkv heads, as the function returns them), 340
 // flop per byte: the tensor cores bound it too (17.4 us).  At group 1 it
 // writes dK and dV in k's dtype, as counted; at a larger group its fp32
-// per-query-head outputs write 2 x group x as many bytes.  BLOOM's ALiBi layers
+// per-query-head outputs write 2 x group x as many bytes (not at head dim
+// 256 in bf16 / fp16, which sums the group on the card).  BLOOM's ALiBi layers
 // (S=2048) do 4x the work and are bound by operations; a window of 256 at
 // S=2048 leaves 491,648 of the 2,098,176 causal (q, k) pairs and is bound
 // by bytes.
@@ -43,10 +47,10 @@
 // reports any step where the kernels and the plain versions disagree on
 // overflow.
 //
-// dK/dV at head dims 128 and 256: tensor cores fed by TMA.  One block of
-// three warpgroups per (128-key tile, b * h), the key tiles with the
-// longest causal q loops first.  K and V (32 KB each) stay in shared memory for the block; a
-// producer warp streams 64-row Q and dO tiles through a two-stage ring
+// dK/dV at head dim 128: tensor cores fed by TMA.  One block of three
+// warpgroups per (128-key tile, b * h), the key tiles with the longest
+// causal q loops first.  K and V (32 KB each) stay in shared memory for
+// the block; a producer warp streams 64-row Q and dO tiles through a two-stage ring
 // (TMA, 128-byte swizzle, rows past S zero-filled) and writes their rows'
 // LSE and delta beside them.  Two consumer warpgroups own 64 keys each and
 // compute the products transposed, keys as wgmma's M: S^T = K Q^T and
@@ -133,27 +137,45 @@
 // (dK/dV) their bounds.  PERF.md has every plan tried.
 //
 // Head dim 256 (Gemma): a tile is four 64-column boxes, and every
-// accumulator whose N is D is 128 fp32 registers a thread.
-//   * dQ: the body as it is (dQ 128 + S 32 + dP 32 registers of the
+// accumulator whose N is D is 128 fp32 registers a thread.  At Gemma-2B's
+// training shape (B=2, S=2048, 8 heads of 256 over one kv head, causal)
+// dQ does 51.5 GFLOP and dK/dV 68.7: bound by the tensor cores (52.1 and
+// 69.5 us).
+//   * dQ: the D = 128 body (dQ 128 + S 32 + dP 32 registers of the
 //     consumers' 240, no spill); Q and dO take 64 KB each, so the K/V ring
 //     has one stage of 64-key tiles (192 KB in all), and a tile's loads no
 //     longer overlap the products of the one before.
-//   * dK/dV: dK + dV for 64 keys a warpgroup would be 256 registers, and
-//     K and V resident for 128 keys with the Q/dO ring 256 KB.  A block
-//     takes 64 keys (K, V 64 KB; two stages of 64-row Q and dO 128 KB),
-//     and both consumer warpgroups compute S^T and dP^T for those keys;
-//     each then owns 128 of dK's and dV's columns (m64n128 products over
-//     its half of dO and Q): 64 + 64 + 32 + 32 registers, no spill.  The
-//     score products are done twice, 1.5x the block's tensor-core work.
-//     A design that split them instead (one warpgroup S^T, the other dP^T,
-//     trading P^T in fp32 and dS^T in E through 24 KB of shared memory and
-//     two named barriers a tile) measured slower on an H100 (0.1966-0.1989
-//     against 0.1950 ms at Gemma-2B's shape, scripts/flash_kernel_ab.py):
-//     it spilled 48 bytes and ptxas serialised its wgmma pipeline (a
-//     WARPGROUP.DEPBAR after each of its 46 HGMMA).
-// At Gemma-2B's training shape (B=2, S=2048, 8 heads of 256 over one kv
-// head, causal) dQ does 51.5 GFLOP and dK/dV 68.7: bound by the tensor
-// cores (52.1 and 69.5 us).
+//   * dK/dV (dkv_cluster): a block owns 64 keys (K, V 64 KB) and streams
+//     64-row Q and dO tiles through two stages (128 KB).  The body before
+//     had both consumer warpgroups compute S^T and dP^T, each then owning
+//     128 of dK's and dV's columns (1.5x the useful tensor-core work), and
+//     wrote fp32 per query head at a GQA group, which the wrapper summed
+//     and cast: 0.1936-0.1944 ms and, as called, 0.3830-0.3864 at Gemma-2B's
+//     shape (1.15x SDPA's backward).  Now the warpgroups split the products
+//     (DkvClusterBody, pb::walk_tiles in series, kDkvOrder256): warpgroup 0
+//     forms S^T and P^T and runs dV += P^T dO, warpgroup 1 forms dP^T,
+//     takes P^T in fp32 through shared memory (two 16 KB buffers, named
+//     barriers 1-4) and runs dK += dS^T Q; each holds one m64n256
+//     accumulator (FA3's order within a warpgroup spilled 4-72 bytes and
+//     ran 1.37x slower).  The producer issues a tile's TMA before it loads
+//     the tile's LSE and delta rows (expect_tx first, its arrival after the
+//     rows): with the rows' loads first, dK/dV at group 1 (ALiBi, 8 heads)
+//     read 0.1917 ms, after 0.1807.  At a GQA group the blocks of one key
+//     tile form a thread-block cluster of C = the largest divisor of the
+//     group up to 4 (cl::cluster_of), each walking group / C query heads; after the q loop they stage dK and dV in fp32 over K, V
+//     and the ring and each block sums a fixed share of the rows over the
+//     cluster's ranks in rank order through distributed shared memory,
+//     storing k's dtype.  At group 1 dK and dV go straight from the
+//     registers.  Clusters of 8 (one head a block) read 0.2349 ms, of 4
+//     0.1913: the card holds 15 clusters of 8 of these blocks at once (120
+//     SMs; 30 of 4), and the 8-way sum costs more.  The removed
+//     doubled products bought little on their own: the block streams 64 KB
+//     of Q and dO for every 8.4 MFLOP, and the L2-to-SM stream, not the
+//     tensor cores, sets its pace (about 3 TB/s here; 32-row tiles in 4
+//     stages ran 8% slower).  Measured on an NVIDIA H100 80GB HBM3 at 700
+//     W by scripts/flash_kernel_ab.py: 0.1826 ms (fp16 0.1836), and the
+//     backward as called 0.3273 (0.99x SDPA's 0.3322; fp16 0.3270, 0.97x);
+//     PERF.md has every plan.
 //
 // fp32 dQ and dK/dV run on the CUDA cores (the first kernels,
 // flash_tile.cuh): 256 threads, fp32 products; the dQ block walks key
@@ -500,8 +522,10 @@ struct DkvParams {
   const void* dout;
   const float* lse;
   const float* delta;
-  void* dk;   // k's dtype at [B, S, Hkv, D] when H == Hkv, else fp32 at
-  void* dv;   // [B, S, H, D] (one row block per query head)
+  void* dk;   // k's dtype at [B, S, Hkv, D] when H == Hkv or in the
+  void* dv;   // bf16 / fp16 forms at D = 256 (dkv_cluster sums the GQA
+              // group), else fp32 at [B, S, H, D] (a row block per query
+              // head)
   const float* slopes;
   int window, B, S, H, Hkv, causal;
   float scale, scale_log2e;   // the latter scale * log2(e), as the card
@@ -643,16 +667,16 @@ __device__ __forceinline__ void store_rows(E* const (&rows)[2],
 }
 
 // A consumer thread's rows of dK and dV (keys key0 and key0 + 8 of head
-// h, N of the D columns from c0; rows past S are not stored): in E at [B,
-// S, Hkv, D] when the group is 1 (H == Hkv), the function's own output,
-// 16 bytes a lane (store_rows; a column pair a lane measured 11% slower
-// at gpt_2_7b's shape); else in fp32 at [B, S, H, D], one row block per
-// query head, which the wrapper sums over the group and casts.
-template <typename E, int D, int N>
+// h; rows past S are not stored): in E at [B, S, Hkv, D] when the group is
+// 1 (H == Hkv), the function's own output, 16 bytes a lane (store_rows; a
+// column pair a lane measured 11% slower at gpt_2_7b's shape); else in
+// fp32 at [B, S, H, D], one row block per query head, which the wrapper
+// sums over the group and casts.
+template <typename E, int D>
 __device__ __forceinline__ void store_dkv(const DkvParams& p,
-                                          const float (&dk)[N / 2],
-                                          const float (&dv)[N / 2], int b,
-                                          int h, int key0, int t, int c0) {
+                                          const float (&dk)[D / 2],
+                                          const float (&dv)[D / 2], int b,
+                                          int h, int key0, int t) {
   const int S = p.S, H = p.H;
   if (H == p.Hkv) {
     E* rk[2];
@@ -660,23 +684,23 @@ __device__ __forceinline__ void store_dkv(const DkvParams& p,
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int key = key0 + 8 * r;
-      const long long at = (((long long)b * S + key) * H + h) * D + c0;
+      const long long at = (((long long)b * S + key) * H + h) * D;
       rk[r] = key < S ? static_cast<E*>(p.dk) + at : nullptr;
       rv[r] = key < S ? static_cast<E*>(p.dv) + at : nullptr;
     }
-    store_rows<E, N>(rk, dk, t);
-    store_rows<E, N>(rv, dv, t);
+    store_rows<E, D>(rk, dk, t);
+    store_rows<E, D>(rv, dv, t);
     return;
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int key = key0 + 8 * r;
     if (key >= S) continue;
-    const long long at = (((long long)b * S + key) * H + h) * D + c0;
+    const long long at = (((long long)b * S + key) * H + h) * D;
     float2* dk_row = reinterpret_cast<float2*>(static_cast<float*>(p.dk) + at);
     float2* dv_row = reinterpret_cast<float2*>(static_cast<float*>(p.dv) + at);
 #pragma unroll
-    for (int j = 0; j < N / 8; ++j) {
+    for (int j = 0; j < D / 8; ++j) {
       const int c2 = (8 * j + 2 * (t % 4)) / 2;
       dk_row[c2] = make_float2(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
       dv_row[c2] = make_float2(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
@@ -689,17 +713,14 @@ constexpr int BN = 128;                      // keys of a block
 constexpr int BM = 64;                       // query rows of a Q/dO tile
 constexpr int kThreads = 384;                // 2 consumer + 1 producer WG
 constexpr int kQBox = BM * hopper::kBoxCols * 2;   // one 64-column box
-// The shared-memory plan at head dim D (128 or 256; 64, 80 and 96 run the
-// persistent body, whose blocks take kKeys keys too): K, V, then kStages
-// x (Q, dO), kStages x (lse, delta) rows, the barriers: K/V's, full[],
-// empty[].  Tiles are whole 64-column boxes.  At D = 256 a block takes 64
-// keys, which both consumer warpgroups share: each owns 128 of dK's and
-// dV's 256 columns (kSplit; the header says why).
+// The shared-memory plan at head dim 128 (64, 80 and 96 run the
+// persistent body, 256 the cluster body): K, V, then kStages x (Q, dO),
+// kStages x (lse, delta) rows, the barriers: K/V's, full[], empty[].
+// Tiles are whole 64-column boxes.
 template <int D>
 struct Smem {
-  static constexpr int kKeys = D == 256 ? 64 : BN;   // keys of a block
-  static constexpr bool kSplit = D == 256;   // warpgroups split D, not keys
-  // K, V: 32 KB at D = 128 and 256; Q, dO: half that but 32 at 256
+  static constexpr int kKeys = BN;           // keys of a block
+  // K, V: 32 KB; Q, dO: 16 KB
   static constexpr int kKvTile = kKeys * hopper::box_cols<D>() * 2;
   static constexpr int kKvBox = kKeys * hopper::kBoxCols * 2;
   static constexpr int kQTile = BM * hopper::box_cols<D>() * 2;
@@ -720,9 +741,7 @@ __device__ __forceinline__ void dkv_tensor_cores(const DkvParams& p,
   constexpr int kKvTile = Plan::kKvTile, kQTile = Plan::kQTile;
   constexpr int kKvBox = Plan::kKvBox, kKeys = Plan::kKeys;
   constexpr int kStages = Plan::kStages;
-  constexpr bool kSplit = Plan::kSplit;
-  // the columns of dK and dV a warpgroup owns: all D, or 128 at D = 256
-  constexpr int N = kSplit ? 128 : D;
+  static_assert(D == 128, "one block per key tile: head dim 128");
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
   unsigned char* k_s = base;
@@ -787,20 +806,17 @@ __device__ __forceinline__ void dkv_tensor_cores(const DkvParams& p,
         }
       }
     }
-  } else {  // consumers: warpgroup wg owns keys k0 + 64 wg .. + 63, or at
-            // D = 256 all 64 keys and columns 128 wg .. + 127
+  } else {  // consumers: warpgroup wg owns keys k0 + 64 wg .. + 63
     regs_alloc<240>();
-    const int kw = kSplit ? k0 : k0 + 64 * wg;
+    const int kw = k0 + 64 * wg;
     const int key0 = kw + acc_row(0, t);              // and key0 + 8
     const float scale = p.scale;
     const float slope = SLOPE ? __ldg(p.slopes + h) : 0.f;
-    const uint32_t k_addr = smem_u32(k_s) + (kSplit ? 0 : 64 * wg * 128);
-    const uint32_t v_addr = smem_u32(v_s) + (kSplit ? 0 : 64 * wg * 128);
-    // byte offset of this warpgroup's columns in a Q or dO tile
-    const uint32_t c_off = kSplit ? 2 * wg * kQBox : 0;
-    float dk[N / 2], dv[N / 2];
+    const uint32_t k_addr = smem_u32(k_s) + 64 * wg * 128;
+    const uint32_t v_addr = smem_u32(v_s) + 64 * wg * 128;
+    float dk[D / 2], dv[D / 2];
 #pragma unroll
-    for (int i = 0; i < N / 2; ++i) dk[i] = dv[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
 
     mbar_wait(kv_bar, 0);
     for (int it = 0; it < n_tiles; ++it) {
@@ -817,8 +833,7 @@ __device__ __forceinline__ void dkv_tensor_cores(const DkvParams& p,
         const bool edge =
             q0 + BM > S || kw + 64 > S || (p.causal && q0 < kw + 63) ||
             (WINDOW && window > 0 && q0 + BM - 1 - kw >= window);
-        // S^T = K Q^T and dP^T = V dO^T: keys are the rows (at D = 256
-        // both warpgroups compute both, for the same 64 keys)
+        // S^T = K Q^T and dP^T = V dO^T: keys are the rows
         float s[32], dp[32];
         wgmma_fence();
 #pragma unroll
@@ -836,8 +851,7 @@ __device__ __forceinline__ void dkv_tensor_cores(const DkvParams& p,
 
         // P^T first: dV += P^T dO starts on the tensor cores (P^T as E
         // A operands from registers, dO read transposed: its rows are the
-        // depth) while dS^T is formed; then dK += dS^T Q the same way --
-        // both over this warpgroup's N columns of dO and Q
+        // depth) while dS^T is formed; then dK += dS^T Q the same way
 #pragma unroll
         for (int i = 0; i < 32; ++i) {
           const int c = acc_col(i, t), qrow = q0 + c;
@@ -860,8 +874,7 @@ __device__ __forceinline__ void dkv_tensor_cores(const DkvParams& p,
         for (int kk = 0; kk < BM / 16; ++kk) {
           const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
                                  pa[4 * kk + 3]};
-          wgmma_rs<E, N>(dv, a, desc_mnmajor(do_addr + c_off + kk * 2048,
-                                             kQBox));
+          wgmma_rs<E, D>(dv, a, desc_mnmajor(do_addr + kk * 2048, kQBox));
         }
 #pragma unroll
         for (int i = 0; i < 32; ++i) {
@@ -876,8 +889,7 @@ __device__ __forceinline__ void dkv_tensor_cores(const DkvParams& p,
         for (int kk = 0; kk < BM / 16; ++kk) {
           const uint32_t a[4] = {da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
                                  da[4 * kk + 3]};
-          wgmma_rs<E, N>(dk, a, desc_mnmajor(q_addr + c_off + kk * 2048,
-                                             kQBox));
+          wgmma_rs<E, D>(dk, a, desc_mnmajor(q_addr + kk * 2048, kQBox));
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -889,8 +901,7 @@ __device__ __forceinline__ void dkv_tensor_cores(const DkvParams& p,
       mbar_arrive(&empty[st]);
     }
 
-    // this warpgroup's N columns from column c0
-    store_dkv<E, D, N>(p, dk, dv, b, h, key0, t, kSplit ? 128 * wg : 0);
+    store_dkv<E, D>(p, dk, dv, b, h, key0, t);
   }
 }
 
@@ -1604,11 +1615,363 @@ __device__ __forceinline__ void dkv_persistent(const DkvParams& p,
         const int un = pb::opaque(u);
         const pb::Item done = dkv_item(p, un / w.per_head, w.tile(un, i),
                                        window);
-        store_dkv<E, D, D>(p, body.dk, body.dv, done.b, done.h,
-                           done.x0 + 64 * wg + acc_row(0, t), t, 0);
+        store_dkv<E, D>(p, body.dk, body.dv, done.b, done.h,
+                        done.x0 + 64 * wg + acc_row(0, t), t);
       }
     }
   }
+}
+
+// ---- dK/dV, bf16 / fp16, head dim 256: the GQA group summed in a cluster --
+
+namespace cl {
+constexpr int kKeys = 64;                    // keys of a block
+constexpr int D = 256;
+constexpr int kKvBox = kKeys * hopper::kBoxCols * 2;   // a K or V box: 8 KB
+constexpr int kKvTile = kKeys * D * 2;       // K or V: 32 KB
+// q rows of a Q/dO tile, and the ring's stages of Q and dO tiles (128 KB;
+// 32-row tiles in 4 stages ran 8% slower)
+constexpr int BM = 64;
+constexpr int kBox = BM * hopper::kBoxCols * 2;   // a Q or dO box
+constexpr int kTile = BM * D * 2;            // a Q or dO tile
+constexpr int kStages = 2;
+constexpr int kS = BM / 2;                   // S^T / dP^T accumulators
+constexpr int kPBufs = 2;                    // P^T exchange buffers
+// the largest cluster: at 8 (one query head a block at a group of 8) the
+// cluster's scheduling and sum cost more than they save (PERF.md)
+constexpr int kMaxCluster = 4;
+constexpr int kPitch = D + 8;                // staged rows, in floats
+// setmaxnreg's split of the launch's 168 registers a thread; the producer
+// warp walks the group's heads and writes each stage's LSE and delta rows
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+// each warpgroup's order over its tiles (pb::walk_tiles): its score product,
+// elementwise work and accumulating product in series, or FA3's order (the
+// next tile's score product issued with this tile's accumulating one)
+constexpr pb::Order kDkvOrder256 = pb::kSeries;
+// named barriers: P^T buffer b full (1 + b) and empty (1 + kPBufs + b);
+// both consumer warpgroups done with the ring (1 + 2 kPBufs)
+constexpr int kBarFull = 1, kBarEmpty = 1 + kPBufs, kBarDone = 1 + 2 * kPBufs;
+// K, V, kStages x (Q, dO), kPBufs P^T buffers (fp32, element i of thread
+// t at i * 128 + t), kStages x (LSE, delta) rows, the barriers: K/V's,
+// full[], empty[].  After the q loop dK and dV are staged in fp32 over K,
+// V and the ring, kPitch floats a row (a float2 store of a quad's columns
+// then touches each bank at most twice a warp).
+constexpr int kStageOffset = 2 * kKvTile;
+constexpr int kXOffset = kStageOffset + kStages * 2 * kTile;
+constexpr int kXBytes = kS * 128 * 4;
+constexpr int kRowsOffset = kXOffset + kPBufs * kXBytes;
+constexpr int kBarOffset = kRowsOffset + kStages * 2 * BM * 4;
+constexpr size_t kBytes = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
+static_assert(kBytes <= 232448, "a block has 227 KB of shared memory");
+static_assert(2 * kKeys * kPitch * 4 <= kXOffset,
+              "dK and dV are staged over K, V and the ring");
+
+// The blocks of a cluster at a GQA group: the largest divisor of the group
+// that a portable cluster holds.
+__host__ __device__ constexpr int cluster_of(int group) {
+  int c = group < kMaxCluster ? group : kMaxCluster;
+  while (group % c) --c;
+  return c;
+}
+
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+}  // namespace cl
+
+// dK/dV at head dim 256: a consumer warpgroup's registers and work over
+// one query head's q tiles (pb::walk_tiles), keys as the rows of the
+// products.  Warpgroup 0 forms S^T = K Q^T and P^T and runs dV += P^T dO;
+// warpgroup 1 forms dP^T = V dO^T, takes P^T from warpgroup 0 through
+// shared memory (buffer m % kPBufs for the m-th tile both see), forms
+// dS^T = P^T (dP^T - delta) scale and runs dK += dS^T Q.  acc is dV or
+// dK.
+template <typename E, bool SLOPE, bool WINDOW>
+struct DkvClusterBody {
+  float acc[cl::D / 2], sc[cl::kS];
+  uint32_t a_op[cl::kS / 2];
+  uint32_t kv_addr, ring;          // K or V; the Q/dO ring
+  const float* rows;               // the stages' LSE and delta rows
+  float* xs;                       // the P^T buffers
+  float scale, slope;
+  int wg, t, key0, k0, q_lo, S, causal, window, m;
+
+  __device__ __forceinline__ uint32_t q_addr(int g) const {
+    return ring + (uint32_t)((g % cl::kStages) * 2 * cl::kTile);
+  }
+  // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (1)
+  __device__ __forceinline__ void issue_a(int g) {
+    using namespace hopper;
+    const uint32_t x = q_addr(g) + (wg == 0 ? 0 : cl::kTile);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < cl::D / 16; ++kk) {
+      const uint64_t kd = desc_kmajor(kv_addr + kslice(kk, cl::kKvBox));
+      wgmma_ss_n64<E>(sc, kd, desc_kmajor(x + kslice(kk, cl::kBox)),
+                      kk > 0);
+    }
+    wgmma_commit();
+  }
+  // dV += P^T dO (warpgroup 0) or dK += dS^T Q (1): the A operand from
+  // registers, dO or Q read transposed (its rows are the depth)
+  __device__ __forceinline__ void issue_b(int g) {
+    using namespace hopper;
+    const uint32_t x = q_addr(g) + (wg == 0 ? cl::kTile : 0);
+    fence_regs(acc);
+    fence_regs(a_op);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < cl::BM / 16; ++kk) {
+      const uint32_t a[4] = {a_op[4 * kk], a_op[4 * kk + 1],
+                             a_op[4 * kk + 2], a_op[4 * kk + 3]};
+      wgmma_rs<E, cl::D>(acc, a, desc_mnmajor(x + kk * 2048, cl::kBox));
+    }
+    wgmma_commit();
+  }
+  __device__ __forceinline__ void fence_a() { hopper::fence_regs(sc); }
+  __device__ __forceinline__ void fence_b() {
+    hopper::fence_regs(acc);
+    hopper::fence_regs(a_op);
+  }
+  __device__ __forceinline__ void score(int i, int g) {
+    using namespace hopper;
+    using namespace cl;
+    const int q0 = q_lo + i * BM;
+    const float* lse_s = rows + (g % kStages) * 2 * BM;
+    const float* dl_s = lse_s + BM;
+    const int xi = m++ % kPBufs;
+    float* xb = xs + xi * kS * 128;
+    if (wg == 0) {
+      const bool edge = q0 + BM > S || k0 + kKeys > S ||
+                        (causal && q0 < k0 + 63) ||
+                        (WINDOW && window > 0 && q0 + BM - 1 - k0 >= window);
+#pragma unroll
+      for (int x = 0; x < kS; ++x) {
+        const int col = acc_col(x, t), qrow = q0 + col;
+        const int key = key0 + 8 * ((x / 2) % 2);
+        float y = __fmul_rn(sc[x], scale);
+        if (SLOPE) y = __fadd_rn(y, __fmul_rn(slope, (float)key));
+        if (edge) {
+          bool ok = qrow < S && key < S && (!causal || key <= qrow);
+          if (WINDOW) ok = ok && (window <= 0 || qrow - key < window);
+          if (!ok) y = kNeg;
+        }
+        sc[x] = ex2(fmaf(y, kLog2e, -lse_s[col]));   // 0 where masked
+      }
+      bar_sync(kBarEmpty + xi);      // warpgroup 1 read the last P^T here
+#pragma unroll
+      for (int x = 0; x < kS; ++x) xb[x * 128 + t] = sc[x];
+      bar_arrive(kBarFull + xi);
+    } else {
+      bar_sync(kBarFull + xi);
+#pragma unroll
+      for (int x = 0; x < kS; ++x) {
+        const int col = acc_col(x, t);
+        sc[x] = xb[x * 128 + t] * (sc[x] - dl_s[col]) * scale;
+      }
+      bar_arrive(kBarEmpty + xi);
+    }
+  }
+  __device__ __forceinline__ void pack() { hopper::acc_to_a<E>(sc, a_op); }
+};
+
+// dK/dV at head dim 256, bf16 / fp16.  A block owns 64 keys of kv head hk
+// and walks group / C of its query heads (C: the cluster's blocks,
+// cl::cluster_of(group)): rank r takes heads hk * group + r + C j, j = 0,
+// 1, ..., each over its q tiles from the diagonal to the window's end.  A
+// producer warp loads K and V once and streams 64-row Q and dO tiles
+// (with their rows' LSE and delta) through two stages.  The consumer
+// warpgroups split the products, not the columns (DkvClusterBody), in
+// kDkvOrder256.  At group 1 each stores its accumulator in k's dtype.  At
+// a larger group the two stage dK and dV in shared memory; after a
+// cluster barrier each block sums a fixed share of the rows (row r of the
+// 64 in the block of rank r % C) over the cluster's ranks in rank order,
+// through distributed shared memory, and stores k's dtype at [B, S, Hkv,
+// D]; a second cluster barrier keeps every block's staging alive until
+// the others have read it.  No atomics, no fp32 in HBM: runs repeat bit
+// for bit.
+template <typename E, bool SLOPE, bool WINDOW>
+__device__ __forceinline__ void dkv_cluster(const DkvParams& p,
+                                            unsigned char* raw) {
+  using namespace hopper;
+  using namespace cl;
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* k_s = base;
+  unsigned char* v_s = base + kKvTile;
+  unsigned char* qdo_s = base + kStageOffset;   // [stage][Q, dO]
+  float* rows_s = reinterpret_cast<float*>(base + kRowsOffset);
+  uint64_t* kv_bar = reinterpret_cast<uint64_t*>(base + kBarOffset);
+  uint64_t* full = kv_bar + 1;
+  uint64_t* empty = full + kStages;
+
+  const int S = p.S, H = p.H, Hkv = p.Hkv, group = H / Hkv;
+  const int C = (int)cluster_size(), rank = (int)cluster_rank();
+  const int heads = group / C;
+  const int b = blockIdx.x / C / Hkv, hk = blockIdx.x / C % Hkv;
+  const int k0 = blockIdx.y * kKeys;       // causal: longest q loops first
+  const int window = WINDOW ? p.window : 0;
+  // the q loop: from the diagonal to the last row that sees key k0 + 63
+  const int q_lo = p.causal ? k0 : 0;
+  const int q_hi =
+      WINDOW && window > 0
+          ? (int)min((long long)S, (long long)k0 + kKeys - 1 + window)
+          : S;
+  const int n_tiles = (q_hi - q_lo + BM - 1) / BM;
+
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_bar, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full[st], 32);     // the producer warp's lanes
+      mbar_init(&empty[st], 256);   // every consumer thread
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer: warp 0 of the last warpgroup
+    regs_dealloc<kProducerRegs>();
+    if (t < 32) {
+      if (t == 0) {
+        mbar_arrive_expect_tx(kv_bar, 2 * kKvTile);
+        tma_load_rows<D>(k_s, &p.k_map, kv_bar, kKeys, hk, k0, b);
+        tma_load_rows<D>(v_s, &p.v_map, kv_bar, kKeys, hk, k0, b);
+      }
+      for (int j = 0, n = 0; j < heads; ++j) {
+        const int h = hk * group + rank + C * j;
+        const float* lse = p.lse + (long long)(b * H + h) * S;
+        const float* delta = p.delta + (long long)(b * H + h) * S;
+        for (int it = 0; it < n_tiles; ++it, ++n) {
+          const int st = n % kStages, q0 = q_lo + it * BM;
+          mbar_wait(&empty[st], ((n / kStages) & 1) ^ 1);
+          if (t == 0) {   // the tiles first: the rows' loads do not delay them
+            unsigned char* q_t = qdo_s + st * 2 * kTile;
+            mbar_expect_tx(&full[st], 2 * kTile);
+            tma_load_rows<D>(q_t, &p.q_map, &full[st], BM, h, q0, b);
+            tma_load_rows<D>(q_t + kTile, &p.do_map, &full[st], BM, h, q0,
+                             b);
+          }
+          // LSE (times log2 e) and delta of the tile's rows (0 past S)
+          float* lse_s = rows_s + st * 2 * BM;
+#pragma unroll
+          for (int r = t; r < BM; r += 32) {
+            lse_s[r] = q0 + r < S ? lse[q0 + r] * kLog2e : 0.f;
+            lse_s[BM + r] = q0 + r < S ? delta[q0 + r] : 0.f;
+          }
+          mbar_arrive(&full[st]);
+        }
+      }
+    }
+    if (C > 1) {
+      cluster_sync();                // every block's dK and dV staged
+      cluster_sync();                // and summed
+    }
+    return;
+  }
+  // consumers: warpgroup 0 S^T, P^T and dV; warpgroup 1 dP^T, dS^T and dK
+  // -- both over all 64 keys and D columns
+  regs_alloc<kConsumerRegs>();
+  DkvClusterBody<E, SLOPE, WINDOW> body;
+  body.wg = wg;
+  body.t = t;
+  body.k0 = k0;
+  body.key0 = k0 + acc_row(0, t);                  // and key0 + 8
+  body.q_lo = q_lo;
+  body.S = S;
+  body.causal = p.causal;
+  body.window = window;
+  body.scale = p.scale;
+  body.m = 0;
+  body.kv_addr = smem_u32(wg == 0 ? k_s : v_s);    // K, or V
+  body.ring = smem_u32(qdo_s);
+  body.rows = rows_s;
+  body.xs = reinterpret_cast<float*>(base + kXOffset);
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) body.acc[i] = 0.f;
+  if (wg == 1)                       // every P^T buffer starts empty
+    for (int x = 0; x < kPBufs; ++x) bar_arrive(kBarEmpty + x);
+  // both warpgroups see the same tiles (the P^T handoff pairs them)
+  int first, last;
+  pb::seen_range(n_tiles, [&](int x) {
+    const int q0 = q_lo + x * BM;
+    return (p.causal && q0 + BM - 1 < k0) ||
+           (WINDOW && window > 0 && q0 - (k0 + 63) >= window);
+  }, first, last);
+  mbar_wait(kv_bar, 0);
+  for (int j = 0; j < heads; ++j) {
+    body.slope = SLOPE ? __ldg(p.slopes + hk * group + rank + C * j) : 0.f;
+    pb::walk_tiles<kStages, kDkvOrder256, false>(body, full, empty,
+                                                 j * n_tiles, n_tiles, first,
+                                                 last);
+  }
+  if (wg == 0)                       // warpgroup 1's last arrivals
+    for (int x = 0; x < kPBufs; ++x) bar_sync(kBarEmpty + x);
+  const int key0 = body.key0;
+  if (C == 1) {   // no group to sum: k's dtype from the registers
+    E* rows[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = key0 + 8 * r;
+      rows[r] = key < S ? static_cast<E*>(wg == 0 ? p.dv : p.dk) +
+                              (((long long)b * S + key) * Hkv + hk) * D
+                        : nullptr;
+    }
+    store_rows<E, D>(rows, body.acc, t);
+    return;
+  }
+  bar_sync(kBarDone);                // K, V and the ring read for the last time
+  // stage this warpgroup's accumulator: rows of dK (matrix 0) or dV (1).
+  // The sum runs here, in the consumers' registers: code after the
+  // producer's and consumers' branches join is held to the producer's
+  // register budget (there it spilled ~500 bytes)
+  float* mat = reinterpret_cast<float*>(base) +
+               (wg == 0 ? 1 : 0) * kKeys * kPitch;
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int row = acc_row(i, t), col = acc_col(i, t);
+    *reinterpret_cast<float2*>(mat + row * kPitch + col) =
+        make_float2(body.acc[i], body.acc[i + 1]);
+  }
+  cluster_sync();                    // every block's dK and dV staged
+  // rows rank, rank + C, ... of dK and dV: 8 columns a thread a step,
+  // summed over the cluster's blocks in rank order
+  const int n_rows = (kKeys - rank + C - 1) / C;
+  const uint32_t stage0 = smem_u32(base);
+  for (int x = threadIdx.x; x < n_rows * 64; x += 256) {
+    const int row = rank + C * (x / 64), key = k0 + row;
+    const int mi = x % 64 / 32, col = x % 32 * 8;
+    if (key >= S) continue;
+    const uint32_t at = stage0 + ((mi * kKeys + row) * kPitch + col) * 4;
+    // every rank's 8 columns loaded before any is summed: the remote loads'
+    // latencies overlap
+    float4 lo[kMaxCluster], hi[kMaxCluster];
+#pragma unroll
+    for (int q = 0; q < kMaxCluster; ++q) {
+      if (q < C) {
+        const uint32_t remote = cluster_addr(at, q);
+        lo[q] = ld_cluster_f4(remote);
+        hi[q] = ld_cluster_f4(remote + 16);
+      }
+    }
+    float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int q = 0; q < kMaxCluster; ++q) {
+      if (q < C) {
+        v[0] += lo[q].x; v[1] += lo[q].y; v[2] += lo[q].z; v[3] += lo[q].w;
+        v[4] += hi[q].x; v[5] += hi[q].y; v[6] += hi[q].z; v[7] += hi[q].w;
+      }
+    }
+    E* out = static_cast<E*>(mi ? p.dv : p.dk) +
+             (((long long)b * S + key) * Hkv + hk) * D + col;
+    *reinterpret_cast<uint4*>(out) =
+        make_uint4(pack2<E>(v[0], v[1]), pack2<E>(v[2], v[3]),
+                   pack2<E>(v[4], v[5]), pack2<E>(v[6], v[7]));
+  }
+  cluster_sync();                    // the others are done reading ours
 }
 
 template <typename T>
@@ -1636,6 +1999,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ DkvParams p) {
     dkv_cuda_cores<SLOPE, WINDOW, D>(p, reinterpret_cast<float*>(smem_raw));
   else if constexpr (pb::persistent(D))
     dkv_persistent<T, SLOPE, WINDOW, D>(p, smem_raw);
+  else if constexpr (D == 256)
+    dkv_cluster<T, SLOPE, WINDOW>(p, smem_raw);
   else
     dkv_tensor_cores<T, SLOPE, WINDOW, D>(p, smem_raw);
 }
@@ -1667,6 +2032,8 @@ constexpr size_t bwd_smem() {
     return pb::Plan<D, DQ>::kBytes;
   else if constexpr (DQ)
     return tcq::Smem<D>::kBytes;
+  else if constexpr (D == 256)
+    return cl::kBytes;
   else
     return tc::Smem<D>::kBytes;
 }
@@ -1702,9 +2069,31 @@ int launch_dkv(const DkvParams& p, int B, cudaStream_t stream) {
   if (attr != cudaSuccess) return (int)attr;
   constexpr int R = bwd_rows<D>();
   dim3 grid((p.S + R - 1) / R, B * p.H);
+  if constexpr (!fp32 && D == 256) {
+    // a cluster of C blocks per (batch, kv head, 64-key tile): C of the
+    // group's query heads at once, summed on the card (dkv_cluster); a
+    // cluster the card cannot place fails the launch.  (A persistent walk
+    // of key-tile pairs ran 1.6x slower: the card holds 30 clusters of 4
+    // at once, Gemma-2B's shape has 32 pairs.)
+    const int C = cl::cluster_of(p.H / p.Hkv);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(B * p.Hkv * C, (p.S + cl::kKeys - 1) / cl::kKeys);
+    cfg.blockDim = dim3(bwd_threads<T>());
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attrs[1];
+    attrs[0].id = cudaLaunchAttributeClusterDimension;
+    attrs[0].val.clusterDim.x = C;
+    attrs[0].val.clusterDim.y = 1;
+    attrs[0].val.clusterDim.z = 1;
+    cfg.attrs = attrs;
+    cfg.numAttrs = 1;
+    const cudaError_t e =
+        cudaLaunchKernelEx(&cfg, flash_bwd_dkv_kernel<T, SLOPE, WINDOW, D>, p);
+    return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+  }
   if (!fp32) {
-    const int rc =
-        tensor_core_grid<D>(B, p.H, p.S, tc::Smem<D>::kKeys, &grid);
+    const int rc = tensor_core_grid<D>(B, p.H, p.S, tc::BN, &grid);
     if (rc) return rc;
   }
   flash_bwd_dkv_kernel<T, SLOPE, WINDOW, D>
@@ -1749,7 +2138,10 @@ int launch_dq_tensor_cores(DqParams& p, int B, cudaStream_t stream) {
 
 template <typename E, int D>
 int launch_dkv_tensor_cores(DkvParams& p, int B, cudaStream_t stream) {
-  const int rc = make_maps<E, tc::BM, tc::Smem<D>::kKeys, D>(p, B);
+  // Q/dO and K/V tile rows
+  constexpr int kRows = D == 256 ? cl::BM : tc::BM;
+  constexpr int kKeys = D == 256 ? cl::kKeys : tc::BN;
+  const int rc = make_maps<E, kRows, kKeys, D>(p, B);
   return rc ? rc : launch_dkv_biased<E, D>(p, B, stream);
 }
 
@@ -1794,8 +2186,9 @@ extern "C" int ds_flash_attention_bwd_dq(const void* q, const void* k,
   });
 }
 
-// dk/dv: in k's dtype at [B, S, Hkv, D] when H == Hkv; else fp32 [B, S, H,
-// D], one row block per QUERY head (summed over the GQA group by the
+// dk/dv: in k's dtype at [B, S, Hkv, D] when H == Hkv, and at every group
+// in bf16 / fp16 at D = 256 (the group summed on the card); else fp32 [B,
+// S, H, D], one row block per QUERY head (summed over the GQA group by the
 // caller).
 extern "C" int ds_flash_attention_bwd_dkv(const void* q, const void* k,
                                           const void* v, const void* dout,
@@ -1833,6 +2226,38 @@ extern "C" int ds_flash_attention_bwd_dkv(const void* q, const void* k,
     if (dtype == 2) return launch_dkv_tensor_cores<__half, Dc>(p, B, s);
     return (int)cudaErrorInvalidValue;
   });
+}
+
+// How many clusters of the bf16 (dtype 1) or fp16 (2) dK/dV kernel at head
+// dim 256 the card holds at once at a GQA group (cudaOccupancyMaxActive-
+// Clusters, cl::cluster_of(group) blocks a cluster), or minus a CUDA
+// error code: a reading for scripts/flash_kernel_ab.py.
+extern "C" int ds_flash_attention_bwd_dkv_clusters(int group, int dtype) {
+  const auto held = [&](auto kernel) {
+    constexpr size_t smem = cl::kBytes;
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return -(int)e;
+    const int C = cl::cluster_of(group);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(C);
+    cfg.blockDim = dim3(tc::kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cudaLaunchAttribute attrs[1];
+    attrs[0].id = cudaLaunchAttributeClusterDimension;
+    attrs[0].val.clusterDim.x = C;
+    attrs[0].val.clusterDim.y = 1;
+    attrs[0].val.clusterDim.z = 1;
+    cfg.attrs = attrs;
+    cfg.numAttrs = 1;
+    int n = 0;
+    e = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+    return e != cudaSuccess ? -(int)e : n;
+  };
+  if (dtype == 1)
+    return held(flash_bwd_dkv_kernel<__nv_bfloat16, false, false, 256>);
+  if (dtype == 2) return held(flash_bwd_dkv_kernel<__half, false, false, 256>);
+  return -(int)cudaErrorInvalidValue;
 }
 
 // ---- delta = sum_d dO * O: the backward's row term -------------------------

@@ -83,19 +83,38 @@
 // (bf16): gpt_2_7b's shape 0.2659 -> 0.1378 ms, gpt_760m's 0.1419 ->
 // 0.0775 ms, 0.95x and 0.96x SDPA's time and 2.7x and 2.6x their bounds.
 //
-// Head dim 256 (Gemma): the same body with B4's prefill tiles at that head
-// dim (ragged_paged_attention.cu).  A 128-row Q tile is four 64-column
-// boxes, 64 KB; two stages of 128-key K and V tiles would take 256 KB
-// more, and O alone is 128 fp32 registers a thread, which beside a
-// 128-key S (64) and P (32) passes the consumers' 240.  So the K/V tiles
-// are 64 keys (Q + 2 x (K, V) = 192 KB of the 227 KB a block has): S = Q
-// K^T is an m64n64 product over 16 k steps across Q's four boxes (32
-// registers), O += P V one m64n256 product a 16-key slice across V's four
-// boxes.  In fp16 P enters P V as two fp16 terms (the rounded value and
-// the rest), so O is one rounding of an fp32 value, as in B4's tiles.  At
-// Gemma-2B's training shape (B=2, S=2048, 8 heads of 256 over one kv
-// head, causal) the forward does 34.4 GFLOP on 38 MB: bound by the tensor
-// cores (34.7 us).
+// Head dim 256 (Gemma): the persistent body too, on the shared consumer
+// with 64-key K/V tiles.  At Gemma-2B's training shape (B=2, S=2048, 8
+// heads of 256 over one kv head, causal) the forward does 34.4 GFLOP on 38
+// MB: bound by the tensor cores (34.7 us).  A 128-row Q tile is four
+// 64-column boxes, 64 KB, and O alone is 128 fp32 registers a thread, so
+// a K/V tile holds 64 keys (32 KB each): S = Q K^T is an m64n64 product
+// over 16 k steps, O += P V one m64n256 product a 16-key slice, and the
+// ring is one Q tile and 2 stages (192 KB).  The body before ran one
+// block per q tile, S, softmax and P V in series in each warpgroup, the
+// two warpgroups in step: 0.0836 ms (bf16), 0.42 of its bound, and its
+// blocks moved their K/V tiles into shared memory at 3.3 TB/s, what one
+// 64 KB stage in flight behind the one in use allows.  Here the walk is
+// persistent (its 128 units a block each at that shape: the next item's
+// first K/V tile streams under this one's end), and each warpgroup runs
+// a tile's S, softmax and P V in series but takes turns with the other
+// for each product (kFa3At256 false): one warpgroup's softmax runs under
+// the other's products, and S and P never share its registers with O --
+// FA3's order (S of the next tile beside P V of this one) spilled 44-72
+// bytes at setmaxnreg's 240.  Thread-block clusters of 2 and 4 of a GQA
+// group's heads, loading each K/V tile once between them by TMA
+// multicast, ran 1.2x and 2.2x slower (a stage is released only
+// when every block of the cluster is done with it; at 4 the launch, sized
+// by cudaOccupancyMaxActiveClusters, may also have run fewer clusters
+// than the walk's 32 units -- not measured for this kernel), so no
+// cluster is kept.  In fp16 P is
+// rounded once, as SDPA rounds it: within B1's fp16 rule at every D=256
+// case of chip_smoke.py (the body before entered it as two fp16 terms,
+// +31% time).  Measured on an NVIDIA H100 80GB HBM3 at 700 W by
+// scripts/flash_kernel_ab.py: 0.0826-0.0831 -> 0.0684 ms in bf16,
+// 0.1069-0.1070 -> 0.0693 in fp16; ALiBi (8 heads, S=2048) 0.0870-0.0881
+// -> 0.0706, a window of 256 0.0502-0.0504 -> 0.0416 (PERF.md has every
+// plan).
 //
 // fp16 keeps 3 more mantissa bits than bf16 (P, O and the products' inputs
 // round at 2^-11 instead of 2^-8) and the same fp32 accumulators, LSE and
@@ -254,22 +273,34 @@ constexpr int kQBox = BM * hopper::kBoxCols * 2;   // one 64-column Q box
 // second box (D - 64 columns: 20 or 24 KB tiles, 4-5 stages) read -3% to
 // +5% of it (scripts/flash_kernel_ab.py; PERF.md has the numbers).
 constexpr int kQBufs8096 = 1, kStages8096 = 3;
-// Head dims 64, 80 and 96 run the persistent body on the shared consumer
-// (wgmma_attention.cuh); 128 and 256 one block per q tile.
-__host__ __device__ constexpr bool persistent(int D) { return D <= 96; }
+// The ring at head dim 256: one 64 KB Q tile and 2 stages of 64-key K and
+// V tiles (32 KB each; 192 KB), the most that fits.
+constexpr int kStages256 = 2;
+// The consumers' order at head dim 256: FA3's (S of the next tile issued
+// with P V of this one; it spilled), or each tile in series with turns for
+// each product (S and P never in registers at once).
+constexpr bool kFa3At256 = false;
+// setmaxnreg's split at head dim 256: producer, consumers
+constexpr int kProducerRegs256 = 32, kConsumerRegs256 = 232;
+// Head dims 64, 80, 96 and 256 run the persistent body on the shared
+// consumer (wgmma_attention.cuh); 128 one block per q tile.
+__host__ __device__ constexpr bool persistent(int D) {
+  return D <= 96 || D == 256;
+}
 // The shared-memory plan at head dim D: kQBufs Q tiles, then kStages x
-// (K, V), then the barriers -- at D = 128 and 256 Q's, full[], empty[];
-// at 64, 80 and 96 q_full[kQBufs], q_empty[kQBufs], full[], empty[].  A
+// (K, V), then the barriers -- at D = 128 Q's, full[], empty[]; on the
+// persistent body q_full[kQBufs], q_empty[kQBufs], full[], empty[].  A
 // tile is whole 64-column boxes: a Q tile 16 KB at D = 64, 32 at 80, 96
 // and 128, 64 at 256; a K or V tile of kKeys keys the same but at 256,
 // where it takes 64 keys (32 KB; the header says why).
 template <int D>
 struct Smem {
-  static constexpr int kKeys = D == 256 ? 64 : BN;   // keys of a K/V tile
+  static constexpr int kKeys = dswg::tile_keys(D);   // keys of a K/V tile
   static constexpr int kQTile = BM * hopper::box_cols<D>() * 2;
   static constexpr int kTile = kKeys * hopper::box_cols<D>() * 2;
   static constexpr int kKVBox = kKeys * hopper::kBoxCols * 2;
-  static constexpr int kStages = D == 64 ? 4 : D <= 96 ? kStages8096 : 2;
+  static constexpr int kStages =
+      D == 64 ? 4 : D <= 96 ? kStages8096 : D == 256 ? kStages256 : 2;
   static constexpr int kQBufs = D == 64 ? 2 : D <= 96 ? kQBufs8096 : 1;
   static constexpr int kBarOffset = kQBufs * kQTile + kStages * 2 * kTile;
   static constexpr int kBars =
@@ -285,16 +316,12 @@ __device__ __forceinline__ void fwd_tensor_cores(const FwdParams& p,
                                                  unsigned char* raw) {
   using namespace hopper;
   using namespace tc;
+  static_assert(D == 128, "one block per q tile: head dim 128");
   constexpr int kTile = Smem<D>::kTile, kStages = Smem<D>::kStages;
   constexpr int kQTile = Smem<D>::kQTile, kKeys = Smem<D>::kKeys;
   constexpr int kKVBox = Smem<D>::kKVBox;
   constexpr int kBarOffset = Smem<D>::kBarOffset;
-  // S: kKeys / 2 fp32 accumulators a thread (m64n128, or m64n64 at D =
-  // 256), P half as many registers.  fp16 at D = 256 enters P into O += P
-  // V as two fp16 terms, the rounded value and the rest (as B4's prefill
-  // tiles do at that head dim), so O is one rounding of an fp32 value.
-  constexpr int kS = kKeys / 2;
-  constexpr bool kTwoTerms = is_f16<E>() && D == 256;
+  constexpr int kS = kKeys / 2;   // S: m64n128, 64 accumulators a thread
   // tiles on 1024-byte boundaries (the swizzle atom)
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
@@ -368,10 +395,7 @@ __device__ __forceinline__ void fwd_tensor_cores(const FwdParams& p,
         for (int kk = 0; kk < D / 16; ++kk) {
           const uint64_t qd = desc_kmajor(q_addr + kslice(kk, kQBox));
           const uint64_t kd = desc_kmajor(k_addr + kslice(kk, kKVBox));
-          if constexpr (kKeys == 128)
-            wgmma_ss_n128<E>(s, qd, kd, kk > 0);
-          else
-            wgmma_ss_n64<E>(s, qd, kd, kk > 0);
+          wgmma_ss_n128<E>(s, qd, kd, kk > 0);
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -416,20 +440,10 @@ __device__ __forceinline__ void fwd_tensor_cores(const FwdParams& p,
         }
 #pragma unroll
         for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i / 2) % 2];
-        uint32_t pa[kS / 2], pl[kTwoTerms ? kS / 2 : 1];
+        uint32_t pa[kS / 2];
         acc_to_a<E>(s, pa);
-        if constexpr (kTwoTerms) {
-          // the rest of P, rounded: P V as P_hi V + P_lo V
-#pragma unroll
-          for (int i = 0; i < kS / 2; ++i) {
-            const __half2 hi = *reinterpret_cast<const __half2*>(&pa[i]);
-            pl[i] = pack2<E>(s[2 * i] - __low2float(hi),
-                             s[2 * i + 1] - __high2float(hi));
-          }
-        }
         fence_regs(o);
         fence_regs(pa);
-        if constexpr (kTwoTerms) fence_regs(pl);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kKeys / 16; ++kk) {
@@ -437,17 +451,11 @@ __device__ __forceinline__ void fwd_tensor_cores(const FwdParams& p,
           const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
                                  pa[4 * kk + 3]};
           wgmma_rs<E, D>(o, a, vd);
-          if constexpr (kTwoTerms) {
-            const uint32_t c[4] = {pl[4 * kk], pl[4 * kk + 1],
-                                   pl[4 * kk + 2], pl[4 * kk + 3]};
-            wgmma_rs<E, D>(o, c, vd);
-          }
         }
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(o);
         fence_regs(pa);
-        if constexpr (kTwoTerms) fence_regs(pl);
       }
       mbar_arrive(&empty[st]);
     }
@@ -503,13 +511,15 @@ struct FlashRows {
 };
 
 // A work item of the persistent forward: one 128-row q tile of one (batch,
-// head).
+// head), and its key tiles of Smem<D>::kKeys keys.
 struct Item {
   int b, h, hk, q0, k_lo, n_tiles;
 };
 
+template <int D>
 __device__ __forceinline__ Item fwd_item(const FwdParams& p, int bh, int qi,
                                          int window) {
+  constexpr int kKeys = tc::Smem<D>::kKeys;
   Item it;
   it.q0 = qi * tc::BM;
   it.b = bh / p.H;
@@ -517,16 +527,17 @@ __device__ __forceinline__ Item fwd_item(const FwdParams& p, int bh, int qi,
   it.hk = it.h / (p.H / p.Hkv);
   it.k_lo = 0;                           // _k_range: the window's first tile
   if (window > 0 && it.q0 - (window - 1) > 0)
-    it.k_lo = (it.q0 - (window - 1)) / tc::BN * tc::BN;
+    it.k_lo = (it.q0 - (window - 1)) / kKeys * kKeys;
   const int k_hi = p.causal ? min(p.S, it.q0 + tc::BM) : p.S;
-  it.n_tiles = (k_hi - it.k_lo + tc::BN - 1) / tc::BN;
+  it.n_tiles = (k_hi - it.k_lo + kKeys - 1) / kKeys;
   return it;
 }
 
 // The items a block walks, in units: unit u is q tiles n_qt - 1 - k and k
 // (k = u % per_head; one tile where they meet) of (batch, head) u /
 // per_head -- under the causal mask every unit but a middle one has
-// n_qt + 1 key tiles, so equal shares of units are equal shares of work.
+// n_qt + 1 key tiles of 128 keys (2 n_qt + 2 of 64), so equal shares of
+// units are equal shares of work.
 // A block takes units blockIdx.x, then round by round one per gridDim.x,
 // forward in even rounds and backward in odd ones; the units running at
 // once belong to ~gridDim.x / per_head heads, whose K and V stay in L2
@@ -556,16 +567,17 @@ __device__ __forceinline__ void consume_item(
   using namespace hopper;
   using namespace tc;
   constexpr int kTile = Smem<D>::kTile, kStages = Smem<D>::kStages;
-  constexpr int kQTile = Smem<D>::kQTile;
+  constexpr int kQTile = Smem<D>::kQTile, kKeys = Smem<D>::kKeys;
   constexpr unsigned kQBufs = Smem<D>::kQBufs;
+  constexpr bool kFa3 = D != 256 || kFa3At256;
   const int S = p.S, H = p.H;
   const float scale = p.scale;
   const int r_first = it.q0 + 64 * wg, r_last = r_first + 63;
   const int row0 = r_first + acc_row(0, t);   // and row0 + 8
   const auto unseen = [&](int i) {
-    const int k0 = it.k_lo + i * BN;
+    const int k0 = it.k_lo + i * kKeys;
     return (p.causal && k0 > r_last) || r_first >= S ||
-           (WINDOW && window > 0 && r_first - (k0 + BN - 1) >= window);
+           (WINDOW && window > 0 && r_first - (k0 + kKeys - 1) >= window);
   };
   int first = 0;       // the tiles this warpgroup sees: [first, last)
   while (first < it.n_tiles && unseen(first)) ++first;
@@ -575,7 +587,7 @@ __device__ __forceinline__ void consume_item(
   rows.c = SLOPE ? kLog2e : scale * kLog2e;
   rows.scale = scale;
   rows.slope = SLOPE ? __ldg(p.slopes + it.h) : 0.f;
-  rows.e_hi = min(p.causal ? r_first - BN + 1 : kFar, S - BN);
+  rows.e_hi = min(p.causal ? r_first - kKeys + 1 : kFar, S - kKeys);
   rows.e_lo = WINDOW && window > 0 ? r_last - window : -kFar;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -591,7 +603,7 @@ __device__ __forceinline__ void consume_item(
 
   const unsigned qb = (unsigned)j % kQBufs;
   mbar_wait(&q_full[qb], ((unsigned)j / kQBufs) & 1);
-  dswg::attend_tiles<E, D, kStages, kTile>(
+  dswg::attend_tiles<E, D, kStages, kTile, kFa3>(
       rows, smem_u32(q_s + qb * kQTile) + 64 * wg * 128, smem_u32(kv_s),
       full, empty, g, it.n_tiles, first, last, it.k_lo, t, o, m, l);
   mbar_arrive(&q_empty[qb]);   // every product that read Q retired
@@ -663,7 +675,7 @@ __device__ __forceinline__ void fwd_tensor_cores_persistent(
   __syncthreads();
 
   if (wg == 2) {  // producer
-    regs_dealloc<24>();
+    regs_dealloc<D == 256 ? kProducerRegs256 : 24>();
     if (t == 0) {
       int g = 0;   // K/V tiles streamed so far: the ring's slot
       int j = 0;   // items so far: the Q buffer's and its barriers' phase
@@ -672,7 +684,7 @@ __device__ __forceinline__ void fwd_tensor_cores_persistent(
         for (int i = 0; i < 2; ++i, ++j) {
           const int qi = walk.q_tile(u, i);
           if (qi < 0) break;
-          const Item it = fwd_item(p, u / walk.per_head, qi, window);
+          const Item it = fwd_item<D>(p, u / walk.per_head, qi, window);
           const unsigned qb = (unsigned)j % kQBufs;
           const auto load_q = [&] {
             mbar_wait(&q_empty[qb], (((unsigned)j / kQBufs) & 1) ^ 1);
@@ -685,25 +697,26 @@ __device__ __forceinline__ void fwd_tensor_cores_persistent(
             const int st = g % kStages;
             mbar_wait(&empty[st], ((g / kStages) & 1) ^ 1);
             unsigned char* k_t = kv_s + st * 2 * kTile;
-            const int k0 = it.k_lo + c * BN;
+            const int k0 = it.k_lo + c * Plan::kKeys;
             mbar_arrive_expect_tx(&full[st], 2 * kTile);
-            tma_load_rows<D>(k_t, &p.k_map, &full[st], BN, it.hk, k0, it.b);
-            tma_load_rows<D>(k_t + kTile, &p.v_map, &full[st], BN, it.hk,
+            tma_load_rows<D>(k_t, &p.k_map, &full[st], Plan::kKeys, it.hk,
                              k0, it.b);
+            tma_load_rows<D>(k_t + kTile, &p.v_map, &full[st], Plan::kKeys,
+                             it.hk, k0, it.b);
             if (kQBufs == 1 && c == 0) load_q();
           }
         }
       }
     }
   } else {  // consumers: warpgroup wg owns rows q0 + 64 wg .. + 63 of each
-    regs_alloc<240>();
+    regs_alloc<D == 256 ? kConsumerRegs256 : 240>();
     dswg::first_turn(wg);
     int g = 0, j = 0;
     for (int r = 0, u = walk.unit(0); u < walk.n_units; u = walk.unit(++r)) {
       for (int i = 0; i < 2; ++i, ++j) {
         const int qi = walk.q_tile(u, i);
         if (qi < 0) break;
-        const Item it = fwd_item(p, u / walk.per_head, qi, window);
+        const Item it = fwd_item<D>(p, u / walk.per_head, qi, window);
         consume_item<E, SLOPE, WINDOW, D>(p, it, j, g, wg, t, q_s, kv_s,
                                           q_full, q_empty, full, empty,
                                           window);

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks for the port's tensor-core kernels, in
-// inline PTX: mbarriers, TMA tile loads, wgmma with its shared-memory
+// inline PTX: mbarriers, TMA tile loads, thread-block clusters (barriers
+// and distributed shared memory), wgmma with its shared-memory
 // descriptors, and the map from a wgmma accumulator element to its row and
 // column.  The bf16 and fp16 flash-attention kernels
 // (flash_attention_fwd.cu, flash_attention_bwd.cu), block-sparse kernel
@@ -96,6 +97,17 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
       : "memory");
 }
 
+// Announce ``bytes`` of TMA data to come, without an arrival (the thread
+// arrives later, once its own writes for the phase are done).
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
 // Wait until the phase of parity ``parity`` has completed.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
@@ -160,6 +172,52 @@ __device__ __forceinline__ void tma_load_rows(void* dst, const CUtensorMap* map,
   for (int c = 0; c < boxes<D>(); ++c)
     tma_load_4d(static_cast<char*>(dst) + c * rows * kBoxCols * 2, map, bar,
                 c * kBoxCols, hx, r0, b);
+}
+
+// ---- thread-block clusters -------------------------------------------------
+
+// This block's rank in its cluster, and the cluster's size (1 when the
+// kernel was launched without a cluster dimension).
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+
+// Every thread of every block of the cluster: arrive (release: this
+// thread's shared-memory writes become visible to the cluster), then wait
+// for all of them (acquire).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n"
+               "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The shared-memory address ``addr`` (of this block) as the same offset
+// in block ``rank`` of the cluster, for ld.shared::cluster.
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr,
+                                                 uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+// Four floats from a cluster shared-memory address (cluster_addr).  No
+// memory clobber: loads issued back to back stay in flight together; the
+// cluster barriers around them (volatile, with a clobber) keep their
+// order.
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
 }
 
 // ---- register budget of warp-specialised kernels ---------------------------

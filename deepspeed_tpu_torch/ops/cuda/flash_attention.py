@@ -9,22 +9,25 @@ bias too; the unbiased and the biased (ALiBi slopes and/or a sliding
 window) launches have wrappers and launch counts of their own, as the TPU
 kernels are separate functions.  :func:`flash_attention_bwd_cuda` is the
 port of the host side ``_flash_bwd_pallas``: it forms ``delta = sum(dO *
-O)`` in fp32 by a kernel of its own (:func:`flash_attention_bwd_delta_cuda`),
-launches both backward kernels and, at a GQA group > 1, sums the
-per-query-head fp32 dK/dV over the group (at group 1 the dK/dV kernel
-writes them in k's dtype).  The plain versions are in
-``ops/flash_attention.py``, with the ``torch.autograd.Function`` that picks
-between them.  The kernels are built for head dims 64, 80, 96, 128 and 256
-(:data:`FLASH_HEAD_DIMS`, each a template instantiation of the same
-bodies; the bf16 / fp16 forward, dQ and dK/dV at 64, 80 and 96 are
+O)`` in fp32 by a kernel of its own (:func:`flash_attention_bwd_delta_cuda`)
+and launches both backward kernels.  The dK/dV kernel returns dK and dV
+as the function does -- k's dtype at the kv heads -- at a GQA group of 1,
+and at every group where it sums the group on the card
+(:func:`dkv_sums_group`: the bf16 / fp16 forms at head dim 256, whose
+blocks of one key tile form a thread-block cluster over the group's query
+heads); elsewhere it writes fp32 per query head at a group > 1, which
+:func:`flash_attention_bwd_cuda` sums over the group and casts.  The
+plain versions are in ``ops/flash_attention.py``, with the
+``torch.autograd.Function`` that picks between them.  The kernels are
+built for head dims 64, 80, 96, 128 and 256 (:data:`FLASH_HEAD_DIMS`,
+each a template instantiation of the same bodies; the bf16 / fp16
+forward at 64, 80, 96 and 256 and dQ and dK/dV at 64, 80 and 96 are
 persistent bodies of their own, which run each tile's elementwise work
 under the products of its neighbours; at 80 and 96 -- gpt_2_7b's and
 gpt_760m's -- a tile is two 64-column boxes, whose columns past the head
 dim TMA fills with zeros, and q, k, v and dO are read as they are: no
-padded copy; 256 -- Gemma's -- takes 64-key K/V
-tiles, and its dK/dV blocks split the head dim between their two
-warpgroups);
-any other head dim raises ``NotImplementedError`` naming ROADMAP A16, as
+padded copy; 256 -- Gemma's -- takes 64-key K/V tiles); any other head
+dim raises ``NotImplementedError`` naming ROADMAP A16, as
 :func:`check_head_dim` does at the entry points' construction.
 """
 
@@ -37,6 +40,15 @@ from deepspeed_tpu_torch.ops import op_builder
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # the head dims the flash kernels are built for
 FLASH_HEAD_DIMS = (64, 80, 96, 128, 256)
+
+
+def dkv_sums_group(head_dim, dtype) -> bool:
+    """Whether the dK/dV kernel sums a GQA group on the card, and so
+    returns dK and dV in k's dtype at the kv heads at every group: its
+    bf16 and fp16 forms at head dim 256.  Its fp32 forms and the other
+    head dims write fp32 per query head at a group > 1 (k's dtype at a
+    group of 1)."""
+    return head_dim == 256 and dtype in (torch.bfloat16, torch.float16)
 
 
 def check_head_dim(name, head_dim, head_dims=FLASH_HEAD_DIMS):
@@ -210,7 +222,8 @@ def _dkv(q, k, v, dout, lse, delta, softmax_scale, causal, slopes, window):
     B, S, H, D = q.shape
     _check_rows("lse", lse, B, H, S)
     _check_rows("delta", delta, B, H, S)
-    if k.shape[2] == H:     # group 1: the function's own outputs
+    if k.shape[2] == H or dkv_sums_group(D, q.dtype):
+        # the function's own outputs: k's dtype at the kv heads
         dk, dv = torch.empty_like(k), torch.empty_like(v)
     else:
         dk = torch.empty(q.shape, dtype=torch.float32, device=q.device)
@@ -229,10 +242,11 @@ def _dkv(q, k, v, dout, lse, delta, softmax_scale, causal, slopes, window):
 def flash_attention_bwd_dkv_cuda(q, k, v, dout, lse, delta, softmax_scale,
                                  causal=True):
     """Launch the dK/dV kernel: (dK, dV).  At group 1 (k at as many heads
-    as q) they are the function's outputs, in k's dtype at [B, S, Hkv, D];
-    at a larger group each is fp32 [B, S, H, D] -- one block of rows per
-    QUERY head, not yet summed over the group (the caller sums and
-    casts)."""
+    as q), and at every group where :func:`dkv_sums_group` holds (bf16 and
+    fp16 at head dim 256), they are the function's outputs, in k's dtype
+    at [B, S, Hkv, D]; otherwise, at a larger group, each is fp32 [B, S,
+    H, D] -- one block of rows per QUERY head, not yet summed over the
+    group (the caller sums and casts)."""
     _check("flash_attention_bwd_dkv_cuda", q, k, v, dout)
     out = _dkv(q, k, v, dout, lse, delta, softmax_scale, causal, 0, 0)
     flash_attention_bwd_dkv_cuda.launches += 1
@@ -293,7 +307,10 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, softmax_scale,
     (dq, dk, dv) in the dtypes of q, k, v, through the biased kernels when
     :func:`is_biased`.  The port of ``_flash_bwd_pallas``'s host side: the
     delta kernel, dQ, dK/dV, and at a GQA group > 1 the group sum and
-    cast (at group 1 the dK/dV kernel writes k's dtype itself)."""
+    cast where the dK/dV kernel does not sum the group itself
+    (:func:`dkv_sums_group`); at group 1, and at every group where it
+    does, dK and dV are the kernel's own tensors, neither summed nor
+    cast."""
     B, S, H, D = q.shape
     Hkv = k.shape[2]
     # delta_i = sum_d dO_i * O_i, the softmax-jacobian row term (fp32)
@@ -311,7 +328,7 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, softmax_scale,
         dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, dout, lse, delta,
                                               softmax_scale, causal)
     group = H // Hkv
-    if group > 1:                                           # GQA group sum
+    if group > 1 and not dkv_sums_group(D, q.dtype):        # GQA group sum
         dk = dk.view(B, S, Hkv, group, D).sum(3).to(k.dtype)
         dv = dv.view(B, S, Hkv, group, D).sum(3).to(v.dtype)
     return dq, dk, dv

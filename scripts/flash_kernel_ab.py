@@ -3,19 +3,26 @@
 card, in one process.
 
     python3 scripts/flash_kernel_ab.py VARIANTS.json [--out DIR]
-        [--head-dim 64 [80 96 ...]]
+        [--head-dim 64 [80 96 ...]] [--dtype bf16 [fp16]]
 
 VARIANTS.json maps a variant's name to ``{"dir": <sources>, "edits":
 {<file>: [[regex, replacement], ...]}}``: the variant is a copy of the
 directory (default ``deepspeed_tpu_torch/ops/csrc``; a ``git archive`` of
 another commit's csrc works too) with each regex replaced (each must
-match).  Every variant's ``flash_attention_fwd.cu`` and
+match).  ``"dkv_sums_group": false`` marks sources whose dK/dV kernel
+writes fp32 per query head at every GQA group > 1 (a commit before the
+head-dim-256 cluster body): the wrappers then allocate and sum as for the
+other head dims.  Every variant's ``flash_attention_fwd.cu`` and
 ``flash_attention_bwd.cu`` are built with the op builder's nvcc flags, all
 at once, into ``--out`` with their logs (default, gitignored:
-``deepspeed_tpu_torch/_build/ab``).  Then, for each variant: bf16
-forward, dQ and dK/dV against the plain versions run in fp32 on a few
-edge cases -- S=1000 (ragged last tiles), GQA, non-causal, windows and
-ALiBi (relative L2 of O, dQ, dK, dV; max LSE error) -- and device ms by
+``deepspeed_tpu_torch/_build/ab``).  Then, for each variant and dtype
+(bf16, or fp16 too): forward, dQ and dK/dV against the plain versions run
+in fp32 on a few edge cases -- S=1000 (ragged last tiles), GQA,
+non-causal, windows and ALiBi (relative L2 of O, dQ, dK, dV; max LSE
+error; in fp16 also each output's max abs and relative L2 error against
+the exact answer and against the plain version on the kernels' own O and
+LSE, over SDPA's in fp16 on the same inputs: the fp16 rule holds where
+all four are at most 2) -- and device ms by
 CUDA-graph replay over 4 rotating input sets at the training paths'
 shapes (B=2, 16 heads of 128, causal: S=1024; S=2048 with ALiBi, window
 256, and unscaled; with ``--head-dim 64``: gpt_350m's B=8 S=1024, 16
@@ -23,7 +30,8 @@ heads, and B=2 S=2048 with ALiBi and with window 256, 16 heads of 64;
 ``--head-dim 96``: gpt_760m's B=8 S=1024, 16 heads, and B=2 S=2048 with
 ALiBi; ``--head-dim 80``: gpt_2_7b's B=8 S=1024, 32 heads, and B=2 S=2048
 with ALiBi, 32 heads; ``--head-dim 256``: Gemma-2B's B=2
-S=2048, 8 heads over one kv head, and B=2 S=2048 with ALiBi, 8 heads);
+S=2048, 8 heads over one kv head, and B=2 S=2048 with ALiBi and with a
+window of 256, 8 heads);
 the first variant is timed again at the
 end, so drift shows.  Beside the three kernels each shape times the
 backward as the training path calls it (``flash_attention_bwd_cuda``:
@@ -87,7 +95,8 @@ SHAPES = {  # head dim -> [(label, B, S, ALiBi, window, scale[, heads[,
     80: [("gpt_2_7b B=8 S=1024 H32", 8, 1024, False, None, None, 32),
          ("ALiBi S=2048 H32", 2, 2048, True, None, None, 32)],
     256: [("gemma_2b B=2 S=2048 H8/1", 2, 2048, False, None, None, 8, 1),
-          ("ALiBi S=2048 H8", 2, 2048, True, None, None, 8)]}
+          ("ALiBi S=2048 H8", 2, 2048, True, None, None, 8),
+          ("window 256 S=2048 H8", 2, 2048, False, 256, 1 / 16, 8)]}
 
 
 def build(variants, out, sources=SOURCES):
@@ -132,11 +141,19 @@ def build(variants, out, sources=SOURCES):
     return libs
 
 
-def use(libs, name, sources=SOURCES):
-    """Point the wrappers at variant ``name``'s libraries; returns whether
-    the variant is from before the delta kernel (see the module's
-    docstring)."""
+_SUMS_GROUP = []   # the wrapper module's own dkv_sums_group
+
+
+def use(libs, name, spec, sources=SOURCES):
+    """Point the wrappers at variant ``name``'s libraries (``spec``: its
+    entry in VARIANTS.json); returns whether the variant is from before the
+    delta kernel (see the module's docstring)."""
     from deepspeed_tpu_torch.ops import op_builder
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    if not _SUMS_GROUP:
+        _SUMS_GROUP.append(fa.dkv_sums_group)
+    fa.dkv_sums_group = (_SUMS_GROUP[0] if spec.get("dkv_sums_group", True)
+                         else lambda head_dim, dtype: False)
     legacy = False
     for kernel, (src, symbol, argtypes) in op_builder.SIGNATURES.items():
         if src in sources:
@@ -213,6 +230,8 @@ def main():
         REPO, "deepspeed_tpu_torch", "_build", "ab"))
     ap.add_argument("--head-dim", type=int, choices=sorted(SHAPES),
                     nargs="+", default=[128])
+    ap.add_argument("--dtype", choices=("bf16", "fp16"), nargs="+",
+                    default=["bf16"])
     args = ap.parse_args()
     sys.path.insert(0, REPO)
     import torch
@@ -225,8 +244,10 @@ def main():
     libs = build(variants, args.out)
     print(f"built in {time.time() - t0:.1f} s", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for D in args.head_dim:
-        run_head_dim(D, variants, libs, gen, args.out)
+    for dn in args.dtype:
+        dtype = torch.float16 if dn == "fp16" else torch.bfloat16
+        for D in args.head_dim:
+            run_head_dim(D, variants, libs, gen, args.out, dtype)
     print(f"done in {time.time() - t0:.1f} s")
 
 
@@ -268,19 +289,18 @@ def sdpa_backward_ms(q, k, v, do, scale, kw, c):
     return ms
 
 
-def run_head_dim(D, variants, libs, gen, out):
+def run_head_dim(D, variants, libs, gen, out, dtype):
     """The checks, timings and SASS counts of every variant at head dim
-    ``D``."""
+    ``D`` in ``dtype`` (bf16 or fp16)."""
     import torch
-    from chip_smoke import graph_ms
+    from chip_smoke import WITNESS_FACTOR, _abs_rel, graph_ms, sdpa_witness
     from deepspeed_tpu_torch.models.transformer import alibi_slopes
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
     from deepspeed_tpu_torch.ops.flash_attention import (
         flash_attention_bwd_plain, flash_attention_fwd_plain)
 
     def rnd(*shape):
-        return torch.randn(shape, generator=gen, device="cuda").to(
-            torch.bfloat16)
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     def rel(got, want):
         return ((got.float() - want).norm() / want.norm()).item()
@@ -296,11 +316,23 @@ def run_head_dim(D, variants, libs, gen, out):
         o, lse = flash_attention_fwd_plain(*f32[:3], scale, causal, **kw)
         dq, dk, dv = flash_attention_bwd_plain(*f32[:3], o, lse, f32[3],
                                                scale, causal, **kw)
+        sdpa = (sdpa_witness(q, k, v, dout, scale, causal, **kw)
+                if dtype == torch.float16 else None)
         cases.append((label, (q, k, v, dout), scale, causal, kw,
-                      (o, lse, dq, dk, dv)))
-    for name in variants:
-        legacy = use(libs, name)
-        for label, (q, k, v, dout), scale, causal, kw, want in cases:
+                      (o, lse, dq, dk, dv), sdpa))
+    for name, spec in variants.items():
+        legacy = use(libs, name, spec)
+        held = getattr(libs[(name, "flash_attention_bwd")],
+                       "ds_flash_attention_bwd_dkv_clusters", None)
+        if D == 256 and held is not None:
+            held.argtypes = [ctypes.c_int] * 2
+            held.restype = ctypes.c_int
+            code = 2 if dtype == torch.float16 else 1
+            print(f"{name} D=256 dK/dV clusters the card holds at once "
+                  f"(cudaOccupancyMaxActiveClusters): " + ", ".join(
+                      f"group {g}: {held(g, code)}" for g in (1, 2, 8)),
+                  flush=True)
+        for label, (q, k, v, dout), scale, causal, kw, want, sdpa in cases:
             fwd, *_, called = kernels(fa, kw, legacy)
             o, lse = fwd(q, k, v, scale, causal)
             dq, dk, dv = called(q, k, v, o, lse, dout, scale, causal)
@@ -308,12 +340,34 @@ def run_head_dim(D, variants, libs, gen, out):
                   f"LSE max err {(lse - want[1]).abs().max().item():.2e}, dQ "
                   f"{rel(dq, want[2]):.2e}, dK {rel(dk, want[3]):.2e}, dV "
                   f"{rel(dv, want[4]):.2e}", flush=True)
+            if sdpa is None:
+                continue
+            # the fp16 rule: errors over SDPA-fp16's, against the exact
+            # answer and against the plain version on the kernels' O, LSE
+            f32 = [x.float() for x in (q, k, v, dout)]
+            plain = (want[0],) + tuple(flash_attention_bwd_plain(
+                *f32[:3], o.float(), lse, f32[3], scale, causal, **kw))
+            ratios = []
+            for i, (nm, got) in enumerate(zip(("O", "dQ", "dK", "dV"),
+                                              (o, dq, dk, dv))):
+                exact = want[0] if i == 0 else want[i + 1]
+                s_abs, s_rel = _abs_rel(sdpa[i], exact)
+                k_abs, k_rel = _abs_rel(got, exact)
+                p_abs, p_rel = _abs_rel(got, plain[i])
+                r = max(k_abs / s_abs, k_rel / s_rel, p_abs / s_abs,
+                        p_rel / s_rel)
+                ratios.append(f"{nm} {k_abs / s_abs:.2f}/{k_rel / s_rel:.2f}"
+                              f" vs exact, {p_abs / s_abs:.2f}/"
+                              f"{p_rel / s_rel:.2f} vs plain"
+                              f"{'' if r <= WITNESS_FACTOR else ' OVER'}")
+            print(f"{name} D={D} {label} fp16 rule (kernel / SDPA-fp16 max "
+                  f"abs / rel L2): " + "; ".join(ratios), flush=True)
     c, shapes = 4, []
     for label, B, S, alibi, window, scale, *heads in SHAPES[D]:
         H = heads[0] if heads else 16
         Hkv = heads[1] if len(heads) > 1 else H
         x = [torch.randn((c, B, S, h, D), generator=gen,
-                         device="cuda").to(torch.bfloat16)
+                         device="cuda").to(dtype)
              for h in (H, Hkv, Hkv, H)]
         kw = dict(alibi_slopes=alibi_slopes(H).cuda() if alibi else None,
                   window=window)
@@ -323,7 +377,7 @@ def run_head_dim(D, variants, libs, gen, out):
     print(f"device ms SDPA backward D={D}: " + " | ".join(
         f"{label} {ms:.4f}" for label, ms in sdpa_bwd.items()), flush=True)
     for name in list(variants) + list(variants)[:1]:
-        legacy = use(libs, name)
+        legacy = use(libs, name, variants[name])
         row = []
         for label, (q, k, v, do), scale, kw in shapes:
             fwd, dq, dkv, called = kernels(fa, kw, legacy)
@@ -348,7 +402,8 @@ def run_head_dim(D, variants, libs, gen, out):
                        f"{d_ms:.4f} pair {p_ms:.4f} ({p_ms / ref:.2f}x SDPA"
                        f" bwd) as called {c_ms:.4f} ({c_ms / ref:.2f}x)")
             del outs, o, lse, delta
-        print(f"device ms {name} D={D}: " + " | ".join(row), flush=True)
+        print(f"device ms {name} D={D} {dtype}: " + " | ".join(row),
+              flush=True)
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for name in variants:
         for src in SOURCES:

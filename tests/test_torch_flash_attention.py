@@ -91,12 +91,14 @@ def test_plain_forward_and_backward_match_pallas(heads, causal, head_dim):
                                    **BWD_TOL)
 
 
-def test_plain_mqa_group_of_8_at_head_dim_256_matches_pallas():
-    """Gemma-2B's heads: 8 query heads of 256 over one kv head (MQA).  The
-    plain backward's dK and dV, summed over the group of 8, against
+@pytest.mark.parametrize("H", [8, 16])
+def test_plain_mqa_group_of_8_at_head_dim_256_matches_pallas(H):
+    """Gemma-2B's heads: 8 query heads of 256 over one kv head (MQA), and
+    a group of 16 (two query heads a block of the dK/dV kernel's cluster
+    of 8).  The plain backward's dK and dV, summed over the group, against
     ``_flash_bwd_pallas`` in interpret mode, which sums the same group."""
-    H, Hkv, D = 8, 1, 256
-    q, k, v, g = _inputs(H, Hkv, D=D, seed=6)
+    Hkv, D = 1, 256
+    q, k, v, g = _inputs(H, Hkv, D=D, seed=6 if H == 8 else 16)
     scale = 1.0 / math.sqrt(D)
     jo, jlse = _flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                           scale, True, BLOCK, BLOCK, interpret=True)
