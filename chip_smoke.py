@@ -37,7 +37,10 @@ kernels.  Phases:
              (WARPGROUP.DEPBAR) printed
   3 kernels  each kernel vs its plain version: fp32, bf16 and fp16 (the
              fp16 tensor-core tiles held to SDPA-fp16's error); serving
-             attention MHA 32/32 and GQA 32/8; flash attention forward and
+             attention MHA 32/32 and GQA 32/8 (and at the Gemma shapes'
+             head dim 256, where 5-8 rows take the staged body: its chunk
+             edges, Gemma-2B's step at 4096 keys, pages of 12 and 48 keys,
+             and a second call bit for bit); flash attention forward and
              backward at gpt_1b's shape, at GPT-Neo's global layers' (S=2048,
              unscaled logits), GQA 32/8 and S=1000; fused Adam over
              1,000,003 elements in both modes, and with its skip flag set
@@ -506,17 +509,18 @@ def ptxas_usage(log):
     return usage
 
 
-# kernels that must not spill (ptxas): the split-key decode body, whose
-# registers hold the loads in flight (every row count, dtype and head
-# dim, 256 included), the head-dim-64 tensor-core consumer of B1's forward
-# and B4's prefill tiles (wgmma_attention.cuh: S, P and O in registers
+# kernels that must not spill (ptxas): the split-key decode bodies, whose
+# registers hold the loads in flight or the operands of the products
+# (every row count, dtype and head dim, 256's staged body included), the
+# head-dim-64 tensor-core consumer of B1's forward and B4's prefill tiles (wgmma_attention.cuh: S, P and O in registers
 # while products run), the persistent bodies of B2 (dQ and dK/dV) at head
 # dims 64, 80 and 96, the head-dim-80 and -96 tensor-core forms of B1 and
 # B4's prefill tiles, B4's prefill tiles at 256, and the head-dim-80,
 # -96 and -256 CUDA-core tiles of B4 and B5 (attention_tile.cuh); every
 # form of B1 and B2 at head dim 256 (fp32 included) and B6's fp16 form;
 # by demangled or mangled name
-NO_SPILL = (r"split_kernel|split_tc_kernel|combine_kernel|"
+NO_SPILL = (r"split_kernel|split_tc_kernel|split_staged_kernel|"
+            r"combine_kernel|"
             r"flash_(fwd|bwd_dq|bwd_dkv)_kernel("
             r"<(__nv_bfloat16|__half), \w+, \w+, (64|80|96)>|"
             r"I(13__nv_bfloat16|6__half)Lb[01]ELb[01]ELi(64|80|96)E)|"
@@ -722,6 +726,17 @@ def _prefill_need(prompt):
     return bucket, min(max(prompt + SERVE_NEW, bucket), SERVE_MAX_SEQ)
 
 
+def chunk_edge_lengths(n, c, T, S, B):
+    """Lengths where a decode plan's n key chunks of c keys meet a
+    sequence's end over S_max S: T, around one, two and n chunks (the mask
+    kpos <= len - T + t across the edge when T > 1), S - 1; padded with S -
+    1 to a multiple of B (the calls' batch)."""
+    edges = [x for x in (T, c - 1, c, c + 1, c + 3, 2 * c - 1, 2 * c,
+                         2 * c + 1, n * c - 1, n * c + 1, S - 1)
+             if T <= x <= S]
+    return edges + [S - 1] * (-len(edges) % B)
+
+
 def phase_kernels():
     """Each kernel vs its plain version, at the main path's shapes and at
     edge cases; returns max abs err per kernel and dtype."""
@@ -794,28 +809,33 @@ def phase_kernels():
             f"decode_attention {dn} H{Hq}/{Hkv} D={Dh} {label} B={B} T={T} "
             f"S_max={S} {how} ({form} form, {n} x {c} keys)", got, want))
 
-    def edge_cache(rows):
+    def edge_cache(rows, Dh=D):
         """S_max at which the decode form splits: 2048, or 8192 where the
-        tensor-core body's longer chunks need it."""
-        return 2048 if min_chunk(rows, dtype) == DECODE_MIN_CHUNK else 8192
+        tensor-core body's longer chunks need it (head dims 64-128)."""
+        return 8192 if min_chunk(rows, dtype, Dh) > DECODE_MIN_CHUNK else \
+            2048
 
     def chunk_edges(B, T, Hkv, Dh, S, Hq=H):
-        """Lengths where the decode form's key chunks meet a sequence's
-        end, at the wrapper's own plan for S_max S: T, around one, two
-        and n chunks of c keys (the mask kpos <= len - T + t across the
-        edge when T > 1), S - 1; fails if the plan takes one chunk (the
-        cases would check nothing)."""
+        """:func:`chunk_edge_lengths` at the wrapper's own plan for S_max
+        S, B lengths a call; fails if the plan takes one chunk (the cases
+        would check nothing)."""
         n, c = decode_plan(B, T, Hq, Hkv, S, Dh, dtype, "cuda")
         if T * Hq // Hkv > DECODE_ROWS:        # the prefill form
             n, c = 1, DECODE_MIN_CHUNK
         elif n == 1:
             fail(f"decode_attention B={B} T={T} H{Hq}/{Hkv} D={Dh}: the "
                  f"chunk-edge cases take one chunk; they check nothing")
-        edges = [x for x in (T, c - 1, c, c + 1, c + 3, 2 * c - 1, 2 * c,
-                             2 * c + 1, n * c - 1, n * c + 1, S - 1)
-                 if T <= x <= S]
-        edges += [S - 1] * (-len(edges) % B)
+        edges = chunk_edge_lengths(n, c, T, S, B)
         return [i32(edges[i:i + B]) for i in range(0, len(edges), B)]
+
+    def check_repeat(label, fn):
+        """A second call on the same inputs gives the same output bit for
+        bit: the warps and the chunks merge in a fixed order."""
+        a, b = fn(), fn()
+        if not torch.equal(a, b):
+            fail(f"{label}: a second call differs by up to "
+                 f"{(a.float() - b.float()).abs().max().item():.3e}")
+        phase("kernels", f"{label}: a second call is bit for bit the same")
 
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         dn = str(dtype).split(".")[-1]
@@ -1053,15 +1073,48 @@ def phase_kernels():
             check_b5("generate decode", 4, 1, Hkv, 160, 144, Dh=Dn, Hq=Hq)
             Be = 1 if group == 1 else 4
             for T in sorted({1, 4 // group or 1, DECODE_ROWS // group}):
-                S = edge_cache(T * group)
+                S = edge_cache(T * group, Dn)
                 for lens in chunk_edges(Be, T, Hkv, Dn, S, Hq=Hq):
                     check_b5("chunk edges", Be, T, Hkv, S, lens, Dh=Dn,
                              Hq=Hq)
+            if group == 8:
+                # Gemma-2B: generate's step at 4096 cached tokens, then a
+                # second call of each form bit for bit -- the 4096-token
+                # step and ragged lengths (40 fits one chunk: unsplit)
+                check_b5("len 4096", 4, 1, Hkv, 4096, 4096, Dh=Dn, Hq=Hq)
+                for S, lens in ((4096, 4096),
+                                (2048, i32([40, 700, 1500, 2048]))):
+                    qq = _rand((4, 1, Hq, Dn), dtype, gen)
+                    kk = _rand((4, Hkv, S, Dn), dtype, gen)
+                    vv = _rand((4, Hkv, S, Dn), dtype, gen)
+                    check_repeat(
+                        f"decode_attention {dn} H{Hq}/{Hkv} D={Dn} B=4 "
+                        f"S_max={S} "
+                        f"{decode_plan(4, 1, Hq, Hkv, S, Dn, dtype, 'cuda')}",
+                        lambda: decode_attention_cuda(qq, kk, vv, lens))
+                    del qq, kk, vv
             slots = _engine_state([p + SERVE_NEW for p in
                                    SERVE_PROMPTS[:8]], Hkv, Dn, dtype, gen)
             cases = [(f"decode rows B=8 T={T}", T, *slots,
                       [p + 9 for p in SERVE_PROMPTS[:8]])
                      for T in range(1, DECODE_ROWS // group + 1)]
+            if group == 8:
+                # Gemma-2B's 8-slot step twice: its short sequences fit
+                # one chunk, its long ones span several
+                qq = _rand((8, 1, Hq, Dn), dtype, gen)
+                lens = i32([p + 16 for p in SERVE_PROMPTS[:8]])
+                check_repeat(
+                    f"ragged_paged_attention {dn} H{Hq}/{Hkv} D={Dn} 8-slot "
+                    f"decode step", lambda: ragged_paged_attention_rect(
+                        qq, slots[1], slots[2], slots[0], lens))
+            # the most rows a kv head at pages of 12 and 48 keys: the
+            # staged body's boxes of 4 and 16 rows (the largest power of
+            # 2 dividing the page), swizzled as whole 64-row tiles are
+            for pg in (12, 48):
+                T, ctx = DECODE_ROWS // group, [300, 37, 129]
+                cases.append((f"page {pg} decode rows B=3 T={T}", T,
+                              *_paged_state(ctx, pg, Hkv, Dn, dtype, gen),
+                              ctx))
             for prompt in (511, 600):
                 bucket, need = _prefill_need(prompt)
                 cases.append((f"serve prefill B=1 T={bucket} (prompt "
@@ -3096,13 +3149,19 @@ def phase_timing_head_dims():
     return rows
 
 
+# the kernels JSON's row off the paths (launches 0): Gemma-2B's B5 step at
+# 4096 cached tokens, the context where the register body lost most to SDPA
+OFF_PATH_D256 = "decode_attention_d256_gqa8_len4096"
+
+
 def phase_timing_head_dim_256():
     """B5 and B4 at head dim 256 at the shapes phase serve-d256 gives
     them: generate's decode step (B=4, length 144), the serve run's 8-slot
     decode step and its prefill buckets 512 and 1024 -- Gemma-7B's 16 / 16
     heads in bf16, Gemma-2B's 8 / 1 in bf16 and fp16 -- and at Gemma-7B's
     heads the 256-token chunk at start 512 and the verify window [8, 5]
-    of serve-features (b) and (c)."""
+    of serve-features (b) and (c); and, off the paths, Gemma-2B's
+    generate step at 4096 cached tokens (bf16)."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(96)
     prompts = SERVE_PROMPTS[:SERVE_SLOTS]
@@ -3135,6 +3194,10 @@ def phase_timing_head_dim_256():
         "ragged_paged_attention verify window [8, 5] H16/16 D=256",
         torch.bfloat16, needs, [p + 9 for p in prompts], SPEC_GAMMA + 1, 16,
         D, 4, gen, H=16)
+    _free()
+    rows[OFF_PATH_D256] = _time_decode(
+        "decode_attention len 4096 H8/1 D=256 bfloat16", torch.bfloat16, 4,
+        4096, 4096, 4, gen, H=8, Hkv=1, D=D)
     _free()
     for name, r in rows.items():
         phase("timing", f"{name} [{r['shape']}]: device ms (graph replay) "
@@ -5332,9 +5395,12 @@ def main():
         launches[name] = gemma["counts"][base]
         timing[f"{name}_fp16"] = timing[(name, "fp16")]
         launches[f"{name}_fp16"] = fp16_e2e_counts["gemma_2b"][base]
+    # off the paths: timed and checked, launched by no run above
+    meta[OFF_PATH_D256] = meta["decode_attention"]
+    launches[OFF_PATH_D256] = 0
     for name, (source, replaces) in meta.items():
         t = timing[name]
-        if not launches[name]:
+        if not launches[name] and name != OFF_PATH_D256:
             fail(f"{name} never launched on the main paths")
         kernels.append({
             "name": name, "route": "cuda", "source": source,

@@ -43,7 +43,7 @@ struct ContiguousSeqs {
   int length_all, T, H, Hkv, S_max;
   struct Seq {
     long long q_base, kv_base;
-    int kv_hi, rows, len, T, H, group, hk;
+    int kv_row, kv_hi, rows, len, T, H, group, hk;
     __device__ __forceinline__ long long row(int r) const {
       return q_base + ((long long)(r / group) * H + hk * group + r % group) *
                           D;
@@ -55,12 +55,17 @@ struct ContiguousSeqs {
       return kv_base + (long long)k * D;
     }
     __device__ __forceinline__ int run(int) const { return 1 << 30; }
+    // the staged body's rows: cache[b, hk] is kv_row.. of [B Hkv S_max, D]
+    __device__ __forceinline__ int page_of(int) const { return 0; }
+    __device__ __forceinline__ int box_row(int k, int) const {
+      return kv_row + k;
+    }
   };
   __device__ __forceinline__ Seq seq(int b, int hk) const {
     const int len = lengths != nullptr ? lengths[b] : length_all;
     const int group = H / Hkv;
-    return Seq{(long long)b * T * H * D,
-               ((long long)b * Hkv + hk) * S_max * D,
+    const int kv_row = (b * Hkv + hk) * S_max;
+    return Seq{(long long)b * T * H * D, (long long)kv_row * D, kv_row,
                max(0, min(len, S_max)), T * group, len, T, H, group, hk};
   }
 };
@@ -124,7 +129,7 @@ int run(const void* q, const void* k, const void* v, void* o,
         const void* lengths, void* part, int length_all, int B, int T, int H,
         int Hkv, int S_max, int dtype, int n_split, int chunk, float scale,
         cudaStream_t s) {
-  dsdecode::SplitParams<ContiguousSeqs<D>> p;
+  dsdecode::SplitParams<ContiguousSeqs<D>> p = {};
   p.q = q;
   p.k = k;
   p.v = v;
@@ -136,6 +141,8 @@ int run(const void* q, const void* k, const void* v, void* o,
   p.n_split = n_split;
   p.chunk = chunk;
   p.scale = scale;
+  p.kv_rows = (long long)B * Hkv * S_max;
+  p.box_rows = dsdecode::Staged::kKeys;   // the staged body: a tile a box
   const int rows = T * (H / Hkv);
   if (rows <= dsdecode::kMaxRows)
     return dtype == 0   ? dsdecode::launch_rows<float>(p, B, rows, s)

@@ -125,6 +125,14 @@ struct PagedSeqs {
       return ((pg * Hkv + hk) * page + k % page) * D;
     }
     __device__ __forceinline__ int run(int k) const { return page - k % page; }
+    // the staged body's rows: key k of page pg is row (pg Hkv + hk) page +
+    // k % page of [P Hkv page, D]; the page read needs only the sequence
+    __device__ __forceinline__ int page_of(int k) const {
+      return __ldg(table + min(k / page, max_pages - 1));
+    }
+    __device__ __forceinline__ int box_row(int k, int pg) const {
+      return (pg * Hkv + hk) * page + k % page;
+    }
   };
   __device__ __forceinline__ Seq seq(int z, int hk) const {
     const int s = seqs[z], c = ctx[s], ql = q_lens[s];
@@ -142,9 +150,9 @@ int launch_decode(const void* q, const void* k_pages, const void* v_pages,
                   void* o, const int* c, const int* ql, const int* qo,
                   const int* tb, const void* dec_seqs, void* part, int n_dec,
                   int dec_rows, int n_split, int chunk, int max_pages,
-                  int page_size, int H, int Hkv, int dtype, float scale,
-                  cudaStream_t s) {
-  dsdecode::SplitParams<PagedSeqs<D>> p;
+                  int page_size, int P, int H, int Hkv, int dtype,
+                  float scale, cudaStream_t s) {
+  dsdecode::SplitParams<PagedSeqs<D>> p = {};
   p.q = q;
   p.k = k_pages;
   p.v = v_pages;
@@ -156,6 +164,11 @@ int launch_decode(const void* q, const void* k_pages, const void* v_pages,
   p.n_split = n_split;
   p.chunk = chunk;
   p.scale = scale;
+  // the staged body's boxes: rows of one page, at most a tile's
+  p.kv_rows = (long long)P * Hkv * page_size;
+  const int low = page_size & -page_size;   // its largest power-of-2 factor
+  constexpr int kTileKeys = dsdecode::Staged::kKeys;
+  p.box_rows = low < kTileKeys ? low : kTileKeys;
   return dtype == 0   ? dsdecode::launch_rows<float>(p, n_dec, dec_rows, s)
          : dtype == 1 ? dsdecode::launch_rows<__nv_bfloat16>(p, n_dec,
                                                              dec_rows, s)
@@ -582,7 +595,7 @@ extern "C" int ds_ragged_paged_attention(
     const int rc = dsdecode::with_head_dim(D, [&](auto d) {
       return launch_decode<decltype(d)::value>(
           q, k_pages, v_pages, o, c, ql, qo, tb, dec_seqs, part, n_dec,
-          dec_rows, n_split, chunk, max_pages, page_size, H, Hkv, dtype,
+          dec_rows, n_split, chunk, max_pages, page_size, P, H, Hkv, dtype,
           scale, s);
     });
     if (rc != 0) return rc < 0 ? -rc : rc;

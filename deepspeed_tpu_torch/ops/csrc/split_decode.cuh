@@ -72,18 +72,36 @@
 //   zeros, so the products run 6 k steps of S^T at both (at 80 the last
 //   one half zero) and D = 128's 8 output tiles of O^T (3 or 2 of them on
 //   zero rows, never stored): tensor-core work the body has to spare, for
-//   loads that stay 16 bytes and registers no more than D = 128's.  At D =
-//   256 a tile's K and V slices are 32 16-byte loads a lane, 128 registers,
-//   beside O^T's 64: two tiles in flight would need 256 before anything
-//   else, over the 255 a thread has.  So a warp keeps ONE tile, and its
-//   loads still overlap the arithmetic: the next tile's K is issued as
-//   soon as S^T has read this one's, its V once P V has read this V; q is
-//   read from shared memory a k step at a time (its 32 registers would
-//   leave too few); and a block is 4 warps, whose merge takes 32 KB of
-//   shared memory where 8 would take 64, over the static 48 KB.  A warp's
-//   16 keys are 16 KB of K and V in flight, and 2-3 blocks a SM keep the
-//   memory system as busy as the two-tile body at 128 does (registers, not
-//   shared memory, were the reason not to stage K and V through it).
+//   loads that stay 16 bytes and registers no more than D = 128's.
+// * Tensor cores at D = 256 (5-8 rows, bf16 / fp16; Gemma's heads): the
+//   staged body, split_staged_kernel, which replaces the TPU kernels
+//   deepspeed_tpu/ops/pallas/decode_attention.py:45 _decode_kernel
+//   (pallas_call at :138) and ragged_paged_attention.py:57 _ragged_kernel
+//   (:160) for these rows.  Its bound on the H100 is the K/V bytes over
+//   3.35 TB/s (Gemma-2B's B=4 step over 144 keys, 590 KB: 0.18 us; over
+//   4096 keys, 16.8 MB: 5.0 us), and what kept the register body from it
+//   was latency: a 16-key tile's K and V are 128 registers a lane at this
+//   head dim, so a warp held one tile, 4 warps a block 64 KB in flight,
+//   and every round of 64 keys waited on HBM.  Here K and V go through
+//   shared memory instead: one producer warp streams 64-key K and V tiles
+//   by TMA (2-d tensor maps over the cache's rows, four swizzled 64-column
+//   boxes a tile, hopper.cuh) into a ring of kStages stages of 64 KB with
+//   mbarriers, so up to 192 KB of a chunk are in flight from the first
+//   cycle, and the registers hold only O^T (64), q's fragments (32) and
+//   the operands.  Eight consumer warps in two groups of four take the
+//   tiles in turn, 16 keys a warp: S^T = K Q^T with K read by ldmatrix
+//   from the swizzled tile (the 8 rows of a fragment in 8 bank groups;
+//   unswizzled 512-byte rows would put them in one), the online softmax
+//   and P^T as above, O^T += V^T P^T with V read by ldmatrix.trans, V's
+//   keys past the chunk's end read as 0 (their rows hold whatever the
+//   stage held: 0 P times a stale NaN would not be 0).  The warps' (acc,
+//   m, l) merge through 64 KB of dynamic shared memory laid over the
+//   ring, the warps' weights formed once a row.  A sequence's keys split
+//   into chunks of 128 keys and up (ops/cuda/decode_attention.py
+//   min_chunk), so a few (sequence, kv head) pairs still fill the card,
+//   and the combine's row blocks load their chunks at once; the block's
+//   first tile's page is read beside the sequence's metadata, not after
+//   it.
 //
 // Only real rows are computed.  Merges run in a fixed order, so runs
 // repeat bit for bit: the warps in shared memory by warp index, and, when
@@ -100,7 +118,10 @@
 // query rows, <= ROWS), ``row(r)`` (element offset of query row r in q and
 // o), ``lim(r)`` (keys below it are visible to row r), ``key(k)`` (element
 // offset of key k's K and V row) and ``run(k)`` (how many keys from k on
-// are stored D elements apart).
+// are stored D elements apart); for the staged body, ``page_of(k)`` (what
+// locates key k's rows: its page, a table read) and ``box_row(k, page)``
+// (the row of key k in the [rows, D] view of K and V that the tensor maps
+// cover).
 #pragma once
 
 #include <stdint.h>
@@ -108,6 +129,7 @@
 #include <type_traits>
 
 #include "attention_tile.cuh"
+#include "hopper.cuh"
 
 namespace dsdecode {
 
@@ -122,6 +144,17 @@ constexpr float kLog2e = 1.4426950408889634f;
 template <typename T, int ROWS>
 constexpr bool kTensorCores = ROWS > 4 && !std::is_same<T, float>::value;
 
+// Whether ROWS rows of T at head dim D take the staged tensor-core body.
+template <typename T, int ROWS, int D>
+constexpr bool kStaged = kTensorCores<T, ROWS> && D == 256;
+
+// Blocks of the combine kernel a sequence's rows take: one a row after the
+// staged body, whose short chunks leave the combine a larger share of a
+// step (8 rows one after another added 7.3 us to Gemma-2B's step split in
+// two: PERF.md §6), else one for every row.
+template <typename T, int ROWS, int D>
+constexpr int kCombineRowBlocks = kStaged<T, ROWS, D> ? ROWS : 1;
+
 // Lane layout of the CUDA-core body for element type T, head dim D and
 // ROWS query rows: a key row is DL vectors of VEC elements (16 bytes), NV
 // of them a lane's (2 in fp32 at D = 256, where a row is 64 vectors: more
@@ -132,9 +165,8 @@ constexpr bool kTensorCores = ROWS > 4 && !std::is_same<T, float>::value;
 // the 8 * NV * LOADS of a group's loads, which stay 64 at NV = 2 by halving
 // LOADS, and are halved again at D = 256 for 3-4 rows, where 8 loads
 // spilled).  The tensor-core body has WARPS = 8 warps (4 measured slower,
-// PERF.md) at D <= 128, and 4 at D = 256, whose 8 warps' fp32 accumulators
-// would take 64 KB of shared memory for the merge, over the 48 KB a block
-// has without opting in.
+// PERF.md) at D <= 128; the staged body at D = 256 has 8 consumer warps
+// and a producer warp (Staged).
 template <typename T, int D, int ROWS>
 struct Layout {
   static_assert(D == 64 || D == 80 || D == 96 || D == 128 || D == 256,
@@ -149,7 +181,7 @@ struct Layout {
   static constexpr int LOADS =
       ROWS > 4 ? 1 : (D > 128 && ROWS > 2 ? 4 : 8) / NV;
   static constexpr int KEYS = LOADS * KPL;
-  static constexpr int WARPS = kTensorCores<T, ROWS> ? (D > 128 ? 4 : 8)
+  static constexpr int WARPS = kTensorCores<T, ROWS> ? 8
                                : ROWS == 1 ? 16 : ROWS == 2 ? 8 : 4;
 };
 
@@ -178,6 +210,11 @@ __device__ __forceinline__ void unpack(const uint4& u,
 
 template <typename Seqs>
 struct SplitParams {
+  // the staged body's K and V (a [kv_rows, D] view, boxes of box_rows rows
+  // by 64 columns): made by launch_split from k, v, kv_rows and box_rows
+  CUtensorMap k_map, v_map;
+  long long kv_rows;
+  int box_rows;
   const void* q;
   const void* k;
   const void* v;
@@ -193,11 +230,10 @@ __device__ __forceinline__ int active_chunks(int kv_hi, int chunk) {
   return max(1, (kv_hi + chunk - 1) / chunk);
 }
 
-// The end of both bodies: the block's warps, whose (acc, m, l) per row are
-// in shared memory, merged in warp order; thread i owns dims i, i + the
-// block's threads, .. (one dim at D <= 128, two at D = 256 on 4 warps) of
-// every row and writes the row's output at off[r] (one chunk) or the
-// chunk's partial.
+// The end of the register bodies: the block's warps, whose (acc, m, l) per
+// row are in shared memory, merged in warp order; thread i owns dims i, i +
+// the block's threads, .. of every row and writes the row's output at
+// off[r] (one chunk) or the chunk's partial.
 template <typename T, int ROWS, int WARPS, typename Seqs, typename Seq>
 __device__ __forceinline__ void finish(
     const SplitParams<Seqs>& p, const Seq& seq, int n_chunks, int split,
@@ -509,6 +545,55 @@ __device__ __forceinline__ uint32_t word(const uint4& u, int i) {
   return i == 0 ? u.x : i == 1 ? u.y : i == 2 ? u.z : u.w;
 }
 
+// The online softmax of a warp's 16 keys kb.. kb + 15 from their S^T
+// accumulators ``s`` (lane (g, t): s[0], s[2] row 2 t's keys g, g + 8;
+// s[1], s[3] row 2 t + 1's), raw products: scaled by qscale (scale * log2
+// e), masked past lim (rows 2 t, 2 t + 1), m, l and the MT output tiles o
+// rescaled, and P^T as the B operands of O^T += V^T P^T: bh the rounded P,
+// bl the rest rounded (keys 2 t, 2 t + 1 | 2 t + 8, 2 t + 9; row g).
+template <typename T, int MT>
+__device__ __forceinline__ void online_softmax(
+    float (&s)[4], int kb, int g, const int (&lim)[2], float qscale,
+    float (&m)[2], float (&l)[2], float (&o)[MT][4], uint32_t (&bh)[2],
+    uint32_t (&bl)[2]) {
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    s[x] *= qscale;
+    if (kb + g + 8 * (x / 2) >= lim[x % 2]) s[x] = kNeg;
+  }
+  // a row's keys are spread over the lanes of one t
+  float corr[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    float mx = fmaxf(s[j], s[j + 2]);
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float m_new = fmaxf(m[j], mx);
+    corr[j] = ex2(m[j] - m_new);    // 0 from kNeg, 1 if unchanged
+    m[j] = m_new;
+    l[j] *= corr[j];
+  }
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    // a masked key is 0, also while the row has seen no key (m = kNeg)
+    s[x] = s[x] <= kNeg / 2 ? 0.f : ex2(s[x] - m[x % 2]);
+    l[x % 2] += s[x];
+  }
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) o[i][x] *= corr[x % 2];
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const uint32_t hi = pack_t2<T>(s[2 * c], s[2 * c + 1]);
+    const uint32_t lo = pack_t2<T>(s[2 * c] - half_f<T>(hi, 0),
+                                   s[2 * c + 1] - half_f<T>(hi, 1));
+    bh[c] = trans8x8(hi);
+    bl[c] = trans8x8(lo);
+  }
+}
+
 // Lane (g, t) = (lane / 4, lane % 4) of a warp's 16 keys kb.. kb + 15:
 // * S^T = K Q^T, an m16n8 tile per 16 dims of the head (the k step): A is
 //   keys g and g + 8, B is q row g, both from the lane's dims 32 j + 8 t ..
@@ -521,6 +606,7 @@ __device__ __forceinline__ uint32_t word(const uint4& u, int i) {
 //   dims (64 h + 8 g + 2 e, + 1) as its rows g and g + 8 (a row past D is
 //   computed, and not stored); B is P^T, (keys 2 t, 2 t + 1 | 2 t + 8, 2 t
 //   + 9; row g), the transpose of the S^T accumulators' pairs.
+// Head dims 64-128; 256 takes split_staged_kernel.
 template <typename T, int ROWS, typename Seqs>
 __global__ void __launch_bounds__(Layout<T, Seqs::kDim, ROWS>::WARPS * 32)
 split_tc_kernel(const __grid_constant__ SplitParams<Seqs> p) {
@@ -528,16 +614,11 @@ split_tc_kernel(const __grid_constant__ SplitParams<Seqs> p) {
   constexpr int kWarps = Layout<T, D, ROWS>::WARPS;
   constexpr int KJ = (D + 31) / 32;   // 16-byte loads of a K / q slice
   constexpr int VH = (D + 63) / 64;   // 16-byte loads of a V slice
-  constexpr int KS = 2 * KJ;          // k steps of S^T
   constexpr int MT = 4 * VH;          // output tiles of O^T
-  // D = 256: a tile's slices are 32 loads a lane (128 registers), so one
-  // tile is in flight, not two, and q is read from shared memory
-  constexpr bool kOne = D > 128;
-  constexpr int kQPitch = 4 * KJ + 4;   // q rows' 16-byte vectors, padded
   static_assert(kTensorCores<T, ROWS>, "5-8 rows, bf16 or fp16");
+  static_assert(D <= 128, "head dim 256 takes split_staged_kernel");
   __shared__ float acc_s[kWarps][ROWS][D];
   __shared__ float m_s[kWarps][ROWS], l_s[kWarps][ROWS];
-  __shared__ uint4 q_s[kOne ? 8 : 1][kOne ? kQPitch : 1];
 
   const int split = blockIdx.x, hk = blockIdx.y, z = blockIdx.z;
   // the combine kernel may be scheduled now; it waits for this grid
@@ -556,20 +637,9 @@ split_tc_kernel(const __grid_constant__ SplitParams<Seqs> p) {
   const auto k_in = [&](int j) { return 32 * j + 8 * t < D; };
   const auto v_in = [&](int h) { return 64 * h + 8 * g < D; };
 
-  // q row g's slice (the B operand of S^T): registers, or at D = 256 the
-  // block's 8 q rows in shared memory (vector c of row r at q_s[r][c]; the
-  // pad puts rows g and g + 1 16 banks apart), read a k step at a time
-  uint4 qf[kOne ? 1 : KJ];
-  if constexpr (kOne) {
-    const T* q = static_cast<const T*>(p.q);
-    for (int i = threadIdx.x; i < 8 * 4 * KJ; i += kWarps * 32) {
-      const int r = i / (4 * KJ), c = i % (4 * KJ);
-      q_s[r][c] = r < seq.rows
-                      ? *reinterpret_cast<const uint4*>(q + seq.row(r) + 8 * c)
-                      : make_uint4(0u, 0u, 0u, 0u);
-    }
-    __syncthreads();
-  } else {
+  // q row g's slice (the B operand of S^T)
+  uint4 qf[KJ];
+  {
     const bool real = g < seq.rows;
     const T* q = static_cast<const T*>(p.q) + (real ? seq.row(g) : 0) + 8 * t;
 #pragma unroll
@@ -577,12 +647,6 @@ split_tc_kernel(const __grid_constant__ SplitParams<Seqs> p) {
       qf[j] = real && k_in(j) ? *reinterpret_cast<const uint4*>(q + 32 * j)
                               : make_uint4(0u, 0u, 0u, 0u);
   }
-  const auto qvec = [&](int j) {
-    if constexpr (kOne)
-      return q_s[g][4 * j + t];
-    else
-      return qf[j];
-  };
   // rows 2 t and 2 t + 1's limits
   int lim[2];
 #pragma unroll
@@ -612,7 +676,7 @@ split_tc_kernel(const __grid_constant__ SplitParams<Seqs> p) {
   const auto at = [&](int k0, const Where& w, int i) {
     return w.flat ? w.base + (long long)i * D : seq.key(k0 + i);
   };
-  const auto issue_k = [&](Tile& tl, int k0, const Where& w) {
+  const auto issue = [&](Tile& tl, int k0, const Where& w) {
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
       const int i = g + 8 * c;
@@ -623,8 +687,6 @@ split_tc_kernel(const __grid_constant__ SplitParams<Seqs> p) {
         tl.k[c][j] = in && k_in(j) ? load16(kp + a + 32 * j)
                                    : make_uint4(0u, 0u, 0u, 0u);
     }
-  };
-  const auto issue_v = [&](Tile& tl, int k0, const Where& w) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int i = 2 * t + (c & 1) + 8 * (c >> 1);
@@ -636,62 +698,20 @@ split_tc_kernel(const __grid_constant__ SplitParams<Seqs> p) {
                                    : make_uint4(0u, 0u, 0u, 0u);
     }
   };
-  // S^T = K Q^T, the online softmax (o rescaled) and P^T as B operands:
-  // bh the rounded P, bl the rest rounded
-  const auto scores = [&](const Tile& tl, int k0, uint32_t (&bh)[2],
-                          uint32_t (&bl)[2]) {
-    // S^T over the head's k steps: s[0], s[2] are row 2 t's keys g, g + 8;
-    // s[1], s[3] row 2 t + 1's
+  // S^T = K Q^T over the head's k steps, the softmax, O^T += V^T P^T with
+  // V's key pairs packed per output tile
+  const auto consume = [&](const Tile& tl, int k0) {
     float s[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
     for (int j = 0; j < KJ; ++j) {
-      const uint4 qv = qvec(j);
 #pragma unroll
       for (int w = 0; w < 4; w += 2)
         mma16816<T>(s, word(tl.k[0][j], w), word(tl.k[1][j], w),
                     word(tl.k[0][j], w + 1), word(tl.k[1][j], w + 1),
-                    word(qv, w), word(qv, w + 1));
+                    word(qf[j], w), word(qf[j], w + 1));
     }
-#pragma unroll
-    for (int x = 0; x < 4; ++x) {
-      s[x] *= qscale;
-      if (k0 + g + 8 * (x / 2) >= lim[x % 2]) s[x] = kNeg;
-    }
-    // online softmax; a row's keys are spread over the lanes of one t
-    float corr[2];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      float mx = fmaxf(s[j], s[j + 2]);
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[j], mx);
-      corr[j] = ex2(m[j] - m_new);    // 0 from kNeg, 1 if unchanged
-      m[j] = m_new;
-      l[j] *= corr[j];
-    }
-#pragma unroll
-    for (int x = 0; x < 4; ++x) {
-      // a masked key is 0, also while the row has seen no key (m = kNeg)
-      s[x] = s[x] <= kNeg / 2 ? 0.f : ex2(s[x] - m[x % 2]);
-      l[x % 2] += s[x];
-    }
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int x = 0; x < 4; ++x) o[i][x] *= corr[x % 2];
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const uint32_t hi = pack_t2<T>(s[2 * c], s[2 * c + 1]);
-      const uint32_t lo = pack_t2<T>(s[2 * c] - half_f<T>(hi, 0),
-                                     s[2 * c + 1] - half_f<T>(hi, 1));
-      bh[c] = trans8x8(hi);
-      bl[c] = trans8x8(lo);
-    }
-  };
-  // O^T += V^T P^T, V's key pairs packed per output tile
-  const auto pv = [&](const Tile& tl, const uint32_t (&bh)[2],
-                      const uint32_t (&bl)[2]) {
+    uint32_t bh[2], bl[2];
+    online_softmax<T, MT>(s, k0, g, lim, qscale, m, l, o, bh, bl);
 #pragma unroll
     for (int i = 0; i < MT; ++i) {
       const int h = i / 4, e = i % 4;
@@ -703,53 +723,23 @@ split_tc_kernel(const __grid_constant__ SplitParams<Seqs> p) {
       mma16816<T>(o[i], a0, a1, a2, a3, bl[0], bl[1]);
     }
   };
+  // two tiles in registers: the next one's loads are in flight while the
+  // current one is used, and the one after's page is being read
   constexpr int kStride = kWarps * 16;
   int k0 = k_begin + warp * 16;
-  if constexpr (kOne) {
-    // one tile in registers: the next tile's K loads are issued as soon as
-    // S^T has read this one's K, its V loads once P V has read this V
-    Tile tl;
-    if (k0 < k_end) {
-      const Where w0 = where(k0);
-      issue_k(tl, k0, w0);
-      issue_v(tl, k0, w0);
-    }
-    while (k0 < k_end) {
-      const int k1 = k0 + kStride;
-      const Where w = where(k1);
-      uint32_t bh[2], bl[2];
-      scores(tl, k0, bh, bl);
-      if (k1 < k_end) issue_k(tl, k1, w);
-      pv(tl, bh, bl);
-      if (k1 < k_end) issue_v(tl, k1, w);
-      k0 = k1;
-    }
-  } else {
-    // two tiles in registers: the next one's loads are in flight while the
-    // current one is used, and the one after's page is being read
-    const auto issue = [&](Tile& tl, int kx, const Where& w) {
-      issue_k(tl, kx, w);
-      issue_v(tl, kx, w);
-    };
-    const auto consume = [&](const Tile& tl, int kx) {
-      uint32_t bh[2], bl[2];
-      scores(tl, kx, bh, bl);
-      pv(tl, bh, bl);
-    };
-    Tile ta, tb;
-    Where w = where(k0 + kStride);
-    if (k0 < k_end) issue(ta, k0, where(k0));
-    while (k0 < k_end) {
-      if (k0 + kStride < k_end) issue(tb, k0 + kStride, w);
-      w = where(k0 + 2 * kStride);
-      consume(ta, k0);
-      k0 += kStride;
-      if (k0 >= k_end) break;
-      if (k0 + kStride < k_end) issue(ta, k0 + kStride, w);
-      w = where(k0 + 2 * kStride);
-      consume(tb, k0);
-      k0 += kStride;
-    }
+  Tile ta, tb;
+  Where w = where(k0 + kStride);
+  if (k0 < k_end) issue(ta, k0, where(k0));
+  while (k0 < k_end) {
+    if (k0 + kStride < k_end) issue(tb, k0 + kStride, w);
+    w = where(k0 + 2 * kStride);
+    consume(ta, k0);
+    k0 += kStride;
+    if (k0 >= k_end) break;
+    if (k0 + kStride < k_end) issue(ta, k0 + kStride, w);
+    w = where(k0 + 2 * kStride);
+    consume(tb, k0);
+    k0 += kStride;
   }
 
   // l: this lane's keys, summed over the lanes of its rows
@@ -786,58 +776,475 @@ split_tc_kernel(const __grid_constant__ SplitParams<Seqs> p) {
                                 m_s, l_s);
 }
 
+// ---- the staged tensor-core body (5-8 rows, bf16 / fp16, D = 256) --------
+
+// Its shared-memory plan: kStages stages of a 64-key K tile and V tile,
+// each four 64-column boxes of 128-byte swizzle rows (8 KB a box, 32 KB a
+// tile), then q's 8 rows (512 bytes and a 16-byte pad each), then the
+// barriers, full[] and empty[]; the warps' merge (8 warps x 8 rows x 256
+// fp32, 64 KB) is laid over the ring once every stage has been read.
+// kGroupWarps consumer warps take a stage, 16 keys each; the kGroups =
+// kConsumerWarps / kGroupWarps groups take tiles in turn, tile i stage i %
+// kStages.  A stage's tiles go to the groups in turn, so its full barrier
+// is one per (stage, group): a group waits only for its own tiles' phases
+// there, in order -- with one barrier a stage, a group could wait for a
+// phase two ahead of the barrier's, which parity waits cannot tell from
+// the phase before.
+constexpr int gcd(int a, int b) { return b ? gcd(b, a % b) : a; }
+
+struct Staged {
+  static constexpr int kKeys = 64;               // keys of a stage
+  static constexpr int kStages = 3;
+  static constexpr int kGroupWarps = kKeys / 16;
+  static constexpr int kConsumerWarps = 8;
+  static constexpr int kGroups = kConsumerWarps / kGroupWarps;
+  static constexpr int kThreads = (kConsumerWarps + 1) * 32;
+  static constexpr int kBox = kKeys * 128;       // a 64-column box
+  static constexpr int kTile = 4 * kBox;         // K or V of a stage
+  static constexpr int kQPitch = 512 + 16;
+  static constexpr int kQOffset = kStages * 2 * kTile;
+  static constexpr int kBarOffset = kQOffset + 8 * kQPitch;
+  // a row of the merge: 256 floats and 4 of pad, so that a warp's stores
+  // (rows 2 t + j, dims 16 i + g) fall in 32 banks
+  static constexpr int kMergePitch = 256 + 4;
+  static constexpr int kFull = kStages * kGroups;   // full barriers
+  // tiles between two of one (stage, group): the lcm of the two counts
+  static constexpr int kCycle = kStages / gcd(kStages, kGroups) * kGroups;
+  static constexpr size_t kBytes = 1024 + kBarOffset + 8 * (kFull + kStages);
+  static_assert(kConsumerWarps * kMaxRows * kMergePitch * 4 <= kQOffset,
+                "the merge fits over the ring");
+};
+
+// Byte offset of 16-byte chunk c (dims 8 c .. 8 c + 7) of row r of a
+// staged tile: box c / 8, its 128-byte row r, the chunk swizzled by r % 8
+// (as TMA's 128-byte swizzle writes it).
+__device__ __forceinline__ uint32_t staged_at(int r, int c) {
+  return (c >> 3) * Staged::kBox + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+// ldmatrix: four 8x8 16-bit matrices, lane i giving row i % 8 of matrix i
+// / 8; plain (lane (g, t) gets row g, columns 2 t, 2 t + 1) and transposed.
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// Lane (g, t) of consumer warp w, which takes keys kb = k0 + 16 (w %
+// kGroupWarps) .. kb + 15 of each stage its group takes:
+// * S^T = K Q^T, 16 k steps m16n8k16: A (keys x dims) by one ldmatrix a
+//   step from the K tile, B (q row g's dims 16 k + 2 t, + 1 and + 8, + 9)
+//   in registers for the whole chunk; even and odd steps in two
+//   accumulators, so the chain of dependent products is 8 long, not 16.
+// * O^T += V^T P^T, 16 output tiles of 16 dims: A (dims x keys) by one
+//   ldmatrix.trans a tile from the V tile, output tile i's accumulators
+//   (dim 16 i + g | + 8; rows 2 t, 2 t + 1).
+// The producer warp issues a stage's TMA boxes from all its lanes (row box
+// b of a tile is lane b's, b + 32 too where pages of fewer than 2 rows
+// make 64 boxes), each box's page read a tile ahead.  q's 8 rows go
+// through shared memory once, into registers.
+template <typename T, int ROWS, typename Seqs>
+__global__ void __launch_bounds__(Staged::kThreads, 1)
+split_staged_kernel(const __grid_constant__ SplitParams<Seqs> p) {
+  using hopper::mbar_arrive;
+  using hopper::mbar_wait;
+  using hopper::smem_u32;
+  using S = Staged;
+  constexpr int D = Seqs::kDim;
+  constexpr int kWarps = S::kConsumerWarps;
+  static_assert(kTensorCores<T, ROWS> && D == 256,
+                "5-8 rows, bf16 or fp16, head dim 256");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  // full[st * kGroups + g]: stage st's tiles of group g; empty[st]
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + S::kBarOffset);
+  uint64_t* empty = full + S::kFull;
+  __shared__ float m_s[kWarps][ROWS], l_s[kWarps][ROWS];
+
+  const int split = blockIdx.x, hk = blockIdx.y, z = blockIdx.z;
+  // the combine kernel may be scheduled now; it waits for this grid
+  asm volatile("griddepcontrol.launch_dependents;");
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == kWarps && lane == 0) {   // the maps, before the first load
+    asm volatile("prefetch.tensormap [%0];" ::"l"(&p.k_map) : "memory");
+    asm volatile("prefetch.tensormap [%0];" ::"l"(&p.v_map) : "memory");
+  }
+  const auto seq = p.seqs.seq(z, hk);
+  const int k_begin = split * p.chunk;
+  const int box_rows = p.box_rows, n_boxes = S::kKeys / box_rows;
+  // the producer's pages of the first tile, read beside the sequence's
+  // metadata: they need the sequence, not its length
+  int pg[2] = {0, 0};
+  if (warp == kWarps) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      if (lane + 32 * j < n_boxes)
+        pg[j] = seq.page_of(k_begin + (lane + 32 * j) * box_rows);
+  }
+  const int n_active = active_chunks(seq.kv_hi, p.chunk);
+  if (split >= n_active) return;
+  const int k_end = min(seq.kv_hi, k_begin + p.chunk);
+  const int n_tiles = (k_end - k_begin + S::kKeys - 1) / S::kKeys;
+
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < S::kFull; ++b) hopper::mbar_init(&full[b], 1);
+    for (int st = 0; st < S::kStages; ++st)
+      hopper::mbar_init(&empty[st], S::kGroupWarps * 32);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  float o[16][4], m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+  const int g = lane / 4, t = lane % 4;
+  if (warp == kWarps) {  // producer
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % S::kStages, k0 = k_begin + it * S::kKeys;
+      const int boxes = min(n_boxes, (k_end - k0 + box_rows - 1) / box_rows);
+      // the next tile's pages, in flight while this one's boxes go out
+      int nx[2] = {0, 0};
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        if (lane + 32 * j < n_boxes && it + 1 < n_tiles)
+          nx[j] = seq.page_of(k0 + S::kKeys + (lane + 32 * j) * box_rows);
+      uint64_t* bar = &full[st * S::kGroups + it % S::kGroups];
+      mbar_wait(&empty[st], ((it / S::kStages) & 1) ^ 1);
+      if (lane == 0)
+        hopper::mbar_arrive_expect_tx(bar, boxes * 2 * S::kTile / n_boxes);
+      __syncwarp();
+      unsigned char* kt = base + st * 2 * S::kTile;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int b = lane + 32 * j;
+        if (b < boxes) {
+          const int row = seq.box_row(k0 + b * box_rows, pg[j]);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            unsigned char* dst = kt + c * S::kBox + b * box_rows * 128;
+            hopper::tma_load_2d(dst, &p.k_map, bar, 64 * c, row);
+            hopper::tma_load_2d(dst + S::kTile, &p.v_map, bar, 64 * c, row);
+          }
+        }
+        pg[j] = nx[j];
+      }
+    }
+  } else {  // consumers
+    const int wq = warp % S::kGroupWarps;
+    // q's rows into shared memory (one 16-byte chunk a thread; zeros past
+    // the real rows), then row g's fragments for every k step
+    unsigned char* q_s = base + S::kQOffset;
+    for (int i = threadIdx.x; i < 8 * 32; i += kWarps * 32) {
+      const int r = i / 32, c = i % 32;
+      *reinterpret_cast<uint4*>(q_s + r * S::kQPitch + c * 16) =
+          r < seq.rows ? *reinterpret_cast<const uint4*>(
+                             static_cast<const T*>(p.q) + seq.row(r) + 8 * c)
+                       : make_uint4(0u, 0u, 0u, 0u);
+    }
+    asm volatile("bar.sync 1, %0;" ::"n"(kWarps * 32) : "memory");
+    uint32_t qf[16][2];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      uint32_t r4[4];
+      ldsm4(r4, smem_u32(q_s) + (lane % 8) * S::kQPitch +
+                    (4 * j + lane / 8) * 16);
+      qf[2 * j][0] = r4[0];
+      qf[2 * j][1] = r4[1];
+      qf[2 * j + 1][0] = r4[2];
+      qf[2 * j + 1][1] = r4[3];
+    }
+    int lim[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      lim[j] = 2 * t + j < seq.rows ? min(seq.lim(2 * t + j), k_end)
+                                    : k_begin;
+    const float qscale = p.scale * kLog2e;
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) o[i][x] = 0.f;
+
+    const int grp = warp / S::kGroupWarps;
+    for (int it = grp; it < n_tiles; it += S::kGroups) {
+      const int st = it % S::kStages;
+      const int r0 = 16 * wq, kb = k_begin + it * S::kKeys + r0;
+      mbar_wait(&full[st * S::kGroups + grp], (it / S::kCycle) & 1);
+      if (kb < k_end) {
+        const uint32_t kt = smem_u32(base + st * 2 * S::kTile);
+        const uint32_t vt = kt + S::kTile;
+        float sa[4] = {0.f, 0.f, 0.f, 0.f}, sb[4] = {0.f, 0.f, 0.f, 0.f};
+        // lane i's row of the fragment: K keys r0 + 8 ((i / 8) % 2) + i % 8
+        // at chunk 2 k + i / 16; V keys r0 + 8 (i / 16) + i % 8 at chunk
+        // 2 i' + (i / 8) % 2
+        const int kr = r0 + 8 * ((lane / 8) % 2) + lane % 8;
+        const int vr = r0 + 8 * (lane / 16) + lane % 8;
+#pragma unroll
+        for (int k = 0; k < 16; ++k) {
+          uint32_t a[4];
+          ldsm4(a, kt + staged_at(kr, 2 * k + lane / 16));
+          if (k % 2)
+            mma16816<T>(sb, a[0], a[1], a[2], a[3], qf[k][0], qf[k][1]);
+          else
+            mma16816<T>(sa, a[0], a[1], a[2], a[3], qf[k][0], qf[k][1]);
+        }
+        float s[4];
+#pragma unroll
+        for (int x = 0; x < 4; ++x) s[x] = sa[x] + sb[x];
+        uint32_t bh[2], bl[2];
+        online_softmax<T, 16>(s, kb, g, lim, qscale, m, l, o, bh, bl);
+        // V's keys past the chunk's end as 0: a register holds keys
+        // kb + 2 t, + 1 (a[0], a[1]) or kb + 2 t + 8, + 9 (a[2], a[3])
+        const uint32_t m01 = (kb + 2 * t < k_end ? 0xffffu : 0u) |
+                             (kb + 2 * t + 1 < k_end ? 0xffff0000u : 0u);
+        const uint32_t m23 = (kb + 2 * t + 8 < k_end ? 0xffffu : 0u) |
+                             (kb + 2 * t + 9 < k_end ? 0xffff0000u : 0u);
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          uint32_t a[4];
+          ldsm4_t(a, vt + staged_at(vr, 2 * i + (lane / 8) % 2));
+          a[0] &= m01;
+          a[1] &= m01;
+          a[2] &= m23;
+          a[3] &= m23;
+          mma16816<T>(o[i], a[0], a[1], a[2], a[3], bh[0], bh[1]);
+          mma16816<T>(o[i], a[0], a[1], a[2], a[3], bl[0], bl[1]);
+        }
+      }
+      mbar_arrive(&empty[st]);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1)
+        l[j] += __shfl_xor_sync(0xffffffffu, l[j], off);
+  }
+  // every stage has been read: the merge goes over the ring
+  __syncthreads();
+  auto& acc_s =
+      *reinterpret_cast<float (*)[kWarps][ROWS][S::kMergePitch]>(base);
+  if (warp == kWarps) return;   // the consumers' threads merge
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (2 * t + j < ROWS) {
+        acc_s[warp][2 * t + j][16 * i + g] = o[i][j];
+        acc_s[warp][2 * t + j][16 * i + g + 8] = o[i][2 + j];
+      }
+    }
+  }
+  if (g == 0) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (2 * t + j < ROWS) {
+        m_s[warp][2 * t + j] = m[j];
+        l_s[warp][2 * t + j] = l[j];
+      }
+    }
+  }
+  asm volatile("bar.sync 1, %0;" ::"n"(kWarps * 32) : "memory");
+  // the warps' weights 2^(m_w - m), one thread a row (every thread read
+  // them all in the register bodies' merge: 2 loads and an ex2 per warp,
+  // row and dim), then each thread's dims summed in warp order
+  __shared__ float c_s[ROWS][kWarps], mm_s[ROWS], ll_s[ROWS];
+  if (threadIdx.x < seq.rows) {
+    const int r = threadIdx.x;
+    float mm = kNeg;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, m_s[w][r]);
+    float ll = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float c = ex2(m_s[w][r] - mm);
+      c_s[r][w] = c;
+      ll = fmaf(l_s[w][r], c, ll);
+    }
+    mm_s[r] = mm;
+    ll_s[r] = ll;
+  }
+  asm volatile("bar.sync 1, %0;" ::"n"(kWarps * 32) : "memory");
+  const long long zhk = (long long)z * p.Hkv + hk;
+  for (int d = threadIdx.x; d < D; d += kWarps * 32) {
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      if (r >= seq.rows) break;
+      float aa = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w)
+        aa = fmaf(acc_s[w][r][d], c_s[r][w], aa);
+      if (n_active == 1) {
+        static_cast<T*>(p.o)[seq.row(r) + d] =
+            from_f<T>(aa / fmaxf(ll_s[r], 1e-30f));
+      } else {
+        const long long at = (zhk * p.n_split + split) * ROWS + r;
+        p.part[at * (D + 2) + d] = aa;
+        if (d == 0) {
+          p.part[at * (D + 2) + D] = mm_s[r];
+          p.part[at * (D + 2) + D + 1] = ll_s[r];
+        }
+      }
+    }
+  }
+}
+
 // Merges the chunks of every sequence that spans more than one, in chunk
-// order: grid (Hkv, Z), thread d owns dim d of every row.  The loops are
-// unrolled so that a row's loads are in flight together.
+// order: grid (Hkv, Z, kCombineRowBlocks), thread d owns dim d of every
+// row of its block.  One block for all rows: the loops are unrolled so
+// that a row's loads are in flight together.  One block a row (after the
+// staged body): the sequence's metadata is read before the chunks' grid
+// ends (it is the caller's, not theirs), and the row's (m, l, acc[d]) of
+// up to kCombineBatch chunks are loaded at once, then summed in chunk
+// order as in the other form -- one round trip to L2 where the loops took
+// one a row per 8 chunks, twice.
+constexpr int kCombineBatch = 32;
+
 template <typename T, int ROWS, typename Seqs>
 __global__ void __launch_bounds__(Seqs::kDim)
 combine_kernel(const __grid_constant__ SplitParams<Seqs> p) {
   constexpr int D = Seqs::kDim;
-  asm volatile("griddepcontrol.wait;" ::: "memory");   // the chunks' results
+  constexpr long long step = (long long)ROWS * (D + 2);   // chunk to chunk
   const int hk = blockIdx.x, z = blockIdx.y, d = threadIdx.x;
-  const auto seq = p.seqs.seq(z, hk);
-  const int n_active = active_chunks(seq.kv_hi, p.chunk);
-  if (n_active == 1) return;                     // finished by its block
   const long long zhk = (long long)z * p.Hkv + hk;
+  if constexpr (kCombineRowBlocks<T, ROWS, D> == 1) {
+    asm volatile("griddepcontrol.wait;" ::: "memory");   // the chunks' results
+    const auto seq = p.seqs.seq(z, hk);
+    const int n_active = active_chunks(seq.kv_hi, p.chunk);
+    if (n_active == 1) return;                     // finished by its block
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    if (r >= seq.rows) break;
+    for (int r = 0; r < ROWS; ++r) {
+      if (r >= seq.rows) break;
+      const float* row = p.part + (zhk * p.n_split * ROWS + r) * (D + 2);
+      float mm = kNeg;
+#pragma unroll 8
+      for (int c = 0; c < n_active; ++c) mm = fmaxf(mm, row[c * step + D]);
+      float ll = 0.f, aa = 0.f;
+#pragma unroll 8
+      for (int c = 0; c < n_active; ++c) {
+        const float w = ex2(row[c * step + D] - mm);
+        ll = fmaf(row[c * step + D + 1], w, ll);
+        aa = fmaf(row[c * step + d], w, aa);
+      }
+      static_cast<T*>(p.o)[seq.row(r) + d] =
+          from_f<T>(aa / fmaxf(ll, 1e-30f));
+    }
+  } else {
+    const auto seq = p.seqs.seq(z, hk);
+    asm volatile("griddepcontrol.wait;" ::: "memory");   // the chunks' results
+    const int n_active = active_chunks(seq.kv_hi, p.chunk);
+    const int r = blockIdx.z;
+    if (n_active == 1 || r >= seq.rows) return;
     const float* row = p.part + (zhk * p.n_split * ROWS + r) * (D + 2);
-    constexpr long long step = (long long)ROWS * (D + 2);
-    float mm = kNeg;
+    float mm = kNeg, ll = 0.f, aa = 0.f;
+    if (n_active <= kCombineBatch) {
+      float mv[kCombineBatch], lv[kCombineBatch], av[kCombineBatch];
+#pragma unroll
+      for (int c = 0; c < kCombineBatch; ++c) {
+        if (c < n_active) {
+          mv[c] = row[c * step + D];
+          lv[c] = row[c * step + D + 1];
+          av[c] = row[c * step + d];
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < kCombineBatch; ++c)
+        if (c < n_active) mm = fmaxf(mm, mv[c]);
+#pragma unroll
+      for (int c = 0; c < kCombineBatch; ++c) {
+        if (c < n_active) {
+          const float w = ex2(mv[c] - mm);
+          ll = fmaf(lv[c], w, ll);
+          aa = fmaf(av[c], w, aa);
+        }
+      }
+    } else {
 #pragma unroll 8
-    for (int c = 0; c < n_active; ++c) mm = fmaxf(mm, row[c * step + D]);
-    float ll = 0.f, aa = 0.f;
+      for (int c = 0; c < n_active; ++c) mm = fmaxf(mm, row[c * step + D]);
 #pragma unroll 8
-    for (int c = 0; c < n_active; ++c) {
-      const float w = ex2(row[c * step + D] - mm);
-      ll = fmaf(row[c * step + D + 1], w, ll);
-      aa = fmaf(row[c * step + d], w, aa);
+      for (int c = 0; c < n_active; ++c) {
+        const float w = ex2(row[c * step + D] - mm);
+        ll = fmaf(row[c * step + D + 1], w, ll);
+        aa = fmaf(row[c * step + d], w, aa);
+      }
     }
     static_cast<T*>(p.o)[seq.row(r) + d] = from_f<T>(aa / fmaxf(ll, 1e-30f));
   }
 }
 
-// The split kernel of ROWS rows of T: the tensor-core body or the
-// CUDA-core one.
+// The split kernel of ROWS rows of T, its threads and its dynamic shared
+// memory: the staged body, the tensor-core body or the CUDA-core one.
 template <typename T, int ROWS, typename Seqs>
 constexpr auto split_form() {
-  if constexpr (kTensorCores<T, ROWS>)
+  if constexpr (kStaged<T, ROWS, Seqs::kDim>)
+    return split_staged_kernel<T, ROWS, Seqs>;
+  else if constexpr (kTensorCores<T, ROWS>)
     return split_tc_kernel<T, ROWS, Seqs>;
   else
     return split_kernel<T, ROWS, Seqs>;
+}
+template <typename T, int ROWS, typename Seqs>
+constexpr int split_threads() {
+  return kStaged<T, ROWS, Seqs::kDim>
+             ? Staged::kThreads
+             : Layout<T, Seqs::kDim, ROWS>::WARPS * 32;
+}
+template <typename T, int ROWS, typename Seqs>
+constexpr size_t split_smem() {
+  return kStaged<T, ROWS, Seqs::kDim> ? Staged::kBytes : 0;
+}
+
+// Lets the split kernel take its dynamic shared memory: once per
+// instantiation, at its first launch or occupancy query (before any graph
+// capture can be running).
+template <typename T, int ROWS, typename Seqs>
+cudaError_t split_smem_attr() {
+  if constexpr (split_smem<T, ROWS, Seqs>() == 0) {
+    return cudaSuccess;
+  } else {
+    static const cudaError_t e = cudaFuncSetAttribute(
+        split_form<T, ROWS, Seqs>(),
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)split_smem<T, ROWS, Seqs>());
+    return e;
+  }
 }
 
 // The split kernel over Z sequences, then, when a sequence may span
 // several chunks, the combine kernel launched early.
 template <typename T, int ROWS, typename Seqs>
 int launch_split(const SplitParams<Seqs>& p, int Z, cudaStream_t stream) {
-  constexpr int kThreads = Layout<T, Seqs::kDim, ROWS>::WARPS * 32;
   const dim3 grid(p.n_split, p.Hkv, Z);
-  if constexpr (kTensorCores<T, ROWS>)
-    split_tc_kernel<T, ROWS, Seqs><<<grid, kThreads, 0, stream>>>(p);
-  else
-    split_kernel<T, ROWS, Seqs><<<grid, kThreads, 0, stream>>>(p);
+  if constexpr (kStaged<T, ROWS, Seqs::kDim>) {
+    // the tensor maps of K and V, made at every launch (they travel by
+    // value in the parameters, so a graph capture keeps them)
+    SplitParams<Seqs> ps = p;
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(Seqs::kDim),
+                                static_cast<cuuint64_t>(p.kv_rows)};
+    const cuuint64_t strides[1] = {Seqs::kDim * sizeof(T)};
+    const cuuint32_t box[2] = {hopper::kBoxCols,
+                               static_cast<cuuint32_t>(p.box_rows)};
+    if (p.box_rows < 1 || Staged::kKeys % p.box_rows != 0)
+      return (int)cudaErrorInvalidValue;
+    int rc = hopper::make_map<T>(&ps.k_map, p.k, 2, dims, strides, box);
+    if (!rc) rc = hopper::make_map<T>(&ps.v_map, p.v, 2, dims, strides, box);
+    if (rc) return rc;
+    const cudaError_t attr = split_smem_attr<T, ROWS, Seqs>();
+    if (attr != cudaSuccess) return (int)attr;
+    split_staged_kernel<T, ROWS, Seqs>
+        <<<grid, Staged::kThreads, Staged::kBytes, stream>>>(ps);
+  } else if constexpr (kTensorCores<T, ROWS>) {
+    split_tc_kernel<T, ROWS, Seqs>
+        <<<grid, split_threads<T, ROWS, Seqs>(), 0, stream>>>(p);
+  } else {
+    split_kernel<T, ROWS, Seqs>
+        <<<grid, split_threads<T, ROWS, Seqs>(), 0, stream>>>(p);
+  }
   if (p.n_split > 1) {
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
@@ -847,7 +1254,7 @@ int launch_split(const SplitParams<Seqs>& p, int Z, cudaStream_t stream) {
     attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
     attr[0].val.programmaticStreamSerializationAllowed = 1;
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(p.Hkv, Z);
+    cfg.gridDim = dim3(p.Hkv, Z, kCombineRowBlocks<T, ROWS, Seqs::kDim>);
     cfg.blockDim = dim3(Seqs::kDim);
     cfg.stream = stream;
     cfg.attrs = attr;
@@ -893,10 +1300,11 @@ int split_slots(int rows) {
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess) e = split_smem_attr<T, R, Seqs>();
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, split_form<T, R, Seqs>(),
-          Layout<T, Seqs::kDim, R>::WARPS * 32, 0);
+          &per_sm, split_form<T, R, Seqs>(), split_threads<T, R, Seqs>(),
+          split_smem<T, R, Seqs>());
     return e == cudaSuccess ? sms * per_sm : -(int)e;
   });
 }

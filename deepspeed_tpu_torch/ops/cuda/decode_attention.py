@@ -27,17 +27,22 @@ HEAD_DIMS = (64, 80, 96, 128, 256)
 # The decode form (at most DECODE_ROWS query rows per kv head) splits each
 # sequence's keys into chunks of at least DECODE_MIN_CHUNK keys, one block
 # each, merged in chunk order by a second kernel when a sequence spans
-# several.  The tensor-core body (5-8 rows, bf16 / fp16; the kernel's
-# ``kTensorCores``) finishes a chunk so fast that a split pays for the merge
-# only from DECODE_MIN_CHUNK_TC keys on; shorter chunks cost more than they
-# save at the serving shapes, also when few (sequence, kv head) pairs
-# leave most of the card idle (PERF.md, PR 10).
-# Re-measured at head dim 256: right for the serving shapes there too,
-# but a 4096-token step of 8 rows over one kv head would take 512-key
-# chunks (PERF.md §6).
+# several.  The tensor-core body at head dims 64-128 (5-8 rows, bf16 /
+# fp16; the kernel's ``kTensorCores``) finishes a chunk so fast that a
+# split pays for the merge only from DECODE_MIN_CHUNK_TC keys on; shorter
+# chunks cost more than they save at the serving shapes, also when few
+# (sequence, kv head) pairs leave most of the card idle (PERF.md §6).
+# At head dim 256 the tensor-core body is the staged one (``kStaged``: K
+# and V streamed through shared memory in 64-key tiles, one block a card's
+# SM, two consumer groups taking tiles in turn): a chunk of
+# DECODE_MIN_CHUNK_TC256 keys keeps both groups busy, so a few (sequence,
+# kv head) pairs -- Gemma-2B has one kv head -- spread over the card.
+# Shorter chunks split a 144-key step that one block finishes sooner
+# (PERF.md §6).
 DECODE_ROWS = 8
 DECODE_MIN_CHUNK = 512
 DECODE_MIN_CHUNK_TC = 2048
+DECODE_MIN_CHUNK_TC256 = 128
 _slots = {}   # (entry, device index, rows, head dim, dtype code) -> blocks
 
 
@@ -79,12 +84,15 @@ def decode_attention_plain(q, k, v, lengths, softmax_scale=None):
 decode_attention_plain.calls = 0
 
 
-def min_chunk(rows, dtype):
+def min_chunk(rows, dtype, head_dim):
     """The shortest key chunk a decode launch of ``rows`` query rows per kv
-    head splits into: DECODE_MIN_CHUNK_TC on the tensor-core body (5-8
-    rows in bf16 or fp16), else DECODE_MIN_CHUNK."""
-    tc = rows > 4 and dtype in (torch.bfloat16, torch.float16)
-    return DECODE_MIN_CHUNK_TC if tc else DECODE_MIN_CHUNK
+    head at ``head_dim`` splits into: on the tensor-core bodies (5-8 rows
+    in bf16 or fp16) DECODE_MIN_CHUNK_TC256 at head dim 256 (the staged
+    body) and DECODE_MIN_CHUNK_TC below; on the CUDA-core body (1-4 rows,
+    and fp32 at any row count) DECODE_MIN_CHUNK."""
+    if rows <= 4 or dtype not in (torch.bfloat16, torch.float16):
+        return DECODE_MIN_CHUNK
+    return DECODE_MIN_CHUNK_TC256 if head_dim == 256 else DECODE_MIN_CHUNK_TC
 
 
 def key_splits(pairs, S_max, slots, least=DECODE_MIN_CHUNK):
@@ -100,13 +108,14 @@ def key_splits(pairs, S_max, slots, least=DECODE_MIN_CHUNK):
     return -(-max(S_max, 1) // chunk), chunk
 
 
-def decode_splits(B, T, H, Hkv, S_max, slots, dtype):
+def decode_splits(B, T, H, Hkv, S_max, slots, dtype, head_dim):
     """(chunks per sequence, keys per chunk) of a launch: the decode form
     (:func:`key_splits` over B * Hkv pairs); the prefill form takes one."""
     rows = T * (H // Hkv)
     if rows > DECODE_ROWS:
         return 1, max(S_max, 1)
-    return key_splits(B * Hkv, S_max, slots, min_chunk(rows, dtype))
+    return key_splits(B * Hkv, S_max, slots,
+                      min_chunk(rows, dtype, head_dim))
 
 
 def _decode_slots(device, rows, head_dim, dtype_code,
@@ -133,7 +142,7 @@ def decode_plan(B, T, H, Hkv, S_max, D, dtype, device):
     rows = T * (H // Hkv)
     slots = _decode_slots(device, rows, D, _DTYPE_CODES[dtype]) \
         if rows <= DECODE_ROWS else 0
-    return decode_splits(B, T, H, Hkv, S_max, slots, dtype)
+    return decode_splits(B, T, H, Hkv, S_max, slots, dtype, D)
 
 
 def decode_attention_cuda(q, k, v, lengths, softmax_scale=None):

@@ -125,6 +125,15 @@ def _pack_metadata(q_lens, q_tile):
             np.asarray(qtile_of_tile, np.int32), off)
 
 
+def decode_rows_splits(n_dec, Hkv, S_max, slots, rows, dtype, head_dim):
+    """(chunks per sequence, keys per chunk) of the decode rows' launch:
+    :func:`key_splits` over n_dec * Hkv (sequence, kv head) pairs in chunks
+    of at least :func:`min_chunk` keys -- B5's rule, on the body the two
+    kernels share."""
+    return key_splits(n_dec * Hkv, S_max, slots,
+                      min_chunk(rows, dtype, head_dim))
+
+
 def paged_attention_plain(q, k_pages, v_pages, block_tables, lengths,
                           softmax_scale=None):
     """Gather each sequence's pages into its logical view, then masked
@@ -218,8 +227,8 @@ def ragged_paged_attention_cuda(q, k_pages, v_pages, block_tables, ctx_lens,
     if n_dec:
         slots = _decode_slots(q.device, decode_rows, D, code,
                               entry="ragged_decode_slots")
-        n_split, chunk = key_splits(n_dec * Hkv, max_pages * page, slots,
-                                    min_chunk(decode_rows, q.dtype))
+        n_split, chunk = decode_rows_splits(n_dec, Hkv, max_pages * page,
+                                            slots, decode_rows, q.dtype, D)
         # the chunks' (acc, m, l), from the caching allocator on this stream
         if n_split > 1:
             part = torch.empty(n_dec * Hkv * n_split * decode_rows * (D + 2),

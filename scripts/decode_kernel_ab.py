@@ -5,28 +5,36 @@
 one process.
 
     python3 scripts/decode_kernel_ab.py VARIANTS.json [--out DIR]
-        [--head-dim 256]
+        [--head-dim 128 256] [--dtype bf16 fp16] [--profile]
 
 VARIANTS.json maps a variant's name to ``{"dir": <sources>, "edits":
-{<file>: [[regex, replacement], ...]}, "splits": [n, ...]}``, as in
-``scripts/flash_kernel_ab.py`` (whose build it shares); ``splits``, when
-given, replaces the wrappers' split plan (``key_splits``) by each listed
-count in turn: every sequence's keys in chunks of S_max / n (rounded up
-to 64), n = 1 one block per (sequence, kv head).  Each variant's
+{<file>: [[regex, replacement], ...]}, "splits": [n, ...], "min_chunk":
+keys}``, as in ``scripts/flash_kernel_ab.py`` (whose build it shares);
+``splits``, when given, replaces the wrappers' split plan (``key_splits``)
+by each listed count in turn: every sequence's keys in chunks of S_max /
+n (rounded up to 64), n = 1 one block per (sequence, kv head), null the
+wrappers' own plan; ``min_chunk`` sets that plan's shortest chunk of the
+5-8-row bf16 / fp16 form at head dim 256 (``DECODE_MIN_CHUNK_TC256``; a
+parent from before the staged body took 2048 there).  A call that does not
+return within ``--case-timeout`` seconds (a kernel that deadlocks) ends
+the run, naming its case.  ``--profile`` also prints, for each variant's
+first plan, the device us a call of each split and combine kernel
+(torch.profiler, 20 calls on one input set).  Each variant's
 ``decode_attention.cu`` and ``ragged_paged_attention.cu`` are built with
 the op builder's nvcc flags into ``--out`` (default, gitignored:
 ``deepspeed_tpu_torch/_build/ab_decode``), with every split kernel's
-registers and spills printed.  Then, for each variant and plan, bf16, at
-the main paths' decode shapes: B4 over the serve run's 8 slots (page 128)
--- the 1-row step (Llama-2-7B, 32 heads of 128) and its GQA 32 / 8 form
+registers and spills printed.  Then, for each dtype (``--dtype``, bf16
+by default), variant and plan, at the main paths' decode shapes: B4 over
+the serve run's 8 slots (page 128) -- the 1-row step (Llama-2-7B, 32 heads of 128) and its GQA 32 / 8 form
 (4 rows), the speculative verify window [8, 5], the TinyLlama-1.1B
 draft's step (32 / 4 heads of 64) and a Llama-2-70B-shaped step (64 / 8
 heads of 128) -- and B5's generate step
 (B=4, length 144 over a 160-token cache) at the same three attention
-shapes, and at Llama-2-70B's at length 4096 (with ``--head-dim 256``
-instead: the Gemma-7B (16 / 16 heads of 256) and Gemma-2B (8 / 1) shapes'
-B4 8-slot steps, Gemma-7B's verify window, and B5's generate steps and
-length-4096 steps at both): the max abs error against
+shapes, and at Llama-2-70B's at length 4096 (``--head-dim 128``, the
+default; with ``256``: the Gemma-7B (16 / 16 heads of 256) and Gemma-2B
+(8 / 1) shapes' B4 8-slot steps, Gemma-7B's verify window, and B5's
+generate steps and length-4096 steps at both; both sets in one run with
+``--head-dim 128 256``): the max abs error against
 the plain version run in fp32, device ms by CUDA-graph replay over
 rotating inputs (more than the 50 MB L2) beside SDPA's on the same inputs
 and the bound (K/V and q bytes over 3.35 TB/s).  The first variant is
@@ -37,6 +45,7 @@ import argparse
 import json
 import os
 import sys
+import threading
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -70,11 +79,13 @@ CONTIGUOUS_256 = [("B5 Gemma-7B step H16/16 D=256", 4, 16, 16, 256, 160,
                    4096, 4)]
 
 
-def cases(sm, torch, F, da, rp, paged=PAGED, contiguous=CONTIGUOUS):
+def cases(sm, torch, F, da, rp, paged=PAGED, contiguous=CONTIGUOUS,
+          bf=None):
     """[(label, kernel fn(i), SDPA fn(i), copies, plain fp32 output of
-    input 0, bound ms)] at the shapes above."""
+    input 0, bound ms)] at the shapes above, in dtype ``bf`` (bf16 by
+    default)."""
     gen = torch.Generator(device="cuda").manual_seed(5)
-    bf = torch.bfloat16
+    bf = bf or torch.bfloat16
     out = []
     prompts = sm.SERVE_PROMPTS[:sm.SERVE_SLOTS]
     for label, T, H, Hkv, D, off in paged:
@@ -122,6 +133,42 @@ def cases(sm, torch, F, da, rp, paged=PAGED, contiguous=CONTIGUOUS):
     return out
 
 
+def watchdog(limit):
+    """A thread that ends the process when ``state[0]`` (the case being
+    run) stays the same for ``limit`` seconds; returns ``state``."""
+    state = ["build"]
+
+    def watch():
+        last, since = None, time.time()
+        while True:
+            time.sleep(1)
+            if state[0] != last:
+                last, since = state[0], time.time()
+            elif last != "build" and time.time() - since > limit:
+                print(f"HANG: {last} ran over {limit} s", flush=True)
+                os._exit(3)
+    threading.Thread(target=watch, daemon=True).start()
+    return state
+
+
+def kernel_us(torch, fn, reps=20):
+    """{kernel name: device us a call} of fn(0) by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn(0)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", 0) or \
+            getattr(e, "cuda_time_total", 0)
+        if t:
+            out[e.key] = t / reps
+    return out
+
+
 def chunks_of(S, n):
     """(chunks, keys per chunk) of S keys cut n ways, chunks a multiple of
     64 keys, as the wrapper's plan gives them."""
@@ -134,9 +181,15 @@ def main():
     ap.add_argument("variants", help="JSON file of variants")
     ap.add_argument("--out", default=os.path.join(
         REPO, "deepspeed_tpu_torch", "_build", "ab_decode"))
-    ap.add_argument("--head-dim", type=int, choices=(256,),
-                    help="the Gemma shapes at head dim 256 instead")
+    ap.add_argument("--head-dim", type=int, choices=(128, 256), nargs="+",
+                    default=[128], help="128: the Llama / TinyLlama "
+                    "shapes (head dims 64 and 128); 256: the Gemma shapes")
+    ap.add_argument("--dtype", choices=("bf16", "fp16"), nargs="+",
+                    default=["bf16"])
+    ap.add_argument("--case-timeout", type=float, default=120.0)
+    ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
+    state = watchdog(args.case_timeout)
     sys.path.insert(0, REPO)
     import torch
     import torch.nn.functional as F
@@ -160,24 +213,47 @@ def main():
                 if "split" in kernel:
                     print(f"{name} {src}: {kernel[:110]}: {regs} registers, "
                           f"spills {st}/{ld} B", flush=True)
-    card_splits = da.key_splits
-    todo = cases(sm, torch, F, da, rp) if args.head_dim is None else \
-        cases(sm, torch, F, da, rp, PAGED_256, CONTIGUOUS_256)
-    lib_ms = {label: sm.graph_ms(lib, c) for label, _, lib, c, _, _ in todo}
-    for name in list(variants) + list(variants)[:1]:
-        use(libs, name, SOURCES)
-        da._slots.clear()
-        for n in variants[name].get("splits", [None]):
-            da.key_splits = rp.key_splits = card_splits if n is None else \
-                (lambda pairs, S, slots, least=0, n=n: chunks_of(S, n))
-            for label, fn, _, c, want, bound in todo:
-                err = (fn(0).float() - want).abs().max().item()
-                ms = sm.graph_ms(fn, c)
-                print(f"{name} splits {n or 'card'} {label}: device ms "
-                      f"{ms:.4f} (SDPA {lib_ms[label]:.4f}), {bound / ms:.3f}"
-                      f" of bound {bound:.4f}, max abs err {err:.2e}",
-                      flush=True)
+    card_splits, card_least = da.key_splits, da.DECODE_MIN_CHUNK_TC256
+    for dn in args.dtype:
+        dtype = torch.float16 if dn == "fp16" else torch.bfloat16
+        todo = []
+        if 128 in args.head_dim:
+            todo += cases(sm, torch, F, da, rp, bf=dtype)
+        if 256 in args.head_dim:
+            todo += cases(sm, torch, F, da, rp, PAGED_256, CONTIGUOUS_256,
+                          dtype)
+        lib_ms = {label: sm.graph_ms(lib, c)
+                  for label, _, lib, c, _, _ in todo}
+        for name in list(variants) + list(variants)[:1]:
+            use(libs, name, variants[name], SOURCES)
+            da._slots.clear()
+            da.DECODE_MIN_CHUNK_TC256 = variants[name].get("min_chunk",
+                                                           card_least)
+            for j, n in enumerate(variants[name].get("splits", [None])):
+                da.key_splits = rp.key_splits = card_splits if n is None \
+                    else (lambda pairs, S, slots, least=0, n=n:
+                          chunks_of(S, n))
+                for label, fn, _, c, want, bound in todo:
+                    state[0] = f"{name} {dn} splits {n} {label}"
+                    err = (fn(0).float() - want).abs().max().item()
+                    ms = sm.graph_ms(fn, c)
+                    print(f"{name} {dn} splits {n or 'card'} {label}: "
+                          f"device ms {ms:.4f} (SDPA {lib_ms[label]:.4f}), "
+                          f"{bound / ms:.3f} of bound {bound:.4f}, max abs "
+                          f"err {err:.2e}", flush=True)
+                    if args.profile and j == 0:
+                        us = kernel_us(torch, fn)
+                        print(f"{name} {dn} splits {n or 'card'} {label}: "
+                              f"profile " + ", ".join(
+                                  f"{k[:k.find('(')][-60:]} {v:.2f} us"
+                                  for k, v in us.items()
+                                  if "split" in k or "combine" in k),
+                              flush=True)
+        del todo
+        torch.cuda.empty_cache()
     da.key_splits = rp.key_splits = card_splits
+    da.DECODE_MIN_CHUNK_TC256 = card_least
+    state[0] = "done"
     print(f"done in {time.time() - t0:.1f} s")
 
 

@@ -16,8 +16,9 @@ from deepspeed_tpu.ops.decode_attention import init_cache as jax_init_cache
 from deepspeed_tpu.ops.decode_attention import update_cache as jax_update
 from deepspeed_tpu.ops.pallas.decode_attention import decode_attention_pallas
 from deepspeed_tpu_torch.ops.cuda.decode_attention import (
-    DECODE_MIN_CHUNK, DECODE_MIN_CHUNK_TC, DECODE_ROWS, HEAD_DIMS,
-    decode_attention_cuda, decode_attention_plain, decode_splits, min_chunk)
+    DECODE_MIN_CHUNK, DECODE_MIN_CHUNK_TC, DECODE_MIN_CHUNK_TC256,
+    DECODE_ROWS, HEAD_DIMS, decode_attention_cuda, decode_attention_plain,
+    decode_splits, min_chunk)
 from deepspeed_tpu_torch.ops.cuda.ragged_paged_attention import \
     ragged_paged_attention_cuda
 from deepspeed_tpu_torch.ops.decode_attention import (decode_attention,
@@ -225,42 +226,69 @@ def test_wrappers_check_the_head_dim_first(Dh):
                 call()
 
 
-@pytest.mark.parametrize("B,T,H,Hkv,slots,want", [
-    (4, 1, 32, 32, 132, [(1, 192), (1, 4096)]),      # 128 blocks fill it
-    (1, 1, 32, 32, 132, [(1, 192), (4, 1024)]),      # 32 blocks: split
-    (4, 1, 32, 8, 264, [(1, 192), (8, 512)]),        # GQA, 4 rows
-    (4, 128, 32, 32, 132, [(1, 160), (1, 4096)]),    # prefill form
-    (2, 2, 32, 8, 264, [(1, 192), (2, 2048)]),       # 8 rows: decode form
-    (4, 1, 32, 4, 132, [(1, 192), (2, 2048)]),       # group 8 (TinyLlama)
-    (8, 5, 32, 32, 132, [(1, 192), (1, 4096)]),      # 5 rows, 256 pairs
-    (1, 9, 32, 32, 132, [(1, 160), (1, 4096)]),      # 9 rows: prefill
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("Dh", [128, 256])
+@pytest.mark.parametrize("B,T,H,Hkv,slots,want,want256", [
+    # 128 blocks fill it
+    (4, 1, 32, 32, 132, [(1, 192), (1, 4096)], None),
+    # 32 blocks: split
+    (1, 1, 32, 32, 132, [(1, 192), (4, 1024)], None),
+    (4, 1, 32, 8, 264, [(1, 192), (8, 512)], None),         # GQA, 4 rows
+    (4, 128, 32, 32, 132, [(1, 160), (1, 4096)], None),     # prefill form
+    # 8 rows: decode form; at 256 the staged body's chunks of 128 and up
+    (2, 2, 32, 8, 264, [(1, 192), (2, 2048)], [(1, 192), (16, 256)]),
+    # group 8 (TinyLlama; at 256 Gemma-2B's 8 / 1)
+    (4, 1, 32, 4, 132, [(1, 192), (2, 2048)], [(1, 192), (8, 512)]),
+    (4, 1, 8, 1, 132, [(1, 192), (2, 2048)], [(1, 192), (32, 128)]),
+    (8, 5, 32, 32, 132, [(1, 192), (1, 4096)], None),      # 5 rows, 256 pairs
+    (1, 9, 32, 32, 132, [(1, 160), (1, 4096)], None),      # 9 rows: prefill
 ])
-def test_decode_splits(B, T, H, Hkv, slots, want):
+def test_decode_splits(B, T, H, Hkv, slots, want, want256, Dh, dtype):
     """The decode form (at most DECODE_ROWS rows a kv head) splits a
     sequence's keys only as far as one wave of the card's block slots, in
-    chunks of at least DECODE_MIN_CHUNK keys (a multiple of 64; 2048 on the
-    tensor-core body, bf16 at 5-8 rows) that cover S_max (the C entry
-    refuses less); the prefill form takes one."""
-    got = [decode_splits(B, T, H, Hkv, S, slots, torch.bfloat16)
+    chunks of at least min_chunk keys (a multiple of 64: DECODE_MIN_CHUNK
+    on the CUDA-core body, DECODE_MIN_CHUNK_TC on the tensor-core body at
+    5-8 rows in bf16 / fp16 at head dims up to 128, DECODE_MIN_CHUNK_TC256
+    on the staged body at 256) that cover S_max (the C entry refuses
+    less); the prefill form takes one.  ``want256`` is the plan at head
+    dim 256 where it differs (the 5-8-row forms)."""
+    got = [decode_splits(B, T, H, Hkv, S, slots, dtype, Dh)
            for S in (160, 4096)]
-    assert got == want
-    for S in (1, 160, 511, 512, 513, 2048, 4096):
-        n, c = decode_splits(B, T, H, Hkv, S, slots, torch.bfloat16)
+    assert got == (want256 if Dh == 256 and want256 else want)
+    least = min_chunk(T * H // Hkv, dtype, Dh)
+    for S in (1, 144, 160, 511, 512, 513, 616, 2048, 4096):
+        n, c = decode_splits(B, T, H, Hkv, S, slots, dtype, Dh)
         assert n * c >= S > (n - 1) * c
-        assert n == 1 or (c % 64 == 0 and c >= DECODE_MIN_CHUNK and
+        assert n == 1 or (c % 64 == 0 and c >= least and
                           B * Hkv * n <= slots)
 
 
-@pytest.mark.parametrize("rows,dtype,want", [
-    (1, torch.bfloat16, DECODE_MIN_CHUNK), (4, torch.float16, DECODE_MIN_CHUNK),
-    (5, torch.bfloat16, DECODE_MIN_CHUNK_TC),
-    (8, torch.float16, DECODE_MIN_CHUNK_TC), (8, torch.float32, DECODE_MIN_CHUNK)])
-def test_min_chunk_by_form(rows, dtype, want):
+@pytest.mark.parametrize("rows,dtype,Dh,want", [
+    (1, torch.bfloat16, 128, DECODE_MIN_CHUNK),
+    (4, torch.float16, 128, DECODE_MIN_CHUNK),
+    (5, torch.bfloat16, 128, DECODE_MIN_CHUNK_TC),
+    (8, torch.float16, 128, DECODE_MIN_CHUNK_TC),
+    (8, torch.float32, 128, DECODE_MIN_CHUNK),
+    (8, torch.bfloat16, 64, DECODE_MIN_CHUNK_TC),
+    (6, torch.float16, 80, DECODE_MIN_CHUNK_TC),
+    (7, torch.bfloat16, 96, DECODE_MIN_CHUNK_TC),
+    (1, torch.bfloat16, 256, DECODE_MIN_CHUNK),
+    (4, torch.float16, 256, DECODE_MIN_CHUNK),
+    (5, torch.bfloat16, 256, DECODE_MIN_CHUNK_TC256),
+    (6, torch.float16, 256, DECODE_MIN_CHUNK_TC256),
+    (7, torch.bfloat16, 256, DECODE_MIN_CHUNK_TC256),
+    (8, torch.float16, 256, DECODE_MIN_CHUNK_TC256),
+    (8, torch.bfloat16, 256, DECODE_MIN_CHUNK_TC256),
+    (8, torch.float32, 256, DECODE_MIN_CHUNK)])
+def test_min_chunk_by_form(rows, dtype, Dh, want):
     """The tensor-core body (5-8 rows in bf16 or fp16) splits only into
-    chunks of DECODE_MIN_CHUNK_TC keys; the CUDA-core body (1-4 rows, and
-    fp32 at any row count) into chunks of DECODE_MIN_CHUNK."""
-    assert min_chunk(rows, dtype) == want
-    n, c = decode_splits(1, rows, 32, 32, 8192, 32 * 16, dtype)
+    chunks of DECODE_MIN_CHUNK_TC keys at head dims up to 128 and of
+    DECODE_MIN_CHUNK_TC256 at 256 (the staged body); the CUDA-core body
+    (1-4 rows, and fp32 at any row count) into chunks of DECODE_MIN_CHUNK,
+    at every head dim."""
+    assert min_chunk(rows, dtype, Dh) == want
+    slots = 32 * max(16, 8192 // want)      # enough for the least chunk
+    n, c = decode_splits(1, rows, 32, 32, 8192, slots, dtype, Dh)
     assert c == want and n == 8192 // want
 
 

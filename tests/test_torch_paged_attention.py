@@ -29,9 +29,11 @@ from deepspeed_tpu.ops.pallas.ragged_paged_attention import (
 from deepspeed_tpu.ops.pallas.ragged_paged_attention import (
     ragged_paged_attention_rect as jax_ragged_rect)
 from deepspeed_tpu_torch.ops.cuda.decode_attention import (DECODE_ROWS,
+                                                           HEAD_DIMS,
+                                                           decode_splits,
                                                            key_splits)
 from deepspeed_tpu_torch.ops.cuda.ragged_paged_attention import (
-    DEFAULT_Q_TILE, TC_ROWS, _pack_metadata, plan_launch,
+    DEFAULT_Q_TILE, TC_ROWS, _pack_metadata, decode_rows_splits, plan_launch,
     ragged_paged_attention, ragged_paged_attention_rect, tensor_core_prefill)
 from deepspeed_tpu_torch.ops.paged_attention import (PageAllocationError,
                                                      PagedAllocator,
@@ -309,6 +311,30 @@ def test_launch_plan_covers_the_jax_tiling(q_lens, group, tensor_cores):
         assert plan.q_tile * group == TC_ROWS
         qt = plan.qtile_of_tile.tolist()
         assert qt == sorted(qt, reverse=True)      # most keys first
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("Dh", HEAD_DIMS)
+def test_decode_rows_split_like_b5(Dh, dtype):
+    """B4's decode rows split their keys by B5's rule on the body the two
+    share, at every head dim -- at 256 the staged body's 64-key chunks
+    and up for 5-8 rows in bf16 / fp16: the serve run's 8 slots over a
+    table of 17 pages of 128 (Gemma-2B: 8 rows over one kv head; Gemma-7B
+    16 / 16 at 1-8 rows) on one wave of 132 or 264 slots."""
+    S_max = 17 * 128
+    for rows in range(1, DECODE_ROWS + 1):
+        for Hkv in (1, 4, 16):
+            for slots in (132, 264):
+                got = decode_rows_splits(8, Hkv, S_max, slots, rows, dtype,
+                                         Dh)
+                assert got == decode_splits(8, 1, rows * Hkv, Hkv, S_max,
+                                            slots, dtype, Dh)
+                n, c = got
+                assert n * c >= S_max > (n - 1) * c
+    if Dh == 256 and dtype != torch.float32:
+        assert decode_rows_splits(8, 1, S_max, 132, 8, dtype, 256) == \
+            (12, 192)
 
 
 @pytest.mark.parametrize("pairs,slots", [(8 * 32, 528), (8 * 8, 528),

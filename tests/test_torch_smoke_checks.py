@@ -536,6 +536,15 @@ def test_gemma_train_launches_match_a_counted_run():
      "256, 16>(__half const*)", True),
     ("void dsdecode::split_tc_kernel<__half, 8, (anonymous namespace)::"
      "PagedSeqs<256> >(P)", True),
+    # the staged tensor-core body at head dim 256 (B4 and B5, 5-8 rows)
+    ("void dsdecode::split_staged_kernel<__nv_bfloat16, 8, (anonymous "
+     "namespace)::PagedSeqs<256> >(dsdecode::SplitParams<(anonymous "
+     "namespace)::PagedSeqs<256> >)", True),
+    ("void dsdecode::split_staged_kernel<__half, 5, (anonymous namespace)::"
+     "ContiguousSeqs<256> >(P)", True),
+    ("_ZN8dsdecode19split_staged_kernelI6__halfLi8EN58_GLOBAL__N__0_19_"
+     "decode_attention_cu_014ContiguousSeqsILi256EEEEEvNS_11SplitParamsIT1_"
+     "EE", True),
     # head dim 256 of B1 and B2, every dtype (the fp32 CUDA-core form
     # too), and B6's fp16 form
     ("void (anonymous namespace)::flash_bwd_dkv_kernel<__half, false, "
@@ -877,6 +886,38 @@ def test_generate_launches_match_a_counted_gemma_generate():
     assert tuple(out.shape) == (2, 9)
     assert da.decode_attention_plain.calls == \
         chip_smoke.generate_launches(2, 4) == 8
+
+
+def test_work_of_the_gemma_2b_step_at_4096_keys():
+    """The kernels JSON's row off the paths: Gemma-2B's B5 step (B=4, 8
+    query heads over one kv head of 256) at 4096 cached keys moves 16.8
+    MB -- 16,777,216 bytes of K/V and 32,768 of q and o -- a bound of 5.0
+    us at 3.35 TB/s, set by bytes."""
+    nbytes, ops = chip_smoke.decode_work(4, 8, 1, 4096, 256, 2)
+    assert nbytes == 16_777_216 + 4 * 2 * 8 * 256 * 2 == 16_809_984
+    assert ops == 4 * 4 * 8 * 256 * 4096
+    bound_ms, by = chip_smoke._bound(nbytes, ops, "bfloat16")
+    assert by == "bytes" and bound_ms == pytest.approx(5.018e-3, rel=1e-3)
+    assert chip_smoke.OFF_PATH_D256 == "decode_attention_d256_gqa8_len4096"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("T,H,Hkv,B", [(1, 8, 1, 4), (2, 16, 4, 4),
+                                       (8, 16, 16, 1), (5, 16, 16, 1)])
+def test_chunk_edges_straddle_the_head_dim_256_chunk(T, H, Hkv, B, dtype):
+    """Phase 3's chunk-edge lengths at head dim 256 (the Gemma shapes'
+    5-8-row forms over S_max 2048, one wave of 132 slots: the staged
+    body's plan) straddle the plan's chunk c -- c - 1, c, c + 1 and the
+    second chunk's end -- and its last chunk's, and come B at a time."""
+    from deepspeed_tpu_torch.ops.cuda.decode_attention import (
+        DECODE_MIN_CHUNK_TC256, decode_splits)
+    S = 2048
+    n, c = decode_splits(B, T, H, Hkv, S, 132, dtype, 256)
+    assert n > 1 and c % 64 == 0 and c >= DECODE_MIN_CHUNK_TC256
+    edges = chip_smoke.chunk_edge_lengths(n, c, T, S, B)
+    assert {c - 1, c, c + 1} <= set(edges)
+    assert 2 * c + 1 > S or {2 * c - 1, 2 * c, 2 * c + 1} <= set(edges)
+    assert all(T <= x <= S for x in edges) and len(edges) % B == 0
 
 
 def test_work_of_the_gemma_steps():
