@@ -743,7 +743,7 @@ def phase_kernels():
     import torch
     from deepspeed_tpu_torch.ops.cuda.decode_attention import (
         DECODE_MIN_CHUNK, DECODE_ROWS, decode_attention_cuda,
-        decode_attention_plain, decode_plan, min_chunk)
+        decode_attention_plain, decode_plan, min_chunk, staged)
     from deepspeed_tpu_torch.ops.cuda.ragged_paged_attention import (
         paged_attention_plain, ragged_paged_attention,
         ragged_paged_attention_rect, tensor_core_prefill)
@@ -836,6 +836,49 @@ def phase_kernels():
             fail(f"{label}: a second call differs by up to "
                  f"{(a.float() - b.float()).abs().max().item():.3e}")
         phase("kernels", f"{label}: a second call is bit for bit the same")
+
+    def check_one_row(Dn, Hq):
+        """The staged body at one row (one query row a kv head: the MHA
+        decode steps of gpt_2_7b, Phi-3-mini and Gemma-7B) in B4 and B5:
+        contexts of 1 key, at a page edge (127-129) and around a split
+        plan's chunk edges, over pages of 16, 48 and 128 keys (B4: many
+        sequences, one chunk each, and one alone, split; pages of 48 keys
+        take 16-row TMA boxes), B5 unsplit and split (B=1 over S_max
+        2048), and a second call of each bit for bit.  (Over a 160-key
+        cache one row keeps the CUDA-core body: phase 3's generate steps.)"""
+        n, c = decode_plan(1, 1, Hq, Hq, 2048, Dn, dtype, "cuda")
+        if n == 1 or not staged(1, dtype, Dn, c):
+            fail(f"one-row decode {dn} D={Dn}: plan {n} x {c} keys is not "
+                 f"the staged body's split")
+        ctx = sorted({1, 127, 128, 129, c - 1, c, c + 1, 2 * c, 2 * c + 3,
+                      600})
+        # B4: many sequences (one chunk each) and one alone (split)
+        for pg, cs in ((pg, cs) for pg in (16, 48, 128)
+                       for cs in (ctx, [2 * c + 3])):
+            tb, kk, vv = _paged_state(cs, pg, Hq, Dn, dtype, gen)
+            qq = _rand((len(cs), 1, Hq, Dn), dtype, gen)
+            lens = i32(cs)
+            got = ragged_paged_attention_rect(qq, kk, vv, tb, lens)
+            exact = paged_attention_plain(qq.float(), kk.float(), vv.float(),
+                                          tb, lens)
+            label = (f"ragged_paged_attention {dn} H{Hq}/{Hq} D={Dn} "
+                     f"one-row decode page {pg} ctx {cs}")
+            note("ragged_paged_attention", dn,
+                 check_close(label, got, exact.to(dtype)))
+            check_repeat(label, lambda: ragged_paged_attention_rect(
+                qq, kk, vv, tb, lens))
+            del tb, kk, vv, qq, exact
+        for S, lens in ((2048, i32(ctx)), (2048, i32([c + 1])),
+                        (2048, i32([2 * c + 3]))):
+            check_b5("one-row", len(lens), 1, Hq, S, lens, Dh=Dn, Hq=Hq)
+            qq = _rand((len(lens), 1, Hq, Dn), dtype, gen)
+            kk = _rand((len(lens), Hq, S, Dn), dtype, gen)
+            vv = _rand((len(lens), Hq, S, Dn), dtype, gen)
+            check_repeat(
+                f"decode_attention {dn} H{Hq}/{Hq} D={Dn} one-row S_max={S} "
+                f"{decode_plan(len(lens), 1, Hq, Hq, S, Dn, dtype, 'cuda')}",
+                lambda: decode_attention_cuda(qq, kk, vv, lens))
+            del qq, kk, vv
 
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         dn = str(dtype).split(".")[-1]
@@ -1142,6 +1185,12 @@ def phase_kernels():
             for pg in (128, 16):
                 packed_b4(f"H{Hq}/{Hkv} page {pg}", [37, 1, 130, 5, 1],
                           [37, 300, 1000, 521, 257], Hkv, Dn, pg, Hq=Hq)
+            _free()
+        # the one-row body at its head dims: gpt_2_7b's and Phi-3-mini's
+        # 32 heads of 80 and 96, Gemma-7B's 16 of 256
+        if dtype != torch.float32:
+            for Dn, Hq in ((80, H), (96, H), (256, 16)):
+                check_one_row(Dn, Hq)
             _free()
     return errs
 
@@ -1459,7 +1508,8 @@ def d_suffix(D):
 def phase_biased_kernels():
     """Biased B1 and B2 (ALiBi slopes, sliding windows) vs their plain
     versions run in fp32 on the kernels' own inputs, fp32, bf16 and fp16
-    (check_flash)."""
+    (check_flash); at head dim 256 in bf16 and fp16 a second backward bit
+    for bit."""
     import torch
     from deepspeed_tpu_torch.models.transformer import alibi_slopes
     from deepspeed_tpu_torch.ops.cuda.flash_attention import (
@@ -1490,6 +1540,16 @@ def phase_biased_kernels():
                 check_flash(note, "_biased" + d_suffix(D), f"{dn} {label} "
                             f"D={D}", (q, k, v, dout), scale, True, bias,
                             out, lse, got)
+                if D == 256 and dtype != torch.float32:
+                    again = flash_attention_bwd_cuda(q, k, v, out, lse, dout,
+                                                     scale, True, **bias)
+                    for name, a, b in zip(("dQ", "dK", "dV"), got, again):
+                        if not torch.equal(a, b):
+                            fail(f"{dn} {label} D={D}: a second backward "
+                                 f"on the same inputs changed {name}")
+                    phase("kernels", f"{dn} {label} D={D}: a second "
+                          f"backward bit for bit")
+                    del again
                 del q, k, v, dout, out, lse, got
     return errs
 

@@ -142,7 +142,7 @@ int run(const void* q, const void* k, const void* v, void* o,
   p.chunk = chunk;
   p.scale = scale;
   p.kv_rows = (long long)B * Hkv * S_max;
-  p.box_rows = dsdecode::Staged::kKeys;   // the staged body: a tile a box
+  p.box_rows = dsdecode::Staged<D>::kKeys;   // staged body: a tile a box
   const int rows = T * (H / Hkv);
   if (rows <= dsdecode::kMaxRows)
     return dtype == 0   ? dsdecode::launch_rows<float>(p, B, rows, s)

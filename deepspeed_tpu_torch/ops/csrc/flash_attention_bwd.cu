@@ -65,8 +65,8 @@
 // the tile; masks apply only on tiles that touch the diagonal, the window
 // edge or S.
 //
-// dQ at head dims 128 and 256, bf16/fp16: the same shape as the forward
-// with two score products, dS in P's place.  One block of three
+// dQ at head dim 128, bf16/fp16: the same shape as the forward with two
+// score products, dS in P's place.  One block of three
 // warpgroups per (128-row q tile, b * h), the q tiles with the longest
 // causal key loops first.  A producer warp
 // loads the Q and dO tiles once and streams 64-key K and V tiles through a
@@ -141,10 +141,25 @@
 // training shape (B=2, S=2048, 8 heads of 256 over one kv head, causal)
 // dQ does 51.5 GFLOP and dK/dV 68.7: bound by the tensor cores (52.1 and
 // 69.5 us).
-//   * dQ: the D = 128 body (dQ 128 + S 32 + dP 32 registers of the
-//     consumers' 240, no spill); Q and dO take 64 KB each, so the K/V ring
-//     has one stage of 64-key tiles (192 KB in all), and a tile's loads no
-//     longer overlap the products of the one before.
+//   * dQ: the persistent body of 64-96 (dq_persistent, DqBody).  Q and dO
+//     take 64 KB each, so a K/V stage of 64-key tiles (64 KB) left room
+//     for one: on the D = 128 body each tile's loads waited for both
+//     warpgroups to finish the tile before, in a grid of two uneven waves
+//     (0.1373 ms, 0.38 of the bound).  Here the ring is three 32 KB slots
+//     (pb::SlotRing): K in two, a tile ahead, and V in the third, which
+//     the score products free -- V of the next tile streams in while this
+//     tile's dS and dQ += dS K run, and S = Q K^T is issued before the
+//     body waits for V.  The warpgroups run each tile in series, in step:
+//     ping-pong turns read 1.6x slower, and FA3's order (the next tile's
+//     score products under this tile's dQ) spilled 664-700 bytes and, on
+//     a first slot order that put V of the next tile in K's slot,
+//     deadlocked.  Registers: dQ 128 + S, dP 64 + dS 16 of setmaxnreg's
+//     232 (the producer thread takes 40); the walk's state and Q's
+//     descriptors are formed anew where used (held, they spilled 108-140
+//     bytes).  Measured on an NVIDIA H100 80GB HBM3 at 700 W by
+//     scripts/flash_kernel_ab.py (parent, this body, parent): 0.1353 /
+//     0.1376 -> 0.1000 ms bf16, 0.1366 / 0.1381 -> 0.1013 fp16 (0.52 of
+//     the bound); the backward as called 0.2903 ms, 0.88x SDPA's.
 //   * dK/dV (dkv_cluster): a block owns 64 keys (K, V 64 KB) and streams
 //     64-row Q and dO tiles through two stages (128 KB).  The body before
 //     had both consumer warpgroups compute S^T and dP^T, each then owning
@@ -253,7 +268,8 @@ struct DqParams {
   void* dq;
   const float* slopes;
   int window, B, S, H, Hkv, causal;
-  float scale;
+  float scale, scale_log2e;   // the latter scale * log2(e), as the card
+                              // rounds it
 };
 
 // ---- dQ, fp32: CUDA cores -------------------------------------------------
@@ -332,17 +348,15 @@ constexpr int BN = 64;                       // keys of a K/V tile
 constexpr int kThreads = 384;                // 2 consumer + 1 producer WG
 constexpr int kQBox = BM * hopper::kBoxCols * 2;    // one 64-column box
 constexpr int kKvBox = BN * hopper::kBoxCols * 2;
-// The shared-memory plan at head dim D (128 or 256; 64, 80 and 96 run the
+// The shared-memory plan at head dim D (128; 64, 80, 96 and 256 run the
 // persistent body): Q, dO, then kStages x (K, V), then the barriers:
-// Q/dO's, full[], empty[].  Tiles are whole 64-column boxes.  At D = 256 Q
-// and dO take 64 KB each and a K/V stage 64 KB, so the ring has one stage
-// (192 KB).
+// Q/dO's, full[], empty[].  Tiles are whole 64-column boxes.
 template <int D>
 struct Smem {
-  // 32 and 16 KB at D = 128, twice that at 256
+  // 32 and 16 KB
   static constexpr int kQTile = BM * hopper::box_cols<D>() * 2;
   static constexpr int kKvTile = BN * hopper::box_cols<D>() * 2;
-  static constexpr int kStages = D == 256 ? 1 : 2;
+  static constexpr int kStages = 2;
   static constexpr int kStageOffset = 2 * kQTile;
   static constexpr int kBarOffset = kStageOffset + kStages * 2 * kKvTile;
   static constexpr size_t kBytes = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
@@ -936,30 +950,53 @@ constexpr bool kDqTurns = false, kDkvTurns = true;
 // not hold without a spill.
 constexpr int kDqProducerRegs = 24, kDqConsumerRegs = 240;
 constexpr int kDkvProducerRegs = 40, kDkvConsumerRegs = 232;
+// dQ at head dim 256: Q and dO take 128 KB, so the ring holds single
+// 32 KB tiles -- kDqSlots256 slots, K in all but the last, V in the last
+// (SlotRing) -- and the warpgroups' order and turns are their own.
+constexpr int kDqSlots256 = 3;
+constexpr Order kDqOrder256 = kSeries;
+constexpr bool kDqTurns256 = false;
+constexpr int kDqProducerRegs256 = 40, kDqConsumerRegs256 = 232;
 __host__ __device__ constexpr bool persistent(int D) { return D <= 96; }
+// whether the dQ kernel at head dim D is persistent (pb::Plan<D, true>)
+__host__ __device__ constexpr bool persistent_dq(int D) {
+  return persistent(D) || D == 256;
+}
 
 // The shared-memory plan of the dQ (DQ) or dK/dV kernel at head dim D:
 // kBufs resident buffers of two BM-row tiles, kStages stages of two BN-row
-// tiles, the dK/dV kernel's LSE and delta rows of each stage, then the
-// barriers r_full[kBufs], r_empty[kBufs], full[kStages], empty[kStages].
-// A tile is whole 64-column boxes (one at D = 64, two at 80 and 96).
+// tiles (kSplit, dQ at 256: kStages slots of one), the dK/dV kernel's LSE
+// and delta rows of each stage, then the barriers r_full[kBufs],
+// r_empty[kBufs], full[kStages], empty[kStages].  A tile is whole
+// 64-column boxes (one at D = 64, two at 80 and 96, four at 256).
 template <int D, bool DQ>
 struct Plan {
+  static constexpr bool kSplit = DQ && D == 256;
   static constexpr int kResTile = BM * hopper::box_cols<D>() * 2;
   static constexpr int kTile = BN * hopper::box_cols<D>() * 2;
   static constexpr int kResBox = BM * hopper::kBoxCols * 2;
   static constexpr int kBox = BN * hopper::kBoxCols * 2;
   static constexpr int kBufs = DQ ? (D == 64 ? kDqBufs64 : kDqBufs8096)
                                   : (D == 64 ? kDkvBufs64 : kDkvBufs8096);
-  static constexpr int kStages = DQ ? (D == 64 ? kDqStages64 : kDqStages8096)
-                                    : (D == 64 ? kDkvStages64
-                                               : kDkvStages8096);
-  static constexpr Order kOrder = DQ ? kDqOrder : kDkvOrder;
-  static constexpr bool kTurns = DQ ? kDqTurns : kDkvTurns;
+  static constexpr int kStages = kSplit ? kDqSlots256
+                                 : DQ   ? (D == 64 ? kDqStages64
+                                                   : kDqStages8096)
+                                        : (D == 64 ? kDkvStages64
+                                                   : kDkvStages8096);
+  static constexpr Order kOrder =
+      kSplit ? kDqOrder256 : DQ ? kDqOrder : kDkvOrder;
+  static constexpr bool kTurns =
+      kSplit ? kDqTurns256 : DQ ? kDqTurns : kDkvTurns;
+  static constexpr int kProducerRegs =
+      kSplit ? kDqProducerRegs256 : DQ ? kDqProducerRegs : kDkvProducerRegs;
+  static constexpr int kConsumerRegs =
+      kSplit ? kDqConsumerRegs256 : DQ ? kDqConsumerRegs : kDkvConsumerRegs;
   static constexpr int kStageOffset = kBufs * 2 * kResTile;
-  static constexpr int kRowsOffset = kStageOffset + kStages * 2 * kTile;
+  static constexpr int kRowsOffset =
+      kStageOffset + kStages * (kSplit ? 1 : 2) * kTile;
   static constexpr int kBarOffset =
       kRowsOffset + (DQ ? 0 : kStages * 2 * BN * 4);
+  static constexpr int kFullOffset = kBarOffset + 16 * kBufs;   // full[]
   static constexpr size_t kBytes =
       1024 + kBarOffset + 8 * (2 * kBufs + 2 * kStages);
   static_assert(kBytes <= 232448, "a block has 227 KB of shared memory");
@@ -1001,11 +1038,52 @@ struct Item {
   int b, h, hk, x0, lo, n;
 };
 
+// The ring a producer streams tiles through, as the consumers see it:
+// ready(g) waits for streamed tile g, release_a(g) frees what only its
+// score products read, release(g) the rest (full[] / empty[] as the
+// producers use them, empty[] counting both consumer warpgroups).
+// StageRing: a stage holds a tile pair (K and V, or Q and dO), stage g %
+// kStages, freed at once.
+template <int kStages>
+struct StageRing {
+  uint64_t* full;
+  uint64_t* empty;
+  __device__ __forceinline__ void ready(int g) const {
+    hopper::mbar_wait(&full[g % kStages], (g / kStages) & 1);
+  }
+  __device__ __forceinline__ void release_a(int) const {}
+  __device__ __forceinline__ void release(int g) const {
+    hopper::mbar_arrive(&empty[g % kStages]);
+  }
+};
+// SlotRing: slots of one tile, tile g's K in slot g % kK (kK = kSlots -
+// 1) and every V in the last slot.  V, which only dP = dO V^T reads, is
+// freed after the score products, K after dQ += dS K: so the next tile's
+// K streams in a tile ahead and its V while this tile's dS and dQ run, and
+// ready() waits only for K -- the body waits for V (ready_v) between its
+// S and dP products.  It holds full[]'s shared-memory address (empty[]
+// follows it): one register.
+template <int kSlots>
+struct SlotRing {
+  static constexpr int kK = kSlots - 1;
+  uint32_t full;
+  __device__ __forceinline__ void ready(int g) const {
+    hopper::mbar_wait(full + 8 * (g % kK), (g / kK) & 1);
+  }
+  __device__ __forceinline__ void release_a(int g) const {
+    // V has landed (a tile the warpgroup skips has not waited for it)
+    hopper::mbar_wait(full + 8 * kK, g & 1);
+    hopper::mbar_arrive(full + 8 * (kSlots + kK));
+  }
+  __device__ __forceinline__ void release(int g) const {
+    hopper::mbar_arrive(full + 8 * (kSlots + g % kK));
+  }
+};
+
 // The consumers' walk over one item's tiles, ring slots g0 .. g0 + n_tiles
-// - 1 (stage g % kStages; full[] / empty[] as the producers use them,
-// empty[] counting both consumer warpgroups).  This warpgroup sees tiles
-// [first, last); the others it waits for, takes its turns for (kTurns)
-// and releases.  Body supplies the products and the elementwise work:
+// - 1 of ``ring``.  This warpgroup sees tiles [first, last); the others it
+// waits for, takes its turns for (kTurns) and releases.  Body supplies the
+// products and the elementwise work:
 //   issue_a(g): the score products of slot g (S and dP, or their
 //               transposes), one commit group;
 //   score(i, g): P and dS of tile i from them, in fp32 registers;
@@ -1016,16 +1094,15 @@ struct Item {
 // 2 n_tiles in kSeries, n_tiles + 1 otherwise, tiles it does not see
 // included -- so the turns stay paired whatever the masks skip.  Returns
 // with every product retired.
-template <int kStages, Order kOrder, bool kTurns, class Body>
-__device__ __forceinline__ void walk_tiles(Body& body, uint64_t* full,
-                                           uint64_t* empty, int g0,
-                                           int n_tiles, int first, int last) {
+template <Order kOrder, bool kTurns, class Ring, class Body>
+__device__ __forceinline__ void walk_tiles(Body& body, const Ring& ring,
+                                           int g0, int n_tiles, int first,
+                                           int last) {
   using namespace hopper;
   const int wg = threadIdx.x / 128;
-  const auto ready = [&](int g) {
-    mbar_wait(&full[g % kStages], (g / kStages) & 1);
-  };
-  const auto release = [&](int g) { mbar_arrive(&empty[g % kStages]); };
+  const auto ready = [&](int g) { ring.ready(g); };
+  const auto release_a = [&](int g) { ring.release_a(g); };
+  const auto release = [&](int g) { ring.release(g); };
   const auto turn = [&] {
     if constexpr (kTurns) dswg::turn_wait(wg);
   };
@@ -1039,6 +1116,7 @@ __device__ __forceinline__ void walk_tiles(Body& body, uint64_t* full,
       turn();
       pass();
     }
+    release_a(g);
     release(g);
   };
   last = max(first, last);
@@ -1052,6 +1130,7 @@ __device__ __forceinline__ void walk_tiles(Body& body, uint64_t* full,
       pass();
       wgmma_wait<0>();
       body.fence_a();
+      release_a(g);
       body.score(first, g);
       body.pack();
       for (int it = first; it + 1 < last; ++it, ++g) {
@@ -1062,6 +1141,7 @@ __device__ __forceinline__ void walk_tiles(Body& body, uint64_t* full,
         pass();
         wgmma_wait<1>();              // the next tile's scores complete
         body.fence_a();
+        release_a(g + 1);
         body.score(it + 1, g + 1);
         wgmma_wait<0>();              // this tile's accumulating products
         body.fence_b();
@@ -1087,6 +1167,7 @@ __device__ __forceinline__ void walk_tiles(Body& body, uint64_t* full,
       pass();
       wgmma_wait<0>();
       body.fence_a();
+      release_a(g);
       body.score(it, g);
       body.pack();
       turn();
@@ -1122,23 +1203,45 @@ __device__ __forceinline__ void seen_range(int n, Unseen unseen, int& first,
 template <typename E, bool SLOPE, bool WINDOW, int D>
 struct DqBody {
   using P = pb::Plan<D, true>;
+  const DqParams& p;
   float s[32], dp[32], dq[D / 2];
   uint32_t da[16];
-  uint32_t q_addr, do_addr, ring;
-  float c, scale, slope2, lse2[2], dls[2];
-  int hi[2], lo[2], e_hi, e_lo, kt, k_lo;
+  uint32_t q_addr, ring;   // the warpgroup's rows of Q (dO follows); K / V
+  float slope2, lse2[2], dls[2];
+  int hi[2], lo[2], e_hi, e_lo, k_lo;
 
+  // tile g's K and V: stage g's pair, or (kSplit: pb::SlotRing) K in slot
+  // g % (kStages - 1), V in the last
   __device__ __forceinline__ uint32_t k_addr(int g) const {
-    return ring + (uint32_t)((g % P::kStages) * 2 * P::kTile);
+    if constexpr (P::kSplit)
+      return ring + (uint32_t)((g % (P::kStages - 1)) * P::kTile);
+    else
+      return ring + (uint32_t)((g % P::kStages) * 2 * P::kTile);
+  }
+  __device__ __forceinline__ uint32_t v_addr(int g) const {
+    if constexpr (P::kSplit)
+      return ring + (uint32_t)((P::kStages - 1) * P::kTile);
+    else
+      return k_addr(g) + P::kTile;
   }
   __device__ __forceinline__ void issue_a(int g) {
     using namespace hopper;
-    const uint32_t k = k_addr(g), v = k + P::kTile;
+    const uint32_t k = k_addr(g), v = v_addr(g);
+    // (kSplit) Q's and dO's descriptors formed anew for every tile: held
+    // across the walk, the 2 D / 16 of them took registers dQ needs at 256
+    const uint32_t q_at = P::kSplit ? pb::opaque(q_addr) : q_addr;
+    const uint32_t do_addr = q_at + P::kResTile;
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n64<E>(s, desc_kmajor(q_addr + kslice(kk, P::kResBox)),
+      wgmma_ss_n64<E>(s, desc_kmajor(q_at + kslice(kk, P::kResBox)),
                       desc_kmajor(k + kslice(kk, P::kBox)), kk > 0);
+    // (kSplit) V's slot, full[kStages - 1], lies at a fixed offset from
+    // the ring: S's products run while V lands
+    if constexpr (P::kSplit)
+      mbar_wait(ring + (uint32_t)(P::kFullOffset + 8 * (P::kStages - 1) -
+                                  P::kStageOffset),
+                g & 1);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
       wgmma_ss_n64<E>(dp, desc_kmajor(do_addr + kslice(kk, P::kResBox)),
@@ -1170,6 +1273,8 @@ struct DqBody {
   }
   __device__ __forceinline__ void score(int i, int) {
     using hopper::ex2;
+    const float c = p.scale_log2e, scale = p.scale;
+    const int kt = 2 * (threadIdx.x % 4);
     const int k0 = k_lo + i * pb::BN;
     const bool edge = k0 > e_hi || (WINDOW && k0 <= e_lo);
     float base[2];
@@ -1286,6 +1391,19 @@ struct DkvBody {
   }
 };
 
+// The Pairs of a launch, from its parameters, formed where they are used.
+template <class Params>
+__device__ __forceinline__ pb::Pairs pairs_of(const Params& p) {
+  const int n_t = (pb::opaque(p.S) + pb::BM - 1) / pb::BM;
+  return {n_t, (n_t + 1) / 2, p.B * pb::opaque(p.H) * ((n_t + 1) / 2)};
+}
+
+// The Pairs of a dQ launch, as the compiler may hold them.
+__device__ __forceinline__ pb::Pairs dq_pairs(const DqParams& p) {
+  const int n_t = (p.S + pb::BM - 1) / pb::BM;
+  return {n_t, (n_t + 1) / 2, p.B * p.H * ((n_t + 1) / 2)};
+}
+
 __device__ __forceinline__ pb::Item dq_item(const DqParams& p, int bh, int qi,
                                             int window) {
   pb::Item it;
@@ -1301,11 +1419,12 @@ __device__ __forceinline__ pb::Item dq_item(const DqParams& p, int bh, int qi,
   return it;
 }
 
-// dQ at head dims 64, 80 and 96, bf16 / fp16: one block an SM walks its
-// share of the q tiles (pb::Pairs).  A producer thread loads each item's Q
-// and dO into a resident buffer and streams its 64-key K and V tiles
-// through one ring; two consumer warpgroups own 64 of the item's rows each
-// and run pb::walk_tiles over DqBody, then store dQ.
+// dQ at head dims 64, 80, 96 and 256, bf16 / fp16: one block an SM walks
+// its share of the q tiles (pb::Pairs).  A producer thread loads each
+// item's Q and dO into a resident buffer and streams its 64-key K and V
+// tiles through one ring (at 256 a SlotRing: K and V a 32 KB slot each);
+// two consumer warpgroups own 64 of the item's rows each and run
+// pb::walk_tiles over DqBody, then store dQ.
 template <typename E, bool SLOPE, bool WINDOW, int D>
 __device__ __forceinline__ void dq_persistent(const DqParams& p,
                                               unsigned char* raw) {
@@ -1322,8 +1441,6 @@ __device__ __forceinline__ void dq_persistent(const DqParams& p,
   uint64_t* empty = full + kStages;
 
   const int S = p.S, H = p.H;
-  const int n_t = (S + pb::BM - 1) / pb::BM;
-  const pb::Pairs walk{n_t, (n_t + 1) / 2, p.B * H * ((n_t + 1) / 2)};
   const int window = WINDOW ? p.window : 0;
   const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
   if (threadIdx.x == 0) {
@@ -1340,8 +1457,10 @@ __device__ __forceinline__ void dq_persistent(const DqParams& p,
   __syncthreads();
 
   if (wg == 2) {  // producer
-    regs_dealloc<pb::kDqProducerRegs>();
+    regs_dealloc<P::kProducerRegs>();
     if (t == 0) {
+      const int n_t = (S + pb::BM - 1) / pb::BM;
+      const pb::Pairs walk{n_t, (n_t + 1) / 2, p.B * H * ((n_t + 1) / 2)};
       int g = 0, j = 0;   // streamed tiles and items so far
       for (int r = 0, u = walk.unit(0); u < walk.n_units;
            u = walk.unit(++r)) {
@@ -1361,31 +1480,49 @@ __device__ __forceinline__ void dq_persistent(const DqParams& p,
           };
           if (kBufs > 1) load_res();
           for (int c = 0; c < it.n; ++c, ++g) {
-            const int st = g % kStages;
-            mbar_wait(&empty[st], ((g / kStages) & 1) ^ 1);
-            unsigned char* k_t = ring_s + st * 2 * P::kTile;
             const int k0 = it.lo + c * pb::BN;
-            mbar_arrive_expect_tx(&full[st], 2 * P::kTile);
-            tma_load_rows<D>(k_t, &p.k_map, &full[st], pb::BN, it.hk, k0,
-                             it.b);
-            tma_load_rows<D>(k_t + P::kTile, &p.v_map, &full[st], pb::BN,
-                             it.hk, k0, it.b);
+            if constexpr (P::kSplit) {
+              // K into slot g % kK once it is empty, then V into the last
+              constexpr int kK = kStages - 1;
+#pragma unroll
+              for (int x = 0; x < 2; ++x) {
+                const int st = x ? kK : g % kK;
+                const int use = x ? g : g / kK;   // the slot's use count
+                mbar_wait(&empty[st], (use & 1) ^ 1);
+                mbar_arrive_expect_tx(&full[st], P::kTile);
+                tma_load_rows<D>(ring_s + st * P::kTile,
+                                 x ? &p.v_map : &p.k_map, &full[st], pb::BN,
+                                 it.hk, k0, it.b);
+              }
+            } else {
+              const int st = g % kStages;
+              mbar_wait(&empty[st], ((g / kStages) & 1) ^ 1);
+              unsigned char* k_t = ring_s + st * 2 * P::kTile;
+              mbar_arrive_expect_tx(&full[st], 2 * P::kTile);
+              tma_load_rows<D>(k_t, &p.k_map, &full[st], pb::BN, it.hk, k0,
+                               it.b);
+              tma_load_rows<D>(k_t + P::kTile, &p.v_map, &full[st], pb::BN,
+                               it.hk, k0, it.b);
+            }
             if (kBufs == 1 && c == 0) load_res();
           }
         }
       }
     }
   } else {  // consumers: warpgroup wg owns rows x0 + 64 wg .. + 63 of each
-    regs_alloc<pb::kDqConsumerRegs>();
+    regs_alloc<P::kConsumerRegs>();
     if constexpr (P::kTurns) dswg::first_turn(wg);
-    DqBody<E, SLOPE, WINDOW, D> body;
-    body.scale = p.scale;
-    body.c = p.scale * kLog2e;
+    DqBody<E, SLOPE, WINDOW, D> body{p};
     body.slope2 = 0.f;
-    body.kt = 2 * (t % 4);
     body.ring = smem_u32(ring_s);
     int g = 0, j = 0;
-    for (int r = 0, u = walk.unit(0); u < walk.n_units; u = walk.unit(++r)) {
+    for (int r = 0;; ++r) {
+      // the walk and the item are formed anew where they are used, not
+      // held across an item's tiles: at D = 256 dQ takes 128 of the
+      // consumers' registers
+      const pb::Pairs walk = P::kSplit ? pairs_of(p) : dq_pairs(p);
+      const int u = walk.unit(r);
+      if (u >= walk.n_units) break;
       for (int i = 0; i < 2; ++i, ++j) {
         const int qi = walk.tile(u, i);
         if (qi < 0) break;
@@ -1418,32 +1555,34 @@ __device__ __forceinline__ void dq_persistent(const DqParams& p,
         }, first, last);
         const int rb = j % kBufs;
         body.q_addr = smem_u32(res_s + rb * 2 * P::kResTile) + 64 * wg * 128;
-        body.do_addr = body.q_addr + P::kResTile;
         mbar_wait(&r_full[rb], (j / kBufs) & 1);
-        pb::walk_tiles<kStages, P::kOrder, P::kTurns>(body, full, empty, g,
-                                                        it.n, first, last);
+        if constexpr (P::kSplit)
+          pb::walk_tiles<P::kOrder, P::kTurns>(
+              body, pb::SlotRing<kStages>{smem_u32(full)}, g, it.n, first,
+              last);
+        else
+          pb::walk_tiles<P::kOrder, P::kTurns>(
+              body, pb::StageRing<kStages>{full, empty}, g, it.n, first,
+              last);
         mbar_arrive(&r_empty[rb]);   // every product that read Q, dO retired
-        g += it.n;
-
+        const pb::Pairs w = P::kSplit ? pairs_of(p) : walk;
+        const int un = P::kSplit ? pb::opaque(u) : u;
+        const pb::Item done = dq_item(p, un / w.per_head, w.tile(un, i),
+                                      window);
+        g += done.n;
         E* out = static_cast<E*>(p.dq);
         E* rows[2];
 #pragma unroll
         for (int rr = 0; rr < 2; ++rr) {
-          const int row = row0 + 8 * rr;
-          rows[rr] = row < S ? out + (((long long)it.b * S + row) * H + it.h) *
-                                         D
+          const int row = done.x0 + 64 * wg + acc_row(0, t) + 8 * rr;
+          rows[rr] = row < S ? out + (((long long)done.b * S + row) * H +
+                                      done.h) * D
                              : nullptr;
         }
         store_rows<E, D>(rows, body.dq, t);
       }
     }
   }
-}
-
-// The Pairs of a launch, from its parameters, formed where they are used.
-__device__ __forceinline__ pb::Pairs pairs_of(const DkvParams& p) {
-  const int n_t = (pb::opaque(p.S) + pb::BM - 1) / pb::BM;
-  return {n_t, (n_t + 1) / 2, p.B * pb::opaque(p.H) * ((n_t + 1) / 2)};
 }
 
 __device__ __forceinline__ pb::Item dkv_item(const DkvParams& p, int bh,
@@ -1607,8 +1746,8 @@ __device__ __forceinline__ void dkv_persistent(const DkvParams& p,
         const int rb = j % kBufs;
         body.k_addr = smem_u32(res_s + rb * 2 * P::kResTile) + 64 * wg * 128;
         mbar_wait(&r_full[rb], (j / kBufs) & 1);
-        pb::walk_tiles<kStages, P::kOrder, P::kTurns>(body, full, empty, g,
-                                                        it.n, first, last);
+        pb::walk_tiles<P::kOrder, P::kTurns>(
+            body, pb::StageRing<kStages>{full, empty}, g, it.n, first, last);
         mbar_arrive(&r_empty[rb]);   // every product that read K, V retired
         g += it.n;
         const pb::Pairs w = pairs_of(p);
@@ -1904,9 +2043,9 @@ __device__ __forceinline__ void dkv_cluster(const DkvParams& p,
   mbar_wait(kv_bar, 0);
   for (int j = 0; j < heads; ++j) {
     body.slope = SLOPE ? __ldg(p.slopes + hk * group + rank + C * j) : 0.f;
-    pb::walk_tiles<kStages, kDkvOrder256, false>(body, full, empty,
-                                                 j * n_tiles, n_tiles, first,
-                                                 last);
+    pb::walk_tiles<kDkvOrder256, false>(body,
+                                        pb::StageRing<kStages>{full, empty},
+                                        j * n_tiles, n_tiles, first, last);
   }
   if (wg == 0)                       // warpgroup 1's last arrivals
     for (int x = 0; x < kPBufs; ++x) bar_sync(kBarEmpty + x);
@@ -1985,7 +2124,7 @@ flash_bwd_dq_kernel(const __grid_constant__ DqParams p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   if constexpr (std::is_same<T, float>::value)
     dq_cuda_cores<SLOPE, WINDOW, D>(p, reinterpret_cast<float*>(smem_raw));
-  else if constexpr (pb::persistent(D))
+  else if constexpr (pb::persistent_dq(D))
     dq_persistent<T, SLOPE, WINDOW, D>(p, smem_raw);
   else
     dq_tensor_cores<T, SLOPE, WINDOW, D>(p, smem_raw);
@@ -2006,13 +2145,13 @@ flash_bwd_dkv_kernel(const __grid_constant__ DkvParams p) {
 }
 
 // The grid of a tensor-core launch: the persistent bodies (head dims 64,
-// 80, 96) take one block an SM at most, as many as pb::Pairs has units;
-// the others one block per (b * h, BM-row tile).
-template <int D>
-int tensor_core_grid(int B, int H, int S, int rows, dim3* grid) {
+// 80, 96; dQ at 256 too) take one block an SM at most, as many as
+// pb::Pairs has units; the others one block per (b * h, BM-row tile).
+inline int tensor_core_grid(bool persistent, int B, int H, int S, int rows,
+                            dim3* grid) {
   const unsigned tiles = (S + rows - 1) / rows;
   *grid = dim3(B * H, tiles);
-  if (!pb::persistent(D)) return 0;
+  if (!persistent) return 0;
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -2028,7 +2167,7 @@ template <typename T, int D, bool DQ>
 constexpr size_t bwd_smem() {
   if constexpr (std::is_same<T, float>::value)
     return (DQ ? dq_smem_floats<D>() : dkv_smem_floats<D>()) * sizeof(float);
-  else if constexpr (pb::persistent(D))
+  else if constexpr (DQ ? pb::persistent_dq(D) : pb::persistent(D))
     return pb::Plan<D, DQ>::kBytes;
   else if constexpr (DQ)
     return tcq::Smem<D>::kBytes;
@@ -2050,7 +2189,8 @@ int launch_dq(const DqParams& p, int B, cudaStream_t stream) {
   constexpr int R = bwd_rows<D>();
   dim3 grid((p.S + R - 1) / R, B * p.H);
   if (!fp32) {
-    const int rc = tensor_core_grid<D>(B, p.H, p.S, tcq::BM, &grid);
+    const int rc =
+        tensor_core_grid(pb::persistent_dq(D), B, p.H, p.S, tcq::BM, &grid);
     if (rc) return rc;
   }
   flash_bwd_dq_kernel<T, SLOPE, WINDOW, D>
@@ -2093,7 +2233,8 @@ int launch_dkv(const DkvParams& p, int B, cudaStream_t stream) {
     return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
   }
   if (!fp32) {
-    const int rc = tensor_core_grid<D>(B, p.H, p.S, tc::BN, &grid);
+    const int rc =
+        tensor_core_grid(pb::persistent(D), B, p.H, p.S, tc::BN, &grid);
     if (rc) return rc;
   }
   flash_bwd_dkv_kernel<T, SLOPE, WINDOW, D>
@@ -2176,6 +2317,7 @@ extern "C" int ds_flash_attention_bwd_dq(const void* q, const void* k,
   p.Hkv = Hkv;
   p.causal = causal;
   p.scale = scale;
+  p.scale_log2e = scale * hopper::kLog2e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dsflash::with_head_dim(D, [&](auto d) {
     constexpr int Dc = decltype(d)::value;

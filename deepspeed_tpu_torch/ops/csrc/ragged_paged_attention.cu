@@ -167,7 +167,7 @@ int launch_decode(const void* q, const void* k_pages, const void* v_pages,
   // the staged body's boxes: rows of one page, at most a tile's
   p.kv_rows = (long long)P * Hkv * page_size;
   const int low = page_size & -page_size;   // its largest power-of-2 factor
-  constexpr int kTileKeys = dsdecode::Staged::kKeys;
+  constexpr int kTileKeys = dsdecode::Staged<D>::kKeys;
   p.box_rows = low < kTileKeys ? low : kTileKeys;
   return dtype == 0   ? dsdecode::launch_rows<float>(p, n_dec, dec_rows, s)
          : dtype == 1 ? dsdecode::launch_rows<__nv_bfloat16>(p, n_dec,

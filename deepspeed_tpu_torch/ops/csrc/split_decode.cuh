@@ -28,10 +28,11 @@
 // that pays for the merge (ops/cuda/decode_attention.py min_chunk).  Two
 // block bodies:
 //
-// * CUDA cores (1-4 rows; fp32 at any row count): each lane holds 16 bytes
-//   of a key row's dims (8 bf16 / fp16, 4 fp32), LPR lanes a row slice;
-//   the warp's other lane groups take other keys, and every lane holds
-//   every row's q and accumulator in registers.  LPR is D / VEC rounded
+// * CUDA cores (1-4 rows, but one row at 80, 96 and 256 in bf16 / fp16
+//   only over short chunks, below; fp32 at any row count): each lane
+//   holds 16 bytes of a key row's dims (8 bf16 / fp16, 4 fp32), LPR lanes
+//   a row slice; the warp's other lane groups take other keys, and every
+//   lane holds every row's q and accumulator in registers.  LPR is D / VEC rounded
 //   up to a power of two, so that a row's lanes sum by shuffles and a warp
 //   holds whole rows: at D = 80 and 96 the lanes past D / VEC (6 and 4 of
 //   16 in bf16 / fp16, 12 and 8 of 32 in fp32) load nothing and add 0, so
@@ -102,6 +103,23 @@
 //   and the combine's row blocks load their chunks at once; the block's
 //   first tile's page is read beside the sequence's metadata, not after
 //   it.
+// * One row at D = 80, 96 and 256 (bf16 / fp16: the MHA decode steps of
+//   gpt_2_7b, Phi-3-mini and Gemma-7B) over chunks of kStagedOneRowKeys
+//   keys and up: the staged body too, templated on D (Staged<D>: two
+//   64-column boxes a tile at 80 and 96, whose columns past D TMA fills
+//   with zeros, and two blocks an SM), the rows past the first zero and
+//   masked.  On the CUDA-core body the serve run's 8-slot step took as
+//   long as its longest sequences' blocks: a block of 16 warps held its
+//   loads in registers and moved some 25-40 GB/s, and at 80 and 96 its
+//   256 (sequence, kv head) pairs took two waves of one block an SM.
+//   Neither finer chunks (their empty blocks and the combine) nor one
+//   wave of short units balanced over the step (each unit a chain of
+//   dependent loads) beat it; streaming through shared memory did:
+//   0.0175 / 0.0178 / 0.0222 -> 0.0159 / 0.0165 / 0.0190 ms at 80 / 96 /
+//   256 (NVIDIA H100 80GB HBM3, 700 W; scripts/decode_kernel_ab.py,
+//   PERF.md).  Over shorter chunks -- a generate step's 160-key cache --
+//   the CUDA-core body keeps the row: the staged body's fixed cost read
+//   3-10% slower there.
 //
 // Only real rows are computed.  Merges run in a fixed order, so runs
 // repeat bit for bit: the warps in shared memory by warp index, and, when
@@ -144,9 +162,17 @@ constexpr float kLog2e = 1.4426950408889634f;
 template <typename T, int ROWS>
 constexpr bool kTensorCores = ROWS > 4 && !std::is_same<T, float>::value;
 
-// Whether ROWS rows of T at head dim D take the staged tensor-core body.
+// Whether ROWS rows of T at head dim D take the staged tensor-core body:
+// 5-8 rows at 256, and one row (the MHA decode step) at 80, 96 and 256,
+// in bf16 / fp16 -- one row only where the launch's chunks hold at least
+// kStagedOneRowKeys keys (launch_split): over shorter ones (a generate
+// step's 160-key cache) the CUDA-core body's smaller fixed cost wins.
 template <typename T, int ROWS, int D>
-constexpr bool kStaged = kTensorCores<T, ROWS> && D == 256;
+constexpr bool kStaged =
+    !std::is_same<T, float>::value &&
+    ((ROWS > 4 && D == 256) ||
+     (ROWS == 1 && (D == 80 || D == 96 || D == 256)));
+constexpr int kStagedOneRowKeys = 512;
 
 // Blocks of the combine kernel a sequence's rows take: one a row after the
 // staged body, whose short chunks leave the combine a larger share of a
@@ -776,13 +802,16 @@ split_tc_kernel(const __grid_constant__ SplitParams<Seqs> p) {
                                 m_s, l_s);
 }
 
-// ---- the staged tensor-core body (5-8 rows, bf16 / fp16, D = 256) --------
+// ---- the staged tensor-core body (bf16 / fp16) ---------------------------
 
-// Its shared-memory plan: kStages stages of a 64-key K tile and V tile,
-// each four 64-column boxes of 128-byte swizzle rows (8 KB a box, 32 KB a
-// tile), then q's 8 rows (512 bytes and a 16-byte pad each), then the
-// barriers, full[] and empty[]; the warps' merge (8 warps x 8 rows x 256
-// fp32, 64 KB) is laid over the ring once every stage has been read.
+// Its shared-memory plan at head dim D: kStages stages of a 64-key K tile
+// and V tile, each D / 64 (rounded up) 64-column boxes of 128-byte swizzle
+// rows (8 KB a box: 32 KB a tile at 256, 16 KB at 80 and 96, whose
+// columns past D TMA fills with zeros), then q's 8 rows (D rounded up to
+// 32 elements and a 16-byte pad each), then the barriers, full[] and
+// empty[]; the warps' merge (8 warps x 8 rows x D fp32, 64 KB at 256) is
+// laid over the ring once every stage has been read.  At 80 and 96 a block
+// takes ~100 KB, so two share an SM.
 // kGroupWarps consumer warps take a stage, 16 keys each; the kGroups =
 // kConsumerWarps / kGroupWarps groups take tiles in turn, tile i stage i %
 // kStages.  A stage's tiles go to the groups in turn, so its full barrier
@@ -791,7 +820,9 @@ split_tc_kernel(const __grid_constant__ SplitParams<Seqs> p) {
 // phase two ahead of the barrier's, which parity waits cannot tell from
 // the phase before.
 constexpr int gcd(int a, int b) { return b ? gcd(b, a % b) : a; }
+constexpr int kStagedBox = 64 * 128;   // a 64-column box of a 64-key tile
 
+template <int D>
 struct Staged {
   static constexpr int kKeys = 64;               // keys of a stage
   static constexpr int kStages = 3;
@@ -799,14 +830,16 @@ struct Staged {
   static constexpr int kConsumerWarps = 8;
   static constexpr int kGroups = kConsumerWarps / kGroupWarps;
   static constexpr int kThreads = (kConsumerWarps + 1) * 32;
-  static constexpr int kBox = kKeys * 128;       // a 64-column box
-  static constexpr int kTile = 4 * kBox;         // K or V of a stage
-  static constexpr int kQPitch = 512 + 16;
+  static constexpr int kMinBlocks = D == 256 ? 1 : 2;   // blocks an SM
+  static constexpr int kBox = kStagedBox;
+  static constexpr int kTile = hopper::boxes<D>() * kBox;   // K or V
+  static constexpr int kSteps = D / 16;          // k steps, output tiles
+  static constexpr int kQPitch = (D + 31) / 32 * 64 + 16;
   static constexpr int kQOffset = kStages * 2 * kTile;
   static constexpr int kBarOffset = kQOffset + 8 * kQPitch;
-  // a row of the merge: 256 floats and 4 of pad, so that a warp's stores
+  // a row of the merge: D floats and 4 of pad, so that a warp's stores
   // (rows 2 t + j, dims 16 i + g) fall in 32 banks
-  static constexpr int kMergePitch = 256 + 4;
+  static constexpr int kMergePitch = D + 4;
   static constexpr int kFull = kStages * kGroups;   // full barriers
   // tiles between two of one (stage, group): the lcm of the two counts
   static constexpr int kCycle = kStages / gcd(kStages, kGroups) * kGroups;
@@ -819,7 +852,7 @@ struct Staged {
 // staged tile: box c / 8, its 128-byte row r, the chunk swizzled by r % 8
 // (as TMA's 128-byte swizzle writes it).
 __device__ __forceinline__ uint32_t staged_at(int r, int c) {
-  return (c >> 3) * Staged::kBox + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+  return (c >> 3) * kStagedBox + r * 128 + (((c & 7) ^ (r & 7)) << 4);
 }
 
 // ldmatrix: four 8x8 16-bit matrices, lane i giving row i % 8 of matrix i
@@ -840,28 +873,36 @@ __device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], uint32_t addr) {
 
 // Lane (g, t) of consumer warp w, which takes keys kb = k0 + 16 (w %
 // kGroupWarps) .. kb + 15 of each stage its group takes:
-// * S^T = K Q^T, 16 k steps m16n8k16: A (keys x dims) by one ldmatrix a
-//   step from the K tile, B (q row g's dims 16 k + 2 t, + 1 and + 8, + 9)
-//   in registers for the whole chunk; even and odd steps in two
-//   accumulators, so the chain of dependent products is 8 long, not 16.
-// * O^T += V^T P^T, 16 output tiles of 16 dims: A (dims x keys) by one
+// * S^T = K Q^T, D / 16 k steps m16n8k16: A (keys x dims) by one ldmatrix
+//   a step from the K tile, B (q row g's dims 16 k + 2 t, + 1 and + 8, +
+//   9) in registers for the whole chunk; even and odd steps in two
+//   accumulators, so the chain of dependent products is half as long.
+// * O^T += V^T P^T, D / 16 output tiles of 16 dims: A (dims x keys) by one
 //   ldmatrix.trans a tile from the V tile, output tile i's accumulators
 //   (dim 16 i + g | + 8; rows 2 t, 2 t + 1).
+// At one row (rows 1-7 of the n8 tile zero and masked) the tensor cores
+// do 8x the work needed; they have it to spare, and a key costs a warp
+// the same few instructions.  What the one-row steps needed was the
+// stream: a block of the CUDA-core body kept its loads in registers, so a
+// long sequence's block moved some 25-40 GB/s and set the step's time.
 // The producer warp issues a stage's TMA boxes from all its lanes (row box
 // b of a tile is lane b's, b + 32 too where pages of fewer than 2 rows
 // make 64 boxes), each box's page read a tile ahead.  q's 8 rows go
 // through shared memory once, into registers.
 template <typename T, int ROWS, typename Seqs>
-__global__ void __launch_bounds__(Staged::kThreads, 1)
+__global__ void __launch_bounds__(Staged<Seqs::kDim>::kThreads,
+                                  Staged<Seqs::kDim>::kMinBlocks)
 split_staged_kernel(const __grid_constant__ SplitParams<Seqs> p) {
   using hopper::mbar_arrive;
   using hopper::mbar_wait;
   using hopper::smem_u32;
-  using S = Staged;
   constexpr int D = Seqs::kDim;
+  using S = Staged<D>;
   constexpr int kWarps = S::kConsumerWarps;
-  static_assert(kTensorCores<T, ROWS> && D == 256,
-                "5-8 rows, bf16 or fp16, head dim 256");
+  constexpr int kSteps = S::kSteps;
+  static_assert(kStaged<T, ROWS, D>,
+                "5-8 rows at head dim 256, or one row at 80, 96 and 256; "
+                "bf16 or fp16");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -903,7 +944,7 @@ split_staged_kernel(const __grid_constant__ SplitParams<Seqs> p) {
   }
   __syncthreads();
 
-  float o[16][4], m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+  float o[kSteps][4], m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
   const int g = lane / 4, t = lane % 4;
   if (warp == kWarps) {  // producer
     for (int it = 0; it < n_tiles; ++it) {
@@ -927,7 +968,7 @@ split_staged_kernel(const __grid_constant__ SplitParams<Seqs> p) {
         if (b < boxes) {
           const int row = seq.box_row(k0 + b * box_rows, pg[j]);
 #pragma unroll
-          for (int c = 0; c < 4; ++c) {
+          for (int c = 0; c < hopper::boxes<D>(); ++c) {
             unsigned char* dst = kt + c * S::kBox + b * box_rows * 128;
             hopper::tma_load_2d(dst, &p.k_map, bar, 64 * c, row);
             hopper::tma_load_2d(dst + S::kTile, &p.v_map, bar, 64 * c, row);
@@ -941,17 +982,20 @@ split_staged_kernel(const __grid_constant__ SplitParams<Seqs> p) {
     // q's rows into shared memory (one 16-byte chunk a thread; zeros past
     // the real rows), then row g's fragments for every k step
     unsigned char* q_s = base + S::kQOffset;
-    for (int i = threadIdx.x; i < 8 * 32; i += kWarps * 32) {
-      const int r = i / 32, c = i % 32;
+    constexpr int kChunks = D / 8;   // 16-byte chunks of a q row
+    for (int i = threadIdx.x; i < 8 * kChunks; i += kWarps * 32) {
+      const int r = i / kChunks, c = i % kChunks;
       *reinterpret_cast<uint4*>(q_s + r * S::kQPitch + c * 16) =
           r < seq.rows ? *reinterpret_cast<const uint4*>(
                              static_cast<const T*>(p.q) + seq.row(r) + 8 * c)
                        : make_uint4(0u, 0u, 0u, 0u);
     }
     asm volatile("bar.sync 1, %0;" ::"n"(kWarps * 32) : "memory");
-    uint32_t qf[16][2];
+    // two k steps an ldmatrix (at 80 the last one's second step reads the
+    // row's pad, unused)
+    uint32_t qf[(kSteps + 1) / 2 * 2][2];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < (kSteps + 1) / 2; ++j) {
       uint32_t r4[4];
       ldsm4(r4, smem_u32(q_s) + (lane % 8) * S::kQPitch +
                     (4 * j + lane / 8) * 16);
@@ -967,7 +1011,7 @@ split_staged_kernel(const __grid_constant__ SplitParams<Seqs> p) {
                                     : k_begin;
     const float qscale = p.scale * kLog2e;
 #pragma unroll
-    for (int i = 0; i < 16; ++i)
+    for (int i = 0; i < kSteps; ++i)
 #pragma unroll
       for (int x = 0; x < 4; ++x) o[i][x] = 0.f;
 
@@ -986,7 +1030,7 @@ split_staged_kernel(const __grid_constant__ SplitParams<Seqs> p) {
         const int kr = r0 + 8 * ((lane / 8) % 2) + lane % 8;
         const int vr = r0 + 8 * (lane / 16) + lane % 8;
 #pragma unroll
-        for (int k = 0; k < 16; ++k) {
+        for (int k = 0; k < kSteps; ++k) {
           uint32_t a[4];
           ldsm4(a, kt + staged_at(kr, 2 * k + lane / 16));
           if (k % 2)
@@ -998,7 +1042,7 @@ split_staged_kernel(const __grid_constant__ SplitParams<Seqs> p) {
 #pragma unroll
         for (int x = 0; x < 4; ++x) s[x] = sa[x] + sb[x];
         uint32_t bh[2], bl[2];
-        online_softmax<T, 16>(s, kb, g, lim, qscale, m, l, o, bh, bl);
+        online_softmax<T, kSteps>(s, kb, g, lim, qscale, m, l, o, bh, bl);
         // V's keys past the chunk's end as 0: a register holds keys
         // kb + 2 t, + 1 (a[0], a[1]) or kb + 2 t + 8, + 9 (a[2], a[3])
         const uint32_t m01 = (kb + 2 * t < k_end ? 0xffffu : 0u) |
@@ -1006,7 +1050,7 @@ split_staged_kernel(const __grid_constant__ SplitParams<Seqs> p) {
         const uint32_t m23 = (kb + 2 * t + 8 < k_end ? 0xffffu : 0u) |
                              (kb + 2 * t + 9 < k_end ? 0xffff0000u : 0u);
 #pragma unroll
-        for (int i = 0; i < 16; ++i) {
+        for (int i = 0; i < kSteps; ++i) {
           uint32_t a[4];
           ldsm4_t(a, vt + staged_at(vr, 2 * i + (lane / 8) % 2));
           a[0] &= m01;
@@ -1031,7 +1075,7 @@ split_staged_kernel(const __grid_constant__ SplitParams<Seqs> p) {
       *reinterpret_cast<float (*)[kWarps][ROWS][S::kMergePitch]>(base);
   if (warp == kWarps) return;   // the consumers' threads merge
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
+  for (int i = 0; i < kSteps; ++i) {
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       if (2 * t + j < ROWS) {
@@ -1191,12 +1235,12 @@ constexpr auto split_form() {
 template <typename T, int ROWS, typename Seqs>
 constexpr int split_threads() {
   return kStaged<T, ROWS, Seqs::kDim>
-             ? Staged::kThreads
+             ? Staged<Seqs::kDim>::kThreads
              : Layout<T, Seqs::kDim, ROWS>::WARPS * 32;
 }
 template <typename T, int ROWS, typename Seqs>
 constexpr size_t split_smem() {
-  return kStaged<T, ROWS, Seqs::kDim> ? Staged::kBytes : 0;
+  return kStaged<T, ROWS, Seqs::kDim> ? Staged<Seqs::kDim>::kBytes : 0;
 }
 
 // Lets the split kernel take its dynamic shared memory: once per
@@ -1220,24 +1264,37 @@ cudaError_t split_smem_attr() {
 template <typename T, int ROWS, typename Seqs>
 int launch_split(const SplitParams<Seqs>& p, int Z, cudaStream_t stream) {
   const dim3 grid(p.n_split, p.Hkv, Z);
+  // one row over short chunks (a generate step's cache): the CUDA-core body
+  bool cuda_cores = false;
+  if constexpr (kStaged<T, ROWS, Seqs::kDim> && ROWS == 1)
+    cuda_cores = p.chunk < kStagedOneRowKeys;
   if constexpr (kStaged<T, ROWS, Seqs::kDim>) {
-    // the tensor maps of K and V, made at every launch (they travel by
-    // value in the parameters, so a graph capture keeps them)
-    SplitParams<Seqs> ps = p;
-    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(Seqs::kDim),
-                                static_cast<cuuint64_t>(p.kv_rows)};
-    const cuuint64_t strides[1] = {Seqs::kDim * sizeof(T)};
-    const cuuint32_t box[2] = {hopper::kBoxCols,
-                               static_cast<cuuint32_t>(p.box_rows)};
-    if (p.box_rows < 1 || Staged::kKeys % p.box_rows != 0)
-      return (int)cudaErrorInvalidValue;
-    int rc = hopper::make_map<T>(&ps.k_map, p.k, 2, dims, strides, box);
-    if (!rc) rc = hopper::make_map<T>(&ps.v_map, p.v, 2, dims, strides, box);
-    if (rc) return rc;
-    const cudaError_t attr = split_smem_attr<T, ROWS, Seqs>();
-    if (attr != cudaSuccess) return (int)attr;
-    split_staged_kernel<T, ROWS, Seqs>
-        <<<grid, Staged::kThreads, Staged::kBytes, stream>>>(ps);
+    if (cuda_cores) {
+      if constexpr (ROWS == 1)
+        split_kernel<T, ROWS, Seqs>
+            <<<grid, Layout<T, Seqs::kDim, ROWS>::WARPS * 32, 0, stream>>>(
+                p);
+    } else {
+      // the tensor maps of K and V, made at every launch (they travel by
+      // value in the parameters, so a graph capture keeps them)
+      SplitParams<Seqs> ps = p;
+      const cuuint64_t dims[2] = {static_cast<cuuint64_t>(Seqs::kDim),
+                                  static_cast<cuuint64_t>(p.kv_rows)};
+      const cuuint64_t strides[1] = {Seqs::kDim * sizeof(T)};
+      const cuuint32_t box[2] = {hopper::kBoxCols,
+                                 static_cast<cuuint32_t>(p.box_rows)};
+      using S = Staged<Seqs::kDim>;
+      if (p.box_rows < 1 || S::kKeys % p.box_rows != 0)
+        return (int)cudaErrorInvalidValue;
+      int rc = hopper::make_map<T>(&ps.k_map, p.k, 2, dims, strides, box);
+      if (!rc)
+        rc = hopper::make_map<T>(&ps.v_map, p.v, 2, dims, strides, box);
+      if (rc) return rc;
+      const cudaError_t attr = split_smem_attr<T, ROWS, Seqs>();
+      if (attr != cudaSuccess) return (int)attr;
+      split_staged_kernel<T, ROWS, Seqs>
+          <<<grid, S::kThreads, S::kBytes, stream>>>(ps);
+    }
   } else if constexpr (kTensorCores<T, ROWS>) {
     split_tc_kernel<T, ROWS, Seqs>
         <<<grid, split_threads<T, ROWS, Seqs>(), 0, stream>>>(p);

@@ -5,7 +5,7 @@
 one process.
 
     python3 scripts/decode_kernel_ab.py VARIANTS.json [--out DIR]
-        [--head-dim 128 256] [--dtype bf16 fp16] [--profile]
+        [--head-dim 80 96 128 256] [--dtype bf16 fp16] [--profile]
 
 VARIANTS.json maps a variant's name to ``{"dir": <sources>, "edits":
 {<file>: [[regex, replacement], ...]}, "splits": [n, ...], "min_chunk":
@@ -14,12 +14,15 @@ keys}``, as in ``scripts/flash_kernel_ab.py`` (whose build it shares);
 by each listed count in turn: every sequence's keys in chunks of S_max /
 n (rounded up to 64), n = 1 one block per (sequence, kv head), null the
 wrappers' own plan; ``min_chunk`` sets that plan's shortest chunk of the
-5-8-row bf16 / fp16 form at head dim 256 (``DECODE_MIN_CHUNK_TC256``; a
-parent from before the staged body took 2048 there).  A call that does not
+staged body (``DECODE_MIN_CHUNK_STAGED``; a parent from before that body
+took 2048 there).  A call that does not
 return within ``--case-timeout`` seconds (a kernel that deadlocks) ends
 the run, naming its case.  ``--profile`` also prints, for each variant's
 first plan, the device us a call of each split and combine kernel
-(torch.profiler, 20 calls on one input set).  Each variant's
+(torch.profiler, 20 calls on one input set), and for each case the
+wrapper's plan: the card's block slots for the form (the occupancy
+query), the (sequence, kv head) pairs, the chunks per sequence and keys
+per chunk, the blocks launched and the waves they take.  Each variant's
 ``decode_attention.cu`` and ``ragged_paged_attention.cu`` are built with
 the op builder's nvcc flags into ``--out`` (default, gitignored:
 ``deepspeed_tpu_torch/_build/ab_decode``), with every split kernel's
@@ -33,8 +36,10 @@ heads of 128) -- and B5's generate step
 shapes, and at Llama-2-70B's at length 4096 (``--head-dim 128``, the
 default; with ``256``: the Gemma-7B (16 / 16 heads of 256) and Gemma-2B
 (8 / 1) shapes' B4 8-slot steps, Gemma-7B's verify window, and B5's
-generate steps and length-4096 steps at both; both sets in one run with
-``--head-dim 128 256``): the max abs error against
+generate steps and length-4096 steps at both; with ``80`` / ``96``:
+gpt_2_7b's (32 heads of 80) / the Phi-3-mini shape's (32 of 96) B4 8-slot
+step and B5 step, the one-row forms of the serving phases; several sets in
+one run with ``--head-dim 80 96 256``): the max abs error against
 the plain version run in fp32, device ms by CUDA-graph replay over
 rotating inputs (more than the 50 MB L2) beside SDPA's on the same inputs
 and the bound (K/V and q bytes over 3.35 TB/s).  The first variant is
@@ -78,12 +83,20 @@ CONTIGUOUS_256 = [("B5 Gemma-7B step H16/16 D=256", 4, 16, 16, 256, 160,
                   ("B5 Gemma-2B len 4096 H8/1 D=256", 4, 8, 1, 256, 4096,
                    4096, 4)]
 
+# --head-dim 80 / 96: gpt_2_7b's and the Phi-3-mini shape's one-row steps
+# (MHA: every decode step is one row a kv head), as phase serve-d80-d96
+# gives them
+PAGED_D = {D: [(f"B4 8-slot step H32/32 D={D}", 1, 32, 32, D, 16)]
+           for D in (80, 96)}
+CONTIGUOUS_D = {D: [(f"B5 step H32/32 D={D}", 4, 32, 32, D, 160, 144, 12)]
+                for D in (80, 96)}
+
 
 def cases(sm, torch, F, da, rp, paged=PAGED, contiguous=CONTIGUOUS,
           bf=None):
     """[(label, kernel fn(i), SDPA fn(i), copies, plain fp32 output of
-    input 0, bound ms)] at the shapes above, in dtype ``bf`` (bf16 by
-    default)."""
+    input 0, bound ms, plan fn())] at the shapes above, in dtype ``bf``
+    (bf16 by default); plan() describes the wrapper's split plan."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     bf = bf or torch.bfloat16
     out = []
@@ -113,7 +126,10 @@ def cases(sm, torch, F, da, rp, paged=PAGED, contiguous=CONTIGUOUS,
             lambda i, qs=qs, dn=dense, m=mask, g=Hkv != H:
                 F.scaled_dot_product_attention(qs[i], dn[i][0], dn[i][1],
                                                attn_mask=m, enable_gqa=g),
-            c, want, nbytes / sm.HBM_BYTES_PER_S * 1e3))
+            c, want, nbytes / sm.HBM_BYTES_PER_S * 1e3,
+            lambda T=T, H=H, Hkv=Hkv, D=D, Smax=Smax, n=len(ctx): plan_text(
+                da, rp, "ragged_decode_slots", n * Hkv, T * (H // Hkv), Smax,
+                D, bf)))
     for label, B, H, Hkv, D, S, L, c in contiguous:
         q = sm._rand((c, B, 1, H, D), bf, gen)
         k = sm._rand((c, B, Hkv, S, D), bf, gen)
@@ -129,8 +145,24 @@ def cases(sm, torch, F, da, rp, paged=PAGED, contiguous=CONTIGUOUS,
             lambda i, qs=qs, k=k, v=v, L=L, g=Hkv != H:
                 F.scaled_dot_product_attention(
                     qs[i], k[i][:, :, :L], v[i][:, :, :L], enable_gqa=g),
-            c, want, nbytes / sm.HBM_BYTES_PER_S * 1e3))
+            c, want, nbytes / sm.HBM_BYTES_PER_S * 1e3,
+            lambda B=B, H=H, Hkv=Hkv, D=D, S=S: plan_text(
+                da, rp, "decode_attention_slots", B * Hkv, H // Hkv, S, D,
+                bf)))
     return out
+
+
+def plan_text(da, rp, entry, pairs, rows, S_max, D, dtype):
+    """The wrapper's split plan of a decode launch, as text: the card's
+    block slots for the form, the pairs, chunks x keys, blocks and waves."""
+    if rows > da.DECODE_ROWS:
+        return f"prefill form ({rows} rows a kv head)"
+    slots = da._decode_slots("cuda", rows, D, da._DTYPE_CODES[dtype],
+                             entry=entry)
+    n, chunk = rp.decode_rows_splits(pairs, 1, S_max, slots, rows, dtype, D)
+    blocks = n * pairs
+    return (f"slots {slots}, pairs {pairs}, {n} chunk(s) x {chunk} keys, "
+            f"{blocks} blocks, {-(-blocks // slots)} wave(s)")
 
 
 def watchdog(limit):
@@ -181,9 +213,10 @@ def main():
     ap.add_argument("variants", help="JSON file of variants")
     ap.add_argument("--out", default=os.path.join(
         REPO, "deepspeed_tpu_torch", "_build", "ab_decode"))
-    ap.add_argument("--head-dim", type=int, choices=(128, 256), nargs="+",
-                    default=[128], help="128: the Llama / TinyLlama "
-                    "shapes (head dims 64 and 128); 256: the Gemma shapes")
+    ap.add_argument("--head-dim", type=int, choices=(80, 96, 128, 256),
+                    nargs="+", default=[128], help="128: the Llama / "
+                    "TinyLlama shapes (head dims 64 and 128); 256: the "
+                    "Gemma shapes; 80 / 96: gpt_2_7b's / Phi-3-mini's")
     ap.add_argument("--dtype", choices=("bf16", "fp16"), nargs="+",
                     default=["bf16"])
     ap.add_argument("--case-timeout", type=float, default=120.0)
@@ -213,27 +246,31 @@ def main():
                 if "split" in kernel:
                     print(f"{name} {src}: {kernel[:110]}: {regs} registers, "
                           f"spills {st}/{ld} B", flush=True)
-    card_splits, card_least = da.key_splits, da.DECODE_MIN_CHUNK_TC256
+    card_splits, card_least = da.key_splits, da.DECODE_MIN_CHUNK_STAGED
     for dn in args.dtype:
         dtype = torch.float16 if dn == "fp16" else torch.bfloat16
         todo = []
         if 128 in args.head_dim:
             todo += cases(sm, torch, F, da, rp, bf=dtype)
+        for D in (80, 96):
+            if D in args.head_dim:
+                todo += cases(sm, torch, F, da, rp, PAGED_D[D],
+                              CONTIGUOUS_D[D], dtype)
         if 256 in args.head_dim:
             todo += cases(sm, torch, F, da, rp, PAGED_256, CONTIGUOUS_256,
                           dtype)
         lib_ms = {label: sm.graph_ms(lib, c)
-                  for label, _, lib, c, _, _ in todo}
+                  for label, _, lib, c, _, _, _ in todo}
         for name in list(variants) + list(variants)[:1]:
             use(libs, name, variants[name], SOURCES)
             da._slots.clear()
-            da.DECODE_MIN_CHUNK_TC256 = variants[name].get("min_chunk",
-                                                           card_least)
+            da.DECODE_MIN_CHUNK_STAGED = variants[name].get("min_chunk",
+                                                            card_least)
             for j, n in enumerate(variants[name].get("splits", [None])):
                 da.key_splits = rp.key_splits = card_splits if n is None \
                     else (lambda pairs, S, slots, least=0, n=n:
                           chunks_of(S, n))
-                for label, fn, _, c, want, bound in todo:
+                for label, fn, _, c, want, bound, plan in todo:
                     state[0] = f"{name} {dn} splits {n} {label}"
                     err = (fn(0).float() - want).abs().max().item()
                     ms = sm.graph_ms(fn, c)
@@ -242,6 +279,8 @@ def main():
                           f"{bound / ms:.3f} of bound {bound:.4f}, max abs "
                           f"err {err:.2e}", flush=True)
                     if args.profile and j == 0:
+                        print(f"{name} {dn} splits {n or 'card'} {label}: "
+                              f"plan {plan()}", flush=True)
                         us = kernel_us(torch, fn)
                         print(f"{name} {dn} splits {n or 'card'} {label}: "
                               f"profile " + ", ".join(
@@ -252,7 +291,7 @@ def main():
         del todo
         torch.cuda.empty_cache()
     da.key_splits = rp.key_splits = card_splits
-    da.DECODE_MIN_CHUNK_TC256 = card_least
+    da.DECODE_MIN_CHUNK_STAGED = card_least
     state[0] = "done"
     print(f"done in {time.time() - t0:.1f} s")
 

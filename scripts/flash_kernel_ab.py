@@ -43,7 +43,10 @@ head at every group): it is driven as that commit's wrappers drove it --
 delta by eager PyTorch, the group sum and cast at every group.  Several
 head dims run one after the other on one build.  Last, the HGMMA and
 WARPGROUP.DEPBAR counts of each variant's bf16 kernels at those head dims
-(a DEPBAR after every HGMMA means ptxas serialised the wgmma pipeline).
+(a DEPBAR after every HGMMA means ptxas serialised the wgmma pipeline);
+right after the build, the registers and spill bytes of each variant's
+bf16 / fp16 dQ and dK/dV kernels at those head dims (ptxas);
+``--build-only`` stops there (a new body's first call on the card).
 
 To time a change against its parent commit in one call, unpack the
 parent's sources into the gitignored ``.tmp/`` and name both:
@@ -232,6 +235,8 @@ def main():
                     nargs="+", default=[128])
     ap.add_argument("--dtype", choices=("bf16", "fp16"), nargs="+",
                     default=["bf16"])
+    ap.add_argument("--build-only", action="store_true",
+                    help="stop after the build and the spill reading")
     args = ap.parse_args()
     sys.path.insert(0, REPO)
     import torch
@@ -243,12 +248,31 @@ def main():
     t0 = time.time()
     libs = build(variants, args.out)
     print(f"built in {time.time() - t0:.1f} s", flush=True)
+    print_usage(variants, args.out, args.head_dim)
+    if args.build_only:
+        return
     gen = torch.Generator(device="cuda").manual_seed(1)
     for dn in args.dtype:
         dtype = torch.float16 if dn == "fp16" else torch.bfloat16
         for D in args.head_dim:
             run_head_dim(D, variants, libs, gen, args.out, dtype)
     print(f"done in {time.time() - t0:.1f} s")
+
+
+def print_usage(variants, out, head_dims):
+    """Each variant's registers and spill bytes (ptxas) of its bf16 / fp16
+    backward kernels at ``head_dims``: the spill reading of a change."""
+    from chip_smoke import ptxas_usage
+    for name in variants:
+        with open(os.path.join(out, name, "flash_attention_bwd.log")) as fh:
+            usage = ptxas_usage(fh.read())
+        for kernel, (regs, st, ld) in sorted(usage.items()):
+            m = re.search(r"flash_bwd_(dq|dkv)_kernel<(__nv_bfloat16|__half),"
+                          r" (\w+), (\w+), (\d+)>", kernel)
+            if m and int(m.group(5)) in head_dims:
+                print(f"{name} {m.group(1)}<{m.group(2)}, alibi={m.group(3)},"
+                      f" window={m.group(4)}, D={m.group(5)}>: {regs} "
+                      f"registers, spills {st}/{ld} B", flush=True)
 
 
 def sdpa_backward_ms(q, k, v, do, scale, kw, c):

@@ -16,9 +16,10 @@ from deepspeed_tpu.ops.decode_attention import init_cache as jax_init_cache
 from deepspeed_tpu.ops.decode_attention import update_cache as jax_update
 from deepspeed_tpu.ops.pallas.decode_attention import decode_attention_pallas
 from deepspeed_tpu_torch.ops.cuda.decode_attention import (
-    DECODE_MIN_CHUNK, DECODE_MIN_CHUNK_TC, DECODE_MIN_CHUNK_TC256,
-    DECODE_ROWS, HEAD_DIMS, decode_attention_cuda, decode_attention_plain,
-    decode_splits, min_chunk)
+    DECODE_MIN_CHUNK, DECODE_MIN_CHUNK_STAGED, DECODE_MIN_CHUNK_TC,
+    DECODE_ROWS, HEAD_DIMS, STAGED_ONE_ROW_HEAD_DIMS, STAGED_ONE_ROW_KEYS,
+    decode_attention_cuda, decode_attention_plain, decode_splits, min_chunk,
+    staged)
 from deepspeed_tpu_torch.ops.cuda.ragged_paged_attention import \
     ragged_paged_attention_cuda
 from deepspeed_tpu_torch.ops.decode_attention import (decode_attention,
@@ -248,10 +249,10 @@ def test_decode_splits(B, T, H, Hkv, slots, want, want256, Dh, dtype):
     sequence's keys only as far as one wave of the card's block slots, in
     chunks of at least min_chunk keys (a multiple of 64: DECODE_MIN_CHUNK
     on the CUDA-core body, DECODE_MIN_CHUNK_TC on the tensor-core body at
-    5-8 rows in bf16 / fp16 at head dims up to 128, DECODE_MIN_CHUNK_TC256
-    on the staged body at 256) that cover S_max (the C entry refuses
-    less); the prefill form takes one.  ``want256`` is the plan at head
-    dim 256 where it differs (the 5-8-row forms)."""
+    5-8 rows in bf16 / fp16 at head dims up to 128, DECODE_MIN_CHUNK_STAGED
+    on the staged body at 5-8 rows at 256) that cover S_max (the C entry
+    refuses less); the prefill form takes one.  ``want256`` is the plan at
+    head dim 256 where it differs (the 5-8-row forms)."""
     got = [decode_splits(B, T, H, Hkv, S, slots, dtype, Dh)
            for S in (160, 4096)]
     assert got == (want256 if Dh == 256 and want256 else want)
@@ -273,23 +274,70 @@ def test_decode_splits(B, T, H, Hkv, slots, want, want256, Dh, dtype):
     (6, torch.float16, 80, DECODE_MIN_CHUNK_TC),
     (7, torch.bfloat16, 96, DECODE_MIN_CHUNK_TC),
     (1, torch.bfloat16, 256, DECODE_MIN_CHUNK),
+    (1, torch.float16, 256, DECODE_MIN_CHUNK),
+    (1, torch.bfloat16, 80, DECODE_MIN_CHUNK),
+    (1, torch.float16, 96, DECODE_MIN_CHUNK),
+    (1, torch.float32, 80, DECODE_MIN_CHUNK),
+    (1, torch.float32, 256, DECODE_MIN_CHUNK),
+    (2, torch.bfloat16, 80, DECODE_MIN_CHUNK),
+    (1, torch.float16, 64, DECODE_MIN_CHUNK),
     (4, torch.float16, 256, DECODE_MIN_CHUNK),
-    (5, torch.bfloat16, 256, DECODE_MIN_CHUNK_TC256),
-    (6, torch.float16, 256, DECODE_MIN_CHUNK_TC256),
-    (7, torch.bfloat16, 256, DECODE_MIN_CHUNK_TC256),
-    (8, torch.float16, 256, DECODE_MIN_CHUNK_TC256),
-    (8, torch.bfloat16, 256, DECODE_MIN_CHUNK_TC256),
+    (5, torch.bfloat16, 256, DECODE_MIN_CHUNK_STAGED),
+    (6, torch.float16, 256, DECODE_MIN_CHUNK_STAGED),
+    (7, torch.bfloat16, 256, DECODE_MIN_CHUNK_STAGED),
+    (8, torch.float16, 256, DECODE_MIN_CHUNK_STAGED),
+    (8, torch.bfloat16, 256, DECODE_MIN_CHUNK_STAGED),
     (8, torch.float32, 256, DECODE_MIN_CHUNK)])
 def test_min_chunk_by_form(rows, dtype, Dh, want):
     """The tensor-core body (5-8 rows in bf16 or fp16) splits only into
     chunks of DECODE_MIN_CHUNK_TC keys at head dims up to 128 and of
-    DECODE_MIN_CHUNK_TC256 at 256 (the staged body); the CUDA-core body
-    (1-4 rows, and fp32 at any row count) into chunks of DECODE_MIN_CHUNK,
-    at every head dim."""
+    DECODE_MIN_CHUNK_STAGED at 256 (the staged body); 1-4 rows (the
+    CUDA-core body, and one row's staged body at 80, 96 and 256) and fp32
+    at any row count into chunks of DECODE_MIN_CHUNK, at every head
+    dim."""
     assert min_chunk(rows, dtype, Dh) == want
     slots = 32 * max(16, 8192 // want)      # enough for the least chunk
     n, c = decode_splits(1, rows, 32, 32, 8192, slots, dtype, Dh)
     assert c == want and n == 8192 // want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("Dh", HEAD_DIMS)
+def test_staged_body_rule(Dh, dtype):
+    """The staged body takes 5-8 rows a kv head at head dim 256, and one
+    row at 80, 96 and 256 (gpt_2_7b's, Phi-3-mini's and Gemma-7B's MHA
+    decode steps) over chunks of STAGED_ONE_ROW_KEYS keys and up, in bf16
+    / fp16; shorter one-row chunks (a generate step's 160-key cache),
+    D=64, D=128, fp32 and 2-4 rows keep their bodies.  A one-row plan that
+    splits has chunks of at least that many keys, so it is staged."""
+    for rows in range(1, DECODE_ROWS + 1):
+        for chunk in (192, STAGED_ONE_ROW_KEYS - 64, STAGED_ONE_ROW_KEYS,
+                      2176):
+            want = dtype != torch.float32 and (
+                (rows > 4 and Dh == 256) or
+                (rows == 1 and Dh in STAGED_ONE_ROW_HEAD_DIMS and
+                 chunk >= STAGED_ONE_ROW_KEYS))
+            assert staged(rows, dtype, Dh, chunk) == want
+    assert STAGED_ONE_ROW_HEAD_DIMS == (80, 96, 256)
+    assert min_chunk(1, dtype, Dh) >= STAGED_ONE_ROW_KEYS
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("Dh,H,slots", [
+    # two staged blocks an SM at 80 and 96 (~100 KB each), one at 256
+    (80, 32, 264), (96, 32, 264), (256, 16, 132)])
+def test_one_row_plans(Dh, H, slots, dtype):
+    """The one-row steps' plans and bodies: the serve run's 8-slot step (8
+    sequences over a table of 17 pages of 128) takes one wave of whole
+    sequences on the staged body; one sequence alone over 2048 keys
+    splits into 4 chunks of 512, staged; a generate step (B=4, 160 keys)
+    takes one chunk on the CUDA-core body."""
+    for B, S, want, body in ((8, 17 * 128, (1, 2176), True),
+                             (1, 2048, (4, 512), True),
+                             (4, 160, (1, 192), False)):
+        n, c = decode_splits(B, 1, H, H, S, slots, dtype, Dh)
+        assert (n, c) == want and staged(1, dtype, Dh, c) == body
 
 
 def test_update_cache_raises_past_the_buffer():

@@ -910,10 +910,10 @@ def test_chunk_edges_straddle_the_head_dim_256_chunk(T, H, Hkv, B, dtype):
     body's plan) straddle the plan's chunk c -- c - 1, c, c + 1 and the
     second chunk's end -- and its last chunk's, and come B at a time."""
     from deepspeed_tpu_torch.ops.cuda.decode_attention import (
-        DECODE_MIN_CHUNK_TC256, decode_splits)
+        DECODE_MIN_CHUNK_STAGED, decode_splits)
     S = 2048
     n, c = decode_splits(B, T, H, Hkv, S, 132, dtype, 256)
-    assert n > 1 and c % 64 == 0 and c >= DECODE_MIN_CHUNK_TC256
+    assert n > 1 and c % 64 == 0 and c >= DECODE_MIN_CHUNK_STAGED
     edges = chip_smoke.chunk_edge_lengths(n, c, T, S, B)
     assert {c - 1, c, c + 1} <= set(edges)
     assert 2 * c + 1 > S or {2 * c - 1, 2 * c, 2 * c + 1} <= set(edges)
