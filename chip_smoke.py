@@ -511,14 +511,14 @@ def ptxas_usage(log):
 
 # kernels that must not spill (ptxas): the split-key decode bodies, whose
 # registers hold the loads in flight or the operands of the products
-# (every row count, dtype and head dim, 256's staged body included), the
-# head-dim-64 tensor-core consumer of B1's forward and B4's prefill tiles (wgmma_attention.cuh: S, P and O in registers
-# while products run), the persistent bodies of B2 (dQ and dK/dV) at head
-# dims 64, 80 and 96, the head-dim-80 and -96 tensor-core forms of B1 and
-# B4's prefill tiles, B4's prefill tiles at 256, and the head-dim-80,
-# -96 and -256 CUDA-core tiles of B4 and B5 (attention_tile.cuh); every
-# form of B1 and B2 at head dim 256 (fp32 included) and B6's fp16 form;
-# by demangled or mangled name
+# (every row count, dtype and head dim, the staged body included) and
+# their combines, the shared tensor-core consumer of B1's forward and B4's prefill tiles at 64,
+# 80, 96 and 256 (wgmma_attention.cuh: S, P and O in registers while
+# products run), the persistent bodies of B2 (dQ and dK/dV) at head dims
+# 64, 80 and 96, the head-dim-80 and -96 tensor-core forms of B1, and the
+# head-dim-80, -96 and -256 CUDA-core tiles of B4 and B5
+# (attention_tile.cuh); every form of B1 and B2 at head dim 256 (fp32
+# included) and B6's fp16 form; by demangled or mangled name
 NO_SPILL = (r"split_kernel|split_tc_kernel|split_staged_kernel|"
             r"combine_kernel|"
             r"flash_(fwd|bwd_dq|bwd_dkv)_kernel("
@@ -837,32 +837,35 @@ def phase_kernels():
                  f"{(a.float() - b.float()).abs().max().item():.3e}")
         phase("kernels", f"{label}: a second call is bit for bit the same")
 
-    def check_one_row(Dn, Hq):
-        """The staged body at one row (one query row a kv head: the MHA
-        decode steps of gpt_2_7b, Phi-3-mini and Gemma-7B) in B4 and B5:
-        contexts of 1 key, at a page edge (127-129) and around a split
-        plan's chunk edges, over pages of 16, 48 and 128 keys (B4: many
-        sequences, one chunk each, and one alone, split; pages of 48 keys
-        take 16-row TMA boxes), B5 unsplit and split (B=1 over S_max
-        2048), and a second call of each bit for bit.  (Over a 160-key
-        cache one row keeps the CUDA-core body: phase 3's generate steps.)"""
-        n, c = decode_plan(1, 1, Hq, Hq, 2048, Dn, dtype, "cuda")
-        if n == 1 or not staged(1, dtype, Dn, c):
-            fail(f"one-row decode {dn} D={Dn}: plan {n} x {c} keys is not "
+    def check_staged(Dn, Hq, T=1):
+        """The staged body at T rows a kv head (MHA: T tokens a sequence)
+        in B4 and B5: one row (the MHA decode steps of gpt_2_7b,
+        Phi-3-mini and Gemma-7B) and, at 80 and 96, 5 and 8 rows
+        (gpt_2_7b's verify window of 5): contexts of T keys, at a page
+        edge (127-129) and around a split plan's chunk edges, over pages
+        of 16, 48 and 128 keys (B4: many sequences, one chunk each, and
+        one alone, split; pages of 48 keys take 16-row TMA boxes), B5
+        unsplit and split (B=1 over S_max 2048), and a second call of each
+        bit for bit.  (Over a 160-key cache one row keeps the CUDA-core
+        body: phase 3's generate steps.)"""
+        rows = "one-row" if T == 1 else f"{T}-row"
+        n, c = decode_plan(1, T, Hq, Hq, 2048, Dn, dtype, "cuda")
+        if n == 1 or not staged(T, dtype, Dn, c):
+            fail(f"{rows} decode {dn} D={Dn}: plan {n} x {c} keys is not "
                  f"the staged body's split")
-        ctx = sorted({1, 127, 128, 129, c - 1, c, c + 1, 2 * c, 2 * c + 3,
+        ctx = sorted({T, 127, 128, 129, c - 1, c, c + 1, 2 * c, 2 * c + 3,
                       600})
         # B4: many sequences (one chunk each) and one alone (split)
         for pg, cs in ((pg, cs) for pg in (16, 48, 128)
                        for cs in (ctx, [2 * c + 3])):
             tb, kk, vv = _paged_state(cs, pg, Hq, Dn, dtype, gen)
-            qq = _rand((len(cs), 1, Hq, Dn), dtype, gen)
+            qq = _rand((len(cs), T, Hq, Dn), dtype, gen)
             lens = i32(cs)
             got = ragged_paged_attention_rect(qq, kk, vv, tb, lens)
             exact = paged_attention_plain(qq.float(), kk.float(), vv.float(),
                                           tb, lens)
             label = (f"ragged_paged_attention {dn} H{Hq}/{Hq} D={Dn} "
-                     f"one-row decode page {pg} ctx {cs}")
+                     f"{rows} decode page {pg} ctx {cs}")
             note("ragged_paged_attention", dn,
                  check_close(label, got, exact.to(dtype)))
             check_repeat(label, lambda: ragged_paged_attention_rect(
@@ -870,15 +873,39 @@ def phase_kernels():
             del tb, kk, vv, qq, exact
         for S, lens in ((2048, i32(ctx)), (2048, i32([c + 1])),
                         (2048, i32([2 * c + 3]))):
-            check_b5("one-row", len(lens), 1, Hq, S, lens, Dh=Dn, Hq=Hq)
-            qq = _rand((len(lens), 1, Hq, Dn), dtype, gen)
+            check_b5(rows, len(lens), T, Hq, S, lens, Dh=Dn, Hq=Hq)
+            qq = _rand((len(lens), T, Hq, Dn), dtype, gen)
             kk = _rand((len(lens), Hq, S, Dn), dtype, gen)
             vv = _rand((len(lens), Hq, S, Dn), dtype, gen)
             check_repeat(
-                f"decode_attention {dn} H{Hq}/{Hq} D={Dn} one-row S_max={S} "
-                f"{decode_plan(len(lens), 1, Hq, Hq, S, Dn, dtype, 'cuda')}",
+                f"decode_attention {dn} H{Hq}/{Hq} D={Dn} {rows} S_max={S} "
+                f"{decode_plan(len(lens), T, Hq, Hq, S, Dn, dtype, 'cuda')}",
                 lambda: decode_attention_cuda(qq, kk, vv, lens))
             del qq, kk, vv
+
+    def check_prefill_walks(Dn, Hq, Hkv):
+        """B4's tensor-core prefill tiles at head dim Dn (bf16 / fp16, on
+        the shared consumer), pages of 16 and 128 keys: causal frontiers on
+        a K/V tile's edge (a chunk at start 512) and a key past it (start
+        513), and a long walk (128 tokens at start 1900).  Each against
+        the plain version in fp32 and again bit for bit."""
+        for pg in (16, 128):
+            for T, start in ((256, 512), (200, 513), (128, 1900)):
+                ctx = [start + T]
+                tb, kk, vv = _paged_state(ctx, pg, Hkv, Dn, dtype, gen)
+                qq = _rand((1, T, Hq, Dn), dtype, gen)
+                lens = i32(ctx)
+                label = (f"ragged_paged_attention {dn} H{Hq}/{Hkv} D={Dn} "
+                         f"page {pg} prefill T={T} at start {start}")
+                got = ragged_paged_attention_rect(qq, kk, vv, tb, lens)
+                exact = paged_attention_plain(qq.float(), kk.float(),
+                                              vv.float(), tb, lens)
+                note("ragged_paged_attention", dn, check_b4(
+                    label, got, exact,
+                    lambda: paged_sdpa(qq, kk, vv, tb, lens), True))
+                check_repeat(label, lambda: ragged_paged_attention_rect(
+                    qq, kk, vv, tb, lens))
+                del tb, kk, vv, qq, exact
 
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         dn = str(dtype).split(".")[-1]
@@ -1186,11 +1213,18 @@ def phase_kernels():
                 packed_b4(f"H{Hq}/{Hkv} page {pg}", [37, 1, 130, 5, 1],
                           [37, 300, 1000, 521, 257], Hkv, Dn, pg, Hq=Hq)
             _free()
-        # the one-row body at its head dims: gpt_2_7b's and Phi-3-mini's
-        # 32 heads of 80 and 96, Gemma-7B's 16 of 256
+        # the staged body at its head dims: one row at gpt_2_7b's and
+        # Phi-3-mini's 32 heads of 80 and 96 and Gemma-7B's 16 of 256, and
+        # 5 and 8 rows at 80 and 96; the tensor-core prefill tiles on the
+        # shared consumer at 80 and 96 (group 1) and 256 (groups 1, 4, 8)
         if dtype != torch.float32:
             for Dn, Hq in ((80, H), (96, H), (256, 16)):
-                check_one_row(Dn, Hq)
+                check_staged(Dn, Hq)
+            for Dn, T in ((Dn, T) for Dn in HEAD_DIMS_80_96 for T in (5, 8)):
+                check_staged(Dn, H, T)
+            for Dn, Hq, Hkv in ((80, H, H), (96, H, H)) + tuple(
+                    (256, hq, hkv) for hq, hkv in GEMMA_HEADS):
+                check_prefill_walks(Dn, Hq, Hkv)
             _free()
     return errs
 
@@ -1994,12 +2028,19 @@ def _bound(bytes_moved, flops, dtype_name):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+# graph replays of a plain version's timing: it is the slow yardstick, so
+# it takes fewer repeats than the kernels' 10
+PLAIN_REPS = 3
+
+
 def _measure(fns, copies):
-    """Device time (CUDA-graph replay) and eager time of each fn(i)."""
+    """Device time (CUDA-graph replay) of each fn(i), and the kernel's
+    ("ms") eager time too."""
     out = {}
     for key, fn in fns.items():
-        out[key] = graph_ms(fn, copies)
-        out[key + "_eager"] = time_ms(fn)
+        out[key] = graph_ms(fn, copies,
+                            reps=PLAIN_REPS if key == "plain_ms" else 10)
+    out["ms_eager"] = time_ms(fns["ms"])
     return out
 
 
@@ -2181,8 +2222,7 @@ def phase_timing(cfg, serve_prompts):
         phase("timing", f"{name} [{r['shape']}]: device ms (graph replay) "
               f"kernel {r['ms']:.4f}, plain {r['plain_ms']:.4f}, library "
               f"{r['library_ms']:.4f}; eager ms per call (host included) "
-              f"kernel {r['ms_eager']:.4f}, plain {r['plain_ms_eager']:.4f},"
-              f" library {r['library_ms_eager']:.4f}; bound "
+              f"kernel {r['ms_eager']:.4f}; bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
               f"{r['bound_ms'] / r['ms']:.3f} of bound, max abs err "
               f"{r['max_abs_err']:.3e}")
@@ -4093,9 +4133,10 @@ def flash_timing(errs, B, S, H, Hkv, D, gen):
         fwd_ms = graph_ms(lambda i: flash_attention_fwd_cuda(
             q[i], k[i], v[i], scale), c)
         plain_fwd_ms = graph_ms(lambda i: flash_attention_fwd_plain(
-            q[i], k[i], v[i], scale), c)
+            q[i], k[i], v[i], scale), c, reps=PLAIN_REPS)
         plain_bwd_ms = graph_ms(lambda i: flash_attention_bwd_plain(
-            q[i], k[i], v[i], o[i], lse[i], do[i], scale), c)
+            q[i], k[i], v[i], o[i], lse[i], do[i], scale), c,
+            reps=PLAIN_REPS)
         lib_fwd_ms = graph_ms(lambda i: F.scaled_dot_product_attention(
             qt[i], kt[i], vt[i], is_causal=True), c)
         lib_bwd_ms = graph_ms(sdpa_fwd_bwd, c) - lib_fwd_ms
@@ -4335,9 +4376,10 @@ def phase_biased_timing(errs, cases=BIASED_TIMING, D=128, seed=78):
             "dkv": graph_ms(lambda i: dkv(q[i], k[i], v[i], do[i], lse[i],
                                           delta[i], scale, True, **bkw), c)}
         plain_fwd = graph_ms(lambda i: flash_attention_fwd_plain(
-            q[i], k[i], v[i], scale, True, **kw), c)
+            q[i], k[i], v[i], scale, True, **kw), c, reps=PLAIN_REPS)
         plain_bwd = graph_ms(lambda i: flash_attention_bwd_plain(
-            q[i], k[i], v[i], o[i], lse[i], do[i], scale, True, **kw), c)
+            q[i], k[i], v[i], o[i], lse[i], do[i], scale, True, **kw), c,
+            reps=PLAIN_REPS)
         lib_fwd = graph_ms(lambda i: F.scaled_dot_product_attention(
             qt[i], kt[i], vt[i], attn_mask=mask, is_causal=mask is None,
             scale=scale), c)

@@ -42,8 +42,8 @@
 // producer warp loads the Q tile by TMA straight from the packed stack --
 // a 3-d tensor map (column, head, token) with row stride H * D, a box of
 // 64 rows (64 / group tokens by group heads) per consumer warpgroup and
-// column box -- and streams 128-key K and V tiles through a ring (2
-// stages at D = 80, 96 and 128, 4 at 64), each tile's TMA row coordinate
+// column box -- and streams K and V tiles through a ring (4 stages at D =
+// 64, 3 at 80 and 96, 2 at 128 and 256), each tile's TMA row coordinate
 // resolved through the block table, (page * Hkv + hk) * page_size +
 // offset over k_pages viewed as [P * Hkv * page, D]: boxes<D>() column
 // boxes per tile, or per page when pages are smaller than the tile.  At
@@ -53,35 +53,49 @@
 // boxes, so a tile costs D = 128's 32 KB of shared memory but D columns of
 // HBM traffic.  Two consumer warpgroups own 64 rows each: S = Q K^T by
 // wgmma, the online softmax on the accumulators, P rounded to the tile's
-// type as the A operand of O += P V.  At D = 80, 96 and 128 each
-// warpgroup runs the three in series, S = Q K^T over D / 16 slices (5, 6
-// or 8) and O += P V as one m64nD product a 16-key slice, which reads V's
-// first D columns only (O: D / 2 fp32 registers a thread, as in B1's
-// forward at those head dims).  At D = 64 the products are half as long
-// and the softmax is not, so the body is the flash forward's D = 64
-// consumer (wgmma_attention.cuh): each tile's softmax runs under the
-// products of the tile before and of the other warpgroup, which take
-// turns to issue them.  At D = 256 (Gemma's heads) a 128-row tile is 64
-// KB, so Q and two stages of 128-key K and V tiles would need 320 KB of
-// the 227 KB a block has, and O alone is 128 fp32 registers a thread,
-// which beside a 128-key S (64) and its P (32) exceeds the consumers'
-// 240: the K/V tiles are 64 keys there (Q + 2 x (K, V) = 192 KB; S = Q
-// K^T an m64n64 product over 16 k steps across Q's four boxes, 32
-// registers, P 16, O += P V one m64n256 product a 16-key slice across V's
-// four boxes; in fp16 P enters it as two fp16 terms, so O is one
-// rounding of an fp32 value).  Public FA3 takes 80-key tiles at this head
-// dim, for the same reasons.  A
-// TinyLlama-shaped 256-token chunk (group 8) is 64 blocks of at most 6
-// K/V tiles each: it fills 64 of the 132 SMs; its bound is the tensor
-// cores' 1.4 us.  bf16 and fp16 run one body, templated on the
-// element type E: every wgmma, tensor map and packing names E (hopper.cuh
-// has no default), so no fp16 tile is read as bf16.  The key loop stops at
-// the tile's causal frontier ctx - qlen + min(qlen, (qt + 1) * tokens);
-// only tiles that cross a row's position are masked, and a warpgroup
-// skips a tile it cannot see.  Rows past qlen may arrive in the Q box (TMA
-// moves whole boxes; past the stack they are zero-filled) but feed no real
-// row and are never written.  Tiles with the most keys are launched first
-// (the host's order).
+// type as the A operand of O += P V (S over D / 16 slices, O += P V one
+// m64nD product a 16-key slice, which reads V's first D columns only).
+// At D = 128 each warpgroup runs the three in series, the two
+// warpgroups in step.  At D = 64, 80, 96 and 256 the consumer is the
+// flash forward's (wgmma_attention.cuh): at 64, 80 and 96 in FA3's order
+// (each tile's softmax under the products of the tile before), at 256
+// each tile in series; at all four the two warpgroups take turns to issue
+// their products, so one's softmax runs under the other's products.  At
+// D = 256 (Gemma's heads) a 128-row tile is 64 KB, so Q and two stages of
+// 128-key K and V tiles would need 320 KB of the 227 KB a block has, and
+// O alone is 128 fp32 registers a thread, which beside a 128-key S (64)
+// and its P (32) exceeds the consumers' 240: the K/V tiles are 64 keys
+// there (Q + 2 x (K, V) = 192 KB; S = Q K^T an m64n64 product over 16 k
+// steps across Q's four boxes, 32 registers, P 16, O += P V one m64n256
+// product a 16-key slice across V's four boxes).  Public FA3 takes 80-key
+// tiles at this head dim, for the same reasons.  In fp16 P is rounded
+// once at every head dim, as SDPA rounds it: the body before entered it
+// as two fp16 terms at 256 (O one rounding of an fp32 value, at 1.19-1.27x
+// the time on the consumer), and with P rounded once the fp16 rule holds
+// within 1.09x SDPA's error at every case of chip_smoke.py.
+// What bounds the tiles on the H100 (NVIDIA H100 80GB HBM3, 700 W;
+// scripts/decode_kernel_ab.py --prefill, PERF.md): a block of the
+// serving phases' prefills costs ~4-7 us before and after its walk and
+// ~2 us a K/V tile in it, so a call lasts as long as its heaviest
+// blocks (the causal tiles at the end of a prompt); the consumer took
+// the serve run's bucket-512 prefill at D = 80 from 0.0138 to 0.0122 ms,
+// and Gemma-7B's at 256 from 0.0221 to 0.0212 (fp16 0.0264 -> 0.0213).
+// Splitting the longest walks over the idle SMs (their parts merged by a
+// second kernel) did not pay: the blocks slowed as more of them streamed
+// tiles at once (Gemma-7B's bucket 512 cut into 128 units of at most 3
+// tiles took 21 us, 64 of those units alone 15 us, the 64 whole walks of
+// up to 8 tiles 20 us), and the merge cost 3-15 us more.  A TinyLlama-shaped
+// 256-token chunk (group 8) is 64 blocks of at most 6 K/V tiles each: it
+// fills 64 of the 132 SMs; its bound is the tensor cores' 1.4 us.  bf16
+// and fp16 run one body, templated on the element type E: every wgmma,
+// tensor map and packing names E (hopper.cuh has no default), so no fp16
+// tile is read as bf16.  The key loop stops at the tile's causal frontier
+// ctx - qlen + min(qlen, (qt + 1) * tokens); only tiles that cross a
+// row's position are masked, and a warpgroup skips a tile it cannot see.
+// Rows past qlen may arrive in the Q box (TMA moves whole boxes; past the
+// stack they are zero-filled) but feed no real row and are never
+// written.  Tiles with the most keys are launched first (the host's
+// order).
 //
 // Prefill tiles otherwise (fp32, other page sizes or groups; every head
 // dim above): the CUDA-core tile of attention_tile.cuh, grid (tiles, Hkv,
@@ -179,36 +193,40 @@ int launch_decode(const void* q, const void* k_pages, const void* v_pages,
 
 namespace tc {
 constexpr int BM = 128;                              // rows of a tile
-constexpr int BN = 128;                              // keys of a K/V tile
 constexpr int kThreads = 384;                        // 2 consumer + 1 producer WG
+// The ring at head dims 80 and 96: one Q tile and 3 stages of 32 KB K and
+// V tiles (224 KB), as the flash forward's at those head dims.
+constexpr int kStages8096 = 3;
 // The shared-memory plan at head dim D: Q, then kStages x (K, V), then the
 // barriers: Q's, full[], empty[].  A tile is whole 64-column boxes; the
-// K/V tiles are 64 keys at D = 256 (the header says why).
+// K/V tiles are dswg::tile_keys(D) keys: 128, 64 at D = 256 (the header
+// says why).
 template <int D>
 struct Smem {
-  static constexpr int kKeys = D == 256 ? 64 : BN;   // keys of a K/V tile
+  static constexpr int kKeys = dswg::tile_keys(D);   // keys of a K/V tile
   // 16 KB at D = 64, 32 at 80, 96 and 128, 64 at 256
   static constexpr int kQTile = BM * hopper::box_cols<D>() * 2;
   static constexpr int kTile = kKeys * hopper::box_cols<D>() * 2;  // K or V
   static constexpr int kQBox = BM * 128;              // a box of Q
   static constexpr int kKVBox = kKeys * 128;          // a box of K or V
-  static constexpr int kStages = D == 64 ? 4 : 2;
+  static constexpr int kStages =
+      D == 64 ? 4 : (D == 80 || D == 96) ? kStages8096 : 2;
   static constexpr int kBarOffset = kQTile + kStages * 2 * kTile;
   static constexpr size_t kBytes = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
+  static_assert(kBytes <= 232448, "a block has 227 KB of shared memory");
 };
-// The keys of a K/V tile at head dim D, on the host.
-inline int tile_keys(int D) { return D == 256 ? Smem<256>::kKeys : BN; }
 }  // namespace tc
 
-// What a consumer thread's two rows see at D = 64, for the shared consumer
-// of wgmma_attention.cuh: keys up to the row's position, masked only on
-// tiles that cross the warpgroup's first row's; logits are the raw products
-// (the scale goes into c).
+// What a consumer thread's two rows see, for the shared consumer of
+// wgmma_attention.cuh: keys up to the row's position, masked only on tiles
+// of kKeys keys that cross the warpgroup's first row's; logits are the raw
+// products (the scale goes into c).
+template <int kKeys>
 struct PagedRows {
   float c;
   int qpos[2], front;   // front: the position of the warpgroup's first row
   __device__ __forceinline__ bool edge(int k0) const {
-    return k0 + tc::BN - 1 > front;
+    return k0 + kKeys - 1 > front;
   }
   __device__ __forceinline__ bool keep(int key, int r) const {
     return key <= qpos[r];
@@ -321,26 +339,10 @@ ragged_prefill_tc_kernel(const __grid_constant__ PrefillParams p) {
     float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};   // l: this lane's share
 
     mbar_wait(q_bar, 0);
-    if constexpr (D == 64) {
-      // the tiles this warpgroup sees: every key up to its last row's
-      const int last = tok_last < tok_first ? 0 :
-          min(n_tiles, (first_q + tok_last) / BN + 1);
-      const PagedRows rows{scale * kLog2e, {qpos[0], qpos[1]},
-                           first_q + tok_first};
-      dswg::first_turn(wg);
-      dswg::attend_tiles<E, 64, kStages, kTile>(rows, q_addr, smem_u32(kv_s),
-                                                full, empty, 0, n_tiles, 0,
-                                                last, 0, t, o, m, l);
-    } else {
-      // S: kKeys / 2 fp32 accumulators a thread (an m64n128 product, or
-      // m64n64 at D = 256), P: half as many registers.  fp16 at D = 256
-      // enters P into O += P V as two fp16 terms, the rounded value and
-      // the rest (as the split-key decode body does), so O is one rounding
-      // of an fp32 value: with P rounded once its error vs the exact
-      // answer reached an ulp of fp16, and the fp16 rule compares the
-      // output with the exact answer rounded to fp16
+    if constexpr (D == 128) {
+      // S, the softmax and P V in series in each warpgroup, the two
+      // warpgroups in step (the products are long enough at this head dim)
       constexpr int kS = kKeys / 2;
-      constexpr bool kTwoTerms = is_f16<E>() && D == 256;
       for (int it = 0; it < n_tiles; ++it) {
         const int st = it % kStages, k0 = it * kKeys;
         // no real row (tok_last < tok_first) or every key past the last one
@@ -355,10 +357,7 @@ ragged_prefill_tc_kernel(const __grid_constant__ PrefillParams p) {
           for (int kk = 0; kk < D / 16; ++kk) {
             const uint64_t qd = desc_kmajor(q_addr + kslice(kk, kQBox));
             const uint64_t kd = desc_kmajor(k_addr + kslice(kk, kKVBox));
-            if constexpr (kKeys == 128)
-              wgmma_ss_n128<E>(sc, qd, kd, kk > 0);
-            else
-              wgmma_ss_n64<E>(sc, qd, kd, kk > 0);
+            wgmma_ss_n128<E>(sc, qd, kd, kk > 0);
           }
           wgmma_commit();
           wgmma_wait<0>();
@@ -396,18 +395,10 @@ ragged_prefill_tc_kernel(const __grid_constant__ PrefillParams p) {
           }
 #pragma unroll
           for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i / 2) % 2];
-          uint32_t pa[kS / 2], pl[kTwoTerms ? kS / 2 : 1];
+          uint32_t pa[kS / 2];
           acc_to_a<E>(sc, pa);
-          if constexpr (kTwoTerms) {
-            // the rest of P, rounded: P V as P_hi V + P_lo V
-#pragma unroll
-            for (int i = 0; i < kS / 2; ++i)
-              pl[i] = pack2<E>(sc[2 * i] - dsdecode::half_f<E>(pa[i], 0),
-                               sc[2 * i + 1] - dsdecode::half_f<E>(pa[i], 1));
-          }
           fence_regs(o);
           fence_regs(pa);
-          if constexpr (kTwoTerms) fence_regs(pl);
           wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < kKeys / 16; ++kk) {
@@ -415,20 +406,27 @@ ragged_prefill_tc_kernel(const __grid_constant__ PrefillParams p) {
             const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
                                    pa[4 * kk + 3]};
             wgmma_rs<E, D>(o, a, vd);
-            if constexpr (kTwoTerms) {
-              const uint32_t b[4] = {pl[4 * kk], pl[4 * kk + 1],
-                                     pl[4 * kk + 2], pl[4 * kk + 3]};
-              wgmma_rs<E, D>(o, b, vd);
-            }
           }
           wgmma_commit();
           wgmma_wait<0>();
           fence_regs(o);
           fence_regs(pa);
-          if constexpr (kTwoTerms) fence_regs(pl);
         }
         mbar_arrive(&empty[st]);
       }
+    } else {
+      // the shared consumer: the tiles this warpgroup sees, every key up
+      // to its last row's; at 64, 80 and 96 in FA3's order, at 256 each
+      // tile in series (FA3's order spilled there in the flash forward),
+      // turns for the products at every head dim
+      const int last = tok_last < tok_first ? 0 :
+          min(n_tiles, (first_q + tok_last) / kKeys + 1);
+      const PagedRows<kKeys> rows{scale * kLog2e, {qpos[0], qpos[1]},
+                                  first_q + tok_first};
+      dswg::first_turn(wg);
+      dswg::attend_tiles<E, D, kStages, kTile, D != 256>(
+          rows, q_addr, smem_u32(kv_s), full, empty, 0, n_tiles, 0, last, 0,
+          t, o, m, l);
     }
 
 #pragma unroll
@@ -604,7 +602,7 @@ extern "C" int ds_ragged_paged_attention(
   const int* sot = static_cast<const int*>(seq_of_tile);
   const int* qot = static_cast<const int*>(qtile_of_tile);
   if (tensor_cores) {
-    const int keys = tc::tile_keys(D);
+    const int keys = dswg::tile_keys(D);
     const int box_rows = page_size < keys ? page_size : keys;
     if (dtype == 0 || 64 % group != 0 || q_tile != tc::BM / group ||
         (page_size % keys != 0 &&

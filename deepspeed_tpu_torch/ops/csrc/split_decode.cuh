@@ -52,7 +52,8 @@
 //   log2(LPR) shuffles.  The online softmax is fp32 in base 2 (q
 //   prescaled by scale * log2 e); each lane accumulates P V for its own
 //   keys' V slices.
-// * Tensor cores (5-8 rows, bf16 / fp16): mma.sync.m16n8k16, the rows as
+// * Tensor cores (5-8 rows, bf16 / fp16, at 64 and 128, and at 80 and 96
+//   over chunks under kStagedRowsKeys keys): mma.sync.m16n8k16, the rows as
 //   the 8 columns of an n8 tile, so nothing is padded.  A block has 8
 //   warps, and a warp takes 16 keys at a time: S^T = K Q^T (16 keys x 8
 //   rows, fp32) from K rows loaded straight into A-operand registers -- a
@@ -105,13 +106,15 @@
 //   it.
 // * One row at D = 80, 96 and 256 (bf16 / fp16: the MHA decode steps of
 //   gpt_2_7b, Phi-3-mini and Gemma-7B) over chunks of kStagedOneRowKeys
-//   keys and up: the staged body too, templated on D (Staged<D>: two
-//   64-column boxes a tile at 80 and 96, whose columns past D TMA fills
-//   with zeros, and two blocks an SM), the rows past the first zero and
-//   masked.  On the CUDA-core body the serve run's 8-slot step took as
-//   long as its longest sequences' blocks: a block of 16 warps held its
-//   loads in registers and moved some 25-40 GB/s, and at 80 and 96 its
-//   256 (sequence, kv head) pairs took two waves of one block an SM.
+//   keys and up, and 5-8 rows at 80 and 96 (gpt_2_7b's speculative verify
+//   window of 5) over chunks of kStagedRowsKeys keys and up: the staged
+//   body too, templated on D (Staged<D>: two 64-column boxes a tile at 80
+//   and 96, whose columns past D TMA fills with zeros, and two blocks an
+//   SM), the rows past the real ones zero and masked.  On the CUDA-core
+//   body the serve run's 8-slot step took as long as its longest
+//   sequences' blocks: a block of 16 warps held its loads in registers
+//   and moved some 25-40 GB/s, and at 80 and 96 its 256 (sequence, kv
+//   head) pairs took two waves of one block an SM.
 //   Neither finer chunks (their empty blocks and the combine) nor one
 //   wave of short units balanced over the step (each unit a chain of
 //   dependent loads) beat it; streaming through shared memory did:
@@ -119,7 +122,13 @@
 //   256 (NVIDIA H100 80GB HBM3, 700 W; scripts/decode_kernel_ab.py,
 //   PERF.md).  Over shorter chunks -- a generate step's 160-key cache --
 //   the CUDA-core body keeps the row: the staged body's fixed cost read
-//   3-10% slower there.
+//   3-10% slower there.  At 5 rows and 80 / 96 the register tensor-core
+//   body held one 256-thread block an SM, so the verify window's 256
+//   (sequence, kv head) pairs took two waves: 0.0188-0.0190 ms, against
+//   0.0165-0.0171 staged in one wave of two blocks an SM; it keeps chunks
+//   under 512 keys (0.0068 against 0.0070 over a 160-key cache), and a
+//   split plan's chunks of 512 keys read best there (B=1 over 2048 keys:
+//   0.0132 ms; 0.0138 at 256, 0.0165 at 128).
 //
 // Only real rows are computed.  Merges run in a fixed order, so runs
 // repeat bit for bit: the warps in shared memory by warp index, and, when
@@ -163,16 +172,19 @@ template <typename T, int ROWS>
 constexpr bool kTensorCores = ROWS > 4 && !std::is_same<T, float>::value;
 
 // Whether ROWS rows of T at head dim D take the staged tensor-core body:
-// 5-8 rows at 256, and one row (the MHA decode step) at 80, 96 and 256,
-// in bf16 / fp16 -- one row only where the launch's chunks hold at least
-// kStagedOneRowKeys keys (launch_split): over shorter ones (a generate
-// step's 160-key cache) the CUDA-core body's smaller fixed cost wins.
+// 5-8 rows and one row (the MHA decode step) at 80, 96 and 256, in bf16 /
+// fp16 -- one row only where the launch's chunks hold at least
+// kStagedOneRowKeys keys, 5-8 rows at 80 and 96 only where they hold at
+// least kStagedRowsKeys (launch_split; ops/cuda/decode_attention.py
+// staged() mirrors both): over shorter ones (a generate step's 160-key
+// cache) the CUDA-core body's and the register tensor-core body's smaller
+// fixed costs win.
 template <typename T, int ROWS, int D>
 constexpr bool kStaged =
     !std::is_same<T, float>::value &&
-    ((ROWS > 4 && D == 256) ||
-     (ROWS == 1 && (D == 80 || D == 96 || D == 256)));
+    (ROWS > 4 || ROWS == 1) && (D == 80 || D == 96 || D == 256);
 constexpr int kStagedOneRowKeys = 512;
+constexpr int kStagedRowsKeys = 512;
 
 // Blocks of the combine kernel a sequence's rows take: one a row after the
 // staged body, whose short chunks leave the combine a larger share of a
@@ -901,8 +913,8 @@ split_staged_kernel(const __grid_constant__ SplitParams<Seqs> p) {
   constexpr int kWarps = S::kConsumerWarps;
   constexpr int kSteps = S::kSteps;
   static_assert(kStaged<T, ROWS, D>,
-                "5-8 rows at head dim 256, or one row at 80, 96 and 256; "
-                "bf16 or fp16");
+                "5-8 rows or one row at head dims 80, 96 and 256; bf16 or "
+                "fp16");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -1264,14 +1276,23 @@ cudaError_t split_smem_attr() {
 template <typename T, int ROWS, typename Seqs>
 int launch_split(const SplitParams<Seqs>& p, int Z, cudaStream_t stream) {
   const dim3 grid(p.n_split, p.Hkv, Z);
-  // one row over short chunks (a generate step's cache): the CUDA-core body
-  bool cuda_cores = false;
+  // over short chunks (a generate step's cache) one row takes the
+  // CUDA-core body, 5-8 rows at 80 and 96 the register tensor-core body
+  bool cuda_cores = false, registers = false;
   if constexpr (kStaged<T, ROWS, Seqs::kDim> && ROWS == 1)
     cuda_cores = p.chunk < kStagedOneRowKeys;
+  if constexpr (kStaged<T, ROWS, Seqs::kDim> && ROWS > 4 &&
+                Seqs::kDim <= 128)
+    registers = p.chunk < kStagedRowsKeys;
   if constexpr (kStaged<T, ROWS, Seqs::kDim>) {
     if (cuda_cores) {
       if constexpr (ROWS == 1)
         split_kernel<T, ROWS, Seqs>
+            <<<grid, Layout<T, Seqs::kDim, ROWS>::WARPS * 32, 0, stream>>>(
+                p);
+    } else if (registers) {
+      if constexpr (ROWS > 4 && Seqs::kDim <= 128)
+        split_tc_kernel<T, ROWS, Seqs>
             <<<grid, Layout<T, Seqs::kDim, ROWS>::WARPS * 32, 0, stream>>>(
                 p);
     } else {

@@ -1,7 +1,7 @@
 // The consumer warpgroup of the tensor-core attention kernels at head dims
-// 64, 80, 96 and 256: the flash forward (flash_attention_fwd.cu) runs it
-// over its K/V ring at all four, the ragged paged prefill tiles
-// (ragged_paged_attention.cu) at 64.
+// 64, 80, 96 and 256: the flash forward (flash_attention_fwd.cu) and the
+// ragged paged prefill tiles (ragged_paged_attention.cu) run it over their
+// K/V rings at all four.
 //
 // Why a body of its own at these head dims.  A 64-row warpgroup's share of
 // a 128 x 128 tile is two products of 2 * 64 * 128 * D flops each (S = Q
@@ -19,8 +19,11 @@
 //
 // What this body does about it (each step timed on its own at gpt_350m's
 // training shape by scripts/flash_kernel_ab.py, and at gpt_760m's and
-// gpt_2_7b's for D = 96 and 80, Gemma-2B's for 256; PERF.md has the
-// numbers):
+// gpt_2_7b's for D = 96 and 80, Gemma-2B's for 256; for the prefill tiles
+// by scripts/decode_kernel_ab.py --prefill at the serving phases' shapes,
+// where it read 0.85-0.89 of the in-step body's time at 80 and 96 and
+// 0.91-0.96 at 256 (bf16) on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md
+// has the numbers):
 //   * fewer FP32 operations a score: the row max is taken on the raw
 //     product (the softmax scale is positive, so the max commutes with
 //     it) and scale * log2(e) is folded into the one FFMA that feeds ex2;
@@ -40,6 +43,11 @@
 //     work item gives each warpgroup n_tiles + 1 turns, tiles it does not
 //     see included, so the turns stay paired whatever the masks skip.
 //   * a K/V stage is released once the product that read it retired.
+//
+// In fp16 P enters P V rounded once, as in SDPA.  (Two fp16 terms, the
+// rounded value and the rest, kept O one rounding of an fp32 value at
+// twice the P V products: 1.19-1.27x the time of B4's prefill tiles at
+// 256, whose fp16 outputs hold the fp16 rule with P rounded once.)
 //
 // Tiles: Q is 128 rows and K and V kKeys rows (128; 64 at D = 256) of
 // boxes<D>() 64-column boxes (one at D = 64, two at 80 and 96, whose

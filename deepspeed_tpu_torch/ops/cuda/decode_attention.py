@@ -32,23 +32,26 @@ HEAD_DIMS = (64, 80, 96, 128, 256)
 # split pays for the merge only from DECODE_MIN_CHUNK_TC keys on; shorter
 # chunks cost more than they save at the serving shapes, also when few
 # (sequence, kv head) pairs leave most of the card idle (PERF.md §6).
-# At head dim 256 the tensor-core body is the staged one (``kStaged``: K
-# and V streamed through shared memory in 64-key tiles, two consumer
-# groups taking tiles in turn): a chunk of DECODE_MIN_CHUNK_STAGED keys
-# keeps both groups busy, so a few (sequence, kv head) pairs -- Gemma-2B
-# has one kv head -- spread over the card.  Shorter chunks split a 144-key
-# step that one block finishes sooner (PERF.md §6).  One query row a kv
-# head at head dims 80, 96 and 256 (STAGED_ONE_ROW_HEAD_DIMS: the MHA
-# decode steps of gpt_2_7b, Phi-3-mini and Gemma-7B) takes the staged body
-# too where its chunks hold STAGED_ONE_ROW_KEYS keys or more -- a long
-# sequence's block streamed too slowly on the CUDA-core body -- and keeps
-# the CUDA-core body and its plan over shorter ones (:func:`staged`).
+# At head dims 80, 96 and 256 (STAGED_HEAD_DIMS) the tensor-core body is
+# the staged one (``kStaged``: K and V streamed through shared memory in
+# 64-key tiles, two consumer groups taking tiles in turn): a chunk of
+# DECODE_MIN_CHUNK_STAGED keys keeps both groups busy, so a few (sequence,
+# kv head) pairs -- Gemma-2B has one kv head -- spread over the card.
+# Shorter chunks split a 144-key step that one block finishes sooner
+# (PERF.md §6).  At 80 and 96 it takes 5-8 rows (gpt_2_7b's verify
+# window) where its chunks hold STAGED_ROWS_KEYS keys or more.  One query
+# row a kv head at those head dims (the MHA decode steps of gpt_2_7b,
+# Phi-3-mini and Gemma-7B) takes the staged body too where its chunks hold
+# STAGED_ONE_ROW_KEYS keys or more -- a long sequence's block streamed too
+# slowly on the CUDA-core body -- and keeps the CUDA-core body and its plan
+# over shorter ones (:func:`staged`).
 DECODE_ROWS = 8
 DECODE_MIN_CHUNK = 512
 DECODE_MIN_CHUNK_TC = 2048
 DECODE_MIN_CHUNK_STAGED = 128
-STAGED_ONE_ROW_HEAD_DIMS = (80, 96, 256)
+STAGED_HEAD_DIMS = (80, 96, 256)
 STAGED_ONE_ROW_KEYS = 512      # split_decode.cuh kStagedOneRowKeys
+STAGED_ROWS_KEYS = 512         # split_decode.cuh kStagedRowsKeys
 _slots = {}   # (entry, device index, rows, head dim, dtype code) -> blocks
 
 
@@ -93,28 +96,33 @@ decode_attention_plain.calls = 0
 def staged(rows, dtype, head_dim, chunk):
     """Whether a decode launch of ``rows`` query rows per kv head in chunks
     of ``chunk`` keys runs the staged body (``kStaged`` and
-    ``launch_split`` in ``ops/csrc/split_decode.cuh``): bf16 or fp16, 5-8
-    rows at head dim 256, or one row at STAGED_ONE_ROW_HEAD_DIMS over
-    chunks of STAGED_ONE_ROW_KEYS keys and up."""
-    if dtype not in (torch.bfloat16, torch.float16):
+    ``launch_split`` in ``ops/csrc/split_decode.cuh``): bf16 or fp16 at
+    STAGED_HEAD_DIMS, 5-8 rows (at 80 and 96 over chunks of
+    STAGED_ROWS_KEYS keys and up), or one row over chunks of
+    STAGED_ONE_ROW_KEYS keys and up."""
+    if dtype not in (torch.bfloat16, torch.float16) or \
+            head_dim not in STAGED_HEAD_DIMS:
         return False
     if rows > 4:
-        return head_dim == 256
-    return rows == 1 and head_dim in STAGED_ONE_ROW_HEAD_DIMS and \
-        chunk >= STAGED_ONE_ROW_KEYS
+        return head_dim == 256 or chunk >= STAGED_ROWS_KEYS
+    return rows == 1 and chunk >= STAGED_ONE_ROW_KEYS
 
 
 def min_chunk(rows, dtype, head_dim):
     """The shortest key chunk a decode launch of ``rows`` query rows per kv
     head at ``head_dim`` splits into: on the tensor-core bodies (5-8 rows
-    in bf16 or fp16) DECODE_MIN_CHUNK_STAGED at head dim 256 (the staged
-    body) and DECODE_MIN_CHUNK_TC below; on the CUDA-core body (1-4 rows,
-    and fp32 at any row count) and the one-row staged body
-    DECODE_MIN_CHUNK, which is STAGED_ONE_ROW_KEYS: a split one-row plan
-    always takes the staged body."""
+    in bf16 or fp16) DECODE_MIN_CHUNK_STAGED at 256 and STAGED_ROWS_KEYS
+    at 80 and 96 (the staged body, which chunks that long take; 512 keys
+    read best there) and DECODE_MIN_CHUNK_TC at 64 and 128; on the
+    CUDA-core body (1-4 rows, and fp32 at any row count) and the one-row
+    staged body DECODE_MIN_CHUNK, which is STAGED_ONE_ROW_KEYS: a split
+    plan always takes the staged body where it is staged at all."""
     if rows <= 4 or dtype not in (torch.bfloat16, torch.float16):
         return DECODE_MIN_CHUNK
-    return DECODE_MIN_CHUNK_STAGED if head_dim == 256 else DECODE_MIN_CHUNK_TC
+    if head_dim == 256:
+        return DECODE_MIN_CHUNK_STAGED
+    return STAGED_ROWS_KEYS if head_dim in STAGED_HEAD_DIMS else \
+        DECODE_MIN_CHUNK_TC
 
 
 def key_splits(pairs, S_max, slots, least=DECODE_MIN_CHUNK):

@@ -30,7 +30,14 @@ sets (more than the 50 MB L2), bf16, at the main paths' shapes of
 * B6: ``SparseSelfAttention``'s four cases (Fixed block 16 and BigBird
   block 64, head dims 64 and 128, B=2, S=4096, 16 heads).
 
-``--cases decode`` times the B4 decode and B5 cases alone.  Beside each:
+``--cases decode`` times the B4 decode and B5 cases alone.  ``--head-dim
+80 96 256`` times, instead, B4 at those head dims at the serving phases'
+shapes: the prefill buckets 512 and 1024 and the 256-token chunk at start
+512 (B=1; gpt_2_7b's 32 heads of 80, the Phi-3-mini shape's 32 of 96,
+Gemma-7B's 16 of 256, and at buckets also Gemma-2B's 8 over one kv head)
+and the speculative verify window [8, 5] (MHA), in ``--dtype`` bf16 or
+fp16, with B1's forward on the same work beside the buckets (a prompt
+prefilled from its first token is B1's causal attention).  Beside each:
 SDPA on the same inputs (a yardstick, never the port's path), and the
 kernel's max abs error against its plain version run in fp32.  Prints one
 line per (tree, case) and writes every number, with the card's name and
@@ -63,7 +70,81 @@ def _smoke():
     return mod
 
 
-def worker(tree, cases):
+# --head-dim: (label, H, Hkv, D, T, tokens reserved, context)
+HEAD_DIM_CASES = {
+    D: [(f"B4 prefill T=512 H{H}/{Hkv} D={D}", H, Hkv, D, 512, 543, 512),
+        (f"B4 prefill T=1024 H{H}/{Hkv} D={D}", H, Hkv, D, 1024, 1024,
+         1024)]
+    + ([(f"B4 chunk T=256 at start 512 H{H}/{Hkv} D={D}", H, Hkv, D, 256,
+         1056, 768)] if Hkv == H else [])
+    for D, H, Hkv in ((80, 32, 32), (96, 32, 32), (256, 16, 16))}
+HEAD_DIM_CASES[256] += [(f"B4 prefill T={T} H8/1 D=256", 8, 1, 256, T,
+                         need, T) for T, need in ((512, 543), (1024, 1024))]
+
+
+def head_dim_cases(sm, head_dims, dtype, gen):
+    """{label: numbers} of HEAD_DIM_CASES and the verify window at
+    ``head_dims``."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.cuda.flash_attention import \
+        flash_attention_fwd_cuda
+    from deepspeed_tpu_torch.ops.cuda.ragged_paged_attention import (
+        paged_attention_plain, ragged_paged_attention_rect)
+    dn = str(dtype).split(".")[-1]
+    prompts = sm.SERVE_PROMPTS[:sm.SERVE_SLOTS]
+    res = {}
+    for D in head_dims:
+        todo = [(label, H, Hkv, Dh, T, [need], [ctx]) for
+                label, H, Hkv, Dh, T, need, ctx in HEAD_DIM_CASES[D]]
+        H = 16 if D == 256 else 32
+        todo.append((f"B4 verify window [8, 5] H{H}/{H} D={D}", H, H, D,
+                     sm.SPEC_GAMMA + 1, [p + sm.SERVE_NEW for p in prompts],
+                     [p + 9 for p in prompts]))
+        for label, H, Hkv, Dh, T, needs, ctx in todo:
+            c, B = 4, len(ctx)
+            states = [sm._engine_state(needs, Hkv, Dh, dtype, gen)
+                      for _ in range(c)]
+            lens = torch.tensor(ctx, dtype=torch.int32, device="cuda")
+            q = sm._rand((c, B, T, H, Dh), dtype, gen)
+            tb, kp, vp = states[0]
+            want = paged_attention_plain(q[0].float(), kp.float(),
+                                         vp.float(), tb, lens)
+            err = (ragged_paged_attention_rect(q[0], kp, vp, tb, lens)
+                   .float() - want).abs().max().item()
+            Smax = tb.shape[1] * sm.SERVE_PAGE
+            dense = [tuple(x[t.long()].transpose(1, 2).reshape(
+                B, Hkv, Smax, Dh) for x in (k_, v_)) for t, k_, v_ in states]
+            qpos = lens.long()[:, None] - T + torch.arange(T, device="cuda")
+            mask = (torch.arange(Smax, device="cuda")[None, None] <=
+                    qpos[:, :, None])[:, None]
+            qs = q.transpose(2, 3).contiguous()
+            sdpa_err = (F.scaled_dot_product_attention(
+                qs[0], dense[0][0], dense[0][1], attn_mask=mask,
+                enable_gqa=Hkv != H).transpose(1, 2).float() - want
+            ).abs().max().item()
+            r = dict(ms=sm.graph_ms(lambda i: ragged_paged_attention_rect(
+                q[i], states[i][1], states[i][2], states[i][0], lens), c),
+                sdpa_ms=sm.graph_ms(
+                    lambda i: F.scaled_dot_product_attention(
+                        qs[i], dense[i][0], dense[i][1], attn_mask=mask,
+                        enable_gqa=Hkv != H), c),
+                bound_ms=sm._bound(*sm.paged_work(ctx, T, H, Hkv, Dh, 2),
+                                   dn)[0],
+                max_abs_err=err, sdpa_max_abs_err=sdpa_err)
+            if ctx == [T]:        # a prompt from its first token: B1's work
+                kv = [tuple(x[:, :, :T].transpose(1, 2).contiguous()
+                            for x in d) for d in dense]
+                r["b1_ms"] = sm.graph_ms(lambda i: flash_attention_fwd_cuda(
+                    q[i], kv[i][0], kv[i][1], 1.0 / math.sqrt(Dh)), c)
+                del kv
+            res[f"{label} {dn}"] = r
+            del states, dense, q, qs, want
+            torch.cuda.empty_cache()
+    return res
+
+
+def worker(tree, cases, head_dims=(), dtypes=("bf16",)):
     """Times one tree's kernels; prints one JSON line of results."""
     sys.path.insert(0, os.path.abspath(tree))
     import torch
@@ -81,13 +162,22 @@ def worker(tree, cases):
     from deepspeed_tpu_torch.ops.cuda.ragged_paged_attention import (
         paged_attention_plain, ragged_paged_attention_rect)
     sm = _smoke()
-    sources = SOURCES if cases == "all" else \
+    sources = SOURCES if cases == "all" or head_dims else \
         ("ragged_paged_attention", "decode_attention")
     t0 = time.time()
     op_builder.build(tuple(n for n in op_builder.SIGNATURES
                            if op_builder.SIGNATURES[n][0] in sources))
     build_s = time.time() - t0
     gen = torch.Generator(device="cuda").manual_seed(31)
+    if head_dims:
+        res = {}
+        for dn in dtypes:
+            res.update(head_dim_cases(sm, head_dims, torch.float16
+                                      if dn == "fp16" else torch.bfloat16,
+                                      gen))
+        print(json.dumps({"tree": tree, "build_s": build_s, "results": res}),
+              flush=True)
+        return
     bf = torch.bfloat16
     H, D = 32, 128
     res = {}
@@ -264,10 +354,15 @@ def main():
         REPO, "deepspeed_tpu_torch", "_build", "ab_serving.json"))
     ap.add_argument("--cases", choices=("all", "decode"), default="all",
                     help="decode: the B4 decode and B5 cases alone")
+    ap.add_argument("--head-dim", type=int, nargs="+", choices=(80, 96, 256),
+                    default=[], help="B4's prefill, chunk and verify-window "
+                    "shapes at these head dims instead")
+    ap.add_argument("--dtype", nargs="+", choices=("bf16", "fp16"),
+                    default=["bf16"], help="with --head-dim")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        return worker(args.worker, args.cases)
+        return worker(args.worker, args.cases, args.head_dim, args.dtype)
     if not args.parent:
         ap.error("--parent is required")
     import torch
@@ -280,8 +375,11 @@ def main():
     runs = []
     for label, tree in (("parent", args.parent), ("change", args.change),
                         ("change", args.change), ("parent", args.parent)):
+        extra = (["--head-dim", *map(str, args.head_dim), "--dtype",
+                  *args.dtype] if args.head_dim else [])
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--worker", tree, "--cases", args.cases],
+                               "--worker", tree, "--cases", args.cases,
+                               *extra],
                               capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             sys.exit(f"{label} ({tree}) failed:\n{proc.stdout[-3000:]}\n"
@@ -295,9 +393,11 @@ def main():
                       flush=True)
                 continue
             extra = f", B1 {r['b1_ms']:.4f}" if "b1_ms" in r else ""
+            vs = (f" ({r['max_abs_err'] / r['sdpa_max_abs_err']:.2f}x "
+                  f"SDPA's)" if r.get("sdpa_max_abs_err") else "")
             print(f"{label} {case}: {r['ms']:.4f} ms (SDPA "
                   f"{r['sdpa_ms']:.4f}{extra}; bound {r['bound_ms']:.4f}), "
-                  f"max abs err {r['max_abs_err']:.2e}", flush=True)
+                  f"max abs err {r['max_abs_err']:.2e}{vs}", flush=True)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as fh:
         json.dump({"card": card, "runs": runs}, fh, indent=1)

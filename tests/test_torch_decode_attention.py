@@ -17,7 +17,8 @@ from deepspeed_tpu.ops.decode_attention import update_cache as jax_update
 from deepspeed_tpu.ops.pallas.decode_attention import decode_attention_pallas
 from deepspeed_tpu_torch.ops.cuda.decode_attention import (
     DECODE_MIN_CHUNK, DECODE_MIN_CHUNK_STAGED, DECODE_MIN_CHUNK_TC,
-    DECODE_ROWS, HEAD_DIMS, STAGED_ONE_ROW_HEAD_DIMS, STAGED_ONE_ROW_KEYS,
+    DECODE_ROWS, HEAD_DIMS, STAGED_HEAD_DIMS, STAGED_ONE_ROW_KEYS,
+    STAGED_ROWS_KEYS,
     decode_attention_cuda, decode_attention_plain, decode_splits, min_chunk,
     staged)
 from deepspeed_tpu_torch.ops.cuda.ragged_paged_attention import \
@@ -271,8 +272,11 @@ def test_decode_splits(B, T, H, Hkv, slots, want, want256, Dh, dtype):
     (8, torch.float16, 128, DECODE_MIN_CHUNK_TC),
     (8, torch.float32, 128, DECODE_MIN_CHUNK),
     (8, torch.bfloat16, 64, DECODE_MIN_CHUNK_TC),
-    (6, torch.float16, 80, DECODE_MIN_CHUNK_TC),
-    (7, torch.bfloat16, 96, DECODE_MIN_CHUNK_TC),
+    (5, torch.bfloat16, 80, STAGED_ROWS_KEYS),
+    (6, torch.float16, 80, STAGED_ROWS_KEYS),
+    (7, torch.bfloat16, 96, STAGED_ROWS_KEYS),
+    (8, torch.float16, 96, STAGED_ROWS_KEYS),
+    (5, torch.float32, 96, DECODE_MIN_CHUNK),
     (1, torch.bfloat16, 256, DECODE_MIN_CHUNK),
     (1, torch.float16, 256, DECODE_MIN_CHUNK),
     (1, torch.bfloat16, 80, DECODE_MIN_CHUNK),
@@ -290,11 +294,12 @@ def test_decode_splits(B, T, H, Hkv, slots, want, want256, Dh, dtype):
     (8, torch.float32, 256, DECODE_MIN_CHUNK)])
 def test_min_chunk_by_form(rows, dtype, Dh, want):
     """The tensor-core body (5-8 rows in bf16 or fp16) splits only into
-    chunks of DECODE_MIN_CHUNK_TC keys at head dims up to 128 and of
-    DECODE_MIN_CHUNK_STAGED at 256 (the staged body); 1-4 rows (the
-    CUDA-core body, and one row's staged body at 80, 96 and 256) and fp32
-    at any row count into chunks of DECODE_MIN_CHUNK, at every head
-    dim."""
+    chunks of DECODE_MIN_CHUNK_TC keys at head dims 64 and 128, of
+    DECODE_MIN_CHUNK_STAGED at 256 (the staged body) and of
+    STAGED_ROWS_KEYS at 80 and 96 (the staged body, which chunks that long
+    take); 1-4 rows (the CUDA-core body, and one row's staged body at 80,
+    96 and 256) and fp32 at any row count into chunks of
+    DECODE_MIN_CHUNK, at every head dim."""
     assert min_chunk(rows, dtype, Dh) == want
     slots = 32 * max(16, 8192 // want)      # enough for the least chunk
     n, c = decode_splits(1, rows, 32, 32, 8192, slots, dtype, Dh)
@@ -305,22 +310,28 @@ def test_min_chunk_by_form(rows, dtype, Dh, want):
                                    torch.float16])
 @pytest.mark.parametrize("Dh", HEAD_DIMS)
 def test_staged_body_rule(Dh, dtype):
-    """The staged body takes 5-8 rows a kv head at head dim 256, and one
-    row at 80, 96 and 256 (gpt_2_7b's, Phi-3-mini's and Gemma-7B's MHA
-    decode steps) over chunks of STAGED_ONE_ROW_KEYS keys and up, in bf16
-    / fp16; shorter one-row chunks (a generate step's 160-key cache),
-    D=64, D=128, fp32 and 2-4 rows keep their bodies.  A one-row plan that
-    splits has chunks of at least that many keys, so it is staged."""
+    """The staged body takes 5-8 rows a kv head at head dim 256 and, over
+    chunks of STAGED_ROWS_KEYS keys and up, at 80 and 96 (gpt_2_7b's
+    verify window), and one row at 80, 96 and 256 (gpt_2_7b's,
+    Phi-3-mini's and Gemma-7B's MHA decode steps) over chunks of
+    STAGED_ONE_ROW_KEYS keys and up, in bf16 / fp16; shorter chunks (a
+    generate step's 160-key cache), D=64, D=128, fp32 and 2-4 rows keep
+    their bodies.  A plan that splits has chunks of at least that many
+    keys, so it is staged."""
     for rows in range(1, DECODE_ROWS + 1):
         for chunk in (192, STAGED_ONE_ROW_KEYS - 64, STAGED_ONE_ROW_KEYS,
-                      2176):
+                      STAGED_ROWS_KEYS - 64, STAGED_ROWS_KEYS, 2176):
             want = dtype != torch.float32 and (
-                (rows > 4 and Dh == 256) or
-                (rows == 1 and Dh in STAGED_ONE_ROW_HEAD_DIMS and
+                (rows > 4 and (Dh == 256 or (Dh in (80, 96) and
+                                             chunk >= STAGED_ROWS_KEYS))) or
+                (rows == 1 and Dh in STAGED_HEAD_DIMS and
                  chunk >= STAGED_ONE_ROW_KEYS))
             assert staged(rows, dtype, Dh, chunk) == want
-    assert STAGED_ONE_ROW_HEAD_DIMS == (80, 96, 256)
+    assert STAGED_HEAD_DIMS == (80, 96, 256)
     assert min_chunk(1, dtype, Dh) >= STAGED_ONE_ROW_KEYS
+    if Dh in (80, 96) and dtype != torch.float32:
+        assert all(min_chunk(r, dtype, Dh) >= STAGED_ROWS_KEYS
+                   for r in range(5, DECODE_ROWS + 1))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
@@ -338,6 +349,24 @@ def test_one_row_plans(Dh, H, slots, dtype):
                              (4, 160, (1, 192), False)):
         n, c = decode_splits(B, 1, H, H, S, slots, dtype, Dh)
         assert (n, c) == want and staged(1, dtype, Dh, c) == body
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("Dh", [80, 96])
+@pytest.mark.parametrize("T", [5, 8])
+def test_staged_rows_plans(T, Dh, dtype):
+    """5-8 rows a kv head at head dims 80 and 96 (MHA, T tokens a
+    sequence: gpt_2_7b's verify window of 5) on two staged blocks an SM:
+    the serve run's 8 slots over a table of 17 pages of 128 take one wave
+    of whole sequences, staged; one sequence alone over 2048 keys splits
+    into 4 chunks of 512, staged; B=4 over a 160-key cache takes one
+    chunk on the register tensor-core body."""
+    for B, S, want, body in ((8, 17 * 128, (1, 2176), True),
+                             (1, 2048, (4, 512), True),
+                             (4, 160, (1, 192), False)):
+        n, c = decode_splits(B, T, 32, 32, S, 264, dtype, Dh)
+        assert (n, c) == want and staged(T, dtype, Dh, c) == body
+        assert n == 1 or c >= min_chunk(T, dtype, Dh)
 
 
 def test_update_cache_raises_past_the_buffer():

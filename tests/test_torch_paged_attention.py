@@ -645,6 +645,12 @@ TC80_96_CASES = [  # (name, Dh, Hq, Hkv, page, q_lens, ctx_lens)
      [230, 40, 9]),
     ("d96_group8_page128_chunk_256_at_start_512", 96, 8, 1, 128, [256, 1],
      [768, 300]),
+    # a causal frontier on a K/V tile's edge (start 256) and a key before
+    # it (start 255), the prefill tiles on the shared consumer
+    ("d80_group1_page128_frontier_on_a_tile_edge", 80, 2, 2, 128, [128, 1],
+     [384, 300]),
+    ("d96_group1_page16_frontier_a_key_before_a_tile_edge", 96, 2, 2, 16,
+     [130, 5], [385, 40]),
 ]
 
 
@@ -725,6 +731,9 @@ TC256_CASES = [  # (name, Hq, Hkv, page, q_lens, ctx_lens): head dim 256
     ("group1_page128_ragged_last_tile", 2, 2, 128, [150, 1, 5],
      [170, 200, 9]),
     ("group8_page16_chunk_at_start_128", 8, 1, 16, [64, 1], [192, 40]),
+    # frontiers on a 64-key tile's edge and a key past it, group 4
+    ("group4_page16_frontier_on_a_tile_edge", 8, 2, 16, [64, 65],
+     [192, 193]),
 ]
 
 
@@ -755,3 +764,36 @@ def test_launch_plan_tensor_cores_head_dim_256(name, Hq, Hkv, page, q_lens,
                       jnp.asarray(tables), jnp.asarray(ctx_lens, jnp.int32),
                       q_lens, interpret=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(kern), **TOL)
+
+
+@pytest.mark.parametrize("T,start,group,D", [
+    (512, 0, 1, 80), (1024, 0, 1, 96), (256, 512, 1, 80), (512, 0, 1, 256),
+    (1024, 0, 8, 256), (256, 512, 1, 256), (200, 511, 4, 256),
+    (128, 1900, 8, 96)])
+def test_prefill_items_cover_each_pair_once(T, start, group, D):
+    """The serving phases' prefills (buckets 512 and 1024 from the first
+    token, a 256-token chunk at start 512) and the smoke's frontier cases
+    at head dims 80, 96 and 256 (bf16 and fp16: the tensor-core tiles, as
+    before at pages 16 and 128): each tile of the plan is one block a kv
+    head, walking its K/V tiles (128 keys; 64 at 256) to its causal
+    frontier, so each (token, key) pair a row sees is read by exactly one
+    block a kv head, no key past the frontier is loaded beyond the last
+    tile's, and the tiles with the most keys come first."""
+    for dt in (torch.bfloat16, torch.float16):
+        for page in (16, 128):
+            assert tensor_core_prefill(dt, D, group, page)
+    assert not tensor_core_prefill(torch.float32, D, group, 128)
+    plan = plan_launch([T], group, True)
+    keys = 64 if D == 256 else 128
+    walks, seen = [], {}
+    for qt in plan.qtile_of_tile.tolist():
+        toks = range(qt * plan.q_tile, min(T, (qt + 1) * plan.q_tile))
+        frontier = start + min(T, (qt + 1) * plan.q_tile)
+        walks.append(-(-frontier // keys))
+        assert walks[-1] * keys - frontier < keys
+        for t in toks:
+            assert t not in seen
+            seen[t] = frontier
+            assert start + t + 1 <= frontier      # the row's keys loaded
+    assert sorted(seen) == list(range(T))
+    assert walks == sorted(walks, reverse=True)   # most keys first

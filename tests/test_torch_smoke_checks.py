@@ -254,13 +254,19 @@ _SASS_NEW = """
         /*0220*/                   WARPGROUP.DEPBAR.LE gsb0, 0x1 ;
                 Function : _ZN66_GLOBAL__N__0_25_ragged_paged_attention_cu_029ragged_paged_attention_kernelIfLi128ELi16EEEvPKT_S3_S3_PS1_PKiS6_S6_S6_S6_S6_iiiiif
         /*0100*/                   FFMA R1, R2, R3, R4 ;
+                Function : _ZN66_GLOBAL__N__0_25_ragged_paged_attention_cu_024ragged_prefill_tc_kernelI6__halfLi256EEEvNS_13PrefillParamsE
+        /*0100*/                   UTMALDG.3D [UR8], [UR4] ;
+        /*0110*/                   UTMALDG.2D [UR12], [UR4] ;
+        /*0200*/                   HGMMA.64x64x16.F32.F16 R24, gdesc[UR8], RZ, !UPT ;
+        /*0210*/                   HGMMA.64x256x16.F32.F16 R88, R152, gdesc[UR12], R88, gsb0 ;
+        /*0220*/                   WARPGROUP.DEPBAR.LE gsb0, 0x0 ;
 """
 
 
 def test_sass_counts_reads_the_sparse_and_prefill_instantiations():
     """B6's tensor-core kernel by element type (bf16, fp16), block and head
     dim; B4's prefill kernel by element type (bf16, fp16) and head dim
-    (64, 80, 96, 128); their CUDA-core kernels are not counted."""
+    (64, 80, 96, 128, 256); their CUDA-core kernels are not counted."""
     kernels = dict((k, s) for s, k in chip_smoke.TENSOR_CORE_KERNELS)
     assert kernels["sparse_tc_kernel"] == "sparse_attention"
     assert kernels["ragged_prefill_tc_kernel"] == "ragged_paged_attention"
@@ -269,7 +275,7 @@ def test_sass_counts_reads_the_sparse_and_prefill_instantiations():
         ("fp16", 32, 128): (2, 1, 0)}
     assert chip_smoke.sass_counts(_SASS_NEW, "ragged_prefill_tc_kernel") == {
         ("bf16", 128): (1, 2, 0), ("fp16", 128): (2, 1, 0),
-        ("bf16", 64): (2, 1, 1)}
+        ("bf16", 64): (2, 1, 1), ("fp16", 256): (2, 2, 1)}
     # every template's expected instantiations: 4 flash forms x (bf16,
     # fp16) x head dims (64, 80, 96, 128, 256), (bf16, fp16) x 4 blocks x
     # 2 head dims sparse, (bf16, fp16) x (64, 80, 96, 128, 256)
@@ -576,7 +582,25 @@ def test_gemma_train_launches_match_a_counted_run():
     ("void (anonymous namespace)::flash_bwd_dq_kernel<__nv_bfloat16, false, "
      "false, 64>((anonymous namespace)::DqParams)", True),
     ("_ZN55_GLOBAL__N__0_22_flash_attention_bwd_cu_020flash_bwd_dkv_"
-     "kernelI6__halfLb1ELb1ELi64EEEvNS_9DkvParamsE", True)])
+     "kernelI6__halfLb1ELb1ELi64EEEvNS_9DkvParamsE", True),
+    # B4's prefill tiles on the shared consumer at 80, 96 and 256, and the
+    # staged decode body at 5-8 rows at 80 and 96 (gpt_2_7b's verify
+    # window) and its combine
+    ("void (anonymous namespace)::ragged_prefill_tc_kernel<__half, 80>("
+     "(anonymous namespace)::PrefillParams)", True),
+    ("_ZN66_GLOBAL__N__0_25_ragged_paged_attention_cu_024ragged_prefill_"
+     "tc_kernelI13__nv_bfloat16Li96EEEvNS_13PrefillParamsE", True),
+    ("void (anonymous namespace)::ragged_prefill_tc_kernel<__nv_bfloat16, "
+     "256>((anonymous namespace)::PrefillParams)", True),
+    ("void dsdecode::combine_kernel<__half, 5, (anonymous namespace)::"
+     "PagedSeqs<80> >(dsdecode::SplitParams<(anonymous namespace)::"
+     "PagedSeqs<80> >)", True),
+    ("void dsdecode::split_staged_kernel<__nv_bfloat16, 5, (anonymous "
+     "namespace)::PagedSeqs<80> >(dsdecode::SplitParams<(anonymous "
+     "namespace)::PagedSeqs<80> >)", True),
+    ("_ZN8dsdecode19split_staged_kernelI6__halfLi8EN58_GLOBAL__N__0_19_"
+     "decode_attention_cu_014ContiguousSeqsILi96EEEEEvNS_11SplitParamsIT1_"
+     "EE", True)])
 def test_must_not_spill_names_decode_and_d64_consumers(kernel, want):
     """The build phase fails on a spill in the split-key decode body, in
     every bf16 / fp16 head-dim-64 instantiation of B1's forward and B4's
@@ -745,6 +769,18 @@ def test_expected_b4_launches_match_a_counted_run(kind):
     if kind == "speculative":
         assert draft == st["draft_calls"] > 0
     assert chip_smoke.prefill_chunks([17, 8, 1], 8, cached=[8, 0, 0]) == 4
+
+
+def test_expected_b4_launches_count_a_call_once():
+    """A B4 wrapper call counts one launch whatever it launches (the
+    decode form's chunks and combine, the prefill tiles): the smoke's
+    launch formula is a layer a model call, target and draft."""
+    st = {"prefill_chunks": 5, "decode_steps": 7, "spec_windows": 3}
+    assert chip_smoke.expected_b4_launches(28, st, n_prefills=2) == (
+        28 * 14, 14, 3)
+    assert chip_smoke.expected_b4_launches(
+        14, st, decode_chunk=4, draft_layers=9, gamma=4, draft_chunks=6) == (
+        14 * 33 + 9 * 21, 33, 21)
 
 
 # --------------------------------------- serving at head dims 80 and 96
