@@ -16,8 +16,10 @@ Gemma-2B shape (head dim 256) at full width and depth through
 gpt_760m`` (head dim 96) and with ``--model gpt_2_7b`` (head dim 80),
 serves gpt_2_7b (head dim 80), a Phi-3-mini-4k-shaped model (head dim
 96) and Gemma-7B- and Gemma-2B-shaped models (head dim 256) at full width
-and depth through both serving entry points, and calls
-``SparseSelfAttention``, checking that those runs went through the
+and depth through both serving entry points, runs ``ds_report
+--kernel-gate``, ``ds_bench serving`` (gpt2_125m, then ``--model tiny``:
+head dim 16) and ``ds_bench inference`` (tiny) as a user types them, and
+calls ``SparseSelfAttention``, checking that those runs went through the
 kernels.  Phases:
 
   1 device   card name and power limit (nvidia-smi)
@@ -34,7 +36,10 @@ kernels.  Phases:
              96, 128 and 256, B6's
              block-sparse kernel at every block and head dim -- holds
              wgmma (HGMMA) and TMA loads (UTMALDG), its wgmma waits
-             (WARPGROUP.DEPBAR) printed
+             (WARPGROUP.DEPBAR) printed; no head-dim-16 instantiation
+             (CUDA-core only) may spill
+    env      (a) ``ds_report --kernel-gate``: every library compatible,
+             the build gate passes
   3 kernels  each kernel vs its plain version: fp32, bf16 and fp16 (the
              fp16 tensor-core tiles held to SDPA-fp16's error); serving
              attention MHA 32/32 and GQA 32/8 (and at the Gemma shapes'
@@ -85,7 +90,11 @@ kernels.  Phases:
              blocks 16-128, head dims 64 and 128, causal, bidirectional
              and empty rows, fp32, bf16 and fp16 (bf16 B4 prefill and B6
              outputs, which round P to bf16 in the product, under the
-             same SDPA witness; fp16 B6 under SDPA-fp16's)
+             same SDPA witness; fp16 B6 under SDPA-fp16's); B5 and B4 at
+             head dim 16 (the benches' tiny model, CUDA-core bodies only):
+             1, 2, 4 and 8 rows a kv head, lengths at and one past a
+             split's chunk edges, pages 16 and 128, the benches' own
+             calls, each call again bit for bit
   4 generate init_inference(llama2_7b).generate, B=4, prompt 128, 32 new;
              then a TinyLlama-1.1B-shaped model (22 layers, head dim 64,
              group 8) the same way, through B5 at head dim 64
@@ -117,13 +126,20 @@ kernels.  Phases:
              Gemma-2B through phases 4 and 5 in bf16 and
              fp16 (tokens vs bf16 by the divergence rule); exact
              launches, plain versions 0
+    bench    (b) ``ds_bench serving`` at its defaults (gpt2_125m, bf16, 16
+             requests x 64 tokens) and with ``--model tiny --requests 8
+             --gen 32`` (head dim 16); (c) ``ds_bench inference`` at its
+             defaults (tiny, bf16, 10 trials); their JSON lines as they
+             come, exact B4 and B5 launches, plain versions 0
   6 e2e      full width, 2 layers: paged prefill + decode, kernels vs plain;
              (a)-(d) in fp32, tokens identical to the monolithic run (the
              draft also as the target's own weights); the TinyLlama-shaped
              generate in fp32, tokens identical to the plain versions';
              at the gpt_2_7b, Phi-3-mini, Gemma-7B and Gemma-2B shapes:
              bf16 paged logits vs plain, fp32 generate and serve tokens
-             identical to the plain versions'
+             identical to the plain versions'; tiny (head dim 16) at 2
+             layers fp32, generate and serve tokens identical to the plain
+             versions'
   7 train    run_benchmark for gpt_1b (seq 1024), bloom_1b7 (ALiBi) and
              gpt_neo_1_3b (global / local window 256), seq 2048, micro 2,
              gas 4, bf16, AdamW; exact launches counted; ``ds_bench
@@ -131,7 +147,11 @@ kernels.  Phases:
              micro 8, seq 1024: the flash kernels' D=64 forms), with
              --model gpt_760m (24 layers of 16 heads of 96: D=96) and with
              --model gpt_2_7b (32 layers of 32 heads of 80: D=80) (exact
-             launches, peak memory, one train_batch profiled); the
+             launches, peak memory, one train_batch profiled; (d) the
+             no-flags run's profiled engine with steps_per_print 1 and
+             wall_clock_breakdown logs the throughput and fwd / bwd /
+             step lines, its device time within its reading before the
+             timers were ported); the
              Gemma-2B shape (GEMMA_TRAIN: 18 layers, 8 heads of 256 over
              one kv head, vocab 256000, remat) through initialize(...)
              .train_batch at seq 2048, micro 2 x gas 4, bf16 (exact
@@ -201,7 +221,8 @@ kernels.  Phases:
              80; the same at 256 (Gemma-7B's heads in bf16, Gemma-2B's
              in bf16 and fp16; chunk and verify window at Gemma-7B's);
              fused Adam held against its plain
-             version over gpt_1b's 1.01 B parameters; the window-256
+             version over gpt_1b's 1.01 B parameters; B5 and B4 at the
+             benches' shapes (tiny's head dim 16, gpt2_125m's 64); the window-256
              forward must take well under the ALiBi forward's time
 
 The second-to-last line of stdout is the kernels JSON, the last line
@@ -253,8 +274,13 @@ def fail(msg):
     sys.exit(1)
 
 
+_T0 = time.time()     # the run's start, for the seconds on every line
+
+
 def phase(name, msg):
-    print(f"[{name}] {msg}", flush=True)
+    """Print ``msg`` under phase ``name``, with the seconds since the run
+    began (where the time of a run goes)."""
+    print(f"[{name}] (+{time.time() - _T0:.1f} s) {msg}", flush=True)
 
 
 def time_ms(fn, iters=20, warmup=3):
@@ -516,9 +542,10 @@ def ptxas_usage(log):
 # 80, 96 and 256 (wgmma_attention.cuh: S, P and O in registers while
 # products run), the persistent bodies of B2 (dQ and dK/dV) at head dims
 # 64, 80 and 96, the head-dim-80 and -96 tensor-core forms of B1, and the
-# head-dim-80, -96 and -256 CUDA-core tiles of B4 and B5
+# head-dim-16, -80, -96 and -256 CUDA-core tiles of B4 and B5
 # (attention_tile.cuh); every form of B1 and B2 at head dim 256 (fp32
-# included) and B6's fp16 form; by demangled or mangled name
+# included) and B6's fp16 form; by demangled or mangled name.  Head dim
+# 16 (the benches' tiny model) has only CUDA-core forms, every one held
 NO_SPILL = (r"split_kernel|split_tc_kernel|split_staged_kernel|"
             r"combine_kernel|"
             r"flash_(fwd|bwd_dq|bwd_dkv)_kernel("
@@ -529,8 +556,15 @@ NO_SPILL = (r"split_kernel|split_tc_kernel|split_staged_kernel|"
             r"sparse_tc_kernel(<__half, |I6__half)|"
             r"ragged_prefill_tc_kernel(<(__nv_bfloat16|__half), "
             r"(64|80|96|256)>|I(13__nv_bfloat16|6__half)Li(64|80|96|256)E)|"
-            r"(ragged_paged|decode)_attention_kernel(<\w+, (80|96|256), 16>|"
-            r"I\w+Li(80|96|256)ELi16E)")
+            r"(ragged_paged|decode)_attention_kernel("
+            r"<\w+, (16|80|96|256), 16>|I\w+Li(16|80|96|256)ELi16E)")
+
+
+# the head-dim-16 instantiations (the benches' tiny model): the split-key
+# body and its combine over ContiguousSeqs<16> / PagedSeqs<16>, and the
+# CUDA-core tiles <T, 16, 16>, by demangled or mangled name
+HEAD_DIM_16 = (r"Seqs<16>|SeqsILi16E|attention_kernel<\w+, 16, 16>|"
+               r"attention_kernelI\w+Li16ELi16E")
 
 
 def must_not_spill(kernel):
@@ -551,15 +585,29 @@ def phase_build():
     dt = time.time() - t0
     phase("build", f"nvcc sm_90a, {len(logs)} kernel sources built in "
           f"{dt:.1f} s")
-    spilled = []
+    import re
+    spilled, d16 = [], []
     for source, log in logs.items():
         for kernel, (regs, st, ld) in ptxas_usage(log).items():
             phase("build", f"{source}: {kernel[:150]}: {regs} registers, "
                   f"spill stores {st} B, loads {ld} B")
             if (st or ld) and must_not_spill(kernel):
                 spilled.append(kernel)
+            if re.search(HEAD_DIM_16, kernel):
+                d16.append((regs, st + ld, must_not_spill(kernel)))
     if spilled:
         fail(f"instantiations that must not spill do: {spilled[:4]}")
+    # 3 dtypes x (8 row counts x (split + combine) + tiles) x 2 kernels
+    if logs and (len(d16) != 2 * 3 * (8 * 2 + 1) or not all(
+            held for _, _, held in d16)):
+        fail(f"head dim 16: {len(d16)} instantiations found, expected "
+             f"{2 * 3 * 17}, each held to no spill")
+    if d16:
+        phase("build", f"head dim 16: {len(d16)} instantiations (B4's and "
+              f"B5's split-key body and combine at 1-8 rows and CUDA-core "
+              f"tiles, fp32 / bf16 / fp16), {min(r for r, _, _ in d16)}-"
+              f"{max(r for r, _, _ in d16)} registers, spill bytes "
+              f"{sum(b for _, b, _ in d16)}")
     return dt
 
 
@@ -692,20 +740,21 @@ HEAD_DIMS_80_96 = (80, 96)
 GEMMA_HEADS = ((16, 16), (16, 4), (8, 1))
 
 
-def _engine_state(needs, Hkv, D, dtype, gen):
+def _engine_state(needs, Hkv, D, dtype, gen, max_seq=SERVE_MAX_SEQ):
     """K/V pools and block tables as the serving engine of phase 5 builds
     them (``ServingEngine.__init__`` / ``_admit``): 8 slots x 16 pages + the
     scratch page 0 in the pool, tables of max_seq/page columns plus the
-    overrun column, which stays 0.  Slot s reserves ``needs[s]`` tokens;
-    None is an idle slot, a row of zeros.  Pages recycled from a finished
-    request come first, as mid-run."""
+    overrun column, which stays 0 (``max_seq``: another engine's, e.g. a
+    bench's, rounded up to whole pages).  Slot s reserves ``needs[s]``
+    tokens; None is an idle slot, a row of zeros.  Pages recycled from a
+    finished request come first, as mid-run."""
     import torch
     from deepspeed_tpu_torch.ops.paged_attention import PagedAllocator
-    page, mpps = SERVE_PAGE, SERVE_MAX_SEQ // SERVE_PAGE
+    page, mpps = SERVE_PAGE, -(-max_seq // SERVE_PAGE)
     n_pages = SERVE_SLOTS * mpps + 1
     alloc = PagedAllocator(n_pages, page, mpps, reserve_scratch=True)
-    alloc.allocate("finished", 3 * page + 1)
-    alloc.allocate("busy", 5 * page)
+    alloc.allocate("finished", min(3 * page + 1, mpps * page))
+    alloc.allocate("busy", min(5 * page, mpps * page))
     alloc.free_sequence("finished")
     tables = torch.zeros((len(needs), mpps + 1), dtype=torch.int32)
     for s, n in enumerate(needs):
@@ -742,10 +791,11 @@ def phase_kernels():
     edge cases; returns max abs err per kernel and dtype."""
     import torch
     from deepspeed_tpu_torch.ops.cuda.decode_attention import (
-        DECODE_MIN_CHUNK, DECODE_ROWS, decode_attention_cuda,
-        decode_attention_plain, decode_plan, min_chunk, staged)
+        DECODE_MIN_CHUNK, DECODE_ROWS, _DTYPE_CODES, _decode_slots,
+        decode_attention_cuda, decode_attention_plain, decode_plan,
+        min_chunk, staged)
     from deepspeed_tpu_torch.ops.cuda.ragged_paged_attention import (
-        paged_attention_plain, ragged_paged_attention,
+        decode_rows_splits, paged_attention_plain, ragged_paged_attention,
         ragged_paged_attention_rect, tensor_core_prefill)
     gen = torch.Generator(device="cuda").manual_seed(1234)
     D, H, page = 128, 32, 128
@@ -907,8 +957,99 @@ def phase_kernels():
                     qq, kk, vv, tb, lens))
                 del tb, kk, vv, qq, exact
 
+    def check_head_dim_16():
+        """Head dim 16 (the benches' tiny model, 4 heads of 16) on the
+        CUDA-core bodies, which take it at every row count and dtype: B5
+        and B4's decode rows at 1, 2, 4 and 8 rows a kv head (MHA at T =
+        1, 2, 4, 8; group 4 at T = 1, 2) over lengths at and one past a
+        split plan's chunk edges (B4 at pages 16 and 128), the inference
+        bench's own calls (its 128-token prompt over a 192-key cache and
+        steps over 129-192 keys), B4's CUDA-core prefill tiles at pages 16
+        and 128 (the serving bench's bucket 128, prefills after cached
+        prefixes, a packed mixed batch sharing prefix pages), and each
+        call again bit for bit."""
+        Dn, Hq = 16, 4
+        for Hkv, Ts in ((4, (1, 2, 4, 8)), (1, (1, 2))):
+            group = Hq // Hkv
+            for pg in (16, 128):
+                if tensor_core_prefill(dtype, Dn, group, pg):
+                    fail(f"tensor_core_prefill({dn}, 16, {group}, {pg}) "
+                         f"holds: head dim 16 has no tensor-core tile")
+            if Hkv == Hq:
+                check_b5("inference bench prompt", 1, 128, Hkv, 192, 128,
+                         Dh=Dn, Hq=Hq)
+                check_b5("inference bench steps", 3, 1, Hkv, 192,
+                         i32([129, 160, 192]), Dh=Dn, Hq=Hq)
+            for T in Ts:
+                rows = T * group
+                edges = chunk_edges(4, T, Hkv, Dn, 2048, Hq=Hq)
+                for lens in edges:
+                    check_b5("chunk edges", 4, T, Hkv, 2048, lens, Dh=Dn,
+                             Hq=Hq)
+                qq = _rand((4, T, Hq, Dn), dtype, gen)
+                kk = _rand((4, Hkv, 2048, Dn), dtype, gen)
+                vv = _rand((4, Hkv, 2048, Dn), dtype, gen)
+                check_repeat(
+                    f"decode_attention {dn} H{Hq}/{Hkv} D=16 {rows} rows "
+                    f"chunk edges {edges[0].tolist()} "
+                    f"{decode_plan(4, T, Hq, Hkv, 2048, Dn, dtype, 'cuda')}",
+                    lambda: decode_attention_cuda(qq, kk, vv, edges[0]))
+                del qq, kk, vv
+                # B4's decode rows: six sequences, keys split at the plan's
+                # chunk edges (a table of 2048 keys at both pages)
+                slots = _decode_slots("cuda", rows, Dn, _DTYPE_CODES[dtype],
+                                      entry="ragged_decode_slots")
+                n, c = decode_rows_splits(6, Hkv, 2048, slots, rows, dtype,
+                                          Dn)
+                if n == 1:
+                    fail(f"ragged_paged_attention {dn} D=16 {rows} rows: "
+                         f"the chunk-edge cases take one chunk")
+                ctx = [T, c - 1, c, c + 1, 2 * c + 1, 2047]
+                for pg in (16, 128):
+                    tb, kk, vv = _paged_state(ctx, pg, Hkv, Dn, dtype, gen)
+                    qq = _rand((len(ctx), T, Hq, Dn), dtype, gen)
+                    lens = i32(ctx)
+                    label = (f"ragged_paged_attention {dn} H{Hq}/{Hkv} D=16 "
+                             f"{rows}-row decode page {pg} ctx {ctx} "
+                             f"({n} x {c} keys)")
+                    exact = paged_attention_plain(qq.float(), kk.float(),
+                                                  vv.float(), tb, lens)
+                    note("ragged_paged_attention", dn, check_close(
+                        label, ragged_paged_attention_rect(qq, kk, vv, tb,
+                                                          lens),
+                        exact.to(dtype)))
+                    check_repeat(label, lambda: ragged_paged_attention_rect(
+                        qq, kk, vv, tb, lens))
+                    del tb, kk, vv, qq, exact
+            # B4's CUDA-core prefill tiles
+            for pg in (16, 128):
+                for label, T, ctx in (
+                        ("serving bench prefill B=1 T=128", 128, [128]),
+                        ("prefill B=2 T=200 after prefixes, ctx 300/457",
+                         200, [300, 457])):
+                    tb, kk, vv = _paged_state(ctx, pg, Hkv, Dn, dtype, gen)
+                    qq = _rand((len(ctx), T, Hq, Dn), dtype, gen)
+                    lens = i32(ctx)
+                    label = (f"ragged_paged_attention {dn} H{Hq}/{Hkv} D=16 "
+                             f"page {pg} {label}")
+                    exact = paged_attention_plain(qq.float(), kk.float(),
+                                                  vv.float(), tb, lens)
+                    note("ragged_paged_attention", dn, check_close(
+                        label, ragged_paged_attention_rect(qq, kk, vv, tb,
+                                                          lens),
+                        exact.to(dtype)))
+                    check_repeat(label, lambda: ragged_paged_attention_rect(
+                        qq, kk, vv, tb, lens))
+                    del tb, kk, vv, qq, exact
+                packed_b4(f"H{Hq}/{Hkv} page {pg}", [37, 1, 130, 2, 1],
+                          [37, 300, 1000, 521, 257], Hkv, Dn, pg, Hq=Hq)
+
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         dn = str(dtype).split(".")[-1]
+        # (the draws of the earlier head dims' cases stay as they were)
+        state = gen.get_state()
+        check_head_dim_16()
+        gen.set_state(state)
         for Hkv in (32, 8):
             # B5: ragged lengths over S_max 2048, and generate's own calls
             # (B=4, cache 128 + 32, one int length for every sequence):
@@ -2229,21 +2370,28 @@ def phase_timing(cfg, serve_prompts):
     return res
 
 
-def _time_decode(name, dtype, B, S, L, copies, gen, H=32, Hkv=32, D=128):
-    """B5 at [B, T=1], one int length L over S_max S: kernel, plain and
-    SDPA device times, bound and error (a phase_timing row)."""
+def _time_decode(name, dtype, B, S, L, copies, gen, H=32, Hkv=32, D=128,
+                 T=1):
+    """B5 at [B, T], one int length L over S_max S (T > 1: the prefill
+    form, the last T of the L tokens the queries, SDPA under the causal
+    mask): kernel, plain and SDPA device times, bound and error (a
+    phase_timing row)."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.cuda.decode_attention import (
         decode_attention_cuda, decode_attention_plain)
     dn = str(dtype).split(".")[-1]
-    q = _rand((copies, B, 1, H, D), dtype, gen)
+    q = _rand((copies, B, T, H, D), dtype, gen)
     k = _rand((copies, B, Hkv, S, D), dtype, gen)
     v = _rand((copies, B, Hkv, S, D), dtype, gen)
     err = check_close(f"timing {name}",
                       decode_attention_cuda(q[0], k[0], v[0], L),
                       reference(decode_attention_plain, q[0], k[0], v[0], L))
     qs = q.transpose(2, 3).contiguous()
+    # query t sees keys up to L - T + t (None at T = 1: every key)
+    mask = None if T == 1 else (
+        torch.arange(L, device="cuda")[None] <=
+        (L - T + torch.arange(T, device="cuda"))[:, None])
     times = _measure({
         "ms": lambda i: decode_attention_cuda(q[i % copies], k[i % copies],
                                               v[i % copies], L),
@@ -2251,20 +2399,23 @@ def _time_decode(name, dtype, B, S, L, copies, gen, H=32, Hkv=32, D=128):
             q[i % copies], k[i % copies], v[i % copies], L),
         "library_ms": lambda i: F.scaled_dot_product_attention(
             qs[i % copies], k[i % copies][:, :, :L],
-            v[i % copies][:, :, :L], enable_gqa=Hkv != H)}, copies)
+            v[i % copies][:, :, :L], attn_mask=mask,
+            enable_gqa=Hkv != H)}, copies)
     bound_ms, bound_by = _bound(*decode_work(B, H, Hkv, L, D,
-                                             q.element_size()), dn)
+                                             q.element_size(), T), dn)
     return dict(max_abs_err=err, **times, bound_ms=bound_ms,
                 bound_by=bound_by,
-                shape=f"B={B} T=1 H={H} Hkv={Hkv} D={D} len={L} S_max={S} "
-                      f"{dn}")
+                shape=f"B={B} T={T} H={H} Hkv={Hkv} D={D} len={L} "
+                      f"S_max={S} {dn}")
 
 
-def _time_paged(name, dtype, needs, ctx, T, Hkv, D, copies, gen, H=32):
+def _time_paged(name, dtype, needs, ctx, T, Hkv, D, copies, gen, H=32,
+                max_seq=SERVE_MAX_SEQ):
     """B4's rect front-end at [len(ctx), T] over the serve run's page pools
     (slot s reserves needs[s] tokens, holds ctx[s] with its last T the
-    queries): kernel, plain and SDPA device times (SDPA over the gathered
-    dense K/V with the causal-ragged mask), bound and error."""
+    queries; ``max_seq``: the engine's): kernel, plain and SDPA device
+    times (SDPA over the gathered dense K/V with the causal-ragged mask),
+    bound and error."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.cuda.decode_attention import DECODE_ROWS
@@ -2273,7 +2424,7 @@ def _time_paged(name, dtype, needs, ctx, T, Hkv, D, copies, gen, H=32):
         tensor_core_prefill)
     dn = str(dtype).split(".")[-1]
     B, group = len(ctx), H // Hkv
-    states = [_engine_state(needs, Hkv, D, dtype, gen)
+    states = [_engine_state(needs, Hkv, D, dtype, gen, max_seq)
               for _ in range(copies)]
     lens = torch.tensor(ctx, dtype=torch.int32, device="cuda")
     q = _rand((copies, B, T, H, D), dtype, gen)
@@ -2930,12 +3081,14 @@ def b4_form_launches(n_layers, decode_steps, prompts, suffix="",
     return out
 
 
-def decode_work(B, H, Hkv, L, D, item):
-    """(bytes, operations) of one B5 decode step: B sequences of one query
-    token over L cached keys -- every K and V byte of the L keys read
-    once, q read and o written once -- and 4 D operations a head per
-    (query, key) pair."""
-    return B * (2 * Hkv * L * D + 2 * H * D) * item, B * 4 * H * D * L
+def decode_work(B, H, Hkv, L, D, item, T=1):
+    """(bytes, operations) of one B5 call: B sequences of T query tokens
+    (the last T of L; T = 1: a decode step) over L cached keys -- every K
+    and V byte of the L keys read once, q read and o written once -- and
+    4 D operations a head per (query, key at or before it) pair."""
+    pairs = sum(L - T + t + 1 for t in range(T))
+    return (B * (2 * Hkv * L * D + 2 * H * T * D) * item,
+            B * 4 * H * D * pairs)
 
 
 def paged_work(ctx, T, H, Hkv, D, item):
@@ -3310,6 +3463,238 @@ def phase_timing_head_dim_256():
 
 
 # ----------------------------------------------------------------------
+# this slice's entry points as a user runs them: ``ds_report`` and the
+# serving and inference benches (``python -m deepspeed_tpu_torch.benchmarks
+# serving | inference``), B4 and B5 at head dim 16 (their tiny model)
+
+# ``ds_bench serving --model tiny`` as the smoke runs it (the defaults'
+# 16 requests of 64 tokens cut to 8 of 32: tiny's two layers finish in a
+# few seconds either way; its prompt mix is the defaults' first 8)
+BENCH_TINY_ARGS = ["--model", "tiny", "--requests", "8", "--gen", "32"]
+# phase (d): the ds_bench train CLI's gpt_350m, its profiled train_batch
+# with the timers' lines on (steps_per_print 1, wall_clock_breakdown):
+# its device time stays within its reading before the timers were ported
+# (102.4 ms on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md) times this
+# factor -- the timers record CUDA events and add no kernel and no host
+# sync to a step that does not log
+CLI_DEVICE_MS = 102.4
+TIMER_DEVICE_FACTOR = 1.15
+
+
+def _bucket(n, max_seq):
+    """The serving engine's prefill bucket of an n-token prompt
+    (``ServingEngine._bucket`` capped at max_seq)."""
+    return min(1 << max(3, math.ceil(math.log2(max(n, 1)))), max_seq)
+
+
+def serving_bench_launches(n_layers, result, prompt_lens, max_seq,
+                           suffix=""):
+    """Launches by kernels JSON row of one ``ds_bench serving`` run
+    (``result``: ``run_benchmark``'s return, ``prompt_lens``: its prompt
+    mix): B4 once a layer a model call of the continuous-batching engines
+    -- each engine's prefills (the warm-up's first prompt, then every
+    prompt: one call each) by bucket, ``ragged_paged_attention_prefill_
+    {bucket}{suffix}``, its other calls decode rows,
+    ``ragged_paged_attention{suffix}`` -- and B5 once a layer a call of
+    the sequential generates, its prompts' prefills (``decode_attention
+    {suffix}_prefill``) apart from its steps (``decode_attention
+    {suffix}``)."""
+    calls, prefills = result["model_calls"], result["prefills"]
+    rows = {f"ragged_paged_attention{suffix}": 0}
+    for mode in calls:
+        if mode.startswith("continuous"):
+            for n in [prompt_lens[0]] + list(prompt_lens):
+                key = (f"ragged_paged_attention_prefill_"
+                       f"{_bucket(n, max_seq)}{suffix}")
+                rows[key] = rows.get(key, 0) + n_layers
+            rows[f"ragged_paged_attention{suffix}"] += n_layers * (
+                calls[mode] - prefills[mode])
+    seq = "sequential_single_stream"
+    rows[f"decode_attention{suffix}_prefill"] = n_layers * prefills[seq]
+    rows[f"decode_attention{suffix}"] = n_layers * (calls[seq] -
+                                                    prefills[seq])
+    return rows
+
+
+def inference_bench_launches(n_layers, trials, max_new_tokens, suffix=""):
+    """B5's launches of one ``ds_bench inference`` run: trials + 3
+    generates, each one call a layer for the prompt (the prefill form)
+    and max_new_tokens - 1 decode steps."""
+    gens = trials + 3
+    return {f"decode_attention{suffix}_prefill": n_layers * gens,
+            f"decode_attention{suffix}": n_layers * gens *
+            (max_new_tokens - 1)}
+
+
+def _kernel_totals(rows):
+    """{kernel counter: launches} summed over kernels JSON rows."""
+    out = {"decode_attention": 0, "ragged_paged_attention": 0}
+    for name, n in rows.items():
+        out[name.split("_attention")[0] + "_attention"] += n
+    return out
+
+
+def phase_env_report():
+    """``ds_report --kernel-gate`` (``deepspeed_tpu_torch.env_report``):
+    every library row compatible, one card of compute capability 9.0, and
+    the build gate passes (the libraries phase 2 built)."""
+    import contextlib
+    import io
+    from deepspeed_tpu_torch import env_report
+    rc = env_report.main(kernel_gate=True)     # its report, printed
+    with contextlib.redirect_stdout(io.StringIO()):
+        rows = env_report.op_report()
+        info = dict(env_report.debug_report())
+    bad = [name for name, _, ok in rows if not ok]
+    if rc != 0 or bad or info.get("compute capability") != "9.0" or \
+            not info.get("device count"):
+        fail(f"ds_report --kernel-gate: rc {rc}, not compatible {bad}, "
+             f"{info}")
+    phase("env", f"ds_report --kernel-gate: {len(rows)} kernel entries of "
+          f"{len({src for _, src, _ in rows})} libraries compatible, build "
+          f"gate rc 0; nvcc {info['nvcc version']}, torch "
+          f"{info['torch version']} CUDA {info['torch CUDA version']}, "
+          f"{info['device name']} {info['memory per device']}, power limit "
+          f"{info['power limit']}")
+
+
+def phase_bench_serving(argv):
+    """``python -m deepspeed_tpu_torch.benchmarks serving`` + argv through
+    the dispatcher's ``main`` (its JSON lines printed as they come),
+    counters read around it: B4 and B5 exactly
+    :func:`serving_bench_launches`, nothing else, no plain version.
+    Returns (result, {kernels JSON row: launches}, the model's head dim,
+    the prompt mix's lengths, the engine's max_seq)."""
+    from deepspeed_tpu_torch.benchmarks import __main__ as ds_bench
+    from deepspeed_tpu_torch.benchmarks import serving
+    a = {"model": "gpt2_125m", "requests": 16, "gen": 64, "prompt_len": 128,
+         "page_size": 128}
+    for flag, value in zip(argv[::2], argv[1::2]):
+        key = flag.lstrip("-").replace("-", "_")
+        a[key] = value if key == "model" else int(value)
+    cfg = serving.model_config(a["model"])
+    lens, _ = serving.prompt_mix(a["requests"], a["prompt_len"],
+                                 cfg.vocab_size)
+    max_seq = a["prompt_len"] + a["gen"] + a["page_size"]
+    label = " ".join(["ds_bench serving"] + argv)
+    t0 = time.time()
+    reset_counters()
+    result = ds_bench.main(["serving"] + argv)
+    counts = read_counters()
+    dt = time.time() - t0
+    suffix = "_d16" if cfg.head_dim == 16 else f"_{a['model']}"
+    rows = serving_bench_launches(cfg.n_layers, result, lens, max_seq,
+                                  suffix)
+    want = _kernel_totals(rows)
+    got = {k: counts[k] for k in want}
+    others = {k: v for k, v in counts.items()
+              if v and k not in want and not k.endswith("_plain")}
+    if got != want or others or plain_calls(counts):
+        fail(f"{label}: launches {got}, others {others}, plain "
+             f"{plain_calls(counts)}; expected {want} ({cfg.n_layers} "
+             f"layers x model calls {result['model_calls']})")
+    for rec in result["records"]:
+        if not rec["gen_tokens"] or not rec["tokens_per_sec"] > 0:
+            fail(f"{label}: {rec}")
+    phase("bench", f"{label}: {a['model']} ({cfg.n_layers} layers, "
+          f"{cfg.n_heads} heads of {cfg.head_dim}), bf16, "
+          f"{a['requests']} requests x {a['gen']} tokens, {dt:.1f} s with "
+          f"the model's init; tokens/s " +
+          ", ".join(f"{r['mode']} {r['tokens_per_sec']}"
+                    for r in result["records"]) +
+          f"; launches {want} = {cfg.n_layers} layers x model calls "
+          f"{result['model_calls']}, by row {rows}; plain versions 0")
+    _free()
+    return result, rows, cfg.head_dim, lens, max_seq
+
+
+def phase_bench_inference():
+    """``python -m deepspeed_tpu_torch.benchmarks inference`` at its
+    defaults (tiny, bf16, B=1, a 128-token prompt, 64 new tokens, 10
+    trials after 3 warm-up ones) through the dispatcher's ``main``,
+    counters read around it: B5 exactly :func:`inference_bench_launches`,
+    nothing else.  Returns (the JSON record, {kernels JSON row:
+    launches})."""
+    from deepspeed_tpu_torch.benchmarks import __main__ as ds_bench
+    from deepspeed_tpu_torch.benchmarks.inference import _preset
+    cfg = _preset("tiny")
+    t0 = time.time()
+    reset_counters()
+    rec = ds_bench.main(["inference"])
+    counts = read_counters()
+    dt = time.time() - t0
+    defaults = dict(model="tiny", dtype="bf16", batch=1, prompt_len=128,
+                    max_new_tokens=64)
+    if {k: rec[k] for k in defaults} != defaults or cfg.head_dim != 16:
+        fail(f"ds_bench inference: {rec}, head dim {cfg.head_dim}: "
+             f"expected {defaults} at head dim 16")
+    rows = inference_bench_launches(cfg.n_layers, 10, 64, "_d16")
+    want = _kernel_totals(rows)
+    got = {k: counts[k] for k in want}
+    others = {k: v for k, v in counts.items()
+              if v and k not in want and not k.endswith("_plain")}
+    if got != want or others or plain_calls(counts):
+        fail(f"ds_bench inference: launches {got}, others {others}, plain "
+             f"{plain_calls(counts)}; expected {want}")
+    if rec["rpc_floor_ms"] != 0.0:
+        fail(f"ds_bench inference: round-trip floor {rec['rpc_floor_ms']} "
+             f"ms on the card (over 5 ms)")
+    phase("bench", f"ds_bench inference (defaults): tiny (2 layers, 4 heads "
+          f"of 16), bf16, B=1, prompt 128 + 64 new, 10 trials, {dt:.1f} s; "
+          f"token latency ms {rec['token_latency_ms']}, e2e ms "
+          f"{rec['e2e_latency_ms']}, {rec['tokens_per_sec']} tokens/s; "
+          f"launches {want} by row {rows}; plain versions 0")
+    return rec, rows
+
+
+def phase_timing_benches(serve_tiny, serve_gpt2):
+    """B5 and B4 at the shapes the benches give them (bf16): tiny's
+    (head dim 16, 4 / 4 heads) B5 prompt (T=128 over a 192-key cache) and
+    step (B=1, 160 of 192 keys: the middle of 129-192), B4's 8-slot
+    decode rows (the tiny run's first 8 prompts 16 tokens into their 32)
+    and its prefill bucket(s); gpt2_125m's (12 / 12 heads of 64) B4
+    decode rows (8 slots, 32 tokens into their 64) and prefill bucket(s),
+    and B5's step (B=1, prompt 128 + 32).  ``serve_*``: (prompt lengths,
+    max_seq, gen, launches by row) of each serving run."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(96)
+    bf16 = torch.bfloat16
+    rows = {"decode_attention_d16_prefill": _time_decode(
+        "decode_attention tiny prompt (D=16)", bf16, 1, 192, 128, 12, gen,
+        H=4, Hkv=4, D=16, T=128)}
+    rows["decode_attention_d16"] = _time_decode(
+        "decode_attention tiny step (D=16)", bf16, 1, 192, 160, 12, gen,
+        H=4, Hkv=4, D=16)
+    rows["decode_attention_gpt2_125m"] = _time_decode(
+        "decode_attention gpt2_125m step (D=64)", bf16, 1, 320, 160, 12, gen,
+        H=12, Hkv=12, D=64)
+    for (lens, max_seq, new, launched), H, D, sfx in (
+            (serve_tiny, 4, 16, "_d16"), (serve_gpt2, 12, 64, "_gpt2_125m")):
+        slots = [int(n) for n in lens[:SERVE_SLOTS]]
+        rows[f"ragged_paged_attention{sfx}"] = _time_paged(
+            f"ragged_paged_attention 8-slot decode step ({sfx[1:]})", bf16,
+            [n + new for n in slots], [n + new // 2 for n in slots], 1, H, D,
+            4, gen, H=H, max_seq=max_seq)
+        for key in launched:
+            if "prefill" not in key or not key.startswith("ragged"):
+                continue
+            bucket = int(key.split("_prefill_")[1].split("_")[0])
+            rows[key] = _time_paged(
+                f"ragged_paged_attention prefill T={bucket} ({sfx[1:]})",
+                bf16, [max(bucket, int(max(lens)) + new)], [bucket], bucket,
+                H, D, 4, gen, H=H, max_seq=max_seq)
+        _free()
+    for name, r in rows.items():
+        phase("timing", f"{name} [{r['shape']}]: device ms (graph replay) "
+              f"kernel {r['ms']:.4f}, plain {r['plain_ms']:.4f}, SDPA "
+              f"{r['library_ms']:.4f}; eager ms per call (host included) "
+              f"kernel {r['ms_eager']:.4f}; bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.3f} of bound, "
+              f"max abs err {r['max_abs_err']:.3e}")
+    return rows
+
+
+# ----------------------------------------------------------------------
 # training: run_benchmark(TRAIN_MODEL, ...) is the main path, nothing cut
 TRAIN_MODEL, TRAIN_BATCH, TRAIN_GAS, TRAIN_SEQ = "gpt_1b", 2, 4, 1024
 # BLOOM-1b7 and GPT-Neo-1.3B at their published shapes: the
@@ -3607,7 +3992,25 @@ def cli_label(model=None):
     return f"--model {model}" if model else "(no flags)"
 
 
-def phase_train_cli(model=None):
+class _LogLines:
+    """Collects the port logger's messages while in a ``with``."""
+
+    def __enter__(self):
+        import logging
+
+        class Handler(logging.Handler):
+            def emit(h, record):
+                self.lines.append(record.getMessage())
+        self.lines, self.handler = [], Handler()
+        self.logger = logging.getLogger("deepspeed_tpu_torch")
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+def phase_train_cli(model=None, timers=False):
     """A training main path as a user runs it: ``python -m
     deepspeed_tpu_torch.benchmarks.training`` with no flags (gpt_350m,
     the D=64 flash forms) or with ``--model model`` alone (gpt_760m,
@@ -3618,7 +4021,12 @@ def phase_train_cli(model=None):
     plain versions 0, finite losses; the peak device memory is recorded.
     Then one train_batch of the same config timed on the wall clock and
     one profiled (a fresh engine from the same seed, after the CLI's is
-    freed): the busy share."""
+    freed): the busy share.  ``timers``: that engine with
+    ``steps_per_print`` 1 and ``wall_clock_breakdown`` on (phase (d)):
+    its profiled train_batch (the third: the first that logs) must log
+    the throughput line, a three-call step after it the fwd / bwd / step
+    line, and its device time stay within CLI_DEVICE_MS times
+    TIMER_DEVICE_FACTOR."""
     import contextlib
     import io
     import numpy as np
@@ -3649,9 +4057,11 @@ def phase_train_cli(model=None):
         fail(f"ds_bench train {label}: non-finite loss {out['losses']}")
     launched = check_train_launches(counts, cfg, d["gas"], d["steps"] + 1,
                                     f"ds_bench train {label}")
+    conf = ds_config(d["batch"], d["gas"])
+    if timers:
+        conf.update(steps_per_print=1, wall_clock_breakdown=True)
     engine, *_ = deepspeed_tpu_torch.initialize(
-        model=CausalTransformerLM(cfg, device="cuda").init(0),
-        config=ds_config(d["batch"], d["gas"]))
+        model=CausalTransformerLM(cfg, device="cuda").init(0), config=conf)
     batch = {"input_ids": np.random.default_rng(14).integers(
         0, cfg.vocab_size, (d["batch"], d["seq"]))}
     engine.train_batch(batch=batch)
@@ -3660,8 +4070,28 @@ def phase_train_cli(model=None):
     engine.train_batch(batch=batch)
     torch.cuda.synchronize()
     step_ms = (time.time() - t0) * 1e3
-    device_ms, top, _ = profile_device(
-        lambda: engine.train_batch(batch=batch), 1)
+    with _LogLines() as log:
+        device_ms, top, _ = profile_device(
+            lambda: engine.train_batch(batch=batch), 1)
+        if timers:
+            engine.backward(engine.forward(batch))
+            engine.step()
+    if timers:
+        tput = [x for x in log.lines if "epoch=0/micro_step=3/global_step=3, "
+                "RunningAvgSamplesPerSec=" in x]
+        wall = [x for x in log.lines if "time (ms) | fwd: " in x and
+                " | bwd: " in x and " | step: " in x]
+        limit = CLI_DEVICE_MS * TIMER_DEVICE_FACTOR
+        if len(tput) != 1 or len(wall) != 1 or device_ms > limit:
+            fail(f"ds_bench train {label} with the timers on: throughput "
+                 f"lines {tput}, breakdown lines {wall}, device "
+                 f"{device_ms:.1f} ms (limit {limit:.1f}): expected one "
+                 f"of each line within the limit")
+        phase("train", f"{d['model']} with steps_per_print 1 and "
+              f"wall_clock_breakdown: the third train_batch logged "
+              f"'{tput[0]}', a forward / backward / step '{wall[0]}'; "
+              f"device {device_ms:.1f} ms a train_batch (before the "
+              f"timers {CLI_DEVICE_MS}, limit {limit:.1f})")
     del engine
     _free()
     return out, counts, launched, step_ms, device_ms, top
@@ -4976,6 +5406,8 @@ def main():
 
     phase_build()
     phase_sass()
+    # (a) ds_report --kernel-gate: every library compatible, built
+    phase_env_report()
     # a kernel that hangs (its warpgroups' turns out of step) ends the run
     # here, not at its time limit
     faulthandler.dump_traceback_later(KERNEL_PHASES_TIMEOUT, exit=True)
@@ -5126,6 +5558,27 @@ def main():
     g_launches, cfg_g7, cfg_g2 = phase_serve_gemma()
     hd_launches.update(g_launches)
 
+    # ---- the benches as a user runs them, each counted on its own: (b)
+    # ds_bench serving at its defaults (gpt2_125m, head dim 64), then
+    # --model tiny (head dim 16); (c) ds_bench inference at its defaults
+    # (tiny) ------------------------------------------------------------
+    t0 = time.time()
+    bench_launches = {}
+    serve_runs = []
+    for argv, gen_tokens in (([], 64), (BENCH_TINY_ARGS, 32)):
+        _, rows, _, lens, max_seq = phase_bench_serving(argv)
+        serve_runs.append((lens, max_seq, gen_tokens, rows))
+        for name, n in rows.items():
+            bench_launches[name] = bench_launches.get(name, 0) + n
+    _, rows = phase_bench_inference()
+    for name, n in rows.items():
+        bench_launches[name] = bench_launches.get(name, 0) + n
+    # gpt2_125m's B5 row counts its sequential prompts' prefills too
+    bench_launches["decode_attention_gpt2_125m"] += bench_launches.pop(
+        "decode_attention_gpt2_125m_prefill")
+    phase("bench", f"phases (b)-(c) in {time.time() - t0:.1f} s; launches "
+          f"by kernels JSON row {bench_launches}")
+
     rel, agree = phase_e2e()
     phase("e2e", f"2 layers full width, paged prefill T=128 + 4 decodes: "
           f"kernel vs plain logits rel err {rel:.3e} (tol {E2E_REL_TOL}), "
@@ -5168,6 +5621,21 @@ def main():
               f"in {s_same} of 6 requests")
         del m2
         _free()
+    # the benches' tiny model (head dim 16), 2 layers fp32: greedy tokens
+    # through B5 and B4 vs the plain versions'
+    from deepspeed_tpu_torch.benchmarks.serving import \
+        model_config as bench_config
+    _, m2, _ = build_model(2, seed=16, dtype=torch.float32,
+                           cfg=bench_config("tiny"))
+    n_same, g_calls = phase_generate_vs_plain(m2)
+    s_same, s_calls = phase_serve_vs_plain(m2)
+    phase("e2e", f"tiny (head dim 16, 4 / 4 heads) 2 layers fp32: generate "
+          f"B=4 prompt 128 + 32 new through B5 ({g_calls} launches) "
+          f"identical to the plain versions' in {n_same} of 4 rows; serving "
+          f"6 prompts x {SERVE_NEW} new through B4 ({s_calls} launches) "
+          f"identical in {s_same} of 6 requests")
+    del m2
+    _free()
 
     # ---- training main paths, counters read around each run_benchmark --
     launches = {k: v for k, v in counts.items() if not k.endswith("_plain")}
@@ -5196,8 +5664,9 @@ def main():
     cli_counts = {}
     for model in (None, "gpt_760m", "gpt_2_7b"):
         label = cli_label(model)
+        # phase (d): the default run's engine logs the timers' lines
         cli, counts_m, cli_launched, cli_ms, cli_dev, cli_top = \
-            phase_train_cli(model)
+            phase_train_cli(model, timers=model is None)
         cli_counts[cli["model"]] = counts_m
         launches["fused_adam"] += counts_m["fused_adam"]
         phase("train", f"ds_bench train {label}: {cli['model']}, "
@@ -5370,6 +5839,7 @@ def main():
     timing.update(phase_timing_serving())
     timing.update(phase_timing_head_dims())
     timing.update(phase_timing_head_dim_256())
+    timing.update(phase_timing_benches(*serve_runs[::-1]))
     timing.update(phase_train_timing(errs))
     biased = phase_biased_timing(errs)
     biased_d64 = phase_biased_timing(errs, BIASED_TIMING_D64, D=64, seed=79)
@@ -5459,6 +5929,12 @@ def main():
     # Gemma-2B (bf16 -- its draft decode steps in serve-features (c) too --
     # and fp16)
     for name, n in hd_launches.items():
+        meta[name] = meta["decode_attention" if name.startswith("decode")
+                          else "ragged_paged_attention"]
+        launches[name] = n
+    # this slice's: B5 and B4 at head dim 16 (the benches' tiny model) and
+    # gpt2_125m's B4 and B5 rows, with the launches of the bench runs
+    for name, n in bench_launches.items():
         meta[name] = meta["decode_attention" if name.startswith("decode")
                           else "ragged_paged_attention"]
         launches[name] = n

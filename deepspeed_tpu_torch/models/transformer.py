@@ -285,9 +285,9 @@ def check_servable(c: TransformerConfig, device=None):
     (contiguous and paged KV caches) do not decode: ALiBi, local windows
     and the embedding norm train, but decoding them waits for ROADMAP
     A18.  On the card (``device`` a CUDA device) the head dim must be one
-    the serving kernels (B4, B5) take -- 64, 80, 96, 128 or 256 -- else it
-    raises naming A16; on the CPU the plain versions take every head
-    dim."""
+    the serving kernels (B4, B5) take -- 16, 64, 80, 96, 128 or 256 --
+    else it raises naming A16; on the CPU the plain versions take every
+    head dim."""
     for attr, what in _NOT_SERVED:
         if getattr(c, attr):
             raise NotImplementedError(
@@ -300,8 +300,9 @@ def check_servable(c: TransformerConfig, device=None):
 def check_trainable(c: TransformerConfig, device=None):
     """On the card, raise ``NotImplementedError`` naming A16 for a head dim
     the flash kernels (B1, B2) do not take -- they take 64, 80, 96, 128 and
-    256, as serving does (:func:`check_servable`); on the CPU the plain
-    versions train every head dim."""
+    256; serving takes 16 too (:func:`check_servable`), training at 16
+    waits for A16 -- on the CPU the plain versions train every head
+    dim."""
     if _on_card(device):
         check_head_dim("training on the card", c.head_dim, FLASH_HEAD_DIMS)
 

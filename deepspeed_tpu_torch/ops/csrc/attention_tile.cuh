@@ -7,8 +7,8 @@
 // and hands a functor mapping a key index to the element offset of its K/V
 // row, which is where the contiguous and the paged cache differ.
 //
-// One block = 128 threads and ROWS (4 or 16) query rows, head dim D = 64,
-// 80, 96, 128 or 256.  Per key block of BK keys (kBK = 64; 16 at D = 256,
+// One block = 128 threads and ROWS (4 or 16) query rows, head dim D = 16,
+// 64, 80, 96, 128 or 256.  Per key block of BK keys (kBK = 64; 16 at D = 256,
 // where 64 fp32 key rows alone would take 64 KB of shared memory and 32
 // rows beside the 16 fp32 q rows of 1 KB each still exceed the 48 KB a
 // block has without opting in):
@@ -87,8 +87,9 @@ __host__ __device__ constexpr int batch_of(int n) {
 // Keys [kb, kb + BK) of K or V -> dst (fp32, zero past kv_hi).  A key row
 // is LANES = D / VEC 16-byte vectors; the tile's BK * LANES vectors go to
 // the threads in order (vector tid + 128 p to thread tid in pass p), so
-// at D = 64 and 128, where LANES divides 128, a thread keeps one column of
-// every row it loads, and at D = 80 and 96 (10 or 12 vectors a row in
+// at D = 16, 64 and 128, where LANES divides 128, a thread keeps one column
+// of every row it loads (at 16 a row is 2 or 4 vectors: 64 or 32 rows a
+// pass), and at D = 80 and 96 (10 or 12 vectors a row in
 // bf16 / fp16, 20 or 24 in fp32) rows straddle threads and no lane idles.
 // A thread resolves the row offset of each of its vectors (for the paged
 // cache: one block-table read per vector, not per element), then issues
@@ -143,8 +144,9 @@ __device__ __forceinline__ void attend_rows(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ o, float scale, int kv_hi,
     const KeyOffset& key_off, const RowMeta<ROWS>& rm) {
-  static_assert(D == 64 || D == 80 || D == 96 || D == 128 || D == 256,
-                "head_dim must be 64, 80, 96, 128 or 256");
+  static_assert(D == 16 || D == 64 || D == 80 || D == 96 || D == 128 ||
+                    D == 256,
+                "head_dim must be 16, 64, 80, 96, 128 or 256");
   static_assert(ROWS == 4 || ROWS == 16, "ROWS must be 4 or 16");
   constexpr int BK = keys_per_step<D>();
   static_assert(BK <= 64, "the softmax gives a lane two keys at most");
@@ -230,8 +232,16 @@ __device__ __forceinline__ void attend_rows(
       const int row = orow[r];
       if (row < 0) continue;
       float a = acc[r] * c_s[row];
+      if constexpr (D == 16) {
+        // the step's 64 keys unrolled whole: at 8 a time ptxas spilled
+        // 8 B of the fp32 paged tile at this head dim to meet a 56-register
+        // target (no spill and 55 registers so, in every dtype)
+#pragma unroll
+        for (int j = 0; j < BK; ++j) a = fmaf(p_s[row][j], kv_s[j][od[r]], a);
+      } else {
 #pragma unroll 8
-      for (int j = 0; j < BK; ++j) a = fmaf(p_s[row][j], kv_s[j][od[r]], a);
+        for (int j = 0; j < BK; ++j) a = fmaf(p_s[row][j], kv_s[j][od[r]], a);
+      }
       acc[r] = a;
     }
     __syncthreads();  // before the next block overwrites kv_s and p_s

@@ -18,8 +18,9 @@
 // a GQA group of up to 8 folded in): the split-key, memory-parallel body
 // of split_decode.cuh, shared with the paged cache's decode rows, over a
 // contiguous cache: sequence b's keys are rows of cache[b, hk], query row
-// r is token r / group of q[b].  Head dim 64, 80, 96, 128 or 256 (80:
-// GPT-3 2.7B's shape; 96: Phi-3-mini's; 256: Gemma's).  A D = 80 step of
+// r is token r / group of q[b].  Head dim 16, 64, 80, 96, 128 or 256 (16:
+// the benches' ``tiny`` model, on the CUDA-core body only; 80: GPT-3
+// 2.7B's shape; 96: Phi-3-mini's; 256: Gemma's).  A D = 80 step of
 // a B=4 generate over 144 cached tokens and 32 kv heads moves 5.90 MB:
 // 1.76 us at 3.35 TB/s.
 //
@@ -142,7 +143,7 @@ int run(const void* q, const void* k, const void* v, void* o,
   p.chunk = chunk;
   p.scale = scale;
   p.kv_rows = (long long)B * Hkv * S_max;
-  p.box_rows = dsdecode::Staged<D>::kKeys;   // staged body: a tile a box
+  p.box_rows = dsdecode::kStagedKeys;   // staged body: a tile a box
   const int rows = T * (H / Hkv);
   if (rows <= dsdecode::kMaxRows)
     return dtype == 0   ? dsdecode::launch_rows<float>(p, B, rows, s)
@@ -157,8 +158,8 @@ int run(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q: [B, T, H, D]; k/v: [B, Hkv, S_max, D]; o: [B, T, H, D].  dtype: 0 =
-// float32, 1 = bfloat16, 2 = float16 (fp32 inside, as bf16); D is 64, 80,
-// 96, 128 or 256.  lengths may be null: then every sequence has
+// float32, 1 = bfloat16, 2 = float16 (fp32 inside, as bf16); D is 16, 64,
+// 80, 96, 128 or 256.  lengths may be null: then every sequence has
 // length_all valid tokens.  The decode form (T * H / Hkv <= 8) splits each sequence's
 // keys into n_split chunks of ``chunk`` keys (n_split * chunk >= S_max);
 // with n_split > 1 ``part`` is fp32 scratch of B * Hkv * n_split * T *

@@ -22,7 +22,7 @@
 //
 // Decode rows (q_len * group <= 8 rows per kv head: every serving decode
 // step, a speculative verify window of up to 8 tokens at group 1, a GQA
-// group of up to 8 heads; head dim 64, 80, 96, 128 or 256): the split-key,
+// group of up to 8 heads; head dim 16, 64, 80, 96, 128 or 256): the split-key,
 // memory-parallel body of split_decode.cuh, shared with decode_attention.cu,
 // over the decode sequences' list; a key's row is resolved through the
 // block table as it is loaded (PagedSeqs), so shared prefix pages and
@@ -97,10 +97,10 @@
 // written.  Tiles with the most keys are launched first (the host's
 // order).
 //
-// Prefill tiles otherwise (fp32, other page sizes or groups; every head
-// dim above): the CUDA-core tile of attention_tile.cuh, grid (tiles, Hkv,
-// 16-row chunks
-// of the tile's q_tile * group rows), keys staged through fp32 shared
+// Prefill tiles otherwise (fp32, other page sizes or groups, head dim 16
+// in every dtype; every head dim above): the CUDA-core tile of
+// attention_tile.cuh, grid (tiles, Hkv, 16-row chunks of the tile's
+// q_tile * group rows), keys staged through fp32 shared
 // memory, each key's page resolved through the block table as it is
 // loaded.  fp32 keeps it for the 1e-4 checks; the selection is by dtype
 // and shape.
@@ -181,7 +181,7 @@ int launch_decode(const void* q, const void* k_pages, const void* v_pages,
   // the staged body's boxes: rows of one page, at most a tile's
   p.kv_rows = (long long)P * Hkv * page_size;
   const int low = page_size & -page_size;   // its largest power-of-2 factor
-  constexpr int kTileKeys = dsdecode::Staged<D>::kKeys;
+  constexpr int kTileKeys = dsdecode::kStagedKeys;
   p.box_rows = low < kTileKeys ? low : kTileKeys;
   return dtype == 0   ? dsdecode::launch_rows<float>(p, n_dec, dec_rows, s)
          : dtype == 1 ? dsdecode::launch_rows<__nv_bfloat16>(p, n_dec,
@@ -554,7 +554,8 @@ int launch_prefill_cores(const void* q, const void* kp, const void* vp,
 
 // One call's launches.  q: packed [total_q, H, D]; pages [P, Hkv, page,
 // D]; o like q; dtype: 0 = float32, 1 = bfloat16, 2 = float16; D is 64,
-// 80, 96, 128 or 256 in every form (any other: cudaErrorInvalidValue).  All
+// 80, 96, 128 or 256 in every form, and 16 in the decode form and the
+// CUDA-core prefill tiles (any other: cudaErrorInvalidValue).  All
 // metadata arrays are int32 on the device: ctx_lens / q_lens / q_offs [B],
 // block_tables [B, max_pages].  Decode form (n_dec > 0): dec_seqs [n_dec]
 // sequences of at most dec_rows = q_len * group <= 8 rows, their keys
@@ -624,10 +625,16 @@ extern "C" int ds_ragged_paged_attention(
     p.scale = scale;
     return dsdecode::with_head_dim(D, [&](auto d) {
       constexpr int Dc = decltype(d)::value;
-      return dtype == 1 ? launch_prefill_tc<__nv_bfloat16, Dc>(
-                              p, q, k_pages, v_pages, n_tiles, total_q, P, s)
-                        : launch_prefill_tc<__half, Dc>(
-                              p, q, k_pages, v_pages, n_tiles, total_q, P, s);
+      // no tensor-core tile at 16: the wrapper sends it to the CUDA cores
+      if constexpr (Dc == 16)
+        return (int)cudaErrorInvalidValue;
+      else
+        return dtype == 1 ? launch_prefill_tc<__nv_bfloat16, Dc>(
+                                p, q, k_pages, v_pages, n_tiles, total_q, P,
+                                s)
+                          : launch_prefill_tc<__half, Dc>(
+                                p, q, k_pages, v_pages, n_tiles, total_q, P,
+                                s);
     });
   }
   if (q_tile <= 0 || (q_tile * group + 15) / 16 > 65535)

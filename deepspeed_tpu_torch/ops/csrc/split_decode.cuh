@@ -8,8 +8,10 @@
 // query rows (a GQA group folded in: row r is token r / group of head
 // hk * group + r % group) over keys [0, kv_hi) with the causal-ragged mask
 // key < lim(r), an fp32 online softmax, and 0 for a row that sees no key.
-// Head dim D is 64, 80, 96, 128 or 256, the element type fp32, bf16 or
-// fp16.
+// Head dim D is 16, 64, 80, 96, 128 or 256, the element type fp32, bf16 or
+// fp16.  D = 16 (the ``tiny`` model of the benches) takes the CUDA-core
+// body at every row count and dtype: its key row is 2 (bf16 / fp16) or 4
+// (fp32) 16-byte vectors, so LPR = LD and a warp load covers 16 or 8 keys.
 //
 // What bounds it on the H100: every cached K/V byte is read once for 4*D
 // flops per key per row -- at most 8 flops per byte at 8 rows, far under
@@ -167,9 +169,12 @@ using dsattn::to_f;
 constexpr int kMaxRows = 8;         // query rows per kv head of the form
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Whether ROWS rows of element type T take the tensor-core body.
-template <typename T, int ROWS>
-constexpr bool kTensorCores = ROWS > 4 && !std::is_same<T, float>::value;
+// Whether ROWS rows of element type T at head dim D take the tensor-core
+// body: 5-8 rows in bf16 / fp16, but never at D = 16, where a key row is
+// one k step and the CUDA-core body's two-lane rows cost less.
+template <typename T, int ROWS, int D>
+constexpr bool kTensorCores =
+    ROWS > 4 && !std::is_same<T, float>::value && D != 16;
 
 // Whether ROWS rows of T at head dim D take the staged tensor-core body:
 // 5-8 rows and one row (the MHA decode step) at 80, 96 and 256, in bf16 /
@@ -204,22 +209,25 @@ constexpr int kCombineRowBlocks = kStaged<T, ROWS, D> ? ROWS : 1;
 // LOADS, and are halved again at D = 256 for 3-4 rows, where 8 loads
 // spilled).  The tensor-core body has WARPS = 8 warps (4 measured slower,
 // PERF.md) at D <= 128; the staged body at D = 256 has 8 consumer warps
-// and a producer warp (Staged).
+// and a producer warp (Staged).  At D = 16 a row's LD lanes are its slice
+// (LPR = LD: 2 in bf16 / fp16, 4 in fp32), so no lane idles and a score
+// sums in one or two shuffles.
 template <typename T, int D, int ROWS>
 struct Layout {
-  static_assert(D == 64 || D == 80 || D == 96 || D == 128 || D == 256,
-                "head dim 64, 80, 96, 128 or 256");
+  static_assert(D == 16 || D == 64 || D == 80 || D == 96 || D == 128 ||
+                    D == 256,
+                "head dim 16, 64, 80, 96, 128 or 256");
   static_assert(ROWS >= 1 && ROWS <= kMaxRows, "1-8 rows");
   static constexpr int VEC = 16 / sizeof(T);
   static constexpr int DL = D / VEC;   // vectors of a key row
   static constexpr int NV = DL > 32 ? DL / 32 : 1;   // of them a lane's
   static constexpr int LD = DL / NV;   // lanes that hold a key row's dims
-  static constexpr int LPR = LD <= 8 ? 8 : LD <= 16 ? 16 : 32;
+  static constexpr int LPR = D == 16 ? LD : LD <= 8 ? 8 : LD <= 16 ? 16 : 32;
   static constexpr int KPL = 32 / LPR;
   static constexpr int LOADS =
       ROWS > 4 ? 1 : (D > 128 && ROWS > 2 ? 4 : 8) / NV;
   static constexpr int KEYS = LOADS * KPL;
-  static constexpr int WARPS = kTensorCores<T, ROWS> ? 8
+  static constexpr int WARPS = kTensorCores<T, ROWS, D> ? 8
                                : ROWS == 1 ? 16 : ROWS == 2 ? 8 : 4;
 };
 
@@ -653,7 +661,7 @@ split_tc_kernel(const __grid_constant__ SplitParams<Seqs> p) {
   constexpr int KJ = (D + 31) / 32;   // 16-byte loads of a K / q slice
   constexpr int VH = (D + 63) / 64;   // 16-byte loads of a V slice
   constexpr int MT = 4 * VH;          // output tiles of O^T
-  static_assert(kTensorCores<T, ROWS>, "5-8 rows, bf16 or fp16");
+  static_assert(kTensorCores<T, ROWS, D>, "5-8 rows, bf16 or fp16");
   static_assert(D <= 128, "head dim 256 takes split_staged_kernel");
   __shared__ float acc_s[kWarps][ROWS][D];
   __shared__ float m_s[kWarps][ROWS], l_s[kWarps][ROWS];
@@ -833,10 +841,11 @@ split_tc_kernel(const __grid_constant__ SplitParams<Seqs> p) {
 // the phase before.
 constexpr int gcd(int a, int b) { return b ? gcd(b, a % b) : a; }
 constexpr int kStagedBox = 64 * 128;   // a 64-column box of a 64-key tile
+constexpr int kStagedKeys = 64;        // keys of a stage
 
 template <int D>
 struct Staged {
-  static constexpr int kKeys = 64;               // keys of a stage
+  static constexpr int kKeys = kStagedKeys;
   static constexpr int kStages = 3;
   static constexpr int kGroupWarps = kKeys / 16;
   static constexpr int kConsumerWarps = 8;
@@ -1239,20 +1248,25 @@ template <typename T, int ROWS, typename Seqs>
 constexpr auto split_form() {
   if constexpr (kStaged<T, ROWS, Seqs::kDim>)
     return split_staged_kernel<T, ROWS, Seqs>;
-  else if constexpr (kTensorCores<T, ROWS>)
+  else if constexpr (kTensorCores<T, ROWS, Seqs::kDim>)
     return split_tc_kernel<T, ROWS, Seqs>;
   else
     return split_kernel<T, ROWS, Seqs>;
 }
+// (Staged<D> is named only where the staged body runs: it has no D = 16.)
 template <typename T, int ROWS, typename Seqs>
 constexpr int split_threads() {
-  return kStaged<T, ROWS, Seqs::kDim>
-             ? Staged<Seqs::kDim>::kThreads
-             : Layout<T, Seqs::kDim, ROWS>::WARPS * 32;
+  if constexpr (kStaged<T, ROWS, Seqs::kDim>)
+    return Staged<Seqs::kDim>::kThreads;
+  else
+    return Layout<T, Seqs::kDim, ROWS>::WARPS * 32;
 }
 template <typename T, int ROWS, typename Seqs>
 constexpr size_t split_smem() {
-  return kStaged<T, ROWS, Seqs::kDim> ? Staged<Seqs::kDim>::kBytes : 0;
+  if constexpr (kStaged<T, ROWS, Seqs::kDim>)
+    return Staged<Seqs::kDim>::kBytes;
+  else
+    return 0;
 }
 
 // Lets the split kernel take its dynamic shared memory: once per
@@ -1316,7 +1330,7 @@ int launch_split(const SplitParams<Seqs>& p, int Z, cudaStream_t stream) {
       split_staged_kernel<T, ROWS, Seqs>
           <<<grid, S::kThreads, S::kBytes, stream>>>(ps);
     }
-  } else if constexpr (kTensorCores<T, ROWS>) {
+  } else if constexpr (kTensorCores<T, ROWS, Seqs::kDim>) {
     split_tc_kernel<T, ROWS, Seqs>
         <<<grid, split_threads<T, ROWS, Seqs>(), 0, stream>>>(p);
   } else {
@@ -1387,12 +1401,13 @@ int split_slots(int rows) {
   });
 }
 
-// Runs ``f(std::integral_constant<int, D>)`` for head dims 64, 80, 96, 128
-// and 256, the ones every form of both serving kernels is instantiated at;
-// a negative CUDA error for any other.
+// Runs ``f(std::integral_constant<int, D>)`` for head dims 16, 64, 80, 96,
+// 128 and 256, the ones both serving kernels are instantiated at (16 on
+// the CUDA-core bodies only); a negative CUDA error for any other.
 template <typename F>
 int with_head_dim(int D, F&& f) {
   switch (D) {
+    case 16: return f(std::integral_constant<int, 16>{});
     case 64: return f(std::integral_constant<int, 64>{});
     case 80: return f(std::integral_constant<int, 80>{});
     case 96: return f(std::integral_constant<int, 96>{});

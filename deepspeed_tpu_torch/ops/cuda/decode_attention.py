@@ -22,8 +22,11 @@ from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops.cuda.flash_attention import check_head_dim
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# the kernel's head dims, in both forms (and B4's, in all of its forms)
-HEAD_DIMS = (64, 80, 96, 128, 256)
+# the kernel's head dims, in both forms (and B4's, in all of its forms but
+# the tensor-core prefill tiles, which 16 does not take): 16 is the
+# benches' ``tiny`` model, served on the CUDA-core bodies at every row
+# count and dtype
+HEAD_DIMS = (16, 64, 80, 96, 128, 256)
 # The decode form (at most DECODE_ROWS query rows per kv head) splits each
 # sequence's keys into chunks of at least DECODE_MIN_CHUNK keys, one block
 # each, merged in chunk order by a second kernel when a sequence spans
@@ -114,10 +117,12 @@ def min_chunk(rows, dtype, head_dim):
     in bf16 or fp16) DECODE_MIN_CHUNK_STAGED at 256 and STAGED_ROWS_KEYS
     at 80 and 96 (the staged body, which chunks that long take; 512 keys
     read best there) and DECODE_MIN_CHUNK_TC at 64 and 128; on the
-    CUDA-core body (1-4 rows, and fp32 at any row count) and the one-row
-    staged body DECODE_MIN_CHUNK, which is STAGED_ONE_ROW_KEYS: a split
-    plan always takes the staged body where it is staged at all."""
-    if rows <= 4 or dtype not in (torch.bfloat16, torch.float16):
+    CUDA-core body (1-4 rows, fp32 at any row count, and head dim 16 at
+    any row count) and the one-row staged body DECODE_MIN_CHUNK, which is
+    STAGED_ONE_ROW_KEYS: a split plan always takes the staged body where
+    it is staged at all."""
+    if rows <= 4 or dtype not in (torch.bfloat16, torch.float16) or \
+            head_dim == 16:
         return DECODE_MIN_CHUNK
     if head_dim == 256:
         return DECODE_MIN_CHUNK_STAGED

@@ -28,7 +28,9 @@ prefill tiles -- the tensor-core kernel's 128-row tiles where
 sizes), else the CUDA-core tiles (fp32, other groups and pages).  That
 choice is by dtype and shape, made here, and not a fallback: both forms
 are this wrapper's kernel, counted in the same ``launches``.  Every form
-takes head dims 64, 80, 96, 128 and 256 (``HEAD_DIMS``); another raises
+takes head dims 64, 80, 96, 128 and 256; head dim 16 (the benches'
+``tiny`` model) takes the decode rows and the CUDA-core tiles in every
+dtype (``HEAD_DIMS``, :data:`TC_HEAD_DIMS`); another raises
 ``NotImplementedError`` naming ROADMAP A16.
 """
 
@@ -51,6 +53,9 @@ from deepspeed_tpu_torch.ops.cuda.flash_attention import check_head_dim
 
 DEFAULT_Q_TILE = 8
 TC_ROWS = 128   # query rows (tokens x group heads) of a tensor-core tile
+# the head dims of the tensor-core prefill tiles (every one of HEAD_DIMS
+# but 16, whose 32-byte rows are a quarter of a TMA box)
+TC_HEAD_DIMS = (64, 80, 96, 128, 256)
 
 
 def tc_keys(head_dim):
@@ -62,8 +67,8 @@ def tc_keys(head_dim):
 
 def tensor_core_prefill(dtype, head_dim, group, page_size):
     """Whether prefill tiles take the wgmma + TMA kernel: bf16 or fp16,
-    a head dim of ``HEAD_DIMS`` (64, 80, 96, 128 or 256: each has a
-    tensor-core instantiation), a GQA group dividing 64 (a warpgroup's 64
+    a head dim of :data:`TC_HEAD_DIMS` (64, 80, 96, 128 or 256: each has
+    a tensor-core instantiation; 16 has none), a GQA group dividing 64 (a warpgroup's 64
     rows hold whole tokens) and a page size that is a multiple of the K/V
     tile's keys (:func:`tc_keys`: 128, 64 at 256) or a multiple of 8 rows
     dividing them (each TMA box starts on a swizzle atom; a row of D
@@ -72,7 +77,7 @@ def tensor_core_prefill(dtype, head_dim, group, page_size):
     it at every head dim.  Other shapes take the CUDA-core tiles."""
     keys = tc_keys(head_dim)
     return (dtype in (torch.bfloat16, torch.float16)
-            and head_dim in HEAD_DIMS and 64 % group == 0
+            and head_dim in TC_HEAD_DIMS and 64 % group == 0
             and (page_size % keys == 0 or
                  (keys % page_size == 0 and page_size % 8 == 0)))
 

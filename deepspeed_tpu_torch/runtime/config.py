@@ -5,8 +5,9 @@ keys: the batch triangle ``train_batch_size = micro * gas * world`` (world
 is 1 here), ``optimizer`` {type, params}, ``scheduler`` {type, params},
 ``fp16`` (loss scaling; ``loss_scale`` 0 means dynamic), ``bf16.enabled``,
 ``gradient_clipping``, ``seed``, ``steps_per_print``,
-``zero_optimization``, ``checkpoint`` and ``resilience``.  Every block the JAX engine acts on and the port
-does not run yet raises ``NotImplementedError`` naming its ROADMAP item,
+``wall_clock_breakdown``, ``zero_optimization``, ``checkpoint`` and
+``resilience``.  Every block the JAX engine acts on and the port does not
+run yet raises ``NotImplementedError`` naming its ROADMAP item,
 when it is enabled or non-empty; the keys the JAX config accepts and
 leaves inert pass silently; any other top-level key logs a warning with
 a "did you mean" hint, as the JAX config's ``_warn_unknown_keys`` does.
@@ -234,6 +235,10 @@ class DeepSpeedConfig:
 
         self.steps_per_print = pd.get(C.STEPS_PER_PRINT,
                                       C.STEPS_PER_PRINT_DEFAULT)
+        # the engine logs fwd / bwd / step times every steps_per_print
+        # steps of the three-call path (utils/timer.py)
+        self.wall_clock_breakdown = bool(pd.get(
+            C.WALL_CLOCK_BREAKDOWN, C.WALL_CLOCK_BREAKDOWN_DEFAULT))
         self.gradient_clipping = pd.get(C.GRADIENT_CLIPPING,
                                         C.GRADIENT_CLIPPING_DEFAULT)
         self.seed = pd.get(C.SEED, C.SEED_DEFAULT)

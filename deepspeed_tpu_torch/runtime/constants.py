@@ -72,6 +72,7 @@ AMP = "amp"
 PRESCALE_GRADIENTS = "prescale_gradients"
 GRADIENT_PREDIVIDE_FACTOR = "gradient_predivide_factor"
 WALL_CLOCK_BREAKDOWN = "wall_clock_breakdown"
+WALL_CLOCK_BREAKDOWN_DEFAULT = False
 DUMP_STATE = "dump_state"
 SPARSE_GRADIENTS = "sparse_gradients"
 COMM = "comm"

@@ -49,6 +49,14 @@ divergence sentinel (halt, or restore the last good tag) and poisons the
 step's weights when the fault injector says so.  ``deepspeed_io`` /
 ``training_data`` build the numpy loader of ``runtime/dataloader.py``.
 
+Timers (``utils/timer.py``), as the JAX engine keeps them:
+``train_batch`` logs ``RunningAvgSamplesPerSec`` every ``steps_per_print``
+calls (``tput_timer``), and with ``wall_clock_breakdown`` the three-call
+path logs ``time (ms) | fwd | bwd | step`` every ``steps_per_print``
+steps (``timers``).  On the card both read CUDA events on the current
+stream, resolved only on a step that logs, so a step that does not log
+gains no host sync; the breakdown's timers run only when it is on.
+
 Not ported yet (each raises naming its ROADMAP item): multi-rank ZeRO
 (A8), the async input pipeline (A17).
 """
@@ -84,6 +92,11 @@ from deepspeed_tpu_torch.runtime.resilience import (
     fault_event, flatten_with_keystr, gc_tags, meta_event, poison_tree,
     retry_io, scan_tags, validate_tag, verify_restored)
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
+from deepspeed_tpu_torch.utils.timer import (BACKWARD_GLOBAL_TIMER,
+                                             FORWARD_GLOBAL_TIMER,
+                                             STEP_GLOBAL_TIMER,
+                                             SynchronizedWallClockTimer,
+                                             ThroughputTimer)
 
 
 def _world_size():
@@ -195,6 +208,12 @@ class DeepSpeedEngine:
         # multiply by its reciprocal) and needs no copy to the card per step
         self._gas = torch.tensor(float(config.gradient_accumulation_steps),
                                  dtype=torch.float32, device=self.device)
+        # the JAX engine's timers, on the card's clock there
+        self.timers = SynchronizedWallClockTimer(device=self.device)
+        self.tput_timer = ThroughputTimer(
+            batch_size=config.train_batch_size,
+            steps_per_output=config.steps_per_print, device=self.device)
+        self._breakdown = config.wall_clock_breakdown
 
         # ---- fault tolerance (runtime/resilience.py) -----------------
         rc = config.resilience_config
@@ -397,6 +416,7 @@ class DeepSpeedEngine:
                              for _ in range(gas)]
         else:
             micro_batches = self._micro_batches(batch, gas)
+        self.tput_timer.start()
         if self._injector is not None and \
                 self._injector.poison_grads(self.global_steps):
             # the deterministic divergence trigger: NaN the float inputs,
@@ -420,6 +440,7 @@ class DeepSpeedEngine:
             # copy every ``sentinel_interval`` steps
             self._sentinel.push(self.global_steps, loss=loss,
                                 overflow=self._overflow)
+        self.tput_timer.stop(global_step=True)
         return loss
 
     # ------------------------------------------------------------------
@@ -428,8 +449,13 @@ class DeepSpeedEngine:
     def forward(self, batch):
         """Loss of one micro-batch ([B, S] ids or a dict), with its graph
         kept for :meth:`backward`."""
-        return self.module.loss(self._batch_to_device(batch),
+        if self._breakdown:
+            self.timers(FORWARD_GLOBAL_TIMER).start()
+        loss = self.module.loss(self._batch_to_device(batch),
                                 attn_backend=self.backend)
+        if self._breakdown:
+            self.timers(FORWARD_GLOBAL_TIMER).stop()
+        return loss
 
     __call__ = forward
 
@@ -439,19 +465,33 @@ class DeepSpeedEngine:
         buffer: the order of the JAX engine's ``backward``, which divides
         each micro-batch before summing (``train_batch`` sums, then divides
         once, as the JAX one does)."""
+        if self._breakdown:
+            self.timers(BACKWARD_GLOBAL_TIMER).start()
         self._scaled_backward(loss)
         self._accumulate_grads(self._gas)
         self.micro_steps += 1
+        if self._breakdown:
+            self.timers(BACKWARD_GLOBAL_TIMER).stop()
         return loss
 
     def is_gradient_accumulation_boundary(self):
         return self._accum_count >= self._config.gradient_accumulation_steps
 
     def step(self):
-        """Apply the update at the gradient-accumulation boundary."""
+        """Apply the update at the gradient-accumulation boundary; with
+        ``wall_clock_breakdown``, log the fwd / bwd / step times every
+        ``steps_per_print`` steps, as the JAX ``step`` does."""
         self._step_applied = False
-        if self.is_gradient_accumulation_boundary():
-            self._apply_update()
+        if not self.is_gradient_accumulation_boundary():
+            return
+        if self._breakdown:
+            self.timers(STEP_GLOBAL_TIMER).start()
+        self._apply_update()
+        if self._breakdown:
+            self.timers(STEP_GLOBAL_TIMER).stop()
+            if self.global_steps % self._config.steps_per_print == 0:
+                self.timers.log([FORWARD_GLOBAL_TIMER, BACKWARD_GLOBAL_TIMER,
+                                 STEP_GLOBAL_TIMER])
 
     # ------------------------------------------------------------------
     # accessors

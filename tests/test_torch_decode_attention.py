@@ -166,6 +166,54 @@ def test_head_dims_80_96_match_jnp_and_pallas(Dh, Hkv, T):
     np.testing.assert_allclose(got, np.asarray(kern), **TOL)
 
 
+@pytest.mark.parametrize("T,Hkv", [(1, 4), (2, 4), (4, 4), (8, 4), (1, 1),
+                                   (2, 1)])
+def test_head_dim_16_matches_jnp_and_pallas(T, Hkv):
+    """Head dim 16 (the benches' ``tiny`` model: 4 heads of 16), 1, 2, 4
+    and 8 rows a kv head (MHA at T = 1, 2, 4, 8; 4 and 8 at group 4): the
+    port's decode attention on a cache (the plain version on the CPU)
+    against the JAX package's jnp path and its Pallas kernel in interpret
+    mode, then ragged lengths against the Pallas kernel.  fp32, rtol =
+    atol = 2e-5."""
+    Dh = 16
+    jc, tc, q = _caches(Hkv, T, seed=Dh + T, Dh=Dh)
+    got = decode_attention(torch.from_numpy(q), tc).numpy()
+    np.testing.assert_allclose(
+        got, np.asarray(jax_decode(jnp.asarray(q), jc, impl="jnp")), **TOL)
+    lengths = jnp.full((B,), jc.length, jnp.int32)
+    kern = decode_attention_pallas(jnp.asarray(q), jc.k, jc.v, lengths,
+                                   interpret=True)
+    np.testing.assert_allclose(got, np.asarray(kern), **TOL)
+    rng = np.random.default_rng(Dh + 10 * T)
+    k, v = _rand(rng, B, Hkv, S, Dh), _rand(rng, B, Hkv, S, Dh)
+    ragged = np.asarray([T + 2, S], np.int32)
+    got = decode_attention_plain(torch.from_numpy(q), torch.from_numpy(k),
+                                 torch.from_numpy(v),
+                                 torch.from_numpy(ragged)).numpy()
+    kern = decode_attention_pallas(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), jnp.asarray(ragged),
+                                   interpret=True)
+    np.testing.assert_allclose(got, np.asarray(kern), **TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_head_dim_16_takes_the_cuda_core_body(dtype):
+    """Head dim 16 runs the CUDA-core split body at every row count and
+    dtype: never staged, the CUDA-core body's shortest chunk
+    (DECODE_MIN_CHUNK) at 5-8 rows too, so a split plan's chunks are
+    multiples of 64 keys of at least 512.  The inference bench's shapes
+    (B=1, 4 heads, a 192-key cache) take one chunk; the same sequence over
+    2048 keys splits."""
+    for rows in range(1, DECODE_ROWS + 1):
+        assert min_chunk(rows, dtype, 16) == DECODE_MIN_CHUNK
+        for chunk in (192, 512, 2176):
+            assert not staged(rows, dtype, 16, chunk)
+    assert decode_splits(1, 1, 4, 4, 192, 528, dtype, 16) == (1, 192)
+    assert decode_splits(1, 128, 4, 4, 192, 528, dtype, 16) == (1, 192)
+    assert decode_splits(1, 2, 4, 1, 2048, 528, dtype, 16) == (4, 512)
+
+
 @pytest.mark.parametrize("T", [1, 5])
 @pytest.mark.parametrize("Hq,Hkv", [(2, 2), (8, 1)], ids=["group1", "group8"])
 def test_head_dim_256_matches_jnp_and_pallas(Hq, Hkv, T):
@@ -204,13 +252,13 @@ def test_head_dim_256_matches_jnp_and_pallas(Hq, Hkv, T):
     np.testing.assert_allclose(got, np.asarray(kern), **tol)
 
 
-@pytest.mark.parametrize("Dh", [64, 80, 96, 128, 48, 256])
+@pytest.mark.parametrize("Dh", [16, 64, 80, 96, 128, 48, 256])
 def test_wrappers_check_the_head_dim_first(Dh):
-    """B5's and B4's wrappers take head dims 64, 80, 96, 128 and 256 and
-    refuse any other with ``NotImplementedError`` naming ROADMAP A16,
+    """B5's and B4's wrappers take head dims 16, 64, 80, 96, 128 and 256
+    and refuse any other with ``NotImplementedError`` naming ROADMAP A16,
     before any other check: a head dim they take goes on to the device
     check, which CPU tensors fail with ``ValueError``."""
-    assert HEAD_DIMS == (64, 80, 96, 128, 256)
+    assert HEAD_DIMS == (16, 64, 80, 96, 128, 256)
     q, kv = torch.zeros(1, 1, 2, Dh), torch.zeros(1, 2, 8, Dh)
     pages = torch.zeros(4, 2, 8, Dh)
     meta = torch.zeros(1, dtype=torch.int32)

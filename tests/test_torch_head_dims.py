@@ -1,7 +1,8 @@
 """Head dims no kernel takes are refused at construction on the card.
 
 The flash kernels (B1, B2) and the serving kernels (B4, B5) take head
-dims 64, 80, 96, 128 and 256; the block-sparse kernel (B6) takes 64 and
+dims 64, 80, 96, 128 and 256, and the serving kernels 16 too (the
+benches' tiny model); the block-sparse kernel (B6) takes 64 and
 128.  So gpt_760m (96), gpt_2_7b (80), a Phi-3-mini-shaped model (96) and
 the Gemma shapes (256) train and are served on the card, and a 48 does
 neither.  A model of a head dim its
@@ -51,16 +52,17 @@ def _ids(shape, seed=0):
     return np.random.default_rng(seed).integers(0, 256, shape)
 
 
-@pytest.mark.parametrize("head_dim", [64, 128, 80, 96, 256, 48])
+@pytest.mark.parametrize("head_dim", [64, 128, 80, 96, 256, 48, 16])
 def test_card_checks_by_head_dim(head_dim):
     """64, 80, 96, 128 and 256 pass both checks on the card (80 and 96
     pass serving's since B4 and B5 take them, 256 training's since B1 and
-    B2 do); 48 raises naming A16 at both.  Every head dim passes both on
-    the CPU."""
+    B2 do); 16 (the benches' tiny model) passes serving's, since B4 and B5
+    take it, and training's raises naming A16; 48 raises naming A16 at
+    both.  Every head dim passes both on the CPU."""
     cfg = TransformerConfig.tiny(hidden_size=2 * head_dim, n_heads=2)
     assert cfg.head_dim == head_dim
     for check, taken in ((check_trainable, (64, 80, 96, 128, 256)),
-                         (check_servable, (64, 80, 96, 128, 256))):
+                         (check_servable, (16, 64, 80, 96, 128, 256))):
         check(cfg, "cpu")
         if head_dim in taken:
             check(cfg, torch.device("cuda"))
@@ -158,6 +160,33 @@ def test_serving_engine_refuses_head_dim_96_on_the_card():
     out = se.generate([list(range(1, 6)), list(range(7, 10))], 3)
     assert [len(x) for x in out] == [5 + 3, 3 + 3]   # prompt + new
     assert se.leak_report() == {}
+
+
+def test_tiny_serves_on_the_card_and_trains_only_off_it():
+    """``TransformerConfig.tiny`` at the benches' width (hidden 64, 4 heads:
+    head dim 16): ``init_inference`` and the serving engine take it on the
+    card (B4 and B5 serve head dim 16); ``initialize`` refuses it there
+    naming A16 (B1 and B2 do not take 16) and trains it on the CPU."""
+    cfg = TransformerConfig.tiny(hidden_size=64, n_heads=4)
+    assert cfg.head_dim == 16
+    check_servable(cfg, "cuda")
+    made = []
+    stub = types.SimpleNamespace(
+        config=cfg, device=torch.device("cuda"),
+        init_paged_caches=lambda *a, **k: made.append(k["dtype"]))
+    deepspeed_tpu_torch.create_serving_engine(stub, max_batch=2,
+                                              page_size=8, max_seq=32)
+    assert made == [torch.bfloat16]
+    model = CausalTransformerLM(cfg, device="cpu").init(0)
+    with pytest.raises(NotImplementedError,
+                       match="head_dim 16 not in .*ROADMAP A16"):
+        deepspeed_tpu_torch.initialize(model=model, config=TRAIN_CONFIG,
+                                       device="cuda")
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model,
+                                                config=TRAIN_CONFIG,
+                                                device="cpu")
+    assert np.isfinite(float(engine.train_batch(
+        batch={"input_ids": _ids((2, 16))})))
 
 
 def test_sparse_self_attention_refuses_head_dim_96_on_the_card():

@@ -381,12 +381,18 @@ def test_decode_key_chunks_cover_each_key_once(pairs, slots):
     (torch.bfloat16, 256, 8, 128, True), (torch.float16, 256, 1, 16, True),
     (torch.float16, 256, 8, 16, True), (torch.bfloat16, 256, 1, 192, True),
     (torch.float32, 256, 8, 128, False), (torch.bfloat16, 256, 3, 128, False),
-    (torch.bfloat16, 256, 1, 48, False), (torch.bfloat16, 48, 1, 128, False)])
+    (torch.bfloat16, 256, 1, 48, False), (torch.bfloat16, 48, 1, 128, False),
+    # head dim 16 (the benches' tiny model): the CUDA-core tiles at every
+    # dtype, group and page, the serving engine's page 128 and 16 among
+    # them
+    (torch.bfloat16, 16, 1, 128, False), (torch.float16, 16, 1, 16, False),
+    (torch.bfloat16, 16, 4, 128, False), (torch.float32, 16, 1, 128, False)])
 def test_tensor_core_prefill_selection(dtype, D, group, page, want):
     """The prefill tiles take the tensor-core kernel for bf16 and fp16 at
     head dims 64, 80, 96, 128 and 256, a group dividing 64 and pages that
     tile or divide the K/V tile (128 keys; 64 at head dim 256) in whole
-    swizzle atoms; anything else takes the CUDA-core one."""
+    swizzle atoms; anything else -- head dim 16 always -- takes the
+    CUDA-core one."""
     assert tensor_core_prefill(dtype, D, group, page) is want
 
 
@@ -634,6 +640,80 @@ def test_head_dims_80_96_match_pallas_and_oracle(Dh, Hkv, T):
                       jnp.asarray(tables), jnp.asarray(ctx_lens, jnp.int32),
                       q_lens, interpret=True)
     np.testing.assert_allclose(got, np.asarray(kern), **TOL)
+
+
+@pytest.mark.parametrize("T", [1, 2, 8])
+@pytest.mark.parametrize("Hkv", [4, 1], ids=["mha", "group4"])
+def test_head_dim_16_matches_pallas_and_oracle(Hkv, T):
+    """Head dim 16 (the benches' ``tiny`` model: 4 heads of 16), MHA and
+    group 4, decode rows of 1, 2 and 8 tokens (1-8 rows a kv head at MHA,
+    4 at group 4; 8 tokens at group 4 are 32 rows, the prefill tiles) over
+    ragged contexts: the rectangular front-end (the plain version on the
+    CPU) against the JAX package's rect Pallas kernel in interpret mode and
+    its jnp gather path, then the packed front-end on a mixed batch
+    sharing a prefix page against the ragged Pallas kernel."""
+    Dh = 16
+    ctx = [T + 3, T, T + 9]
+    tables, kp, vp = _state_dh(ctx, PAGE, Hkv, Dh, seed=Dh + T)
+    q = np.random.default_rng(Dh + T).standard_normal(
+        (3, T, H, Dh)).astype(np.float32)
+    lengths = np.asarray(ctx, np.int32)
+    got = ragged_paged_attention_rect(
+        torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
+        torch.from_numpy(tables), torch.from_numpy(lengths)).numpy()
+    kern = jax_ragged_rect(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+                           jnp.asarray(tables), jnp.asarray(lengths),
+                           interpret=True)
+    np.testing.assert_allclose(got, np.asarray(kern), **TOL)
+    want = jax_paged(jnp.asarray(q), JaxPagedKVCache(jnp.asarray(kp),
+                                                     jnp.asarray(vp)),
+                     jnp.asarray(tables), jnp.asarray(lengths), impl="jnp")
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+    q_lens, ctx_lens = [T, 1, 9, 1], [T + 6, 13, 9, 11]
+    tables, kp, vp = _state_dh(ctx_lens, PAGE, Hkv, Dh, seed=Dh + 1,
+                               shared_pages=1)
+    qp = np.random.default_rng(Dh + 2).standard_normal(
+        (sum(q_lens), H, Dh)).astype(np.float32)
+    got = ragged_paged_attention(torch.from_numpy(qp), torch.from_numpy(kp),
+                                 torch.from_numpy(vp),
+                                 torch.from_numpy(tables), ctx_lens,
+                                 q_lens).numpy()
+    kern = jax_ragged(jnp.asarray(qp), jnp.asarray(kp), jnp.asarray(vp),
+                      jnp.asarray(tables), jnp.asarray(ctx_lens, jnp.int32),
+                      q_lens, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(kern), **TOL)
+
+
+@pytest.mark.parametrize("page", [16, 128])
+@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (4, 1)], ids=["mha", "group4"])
+def test_head_dim_16_plans_the_cuda_core_forms(Hq, Hkv, page):
+    """At head dim 16 no dtype takes the tensor-core prefill tiles, so the
+    wrapper plans the CUDA-core ones (``q_tile``-token tiles, the JAX
+    tiling) beside the decode rows, which split their keys by B5's rule
+    (DECODE_MIN_CHUNK at every row count).  The plan, executed as the
+    kernels read it, against the JAX Pallas kernel in interpret mode: the
+    serving bench's bucketed prefills, a ragged last tile, decode rows."""
+    group = Hq // Hkv
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        assert not tensor_core_prefill(dtype, 16, group, page)
+        for rows in (1, 2, 4, 8):
+            assert decode_rows_splits(1, Hkv, 2048, 528, rows, dtype, 16) \
+                == (4, 512)
+    q_lens, ctx_lens = [64, 1, 37, 2, 128], [64, 90, 37, 41, 128]
+    tables, kp, vp = _state_dh(ctx_lens, page, Hkv, 16, seed=page + group)
+    q = np.random.default_rng(page).standard_normal(
+        (sum(q_lens), Hq, 16)).astype(np.float32)
+    plan = plan_launch(q_lens, group, False)
+    assert not plan.tensor_cores and plan.q_tile == DEFAULT_Q_TILE
+    assert plan.decode_seqs.tolist() == [
+        s for s, ql in enumerate(q_lens) if ql * group <= DECODE_ROWS]
+    got = _plan_emulated(torch.from_numpy(q), torch.from_numpy(kp),
+                         torch.from_numpy(vp), torch.from_numpy(tables),
+                         ctx_lens, q_lens, plan, chunk=64)
+    kern = jax_ragged(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+                      jnp.asarray(tables), jnp.asarray(ctx_lens, jnp.int32),
+                      q_lens, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(kern), **TOL)
 
 
 TC80_96_CASES = [  # (name, Dh, Hq, Hkv, page, q_lens, ctx_lens)

@@ -182,6 +182,33 @@ def test_head_dims_80_96_tokens_identical(tiny_d80_96, entry):
     assert teng.leak_report() == {}
 
 
+def test_tiny_bench_shape_tokens_identical():
+    """The serving bench's ``--model tiny`` (hidden 64, 4 heads of 16: the
+    head dim B4 and B5 now serve on the card) at its exact geometry -- page
+    128, max_seq = prompt + gen + page, ``decode_chunk`` 8 -- weights
+    carried from the JAX package by ``from_jax_params``: greedy tokens of
+    a ``ServingEngine`` equal the JAX engine's, fp32, more requests than
+    slots."""
+    kw = dict(hidden_size=64, n_heads=4)
+    jmodel = JaxLM(JaxConfig.tiny(**kw))
+    params = jmodel.init(jax.random.key(6))
+    cfg = TransformerConfig.tiny(**kw)
+    assert (cfg.head_dim, cfg.kv_heads) == (16, 4)
+    tmodel = CausalTransformerLM(cfg, device="cpu")
+    tmodel.load_state_dict(from_jax_params(
+        jax.tree_util.tree_map(np.asarray, params), cfg))
+    prompts = _prompts(cfg, [9, 16, 12], seed=13)
+    geometry = dict(max_batch=2, page_size=128, max_seq=16 + 10 + 128,
+                    decode_chunk=8)
+    jeng = JaxServing(jmodel, params, dtype=jnp.float32,
+                      serving={"attention_backend": "jnp"}, **geometry)
+    teng = ServingEngine(tmodel, dtype=torch.float32, **geometry)
+    got = teng.generate(prompts, max_new_tokens=10)
+    assert got == jeng.generate(prompts, max_new_tokens=10)
+    assert [len(o) for o in got] == [19, 26, 22]
+    assert teng.leak_report() == {}
+
+
 def _serve_both(tiny, prompts, max_batch, max_new, eos=None, **sampling):
     cfg, jmodel, params, _, tmodel = tiny
     jeng = JaxServing(jmodel, params, max_batch=max_batch, page_size=8,

@@ -600,7 +600,24 @@ def test_gemma_train_launches_match_a_counted_run():
      "namespace)::PagedSeqs<80> >)", True),
     ("_ZN8dsdecode19split_staged_kernelI6__halfLi8EN58_GLOBAL__N__0_19_"
      "decode_attention_cu_014ContiguousSeqsILi96EEEEEvNS_11SplitParamsIT1_"
-     "EE", True)])
+     "EE", True),
+    # head dim 16 (the benches' tiny model): the CUDA-core split body at
+    # every row count, its combine, and B4's and B5's CUDA-core tiles
+    ("void dsdecode::split_kernel<__nv_bfloat16, 8, (anonymous namespace)::"
+     "PagedSeqs<16> >(dsdecode::SplitParams<(anonymous namespace)::"
+     "PagedSeqs<16> >)", True),
+    ("void dsdecode::combine_kernel<float, 1, (anonymous namespace)::"
+     "ContiguousSeqs<16> >(dsdecode::SplitParams<(anonymous namespace)::"
+     "ContiguousSeqs<16> >)", True),
+    ("void (anonymous namespace)::ragged_paged_attention_kernel<"
+     "__nv_bfloat16, 16, 16>(const T1 *, const T1 *, const T1 *, T1 *, "
+     "const int *, const int *, const int *, const int *, const int *, "
+     "const int *, int, int, int, int, int, float)", True),
+    ("_ZN55_GLOBAL__N__0_22_decode_attention_cu_023decode_attention_kernelI"
+     "6__halfLi16ELi16EEEvPKT_S4_S4_PS2_PKiiiiiif", True),
+    ("void (anonymous namespace)::decode_attention_kernel<float, 128, 16>("
+     "const T1 *, const T1 *, const T1 *, T1 *, const int *, int, int, "
+     "int, int, int, float)", False)])
 def test_must_not_spill_names_decode_and_d64_consumers(kernel, want):
     """The build phase fails on a spill in the split-key decode body, in
     every bf16 / fp16 head-dim-64 instantiation of B1's forward and B4's
@@ -824,6 +841,55 @@ def test_b4_form_launches_match_a_counted_serve_run(head_dim, monkeypatch):
         "ragged_paged_attention_d80": 3 * steps,
         "ragged_paged_attention_prefill_8_d80": 3 * 2,     # prompts 5, 3
         "ragged_paged_attention_prefill_16_d80": 3 * 2}    # 9, 16
+
+
+def test_bench_launches_match_counted_bench_runs(monkeypatch):
+    """Phases (b) and (c)'s expected launches -- ``serving_bench_launches``
+    (B4 a layer a model call of the two continuous-batching engines, their
+    prefills by bucket, the rest decode rows; B5 a layer a call of the
+    sequential generates, prompts apart from steps) and
+    ``inference_bench_launches`` -- against the benches run on the CPU at
+    tiny (head dim 16), each plain call's query length recorded through
+    the dense attention it calls."""
+    from deepspeed_tpu_torch.benchmarks import inference, serving
+    from deepspeed_tpu_torch.ops.cuda import decode_attention as da
+    from deepspeed_tpu_torch.ops.cuda import ragged_paged_attention as rp
+    seen = []
+    for mod, kind in ((rp, "ragged"), (da, "decode")):
+        monkeypatch.setattr(mod, "dense_attention",
+                            lambda q, *a, kind=kind, real=mod.dense_attention,
+                            **k: seen.append((kind, q.shape[1])) or
+                            real(q, *a, **k))
+    res = serving.run_benchmark("tiny", requests=5, max_batch=2,
+                                prompt_len=12, gen=3, page_size=8,
+                                decode_chunk=2, device="cpu")
+    lens, _ = serving.prompt_mix(5, 12, 256)
+    got = chip_smoke.serving_bench_launches(2, res, lens, 12 + 3 + 8, "_d16")
+    want = {}
+    for kind, T in seen:
+        if kind == "ragged":
+            key = ("ragged_paged_attention_d16" if T == 1 else
+                   f"ragged_paged_attention_prefill_{T}_d16")
+        else:
+            key = "decode_attention_d16" + ("" if T == 1 else "_prefill")
+        want[key] = want.get(key, 0) + 1
+    assert got == want
+    assert {k for k in got if "prefill_" in k} == {
+        "ragged_paged_attention_prefill_8_d16",
+        "ragged_paged_attention_prefill_16_d16"}
+    assert chip_smoke._kernel_totals(got) == {
+        "ragged_paged_attention": 2 * (
+            res["model_calls"]["continuous_batching"] +
+            res["model_calls"]["continuous_batching_chunk2"]),
+        "decode_attention": 2 * res["model_calls"][
+            "sequential_single_stream"]}
+    seen.clear()
+    inference.benchmark("tiny", "fp32", 1, 8, 3, 1, device="cpu")
+    assert chip_smoke.inference_bench_launches(2, 1, 3, "_d16") == {
+        "decode_attention_d16_prefill": seen.count(("decode", 8)),
+        "decode_attention_d16": seen.count(("decode", 1))} == {
+        "decode_attention_d16_prefill": 2 * 4,
+        "decode_attention_d16": 2 * 4 * 2}
 
 
 def test_generate_launches_match_a_counted_generate():
