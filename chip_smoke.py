@@ -49,7 +49,10 @@ kernels.  Phases:
              backward at gpt_1b's shape, at GPT-Neo's global layers' (S=2048,
              unscaled logits), GQA 32/8 and S=1000; fused Adam over
              1,000,003 elements in both modes, and with its skip flag set
-             (p, m, v unchanged bit for bit); the biased flash kernels with
+             (p, m, v unchanged bit for bit), and its bf16-gradient and
+             bf16-moment forms bit for bit over 3 steps at 1,000,003 and
+             4,099 elements, skip flag too, with the stochastic
+             rounding's mean over 65536 copies; the biased flash kernels with
              ALiBi at S=2048, windows 256 (S=2048, unscaled, GPT-Neo's local
              layers) and 100 (S=1000), ALiBi + window with GQA, a window
              past S; the flash kernels at head dim 64 too (gpt_350m's
@@ -174,7 +177,24 @@ kernels.  Phases:
              device and busy share) and 2 layers kernels vs plain from
              2**29 (the same skip pattern and loss scales), for gpt_1b,
              gpt_350m (head dim 64), FP16_CLI_MODEL (gpt_760m, head dim
-             96) and the Gemma-2B shape (head dim 256)
+             96) and the Gemma-2B shape (head dim 256); every run but
+             the Gemma-2B shape's under remat_policy dots_saveable (the
+             CLI's default), each CLI run's engine also profiled under
+             nothing_saveable
+    train-a6a7  (a) ds_bench train --remat-policy nothing_saveable
+             against the no-flags run: equal first loss, grad norms
+             within 1e-3, equal exact launches; (b) ds_bench train
+             --model gpt_1b --batch 2 --gas 4 --moment-dtype bfloat16
+             --grad-accum-dtype bfloat16, then its config on a fixed
+             batch (the loss falls; m, v and the gradients bf16; the peak
+             against the fp32 run's); (c) LAMB, SGD with momentum,
+             Adagrad, 1-bit Adam (freeze_step 2, bf16 moments) and a
+             client torch.optim.SGD on gpt_350m at full depth, 4 fixed-
+             batch steps each (the loss falls; B1, B2, B3 launches
+             exact); (d) 2 layers of gpt_1b kernels vs plain with bf16
+             moments and gradients, bf16 gradients, and LAMB; (f) a user
+             block through activation_checkpointing.checkpoint under
+             dots_saveable, bit for bit the direct call's
     ckpt     training that survives a restart, gpt_1b through
              initialize(training_data=...) at full width and depth, micro
              2 x gas 4, bf16, data through train_batch(data_iter=...): (a)
@@ -220,7 +240,7 @@ kernels.  Phases:
              fp16) and 96, B4's chunk at start 512 and verify window at
              80; the same at 256 (Gemma-7B's heads in bf16, Gemma-2B's
              in bf16 and fp16; chunk and verify window at Gemma-7B's);
-             fused Adam held against its plain
+             fused Adam in each form held against its plain
              version over gpt_1b's 1.01 B parameters; B5 and B4 at the
              benches' shapes (tiny's head dim 16, gpt2_125m's 64); the window-256
              forward must take well under the ALiBi forward's time
@@ -1531,7 +1551,8 @@ def phase_train_kernels():
     gpt_2_7b's shape and every head-dim-256 case in bf16 and fp16 dK/dV
     in k's dtype from the kernel, bit for bit again (check_dkv_outputs).
     B3 with its skip flag 0 against the plain version, and with the flag
-    1: p, m, v and the count unchanged, bit for bit."""
+    1: p, m, v and the count unchanged, bit for bit; B3's forms with bf16
+    gradients or bf16 moments (:func:`check_adam_forms`)."""
     import torch
     from deepspeed_tpu_torch.ops.adam import (AdamState, adam_hyper,
                                               fused_adam, reference_impl)
@@ -1594,7 +1615,129 @@ def phase_train_kernels():
                     f"bias_correction={bc}", (p, m, v), ref))
                 if adamw and bc:
                     check_adam_skip(p, g, m, v, hyper, f"g={dn}")
+    check_adam_forms(gen)
     return errs
+
+
+# B3's forms (gradient dtype, moment dtype) beside the fp32 / fp32 one:
+# bf16 gradients (data_types.grad_accum_dtype) and bf16 moments
+# (moment_dtype, stored by stochastic rounding), each held bit for bit to
+# its plain version over ADAM_FORM_STEPS consecutive steps at ADAM_N and
+# at ADAM_N_TAIL (the kernel's blocks take 1024 elements: both leave a
+# ragged last block)
+ADAM_NEW_FORMS = (("bfloat16", "float32"), ("float32", "bfloat16"),
+                  ("bfloat16", "bfloat16"))
+ADAM_N_TAIL = 4099
+ADAM_FORM_STEPS = 3
+# stochastic rounding's mean over SR_COPIES copies of one fp32 value must
+# lie within SR_SIGMAS standard errors of the value
+SR_COPIES = 1 << 16
+SR_SIGMAS = 5.0
+
+
+def adam_form_name(g_dtype, m_dtype):
+    """B3's kernels-JSON row of a form: ``fused_adam`` for fp32 / fp32."""
+    if (g_dtype, m_dtype) == ("float32", "float32"):
+        return "fused_adam"
+    return (f"fused_adam_g_{'bf16' if g_dtype == 'bfloat16' else 'fp32'}"
+            f"_m_{'bf16' if m_dtype == 'bfloat16' else 'fp32'}")
+
+
+def check_adam_forms(gen):
+    """B3's new forms against the plain version on the card: p, m and v
+    bit for bit after each of ADAM_FORM_STEPS steps from one state, at
+    ADAM_N and ADAM_N_TAIL; with the skip flag set (NaN gradients) nothing
+    changes, kernel and plain (:func:`check_adam_skip`); and the bf16
+    moments' stochastic rounding is unbiased (:func:`check_sr_unbiased`)."""
+    import torch
+    from deepspeed_tpu_torch.ops.adam import (AdamState, adam_hyper,
+                                              fused_adam, reference_impl)
+    kw = dict(weight_decay=0.01, adamw_mode=True)
+    for g_name, m_name in ADAM_NEW_FORMS:
+        g_dtype, m_dtype = getattr(torch, g_name), getattr(torch, m_name)
+        label = adam_form_name(g_name, m_name)
+        for n in (ADAM_N, ADAM_N_TAIL):
+            p = torch.randn(n, generator=gen, device="cuda")
+            m = (torch.randn(n, generator=gen, device="cuda") * 0.1).to(
+                m_dtype)
+            v = (torch.rand(n, generator=gen, device="cuda") * 0.01).to(
+                m_dtype)
+            count = torch.full((), 2, dtype=torch.int32, device="cuda")
+            kern = AdamState(m, v, count)
+            plain = AdamState(m.clone(), v.clone(), count.clone())
+            pp = p.clone()
+            for step in range(ADAM_FORM_STEPS):
+                g = torch.randn(n, generator=gen, device="cuda").to(g_dtype)
+                fused_adam(p, g, kern, adam_hyper(kern.count, 1e-3, 0.9,
+                                                  0.999), backend="cuda",
+                           **kw)
+                reference_impl(pp, g, plain, adam_hyper(
+                    plain.count, 1e-3, 0.9, 0.999), **kw)
+                same = [torch.equal(a, b) for a, b in
+                        ((p, pp), (kern.m, plain.m), (kern.v, plain.v),
+                         (kern.count, plain.count))]
+                if not all(same):
+                    fail(f"{label} n={n} step {step + 1}: kernel and plain "
+                         f"differ (p, m, v, count equal: {same})")
+            if m.dtype != m_dtype or kern.m.dtype != m_dtype:
+                fail(f"{label}: the moments left {m_name}")
+            phase("kernels", f"{label} n={n}: p, m, v and the count bit for "
+                  f"bit against the plain version after each of "
+                  f"{ADAM_FORM_STEPS} steps")
+            if n == ADAM_N:
+                check_adam_skip(p, g, m, v, adam_hyper(
+                    count, 1e-3, 0.9, 0.999), label)
+    check_sr_unbiased()
+
+
+def check_sr_unbiased(g0=1.2345678):
+    """SR_COPIES copies of one gradient ``g0`` through B3 with bf16 moments
+    from zero state: every element's fp32 m is fl(g0 (1 - beta1)) and its
+    fp32 v fl(fl(g0 g0)(1 - beta2)), neither a bf16 value; the mean of the
+    stochastically rounded m (and v) must lie within SR_SIGMAS standard
+    errors of it -- a rounding to one of the two neighbours with the
+    probability of its distance -- and equal the plain version's bits."""
+    import torch
+    from deepspeed_tpu_torch.ops.adam import (adam_hyper, fused_adam,
+                                              init_state, reference_impl)
+    n = SR_COPIES
+    g = torch.full((n,), g0, device="cuda")
+    outs = []
+    for run in ("kernel", "plain"):
+        p = torch.zeros(n, device="cuda")
+        st = init_state(p, torch.bfloat16)
+        hyper = adam_hyper(st.count, 1e-3, 0.9, 0.999)
+        if run == "kernel":
+            fused_adam(p, g, st, hyper, backend="cuda")
+        else:
+            reference_impl(p, g, st, hyper)
+        outs.append(st)
+    if not (torch.equal(outs[0].m, outs[1].m) and
+            torch.equal(outs[0].v, outs[1].v)):
+        fail("stochastic rounding: kernel and plain bits differ")
+    omb1 = torch.tensor(1.0 - 0.9, dtype=torch.float32, device="cuda")
+    omb2 = torch.tensor(1.0 - 0.999, dtype=torch.float32, device="cuda")
+    g1 = g[:1]
+    for name, exact, got in (("m", g1 * omb1, outs[0].m),
+                             ("v", (g1 * g1) * omb2, outs[0].v)):
+        x = exact.double().item()
+        lo = (exact.view(torch.int32) & -65536).view(torch.float32)
+        lo = lo.double().item()
+        hi = float(torch.tensor(lo).to(torch.bfloat16).view(torch.int16)
+                   .add(1).view(torch.bfloat16).float())
+        frac = (x - lo) / (hi - lo)
+        if not 0.0 < frac < 1.0:
+            fail(f"stochastic rounding check: {name} = {x!r} is a bf16 value")
+        sigma = (hi - lo) * math.sqrt(frac * (1.0 - frac) / n)
+        mean = got.double().mean().item()
+        if abs(mean - x) > SR_SIGMAS * sigma:
+            fail(f"stochastic rounding of {name}: mean {mean!r} over {n} "
+                 f"copies of {x!r}, {abs(mean - x) / sigma:.2f} standard "
+                 f"errors off (limit {SR_SIGMAS})")
+        phase("kernels", f"fused_adam bf16 {name}: mean of {n} stochastic "
+              f"roundings of {x:.9g} is {mean:.9g} ({abs(mean - x) / sigma:.2f}"
+              f" standard errors; {frac:.3f} of the way from {lo:.9g} to "
+              f"{hi:.9g}), bits equal to the plain version's")
 
 
 def check_adam_skip(p, g, m, v, hyper, label):
@@ -3725,6 +3868,8 @@ TRAIN_MODELS = {TRAIN_MODEL: (TRAIN_MODEL, TRAIN_SEQ, None),
 # steps after one warm-up; nothing cut.  The CLI's own defaults, checked
 # against its printout.
 CLI_DEFAULTS = dict(model="gpt_350m", batch=8, gas=1, seq=1024, steps=10)
+# its remat policy, the JAX benchmark's (--remat-policy's default)
+CLI_POLICY = "dots_saveable"
 # The slices that follow: ``ds_bench train --model gpt_760m`` and
 # ``--model gpt_2_7b`` with the CLI's other defaults, at full width and
 # depth: the JAX benchmark's shapes (deepspeed_tpu/benchmarks/training.py
@@ -3847,12 +3992,14 @@ def _free():
     torch.cuda.empty_cache()
 
 
-def train_launches(cfg, gas, calls):
+def train_launches(cfg, gas, calls, adam=True):
     """Kernel launches of ``calls`` train_batch calls of a model with
     config ``cfg``: per layer and micro-batch the flash forward twice
-    (remat recomputes it in the backward) and each backward kernel once
-    (the delta kernel beside dQ, biased or not), then fused Adam once per
-    call.  A layer with ALiBi slopes or a window
+    (remat recomputes it in the backward, under ``dots_saveable`` too: the
+    kernel is no matrix product to the dispatcher) and each backward
+    kernel once (the delta kernel beside dQ, biased or not), then fused
+    Adam once per call (``adam``; 0 for an optimizer that does not run
+    B3).  A layer with ALiBi slopes or a window
     > 0 takes the biased kernels; the others -- GPT-Neo's global layers,
     window 0, among them -- the unbiased ones, which compute the same
     values.  Every other kernel launches 0 times."""
@@ -3868,14 +4015,14 @@ def train_launches(cfg, gas, calls):
                  "flash_attention_bwd_dq_biased": biased * n,
                  "flash_attention_bwd_dkv_biased": biased * n,
                  "flash_attention_bwd_delta": cfg.n_layers * n,
-                 "fused_adam": calls})
+                 "fused_adam": calls if adam else 0})
     return want
 
 
-def check_train_launches(counts, cfg, gas, calls, where):
+def check_train_launches(counts, cfg, gas, calls, where, adam=True):
     """Fails unless every kernel launched exactly :func:`train_launches`
     times and no plain version ran."""
-    want = train_launches(cfg, gas, calls)
+    want = train_launches(cfg, gas, calls, adam)
     got = {k: counts[k] for k in want}
     if got != want:
         fail(f"{where}: kernel launches {got}, expected {want} "
@@ -3986,10 +4133,12 @@ def phase_train_fp16_cli():
     return out, counts, launched
 
 
-def cli_label(model=None):
+def cli_label(model=None, policy=None):
     """How the smoke names a ``ds_bench train`` run: "(no flags)" or its
-    ``--model`` flag."""
-    return f"--model {model}" if model else "(no flags)"
+    ``--model`` and ``--remat-policy`` flags."""
+    flags = (f"--model {model}" if model else "") + \
+        (f" --remat-policy {policy}" if policy else "")
+    return flags.strip() or "(no flags)"
 
 
 class _LogLines:
@@ -4010,11 +4159,12 @@ class _LogLines:
         self.logger.removeHandler(self.handler)
 
 
-def phase_train_cli(model=None, timers=False):
+def phase_train_cli(model=None, timers=False, policy=None):
     """A training main path as a user runs it: ``python -m
     deepspeed_tpu_torch.benchmarks.training`` with no flags (gpt_350m,
     the D=64 flash forms) or with ``--model model`` alone (gpt_760m,
-    gpt_2_7b: the D=96 and D=80 forms), through the CLI's ``main`` (its
+    gpt_2_7b: the D=96 and D=80 forms), or with ``--remat-policy policy``
+    too, through the CLI's ``main`` (its
     printout captured), counters read around it, at full width and depth.
     The printout must show the CLI's defaults (CLI_DEFAULTS, the model
     replaced) and the model's head dim CLI_HEAD_DIMS; exact launches,
@@ -4026,8 +4176,12 @@ def phase_train_cli(model=None, timers=False):
     its profiled train_batch (the third: the first that logs) must log
     the throughput line, a three-call step after it the fwd / bwd / step
     line, and its device time stay within CLI_DEVICE_MS times
-    TIMER_DEVICE_FACTOR."""
+    TIMER_DEVICE_FACTOR.  Last, that engine's train_batch profiled again
+    under the other remat policy (``dots_saveable`` / ``nothing_saveable``,
+    the model's config switched in place): {policy: (device ms, peak GB
+    of that train_batch)} for both."""
     import contextlib
+    import dataclasses
     import io
     import numpy as np
     import torch
@@ -4036,13 +4190,15 @@ def phase_train_cli(model=None, timers=False):
                                                          model_config)
     from deepspeed_tpu_torch.models.transformer import CausalTransformerLM
     d = dict(CLI_DEFAULTS, **({"model": model} if model else {}))
-    label = cli_label(model)
-    cfg = model_config(d["model"], d["seq"])
+    label = cli_label(model, policy)
+    this = policy or CLI_POLICY
+    cfg = model_config(d["model"], d["seq"], remat_policy=this)
     torch.cuda.reset_peak_memory_stats()
     buf = io.StringIO()
     reset_counters()
     with contextlib.redirect_stdout(buf):
-        out = main(["--model", model] if model else [])
+        out = main((["--model", model] if model else []) +
+                   (["--remat-policy", policy] if policy else []))
     counts = read_counters()
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     _free()
@@ -4050,9 +4206,11 @@ def phase_train_cli(model=None, timers=False):
           " | ".join(buf.getvalue().split()))
     got = {k: out[k] for k in d}
     want_d = CLI_HEAD_DIMS[d["model"]]
-    if got != d or out["dtype"] != "bf16" or cfg.head_dim != want_d:
+    if got != d or out["dtype"] != "bf16" or cfg.head_dim != want_d or \
+            out["remat_policy"] != this:
         fail(f"ds_bench train {label}: {got}, {out['dtype']}, head dim "
-             f"{cfg.head_dim}: expected {d}, bf16, {want_d}")
+             f"{cfg.head_dim}, {out['remat_policy']}: expected {d}, bf16, "
+             f"{want_d}, {this}")
     if not all(math.isfinite(x) for x in out["losses"]):
         fail(f"ds_bench train {label}: non-finite loss {out['losses']}")
     launched = check_train_launches(counts, cfg, d["gas"], d["steps"] + 1,
@@ -4071,8 +4229,10 @@ def phase_train_cli(model=None, timers=False):
     torch.cuda.synchronize()
     step_ms = (time.time() - t0) * 1e3
     with _LogLines() as log:
+        torch.cuda.reset_peak_memory_stats()
         device_ms, top, _ = profile_device(
             lambda: engine.train_batch(batch=batch), 1)
+        policies = {this: (device_ms, torch.cuda.max_memory_allocated() / 1e9)}
         if timers:
             engine.backward(engine.forward(batch))
             engine.step()
@@ -4092,9 +4252,16 @@ def phase_train_cli(model=None, timers=False):
               f"'{tput[0]}', a forward / backward / step '{wall[0]}'; "
               f"device {device_ms:.1f} ms a train_batch (before the "
               f"timers {CLI_DEVICE_MS}, limit {limit:.1f})")
+    other = "nothing_saveable" if this == CLI_POLICY else CLI_POLICY
+    engine.module.config = dataclasses.replace(engine.module.config,
+                                               remat_policy=other)
+    torch.cuda.reset_peak_memory_stats()
+    other_ms, _, _ = profile_device(lambda: engine.train_batch(batch=batch),
+                                    1)
+    policies[other] = (other_ms, torch.cuda.max_memory_allocated() / 1e9)
     del engine
     _free()
-    return out, counts, launched, step_ms, device_ms, top
+    return out, counts, launched, step_ms, device_ms, top, policies
 
 
 def phase_train_fixed_fp16():
@@ -4143,6 +4310,247 @@ def phase_train_fixed_fp16():
     del engine
     _free()
     return losses, skips, scales, step_ms, device_ms, top
+
+
+# ---- phase train-a6a7: activation checkpointing and the rest of the
+# optimizers (A6, A7) ----------------------------------------------------
+# (a) the extra CLI run: gpt_350m under --remat-policy nothing_saveable,
+# the policy every CLI run had before the CLI honoured dots_saveable.
+# Between it and the no-flags run the first loss must be equal (the same
+# forward), the final grad norms within A6A7_NORM_REL_TOL (phase 7's 1e-3:
+# only what is kept differs) and the launches equal and exact.
+A6A7_POLICY = "nothing_saveable"
+A6A7_NORM_REL_TOL = 1e-3
+# (b) gpt_1b with bf16 moments and bf16 gradients, through the CLI as
+# typed and then A6A7_STEPS steps on one fixed batch (the loss must fall)
+A6A7_BF16_ARGV = ["--model", TRAIN_MODEL, "--batch", str(TRAIN_BATCH),
+                  "--gas", str(TRAIN_GAS), "--moment-dtype", "bfloat16",
+                  "--grad-accum-dtype", "bfloat16", "--steps", "3"]
+A6A7_STEPS = 4
+# (c) the other optimizers on gpt_350m (the CLI's model and micro-batch)
+# at full width and depth, A6A7_STEPS steps each on one fixed batch from
+# one model build: label -> (the config's optimizer block, or None for a
+# client torch.optim.SGD at the lr given, momentum 0.9; the B3 form it
+# runs, or None).  The lrs are each rule's own scale for a loss that
+# falls within 4 steps: LAMB's step is lr times each leaf's norm, SGD's
+# and Adagrad's (initial accumulator 0.1) lr times the gradient, which is
+# small at init; 1-bit Adam's the Adam lr of the CLI.
+A6A7_OPTIMIZERS = {
+    "LAMB lr 1e-3": ({"type": "Lamb", "params": {"lr": 1e-3}}, None),
+    "SGD lr 1e-1 momentum 0.9": ({"type": "SGD", "params": {
+        "lr": 1e-1, "momentum": 0.9}}, None),
+    "Adagrad lr 1e-2": ({"type": "Adagrad", "params": {"lr": 1e-2}}, None),
+    "1-bit Adam lr 1e-4 freeze_step 2, bf16 moments": (
+        {"type": "OneBitAdam", "params": {"lr": 1e-4, "freeze_step": 2,
+                                          "moment_dtype": "bfloat16"}},
+        ("float32", "bfloat16")),
+    "client torch.optim.SGD lr 1e-1 momentum 0.9": (1e-1, None),
+}
+# (d) 2 layers of gpt_1b at full width, kernels vs plain by phase 7's
+# rules: label -> (config blocks, the B3 form or None)
+A6A7_E2E = {
+    "AdamW bf16 moments, bf16 gradients": (
+        {"optimizer": {"type": "AdamW", "params": {
+            "lr": E2E_LR, "moment_dtype": "bfloat16"}},
+         "data_types": {"grad_accum_dtype": "bfloat16"}},
+        ("bfloat16", "bfloat16")),
+    "AdamW bf16 gradients": (
+        {"data_types": {"grad_accum_dtype": "bfloat16"}},
+        ("bfloat16", "float32")),
+    "LAMB": ({"optimizer": {"type": "Lamb", "params": {"lr": 1e-3}}}, None),
+}
+# (f) a user block through activation_checkpointing.checkpoint: x ->
+# attention(x wq, x wk, x wv) wo + tanh(x w1) w2, bf16, on the flash
+# kernels, at B=2 S=512, 8 heads of 64
+CKPT_BLOCK = dict(B=2, S=512, H=8, D=64)
+
+
+def check_cli_policies(dots, nothing):
+    """(a): the no-flags run and the nothing_saveable run, each (record,
+    counts): equal first loss, final grad norms within A6A7_NORM_REL_TOL,
+    equal launches."""
+    (d_out, d_counts), (n_out, n_counts) = dots, nothing
+    rel = abs(d_out["grad_norm"] - n_out["grad_norm"]) / n_out["grad_norm"]
+    kernels = {k: v for k, v in d_counts.items() if not k.endswith("_plain")}
+    if d_out["losses"][0] != n_out["losses"][0] or \
+            rel > A6A7_NORM_REL_TOL or \
+            kernels != {k: n_counts[k] for k in kernels}:
+        fail(f"ds_bench train under {CLI_POLICY} vs {A6A7_POLICY}: first "
+             f"losses {d_out['losses'][0]} vs {n_out['losses'][0]}, grad "
+             f"norms {d_out['grad_norm']} vs {n_out['grad_norm']} (rel "
+             f"{rel:.2e}, tol {A6A7_NORM_REL_TOL}), launches {kernels} vs "
+             f"{n_counts}")
+    return rel
+
+
+def phase_train_bf16_state():
+    """(b): ``ds_bench train`` as typed with A6A7_BF16_ARGV (gpt_1b, bf16
+    moments and gradients) through the CLI's ``main``, counters read
+    around it: exact launches, B3's in its <bf16 g, bf16 M> form, the
+    record's moment_dtype and grad_accum_dtype; then the same config on
+    one fixed batch for A6A7_STEPS steps: the loss falls, m and v are
+    bf16, the gradients bf16.  Returns (record, its launches, the fixed
+    run's losses and peak GB, launches of B3 in all)."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.benchmarks.training import (ds_config, main,
+                                                         model_config)
+    from deepspeed_tpu_torch.models.transformer import CausalTransformerLM
+    cfg = model_config(TRAIN_MODEL, TRAIN_SEQ)
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    reset_counters()
+    with contextlib.redirect_stdout(buf):
+        out = main(A6A7_BF16_ARGV + ["--json"])
+    counts = read_counters()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    _free()
+    phase("train-a6a7", f"(b) ds_bench train {' '.join(A6A7_BF16_ARGV)}: "
+          f"{buf.getvalue().strip()}")
+    if out.get("moment_dtype") != "bfloat16" or \
+            out.get("grad_accum_dtype") != "bfloat16" or \
+            not all(math.isfinite(x) for x in out["losses"]):
+        fail(f"(b) ds_bench train bf16 state: record {out}")
+    launched = check_train_launches(counts, cfg, TRAIN_GAS,
+                                    len(out["losses"]), "(b) ds_bench train "
+                                    "--moment-dtype bfloat16")
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=CausalTransformerLM(cfg, device="cuda").init(1),
+        config=ds_config(TRAIN_BATCH, TRAIN_GAS, moment_dtype="bfloat16",
+                         grad_accum_dtype="bfloat16"))
+    if (engine.opt_state.m.dtype, engine.opt_state.v.dtype,
+            engine.grads.dtype) != (torch.bfloat16,) * 3:
+        fail(f"(b) m, v, gradients are {engine.opt_state.m.dtype}, "
+             f"{engine.opt_state.v.dtype}, {engine.grads.dtype}: expected "
+             f"bf16")
+    batch = {"input_ids": np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (TRAIN_GAS, TRAIN_BATCH, TRAIN_SEQ))}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    losses = [float(engine.train_batch(batch=batch))
+              for _ in range(A6A7_STEPS)]
+    fixed_counts = read_counters()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check_train_launches(fixed_counts, cfg, TRAIN_GAS, A6A7_STEPS,
+                         "(b) bf16 state fixed batch")
+    del engine
+    _free()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"(b) bf16 state fixed batch: losses {losses} are not finite "
+             f"and falling")
+    return (out, launched, losses, peak,
+            counts["fused_adam"] + fixed_counts["fused_adam"])
+
+
+def phase_train_optimizers():
+    """(c): each of A6A7_OPTIMIZERS on gpt_350m at full width and depth,
+    A6A7_STEPS steps on one fixed batch, the module's weights reset to one
+    init before each engine: the loss finite and falling, B1 and B2
+    launches exact, B3's as the rule runs it.  Returns {label: losses}
+    and B3's launches by form."""
+    import functools
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.benchmarks.training import (ds_config,
+                                                         model_config)
+    from deepspeed_tpu_torch.models.transformer import CausalTransformerLM
+    d = CLI_DEFAULTS
+    cfg = model_config(d["model"], d["seq"])
+    model = CausalTransformerLM(cfg, device="cuda").init(0)
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    batch = {"input_ids": np.random.default_rng(15).integers(
+        0, cfg.vocab_size, (d["batch"], d["seq"]))}
+    losses, forms = {}, {}
+    for label, (block, form) in A6A7_OPTIMIZERS.items():
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.data = init[n].clone()
+        conf = ds_config(d["batch"], d["gas"])
+        client = None
+        if isinstance(block, dict):
+            conf["optimizer"] = block
+        else:
+            del conf["optimizer"]
+            client = functools.partial(torch.optim.SGD, lr=block,
+                                       momentum=0.9)
+        engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=conf,
+                                                    optimizer=client)
+        reset_counters()
+        got = [float(engine.train_batch(batch=batch))
+               for _ in range(A6A7_STEPS)]
+        counts = read_counters()
+        check_train_launches(counts, cfg, d["gas"], A6A7_STEPS,
+                             f"(c) {label}", adam=form is not None)
+        if form is not None:
+            forms[form] = forms.get(form, 0) + counts["fused_adam"]
+            m_dtype = engine.opt_state.inner.m.dtype
+            if str(m_dtype).split(".")[-1] != form[1]:
+                fail(f"(c) {label}: moments {m_dtype}, expected {form[1]}")
+        del engine
+        _free()
+        if not all(np.isfinite(got)) or not got[-1] < got[0]:
+            fail(f"(c) {label}: losses {got} are not finite and falling")
+        losses[label] = got
+        phase("train-a6a7", f"(c) {label}: gpt_350m {cfg.n_layers} layers, "
+              f"micro {d['batch']} x seq {d['seq']}, {A6A7_STEPS} steps on "
+              f"a fixed batch: losses {[round(x, 4) for x in got]} "
+              f"(falling); B1, B2 launches exact, B3 "
+              f"{counts['fused_adam']}")
+    del model, init
+    _free()
+    return losses, forms
+
+
+def phase_checkpoint_block():
+    """(f): a user block through ``activation_checkpointing.checkpoint``
+    under ``dots_saveable`` on the card (bf16, the flash kernels): its
+    output and the gradients of its input and weights equal to the direct
+    call's, bit for bit."""
+    import torch
+    from deepspeed_tpu_torch.ops.attention import attention
+    from deepspeed_tpu_torch.runtime.activation_checkpointing import \
+        checkpointing
+    c = CKPT_BLOCK
+    B, S, H, D = c["B"], c["S"], c["H"], c["D"]
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    d = H * D
+    x0 = torch.randn(B, S, d, generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    ws = [(torch.randn(d, d, generator=gen, device="cuda") / math.sqrt(d))
+          .to(torch.bfloat16) for _ in range(6)]
+
+    def block(x, wq, wk, wv, wo, w1, w2):
+        q, k, v = (torch.matmul(x, w).view(B, S, H, D)
+                   for w in (wq, wk, wv))
+        a = attention(q, k, v, causal=True).reshape(B, S, d)
+        return a @ wo + torch.tanh(x @ w1) @ w2
+
+    outs = []
+    for via in (False, True):
+        args = [t.clone().requires_grad_(True) for t in [x0] + ws]
+        checkpointing.configure(policy="dots_saveable")
+        try:
+            y = checkpointing.checkpoint(block, *args) if via else \
+                block(*args)
+        finally:
+            checkpointing.configure(policy="nothing_saveable")
+        y.float().square().sum().backward()
+        outs.append([y.detach()] + [a.grad for a in args])
+    same = [torch.equal(a, b) for a, b in zip(*outs)]
+    if not all(same):
+        diff = max((a.float() - b.float()).abs().max().item()
+                   for a, b in zip(*outs))
+        fail(f"(f) checkpointing.checkpoint under dots_saveable: output and "
+             f"gradients equal to the direct call's {same}, max abs diff "
+             f"{diff:.3e}")
+    phase("train-a6a7", f"(f) a user block (3 projections, flash "
+          f"attention, a tanh MLP; bf16 B={B} S={S} {H}x{D}) through "
+          f"activation_checkpointing.checkpoint under dots_saveable: output "
+          f"and the 7 gradients bit for bit the direct call's")
 
 
 def phase_train_gemma():
@@ -4278,7 +4686,7 @@ def phase_train_fixed_plain(name, kernel_losses):
 
 
 def phase_train_e2e(name=TRAIN_MODEL, bf16=True, steps=2, witness=False,
-                    cfg=None, seq=None):
+                    cfg=None, seq=None, blocks=None, adam=True):
     """TRAIN_MODELS[name] (or the config ``cfg``, named ``name``, at seq
     ``seq``) at full width and its own seq, cut to its first
     2 layers (GPT-Neo: one global and one local layer), micro 2, gas 2,
@@ -4289,7 +4697,9 @@ def phase_train_e2e(name=TRAIN_MODEL, bf16=True, steps=2, witness=False,
     With ``witness`` a third engine runs the plain versions over the same
     batches split as micro 1 x gas 4, and its m is compared with the
     micro 2 x gas 2 plain engine's, step by step (see
-    E2E_WITNESS_FACTOR)."""
+    E2E_WITNESS_FACTOR).  ``blocks``: config blocks over
+    ``benchmarks.training.ds_config``'s (another optimizer, bf16 moments or
+    gradients); ``adam``: whether the optimizer launches B3."""
     import dataclasses
     import numpy as np
     import torch
@@ -4310,7 +4720,7 @@ def phase_train_e2e(name=TRAIN_MODEL, bf16=True, steps=2, witness=False,
         [("plain", 1, 4)] if witness else [])
     res, state, init = {}, {}, None
     for backend, micro, gas in runs:
-        conf = ds_config(micro, gas)
+        conf = dict(ds_config(micro, gas), **(blocks or {}))
         if not bf16:
             del conf["bf16"]
         engine = DeepSpeedEngine(
@@ -4326,11 +4736,11 @@ def phase_train_e2e(name=TRAIN_MODEL, bf16=True, steps=2, witness=False,
             ids = b["input_ids"].reshape(gas, micro, seq)
             losses.append(float(engine.train_batch(batch={"input_ids": ids})))
             norms.append(engine.get_global_grad_norm())
-            moments.append(engine.opt_state.m.clone())
+            moments.append(engine.opt_state.m.to(torch.float32, copy=True))
         if backend == "cuda":
             counts = read_counters()
             check_train_launches(counts, cfg, gas, steps,
-                                 f"train e2e {name} 2 layers")
+                                 f"train e2e {name} 2 layers", adam=adam)
         res[backend, micro] = (losses, norms)
         state[backend, micro] = (engine.master.clone(), moments)
         names, sizes = zip(*[(n, p.numel())
@@ -4682,9 +5092,9 @@ def phase_train_timing(errs):
     flags = [torch.full((), f, dtype=torch.int32, device="cuda")
              for f in (0, 1)]
     ms = time_ms(lambda i: fused_adam_cuda(p, g, m, v, hyper, flags[0],
-                                           **kw), iters=5, warmup=1)
+                                           count, **kw), iters=5, warmup=1)
     skip_ms = time_ms(lambda i: fused_adam_cuda(p, g, m, v, hyper,
-                                                flags[1], **kw),
+                                                flags[1], count, **kw),
                       iters=5, warmup=1)
     plain_ms = time_ms(lambda i: reference_impl(
         p, g, AdamState(m, v, count.clone()), hyper, **kw), iters=3,
@@ -4713,7 +5123,74 @@ def phase_train_timing(errs):
           f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.3f} of bound")
     phase("timing", f"fused_adam with its skip flag set: {skip_ms:.4f} ms "
           f"(nothing read or written)")
+    for form in ADAM_NEW_FORMS:
+        res[adam_form_name(*form)] = time_adam_form(*form, n, gen)
     return res
+
+
+def time_adam_form(g_name, m_name, n, gen):
+    """B3's <g_name g, m_name M> form over ``n`` parameters (gpt_1b's):
+    first held bit for bit to its plain version on one step, then timed
+    by CUDA events -- kernel, plain version -- from zero moments, as
+    training starts.  The library call: ``torch._fused_adamw_`` takes
+    neither bf16 moments nor stochastic rounding, so the bf16-moment forms
+    have none; with fp32 moments it is timed on the bf16 gradients when it
+    takes them, else there is none.  Bound: p read and written (8 B), g
+    read, m and v read and written, by parameter."""
+    import torch
+    from deepspeed_tpu_torch.ops.adam import (AdamState, adam_hyper,
+                                              fused_adam, reference_impl)
+    from deepspeed_tpu_torch.ops.cuda.fused_adam import fused_adam_cuda
+    g_dtype, m_dtype = getattr(torch, g_name), getattr(torch, m_name)
+    name = adam_form_name(g_name, m_name)
+    kw = dict(beta2=0.999, eps=1e-8, weight_decay=0.01, adamw_mode=True)
+    p = torch.randn(n, generator=gen, device="cuda") * 0.02
+    g = (torch.randn(n, generator=gen, device="cuda") * 1e-3).to(g_dtype)
+    m = (torch.randn(n, generator=gen, device="cuda") * 1e-4).to(m_dtype)
+    v = (torch.rand(n, generator=gen, device="cuda") * 1e-6).to(m_dtype)
+    count = torch.zeros((), dtype=torch.int32, device="cuda")
+    hyper = adam_hyper(count, 1e-4, 0.9, 0.999)
+    ref = [t.clone() for t in (p, m, v)]
+    fused_adam(p, g, AdamState(m, v, count.clone()), hyper, backend="cuda",
+               **kw)
+    reference_impl(ref[0], g, AdamState(ref[1], ref[2], count.clone()),
+                   hyper, **kw)
+    if not all(torch.equal(a, b) for a, b in zip((p, m, v), ref)):
+        fail(f"{name} n={n}: kernel and plain differ")
+    del ref
+    _free()
+    m.zero_()
+    v.zero_()
+    skip = torch.zeros((), dtype=torch.int32, device="cuda")
+    ms = time_ms(lambda i: fused_adam_cuda(p, g, m, v, hyper, skip, count,
+                                           **kw), iters=5, warmup=1)
+    plain_ms = time_ms(lambda i: reference_impl(
+        p, g, AdamState(m, v, count.clone()), hyper, **kw), iters=2,
+        warmup=1)
+    lib_ms, lib_note = None, "none: no bf16 moments, no stochastic rounding"
+    if m_dtype == torch.float32:
+        steps = [torch.ones((), device="cuda")]
+        try:
+            lib_ms = time_ms(lambda i: torch._fused_adamw_(
+                [p], [g], [m], [v], [], steps, lr=1e-4, beta1=0.9,
+                beta2=0.999, weight_decay=0.01, eps=1e-8, amsgrad=False,
+                maximize=False), iters=5, warmup=1)
+            lib_note = f"{lib_ms:.4f}"
+        except (RuntimeError, TypeError) as exc:
+            lib_note = f"none: _fused_adamw_ refuses bf16 gradients ({exc})"
+    if not torch.isfinite(p).all():
+        fail(f"{name} timing: parameters not finite")
+    g_b, m_b = g.element_size(), m.element_size()
+    bound_ms, bound_by = _bound((8 + g_b + 4 * m_b) * n, 20 * n, "float32")
+    del p, g, m, v
+    _free()
+    phase("timing", f"{name} [n={n} fp32 p, {g_name} g, {m_name} m/v AdamW]"
+          f": device ms kernel {ms:.4f}, plain {plain_ms:.4f}, library "
+          f"{lib_note[:160]}; bound {bound_ms:.4f} ms ({bound_by}), "
+          f"{bound_ms / ms:.3f} of bound; bit for bit vs plain")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=0.0,
+                shape=f"n={n} fp32 p, {g_name} g, {m_name} m/v")
 
 
 # the timing cases at S=2048: (label, ALiBi, window, softmax scale) at
@@ -5639,8 +6116,10 @@ def main():
 
     # ---- training main paths, counters read around each run_benchmark --
     launches = {k: v for k, v in counts.items() if not k.endswith("_plain")}
+    train_peaks = {}
     for name, (_, seq, _) in TRAIN_MODELS.items():
         out, train_counts, launched = phase_train(name)
+        train_peaks[name] = out["peak_gb"]
         for k in launches:
             launches[k] += train_counts[k]
         phase("train", f"run_benchmark({name}): {out['n_layers']} layers, "
@@ -5661,13 +6140,14 @@ def main():
     # kernels' D=64 forms), --model gpt_760m (D=96) and --model gpt_2_7b
     # (D=80), each counted on its own; B3's launches join its row, the
     # flash forms' go to their head dim's rows
-    cli_counts = {}
+    cli_counts, cli_runs = {}, {}
     for model in (None, "gpt_760m", "gpt_2_7b"):
         label = cli_label(model)
         # phase (d): the default run's engine logs the timers' lines
-        cli, counts_m, cli_launched, cli_ms, cli_dev, cli_top = \
+        cli, counts_m, cli_launched, cli_ms, cli_dev, cli_top, policies = \
             phase_train_cli(model, timers=model is None)
         cli_counts[cli["model"]] = counts_m
+        cli_runs[cli["model"]] = (cli, counts_m)
         launches["fused_adam"] += counts_m["fused_adam"]
         phase("train", f"ds_bench train {label}: {cli['model']}, "
               f"{cli['n_layers']} layers, {cli['n_params'] / 1e9:.3f} B "
@@ -5685,6 +6165,11 @@ def main():
         phase("train", f"{cli['model']} one train_batch (the CLI's config):"
               f" {cli_ms:.1f} ms wall, device {cli_dev:.1f} ms (profiler), "
               f"busy share {cli_dev / cli_ms:.3f}")
+        phase("train", f"{cli['model']} remat policy {cli['remat_policy']}:"
+              f" the CLI run's peak {cli['peak_gb']:.1f} GB; one profiled "
+              f"train_batch of one engine by policy: " + "; ".join(
+                  f"{pol} device {ms:.1f} ms, peak {gb:.1f} GB"
+                  for pol, (ms, gb) in policies.items()))
         for kname, k_ms in cli_top:
             phase("train", f"  {cli['model']} device ms/train_batch "
                   f"{k_ms:.3f}  {kname[:90]}")
@@ -5805,6 +6290,65 @@ def main():
               f"{[(f'{x:.3e}', n) for x, n in r['m_rels']]} (tol "
               f"{E2E_M_REL_TOL}), update rel L2 {r['upd_rel'][0]:.3e} "
               f"({r['upd_rel'][1]}; tol {E2E_UPDATE_REL_TOL})")
+
+    # the last 2-layer run's masters (a Gemma-2B shape's: ~6 GB) go before
+    # the next phase reads its peaks
+    del r
+    _free()
+
+    # ---- phase train-a6a7: activation checkpointing and the rest of the
+    # optimizers; B3's forms with bf16 gradients or moments take their
+    # launches here ----------------------------------------------------
+    t0 = time.time()
+    # (a) the CLI's remat policy: the one nothing_saveable run against the
+    # no-flags run above
+    cli_n, counts_n, _, ms_n, dev_n, _, pol_n = phase_train_cli(
+        policy=A6A7_POLICY)
+    launches["fused_adam"] += counts_n["fused_adam"]
+    cli_d, _ = cli_runs[CLI_DEFAULTS["model"]]
+    rel = check_cli_policies(cli_runs[CLI_DEFAULTS["model"]],
+                             (cli_n, counts_n))
+    phase("train-a6a7", f"(a) ds_bench train {cli_label(policy=A6A7_POLICY)}"
+          f": {cli_n['ms_per_train_batch']:.1f} ms per train_batch, MFU "
+          f"{cli_n['mfu']:.4f}, peak {cli_n['peak_gb']:.1f} GB, one "
+          f"train_batch device {dev_n:.1f} ms (before: {CLI_DEVICE_MS}); no "
+          f"flags ({CLI_POLICY}): {cli_d['ms_per_train_batch']:.1f} ms, MFU "
+          f"{cli_d['mfu']:.4f}, peak {cli_d['peak_gb']:.1f} GB; first loss "
+          f"{cli_n['losses'][0]} under both, final grad norms "
+          f"{cli_d['grad_norm']:.6f} / {cli_n['grad_norm']:.6f} (rel "
+          f"{rel:.2e}, tol {A6A7_NORM_REL_TOL}); launches equal and exact")
+    # (b) gpt_1b with bf16 moments and gradients
+    out_b, launched_b, losses_b, peak_b, b3_bf16 = phase_train_bf16_state()
+    b3_forms = {("bfloat16", "bfloat16"): b3_bf16}
+    phase("train-a6a7", f"(b) {TRAIN_MODEL} bf16 moments and gradients: "
+          f"{out_b['ms_per_train_batch']:.1f} ms per train_batch, peak "
+          f"{out_b['peak_gb']:.1f} GB against {train_peaks[TRAIN_MODEL]:.1f}"
+          f" GB with fp32 gradients and moments (run_benchmark({TRAIN_MODEL})"
+          f" above, same batch shape); launches {launched_b}; fixed batch "
+          f"{[round(x, 4) for x in losses_b]} (falling), peak {peak_b:.1f} "
+          f"GB; m, v and the gradients bf16")
+    # (c) the other optimizers, full depth
+    _, forms_c = phase_train_optimizers()
+    for form, n in forms_c.items():
+        b3_forms[form] = b3_forms.get(form, 0) + n
+    # (d) 2 layers, kernels vs plain
+    for label, (blocks, form) in A6A7_E2E.items():
+        r = phase_train_e2e(TRAIN_MODEL, blocks=blocks,
+                            adam=form is not None)
+        if form is not None:
+            b3_forms[form] = b3_forms.get(form, 0) + \
+                r["counts"]["fused_adam"]
+        phase("train-a6a7", f"(d) {label}: {TRAIN_MODEL} 2 layers full "
+              f"width, 2 train_batch steps: losses kernels {r['lk']} vs "
+              f"plain {r['lp']} (max rel {r['loss_rel']:.2e}); first grad "
+              f"norm rel {r['norm_rel']:.2e}; tol {E2E_TRAIN_REL_TOL}; m rel "
+              f"L2 by step {[(f'{x:.3e}', n) for x, n in r['m_rels']]} (tol "
+              f"{E2E_M_REL_TOL}), update rel L2 {r['upd_rel'][0]:.3e} "
+              f"({r['upd_rel'][1]}; tol {E2E_UPDATE_REL_TOL})")
+    # (f) a user block through checkpointing.checkpoint
+    phase_checkpoint_block()
+    phase("train-a6a7", f"done in {time.time() - t0:.1f} s; B3 launches "
+          f"by form {b3_forms}")
 
     # ---- phase ckpt: save, a new process resumes, serve the tag --------
     from deepspeed_tpu_torch.benchmarks.training import model_config
@@ -5973,6 +6517,12 @@ def main():
         launches[name] = gemma["counts"][base]
         timing[f"{name}_fp16"] = timing[(name, "fp16")]
         launches[f"{name}_fp16"] = fp16_e2e_counts["gemma_2b"][base]
+    # B3's forms with bf16 gradients or moments (this slice's): the
+    # launches of phase train-a6a7
+    for form in ADAM_NEW_FORMS:
+        name = adam_form_name(*form)
+        meta[name] = meta["fused_adam"]
+        launches[name] = b3_forms.get(form, 0)
     # off the paths: timed and checked, launched by no run above
     meta[OFF_PATH_D256] = meta["decode_attention"]
     launches[OFF_PATH_D256] = 0

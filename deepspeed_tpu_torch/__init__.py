@@ -8,8 +8,9 @@ PyTorch version.  Ported so far: serving (``init_inference(...).generate``
 and ``create_serving_engine``) and training on one card
 (``initialize(...)`` -> ``DeepSpeedEngine.train_batch`` or
 ``forward``/``backward``/``step``; fp32, bf16, or fp16 with loss scaling;
-LR schedules; durable checkpoints, the data loader and the
-fault-tolerance layer), serving from a checkpoint
+every built-in optimizer but cpuadam, or a client ``torch.optim`` one;
+bf16 moments and gradients; LR schedules; activation checkpointing;
+durable checkpoints, the data loader and the fault-tolerance layer), serving from a checkpoint
 (``init_inference(config={"checkpoint": dir})``) and the checkpoint tools
 (``checkpoint/``).  Entry points run on the card unless
 the caller passes ``device="cpu"``; with no card they raise.
@@ -42,14 +43,15 @@ def initialize(args=None, model=None, model_parameters=None, config=None,
     ``args.deepspeed_config`` or a ``DeepSpeedConfig``.  ``lr_scheduler``:
     an ``LRScheduler`` or a callable on the 0-dim fp32 step (the config's
     ``scheduler`` block takes precedence, as in the JAX engine).
-    ``device`` defaults to the card and raises without one.  A client
-    optimizer is not ported (ROADMAP A7)."""
+    ``optimizer``: a client optimizer -- where the JAX package takes an
+    optax transform, a ``torch.optim`` Optimizer class or a callable
+    returning one, which the engine builds over its fp32 master weights
+    (the config's ``optimizer`` block takes precedence).  ``device``
+    defaults to the card and raises without one.  The optimizer returned
+    is the engine's (``runtime/optimizers``; a client one's
+    ``torch.optim`` instance is its ``.optimizer``)."""
     if model is None:
         raise ValueError("deepspeed_tpu_torch.initialize: model is required")
-    if optimizer is not None:
-        raise NotImplementedError("client optimizers are not ported yet "
-                                  "(ROADMAP A7); name the optimizer in the "
-                                  "config")
     if config is None and getattr(args, "deepspeed_config", None):
         config = args.deepspeed_config
     if config is None:
@@ -64,7 +66,7 @@ def initialize(args=None, model=None, model_parameters=None, config=None,
     engine = DeepSpeedEngine(model, config, device=device,
                              lr_scheduler=lr_scheduler,
                              training_data=training_data,
-                             collate_fn=collate_fn)
+                             collate_fn=collate_fn, optimizer=optimizer)
     return (engine, engine.optimizer, engine.training_dataloader,
             engine.lr_scheduler)
 

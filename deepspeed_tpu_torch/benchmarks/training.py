@@ -11,10 +11,14 @@ for a run on a CUDA device.  Usage::
 
     python -m deepspeed_tpu_torch.benchmarks.training --model gpt_1b \
         --batch 2 --gas 4 --seq 1024 --dtype fp16 --steps 10 \
+        [--moment-dtype bfloat16] [--grad-accum-dtype bfloat16] \
+        [--remat-policy dots_saveable] \
         [--scheduler WarmupDecayLR] [--initial-scale-power 16] [--json]
 
 The flags are the JAX CLI's; those the port cannot run yet raise naming
-their ROADMAP item.  ``--scheduler`` (WarmupLR or WarmupDecayLR, warming
+their ROADMAP item.  Every layer is rematerialised under ``--remat-policy``
+(default ``dots_saveable``, the JAX benchmark's: the matrix products'
+outputs are kept, the rest recomputed in the backward).  ``--scheduler`` (WarmupLR or WarmupDecayLR, warming
 up from 0 to the AdamW lr over a tenth of the run), ``--initial-scale-power``
 (fp16's dynamic loss scale starts at 2**power) and ``--device`` (``cpu``
 for a run off the card) are the port's own.  Printed: the JAX CLI's keys
@@ -55,12 +59,13 @@ MODELS = {
 }
 
 
-def model_config(model, seq, vocab_size=None, arch=None, remat=True):
+def model_config(model, seq, vocab_size=None, arch=None, remat=True,
+                 remat_policy="dots_saveable"):
     """The ``TransformerConfig`` the JAX benchmark builds for ``model`` (a
     ``MODELS`` name or a shape dict): Llama-style for ``arch`` "llama"
-    (default: a ``llama_*`` name), GPT-style otherwise; per-layer remat,
-    which the port runs as ``nothing_saveable`` (the JAX benchmark's
-    ``dots_saveable`` keeps other tensors, not other values)."""
+    (default: a ``llama_*`` name), GPT-style otherwise; per-layer remat
+    under ``remat_policy``, the JAX benchmark's ``dots_saveable`` by
+    default."""
     from deepspeed_tpu_torch.models.transformer import TransformerConfig
     shape = MODELS[model] if isinstance(model, str) else dict(model)
     if arch is None:
@@ -72,8 +77,8 @@ def model_config(model, seq, vocab_size=None, arch=None, remat=True):
     else:
         arch_kw = dict(activation="gelu", use_rmsnorm=False, use_rope=False,
                        tie_embeddings=True, vocab_size=vocab_size or 50304)
-    return TransformerConfig(max_seq_len=seq, remat=remat, **arch_kw,
-                             **shape)
+    return TransformerConfig(max_seq_len=seq, remat=remat,
+                             remat_policy=remat_policy, **arch_kw, **shape)
 
 
 def scheduler_config(name, total_steps, lr=LR):
@@ -119,7 +124,7 @@ def run_benchmark(model="gpt_350m", batch=8, gas=1, seq=1024, steps=10,
                   dtype="bf16", vocab_size=None, device=None, scheduler=None,
                   initial_scale_power=None, remat=True, arch=None,
                   moment_dtype="float32", grad_accum_dtype=None,
-                  zero_stage=3):
+                  zero_stage=3, remat_policy="dots_saveable"):
     """Build ``model`` (random weights from seed 0), ``initialize`` the
     engine and time ``steps`` train_batch calls.  ``scheduler``: None or
     the name of :func:`scheduler_config`'s schedule over the run's
@@ -129,7 +134,7 @@ def run_benchmark(model="gpt_350m", batch=8, gas=1, seq=1024, steps=10,
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.transformer import CausalTransformerLM
     cfg = model_config(model, seq, vocab_size=vocab_size, arch=arch,
-                       remat=remat)
+                       remat=remat, remat_policy=remat_policy)
     module = CausalTransformerLM(cfg, device=device).init(0)
     conf = ds_config(batch, gas, dtype,
                      scheduler=(scheduler_config(scheduler, steps + 1)
@@ -167,7 +172,7 @@ def run_benchmark(model="gpt_350m", batch=8, gas=1, seq=1024, steps=10,
         "model": model if isinstance(model, str) else "custom",
         "n_layers": cfg.n_layers, "n_params": cfg.num_params(),
         "batch": batch, "gas": gas, "seq": seq, "zero_stage": zero_stage,
-        "steps": steps, "dtype": dtype,
+        "steps": steps, "dtype": dtype, "remat_policy": remat_policy,
         "ms_per_train_batch": dt * 1e3 / steps,
         "tokens_per_sec": tps, "tokens_per_sec_per_chip": tps,
         "model_tflops": tflops, "model_tflops_per_chip": tflops,
@@ -181,6 +186,8 @@ def run_benchmark(model="gpt_350m", batch=8, gas=1, seq=1024, steps=10,
                         else str(dev)),
         "n_chips": 1,
     }
+    if moment_dtype != "float32":
+        out["moment_dtype"] = moment_dtype
     if grad_accum_dtype:
         out["grad_accum_dtype"] = grad_accum_dtype
     if arch not in (None, "gpt"):
@@ -188,13 +195,13 @@ def run_benchmark(model="gpt_350m", batch=8, gas=1, seq=1024, steps=10,
     return out
 
 
-# the JAX CLI's printed keys (mfu only on the card; its moment_dtype key
-# only for bf16 moments, which raise here), then the port's two fp16
+# the JAX CLI's printed keys (mfu only on the card; moment_dtype only for
+# bf16 moments, grad_accum_dtype only when set), then the port's two fp16
 # counters
 PRINTED = ("model", "n_params", "batch", "gas", "seq", "zero_stage",
            "steps", "tokens_per_sec_per_chip", "model_tflops_per_chip",
-           "loss", "device_kind", "n_chips", "grad_accum_dtype", "arch",
-           "mfu", "loss_scale", "skipped_steps")
+           "loss", "device_kind", "n_chips", "moment_dtype",
+           "grad_accum_dtype", "arch", "mfu", "loss_scale", "skipped_steps")
 
 
 def _refuse_unported(a):
@@ -205,11 +212,6 @@ def _refuse_unported(a):
             "--offload / --offload-param / --resident-layers / "
             "--buffer-count / --serial-boundary: ZeRO-Offload and the "
             "parameter stream are not ported yet (ROADMAP A12)")
-    if a.remat_policy != "dots_saveable":
-        raise NotImplementedError(
-            f"--remat-policy {a.remat_policy}: the port's remat is per "
-            f"layer; activation checkpointing policies are not ported yet "
-            f"(ROADMAP A6)")
     if a.attn_block_q or a.attn_block_k:
         raise ValueError("--attn-block-q / --attn-block-k size the TPU "
                          "kernel's blocks; the H100 kernels' tiles are "
@@ -258,7 +260,8 @@ def main(argv=None):
         dtype=a.dtype, device=a.device, scheduler=a.scheduler,
         initial_scale_power=a.initial_scale_power, remat=not a.no_remat,
         arch=a.arch, moment_dtype=a.moment_dtype,
-        grad_accum_dtype=a.grad_accum_dtype, zero_stage=a.zero_stage)
+        grad_accum_dtype=a.grad_accum_dtype, zero_stage=a.zero_stage,
+        remat_policy=a.remat_policy)
     shown = {k: out[k] for k in PRINTED
              if k in out and not (k == "mfu" and out[k] is None)}
     if a.json:

@@ -53,10 +53,11 @@ def load_checkpoint_tree(ckpt_dir: str, tag: Optional[str] = None,
                          load_optimizer_states: bool = True
                          ) -> Dict[str, Any]:
     """A port checkpoint as a host numpy tree: ``params`` (the fp32
-    master), ``opt_state`` (Adam's ``m`` and ``v`` in the same layout and
-    its applied ``count``; left out with ``load_optimizer_states=False``,
-    which reads the master alone), ``loss_scale``, ``skipped_steps`` and
-    ``global_step``."""
+    master), ``opt_state`` (the optimizer's flat buffers under their names
+    -- Adam's ``m`` and ``v`` -- in the same layout, as fp32 (bf16 moments
+    widened), and its applied ``count``; left out with
+    ``load_optimizer_states=False``, which reads the master alone),
+    ``loss_scale``, ``skipped_steps`` and ``global_step``."""
     tag = _resolve_tag(ckpt_dir, tag)
     path = os.path.join(os.path.abspath(ckpt_dir), tag)
     with open(os.path.join(path, LAYOUT_NAME)) as f:
@@ -70,10 +71,18 @@ def load_checkpoint_tree(ckpt_dir: str, tag: Optional[str] = None,
     params = layout["params"]
     state = {"params": _param_tree(buf("['master']", mmap=True), params)}
     if load_optimizer_states:
-        state["opt_state"] = {
-            "m": _param_tree(buf("['m']", mmap=True), params),
-            "v": _param_tree(buf("['v']", mmap=True), params),
-            "count": buf("['count']")}
+        scalars = ("['master']", "['count']", "['skipped_steps']")
+        opt = {}
+        for key, rec in buffers.items():
+            if key in scalars or key.startswith("['loss_scale']"):
+                continue
+            flat = buf(key, mmap=True)
+            if rec["dtype"] == "bfloat16":     # stored as its bit pattern
+                flat = (flat.view(np.uint16).astype(np.uint32) << 16).view(
+                    np.float32)
+            opt[key[2:-2]] = _param_tree(flat, params)
+        opt["count"] = buf("['count']")
+        state["opt_state"] = opt
         state["loss_scale"] = {
             k[len("['loss_scale']['"):-2]: buf(k) for k in buffers
             if k.startswith("['loss_scale']")}

@@ -30,7 +30,8 @@ META_NAME = "universal_meta.json"
 def ds_to_universal(ckpt_dir: str, out_dir: str, tag: Optional[str] = None,
                     include_optimizer: bool = False) -> str:
     """Convert a saved port checkpoint into the universal layout (with
-    ``include_optimizer``, Adam's m and v too, under ``['opt_state']``)."""
+    ``include_optimizer``, the optimizer's buffers too -- Adam's m and v,
+    the other rules' under their names -- under ``['opt_state']``)."""
     state = load_checkpoint_tree(ckpt_dir, tag,
                                  load_optimizer_states=include_optimizer)
     tree = state["params"]

@@ -41,6 +41,8 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.runtime.config_utils import DeepSpeedConfigModel
+from deepspeed_tpu_torch.utils.hashing import MASK32 as _MASK32
+from deepspeed_tpu_torch.utils.hashing import mix32 as _mix32
 from deepspeed_tpu_torch.utils.logging import logger
 
 SCHEDULER_POLICIES = ("monolithic", "chunked")
@@ -49,8 +51,6 @@ SCHEDULER_POLICIES = ("monolithic", "chunked")
 # policy: "latency" requests jump the queue and prefill first
 SLO_CLASSES = ("latency", "throughput")
 _SLO_PRIORITY = {c: i for i, c in enumerate(SLO_CLASSES)}
-
-_MASK32 = 0xFFFFFFFF
 
 
 class SpeculativeConfig(DeepSpeedConfigModel):
@@ -122,16 +122,6 @@ class SchedulerConfig(DeepSpeedConfigModel):
 # ----------------------------------------------------------------------
 # on-device sampling
 # ----------------------------------------------------------------------
-def _mix32(x):
-    """A 32-bit integer hash (two multiply-xorshift rounds) of an int64
-    tensor of values in [0, 2**32): every product stays below 2**63."""
-    x = x ^ (x >> 16)
-    x = (x * 0x45D9F3B) & _MASK32
-    x = x ^ (x >> 16)
-    x = (x * 0x45D9F3B) & _MASK32
-    return x ^ (x >> 16)
-
-
 def uniform_noise(seeds, counters, vocab):
     """[B, vocab] float64 uniforms in (0, 1), a pure function of (seed,
     counter, token id): row b hashes (seeds[b], counters[b]) into a key

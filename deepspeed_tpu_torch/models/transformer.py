@@ -27,7 +27,7 @@ Two paths use it: serving (``apply_with_cache``, ``apply_with_paged_cache``,
 under ``torch.no_grad``) and training (``apply``, ``loss``: causal flash
 attention through ``ops/attention.attention`` -- with ALiBi slopes and the
 layer's window, the biased kernels -- per-layer remat with
-``torch.utils.checkpoint``, the next-token cross-entropy chunked so no
+``torch.utils.checkpoint`` under ``remat_policy``, the next-token cross-entropy chunked so no
 [B, S, V] fp32 logits tensor is kept).
 
 Numerics follow the JAX model: norms compute in fp32 and cast back, RoPE
@@ -56,6 +56,8 @@ from deepspeed_tpu_torch.ops.decode_attention import (KVCache,
 from deepspeed_tpu_torch.ops.paged_attention import (PagedKVCache,
                                                      paged_decode_attention,
                                                      prefill_paged)
+from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing \
+    import POLICIES, SAVE_NOTHING, matmul, remat
 
 
 @dataclass(frozen=True)
@@ -437,7 +439,7 @@ def _rope(x, positions, theta, rope_dim=None, inv_freq=None):
 
 
 def _proj(h, layer, name):
-    out = h @ getattr(layer, name)
+    out = matmul(h, getattr(layer, name))
     bias = getattr(layer, f"{name}_b", None)
     if bias is not None:
         out = out + bias.to(out.dtype)
@@ -564,7 +566,7 @@ class CausalTransformerLM(nn.Module):
                   getattr(layer, "mlp_norm_b", None))
         act = _ACTIVATIONS[c.activation]
         if c.gated:
-            inner = act(h @ layer.w_gate) * _proj(h, layer, "w_up")
+            inner = act(matmul(h, layer.w_gate)) * _proj(h, layer, "w_up")
         else:
             inner = act(_proj(h, layer, "w_up"))
         return x + _proj(inner, layer, "w_down")
@@ -642,22 +644,29 @@ class CausalTransformerLM(nn.Module):
         with ``return_hidden`` the final-normed hidden state [B, S, d]
         (the JAX ``apply`` returns ``(x, aux)`` there; aux is the MoE loss,
         0 for the dense model).  With ``config.remat`` and grad enabled,
-        each layer runs under ``torch.utils.checkpoint(use_reentrant=
-        False)``: only its input is kept and the layer is recomputed in the
-        backward -- the ``nothing_saveable`` policy.  The other JAX policies
-        (``dots_saveable`` ...) change only what is kept, never a value, so
-        every policy gives these values and gradients."""
+        each layer runs under the non-reentrant ``torch.utils.checkpoint``
+        with ``config.remat_policy``, as the JAX model hands it to
+        ``jax.checkpoint`` (``runtime/activation_checkpointing``'s
+        :func:`remat`): ``nothing_saveable`` keeps the layer's input
+        alone and recomputes the rest in the backward; ``dots_saveable``
+        also keeps the projections' outputs (the flash kernels are
+        recomputed, as a Pallas call is under ``jax.checkpoint``);
+        ``everything_saveable`` recomputes nothing.  A policy changes what
+        is kept, never a value."""
         B, S = input_ids.shape
         if positions is None:
             positions = torch.arange(S, device=input_ids.device).expand(B, S)
         x = self._embed(input_ids, positions)
-        remat = self.config.remat and torch.is_grad_enabled()
+        checkpointed = self.config.remat and torch.is_grad_enabled()
+        # a name the JAX model does not find in jax.checkpoint_policies
+        # gives policy=None there, which saves nothing: the same here
+        policy = POLICIES.get(self.config.remat_policy, SAVE_NOTHING)
         windows = self.config.local_attn_pattern or (None,) * len(
             self.layers)
         for layer, window in zip(self.layers, windows):
-            if remat:
-                x = checkpoint(self._train_layer, x, layer, positions,
-                               attn_backend, window, use_reentrant=False)
+            if checkpointed:
+                x = remat(self._train_layer, x, layer, positions,
+                          attn_backend, window, policy=policy)
             else:
                 x = self._train_layer(x, layer, positions, attn_backend,
                                       window)

@@ -10,18 +10,22 @@ import torch
 
 from deepspeed_tpu_torch.ops import op_builder
 
-_G_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the C entry's dtype codes of g and of the moments
+_CODES = {torch.float32: 0, torch.bfloat16: 1}
 N_HYPER = 5     # lr, beta1, 1 - beta1, c1, c2
 
 
-def fused_adam_cuda(params, grads, m, v, hyper, skip, beta2, eps,
+def fused_adam_cuda(params, grads, m, v, hyper, skip, count, beta2, eps,
                     weight_decay, adamw_mode):
-    """One Adam step, IN PLACE on ``params``, ``m`` and ``v`` (contiguous
-    fp32 CUDA tensors of one size); ``grads``: same size, fp32 or bf16.
+    """One Adam step, IN PLACE on ``params`` (fp32), ``m`` and ``v``
+    (both fp32, or both bf16: stored by stochastic rounding), contiguous
+    CUDA tensors of one size; ``grads``: same size, fp32 or bf16.
     ``hyper``: fp32 [5] on the card, (lr, beta1, 1 - beta1, c1, c2) with
     c1/c2 the bias corrections 1 - beta**count (1.0 when off); ``skip``:
     an int32 scalar on the card, nonzero to leave params, m and v as they
-    are (fp16's overflow).  Neither is read on the host."""
+    are (fp16's overflow); ``count``: the int32 count of applied steps on
+    the card (it seeds bf16 moments' rounding bits; the caller advances
+    it).  None of them is read on the host."""
     for name, t in (("params", params), ("grads", grads), ("m", m),
                     ("v", v)):
         if not t.is_cuda:
@@ -35,15 +39,18 @@ def fused_adam_cuda(params, grads, m, v, hyper, skip, beta2, eps,
             raise ValueError(f"fused_adam_cuda: {name} has {t.numel()} "
                              f"elements on {t.device}, params "
                              f"{params.numel()} on {params.device}")
-    for name, t in (("params", params), ("m", m), ("v", v)):
-        if t.dtype != torch.float32:
-            raise ValueError(f"fused_adam_cuda: {name} must be float32, got "
-                             f"{t.dtype}")
-    if grads.dtype not in _G_CODES:
+    if params.dtype != torch.float32:
+        raise ValueError(f"fused_adam_cuda: params must be float32, got "
+                         f"{params.dtype}")
+    if m.dtype not in _CODES or v.dtype != m.dtype:
+        raise ValueError(f"fused_adam_cuda: m and v must both be float32 or "
+                         f"both bfloat16, got {m.dtype} and {v.dtype}")
+    if grads.dtype not in _CODES:
         raise ValueError(f"fused_adam_cuda: grads must be float32 or "
                          f"bfloat16, got {grads.dtype}")
     for name, t, dtype, numel in (("hyper", hyper, torch.float32, N_HYPER),
-                                  ("skip", skip, torch.int32, 1)):
+                                  ("skip", skip, torch.int32, 1),
+                                  ("count", count, torch.int32, 1)):
         if t.dtype != dtype or t.numel() != numel or \
                 t.device != params.device or not t.is_contiguous():
             raise ValueError(f"fused_adam_cuda: {name} must be a contiguous "
@@ -55,9 +62,10 @@ def fused_adam_cuda(params, grads, m, v, hyper, skip, beta2, eps,
         return params
     fn = op_builder.load("fused_adam")
     rc = fn(params.data_ptr(), grads.data_ptr(), m.data_ptr(), v.data_ptr(),
-            n, _G_CODES[grads.dtype], int(bool(adamw_mode)),
-            hyper.data_ptr(), skip.data_ptr(), float(beta2),
-            float(1.0 - beta2), float(eps), float(weight_decay),
+            n, _CODES[grads.dtype], _CODES[m.dtype], int(bool(adamw_mode)),
+            hyper.data_ptr(), skip.data_ptr(), count.data_ptr(),
+            float(beta2), float(1.0 - beta2), float(eps),
+            float(weight_decay),
             torch.cuda.current_stream(params.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused Adam kernel launch failed: CUDA error {rc}")

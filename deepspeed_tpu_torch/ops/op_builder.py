@@ -57,10 +57,12 @@ SIGNATURES = {
     "flash_attention_bwd_delta": ("flash_attention_bwd",
                                   "ds_flash_attention_bwd_delta",
                                   [_P] * 3 + [_I] * 5 + [_P]),
-    # fused Adam reads lr, beta1, 1 - beta1, c1, c2 and the skip flag from
-    # device buffers (two pointers after the ints)
+    # fused Adam reads lr, beta1, 1 - beta1, c1, c2, the skip flag and the
+    # applied count from device buffers (three pointers after the ints:
+    # g's dtype, the moments' dtype, the mode)
     "fused_adam": ("fused_adam", "ds_fused_adam",
-                   [_P] * 4 + [_L, _I, _I, _P, _P] + [_F] * 4 + [_P]),
+                   [_P] * 4 + [_L, _I, _I, _I, _P, _P, _P] + [_F] * 4 +
+                   [_P]),
     # the block-sparse entry takes both forms' tables: the fp32 form's
     # (counts, table) and the bf16 form's (counts, starts, steps)
     "sparse_attention": ("sparse_attention", "ds_sparse_attention",

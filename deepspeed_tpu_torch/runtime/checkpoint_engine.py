@@ -6,11 +6,13 @@ async Nebula-style one; ``get_checkpoint_engine(config)``).  The JAX
 engines write an orbax tree under ``<tag>/state``; the port imports
 neither JAX nor orbax, so its payload is numpy's:
 
-* one ``.npy`` per state buffer -- the fp32 master, m and v as flat
-  buffers and the device scalars (Adam's applied count, the loss-scale
-  state, the skipped count) as 0-dim arrays -- named by the buffer's
-  keystr by the universal format's rule (:func:`_safe`)
-  (``master.npy``, ``loss_scale_cur_scale.npy``);
+* one ``.npy`` per state buffer -- the fp32 master and the optimizer's
+  buffers (Adam's m and v) as flat buffers and the device scalars (the
+  applied count, the loss-scale state, the skipped count) as 0-dim
+  arrays -- named by the buffer's keystr by the universal format's rule
+  (:func:`_safe`) (``master.npy``, ``loss_scale_cur_scale.npy``); numpy
+  has no bf16, so a bf16 buffer (bf16 moments) is written as its int16
+  bit pattern, ``layout.json`` naming it ``bfloat16``;
 * ``layout.json``: which parameter lies where in the flat buffers (name,
   offset, shape), the compute dtype, and each buffer's file, shape and
   dtype;
@@ -74,6 +76,18 @@ def unflatten(flat, template):
     return out
 
 
+def host_numpy(t):
+    """The numpy view of host tensor ``t`` as the payload stores it: a
+    bf16 tensor's int16 bit pattern (numpy has no bf16)."""
+    return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def payload_dtype(t):
+    """The dtype ``layout.json`` records for ``t``."""
+    return ("bfloat16" if t.dtype == torch.bfloat16
+            else str(t.numpy().dtype))
+
+
 def read_npy_into(path, out):
     """Read the ``.npy`` at ``path`` into the host tensor ``out`` (its
     shape and dtype must match the file's), with no intermediate copy."""
@@ -82,7 +96,7 @@ def read_npy_into(path, out):
         read_header = (np.lib.format.read_array_header_1_0 if major == 1
                        else np.lib.format.read_array_header_2_0)
         shape, fortran, dtype = read_header(f)
-        want = out.numpy()
+        want = host_numpy(out)
         if tuple(shape) != tuple(want.shape) or dtype != want.dtype or \
                 fortran:
             raise ValueError(f"{path}: {dtype}{list(shape)} in the file, "
@@ -139,7 +153,7 @@ class CheckpointEngine(ABC):
     @staticmethod
     def _write_files(path, staged):
         for key, host in staged:
-            np.save(os.path.join(path, buffer_file(key)), host.numpy(),
+            np.save(os.path.join(path, buffer_file(key)), host_numpy(host),
                     allow_pickle=False)
 
     @staticmethod
@@ -161,7 +175,7 @@ class CheckpointEngine(ABC):
                       version=PAYLOAD_VERSION,
                       buffers={k: {"file": buffer_file(k),
                                    "shape": list(h.shape),
-                                   "dtype": str(h.numpy().dtype)}
+                                   "dtype": payload_dtype(h)}
                                for k, h in staged})
         self._write_json(path, LAYOUT_NAME, layout)
         if client_state is not None:

@@ -5,8 +5,9 @@ keys: the batch triangle ``train_batch_size = micro * gas * world`` (world
 is 1 here), ``optimizer`` {type, params}, ``scheduler`` {type, params},
 ``fp16`` (loss scaling; ``loss_scale`` 0 means dynamic), ``bf16.enabled``,
 ``gradient_clipping``, ``seed``, ``steps_per_print``,
-``wall_clock_breakdown``, ``zero_optimization``, ``checkpoint`` and
-``resilience``.  Every block the JAX engine acts on and the port does not
+``wall_clock_breakdown``, ``zero_optimization``, ``checkpoint``,
+``resilience``, ``activation_checkpointing`` and
+``data_types.grad_accum_dtype``.  Every block the JAX engine acts on and the port does not
 run yet raises ``NotImplementedError`` naming its ROADMAP item,
 when it is enabled or non-empty; the keys the JAX config accepts and
 leaves inert pass silently; any other top-level key logs a warning with
@@ -103,6 +104,21 @@ class ResilienceConfig(DeepSpeedConfigModel):
             raise ValueError("resilience.dataloader_max_retries must be >= 0")
 
 
+class ActivationCheckpointingConfig(DeepSpeedConfigModel):
+    """``"activation_checkpointing"`` block: the knobs of
+    ``runtime/activation_checkpointing/checkpointing.configure``, which the
+    engine calls with this config.  ``policy`` names what a checkpointed
+    block keeps (its ``POLICIES``); the model's own per-layer remat follows
+    ``TransformerConfig.remat_policy``, as in the JAX package."""
+    partition_activations = False
+    contiguous_memory_optimization = False
+    cpu_checkpointing = False
+    number_checkpoints = None
+    synchronize_checkpoint_boundary = False
+    profile = False
+    policy = "nothing_saveable"
+
+
 class CheckpointConfig(DeepSpeedConfigModel):
     """``"checkpoint"`` block.  ``engine`` picks the checkpoint engine
     (``runtime/checkpoint_engine.py``): "sync" (also "orbax" and "torch",
@@ -159,11 +175,7 @@ def _refuse_mesh(mesh):
 
 def _refuse_unported(pd):
     """Raise for every block that asks for behaviour this slice lacks."""
-    fp16 = pd.get(C.FP16)
     blocks = [
-        (_enabled(fp16) and bool(fp16.get("fp16_master_weights_and_grads")),
-         "fp16.fp16_master_weights_and_grads (fp16 master weights and "
-         "gradients)", "A7"),
         (bool(pd.get(C.COMPRESSION_TRAINING)),
          "compression_training / MoQ", "A17"),
         (bool(pd.get(C.PIPELINE)), "pipeline parallelism", "A14"),
@@ -183,20 +195,41 @@ def _refuse_unported(pd):
         (_set(pd.get(C.ELASTICITY)), "elasticity", "A17"),
         (bool((pd.get(C.AUTOTUNING) or {}).get("overlay_path")),
          "autotuning.overlay_path (the tuned overlay)", "A17"),
-        (_set(pd.get(C.ACTIVATION_CHECKPOINTING)), "activation_checkpointing",
-         "A6"),
+        (bool((pd.get(C.ACTIVATION_CHECKPOINTING) or {}).get(
+            "cpu_checkpointing")),
+         "activation_checkpointing.cpu_checkpointing (activations offloaded "
+         "to the host)", "A12"),
         (_set(pd.get(C.MEMORY)), "the tiered memory block (memory)", "A12"),
     ]
     for on, what, item in blocks:
         if on:
             raise NotImplementedError(f"{what} is not ported yet "
                                       f"(ROADMAP {item})")
-    accum = (pd.get(C.DATA_TYPES) or {}).get(C.GRAD_ACCUM_DTYPE)
-    if accum is not None and str(accum).lower() not in ("fp32", "float32"):
-        raise NotImplementedError(
-            f"data_types.grad_accum_dtype {accum!r}: only fp32 gradient "
-            f"accumulation is ported (ROADMAP A7)")
     _refuse_mesh(pd.get(C.MESH))
+
+
+# data_types.grad_accum_dtype: the JAX config's names
+_GRAD_ACCUM_DTYPES = {"fp32": "float32", "float32": "float32",
+                      "bf16": "bfloat16", "bfloat16": "bfloat16",
+                      "fp16": "float16", "float16": "float16"}
+
+
+def _parse_grad_accum_dtype(name):
+    """The JAX config's ``_parse_grad_accum_dtype``: None, "float32",
+    "bfloat16" (or "float16", which raises: B3 takes fp32 or bf16
+    gradients)."""
+    if name is None:
+        return None
+    key = str(name).lower()
+    if key not in _GRAD_ACCUM_DTYPES:
+        raise DeepSpeedConfigError(
+            "data_types.grad_accum_dtype must be one of "
+            f"{sorted(set(_GRAD_ACCUM_DTYPES))}, got {name!r}")
+    if _GRAD_ACCUM_DTYPES[key] == "float16":
+        raise NotImplementedError(
+            "data_types.grad_accum_dtype float16: fp16 gradients into the "
+            "fused Adam kernel are not ported yet (ROADMAP B, item 3)")
+    return _GRAD_ACCUM_DTYPES[key]
 
 
 def _warn_unknown_keys(pd):
@@ -255,6 +288,18 @@ class DeepSpeedConfig:
         self.scheduler_config = SchedulerConfig(sched) if sched else None
         self.checkpoint_config = CheckpointConfig(pd.get(C.CHECKPOINT) or {})
         self.resilience_config = ResilienceConfig(pd.get(C.RESILIENCE) or {})
+        self.activation_checkpointing_config = ActivationCheckpointingConfig(
+            pd.get(C.ACTIVATION_CHECKPOINTING) or {})
+        # the flat gradient buffer's dtype (None: fp32)
+        self.grad_accum_dtype = _parse_grad_accum_dtype(
+            (pd.get(C.DATA_TYPES) or {}).get(C.GRAD_ACCUM_DTYPE))
+        # the JAX config's _do_sanity_check; otherwise the flag changes
+        # nothing, as in the JAX engine, which never reads it
+        if self.zero_config.stage > 0 and self.fp16_config.enabled and \
+                self.fp16_config.fp16_master_weights_and_grads and \
+                self.zero_config.stage != 2:
+            raise DeepSpeedConfigError(
+                "fp16_master_weights_and_grads only supported with ZeRO-2")
 
     @property
     def fp16_enabled(self):

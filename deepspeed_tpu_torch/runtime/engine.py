@@ -3,8 +3,11 @@
 Counterpart of ``deepspeed_tpu/runtime/engine.py``.  State, as the JAX
 engine keeps it but laid out for eager PyTorch:
 
-* fp32 master parameters, fp32 gradients and the fp32 Adam moments m and
-  v, each ONE flat buffer on the card (16 bytes per parameter);
+* fp32 master parameters, the gradients (fp32, or bf16 with
+  ``data_types.grad_accum_dtype``) and the optimizer's state (Adam's m and
+  v, fp32 or bf16 with ``moment_dtype``; the other rules' buffers:
+  ``runtime/optimizers.py``), each ONE flat buffer on the card (16 bytes
+  per parameter with AdamW in fp32, 10 with bf16 gradients and moments);
 * the module's parameters are views into one flat buffer of the compute
   dtype (bf16 with ``bf16.enabled``, fp16 with ``fp16.enabled``, else
   fp32), refreshed from the master by one copy after each step -- the
@@ -17,13 +20,16 @@ engine keeps it but laid out for eager PyTorch:
 
 ``train_batch`` runs the module's ``loss`` (times the loss scale under
 fp16) and its backward once per micro-batch, adds each parameter's
-gradient, unscaled in fp32, into the flat fp32 buffer (``_forward_grads``:
-fp32 sum, then divided by gas), then the update of ``_apply_update``:
-overflow = inf or nan in the flat gradients (fp16 only), the fp32 global
-norm, clipping when ``gradient_clipping`` > 0 (``clip_f32``), the schedules
-at the applied count into Adam's scalar buffer, ONE ``fused_adam`` launch
-over the flat buffer that writes nothing when the step overflowed, the
-loss-scale automaton, and the master copied into the module.
+gradient, unscaled in fp32, into the flat gradient buffer
+(``_forward_grads``: the sum in the buffer's dtype -- a bf16 buffer takes
+each micro-batch's gradient cast to bf16 first, ``_loss_and_grads`` --
+then divided by gas), then the update of ``_apply_update``: overflow = inf
+or nan in the flat gradients (fp16 only), the global norm in fp32,
+clipping when ``gradient_clipping`` > 0 (``clip_f32``: the coefficient cast
+to the gradients' dtype), then the optimizer's step, which writes nothing
+when the step overflowed -- for Adam the schedules at the applied count
+into its scalar buffer and ONE ``fused_adam`` launch over the flat buffer
+-- the loss-scale automaton, and the master copied into the module.
 ``forward``/``backward``/``step`` share that accumulation and update;
 ``backward`` divides each micro-batch by gas before adding it, in the
 order of the JAX ``backward``.  Nothing on the step path reads a value
@@ -38,8 +44,10 @@ Checkpoints (``save_checkpoint`` / ``load_checkpoint``) keep the JAX
 engine's durable protocol (``runtime/resilience.py``: tmp tag, manifest,
 commit marker, retries, fallback to the newest valid tag, keep-last
 retention, checksums) around the port's payload
-(``runtime/checkpoint_engine.py``): master, m, v and the device scalars,
-restored bit for bit; the compute-dtype weights are rebuilt from the
+(``runtime/checkpoint_engine.py``): master, the optimizer's buffers (Adam's
+m and v under their old names) and the device scalars, restored bit for
+bit, each in its own dtype; a client optimizer's ``state_dict()`` rides
+``client_state``; the compute-dtype weights are rebuilt from the
 master, the host ``global_steps``, ``micro_steps`` and LR scheduler come
 back from ``client_state``.  The state is flat at every ZeRO stage, so a
 tag saved at one stage loads at another.  ``train_batch`` polls the
@@ -56,6 +64,10 @@ path logs ``time (ms) | fwd | bwd | step`` every ``steps_per_print``
 steps (``timers``).  On the card both read CUDA events on the current
 stream, resolved only on a step that logs, so a step that does not log
 gains no host sync; the breakdown's timers run only when it is on.
+
+The engine calls ``activation_checkpointing.checkpointing.configure``
+with its config at init, as the JAX engine does; the model's own
+per-layer remat follows its ``TransformerConfig.remat_policy``.
 
 Not ported yet (each raises naming its ROADMAP item): multi-rank ZeRO
 (A8), the async input pipeline (A17).
@@ -83,8 +95,14 @@ from deepspeed_tpu_torch.runtime.lr_schedules import (ONE_CYCLE,
                                                       LRScheduler,
                                                       build_schedule,
                                                       one_cycle_mom)
-from deepspeed_tpu_torch.runtime.optimizers import (ADAMW_OPTIMIZER,
-                                                    build_optimizer)
+from deepspeed_tpu_torch.runtime.activation_checkpointing import \
+    checkpointing
+from deepspeed_tpu_torch.runtime.optimizers import (ADAM_FAMILY,
+                                                    ADAMW_OPTIMIZER,
+                                                    ClientOptimizer,
+                                                    FlatLayout,
+                                                    build_optimizer,
+                                                    state_tensors)
 from deepspeed_tpu_torch.runtime.resilience import (
     COMMITTED, LEGACY, CheckpointCorruptError, CheckpointTransaction,
     DivergenceError, DivergenceSentinel, FaultInjector, PreemptionHandler,
@@ -114,12 +132,15 @@ class DeepSpeedEngine:
     (the plain versions of attention and Adam: the smoke test's
     comparison).  ``lr_scheduler``: a client schedule, an
     :class:`LRScheduler` or a callable on the 0-dim fp32 step (the config's
-    ``scheduler`` block wins, as in the JAX engine).  ``training_data``: a
-    dataset for :meth:`deepspeed_io` (``collate_fn`` for its batches)."""
+    ``scheduler`` block wins, as in the JAX engine).  ``optimizer``: a
+    client optimizer, a ``torch.optim`` Optimizer class or a callable
+    returning one, built over the fp32 master weights (the config's
+    ``optimizer`` block wins).  ``training_data``: a dataset for
+    :meth:`deepspeed_io` (``collate_fn`` for its batches)."""
 
     def __init__(self, model, config: DeepSpeedConfig, device=None,
                  backend="auto", lr_scheduler=None, training_data=None,
-                 collate_fn=None):
+                 collate_fn=None, optimizer=None):
         if not callable(getattr(model, "loss", None)):
             raise TypeError("model must expose .loss(batch)")
         if _world_size() > 1:
@@ -154,7 +175,11 @@ class DeepSpeedEngine:
         self._spans = spans
         self.master = torch.empty(off, dtype=torch.float32,
                                   device=self.device)
-        self.grads = torch.zeros(off, dtype=torch.float32, device=self.device)
+        self.grad_accum_dtype = (torch.bfloat16
+                                 if config.grad_accum_dtype == "bfloat16"
+                                 else torch.float32)
+        self.grads = torch.zeros(off, dtype=self.grad_accum_dtype,
+                                 device=self.device)
         self._compute = torch.empty(off, dtype=self.compute_dtype,
                                     device=self.device)
         self._master_views, self._grad_views = [], []
@@ -170,10 +195,13 @@ class DeepSpeedEngine:
 
         # ---- optimizer and schedules --------------------------------
         self.optimizer, base_lr, schedule_fn = self._configure_optimizer(
-            lr_scheduler)
+            optimizer, lr_scheduler)
         # the JAX engine has no scheduler (None in client_state) without a
         # schedule; the port's host scheduler then reports the base lr
         self._has_schedule = schedule_fn is not None
+        self.optimizer.bind(self._flat_layout())
+        if isinstance(self.optimizer, ClientOptimizer):
+            self.optimizer.build(self._master_views)
         self.opt_state = self.optimizer.init_state(self.master)
         # the host-side scheduler get_lr reads (the JAX engine's: a client
         # LRScheduler as given, else one over the schedule or the base lr)
@@ -238,17 +266,39 @@ class DeepSpeedEngine:
             self.training_dataloader = self.deepspeed_io(
                 training_data, collate_fn=collate_fn)
 
+        # the activation checkpointing knobs (the JAX engine's
+        # _configure_checkpointing)
+        checkpointing.configure(deepspeed_config=config)
+
         log_dist(f"DeepSpeedEngine ready: zero_stage={self.zero_stage} "
                  f"dtype={self.compute_dtype} device={self.device} "
                  f"params={self.num_params} "
                  f"micro_batch={config.train_micro_batch_size_per_gpu} "
                  f"gas={config.gradient_accumulation_steps}", ranks=[0])
 
-    def _configure_optimizer(self, client_scheduler):
+    def _flat_layout(self):
+        """The flat buffers' :class:`FlatLayout`: one span a parameter, the
+        layers' copies of one weight in one leaf (the JAX model's stacked
+        ``layers`` leaves)."""
+        leaf_ids = {}
+        leaves = []
+        for name in self._names:
+            parts = name.split(".")
+            if parts[0] == "layers" and len(parts) > 2:
+                name = "layers." + ".".join(parts[2:])
+            leaves.append(leaf_ids.setdefault(name, len(leaf_ids)))
+        return FlatLayout([n for _, n, _ in self._spans], leaves,
+                          self.device)
+
+    def _configure_optimizer(self, client_optimizer, client_scheduler):
         """(optimizer, base lr, schedule or None), in the JAX engine's
         precedence: the config's ``scheduler`` block, else a client
         :class:`LRScheduler`'s schedule, else a client callable; the
-        schedule becomes Adam's lr, and OneCycle also cycles beta1."""
+        schedule becomes the built-in optimizer's lr, and OneCycle also
+        cycles the Adam family's beta1.  The config's ``optimizer`` wins
+        over a client one; a name the registry does not know falls back to
+        the client's with a warning; a client optimizer keeps its own lr
+        (a ``scheduler`` block is then ignored, with a warning)."""
         cfg = self._config
         sc = cfg.scheduler_config
         schedule_fn = None
@@ -264,16 +314,30 @@ class DeepSpeedEngine:
         oc = cfg.optimizer_config
         if oc is not None and oc.type:
             name, params = oc.type, dict(oc.params)
+        elif client_optimizer is not None:
+            if schedule_fn is not None and sc is not None:
+                logger.warning("scheduler config ignored: client optimizer "
+                               "owns its learning rate")
+            return ClientOptimizer(client_optimizer), 0.0, schedule_fn
         else:   # the JAX engine's default: AdamW at lr 1e-3
             name, params = ADAMW_OPTIMIZER, {"lr": 1e-3}
         base_lr = params.get("lr", 1e-3)
         if schedule_fn is not None:
             params["lr"] = schedule_fn
-        if sc is not None and sc.type == ONE_CYCLE:
+        if sc is not None and sc.type == ONE_CYCLE and \
+                name.lower() in ADAM_FAMILY:
             mom_fn = one_cycle_mom(sc.params)
             if mom_fn is not None:
                 params["_b1_schedule"] = mom_fn
-        return build_optimizer(name, params), base_lr, schedule_fn
+        try:
+            opt = build_optimizer(name, params)
+        except ValueError:
+            if client_optimizer is None:
+                raise
+            logger.warning(f"optimizer '{name}' is not built in; using the "
+                           f"client-supplied optimizer instead")
+            opt = ClientOptimizer(client_optimizer)
+        return opt, base_lr, schedule_fn
 
     # ------------------------------------------------------------------
     # batches
@@ -316,24 +380,27 @@ class DeepSpeedEngine:
 
     def _accumulate_grads(self, divisor=None):
         """Add every parameter's gradient (compute dtype) into the flat
-        fp32 buffer -- under fp16 unscaled first, in fp32 (``_loss_and_
-        grads``) -- divided by ``divisor`` (a 0-dim fp32 tensor) when
-        given, and release it."""
+        gradient buffer -- under fp16 unscaled first, in fp32, and cast to
+        the buffer's dtype (``_loss_and_grads``) -- divided by ``divisor``
+        (a 0-dim fp32 tensor) when given, and release it."""
         scale = self.loss_scale_state.cur_scale if self._fp16 else None
+        fp32 = self.grad_accum_dtype == torch.float32
         with torch.no_grad():
             for p, g in zip(self._params, self._grad_views):
                 if p.grad is None:
                     continue
                 if divisor is None and scale is None:
-                    g.add_(p.grad)
-                elif divisor is None:
+                    # a bf16 buffer adds the gradient rounded to bf16
+                    g.add_(p.grad if fp32 else p.grad.to(g.dtype))
+                elif divisor is None and fp32:
                     # g + grad / scale in fp32: one pass, the same roundings
                     g.addcdiv_(p.grad, scale)
                 else:
                     grad = p.grad.float()
                     if scale is not None:
                         grad = grad / scale
-                    g.add_(grad / divisor)
+                    grad = grad.to(g.dtype)
+                    g.add_(grad if divisor is None else grad / divisor)
                 p.grad = None
         self._accum_count += 1
 
@@ -349,10 +416,11 @@ class DeepSpeedEngine:
             if divisor is not None:
                 g.div_(divisor)
             overflow = has_inf_or_nan(g) if self._fp16 else self._no_overflow
-            norm = torch.linalg.vector_norm(g)
+            # fp32 whatever the gradients' dtype (_global_norm_f32)
+            norm = torch.linalg.vector_norm(g, dtype=torch.float32)
             clip = float(cfg.gradient_clipping or 0.0)
             if clip > 0:
-                g.mul_(torch.clamp(clip / (norm + 1e-6), max=1.0))
+                g.mul_(torch.clamp(clip / (norm + 1e-6), max=1.0).to(g.dtype))
             self.opt_state = self.optimizer.step(
                 self.master, g, self.opt_state,
                 skip=overflow.to(torch.int32) if self._fp16 else None,
@@ -626,10 +694,11 @@ class DeepSpeedEngine:
     # checkpoints
     # ------------------------------------------------------------------
     def _ckpt_state(self):
-        """The state a checkpoint holds: the named device buffers."""
+        """The state a checkpoint holds: the named device buffers (the
+        optimizer's by :func:`state_tensors`: Adam's ``m``, ``v`` and
+        ``count`` keep the names of earlier tags)."""
         ls = self.loss_scale_state
-        return {"master": self.master, "m": self.opt_state.m,
-                "v": self.opt_state.v, "count": self.opt_state.count,
+        return {"master": self.master, **state_tensors(self.opt_state),
                 "loss_scale": {"cur_scale": ls.cur_scale,
                                "cur_hysteresis": ls.cur_hysteresis,
                                "last_overflow_iter": ls.last_overflow_iter,
@@ -666,6 +735,8 @@ class DeepSpeedEngine:
             "lr_scheduler": (self.lr_scheduler.state_dict()
                              if self._has_schedule else None),
         })
+        if isinstance(self.optimizer, ClientOptimizer):
+            client_state["client_optimizer"] = self.optimizer.host_state()
         state, layout = self._ckpt_state(), self._ckpt_layout()
         rc = self._resilience
         if not rc.enabled:
@@ -827,6 +898,9 @@ class DeepSpeedEngine:
         self.micro_steps = client_state.get("micro_steps", 0)
         if load_lr_scheduler_states and client_state.get("lr_scheduler"):
             self.lr_scheduler.load_state_dict(client_state["lr_scheduler"])
+        if keys is None and isinstance(self.optimizer, ClientOptimizer) and \
+                client_state.get("client_optimizer") is not None:
+            self.optimizer.load_host_state(client_state["client_optimizer"])
         if rc.enabled:
             self._last_good_ckpt = (load_dir, chosen)
         return load_dir, client_state

@@ -30,9 +30,10 @@ sys.path.insert(0, REPO)
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
-# the parent's entry: host scalars; this tree's: device buffers
+# the parent's entry: host scalars; this tree's: device buffers (the
+# scalars, the skip flag and the applied count) and the moments' dtype
 PARENT_ARGS = [_P] * 4 + [_L, _I, _I] + [_F] * 9 + [_P]
-CHANGE_ARGS = [_P] * 4 + [_L, _I, _I, _P, _P] + [_F] * 4 + [_P]
+CHANGE_ARGS = [_P] * 4 + [_L, _I, _I, _I, _P, _P, _P] + [_F] * 4 + [_P]
 
 
 def build(sources, out):
@@ -94,9 +95,9 @@ def main():
                             1.0 - b2, eps, wd, c1, c2, stream)
         else:
             rc = libs[name](p.data_ptr(), g.data_ptr(), m.data_ptr(),
-                            v.data_ptr(), n, 0, 1, hyper.data_ptr(),
-                            flags[skip].data_ptr(), b2, 1.0 - b2, eps, wd,
-                            stream)
+                            v.data_ptr(), n, 0, 0, 1, hyper.data_ptr(),
+                            flags[skip].data_ptr(), count.data_ptr(), b2,
+                            1.0 - b2, eps, wd, stream)
         if rc:
             sys.exit(f"{name}: CUDA error {rc}")
 

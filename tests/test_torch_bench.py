@@ -16,6 +16,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 import deepspeed_tpu.benchmarks.inference as jax_inference
 import deepspeed_tpu.benchmarks.serving as jax_serving
@@ -155,3 +156,50 @@ def test_benches_run_on_the_card_unless_asked(monkeypatch):
     for main in (inference.main, serving.main):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main([])
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for eager torch on small tensors, as in
+    ``test_torch_optimizers.py``: the suite's parallel workers would
+    otherwise oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_ds_bench_train_bf16_state_and_remat_policy_on_cpu(monkeypatch,
+                                                           capsys):
+    """``ds_bench train --moment-dtype bfloat16 --grad-accum-dtype bfloat16
+    --remat-policy nothing_saveable`` runs (port only, a tiny model on the
+    CPU): the record carries moment_dtype and grad_accum_dtype, as the JAX
+    CLI's does, and the policy reaches the model."""
+    from deepspeed_tpu_torch.benchmarks import training
+    monkeypatch.setitem(training.MODELS, "tiny",
+                        dict(hidden_size=32, n_layers=2, n_heads=4))
+    built = []
+    orig = training.model_config
+
+    def model_config(*a, **kw):
+        built.append(orig(*a, **kw))
+        return built[-1]
+    monkeypatch.setattr(training, "model_config", model_config)
+    out = training.main(["--model", "tiny", "--batch", "2", "--gas", "2",
+                         "--seq", "16", "--steps", "2", "--device", "cpu",
+                         "--moment-dtype", "bfloat16", "--grad-accum-dtype",
+                         "bfloat16", "--remat-policy", "nothing_saveable",
+                         "--json"])
+    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert printed["moment_dtype"] == printed["grad_accum_dtype"] == \
+        "bfloat16"
+    assert built[-1].remat_policy == out["remat_policy"] == \
+        "nothing_saveable"
+    assert np.isfinite(out["losses"]).all() and len(out["losses"]) == 3
+    # the default policy is the JAX benchmark's
+    training.main(["--model", "tiny", "--batch", "2", "--seq", "16",
+                   "--steps", "1", "--device", "cpu", "--json"])
+    assert built[-1].remat_policy == "dots_saveable"
+    assert "moment_dtype" not in json.loads(
+        capsys.readouterr().out.strip().splitlines()[-1])

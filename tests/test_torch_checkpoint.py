@@ -137,6 +137,123 @@ def test_port_round_trip_is_bitwise(tmp_path, name):
         assert torch.equal(p_got, p_want)
 
 
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for eager torch on small tensors, as in
+    ``test_torch_optimizers.py``: the suite's parallel workers would
+    otherwise oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# each optimizer's state through a save and a load, on the port alone:
+# name -> config blocks (bf16 moments and gradients among them)
+OPTIMIZER_TRIPS = {
+    "lamb": {"optimizer": {"type": "Lamb", "params": {"lr": 1e-3}}},
+    "sgd_momentum": {"optimizer": {"type": "SGD", "params": {
+        "lr": 1e-2, "momentum": 0.9}}},
+    "adagrad": {"optimizer": {"type": "Adagrad", "params": {"lr": 1e-2}}},
+    "onebitadam": {"optimizer": {"type": "OneBitAdam", "params": {
+        "lr": 1e-3, "freeze_step": 1}}},
+    "adamw_bf16": {"optimizer": {"type": "AdamW", "params": {
+        "lr": 1e-3, "moment_dtype": "bfloat16"}},
+        "data_types": {"grad_accum_dtype": "bf16"}},
+}
+
+
+@pytest.mark.parametrize("name", list(OPTIMIZER_TRIPS))
+@pytest.mark.usefixtures("one_torch_thread")
+def test_optimizer_state_round_trip_is_bitwise(tmp_path, name):
+    """Every buffer of the optimizer's state is saved in its own dtype and
+    restored bit for bit (bf16 moments as their bit pattern, named
+    ``bfloat16`` in layout.json); the resumed losses equal the
+    uninterrupted run's."""
+    from deepspeed_tpu_torch.runtime.optimizers import state_tensors
+    blocks = OPTIMIZER_TRIPS[name]
+    batches = _batches(4)
+    ref = _port(**blocks)
+    for b in batches[:2]:
+        ref.train_batch(batch=b)
+    ref.save_checkpoint(str(tmp_path))
+    saved = {k: v.clone() for k, v in state_tensors(ref.opt_state).items()}
+    ref_losses = [float(ref.train_batch(batch=b)) for b in batches[2:]]
+    fresh = _port(seed=1, **blocks)
+    fresh.load_checkpoint(str(tmp_path))
+    for k, v in state_tensors(fresh.opt_state).items():
+        assert v.dtype == saved[k].dtype and torch.equal(v, saved[k]), k
+    assert [float(fresh.train_batch(batch=b))
+            for b in batches[2:]] == ref_losses
+    assert torch.equal(fresh.master, ref.master)
+    with open(tmp_path / "global_step2" / "layout.json") as f:
+        dtypes = {k: v["dtype"] for k, v in json.load(f)["buffers"].items()}
+    if name == "adamw_bf16":
+        assert dtypes["['m']"] == dtypes["['v']"] == "bfloat16"
+        # the tools widen them: the opt_state tree is fp32
+        tree = load_checkpoint_tree(str(tmp_path))["opt_state"]
+        np.testing.assert_array_equal(
+            tree["m"]["tok_embed"].ravel(),
+            saved["m"][:tree["m"]["tok_embed"].size].float().numpy())
+    else:
+        assert set(dtypes) >= {f"['{k}']" for k in saved}
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_client_optimizer_state_rides_client_state(tmp_path):
+    """A client optimizer's ``state_dict()`` is saved in ``client_state``
+    and restored bit for bit; the resumed steps equal the uninterrupted
+    ones."""
+    import functools
+    client = functools.partial(torch.optim.SGD, lr=1e-2, momentum=0.9)
+
+    def port(seed):
+        model = CausalTransformerLM(CFG, device="cpu").init(seed)
+        cfg = _config()
+        del cfg["optimizer"]
+        return deepspeed_tpu_torch.initialize(model=model, config=cfg,
+                                              optimizer=client,
+                                              device="cpu")[0]
+    batches = _batches(4)
+    ref = port(0)
+    for b in batches[:2]:
+        ref.train_batch(batch=b)
+    ref.save_checkpoint(str(tmp_path))
+    ref_losses = [float(ref.train_batch(batch=b)) for b in batches[2:]]
+    fresh = port(1)
+    _, client_state = fresh.load_checkpoint(str(tmp_path))
+    assert "client_optimizer" in client_state
+    assert [float(fresh.train_batch(batch=b))
+            for b in batches[2:]] == ref_losses
+    assert torch.equal(fresh.master, ref.master)
+    for sa, sb in zip(ref.optimizer.optimizer.state.values(),
+                      fresh.optimizer.optimizer.state.values()):
+        assert torch.equal(sa["momentum_buffer"], sb["momentum_buffer"])
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_adam_tags_keep_their_file_names(tmp_path):
+    """Adam's state keeps the names and files of the tags earlier slices
+    wrote (``m.npy``, ``v.npy``, ``count.npy`` beside ``master.npy``), so
+    they still load."""
+    eng = _port()
+    eng.train_batch(batch=_batches(1)[0])
+    eng.save_checkpoint(str(tmp_path))
+    files = set(os.listdir(tmp_path / "global_step1"))
+    assert {"master.npy", "m.npy", "v.npy", "count.npy",
+            "skipped_steps.npy", "layout.json",
+            "client_state.json"} <= files
+    with open(tmp_path / "global_step1" / "layout.json") as f:
+        assert set(json.load(f)["buffers"]) == {
+            "['master']", "['m']", "['v']", "['count']", "['skipped_steps']",
+            "['loss_scale']['cur_scale']", "['loss_scale']['cur_hysteresis']",
+            "['loss_scale']['last_overflow_iter']",
+            "['loss_scale']['iteration']"}
+    fresh = _port(seed=1)
+    fresh.load_checkpoint(str(tmp_path))
+    assert torch.equal(fresh.opt_state.m, eng.opt_state.m)
+
+
 @pytest.mark.parametrize("kwargs", [{"load_module_only": True},
                                     {"load_optimizer_states": False}])
 def test_load_master_alone(tmp_path, kwargs):

@@ -16,10 +16,13 @@ import pytest
 
 import deepspeed_tpu_torch
 from deepspeed_tpu.runtime.config import DeepSpeedConfig as JaxConfig
+from deepspeed_tpu.runtime.config import \
+    DeepSpeedConfigError as JaxConfigError
 from deepspeed_tpu_torch.models.transformer import (CausalTransformerLM,
                                                     TransformerConfig)
 from deepspeed_tpu_torch.runtime.config import (KNOWN_TOP_LEVEL_KEYS,
-                                                DeepSpeedConfig)
+                                                DeepSpeedConfig,
+                                                DeepSpeedConfigError)
 from deepspeed_tpu_torch.utils.logging import logger
 
 BASE = {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
@@ -40,7 +43,7 @@ REFUSED = [
     ({"comms_logger": {"enabled": True}}, "A17"),
     ({"elasticity": {"enabled": True, "max_train_batch_size": 8}}, "A17"),
     ({"autotuning": {"overlay_path": "overlay.json"}}, "A17"),
-    ({"activation_checkpointing": {"partition_activations": True}}, "A6"),
+    ({"activation_checkpointing": {"cpu_checkpointing": True}}, "A12"),
     ({"memory": {"placement_policy": "nvme", "nvme_dir": "d"}}, "A12"),
     ({"mesh": {"dp": 2}}, "A8"),
     ({"mesh": {"fsdp": 4}}, "A8"),
@@ -86,6 +89,10 @@ def test_switched_off_block_passes(block):
 # blocks once refused that the engine now runs, or that the JAX engine
 # parses and never reads (checkpoint.load_universal)
 PORTED = {
+    "activation_checkpointing": {"activation_checkpointing": {
+        "partition_activations": True, "contiguous_memory_optimization": True,
+        "number_checkpoints": 2, "policy": "dots_saveable"}},
+    "grad_accum_dtype": {"data_types": {"grad_accum_dtype": "bf16"}},
     "load_universal": {"checkpoint": {"load_universal": True}},
     "checkpoint_engine": {"checkpoint": {"engine": "nebula"}},
     "resilience": {"resilience": {
@@ -101,9 +108,31 @@ def test_ported_block_passes_as_in_jax(name):
     block = PORTED[name]
     cfg = DeepSpeedConfig({**BASE, **block})
     want = JaxConfig({**BASE, **block})
-    for attr in ("checkpoint_config", "resilience_config"):
+    for attr in ("checkpoint_config", "resilience_config",
+                 "activation_checkpointing_config"):
         assert getattr(cfg, attr).to_dict() == \
             getattr(want, attr).to_dict(), attr
+    assert cfg.grad_accum_dtype == want.grad_accum_dtype
+
+
+@pytest.mark.parametrize("stage,raises", [(0, False), (1, True), (2, False),
+                                          (3, True)])
+def test_fp16_master_weights_and_grads_as_in_jax(stage, raises):
+    """The JAX config's check: with fp16 and ZeRO stage > 0 the flag is
+    refused unless the stage is 2; otherwise it changes nothing (the JAX
+    engine never reads it)."""
+    block = {**BASE, "fp16": {"enabled": True,
+                              "fp16_master_weights_and_grads": True},
+             "zero_optimization": {"stage": stage}}
+    if raises:
+        with pytest.raises(DeepSpeedConfigError, match="ZeRO-2"):
+            DeepSpeedConfig(block)
+        with pytest.raises(JaxConfigError, match="ZeRO-2"):
+            JaxConfig(block)
+    else:
+        assert DeepSpeedConfig(block).fp16_config.\
+            fp16_master_weights_and_grads
+        JaxConfig(block)
 
 
 @pytest.mark.parametrize("block", [

@@ -412,10 +412,6 @@ def test_ds_bench_cli_bf16_table_on_cpu(tiny_bench, capsys):
 @pytest.mark.parametrize("flags,exc,match", [
     (["--offload", "cpu"], NotImplementedError, "ROADMAP A12"),
     (["--offload-param", "nvme"], NotImplementedError, "ROADMAP A12"),
-    (["--moment-dtype", "bfloat16"], NotImplementedError, "ROADMAP A7"),
-    (["--grad-accum-dtype", "bfloat16"], NotImplementedError, "ROADMAP A7"),
-    (["--remat-policy", "everything_saveable"], NotImplementedError,
-     "ROADMAP A6"),
     (["--attn-block-q", "16"], ValueError, "fixed"),
 ])
 def test_ds_bench_cli_refuses_unported_flags(tiny_bench, flags, exc, match):

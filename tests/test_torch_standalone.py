@@ -113,10 +113,14 @@ def test_wrappers_refuse_cpu_tensors():
     hyper = adam_hyper(st.count, 1e-3, 0.9, 0.999)
     with pytest.raises(ValueError, match="CUDA"):
         fused_adam_cuda(flat, flat, flat, flat, hyper,
-                        torch.zeros((), dtype=torch.int32), 0.999, 1e-8, 0.0,
-                        True)
+                        torch.zeros((), dtype=torch.int32), st.count, 0.999,
+                        1e-8, 0.0, True)
     with pytest.raises(ValueError, match="CUDA"):
         fused_adam(flat, flat, st, hyper, backend="cuda")
+    # its bf16-moment form too (bf16 gradients and moments)
+    st16 = init_state(flat, torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_adam(flat, flat.bfloat16(), st16, hyper, backend="cuda")
 
 
 def test_biased_and_sparse_wrappers_refuse_cpu_tensors():

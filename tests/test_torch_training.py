@@ -319,21 +319,20 @@ def test_three_call_api_matches_jax_at_gas3():
                                    atol=2e-5, err_msg=key)
 
 
-# fp16 and the scheduler block train now; what of them is still unported
-# raises: fp16 master weights and grads, bf16 moments under a schedule, and
-# a client optimizer (the last column: initialize's other arguments)
+# what the training config still cannot run raises: offload and host
+# Adam, activations offloaded to the host, a mesh wider than one rank (the
+# last column: initialize's other arguments).  fp16 master weights, bf16
+# moments and gradients, every other optimizer and client optimizers train
+# since ROADMAP A6 / A7 (tests/test_torch_optimizers.py,
+# test_torch_moment_dtype.py, test_torch_activation_checkpointing.py)
 @pytest.mark.parametrize("block,item,client", [
-    ({"fp16": {"enabled": True, "fp16_master_weights_and_grads": True}},
-     "A7", {}),
-    ({"scheduler": {"type": "WarmupLR", "params": {}}}, "A7",
-     {"optimizer": torch.optim.SGD}),
     ({"zero_optimization": {"stage": 2,
                             "offload_optimizer": {"device": "cpu"}}}, "A12",
      {}),
-    ({"optimizer": {"type": "AdamW",
-                    "params": {"moment_dtype": "bfloat16"}}}, "A7", {}),
-    ({"optimizer": {"type": "Lamb", "params": {}}}, "A7", {}),
-    ({"data_types": {"grad_accum_dtype": "bf16"}}, "A7", {}),
+    ({"optimizer": {"type": "CPUAdam", "params": {}}}, "A12",
+     {"optimizer": torch.optim.SGD}),
+    ({"activation_checkpointing": {"cpu_checkpointing": True}}, "A12", {}),
+    ({"mesh": {"fsdp": 2}}, "A8", {}),
 ])
 def test_unported_blocks_raise(block, item, client):
     cfg = {"train_micro_batch_size_per_gpu": 1, **block}
