@@ -103,8 +103,8 @@ kernels.  Phases:
              group 8) the same way, through B5 at head dim 64
   5 serve    create_serving_engine(max_batch=8, page_size=128,
              max_seq=2048).generate on 12 mixed-length prompts
-    serve-features  bf16, Llama-2-7B at 16 of its 32 layers with the
-             TinyLlama draft at 11 of 22 (FEATURES_LAYERS_LLAMA): (a) the
+    serve-features  bf16, Llama-2-7B at 8 of its 32 layers with the
+             TinyLlama draft at 6 of 22 (FEATURES_LAYERS_LLAMA): (a) the
              prefix cache on 12 prompts
              sharing a 1024-token prefix, (b) the chunked scheduler (chunks
              of 256, SLO classes) on those 12 and an 1800-token prompt,
@@ -123,9 +123,9 @@ kernels.  Phases:
              and 5 in bf16; exact launches, plain versions 0
     serve-d256  a Gemma-7B shape (28 layers, 16 heads of 256, d 3072,
              vocab 256000, GeGLU, embedding scale sqrt(d), tied) through
-             phases 4 and 5 in bf16 and serve-features (a)-(d) at 14 of
+             phases 4 and 5 in bf16 and serve-features (a)-(d) at 7 of
              its layers with a Gemma-2B shape (18 layers, 8 heads of 256
-             over one kv head) at 9 as (c)'s draft (FEATURES_LAYERS_GEMMA);
+             over one kv head) at 5 as (c)'s draft (FEATURES_LAYERS_GEMMA);
              Gemma-2B through phases 4 and 5 in bf16 and
              fp16 (tokens vs bf16 by the divergence rule); exact
              launches, plain versions 0
@@ -195,8 +195,25 @@ kernels.  Phases:
              moments and gradients, bf16 gradients, and LAMB; (f) a user
              block through activation_checkpointing.checkpoint under
              dots_saveable, bit for bit the direct call's
+    train-offload  the optimizer on the host (ZeRO-Offload): (a) gpt_350m
+             at the CLI's shape and full depth, 3 steps from one seed,
+             with and without offload_optimizer cpu: the first loss bit
+             for bit, then losses and grad norms within 1e-3, B1 / B2
+             launches exact and equal, no B3, the host Adam a piece at a
+             time; (b) the same with nvme (the moments swapped to files
+             under .tmp/): the master's crc32 the cpu run's, the swap
+             dir's fsck committed, uses_io_uring printed; (c) ds_bench
+             train --model gpt_2_7b --offload cpu --steps 2: its peak at
+             least 25 GB under phase 7's run without --offload, the host
+             step split (host Adam, D2H, H2D GB/s); (d) the Gemma-7B shape
+             (FEATURES_LAYERS_GEMMA7_OFFLOAD of its 28 layers) with bf16
+             gradients, micro 2 x gas 4 x seq 2048, one step: finite
+             loss, exact launches; then ds_bench cpu_adam, aio and
+             offload at their defaults.  The host's facts (CPU, RAM,
+             free disk, copy rate) print on an early line
     ckpt     training that survives a restart, gpt_1b through
-             initialize(training_data=...) at full width and depth, micro
+             initialize(training_data=...) at full width, CKPT_LAYERS of
+             its 18 layers, micro
              2 x gas 4, bf16, data through train_batch(data_iter=...): (a)
              2 steps, save_checkpoint with one injected write failure
              (committed, checksummed), (b) the same state through the async
@@ -695,15 +712,28 @@ def phase_sass():
     tensor-core kernels; fails if one lacks either or an instantiation is
     missing."""
     import shutil
+    import tempfile
     from deepspeed_tpu_torch.ops import op_builder
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    # one cuobjdump a library, all started together, each into a file
+    sass = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        for source in dict.fromkeys(s for s, _ in TENSOR_CORE_KERNELS):
+            out = open(os.path.join(tmp, source), "w+")
+            procs[source] = (subprocess.Popen(
+                [tool, "-sass", str(op_builder._lib_path(source))],
+                stdout=out, stderr=subprocess.STDOUT, text=True), out)
+        for source, (proc, out) in procs.items():
+            proc.wait(timeout=300)
+            out.seek(0)
+            sass[source] = out.read()
+            out.close()
+            if proc.returncode != 0:
+                fail(f"cuobjdump -sass {source}: {sass[source][:300]}")
     for source, kernel in TENSOR_CORE_KERNELS:
         lib = op_builder._lib_path(source)
-        run = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                             text=True, timeout=300)
-        if run.returncode != 0:
-            fail(f"cuobjdump -sass {lib.name}: {run.stderr.strip()[:300]}")
-        counts = sass_counts(run.stdout, kernel)
+        counts = sass_counts(sass[source], kernel)
         for args, (n_mma, n_tma, n_bar) in sorted(counts.items()):
             phase("build", f"SASS {kernel}{list(args)}: {n_mma} HGMMA, "
                   f"{n_tma} UTMALDG, {n_bar} WARPGROUP.DEPBAR")
@@ -2759,13 +2789,15 @@ DRAFT_SHAPE = dict(vocab_size=32000, hidden_size=2048, n_layers=22,
 SPEC_GAMMA = 4
 # serve-features' depth (target, draft), cut so that the whole smoke stays
 # under 900 s (a run of the uncut phases read 919.4 s; with Gemma-2B
-# training added, 881.3 s): the Llama-2-7B run at half of its 32 layers
-# with TinyLlama's 22 at half, the gpt_2_7b run at a quarter of its 32
-# with gpt_350m's 24 at a quarter, the Gemma-7B run at half of its 28 with
-# Gemma-2B's 18 at half.  Every form each run drives still runs.
-FEATURES_LAYERS_LLAMA = (16, 11)
+# training added, 881.3 s): the gpt_2_7b run at a quarter of its 32
+# layers with gpt_350m's 24 at a quarter; since PR 25 (the smoke passed
+# its 1200 s on a slow host with the offload phase added) the Llama-2-7B
+# run at a quarter of its 32 with TinyLlama's 22 at about a quarter, the
+# Gemma-7B run at a quarter of its 28 with Gemma-2B's 18 at about a
+# quarter (before: half each).  Every form each run drives still runs.
+FEATURES_LAYERS_LLAMA = (8, 6)
 FEATURES_LAYERS_D80 = (8, 6)
-FEATURES_LAYERS_GEMMA = (14, 9)
+FEATURES_LAYERS_GEMMA = (7, 5)
 CHUNK_TOKENS = 256
 DECODE_CHUNK = 4
 PREFIX_TOKENS = 1024          # the shared system prefix of run (a)
@@ -3907,7 +3939,8 @@ FP16_CLI_MODEL = "gpt_760m"
 # through initialize(...).train_batch, random weights from a seed (the
 # embedding as build_model draws it for Gemma); nothing cut.  Gemma-7B's
 # 8.54 B parameters would need ~137 GB of fp32 master weights, gradients
-# and moments: past one card until offload (ROADMAP A12).
+# and moments on the card: it trains with its optimizer offloaded (phase
+# train-offload (d)).
 GEMMA_TRAIN = dict(GEMMA_2B, remat=True)
 GEMMA_TRAIN_SEQ = 2048
 TRAIN_STEPS = 4            # timed steps after run_benchmark's warm-up step
@@ -5387,8 +5420,12 @@ def phase_sparse_timing(err, err16):
 
 # ----------------------------------------------------------------------
 # phase ckpt: training that survives a restart (the module docstring's
-# "ckpt").  gpt_1b at full width and depth, micro TRAIN_BATCH x gas
-# TRAIN_GAS, seq TRAIN_SEQ, bf16, as in phase 7.
+# "ckpt").  gpt_1b at full width, micro TRAIN_BATCH x gas TRAIN_GAS, seq
+# TRAIN_SEQ, bf16, as in phase 7, cut to CKPT_LAYERS of its 18 layers
+# since PR 25: a 4.9 GB tag where the full depth's 12.13 GB took the
+# phase 150-179 s, and the smoke passed its 1200 s on a slow host (PERF.md
+# section 4).
+CKPT_LAYERS = 6
 CKPT_SAMPLES = 16          # token sequences of the phase's dataset
 CKPT_STEPS = 2             # train_batch calls before the save, and after
 CKPT_SEED = 21             # the engine's init (the new process: +1)
@@ -5857,6 +5894,397 @@ def _free_if(device):
 
 
 # ----------------------------------------------------------------------
+# phase train-offload: ZeRO-Offload and ZeRO-Infinity's optimizer swap
+# (ROADMAP A12, first part).  (a) gpt_350m at the CLI's shape (micro 8,
+# seq 1024, bf16, dots_saveable), full depth, from one seed and the same
+# batches, with and without offload_optimizer cpu; (b) the same with nvme
+# under OFFLOAD_SWAP_DIR; (c) ``ds_bench train --model gpt_2_7b --offload
+# cpu`` as typed; (d) a Gemma-7B shape on one card; then the three host
+# benches at the JAX package's defaults.
+OFFLOAD_MODEL, OFFLOAD_STEPS = CLI_DEFAULTS["model"], 3
+OFFLOAD_REL_TOL = E2E_TRAIN_REL_TOL        # phase 7's 1e-3
+OFFLOAD_SWAP_DIR = os.path.join(REPO, ".tmp", "offload_swap")
+# free disk the nvme run needs: its two fp32 moments with a tenth to spare
+OFFLOAD_DISK_FACTOR = 1.1
+# cut to 2 timed steps (the CLI's default 10 cost ~25 s more): the
+# smoke passed 1000 s (PERF.md section 4)
+OFFLOAD_CLI_STEPS = 2
+OFFLOAD_CLI_ARGV = ["--model", "gpt_2_7b", "--offload", "cpu", "--steps",
+                    str(OFFLOAD_CLI_STEPS)]
+# The Gemma-7B shape (GEMMA_7B: 8.54 B parameters, 12 B a parameter of
+# fp32 master and moments on the host, 102.5 GB) with per-layer remat,
+# bf16 gradients (6 B a parameter on the card), micro 2 x gas 4 x seq
+# 2048, GEMMA7_OFFLOAD_STEPS steps (one: the smoke passed 1000 s).
+# FEATURES_LAYERS_GEMMA7_OFFLOAD: its depth, cut to what the host's RAM
+# holds with 15 GB to spare.  The card's host reads MemTotal 108.4 GB and
+# MemAvailable 103.6 GB, but the machine allows a run 96 GiB (103.1 GB):
+# at 23 layers (7.15 B, 85.8 GB of master and moments) the run was ended
+# for memory; at 20 (6.32 B, 75.9 GB) the whole smoke's process held 13.4
+# GB before the run and 89.4 GB after its init, 13.7 GB under the limit;
+# 19 layers (6.05 B, 72.6 GB) leave ~17 GB (PERF.md section 4)
+FEATURES_LAYERS_GEMMA7_OFFLOAD = 19
+GEMMA7_OFFLOAD_STEPS = 1
+HOST_BENCHES = (["cpu_adam", "--numel", "50000000"],
+                ["aio", "--size-mb", "256"],
+                ["offload", "--numel", "100000000"])
+
+
+def _meminfo():
+    """{key: bytes} of /proc/meminfo."""
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, val = line.split(":", 1)
+            parts = val.split()
+            out[key] = int(parts[0]) * (1024 if parts[1:] == ["kB"] else 1)
+    return out
+
+
+def _rss_gb():
+    """This process's resident set now (VmRSS of /proc/self/status) and
+    at its peak (getrusage's maxrss), GB."""
+    import resource
+    now = None
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                now = int(line.split()[1]) * 1024 / 1e9
+    return now, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * \
+        1024 / 1e9
+
+
+def phase_host():
+    """The host's facts, on an early line: CPU model and count, RAM total
+    and available, free disk under OFFLOAD_SWAP_DIR's parent, and the host's copy rate (bytes read and
+    written by one torch copy of 1 GiB, the best of 3).  Returns them."""
+    import shutil
+    import torch
+    from deepspeed_tpu_torch.ops.host_builder import cpu_model
+    os.makedirs(os.path.dirname(OFFLOAD_SWAP_DIR), exist_ok=True)
+    mem = _meminfo()
+    src = torch.ones(1 << 28)
+    dst = torch.empty_like(src)
+    dst.copy_(src)
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        dst.copy_(src)
+        best = min(best, time.perf_counter() - t0)
+    facts = {"cpu": cpu_model(), "cpus": os.cpu_count(),
+             "mem_total_gb": mem["MemTotal"] / 1e9,
+             "mem_available_gb": mem["MemAvailable"] / 1e9,
+
+             "disk_free_gb": shutil.disk_usage(
+                 os.path.dirname(OFFLOAD_SWAP_DIR)).free / 1e9,
+             "copy_gbps": 2 * src.numel() * 4 / best / 1e9}
+    phase("host", f"{facts['cpu']} | {facts['cpus']} CPUs | MemTotal "
+          f"{facts['mem_total_gb']:.1f} GB, MemAvailable "
+          f"{facts['mem_available_gb']:.1f} GB | free disk under "
+          f"{os.path.dirname(OFFLOAD_SWAP_DIR)}: "
+          f"{facts['disk_free_gb']:.1f} GB | host copy "
+          f"{facts['copy_gbps']:.1f} GB/s (read + write, 1 GiB)")
+    return facts
+
+
+def _crc(t):
+    """crc32 of ``t``'s bytes (a host tensor's read in place)."""
+    import zlib
+    return zlib.crc32(t.detach().cpu().numpy())
+
+
+def _offload_run(cfg, conf, batches, label, crc=True):
+    """``initialize`` the model of ``cfg`` (seed 0) with ``conf`` and take
+    a train_batch per batch, counters read around them.  Returns the
+    record: losses, grad norms, counts, host Adam calls, the engine's
+    offload facts, the master's crc32 (``crc``) and the peak device GB."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer import CausalTransformerLM
+    from deepspeed_tpu_torch.ops import cpu_adam
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    rss = [_rss_gb()[0]]
+    t0 = time.time()
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=scale_embedding(CausalTransformerLM(cfg, device="cuda")
+                              .init(0)), config=conf)
+    torch.cuda.synchronize()
+    t_init = time.time() - t0
+    rss.append(_rss_gb()[0])
+    reset_counters()
+    cpu_adam.adam_update.calls = 0
+    losses, norms, walls = [], [], []
+    for b in batches:
+        t0 = time.time()
+        losses.append(float(engine.train_batch(batch=b)))
+        torch.cuda.synchronize()
+        walls.append((time.time() - t0) * 1e3)
+        norms.append(engine.get_global_grad_norm())
+        rss.append(_rss_gb()[0])
+    r = {"label": label, "losses": losses, "norms": norms,
+         "walls": walls, "counts": read_counters(), "rss_gb": rss,
+         "adam_calls": cpu_adam.adam_update.calls, "init_s": t_init,
+         "master_crc": _crc(engine.master) if crc else None,
+         "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    off = engine._offload
+    if off is not None:
+        r.update(subgroups=len(off.subgroups),
+                 subgroup_updates=off.subgroup_updates,
+                 pieces=off.last_step["pieces"], last=dict(off.last_step))
+        if off.swapper is not None:
+            from deepspeed_tpu_torch.runtime.resilience import validate_tag
+            st = off.swapper.store
+            r.update(uses_io_uring=st._reader.uses_io_uring(),
+                     swap_dir=off.swapper.swap_dir,
+                     fsck=validate_tag(off.swapper.swap_dir)[0],
+                     store=st.stats())
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train-offload {label}: non-finite loss {losses}")
+    del engine
+    _free()
+    return r
+
+
+def _rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def phase_offload_vs_device(facts):
+    """(a) and (b): gpt_350m at full depth from one seed and the same
+    OFFLOAD_STEPS batches on the device path, with offload_optimizer cpu
+    and with nvme.  The first loss bit for bit equal; later losses and
+    grad norms within OFFLOAD_REL_TOL; B1 / B2 launches exact and equal,
+    no B3 under offload, the host Adam once a sub-group a step; the nvme
+    master's crc32 the cpu one's.  Returns the three records."""
+    import shutil
+    import numpy as np
+    from deepspeed_tpu_torch.benchmarks.training import (ds_config,
+                                                         model_config)
+    d = CLI_DEFAULTS
+    cfg = model_config(OFFLOAD_MODEL, d["seq"])
+    need = OFFLOAD_DISK_FACTOR * 8 * cfg.num_params() / 1e9
+    if facts["disk_free_gb"] < need:
+        fail(f"train-offload (b): {facts['disk_free_gb']:.1f} GB free "
+             f"under {os.path.dirname(OFFLOAD_SWAP_DIR)}, {need:.1f} GB "
+             f"needed")
+    rng = np.random.default_rng(21)
+    batches = [{"input_ids": rng.integers(0, cfg.vocab_size,
+                                          (d["batch"], d["seq"]))}
+               for _ in range(OFFLOAD_STEPS)]
+    shutil.rmtree(OFFLOAD_SWAP_DIR, ignore_errors=True)
+    nvme = ds_config(d["batch"], d["gas"], offload="nvme")
+    nvme["zero_optimization"]["offload_optimizer"]["nvme_path"] = \
+        OFFLOAD_SWAP_DIR
+    runs = [_offload_run(cfg, conf, batches, label) for label, conf in (
+        ("device", ds_config(d["batch"], d["gas"])),
+        ("cpu", ds_config(d["batch"], d["gas"], offload="cpu")),
+        ("nvme", nvme))]
+    shutil.rmtree(OFFLOAD_SWAP_DIR, ignore_errors=True)
+    dev, cpu, nv = runs
+    check_train_launches(dev["counts"], cfg, d["gas"], OFFLOAD_STEPS,
+                         "train-offload (a) device path")
+    for r in (cpu, nv):
+        r["launched"] = check_train_launches(
+            r["counts"], cfg, d["gas"], OFFLOAD_STEPS,
+            f"train-offload {r['label']}", adam=False)
+        if r["subgroup_updates"] != OFFLOAD_STEPS * r["subgroups"] or \
+                r["adam_calls"] != OFFLOAD_STEPS * r["pieces"]:
+            fail(f"train-offload {r['label']}: {r['subgroup_updates']} "
+                 f"sub-group updates, {r['adam_calls']} host Adam calls; "
+                 f"expected {OFFLOAD_STEPS} x {r['subgroups']} and "
+                 f"{OFFLOAD_STEPS} x {r['pieces']}")
+    if cpu["losses"][0] != dev["losses"][0]:
+        fail(f"train-offload (a): first loss {cpu['losses'][0]!r} under "
+             f"offload, {dev['losses'][0]!r} on the device path")
+    rels = [max(_rel(a, b), _rel(na, nb)) for a, b, na, nb in zip(
+        cpu["losses"], dev["losses"], cpu["norms"], dev["norms"])]
+    if max(rels) > OFFLOAD_REL_TOL:
+        fail(f"train-offload (a): losses {cpu['losses']} / {dev['losses']},"
+             f" grad norms {cpu['norms']} / {dev['norms']}: rel "
+             f"{max(rels):.2e} > {OFFLOAD_REL_TOL}")
+    if nv["master_crc"] != cpu["master_crc"] or nv["fsck"] != "committed":
+        fail(f"train-offload (b): nvme master crc32 {nv['master_crc']:#x} "
+             f"vs cpu {cpu['master_crc']:#x}, swap dir fsck {nv['fsck']}")
+    phase("train-offload", f"(a) {OFFLOAD_MODEL} {cfg.n_layers} layers, "
+          f"{cfg.num_params() / 1e9:.3f} B params, micro {d['batch']} x seq "
+          f"{d['seq']}, bf16, {OFFLOAD_STEPS} steps: losses device "
+          f"{dev['losses']} vs offload cpu {cpu['losses']} (first bit for "
+          f"bit, max rel {max(rels):.2e} with the grad norms, tol "
+          f"{OFFLOAD_REL_TOL}); grad norms "
+          f"{[round(x, 5) for x in dev['norms']]} / "
+          f"{[round(x, 5) for x in cpu['norms']]}; launches "
+          f"{cpu['launched']}, as the device path's, B3 "
+          f"{dev['counts']['fused_adam']} vs 0; host Adam "
+          f"{cpu['adam_calls']} calls ({cpu['subgroups']} sub-group x "
+          f"{cpu['pieces']} pieces a step); peak {dev['peak_gb']:.1f} vs "
+          f"{cpu['peak_gb']:.1f} GB; train_batch wall ms "
+          f"{[round(x, 1) for x in dev['walls']]} vs "
+          f"{[round(x, 1) for x in cpu['walls']]}")
+    last = cpu["last"]
+    phase("train-offload", f"(a) host step of the last call: wall "
+          f"{last['wall_s'] * 1e3:.1f} ms, host Adam {last['update_s'] * 1e3:.1f}"
+          f" ms, host waits {last['host_wait_s'] * 1e3:.1f} ms; D2H "
+          f"{last['d2h_bytes'] / 1e9:.3f} GB in {last['d2h_ms']:.1f} ms "
+          f"({last['d2h_gbps']:.1f} GB/s), H2D {last['h2d_bytes'] / 1e9:.3f}"
+          f" GB in {last['h2d_ms']:.1f} ms ({last['h2d_gbps']:.1f} GB/s)")
+    nl = nv["last"]
+    phase("train-offload", f"(b) nvme under {OFFLOAD_SWAP_DIR}: uses_io_uring "
+          f"{nv['uses_io_uring']}; master crc32 {nv['master_crc']:#010x} = "
+          f"cpu's; swap dir fsck {nv['fsck']}; last step wall "
+          f"{nl['wall_s'] * 1e3:.1f} ms, swap read {nl['swap_read_bytes'] / 1e9:.3f}"
+          f" GB + written {nl['swap_write_bytes'] / 1e9:.3f} GB, "
+          f"{(nl['swap_read_bytes'] + nl['swap_write_bytes']) / nl['wall_s'] / 1e9:.2f}"
+          f" GB/s over the host step; train_batch wall ms "
+          f"{[round(x, 1) for x in nv['walls']]}")
+    return runs
+
+
+def phase_offload_cli(base, base_dev_ms):
+    """(c) ``ds_bench train`` with OFFLOAD_CLI_ARGV, its last train_batch
+    profiled: its printout, exact launches without B3,
+    its wall and device ms a train_batch, the host step's split and the
+    peak device GB, beside phase 7's run of the same command without
+    ``--offload`` (``base``: its result; ``base_dev_ms``: its profiled
+    train_batch).  Returns (result, counts)."""
+    import contextlib
+    import io
+    import torch
+    from deepspeed_tpu_torch.benchmarks.training import main, model_config
+    from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
+    d = dict(CLI_DEFAULTS, model="gpt_2_7b", steps=OFFLOAD_CLI_STEPS)
+    cfg = model_config(d["model"], d["seq"])
+    calls = d["steps"] + 1
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    reset_counters()
+    real, seen, prof = DeepSpeedEngine.train_batch, [], {}
+
+    def train_batch(engine, *args, **kwargs):
+        seen.append(1)
+        if len(seen) < calls:
+            return real(engine, *args, **kwargs)
+        prof["ms"], prof["top"], _ = profile_device(
+            lambda: prof.setdefault("loss", real(engine, *args, **kwargs)),
+            1)
+        return prof["loss"]
+    DeepSpeedEngine.train_batch = train_batch
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = main(OFFLOAD_CLI_ARGV)
+    finally:
+        DeepSpeedEngine.train_batch = real
+    counts = read_counters()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    _free()
+    phase("train-offload", f"(c) ds_bench train {' '.join(OFFLOAD_CLI_ARGV)}"
+          f": " + " | ".join(buf.getvalue().split()))
+    if not all(math.isfinite(x) for x in out["losses"]):
+        fail(f"train-offload (c): non-finite loss {out['losses']}")
+    check_train_launches(counts, cfg, d["gas"], calls,
+                         "train-offload (c)", adam=False)
+    last, dev_ms = out["offload_step"], prof["ms"]
+    phase("train-offload", f"(c) gpt_2_7b offload cpu: "
+          f"{out['ms_per_train_batch']:.1f} ms per train_batch on the wall "
+          f"(the last of {calls} calls profiled), device {dev_ms:.1f} ms "
+          f"that train_batch, busy share "
+          f"{dev_ms / out['ms_per_train_batch']:.3f}; host step of the last "
+          f"call {last['wall_s'] * 1e3:.1f} ms: host Adam "
+          f"{last['update_s'] * 1e3:.1f} ms, host waits "
+          f"{last['host_wait_s'] * 1e3:.1f} ms, D2H {last['d2h_gbps']:.1f} "
+          f"GB/s, H2D {last['h2d_gbps']:.1f} GB/s; peak "
+          f"{out['peak_gb']:.1f} GB | without --offload (phase 7): "
+          f"{base['ms_per_train_batch']:.1f} ms a train_batch, device "
+          f"{base_dev_ms:.1f} ms, peak {base['peak_gb']:.1f} GB")
+    if out["peak_gb"] > base["peak_gb"] - 25:
+        fail(f"train-offload (c): peak {out['peak_gb']:.1f} GB with "
+             f"--offload cpu, {base['peak_gb']:.1f} GB without: less than "
+             f"25 GB saved")
+    for kname, k_ms in prof["top"]:
+        phase("train-offload", f"  gpt_2_7b offload device ms/train_batch "
+              f"{k_ms:.3f}  {kname[:90]}")
+    return out, counts
+
+
+def phase_offload_gemma(facts):
+    """(d) the Gemma-7B shape at FEATURES_LAYERS_GEMMA7_OFFLOAD layers with
+    offload_optimizer cpu and bf16 gradients, micro 2 x gas 4 x seq 2048,
+    GEMMA7_OFFLOAD_STEPS steps on fresh random batches: finite losses,
+    exact B1 / B2 launches and no B3.  Returns the record."""
+    import numpy as np
+    from deepspeed_tpu_torch.benchmarks.training import ds_config
+    from deepspeed_tpu_torch.models.transformer import TransformerConfig
+    full = TransformerConfig(**dict(GEMMA_7B, remat=True))
+    if full.num_params() != GEMMA_PARAMS["Gemma-7B"] or full.head_dim != 256:
+        fail(f"Gemma-7B shape: {full.num_params()} parameters, head dim "
+             f"{full.head_dim}")
+    cfg = dataclasses.replace(full, n_layers=FEATURES_LAYERS_GEMMA7_OFFLOAD)
+    host_gb = 12 * cfg.num_params() / 1e9
+    batch, gas = 2, 4
+    rng = np.random.default_rng(23)
+    batches = [{"input_ids": rng.integers(0, cfg.vocab_size,
+                                          (gas, batch, GEMMA_TRAIN_SEQ))}
+               for _ in range(GEMMA7_OFFLOAD_STEPS)]
+    r = _offload_run(cfg, ds_config(batch, gas, offload="cpu",
+                                    grad_accum_dtype="bfloat16"),
+                     batches, "Gemma-7B", crc=False)
+    check_train_launches(r["counts"], cfg, gas, GEMMA7_OFFLOAD_STEPS,
+                         "train-offload (d)", adam=False)
+    last = r["last"]
+    phase("train-offload", f"(d) Gemma-7B shape, {cfg.n_layers} of "
+          f"{full.n_layers} layers (16 heads of 256 over d 3072, vocab "
+          f"256000, GeGLU, tied), {cfg.num_params() / 1e9:.3f} B params "
+          f"({host_gb:.1f} GB of host master and moments; MemAvailable "
+          f"{facts['mem_available_gb']:.1f} GB at the start; the process's "
+          f"RSS before the run, after its init and after each step "
+          f"{[round(x, 1) for x in r['rss_gb']]} GB, its peak so far "
+          f"{_rss_gb()[1]:.1f} GB), offload cpu, bf16 gradients, micro "
+          f"{batch} x gas {gas} x seq {GEMMA_TRAIN_SEQ}: init {r['init_s']:.1f} s, "
+          f"losses {[round(x, 4) for x in r['losses']]}, train_batch wall "
+          f"ms {[round(x, 1) for x in r['walls']]}, peak {r['peak_gb']:.1f} "
+          f"GB; host step of the last call {last['wall_s'] * 1e3:.1f} ms: "
+          f"host Adam {last['update_s'] * 1e3:.1f} ms, D2H "
+          f"{last['d2h_gbps']:.1f} GB/s, H2D {last['h2d_gbps']:.1f} GB/s")
+    return r
+
+
+def phase_host_benches():
+    """``ds_bench cpu_adam``, ``aio`` and ``offload`` at the JAX package's
+    defaults, their JSON lines printed."""
+    import contextlib
+    import io
+    from deepspeed_tpu_torch.benchmarks.__main__ import main as ds_bench
+    for argv in HOST_BENCHES:
+        buf = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            ds_bench(argv)
+        for line in buf.getvalue().splitlines():
+            phase("train-offload", f"ds_bench {' '.join(argv)}: {line}")
+        phase("train-offload", f"ds_bench {argv[0]}: "
+              f"{time.time() - t0:.1f} s")
+
+
+def phase_train_offload(facts, base, base_dev_ms):
+    """Phase train-offload, (a)-(d) and the host benches.  Returns
+    {head dim: the B1 / B2 launches of its runs} and the device path's
+    B3 launches."""
+    t0 = time.time()
+    runs = phase_offload_vs_device(facts)
+    _, cli_counts = phase_offload_cli(base, base_dev_ms)
+    gemma = phase_offload_gemma(facts)
+    phase_host_benches()
+    flash = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+    by_d = {64: {k: sum(r["counts"][k] for r in runs) for k in flash},
+            80: {k: cli_counts[k] for k in flash},
+            256: {k: gemma["counts"][k] for k in flash}}
+    phase("train-offload", f"done in {time.time() - t0:.1f} s; B1 / B2 "
+          f"launches by head dim {by_d}")
+    return by_d, runs[0]["counts"]["fused_adam"]
+
+
+# ----------------------------------------------------------------------
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -5880,6 +6308,7 @@ def main():
     sys.path.insert(0, REPO)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    host = phase_host()
 
     phase_build()
     phase_sass()
@@ -6140,7 +6569,7 @@ def main():
     # kernels' D=64 forms), --model gpt_760m (D=96) and --model gpt_2_7b
     # (D=80), each counted on its own; B3's launches join its row, the
     # flash forms' go to their head dim's rows
-    cli_counts, cli_runs = {}, {}
+    cli_counts, cli_runs, cli_devs = {}, {}, {}
     for model in (None, "gpt_760m", "gpt_2_7b"):
         label = cli_label(model)
         # phase (d): the default run's engine logs the timers' lines
@@ -6148,6 +6577,7 @@ def main():
             phase_train_cli(model, timers=model is None)
         cli_counts[cli["model"]] = counts_m
         cli_runs[cli["model"]] = (cli, counts_m)
+        cli_devs[cli["model"]] = cli_dev
         launches["fused_adam"] += counts_m["fused_adam"]
         phase("train", f"ds_bench train {label}: {cli['model']}, "
               f"{cli['n_layers']} layers, {cli['n_params'] / 1e9:.3f} B "
@@ -6350,9 +6780,15 @@ def main():
     phase("train-a6a7", f"done in {time.time() - t0:.1f} s; B3 launches "
           f"by form {b3_forms}")
 
+    # ---- phase train-offload: the optimizer on the host (A12) ---------
+    offload_flash, offload_b3 = phase_train_offload(
+        host, cli_runs["gpt_2_7b"][0], cli_devs["gpt_2_7b"])
+    launches["fused_adam"] += offload_b3
+
     # ---- phase ckpt: save, a new process resumes, serve the tag --------
     from deepspeed_tpu_torch.benchmarks.training import model_config
-    ckpt_cfg = model_config(TRAIN_MODEL, TRAIN_SEQ)
+    ckpt_cfg = dataclasses.replace(model_config(TRAIN_MODEL, TRAIN_SEQ),
+                                   n_layers=CKPT_LAYERS)
     ckpt_counts, _ = phase_ckpt(
         ckpt_cfg, dataclasses.replace(ckpt_cfg, n_layers=CKPT_SMALL_LAYERS))
     for k in launches:
@@ -6517,6 +6953,12 @@ def main():
         launches[name] = gemma["counts"][base]
         timing[f"{name}_fp16"] = timing[(name, "fp16")]
         launches[f"{name}_fp16"] = fp16_e2e_counts["gemma_2b"][base]
+    # phase train-offload's B1 / B2 launches join their head dim's rows:
+    # gpt_350m's three runs D=64, gpt_2_7b's CLI run D=80, the Gemma-7B
+    # shape's D=256
+    for D, counts_d in offload_flash.items():
+        for base, n in counts_d.items():
+            launches[base + d_suffix(D)] += n
     # B3's forms with bf16 gradients or moments (this slice's): the
     # launches of phase train-a6a7
     for form in ADAM_NEW_FORMS:

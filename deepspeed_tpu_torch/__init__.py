@@ -8,9 +8,11 @@ PyTorch version.  Ported so far: serving (``init_inference(...).generate``
 and ``create_serving_engine``) and training on one card
 (``initialize(...)`` -> ``DeepSpeedEngine.train_batch`` or
 ``forward``/``backward``/``step``; fp32, bf16, or fp16 with loss scaling;
-every built-in optimizer but cpuadam, or a client ``torch.optim`` one;
-bf16 moments and gradients; LR schedules; activation checkpointing;
-durable checkpoints, the data loader and the fault-tolerance layer), serving from a checkpoint
+every built-in optimizer, or a client ``torch.optim`` one; bf16 moments
+and gradients; LR schedules; activation checkpointing, ``cpu_checkpointing``
+too; ZeRO-Offload's optimizer on the host, its moments in RAM or swapped to
+NVMe; durable checkpoints, the data loader and the fault-tolerance layer),
+the host benches (``benchmarks``: ``cpu_adam``, ``aio``, ``offload``), serving from a checkpoint
 (``init_inference(config={"checkpoint": dir})``) and the checkpoint tools
 (``checkpoint/``).  Entry points run on the card unless
 the caller passes ``device="cpu"``; with no card they raise.
@@ -49,7 +51,8 @@ def initialize(args=None, model=None, model_parameters=None, config=None,
     (the config's ``optimizer`` block takes precedence).  ``device``
     defaults to the card and raises without one.  The optimizer returned
     is the engine's (``runtime/optimizers``; a client one's
-    ``torch.optim`` instance is its ``.optimizer``)."""
+    ``torch.optim`` instance is its ``.optimizer``; under
+    ``offload_optimizer`` the host one of ``runtime/zero/offload``)."""
     if model is None:
         raise ValueError("deepspeed_tpu_torch.initialize: model is required")
     if config is None and getattr(args, "deepspeed_config", None):

@@ -4,7 +4,8 @@
 Counterpart of ``bin/ds_bench``'s ``SUITES``: the first argument names the
 suite, and ``comm`` (the communication suite) is the default, as in
 DeepSpeed's ``ds_bench``.  ``train``, ``inference`` and ``serving`` run on
-the card (``--device cpu`` / ``--cpu`` off it); the suites the port has
+the card (``--device cpu`` / ``--cpu`` off it); ``aio``, ``cpu_adam`` and
+``offload`` time the host side of ZeRO-Offload; the suites the port has
 not ported raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -17,9 +18,9 @@ SUITES = {
     "train": "deepspeed_tpu_torch.benchmarks.training",
     "inference": "deepspeed_tpu_torch.benchmarks.inference",
     "serving": "deepspeed_tpu_torch.benchmarks.serving",
-    "aio": "A12",
-    "cpu_adam": "A12",
-    "offload": "A12",
+    "aio": "deepspeed_tpu_torch.benchmarks.aio",
+    "cpu_adam": "deepspeed_tpu_torch.benchmarks.cpu_adam",
+    "offload": "deepspeed_tpu_torch.benchmarks.offload",
 }
 DEFAULT_SUITE = "comm"
 

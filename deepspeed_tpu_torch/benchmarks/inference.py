@@ -14,7 +14,7 @@ seeded generator (seed 0).  Usage::
 
 ``--cpu`` runs on the CPU (the port's own flag); without it the bench
 runs on the card, and raises when there is none.  ``--int8`` and
-``--zero-stream`` raise naming ROADMAP A12, ``--tp`` above 1 naming A14.
+``--zero-stream`` raise naming ROADMAP A12c, ``--tp`` above 1 naming A14.
 """
 
 import argparse
@@ -51,7 +51,7 @@ def _refuse_unported(quant, tp, zero_stream):
         raise NotImplementedError(
             "--int8 / --zero-stream: int8 weight-only quantization and "
             "ZeRO-Inference weight streaming are not ported yet (ROADMAP "
-            "A12)")
+            "A12c)")
     if tp > 1:
         raise NotImplementedError(f"--tp {tp}: tensor-parallel inference "
                                   f"is not ported yet (ROADMAP A14)")
@@ -161,7 +161,7 @@ def main(argv=None):
     ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--zero-stream", action="store_true",
                     help="ZeRO-Inference: host-resident weights streamed "
-                         "per layer (not ported yet: ROADMAP A12)")
+                         "per layer (not ported yet: ROADMAP A12c)")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (default: the card)")
     args = ap.parse_args(argv)

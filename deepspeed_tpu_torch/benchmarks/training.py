@@ -12,13 +12,15 @@ for a run on a CUDA device.  Usage::
     python -m deepspeed_tpu_torch.benchmarks.training --model gpt_1b \
         --batch 2 --gas 4 --seq 1024 --dtype fp16 --steps 10 \
         [--moment-dtype bfloat16] [--grad-accum-dtype bfloat16] \
-        [--remat-policy dots_saveable] \
+        [--remat-policy dots_saveable] [--offload cpu|nvme] \
         [--scheduler WarmupDecayLR] [--initial-scale-power 16] [--json]
 
 The flags are the JAX CLI's; those the port cannot run yet raise naming
 their ROADMAP item.  Every layer is rematerialised under ``--remat-policy``
 (default ``dots_saveable``, the JAX benchmark's: the matrix products'
-outputs are kept, the rest recomputed in the backward).  ``--scheduler`` (WarmupLR or WarmupDecayLR, warming
+outputs are kept, the rest recomputed in the backward).  ``--offload cpu``
+or ``nvme`` runs the optimizer on the host (ZeRO-Offload; with nvme its
+moments swap to files under the temp dir, ``$TMPDIR`` or ``/tmp``).  ``--scheduler`` (WarmupLR or WarmupDecayLR, warming
 up from 0 to the AdamW lr over a tenth of the run), ``--initial-scale-power``
 (fp16's dynamic loss scale starts at 2**power) and ``--device`` (``cpu``
 for a run off the card) are the port's own.  Printed: the JAX CLI's keys
@@ -98,12 +100,13 @@ def scheduler_config(name, total_steps, lr=LR):
 
 def ds_config(batch, gas, dtype="bf16", scheduler=None,
               initial_scale_power=None, moment_dtype="float32",
-              grad_accum_dtype=None):
+              grad_accum_dtype=None, offload=None):
     """The engine config of the JAX benchmark at world size 1: AdamW at
     lr 1e-4 with ``moment_dtype`` moments, ``dtype`` ("bf16" or "fp16",
     dynamic loss scaling with DeepSpeed's defaults, starting at
     2**``initial_scale_power`` when given), ``scheduler`` (a ``scheduler``
-    block) when given.  Its ZeRO stage is left out: at world size 1 every
+    block) when given, the optimizer offloaded to ``offload`` ("cpu" or
+    "nvme") when given.  Its ZeRO stage is left out: at world size 1 every
     stage computes the same step (multi-rank ZeRO is ROADMAP A8)."""
     precision = {"enabled": True}
     if dtype == "fp16" and initial_scale_power is not None:
@@ -117,6 +120,8 @@ def ds_config(batch, gas, dtype="bf16", scheduler=None,
         cfg["scheduler"] = scheduler
     if grad_accum_dtype:
         cfg["data_types"] = {"grad_accum_dtype": grad_accum_dtype}
+    if offload:
+        cfg["zero_optimization"] = {"offload_optimizer": {"device": offload}}
     return cfg
 
 
@@ -124,13 +129,14 @@ def run_benchmark(model="gpt_350m", batch=8, gas=1, seq=1024, steps=10,
                   dtype="bf16", vocab_size=None, device=None, scheduler=None,
                   initial_scale_power=None, remat=True, arch=None,
                   moment_dtype="float32", grad_accum_dtype=None,
-                  zero_stage=3, remat_policy="dots_saveable"):
+                  zero_stage=3, remat_policy="dots_saveable", offload=None):
     """Build ``model`` (random weights from seed 0), ``initialize`` the
     engine and time ``steps`` train_batch calls.  ``scheduler``: None or
     the name of :func:`scheduler_config`'s schedule over the run's
     ``steps + 1`` calls.  Returns a dict of results; the per-step losses
-    are under ``losses`` (the warm-up's first).  ``zero_stage`` is
-    recorded: at world size 1 every stage computes the same step."""
+    are under ``losses`` (the warm-up's first), and under offload the host
+    step's split of the last call under ``offload_step``.  ``zero_stage``
+    is recorded: at world size 1 every stage computes the same step."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.transformer import CausalTransformerLM
     cfg = model_config(model, seq, vocab_size=vocab_size, arch=arch,
@@ -141,7 +147,7 @@ def run_benchmark(model="gpt_350m", batch=8, gas=1, seq=1024, steps=10,
                                 if scheduler else None),
                      initial_scale_power=initial_scale_power,
                      moment_dtype=moment_dtype,
-                     grad_accum_dtype=grad_accum_dtype)
+                     grad_accum_dtype=grad_accum_dtype, offload=offload)
     engine, *_ = deepspeed_tpu_torch.initialize(model=module, config=conf,
                                                 device=device)
     del module
@@ -192,6 +198,9 @@ def run_benchmark(model="gpt_350m", batch=8, gas=1, seq=1024, steps=10,
         out["grad_accum_dtype"] = grad_accum_dtype
     if arch not in (None, "gpt"):
         out["arch"] = arch
+    if offload:
+        out["offload"] = offload
+        out["offload_step"] = dict(engine._offload.last_step)
     return out
 
 
@@ -206,12 +215,12 @@ PRINTED = ("model", "n_params", "batch", "gas", "seq", "zero_stage",
 
 def _refuse_unported(a):
     """Raise for the JAX CLI's flags this port cannot run yet."""
-    if a.offload or a.offload_param or a.resident_layers or \
-            a.buffer_count or a.serial_boundary:
+    if a.offload_param or a.resident_layers or a.buffer_count or \
+            a.serial_boundary:
         raise NotImplementedError(
-            "--offload / --offload-param / --resident-layers / "
-            "--buffer-count / --serial-boundary: ZeRO-Offload and the "
-            "parameter stream are not ported yet (ROADMAP A12)")
+            "--offload-param / --resident-layers / --buffer-count / "
+            "--serial-boundary: the parameter stream is not ported yet "
+            "(ROADMAP A12b)")
     if a.attn_block_q or a.attn_block_k:
         raise ValueError("--attn-block-q / --attn-block-k size the TPU "
                          "kernel's blocks; the H100 kernels' tiles are "
@@ -261,7 +270,7 @@ def main(argv=None):
         initial_scale_power=a.initial_scale_power, remat=not a.no_remat,
         arch=a.arch, moment_dtype=a.moment_dtype,
         grad_accum_dtype=a.grad_accum_dtype, zero_stage=a.zero_stage,
-        remat_policy=a.remat_policy)
+        remat_policy=a.remat_policy, offload=a.offload)
     shown = {k: out[k] for k in PRINTED
              if k in out and not (k == "mfu" and out[k] is None)}
     if a.json:

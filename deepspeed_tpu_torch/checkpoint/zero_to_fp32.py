@@ -10,20 +10,23 @@ as a module::
 
     python -m deepspeed_tpu_torch.checkpoint.zero_to_fp32 <ckpt_dir> <out.npz>
 
-The param-stream and ZeRO-Offload sidecars the JAX tool also reads are not
-ported yet (ROADMAP A12).
+A ZeRO-Offload tag's sidecar (``zero_offload_rank0.npz``) holds the
+authoritative fp32 master, as in the JAX tool, and is read in its place.
+The param-stream sidecar is not ported yet (ROADMAP A12b).
 """
 
 import argparse
 import glob
+import json
 import os
 from typing import Any, Dict, Optional
 
 import numpy as np
 
 from deepspeed_tpu_torch.checkpoint.deepspeed_checkpoint import (
-    _resolve_tag, load_checkpoint_tree)
-from deepspeed_tpu_torch.runtime.checkpoint_engine import unflatten
+    _param_tree, _resolve_tag, load_checkpoint_tree)
+from deepspeed_tpu_torch.runtime.checkpoint_engine import (LAYOUT_NAME,
+                                                           unflatten)
 from deepspeed_tpu_torch.runtime.resilience import flatten_with_keystr
 from deepspeed_tpu_torch.utils.logging import logger
 
@@ -33,13 +36,21 @@ def get_fp32_state_dict_from_zero_checkpoint(ckpt_dir: str,
                                              ) -> Dict[str, Any]:
     """The fp32 params tree (JAX layout) of a port checkpoint."""
     tag = _resolve_tag(ckpt_dir, tag)
-    for sidecar in ("zero_param_stream_rank*.npz", "zero_offload_rank*.npz"):
-        if glob.glob(os.path.join(ckpt_dir, tag, sidecar)):
-            raise NotImplementedError(
-                f"{sidecar} sidecars (param streaming / ZeRO-Offload) are "
-                f"not ported yet (ROADMAP A12)")
+    if glob.glob(os.path.join(ckpt_dir, tag, "zero_param_stream_rank*.npz")):
+        raise NotImplementedError(
+            "zero_param_stream_rank*.npz sidecars (param streaming) are not "
+            "ported yet (ROADMAP A12b)")
     params = load_checkpoint_tree(ckpt_dir, tag,
                                   load_optimizer_states=False)["params"]
+    # ZeRO-Offload: the host master of the sidecar is authoritative
+    off = sorted(glob.glob(os.path.join(ckpt_dir, tag,
+                                        "zero_offload_rank*.npz")))
+    if off:
+        with open(os.path.join(ckpt_dir, tag, LAYOUT_NAME)) as f:
+            layout = json.load(f)["params"]
+        with np.load(off[0]) as z:
+            params = _param_tree(z["master"], layout)
+        logger.info(f"consolidated from offload master {off[0]}")
     return unflatten({k: np.asarray(v, np.float32)
                       if np.issubdtype(np.asarray(v).dtype, np.floating)
                       else np.asarray(v)

@@ -15,7 +15,7 @@ dir (``universal_meta.json``, either package's) or a port training
 checkpoint (``load_model_with_checkpoint``).
 
 Not ported in this slice: tensor parallelism (ROADMAP A14), ZeRO-Inference
-weight streaming and int8 weight-only quantization (A12), decoding ALiBi /
+weight streaming and int8 weight-only quantization (A12c), decoding ALiBi /
 sliding-window / embedding-norm models (A18).
 """
 
@@ -42,10 +42,10 @@ class InferenceEngine:
                                       "not ported yet (ROADMAP A14)")
         if config.quant.enabled or str(config.dtype) == "int8":
             raise NotImplementedError("int8 weight-only quantization is not "
-                                      "ported yet (ROADMAP A12)")
+                                      "ported yet (ROADMAP A12c)")
         if dict(config.zero or {}).get("offload_param"):
             raise NotImplementedError("ZeRO-Inference weight streaming is "
-                                      "not ported yet (ROADMAP A12)")
+                                      "not ported yet (ROADMAP A12c)")
         self.module = model
         self._config = config
         self.dtype = to_torch_dtype(config.dtype)

@@ -35,9 +35,18 @@ product's output and the recompute hands it back through an autograd
 function whose backward is the product's own -- the same tensors kept,
 the same values, no per-op dispatch.
 
+With ``cpu_checkpointing`` (``checkpoint_in_cpu``) :func:`checkpoint`
+keeps what ``dots_with_no_batch_dims_saveable`` keeps, in host memory:
+the JAX module's ``offload_dot_with_no_batch_dims("device",
+"pinned_host")``, whatever the policy.  The block's forward copies each
+product's output to pinned host memory (a plain host copy off the card)
+and frees it on the card; its recompute in the backward takes the copies
+back to the card in place of the products and recomputes the rest.  The
+model's own layers follow ``TransformerConfig.remat_policy`` as before.
+
 At world size 1 ``partition_activations`` changes nothing (the JAX module
 shards saved inputs over tp, which is 1 here; a wider mesh raises ROADMAP
-A14 in the config); ``cpu_checkpointing`` raises naming ROADMAP A12.
+A14 in the config).
 """
 
 import contextlib
@@ -49,6 +58,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy,
                                     create_selective_checkpoint_contexts)
 from torch.utils.checkpoint import checkpoint as _torch_checkpoint
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from deepspeed_tpu_torch.utils.logging import logger
 
@@ -192,10 +202,62 @@ def remat(function: Callable, *args, policy=SAVE_NOTHING):
     return _torch_checkpoint(run, *args, use_reentrant=False)
 
 
+def _to_host(t):
+    """A host copy of ``t``: pinned, copied without a sync, from the card;
+    a plain copy on the CPU."""
+    if t.device.type == "cuda":
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        return host.copy_(t, non_blocking=True)
+    return t.detach().clone()
+
+
+class _HostDots(TorchDispatchMode):
+    """``cpu_checkpointing``'s forward: each no-batch-dim product's output
+    also goes to ``kept`` as a host copy."""
+
+    def __init__(self, kept):
+        super().__init__()
+        self.kept = kept
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func in _DOTS_NO_BATCH:
+            self.kept.append(_to_host(out))
+        return out
+
+
+class _DotsFromHost(TorchDispatchMode):
+    """``cpu_checkpointing``'s recompute: the products come back from
+    ``kept``, in call order, on the device of their first input; every
+    other op runs."""
+
+    def __init__(self, kept):
+        super().__init__()
+        self.kept = kept
+
+    def __enter__(self):
+        self.next = 0
+        return super().__enter__()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func not in _DOTS_NO_BATCH:
+            return func(*args, **(kwargs or {}))
+        host = self.kept[self.next]
+        self.next += 1
+        return host.to(args[0].device, non_blocking=True)
+
+
 def checkpoint(function: Callable, *args):
     """Checkpoint a model block: ``function(*args)`` with its internals
-    recomputed in the backward under the configured policy (the
-    reference's drop-in for ``torch.utils.checkpoint.checkpoint``)."""
+    recomputed in the backward under the configured policy, or under
+    ``cpu_checkpointing`` with its no-batch-dim products kept in host
+    memory (the reference's drop-in for
+    ``torch.utils.checkpoint.checkpoint``)."""
+    if CPU_CHECKPOINT:
+        kept = []
+        return _torch_checkpoint(
+            function, *args, use_reentrant=False,
+            context_fn=lambda: (_HostDots(kept), _DotsFromHost(kept)))
     return run_checkpointed(function, *args,
                             policy=resolve_policy(_POLICY_NAME))
 
@@ -250,12 +312,6 @@ def configure(mpu_=None, deepspeed_config=None, partition_activations=None,
         NUM_CHECKPOINTS = num_checkpoints
     if policy is not None:
         _POLICY_NAME = policy
-    if CPU_CHECKPOINT:
-        CPU_CHECKPOINT = False
-        raise NotImplementedError("activation_checkpointing."
-                                  "cpu_checkpointing (activations offloaded "
-                                  "to the host) is not ported yet (ROADMAP "
-                                  "A12)")
     if CONTIGUOUS_CHECKPOINTING:
         # the caching allocator places the saved tensors; the reference's
         # hand-managed contiguous buffers have no counterpart here

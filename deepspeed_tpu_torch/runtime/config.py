@@ -195,11 +195,8 @@ def _refuse_unported(pd):
         (_set(pd.get(C.ELASTICITY)), "elasticity", "A17"),
         (bool((pd.get(C.AUTOTUNING) or {}).get("overlay_path")),
          "autotuning.overlay_path (the tuned overlay)", "A17"),
-        (bool((pd.get(C.ACTIVATION_CHECKPOINTING) or {}).get(
-            "cpu_checkpointing")),
-         "activation_checkpointing.cpu_checkpointing (activations offloaded "
-         "to the host)", "A12"),
-        (_set(pd.get(C.MEMORY)), "the tiered memory block (memory)", "A12"),
+        (_set(pd.get(C.MEMORY)), "the tiered memory block (memory)",
+         "A12b"),
     ]
     for on, what, item in blocks:
         if on:

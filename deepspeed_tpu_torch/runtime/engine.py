@@ -69,6 +69,23 @@ The engine calls ``activation_checkpointing.checkpointing.configure``
 with its config at init, as the JAX engine does; the model's own
 per-layer remat follows its ``TransformerConfig.remat_policy``.
 
+ZeRO-Offload (``zero_optimization.offload_optimizer``, device cpu or
+nvme; the JAX engine's ``_init_offload_state`` / ``_offload_host_apply``):
+the fp32 master is a pageable host tensor and the optimizer -- adam,
+adamw, fusedadam, cpuadam or adagrad -- is the host one of
+``runtime/zero/offload.py``, its moments in host RAM or swapped to NVMe;
+the card keeps the compute weights and the gradients.  The step is the
+same up to the update, which becomes the JAX offload path's host tail:
+under fp16 the overflow flag read to the host (and a skipped step writes
+nothing); the lr of the schedule at ``global_steps``, skipped steps
+counted (the device path's follows the applied count); the clip
+coefficient ``clip / (norm + 1e-6)`` when the fp32 norm exceeds ``clip``,
+applied to the fp32 gradients on the host; the pipelined host step, which
+writes the new weights into the compute buffer.  A checkpoint's payload
+then holds the host master, and its tag the optimizer's sidecar
+(``zero_offload_rank0.npz``), listed in the manifest; loading it with
+``load_optimizer_states=False`` restores the master alone.
+
 Not ported yet (each raises naming its ROADMAP item): multi-rank ZeRO
 (A8), the async input pipeline (A17).
 """
@@ -109,6 +126,9 @@ from deepspeed_tpu_torch.runtime.resilience import (
     RetryPolicy, TrainingPreempted, atomic_write_text, build_manifest,
     fault_event, flatten_with_keystr, gc_tags, meta_event, poison_tree,
     retry_io, scan_tags, validate_tag, verify_restored)
+from deepspeed_tpu_torch.runtime.zero.offload import (OFFLOAD_OPTIMIZERS,
+                                                      PIPELINE_CHUNK,
+                                                      HostOffloadOptimizer)
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 from deepspeed_tpu_torch.utils.timer import (BACKWARD_GLOBAL_TIMER,
                                              FORWARD_GLOBAL_TIMER,
@@ -173,25 +193,39 @@ class DeepSpeedEngine:
             off += p.numel()
         self.num_params = off
         self._spans = spans
+        # ZeRO-Offload: the fp32 master (and the optimizer's state) on the
+        # host, pageable; the card keeps the compute weights and gradients
+        offload = config.zero_config.offload_optimizer_device != "none"
         self.master = torch.empty(off, dtype=torch.float32,
-                                  device=self.device)
+                                  device="cpu" if offload else self.device)
         self.grad_accum_dtype = (torch.bfloat16
                                  if config.grad_accum_dtype == "bfloat16"
                                  else torch.float32)
-        self.grads = torch.zeros(off, dtype=self.grad_accum_dtype,
-                                 device=self.device)
         self._compute = torch.empty(off, dtype=self.compute_dtype,
                                     device=self.device)
-        self._master_views, self._grad_views = [], []
+        self._master_views = []
+        # from the card into pageable host memory through a pinned buffer:
+        # a straight copy into pageable memory crawls
+        bounce = (torch.empty(min(off, PIPELINE_CHUNK), pin_memory=True)
+                  if offload and self.device.type == "cuda" else None)
         with torch.no_grad():
             for p, (o, n, shape) in zip(self._params, spans):
                 mv = self.master[o:o + n].view(shape)
-                mv.copy_(p.detach())
+                if bounce is None:
+                    mv.copy_(p.detach())
+                else:
+                    _copy_to_host(mv.view(-1), p.detach().reshape(-1),
+                                  bounce)
                 self._master_views.append(mv)
-                self._grad_views.append(self.grads[o:o + n].view(shape))
+                # the compute weights are a cast of the master; repointing
+                # the parameter frees the module's own weights one by one
+                self._compute[o:o + n].copy_(p.detach().reshape(-1))
                 p.data = self._compute[o:o + n].view(shape)
                 p.grad = None
-            self._compute.copy_(self.master)
+        self.grads = torch.zeros(off, dtype=self.grad_accum_dtype,
+                                 device=self.device)
+        self._grad_views = [self.grads[o:o + n].view(shape)
+                            for o, n, shape in spans]
 
         # ---- optimizer and schedules --------------------------------
         self.optimizer, base_lr, schedule_fn = self._configure_optimizer(
@@ -199,15 +233,22 @@ class DeepSpeedEngine:
         # the JAX engine has no scheduler (None in client_state) without a
         # schedule; the port's host scheduler then reports the base lr
         self._has_schedule = schedule_fn is not None
-        self.optimizer.bind(self._flat_layout())
-        if isinstance(self.optimizer, ClientOptimizer):
-            self.optimizer.build(self._master_views)
-        self.opt_state = self.optimizer.init_state(self.master)
+        self._lr_at = schedule_fn or (lambda step: base_lr)
+        self._offload = None
+        if offload:
+            # the host optimizer is the engine's (initialize returns it)
+            self.optimizer = self._offload = self._init_offload()
+            self.opt_state = None
+        else:
+            self.optimizer.bind(self._flat_layout())
+            if isinstance(self.optimizer, ClientOptimizer):
+                self.optimizer.build(self._master_views)
+            self.opt_state = self.optimizer.init_state(self.master)
         # the host-side scheduler get_lr reads (the JAX engine's: a client
         # LRScheduler as given, else one over the schedule or the base lr)
         self.lr_scheduler = (
             lr_scheduler if isinstance(lr_scheduler, LRScheduler) else
-            LRScheduler(schedule_fn or (lambda step: base_lr)))
+            LRScheduler(self._lr_at))
 
         # ---- loss scaling and overflow (device scalars) -------------
         fc = config.fp16_config
@@ -419,12 +460,17 @@ class DeepSpeedEngine:
             # fp32 whatever the gradients' dtype (_global_norm_f32)
             norm = torch.linalg.vector_norm(g, dtype=torch.float32)
             clip = float(cfg.gradient_clipping or 0.0)
-            if clip > 0:
-                g.mul_(torch.clamp(clip / (norm + 1e-6), max=1.0).to(g.dtype))
-            self.opt_state = self.optimizer.step(
-                self.master, g, self.opt_state,
-                skip=overflow.to(torch.int32) if self._fp16 else None,
-                backend=self.backend)
+            if self._offload is not None:
+                self._offload_host_apply(g, overflow, norm, clip)
+            else:
+                if clip > 0:
+                    g.mul_(torch.clamp(clip / (norm + 1e-6),
+                                       max=1.0).to(g.dtype))
+                self.opt_state = self.optimizer.step(
+                    self.master, g, self.opt_state,
+                    skip=overflow.to(torch.int32) if self._fp16 else None,
+                    backend=self.backend)
+                self._compute.copy_(self.master)
             if self._fp16:
                 fc = cfg.fp16_config
                 self.loss_scale_state = update_scale(
@@ -433,7 +479,6 @@ class DeepSpeedEngine:
                     scale_window=fc.loss_scale_window,
                     min_scale=fc.min_loss_scale, hysteresis=fc.hysteresis)
                 self.skipped_steps.add_(overflow.to(torch.int32))
-            self._compute.copy_(self.master)
             g.zero_()
         self._overflow = overflow
         self._global_grad_norm = norm
@@ -441,6 +486,43 @@ class DeepSpeedEngine:
         self._step_applied = True
         self.global_steps += 1
         self.lr_scheduler.step()
+
+    def _init_offload(self):
+        """The host optimizer of ZeRO-Offload (``runtime/zero/offload.py``)
+        over the host master: the config's optimizer (adamw when it names
+        none), one of :data:`OFFLOAD_OPTIMIZERS`, else the JAX engine's
+        ``ValueError``."""
+        cfg = self._config
+        oc = cfg.optimizer_config
+        name = (oc.type.lower() if oc is not None and oc.type
+                else ADAMW_OPTIMIZER)
+        if name not in OFFLOAD_OPTIMIZERS:
+            raise ValueError(
+                f"offload_optimizer supports {sorted(OFFLOAD_OPTIMIZERS)}; "
+                f"got '{name}' (reference: ZeRO-Offload requires "
+                "DeepSpeedCPUAdam/Adagrad)")
+        return HostOffloadOptimizer(
+            self.master, cfg.zero_config, opt_name=name,
+            opt_params=dict(oc.params) if oc is not None else {})
+
+    def _offload_host_apply(self, g, overflow, norm, clip):
+        """The host tail of an offload step (the JAX engine's
+        ``_offload_host_apply``): the overflow flag read to the host under
+        fp16 only; unless it is set, the lr of the schedule at
+        ``global_steps`` (skipped steps counted, the JAX offload path's
+        rule), the clip coefficient ``clip / (norm + 1e-6)`` when the norm
+        exceeds ``clip``, and the pipelined host step, which writes the
+        new weights into the compute buffer."""
+        if self._fp16 and bool(overflow):
+            return
+        lr = float(self._lr_at(self.global_steps))
+        coef = None
+        if clip > 0:
+            gn = float(norm)
+            if gn > clip:
+                coef = clip / (gn + 1e-6)
+        self._offload.step_streamed(g, lr=lr, clip_coef=coef,
+                                    out=self._compute)
 
     def _micro_step(self, mb):
         loss = self.module.loss(mb, attn_backend=self.backend)
@@ -581,8 +663,10 @@ class DeepSpeedEngine:
         return self.get_loss_scale()
 
     def applied_steps(self):
-        """Steps whose update was applied (host read of the device
-        count)."""
+        """Steps whose update was applied (host read of the device count;
+        under offload the host optimizer's count)."""
+        if self._offload is not None:
+            return self._offload.step_count
         return int(self.opt_state.count)
 
     def last_step_overflowed(self):
@@ -698,7 +782,10 @@ class DeepSpeedEngine:
         optimizer's by :func:`state_tensors`: Adam's ``m``, ``v`` and
         ``count`` keep the names of earlier tags)."""
         ls = self.loss_scale_state
-        return {"master": self.master, **state_tensors(self.opt_state),
+        # under offload the host optimizer's state is the sidecar's
+        opt = {} if self._offload is not None else state_tensors(
+            self.opt_state)
+        return {"master": self.master, **opt,
                 "loss_scale": {"cur_scale": ls.cur_scale,
                                "cur_hysteresis": ls.cur_hysteresis,
                                "last_overflow_iter": ls.last_overflow_iter,
@@ -742,6 +829,8 @@ class DeepSpeedEngine:
         if not rc.enabled:
             eng.save(state, save_dir, tag, client_state=client_state,
                      layout=layout)
+            if self._offload is not None:
+                self._offload.save(save_dir, tag)
             if save_latest:
                 with open(os.path.join(save_dir, "latest"), "w") as f:
                     f.write(tag)
@@ -752,6 +841,10 @@ class DeepSpeedEngine:
             txn.begin()
             staged = eng.save(state, save_dir, txn.tmp_tag,
                               client_state=client_state, layout=layout)
+            # the offload sidecar goes into the tmp tag: the manifest
+            # lists it
+            if self._offload is not None:
+                self._offload.save(save_dir, txn.tmp_tag)
             # an async engine finishes its background write here: the
             # commit marker never precedes the payload
             eng.commit(txn.tmp_tag)
@@ -890,6 +983,11 @@ class DeepSpeedEngine:
             for key, dst in flatten_with_keystr(self._ckpt_state()):
                 if key in flat:
                     dst.copy_(flat[key], non_blocking=True)
+            # the offload sidecar: master, moments and step count; with
+            # load_optimizer_states=False the master alone comes back, the
+            # moments and count stay as they were
+            if self._offload is not None and keys is None:
+                self._offload.load(load_dir, chosen)
             # the compute-dtype weights are a cast of the master
             self._compute.copy_(self.master)
         if self.device.type == "cuda":
@@ -904,6 +1002,17 @@ class DeepSpeedEngine:
         if rc.enabled:
             self._last_good_ckpt = (load_dir, chosen)
         return load_dir, client_state
+
+
+def _copy_to_host(dst, src, bounce):
+    """``dst`` (a host tensor) = ``src`` (on the card), a pinned ``bounce``
+    buffer's length at a time."""
+    src = src.float()
+    for a in range(0, src.numel(), bounce.numel()):
+        b = min(a + bounce.numel(), src.numel())
+        piece = bounce[:b - a]
+        piece.copy_(src[a:b])
+        dst[a:b].copy_(piece)
 
 
 def _read_latest(ckpt_dir):

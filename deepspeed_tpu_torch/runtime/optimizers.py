@@ -38,7 +38,9 @@ defaults:
 
 ``lr`` may be a schedule (a function of the 0-dim fp32 applied count on
 the device), and Adam's beta1 may follow 1Cycle's momentum schedule.
-``cpuadam`` raises naming ROADMAP A12.
+``cpuadam`` is the device Adam here, as in the JAX registry; the host
+Adam runs under ``zero_optimization.offload_optimizer``
+(``runtime/zero/offload.py``), which takes the Adam names and adagrad.
 """
 
 import base64
@@ -64,11 +66,6 @@ SGD_OPTIMIZER = "sgd"
 ADAGRAD_OPTIMIZER = "adagrad"
 # the optimizers 1Cycle's momentum schedule cycles (the JAX engine's list)
 ADAM_FAMILY = (ADAM_OPTIMIZER, ADAMW_OPTIMIZER, FUSED_ADAM, CPU_ADAM)
-
-# names the JAX registry knows that this port does not run yet
-_UNPORTED = {
-    CPU_ADAM: "host-offloaded Adam (ZeRO-Offload), ROADMAP A12",
-}
 
 _MOMENT_DTYPES = {"float32": torch.float32, "fp32": torch.float32,
                   "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
@@ -508,6 +505,9 @@ OPTIMIZER_REGISTRY = {
                                                         True)),
     ADAMW_OPTIMIZER: lambda p: _adam(p, adamw_mode=True),
     FUSED_ADAM: lambda p: _adam(p, adamw_mode=p.get("adam_w_mode", True)),
+    # the device Adam, as the JAX registry maps it: the host Adam runs
+    # under zero_optimization.offload_optimizer (runtime/zero/offload.py)
+    CPU_ADAM: lambda p: _adam(p, adamw_mode=p.get("adamw_mode", True)),
     LAMB_OPTIMIZER: _lamb,
     FUSED_LAMB: _lamb,
     ONEBIT_ADAM_OPTIMIZER: lambda p: _onebit(p, _adam(p, adamw_mode=False)),
@@ -521,9 +521,6 @@ OPTIMIZER_REGISTRY = {
 
 def build_optimizer(name: str, params: Dict[str, Any]) -> FlatOptimizer:
     key = name.lower()
-    if key in _UNPORTED:
-        raise NotImplementedError(f"optimizer {name!r} is not ported yet "
-                                  f"({_UNPORTED[key]})")
     if key not in OPTIMIZER_REGISTRY:
         raise ValueError(f"Unknown optimizer '{name}'. Built-ins: "
                          f"{sorted(OPTIMIZER_REGISTRY)}")

@@ -6,10 +6,42 @@ process on one card, where every stage computes the same step (on one
 device the JAX plan shards nothing either), so stages 0-3 are accepted
 and recorded; a data-parallel world above 1 is refused by the engine
 (ROADMAP A8).  The bucketing keys are accepted and advisory, as in the
-JAX package.  Offload (A12) and the explicit overlap block (A13) raise.
+JAX package.  ``offload_optimizer`` (device cpu or nvme; the legacy
+``cpu_offload: true`` means device cpu, as in JAX) runs the optimizer on
+the host (``runtime/zero/offload.py``); parameter offload (A12) and the
+explicit overlap block (A13) raise.
 """
 
 from deepspeed_tpu_torch.runtime.config_utils import DeepSpeedConfigModel
+
+
+class OffloadDeviceEnum:
+    none = "none"
+    cpu = "cpu"
+    nvme = "nvme"
+
+
+class DeepSpeedZeroOffloadOptimizerConfig(DeepSpeedConfigModel):
+    """``zero_optimization.offload_optimizer``: where the fp32 master and
+    the moments live (``cpu``: host RAM; ``nvme``: the moments in swap
+    files under ``nvme_path``, the temp dir when unset, through
+    ``buffer_count`` pinned buffers).  The pipeline keys are accepted and
+    advisory, as in the JAX package."""
+    device = OffloadDeviceEnum.none
+    nvme_path = None
+    buffer_count = 4
+    pin_memory = False
+    pipeline_read = False
+    pipeline_write = False
+    fast_init = False
+    ratio = 1.0
+
+    def _validate(self):
+        if self.device not in (OffloadDeviceEnum.none, OffloadDeviceEnum.cpu,
+                               OffloadDeviceEnum.nvme):
+            raise ValueError(f"zero_optimization.offload_optimizer.device "
+                             f"must be none, cpu or nvme, got "
+                             f"{self.device!r}")
 
 
 class DeepSpeedZeroConfig(DeepSpeedConfigModel):
@@ -54,15 +86,26 @@ class DeepSpeedZeroConfig(DeepSpeedConfigModel):
     def _validate(self):
         if self.stage not in (0, 1, 2, 3):
             raise ValueError(f"invalid ZeRO stage {self.stage}")
-        for key in ("offload_param", "offload_optimizer"):
-            dev = (getattr(self, key) or {}).get("device", "none")
-            if dev not in (None, "none"):
-                raise NotImplementedError(
-                    f"zero_optimization.{key} (device {dev!r}) is not ported "
-                    f"yet (ROADMAP A12)")
-        if self.cpu_offload or self.cpu_offload_param:
-            raise NotImplementedError("zero_optimization.cpu_offload is not "
-                                      "ported yet (ROADMAP A12)")
+        dev = (self.offload_param or {}).get("device", "none")
+        if dev not in (None, "none"):
+            raise NotImplementedError(
+                f"zero_optimization.offload_param (device {dev!r}) is not "
+                f"ported yet (ROADMAP A12b)")
+        if self.cpu_offload_param:
+            raise NotImplementedError("zero_optimization.cpu_offload_param "
+                                      "is not ported yet (ROADMAP A12b)")
+        if self.cpu_offload:
+            self.offload_optimizer = self.offload_optimizer or {"device":
+                                                               "cpu"}
+        if isinstance(self.offload_optimizer, dict):
+            self.offload_optimizer = DeepSpeedZeroOffloadOptimizerConfig(
+                self.offload_optimizer)
         if (self.overlap or {}).get("enabled", False):
             raise NotImplementedError("zero_optimization.overlap is not "
                                       "ported yet (ROADMAP A13)")
+
+    @property
+    def offload_optimizer_device(self):
+        if self.offload_optimizer is None:
+            return OffloadDeviceEnum.none
+        return self.offload_optimizer.device

@@ -5,7 +5,9 @@ Mirrors ``tests/unit/test_activation_checkpointing.py`` on the port's
 ``runtime/activation_checkpointing/checkpointing.py``: a checkpointed
 block gives the direct call's values and gradients under every policy,
 ``configure`` reads a DeepSpeed config (explicit arguments win), an
-unknown policy and ``cpu_checkpointing`` raise, the RNG tracker is
+unknown policy raises, ``cpu_checkpointing`` configures (its block test:
+``tests/test_torch_offload.py``) while the ``memory`` block still raises
+naming ROADMAP A12b, the RNG tracker is
 deterministic and refuses a duplicate stream.  The model at 2 layers,
 hidden 64, under each policy gives the JAX model's loss and gradients
 (``jax.value_and_grad`` on the JAX model with the same ``remat_policy``,
@@ -32,24 +34,13 @@ from deepspeed_tpu_torch.models.transformer import (CausalTransformerLM,
 from deepspeed_tpu_torch.runtime.activation_checkpointing import \
     checkpointing as ckpt
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+from torch_threads import _one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 POLICY_NAMES = sorted(ckpt.POLICIES)
 # the four distinct policies (the other two names are aliases)
 DISTINCT = ["nothing_saveable", "dots_saveable",
             "dots_with_no_batch_dims_saveable", "everything_saveable"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for eager torch on these small tensors: under
-    the suite's parallel workers 8 threads a worker oversubscribe the
-    cores (a trajectory here took 51.6 s with 8 threads, 2.4 s with 1, on
-    a host with 7 busy cores)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)
@@ -122,12 +113,23 @@ def test_unknown_policy_raises():
 
 
 def test_cpu_checkpointing_raises_naming_a12():
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+    """``cpu_checkpointing`` is ported (A12's first part): ``configure``
+    and the config take it; the tiered ``memory`` block, the rest of A12,
+    still raises naming it."""
+    try:
         ckpt.configure(checkpoint_in_cpu=True)
-    assert not ckpt.CPU_CHECKPOINT
+        assert ckpt.CPU_CHECKPOINT
+        ckpt.configure(deepspeed_config={"activation_checkpointing": {
+            "cpu_checkpointing": False}})
+        assert not ckpt.CPU_CHECKPOINT
+    finally:
+        ckpt.configure(checkpoint_in_cpu=False)
+    cfg = DeepSpeedConfig({"train_batch_size": 2, "activation_checkpointing":
+                           {"cpu_checkpointing": True}})
+    assert cfg.activation_checkpointing_config.cpu_checkpointing
     with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        DeepSpeedConfig({"train_batch_size": 2, "activation_checkpointing":
-                         {"cpu_checkpointing": True}})
+        DeepSpeedConfig({"train_batch_size": 2, "memory": {
+            "placement_policy": "nvme", "nvme_dir": "d"}})
 
 
 def test_rng_tracker_fork_is_deterministic():

@@ -23,6 +23,7 @@ from deepspeed_tpu.ops.pallas.fused_adam import fused_adam_pallas
 from deepspeed_tpu_torch.ops.adam import (AdamState, adam_hyper, fused_adam,
                                           init_state, reference_impl)
 from deepspeed_tpu_torch.runtime.optimizers import FusedAdam, build_optimizer
+from torch_threads import _one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-6, atol=1e-7)
 N = 70001          # not a multiple of 128 (nor of the TPU kernel's tile)
@@ -106,13 +107,18 @@ def test_build_optimizer_defaults(name, params, adamw, wd):
 
 
 # every other rule of the JAX registry is ported (tests/test_torch_
-# optimizers.py; bf16 moments: tests/test_torch_moment_dtype.py)
+# optimizers.py; bf16 moments: tests/test_torch_moment_dtype.py); cpuadam,
+# once refused naming ROADMAP A12 (``item``), is the device Adam as in the
+# JAX registry (its ``adamw_mode`` key, default on), the host Adam being
+# ZeRO-Offload's (tests/test_torch_offload.py)
 @pytest.mark.parametrize("name,params,item", [
     ("CPUAdam", {}, "A12"), ("cpuadam", {"lr": 1e-3}, "A12"),
 ])
 def test_unported_optimizers_raise(name, params, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        build_optimizer(name, params)
+    opt = build_optimizer(name, params)
+    assert isinstance(opt, FusedAdam)
+    assert (opt.adamw_mode, opt.weight_decay, opt.lr) == (True, 0.01, 1e-3)
+    assert not build_optimizer(name, {"adamw_mode": False}).adamw_mode
 
 
 def test_unknown_optimizer_is_a_value_error():

@@ -9,7 +9,10 @@ was handed).  The weights differ (each package seeds its own), so the
 tokens are not compared here: ``tests/test_torch_serving.py`` holds them
 at tiny's shape with the JAX weights.  ``print_latency`` equals JAX's on a
 seeded list; the unported flags and suites raise naming their ROADMAP
-item.
+item.  The host benches of ZeRO-Offload (``cpu_adam``, ``aio``,
+``offload``) run tiny through the dispatcher and print the JAX modules'
+rows with their keys (the comparison row of ``cpu_adam`` is the plain
+PyTorch version where JAX's is its numpy fallback).
 """
 
 import json
@@ -18,12 +21,16 @@ import numpy as np
 import pytest
 import torch
 
+import deepspeed_tpu.benchmarks.aio as jax_aio
+import deepspeed_tpu.benchmarks.cpu_adam as jax_cpu_adam
 import deepspeed_tpu.benchmarks.inference as jax_inference
+import deepspeed_tpu.benchmarks.offload as jax_offload
 import deepspeed_tpu.benchmarks.serving as jax_serving
 from deepspeed_tpu.inference.serving import ServingEngine as JaxServingEngine
 from deepspeed_tpu_torch.benchmarks import __main__ as ds_bench
 from deepspeed_tpu_torch.benchmarks import inference, serving
 from deepspeed_tpu_torch.inference.serving import ServingEngine
+from torch_threads import _one_torch_thread  # noqa: F401
 
 # prompts of 4 tokens (the mix draws lengths from [max(4, 2), 4]): one
 # prefill bucket, one shape for the JAX engines to compile
@@ -124,9 +131,7 @@ def test_inference_bench_refuses_unported_flags(argv, item):
         inference.main(argv)
 
 
-@pytest.mark.parametrize("suite,item", [
-    (None, "A8"), ("comm", "A8"), ("aio", "A12"), ("cpu_adam", "A12"),
-    ("offload", "A12")])
+@pytest.mark.parametrize("suite,item", [(None, "A8"), ("comm", "A8")])
 def test_dispatcher_refuses_unported_suites(suite, item):
     """``comm`` is the default suite, as in ``bin/ds_bench``."""
     argv = [] if suite is None else [suite]
@@ -138,7 +143,10 @@ def test_dispatcher_refuses_unported_suites(suite, item):
 @pytest.mark.parametrize("suite,module", [
     ("train", "deepspeed_tpu_torch.benchmarks.training"),
     ("inference", "deepspeed_tpu_torch.benchmarks.inference"),
-    ("serving", "deepspeed_tpu_torch.benchmarks.serving")])
+    ("serving", "deepspeed_tpu_torch.benchmarks.serving"),
+    ("aio", "deepspeed_tpu_torch.benchmarks.aio"),
+    ("cpu_adam", "deepspeed_tpu_torch.benchmarks.cpu_adam"),
+    ("offload", "deepspeed_tpu_torch.benchmarks.offload")])
 def test_dispatcher_runs_a_suites_main(suite, module, monkeypatch):
     import importlib
     mod = importlib.import_module(module)
@@ -158,18 +166,6 @@ def test_benches_run_on_the_card_unless_asked(monkeypatch):
             main([])
 
 
-@pytest.fixture
-def one_torch_thread():
-    """One intra-op thread for eager torch on small tensors, as in
-    ``test_torch_optimizers.py``: the suite's parallel workers would
-    otherwise oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-@pytest.mark.usefixtures("one_torch_thread")
 def test_ds_bench_train_bf16_state_and_remat_policy_on_cpu(monkeypatch,
                                                            capsys):
     """``ds_bench train --moment-dtype bfloat16 --grad-accum-dtype bfloat16
@@ -203,3 +199,32 @@ def test_ds_bench_train_bf16_state_and_remat_policy_on_cpu(monkeypatch,
     assert built[-1].remat_policy == "dots_saveable"
     assert "moment_dtype" not in json.loads(
         capsys.readouterr().out.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("suite,argv,jax_main", [
+    ("cpu_adam", ["--numel", "100000", "--reps", "1"], jax_cpu_adam.main),
+    ("aio", ["--size-mb", "1", "--reps", "1"], jax_aio.main),
+    ("offload", ["--numel", "100000", "--reps", "1"], jax_offload.main)])
+def test_host_benches_print_the_jax_rows(suite, argv, jax_main, capsys,
+                                         monkeypatch, tmp_path):
+    """Each host bench, tiny, through ``ds_bench``: one JSON line per row,
+    the JAX module's rows and keys (``cpu_adam``'s comparison row and its
+    summary's rate name the plain version, JAX's its numpy fallback)."""
+    monkeypatch.setenv("TMPDIR", str(tmp_path))
+    monkeypatch.setattr("tempfile.tempdir", None)
+    rows = ds_bench.main([suite, *argv])
+    printed = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert printed == rows
+    want = jax_main(argv)
+    capsys.readouterr()
+    rename = {"numpy": "plain_torch", "numpy_gbps": "plain_gbps",
+              "cpu_adam_fused_vs_numpy_speedup":
+                  "cpu_adam_fused_vs_plain_speedup"}
+    assert [sorted(rename.get(k, k) for k in r) for r in want] == \
+        [sorted(r) for r in rows]
+    for w, r in zip(want, rows):
+        for key in ("impl", "tier", "mode", "metric", "queue_depth",
+                    "threads", "numel", "sub_groups"):
+            if key in w:
+                assert r[key] == rename.get(w[key], w[key]), key
+    assert not list(tmp_path.iterdir())      # the benches clean up

@@ -48,6 +48,7 @@ from deepspeed_tpu_torch.models.convert import (from_jax_params,
                                                 to_numpy_params)
 from deepspeed_tpu_torch.models.transformer import (CausalTransformerLM,
                                                     TransformerConfig)
+from torch_threads import _one_torch_thread  # noqa: F401
 
 JAX_DEVICES = 8          # the harness's virtual CPU devices
 KW = dict(hidden_size=64, n_heads=4, n_kv_heads=2)
@@ -137,17 +138,6 @@ def test_port_round_trip_is_bitwise(tmp_path, name):
         assert torch.equal(p_got, p_want)
 
 
-@pytest.fixture
-def one_torch_thread():
-    """One intra-op thread for eager torch on small tensors, as in
-    ``test_torch_optimizers.py``: the suite's parallel workers would
-    otherwise oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 # each optimizer's state through a save and a load, on the port alone:
 # name -> config blocks (bf16 moments and gradients among them)
 OPTIMIZER_TRIPS = {
@@ -164,7 +154,6 @@ OPTIMIZER_TRIPS = {
 
 
 @pytest.mark.parametrize("name", list(OPTIMIZER_TRIPS))
-@pytest.mark.usefixtures("one_torch_thread")
 def test_optimizer_state_round_trip_is_bitwise(tmp_path, name):
     """Every buffer of the optimizer's state is saved in its own dtype and
     restored bit for bit (bf16 moments as their bit pattern, named
@@ -199,7 +188,6 @@ def test_optimizer_state_round_trip_is_bitwise(tmp_path, name):
         assert set(dtypes) >= {f"['{k}']" for k in saved}
 
 
-@pytest.mark.usefixtures("one_torch_thread")
 def test_client_optimizer_state_rides_client_state(tmp_path):
     """A client optimizer's ``state_dict()`` is saved in ``client_state``
     and restored bit for bit; the resumed steps equal the uninterrupted
@@ -231,7 +219,6 @@ def test_client_optimizer_state_rides_client_state(tmp_path):
         assert torch.equal(sa["momentum_buffer"], sb["momentum_buffer"])
 
 
-@pytest.mark.usefixtures("one_torch_thread")
 def test_adam_tags_keep_their_file_names(tmp_path):
     """Adam's state keeps the names and files of the tags earlier slices
     wrote (``m.npy``, ``v.npy``, ``count.npy`` beside ``master.npy``), so

@@ -24,6 +24,7 @@ from deepspeed_tpu_torch.runtime.config import (KNOWN_TOP_LEVEL_KEYS,
                                                 DeepSpeedConfig,
                                                 DeepSpeedConfigError)
 from deepspeed_tpu_torch.utils.logging import logger
+from torch_threads import _one_torch_thread  # noqa: F401
 
 BASE = {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
         "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}}}
@@ -43,8 +44,8 @@ REFUSED = [
     ({"comms_logger": {"enabled": True}}, "A17"),
     ({"elasticity": {"enabled": True, "max_train_batch_size": 8}}, "A17"),
     ({"autotuning": {"overlay_path": "overlay.json"}}, "A17"),
-    ({"activation_checkpointing": {"cpu_checkpointing": True}}, "A12"),
     ({"memory": {"placement_policy": "nvme", "nvme_dir": "d"}}, "A12"),
+    ({"zero_optimization": {"offload_param": {"device": "cpu"}}}, "A12"),
     ({"mesh": {"dp": 2}}, "A8"),
     ({"mesh": {"fsdp": 4}}, "A8"),
     ({"mesh": {"tp": 2}}, "A14"),
@@ -94,6 +95,12 @@ PORTED = {
         "number_checkpoints": 2, "policy": "dots_saveable"}},
     "grad_accum_dtype": {"data_types": {"grad_accum_dtype": "bf16"}},
     "load_universal": {"checkpoint": {"load_universal": True}},
+    "cpu_checkpointing": {"activation_checkpointing": {
+        "cpu_checkpointing": True}},
+    "offload_optimizer": {"zero_optimization": {"stage": 2,
+                                                "offload_optimizer": {
+        "device": "nvme", "nvme_path": "swap", "buffer_count": 3}}},
+    "cpu_offload": {"zero_optimization": {"stage": 2, "cpu_offload": True}},
     "checkpoint_engine": {"checkpoint": {"engine": "nebula"}},
     "resilience": {"resilience": {
         "preemption_handler": True, "ckpt_dir": "ckpt",
@@ -113,6 +120,11 @@ def test_ported_block_passes_as_in_jax(name):
         assert getattr(cfg, attr).to_dict() == \
             getattr(want, attr).to_dict(), attr
     assert cfg.grad_accum_dtype == want.grad_accum_dtype
+    zc, jzc = cfg.zero_config, want.zero_config
+    assert zc.offload_optimizer_device == jzc.offload_optimizer_device
+    if jzc.offload_optimizer is not None:
+        assert zc.offload_optimizer.to_dict() == \
+            jzc.offload_optimizer.to_dict()
 
 
 @pytest.mark.parametrize("stage,raises", [(0, False), (1, True), (2, False),

@@ -27,6 +27,7 @@ from deepspeed_tpu_torch.models.transformer import (CausalTransformerLM,
                                                     TransformerConfig)
 from deepspeed_tpu_torch.runtime.dataloader import (DeepSpeedDataLoader,
                                                     RepeatingLoader)
+from torch_threads import _one_torch_thread  # noqa: F401
 
 JAX_DEVICES = 8          # the harness's virtual CPU devices
 GPT = dict(hidden_size=64, n_heads=4, activation="gelu", use_rmsnorm=False,

@@ -27,6 +27,7 @@ from deepspeed_tpu_torch.ops.decode_attention import (decode_attention,
                                                       init_cache,
                                                       resolve_backend,
                                                       update_cache)
+from torch_threads import _one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 B, S, D, H = 2, 16, 8, 4

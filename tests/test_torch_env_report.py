@@ -12,6 +12,7 @@ import torch
 
 from deepspeed_tpu_torch import env_report
 from deepspeed_tpu_torch.ops import op_builder
+from torch_threads import _one_torch_thread  # noqa: F401
 
 
 def _no_nvcc():

@@ -41,6 +41,7 @@ from deepspeed_tpu_torch.ops.attention import (alibi_window_bias, attention,
 from deepspeed_tpu_torch.ops.cuda import flash_attention as flash_cuda
 from deepspeed_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_bwd_plain, flash_attention_fwd_plain)
+from torch_threads import _one_torch_thread  # noqa: F401
 
 FWD_TOL = dict(rtol=1e-5, atol=1e-5)
 BWD_TOL = dict(rtol=1e-4, atol=1e-4)

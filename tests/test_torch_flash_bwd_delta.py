@@ -28,6 +28,7 @@ from deepspeed_tpu_torch.ops.cuda import flash_attention as flash_cuda
 from deepspeed_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_delta_plain, flash_attention_bwd_plain,
     flash_attention_fwd_plain)
+from torch_threads import _one_torch_thread  # noqa: F401
 
 DELTA_TOL = dict(rtol=1e-5, atol=1e-5)
 DTYPES = {"float32": (torch.float32, jnp.float32),

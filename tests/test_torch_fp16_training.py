@@ -53,6 +53,7 @@ from deepspeed_tpu_torch.ops.adam import adam_hyper, init_state, reference_impl
 from deepspeed_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_plain, flash_attention_fwd_plain)
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfigError
+from torch_threads import _one_torch_thread  # noqa: F401
 
 FP16_OUT_TOL = dict(rtol=2.0 ** -10, atol=1e-6)
 
@@ -410,7 +411,7 @@ def test_ds_bench_cli_bf16_table_on_cpu(tiny_bench, capsys):
 
 
 @pytest.mark.parametrize("flags,exc,match", [
-    (["--offload", "cpu"], NotImplementedError, "ROADMAP A12"),
+    (["--buffer-count", "2"], NotImplementedError, "ROADMAP A12"),
     (["--offload-param", "nvme"], NotImplementedError, "ROADMAP A12"),
     (["--attn-block-q", "16"], ValueError, "fixed"),
 ])

@@ -31,6 +31,7 @@ from deepspeed_tpu_torch.models.transformer import (CausalTransformerLM,
                                                     check_servable,
                                                     check_trainable)
 from deepspeed_tpu_torch.ops import sparse_attention as tsa
+from torch_threads import _one_torch_thread  # noqa: F401
 
 # GPT-style, 2 layers, 2 heads of 96 (gpt_760m's head dim)
 GPT96 = dict(hidden_size=192, n_heads=2, activation="gelu",

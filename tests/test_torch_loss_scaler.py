@@ -16,6 +16,7 @@ import torch
 
 from deepspeed_tpu.runtime import loss_scaler as jls
 from deepspeed_tpu_torch.runtime import loss_scaler as tls
+from torch_threads import _one_torch_thread  # noqa: F401
 
 # (dynamic, initial scale power, hysteresis, scale_window, min_scale,
 # overflow probability): growth every 3 clean steps, a floor the shrinking

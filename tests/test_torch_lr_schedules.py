@@ -18,6 +18,7 @@ import torch
 
 from deepspeed_tpu.runtime import lr_schedules as jlr
 from deepspeed_tpu_torch.runtime import lr_schedules as tlr
+from torch_threads import _one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-6, atol=1e-12)
 N = 60

@@ -23,6 +23,7 @@ from deepspeed_tpu_torch.models.convert import (from_jax_params,
                                                 to_numpy_params)
 from deepspeed_tpu_torch.models.transformer import (CausalTransformerLM,
                                                     TransformerConfig)
+from torch_threads import _one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 

@@ -31,21 +31,10 @@ from deepspeed_tpu_torch.ops.adam import (adam_hyper, fused_adam, init_state,
 from deepspeed_tpu_torch.runtime.config import (DeepSpeedConfig,
                                                 DeepSpeedConfigError)
 from deepspeed_tpu_torch.runtime.optimizers import build_optimizer
+from torch_threads import _one_torch_thread  # noqa: F401
 
 SMALL = dict(hidden_size=32, n_heads=4, n_layers=2)
 BATCH = np.random.default_rng(0).integers(0, 256, (4, 16))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for eager torch on these small tensors: under
-    the suite's parallel workers 8 threads a worker oversubscribe the
-    cores (a trajectory here took 51.6 s with 8 threads, 2.4 s with 1, on
-    a host with 7 busy cores)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _run(steps, moment_dtype="float32", grad_accum_dtype=None, gas=1,

@@ -39,29 +39,19 @@ from deepspeed_tpu_torch.models.transformer import (CausalTransformerLM,
 from deepspeed_tpu_torch.ops import lamb as port_lamb
 from deepspeed_tpu_torch.runtime import engine as engine_mod
 from deepspeed_tpu_torch.runtime.optimizers import (ClientOptimizer,
-                                                    FlatLayout, Lamb,
-                                                    build_optimizer,
+                                                    FlatLayout, FusedAdam,
+                                                    Lamb, build_optimizer,
                                                     state_tensors)
+from torch_threads import _one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=2e-5)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for eager torch on these small tensors: under
-    the suite's parallel workers 8 threads a worker oversubscribe the
-    cores (a trajectory here took 51.6 s with 8 threads, 2.4 s with 1, on
-    a host with 7 busy cores)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 SHAPES = {"a": (33, 17), "b": (29,), "c": (3, 5, 7)}
 STEPS = 4
 
-# (name, params): every rule the JAX registry builds but cpuadam (A12)
+# (name, params): every rule the JAX registry builds but the Adam names
+# (cpuadam among them: the device Adam, tests/test_torch_adam.py)
 CASES = [
     ("lamb", {"lr": 1e-2, "weight_decay": 0.01}),
     ("fusedlamb", {"lr": 1e-2}),
@@ -297,8 +287,9 @@ def test_client_optimizer_precedence_and_warnings(monkeypatch):
     with pytest.raises(TypeError, match="class"):
         _port_engine(base, optimizer=torch.optim.SGD(
             [torch.zeros(2, requires_grad=True)], lr=0.1))
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        _port_engine(dict(base, optimizer={"type": "CPUAdam"}))
+    # cpuadam is the device Adam, as the JAX registry maps it
+    eng, *_ = _port_engine(dict(base, optimizer={"type": "CPUAdam"}))
+    assert isinstance(eng.optimizer, FusedAdam)
 
 
 def test_client_optimizer_under_fp16_and_bf16_gradients():

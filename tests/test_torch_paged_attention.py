@@ -42,6 +42,7 @@ from deepspeed_tpu_torch.ops.paged_attention import (PageAllocationError,
                                                      paged_decode_attention,
                                                      prefill_paged,
                                                      resolve_attention_backend)
+from torch_threads import _one_torch_thread  # noqa: F401
 
 H, HKV, D, PAGE = 4, 2, 8, 4
 NPAGES = 64

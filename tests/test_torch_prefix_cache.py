@@ -27,6 +27,7 @@ from deepspeed_tpu_torch.models.convert import from_jax_params
 from deepspeed_tpu_torch.models.transformer import (CausalTransformerLM,
                                                     TransformerConfig)
 from deepspeed_tpu_torch.ops.paged_attention import PagedAllocator
+from torch_threads import _one_torch_thread  # noqa: F401
 
 KW = dict(hidden_size=64, n_heads=4, n_kv_heads=2)
 

@@ -46,6 +46,7 @@ from deepspeed_tpu_torch.runtime.resilience import (
     COMMITTED, LEGACY, NO_MARKER, CheckpointCorruptError, DivergenceError,
     DivergenceSentinel, FaultInjector, RetryPolicy, TrainingPreempted,
     validate_tag)
+from torch_threads import _one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KW = dict(hidden_size=64, n_heads=4, n_kv_heads=2)

@@ -25,6 +25,7 @@ from deepspeed_tpu_torch.inference.serving import ServingEngine
 from deepspeed_tpu_torch.models.convert import from_jax_params
 from deepspeed_tpu_torch.models.transformer import (CausalTransformerLM,
                                                     TransformerConfig)
+from torch_threads import _one_torch_thread  # noqa: F401
 
 KW = dict(hidden_size=64, n_heads=4, n_kv_heads=2)
 

@@ -40,6 +40,7 @@ import chip_smoke
 from deepspeed_tpu_torch.models.transformer import alibi_slopes
 from deepspeed_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_plain, flash_attention_fwd_plain)
+from torch_threads import _one_torch_thread  # noqa: F401
 
 WITNESS_CASES = [  # (B, S, H, Hkv, causal, ALiBi, window)
     (2, 40, 4, 4, True, False, None),

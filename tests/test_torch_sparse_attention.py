@@ -29,6 +29,7 @@ from deepspeed_tpu_torch.ops import sparse_attention as tsa
 from deepspeed_tpu_torch.ops.cuda.sparse_attention import (
     EDGE_BIT, STEP_WIDTH, card_tables, layout_tables, sparse_attention_cuda,
     sparse_flops, step_overhead, step_tables)
+from torch_threads import _one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 H = 4

@@ -3,6 +3,9 @@
 * ``deepspeed_tpu_torch`` (every module of it, the checkpoint tools and
   the fault-tolerance layer among them) and ``chip_smoke.py`` import with
   ``jax`` and ``orbax`` blocked, and load no ``deepspeed_tpu`` module;
+* the host C++ of ZeRO-Offload is the port's own copy: built from scratch,
+  then run (the aio engine, the NVMe-swapped host Adam, the host benches),
+  it opens no file of the JAX package and hands none to ``g++``;
 * with no card, entry points called without ``device`` raise
   (``init_inference``, ``initialize``, the model);
 * the kernel wrappers and the ``"cuda"`` backend refuse CPU tensors.
@@ -35,6 +38,7 @@ from deepspeed_tpu_torch.ops.cuda.sparse_attention import \
 from deepspeed_tpu_torch.ops.decode_attention import (decode_attention,
                                                       init_cache)
 from deepspeed_tpu_torch.ops.sparse_attention import sparse_attention
+from torch_threads import _one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -63,6 +67,61 @@ def test_imports_without_jax_or_the_jax_package():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok ")
+
+
+_HOST_AUDIT = r"""
+import os, sys, tempfile
+sys.modules["jax"] = None
+jax_pkg = os.path.join(os.getcwd(), "deepspeed_tpu") + os.sep
+seen = []
+
+
+def audit(event, args):
+    if event in ("open", "subprocess.Popen", "os.exec", "ctypes.dlopen"):
+        seen.extend(str(a) for a in args if isinstance(a, (str, bytes))
+                    or hasattr(a, "__fspath__"))
+        for a in args:
+            if isinstance(a, (list, tuple)):
+                seen.extend(str(x) for x in a)
+
+
+sys.addaudithook(audit)
+import torch
+from deepspeed_tpu_torch.benchmarks.__main__ import main as ds_bench
+from deepspeed_tpu_torch.ops import aio, host_builder
+from deepspeed_tpu_torch.runtime.zero.config import DeepSpeedZeroConfig
+from deepspeed_tpu_torch.runtime.zero.offload import HostOffloadOptimizer
+tmp = tempfile.mkdtemp()
+host_builder.BUILD_DIR = host_builder.Path(tmp) / "build"
+h = aio.AsyncIOHandle()
+buf = h.new_cpu_locked_tensor(4096, torch.uint8)
+h.sync_pwrite(buf, os.path.join(tmp, "blob"))
+zc = DeepSpeedZeroConfig({"sub_group_size": 1000, "offload_optimizer": {
+    "device": "nvme", "nvme_path": tmp}})
+opt = HostOffloadOptimizer(torch.zeros(3000), zc)
+opt.step(torch.ones(3000))
+ds_bench(["cpu_adam", "--numel", "1000", "--reps", "1"])
+built = sorted(p.name.split("-")[0] for p in
+               host_builder.BUILD_DIR.glob("*.so"))
+bad = [a for a in seen if jax_pkg in os.path.abspath(a.strip("'\""))]
+assert built == ["libhost_aio", "libhost_cpu_adam"], built
+assert not bad, bad
+print("ok", len(seen))
+"""
+
+
+def test_host_code_is_the_ports_own():
+    from deepspeed_tpu_torch.ops import host_builder
+    port = os.path.join(REPO, "deepspeed_tpu_torch") + os.sep
+    assert str(host_builder.HOST_CSRC).startswith(port)
+    assert sorted(p.name for p in host_builder.HOST_CSRC.glob("*.cpp")) == \
+        ["aio.cpp", "cpu_adam.cpp"]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _HOST_AUDIT], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.splitlines()[-1].startswith("ok ")
 
 
 def test_entry_points_raise_without_a_card():

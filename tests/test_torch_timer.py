@@ -23,6 +23,7 @@ from deepspeed_tpu.utils import timer as jax_timer
 from deepspeed_tpu_torch.models.transformer import (CausalTransformerLM,
                                                     TransformerConfig)
 from deepspeed_tpu_torch.utils import timer as port_timer
+from torch_threads import _one_torch_thread  # noqa: F401
 
 MODULES = {"jax": jax_timer, "port": port_timer}
 

@@ -36,6 +36,7 @@ from deepspeed_tpu_torch.models.convert import (from_jax_params,
                                                 to_numpy_params)
 from deepspeed_tpu_torch.models.transformer import (CausalTransformerLM,
                                                     TransformerConfig)
+from torch_threads import _one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -319,19 +320,22 @@ def test_three_call_api_matches_jax_at_gas3():
                                    atol=2e-5, err_msg=key)
 
 
-# what the training config still cannot run raises: offload and host
-# Adam, activations offloaded to the host, a mesh wider than one rank (the
-# last column: initialize's other arguments).  fp16 master weights, bf16
-# moments and gradients, every other optimizer and client optimizers train
-# since ROADMAP A6 / A7 (tests/test_torch_optimizers.py,
-# test_torch_moment_dtype.py, test_torch_activation_checkpointing.py)
+# what the training config still cannot run raises: parameter offload
+# (the legacy key too) and the tiered memory block, the rest of A12; a
+# mesh wider than one rank (the last column: initialize's other
+# arguments).  fp16 master weights, bf16 moments and gradients, every other
+# optimizer and client optimizers train since ROADMAP A6 / A7
+# (tests/test_torch_optimizers.py, test_torch_moment_dtype.py,
+# test_torch_activation_checkpointing.py); optimizer offload, cpuadam and
+# cpu_checkpointing since A12's first part (tests/test_torch_offload.py)
 @pytest.mark.parametrize("block,item,client", [
     ({"zero_optimization": {"stage": 2,
-                            "offload_optimizer": {"device": "cpu"}}}, "A12",
+                            "offload_param": {"device": "cpu"}}}, "A12",
      {}),
-    ({"optimizer": {"type": "CPUAdam", "params": {}}}, "A12",
+    ({"memory": {"placement_policy": "nvme", "nvme_dir": "d"}}, "A12",
      {"optimizer": torch.optim.SGD}),
-    ({"activation_checkpointing": {"cpu_checkpointing": True}}, "A12", {}),
+    ({"zero_optimization": {"stage": 2, "cpu_offload_param": True}}, "A12",
+     {}),
     ({"mesh": {"fsdp": 2}}, "A8", {}),
 ])
 def test_unported_blocks_raise(block, item, client):
