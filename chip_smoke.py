@@ -5907,8 +5907,9 @@ OFFLOAD_SWAP_DIR = os.path.join(REPO, ".tmp", "offload_swap")
 # free disk the nvme run needs: its two fp32 moments with a tenth to spare
 OFFLOAD_DISK_FACTOR = 1.1
 # cut to 2 timed steps (the CLI's default 10 cost ~25 s more): the
-# smoke passed 1000 s (PERF.md section 4)
-OFFLOAD_CLI_STEPS = 2
+# smoke passed 1000 s (PERF.md section 4); to 1 since phase train-stream
+# runs the same model under --offload-param (PERF.md section 4)
+OFFLOAD_CLI_STEPS = 1
 OFFLOAD_CLI_ARGV = ["--model", "gpt_2_7b", "--offload", "cpu", "--steps",
                     str(OFFLOAD_CLI_STEPS)]
 # The Gemma-7B shape (GEMMA_7B: 8.54 B parameters, 12 B a parameter of
@@ -5992,11 +5993,24 @@ def _crc(t):
     return zlib.crc32(t.detach().cpu().numpy())
 
 
-def _offload_run(cfg, conf, batches, label, crc=True):
-    """``initialize`` the model of ``cfg`` (seed 0) with ``conf`` and take
-    a train_batch per batch, counters read around them.  Returns the
-    record: losses, grad norms, counts, host Adam calls, the engine's
-    offload facts, the master's crc32 (``crc``) and the peak device GB."""
+def _named_crc(engine):
+    """crc32 of the engine's fp32 master, parameter by parameter in name
+    order (``module_state_dict``: the same for every engine)."""
+    import zlib
+    crc = 0
+    for name, t in sorted(engine.module_state_dict().items()):
+        crc = zlib.crc32(t.numpy(), crc)
+    return crc
+
+
+def _offload_run(cfg, conf, batches, label, crc=True, init=None,
+                 eval_batch=None, named_crc=False):
+    """``initialize`` the model of ``cfg`` (seed 0 on the card, or the
+    host-drawn state dict ``init``) with ``conf`` and take a train_batch
+    per batch, counters read around them.  Returns the record: losses,
+    grad norms, counts, host Adam calls, the engine's offload facts, the
+    master's crc32 (``crc``; by parameter name with ``named_crc``), the
+    peak device GB and the loss of ``eval_batch`` after the steps."""
     import torch
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.transformer import CausalTransformerLM
@@ -6005,9 +6019,13 @@ def _offload_run(cfg, conf, batches, label, crc=True):
     torch.cuda.reset_peak_memory_stats()
     rss = [_rss_gb()[0]]
     t0 = time.time()
-    engine, *_ = deepspeed_tpu_torch.initialize(
-        model=scale_embedding(CausalTransformerLM(cfg, device="cuda")
-                              .init(0)), config=conf)
+    model = CausalTransformerLM(cfg, device="cuda")
+    if init is None:
+        model = scale_embedding(model.init(0))
+    else:
+        model.load_state_dict(init)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=conf)
+    del model
     torch.cuda.synchronize()
     t_init = time.time() - t0
     rss.append(_rss_gb()[0])
@@ -6025,7 +6043,10 @@ def _offload_run(cfg, conf, batches, label, crc=True):
          "walls": walls, "counts": read_counters(), "rss_gb": rss,
          "adam_calls": cpu_adam.adam_update.calls, "init_s": t_init,
          "master_crc": _crc(engine.master) if crc else None,
+         "named_crc": _named_crc(engine) if named_crc else None,
          "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if eval_batch is not None:
+        r["eval"] = float(engine.eval_batch(eval_batch))
     off = engine._offload
     if off is not None:
         r.update(subgroups=len(off.subgroups),
@@ -6050,16 +6071,20 @@ def _rel(a, b):
 
 
 def phase_offload_vs_device(facts):
-    """(a) and (b): gpt_350m at full depth from one seed and the same
-    OFFLOAD_STEPS batches on the device path, with offload_optimizer cpu
-    and with nvme.  The first loss bit for bit equal; later losses and
-    grad norms within OFFLOAD_REL_TOL; B1 / B2 launches exact and equal,
-    no B3 under offload, the host Adam once a sub-group a step; the nvme
-    master's crc32 the cpu one's.  Returns the three records."""
+    """(a) and (b): gpt_350m at full depth from one seed's weights held on
+    the host (phase train-stream takes them too) and the same OFFLOAD_STEPS
+    batches on the device path, with offload_optimizer cpu and with nvme.
+    The first loss bit for bit equal; later losses and grad norms within
+    OFFLOAD_REL_TOL; B1 / B2 launches exact and equal, no B3 under
+    offload, the host Adam once a sub-group a step; the nvme master's
+    crc32 the cpu one's.  Returns the three records and what phase
+    train-stream reuses: the config, the batches, the weights and an
+    eval batch."""
     import shutil
     import numpy as np
     from deepspeed_tpu_torch.benchmarks.training import (ds_config,
                                                          model_config)
+    from deepspeed_tpu_torch.models.transformer import CausalTransformerLM
     d = CLI_DEFAULTS
     cfg = model_config(OFFLOAD_MODEL, d["seq"])
     need = OFFLOAD_DISK_FACTOR * 8 * cfg.num_params() / 1e9
@@ -6071,14 +6096,26 @@ def phase_offload_vs_device(facts):
     batches = [{"input_ids": rng.integers(0, cfg.vocab_size,
                                           (d["batch"], d["seq"]))}
                for _ in range(OFFLOAD_STEPS)]
+    eval_ids = {"input_ids": rng.integers(0, cfg.vocab_size,
+                                          (d["batch"], d["seq"]))}
+    # held on the host (the parameter stream takes them from there),
+    # drawn on the card a tensor at a time: the weights of a model built
+    # there
+    t0 = time.time()
+    init = CausalTransformerLM(cfg, device="cpu").init(
+        0, draw_device="cuda").state_dict()
+    t_draw = time.time() - t0
     shutil.rmtree(OFFLOAD_SWAP_DIR, ignore_errors=True)
     nvme = ds_config(d["batch"], d["gas"], offload="nvme")
     nvme["zero_optimization"]["offload_optimizer"]["nvme_path"] = \
         OFFLOAD_SWAP_DIR
-    runs = [_offload_run(cfg, conf, batches, label) for label, conf in (
-        ("device", ds_config(d["batch"], d["gas"])),
-        ("cpu", ds_config(d["batch"], d["gas"], offload="cpu")),
-        ("nvme", nvme))]
+    runs = [_offload_run(cfg, conf, batches, label, init=init,
+                         eval_batch=eval_ids if label == "cpu" else None,
+                         named_crc=label == "cpu")
+            for label, conf in (
+                ("device", ds_config(d["batch"], d["gas"])),
+                ("cpu", ds_config(d["batch"], d["gas"], offload="cpu")),
+                ("nvme", nvme))]
     shutil.rmtree(OFFLOAD_SWAP_DIR, ignore_errors=True)
     dev, cpu, nv = runs
     check_train_launches(dev["counts"], cfg, d["gas"], OFFLOAD_STEPS,
@@ -6106,7 +6143,8 @@ def phase_offload_vs_device(facts):
         fail(f"train-offload (b): nvme master crc32 {nv['master_crc']:#x} "
              f"vs cpu {cpu['master_crc']:#x}, swap dir fsck {nv['fsck']}")
     phase("train-offload", f"(a) {OFFLOAD_MODEL} {cfg.n_layers} layers, "
-          f"{cfg.num_params() / 1e9:.3f} B params, micro {d['batch']} x seq "
+          f"{cfg.num_params() / 1e9:.3f} B params (drawn into host memory "
+          f"in {t_draw:.1f} s), micro {d['batch']} x seq "
           f"{d['seq']}, bf16, {OFFLOAD_STEPS} steps: losses device "
           f"{dev['losses']} vs offload cpu {cpu['losses']} (first bit for "
           f"bit, max rel {max(rels):.2e} with the grad norms, tol "
@@ -6136,7 +6174,7 @@ def phase_offload_vs_device(facts):
           f"{(nl['swap_read_bytes'] + nl['swap_write_bytes']) / nl['wall_s'] / 1e9:.2f}"
           f" GB/s over the host step; train_batch wall ms "
           f"{[round(x, 1) for x in nv['walls']]}")
-    return runs
+    return runs, dict(cfg=cfg, batches=batches, init=init, eval=eval_ids)
 
 
 def phase_offload_cli(base, base_dev_ms):
@@ -6176,6 +6214,7 @@ def phase_offload_cli(base, base_dev_ms):
         DeepSpeedEngine.train_batch = real
     counts = read_counters()
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["device_ms"] = prof["ms"]
     _free()
     phase("train-offload", f"(c) ds_bench train {' '.join(OFFLOAD_CLI_ARGV)}"
           f": " + " | ".join(buf.getvalue().split()))
@@ -6265,22 +6304,333 @@ def phase_host_benches():
               f"{time.time() - t0:.1f} s")
 
 
-def phase_train_offload(facts, base, base_dev_ms):
-    """Phase train-offload, (a)-(d) and the host benches.  Returns
-    {head dim: the B1 / B2 launches of its runs} and the device path's
-    B3 launches."""
+# ----------------------------------------------------------------------
+# phase train-stream: ZeRO-Infinity's parameter stream (ROADMAP A12b).
+# (a) gpt_350m at the CLI's shape, full depth, under offload_param cpu from
+# train-offload (a)'s host-drawn weights and batches, against its
+# offload_optimizer cpu run; (b) the same under offload_param nvme in
+# STREAM_SWAP_DIR for STREAM_NVME_STEPS steps, its masters against (a)'s at
+# that step; (c) ``ds_bench train --model gpt_2_7b --offload-param cpu`` as
+# typed, beside train-offload (c); (d) the boundary bench.
+STREAM_SWAP_DIR = os.path.join(REPO, ".tmp", "stream_swap")
+STREAM_NVME_STEPS = 2
+STREAM_CLI_STEPS = 2
+STREAM_CLI_ARGV = ["--model", "gpt_2_7b", "--offload-param", "cpu",
+                   "--steps", str(STREAM_CLI_STEPS)]
+# the card's peak under the stream: at most this share of train-offload
+# (c)'s (the same model with the optimizer alone on the host)
+STREAM_PEAK_SHARE = 0.5
+# host bytes a parameter of the stream's store (fp32 master, two fp32
+# moments, a bf16 mirror, an fp32 gradient accumulator) and of the bf16
+# model the CLI builds on the host before the store takes it
+STREAM_HOST_BYTES = 18 + 2
+# the boundary bench at a quarter of its default depth and half its
+# writeback (its defaults, hidden 2048 x 16 layers and 200 M elements, took
+# 40.0 s of the 118.1 s phase in F26a; PERF.md section 4)
+STREAM_BOUNDARY_ARGV = ["--layers", "4", "--numel", "100000000", "--reps",
+                        "2"]
+
+
+def _stream_store_crc(runner):
+    """crc32 of the stream store's masters (the resident group's, then
+    the layers' plane): one layout under every tier."""
+    import zlib
+    store = runner.store
+    crc = zlib.crc32(store.res_master.numpy())
+    return zlib.crc32(store.masters.numpy(), crc)
+
+
+def _stream_run(cfg, conf, init, batches, label, eval_batch=None,
+                crc_at=None):
+    """``initialize`` a host model of ``cfg`` holding ``init`` under
+    ``conf`` (offload_param) and take a train_batch per batch, counters
+    read around them.  Returns the record: losses, grad norms, walls,
+    counts, host Adam calls, the stream's last step, the store's stats,
+    the peak device GB, the crc32 of the masters after ``crc_at`` steps
+    and by name at the end, and the loss of ``eval_batch``."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.transformer import CausalTransformerLM
+    from deepspeed_tpu_torch.ops import cpu_adam
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    rss = [_rss_gb()[0]]
     t0 = time.time()
-    runs = phase_offload_vs_device(facts)
-    _, cli_counts = phase_offload_cli(base, base_dev_ms)
+    model = CausalTransformerLM(cfg, device="cpu")
+    model.load_state_dict(init)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=conf)
+    del model
+    torch.cuda.synchronize()
+    t_init = time.time() - t0
+    rss.append(_rss_gb()[0])
+    runner = engine._param_stream
+    reset_counters()
+    cpu_adam.adam_update.calls = 0
+    r = {"label": label, "losses": [], "norms": [], "walls": []}
+    for i, b in enumerate(batches):
+        t0 = time.time()
+        r["losses"].append(float(engine.train_batch(batch=b)))
+        torch.cuda.synchronize()
+        r["walls"].append((time.time() - t0) * 1e3)
+        r["norms"].append(engine.get_global_grad_norm())
+        if crc_at == i + 1:
+            r["store_crc"] = _stream_store_crc(runner)
+        rss.append(_rss_gb()[0])
+    r.update(counts=read_counters(), rss_gb=rss, init_s=t_init,
+             adam_calls=cpu_adam.adam_update.calls,
+             peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+             last=dict(runner.last_step), stats=runner.store.tiered.stats(),
+             layers=runner.n_layers)
+    if eval_batch is not None:
+        r["eval"] = float(engine.eval_batch(eval_batch))
+    r["named_crc"] = _named_crc(engine)
+    if not all(math.isfinite(x) for x in r["losses"]):
+        fail(f"train-stream {label}: non-finite loss {r['losses']}")
+    del engine, runner
+    _free()
+    return r
+
+
+def _stream_line(last):
+    """The stream's last step (``ParamStreamRunner.last_step``) as
+    printed: its split, copies and prefetches."""
+    return (f"last step {last['wall_s'] * 1e3:.1f} ms on the host's clock, "
+            f"boundary {last['boundary_s'] * 1e3:.1f} ms (host Adam "
+            f"{last['update_s'] * 1e3:.1f} ms), gradient landing waits "
+            f"{last['land_wait_s'] * 1e3:.1f} ms; H2D "
+            f"{last['h2d_bytes'] / 1e9:.3f} GB in {last['h2d_ms']:.1f} ms "
+            f"({last['h2d_gbps']:.1f} GB/s), D2H {last['d2h_bytes'] / 1e9:.3f}"
+            f" GB in {last['d2h_ms']:.1f} ms ({last['d2h_gbps']:.1f} GB/s); "
+            f"prefetch hits {last['prefetch_hits']}, misses "
+            f"{last['prefetch_misses']}")
+
+
+def phase_stream_vs_offload(off_cpu, shared):
+    """(a) and (b): the stream of gpt_350m against train-offload (a)'s
+    offload_optimizer cpu run ``off_cpu`` on the same host-drawn weights
+    and batches (``shared``).  The first loss bit for bit equal; later
+    losses and grad norms within OFFLOAD_REL_TOL, and one eval_batch after
+    the steps; B1 / B2 launches exact and equal to the offload run's, B3
+    none, the host Adam once a unit a step; the nvme stream's masters'
+    crc32 the cpu stream's at STREAM_NVME_STEPS.  Returns both records."""
+    import shutil
+    from deepspeed_tpu_torch.benchmarks.training import ds_config
+    d = CLI_DEFAULTS
+    cfg, batches = shared["cfg"], shared["batches"]
+    a = _stream_run(cfg, ds_config(d["batch"], d["gas"], offload_param="cpu"),
+                    shared["init"], batches, "(a) cpu",
+                    eval_batch=shared["eval"], crc_at=STREAM_NVME_STEPS)
+    a["launched"] = check_train_launches(a["counts"], cfg, d["gas"],
+                                         len(batches), "train-stream (a)",
+                                         adam=False)
+    if a["launched"] != off_cpu["launched"]:
+        fail(f"train-stream (a): launches {a['launched']}, the offload "
+             f"run's {off_cpu['launched']}")
+    want_adam = len(batches) * (cfg.n_layers + 1)
+    if a["adam_calls"] != want_adam:
+        fail(f"train-stream (a): {a['adam_calls']} host Adam calls, "
+             f"expected {want_adam} (one a unit a step)")
+    if a["losses"][0] != off_cpu["losses"][0]:
+        fail(f"train-stream (a): first loss {a['losses'][0]!r} streamed, "
+             f"{off_cpu['losses'][0]!r} under optimizer offload")
+    rels = [max(_rel(x, y), _rel(nx, ny)) for x, y, nx, ny in zip(
+        a["losses"], off_cpu["losses"], a["norms"], off_cpu["norms"])]
+    eval_rel = _rel(a["eval"], off_cpu["eval"])
+    if max(rels + [eval_rel]) > OFFLOAD_REL_TOL:
+        fail(f"train-stream (a): losses {a['losses']} / {off_cpu['losses']}"
+             f", grad norms {a['norms']} / {off_cpu['norms']}, eval "
+             f"{a['eval']} / {off_cpu['eval']}: rel "
+             f"{max(rels + [eval_rel]):.2e} > {OFFLOAD_REL_TOL}")
+    same = a["named_crc"] == off_cpu["named_crc"]
+    phase("train-stream", f"(a) {OFFLOAD_MODEL} {cfg.n_layers} layers, "
+          f"micro {d['batch']} x seq {d['seq']}, bf16, offload_param cpu "
+          f"(init {a['init_s']:.1f} s): losses {a['losses']} vs optimizer "
+          f"offload {off_cpu['losses']} (first bit for bit, max rel "
+          f"{max(rels):.2e} with the grad norms {[round(x, 5) for x in a['norms']]}"
+          f" / {[round(x, 5) for x in off_cpu['norms']]}, tol "
+          f"{OFFLOAD_REL_TOL}); eval_batch {a['eval']!r} vs "
+          f"{off_cpu['eval']!r} (rel {eval_rel:.2e}); masters after "
+          f"{len(batches)} steps bit for bit with the offload run's: {same} "
+          f"(crc32 {a['named_crc']:#010x} / {off_cpu['named_crc']:#010x}); "
+          f"launches {a['launched']}, the offload run's, B3 0; host Adam "
+          f"{a['adam_calls']} calls ({cfg.n_layers + 1} units a step); peak "
+          f"{a['peak_gb']:.2f} vs {off_cpu['peak_gb']:.2f} GB; train_batch "
+          f"wall ms {[round(x, 1) for x in a['walls']]} vs "
+          f"{[round(x, 1) for x in off_cpu['walls']]}")
+    phase("train-stream", f"(a) {_stream_line(a['last'])}")
+    n = cfg.num_params()
+    need = OFFLOAD_DISK_FACTOR * 10 * n / 1e9     # master, mirror, gradients
+    free = shutil.disk_usage(os.path.dirname(STREAM_SWAP_DIR)).free / 1e9
+    if free < need:
+        fail(f"train-stream (b): {free:.1f} GB free under "
+             f"{os.path.dirname(STREAM_SWAP_DIR)}, {need:.1f} GB needed")
+    shutil.rmtree(STREAM_SWAP_DIR, ignore_errors=True)
+    conf = ds_config(d["batch"], d["gas"], offload_param="nvme")
+    conf["zero_optimization"]["offload_param"]["nvme_path"] = STREAM_SWAP_DIR
+    b = _stream_run(cfg, conf, shared["init"], batches[:STREAM_NVME_STEPS],
+                    "(b) nvme", crc_at=STREAM_NVME_STEPS)
+    shutil.rmtree(STREAM_SWAP_DIR, ignore_errors=True)
+    b["launched"] = check_train_launches(b["counts"], cfg, d["gas"],
+                                         STREAM_NVME_STEPS,
+                                         "train-stream (b)", adam=False)
+    if b["store_crc"] != a["store_crc"] or \
+            b["losses"] != a["losses"][:STREAM_NVME_STEPS]:
+        fail(f"train-stream (b): nvme masters crc32 {b['store_crc']:#x}, "
+             f"losses {b['losses']}; cpu {a['store_crc']:#x}, "
+             f"{a['losses'][:STREAM_NVME_STEPS]}")
+    phase("train-stream", f"(b) offload_param nvme under {STREAM_SWAP_DIR}, "
+          f"{cfg.n_layers} layers, {STREAM_NVME_STEPS} steps: masters' "
+          f"crc32 {b['store_crc']:#010x} = (a)'s at step "
+          f"{STREAM_NVME_STEPS}, losses equal; init {b['init_s']:.1f} s, "
+          f"train_batch wall ms {[round(x, 1) for x in b['walls']]}; "
+          f"{_stream_line(b['last'])}")
+    return a, b
+
+
+def phase_stream_cli(off_cli):
+    """(c) ``ds_bench train`` with STREAM_CLI_ARGV, its last train_batch
+    profiled: the printout, finite losses, the first one bit for bit the
+    ``--offload cpu`` run's, exact launches without B3, the
+    wall and device ms a train_batch, the stream's last step and the
+    card's peak and the process's RSS, beside train-offload (c)'s run of
+    the same model (``off_cli``); it fails unless the peak is at most
+    STREAM_PEAK_SHARE of that run's.  Returns (result, counts)."""
+    import contextlib
+    import io
+    import torch
+    from deepspeed_tpu_torch.benchmarks.training import main, model_config
+    from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
+    d = dict(CLI_DEFAULTS, model="gpt_2_7b", steps=STREAM_CLI_STEPS)
+    cfg = model_config(d["model"], d["seq"])
+    need = STREAM_HOST_BYTES * cfg.num_params() / 1e9
+    avail = _meminfo()["MemAvailable"] / 1e9
+    rss0 = _rss_gb()[0]
+    if avail < need:
+        fail(f"train-stream (c): MemAvailable {avail:.1f} GB, the stream's "
+             f"host store and model need {need:.1f} GB")
+    calls = d["steps"] + 1
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    reset_counters()
+    real, seen, prof = DeepSpeedEngine.train_batch, [], {}
+
+    def train_batch(engine, *args, **kwargs):
+        seen.append(1)
+        if len(seen) < calls:
+            return real(engine, *args, **kwargs)
+        prof["ms"], prof["top"], _ = profile_device(
+            lambda: prof.setdefault("loss", real(engine, *args, **kwargs)),
+            1)
+        prof["rss"] = _rss_gb()[0]
+        return prof["loss"]
+    DeepSpeedEngine.train_batch = train_batch
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = main(STREAM_CLI_ARGV)
+    finally:
+        DeepSpeedEngine.train_batch = real
+    t_run = time.time() - t0
+    counts = read_counters()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    _free()
+    phase("train-stream", f"(c) ds_bench train {' '.join(STREAM_CLI_ARGV)}: "
+          + " | ".join(buf.getvalue().split()))
+    if not all(math.isfinite(x) for x in out["losses"]):
+        fail(f"train-stream (c): non-finite loss {out['losses']}")
+    # the same seed's weights (drawn on the card a tensor at a time into
+    # the host model) and the same first batch: the same first loss
+    if out["losses"][0] != off_cli["losses"][0]:
+        fail(f"train-stream (c): first loss {out['losses'][0]!r} streamed, "
+             f"{off_cli['losses'][0]!r} under --offload cpu")
+    check_train_launches(counts, cfg, d["gas"], calls, "train-stream (c)",
+                         adam=False)
+    last, dev_ms, wall = out["offload_step"], prof["ms"], \
+        out["ms_per_train_batch"]
+    ol = off_cli["offload_step"]
+    phase("train-stream", f"(c) gpt_2_7b offload_param cpu "
+          f"({cfg.num_params() / 1e9:.3f} B params, {need:.1f} GB of host "
+          f"store and model; MemAvailable {avail:.1f} GB and the process's "
+          f"RSS {rss0:.1f} GB before, {prof['rss']:.1f} GB in the last call,"
+          f" its peak so far {_rss_gb()[1]:.1f} GB; the whole command "
+          f"{t_run:.1f} s): {wall:.1f} ms a train_batch on the wall (the "
+          f"last of {calls} calls profiled), device {dev_ms:.1f} ms that "
+          f"train_batch, busy share {dev_ms / wall:.3f}; losses "
+          f"{out['losses']} (the first bit for bit train-offload (c)'s); "
+          f"{_stream_line(last)}"
+          f"; peak {out['peak_gb']:.2f} GB | optimizer offload alone "
+          f"(train-offload (c)): {off_cli['ms_per_train_batch']:.1f} ms a "
+          f"train_batch, device {off_cli['device_ms']:.1f} ms, host Adam "
+          f"{ol['update_s'] * 1e3:.1f} ms, D2H {ol['d2h_gbps']:.1f} GB/s, "
+          f"H2D {ol['h2d_gbps']:.1f} GB/s, peak {off_cli['peak_gb']:.2f} GB")
+    if out["peak_gb"] > STREAM_PEAK_SHARE * off_cli["peak_gb"]:
+        fail(f"train-stream (c): peak {out['peak_gb']:.2f} GB, over "
+             f"{STREAM_PEAK_SHARE} x train-offload (c)'s "
+             f"{off_cli['peak_gb']:.2f} GB")
+    for kname, k_ms in prof["top"]:
+        phase("train-stream", f"  gpt_2_7b stream device ms/train_batch "
+              f"{k_ms:.3f}  {kname[:90]}")
+    return out, counts
+
+
+def phase_stream_boundary():
+    """(d) ``python -m deepspeed_tpu_torch.benchmarks.param_stream_boundary``
+    with STREAM_BOUNDARY_ARGV: its JSON lines."""
+    import contextlib
+    import io
+    from deepspeed_tpu_torch.benchmarks.param_stream_boundary import main
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        main(STREAM_BOUNDARY_ARGV)
+    for line in buf.getvalue().splitlines():
+        phase("train-stream", f"(d) param_stream_boundary "
+              f"{' '.join(STREAM_BOUNDARY_ARGV) or '(defaults)'}: {line}")
+    phase("train-stream", f"(d) {time.time() - t0:.1f} s")
+
+
+def phase_train_stream(off_cpu, shared, off_cli):
+    """Phase train-stream, (a)-(d).  Returns {head dim: the B1 / B2
+    launches of its runs}."""
+    t0 = time.time()
+    phase("train-stream", f"MemAvailable "
+          f"{_meminfo()['MemAvailable'] / 1e9:.1f} GB, the process's RSS "
+          f"{_rss_gb()[0]:.1f} GB at the start")
+    a, b = phase_stream_vs_offload(off_cpu, shared)
+    _, cli_counts = phase_stream_cli(off_cli)
+    phase_stream_boundary()
+    flash = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+    by_d = {64: {k: a["counts"][k] + b["counts"][k] for k in flash},
+            80: {k: cli_counts[k] for k in flash}}
+    phase("train-stream", f"done in {time.time() - t0:.1f} s; the process's "
+          f"RSS {_rss_gb()[0]:.1f} GB; B1 / B2 launches by head dim {by_d}")
+    return by_d
+
+
+def phase_train_offload(facts, base, base_dev_ms):
+    """Phase train-offload, (a)-(c), then phase train-stream (before (d):
+    its host store is freed before the Gemma-7B shape's fills the host),
+    then (d) and the host benches.  Returns {head dim: the B1 / B2
+    launches of their runs} and the device path's B3 launches."""
+    t0 = time.time()
+    runs, shared = phase_offload_vs_device(facts)
+    cli_out, cli_counts = phase_offload_cli(base, base_dev_ms)
+    t_offload = time.time() - t0
+    stream = phase_train_stream(runs[1], shared, cli_out)
+    t0 = time.time()
     gemma = phase_offload_gemma(facts)
     phase_host_benches()
     flash = ("flash_attention_fwd", "flash_attention_bwd_dq",
              "flash_attention_bwd_dkv")
-    by_d = {64: {k: sum(r["counts"][k] for r in runs) for k in flash},
-            80: {k: cli_counts[k] for k in flash},
+    by_d = {64: {k: sum(r["counts"][k] for r in runs) +
+                 stream[64][k] for k in flash},
+            80: {k: cli_counts[k] + stream[80][k] for k in flash},
             256: {k: gemma["counts"][k] for k in flash}}
-    phase("train-offload", f"done in {time.time() - t0:.1f} s; B1 / B2 "
-          f"launches by head dim {by_d}")
+    phase("train-offload", f"done in {t_offload + time.time() - t0:.1f} s "
+          f"(phase train-stream apart); B1 / B2 launches by head dim, "
+          f"train-stream's among them, {by_d}")
     return by_d, runs[0]["counts"]["fused_adam"]
 
 

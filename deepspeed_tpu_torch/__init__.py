@@ -11,7 +11,8 @@ and ``create_serving_engine``) and training on one card
 every built-in optimizer, or a client ``torch.optim`` one; bf16 moments
 and gradients; LR schedules; activation checkpointing, ``cpu_checkpointing``
 too; ZeRO-Offload's optimizer on the host, its moments in RAM or swapped to
-NVMe; durable checkpoints, the data loader and the fault-tolerance layer),
+NVMe; ZeRO-Infinity's parameter stream, the parameters on the host or
+NVMe and a window of layers on the card; durable checkpoints, the data loader and the fault-tolerance layer),
 the host benches (``benchmarks``: ``cpu_adam``, ``aio``, ``offload``), serving from a checkpoint
 (``init_inference(config={"checkpoint": dir})``) and the checkpoint tools
 (``checkpoint/``).  Entry points run on the card unless
@@ -52,7 +53,13 @@ def initialize(args=None, model=None, model_parameters=None, config=None,
     defaults to the card and raises without one.  The optimizer returned
     is the engine's (``runtime/optimizers``; a client one's
     ``torch.optim`` instance is its ``.optimizer``; under
-    ``offload_optimizer`` the host one of ``runtime/zero/offload``)."""
+    ``offload_optimizer`` the host one of ``runtime/zero/offload``; under
+    ``offload_param`` the stream's host store).  Under
+    ``zero_optimization.offload_param`` the parameters go straight into
+    the stream's host store -- ``model_parameters`` as host tensors, else
+    the module's own, which may be built with ``device="cpu"`` (or
+    ``"meta"`` beside ``model_parameters``) so the whole model never
+    lives on the card."""
     if model is None:
         raise ValueError("deepspeed_tpu_torch.initialize: model is required")
     if config is None and getattr(args, "deepspeed_config", None):
@@ -62,14 +69,19 @@ def initialize(args=None, model=None, model_parameters=None, config=None,
                          "config= argument")
     if not isinstance(config, DeepSpeedConfig):
         config = DeepSpeedConfig(config)
+    host_params = None
     if model_parameters is not None:
         from deepspeed_tpu_torch.models.convert import from_jax_params
-        model.load_state_dict(from_jax_params(model_parameters,
-                                              model.config), strict=True)
+        named = from_jax_params(model_parameters, model.config)
+        if config.zero_config.offload_param_device != "none":
+            host_params = named
+        else:
+            model.load_state_dict(named, strict=True)
     engine = DeepSpeedEngine(model, config, device=device,
                              lr_scheduler=lr_scheduler,
                              training_data=training_data,
-                             collate_fn=collate_fn, optimizer=optimizer)
+                             collate_fn=collate_fn, optimizer=optimizer,
+                             host_params=host_params)
     return (engine, engine.optimizer, engine.training_dataloader,
             engine.lr_scheduler)
 

@@ -13,18 +13,30 @@ for a run on a CUDA device.  Usage::
         --batch 2 --gas 4 --seq 1024 --dtype fp16 --steps 10 \
         [--moment-dtype bfloat16] [--grad-accum-dtype bfloat16] \
         [--remat-policy dots_saveable] [--offload cpu|nvme] \
-        [--scheduler WarmupDecayLR] [--initial-scale-power 16] [--json]
+        [--offload-param cpu|nvme [--resident-layers N] [--buffer-count N] \
+        [--serial-boundary]] [--scheduler WarmupDecayLR] \
+        [--initial-scale-power 16] [--json]
 
 The flags are the JAX CLI's; those the port cannot run yet raise naming
 their ROADMAP item.  Every layer is rematerialised under ``--remat-policy``
 (default ``dots_saveable``, the JAX benchmark's: the matrix products'
 outputs are kept, the rest recomputed in the backward).  ``--offload cpu``
 or ``nvme`` runs the optimizer on the host (ZeRO-Offload; with nvme its
-moments swap to files under the temp dir, ``$TMPDIR`` or ``/tmp``).  ``--scheduler`` (WarmupLR or WarmupDecayLR, warming
+moments swap to files under the temp dir, ``$TMPDIR`` or ``/tmp``).
+``--offload-param cpu`` or ``nvme`` streams the parameters from the host
+(ZeRO-Infinity's parameter stream, with the optimizer on the host too,
+``--offload cpu`` unless given): the model is built on the host at the
+compute dtype, so it never lives on the card whole (its weights drawn
+there a tensor at a time: those of a run without the flag);
+``--resident-layers``
+pins the first layers on the card, ``--buffer-count`` sets the window,
+``--serial-boundary`` takes the boundary's serial walk (the ablation).
+``--scheduler`` (WarmupLR or WarmupDecayLR, warming
 up from 0 to the AdamW lr over a tenth of the run), ``--initial-scale-power``
 (fp16's dynamic loss scale starts at 2**power) and ``--device`` (``cpu``
 for a run off the card) are the port's own.  Printed: the JAX CLI's keys
-plus ``loss_scale`` and ``skipped_steps``.
+(``offload_param``, ``resident_layers`` and ``boundary`` under
+``--offload-param``) plus ``loss_scale`` and ``skipped_steps``.
 """
 
 import argparse
@@ -100,14 +112,18 @@ def scheduler_config(name, total_steps, lr=LR):
 
 def ds_config(batch, gas, dtype="bf16", scheduler=None,
               initial_scale_power=None, moment_dtype="float32",
-              grad_accum_dtype=None, offload=None):
+              grad_accum_dtype=None, offload=None, offload_param=None,
+              resident_layers=0, buffer_count=None):
     """The engine config of the JAX benchmark at world size 1: AdamW at
     lr 1e-4 with ``moment_dtype`` moments, ``dtype`` ("bf16" or "fp16",
     dynamic loss scaling with DeepSpeed's defaults, starting at
     2**``initial_scale_power`` when given), ``scheduler`` (a ``scheduler``
     block) when given, the optimizer offloaded to ``offload`` ("cpu" or
-    "nvme") when given.  Its ZeRO stage is left out: at world size 1 every
-    stage computes the same step (multi-rank ZeRO is ROADMAP A8)."""
+    "nvme") when given, the parameters streamed from ``offload_param``
+    ("cpu" or "nvme", with ``resident_layers`` and ``buffer_count``; the
+    optimizer on the host, cpu unless ``offload`` says otherwise) when
+    given.  Its ZeRO stage is left out: at world size 1 every stage
+    computes the same step (multi-rank ZeRO is ROADMAP A8)."""
     precision = {"enabled": True}
     if dtype == "fp16" and initial_scale_power is not None:
         precision["initial_scale_power"] = int(initial_scale_power)
@@ -120,8 +136,20 @@ def ds_config(batch, gas, dtype="bf16", scheduler=None,
         cfg["scheduler"] = scheduler
     if grad_accum_dtype:
         cfg["data_types"] = {"grad_accum_dtype": grad_accum_dtype}
+    zero = {}
     if offload:
-        cfg["zero_optimization"] = {"offload_optimizer": {"device": offload}}
+        zero["offload_optimizer"] = {"device": offload}
+    if offload_param:
+        pc = {"device": offload_param}
+        if resident_layers:
+            pc["resident_layers"] = resident_layers
+        if buffer_count:
+            pc["buffer_count"] = buffer_count
+        zero["offload_param"] = pc
+        # the stream updates on the host: its state host-side too
+        zero.setdefault("offload_optimizer", {"device": "cpu"})
+    if zero:
+        cfg["zero_optimization"] = zero
     return cfg
 
 
@@ -129,28 +157,50 @@ def run_benchmark(model="gpt_350m", batch=8, gas=1, seq=1024, steps=10,
                   dtype="bf16", vocab_size=None, device=None, scheduler=None,
                   initial_scale_power=None, remat=True, arch=None,
                   moment_dtype="float32", grad_accum_dtype=None,
-                  zero_stage=3, remat_policy="dots_saveable", offload=None):
+                  zero_stage=3, remat_policy="dots_saveable", offload=None,
+                  offload_param=None, resident_layers=0, buffer_count=None,
+                  serial_boundary=False):
     """Build ``model`` (random weights from seed 0), ``initialize`` the
     engine and time ``steps`` train_batch calls.  ``scheduler``: None or
     the name of :func:`scheduler_config`'s schedule over the run's
     ``steps + 1`` calls.  Returns a dict of results; the per-step losses
     are under ``losses`` (the warm-up's first), and under offload the host
-    step's split of the last call under ``offload_step``.  ``zero_stage``
-    is recorded: at world size 1 every stage computes the same step."""
+    step's split of the last call under ``offload_step`` (under
+    ``offload_param`` the stream's: its copies, host update and
+    prefetches).  ``offload_param``: the model is built on the host at
+    the compute dtype and streamed (``serial_boundary``: the boundary's
+    serial walk).  ``zero_stage`` is recorded: at world size 1 every
+    stage computes the same step."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.transformer import CausalTransformerLM
     cfg = model_config(model, seq, vocab_size=vocab_size, arch=arch,
                        remat=remat, remat_policy=remat_policy)
-    module = CausalTransformerLM(cfg, device=device).init(0)
+    if offload_param:
+        # the host init of the JAX benchmark: the whole tree never lives
+        # on the card, and at the compute dtype it takes half the host RAM;
+        # drawn a tensor at a time on the run's device, the weights of a
+        # run without --offload-param
+        from deepspeed_tpu_torch.accelerator import get_accelerator
+        module = CausalTransformerLM(
+            cfg, device="cpu",
+            dtype=torch.float16 if dtype == "fp16" else torch.bfloat16
+        ).init(0, draw_device=get_accelerator().resolve_device(device))
+    else:
+        module = CausalTransformerLM(cfg, device=device).init(0)
     conf = ds_config(batch, gas, dtype,
                      scheduler=(scheduler_config(scheduler, steps + 1)
                                 if scheduler else None),
                      initial_scale_power=initial_scale_power,
                      moment_dtype=moment_dtype,
-                     grad_accum_dtype=grad_accum_dtype, offload=offload)
+                     grad_accum_dtype=grad_accum_dtype, offload=offload,
+                     offload_param=offload_param,
+                     resident_layers=resident_layers,
+                     buffer_count=buffer_count)
     engine, *_ = deepspeed_tpu_torch.initialize(model=module, config=conf,
                                                 device=device)
     del module
+    if serial_boundary and engine._param_stream is not None:
+        engine._param_stream.boundary_pipelined = False   # the ablation
     dev = engine.device
     rng = np.random.default_rng(0)
     bshape = (gas, batch, seq) if gas > 1 else (batch, seq)
@@ -198,7 +248,12 @@ def run_benchmark(model="gpt_350m", batch=8, gas=1, seq=1024, steps=10,
         out["grad_accum_dtype"] = grad_accum_dtype
     if arch not in (None, "gpt"):
         out["arch"] = arch
-    if offload:
+    if offload_param:
+        out["offload_param"] = offload_param
+        out["resident_layers"] = resident_layers
+        out["boundary"] = "serial" if serial_boundary else "pipelined"
+        out["offload_step"] = dict(engine._param_stream.last_step)
+    elif offload:
         out["offload"] = offload
         out["offload_step"] = dict(engine._offload.last_step)
     return out
@@ -210,17 +265,12 @@ def run_benchmark(model="gpt_350m", batch=8, gas=1, seq=1024, steps=10,
 PRINTED = ("model", "n_params", "batch", "gas", "seq", "zero_stage",
            "steps", "tokens_per_sec_per_chip", "model_tflops_per_chip",
            "loss", "device_kind", "n_chips", "moment_dtype",
-           "grad_accum_dtype", "arch", "mfu", "loss_scale", "skipped_steps")
+           "grad_accum_dtype", "offload_param", "resident_layers",
+           "boundary", "arch", "mfu", "loss_scale", "skipped_steps")
 
 
 def _refuse_unported(a):
-    """Raise for the JAX CLI's flags this port cannot run yet."""
-    if a.offload_param or a.resident_layers or a.buffer_count or \
-            a.serial_boundary:
-        raise NotImplementedError(
-            "--offload-param / --resident-layers / --buffer-count / "
-            "--serial-boundary: the parameter stream is not ported yet "
-            "(ROADMAP A12b)")
+    """Raise for the JAX CLI's flags this port cannot run."""
     if a.attn_block_q or a.attn_block_k:
         raise ValueError("--attn-block-q / --attn-block-k size the TPU "
                          "kernel's blocks; the H100 kernels' tiles are "
@@ -270,7 +320,9 @@ def main(argv=None):
         initial_scale_power=a.initial_scale_power, remat=not a.no_remat,
         arch=a.arch, moment_dtype=a.moment_dtype,
         grad_accum_dtype=a.grad_accum_dtype, zero_stage=a.zero_stage,
-        remat_policy=a.remat_policy, offload=a.offload)
+        remat_policy=a.remat_policy, offload=a.offload,
+        offload_param=a.offload_param, resident_layers=a.resident_layers,
+        buffer_count=a.buffer_count, serial_boundary=a.serial_boundary)
     shown = {k: out[k] for k in PRINTED
              if k in out and not (k == "mfu" and out[k] is None)}
     if a.json:

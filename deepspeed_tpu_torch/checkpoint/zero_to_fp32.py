@@ -12,7 +12,11 @@ as a module::
 
 A ZeRO-Offload tag's sidecar (``zero_offload_rank0.npz``) holds the
 authoritative fp32 master, as in the JAX tool, and is read in its place.
-The param-stream sidecar is not ported yet (ROADMAP A12b).
+A parameter-stream tag's sidecar (``zero_param_stream_rank0.npz``) holds
+the whole model's masters and its ``.meta.json`` their structure, so the
+tree is rebuilt from those two without the model (the JAX tool's
+``_param_stream_state_dict``); the stream's tag holds no master of its
+own.
 """
 
 import argparse
@@ -31,15 +35,75 @@ from deepspeed_tpu_torch.runtime.resilience import flatten_with_keystr
 from deepspeed_tpu_torch.utils.logging import logger
 
 
+def _insert(root: dict, keys, val):
+    cur = root
+    for k in keys[:-1]:
+        cur = cur.setdefault(k, {})
+    cur[keys[-1]] = val
+
+
+def _unflatten_meta(flat: np.ndarray, leaves_meta) -> dict:
+    """A nested dict from a flat fp32 master and the leaf metadata the
+    stream saved, in its flat order; non-float leaves from the values the
+    sidecar carries."""
+    tree: dict = {}
+    off = 0
+    for lm in leaves_meta:
+        if not lm["float"]:
+            if "value" in lm:
+                _insert(tree, lm["path"],
+                        np.asarray(lm["value"],
+                                   lm.get("dtype")).reshape(lm["shape"]))
+            continue
+        size = int(np.prod(lm["shape"])) if lm["shape"] else 1
+        _insert(tree, lm["path"],
+                np.asarray(flat[off:off + size],
+                           np.float32).reshape(lm["shape"]))
+        off += size
+    return tree
+
+
+def _param_stream_state_dict(npz_path: str, meta_path: str) -> Dict[str, Any]:
+    """The full nested fp32 tree of a parameter-stream sidecar, without
+    the model: only the masters are read from the npz (``np.load`` reads a
+    key at a time; the moments would triple the host RAM)."""
+    with open(meta_path) as f:
+        meta = json.load(f)
+    L = int(meta["n_layers"])
+    with np.load(npz_path) as z:
+        params = _unflatten_meta(z["res_master"], meta["resident"])
+        if meta["homogeneous"]:
+            masters = z["masters"]
+            per = [_unflatten_meta(masters[l], meta["layer"])
+                   for l in range(L)]
+        else:
+            per = [_unflatten_meta(z[f"master{l}"], meta["layer_list"][l])
+                   for l in range(L)]
+    if meta.get("stacked"):
+        layers = {k: np.stack([p[k] for p in per]) for k in per[0]}
+    else:
+        layers = per
+    params[meta.get("layers_key", "layers")] = layers
+    return params
+
+
 def get_fp32_state_dict_from_zero_checkpoint(ckpt_dir: str,
                                              tag: Optional[str] = None
                                              ) -> Dict[str, Any]:
     """The fp32 params tree (JAX layout) of a port checkpoint."""
     tag = _resolve_tag(ckpt_dir, tag)
-    if glob.glob(os.path.join(ckpt_dir, tag, "zero_param_stream_rank*.npz")):
-        raise NotImplementedError(
-            "zero_param_stream_rank*.npz sidecars (param streaming) are not "
-            "ported yet (ROADMAP A12b)")
+    # the parameter stream: its sidecar IS the whole model's fp32 master
+    ps = sorted(glob.glob(os.path.join(ckpt_dir, tag,
+                                       "zero_param_stream_rank*.npz")))
+    if ps:
+        meta = ps[0][:-len(".npz")] + ".meta.json"
+        if not os.path.exists(meta):
+            raise RuntimeError(
+                f"{ps[0]} has no .meta.json structure sidecar: re-save it "
+                "from a running engine (save_checkpoint writes it) or "
+                "export engine.module_state_dict() directly")
+        logger.info(f"consolidating from param-stream master {ps[0]}")
+        return _param_stream_state_dict(ps[0], meta)
     params = load_checkpoint_tree(ckpt_dir, tag,
                                   load_optimizer_states=False)["params"]
     # ZeRO-Offload: the host master of the sidecar is authoritative

@@ -37,6 +37,7 @@ matmul in the activation dtype cast to fp32.
 
 import math
 from dataclasses import dataclass, replace
+from types import SimpleNamespace
 from typing import Optional, Tuple
 
 import torch
@@ -524,12 +525,17 @@ class CausalTransformerLM(nn.Module):
 
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def init(self, seed: int = 0):
+    def init(self, seed: int = 0, draw_device=None):
         """Random weights from a seeded ``torch.Generator`` on the
         parameters' device, with the JAX model's distributions (matrices
         normal / sqrt(fan_in) drawn in fp32, norm weights 1, biases 0) --
-        not its bits.  Returns self."""
-        g = torch.Generator(device=self.device).manual_seed(seed)
+        not its bits.  ``draw_device``: draw on that device instead, one
+        tensor at a time, and copy each into its parameter (a model held
+        on the host gets the weights a model on the card draws, and the
+        card never holds the whole model).  Returns self."""
+        draw = self.device if draw_device is None else torch.device(
+            draw_device)
+        g = torch.Generator(device=draw).manual_seed(seed)
         for name, prm in self.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
             if leaf.endswith("_b"):
@@ -540,8 +546,7 @@ class CausalTransformerLM(nn.Module):
                 fan_in = prm.shape[1] if leaf in ("tok_embed",
                                                   "pos_embed") \
                     else prm.shape[0]
-                prm.copy_(torch.randn(prm.shape, generator=g,
-                                      device=self.device,
+                prm.copy_(torch.randn(prm.shape, generator=g, device=draw,
                                       dtype=torch.float32)
                           / math.sqrt(fan_in))
         return self
@@ -571,19 +576,22 @@ class CausalTransformerLM(nn.Module):
             inner = act(_proj(h, layer, "w_up"))
         return x + _proj(inner, layer, "w_down")
 
-    def _embed(self, input_ids, positions):
+    def _embed(self, input_ids, positions, src=None):
+        """The embedding front; ``src``: where the weights are read (the
+        module itself, or the parameter stream's resident namespace)."""
         c = self.config
-        x = self.tok_embed[input_ids]
+        src = self if src is None else src
+        x = src.tok_embed[input_ids]
         if c.embed_scale is not None:
             # Gemma: sqrt(d) rounded to the activation dtype first (55.5 in
             # bf16 at d = 3072), on the input side only -- the tied head
             # reads the unscaled table
             x = x * torch.tensor(c.embed_scale, dtype=x.dtype)
         if not c.use_rope and not c.use_alibi:
-            x = x + self.pos_embed[positions].to(x.dtype)
+            x = x + src.pos_embed[positions].to(x.dtype)
         if c.embed_norm:
-            x = _norm(x, self.embed_norm, c.norm_eps, c.use_rmsnorm,
-                      getattr(self, "embed_norm_b", None))
+            x = _norm(x, src.embed_norm, c.norm_eps, c.use_rmsnorm,
+                      getattr(src, "embed_norm_b", None))
         return x
 
     def _alibi_slopes(self, device):
@@ -595,14 +603,16 @@ class CausalTransformerLM(nn.Module):
                 device)
         return self._slopes[device]
 
-    def _final_norm(self, x):
+    def _final_norm(self, x, src=None):
         c = self.config
-        return _norm(x, self.final_norm, c.norm_eps, c.use_rmsnorm,
-                     getattr(self, "final_norm_b", None))
+        src = self if src is None else src
+        return _norm(x, src.final_norm, c.norm_eps, c.use_rmsnorm,
+                     getattr(src, "final_norm_b", None))
 
-    def _head(self):
-        return self.tok_embed.T if self.config.tie_embeddings \
-            else self.lm_head
+    def _head(self, src=None):
+        src = self if src is None else src
+        return src.tok_embed.T if self.config.tie_embeddings \
+            else src.lm_head
 
     def _logits(self, x):
         x = self._final_norm(x)
@@ -689,6 +699,69 @@ class CausalTransformerLM(nn.Module):
                 c.loss_chunk_size)
         return next_token_xent(self.apply(input_ids,
                                           attn_backend=attn_backend), batch)
+
+    # ------------------------------------------------------------------
+    # the layer-stream contract (training-time parameter offload,
+    # runtime/zero/param_stream.py): apply / loss cut into per-layer
+    # programs with the same math.  The methods take their weights as
+    # arguments -- dicts of tensors by the module's names -- and never
+    # read the module's own parameters, which under the stream are not
+    # on the card.
+    # ------------------------------------------------------------------
+    def stream_split(self, named):
+        """``named`` (module name -> tensor, e.g. a state dict) ->
+        (resident, layers): resident = the embeddings, head and norms by
+        name; layers = one dict a layer, key -> tensor."""
+        resident = {k: v for k, v in named.items()
+                    if not k.startswith("layers.")}
+        layers = [dict() for _ in range(self.config.n_layers)]
+        for k, v in named.items():
+            if k.startswith("layers."):
+                _, i, key = k.split(".", 2)
+                layers[int(i)][key] = v
+        return resident, layers
+
+    def stream_join(self, resident, layers):
+        """The inverse of :meth:`stream_split`."""
+        out = dict(resident)
+        for i, layer in enumerate(layers):
+            out.update({f"layers.{i}.{k}": v for k, v in layer.items()})
+        return out
+
+    def stream_embed(self, resident, batch):
+        """The embedding front of ``apply`` -> (x, positions)."""
+        input_ids = _unpack_batch(batch)[0]
+        B, S = input_ids.shape
+        positions = torch.arange(S, device=input_ids.device).expand(B, S)
+        return self._embed(input_ids, positions,
+                           SimpleNamespace(**resident)), positions
+
+    def stream_layer(self, layer, x, positions, window=None,
+                     attn_backend="auto"):
+        """One transformer block (``_train_layer``, without remat: the
+        stream's per-layer recompute is its checkpointing).  ``window``:
+        the layer's entry of ``local_attn_pattern`` (0 = global) or None.
+        The JAX method also returns the MoE auxiliary loss; the port's
+        dense model has none (MoE: ROADMAP A14)."""
+        return self._train_layer(x, SimpleNamespace(**layer), positions,
+                                 attn_backend, window)
+
+    def stream_head_loss(self, resident, x, batch):
+        """Final norm, LM head and next-token cross-entropy on the streamed
+        hidden state: the tail of :meth:`loss`, chunked when
+        ``loss_chunk_size`` > 0."""
+        c = self.config
+        src = SimpleNamespace(**resident)
+        x = self._final_norm(x, src)
+        head = self._head(src)
+        bias = resident.get("lm_head_b")
+        if c.loss_chunk_size and c.loss_chunk_size > 0:
+            return chunked_next_token_xent(x, head, bias, batch,
+                                           c.loss_chunk_size)
+        logits = (x @ head.to(x.dtype)).float()
+        if bias is not None:
+            logits = logits + bias.float()
+        return next_token_xent(logits, batch)
 
     # ------------------------------------------------------------------
     # contiguous KV cache (InferenceEngine.generate)

@@ -6,7 +6,7 @@ is 1 here), ``optimizer`` {type, params}, ``scheduler`` {type, params},
 ``fp16`` (loss scaling; ``loss_scale`` 0 means dynamic), ``bf16.enabled``,
 ``gradient_clipping``, ``seed``, ``steps_per_print``,
 ``wall_clock_breakdown``, ``zero_optimization``, ``checkpoint``,
-``resilience``, ``activation_checkpointing`` and
+``resilience``, ``activation_checkpointing``, ``memory`` and
 ``data_types.grad_accum_dtype``.  Every block the JAX engine acts on and the port does not
 run yet raises ``NotImplementedError`` naming its ROADMAP item,
 when it is enabled or non-empty; the keys the JAX config accepts and
@@ -138,6 +138,54 @@ class CheckpointConfig(DeepSpeedConfigModel):
                 f"(got {self.engine!r})")
 
 
+class MemoryConfig(DeepSpeedConfigModel):
+    """``"memory"`` top-level block: the tiered-memory engine's policy
+    (``runtime/tiered_store.py``): ``placement_policy`` (resident, hbm,
+    host or nvme; ``resident`` is the hbm tier's user-facing alias) for
+    tensors above ``persistence_threshold`` elements, ``overrides`` by
+    name prefix, ``quantize_tiers`` and ``quant_block`` for int8 payloads,
+    the host and HBM budgets in bytes (0 / None: no bound), ``nvme_dir``
+    (needed by an nvme placement) and ``aio`` (the handle's kwargs).  The
+    JAX config's fields and checks.  As in the JAX training engine, which
+    parses and validates the block and reads ``memory_config`` nowhere
+    else, training acts on none of it: the parameter stream places its
+    planes by ``zero_optimization.offload_param``."""
+    placement_policy = "host"
+    nvme_dir = None
+    host_budget_bytes = 0
+    hbm_budget_bytes = 0
+    persistence_threshold = 0
+    quantize_tiers = False
+    quant_block = 256
+    overrides = {}
+    aio = {}
+
+    def _validate(self):
+        tiers = ("resident", "hbm", "host", "nvme")
+        if self.placement_policy not in tiers:
+            raise ValueError(
+                f"memory.placement_policy must be one of {tiers}, got "
+                f"{self.placement_policy!r}")
+        if self.placement_policy == "resident":
+            self.placement_policy = "hbm"
+        for k in ("host_budget_bytes", "hbm_budget_bytes",
+                  "persistence_threshold"):
+            if int(getattr(self, k) or 0) < 0:
+                raise ValueError(f"memory.{k} must be >= 0")
+        if int(self.quant_block) < 8:
+            raise ValueError("memory.quant_block must be >= 8")
+        if self.placement_policy == "nvme" and not self.nvme_dir:
+            raise ValueError(
+                "memory.placement_policy 'nvme' needs memory.nvme_dir")
+        self.overrides = dict(self.overrides or {})
+        for name, tier in self.overrides.items():
+            t = "hbm" if tier == "resident" else tier
+            if t not in ("hbm", "host", "nvme"):
+                raise ValueError(
+                    f"memory.overrides[{name!r}]: unknown tier {tier!r}")
+            self.overrides[name] = t
+
+
 class OptimizerConfig:
     def __init__(self, param_dict):
         self.type = param_dict.get(C.TYPE)
@@ -195,8 +243,6 @@ def _refuse_unported(pd):
         (_set(pd.get(C.ELASTICITY)), "elasticity", "A17"),
         (bool((pd.get(C.AUTOTUNING) or {}).get("overlay_path")),
          "autotuning.overlay_path (the tuned overlay)", "A17"),
-        (_set(pd.get(C.MEMORY)), "the tiered memory block (memory)",
-         "A12b"),
     ]
     for on, what, item in blocks:
         if on:
@@ -287,6 +333,9 @@ class DeepSpeedConfig:
         self.resilience_config = ResilienceConfig(pd.get(C.RESILIENCE) or {})
         self.activation_checkpointing_config = ActivationCheckpointingConfig(
             pd.get(C.ACTIVATION_CHECKPOINTING) or {})
+        # parsed and validated; training reads none of it (the JAX engine's
+        # behaviour)
+        self.memory_config = MemoryConfig(pd.get(C.MEMORY) or {})
         # the flat gradient buffer's dtype (None: fp32)
         self.grad_accum_dtype = _parse_grad_accum_dtype(
             (pd.get(C.DATA_TYPES) or {}).get(C.GRAD_ACCUM_DTYPE))

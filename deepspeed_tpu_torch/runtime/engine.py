@@ -86,6 +86,22 @@ then holds the host master, and its tag the optimizer's sidecar
 (``zero_offload_rank0.npz``), listed in the manifest; loading it with
 ``load_optimizer_states=False`` restores the master alone.
 
+The parameter stream (``zero_optimization.offload_param``, device cpu or
+nvme; the JAX engine's ``_init_param_stream_state``): the parameters, the
+fp32 master and the optimizer's state live on the host in the planes of
+``runtime/zero/param_stream.HostParamStore``, and the engine builds no
+master, compute or gradient buffer on the card; the module's own
+parameters are released once the store holds them.  ``train_batch`` is
+``ParamStreamRunner.train_step`` at the lr of the schedule at
+``global_steps`` and the loss scale of a host mirror of the automaton
+(``loss_scaler.HostLossScale``; the device state is stepped in lockstep);
+the optimizer -- adam, adamw, fusedadam, cpuadam or adagrad -- is the host
+one.  ``forward`` / ``backward`` / ``step`` raise (the stream runs whole
+optimizer steps), ``eval_batch`` and ``module_state_dict`` go through the
+stream, and a checkpoint's tag holds the stream's sidecar
+(``zero_param_stream_rank0.npz`` and its ``.meta.json``), listed in the
+manifest.
+
 Not ported yet (each raises naming its ROADMAP item): multi-rank ZeRO
 (A8), the async input pipeline (A17).
 """
@@ -104,7 +120,8 @@ from deepspeed_tpu_torch.runtime.checkpoint_engine import (
     LAYOUT_NAME, get_checkpoint_engine, unflatten)
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
-from deepspeed_tpu_torch.runtime.loss_scaler import (dynamic_loss_scale_state,
+from deepspeed_tpu_torch.runtime.loss_scaler import (HostLossScale,
+                                                     dynamic_loss_scale_state,
                                                      has_inf_or_nan,
                                                      static_loss_scale_state,
                                                      update_scale)
@@ -129,6 +146,7 @@ from deepspeed_tpu_torch.runtime.resilience import (
 from deepspeed_tpu_torch.runtime.zero.offload import (OFFLOAD_OPTIMIZERS,
                                                       PIPELINE_CHUNK,
                                                       HostOffloadOptimizer)
+from deepspeed_tpu_torch.runtime.zero.param_stream import ParamStreamRunner
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 from deepspeed_tpu_torch.utils.timer import (BACKWARD_GLOBAL_TIMER,
                                              FORWARD_GLOBAL_TIMER,
@@ -156,11 +174,18 @@ class DeepSpeedEngine:
     client optimizer, a ``torch.optim`` Optimizer class or a callable
     returning one, built over the fp32 master weights (the config's
     ``optimizer`` block wins).  ``training_data``: a dataset for
-    :meth:`deepspeed_io` (``collate_fn`` for its batches)."""
+    :meth:`deepspeed_io` (``collate_fn`` for its batches).
+    ``host_params``: under ``offload_param``, the parameters by module
+    name as host tensors, which the stream's store takes instead of the
+    module's own (a model built on ``"meta"`` needs them)."""
+
+    _STREAM_ONLY = ("offload_param streaming runs whole optimizer steps; use "
+                    "train_batch() (the 3-call API would re-stream the model "
+                    "per call)")
 
     def __init__(self, model, config: DeepSpeedConfig, device=None,
                  backend="auto", lr_scheduler=None, training_data=None,
-                 collate_fn=None, optimizer=None):
+                 collate_fn=None, optimizer=None, host_params=None):
         if not callable(getattr(model, "loss", None)):
             raise TypeError("model must expose .loss(batch)")
         if _world_size() > 1:
@@ -193,14 +218,22 @@ class DeepSpeedEngine:
             off += p.numel()
         self.num_params = off
         self._spans = spans
+        self.grad_accum_dtype = (torch.bfloat16
+                                 if config.grad_accum_dtype == "bfloat16"
+                                 else torch.float32)
+        self._param_stream = None
+        if config.zero_config.offload_param_device != "none":
+            self._init_param_stream_state(host_params, lr_scheduler)
+            self._init_common(lr_scheduler, training_data, collate_fn)
+            return
+        if host_params is not None:
+            raise ValueError("host_params are the parameter stream's "
+                             "(zero_optimization.offload_param)")
         # ZeRO-Offload: the fp32 master (and the optimizer's state) on the
         # host, pageable; the card keeps the compute weights and gradients
         offload = config.zero_config.offload_optimizer_device != "none"
         self.master = torch.empty(off, dtype=torch.float32,
                                   device="cpu" if offload else self.device)
-        self.grad_accum_dtype = (torch.bfloat16
-                                 if config.grad_accum_dtype == "bfloat16"
-                                 else torch.float32)
         self._compute = torch.empty(off, dtype=self.compute_dtype,
                                     device=self.device)
         self._master_views = []
@@ -244,6 +277,13 @@ class DeepSpeedEngine:
             if isinstance(self.optimizer, ClientOptimizer):
                 self.optimizer.build(self._master_views)
             self.opt_state = self.optimizer.init_state(self.master)
+        self._init_common(lr_scheduler, training_data, collate_fn)
+
+    def _init_common(self, lr_scheduler, training_data, collate_fn):
+        """The rest of ``__init__``, shared with the parameter stream's:
+        the host scheduler, the loss scale, the bookkeeping, the timers
+        and the fault-tolerance layer."""
+        config = self._config
         # the host-side scheduler get_lr reads (the JAX engine's: a client
         # LRScheduler as given, else one over the schedule or the base lr)
         self.lr_scheduler = (
@@ -316,6 +356,68 @@ class DeepSpeedEngine:
                  f"params={self.num_params} "
                  f"micro_batch={config.train_micro_batch_size_per_gpu} "
                  f"gas={config.gradient_accumulation_steps}", ranks=[0])
+
+    def _init_param_stream_state(self, host_params, lr_scheduler):
+        """ZeRO-Infinity's parameter offload (the JAX engine's
+        ``_init_param_stream_state``): the host store and the stream over
+        ``host_params`` (else the module's own parameters, copied), the
+        optimizer one of :data:`OFFLOAD_OPTIMIZERS` (else the JAX engine's
+        ``ValueError``), no flat buffer on the card; the module's
+        parameters are released once the store holds them."""
+        cfg = self._config
+        oc = cfg.optimizer_config
+        opt_name = (oc.type.lower() if oc is not None and oc.type
+                    else ADAMW_OPTIMIZER)
+        if opt_name not in OFFLOAD_OPTIMIZERS:
+            raise ValueError(
+                f"offload_param supports {sorted(OFFLOAD_OPTIMIZERS)}; got "
+                f"'{opt_name}' (reference: ZeRO-Offload requires "
+                "DeepSpeedCPUAdam/Adagrad)")
+        if host_params is None:
+            if any(p.device.type == "meta" for p in self._params):
+                raise ValueError("a model built on 'meta' holds no weights: "
+                                 "pass model_parameters")
+            host_params = {n: p.detach()
+                           for n, p in zip(self._names, self._params)}
+        elif set(host_params) != set(self._names):
+            raise ValueError(
+                f"host_params do not match the model's parameters: missing "
+                f"{sorted(set(self._names) - set(host_params))}, unexpected "
+                f"{sorted(set(host_params) - set(self._names))}")
+        self.master = self._compute = self.grads = None
+        self._master_views, self._grad_views = [], []
+        _, base_lr, schedule_fn = self._configure_optimizer(None,
+                                                            lr_scheduler)
+        self._has_schedule = schedule_fn is not None
+        self._lr_at = schedule_fn or (lambda step: base_lr)
+        self._param_stream = ParamStreamRunner(
+            self.module, host_params, cfg, self.device,
+            compute_dtype=self.compute_dtype,
+            grad_accum_dtype=self.grad_accum_dtype, opt_name=opt_name,
+            opt_params=dict(oc.params) if oc is not None else {},
+            backend=self.backend)
+        del host_params
+        with torch.no_grad():
+            for p in self._params:
+                p.data = torch.empty(0, dtype=p.dtype, device=p.device)
+                p.grad = None
+        self._offload = None
+        self.optimizer = self._param_stream.store
+        self.opt_state = None
+        fc = cfg.fp16_config
+        if cfg.fp16_enabled and cfg.dynamic_loss_scale:
+            self._host_ls = HostLossScale(
+                2.0 ** fc.initial_scale_power, dynamic=True,
+                scale_window=fc.loss_scale_window,
+                min_scale=fc.min_loss_scale, hysteresis=fc.hysteresis)
+        else:
+            self._host_ls = HostLossScale(
+                cfg.loss_scale if cfg.fp16_enabled else 1.0, dynamic=False)
+        runner = self._param_stream
+        log_dist(f"param-stream offload: {runner.store.num_params():,} "
+                 f"params host-resident, {runner.n_layers} layers streamed "
+                 f"({runner.resident_layers} pinned), device="
+                 f"{cfg.zero_config.offload_param_device}", ranks=[0])
 
     def _flat_layout(self):
         """The flat buffers' :class:`FlatLayout`: one span a parameter, the
@@ -574,17 +676,21 @@ class DeepSpeedEngine:
             # with, so its gradients go non-finite
             micro_batches, n_poisoned = poison_tree(micro_batches)
             if n_poisoned == 0:
-                poison_tree(self._compute)
+                poison_tree(self._compute if self._param_stream is None
+                            else self._param_stream.resident_dev)
             logger.warning(f"fault injector: poisoned gradients at step "
                            f"{self.global_steps}")
-        lsum = None
-        for mb in micro_batches:
-            loss = self._micro_step(mb)
-            lsum = loss if lsum is None else lsum + loss
-        # the sum of the micro-batches' gradients, divided once
-        # (``_forward_grads``)
-        self._apply_update(self._gas if gas > 1 else None)
-        loss = lsum / gas
+        if self._param_stream is not None:
+            loss = self._param_stream_step(micro_batches, gas)
+        else:
+            lsum = None
+            for mb in micro_batches:
+                loss = self._micro_step(mb)
+                lsum = loss if lsum is None else lsum + loss
+            # the sum of the micro-batches' gradients, divided once
+            # (``_forward_grads``)
+            self._apply_update(self._gas if gas > 1 else None)
+            loss = lsum / gas
         if self._sentinel is not None:
             # device tensors only: the sentinel reads them back in one
             # copy every ``sentinel_interval`` steps
@@ -593,12 +699,45 @@ class DeepSpeedEngine:
         self.tput_timer.stop(global_step=True)
         return loss
 
+    def _param_stream_step(self, micro_batches, gas):
+        """One streamed step (the JAX engine's ``train_batch`` branch): lr
+        from the host ``global_steps`` and the scale from the host mirror,
+        neither read from the card; the device automaton and the skipped
+        count follow the overflow in lockstep."""
+        cfg = self._config
+        fp16 = self._fp16
+        lr = float(self._lr_at(self.global_steps))
+        scale = self._host_ls.cur_scale if fp16 else 1.0
+        loss, norm, overflow = self._param_stream.train_step(
+            micro_batches, gas, lr, scale, fp16,
+            float(cfg.gradient_clipping or 0.0))
+        flag = torch.tensor(overflow, device=self.device)
+        if fp16:
+            fc = cfg.fp16_config
+            self.loss_scale_state = update_scale(
+                self.loss_scale_state, flag, dynamic=cfg.dynamic_loss_scale,
+                scale_window=fc.loss_scale_window,
+                min_scale=fc.min_loss_scale, hysteresis=fc.hysteresis)
+            self._host_ls.update(overflow)
+            self.skipped_steps.add_(int(overflow))
+        self._overflow = flag
+        self._global_grad_norm = norm
+        self._step_applied = True
+        self.global_steps += 1
+        self.lr_scheduler.step()
+        return loss
+
     # ------------------------------------------------------------------
     # the three-call API
     # ------------------------------------------------------------------
+    def _no_three_calls(self):
+        if self._param_stream is not None:
+            raise NotImplementedError(self._STREAM_ONLY)
+
     def forward(self, batch):
         """Loss of one micro-batch ([B, S] ids or a dict), with its graph
         kept for :meth:`backward`."""
+        self._no_three_calls()
         if self._breakdown:
             self.timers(FORWARD_GLOBAL_TIMER).start()
         loss = self.module.loss(self._batch_to_device(batch),
@@ -615,6 +754,7 @@ class DeepSpeedEngine:
         buffer: the order of the JAX engine's ``backward``, which divides
         each micro-batch before summing (``train_batch`` sums, then divides
         once, as the JAX one does)."""
+        self._no_three_calls()
         if self._breakdown:
             self.timers(BACKWARD_GLOBAL_TIMER).start()
         self._scaled_backward(loss)
@@ -631,6 +771,7 @@ class DeepSpeedEngine:
         """Apply the update at the gradient-accumulation boundary; with
         ``wall_clock_breakdown``, log the fwd / bwd / step times every
         ``steps_per_print`` steps, as the JAX ``step`` does."""
+        self._no_three_calls()
         self._step_applied = False
         if not self.is_gradient_accumulation_boundary():
             return
@@ -667,6 +808,8 @@ class DeepSpeedEngine:
         under offload the host optimizer's count)."""
         if self._offload is not None:
             return self._offload.step_count
+        if self._param_stream is not None:
+            return self._param_stream.store.step_count
         return int(self.opt_state.count)
 
     def last_step_overflowed(self):
@@ -692,6 +835,8 @@ class DeepSpeedEngine:
     def module_state_dict(self):
         """The fp32 master parameters, by module name, copied to the
         host."""
+        if self._param_stream is not None:
+            return self._param_stream.named_params()
         return {n: v.detach().cpu().clone()
                 for n, v in zip(self._names, self._master_views)}
 
@@ -699,6 +844,8 @@ class DeepSpeedEngine:
         """The loss of ``batch`` ([B, S] ids or a dict) under no_grad, with
         the compute-dtype weights the training forward sees (the JAX
         ``eval_batch``); a device scalar."""
+        if self._param_stream is not None:
+            return self._param_stream.eval_loss(self._batch_to_device(batch))
         with torch.no_grad():
             return self.module.loss(self._batch_to_device(batch),
                                     attn_backend=self.backend)
@@ -782,10 +929,12 @@ class DeepSpeedEngine:
         optimizer's by :func:`state_tensors`: Adam's ``m``, ``v`` and
         ``count`` keep the names of earlier tags)."""
         ls = self.loss_scale_state
-        # under offload the host optimizer's state is the sidecar's
-        opt = {} if self._offload is not None else state_tensors(
-            self.opt_state)
-        return {"master": self.master, **opt,
+        # the parameter stream's master and any host optimizer's state are
+        # the sidecars'
+        master = ({} if self._param_stream is not None
+                  else {"master": self.master})
+        opt = {} if self.opt_state is None else state_tensors(self.opt_state)
+        return {**master, **opt,
                 "loss_scale": {"cur_scale": ls.cur_scale,
                                "cur_hysteresis": ls.cur_hysteresis,
                                "last_overflow_iter": ls.last_overflow_iter,
@@ -831,6 +980,8 @@ class DeepSpeedEngine:
                      layout=layout)
             if self._offload is not None:
                 self._offload.save(save_dir, tag)
+            if self._param_stream is not None:
+                self._param_stream.save(save_dir, tag)
             if save_latest:
                 with open(os.path.join(save_dir, "latest"), "w") as f:
                     f.write(tag)
@@ -845,6 +996,8 @@ class DeepSpeedEngine:
             # lists it
             if self._offload is not None:
                 self._offload.save(save_dir, txn.tmp_tag)
+            if self._param_stream is not None:
+                self._param_stream.save(save_dir, txn.tmp_tag)
             # an async engine finishes its background write here: the
             # commit marker never precedes the payload
             eng.commit(txn.tmp_tag)
@@ -988,8 +1141,23 @@ class DeepSpeedEngine:
             # moments and count stay as they were
             if self._offload is not None and keys is None:
                 self._offload.load(load_dir, chosen)
-            # the compute-dtype weights are a cast of the master
-            self._compute.copy_(self.master)
+            if self._param_stream is not None:
+                # the host masters (and with the optimizer's state the
+                # moments and count), then the card's copies
+                if not self._param_stream.load(
+                        load_dir, chosen,
+                        load_optimizer_states=keys is None):
+                    logger.warning(f"no param-stream host state in "
+                                   f"checkpoint {load_dir}/{chosen}; host "
+                                   f"params unchanged")
+                ls = self.loss_scale_state
+                self._host_ls.load(float(ls.cur_scale),
+                                   int(ls.cur_hysteresis),
+                                   int(ls.last_overflow_iter),
+                                   int(ls.iteration))
+            else:
+                # the compute-dtype weights are a cast of the master
+                self._compute.copy_(self.master)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)  # the host copies are reused
         self.global_steps = client_state.get("global_steps", 0)

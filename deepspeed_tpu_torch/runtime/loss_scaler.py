@@ -75,3 +75,57 @@ def update_scale(state: LossScaleState, overflow: torch.Tensor, *,
     new_last = torch.where(overflow, it, state.last_overflow_iter)
     return LossScaleState(cur_scale=new_scale, cur_hysteresis=new_hyst,
                           last_overflow_iter=new_last, iteration=it + 1)
+
+
+class HostLossScale:
+    """The automaton of :func:`update_scale` on host ints and floats (the
+    JAX package's ``HostLossScale``): the parameter stream drives its step
+    from the host and needs the next step's scale as a Python float before
+    it starts, and it reads the overflow flag to the host anyway, so the
+    mirror costs no device read.  The engine keeps the device state in
+    lockstep."""
+
+    def __init__(self, initial_scale, *, dynamic, scale_factor=2.0,
+                 scale_window=1000, min_scale=1.0, hysteresis=2):
+        self.dynamic = bool(dynamic)
+        self.scale_factor = float(scale_factor)
+        self.scale_window = int(scale_window)
+        self.min_scale = float(min_scale)
+        self.hysteresis = int(hysteresis)
+        self.cur_scale = float(initial_scale)
+        self.cur_hysteresis = int(hysteresis) if dynamic else 0
+        self.last_overflow_iter = -1
+        self.iteration = 0
+
+    def load(self, cur_scale, cur_hysteresis, last_overflow_iter, iteration):
+        """Resync from a device :class:`LossScaleState` (a restore)."""
+        self.cur_scale = float(cur_scale)
+        self.cur_hysteresis = int(cur_hysteresis)
+        self.last_overflow_iter = int(last_overflow_iter)
+        self.iteration = int(iteration)
+
+    def update(self, overflow: bool) -> float:
+        """Advance one step; returns the scale of the next one."""
+        overflow = bool(overflow)
+        it = self.iteration
+        if not self.dynamic:
+            self.iteration = it + 1
+            return self.cur_scale
+        hyst = (max(self.cur_hysteresis - 1, 0) if overflow
+                else self.cur_hysteresis)
+        shrink = overflow and self.cur_hysteresis <= 1
+        grown_due = (not overflow) and (
+            (it - self.last_overflow_iter) % self.scale_window
+            == self.scale_window - 1)
+        if shrink:
+            self.cur_scale = max(self.cur_scale / self.scale_factor,
+                                 self.min_scale)
+            self.cur_hysteresis = self.hysteresis
+        else:
+            if grown_due:
+                self.cur_scale = self.cur_scale * self.scale_factor
+            self.cur_hysteresis = hyst
+        if overflow:
+            self.last_overflow_iter = it
+        self.iteration = it + 1
+        return self.cur_scale

@@ -8,8 +8,12 @@ and recorded; a data-parallel world above 1 is refused by the engine
 (ROADMAP A8).  The bucketing keys are accepted and advisory, as in the
 JAX package.  ``offload_optimizer`` (device cpu or nvme; the legacy
 ``cpu_offload: true`` means device cpu, as in JAX) runs the optimizer on
-the host (``runtime/zero/offload.py``); parameter offload (A12) and the
-explicit overlap block (A13) raise.
+the host (``runtime/zero/offload.py``); ``offload_param`` (device cpu or
+nvme) streams the parameters from the host
+(``runtime/zero/param_stream.py``).  The legacy ``cpu_offload_param:
+true`` means ``offload_param`` device cpu, as in the reference (the JAX
+config parses the key and leaves it inert).  The explicit overlap block
+(A13) raises.
 """
 
 from deepspeed_tpu_torch.runtime.config_utils import DeepSpeedConfigModel
@@ -19,6 +23,38 @@ class OffloadDeviceEnum:
     none = "none"
     cpu = "cpu"
     nvme = "nvme"
+
+
+def _check_device(block, device):
+    if device not in (OffloadDeviceEnum.none, OffloadDeviceEnum.cpu,
+                      OffloadDeviceEnum.nvme):
+        raise ValueError(f"zero_optimization.{block}.device must be none, "
+                         f"cpu or nvme, got {device!r}")
+
+
+class DeepSpeedZeroOffloadParamConfig(DeepSpeedConfigModel):
+    """``zero_optimization.offload_param``: where the parameters live
+    (``cpu``: host RAM; ``nvme``: memmaps under ``nvme_path``, the temp
+    dir when unset).  ``buffer_count`` (at least 2 take effect) layers'
+    working sets are on the card at once -- the prefetch runs
+    ``buffer_count - 1`` layers ahead -- and as many layers' gradients
+    are in flight to the host; ``resident_layers`` pins the first layers'
+    working sets on the card for the whole step (the JAX package's
+    extension).  ``buffer_size``, ``max_in_cpu`` and ``pin_memory`` are
+    accepted and advisory, as in the JAX package."""
+    device = OffloadDeviceEnum.none
+    nvme_path = None
+    buffer_count = 2
+    buffer_size = 100_000_000
+    max_in_cpu = 1_000_000_000
+    pin_memory = False
+    resident_layers = 0
+
+    def _validate(self):
+        _check_device("offload_param", self.device)
+        if int(self.resident_layers or 0) < 0:
+            raise ValueError("zero_optimization.offload_param."
+                             "resident_layers must be >= 0")
 
 
 class DeepSpeedZeroOffloadOptimizerConfig(DeepSpeedConfigModel):
@@ -37,11 +73,7 @@ class DeepSpeedZeroOffloadOptimizerConfig(DeepSpeedConfigModel):
     ratio = 1.0
 
     def _validate(self):
-        if self.device not in (OffloadDeviceEnum.none, OffloadDeviceEnum.cpu,
-                               OffloadDeviceEnum.nvme):
-            raise ValueError(f"zero_optimization.offload_optimizer.device "
-                             f"must be none, cpu or nvme, got "
-                             f"{self.device!r}")
+        _check_device("offload_optimizer", self.device)
 
 
 class DeepSpeedZeroConfig(DeepSpeedConfigModel):
@@ -86,14 +118,11 @@ class DeepSpeedZeroConfig(DeepSpeedConfigModel):
     def _validate(self):
         if self.stage not in (0, 1, 2, 3):
             raise ValueError(f"invalid ZeRO stage {self.stage}")
-        dev = (self.offload_param or {}).get("device", "none")
-        if dev not in (None, "none"):
-            raise NotImplementedError(
-                f"zero_optimization.offload_param (device {dev!r}) is not "
-                f"ported yet (ROADMAP A12b)")
         if self.cpu_offload_param:
-            raise NotImplementedError("zero_optimization.cpu_offload_param "
-                                      "is not ported yet (ROADMAP A12b)")
+            self.offload_param = self.offload_param or {"device": "cpu"}
+        if isinstance(self.offload_param, dict):
+            self.offload_param = DeepSpeedZeroOffloadParamConfig(
+                self.offload_param)
         if self.cpu_offload:
             self.offload_optimizer = self.offload_optimizer or {"device":
                                                                "cpu"}
@@ -109,3 +138,9 @@ class DeepSpeedZeroConfig(DeepSpeedConfigModel):
         if self.offload_optimizer is None:
             return OffloadDeviceEnum.none
         return self.offload_optimizer.device
+
+    @property
+    def offload_param_device(self):
+        if self.offload_param is None:
+            return OffloadDeviceEnum.none
+        return self.offload_param.device

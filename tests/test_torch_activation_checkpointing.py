@@ -6,8 +6,8 @@ Mirrors ``tests/unit/test_activation_checkpointing.py`` on the port's
 block gives the direct call's values and gradients under every policy,
 ``configure`` reads a DeepSpeed config (explicit arguments win), an
 unknown policy raises, ``cpu_checkpointing`` configures (its block test:
-``tests/test_torch_offload.py``) while the ``memory`` block still raises
-naming ROADMAP A12b, the RNG tracker is
+``tests/test_torch_offload.py``) and the ``memory`` block parses (since
+ROADMAP A12b), the RNG tracker is
 deterministic and refuses a duplicate stream.  The model at 2 layers,
 hidden 64, under each policy gives the JAX model's loss and gradients
 (``jax.value_and_grad`` on the JAX model with the same ``remat_policy``,
@@ -114,8 +114,9 @@ def test_unknown_policy_raises():
 
 def test_cpu_checkpointing_raises_naming_a12():
     """``cpu_checkpointing`` is ported (A12's first part): ``configure``
-    and the config take it; the tiered ``memory`` block, the rest of A12,
-    still raises naming it."""
+    and the config take it; the tiered ``memory`` block, which raised
+    naming A12 until the parameter stream (A12b), parses as the JAX
+    config parses it, and training acts on none of it."""
     try:
         ckpt.configure(checkpoint_in_cpu=True)
         assert ckpt.CPU_CHECKPOINT
@@ -127,9 +128,9 @@ def test_cpu_checkpointing_raises_naming_a12():
     cfg = DeepSpeedConfig({"train_batch_size": 2, "activation_checkpointing":
                            {"cpu_checkpointing": True}})
     assert cfg.activation_checkpointing_config.cpu_checkpointing
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        DeepSpeedConfig({"train_batch_size": 2, "memory": {
-            "placement_policy": "nvme", "nvme_dir": "d"}})
+    mem = DeepSpeedConfig({"train_batch_size": 2, "memory": {
+        "placement_policy": "nvme", "nvme_dir": "d"}}).memory_config
+    assert (mem.placement_policy, mem.nvme_dir) == ("nvme", "d")
 
 
 def test_rng_tracker_fork_is_deterministic():

@@ -44,8 +44,6 @@ REFUSED = [
     ({"comms_logger": {"enabled": True}}, "A17"),
     ({"elasticity": {"enabled": True, "max_train_batch_size": 8}}, "A17"),
     ({"autotuning": {"overlay_path": "overlay.json"}}, "A17"),
-    ({"memory": {"placement_policy": "nvme", "nvme_dir": "d"}}, "A12"),
-    ({"zero_optimization": {"offload_param": {"device": "cpu"}}}, "A12"),
     ({"mesh": {"dp": 2}}, "A8"),
     ({"mesh": {"fsdp": 4}}, "A8"),
     ({"mesh": {"tp": 2}}, "A14"),
@@ -108,6 +106,71 @@ PORTED = {
         "keep_last": 2, "checksum": True,
         "fault_injection": {"ckpt_save": {"fail_times": 1}}}},
 }
+
+
+# the two blocks the config refused until the parameter stream (ROADMAP
+# A12b): they parse now, as the JAX config parses them
+STREAM_BLOCKS = [
+    ({"memory": {"placement_policy": "nvme", "nvme_dir": "d"}}, "A12"),
+    ({"zero_optimization": {"offload_param": {"device": "cpu"}}}, "A12"),
+]
+
+
+@pytest.mark.parametrize("block,item", STREAM_BLOCKS,
+                         ids=map(_id, STREAM_BLOCKS))
+def test_stream_block_parses_as_in_jax(block, item):
+    cfg = DeepSpeedConfig({**BASE, **block})
+    want = JaxConfig({**BASE, **block})
+    assert cfg.memory_config.to_dict() == want.memory_config.to_dict()
+    zc, jzc = cfg.zero_config, want.zero_config
+    assert zc.offload_param_device == jzc.offload_param_device
+    if jzc.offload_param is not None:
+        assert zc.offload_param.to_dict() == jzc.offload_param.to_dict()
+
+
+def test_memory_config_block(tmp_path):
+    """The JAX test's cases: ``resident`` aliases to hbm (overrides too),
+    an nvme placement needs a directory, ``quant_block`` and unknown
+    tiers are checked; the defaults build the host policy of
+    ``PlacementPolicy.from_config``, which places by prefix and threshold
+    and raises on an unknown tier."""
+    from deepspeed_tpu.runtime.tiered_store import \
+        PlacementPolicy as JaxPolicy
+    from deepspeed_tpu_torch.runtime.tiered_store import PlacementPolicy
+    cfg = DeepSpeedConfig({"train_batch_size": 1,
+                           "memory": {"placement_policy": "resident",
+                                      "overrides": {"L0.": "resident"}}})
+    assert cfg.memory_config.placement_policy == "hbm"
+    assert cfg.memory_config.overrides == {"L0.": "hbm"}
+    cfg = DeepSpeedConfig({"train_batch_size": 1,
+                           "memory": {"placement_policy": "nvme",
+                                      "nvme_dir": str(tmp_path),
+                                      "quantize_tiers": True}})
+    assert cfg.memory_config.nvme_dir == str(tmp_path)
+    assert cfg.memory_config.quantize_tiers
+    for mem, match in (({"placement_policy": "nvme"}, "needs memory.nvme_dir"),
+                       ({"quant_block": 4}, "quant_block"),
+                       ({"overrides": {"x": "tape"}}, "unknown tier"),
+                       ({"placement_policy": "tape"}, "placement_policy"),
+                       ({"host_budget_bytes": -1}, "host_budget_bytes")):
+        with pytest.raises(ValueError, match=match):
+            DeepSpeedConfig({"train_batch_size": 1, "memory": mem})
+    mc = DeepSpeedConfig({"train_batch_size": 1}).memory_config
+    assert mc.placement_policy == "host" and not mc.quantize_tiers
+    pol = PlacementPolicy.from_config(mc)
+    assert pol.default_tier == "host" and not pol.quantize
+    raw = {"placement_policy": "nvme", "persistence_threshold": 10,
+           "overrides": {"layers.0.": "hbm"}, "quantize_tiers": True,
+           "quant_block": 64}
+    pol, jpol = PlacementPolicy.from_config(raw), JaxPolicy.from_config(raw)
+    assert vars(pol) == vars(jpol)
+    for name, numel in (("layers.0.wq", 100), ("tok_embed", 5),
+                        ("tok_embed", 50)):
+        assert pol.place(name, numel) == jpol.place(name, numel)
+    assert pol.wants_quant(np.ones(3, np.float32), "nvme")
+    assert not pol.wants_quant(np.ones(3, np.int32), "host")
+    with pytest.raises(ValueError, match="unknown tier"):
+        PlacementPolicy(default_tier="tape")
 
 
 @pytest.mark.parametrize("name", list(PORTED))

@@ -411,14 +411,28 @@ def test_ds_bench_cli_bf16_table_on_cpu(tiny_bench, capsys):
 
 
 @pytest.mark.parametrize("flags,exc,match", [
-    (["--buffer-count", "2"], NotImplementedError, "ROADMAP A12"),
-    (["--offload-param", "nvme"], NotImplementedError, "ROADMAP A12"),
     (["--attn-block-q", "16"], ValueError, "fixed"),
 ])
 def test_ds_bench_cli_refuses_unported_flags(tiny_bench, flags, exc, match):
     with pytest.raises(exc, match=match):
         tiny_bench.main(["--model", "tiny", "--batch", "2", "--seq", "8",
                          "--steps", "1", "--device", "cpu", *flags])
+
+
+# the parameter stream's flags, refused naming ROADMAP A12 until A12b: they
+# run (the nvme stream's files under the temp dir)
+@pytest.mark.parametrize("flags,stream", [
+    (["--buffer-count", "2"], None),
+    (["--offload-param", "nvme"], "nvme"),
+])
+def test_ds_bench_cli_runs_stream_flags(tiny_bench, monkeypatch, tmp_path,
+                                        flags, stream):
+    monkeypatch.setenv("TMPDIR", str(tmp_path))
+    monkeypatch.setattr("tempfile.tempdir", None)
+    out = tiny_bench.main(["--model", "tiny", "--batch", "2", "--seq", "8",
+                           "--steps", "1", "--device", "cpu", *flags])
+    assert out.get("offload_param") == stream
+    assert np.isfinite(out["losses"]).all()
 
 
 # ---------------------------------------- fp16 serving, no longer refused

@@ -248,12 +248,27 @@ def test_tiered_store_swap_surface(tmp_path):
     assert store.validate()[0] == resilience.COMMITTED
     with pytest.raises(NotImplementedError, match="ROADMAP A17"):
         store.publish_gauges()
+    # the parameter stream's part runs (A12b): the policy, and planes in
+    # RAM and on NVMe (a bf16 one mapped as uint16), catalogued by tier
+    assert PlacementPolicy().place("w", 10) == "host"
+    ram = store.register_plane("p/ram", (2, 3))
+    mapped = store.register_plane("p/mm", 5, torch.bfloat16,
+                                  nvme_dir=str(tmp_path / "planes"))
+    mapped.fill_(1.5)
+    assert ram.shape == (2, 3) and not ram.any()
+    assert os.path.exists(tmp_path / "planes" / "p_mm.mm")
+    assert np.load(tmp_path / "planes" / "p_mm.mm", mmap_mode="r").dtype == \
+        np.uint16
+    assert store.tier_bytes() == {"hbm": 0, "host": 24, "nvme": 4010}
+    # ZeRO-Inference's weight streaming raises A12c, the int8 tier A13
     for call in (lambda: store.put("k", buf), lambda: store.fetch("k"),
-                 lambda: store.evict("k"), lambda: PlacementPolicy(),
+                 lambda: store.evict("k"),
                  lambda: PrefetchEngine(store, []),
                  lambda: TieredStore(host_budget_bytes=1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A12c"):
             call()
+    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+        TieredStore(policy=PlacementPolicy(quantize=True))
     store.destroy()
     assert not os.path.exists(store.nvme_path) and len(store) == 0
 
@@ -672,8 +687,9 @@ def test_engine_offload_fp16_skip_uses_the_global_step_lr():
 def test_engine_offload_configuration_rules():
     """Adagrad trains through offload (one moment); an optimizer offload
     does not take raises the JAX engine's ``ValueError``; the legacy
-    ``cpu_offload`` key means device cpu; parameter offload and the
-    ``memory`` block still raise naming ROADMAP A12 (A12b)."""
+    ``cpu_offload`` key means device cpu; parameter offload (beside
+    optimizer offload, whose host optimizer it takes over) and the
+    ``memory`` block, which raised naming ROADMAP A12 until A12b, build."""
     ada = _port(_config(4, dict(OFFLOAD_CPU), optimizer={
         "type": "Adagrad", "params": {"lr": 1e-2}}))
     before = ada.master.clone()
@@ -696,10 +712,13 @@ def test_engine_offload_configuration_rules():
     cpuadam = _port(_config(4, dict(OFFLOAD_CPU), optimizer={
         "type": "CPUAdam", "params": {"lr": 1e-3}}))
     assert cpuadam._offload.adamw_mode
-    for block in ({"zero_optimization": {"offload_param": {"device": "cpu"}}},
-                  {"memory": {"placement_policy": "nvme", "nvme_dir": "d"}}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-            _port({"train_micro_batch_size_per_gpu": 4, **block})
+    stream = _port({"train_micro_batch_size_per_gpu": 4, "zero_optimization":
+                    dict(OFFLOAD_CPU, offload_param={"device": "cpu"})})
+    assert stream._offload is None and stream._param_stream is not None
+    assert stream.optimizer is stream._param_stream.store
+    mem = _port({"train_micro_batch_size_per_gpu": 4,
+                 "memory": {"placement_policy": "nvme", "nvme_dir": "d"}})
+    assert mem._offload is None and mem._param_stream is None
 
 
 def test_ds_bench_train_offload_on_cpu(monkeypatch, capsys, tmp_path):

@@ -320,22 +320,16 @@ def test_three_call_api_matches_jax_at_gas3():
                                    atol=2e-5, err_msg=key)
 
 
-# what the training config still cannot run raises: parameter offload
-# (the legacy key too) and the tiered memory block, the rest of A12; a
-# mesh wider than one rank (the last column: initialize's other
-# arguments).  fp16 master weights, bf16 moments and gradients, every other
-# optimizer and client optimizers train since ROADMAP A6 / A7
-# (tests/test_torch_optimizers.py, test_torch_moment_dtype.py,
-# test_torch_activation_checkpointing.py); optimizer offload, cpuadam and
-# cpu_checkpointing since A12's first part (tests/test_torch_offload.py)
+# what the training config still cannot run raises: a mesh wider than one
+# rank (the last column: initialize's other arguments).  fp16 master
+# weights, bf16 moments and gradients, every other optimizer and client
+# optimizers train since ROADMAP A6 / A7 (tests/test_torch_optimizers.py,
+# test_torch_moment_dtype.py, test_torch_activation_checkpointing.py);
+# optimizer offload, cpuadam and cpu_checkpointing since A12's first part
+# (tests/test_torch_offload.py); parameter offload (the legacy key too)
+# and the memory block since A12b (test_blocks_once_refused_now_train,
+# tests/test_torch_param_stream.py)
 @pytest.mark.parametrize("block,item,client", [
-    ({"zero_optimization": {"stage": 2,
-                            "offload_param": {"device": "cpu"}}}, "A12",
-     {}),
-    ({"memory": {"placement_policy": "nvme", "nvme_dir": "d"}}, "A12",
-     {"optimizer": torch.optim.SGD}),
-    ({"zero_optimization": {"stage": 2, "cpu_offload_param": True}}, "A12",
-     {}),
     ({"mesh": {"fsdp": 2}}, "A8", {}),
 ])
 def test_unported_blocks_raise(block, item, client):
@@ -345,6 +339,28 @@ def test_unported_blocks_raise(block, item, client):
             model=CausalTransformerLM(TransformerConfig.tiny(),
                                       device="cpu").init(0),
             config=cfg, device="cpu", **client)
+
+
+# the three blocks test_unported_blocks_raise held to a raise until the
+# parameter stream (ROADMAP A12b): each engine now builds and trains
+@pytest.mark.parametrize("block,stream,client", [
+    ({"zero_optimization": {"stage": 2,
+                            "offload_param": {"device": "cpu"}}}, True, {}),
+    ({"memory": {"placement_policy": "nvme", "nvme_dir": "d"}}, False,
+     {"optimizer": torch.optim.SGD}),
+    ({"zero_optimization": {"stage": 2, "cpu_offload_param": True}}, True,
+     {}),
+])
+def test_blocks_once_refused_now_train(block, stream, client):
+    cfg = {"train_micro_batch_size_per_gpu": 1, **block}
+    eng, *_ = deepspeed_tpu_torch.initialize(
+        model=CausalTransformerLM(TransformerConfig.tiny(),
+                                  device="cpu").init(0),
+        config=cfg, device="cpu", **client)
+    assert (eng._param_stream is not None) == stream
+    ids = {"input_ids": np.random.default_rng(0).integers(0, 256, (1, 8))}
+    losses = [float(eng.train_batch(batch=ids)) for _ in range(2)]
+    assert np.isfinite(losses).all() and losses[1] < losses[0]
 
 
 def test_unported_engine_methods_raise():
